@@ -1,0 +1,319 @@
+# Shared neural-net building blocks: nn.Module parameter holders and
+# plain functions on tensors.
+#
+# Counterpart of aiko_services_tpu/models/layers.py, the subset Whisper
+# uses.  Parameter layouts are the JAX package's, so a JAX param tree
+# copies over leaf for leaf (bridge.py): a linear's `w` is [in, out], a
+# conv1d's `w` is [k, in, out] (WIO).  Every module reads like the JAX
+# param dict it mirrors (params["w"], "b" in params), so the functions
+# below accept either a module or a plain dict of tensors.
+#
+# dtype policy, as in JAX: compute runs in the activations' dtype with
+# f32 accumulation; attention scores and softmax are f32.
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = [
+    "Params", "Linear", "LayerNorm", "Embedding", "Conv1d", "MHA",
+    "linear", "layer_norm", "embedding", "conv1d", "mha", "precompute_kv",
+    "quantize_kv", "dequantize_kv", "init_kv_cache", "update_kv_cache",
+    "sinusoid_position_encoding", "gelu",
+]
+
+
+class Params(nn.Module):
+    """A module that reads like the JAX param dict it mirrors:
+    module["w"] is the parameter or child named "w", and `"b" in module`
+    says whether it has one."""
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+def _normal_(tensor, generator, std: float) -> None:
+    noise = torch.randn(tuple(tensor.shape), generator=generator,
+                        device=generator.device, dtype=torch.float32)
+    tensor.copy_(noise * std)
+
+
+class Linear(Params):
+    def __init__(self, in_dim: int, out_dim: int, bias: bool = True,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.w = _param((in_dim, out_dim), dtype, device)
+        if bias:
+            self.b = _param((out_dim,), dtype, device)
+
+    @torch.no_grad()
+    def init_(self, generator) -> None:
+        _normal_(self.w, generator, 1.0 / math.sqrt(self.w.shape[0]))
+        if "b" in self:
+            self.b.zero_()
+
+
+class LayerNorm(Params):
+    def __init__(self, dim: int, dtype=torch.float32, device=None):
+        super().__init__()
+        self.scale = _param((dim,), dtype, device)
+        self.bias = _param((dim,), dtype, device)
+
+    @torch.no_grad()
+    def init_(self, generator) -> None:
+        self.scale.fill_(1.0)
+        self.bias.zero_()
+
+
+class Embedding(Params):
+    def __init__(self, vocab: int, dim: int, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.table = _param((vocab, dim), dtype, device)
+
+    @torch.no_grad()
+    def init_(self, generator) -> None:
+        _normal_(self.table, generator, 0.02)
+
+
+class Conv1d(Params):
+    def __init__(self, in_ch: int, out_ch: int, kernel: int,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.w = _param((kernel, in_ch, out_ch), dtype, device)
+        self.b = _param((out_ch,), dtype, device)
+
+    @torch.no_grad()
+    def init_(self, generator) -> None:
+        kernel, in_ch, _ = self.w.shape
+        _normal_(self.w, generator, 1.0 / math.sqrt(in_ch * kernel))
+        self.b.zero_()
+
+
+class MHA(Params):
+    """Multi-head attention projections; k carries no bias (as in JAX)."""
+
+    def __init__(self, dim: int, num_heads: int, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        inner = num_heads * (dim // num_heads)
+        self.q = Linear(dim, inner, True, dtype, device)
+        self.k = Linear(dim, inner, False, dtype, device)
+        self.v = Linear(dim, inner, True, dtype, device)
+        self.o = Linear(inner, dim, True, dtype, device)
+
+
+# -- functions ---------------------------------------------------------------
+
+def linear(params, x):
+    """x [..., in] @ w [in, out] + b, in x's dtype (f32 accumulation)."""
+    w = params["w"]
+    flat = x.reshape(-1, x.shape[-1])
+    if "b" in params:
+        y = torch.addmm(params["b"], flat, w)
+    else:
+        y = torch.matmul(flat, w)
+    return y.reshape(*x.shape[:-1], w.shape[-1]).to(x.dtype)
+
+
+def layer_norm(params, x, eps: float = 1e-5):
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    return (y * params["scale"] + params["bias"]).to(x.dtype)
+
+
+def embedding(params, token_ids):
+    return params["table"][token_ids]
+
+
+def conv1d(params, x, stride: int = 1, padding=None):
+    """x: [B, T, C_in] → [B, T', C_out], w [k, in, out].
+
+    Default padding is SYMMETRIC (k-1)//2 on both sides (what Whisper
+    checkpoints are trained under), not XLA's asymmetric "SAME" under
+    stride > 1; even kernels must pass `padding` as [(left, right)]."""
+    w = params["w"]
+    if padding is None:
+        k = w.shape[0]
+        if k % 2 == 0:
+            raise ValueError(
+                f"conv1d default padding requires an odd kernel, got "
+                f"{k}; pass padding explicitly for even kernels")
+        padding = [((k - 1) // 2, (k - 1) // 2)]
+    (left, right), = padding
+    channels_first = F.pad(x.transpose(1, 2), (left, right))
+    y = F.conv1d(channels_first, w.permute(2, 1, 0), params["b"],
+                 stride=stride)
+    return y.transpose(1, 2).to(x.dtype)
+
+
+def _split_heads(x, num_heads: int):
+    b, t, _ = x.shape
+    return x.view(b, t, num_heads, -1).permute(0, 2, 1, 3)
+
+
+def _merge_heads(x):
+    b, h, t, d = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b, t, h * d)
+
+
+def init_kv_cache(batch: int, max_len: int, num_kv_heads: int,
+                  head_dim: int, dtype=torch.float32, device=None):
+    """Static-shape KV cache: [B, H_kv, T_max, D] + write index."""
+    shape = (batch, num_kv_heads, max_len, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "index": 0}
+
+
+def update_kv_cache(cache, k_new, v_new):
+    """Write new K/V at the cache cursor and return the cache with the
+    cursor advanced.  Unlike the JAX function this writes IN PLACE: the
+    returned dict shares its buffers with `cache`.  The start clamps into
+    range as jax.lax.dynamic_update_slice does."""
+    t_max, t = cache["k"].shape[2], k_new.shape[2]
+    start = min(max(int(cache["index"]), 0), t_max - t)
+    cache["k"][:, :, start:start + t] = k_new
+    cache["v"][:, :, start:start + t] = v_new
+    return {"k": cache["k"], "v": cache["v"],
+            "index": int(cache["index"]) + t}
+
+
+def precompute_kv(params, kv_input, num_kv_heads: int):
+    """Project K/V once for reuse across many queries (the encoder output
+    attended by every decode step).  Returns (k, v): [B, H_kv, T, D]."""
+    k = _split_heads(linear(params["k"], kv_input), num_kv_heads)
+    v = _split_heads(linear(params["v"], kv_input), num_kv_heads)
+    return k, v
+
+
+def quantize_kv(tensor, mode: str = "position"):
+    """Symmetric int8 quantization of a K or V tensor [..., T, D].
+
+    mode="position": one bf16 scale per position (over the last axis).
+    mode="tensor": one f32 scale per leading-axis element (per batch
+    item of a [B, H, T, D] tensor), so mha can fold it into the score
+    scale and the output.  Returns {"q": int8, "s": scale}."""
+    if mode == "tensor":
+        dims = tuple(range(1, tensor.ndim))
+        scale = tensor.abs().amax(dim=dims, keepdim=True).float() / 127.0 \
+            + 1e-12
+        q = torch.clamp(torch.round(tensor.float() / scale), -127, 127)
+        return {"q": q.to(torch.int8), "s": scale}
+    if mode != "position":
+        raise ValueError(f"unknown quantize_kv mode {mode!r}")
+    scale = (tensor.abs().amax(dim=-1, keepdim=True).float() / 127.0
+             + 1e-12).to(torch.bfloat16)
+    q = torch.clamp(torch.round(tensor.float() / scale.float()), -127, 127)
+    return {"q": q.to(torch.int8), "s": scale}
+
+
+def dequantize_kv(kv, dtype):
+    """Inverse of quantize_kv; passes plain tensors through."""
+    if isinstance(kv, dict) and "q" in kv:
+        return kv["q"].to(dtype) * kv["s"].to(dtype)
+    return kv
+
+
+def _foldable(scale) -> bool:
+    """A scale folds into the score scale / output iff it is constant
+    along every axis but the batch one (scalar, or [B, 1, ..., 1])."""
+    return scale.ndim == 0 or all(d == 1 for d in scale.shape[1:])
+
+
+def mha(params, x, kv_input=None, mask=None, cache=None,
+        num_heads: int = 8, num_kv_heads: int | None = None,
+        qk_transform=None, precomputed_kv=None, fused: bool = True):
+    """Attention: self (kv_input None), cross (kv_input or precomputed_kv),
+    optional KV cache (updated in place, see update_kv_cache).
+
+    mask: broadcastable to [B, H, Tq, Tk], True = attend.
+    qk_transform(q, k) -> (q, k): applied after the head split, before
+    the cache write.  precomputed_kv: (k, v) already projected and split,
+    each a tensor or a quantize_kv dict; "tensor"-mode scales fold into
+    the score scale and the output.  Returns (output, new_cache)."""
+    num_kv_heads = num_kv_heads or num_heads
+    q = _split_heads(linear(params["q"], x), num_heads)
+    k_scale = v_scale = None
+    if precomputed_kv is not None:
+        k, v = precomputed_kv
+        if isinstance(k, dict) and isinstance(v, dict) and \
+                _foldable(k["s"]) and _foldable(v["s"]):
+            k_scale, v_scale = k["s"], v["s"]
+            k, v = k["q"].to(x.dtype), v["q"].to(x.dtype)
+        else:
+            k = dequantize_kv(k, x.dtype)
+            v = dequantize_kv(v, x.dtype)
+    else:
+        k, v = precompute_kv(params, x if kv_input is None else kv_input,
+                             num_kv_heads)
+    if qk_transform is not None:
+        q, k = qk_transform(q, k)
+
+    if cache is not None:
+        cache = update_kv_cache(cache, k, v)
+        k, v = cache["k"], cache["v"]
+        # valid-position mask for the unwritten cache tail
+        valid = (torch.arange(k.shape[2], device=k.device)
+                 < cache["index"])[None, None, None]
+        mask = valid if mask is None else (mask & valid)
+
+    if num_kv_heads != num_heads:                  # GQA: repeat KV groups
+        repeat = num_heads // num_kv_heads
+        k = torch.repeat_interleave(k, repeat, dim=1)
+        v = torch.repeat_interleave(v, repeat, dim=1)
+
+    if fused and mask is None and cache is None and k_scale is None \
+            and q.shape[2] == k.shape[2]:
+        # mask-free self/cross attention: the flash kernel where shapes
+        # tile, plain attention otherwise
+        from ..ops.attention import attention
+        out = attention(q, k, v)
+        return linear(params["o"], _merge_heads(out)), cache
+
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    if k_scale is not None:
+        scale = scale * k_scale
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.full_like(scores, -1e30))
+    weights = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.matmul(weights.float(), v.float())
+    if v_scale is not None:
+        out = out * v_scale
+    out = out.to(x.dtype)
+    return linear(params["o"], _merge_heads(out)), cache
+
+
+def sinusoid_position_encoding(length: int, dim: int,
+                               max_timescale: float = 10000.0,
+                               device=None):
+    """Whisper-style sinusoids: [length, dim] f32."""
+    half = dim // 2
+    log_increment = math.log(max_timescale) / max(half - 1, 1)
+    inv_timescales = torch.exp(
+        -log_increment * torch.arange(half, device=device,
+                                      dtype=torch.float32))
+    scaled = torch.arange(length, device=device,
+                          dtype=torch.float32)[:, None] * \
+        inv_timescales[None, :]
+    return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=1)
+
+
+def gelu(x):
+    # exact (erf) gelu: what whisper checkpoints are trained under
+    return F.gelu(x, approximate="none")

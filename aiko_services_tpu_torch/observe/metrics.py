@@ -1,0 +1,144 @@
+# Metrics registry: process-wide counters and gauges.
+#
+# The port's own copy of aiko_services_tpu/observe/metrics.py, trimmed to
+# what the batching scheduler and the compute runtime use: counters,
+# gauges, the registry that names them, and MirroredStats (a stats dict
+# whose increments mirror into a counter family).  Metric names are the
+# JAX package's, so dashboards read both packages alike.  Histograms and
+# sketches arrive with the serving slice.
+
+from __future__ import annotations
+
+from ..utils.lock import Lock
+
+__all__ = ["Counter", "Gauge", "MetricsRegistry", "MirroredStats",
+           "default_registry"]
+
+
+class Counter:
+    """Monotonic counter.  inc() is the lock-free hot path."""
+    __slots__ = ("name", "labels", "_value")
+
+    def __init__(self, name: str, labels: dict):
+        self.name = name
+        self.labels = labels
+        self._value = 0
+
+    def inc(self, amount=1) -> None:
+        self._value += amount
+
+    @property
+    def value(self):
+        return self._value
+
+
+class Gauge:
+    """Settable level."""
+    __slots__ = ("name", "labels", "_value")
+
+    def __init__(self, name: str, labels: dict):
+        self.name = name
+        self.labels = labels
+        self._value = 0
+
+    def set(self, value) -> None:
+        self._value = value
+
+    @property
+    def value(self):
+        return self._value
+
+
+_KINDS = {"counter": Counter, "gauge": Gauge}
+
+
+class MetricsRegistry:
+    """Process-wide metric table: get-or-create by (name, labels)."""
+
+    def __init__(self):
+        # held only for metric creation, never per record
+        self._lock = Lock("observe.registry")
+        self._metrics: dict[tuple, object] = {}
+        self._types: dict[str, str] = {}
+        self._help: dict[str, str] = {}
+
+    @staticmethod
+    def _key(name: str, labels: dict | None) -> tuple:
+        return (name, tuple(sorted((labels or {}).items())))
+
+    def _get_or_create(self, kind: str, name: str, help_text: str,
+                       labels: dict | None):
+        key = self._key(name, labels)
+        with self._lock:
+            registered = self._types.get(name)
+            if registered is not None and registered != kind:
+                raise ValueError(
+                    f"metric {name!r} already registered as "
+                    f"{registered}, requested {kind}")
+            metric = self._metrics.get(key)
+            if metric is None:
+                metric = _KINDS[kind](name, dict(labels or {}))
+                self._types[name] = kind
+                self._metrics[key] = metric
+                if help_text:
+                    self._help[name] = help_text
+            return metric
+
+    def counter(self, name: str, help: str = "",
+                labels: dict | None = None) -> Counter:
+        return self._get_or_create("counter", name, help, labels)
+
+    def gauge(self, name: str, help: str = "",
+              labels: dict | None = None) -> Gauge:
+        return self._get_or_create("gauge", name, help, labels)
+
+
+class MirroredStats(dict):
+    """A stats dict whose numeric increments mirror into a registry
+    counter family: `stats[k] += n` updates the dict AND
+    `metric{label=k, **labels}`.  Missing keys read as 0; only positive
+    numeric deltas mirror; keys in `skip` (levels, time sums) never
+    mirror."""
+
+    def __init__(self, initial=None, metric: str = "", help: str = "",
+                 label: str = "kind", labels: dict | None = None,
+                 registry: MetricsRegistry | None = None, skip=()):
+        super().__init__(initial or {})
+        self._metric = metric
+        self._help = help
+        self._label = label
+        self._labels = dict(labels or {})
+        self._registry = registry
+        self._counters: dict = {}
+        self._skip = frozenset(skip)
+
+    def __missing__(self, key):
+        return 0
+
+    def _counter(self, key) -> Counter:
+        counter = self._counters.get(key)
+        if counter is None:
+            registry = self._registry or default_registry()
+            counter = registry.counter(
+                self._metric, self._help,
+                labels={**self._labels, self._label: str(key)})
+            self._counters[key] = counter
+        return counter
+
+    def __setitem__(self, key, value) -> None:
+        if self._metric and key not in self._skip \
+                and isinstance(value, (int, float)) \
+                and not isinstance(value, bool):
+            old = self.get(key, 0)
+            if isinstance(old, (int, float)):
+                delta = value - old
+                if delta > 0:
+                    self._counter(key).inc(delta)
+        super().__setitem__(key, value)
+
+
+_default_registry = MetricsRegistry()
+
+
+def default_registry() -> MetricsRegistry:
+    return _default_registry

@@ -1,0 +1,159 @@
+# Continuous batching: many streams, one device, bounded latency.
+#
+# The port's own copy of aiko_services_tpu/ops/batching.py (host code,
+# no device work): frames from many streams accumulate in per-bucket
+# queues keyed by padded shape; the scheduler drains a full batch as soon
+# as (a) the batch is full, or (b) the oldest frame has waited max_wait.
+# Shape bucketing bounds the number of distinct shapes a program sees.
+# attach() to an event engine, completion deadlines and the dispatch gate
+# of the pipelined path arrive with the host-plane slice; until then the
+# owner drives drain() itself.
+
+from __future__ import annotations
+
+import bisect
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+from ..utils.lock import Lock
+
+__all__ = ["BatchItem", "BatchingScheduler", "ShapeBuckets"]
+
+
+class ShapeBuckets:
+    """Monotone bucket ladder: a length is padded up to the next bucket so
+    only len(buckets) shapes ever reach the compiler."""
+
+    def __init__(self, buckets):
+        self.buckets = sorted(buckets)
+
+    def bucket_for(self, length: int) -> int:
+        index = bisect.bisect_left(self.buckets, length)
+        if index == len(self.buckets):
+            raise ValueError(
+                f"length {length} exceeds largest bucket "
+                f"{self.buckets[-1]}")
+        return self.buckets[index]
+
+
+@dataclass
+class BatchItem:
+    stream_id: str
+    payload: Any
+    enqueue_time: float
+    callback: Callable          # callback(stream_id, result)
+    bucket: int = 0
+
+
+@dataclass
+class _Bucket:
+    items: deque = field(default_factory=deque)
+
+
+class BatchingScheduler:
+    """Arrival-driven batch former.
+
+    process_batch(bucket, items) -> list[result] is called on the
+    scheduler's drive thread (or the caller of drain() in inline mode)
+    with at most max_batch items of one bucket; results fan back out
+    through each item's callback.  Latency contract: an item waits at most
+    max_wait before its (possibly partial) batch is dispatched.
+    """
+
+    def __init__(self, process_batch, buckets: ShapeBuckets,
+                 max_batch: int = 32, max_wait: float = 0.05,
+                 clock=time.monotonic, metrics_labels: dict | None = None):
+        self.process_batch = process_batch
+        self.buckets = buckets
+        self.max_batch = max_batch
+        self.max_wait = max_wait
+        self.clock = clock
+        self._lock = Lock("batching.scheduler")
+        self._queues: dict[int, _Bucket] = {}
+        # cumulative counters, mirrored onto the process metrics
+        # registry (batch_scheduler_total{kind=...}); metrics_labels
+        # (e.g. {"program": name}) separates schedulers per series
+        from ..observe.metrics import MirroredStats
+        self.stats = MirroredStats(
+            {"batches": 0, "items": 0, "batch_size_sum": 0,
+             "full_batches": 0, "wait_sum": 0.0},
+            metric="batch_scheduler_total",
+            help="continuous-batching scheduler events by kind",
+            labels=metrics_labels,
+            # sums are levels, not events: dict-only
+            skip=("batch_size_sum", "wait_sum"))
+
+    def submit(self, stream_id: str, payload, length: int,
+               callback) -> None:
+        """Enqueue one item."""
+        bucket = self.buckets.bucket_for(length)
+        item = BatchItem(stream_id, payload, self.clock(), callback,
+                         bucket)
+        with self._lock:
+            self._queues.setdefault(bucket, _Bucket()).items.append(item)
+
+    def _ready_bucket(self, now: float) -> int | None:
+        """A bucket is ready when full or its head item is older than
+        max_wait.  Oldest head wins (FIFO fairness across buckets)."""
+        best, best_age = None, -1.0
+        for bucket_key, bucket in self._queues.items():
+            if not bucket.items:
+                continue
+            age = now - bucket.items[0].enqueue_time
+            if len(bucket.items) >= self.max_batch:
+                age += 1e6          # full batch: dispatch first
+            if age > best_age:
+                best, best_age = bucket_key, age
+        if best is not None and (
+                len(self._queues[best].items) >= self.max_batch or
+                best_age >= self.max_wait):
+            return best
+        return None
+
+    def drain(self, force: bool = False) -> int:
+        """Dispatch ready batches; force=True flushes everything.  Returns
+        the number of items processed."""
+        processed = 0
+        while True:
+            now = self.clock()
+            with self._lock:
+                bucket_key = self._ready_bucket(now)
+                if bucket_key is None and force:
+                    nonempty = [k for k, b in self._queues.items()
+                                if b.items]
+                    bucket_key = nonempty[0] if nonempty else None
+                if bucket_key is None:
+                    return processed
+                queue = self._queues[bucket_key].items
+                batch = [queue.popleft()
+                         for _ in range(min(self.max_batch, len(queue)))]
+            # items are already popped: every callback MUST fire, or the
+            # stream's frame silently vanishes — errors fan out as results
+            try:
+                results = self.process_batch(bucket_key, batch)
+                if len(results) != len(batch):
+                    raise RuntimeError(
+                        f"process_batch returned {len(results)} results "
+                        f"for {len(batch)} items")
+            except Exception as exc:
+                results = [exc] * len(batch)
+            self.stats["batches"] += 1
+            self.stats["items"] += len(batch)
+            self.stats["batch_size_sum"] += len(batch)
+            self.stats["full_batches"] += \
+                int(len(batch) >= self.max_batch)
+            self.stats["wait_sum"] += sum(now - i.enqueue_time
+                                          for i in batch)
+            for item, result in zip(batch, results):
+                item.callback(item.stream_id, result)
+            processed += len(batch)
+
+    def mean_batch_size(self) -> float:
+        batches = self.stats["batches"]
+        return self.stats["batch_size_sum"] / batches if batches else 0.0
+
+    def mean_wait(self) -> float:
+        items = self.stats["items"]
+        return self.stats["wait_sum"] / items if items else 0.0

@@ -1,0 +1,473 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (aiko_services_tpu_torch) on one
+NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line; any failure exits non-zero:
+  1. device and build: the card's name and power limit (nvidia-smi), and
+     the seconds nvcc took to build every kernel from csrc/;
+  2. kernels: each kernel against its plain PyTorch version at the shapes
+     the main path gives it, in bf16, with its stated tolerance; median
+     times of the kernel, the plain version and one PyTorch library call
+     computing the same function (timed only: the port never calls it),
+     and the least time the card could take (bound_ms);
+  3. slice: Whisper-small at full width (768 / 12 heads / 12 + 12 layers /
+     51,865 vocab), bf16, seeded random weights, served through
+     ComputeRuntime + PE_WhisperASR: long requests (bucket 3072, audio
+     context 1536, the flash kernel) and short ones (bucket 500, plain
+     attention) on the int16 and mu-law wires; the launch counts of that
+     run; one long request's encoder features with the kernel against
+     the plain version;
+  4. profile: one steady batch per bucket under torch.profiler (device
+     busy time, idle share, launches, the costliest kernels).
+The line before the last is {"kernels": [...]}; the last line is
+{"ok": true, "device": {...}}.  Without a CUDA card the run fails before
+printing any result.  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+# H100 SXM data-sheet peaks (dense): the bound of a kernel is the larger
+# of its bytes over the memory rate and its operations over the peak.
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
+
+# A kernel's bf16 output against its plain version computed in f32 on the
+# same input values.  Elementwise, per output x = sum_j p_j v_j / l:
+#   |kernel - plain| <= U * |plain| + c * sum_j p_j |v_j| / l
+# U = 2^-8 is bf16's unit roundoff (the output's rounding); c bounds the
+# kernel's own rounding inside the sum: the flash kernel rounds each
+# probability to bf16 for the PV product (c = U), the cross-decode kernel
+# keeps f32 throughout (c = 2^-12 leaves room for f32 sums over 20k
+# keys).  sum_j p_j |v_j| / l is the plain version run on |v|.  Besides,
+# the relative L2 error of the whole output stays under a per-kernel
+# limit, about 2.5x the error that rounding alone gives (flash: output
+# and probabilities, ~2^-9 relative each; cross-decode: the output's
+# ~2^-9.5), so that one dropped or mis-weighted key per row fails.
+BF16_U = 2 ** -8
+KERNEL_TOLERANCE = {          # kernel: (c, relative L2 limit)
+    "flash_attention": (2 ** -8, 0.008),
+    "cross_decode_attention": (2 ** -12, 0.004),
+}
+# encoder features through 12 bf16 layers, kernel against plain
+# attention: each layer's attention differs by about the bf16 rounding of
+# the probabilities (2^-9 relative), and 12 residual layers add a few of
+# those up: relative L2 error of the features
+ENCODER_REL_L2 = 0.03
+
+FLASH_KERNEL_LINE = "aiko_services_tpu/ops/attention.py:21"
+CROSS_KERNEL_LINE = "aiko_services_tpu/ops/attention.py:164"
+
+
+def emit(record: dict) -> None:
+    print(json.dumps(record), flush=True)
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def flush_l2(scratch) -> None:
+    scratch.zero_()            # 128 MB write evicts the 50 MB L2
+
+
+def time_ms(fn, scratch, reps: int = 20, warmup: int = 3) -> float:
+    """Median device time of one call, cold L2, CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        flush_l2(scratch)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    compute_ms = flops / PEAK_BF16_FLOPS * 1e3
+    memory_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    if compute_ms >= memory_ms:
+        return compute_ms, "operations"
+    return memory_ms, "bytes"
+
+
+def split_heads(x, heads: int):
+    """[B, T, H*D] → [B, H, T, D] view, the layout layers.mha hands the
+    attention functions."""
+    b, t, _ = x.shape
+    return x.view(b, t, heads, -1).permute(0, 2, 1, 3)
+
+
+def compare(kernel: str, out, plain, plain_on_abs_v) -> dict:
+    """The error of a kernel's output against its plain version (both
+    callables take (q, k, v) in f32); raises beyond KERNEL_TOLERANCE."""
+    torch.cuda.synchronize()
+    c, rel_l2_limit = KERNEL_TOLERANCE[kernel]
+    ref, magnitude = plain(), plain_on_abs_v()
+    err = (out.float() - ref).abs()
+    rel_l2 = (err.norm() / ref.norm()).item()
+    # error over its elementwise bound: at most 1 passes
+    bound_ratio = (err / (BF16_U * ref.abs() + c * magnitude)
+                   .clamp_min(1e-30)).max().item()
+    if not torch.isfinite(out).all() or bound_ratio > 1.0 or \
+            rel_l2 > rel_l2_limit:
+        raise AssertionError(
+            f"{kernel}: kernel disagrees with its plain version (max abs "
+            f"err {err.max().item()}, error / elementwise bound "
+            f"{bound_ratio}, relative L2 {rel_l2}, limit {rel_l2_limit})")
+    return {"max_abs_err": err.max().item(), "rel_l2": rel_l2,
+            "rel_l2_limit": rel_l2_limit, "bound_ratio": bound_ratio}
+
+
+def phase_kernels(device, generator) -> list[dict]:
+    """Each kernel against its plain version at the main path's shapes;
+    returns one record per kernel (the causal flash case, an option the
+    path does not take, is printed on its own line)."""
+    import torch.nn.functional as F
+
+    from aiko_services_tpu_torch.ops import attention as A
+
+    scratch = torch.empty(32 * 1024 * 1024, dtype=torch.float32,
+                          device=device)
+    b, h, s, d = 8, 12, 1536, 64
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=generator, device=device,
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    def record(name, source, replaces, errors, kernel, plain, library,
+               flops, nbytes):
+        bound_ms, bound_by = bound(flops, nbytes)
+        result = {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "shape": [b, h, s, d], **errors,
+            "ms": time_ms(kernel, scratch),
+            "plain_ms": time_ms(plain, scratch),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": time_ms(library, scratch),
+        }
+        emit({"phase": "kernel", **result})
+        return result
+
+    # flash attention at the encoder's shape (bucket 3072: context 1536):
+    # [B, S, H*D] projections viewed as heads, as layers.mha hands them
+    records = []
+    q, k, v = (split_heads(randn(b, s, h * d), h) for _ in range(3))
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    for causal in (False, True):
+        errors = compare(
+            "flash_attention", A.flash_attention(q, k, v, causal=causal),
+            lambda: A.flash_attention_reference(q32, k32, v32,
+                                                causal=causal),
+            lambda: A.flash_attention_reference(q32, k32, v32.abs(),
+                                                causal=causal))
+        pairs = s * (s + 1) / 2 if causal else s * s   # keys each run needs
+        result = record(
+            "flash_attention" + ("_causal" if causal else ""),
+            "aiko_services_tpu_torch/csrc/flash_attention.cu",
+            FLASH_KERNEL_LINE, errors,
+            lambda: A.flash_attention(q, k, v, causal=causal),
+            lambda: A.flash_attention_reference(q, k, v, causal=causal),
+            lambda: F.scaled_dot_product_attention(q, k, v,
+                                                   is_causal=causal),
+            flops=4.0 * b * h * pairs * d, nbytes=4.0 * b * h * s * d * 2)
+        if not causal:
+            records.append(result)
+
+    # cross-decode attention at the decode tail's shape: one query row
+    # against the precomputed cross K/V of the 3072-frame bucket
+    qd = split_heads(randn(b, 1, h * d), h)
+    kd, vd = (split_heads(randn(b, s, h * d), h) for _ in range(2))
+    qd32, kd32, vd32 = qd.float(), kd.float(), vd.float()
+    errors = compare(
+        "cross_decode_attention", A.cross_decode_attention(qd, kd, vd),
+        lambda: A.cross_decode_attention_reference(qd32, kd32, vd32),
+        lambda: A.cross_decode_attention_reference(qd32, kd32, vd32.abs()))
+    records.append(record(
+        "cross_decode_attention",
+        "aiko_services_tpu_torch/csrc/cross_decode_attention.cu",
+        CROSS_KERNEL_LINE, errors,
+        lambda: A.cross_decode_attention(qd, kd, vd),
+        lambda: A.cross_decode_attention_reference(qd, kd, vd),
+        lambda: F.scaled_dot_product_attention(qd, kd, vd),
+        flops=4.0 * b * h * s * d,
+        nbytes=(2.0 * b * h * s * d + 2.0 * b * h * d) * 2))
+    return records
+
+
+def speech_like(rng, seconds: float, sample_rate: int = 16000):
+    """A seeded int16 signal with speech-like structure: a few drifting
+    harmonics under an amplitude envelope, plus noise."""
+    import numpy as np
+    t = np.arange(int(seconds * sample_rate)) / sample_rate
+    f0 = 110.0 + 60.0 * np.sin(2 * np.pi * 0.3 * t + rng.uniform(0, 6))
+    phase = 2 * np.pi * np.cumsum(f0) / sample_rate
+    voice = sum(np.sin(k * phase) / k for k in range(1, 6))
+    envelope = 0.5 + 0.5 * np.sin(2 * np.pi * 2.5 * t + rng.uniform(0, 6))
+    signal = 0.3 * voice * envelope + 0.02 * rng.standard_normal(t.shape)
+    return np.clip(signal * 16384.0, -32768, 32767).astype(np.int16)
+
+
+class plain_flash:
+    """Within this block the dispatcher's flash path runs the kernel's
+    plain version instead of the kernel: the kernel-vs-plain comparison
+    of the encoder features (the port itself never does this)."""
+
+    def __enter__(self):
+        from aiko_services_tpu_torch.ops import attention as A
+        self._module, self._kernel = A, A.flash_attention
+        A.flash_attention = lambda q, k, v, causal=False, scale=None: \
+            A.flash_attention_reference(q, k, v, causal=causal, scale=scale)
+
+    def __exit__(self, *exc):
+        self._module.flash_attention = self._kernel
+        return False
+
+
+def profile_batch(label: str, submit, scheduler) -> dict:
+    """One batch through the scheduler under torch.profiler: host wall
+    time, the summed device time of its kernels (one stream, so they do
+    not overlap), the device's idle share, and the kernels that take the
+    most device time.  Device figures are None when the profiler records
+    no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        submit()
+        scheduler.drain(force=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    by_name, launches = {}, 0
+    for event in prof.events():
+        if event.device_type == DeviceType.CUDA:
+            launches += 1
+            by_name[event.name] = by_name.get(event.name, 0.0) + \
+                event.time_range.elapsed_us() / 1e3
+    busy_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda item: -item[1])[:8]
+    return {"batch": label, "wall_s": wall,
+            "device_busy_s": busy_ms / 1e3 if launches else None,
+            "idle_share": 1.0 - busy_ms / 1e3 / wall if launches else None,
+            "device_launches": launches,
+            "flash_ms": sum(ms for name, ms in by_name.items()
+                            if "flash_attention_kernel" in name),
+            "top_kernels_ms": [[name[:80], ms] for name, ms in top]}
+
+
+def phase_slice() -> dict:
+    """Serve Whisper-small requests through ComputeRuntime +
+    PE_WhisperASR; returns the kernel launch counts of that run."""
+    import dataclasses
+
+    import numpy as np
+
+    from aiko_services_tpu_torch.compute import ComputeRuntime
+    from aiko_services_tpu_torch.elements.speech import PE_WhisperASR
+    from aiko_services_tpu_torch.models.whisper import (
+        encode, greedy_decode_from_audio)
+    from aiko_services_tpu_torch.ops import attention as A
+    from aiko_services_tpu_torch.ops.audio import log_mel_spectrogram
+
+    compute = ComputeRuntime("compute")
+    parameters = {
+        "preset": "small", "frontend": "audio", "buckets": [500, 1000, 3000],
+        "max_batch": 8, "pad_batch": True, "max_tokens": 24,
+        # random weights give near-uniform token distributions, which
+        # the hallucination gates would suppress; the smoke checks the
+        # decode itself, so the gates are opened
+        "logprob_threshold": -1e9, "compression_ratio_threshold": 1e9,
+    }
+    services = {"compute": compute}
+    start = time.perf_counter()
+    asr = PE_WhisperASR("asr", parameters, services)
+    asr_mulaw = PE_WhisperASR("asr_mulaw", {**parameters, "wire": "mulaw"},
+                              services)
+    asr_scheduler, mulaw_scheduler = asr.scheduler, asr_mulaw.scheduler
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - start
+    config = asr.config
+    if (config.dim, config.num_heads, config.enc_layers, config.dec_layers,
+            config.n_vocab) != (768, 12, 12, 12, 51865):
+        raise AssertionError(f"not Whisper-small: {config}")
+    if asr.buckets != [500, 1000, 3072]:
+        raise AssertionError(f"buckets {asr.buckets} != [500, 1000, 3072]")
+
+    rng = np.random.default_rng(0)
+    long_audio = [speech_like(rng, s) for s in (25.0, 27.0, 28.5, 30.0)]
+    short_audio = [speech_like(rng, s) for s in (2.6, 3.0, 3.4)]
+    mulaw_audio = [speech_like(rng, 3.1)]
+
+    def serve_round():
+        results = {}
+
+        def keep(sid, result):
+            results[sid] = result
+        for i, audio in enumerate(long_audio):
+            asr.submit(f"long{i}", keep, audio=audio)
+        for i, audio in enumerate(short_audio):
+            asr.submit(f"short{i}", keep, audio=audio)
+        for i, audio in enumerate(mulaw_audio):
+            asr_mulaw.submit(f"mulaw{i}", keep, audio=audio)
+        asr_scheduler.drain(force=True)
+        mulaw_scheduler.drain(force=True)
+        torch.cuda.synchronize()
+        return results
+
+    # the main path's run: counts set to 0 just before, read just after
+    for name in A.launches:
+        A.launches[name] = 0
+    dispatch_before = dict(A.dispatch_stats)
+    start = time.perf_counter()
+    results = serve_round()
+    first_round_s = time.perf_counter() - start
+    counts = dict(A.launches)
+    dispatched = {key: A.dispatch_stats[key] - dispatch_before[key]
+                  for key in dispatch_before}
+
+    expected = len(long_audio) + len(short_audio) + len(mulaw_audio)
+    if len(results) != expected:
+        raise AssertionError(f"{len(results)} answers for {expected} "
+                             f"requests")
+    for sid, result in results.items():
+        if isinstance(result, Exception):
+            raise AssertionError(f"request {sid} failed: {result!r}")
+        tokens = np.asarray(result["tokens"])
+        if tokens.size == 0 or tokens.min() < 0 or \
+                tokens.max() >= config.n_vocab:
+            raise AssertionError(f"request {sid}: tokens {tokens}")
+        if not isinstance(result["text"], str) or \
+                not math.isfinite(result["avg_logprob"]):
+            raise AssertionError(f"request {sid}: bad result {result}")
+    long_batches = -(-len(long_audio) // 8)
+    expected_flash = config.enc_layers * long_batches
+    if counts["flash_attention"] != expected_flash:
+        raise AssertionError(f"flash launches {counts['flash_attention']} "
+                             f"!= 12 x {long_batches} long-audio batches")
+
+    # steady batches: the same requests again
+    serve_round()
+    steady = {}
+    for name in ("whisper_asr.asr", "whisper_asr.asr_mulaw"):
+        for bucket, seconds in compute.programs[name].recent_service:
+            steady.setdefault(f"{name}:{bucket}", []).append(seconds)
+    first_calls = {f"{name}:{bucket}": seconds
+                   for name in ("whisper_asr.asr", "whisper_asr.asr_mulaw")
+                   for bucket, seconds in
+                   compute.programs[name].first_call_times.items()}
+
+    # where a steady batch's time goes, per bucket
+    profiles = [
+        profile_batch("asr:3072", lambda: [
+            asr.submit(f"p{i}", lambda *_: None, audio=audio)
+            for i, audio in enumerate(long_audio)], asr_scheduler),
+        profile_batch("asr:500", lambda: [
+            asr.submit(f"p{i}", lambda *_: None, audio=audio)
+            for i, audio in enumerate(short_audio)], asr_scheduler)]
+
+    # one long request's encoder features: kernel against plain version
+    pcm = np.zeros((1, 3072 * 160), np.int16)
+    pcm[0, :long_audio[0].shape[0]] = long_audio[0]
+    bucket_config = dataclasses.replace(config, n_audio_ctx=1536)
+    with torch.inference_mode():
+        mel = log_mel_spectrogram(
+            torch.from_numpy(pcm).cuda().float() / 32768.0).to(config.dtype)
+        with_kernel = encode(asr.params, bucket_config, mel)
+        with plain_flash():
+            with_plain = encode(asr.params, bucket_config, mel)
+        torch.cuda.synchronize()
+        diff = with_kernel.float() - with_plain.float()
+        rel_l2 = (diff.norm() / with_plain.float().norm()).item()
+        max_abs = diff.abs().max().item()
+        if with_kernel.shape != (1, 1536, 768) or \
+                not torch.isfinite(with_kernel).all() or \
+                not rel_l2 <= ENCODER_REL_L2:
+            raise AssertionError(f"encoder kernel vs plain: rel L2 {rel_l2} "
+                                 f"(limit {ENCODER_REL_L2}), max abs "
+                                 f"{max_abs}, shape "
+                                 f"{tuple(with_kernel.shape)}")
+        kwargs = dict(max_tokens=24, suppress_timestamps=True)
+        tokens_kernel, _, _ = greedy_decode_from_audio(
+            asr.params, bucket_config, with_kernel, **kwargs)
+        tokens_plain, _, _ = greedy_decode_from_audio(
+            asr.params, bucket_config, with_plain, **kwargs)
+        agreement = (tokens_kernel == tokens_plain).float().mean().item()
+
+    emit({"phase": "slice", "requests": len(results),
+          "setup_s": setup_s, "first_round_s": first_round_s,
+          "first_call_s": first_calls,
+          "steady_batch_s": {key: statistics.median(values)
+                             for key, values in steady.items()},
+          "launches": counts, "dispatch": dispatched,
+          "flash_launches_expected": expected_flash,
+          "encoder_rel_l2": rel_l2, "encoder_max_abs": max_abs,
+          "encoder_rel_l2_limit": ENCODER_REL_L2,
+          "token_agreement_kernel_vs_plain": agreement,
+          "sample_tokens": {sid: np.asarray(r["tokens"])[:6].tolist()
+                            for sid, r in sorted(results.items())[:2]},
+          "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    for record in profiles:
+        emit({"phase": "profile", **record})
+    return counts
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from aiko_services_tpu_torch.ops import kernels
+
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    start = time.perf_counter()
+    built = kernels.build()
+    build_s = time.perf_counter() - start
+    ptxas = {name: [line.strip() for line in text.splitlines()
+                    if "registers" in line or "spill" in line]
+             for name, text in kernels.build_log.items()}
+    emit({"phase": "build", "seconds": build_s, "built": built,
+          "ptxas": ptxas, "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    device = torch.device("cuda")
+    generator = torch.Generator(device=device).manual_seed(0)
+    records = phase_kernels(device, generator)
+    counts = phase_slice()
+    for record in records:
+        record["launches"] = counts[record["name"]]
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    print(smi, flush=True)
+    emit({"kernels": [{key: record[key] for key in keys}
+                      for record in records]})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
