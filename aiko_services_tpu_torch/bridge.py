@@ -1,5 +1,5 @@
 # Weight bridge: JAX param trees and flat-npz checkpoints → the port's
-# Whisper module, and back.
+# Whisper and Llama modules, and back.
 #
 # The flat-npz scheme is the JAX package's (elements/speech.py
 # load_flat_npz / save_flat_npz): one array per leaf, keyed by the
@@ -73,11 +73,14 @@ def _overlay(model: torch.nn.Module, flat: dict, strict: bool) -> None:
 
 
 def params_from_numpy(tree, config, device=None):
-    """The JAX Whisper param tree (leaves as numpy arrays, or anything
-    np.asarray takes) → a loaded port Whisper on `device` (None: the
-    card).  Every leaf must be present with its shape."""
+    """A JAX Whisper or Llama param tree (leaves as numpy arrays, or
+    anything np.asarray takes) → the loaded port module that `config`'s
+    type names (WhisperConfig → Whisper, LlamaConfig → Llama) on `device`
+    (None: the card).  Every leaf must be present with its shape."""
+    from .models.llama import Llama, LlamaConfig
     from .models.whisper import Whisper
-    model = Whisper(config, device=resolve_device(device))
+    model_type = Llama if isinstance(config, LlamaConfig) else Whisper
+    model = model_type(config, device=resolve_device(device))
     _overlay(model, flatten_tree(tree), strict=True)
     return model
 

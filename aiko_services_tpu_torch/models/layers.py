@@ -2,7 +2,7 @@
 # plain functions on tensors.
 #
 # Counterpart of aiko_services_tpu/models/layers.py, the subset Whisper
-# uses.  Parameter layouts are the JAX package's, so a JAX param tree
+# and Llama use.  Parameter layouts are the JAX package's, so a JAX param tree
 # copies over leaf for leaf (bridge.py): a linear's `w` is [in, out], a
 # conv1d's `w` is [k, in, out] (WIO).  Every module reads like the JAX
 # param dict it mirrors (params["w"], "b" in params), so the functions
@@ -20,10 +20,12 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = [
-    "Params", "Linear", "LayerNorm", "Embedding", "Conv1d", "MHA",
-    "linear", "layer_norm", "embedding", "conv1d", "mha", "precompute_kv",
-    "quantize_kv", "dequantize_kv", "init_kv_cache", "update_kv_cache",
-    "sinusoid_position_encoding", "gelu",
+    "Params", "Linear", "LayerNorm", "RMSNorm", "Embedding", "Conv1d",
+    "MHA", "linear", "linear_logits", "layer_norm", "rms_norm",
+    "embedding", "conv1d", "mha", "precompute_kv", "quantize_kv",
+    "dequantize_kv", "init_kv_cache", "update_kv_cache", "gather_paged_kv",
+    "paged_pool_planes", "scatter_paged_rows", "write_paged_blocks",
+    "sinusoid_position_encoding", "rope_frequencies", "apply_rope", "gelu",
 ]
 
 
@@ -102,17 +104,31 @@ class Conv1d(Params):
         self.b.zero_()
 
 
-class MHA(Params):
-    """Multi-head attention projections; k carries no bias (as in JAX)."""
-
-    def __init__(self, dim: int, num_heads: int, dtype=torch.float32,
-                 device=None):
+class RMSNorm(Params):
+    def __init__(self, dim: int, dtype=torch.float32, device=None):
         super().__init__()
-        inner = num_heads * (dim // num_heads)
-        self.q = Linear(dim, inner, True, dtype, device)
-        self.k = Linear(dim, inner, False, dtype, device)
-        self.v = Linear(dim, inner, True, dtype, device)
-        self.o = Linear(inner, dim, True, dtype, device)
+        self.scale = _param((dim,), dtype, device)
+
+    @torch.no_grad()
+    def init_(self, generator) -> None:
+        self.scale.fill_(1.0)
+
+
+class MHA(Params):
+    """Multi-head attention projections; num_kv_heads < num_heads is GQA.
+    k carries no bias; q, v and o carry one when `bias` (as in JAX)."""
+
+    def __init__(self, dim: int, num_heads: int,
+                 num_kv_heads: int | None = None, bias: bool = True,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        head_dim = dim // num_heads
+        inner = num_heads * head_dim
+        kv_inner = (num_kv_heads or num_heads) * head_dim
+        self.q = Linear(dim, inner, bias, dtype, device)
+        self.k = Linear(dim, kv_inner, False, dtype, device)
+        self.v = Linear(dim, kv_inner, bias, dtype, device)
+        self.o = Linear(inner, dim, bias, dtype, device)
 
 
 # -- functions ---------------------------------------------------------------
@@ -128,12 +144,35 @@ def linear(params, x):
     return y.reshape(*x.shape[:-1], w.shape[-1]).to(x.dtype)
 
 
+def linear_logits(params, x):
+    """Vocab projection x [..., dim] @ w [dim, vocab] with f32
+    accumulation KEPT f32: rounding logits to the activations' dtype
+    before an argmax can flip near-ties against an f32 reference.  bf16
+    operands on the card go to one bf16-in / f32-out product, so the
+    [dim, vocab] head is never upcast (that copy would be the decode
+    step's largest memory traffic); elsewhere both operands are taken in
+    f32 (the CPU has no such product)."""
+    w = params["w"]
+    flat = x.reshape(-1, x.shape[-1])
+    if flat.is_cuda and flat.dtype == w.dtype == torch.bfloat16:
+        y = torch.mm(flat, w, out_dtype=torch.float32)
+    else:
+        y = torch.mm(flat.float(), w.float())
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
 def layer_norm(params, x, eps: float = 1e-5):
     x32 = x.float()
     mean = x32.mean(dim=-1, keepdim=True)
     var = x32.var(dim=-1, keepdim=True, unbiased=False)
     y = (x32 - mean) * torch.rsqrt(var + eps)
     return (y * params["scale"] + params["bias"]).to(x.dtype)
+
+
+def rms_norm(params, x, eps: float = 1e-6):
+    x32 = x.float()
+    y = x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    return (y * params["scale"]).to(x.dtype)
 
 
 def embedding(params, token_ids):
@@ -229,6 +268,73 @@ def dequantize_kv(kv, dtype):
     return kv
 
 
+# -- paged KV block pool primitives -------------------------------------------
+# The paged serving cache (serving_paged.BlockPool) stores KV in one
+# [N, H, B, D] pool of B-token blocks per layer, addressed by per-slot
+# int32 block tables; block 0 is the null block (all zeros, never
+# allocated, never written).  Unlike the JAX functions these update the
+# pool IN PLACE.  Out-of-range destination ids DROP, as JAX's
+# mode="drop" does: a dropped row is redirected to block 0 at its own
+# offset and writes back what block 0 holds there, so the scatter keeps
+# its shape on the device (a boolean selection of the live rows would
+# stop the host until the device caught up).  Only int8 pool dicts are
+# not taken: they wait with the kernel's int8 variants (ROADMAP.md
+# Queue 2 item 3).
+
+def paged_pool_planes(pool):
+    """(value plane, scale plane) of one pool leaf: native pools carry no
+    scale plane; the int8 {"q", "s"} serving form is not ported."""
+    if isinstance(pool, dict):
+        raise NotImplementedError(
+            "int8 paged KV pools are not ported yet (ROADMAP.md Queue 2 "
+            "item 3)")
+    return pool, None
+
+
+def gather_paged_kv(pool, tables):
+    """Slot-major view of a block pool: tables [S, nb] int32 → [S, H,
+    nb*B, D], position p of slot s read from pool[tables[s, p // B], :,
+    p % B].  Used by the paged kernel's plain version."""
+    pool, _ = paged_pool_planes(pool)
+    g = pool[tables.long()]                      # [S, nb, H, B, D]
+    s, nb, h, b, d = g.shape
+    return g.permute(0, 2, 1, 3, 4).reshape(s, h, nb * b, d)
+
+
+def _drop_to_null(pool, ids):
+    """(ids with every out-of-range id sent to block 0, in-range mask)."""
+    keep = (ids >= 0) & (ids < pool.shape[0])
+    return torch.where(keep, ids, torch.zeros_like(ids)).long(), keep
+
+
+def scatter_paged_rows(pool, dest_blocks, offsets, rows):
+    """Scatter per-position rows into pool blocks, in place: rows [S, H,
+    W, D]; row (s, w) lands at pool[dest_blocks[s, w], :, offsets[s, w]]
+    (both [S, W]).  Out-of-range ids drop (inactive slots, positions past
+    the table)."""
+    pool, _ = paged_pool_planes(pool)
+    dest, keep = _drop_to_null(pool, dest_blocks)
+    offsets = offsets.long()
+    vals = rows.permute(0, 2, 1, 3).to(pool.dtype)      # [S, W, H, D]
+    vals = torch.where(keep[..., None, None], vals, pool[dest, :, offsets])
+    pool[dest, :, offsets] = vals
+
+
+def write_paged_blocks(pool, block_ids, rows):
+    """Whole-block scatter for the admit prefill, in place: rows [A, H,
+    nb*B, D] covers nb = block_ids.shape[1] blocks per admit row; block j
+    of row a lands at pool[block_ids[a, j]].  Invalid rows carry
+    out-of-range ids and drop."""
+    pool, _ = paged_pool_planes(pool)
+    ids, keep = _drop_to_null(pool, block_ids)
+    a, h, t, d = rows.shape
+    nb = block_ids.shape[1]
+    vals = rows.reshape(a, h, nb, t // nb, d).permute(0, 2, 1, 3, 4)
+    vals = torch.where(keep[..., None, None, None], vals.to(pool.dtype),
+                       pool[ids])
+    pool[ids] = vals
+
+
 def _foldable(scale) -> bool:
     """A scale folds into the score scale / output iff it is constant
     along every axis but the batch one (scalar, or [B, 1, ..., 1])."""
@@ -312,6 +418,39 @@ def sinusoid_position_encoding(length: int, dim: int,
                           dtype=torch.float32)[:, None] * \
         inv_timescales[None, :]
     return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=1)
+
+
+def rope_frequencies(head_dim: int, max_len: int, theta: float = 10000.0,
+                     device=None):
+    """RoPE cos/sin tables: each [max_len, head_dim // 2] f32."""
+    exponents = torch.arange(0, head_dim, 2, device=device,
+                             dtype=torch.float32) / head_dim
+    inv = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                       device=device), exponents)
+    angles = torch.arange(max_len, device=device,
+                          dtype=torch.float32)[:, None] * inv[None, :]
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x, cos, sin, position_offset=0):
+    """x: [B, H, T, D]; rotates interleaved (even, odd) pairs by the
+    position angle (not the rotate-half layout).
+
+    position_offset: an int (shared by the batch) or a [B] tensor, one
+    offset per example (continuous batching: each slot sits at its own
+    sequence position)."""
+    t = x.shape[2]
+    steps = torch.arange(t, device=x.device)
+    if isinstance(position_offset, torch.Tensor) and position_offset.ndim:
+        positions = position_offset.long()[:, None] + steps[None]  # [B, T]
+        cos_t, sin_t = cos[positions][:, None], sin[positions][:, None]
+    else:
+        positions = int(position_offset) + steps                   # [T]
+        cos_t, sin_t = cos[positions][None, None], sin[positions][None, None]
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    rotated = torch.stack([x1 * cos_t - x2 * sin_t,
+                           x1 * sin_t + x2 * cos_t], dim=-1)
+    return rotated.reshape(x.shape).to(x.dtype)
 
 
 def gelu(x):

@@ -156,13 +156,13 @@ class Block(L.Params):
         super().__init__()
         dim, heads, dtype = config.dim, config.num_heads, config.dtype
         self.ln_attn = L.LayerNorm(dim, dtype, device)
-        self.attn = L.MHA(dim, heads, dtype, device)
+        self.attn = L.MHA(dim, heads, dtype=dtype, device=device)
         self.ln_mlp = L.LayerNorm(dim, dtype, device)
         self.mlp_in = L.Linear(dim, dim * 4, True, dtype, device)
         self.mlp_out = L.Linear(dim * 4, dim, True, dtype, device)
         if cross:
             self.ln_cross = L.LayerNorm(dim, dtype, device)
-            self.cross = L.MHA(dim, heads, dtype, device)
+            self.cross = L.MHA(dim, heads, dtype=dtype, device=device)
 
 
 class Whisper(L.Params):

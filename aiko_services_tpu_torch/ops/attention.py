@@ -15,7 +15,7 @@ import math
 
 import torch
 
-from .kernels import check, load
+from .kernels import check, entry, require_cuda
 
 __all__ = ["flash_attention", "flash_attention_reference", "attention",
            "cross_decode_attention", "cross_decode_attention_reference",
@@ -52,21 +52,6 @@ def _check_cuda_operands(name: str, tensors, head_dim: int) -> None:
     if head_dim != _KERNEL_HEAD_DIM:
         raise ValueError(f"{name}: the CUDA kernel takes head dim "
                          f"{_KERNEL_HEAD_DIM}, got {head_dim}")
-
-
-def _entry(source: str, symbol: str, argtypes):
-    """(library, C function) of one kernel, built and loaded at first
-    use, with its ctypes signature declared."""
-    library = load(source)
-    function = getattr(library, symbol)
-    function.argtypes = argtypes
-    function.restype = ctypes.c_int
-    return library, function
-
-
-def _require_cuda(name: str, tensor) -> None:
-    if tensor.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {tensor.device}")
 
 
 # -- flash attention ---------------------------------------------------------
@@ -109,7 +94,7 @@ def flash_attention(q, k, v, causal: bool = False,
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal,
                                          scale=scale)
-    _require_cuda("flash_attention", q)
+    require_cuda("flash_attention", q)
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)} differ")
@@ -117,7 +102,7 @@ def flash_attention(q, k, v, causal: bool = False,
         raise ValueError(f"sequence {s} not divisible by the kernel's "
                          f"64-row tile")
     _check_cuda_operands("flash_attention", (q, k, v), d)
-    library, function = _entry(
+    library, function = entry(
         "flash_attention", "aiko_flash_attention_bf16",
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
@@ -185,13 +170,13 @@ def cross_decode_attention(q, k, v, scale: float | None = None):
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     if q.device.type == "cpu":
         return cross_decode_attention_reference(q, k, v, scale=scale)
-    _require_cuda("cross_decode_attention", q)
+    require_cuda("cross_decode_attention", q)
     if k.shape != (b, h, t, d) or v.shape != k.shape:
         raise ValueError(f"cross_decode_attention: k/v shapes "
                          f"{tuple(k.shape)}, {tuple(v.shape)} do not match "
                          f"q {tuple(q.shape)}")
     _check_cuda_operands("cross_decode_attention", (q, k, v), d)
-    library, function = _entry(
+    library, function = entry(
         "cross_decode_attention", "aiko_cross_decode_attention_bf16",
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,

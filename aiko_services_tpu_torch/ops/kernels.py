@@ -20,14 +20,15 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["KERNEL_SOURCES", "NVCC_FLAGS", "build", "load", "check",
-           "nvcc_path"]
+__all__ = ["KERNEL_SOURCES", "NVCC_FLAGS", "build", "load", "entry",
+           "check", "require_cuda", "nvcc_path"]
 
 _PACKAGE = Path(__file__).resolve().parent.parent
 _CSRC = _PACKAGE / "csrc"
 _BUILD = _PACKAGE / "_build"
 
-KERNEL_SOURCES = ("flash_attention", "cross_decode_attention")
+KERNEL_SOURCES = ("flash_attention", "cross_decode_attention",
+                  "paged_decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 # reported, not part of the library's identity: it changes no code
@@ -102,6 +103,23 @@ def load(name: str) -> ctypes.CDLL:
             library.aiko_error_string.restype = ctypes.c_char_p
             _libraries[name] = library
         return library
+
+
+def entry(source: str, symbol: str, argtypes):
+    """(library, C function) of one kernel, built and loaded at first
+    use, with its ctypes signature declared."""
+    library = load(source)
+    function = getattr(library, symbol)
+    function.argtypes = argtypes
+    function.restype = ctypes.c_int
+    return library, function
+
+
+def require_cuda(name: str, tensor) -> None:
+    """A wrapper's guard after its CPU branch: a tensor anywhere but on
+    the card has no kernel."""
+    if tensor.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {tensor.device}")
 
 
 def check(library: ctypes.CDLL, name: str, code: int) -> None:

@@ -8,10 +8,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
   1. device and build: the card's name and power limit (nvidia-smi), and
      the seconds nvcc took to build every kernel from csrc/;
   2. kernels: each kernel against its plain PyTorch version at the shapes
-     the main path gives it, in bf16, with its stated tolerance; median
+     its path gives it, in bf16, with its stated tolerance; median
      times of the kernel, the plain version and one PyTorch library call
      computing the same function (timed only: the port never calls it),
-     and the least time the card could take (bound_ms);
+     and the least time the card could take (bound_ms); the paged kernel
+     at the Llama decode shape, t_cap 256 and 512;
   3. slice: Whisper-small at full width (768 / 12 heads / 12 + 12 layers /
      51,865 vocab), bf16, seeded random weights, served through
      ComputeRuntime + PE_WhisperASR: long requests (bucket 3072, audio
@@ -20,7 +21,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
      run; one long request's encoder features with the kernel against
      the plain version;
   4. profile: one steady batch per bucket under torch.profiler (device
-     busy time, idle share, launches, the costliest kernels).
+     busy time, idle share, launches, the costliest kernels);
+  5. llama: Llama-1B at full width (2048 / 32 heads / 8 KV heads / 16
+     layers / 128,256 vocab), bf16, seeded random weights, served by the
+     paged ContinuousDecoder (16 slots, 16 steps per sync, 32-token
+     blocks, prefill bucket 128, max_seq 1024): 24 requests, 8 of them
+     submitted after the first round and one long enough to take t_cap
+     from 256 to 512; every request completes with its budget, the pool
+     drains, the paged kernel launches once per layer per decode step;
+     tokens/s, round seconds, and one steady round under torch.profiler;
+  6. llama_f32: full width at 2 layers in f32: the paged decoder's greedy
+     tokens against llama_greedy_decode (dense cache, plain attention).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card the run fails before
 printing any result.  Imports nothing of JAX.
@@ -42,22 +53,26 @@ import torch
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
-# A kernel's bf16 output against its plain version computed in f32 on the
+# A kernel's output against its plain version computed in f32 on the
 # same input values.  Elementwise, per output x = sum_j p_j v_j / l:
-#   |kernel - plain| <= U * |plain| + c * sum_j p_j |v_j| / l
-# U = 2^-8 is bf16's unit roundoff (the output's rounding); c bounds the
-# kernel's own rounding inside the sum: the flash kernel rounds each
-# probability to bf16 for the PV product (c = U), the cross-decode kernel
-# keeps f32 throughout (c = 2^-12 leaves room for f32 sums over 20k
-# keys).  sum_j p_j |v_j| / l is the plain version run on |v|.  Besides,
-# the relative L2 error of the whole output stays under a per-kernel
-# limit, about 2.5x the error that rounding alone gives (flash: output
-# and probabilities, ~2^-9 relative each; cross-decode: the output's
-# ~2^-9.5), so that one dropped or mis-weighted key per row fails.
+#   |kernel - plain| <= u * |plain| + c * sum_j p_j |v_j| / l
+# u is the output's rounding: 2^-8, bf16's unit roundoff, for the bf16
+# outputs of flash and cross-decode; 0 for the paged kernel's f32 output.
+# c bounds the kernel's own rounding inside the sum: the flash kernel
+# rounds each probability to bf16 for the PV product (c = 2^-8), the
+# cross-decode and paged kernels keep f32 throughout (c = 2^-12 leaves
+# room for f32 sums over 20k keys).  sum_j p_j |v_j| / l is the plain
+# version run on |v|.  Besides, the relative L2 error of the whole output
+# stays under a per-kernel limit, about 2.5x the error that rounding
+# alone gives for the bf16 outputs (flash: output and probabilities,
+# ~2^-9 relative each; cross-decode: the output's ~2^-9.5) and 1e-4 for
+# the paged kernel's f32 (one dropped key of T <= 1024 moves a row by
+# ~1/sqrt(T)), so that one dropped or mis-weighted key per row fails.
 BF16_U = 2 ** -8
-KERNEL_TOLERANCE = {          # kernel: (c, relative L2 limit)
-    "flash_attention": (2 ** -8, 0.008),
-    "cross_decode_attention": (2 ** -12, 0.004),
+KERNEL_TOLERANCE = {          # kernel: (u, c, relative L2 limit)
+    "flash_attention": (BF16_U, 2 ** -8, 0.008),
+    "cross_decode_attention": (BF16_U, 2 ** -12, 0.004),
+    "paged_decode_attention": (0.0, 2 ** -12, 1e-4),
 }
 # encoder features through 12 bf16 layers, kernel against plain
 # attention: each layer's attention differs by about the bf16 rounding of
@@ -67,6 +82,12 @@ ENCODER_REL_L2 = 0.03
 
 FLASH_KERNEL_LINE = "aiko_services_tpu/ops/attention.py:21"
 CROSS_KERNEL_LINE = "aiko_services_tpu/ops/attention.py:164"
+PAGED_KERNEL_LINE = "aiko_services_tpu/ops/paged_attention.py:59"
+
+# the Llama slice's decoder (bench.py's 1b preset geometry) and traffic
+LLAMA_DECODER = {"max_slots": 16, "steps_per_sync": 16, "kv_block": 32,
+                 "prefill_buckets": (128,), "max_seq": 1024,
+                 "paged_kv": True}
 
 
 def emit(record: dict) -> None:
@@ -121,12 +142,12 @@ def compare(kernel: str, out, plain, plain_on_abs_v) -> dict:
     """The error of a kernel's output against its plain version (both
     callables take (q, k, v) in f32); raises beyond KERNEL_TOLERANCE."""
     torch.cuda.synchronize()
-    c, rel_l2_limit = KERNEL_TOLERANCE[kernel]
+    u, c, rel_l2_limit = KERNEL_TOLERANCE[kernel]
     ref, magnitude = plain(), plain_on_abs_v()
     err = (out.float() - ref).abs()
     rel_l2 = (err.norm() / ref.norm()).item()
     # error over its elementwise bound: at most 1 passes
-    bound_ratio = (err / (BF16_U * ref.abs() + c * magnitude)
+    bound_ratio = (err / (u * ref.abs() + c * magnitude)
                    .clamp_min(1e-30)).max().item()
     if not torch.isfinite(out).all() or bound_ratio > 1.0 or \
             rel_l2 > rel_l2_limit:
@@ -212,6 +233,110 @@ def phase_kernels(device, generator) -> list[dict]:
         flops=4.0 * b * h * s * d,
         nbytes=(2.0 * b * h * s * d + 2.0 * b * h * d) * 2))
     return records
+
+
+def paged_case(generator, t_cap: int, block: int = 32):
+    """Operands of one paged decode-attention call at the Llama slice's
+    shape: max_slots slots, 8 KV heads, 4 query rows each (G = 4, W = 1),
+    D = 64, bf16, a pool of shuffled blocks, extents from 1 to t_cap, a
+    side buffer of steps_per_sync entries under a partial mask."""
+    slots, num_kv, groups, side_len = (LLAMA_DECODER["max_slots"], 8, 4,
+                                       LLAMA_DECODER["steps_per_sync"])
+    nb = t_cap // block
+    num_blocks = slots * nb + 1
+    device = generator.device
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=generator, device=device,
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    k_pool, v_pool = (randn(num_blocks, num_kv, block, 64) for _ in range(2))
+    k_pool[0] = v_pool[0] = 0                     # the null block
+    entries = torch.randint(1, t_cap + 1, (slots,), generator=generator,
+                            device=device, dtype=torch.int32)
+    ids = (torch.randperm(num_blocks - 1, generator=generator,
+                          device=device) + 1).to(torch.int32).view(slots, nb)
+    needed = (entries.long() + block - 1) // block
+    past = torch.arange(nb, device=device)[None] >= needed[:, None]
+    tables = ids.masked_fill(past, 0)             # past the extent: null
+    side_valid = torch.rand((slots, 1, side_len), generator=generator,
+                            device=device) < 0.5
+    side_valid[:, :, 0] = True
+    return (randn(slots, num_kv, groups, 64), k_pool, v_pool, tables,
+            randn(slots, num_kv, side_len, 64),
+            randn(slots, num_kv, side_len, 64), side_valid, entries)
+
+
+def phase_paged_kernel(generator) -> dict:
+    """The paged kernel against its plain version at t_cap 256 and 512;
+    returns the t_cap 256 record (the 512 one is printed on its own
+    line).  library_ms: scaled_dot_product_attention over K/V gathered
+    contiguously beforehand and a boolean mask built beforehand (gather
+    and mask excluded from the time)."""
+    import torch.nn.functional as F
+
+    from aiko_services_tpu_torch.models.layers import gather_paged_kv
+    from aiko_services_tpu_torch.ops import paged_attention as P
+
+    scratch = torch.empty(32 * 1024 * 1024, dtype=torch.float32,
+                          device=generator.device)
+    records = []
+    for t_cap in (256, 512):
+        operands = paged_case(generator, t_cap)
+        q, k_pool, v_pool, tables, k_side, v_side, side_valid, entries = \
+            operands
+        f32 = [x.float() for x in (q, k_pool, v_pool, k_side, v_side)]
+        scale = 0.125
+
+        def plain_f32(abs_v=False, f32=f32):
+            v_main, v_s = (f32[2].abs(), f32[4].abs()) if abs_v \
+                else (f32[2], f32[4])
+            return P.paged_decode_attention_reference(
+                f32[0], f32[1], v_main, tables, f32[3], v_s, side_valid,
+                entries, groups=4, scale=scale)
+
+        errors = compare("paged_decode_attention",
+                         P.paged_decode_attention(*operands, groups=4),
+                         plain_f32, lambda: plain_f32(abs_v=True))
+        # SDPA's operands, made outside the timed call
+        k_all = torch.cat([gather_paged_kv(k_pool, tables), k_side], dim=2)
+        v_all = torch.cat([gather_paged_kv(v_pool, tables), v_side], dim=2)
+        main_ok = torch.arange(t_cap, device=q.device)[None] < \
+            entries[:, None]
+        mask = torch.cat([main_ok, side_valid[:, 0]], dim=1)[:, None, None]
+        mask = mask.expand(-1, 1, q.shape[2], -1)
+        # bytes and operations this run's extents need: the blocks each
+        # slot's extent covers, the side buffer, q, the table and the f32
+        # output
+        slots, num_kv, rows, _ = q.shape
+        positions = int(((entries.long() + 31) // 32).sum()) * 32
+        side_len = k_side.shape[2]
+        nbytes = (q.numel() * 2 + 2 * positions * num_kv * 64 * 2 +
+                  2 * k_side.numel() * 2 + side_valid.numel() +
+                  tables.numel() * 4 + entries.numel() * 4 +
+                  slots * num_kv * rows * 64 * 4)
+        flops = 4.0 * num_kv * rows * 64 * (positions + slots * side_len)
+        bound_ms, bound_by = bound(flops, nbytes)
+        record = {
+            "name": "paged_decode_attention" + ("" if t_cap == 256
+                                                else f"_t{t_cap}"),
+            "route": "cuda",
+            "source": "aiko_services_tpu_torch/csrc/"
+                      "paged_decode_attention.cu",
+            "replaces": PAGED_KERNEL_LINE, "t_cap": t_cap,
+            "shape": list(q.shape), **errors,
+            "ms": time_ms(lambda: P.paged_decode_attention(*operands,
+                                                           groups=4),
+                          scratch),
+            "plain_ms": time_ms(lambda: P.paged_decode_attention_reference(
+                *operands, groups=4, scale=scale), scratch),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q, k_all, v_all, attn_mask=mask), scratch),
+        }
+        emit({"phase": "kernel", **record})
+        records.append(record)
+    return records[0]
 
 
 def speech_like(rng, seconds: float, sample_rate: int = 16000):
@@ -433,6 +558,211 @@ def phase_slice() -> dict:
     return counts
 
 
+def profile_round(decoder) -> dict:
+    """One pump round under torch.profiler: host wall time, the summed
+    device time of its kernels (one stream), the idle share, the paged
+    kernel's share, the costliest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        decoder.pump()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    by_name, launches = {}, 0
+    for event in prof.events():
+        if event.device_type == DeviceType.CUDA:
+            launches += 1
+            by_name[event.name] = by_name.get(event.name, 0.0) + \
+                event.time_range.elapsed_us() / 1e3
+    busy_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda item: -item[1])[:8]
+    return {"round": "llama decode", "wall_s": wall,
+            "device_busy_s": busy_ms / 1e3 if launches else None,
+            "idle_share": 1.0 - busy_ms / 1e3 / wall if launches else None,
+            "device_launches": launches,
+            "paged_kernel_ms": sum(ms for name, ms in by_name.items()
+                                   if "paged_decode_kernel" in name),
+            "top_kernels_ms": [[name[:80], ms] for name, ms in top]}
+
+
+def llama_traffic(rng, vocab: int) -> list:
+    """24 requests (id, prompt, max_new): 16–128 seeded prompt tokens and
+    24–64 new tokens each, the first a 128-token prompt asking 320 new
+    tokens, whose context takes t_cap from 256 to 512."""
+    requests = [("long", rng.integers(0, vocab, 128).tolist(), 320)]
+    for i in range(23):
+        prompt = rng.integers(0, vocab, int(rng.integers(16, 129)))
+        requests.append((f"r{i}", prompt.tolist(),
+                         int(rng.integers(24, 65))))
+    return requests
+
+
+def phase_llama() -> int:
+    """Serve Llama-1B requests through the paged ContinuousDecoder;
+    returns the paged kernel's launches in that run."""
+    import dataclasses
+
+    import numpy as np
+
+    from aiko_services_tpu_torch.models.llama import LLAMA_PRESETS, llama_init
+    from aiko_services_tpu_torch.ops import paged_attention as P
+    from aiko_services_tpu_torch.serving import ContinuousDecoder
+
+    config = dataclasses.replace(LLAMA_PRESETS["1b"], dtype=torch.bfloat16,
+                                 max_seq_len=1024)
+    if (config.dim, config.num_heads, config.num_kv_heads, config.num_layers,
+            config.ffn_dim, config.vocab) != (2048, 32, 8, 16, 8192, 128256):
+        raise AssertionError(f"not the 1b preset: {config}")
+    start = time.perf_counter()
+    params = llama_init(torch.Generator(device="cuda").manual_seed(0),
+                        config)
+    decoder = ContinuousDecoder(params, config, **LLAMA_DECODER)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - start
+
+    requests = llama_traffic(np.random.default_rng(0), config.vocab)
+    budgets = {rid: new for rid, _, new in requests}
+    done = {}
+
+    def keep(request_id, tokens):
+        done[request_id] = list(tokens)
+
+    # the main path's run: counts set to 0 just before, read just after
+    P.launches["paged_decode_attention"] = 0
+    start = time.perf_counter()
+    for rid, prompt, new in requests[:16]:
+        decoder.submit(rid, prompt, new, keep)
+    round_s, t_caps = [], []
+    while True:
+        round_start = time.perf_counter()
+        decoder.pump()
+        round_s.append(time.perf_counter() - round_start)
+        t_caps.append(decoder._cache_t)
+        if len(round_s) == 1:
+            for rid, prompt, new in requests[16:]:
+                decoder.submit(rid, prompt, new, keep)
+        if decoder.idle:
+            break
+        if len(round_s) > 500:
+            raise AssertionError("the decoder did not drain in 500 rounds")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches = P.launches["paged_decode_attention"]
+    stats = dict(decoder.stats)
+
+    if sorted(done) != sorted(budgets):
+        raise AssertionError(f"{len(done)} of {len(budgets)} completed")
+    for rid, tokens in done.items():
+        if len(tokens) != budgets[rid] or \
+                not all(0 <= t < config.vocab for t in tokens):
+            raise AssertionError(f"request {rid}: {len(tokens)} tokens of "
+                                 f"{budgets[rid]}")
+    if decoder.pool.used_blocks() != 0:
+        raise AssertionError(f"{decoder.pool.used_blocks()} pool blocks "
+                             f"still owned after the run")
+    if launches != config.num_layers * stats["steps"]:
+        raise AssertionError(f"paged kernel launches {launches} != "
+                             f"{config.num_layers} x {stats['steps']} steps")
+    if max(t_caps) != 512:
+        raise AssertionError(f"t_cap reached {max(t_caps)}, not 512")
+    generated = sum(len(tokens) for tokens in done.values())
+    memory_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # one steady decode round of 16 fresh requests under the profiler
+    rng = np.random.default_rng(1)
+    for i in range(16):
+        decoder.submit(f"p{i}", rng.integers(0, config.vocab, 64).tolist(),
+                       40, lambda *_: None)
+    decoder.pump()                 # admits
+    decoder.pump()                 # first decode round
+    profile = profile_round(decoder)
+    while not decoder.idle:
+        decoder.pump()
+    if decoder.pool.used_blocks() != 0:
+        raise AssertionError("pool blocks still owned after the profile")
+
+    emit({"phase": "llama", "requests": len(done), "tokens": generated,
+          "setup_s": setup_s, "wall_s": wall,
+          "tokens_per_s": generated / wall, "rounds": len(round_s),
+          "first_round_s": round_s[0],
+          "steady_round_s": statistics.median(round_s[2:]),
+          "round_s": round_s, "t_cap": t_caps, "steps": stats["steps"],
+          "paged_launches": launches,
+          "paged_launches_expected": config.num_layers * stats["steps"],
+          "useful_steps": stats["useful_steps"],
+          "wasted_steps": stats["wasted_steps"],
+          "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
+          "pool_blocks": decoder.pool.num_blocks - 1,
+          "kv_cache_bytes": decoder.kv_cache_bytes(),
+          "max_memory_gb": memory_gb,
+          "sample_tokens": {rid: done[rid][:6] for rid in ("long", "r0")}})
+    emit({"phase": "profile", **profile})
+    return launches
+
+
+def phase_llama_f32() -> dict:
+    """Full width at 2 layers in f32: the paged decoder's greedy tokens
+    against llama_greedy_decode (dense cache, plain attention).  A
+    mismatch whose reference top-2 logit gap is under 1e-4 is printed as
+    a tie; any other fails."""
+    import dataclasses
+
+    import numpy as np
+
+    from aiko_services_tpu_torch.models.llama import (
+        LLAMA_PRESETS, llama_forward, llama_greedy_decode, llama_init)
+    from aiko_services_tpu_torch.serving import ContinuousDecoder
+
+    # f32 products in full f32, no TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config = dataclasses.replace(LLAMA_PRESETS["1b"], num_layers=2,
+                                 dtype=torch.float32, max_seq_len=1024)
+    params = llama_init(torch.Generator(device="cuda").manual_seed(1),
+                        config)
+    decoder = ContinuousDecoder(params, config, **{**LLAMA_DECODER,
+                                                   "max_slots": 4})
+    rng = np.random.default_rng(2)
+    prompts = {f"f{n}": rng.integers(0, config.vocab, n).tolist()
+               for n in (20, 57, 100, 128)}
+    max_new = 24
+    done = {}
+    for rid, prompt in prompts.items():
+        decoder.submit(rid, prompt, max_new,
+                       lambda r, t: done.update({r: list(t)}))
+    while not decoder.idle:
+        decoder.pump()
+    ties, identical = [], 0
+    with torch.inference_mode():
+        for rid, prompt in prompts.items():
+            ref = llama_greedy_decode(
+                params, config, torch.tensor([prompt], device="cuda"),
+                max_tokens=max_new)[0].tolist()
+            got = done[rid]
+            if got == ref:
+                identical += 1
+                continue
+            i = next(j for j, (a, b) in enumerate(zip(got, ref)) if a != b)
+            logits = llama_forward(params, config, torch.tensor(
+                [prompt + ref[:i]], device="cuda"))[0, -1]
+            top2 = torch.topk(logits, 2).values
+            gap = (top2[0] - top2[1]).item()
+            if gap >= 1e-4:
+                raise AssertionError(
+                    f"f32 request {rid}: paged token {got[i]} != dense "
+                    f"{ref[i]} at step {i}, top-2 gap {gap}")
+            ties.append({"request": rid, "step": i, "gap": gap})
+    record = {"phase": "llama_f32", "requests": len(prompts),
+              "identical": identical, "ties": ties,
+              "pool_blocks_used": decoder.pool.used_blocks()}
+    emit(record)
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -454,9 +784,13 @@ def main() -> int:
     device = torch.device("cuda")
     generator = torch.Generator(device=device).manual_seed(0)
     records = phase_kernels(device, generator)
+    paged = phase_paged_kernel(generator)
     counts = phase_slice()
     for record in records:
         record["launches"] = counts[record["name"]]
+    paged["launches"] = phase_llama()
+    records.append(paged)
+    phase_llama_f32()
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -14,9 +14,11 @@ import torch
 
 import aiko_services_tpu_torch as port
 from aiko_services_tpu.elements.speech import save_flat_npz as jax_save
+from aiko_services_tpu.models import llama as JL
 from aiko_services_tpu.models import whisper as JW
 from aiko_services_tpu_torch import bridge
 from aiko_services_tpu_torch.compute import ComputeRuntime
+from aiko_services_tpu_torch.models import llama as TL
 from aiko_services_tpu_torch.models import whisper as TW
 from aiko_services_tpu_torch.ops import kernels
 
@@ -52,6 +54,39 @@ def test_params_cross_bit_exactly(dtype):
         np.testing.assert_array_equal(
             tensor.float().numpy(), flat[name.replace(".", "/")],
             err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_llama_params_cross_bit_exactly_and_round_trip(dtype, tmp_path):
+    """A LlamaConfig makes the bridge build a Llama: every leaf of the JAX
+    tree lands under its '.'-joined path with its exact bits, and the
+    flat-npz form carries the same leaves back out."""
+    config = JL.LlamaConfig(**{**JL.LLAMA_PRESETS["tiny"].__dict__,
+                               "dtype": getattr(jnp, dtype)})
+    params = jax.jit(functools.partial(JL.llama_init, config=config))(
+        jax.random.PRNGKey(0))
+    model = bridge.params_from_numpy(
+        jax.tree.map(np.asarray, params),
+        TL.LlamaConfig(**config.__dict__), device="cpu")
+    assert isinstance(model, TL.Llama)
+    flat = bridge.flatten_tree(params)
+    named = dict(model.named_parameters())
+    assert {name.replace(".", "/") for name in named} == set(flat)
+    for name, tensor in named.items():
+        assert tensor.dtype == getattr(torch, dtype)
+        np.testing.assert_array_equal(
+            tensor.float().numpy(), flat[name.replace(".", "/")],
+            err_msg=name)
+    path = str(tmp_path / "llama.npz")
+    bridge.save_flat_npz(model, path)
+    with np.load(path) as archive:
+        assert set(archive.files) == set(flat)
+        for key in archive.files:
+            np.testing.assert_array_equal(archive[key], flat[key])
+    del flat["lm_head/w"]
+    with pytest.raises(ValueError, match="missing"):
+        bridge.params_from_numpy(flat, TL.LlamaConfig(**config.__dict__),
+                                 device="cpu")
 
 
 def test_params_from_numpy_rejects_a_mismatched_tree():
@@ -122,7 +157,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 if root in ("jax", "jaxlib", "aiko_services_tpu"):
                     offenders.append(f"{path.relative_to(PACKAGE)}: {name}")
     assert not offenders, offenders
-    assert len(sources) >= 15
+    names = {str(path.relative_to(PACKAGE)) for path in sources}
+    assert {"models/llama.py", "ops/paged_attention.py", "serving.py",
+            "serving_paged.py"} <= names
+    assert len(sources) >= 19
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -160,9 +198,12 @@ def test_kernel_sources_export_the_entries_the_wrappers_bind():
     assert "aiko_flash_attention_bf16(" in sources["flash_attention"]
     assert "aiko_cross_decode_attention_bf16(" in \
         sources["cross_decode_attention"]
-    for text in sources.values():
+    assert "aiko_paged_decode_attention(" in sources["paged_decode_attention"]
+    for name, text in sources.items():
         assert 'extern "C"' in text and "aiko_error_string" in text
-        assert "Replaces: aiko_services_tpu/ops/attention.py" in text
+        module = "paged_attention" if name.startswith("paged") \
+            else "attention"
+        assert f"Replaces: aiko_services_tpu/ops/{module}.py" in text
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
     root = PACKAGE.parent
     assert "aiko_services_tpu_torch/_build/" in \

@@ -102,3 +102,121 @@ def test_cross_decode_kernel_matches_plain(card, t):
     assert A.launches["cross_decode_attention"] == before + 1
     assert out.shape == (b, h, 1, 64)
     _assert_close(out, A.cross_decode_attention_reference, q, k, v, CROSS)
+
+
+# -- paged decode attention ---------------------------------------------------
+# The kernel keeps f32 throughout and writes f32, so it is held against
+# its plain version run in f32 on the same input values: elementwise
+# |kernel - plain| <= 2^-12 * sum_j p_j |v_j| / l (f32 sums in another
+# order, exp2 with the scale folded into the query; thousands of times
+# the f32 rounding), and a relative L2 error under 1e-4 — one key dropped
+# or mis-weighted in a row of T <= 1024 moves that row by ~1/sqrt(T).
+PAGED = (2 ** -12, 1e-4)
+
+
+def _paged_case(generator, dtype, slots, num_kv, groups, width, block, nb,
+                side_len, entries):
+    """Pool, tables and side buffer of one case; entries[s] is slot s's
+    extent (0 on slot 0 also masks its query row 0 completely)."""
+    num_blocks = slots * nb + 3
+    shape = (num_blocks, num_kv, block, 64)
+    k_pool, v_pool = (torch.randn(shape, generator=generator, device="cuda")
+                      .to(dtype) for _ in range(2))
+    k_pool[0] = 0
+    v_pool[0] = 0
+    ids = torch.randperm(num_blocks - 1, generator=generator,
+                         device="cuda") + 1
+    tables = torch.zeros((slots, nb), dtype=torch.int32, device="cuda")
+    for s, entry in enumerate(entries):
+        used = -(-entry // block)
+        tables[s, :used] = ids[s * nb:s * nb + used].to(torch.int32)
+    q = torch.randn((slots, num_kv, groups * width, 64), generator=generator,
+                    device="cuda").to(dtype)
+    k_side, v_side = (torch.randn((slots, num_kv, side_len, 64),
+                                  generator=generator, device="cuda")
+                      .to(dtype) for _ in range(2))
+    side_valid = torch.rand((slots, width, side_len), generator=generator,
+                            device="cuda") < 0.6
+    side_valid[:, :, 0] = True
+    if entries[0] == 0:
+        side_valid[0, 0] = False
+    entry = torch.tensor(entries, dtype=torch.int32, device="cuda")
+    return q, k_pool, v_pool, tables, k_side, v_side, side_valid, entry
+
+
+def _assert_paged_close(out, operands, groups):
+    from aiko_services_tpu_torch.ops.paged_attention import \
+        paged_decode_attention_reference as plain
+    c, rel_l2_limit = PAGED
+    q, k_pool, v_pool, tables, k_side, v_side, side_valid, entry = operands
+    f32 = [x.float() for x in (q, k_pool, v_pool, k_side, v_side)]
+    scale = 0.125
+    ref = plain(f32[0], f32[1], f32[2], tables, f32[3], f32[4], side_valid,
+                entry, groups=groups, scale=scale)
+    magnitude = plain(f32[0], f32[1], f32[2].abs(), tables, f32[3],
+                      f32[4].abs(), side_valid, entry, groups=groups,
+                      scale=scale)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    err = (out - ref).abs()
+    assert (err - c * magnitude).max().item() <= 0, err.max().item()
+    assert (err.norm() / ref.norm()).item() <= rel_l2_limit
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("groups,width,block", [
+    (4, 1, 32), (1, 1, 8), (2, 3, 16), (4, 3, 8)])
+def test_paged_kernel_edges_match_plain(card, dtype, groups, width, block):
+    """Extents 0 (one row fully masked), a multiple of the block, one
+    ending inside a block; table entries past the extent on the null
+    block; a partial side mask."""
+    from aiko_services_tpu_torch.ops import paged_attention as P
+    generator = torch.Generator(device=card).manual_seed(groups * 31 + block)
+    nb = 4
+    entries = [0, 2 * block, block + 3, nb * block]
+    operands = _paged_case(generator, getattr(torch, dtype), 4, 2, groups,
+                           width, block, nb, 5, entries)
+    before = P.launches["paged_decode_attention"]
+    out = P.paged_decode_attention(*operands, groups=groups)
+    assert P.launches["paged_decode_attention"] == before + 1
+    assert out.shape == (4, 2, groups * width, 64)
+    _assert_paged_close(out, operands, groups)
+
+
+@pytest.mark.parametrize("slots,t_cap", [(2, 1024), (16, 256), (24, 512),
+                                         (40, 1024)])
+def test_paged_kernel_decode_shapes_match_plain(card, slots, t_cap):
+    """The Llama-1B decode shape (8 KV heads, G = 4, W = 1, B = 32, P = 16)
+    with S x Hkv below (16) and above (192, 320) the 132 SMs, T to 1024."""
+    from aiko_services_tpu_torch.ops import paged_attention as P
+    generator = torch.Generator(device=card).manual_seed(slots + t_cap)
+    nb = t_cap // 32
+    entries = torch.randint(1, t_cap + 1, (slots,), generator=generator,
+                            device=card).tolist()
+    operands = _paged_case(generator, torch.bfloat16, slots, 8, 4, 1, 32, nb,
+                           16, entries)
+    out = P.paged_decode_attention(*operands, groups=4)
+    _assert_paged_close(out, operands, 4)
+
+
+def test_paged_kernel_rejects_what_it_does_not_take(card):
+    from aiko_services_tpu_torch.ops import paged_attention as P
+    generator = torch.Generator(device=card).manual_seed(0)
+    operands = list(_paged_case(generator, torch.bfloat16, 2, 2, 4, 1, 8, 2,
+                                3, [5, 9]))
+    with pytest.raises(TypeError, match="one type"):
+        P.paged_decode_attention(operands[0].half(), *operands[1:],
+                                 groups=4)
+    wide = list(operands)
+    wide[0] = torch.zeros((2, 2, 4, 128), device=card,
+                          dtype=torch.bfloat16)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        P.paged_decode_attention(*wide, groups=4)
+    many = list(_paged_case(generator, torch.bfloat16, 2, 2, 65, 1, 8, 2, 3,
+                            [5, 9]))
+    with pytest.raises(ValueError, match="at most 64 query rows"):
+        P.paged_decode_attention(*many, groups=65)
+    ragged = list(operands)
+    ragged[3] = ragged[3][:1]
+    with pytest.raises(ValueError, match="tables has shape"):
+        P.paged_decode_attention(*ragged, groups=4)

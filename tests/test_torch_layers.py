@@ -241,3 +241,129 @@ def test_update_kv_cache_writes_at_the_cursor_and_clamps():
         np.testing.assert_array_equal(t_new["v"].numpy(),
                                       np.asarray(j_new["v"]))
         assert t_new["index"] == int(j_new["index"]) == index + 2
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rms_norm(dtype):
+    rng = _rng(20)
+    params = {"scale": 1 + 0.1 * rng.standard_normal(32)}
+    x = 3 + 2 * rng.standard_normal((2, 5, 32))
+    _close(TL.rms_norm(_torch(params, dtype), _torch(x, dtype)),
+           JL.rms_norm(_jax(params, dtype), _jax(x, dtype)), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_linear_logits_stay_f32(dtype):
+    rng = _rng(21)
+    params = _linear_params(rng, 24, 40, bias=False)
+    x = rng.standard_normal((2, 3, 24))
+    result = TL.linear_logits(_torch(params, dtype), _torch(x, dtype))
+    expected = JL.linear_logits(_jax(params, dtype), _jax(x, dtype))
+    assert result.dtype == torch.float32
+    np.testing.assert_allclose(result.numpy(), np.asarray(expected),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("offset", ["scalar", "per_example"])
+def test_rope_rotates_interleaved_pairs(dtype, offset):
+    rng = _rng(22)
+    x = rng.standard_normal((3, 2, 4, 16))
+    j_cos, j_sin = JL.rope_frequencies(16, 64, 500000.0)
+    t_cos, t_sin = TL.rope_frequencies(16, 64, 500000.0)
+    np.testing.assert_allclose(t_cos.numpy(), np.asarray(j_cos), atol=1e-6)
+    np.testing.assert_allclose(t_sin.numpy(), np.asarray(j_sin), atol=1e-6)
+    positions = np.array([0, 7, 40], np.int32)
+    t_offset = 5 if offset == "scalar" else torch.from_numpy(positions)
+    j_offset = 5 if offset == "scalar" else jnp.asarray(positions)
+    result = TL.apply_rope(_torch(x, dtype), t_cos, t_sin, t_offset)
+    assert result.dtype == getattr(torch, dtype)
+    _close(result, JL.apply_rope(_jax(x, dtype), j_cos, j_sin, j_offset),
+           dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_mha_gqa_with_rope_and_cache(dtype):
+    """Grouped-query attention (4 query heads over 2 KV heads, no biases)
+    with the RoPE hook, prefill then one cached step."""
+    rng = _rng(23)
+    dim, heads, kv_heads = 32, 4, 2
+    kv_dim = kv_heads * dim // heads
+    params = {"q": _linear_params(rng, dim, dim, False),
+              "k": _linear_params(rng, dim, kv_dim, False),
+              "v": _linear_params(rng, dim, kv_dim, False),
+              "o": _linear_params(rng, dim, dim, False)}
+    x = rng.standard_normal((2, 6, dim))
+    t_cos, t_sin = TL.rope_frequencies(8, 16)
+    j_cos, j_sin = JL.rope_frequencies(8, 16)
+    t_cache = TL.init_kv_cache(2, 8, kv_heads, 8, getattr(torch, dtype))
+    j_cache = JL.init_kv_cache(2, 8, kv_heads, 8, getattr(jnp, dtype))
+    for start, stop in ((0, 5), (5, 6)):
+        t_mask = j_mask = None
+        if stop - start > 1:
+            t_mask = (torch.arange(8)[None] <=
+                      torch.arange(start, stop)[:, None])[None, None]
+            j_mask = jnp.asarray(t_mask.numpy())
+
+        def t_rope(q, k, start=start):
+            return (TL.apply_rope(q, t_cos, t_sin, start),
+                    TL.apply_rope(k, t_cos, t_sin, start))
+
+        def j_rope(q, k, start=start):
+            return (JL.apply_rope(q, j_cos, j_sin, start),
+                    JL.apply_rope(k, j_cos, j_sin, start))
+
+        result, t_cache = TL.mha(
+            _torch(params, dtype), _torch(x[:, start:stop], dtype),
+            mask=t_mask, cache=t_cache, num_heads=heads,
+            num_kv_heads=kv_heads, qk_transform=t_rope)
+        expected, j_cache = JL.mha(
+            _jax(params, dtype), _jax(x[:, start:stop], dtype),
+            mask=j_mask, cache=j_cache, num_heads=heads,
+            num_kv_heads=kv_heads, qk_transform=j_rope)
+        _close(result, expected, dtype)
+
+
+def _pool_case(seed):
+    rng = _rng(seed)
+    pool = rng.standard_normal((6, 2, 4, 8)).astype(np.float32)
+    pool[0] = 0.0                                   # the null block
+    tables = np.array([[3, 1, 0], [5, 2, 4]], np.int32)
+    return rng, pool, tables
+
+
+def test_gather_paged_kv_matches_jax():
+    _, pool, tables = _pool_case(24)
+    result = TL.gather_paged_kv(torch.from_numpy(pool),
+                                torch.from_numpy(tables))
+    expected = JL.gather_paged_kv(jnp.asarray(pool), jnp.asarray(tables))
+    assert result.shape == (2, 2, 12, 8)
+    np.testing.assert_array_equal(result.numpy(), np.asarray(expected))
+
+
+def test_scatter_paged_rows_drops_out_of_range_ids_as_jax_does():
+    rng, pool, _ = _pool_case(25)
+    # row (1, 1) goes past the pool (id 6 == N) and must drop
+    dest = np.array([[3, 1], [5, 6]], np.int32)
+    offsets = np.array([[0, 3], [2, 1]], np.int32)
+    rows = rng.standard_normal((2, 2, 2, 8)).astype(np.float32)
+    t_pool = torch.from_numpy(pool.copy())
+    TL.scatter_paged_rows(t_pool, torch.from_numpy(dest),
+                          torch.from_numpy(offsets), torch.from_numpy(rows))
+    expected = JL.scatter_paged_rows(jnp.asarray(pool), jnp.asarray(dest),
+                                     jnp.asarray(offsets), jnp.asarray(rows))
+    np.testing.assert_array_equal(t_pool.numpy(), np.asarray(expected))
+    assert not t_pool[0].any()                      # null block untouched
+
+
+def test_write_paged_blocks_drops_invalid_rows_as_jax_does():
+    rng, pool, _ = _pool_case(26)
+    ids = np.array([[2, 4], [6, 6]], np.int32)      # row 1: a pad row
+    rows = rng.standard_normal((2, 2, 8, 8)).astype(np.float32)
+    t_pool = torch.from_numpy(pool.copy())
+    TL.write_paged_blocks(t_pool, torch.from_numpy(ids),
+                          torch.from_numpy(rows))
+    expected = JL.write_paged_blocks(jnp.asarray(pool), jnp.asarray(ids),
+                                     jnp.asarray(rows))
+    np.testing.assert_array_equal(t_pool.numpy(), np.asarray(expected))
+    assert not t_pool[0].any()
