@@ -23,7 +23,8 @@ __all__ = [
     "Params", "Linear", "LayerNorm", "RMSNorm", "Embedding", "Conv1d",
     "MHA", "linear", "linear_logits", "layer_norm", "rms_norm",
     "embedding", "conv1d", "mha", "precompute_kv", "quantize_kv",
-    "dequantize_kv", "init_kv_cache", "update_kv_cache", "gather_paged_kv",
+    "dequantize_kv", "quantize_kv_cache", "dequantize_kv_cache",
+    "init_kv_cache", "update_kv_cache", "gather_paged_kv",
     "paged_pool_planes", "scatter_paged_rows", "write_paged_blocks",
     "sinusoid_position_encoding", "rope_frequencies", "apply_rope", "gelu",
 ]
@@ -268,37 +269,70 @@ def dequantize_kv(kv, dtype):
     return kv
 
 
+def quantize_kv_cache(tensor):
+    """Symmetric int8 for the serving KV cache: one f32 scale per
+    (..., position), max|x| / 127 + 1e-12, values rounded half to even
+    (torch.round, as jnp.round) and clipped to [-127, 127].  Returns
+    {"q": int8 [..., T, D], "s": f32 [..., T]}."""
+    scale = tensor.abs().amax(dim=-1).float() / 127.0 + 1e-12
+    q = torch.clamp(torch.round(tensor.float() / scale[..., None]),
+                    -127, 127)
+    return {"q": q.to(torch.int8), "s": scale}
+
+
+def dequantize_kv_cache(kv, dtype):
+    """Inverse of quantize_kv_cache, in `dtype`: both factors cast, then
+    multiplied (in bf16 the product rounds to bf16, as JAX's does);
+    passes plain tensors through."""
+    if isinstance(kv, dict) and "q" in kv:
+        return kv["q"].to(dtype) * kv["s"][..., None].to(dtype)
+    return kv
+
+
 # -- paged KV block pool primitives -------------------------------------------
 # The paged serving cache (serving_paged.BlockPool) stores KV in one
-# [N, H, B, D] pool of B-token blocks per layer, addressed by per-slot
-# int32 block tables; block 0 is the null block (all zeros, never
-# allocated, never written).  Unlike the JAX functions these update the
-# pool IN PLACE.  Out-of-range destination ids DROP, as JAX's
+# [N, H, B, D] pool of B-token blocks per layer, or in the int8 serving
+# form {"q" int8 [N, H, B, D], "s" f32 [N, H, B]} (quantize_kv_cache),
+# addressed by per-slot int32 block tables; block 0 is the null block
+# (all zeros, never allocated, never written).  The functions below take
+# either form, the dict plane by plane.  Unlike the JAX functions they
+# update the pool IN PLACE.  Out-of-range destination ids DROP, as JAX's
 # mode="drop" does: a dropped row is redirected to block 0 at its own
-# offset and writes back what block 0 holds there, so the scatter keeps
-# its shape on the device (a boolean selection of the live rows would
-# stop the host until the device caught up).  Only int8 pool dicts are
-# not taken: they wait with the kernel's int8 variants (ROADMAP.md
-# Queue 2 item 3).
+# offset and writes back what block 0 holds there, in both planes, so
+# the scatter keeps its shape on the device (a boolean selection of the
+# live rows would stop the host until the device caught up).
 
 def paged_pool_planes(pool):
-    """(value plane, scale plane) of one pool leaf: native pools carry no
-    scale plane; the int8 {"q", "s"} serving form is not ported."""
+    """(value plane, scale plane or None) of one pool leaf: the int8
+    serving dict splits into its int8 values [N, H, B, D] and f32
+    per-position scales [N, H, B]; native pools carry no scale plane."""
     if isinstance(pool, dict):
-        raise NotImplementedError(
-            "int8 paged KV pools are not ported yet (ROADMAP.md Queue 2 "
-            "item 3)")
+        return pool["q"], pool["s"]
     return pool, None
+
+
+def _plane_pairs(pool, rows):
+    """[(pool plane, rows plane)] of a pool leaf and rows of its form."""
+    if isinstance(pool, dict) != isinstance(rows, dict):
+        raise TypeError("paged pool and rows differ in form: an int8 pool "
+                        "takes quantize_kv_cache rows, a native pool "
+                        "tensors")
+    if isinstance(pool, dict):
+        return [(pool["q"], rows["q"]), (pool["s"], rows["s"])]
+    return [(pool, rows)]
 
 
 def gather_paged_kv(pool, tables):
     """Slot-major view of a block pool: tables [S, nb] int32 → [S, H,
-    nb*B, D], position p of slot s read from pool[tables[s, p // B], :,
-    p % B].  Used by the paged kernel's plain version."""
-    pool, _ = paged_pool_planes(pool)
-    g = pool[tables.long()]                      # [S, nb, H, B, D]
-    s, nb, h, b, d = g.shape
-    return g.permute(0, 2, 1, 3, 4).reshape(s, h, nb * b, d)
+    nb*B, D] (the int8 dict: s [S, H, nb*B]), position p of slot s read
+    from pool[tables[s, p // B], :, p % B].  Used by the paged kernel's
+    plain version."""
+    if isinstance(pool, dict):
+        return {"q": gather_paged_kv(pool["q"], tables),
+                "s": gather_paged_kv(pool["s"], tables)}
+    g = pool[tables.long()]                      # [S, nb, H, B, (D)]
+    s, nb, h, b = g.shape[:4]
+    return g.transpose(1, 2).reshape(s, h, nb * b, *g.shape[4:])
 
 
 def _drop_to_null(pool, ids):
@@ -309,30 +343,34 @@ def _drop_to_null(pool, ids):
 
 def scatter_paged_rows(pool, dest_blocks, offsets, rows):
     """Scatter per-position rows into pool blocks, in place: rows [S, H,
-    W, D]; row (s, w) lands at pool[dest_blocks[s, w], :, offsets[s, w]]
-    (both [S, W]).  Out-of-range ids drop (inactive slots, positions past
-    the table)."""
-    pool, _ = paged_pool_planes(pool)
-    dest, keep = _drop_to_null(pool, dest_blocks)
+    W, D] (scales [S, H, W]); row (s, w) lands at pool[dest_blocks[s, w],
+    :, offsets[s, w]] (both [S, W]).  Out-of-range ids drop (inactive
+    slots, positions past the table)."""
     offsets = offsets.long()
-    vals = rows.permute(0, 2, 1, 3).to(pool.dtype)      # [S, W, H, D]
-    vals = torch.where(keep[..., None, None], vals, pool[dest, :, offsets])
-    pool[dest, :, offsets] = vals
+    for plane, values in _plane_pairs(pool, rows):
+        dest, keep = _drop_to_null(plane, dest_blocks)
+        vals = values.transpose(1, 2).to(plane.dtype)    # [S, W, H, (D)]
+        tail = (None,) * (vals.ndim - 2)
+        vals = torch.where(keep[(..., *tail)], vals,
+                           plane[dest, :, offsets])
+        plane[dest, :, offsets] = vals
 
 
 def write_paged_blocks(pool, block_ids, rows):
     """Whole-block scatter for the admit prefill, in place: rows [A, H,
-    nb*B, D] covers nb = block_ids.shape[1] blocks per admit row; block j
-    of row a lands at pool[block_ids[a, j]].  Invalid rows carry
-    out-of-range ids and drop."""
-    pool, _ = paged_pool_planes(pool)
-    ids, keep = _drop_to_null(pool, block_ids)
-    a, h, t, d = rows.shape
+    nb*B, D] (scales [A, H, nb*B]) cover nb = block_ids.shape[1] blocks
+    per admit row; block j of row a lands at pool[block_ids[a, j]].
+    Invalid rows carry out-of-range ids and drop."""
     nb = block_ids.shape[1]
-    vals = rows.reshape(a, h, nb, t // nb, d).permute(0, 2, 1, 3, 4)
-    vals = torch.where(keep[..., None, None, None], vals.to(pool.dtype),
-                       pool[ids])
-    pool[ids] = vals
+    for plane, values in _plane_pairs(pool, rows):
+        ids, keep = _drop_to_null(plane, block_ids)
+        a, h, t = values.shape[:3]
+        vals = values.reshape(a, h, nb, t // nb,
+                              *values.shape[3:]).transpose(1, 2)
+        tail = (None,) * (vals.ndim - 2)
+        vals = torch.where(keep[(..., *tail)], vals.to(plane.dtype),
+                           plane[ids])
+        plane[ids] = vals
 
 
 def _foldable(scale) -> bool:
@@ -425,8 +463,10 @@ def rope_frequencies(head_dim: int, max_len: int, theta: float = 10000.0,
     """RoPE cos/sin tables: each [max_len, head_dim // 2] f32."""
     exponents = torch.arange(0, head_dim, 2, device=device,
                              dtype=torch.float32) / head_dim
-    inv = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                       device=device), exponents)
+    # theta filled on the device: torch.tensor(theta, device=...) would
+    # be a host-to-device copy that synchronizes the stream
+    inv = 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                     device=device), exponents)
     angles = torch.arange(max_len, device=device,
                           dtype=torch.float32)[:, None] * inv[None, :]
     return torch.cos(angles), torch.sin(angles)

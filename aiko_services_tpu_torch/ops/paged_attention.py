@@ -2,10 +2,13 @@
 # the serving block pool through per-slot block tables, and its plain
 # version.
 #
-# Counterpart of aiko_services_tpu/ops/paged_attention.py (native pools;
-# the int8 pool variants wait, ROADMAP.md Queue 2 item 3).  The wrapper
-# takes its plain version only for tensors on the CPU; for a CUDA tensor
-# it launches the kernel (csrc/paged_decode_attention.cu) or raises.
+# Counterpart of aiko_services_tpu/ops/paged_attention.py in all three of
+# its numerics: native pools, and int8 pools with fold_scales True
+# (decode: the scales fold into scores and weights) or False (the
+# chunked-prefill extend: blocks dequantize in the compute dtype before
+# the dots).  The wrapper takes its plain version only for tensors on the
+# CPU; for a CUDA tensor it launches the kernel
+# (csrc/paged_decode_attention.cu) or raises.
 
 from __future__ import annotations
 
@@ -14,38 +17,61 @@ import ctypes
 import numpy as np
 import torch
 
-from ..models.layers import gather_paged_kv, paged_pool_planes
+from ..models.layers import (dequantize_kv_cache, gather_paged_kv,
+                             paged_pool_planes)
 from .kernels import check, entry, require_cuda
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_reference",
            "launches"]
 
-# kernel launches, counted by the wrapper where it launches its kernel
-launches = {"paged_decode_attention": 0}
+# kernel launches, counted by the wrapper where it launches its kernel,
+# one count per numerics variant
+launches = {"paged_decode_attention": 0,
+            "paged_decode_attention_int8_fold": 0,
+            "paged_decode_attention_int8_dequant": 0}
 
-# what the kernel takes (csrc/paged_decode_attention.cu)
+# what the kernel takes (csrc/paged_decode_attention.cu); more than 64
+# query rows per KV head are tiled 64 at a time over the grid
 _KERNEL_HEAD_DIM = 64
-_KERNEL_MAX_ROWS = 64            # groups * width query rows per KV head
 _KERNEL_MAX_BLOCK_TOKENS = 128
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+# the C entry's `mode`
+_NATIVE, _INT8_FOLD, _INT8_DEQUANT = 0, 1, 2
+_VARIANTS = {_NATIVE: "paged_decode_attention",
+             _INT8_FOLD: "paged_decode_attention_int8_fold",
+             _INT8_DEQUANT: "paged_decode_attention_int8_dequant"}
 
 
 def paged_decode_attention_reference(q, k_pool, v_pool, tables, k_side,
                                      v_side, side_valid, entry_lengths, *,
-                                     groups: int, scale: float):
+                                     groups: int, scale: float,
+                                     fold_scales: bool = True):
     """Plain version of the paged kernel with the JAX kernel's numerics:
     f32 scores, -1e30 masking of main positions >= entry_lengths and of
     invalid side entries, one softmax over the whole row, weights cast to
-    the values' dtype before the f32-accumulated PV products.  Shapes as
-    paged_decode_attention's; returns [S, Hkv, G*W, D] f32."""
+    the compute dtype (q's) before the f32-accumulated PV products.  Int8
+    pools: with fold_scales the int8 values are the dot operands, the
+    score takes * s_k after the scale and before the mask and the weight
+    * s_v before its cast; without, the pool dequantizes in the compute
+    dtype first (dequantize_kv_cache).  Shapes as paged_decode_attention's;
+    returns [S, Hkv, G*W, D] f32."""
     slots_n, _, gw, _ = q.shape
     width = gw // groups
     side_len = k_side.shape[2]
     k_main = gather_paged_kv(k_pool, tables)           # [S, Hkv, T, D]
     v_main = gather_paged_kv(v_pool, tables)
+    k_fold = v_fold = None
+    if isinstance(k_main, dict) and fold_scales:
+        k_fold, v_fold = k_main["s"][:, :, None], v_main["s"][:, :, None]
+        k_main, v_main = k_main["q"].to(q.dtype), v_main["q"].to(q.dtype)
+    else:
+        k_main = dequantize_kv_cache(k_main, q.dtype)
+        v_main = dequantize_kv_cache(v_main, q.dtype)
     main_t = k_main.shape[2]
     q32 = q.float()
     scores_main = torch.matmul(q32, k_main.float().transpose(-1, -2)) * scale
+    if k_fold is not None:
+        scores_main = scores_main * k_fold
     scores_side = torch.matmul(q32, k_side.float().transpose(-1, -2)) * scale
     main_valid = (torch.arange(main_t, device=q.device)[None] <
                   entry_lengths[:, None])[:, None, None, :]
@@ -56,28 +82,59 @@ def paged_decode_attention_reference(q, k_pool, v_pool, tables, k_side,
     scores = torch.cat([torch.where(main_valid, scores_main, masked),
                         torch.where(side_ok, scores_side, masked)], dim=-1)
     weights = torch.softmax(scores, dim=-1)
-    w_main = weights[..., :main_t].to(v_main.dtype).float()
+    w_main = weights[..., :main_t]
+    if v_fold is not None:
+        w_main = w_main * v_fold
+    w_main = w_main.to(q.dtype).float()
     w_side = weights[..., main_t:].to(v_side.dtype).float()
     return torch.matmul(w_main, v_main.float()) + \
         torch.matmul(w_side, v_side.float())
 
 
-def _check_operands(q, k_pool, v_pool, tables, k_side, v_side, side_valid,
+def _check_planes(k_pool, v_pool) -> tuple:
+    """(k values, k scales, v values, v scales) of the two pool leaves,
+    raising where the planes do not make one pool form."""
+    name = "paged_decode_attention"
+    kq, ks = paged_pool_planes(k_pool)
+    vq, vs = paged_pool_planes(v_pool)
+    if (ks is None) != (vs is None):
+        raise TypeError(f"{name}: k_pool and v_pool differ in form (one "
+                        f"int8 dict, one native tensor)")
+    for label, values, scales in (("k_pool", kq, ks), ("v_pool", vq, vs)):
+        if scales is None:
+            continue
+        if values.dtype != torch.int8 or scales.dtype != torch.float32:
+            raise TypeError(f"{name}: an int8 {label} holds int8 values "
+                            f"and float32 scales, got {values.dtype} and "
+                            f"{scales.dtype}")
+        if tuple(scales.shape) != tuple(values.shape[:-1]):
+            raise ValueError(f"{name}: {label} scale plane has shape "
+                             f"{tuple(scales.shape)}, expected "
+                             f"{tuple(values.shape[:-1])} (one scale per "
+                             f"position)")
+    return kq, ks, vq, vs
+
+
+def _check_operands(q, kq, ks, vq, vs, tables, k_side, v_side, side_valid,
                     entry_lengths, groups: int) -> None:
     name = "paged_decode_attention"
     slots_n, num_kv, gw, head_dim = q.shape
     width = gw // groups
-    num_blocks, _, block_tokens, _ = k_pool.shape
+    num_blocks, _, block_tokens, _ = kq.shape
     nb, side_len = tables.shape[1], k_side.shape[2]
+    pool_shape = (num_blocks, num_kv, block_tokens, head_dim)
     expected = {
-        "k_pool": (k_pool, (num_blocks, num_kv, block_tokens, head_dim)),
-        "v_pool": (v_pool, (num_blocks, num_kv, block_tokens, head_dim)),
+        "k_pool": (kq, pool_shape),
+        "v_pool": (vq, pool_shape),
         "tables": (tables, (slots_n, nb)),
         "k_side": (k_side, (slots_n, num_kv, side_len, head_dim)),
         "v_side": (v_side, (slots_n, num_kv, side_len, head_dim)),
         "side_valid": (side_valid, (slots_n, width, side_len)),
         "entry_lengths": (entry_lengths, (slots_n,)),
     }
+    if ks is not None:
+        expected["k_pool scales"] = (ks, pool_shape[:3])
+        expected["v_pool scales"] = (vs, pool_shape[:3])
     for label, (tensor, shape) in expected.items():
         if tuple(tensor.shape) != shape:
             raise ValueError(f"{name}: {label} has shape "
@@ -85,18 +142,23 @@ def _check_operands(q, k_pool, v_pool, tables, k_side, v_side, side_valid,
         if tensor.device != q.device:
             raise ValueError(f"{name}: {label} on {tensor.device}, q on "
                              f"{q.device}")
+    pool_dtype = q.dtype if ks is None else torch.int8
     if q.dtype not in _KERNEL_DTYPES or any(
-            t.dtype != q.dtype for t in (k_pool, v_pool, k_side, v_side)):
-        raise TypeError(f"{name}: the CUDA kernel takes q, pools and side "
-                        f"buffers of one type, bfloat16 or float32")
+            t.dtype != q.dtype for t in (k_side, v_side)) or any(
+            t.dtype != pool_dtype for t in (kq, vq)):
+        raise TypeError(f"{name}: the CUDA kernel takes q, side buffers and "
+                        f"native pools of one type, bfloat16 or float32 "
+                        f"(int8 pools: int8 values, float32 scales)")
     if tables.dtype != torch.int32 or entry_lengths.dtype != torch.int32 \
             or side_valid.dtype != torch.bool:
         raise TypeError(f"{name}: tables and entry_lengths must be int32 "
                         f"and side_valid bool")
-    for label, tensor in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+    for label, tensor in (("q", q), ("k_pool", kq), ("v_pool", vq),
                           ("k_side", k_side), ("v_side", v_side),
                           ("side_valid", side_valid),
-                          ("entry_lengths", entry_lengths)):
+                          ("entry_lengths", entry_lengths),
+                          *(() if ks is None else
+                            (("k_pool scales", ks), ("v_pool scales", vs)))):
         if not tensor.is_contiguous():
             raise ValueError(f"{name}: {label} must be contiguous")
     if tables.stride(1) != 1:
@@ -104,10 +166,6 @@ def _check_operands(q, k_pool, v_pool, tables, k_side, v_side, side_valid,
     if head_dim != _KERNEL_HEAD_DIM:
         raise ValueError(f"{name}: the CUDA kernel takes head dim "
                          f"{_KERNEL_HEAD_DIM}, got {head_dim}")
-    if gw > _KERNEL_MAX_ROWS:
-        raise ValueError(f"{name}: the CUDA kernel takes at most "
-                         f"{_KERNEL_MAX_ROWS} query rows (groups x width) "
-                         f"per KV head, got {gw}")
     if not 1 <= block_tokens <= _KERNEL_MAX_BLOCK_TOKENS:
         raise ValueError(f"{name}: the CUDA kernel takes 1 to "
                          f"{_KERNEL_MAX_BLOCK_TOKENS} tokens per block, "
@@ -123,21 +181,19 @@ def paged_decode_attention(q, k_pool, v_pool, tables, k_side, v_side,
     """Block-table-native decode attention over a paged KV pool.
 
     q:             [S, Hkv, G*W, D] grouped queries (G-major: row g*W + w)
-    k/v_pool:      one layer's pool [N, Hkv, B, D]
+    k/v_pool:      one layer's pool [N, Hkv, B, D], or the int8 serving
+                   dict {"q" int8 [N, Hkv, B, D], "s" f32 [N, Hkv, B]}
     tables:        [S, nb] int32 block ids (unfilled entries point at the
                    null block; positions past entry_lengths are masked)
-    k/v_side:      [S, Hkv, P, D] this round's side buffers
+    k/v_side:      [S, Hkv, P, D] this round's side buffers, in q's dtype
     side_valid:    [S, W, P] bool, per-query side visibility
     entry_lengths: [S] int32 read-only main extent per slot
 
-    Returns [S, Hkv, G*W, D] f32.  The JAX signature: `fold_scales`
-    chooses between the int8 pools' two numerics, and int8 pools raise
-    NotImplementedError here (ROADMAP.md Queue 2 item 3), so with the
-    native pools taken it selects nothing.  On the card the kernel takes
-    bf16 or f32 with D = 64, G*W <= 64 and B <= 128 (contiguous operands;
-    the table may be a column slice)."""
-    k_pool, _ = paged_pool_planes(k_pool)
-    v_pool, _ = paged_pool_planes(v_pool)
+    Returns [S, Hkv, G*W, D] f32.  fold_scales chooses between the int8
+    pools' two numerics (paged_decode_attention_reference); native pools
+    ignore it.  On the card the kernel takes bf16 or f32 with D = 64 and
+    B <= 128 (contiguous operands; the table may be a column slice)."""
+    kq, ks, vq, vs = _check_planes(k_pool, v_pool)
     slots_n, num_kv, gw, head_dim = q.shape
     if gw % groups:
         raise ValueError(f"paged_decode_attention: {gw} query rows do not "
@@ -148,13 +204,16 @@ def paged_decode_attention(q, k_pool, v_pool, tables, k_side, v_side,
     if q.device.type == "cpu":
         return paged_decode_attention_reference(
             q, k_pool, v_pool, tables, k_side, v_side, side_valid,
-            entry_lengths, groups=groups, scale=scale)
+            entry_lengths, groups=groups, scale=scale,
+            fold_scales=fold_scales)
     require_cuda("paged_decode_attention", q)
-    _check_operands(q, k_pool, v_pool, tables, k_side, v_side, side_valid,
+    _check_operands(q, kq, ks, vq, vs, tables, k_side, v_side, side_valid,
                     entry_lengths, groups)
+    mode = _NATIVE if ks is None else (_INT8_FOLD if fold_scales
+                                       else _INT8_DEQUANT)
     library, function = entry(
         "paged_decode_attention", "aiko_paged_decode_attention",
-        [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_longlong] +
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_longlong] +
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float,
                                                       ctypes.c_void_p])
     out = torch.empty((slots_n, num_kv, gw, head_dim), dtype=torch.float32,
@@ -162,12 +221,14 @@ def paged_decode_attention(q, k_pool, v_pool, tables, k_side, v_side,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = function(
-            int(q.dtype == torch.bfloat16), q.data_ptr(), k_pool.data_ptr(),
-            v_pool.data_ptr(), tables.data_ptr(), tables.stride(0),
-            k_side.data_ptr(), v_side.data_ptr(), side_valid.data_ptr(),
+            int(q.dtype == torch.bfloat16), mode, q.data_ptr(),
+            kq.data_ptr(), 0 if ks is None else ks.data_ptr(),
+            vq.data_ptr(), 0 if vs is None else vs.data_ptr(),
+            tables.data_ptr(), tables.stride(0), k_side.data_ptr(),
+            v_side.data_ptr(), side_valid.data_ptr(),
             entry_lengths.data_ptr(), out.data_ptr(), slots_n, num_kv, gw,
-            gw // groups, tables.shape[1], k_pool.shape[2], k_side.shape[2],
+            gw // groups, tables.shape[1], kq.shape[2], k_side.shape[2],
             head_dim, float(scale), stream)
-    launches["paged_decode_attention"] += 1
+    launches[_VARIANTS[mode]] += 1
     check(library, "paged_decode_attention", code)
     return out

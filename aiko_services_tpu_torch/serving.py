@@ -2,13 +2,14 @@
 #
 # Counterpart of aiko_services_tpu/serving.py's ContinuousDecoder in the
 # one mode this port has: paged_kv=True with the paged decode-attention
-# kernel (the JAX package's ATTENTION_IMPL="paged_kernel"), a native
-# dtype pool, bucketed single-shot prefill, greedy decoding and a dense
+# kernel (the JAX package's ATTENTION_IMPL="paged_kernel"), a native or
+# int8 pool (kv_cache_dtype), bucketed single-shot prefill and chunked
+# prefill (prefill_chunk, prefill_budget), greedy decoding and a dense
 # SwiGLU FFN.  The scheduling is the JAX decoder's: decode-first rounds of
-# up to steps_per_sync steps, admits dispatched behind the round's decode
-# steps and resolved at the next round's sync, one host sync per round.
-# Every other mode of the JAX decoder raises NotImplementedError naming
-# the ROADMAP.md item that brings it.
+# up to steps_per_sync steps, admits and chunk extends dispatched behind
+# the round's decode steps and resolved at the next round's sync, one
+# host sync per round.  Every other mode of the JAX decoder raises
+# NotImplementedError naming the ROADMAP.md item that brings it.
 
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ from . import resolve_device
 from .models import layers as L
 from .models.llama import LlamaConfig, llama_ffn
 from .observe.metrics import MirroredStats, default_registry
-from .serving_paged import BlockPool, _build_paged_step, _paged_admit
+from .serving_paged import (BlockPool, _build_paged_step, _paged_admit,
+                            _paged_extend)
 
 __all__ = ["ContinuousDecoder", "DecodeRequest", "measure_device_step"]
 
@@ -32,6 +34,33 @@ __all__ = ["ContinuousDecoder", "DecodeRequest", "measure_device_step"]
 def _not_ported(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
+
+
+def _to_device(device: torch.device, *arrays) -> list:
+    """Send small host int and bool arrays to `device` in ONE copy.  On
+    the card they are packed into a fresh pinned buffer and copied with
+    non_blocking=True, so the host does not wait for the work queued on
+    the stream (a copy from pageable memory synchronizes the stream).  A
+    fresh buffer per call: the caching host allocator keeps it until
+    its copy has run, so reused numpy scratch can change meanwhile.
+    Returns one tensor per array, of its shape: bool stays bool, every
+    other array comes back int32."""
+    # each piece starts on a 16-byte boundary
+    sizes = [np.asarray(a).size for a in arrays]
+    starts = np.concatenate([[0], np.cumsum([-(-n // 4) * 4
+                                             for n in sizes])])
+    flat = np.zeros((int(starts[-1]),), np.int32)
+    for a, start, n in zip(arrays, starts, sizes):
+        flat[start:start + n] = np.asarray(a).reshape(-1)
+    host = torch.from_numpy(flat)
+    if device.type == "cuda":
+        host = host.pin_memory()
+    flat_dev = host.to(device, non_blocking=True)
+    out = []
+    for a, start, n in zip(arrays, starts, sizes):
+        piece = flat_dev[start:start + n].view(np.shape(a))
+        out.append(piece.bool() if np.asarray(a).dtype == bool else piece)
+    return out
 
 
 def measure_device_step(decoder, steps_per_sync: int = 64,
@@ -47,6 +76,10 @@ class DecodeRequest:
     callback: Callable                # callback(request_id, token_list)
     generated: list = dataclasses.field(default_factory=list)
     slot: int = -1
+    # chunked prefill: the slot is held while the prompt streams in
+    # prefill_chunk tokens per round; prefill_pos of it are written
+    prefilling: bool = False
+    prefill_pos: int = 0
 
 
 def _project_qkv(layer, config: LlamaConfig, x):
@@ -80,9 +113,10 @@ class ContinuousDecoder:
 
     submit() enqueues a request; call pump() until idle.  Each round,
     decode-first: run up to steps_per_sync decode steps for every live
-    slot, dispatch bucketed admits behind them, fetch the round's
-    emissions and earlier rounds' admit outputs in one host transfer,
-    deliver tokens and retire finished slots through their callbacks.
+    slot, dispatch bucketed admits and prompt chunks behind them, fetch
+    the round's emissions and earlier rounds' admit and extend outputs
+    in one host transfer, deliver tokens and retire finished slots
+    through their callbacks.
 
     params: the port's Llama (models/llama.py) on `device`; device None
     means the CUDA card, "cpu" runs the kernels' plain versions."""
@@ -106,13 +140,12 @@ class ContinuousDecoder:
             raise ValueError(
                 f"kv_cache_dtype must be None/'native'/'int8', got "
                 f"{kv_cache_dtype!r}")
-        if dtype_norm == "int8":
-            _not_ported("the int8 KV cache (kv_cache_dtype='int8')", "11")
+        # int8 KV: the pool stores int8 values with per-(block, head,
+        # position) f32 scales; greedy outputs are not those of the
+        # native pool (the stored K/V are rounded), so it is opt-in
+        self.kv_int8 = dtype_norm == "int8"
         if speculate_k:
             _not_ported("speculative decoding (speculate_k)", "11")
-        if prefill_chunk or prefill_budget:
-            _not_ported("chunked prefill (prefill_chunk, prefill_budget)",
-                        "11")
         if prefix_cache is not None:
             _not_ported("the prefix cache (prefix_cache)", "11")
         if weight_quant or fuse_projections:
@@ -130,6 +163,22 @@ class ContinuousDecoder:
         self.max_seq = max_seq or config.max_seq_len
         self.eos_token = eos_token
         self.steps_per_sync = steps_per_sync
+        # chunked prefill: prompts longer than the largest bucket take a
+        # slot at once and prefill `prefill_chunk` tokens per round, so a
+        # long prompt stalls the decoding slots by about one chunk, not
+        # its whole length; also lifts the prompt cap from the largest
+        # bucket to max_seq - 1.  None: bucketed single-shot prefill only
+        self.prefill_chunk = int(prefill_chunk) if prefill_chunk else None
+        if self.prefill_chunk is not None and not \
+                (1 <= self.prefill_chunk <= self.max_seq - 1):
+            raise ValueError(
+                f"prefill_chunk must be in [1, {self.max_seq - 1}], "
+                f"got {self.prefill_chunk}")
+        # per-round prefill token budget: bucketed admits stop (FIFO, no
+        # reordering) and chunk advances are rationed once a round has
+        # dispatched this much prefill work.  None: unbounded
+        self.prefill_budget = int(prefill_budget) if prefill_budget \
+            else None
         # granularity of the attention time-axis cap: each round reads
         # the blocks covering t_cap, the smallest multiple of t_block
         # covering the longest active context
@@ -145,7 +194,7 @@ class ContinuousDecoder:
         # (max_seq + the round merge's headroom)
         self._table_blocks = -(-(self.max_seq + steps_per_sync) // block)
         self.pool = BlockPool(
-            config, block, False,
+            config, block, self.kv_int8,
             initial_blocks=max_slots * (-(-self._cache_t // block)),
             grow_blocks=max(1, max_slots * self.t_block // block),
             name=name, registry=registry, device=self.device)
@@ -174,11 +223,16 @@ class ContinuousDecoder:
             {"steps": 0, "rounds": 0, "completed": 0, "prefills": 0,
              "occupancy_sum": 0.0, "prefill_s": 0.0, "decode_s": 0.0,
              "useful_steps": 0, "wasted_steps": 0, "tokens_decode": 0,
-             "tokens_prefill": 0},
+             "tokens_prefill": 0, "prefill_chunks": 0, "chunk_admits": 0,
+             "round_prefill_tokens_max": 0},
             metric="serving_decoder_total",
             help="continuous-decoder events by kind",
             registry=self._registry,
-            skip=("occupancy_sum", "prefill_s", "decode_s"))
+            skip=("occupancy_sum", "prefill_s", "decode_s",
+                  "round_prefill_tokens_max"))
+        # prefill tokens dispatched in the current round (the budget's
+        # account)
+        self._round_prefill_tokens = 0
 
     # -- public API --------------------------------------------------------
     def submit(self, request_id: str, prompt, max_new_tokens: int,
@@ -188,8 +242,9 @@ class ContinuousDecoder:
                kv_blocks: tuple | None = None,
                progress_callback=None) -> bool:
         """Enqueue one request; its callback(request_id, tokens) fires
-        at retire.  Prompts keep their tail up to the largest bucket;
-        an empty prompt becomes one pad token.  Returns True."""
+        at retire.  Prompts keep their tail up to the largest bucket
+        (up to max_seq - 1 with chunked prefill); an empty prompt becomes
+        one pad token.  Returns True."""
         if deadline is not None:
             _not_ported("deadline-aware admission (deadline)", "11")
         if tenant is not None:
@@ -198,7 +253,10 @@ class ContinuousDecoder:
                 progress_callback is not None:
             _not_ported("disaggregated prefill (prefill_label, kv_blocks, "
                         "progress_callback)", "13")
-        limit = min(self.max_seq - 1, self.prefill_buckets[-1])
+        if self.prefill_chunk:
+            limit = self.max_seq - 1
+        else:
+            limit = min(self.max_seq - 1, self.prefill_buckets[-1])
         prompt = [int(t) for t in prompt] or [0]
         self._pending.append(DecodeRequest(
             request_id, prompt[-limit:], int(max_new_tokens), callback))
@@ -279,8 +337,8 @@ class ContinuousDecoder:
         """The device block table [S, nb], copied again only when the
         host tables changed or the width moved."""
         if self._tables_dirty or nb != self._tables_dev_nb:
-            self._tables_dev = torch.tensor(self._tables_np[:, :nb],
-                                            device=self.device)
+            self._tables_dev, = _to_device(self.device,
+                                           self._tables_np[:, :nb])
             self._tables_dev_nb = nb
             self._tables_dirty = False
         return self._tables_dev
@@ -306,16 +364,44 @@ class ContinuousDecoder:
 
     def _admit_pending(self) -> None:
         """Admit as many pending requests as there are free slots, in
-        FIFO order, through bucketed single-shot prefill groups."""
+        FIFO order.  Prompts longer than the largest bucket (only with
+        prefill_chunk set) take a slot here and stream in chunks
+        (_advance_prefills); the others go through bucketed single-shot
+        prefill groups.  With prefill_budget set, bucketed admission
+        stops for the round once the budget is spent: later arrivals
+        wait rather than stall the decoding slots."""
         free = [s for s in range(self.max_slots) if self._slots[s] is None]
         if not free or not self._pending:
             return
         groups: dict[int, list[DecodeRequest]] = {}
-        taken = min(len(free), len(self._pending))
-        for request in self._pending[:taken]:
-            groups.setdefault(self._bucket_for(len(request.prompt)),
-                              []).append(request)
+        chunked: list[DecodeRequest] = []
+        taken = 0
+        for request in self._pending:
+            if taken >= len(free):
+                break
+            if self.prefill_chunk and \
+                    len(request.prompt) > self.prefill_buckets[-1]:
+                chunked.append(request)
+            else:
+                bucket = self._bucket_for(len(request.prompt))
+                if self.prefill_budget is not None and \
+                        self._round_prefill_tokens > 0 and \
+                        self._round_prefill_tokens + bucket > \
+                        self.prefill_budget:
+                    break        # FIFO: defer, don't reorder past it
+                self._round_prefill_tokens += bucket
+                groups.setdefault(bucket, []).append(request)
+            taken += 1
         self._pending = self._pending[taken:]
+        for request in chunked:
+            slot = free.pop(0)
+            request.slot = slot
+            request.prefilling = True
+            request.prefill_pos = 0
+            self._slots[slot] = request
+            self.stats["chunk_admits"] += 1
+        if not groups:
+            return
         # grow-only here (admits write [:bucket]); the round planner owns
         # shrinking, with every active context in view
         self._fit_caches(max(max(groups), self._cache_t))
@@ -363,16 +449,11 @@ class ContinuousDecoder:
             self._pending[:0] = chunk
             raise
         tables_rows[len(slots):] = 0
-        device = self.device
         firsts = _paged_admit(
             self.params, self.config, self.pool.k_pools, self.pool.v_pools,
             self._tokens, self._lengths,
-            torch.tensor(prompts, device=device),
-            torch.tensor(true_lens, device=device),
-            torch.tensor(slots + pad_slots, dtype=torch.int32,
-                         device=device),
-            torch.tensor(valid, device=device),
-            torch.tensor(tables_rows, device=device))
+            *_to_device(self.device, prompts, true_lens, slots + pad_slots,
+                        valid, tables_rows))
         # no host sync here: the request is live with its first token
         # owed; the stashed wave resolves it at the NEXT round's sync
         wave = []
@@ -384,6 +465,103 @@ class ContinuousDecoder:
             self.stats["tokens_prefill"] += len(request.prompt)
             wave.append((j, request))
         self._admit_waves.append((firsts, wave))
+
+    def _advance_prefills(self) -> None:
+        """Run one prompt chunk for the mid-prefill slots, batched in
+        pow2 widths.  The slots closest to completion go first, so
+        prompts in flight finish (and start emitting) sooner;
+        prefill_budget rations how many rows advance per round (the
+        first always does)."""
+        rows = [s for s in range(self.max_slots)
+                if self._slots[s] is not None and self._slots[s].prefilling]
+        if not rows:
+            return
+        rows.sort(key=lambda s: len(self._slots[s].prompt) -
+                  self._slots[s].prefill_pos)      # fewest remaining first
+        chunk = self.prefill_chunk
+        need = 0
+        spent = self._round_prefill_tokens
+        plans = []
+        for slot in rows:
+            request = self._slots[slot]
+            total = len(request.prompt)
+            if self.prefill_budget is not None and plans and \
+                    spent + chunk > self.prefill_budget:
+                break
+            spent += chunk
+            if total - request.prefill_pos > chunk:
+                offset, finish = request.prefill_pos, False
+            else:
+                # the final chunk slides BACK to end exactly at the
+                # prompt's tail: the overlap recomputes K/V of the same
+                # positions, and offset + chunk stays within the prompt
+                offset, finish = max(0, total - chunk), True
+            plans.append((slot, request, offset, finish))
+            # the write extent is offset + chunk (a prompt shorter than
+            # one chunk pads: decode overwrites that tail before it is
+            # ever attended)
+            need = max(need, offset + chunk)
+        # grow-only: never let a decode-side shrink cut below the writes
+        self._fit_caches(max(need, self._cache_t))
+        start = time.perf_counter()
+        while plans:
+            width = min(self.max_slots, self._next_pow2(len(plans)))
+            batch, plans = plans[:width], plans[width:]
+            self._extend_group(chunk, width, batch)
+        self.stats["prefill_s"] += time.perf_counter() - start
+
+    def _extend_group(self, chunk: int, width: int, batch: list) -> None:
+        """Dispatch one chunk extend for `batch` [(slot, request, offset,
+        finish)] at `width` rows (pad rows on distinct spare slots, null
+        tables, offset 0).  Rows that finish their prompt owe their
+        first token, resolved from the stashed wave at the next round's
+        sync."""
+        n = len(batch)
+        slots = [slot for slot, *_ in batch]
+        used = set(slots)
+        pad_slots = [s for s in range(self.max_slots)
+                     if s not in used][:width - n]
+        chunk_tokens = np.zeros((width, chunk), np.int32)
+        offsets = np.zeros((width,), np.int32)
+        final_idx = np.zeros((width,), np.int32)
+        valid = np.zeros((width,), bool)
+        finish_rows = np.zeros((width,), bool)
+        for j, (slot, request, offset, finish) in enumerate(batch):
+            piece = request.prompt[offset:offset + chunk]
+            chunk_tokens[j, :len(piece)] = piece
+            offsets[j] = offset
+            final_idx[j] = len(request.prompt) - 1 - offset if finish \
+                else 0
+            valid[j] = True
+            finish_rows[j] = finish
+            self._ensure_coverage(slot, offset + chunk)
+        nbt = -(-self._cache_t // self.kv_block)
+        tables_rows = self._tables_scratch[:width, :nbt]
+        for j, slot in enumerate(slots):
+            tables_rows[j] = self._tables_np[slot, :nbt]
+        tables_rows[n:] = 0                       # pad rows stay null
+        firsts = _paged_extend(
+            self.params, self.config, self.pool.k_pools, self.pool.v_pools,
+            self._tokens, self._lengths,
+            *_to_device(self.device, chunk_tokens, offsets,
+                        slots + pad_slots, valid, finish_rows, final_idx,
+                        tables_rows), t_cap=self._cache_t)
+        wave = []
+        for j, (slot, request, offset, finish) in enumerate(batch):
+            new_pos = len(request.prompt) if finish else offset + chunk
+            self.stats["tokens_prefill"] += max(0,
+                                                new_pos - request.prefill_pos)
+            request.prefill_pos = new_pos
+            if finish:
+                request.prefilling = False
+                request.generated = []            # first token owed
+                wave.append((j, request))
+            self.stats["prefill_chunks"] += 1
+            self._round_prefill_tokens += chunk
+        if wave:
+            # resolved at the NEXT round's sync: the extend runs behind
+            # this round's decode steps
+            self._admit_waves.append((firsts, wave))
 
     def _finished(self, request: DecodeRequest, token: int) -> bool:
         return (self.eos_token is not None and token == self.eos_token) \
@@ -461,17 +639,26 @@ class ContinuousDecoder:
     def pump(self) -> None:
         """One scheduling round, decode-first: run the decode steps,
         start the host copy of their emissions (and of earlier rounds'
-        admit outputs), THEN dispatch admits so they run on the device
-        while the host waits; resolve earlier admits' first tokens,
-        deliver this round's emissions, retire finished slots."""
+        admit and extend outputs), THEN dispatch admits and chunk
+        extends so they run on the device while the host waits; resolve
+        earlier admits' first tokens, deliver this round's emissions,
+        retire finished slots."""
+        self._round_prefill_tokens = 0
+        # mid-prefill slots hold a slot but do not decode yet
         active = self._active_np
         for slot in range(self.max_slots):
-            active[slot] = self._slots[slot] is not None
+            request = self._slots[slot]
+            active[slot] = request is not None and not request.prefilling
         waves_due, self._admit_waves = self._admit_waves, []
         scanned = False
         if active.any():
             occupied = [s for s in range(self.max_slots) if active[s]]
             num_steps, required_t, budgets = self._round_plan(occupied)
+            # never shrink the extent below a mid-prefill slot's written
+            # positions: the decoding slots alone may need less
+            for request in self._slots:
+                if request is not None and request.prefilling:
+                    required_t = max(required_t, request.prefill_pos)
             self._fit_caches(required_t)
             # a slot with budget 0 (satisfied by its owed first token)
             # needs no decode
@@ -488,8 +675,7 @@ class ContinuousDecoder:
             tables = self._prepare_round_tables(occupied, num_steps)
             emitted, emitted_active, self._tokens, self._lengths = \
                 self._step(self.params, self._tokens, self._lengths,
-                           torch.tensor(scan_active, device=self.device),
-                           torch.tensor(budgets, device=self.device),
+                           *_to_device(self.device, scan_active, budgets),
                            self.pool.k_pools, self.pool.v_pools, tables,
                            num_steps=num_steps, eos=eos,
                            t_cap=self._cache_t)
@@ -497,6 +683,10 @@ class ContinuousDecoder:
             fetch = [emitted, emitted_active] + fetch
         transfer = self._start_fetch(fetch) if fetch else None
         self._admit_pending()
+        self._advance_prefills()
+        self.stats["round_prefill_tokens_max"] = max(
+            self.stats["round_prefill_tokens_max"],
+            self._round_prefill_tokens)
         host = self._finish_fetch(transfer) if transfer else []
         if scanned:
             emitted = host[0].reshape(num_steps, self.max_slots)

@@ -1,12 +1,12 @@
-# Paged KV block pool and the paged decode programs of ContinuousDecoder.
+# Paged KV block pool and the paged programs of ContinuousDecoder.
 #
 # Counterpart of aiko_services_tpu/serving_paged.py, the part the paged
-# kernel path runs with a native-dtype pool: the BlockPool allocator, the
+# kernel path runs: the BlockPool allocator (native or int8 pools), the
 # kernel attention of the decode step, the round-end side-buffer merge,
-# and the bucketed admit.  The gather oracle (_gather_views with the
-# shared slot attention) is not ported: on the card the kernel is the
-# only paged decode path, and on the CPU its plain version plays the
-# oracle's part.
+# the bucketed admit, and the chunked-prefill extend.  The gather oracle
+# (_gather_views with the shared slot attention) is not ported: on the
+# card the kernel is the only paged path, and on the CPU its plain
+# version plays the oracle's part.
 #
 # From JAX to PyTorch: the JAX programs are functional and jitted; here
 # they run eagerly and update the pools, the side buffers and the token
@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from . import resolve_device
 from .models import layers as L
-from .models.llama import LlamaConfig
+from .models.llama import LlamaConfig, llama_ffn
 from .observe.metrics import MirroredStats, default_registry
 
 __all__ = ["BlockPool"]
@@ -37,9 +37,12 @@ class BlockPool:
 
     One pool id addresses one `block_tokens`-token block across the
     whole model: k_pools[i][id] / v_pools[i][id] are layer i's K/V rows
-    for that block ([H, B, D]).  Block 0 is the reserved null block (all
-    zeros, never allocated): unfilled table entries point at it, so reads
-    stay in bounds and see only masked positions.
+    for that block ([H, B, D]).  With kv_int8 each layer's pool is the
+    int8 serving form {"q": int8 [N, H, B, D], "s": f32 [N, H, B]}
+    (layers.quantize_kv_cache), indexed plane by plane.  Block 0 is the
+    reserved null block (all zeros, never allocated): unfilled table
+    entries point at it, so reads stay in bounds and see only masked
+    positions.
 
     Refcounts count logical owners (slot tables).  alloc_blocks() hands
     out refs=1 ids, growing the device arrays geometrically when the free
@@ -47,17 +50,14 @@ class BlockPool:
     zero return the id to the free list with its contents left in place
     (stale rows are only ever read at masked positions until the next
     owner overwrites them).  Single-threaded like the decoder that owns
-    it.  The int8 pool form is not ported (ROADMAP.md Queue 1 item 11)."""
+    it."""
 
     def __init__(self, config: LlamaConfig, block_tokens: int,
                  kv_int8: bool, initial_blocks: int = 64,
                  grow_blocks: int = 64, name: str = "pool",
                  registry=None, device=None):
-        if kv_int8:
-            raise NotImplementedError(
-                "int8 paged KV pools are not ported yet (ROADMAP.md "
-                "Queue 1 item 11)")
         self.config = config
+        self.kv_int8 = bool(kv_int8)
         self.block_tokens = int(block_tokens)
         if self.block_tokens < 1:
             raise ValueError(
@@ -101,14 +101,31 @@ class BlockPool:
         config = self.config
         shape = (n, config.num_kv_heads, self.block_tokens,
                  config.head_dim)
-        return [torch.zeros(shape, dtype=config.dtype, device=self.device)
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        if self.kv_int8:
+            return [{"q": zeros(shape, torch.int8),
+                     "s": zeros(shape[:3], torch.float32)}
+                    for _ in range(config.num_layers)]
+        return [zeros(shape, config.dtype)
                 for _ in range(config.num_layers)]
+
+    @staticmethod
+    def _map_leaves(pools, fn) -> list:
+        """fn applied to every plane of every layer's leaf, the int8 dict
+        form kept."""
+        return [{key: fn(plane) for key, plane in pool.items()}
+                if isinstance(pool, dict) else fn(pool) for pool in pools]
 
     def nbytes(self) -> int:
         """Bytes allocated to the pool device arrays."""
-        return sum(pool.numel() * pool.element_size()
+        return sum(plane.numel() * plane.element_size()
                    for pools in (self.k_pools, self.v_pools)
-                   for pool in pools)
+                   for pool in pools
+                   for plane in (pool.values() if isinstance(pool, dict)
+                                 else (pool,)))
 
     def _grow(self, need: int) -> None:
         # geometric growth (at least doubling): every growth copies the
@@ -117,13 +134,12 @@ class BlockPool:
         extra = max(extra, self.num_blocks - 1)
         old_n, new_n = self.num_blocks, self.num_blocks + extra
 
-        def grow(pools):
-            return [torch.cat([pool, pool.new_zeros((extra,
-                                                     *pool.shape[1:]))])
-                    for pool in pools]
+        def grow(plane):
+            return torch.cat([plane, plane.new_zeros((extra,
+                                                      *plane.shape[1:]))])
 
-        self.k_pools = grow(self.k_pools)
-        self.v_pools = grow(self.v_pools)
+        self.k_pools = self._map_leaves(self.k_pools, grow)
+        self.v_pools = self._map_leaves(self.v_pools, grow)
         self._free.extend(range(new_n - 1, old_n - 1, -1))
         self._refs = np.concatenate([self._refs,
                                      np.zeros((extra,), np.int32)])
@@ -158,8 +174,10 @@ class BlockPool:
         if released * 2 < self.num_blocks:
             return 0
         # clone: a slice would keep the whole old storage alive
-        self.k_pools = [pool[:keep].clone() for pool in self.k_pools]
-        self.v_pools = [pool[:keep].clone() for pool in self.v_pools]
+        self.k_pools = self._map_leaves(self.k_pools,
+                                        lambda plane: plane[:keep].clone())
+        self.v_pools = self._map_leaves(self.v_pools,
+                                        lambda plane: plane[:keep].clone())
         self._free = [i for i in self._free if i < keep]
         self._refs = self._refs[:keep]
         self.num_blocks = keep
@@ -248,10 +266,24 @@ class BlockPool:
 
 # -- the decode step: paged kernel attention --------------------------------
 
+def _pool_dims(pool) -> tuple:
+    """(blocks, tokens per block) of one layer's pool leaf."""
+    values, _ = L.paged_pool_planes(pool)
+    return values.shape[0], values.shape[2]
+
+
 def _table_cap(tables, block_tokens: int, t_cap: int):
     """Slice a round table to the blocks covering t_cap (a column view;
     the kernel masks positions against entry_lengths itself)."""
     return tables[:, :-(-t_cap // block_tokens)]
+
+
+def _grouped_queries(q, num_kv: int):
+    """[S, H, W, D] queries → [S, Hkv, G*W, D], the kernel's GQA rows
+    (G-major: row g*W + w of KV head h is query head h*G + g)."""
+    slots_n, num_heads, num_q, head_dim = q.shape
+    return q.reshape(slots_n, num_kv, num_heads // num_kv * num_q,
+                     head_dim)
 
 
 def _kernel_grouped_attention(layer, config: LlamaConfig, x, cos, sin,
@@ -262,7 +294,8 @@ def _kernel_grouped_attention(layer, config: LlamaConfig, x, cos, sin,
     write this block's K/V into the side buffers at `write_index` (in
     place), and attend through the paged kernel over the pool (positions
     < entry_lengths) plus the side entries `side_valid` [S, W, P]
-    selects.  Returns the attention output projection."""
+    selects; int8 pools fold their scales (fold_scales=True).  Returns
+    the attention output projection."""
     from .ops.paged_attention import paged_decode_attention
     from .serving import _project_qkv
     num_heads, num_kv = config.num_heads, config.num_kv_heads
@@ -272,11 +305,9 @@ def _kernel_grouped_attention(layer, config: LlamaConfig, x, cos, sin,
     k_side[:, :, write_index:write_index + k.shape[2]] = k
     v_side[:, :, write_index:write_index + v.shape[2]] = v
     slots_n, num_q, head_dim = q.shape[0], q.shape[2], q.shape[3]
-    group = num_heads // num_kv
-    q_grouped = q.reshape(slots_n, num_kv, group * num_q, head_dim)
-    out = paged_decode_attention(q_grouped, k_pool, v_pool, tables,
-                                 k_side, v_side, side_valid,
-                                 entry_lengths, groups=group)
+    out = paged_decode_attention(_grouped_queries(q, num_kv), k_pool,
+                                 v_pool, tables, k_side, v_side, side_valid,
+                                 entry_lengths, groups=num_heads // num_kv)
     out = out.reshape(slots_n, num_heads, num_q, head_dim).to(x.dtype)
     return L.linear(layer["attn"]["o"], L._merge_heads(out))
 
@@ -297,20 +328,28 @@ def _kernel_attention_block(tables, layer, config: LlamaConfig, x, cos,
                                      step_index, side_valid)
 
 
+def _store_rows(pool, rows):
+    """Rows [S, H, W, D] in the pool's form: quantized once
+    (layers.quantize_kv_cache) for an int8 pool, as they are for a
+    native one."""
+    return L.quantize_kv_cache(rows) if isinstance(pool, dict) else rows
+
+
 def _paged_scatter(pools, tables, positions, live, sides,
                    block_tokens: int) -> None:
     """Scatter side-buffer rows into pool blocks at absolute `positions`
     [S, W], in place; rows where `live` is False, or whose block lies
-    past the table, drop."""
+    past the table, drop.  int8 pools quantize the side rows once, here
+    at the round merge."""
     nb = tables.shape[1]
-    num_total = pools[0].shape[0]
+    num_total, _ = _pool_dims(pools[0])
     blocks = positions // block_tokens
     offsets = positions % block_tokens
     dest = torch.gather(tables, 1, blocks.clamp(0, nb - 1).long())
     dest = torch.where(live & (blocks >= 0) & (blocks < nb), dest,
                        num_total)
     for pool, side in zip(pools, sides):
-        L.scatter_paged_rows(pool, dest, offsets, side)
+        L.scatter_paged_rows(pool, dest, offsets, _store_rows(pool, side))
 
 
 def _build_paged_step(config: LlamaConfig, device):
@@ -327,7 +366,7 @@ def _build_paged_step(config: LlamaConfig, device):
 
     def step(params, tokens, lengths, active, budgets, k_pools, v_pools,
              tables, *, num_steps: int, eos: int, t_cap: int):
-        block_tokens = k_pools[0].shape[2]
+        _, block_tokens = _pool_dims(k_pools[0])
         cap_tables = _table_cap(tables, block_tokens, t_cap)
         entry_lengths, entry_active = lengths, active
         side_shape = (tokens.shape[0], config.num_kv_heads, num_steps,
@@ -376,13 +415,13 @@ def _paged_admit(params, config: LlamaConfig, k_pools, v_pools, tokens,
                  lengths, prompts, true_lens, slots, valid, tables_rows):
     """Bucketed single-shot prefill of `width` prompts [width, bucket]:
     each valid row's K/V prefix lands in the pool blocks its table row
-    names (padded with dead cells to the block boundary), its first
-    token and length in `tokens` / `lengths` at its slot (all in place).
-    Pad rows (valid False) carry out-of-range ids, so their writes drop,
-    and rewrite their own distinct slot's token and length.  Returns the
-    first tokens [width] int32."""
+    names (padded with dead cells to the block boundary; quantized for
+    an int8 pool), its first token and length in `tokens` / `lengths` at
+    its slot (all in place).  Pad rows (valid False) carry out-of-range
+    ids, so their writes drop, and rewrite their own distinct slot's
+    token and length.  Returns the first tokens [width] int32."""
     from .models.llama import init_llama_caches, llama_hidden
-    block_tokens, num_total = k_pools[0].shape[2], k_pools[0].shape[0]
+    num_total, block_tokens = _pool_dims(k_pools[0])
     width, bucket = prompts.shape
     caches = init_llama_caches(config, width, bucket,
                                device=prompts.device)
@@ -394,13 +433,78 @@ def _paged_admit(params, config: LlamaConfig, k_pools, v_pools, tokens,
     pad = tables_rows.shape[1] * block_tokens - bucket
     dest = torch.where(valid[:, None], tables_rows, num_total)
     for i, cache in enumerate(caches):
-        k_rows, v_rows = cache["k"], cache["v"]
-        if pad:
-            k_rows = F.pad(k_rows, (0, 0, 0, pad))
-            v_rows = F.pad(v_rows, (0, 0, 0, pad))
-        L.write_paged_blocks(k_pools[i], dest, k_rows)
-        L.write_paged_blocks(v_pools[i], dest, v_rows)
+        for pools, rows in ((k_pools, cache["k"]), (v_pools, cache["v"])):
+            if pad:
+                rows = F.pad(rows, (0, 0, 0, pad))
+            L.write_paged_blocks(pools[i], dest, _store_rows(pools[i], rows))
     slots = slots.long()
     tokens[slots] = torch.where(valid, firsts, tokens[slots])
     lengths[slots] = torch.where(valid, true_lens, lengths[slots])
+    return firsts
+
+
+def _paged_extend(params, config: LlamaConfig, k_pools, v_pools, tokens,
+                  lengths, chunk_tokens, offsets, slots, valid, finish,
+                  final_idx, tables_rows, *, t_cap: int):
+    """One prompt chunk [width, chunk] for mid-prefill slots (the kernel
+    path of JAX's _paged_extend_fn_for): row a's tokens sit at absolute
+    positions offsets[a] + [0, chunk).  Each layer attends the pool's
+    positions < offsets[a] through the paged kernel with the chunk's own
+    K/V, in the compute dtype and not yet stored, as the side buffer
+    under a causal triangle mask; int8 pools dequantize inside the
+    kernel (fold_scales=False), as the JAX extend dequantizes before its
+    dots.  Then the chunk's K/V (quantized for an int8 pool) land at
+    their (block, offset) pairs, in place.  Rows with `finish` set take
+    their first token from position final_idx and set their slot's token
+    and length; pad rows (valid False: null table rows, offset 0) drop
+    every write.  Returns the first tokens [width] int32."""
+    from .ops.paged_attention import paged_decode_attention
+    from .serving import _project_qkv
+    num_total, block_tokens = _pool_dims(k_pools[0])
+    num_heads, num_kv = config.num_heads, config.num_kv_heads
+    width, chunk = chunk_tokens.shape
+    device = chunk_tokens.device
+    cos, sin = L.rope_frequencies(config.head_dim, config.max_seq_len,
+                                  config.rope_theta, device=device)
+    x = L.embedding(params["embed"], chunk_tokens).to(config.dtype)
+    cap_tables = _table_cap(tables_rows, block_tokens, t_cap)
+    # per-query chunk causality: side position p is visible to chunk
+    # query c iff p <= c (both offset-relative)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=device).tril().expand(width, chunk, chunk)
+    tri = tri.contiguous()
+    q_pos = offsets[:, None] + torch.arange(chunk, device=device,
+                                            dtype=torch.int32)[None]
+    nbt = tables_rows.shape[1]
+    blocks = q_pos // block_tokens
+    block_offsets = q_pos % block_tokens
+    dest = torch.gather(tables_rows, 1, blocks.clamp(0, nbt - 1).long())
+    dest = torch.where(valid[:, None] & (blocks < nbt), dest, num_total)
+    for i, layer in enumerate(params["layers"]):
+        q, k, v = _project_qkv(layer, config,
+                               L.rms_norm(layer["ln_attn"], x))
+        q = L.apply_rope(q, cos, sin, offsets)
+        k = L.apply_rope(k, cos, sin, offsets).contiguous()
+        v = v.contiguous()
+        out = paged_decode_attention(
+            _grouped_queries(q, num_kv), k_pools[i], v_pools[i], cap_tables,
+            k, v, tri, offsets, groups=num_heads // num_kv,
+            fold_scales=False)
+        out = out.reshape(width, num_heads, chunk,
+                          config.head_dim).to(x.dtype)
+        x = x + L.linear(layer["attn"]["o"], L._merge_heads(out))
+        x = x + llama_ffn(layer, config, L.rms_norm(layer["ln_mlp"], x))
+        L.scatter_paged_rows(k_pools[i], dest, block_offsets,
+                             _store_rows(k_pools[i], k))
+        L.scatter_paged_rows(v_pools[i], dest, block_offsets,
+                             _store_rows(v_pools[i], v))
+    x = L.rms_norm(params["ln_out"], x)
+    last_hidden = x[torch.arange(width, device=device), final_idx.long()]
+    last = L.linear_logits(params["lm_head"], last_hidden)
+    firsts = torch.argmax(last, dim=-1).to(torch.int32)
+    apply = valid & finish
+    slots = slots.long()
+    tokens[slots] = torch.where(apply, firsts, tokens[slots])
+    lengths[slots] = torch.where(apply, offsets + final_idx + 1,
+                                 lengths[slots])
     return firsts

@@ -12,7 +12,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
      times of the kernel, the plain version and one PyTorch library call
      computing the same function (timed only: the port never calls it),
      and the least time the card could take (bound_ms); the paged kernel
-     at the Llama decode shape, t_cap 256 and 512;
+     at the Llama decode shape, t_cap 256 and 512, natively and with int8
+     pools (scales folded), and at the chunked-prefill extend shape (16
+     rows of a 64-token chunk, 256 query rows per KV head, offsets drawn
+     from [0, 512]) with int8 pools dequantized and natively;
   3. slice: Whisper-small at full width (768 / 12 heads / 12 + 12 layers /
      51,865 vocab), bf16, seeded random weights, served through
      ComputeRuntime + PE_WhisperASR: long requests (bucket 3072, audio
@@ -31,7 +34,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
      drains, the paged kernel launches once per layer per decode step;
      tokens/s, round seconds, and one steady round under torch.profiler;
   6. llama_f32: full width at 2 layers in f32: the paged decoder's greedy
-     tokens against llama_greedy_decode (dense cache, plain attention).
+     tokens against llama_greedy_decode (dense cache, plain attention);
+  7. llama_int8_chunked: Llama-1B at full width, bf16, with int8 KV pools
+     and chunked prefill (chunks of 64, bucket 64, 16 slots, 8 steps per
+     sync, 32-token blocks, max_seq 1024): 24 requests of 32 new tokens,
+     8 with 16-64 prompt tokens and 16 with 65-640 (the first exactly
+     640, so t_cap reaches 768), 8 submitted after the first round; every
+     request completes, the pool drains, the folded int8 kernel launches
+     16 x decode steps and the dequantizing one 16 x extend dispatches,
+     and no call synchronizes the stream beyond each round's one wait
+     (torch's sync debug mode); tokens/s, rounds, chunk counts, and one
+     round under torch.profiler;
+  8. llama_int8_f32: full width at 2 layers in f32, the same decoder with
+     4 slots: 4 requests of 40 / 100 / 200 / 300 prompt tokens against
+     the same port decoder on the CPU (the kernels' plain versions).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card the run fails before
 printing any result.  Imports nothing of JAX.
@@ -39,12 +55,15 @@ printing any result.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 
@@ -74,6 +93,14 @@ KERNEL_TOLERANCE = {          # kernel: (u, c, relative L2 limit)
     "cross_decode_attention": (BF16_U, 2 ** -12, 0.004),
     "paged_decode_attention": (0.0, 2 ** -12, 1e-4),
 }
+# the paged kernel's int8 variants keep f32 from the loaded values on, as
+# the native one does: the same model, held against the plain version run
+# in f32 on the values the kernel sees (int8 values and f32 scales as they
+# are when folding; the values rounded to bf16, round(q * round(s)), when
+# dequantizing)
+KERNEL_TOLERANCE["paged_decode_attention_int8_fold"] = \
+    KERNEL_TOLERANCE["paged_decode_attention_int8_dequant"] = \
+    KERNEL_TOLERANCE["paged_decode_attention"]
 # encoder features through 12 bf16 layers, kernel against plain
 # attention: each layer's attention differs by about the bf16 rounding of
 # the probabilities (2^-9 relative), and 12 residual layers add a few of
@@ -88,6 +115,24 @@ PAGED_KERNEL_LINE = "aiko_services_tpu/ops/paged_attention.py:59"
 LLAMA_DECODER = {"max_slots": 16, "steps_per_sync": 16, "kv_block": 32,
                  "prefill_buckets": (128,), "max_seq": 1024,
                  "paged_kv": True}
+# int8 KV and chunked prefill: the JAX bench's conversation-rung decoder
+# (bench.py:1605-1611) without its prefix cache
+LLAMA_INT8_DECODER = {"max_slots": 16, "steps_per_sync": 8, "kv_block": 32,
+                      "prefill_buckets": (64,), "prefill_chunk": 64,
+                      "max_seq": 1024, "paged_kv": True,
+                      "kv_cache_dtype": "int8"}
+# llama_int8_f32: a first token mismatch against the CPU run passes only
+# where the CPU run's top-2 logit gap there is below this.  Two f32 runs
+# that sum in other orders store K/V that differ by an ulp or so, and
+# where a value sits at a rounding boundary of its int8 code that ulp
+# moves the code by one: a change of one scale (max|x| / 127, ~2% of a
+# row's largest value) in one stored element.  The run prints the
+# largest top-1 logit difference of the two runs before any mismatch
+# (the drift) and the smallest top-2 gap of the CPU run: on an H100 they
+# were 5.2e-4 and 5.1e-3.  The limit sits about 4x above that drift and
+# below that smallest gap, so a token whose gap is wider than any drift
+# seen must match.
+INT8_TIE_GAP = 2e-3
 
 
 def emit(record: dict) -> None:
@@ -235,13 +280,13 @@ def phase_kernels(device, generator) -> list[dict]:
     return records
 
 
-def paged_case(generator, t_cap: int, block: int = 32):
+def paged_case(generator, t_cap: int, side_len: int, block: int = 32):
     """Operands of one paged decode-attention call at the Llama slice's
     shape: max_slots slots, 8 KV heads, 4 query rows each (G = 4, W = 1),
     D = 64, bf16, a pool of shuffled blocks, extents from 1 to t_cap, a
-    side buffer of steps_per_sync entries under a partial mask."""
-    slots, num_kv, groups, side_len = (LLAMA_DECODER["max_slots"], 8, 4,
-                                       LLAMA_DECODER["steps_per_sync"])
+    side buffer of side_len entries (the decoder's steps_per_sync) under
+    a partial mask."""
+    slots, num_kv, groups = LLAMA_DECODER["max_slots"], 8, 4
     nb = t_cap // block
     num_blocks = slots * nb + 1
     device = generator.device
@@ -267,76 +312,170 @@ def paged_case(generator, t_cap: int, block: int = 32):
             randn(slots, num_kv, side_len, 64), side_valid, entries)
 
 
-def phase_paged_kernel(generator) -> dict:
-    """The paged kernel against its plain version at t_cap 256 and 512;
-    returns the t_cap 256 record (the 512 one is printed on its own
-    line).  library_ms: scaled_dot_product_attention over K/V gathered
-    contiguously beforehand and a boolean mask built beforehand (gather
-    and mask excluded from the time)."""
+def extend_case(generator, block: int = 32):
+    """Operands of one chunk extend at the int8 Llama decoder's shape: 16
+    rows of a 64-token chunk, 8 KV heads, 4 x 64 query rows each, D = 64,
+    bf16; offsets (the pool extents) drawn from [0, 512], row 0's 0 (a
+    first chunk); the chunk's own K/V as the side buffer under the causal
+    triangle; the table at t_cap 768, null past offset + chunk."""
+    chunk = LLAMA_INT8_DECODER["prefill_chunk"]
+    slots, num_kv, groups, nb = 16, 8, 4, 768 // block
+    num_blocks = slots * nb + 1
+    device = generator.device
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=generator, device=device,
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    k_pool, v_pool = (randn(num_blocks, num_kv, block, 64) for _ in range(2))
+    k_pool[0] = v_pool[0] = 0
+    offsets = torch.randint(0, 513, (slots,), generator=generator,
+                            device=device, dtype=torch.int32)
+    offsets[0] = 0
+    ids = (torch.randperm(num_blocks - 1, generator=generator,
+                          device=device) + 1).to(torch.int32).view(slots, nb)
+    needed = (offsets.long() + chunk + block - 1) // block
+    past = torch.arange(nb, device=device)[None] >= needed[:, None]
+    tables = ids.masked_fill(past, 0)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool, device=device).tril()
+    side_valid = tri.expand(slots, chunk, chunk).contiguous()
+    return (randn(slots, num_kv, groups * chunk, 64), k_pool, v_pool, tables,
+            randn(slots, num_kv, chunk, 64), randn(slots, num_kv, chunk, 64),
+            side_valid, offsets)
+
+
+def int8_pool(pool):
+    """The int8 serving form of a bf16 pool (null block all zeros)."""
+    from aiko_services_tpu_torch.models.layers import quantize_kv_cache
+    leaf = quantize_kv_cache(pool)
+    leaf["s"][0] = 0
+    return leaf
+
+
+def phase_paged_kernel(generator) -> list[dict]:
+    """The paged kernel against its plain version, in its three numerics:
+    natively and with int8 pools (scales folded) at the decode shape,
+    t_cap 256 and 512; with int8 pools dequantized and natively at the
+    extend shape.  Returns every record, for the kernels line.
+    library_ms: scaled_dot_product_attention
+    over K/V gathered (and dequantized) contiguously beforehand and a
+    boolean mask built beforehand (excluded from the time)."""
     import torch.nn.functional as F
 
-    from aiko_services_tpu_torch.models.layers import gather_paged_kv
+    from aiko_services_tpu_torch.models.layers import (dequantize_kv_cache,
+                                                       gather_paged_kv)
     from aiko_services_tpu_torch.ops import paged_attention as P
 
     scratch = torch.empty(32 * 1024 * 1024, dtype=torch.float32,
                           device=generator.device)
-    records = []
-    for t_cap in (256, 512):
-        operands = paged_case(generator, t_cap)
+    scale = 0.125
+
+    def measure(name, variant, operands, groups, fold, extra):
         q, k_pool, v_pool, tables, k_side, v_side, side_valid, entries = \
             operands
-        f32 = [x.float() for x in (q, k_pool, v_pool, k_side, v_side)]
-        scale = 0.125
+        int8 = isinstance(k_pool, dict)
+        # the plain version in f32 on the values the kernel sees
+        if int8 and not fold:
+            plain_k, plain_v = (dequantize_kv_cache(leaf, q.dtype).float()
+                                for leaf in (k_pool, v_pool))
+        elif int8:
+            plain_k, plain_v = k_pool, v_pool
+        else:
+            plain_k, plain_v = k_pool.float(), v_pool.float()
+        q32, ks32, vs32 = q.float(), k_side.float(), v_side.float()
 
-        def plain_f32(abs_v=False, f32=f32):
-            v_main, v_s = (f32[2].abs(), f32[4].abs()) if abs_v \
-                else (f32[2], f32[4])
+        def plain_f32(abs_v=False):
+            v_main, v_s = plain_v, vs32
+            if abs_v:
+                v_main = dict(v_main, q=v_main["q"].abs()) \
+                    if isinstance(v_main, dict) else v_main.abs()
+                v_s = vs32.abs()
             return P.paged_decode_attention_reference(
-                f32[0], f32[1], v_main, tables, f32[3], v_s, side_valid,
-                entries, groups=4, scale=scale)
+                q32, plain_k, v_main, tables, ks32, v_s, side_valid,
+                entries, groups=groups, scale=scale, fold_scales=fold)
 
-        errors = compare("paged_decode_attention",
-                         P.paged_decode_attention(*operands, groups=4),
-                         plain_f32, lambda: plain_f32(abs_v=True))
+        errors = compare(variant, P.paged_decode_attention(
+            *operands, groups=groups, fold_scales=fold),
+            plain_f32, lambda: plain_f32(abs_v=True))
         # SDPA's operands, made outside the timed call
-        k_all = torch.cat([gather_paged_kv(k_pool, tables), k_side], dim=2)
-        v_all = torch.cat([gather_paged_kv(v_pool, tables), v_side], dim=2)
-        main_ok = torch.arange(t_cap, device=q.device)[None] < \
-            entries[:, None]
-        mask = torch.cat([main_ok, side_valid[:, 0]], dim=1)[:, None, None]
-        mask = mask.expand(-1, 1, q.shape[2], -1)
-        # bytes and operations this run's extents need: the blocks each
-        # slot's extent covers, the side buffer, q, the table and the f32
-        # output
+        k_all = torch.cat([dequantize_kv_cache(
+            gather_paged_kv(k_pool, tables), q.dtype), k_side], dim=2)
+        v_all = torch.cat([dequantize_kv_cache(
+            gather_paged_kv(v_pool, tables), q.dtype), v_side], dim=2)
         slots, num_kv, rows, _ = q.shape
-        positions = int(((entries.long() + 31) // 32).sum()) * 32
-        side_len = k_side.shape[2]
-        nbytes = (q.numel() * 2 + 2 * positions * num_kv * 64 * 2 +
+        width = side_valid.shape[1]
+        block = (k_pool["q"] if int8 else k_pool).shape[2]
+        main_t = tables.shape[1] * block
+        main_ok = torch.arange(main_t, device=q.device)[None] < \
+            entries[:, None]
+        side_rows = side_valid[:, torch.arange(rows, device=q.device) %
+                               width]                    # [S, rows, P]
+        mask = torch.cat([main_ok[:, None].expand(-1, rows, -1), side_rows],
+                         dim=-1)[:, None]
+        # bytes and operations this run's data needs: the blocks each
+        # slot's extent covers (1 byte a value and 4 a position for the
+        # scales when int8), the side buffer, q, the table and the f32
+        # output; a product per (query row, covered position) and per
+        # visible (query row, side entry)
+        positions = int(((entries.long() + block - 1) // block).sum()) * \
+            block
+        per_position = 64 + 4 if int8 else 64 * 2
+        nbytes = (q.numel() * 2 + 2 * positions * num_kv * per_position +
                   2 * k_side.numel() * 2 + side_valid.numel() +
                   tables.numel() * 4 + entries.numel() * 4 +
                   slots * num_kv * rows * 64 * 4)
-        flops = 4.0 * num_kv * rows * 64 * (positions + slots * side_len)
+        side_pairs = int(side_valid.sum()) * groups
+        flops = 4.0 * num_kv * 64 * (rows * positions + side_pairs)
         bound_ms, bound_by = bound(flops, nbytes)
         record = {
-            "name": "paged_decode_attention" + ("" if t_cap == 256
-                                                else f"_t{t_cap}"),
-            "route": "cuda",
+            "name": name, "route": "cuda",
             "source": "aiko_services_tpu_torch/csrc/"
                       "paged_decode_attention.cu",
-            "replaces": PAGED_KERNEL_LINE, "t_cap": t_cap,
+            "replaces": PAGED_KERNEL_LINE, "variant": variant, **extra,
             "shape": list(q.shape), **errors,
-            "ms": time_ms(lambda: P.paged_decode_attention(*operands,
-                                                           groups=4),
-                          scratch),
+            "ms": time_ms(lambda: P.paged_decode_attention(
+                *operands, groups=groups, fold_scales=fold), scratch),
             "plain_ms": time_ms(lambda: P.paged_decode_attention_reference(
-                *operands, groups=4, scale=scale), scratch),
+                *operands, groups=groups, scale=scale, fold_scales=fold),
+                scratch),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 q, k_all, v_all, attn_mask=mask), scratch),
         }
         emit({"phase": "kernel", **record})
-        records.append(record)
-    return records[0]
+        return record
+
+    # each row at the side-buffer length of the decoder that runs it:
+    # the native decoder's steps_per_sync (16), the int8 one's (8);
+    # "path" keys the launches the smoke's decoders make at that shape
+    records = []
+    for t_cap in (256, 512):
+        suffix = "" if t_cap == 256 else f"_t{t_cap}"
+        operands = paged_case(generator, t_cap,
+                              LLAMA_DECODER["steps_per_sync"])
+        records.append(measure("paged_decode_attention" + suffix,
+                               "paged_decode_attention", operands, 4, True,
+                               {"t_cap": t_cap, "path": "decode"}))
+        quantized = list(paged_case(generator, t_cap,
+                                    LLAMA_INT8_DECODER["steps_per_sync"]))
+        quantized[1], quantized[2] = int8_pool(quantized[1]), \
+            int8_pool(quantized[2])
+        records.append(measure("paged_decode_attention_int8_fold" + suffix,
+                               "paged_decode_attention_int8_fold", quantized,
+                               4, True, {"t_cap": t_cap, "path": "decode"}))
+    operands = extend_case(generator)
+    quantized = list(operands)
+    quantized[1], quantized[2] = int8_pool(operands[1]), \
+        int8_pool(operands[2])
+    records.append(measure("paged_decode_attention_int8_dequant",
+                           "paged_decode_attention_int8_dequant", quantized,
+                           4, False, {"t_cap": 768, "path": "extend"}))
+    # no smoke decoder extends into a native pool: this row's launches
+    # stay 0
+    records.append(measure("paged_decode_attention_extend",
+                           "paged_decode_attention", operands, 4, False,
+                           {"t_cap": 768, "path": "extend"}))
+    return records
 
 
 def speech_like(rng, seconds: float, sample_rate: int = 16000):
@@ -558,7 +697,7 @@ def phase_slice() -> dict:
     return counts
 
 
-def profile_round(decoder) -> dict:
+def profile_round(decoder, label: str = "llama decode") -> dict:
     """One pump round under torch.profiler: host wall time, the summed
     device time of its kernels (one stream), the idle share, the paged
     kernel's share, the costliest kernels."""
@@ -580,7 +719,7 @@ def profile_round(decoder) -> dict:
                 event.time_range.elapsed_us() / 1e3
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda item: -item[1])[:8]
-    return {"round": "llama decode", "wall_s": wall,
+    return {"round": label, "wall_s": wall,
             "device_busy_s": busy_ms / 1e3 if launches else None,
             "idle_share": 1.0 - busy_ms / 1e3 / wall if launches else None,
             "device_launches": launches,
@@ -763,6 +902,320 @@ def phase_llama_f32() -> dict:
     return record
 
 
+def int8_traffic(rng, vocab: int) -> list:
+    """24 requests (id, prompt, max_new) of 32 new tokens: 16 with 65-640
+    prompt tokens (chunked; the first exactly 640) and 8 with 16-64
+    (bucketed), in the order they are submitted: 10 chunked and 6
+    bucketed first, the other 8 after the first round."""
+    chunked = [640] + [int(n) for n in rng.integers(65, 641, 15)]
+    short = [int(n) for n in rng.integers(16, 65, 8)]
+    lengths = chunked[:10] + short[:6] + chunked[10:] + short[6:]
+    return [(f"{'c' if n > 64 else 's'}{i}", rng.integers(0, vocab,
+                                                          n).tolist(), 32)
+            for i, n in enumerate(lengths)]
+
+
+def count_extends(decoder) -> list:
+    """Count the decoder's chunk-extend dispatches (one launch of the
+    dequantizing kernel per layer each) by wrapping its _extend_group;
+    returns the one-element counter."""
+    dispatches = [0]
+    extend_group = decoder._extend_group
+
+    def counted(*args, **kwargs):
+        dispatches[0] += 1
+        return extend_group(*args, **kwargs)
+
+    decoder._extend_group = counted
+    return dispatches
+
+
+def phase_llama_int8_chunked() -> dict:
+    """Serve Llama-1B requests through the paged ContinuousDecoder with
+    int8 KV pools and chunked prefill; returns the paged kernel's
+    launches per variant in that run."""
+    import dataclasses
+
+    import numpy as np
+
+    from aiko_services_tpu_torch.models.llama import LLAMA_PRESETS, llama_init
+    from aiko_services_tpu_torch.ops import paged_attention as P
+    from aiko_services_tpu_torch.serving import ContinuousDecoder
+
+    config = dataclasses.replace(LLAMA_PRESETS["1b"], dtype=torch.bfloat16,
+                                 max_seq_len=1024)
+    if (config.dim, config.num_heads, config.num_kv_heads, config.num_layers,
+            config.ffn_dim, config.vocab) != (2048, 32, 8, 16, 8192, 128256):
+        raise AssertionError(f"not the 1b preset: {config}")
+    start = time.perf_counter()
+    params = llama_init(torch.Generator(device="cuda").manual_seed(0),
+                        config)
+    decoder = ContinuousDecoder(params, config, **LLAMA_INT8_DECODER)
+    dispatches = count_extends(decoder)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    setup_s = time.perf_counter() - start
+
+    requests = int8_traffic(np.random.default_rng(3), config.vocab)
+    budgets = {rid: new for rid, _, new in requests}
+    done = {}
+
+    def keep(request_id, tokens):
+        done[request_id] = list(tokens)
+
+    # the main path's run: counts set to 0 just before, read just after.
+    # torch's sync debug mode warns at every call that synchronizes the
+    # stream (a copy from pageable memory, .item(), nonzero); the round's
+    # own wait, on the event behind its device-to-host copy, is not one
+    # of them, so the decoder must make none
+    for name in P.launches:
+        P.launches[name] = 0
+    start = time.perf_counter()
+    for rid, prompt, new in requests[:16]:
+        decoder.submit(rid, prompt, new, keep)
+    round_s, t_caps = [], []
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            while True:
+                round_start = time.perf_counter()
+                decoder.pump()
+                round_s.append(time.perf_counter() - round_start)
+                t_caps.append(decoder._cache_t)
+                if len(round_s) == 1:
+                    for rid, prompt, new in requests[16:]:
+                        decoder.submit(rid, prompt, new, keep)
+                if decoder.idle:
+                    break
+                if len(round_s) > 500:
+                    raise AssertionError(
+                        "the decoder did not drain in 500 rounds")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    syncs = collections.Counter(
+        f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+        if "synchronizing" in str(w.message))
+    if syncs:
+        raise AssertionError(f"the decoder synchronized the stream beyond "
+                             f"its one wait a round: {dict(syncs)}")
+    launches = dict(P.launches)
+    extends = dispatches[0]
+    stats = dict(decoder.stats)
+
+    if sorted(done) != sorted(budgets):
+        raise AssertionError(f"{len(done)} of {len(budgets)} completed")
+    for rid, tokens in done.items():
+        if len(tokens) != budgets[rid] or \
+                not all(0 <= t < config.vocab for t in tokens):
+            raise AssertionError(f"request {rid}: {len(tokens)} tokens of "
+                                 f"{budgets[rid]}")
+    if decoder.pool.used_blocks() != 0:
+        raise AssertionError(f"{decoder.pool.used_blocks()} pool blocks "
+                             f"still owned after the run")
+    expected = {"paged_decode_attention": 0,
+                "paged_decode_attention_int8_fold":
+                    config.num_layers * stats["steps"],
+                "paged_decode_attention_int8_dequant":
+                    config.num_layers * extends}
+    if launches != expected or not extends:
+        raise AssertionError(f"paged kernel launches {launches} != "
+                             f"{expected} ({stats['steps']} decode steps, "
+                             f"{extends} extend dispatches)")
+    if max(t_caps) != 768:
+        raise AssertionError(f"t_cap reached {max(t_caps)}, not 768")
+    generated = sum(len(tokens) for tokens in done.values())
+    memory_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # one steady round under the profiler: 12 slots decoding, 4 long
+    # prompts mid-prefill (one extend of width 4)
+    rng = np.random.default_rng(4)
+    for i in range(16):
+        decoder.submit(f"p{i}", rng.integers(
+            0, config.vocab, 300 if i < 4 else 64).tolist(), 40,
+            lambda *_: None)
+    decoder.pump()                 # admits, first chunks
+    decoder.pump()                 # first decode round, second chunks
+    profile = profile_round(decoder, "llama int8 decode + extend")
+    while not decoder.idle:
+        decoder.pump()
+    if decoder.pool.used_blocks() != 0:
+        raise AssertionError("pool blocks still owned after the profile")
+
+    emit({"phase": "llama_int8_chunked", "requests": len(done),
+          "tokens": generated, "setup_s": setup_s, "wall_s": wall,
+          "tokens_per_s": generated / wall, "rounds": len(round_s),
+          "first_round_s": round_s[0],
+          "steady_round_s": statistics.median(round_s[2:]),
+          "round_s": round_s, "t_cap": t_caps, "steps": stats["steps"],
+          "extend_dispatches": extends, "launches": launches,
+          "launches_expected": expected,
+          "stream_syncs": sum(syncs.values()),
+          "prefill_chunks": stats["prefill_chunks"],
+          "chunk_admits": stats["chunk_admits"],
+          "prefills": stats["prefills"],
+          "round_prefill_tokens_max": stats["round_prefill_tokens_max"],
+          "useful_steps": stats["useful_steps"],
+          "wasted_steps": stats["wasted_steps"],
+          "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
+          "pool_blocks": decoder.pool.num_blocks - 1,
+          "kv_cache_bytes": decoder.kv_cache_bytes(),
+          "max_memory_gb": memory_gb,
+          "sample_tokens": {rid: done[rid][:6] for rid in ("c0", "s10")}})
+    emit({"phase": "profile", **profile})
+    return launches
+
+
+class LogitGaps:
+    """Records, per slot, the top-1 logit and the top-2 gap behind every
+    token a decoder emits (first tokens from admits and extends, then the
+    decode steps'), by wrapping layers.linear_logits, the decoder's step
+    and its admit and extend programs.  Each slot must serve one request
+    for the slot lists to be that request's tokens."""
+
+    def __init__(self, decoder):
+        from aiko_services_tpu_torch import serving
+        from aiko_services_tpu_torch.models import layers
+        self.by_slot = {slot: [] for slot in range(decoder.max_slots)}
+        self._calls = []
+        self._layers, self._serving = layers, serving
+        self._saved = (layers.linear_logits, serving._paged_admit,
+                       serving._paged_extend)
+        linear_logits, admit, extend = self._saved
+
+        def recording_logits(params, x):
+            logits = linear_logits(params, x)
+            top = torch.topk(logits.reshape(-1, logits.shape[-1]), 2).values
+            self._calls.append(torch.stack([top[:, 0], top[:, 0] -
+                                            top[:, 1]], dim=1).cpu())
+            return logits
+
+        def first_tokens(rows, slots, emits):
+            for j in torch.nonzero(emits.cpu()).flatten().tolist():
+                self.by_slot[int(slots[j])].append(rows[j].tolist())
+
+        def recording_admit(*args):
+            firsts = admit(*args)
+            first_tokens(self._calls[-1], args[8].cpu(), args[9])
+            return firsts
+
+        def recording_extend(*args, **kwargs):
+            firsts = extend(*args, **kwargs)
+            first_tokens(self._calls[-1], args[8].cpu(), args[9] & args[10])
+            return firsts
+
+        step = decoder._step
+
+        def recording_step(*args, **kwargs):
+            before = len(self._calls)
+            out = step(*args, **kwargs)
+            for k, active in enumerate(out[1].cpu()):
+                rows = self._calls[before + k]
+                for slot in torch.nonzero(active).flatten().tolist():
+                    self.by_slot[slot].append(rows[slot].tolist())
+            return out
+
+        layers.linear_logits = recording_logits
+        serving._paged_admit = recording_admit
+        serving._paged_extend = recording_extend
+        decoder._step = recording_step
+
+    def close(self) -> None:
+        (self._layers.linear_logits, self._serving._paged_admit,
+         self._serving._paged_extend) = self._saved
+
+
+def serve_with_gaps(params, config, device, prompts, max_new) -> tuple:
+    """(tokens by request, [top-1 logit, top-2 gap] per emitted token by
+    request) of the int8 chunked decoder at 4 slots."""
+    from aiko_services_tpu_torch.serving import ContinuousDecoder
+    decoder = ContinuousDecoder(params, config, device=device, **{
+        **LLAMA_INT8_DECODER, "max_slots": len(prompts)})
+    gaps = LogitGaps(decoder)
+    done = {}
+    try:
+        for rid, prompt in prompts.items():
+            decoder.submit(rid, prompt, max_new,
+                           lambda r, t: done.update({r: list(t)}))
+        requests = list(decoder._pending)
+        while not decoder.idle:
+            decoder.pump()
+    finally:
+        gaps.close()
+    if decoder.pool.used_blocks() != 0:
+        raise AssertionError("int8 f32 run left pool blocks owned")
+    return done, {r.request_id: gaps.by_slot[r.slot] for r in requests}
+
+
+def phase_llama_int8_f32() -> dict:
+    """Full width at 2 layers in f32, int8 KV pools and chunked prefill:
+    the decoder on the card against the same port decoder on the CPU (the
+    kernels' plain versions) with the same weights.  A first mismatch
+    whose CPU top-2 logit gap is under INT8_TIE_GAP is printed as a tie;
+    any other fails."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+
+    from aiko_services_tpu_torch.models.llama import LLAMA_PRESETS, llama_init
+
+    # f32 products in full f32, no TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config = dataclasses.replace(LLAMA_PRESETS["1b"], num_layers=2,
+                                 dtype=torch.float32, max_seq_len=1024)
+    params = llama_init(torch.Generator(device="cuda").manual_seed(2),
+                        config)
+    cpu_params = copy.deepcopy(params).cpu()
+    rng = np.random.default_rng(5)
+    prompts = {f"i{n}": rng.integers(0, config.vocab, n).tolist()
+               for n in (40, 100, 200, 300)}
+    max_new = 16
+    start = time.perf_counter()
+    got, gpu_gaps = serve_with_gaps(params, config, "cuda", prompts,
+                                    max_new)
+    card_s = time.perf_counter() - start
+    start = time.perf_counter()
+    with torch.inference_mode():
+        ref, cpu_gaps = serve_with_gaps(cpu_params, config, "cpu", prompts,
+                                        max_new)
+    cpu_s = time.perf_counter() - start
+    ties, identical, drift = [], 0, 0.0
+    for rid in prompts:
+        if len(got[rid]) != max_new or len(ref[rid]) != max_new:
+            raise AssertionError(f"int8 f32 request {rid}: {len(got[rid])} "
+                                 f"/ {len(ref[rid])} tokens of {max_new}")
+        mismatch = next((i for i, (a, b) in enumerate(zip(got[rid],
+                                                          ref[rid]))
+                         if a != b), None)
+        agreed = max_new if mismatch is None else mismatch
+        for (top_card, _), (top_cpu, _) in zip(gpu_gaps[rid][:agreed],
+                                               cpu_gaps[rid][:agreed]):
+            drift = max(drift, abs(top_card - top_cpu))
+        if mismatch is None:
+            identical += 1
+            continue
+        gap = cpu_gaps[rid][mismatch][1]
+        if gap >= INT8_TIE_GAP:
+            raise AssertionError(
+                f"int8 f32 request {rid}: card token {got[rid][mismatch]} "
+                f"!= CPU {ref[rid][mismatch]} at step {mismatch}, CPU "
+                f"top-2 gap {gap} >= {INT8_TIE_GAP}")
+        ties.append({"request": rid, "step": mismatch, "gap": gap})
+    record = {"phase": "llama_int8_f32", "requests": len(prompts),
+              "identical": identical, "ties": ties,
+              "tie_gap_limit": INT8_TIE_GAP,
+              "top1_logit_drift_before_mismatch": drift,
+              "min_cpu_gap": min(g for rid in prompts
+                                 for _, g in cpu_gaps[rid]),
+              "card_s": card_s, "cpu_s": cpu_s}
+    emit(record)
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -788,9 +1241,20 @@ def main() -> int:
     counts = phase_slice()
     for record in records:
         record["launches"] = counts[record["name"]]
-    paged["launches"] = phase_llama()
-    records.append(paged)
+    # paged launches by (variant, path): the native decoder decodes, the
+    # int8 one decodes with scales folded and extends dequantizing
+    counts = {("paged_decode_attention", "decode"): phase_llama()}
     phase_llama_f32()
+    int8_counts = phase_llama_int8_chunked()
+    counts[("paged_decode_attention_int8_fold", "decode")] = \
+        int8_counts["paged_decode_attention_int8_fold"]
+    counts[("paged_decode_attention_int8_dequant", "extend")] = \
+        int8_counts["paged_decode_attention_int8_dequant"]
+    phase_llama_int8_f32()
+    for record in paged:
+        record["launches"] = counts.get((record["variant"], record["path"]),
+                                        0)
+    records += paged
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

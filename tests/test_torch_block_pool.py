@@ -1,12 +1,13 @@
-"""The port's paged KV BlockPool (aiko_services_tpu_torch.serving_paged)
-and the options of ContinuousDecoder that the port does not implement
-yet: each raises NotImplementedError naming its ROADMAP.md item, none is
-accepted and ignored."""
+"""The port's paged KV BlockPool (aiko_services_tpu_torch.serving_paged),
+native and int8, and the options of ContinuousDecoder that the port does
+not implement yet: each raises NotImplementedError naming its ROADMAP.md
+item, none is accepted and ignored."""
 
 import pytest
 import torch
 
 from aiko_services_tpu_torch import serving
+from aiko_services_tpu_torch.models import layers as L
 from aiko_services_tpu_torch.models.llama import LLAMA_PRESETS, llama_init
 from aiko_services_tpu_torch.observe.metrics import MetricsRegistry
 from aiko_services_tpu_torch.serving import ContinuousDecoder
@@ -89,8 +90,28 @@ def test_maybe_shrink_releases_the_free_tail_down_to_its_floor():
 
 
 def test_kv_int8_pools_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        BlockPool(CONFIG, 8, True, device="cpu")
+    """An int8 pool holds {"q" int8, "s" f32} per layer, grows and
+    shrinks both planes together, and raises on rows of the native form
+    (rows must be quantized before they land in it)."""
+    pool = BlockPool(CONFIG, 8, True, initial_blocks=2, grow_blocks=2,
+                     device="cpu", registry=MetricsRegistry())
+    leaf = pool.k_pools[0]
+    assert leaf["q"].shape == (3, CONFIG.num_kv_heads, 8, CONFIG.head_dim)
+    assert leaf["q"].dtype == torch.int8 and leaf["s"].dtype == torch.float32
+    assert leaf["s"].shape == (3, CONFIG.num_kv_heads, 8)
+    per_block = 2 * CONFIG.num_layers * CONFIG.num_kv_heads * 8 * (
+        CONFIG.head_dim + 4)
+    assert pool.nbytes() == 3 * per_block
+    ids = pool.alloc_blocks(6)                       # grows 3 → 7 blocks
+    assert pool.num_blocks == 7 and pool.nbytes() == 7 * per_block
+    assert pool.v_pools[1]["s"].shape[0] == 7
+    pool.release_blocks(ids)
+    assert pool.maybe_shrink() == 4 and pool.k_pools[0]["q"].shape[0] == 3
+    assert pool.v_pools[1]["s"].shape[0] == 3
+    native_rows = torch.zeros((1, CONFIG.num_kv_heads, 8, CONFIG.head_dim))
+    with pytest.raises(TypeError, match="differ in form"):
+        L.write_paged_blocks(pool.k_pools[0], torch.tensor([[1]]),
+                             native_rows)
 
 
 @pytest.fixture(scope="module")
@@ -106,10 +127,10 @@ def _decoder(model, **kwargs):
 
 @pytest.mark.parametrize("option,item", [
     ({"paged_kv": False}, "item 11"),
-    ({"kv_cache_dtype": "int8"}, "item 11"),
+    ({"kv_cache_dtype": "int8", "speculate_k": 2}, "item 11"),
     ({"speculate_k": 2}, "item 11"),
-    ({"prefill_chunk": 16}, "item 11"),
-    ({"prefill_budget": 64}, "item 11"),
+    ({"prefill_chunk": 16, "prefix_cache": object()}, "item 11"),
+    ({"prefill_budget": 64, "weight_quant": True}, "item 11"),
     ({"prefix_cache": object()}, "item 11"),
     ({"weight_quant": True}, "item 11"),
     ({"fuse_projections": True}, "item 11"),

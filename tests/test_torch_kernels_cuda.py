@@ -9,7 +9,9 @@ card, from the repo root:
 need not have; nothing here imports jax.)  Shapes cover the edges the
 main path does not reach: one head, ragged batch x heads, causal tiles,
 strided layouts, T = 1, T not a multiple of 8, and a T whose scores
-need more than 48 KB of shared memory."""
+need more than 48 KB of shared memory; for the paged kernel, its three
+numerics (native, int8 folded, int8 dequantized) and more than 64 query
+rows per KV head."""
 
 import pytest
 import torch
@@ -149,11 +151,16 @@ def _assert_paged_close(out, operands, groups):
         paged_decode_attention_reference as plain
     c, rel_l2_limit = PAGED
     q, k_pool, v_pool, tables, k_side, v_side, side_valid, entry = operands
-    f32 = [x.float() for x in (q, k_pool, v_pool, k_side, v_side)]
+    # int8 pools ({"q", "s"}) stay as they are: the plain version takes
+    # their values exactly in f32, the scales folded
+    f32 = [x if isinstance(x, dict) else x.float()
+           for x in (q, k_pool, v_pool, k_side, v_side)]
+    v_abs = dict(f32[2], q=f32[2]["q"].abs()) if isinstance(f32[2], dict) \
+        else f32[2].abs()
     scale = 0.125
     ref = plain(f32[0], f32[1], f32[2], tables, f32[3], f32[4], side_valid,
                 entry, groups=groups, scale=scale)
-    magnitude = plain(f32[0], f32[1], f32[2].abs(), tables, f32[3],
+    magnitude = plain(f32[0], f32[1], v_abs, tables, f32[3],
                       f32[4].abs(), side_valid, entry, groups=groups,
                       scale=scale)
     torch.cuda.synchronize()
@@ -212,11 +219,72 @@ def test_paged_kernel_rejects_what_it_does_not_take(card):
                           dtype=torch.bfloat16)[..., ::2]
     with pytest.raises(ValueError, match="contiguous"):
         P.paged_decode_attention(*wide, groups=4)
-    many = list(_paged_case(generator, torch.bfloat16, 2, 2, 65, 1, 8, 2, 3,
-                            [5, 9]))
-    with pytest.raises(ValueError, match="at most 64 query rows"):
-        P.paged_decode_attention(*many, groups=65)
+    k_int8 = _quantized(operands[1])
+    v_int8 = _quantized(operands[2])
+    bad = dict(k_int8, s=k_int8["s"][..., :-1].contiguous())
+    with pytest.raises(ValueError, match="scale plane has shape"):
+        P.paged_decode_attention(operands[0], bad, v_int8, *operands[3:],
+                                 groups=4)
+    with pytest.raises(TypeError, match="differ in form"):
+        P.paged_decode_attention(operands[0], k_int8, operands[2],
+                                 *operands[3:], groups=4)
+    half_scales = dict(v_int8, s=v_int8["s"].half())
+    with pytest.raises(TypeError, match="float32 scales"):
+        P.paged_decode_attention(operands[0], k_int8, half_scales,
+                                 *operands[3:], groups=4)
     ragged = list(operands)
     ragged[3] = ragged[3][:1]
     with pytest.raises(ValueError, match="tables has shape"):
         P.paged_decode_attention(*ragged, groups=4)
+
+
+def _quantized(pool):
+    """The int8 serving form of a native pool, null block 0 all zeros in
+    both planes (as BlockPool allocates it)."""
+    from aiko_services_tpu_torch.models.layers import quantize_kv_cache
+    leaf = quantize_kv_cache(pool)
+    leaf["s"][0] = 0
+    return leaf
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("variant", ["native", "int8_fold", "int8_dequant"])
+@pytest.mark.parametrize("groups,width", [(4, 16), (1, 65), (4, 64)])
+def test_paged_kernel_variants_tile_rows_and_match_plain(card, dtype, variant,
+                                                         groups, width):
+    """G*W = 64, 65 and 256 query rows (one, two and four 64-row tiles)
+    under a chunk's causal triangle; extents 0 (a first chunk, and with
+    one row's side entries all masked: a fully masked row), on a block
+    edge, inside a block, and the whole table.  The int8 variants are
+    held against the plain version in f32 on the values the kernel sees:
+    folding, int8 values and f32 scales as they are; dequantizing, the
+    values rounded to the compute type, round(q * round(s))."""
+    from aiko_services_tpu_torch.models.layers import dequantize_kv_cache
+    from aiko_services_tpu_torch.ops import paged_attention as P
+    torch_dtype = getattr(torch, dtype)
+    generator = torch.Generator(device=card).manual_seed(groups * width)
+    nb, block = 4, 16
+    entries = [0, 2 * block, block + 3, nb * block]
+    operands = list(_paged_case(generator, torch_dtype, 4, 2, groups, width,
+                                block, nb, width, entries))
+    tri = torch.ones((width, width), dtype=torch.bool,
+                     device=card).tril().expand(4, width, width).clone()
+    tri[0, 0] = False                     # slot 0, query 0: fully masked
+    operands[6] = tri
+    name = "paged_decode_attention" + ("" if variant == "native"
+                                       else "_" + variant)
+    fold = variant == "int8_fold"
+    plain_operands = list(operands)
+    if variant != "native":
+        operands[1], operands[2] = (_quantized(pool.float())
+                                    for pool in operands[1:3])
+        plain_operands[1], plain_operands[2] = (
+            leaf if fold else dequantize_kv_cache(leaf, torch_dtype)
+            for leaf in operands[1:3])
+    before = dict(P.launches)
+    out = P.paged_decode_attention(*operands, groups=groups,
+                                   fold_scales=fold)
+    assert P.launches[name] == before[name] + 1
+    assert sum(P.launches.values()) == sum(before.values()) + 1
+    assert out.shape == (4, 2, groups * width, 64)
+    _assert_paged_close(out, plain_operands, groups)

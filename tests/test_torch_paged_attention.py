@@ -118,11 +118,16 @@ def test_plain_version_bf16_matches_pallas_interpret(width):
 
 
 def test_int8_pools_and_other_devices_raise():
+    """Malformed int8 pools (a scale plane of the wrong shape, mixed
+    forms), other devices and bad group counts raise."""
     q, k_pool, v_pool, tables, k_side, v_side, side_valid, entry = (
         torch.from_numpy(x) for x in _case(1, 1, 8, seed=5))
-    int8_pool = {"q": k_pool.to(torch.int8), "s": k_pool[..., 0]}
-    with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
+    int8_pool = {"q": k_pool.to(torch.int8), "s": k_pool[..., :2]}
+    with pytest.raises(ValueError, match="scale plane has shape"):
         TPA.paged_decode_attention(q, int8_pool, int8_pool, tables, k_side,
+                                   v_side, side_valid, entry, groups=1)
+    with pytest.raises(TypeError, match="differ in form"):
+        TPA.paged_decode_attention(q, int8_pool, v_pool, tables, k_side,
                                    v_side, side_valid, entry, groups=1)
     meta = q.to("meta")
     with pytest.raises(ValueError, match="no kernel for device"):
