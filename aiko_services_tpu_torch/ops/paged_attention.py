@@ -22,7 +22,7 @@ from ..models.layers import (dequantize_kv_cache, gather_paged_kv,
 from .kernels import check, entry, require_cuda
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_reference",
-           "launches"]
+           "kernel_plan", "launches"]
 
 # kernel launches, counted by the wrapper where it launches its kernel,
 # one count per numerics variant
@@ -30,8 +30,7 @@ launches = {"paged_decode_attention": 0,
             "paged_decode_attention_int8_fold": 0,
             "paged_decode_attention_int8_dequant": 0}
 
-# what the kernel takes (csrc/paged_decode_attention.cu); more than 64
-# query rows per KV head are tiled 64 at a time over the grid
+# what the kernel takes (csrc/paged_decode_attention.cu)
 _KERNEL_HEAD_DIM = 64
 _KERNEL_MAX_BLOCK_TOKENS = 128
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
@@ -40,6 +39,22 @@ _NATIVE, _INT8_FOLD, _INT8_DEQUANT = 0, 1, 2
 _VARIANTS = {_NATIVE: "paged_decode_attention",
              _INT8_FOLD: "paged_decode_attention_int8_fold",
              _INT8_DEQUANT: "paged_decode_attention_int8_dequant"}
+# the C entry's `path`
+SPLIT_PATH, TENSOR_PATH = 0, 1
+# the tensor-core path: bf16 above this many rows per (slot, KV head),
+# 256 rows a block (8 warps of 32).  At 16 rows or fewer a K/V element
+# takes at most 16 multiply-adds, so the CUDA cores keep up with the
+# loads and the split over T fills the card; above, the products belong
+# on the tensor cores and each K/V position is read once per (slot, KV
+# head) for all its rows.
+_TENSOR_MIN_ROWS = 17
+_TENSOR_TILE_ROWS = 256
+# the split path: positions per main split (one warp per 64, each taking
+# two 32-position tiles), from 64 doubling up to 256 while the grid keeps
+# at least _SPLIT_WAVES blocks a multiprocessor (fewer, longer splits:
+# less to merge)
+_SPLIT_MIN, _SPLIT_MAX, _SPLIT_WAVES = 64, 256, 4
+_PARTIAL_FLOATS = _KERNEL_HEAD_DIM + 2      # a split's sums, max and sum
 
 
 def paged_decode_attention_reference(q, k_pool, v_pool, tables, k_side,
@@ -89,6 +104,27 @@ def paged_decode_attention_reference(q, k_pool, v_pool, tables, k_side,
     w_side = weights[..., main_t:].to(v_side.dtype).float()
     return torch.matmul(w_main, v_main.float()) + \
         torch.matmul(w_side, v_side.float())
+
+
+def kernel_plan(is_bf16: bool, slots: int, num_kv: int, rows: int,
+                positions: int, multiprocessors: int) -> tuple:
+    """How the CUDA kernel splits one call, from host-known shapes only
+    (never from entry_lengths, which live on the card): (path, rows per
+    block, positions per main split, main splits).  `positions` is the
+    table's nb * B.  The tensor-core path (bf16, more than 16 rows) takes
+    all of a (slot, KV head)'s positions in one block; the split path
+    covers them in main splits of split positions each, plus one split
+    for the side buffer, and merges the splits in a second kernel."""
+    if is_bf16 and rows >= _TENSOR_MIN_ROWS:
+        return TENSOR_PATH, _TENSOR_TILE_ROWS, positions, 1
+    tile_rows = 4 if rows <= 4 else 16
+    blocks = slots * num_kv * -(-rows // tile_rows)
+    split = _SPLIT_MIN
+    while split < _SPLIT_MAX and blocks * (-(-positions // (2 * split)) +
+                                           1) >= _SPLIT_WAVES * \
+            multiprocessors:
+        split *= 2
+    return SPLIT_PATH, tile_rows, split, -(-positions // split)
 
 
 def _check_planes(k_pool, v_pool) -> tuple:
@@ -163,6 +199,12 @@ def _check_operands(q, kq, ks, vq, vs, tables, k_side, v_side, side_valid,
             raise ValueError(f"{name}: {label} must be contiguous")
     if tables.stride(1) != 1:
         raise ValueError(f"{name}: tables needs unit stride along a row")
+    # the kernel copies pool and side rows 16 bytes at a time
+    for label, tensor in (("q", q), ("k_pool", kq), ("v_pool", vq),
+                          ("k_side", k_side), ("v_side", v_side)):
+        if tensor.data_ptr() % 16:
+            raise ValueError(f"{name}: {label} must start on a 16-byte "
+                             f"boundary")
     if head_dim != _KERNEL_HEAD_DIM:
         raise ValueError(f"{name}: the CUDA kernel takes head dim "
                          f"{_KERNEL_HEAD_DIM}, got {head_dim}")
@@ -192,7 +234,9 @@ def paged_decode_attention(q, k_pool, v_pool, tables, k_side, v_side,
     Returns [S, Hkv, G*W, D] f32.  fold_scales chooses between the int8
     pools' two numerics (paged_decode_attention_reference); native pools
     ignore it.  On the card the kernel takes bf16 or f32 with D = 64 and
-    B <= 128 (contiguous operands; the table may be a column slice)."""
+    B <= 128 (contiguous operands, q, pools and side buffers on 16-byte
+    boundaries; the table may be a column slice), split as kernel_plan
+    says."""
     kq, ks, vq, vs = _check_planes(k_pool, v_pool)
     slots_n, num_kv, gw, head_dim = q.shape
     if gw % groups:
@@ -214,10 +258,17 @@ def paged_decode_attention(q, k_pool, v_pool, tables, k_side, v_side,
     library, function = entry(
         "paged_decode_attention", "aiko_paged_decode_attention",
         [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_longlong] +
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float,
-                                                      ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float] +
+        [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+    nb, block_tokens = tables.shape[1], kq.shape[2]
+    path, tile_rows, split, main_splits = kernel_plan(
+        q.dtype == torch.bfloat16, slots_n, num_kv, gw, nb * block_tokens,
+        torch.cuda.get_device_properties(q.device).multi_processor_count)
     out = torch.empty((slots_n, num_kv, gw, head_dim), dtype=torch.float32,
                       device=q.device)
+    partials = None if path == TENSOR_PATH else torch.empty(
+        slots_n * num_kv * (main_splits + 1) * gw * _PARTIAL_FLOATS,
+        dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = function(
@@ -227,8 +278,9 @@ def paged_decode_attention(q, k_pool, v_pool, tables, k_side, v_side,
             tables.data_ptr(), tables.stride(0), k_side.data_ptr(),
             v_side.data_ptr(), side_valid.data_ptr(),
             entry_lengths.data_ptr(), out.data_ptr(), slots_n, num_kv, gw,
-            gw // groups, tables.shape[1], kq.shape[2], k_side.shape[2],
-            head_dim, float(scale), stream)
+            gw // groups, nb, block_tokens, k_side.shape[2], head_dim,
+            float(scale), path, tile_rows, split, main_splits,
+            0 if partials is None else partials.data_ptr(), stream)
     launches[_VARIANTS[mode]] += 1
     check(library, "paged_decode_attention", code)
     return out

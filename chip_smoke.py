@@ -9,7 +9,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
      the seconds nvcc took to build every kernel from csrc/;
   2. kernels: each kernel against its plain PyTorch version at the shapes
      its path gives it, in bf16, with its stated tolerance; median
-     times of the kernel, the plain version and one PyTorch library call
+     device times (time_ms: the host runs ahead of the card, so the
+     events bracket device work alone; the timer line shows a call that
+     launches nothing at ~0) of the kernel, the plain version and one
+     PyTorch library call
      computing the same function (timed only: the port never calls it),
      and the least time the card could take (bound_ms); the paged kernel
      at the Llama decode shape, t_cap 256 and 512, natively and with int8
@@ -56,6 +59,7 @@ printing any result.  Imports nothing of JAX.
 from __future__ import annotations
 
 import collections
+import functools
 import json
 import math
 import os
@@ -79,25 +83,33 @@ PEAK_BYTES_PER_S = 3.35e12
 # outputs of flash and cross-decode; 0 for the paged kernel's f32 output.
 # c bounds the kernel's own rounding inside the sum: the flash kernel
 # rounds each probability to bf16 for the PV product (c = 2^-8), the
-# cross-decode and paged kernels keep f32 throughout (c = 2^-12 leaves
-# room for f32 sums over 20k keys).  sum_j p_j |v_j| / l is the plain
-# version run on |v|.  Besides, the relative L2 error of the whole output
-# stays under a per-kernel limit, about 2.5x the error that rounding
-# alone gives for the bf16 outputs (flash: output and probabilities,
-# ~2^-9 relative each; cross-decode: the output's ~2^-9.5) and 1e-4 for
-# the paged kernel's f32 (one dropped key of T <= 1024 moves a row by
-# ~1/sqrt(T)), so that one dropped or mis-weighted key per row fails.
+# cross-decode kernel and the paged kernel's split path (the decode rows)
+# keep f32 throughout (c = 2^-12 leaves room for f32 sums over 20k keys);
+# the paged kernel's tensor-core path (bf16, more than 16 rows: the
+# extend rows) rounds each unnormalised probability to bf16 for PV, as
+# flash does and as JAX and the plain version round their weights
+# (c = 2^-8).  sum_j p_j |v_j| / l is the plain version run on |v|.
+# Besides, the relative L2 error of the whole output stays under a
+# per-kernel limit, about 2.5x the error that rounding alone gives for
+# the bf16 outputs (flash: output and probabilities, ~2^-9 relative each;
+# cross-decode: the output's ~2^-9.5; the paged tensor-core path: the
+# probabilities', relative errors spread over [-2^-8, 2^-8], ~0.0012 rms,
+# under its f32 output) and
+# 1e-4 for the paged split path's f32 (one dropped key of T <= 1024 moves
+# a row by ~1/sqrt(T)), so that one dropped or mis-weighted key per row
+# fails.
 BF16_U = 2 ** -8
 KERNEL_TOLERANCE = {          # kernel: (u, c, relative L2 limit)
     "flash_attention": (BF16_U, 2 ** -8, 0.008),
     "cross_decode_attention": (BF16_U, 2 ** -12, 0.004),
     "paged_decode_attention": (0.0, 2 ** -12, 1e-4),
+    "paged_decode_attention_tensor_cores": (0.0, 2 ** -8, 0.003),
 }
-# the paged kernel's int8 variants keep f32 from the loaded values on, as
-# the native one does: the same model, held against the plain version run
-# in f32 on the values the kernel sees (int8 values and f32 scales as they
-# are when folding; the values rounded to bf16, round(q * round(s)), when
-# dequantizing)
+# the paged kernel's int8 variants on the split path keep f32 from the
+# loaded values on, as the native one does: the same model, held against
+# the plain version run in f32 on the values the kernel sees (int8 values
+# and f32 scales as they are when folding; the values rounded to bf16,
+# round(q * round(s)), when dequantizing)
 KERNEL_TOLERANCE["paged_decode_attention_int8_fold"] = \
     KERNEL_TOLERANCE["paged_decode_attention_int8_dequant"] = \
     KERNEL_TOLERANCE["paged_decode_attention"]
@@ -150,14 +162,43 @@ def flush_l2(scratch) -> None:
     scratch.zero_()            # 128 MB write evicts the 50 MB L2
 
 
-def time_ms(fn, scratch, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call, cold L2, CUDA events."""
-    for _ in range(warmup):
-        fn()
+@functools.cache
+def spin_cycles_per_ms() -> float:
+    """Clock cycles of torch.cuda._sleep's device spin per millisecond,
+    measured once with CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    torch.cuda._sleep(2_000_000)
+    end.record()
+    end.synchronize()
+    return 2e6 / start.elapsed_time(end)
+
+
+def time_ms(fn, scratch, reps: int = 20, warmup: int = 3,
+            host_ahead: bool = True) -> float:
+    """Median device time of one call, cold L2, between two CUDA events
+    that bracket device work alone.  After the L2 flush the stream spins
+    on the card for 1 ms more than twice the call's host time (the median
+    of the warm-up calls), so the host records the start event, runs the
+    call's Python (checks, allocations, launches) and records the end
+    event while the card is still spinning: the call's kernels then run
+    back to back between the events.  host_ahead=False leaves the spin
+    out, so the events also take in the host's time between launches
+    (only to show what the spin removes)."""
+    host = []
+    for _ in range(warmup):
+        begin = time.perf_counter()
+        fn()
+        host.append(time.perf_counter() - begin)
+    torch.cuda.synchronize()
+    spin = int((2e3 * statistics.median(host) + 1.0) * spin_cycles_per_ms())
     times = []
     for _ in range(reps):
         flush_l2(scratch)
+        if host_ahead:
+            torch.cuda._sleep(spin)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -370,6 +411,23 @@ def phase_paged_kernel(generator) -> list[dict]:
                           device=generator.device)
     scale = 0.125
 
+    # the timer on a call that does the wrapper's host work (its checks
+    # and its output allocation) and launches nothing: ~0 ms with the
+    # host ahead of the card, the host's time without (operands from a
+    # generator of their own, so the rows below keep theirs)
+    idle = paged_case(torch.Generator(device=generator.device).manual_seed(1),
+                      256, LLAMA_DECODER["steps_per_sync"])
+
+    def host_only():
+        kq, ks, vq, vs = P._check_planes(idle[1], idle[2])
+        P._check_operands(idle[0], kq, ks, vq, vs, *idle[3:], 4)
+        torch.empty(idle[0].shape, dtype=torch.float32, device=idle[0].device)
+
+    emit({"phase": "timer", "host_only_call_ms": time_ms(host_only, scratch),
+          "host_only_call_ms_without_spin": time_ms(host_only, scratch,
+                                                    host_ahead=False),
+          "spin_cycles_per_ms": spin_cycles_per_ms()})
+
     def measure(name, variant, operands, groups, fold, extra):
         q, k_pool, v_pool, tables, k_side, v_side, side_valid, entries = \
             operands
@@ -394,15 +452,20 @@ def phase_paged_kernel(generator) -> list[dict]:
                 q32, plain_k, v_main, tables, ks32, v_s, side_valid,
                 entries, groups=groups, scale=scale, fold_scales=fold)
 
-        errors = compare(variant, P.paged_decode_attention(
-            *operands, groups=groups, fold_scales=fold),
+        slots, num_kv, rows, _ = q.shape
+        tensor_cores = P.kernel_plan(True, slots, num_kv, rows, 1, 1)[0] \
+            == P.TENSOR_PATH
+        errors = compare(
+            "paged_decode_attention_tensor_cores" if tensor_cores
+            else variant,
+            P.paged_decode_attention(*operands, groups=groups,
+                                     fold_scales=fold),
             plain_f32, lambda: plain_f32(abs_v=True))
         # SDPA's operands, made outside the timed call
         k_all = torch.cat([dequantize_kv_cache(
             gather_paged_kv(k_pool, tables), q.dtype), k_side], dim=2)
         v_all = torch.cat([dequantize_kv_cache(
             gather_paged_kv(v_pool, tables), q.dtype), v_side], dim=2)
-        slots, num_kv, rows, _ = q.shape
         width = side_valid.shape[1]
         block = (k_pool["q"] if int8 else k_pool).shape[2]
         main_t = tables.shape[1] * block
@@ -505,6 +568,17 @@ class plain_flash:
     def __exit__(self, *exc):
         self._module.flash_attention = self._kernel
         return False
+
+
+def covered_ms(spans) -> float:
+    """Milliseconds covered by the union of (name, start us, end us)
+    spans."""
+    total, reach = 0.0, float("-inf")
+    for _, start, end in sorted(spans, key=lambda span: span[1]):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total / 1e3
 
 
 def profile_batch(label: str, submit, scheduler) -> dict:
@@ -698,33 +772,49 @@ def phase_slice() -> dict:
 
 
 def profile_round(decoder, label: str = "llama decode") -> dict:
-    """One pump round under torch.profiler: host wall time, the summed
-    device time of its kernels (one stream), the idle share, the paged
-    kernel's share, the costliest kernels."""
+    """One pump round under torch.profiler: host wall time, the device
+    time its kernels cover, the idle share, the paged kernel's share and
+    calls, the costliest kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from aiko_services_tpu_torch.ops import paged_attention as P
+
     torch.cuda.synchronize()
+    calls_before = sum(P.launches.values())
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
         decoder.pump()
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
-    by_name, launches = {}, 0
+    paged_calls = sum(P.launches.values()) - calls_before
+    by_name, spans = {}, []
     for event in prof.events():
         if event.device_type == DeviceType.CUDA:
-            launches += 1
+            spans.append((event.name, event.time_range.start,
+                          event.time_range.end))
             by_name[event.name] = by_name.get(event.name, 0.0) + \
                 event.time_range.elapsed_us() / 1e3
-    busy_ms = sum(by_name.values())
+    # the split path's merge kernel starts before the split kernel ends
+    # (programmatic dependent launch): busy time is the union of the
+    # kernels' spans, not their sum
+    busy_ms = covered_ms(spans)
     top = sorted(by_name.items(), key=lambda item: -item[1])[:8]
+    # the paged wrapper's kernels: the split path (split + merge) and the
+    # tensor-core path, [device ms (union of spans), calls]
+    paged = {path: [covered_ms([s for s in spans
+                                if any(k in s[0] for k in kernels)]),
+                    sum(1 for s in spans if kernels[0] in s[0])]
+             for path, kernels in (
+                 ("split", ("paged_split_kernel", "paged_combine_kernel")),
+                 ("tensor_cores", ("paged_mma_kernel",)))}
     return {"round": label, "wall_s": wall,
-            "device_busy_s": busy_ms / 1e3 if launches else None,
-            "idle_share": 1.0 - busy_ms / 1e3 / wall if launches else None,
-            "device_launches": launches,
-            "paged_kernel_ms": sum(ms for name, ms in by_name.items()
-                                   if "paged_decode_kernel" in name),
+            "device_busy_s": busy_ms / 1e3 if spans else None,
+            "idle_share": 1.0 - busy_ms / 1e3 / wall if spans else None,
+            "device_launches": len(spans),
+            "paged_kernel_ms": sum(ms for ms, _ in paged.values()),
+            "paged_ms_calls": paged, "paged_calls": paged_calls,
             "top_kernels_ms": [[name[:80], ms] for name, ms in top]}
 
 
@@ -1227,8 +1317,13 @@ def main() -> int:
     start = time.perf_counter()
     built = kernels.build()
     build_s = time.perf_counter() - start
-    ptxas = {name: [line.strip() for line in text.splitlines()
-                    if "registers" in line or "spill" in line]
+    # per kernel instantiation (its mangled name): registers, shared
+    # memory and spills as ptxas reports them
+    ptxas = {name: [line.strip().split("'")[1] if "entry function" in line
+                    else line.split(":", 1)[-1].strip()
+                    for line in text.splitlines()
+                    if "entry function" in line or "registers" in line or
+                    "spill" in line]
              for name, text in kernels.build_log.items()}
     emit({"phase": "build", "seconds": build_s, "built": built,
           "ptxas": ptxas, "torch": torch.__version__,

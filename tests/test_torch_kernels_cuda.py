@@ -10,8 +10,10 @@ need not have; nothing here imports jax.)  Shapes cover the edges the
 main path does not reach: one head, ragged batch x heads, causal tiles,
 strided layouts, T = 1, T not a multiple of 8, and a T whose scores
 need more than 48 KB of shared memory; for the paged kernel, its three
-numerics (native, int8 folded, int8 dequantized) and more than 64 query
-rows per KV head."""
+numerics (native, int8 folded, int8 dequantized) on both of its paths
+(split over T; tensor cores for more than 16 bf16 rows per KV head),
+extents around split boundaries, fully masked rows, B not a power of
+two, and more blocks than multiprocessors."""
 
 import pytest
 import torch
@@ -107,13 +109,31 @@ def test_cross_decode_kernel_matches_plain(card, t):
 
 
 # -- paged decode attention ---------------------------------------------------
-# The kernel keeps f32 throughout and writes f32, so it is held against
-# its plain version run in f32 on the same input values: elementwise
+# The kernel writes f32 and is held against its plain version run in f32
+# on the same input values.  The split path (f32, and bf16 with at most
+# 16 rows per KV head) keeps f32 throughout: elementwise
 # |kernel - plain| <= 2^-12 * sum_j p_j |v_j| / l (f32 sums in another
-# order, exp2 with the scale folded into the query; thousands of times
-# the f32 rounding), and a relative L2 error under 1e-4 — one key dropped
-# or mis-weighted in a row of T <= 1024 moves that row by ~1/sqrt(T).
+# order, exp2 with the scale folded into the query, splits merged;
+# thousands of times the f32 rounding), and a relative L2 error under
+# 1e-4 — one key dropped or mis-weighted in a row of T <= 1024 moves that
+# row by ~1/sqrt(T).  The tensor-core path (bf16, more than 16 rows)
+# rounds each unnormalised probability to bf16 for the PV product, as
+# flash does (and as JAX and the plain version round their weights to
+# the compute type): a relative error of at most 2^-8, bf16's unit
+# roundoff, per weight, so c = 2^-8 as flash's, and a relative L2 limit
+# of 0.003, about 2.5x what that rounding alone gives (relative errors
+# spread over [-2^-8, 2^-8]: ~0.0012 rms).
 PAGED = (2 ** -12, 1e-4)
+PAGED_TENSOR_CORES = (2 ** -8, 0.003)
+
+
+def _paged_tolerance(q):
+    """The tolerance of the path kernel_plan gives q's shape and type."""
+    from aiko_services_tpu_torch.ops import paged_attention as P
+    slots, num_kv, rows, _ = q.shape
+    path = P.kernel_plan(q.dtype == torch.bfloat16, slots, num_kv, rows, 1,
+                         1)[0]
+    return PAGED_TENSOR_CORES if path == P.TENSOR_PATH else PAGED
 
 
 def _paged_case(generator, dtype, slots, num_kv, groups, width, block, nb,
@@ -149,7 +169,7 @@ def _paged_case(generator, dtype, slots, num_kv, groups, width, block, nb,
 def _assert_paged_close(out, operands, groups):
     from aiko_services_tpu_torch.ops.paged_attention import \
         paged_decode_attention_reference as plain
-    c, rel_l2_limit = PAGED
+    c, rel_l2_limit = _paged_tolerance(operands[0])
     q, k_pool, v_pool, tables, k_side, v_side, side_valid, entry = operands
     # int8 pools ({"q", "s"}) stay as they are: the plain version takes
     # their values exactly in f32, the scales folded
@@ -236,6 +256,12 @@ def test_paged_kernel_rejects_what_it_does_not_take(card):
     ragged[3] = ragged[3][:1]
     with pytest.raises(ValueError, match="tables has shape"):
         P.paged_decode_attention(*ragged, groups=4)
+    shifted = list(operands)           # contiguous, 8 bytes off a boundary
+    shifted[4] = torch.zeros(operands[4].numel() + 4, device=card,
+                             dtype=torch.bfloat16)[4:].view(
+                                 operands[4].shape)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        P.paged_decode_attention(*shifted, groups=4)
 
 
 def _quantized(pool):
@@ -247,19 +273,37 @@ def _quantized(pool):
     return leaf
 
 
+def _variant_operands(operands, variant, dtype):
+    """(kernel operands, plain operands, fold) of one numerics variant:
+    int8 pools for the kernel, and for the plain version the values the
+    kernel sees (folding: int8 values and f32 scales as they are;
+    dequantizing: round(q * round(s)) in the compute type)."""
+    from aiko_services_tpu_torch.models.layers import dequantize_kv_cache
+    fold = variant == "int8_fold"
+    operands, plain_operands = list(operands), list(operands)
+    if variant != "native":
+        operands[1], operands[2] = (_quantized(pool.float())
+                                    for pool in operands[1:3])
+        plain_operands[1], plain_operands[2] = (
+            leaf if fold else dequantize_kv_cache(leaf, dtype)
+            for leaf in operands[1:3])
+    return operands, plain_operands, fold
+
+
+
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("variant", ["native", "int8_fold", "int8_dequant"])
 @pytest.mark.parametrize("groups,width", [(4, 16), (1, 65), (4, 64)])
 def test_paged_kernel_variants_tile_rows_and_match_plain(card, dtype, variant,
                                                          groups, width):
-    """G*W = 64, 65 and 256 query rows (one, two and four 64-row tiles)
-    under a chunk's causal triangle; extents 0 (a first chunk, and with
+    """G*W = 64, 65 and 256 query rows (in bf16 the tensor-core path's
+    256-row block, rows past G*W padded; in f32 16-row tiles of the
+    split path) under a chunk's causal triangle; extents 0 (a first chunk, and with
     one row's side entries all masked: a fully masked row), on a block
     edge, inside a block, and the whole table.  The int8 variants are
     held against the plain version in f32 on the values the kernel sees:
     folding, int8 values and f32 scales as they are; dequantizing, the
     values rounded to the compute type, round(q * round(s))."""
-    from aiko_services_tpu_torch.models.layers import dequantize_kv_cache
     from aiko_services_tpu_torch.ops import paged_attention as P
     torch_dtype = getattr(torch, dtype)
     generator = torch.Generator(device=card).manual_seed(groups * width)
@@ -273,14 +317,8 @@ def test_paged_kernel_variants_tile_rows_and_match_plain(card, dtype, variant,
     operands[6] = tri
     name = "paged_decode_attention" + ("" if variant == "native"
                                        else "_" + variant)
-    fold = variant == "int8_fold"
-    plain_operands = list(operands)
-    if variant != "native":
-        operands[1], operands[2] = (_quantized(pool.float())
-                                    for pool in operands[1:3])
-        plain_operands[1], plain_operands[2] = (
-            leaf if fold else dequantize_kv_cache(leaf, torch_dtype)
-            for leaf in operands[1:3])
+    operands, plain_operands, fold = _variant_operands(operands, variant,
+                                                       torch_dtype)
     before = dict(P.launches)
     out = P.paged_decode_attention(*operands, groups=groups,
                                    fold_scales=fold)
@@ -288,3 +326,62 @@ def test_paged_kernel_variants_tile_rows_and_match_plain(card, dtype, variant,
     assert sum(P.launches.values()) == sum(before.values()) + 1
     assert out.shape == (4, 2, groups * width, 64)
     _assert_paged_close(out, plain_operands, groups)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("variant", ["native", "int8_fold", "int8_dequant"])
+@pytest.mark.parametrize("groups,width,block", [
+    (4, 1, 32), (4, 1, 12), (4, 4, 8), (1, 17, 16), (2, 8, 16)])
+def test_paged_kernel_splits_and_path_cut_match_plain(card, dtype, variant,
+                                                      groups, width, block):
+    """Both device paths (split over T: G*W = 4 and 16 in bf16, and every
+    f32 case; tensor cores: G*W = 17 in bf16), B = 8, 12, 16, 32, a table
+    of ~256 positions cut into 64-position splits: extents on and either
+    side of a split boundary (63, 64, 65, 128, 129), the whole table, and
+    0 with slot 0's query 0 fully masked across every split."""
+    from aiko_services_tpu_torch.ops import paged_attention as P
+    torch_dtype = getattr(torch, dtype)
+    generator = torch.Generator(device=card).manual_seed(
+        groups * width * 10 + block)
+    nb = -(-256 // block)
+    entries = [0, 63, 64, 65, 128, 129, nb * block]
+    operands, plain_operands, fold = _variant_operands(
+        _paged_case(generator, torch_dtype, len(entries), 2, groups, width,
+                    block, nb, 5, entries), variant, torch_dtype)
+    path, _, split, main_splits = P.kernel_plan(
+        dtype == "bfloat16", len(entries), 2, groups * width, nb * block,
+        torch.cuda.get_device_properties(card).multi_processor_count)
+    assert path == (P.TENSOR_PATH if dtype == "bfloat16" and
+                    groups * width > 16 else P.SPLIT_PATH)
+    assert path == P.TENSOR_PATH or (split, main_splits) == (
+        64, -(-nb * block // 64))
+    name = "paged_decode_attention" + ("" if variant == "native"
+                                       else "_" + variant)
+    before = dict(P.launches)
+    out = P.paged_decode_attention(*operands, groups=groups,
+                                   fold_scales=fold)
+    assert P.launches[name] == before[name] + 1
+    assert sum(P.launches.values()) == sum(before.values()) + 1
+    _assert_paged_close(out, plain_operands, groups)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("variant", ["native", "int8_fold", "int8_dequant"])
+@pytest.mark.parametrize("block", [8, 16, 32, 24])
+def test_paged_kernel_decode_rows_over_block_sizes(card, dtype, variant,
+                                                   block):
+    """The decode rows (G = 4, W = 1) at B = 8, 16, 32 and 24 (not a
+    multiple of 16) over t_cap 512, 16 slots x 8 KV heads, random
+    extents and one slot at 0 with its row fully masked."""
+    torch_dtype = getattr(torch, dtype)
+    generator = torch.Generator(device=card).manual_seed(block)
+    nb = 512 // block
+    entries = torch.randint(1, nb * block + 1, (16,), generator=generator,
+                            device=card).tolist()
+    entries[0] = 0
+    operands, plain_operands, fold = _variant_operands(
+        _paged_case(generator, torch_dtype, 16, 8, 4, 1, block, nb, 8,
+                    entries), variant, torch_dtype)
+    from aiko_services_tpu_torch.ops import paged_attention as P
+    out = P.paged_decode_attention(*operands, groups=4, fold_scales=fold)
+    _assert_paged_close(out, plain_operands, 4)
