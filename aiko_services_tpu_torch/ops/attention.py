@@ -11,6 +11,7 @@
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -19,7 +20,8 @@ from .kernels import check, entry, require_cuda
 
 __all__ = ["flash_attention", "flash_attention_reference", "attention",
            "cross_decode_attention", "cross_decode_attention_reference",
-           "FLASH_MIN_SEQ", "dispatch_stats", "launches"]
+           "cross_decode_plan", "FLASH_MIN_SEQ", "dispatch_stats",
+           "launches"]
 
 # The dispatcher keeps the JAX package's rule, so the port runs its
 # kernel exactly where the reference runs its Pallas kernel.
@@ -32,6 +34,11 @@ launches = {"flash_attention": 0, "cross_decode_attention": 0}
 
 # the kernels are built for head dim 64, that of every Whisper size
 _KERNEL_HEAD_DIM = 64
+# the cross-decode kernel's split over T: as many splits per (batch,
+# head) as fill one wave of _CROSS_BLOCKS_PER_SM blocks (the kernel's
+# residency) on every multiprocessor, each a multiple of 32 positions
+_CROSS_BLOCKS_PER_SM, _CROSS_SPLIT_ALIGN = 6, 32
+_CROSS_PARTIAL_FLOATS = _KERNEL_HEAD_DIM + 2    # weighted sums, max, sum
 
 
 def _check_cuda_operands(name: str, tensors, head_dim: int) -> None:
@@ -101,6 +108,9 @@ def flash_attention(q, k, v, causal: bool = False,
     if s % 64:
         raise ValueError(f"sequence {s} not divisible by the kernel's "
                          f"64-row tile")
+    if not scale > 0:
+        raise ValueError(f"flash_attention: the CUDA kernel takes a "
+                         f"positive scale, got {scale}")
     _check_cuda_operands("flash_attention", (q, k, v), d)
     library, function = entry(
         "flash_attention", "aiko_flash_attention_bf16",
@@ -154,6 +164,27 @@ def cross_decode_attention_reference(q, k, v, scale: float | None = None):
     return (torch.matmul(p, v) / p.sum(dim=-1, keepdim=True)).to(q.dtype)
 
 
+def cross_decode_plan(batch: int, heads: int, t_len: int,
+                      multiprocessors: int) -> tuple[int, int]:
+    """How the CUDA kernel splits one call over T, from host-known shapes
+    only: (positions per split, splits).  One block per (batch, head,
+    split) streams its positions and writes a partial; a second kernel
+    merges the splits of each (batch, head).  The splits are as many as
+    one wave of blocks takes, so every multiprocessor has its share of
+    the loads in flight at once; every split holds at least one
+    position."""
+    splits = max(1, _CROSS_BLOCKS_PER_SM * multiprocessors //
+                 (batch * heads))
+    split = -(-t_len // splits)
+    split = -(-split // _CROSS_SPLIT_ALIGN) * _CROSS_SPLIT_ALIGN
+    return split, -(-t_len // split)
+
+
+@functools.cache
+def _multiprocessors(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def cross_decode_attention(q, k, v, scale: float | None = None):
     """Decode-time cross attention: q [B, H, 1, D], k/v [B, H, T, D]
     (precomputed, read-only) → [B, H, 1, D].
@@ -178,18 +209,22 @@ def cross_decode_attention(q, k, v, scale: float | None = None):
     _check_cuda_operands("cross_decode_attention", (q, k, v), d)
     library, function = entry(
         "cross_decode_attention", "aiko_cross_decode_attention_bf16",
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
             ctypes.c_void_p])
+    split, splits = cross_decode_plan(b, h, t,
+                                      _multiprocessors(q.device.index))
     out = torch.empty((b, h, 1, d), dtype=q.dtype, device=q.device)
+    partials = torch.empty(b * h * splits * _CROSS_PARTIAL_FLOATS,
+                           dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 10)(
         q.stride(0), q.stride(1), *k.stride()[:3], *v.stride()[:3],
         out.stride(0), out.stride(1))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = function(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), b, h, t, d, strides, float(scale),
-                        stream)
+                        out.data_ptr(), partials.data_ptr(), b, h, t, d,
+                        split, splits, strides, float(scale), stream)
     launches["cross_decode_attention"] += 1
     check(library, "cross_decode_attention", code)
     return out

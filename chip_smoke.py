@@ -14,7 +14,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
      launches nothing at ~0) of the kernel, the plain version and one
      PyTorch library call
      computing the same function (timed only: the port never calls it),
-     and the least time the card could take (bound_ms); the paged kernel
+     and the least time the card could take (bound_ms); cross-decode at
+     the decode tail's T = 1536 (bucket 3072) and T = 250 (bucket 500);
+     the paged kernel
      at the Llama decode shape, t_cap 256 and 512, natively and with int8
      pools (scales folded), and at the chunked-prefill extend shape (16
      rows of a 64-token chunk, 256 query rows per KV head, offsets drawn
@@ -262,11 +264,11 @@ def phase_kernels(device, generator) -> list[dict]:
                            dtype=torch.float32).to(torch.bfloat16)
 
     def record(name, source, replaces, errors, kernel, plain, library,
-               flops, nbytes):
+               flops, nbytes, shape=(b, h, s, d)):
         bound_ms, bound_by = bound(flops, nbytes)
         result = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "shape": [b, h, s, d], **errors,
+            "replaces": replaces, "shape": list(shape), **errors,
             "ms": time_ms(kernel, scratch),
             "plain_ms": time_ms(plain, scratch),
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -300,24 +302,30 @@ def phase_kernels(device, generator) -> list[dict]:
         if not causal:
             records.append(result)
 
-    # cross-decode attention at the decode tail's shape: one query row
-    # against the precomputed cross K/V of the 3072-frame bucket
-    qd = split_heads(randn(b, 1, h * d), h)
-    kd, vd = (split_heads(randn(b, s, h * d), h) for _ in range(2))
-    qd32, kd32, vd32 = qd.float(), kd.float(), vd.float()
-    errors = compare(
-        "cross_decode_attention", A.cross_decode_attention(qd, kd, vd),
-        lambda: A.cross_decode_attention_reference(qd32, kd32, vd32),
-        lambda: A.cross_decode_attention_reference(qd32, kd32, vd32.abs()))
-    records.append(record(
-        "cross_decode_attention",
-        "aiko_services_tpu_torch/csrc/cross_decode_attention.cu",
-        CROSS_KERNEL_LINE, errors,
-        lambda: A.cross_decode_attention(qd, kd, vd),
-        lambda: A.cross_decode_attention_reference(qd, kd, vd),
-        lambda: F.scaled_dot_product_attention(qd, kd, vd),
-        flops=4.0 * b * h * s * d,
-        nbytes=(2.0 * b * h * s * d + 2.0 * b * h * d) * 2))
+    # cross-decode attention at the decode tail's shapes: one query row
+    # against the precomputed cross K/V of the 3072-frame bucket (T =
+    # 1536) and of the 500-frame bucket (T = 250)
+    for t in (s, 250):
+        qd = split_heads(randn(b, 1, h * d), h)
+        kd, vd = (split_heads(randn(b, t, h * d), h) for _ in range(2))
+        qd32, kd32, vd32 = qd.float(), kd.float(), vd.float()
+        errors = compare(
+            "cross_decode_attention", A.cross_decode_attention(qd, kd, vd),
+            lambda: A.cross_decode_attention_reference(qd32, kd32, vd32),
+            lambda: A.cross_decode_attention_reference(qd32, kd32,
+                                                       vd32.abs()))
+        result = record(
+            "cross_decode_attention" + ("" if t == s else f"_t{t}"),
+            "aiko_services_tpu_torch/csrc/cross_decode_attention.cu",
+            CROSS_KERNEL_LINE, errors,
+            lambda: A.cross_decode_attention(qd, kd, vd),
+            lambda: A.cross_decode_attention_reference(qd, kd, vd),
+            lambda: F.scaled_dot_product_attention(qd, kd, vd),
+            flops=4.0 * b * h * t * d,
+            nbytes=(2.0 * b * h * t * d + 2.0 * b * h * d) * 2,
+            shape=(b, h, t, d))
+        result["counter"] = "cross_decode_attention"
+        records.append(result)
     return records
 
 
@@ -1335,7 +1343,7 @@ def main() -> int:
     paged = phase_paged_kernel(generator)
     counts = phase_slice()
     for record in records:
-        record["launches"] = counts[record["name"]]
+        record["launches"] = counts[record.get("counter", record["name"])]
     # paged launches by (variant, path): the native decoder decodes, the
     # int8 one decodes with scales folded and extends dequantizing
     counts = {("paged_decode_attention", "decode"): phase_llama()}

@@ -62,16 +62,24 @@ def _assert_close(out, plain, q, k, v, tolerance):
 
 @pytest.mark.parametrize("layout", ["contiguous", "heads_last"])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("b,h,s", [(1, 1, 64), (2, 3, 128), (3, 5, 640)])
+@pytest.mark.parametrize("b,h,s", [(1, 1, 64), (2, 3, 128), (3, 5, 640),
+                                   (2, 2, 192), (2, 12, 1536)])
 def test_flash_kernel_matches_plain(card, b, h, s, causal, layout):
+    """The kernel takes 192 query rows and 128 keys a tile: at S = 64,
+    128 and 640 the last Q tile reaches past S, at 64, 192 and 640 the
+    last key tile is half a tile (S not a multiple of 128: the wrapper
+    then takes 64-row blocks, as the Pallas kernel's contract asks); 1536
+    is the encoder's context at bucket 3072."""
     generator = torch.Generator(device=card).manual_seed(b * 100 + s)
     if layout == "contiguous":
         q, k, v = (_randn(generator, b, h, s, 64) for _ in range(3))
     else:   # [B, S, H, D] buffers viewed as heads, as layers.mha passes
         q, k, v = (_randn(generator, b, s, h, 64).permute(0, 2, 1, 3)
                    for _ in range(3))
+    blocks = 128 if s % 128 == 0 else 64
     before = A.launches["flash_attention"]
-    out = A.flash_attention(q, k, v, causal=causal)
+    out = A.flash_attention(q, k, v, causal=causal, block_q=blocks,
+                            block_k=blocks)
     assert A.launches["flash_attention"] == before + 1
     assert out.shape == (b, h, s, 64) and out.dtype == torch.bfloat16
     _assert_close(out, lambda *x: A.flash_attention_reference(
@@ -92,10 +100,29 @@ def test_flash_kernel_rejects_what_it_does_not_take(card):
                           dtype=torch.bfloat16)[..., ::2]
     with pytest.raises(ValueError, match="unit stride"):
         A.flash_attention(strided, q, q)
+    with pytest.raises(ValueError, match="positive scale"):
+        A.flash_attention(q, q, q, scale=-0.125)
 
 
-@pytest.mark.parametrize("t", [1, 7, 200, 1536, 20000])
+def test_flash_kernel_persistent_grid_walks_more_tiles_than_blocks(card):
+    """More (batch*head, 192-row) tiles than multiprocessors: each block
+    of the persistent grid takes several, its ring running across them."""
+    generator = torch.Generator(device=card).manual_seed(7)
+    b, h, s = 4, 40, 256                     # 320 tiles, 132 blocks
+    q, k, v = (_randn(generator, b, h, s, 64) for _ in range(3))
+    out = A.flash_attention(q, k, v)
+    _assert_close(out, A.flash_attention_reference, q, k, v, FLASH)
+
+
+@pytest.mark.parametrize("t", [1, 7, 63, 64, 65, 127, 129, 200, 250, 1536,
+                               1664, 1665, 4991, 4992, 4993, 9215, 9216,
+                               9217, 20000])
 def test_cross_decode_kernel_matches_plain(card, t):
+    """At B = 3, H = 5 the plan (on 132 SMs) cuts T into up to 52 splits
+    of a multiple of 32 positions: 32 up to T = 1664 (52 x 32), 96 up to
+    4992, 192 at 9216 (48 x 192); T on and either side of such
+    boundaries, where the last split holds 1 position or a whole split
+    or one less."""
     generator = torch.Generator(device=card).manual_seed(t)
     b, h = 3, 5
     q = _randn(generator, b, 1, h * 64).view(b, 1, h, 64).permute(0, 2, 1, 3)
