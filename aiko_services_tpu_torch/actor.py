@@ -1,0 +1,202 @@
+# Actor layer: message → method-call RPC over per-actor mailboxes.
+#
+# The port's own copy of aiko_services_tpu/actor.py for S-expression
+# payloads (the binary wire envelope waits for the port's remote hops):
+#   * ActorMessage — deferred method invocation (target, command, args);
+#   * Actor — a Service with `control` and `in` mailboxes (control drains
+#     first), inbound payloads parsed as S-expressions and dispatched as
+#     method calls; built-in EC share with lifecycle / log_level;
+#   * get_remote_proxy — reflects a protocol class's public methods into a
+#     proxy whose calls serialize to S-expressions published to the target's
+#     `in` topic (the "function call → message" half of the RPC).
+
+from __future__ import annotations
+
+import inspect
+import time
+
+from .observe import tracing
+from .service import Service, ServiceProtocol
+from .share import ECProducer
+from .utils import generate, generate_sexpr, get_logger, parse
+
+__all__ = ["ActorMessage", "Actor", "get_remote_proxy", "get_public_methods",
+           "PROTOCOL_ACTOR"]
+
+PROTOCOL_ACTOR = ServiceProtocol("actor")
+
+
+class ActorMessage:
+    __slots__ = ("target", "command", "arguments", "trace")
+
+    def __init__(self, target, command: str, arguments, trace=None):
+        self.target = target
+        self.command = command
+        self.arguments = arguments
+        # trace context the message arrived under (a trailing sexpr
+        # marker): activated for the duration of the call, so the
+        # handler — and anything it spawns — inherits the caller's
+        # trace id and deadline
+        self.trace = trace
+
+    def invoke(self, logger=None) -> None:
+        method = getattr(self.target, self.command, None)
+        if method is None or self.command.startswith("_") \
+                or not callable(method):
+            if logger:
+                logger.warning("actor %s: no method %r",
+                               getattr(self.target, "name", "?"),
+                               self.command)
+            return
+        try:
+            with tracing.activate(self.trace):
+                method(*self.arguments)
+        except Exception:
+            if logger:
+                logger.exception("actor %s: %s%r raised",
+                                 getattr(self.target, "name", "?"),
+                                 self.command, tuple(self.arguments))
+
+
+class Actor(Service):
+    def __init__(self, runtime, name: str, protocol=None, tags=None,
+                 share: dict | None = None):
+        super().__init__(runtime, name, protocol or PROTOCOL_ACTOR, tags)
+        self.logger = get_logger(f"actor.{name}")
+        base_share = {
+            "lifecycle": "ready",
+            "log_level": "INFO",
+            "running": True,
+        }
+        base_share.update(share or {})
+        self.ec_producer = ECProducer(self, base_share)
+        self.ec_producer.add_handler(self._share_changed)
+        self.share = self.ec_producer.share
+
+        self._mailbox_control = f"{self.topic_path}/control#mb"
+        self._mailbox_in = f"{self.topic_path}/in#mb"
+        # control registered first → drains with priority
+        runtime.event.add_mailbox_handler(self._mailbox_handler,
+                                          self._mailbox_control)
+        runtime.event.add_mailbox_handler(self._mailbox_handler,
+                                          self._mailbox_in)
+        runtime.add_message_handler(self._topic_in_handler, self.topic_in)
+
+    # -- inbound -----------------------------------------------------------
+    def _topic_in_handler(self, _topic, payload) -> None:
+        started = time.perf_counter()
+        try:
+            command, params = parse(payload)
+            trace_fields = tracing.pop_trace(params)
+        except Exception:
+            self.logger.warning("%s: unparseable payload %r",
+                                self.name, payload)
+            return
+        context = None
+        if trace_fields is not None:
+            now = self.runtime.event.clock.now()
+            context = tracing.TraceContext.from_fields(trace_fields, now)
+            trc = tracing.tracer
+            if trc.enabled and context is not None:
+                trc.record("decode", started, time.perf_counter() - started,
+                           context=context, cat="wire", proc=self.name,
+                           span_id=tracing.new_span_id(),
+                           args={"command": command})
+        if command:
+            self._post_message(command, params, trace=context)
+
+    def _post_message(self, command: str, arguments, trace=None) -> None:
+        mailbox = self._mailbox_control if command.startswith("control_") \
+            else self._mailbox_in
+        self.runtime.event.mailbox_put(
+            mailbox, ActorMessage(self, command, arguments, trace=trace))
+
+    def _mailbox_handler(self, _name, message, put_time) -> None:
+        trc = tracing.tracer
+        if trc.enabled and message.trace is not None:
+            # mailbox dwell: engine-clock put → drain (the "queue" hop);
+            # the span ends at the drain
+            waited = max(0.0, self.runtime.event.clock.now() - put_time)
+            now = time.perf_counter()
+            trc.record("queue", now - waited, waited,
+                       context=message.trace, cat="wire", proc=self.name,
+                       span_id=tracing.new_span_id(),
+                       args={"command": message.command})
+        message.invoke(self.logger)
+
+    # -- local deferred invocation (used by pipelines, tests) --------------
+    def post(self, command: str, *arguments) -> None:
+        self._post_message(command, list(arguments))
+
+    # -- share change plumbing ---------------------------------------------
+    def _share_changed(self, command, name, value) -> None:
+        if name == "log_level" and command in ("add", "update"):
+            try:
+                self.logger.setLevel(str(value))
+            except ValueError:
+                pass
+
+    # -- built-in control methods ------------------------------------------
+    def control_stop(self) -> None:
+        self.ec_producer.update("lifecycle", "stopped")
+        self.stop()
+
+    def stop(self) -> None:
+        self.runtime.event.remove_mailbox_handler(self._mailbox_control)
+        self.runtime.event.remove_mailbox_handler(self._mailbox_in)
+        self.runtime.remove_message_handler(self._topic_in_handler,
+                                            self.topic_in)
+        self.ec_producer.terminate()
+        super().stop()
+
+
+def get_public_methods(protocol_class) -> list[str]:
+    """Public callables declared by a protocol class (not inherited from
+    object, not underscore-prefixed)."""
+    methods = []
+    for name, member in inspect.getmembers(protocol_class):
+        if name.startswith("_") or not callable(member):
+            continue
+        if getattr(object, name, None) is member:
+            continue
+        methods.append(name)
+    return methods
+
+
+class _RemoteProxy:
+    def __init__(self, runtime, topic_in):
+        self._runtime = runtime
+        self._topic_in = topic_in
+
+    def __repr__(self):
+        return f"RemoteProxy({self._topic_in})"
+
+
+def _text_parameter(value):
+    """Array-likes (numpy arrays, CPU tensors) cross as nested lists."""
+    if isinstance(value, (str, int, float, bool)) or \
+            not (hasattr(value, "shape") and hasattr(value, "tolist")):
+        return value
+    return generate_sexpr(value.tolist())
+
+
+def get_remote_proxy(runtime, topic_in: str, protocol_class):
+    """Build a proxy object: calling proxy.method(a, b) publishes
+    "(method a b)" to `topic_in` (fire-and-forget, like the reference).
+
+    An ambient trace context at call time rides the payload as a trailing
+    marker parameter, so the receiving actor's dispatch inherits the
+    caller's trace id and remaining deadline."""
+    proxy = _RemoteProxy(runtime, topic_in)
+    for method_name in get_public_methods(protocol_class):
+        def remote_call(*args, _name=method_name, **kwargs):
+            if kwargs:
+                raise TypeError("remote calls are positional-only")
+            parameters = [_text_parameter(arg) for arg in args]
+            context = tracing.current_trace()
+            if context is not None:
+                parameters.append(
+                    context.to_fields(runtime.event.clock.now()))
+            runtime.publish(topic_in, generate(_name, parameters))
+        setattr(proxy, method_name, remote_call)
+    return proxy

@@ -1,4 +1,16 @@
-# Pipeline elements of the port.  The PipelineElement base arrives with
-# the host-plane slice; PE_WhisperASR's batched program is here now.
+# Built-in pipeline elements of the port, by class name: the pipeline
+# instantiates a definition's elements from here (Pipeline._instantiate).
+# Importing this builds no model and no kernel; PE_WhisperASR sets its
+# model up when its first stream starts.
 
-from .speech import PE_WhisperASR  # noqa: F401
+from .audio import PE_MicrophoneSim, PE_Speaker             # noqa: F401
+from .speech import (                                       # noqa: F401
+    PE_AudioFraming, PE_AudioReadFile, PE_AudioWriteFile, PE_LogMel,
+    PE_Synthesize, PE_WhisperASR,
+)
+
+__all__ = [
+    "PE_AudioFraming", "PE_AudioReadFile", "PE_AudioWriteFile",
+    "PE_LogMel", "PE_MicrophoneSim", "PE_Speaker", "PE_Synthesize",
+    "PE_WhisperASR",
+]

@@ -1,18 +1,35 @@
-# Metrics registry: process-wide counters and gauges.
+# Metrics registry: process-wide counters, gauges and histograms.
 #
 # The port's own copy of aiko_services_tpu/observe/metrics.py, trimmed to
-# what the batching scheduler and the compute runtime use: counters,
-# gauges, the registry that names them, and MirroredStats (a stats dict
-# whose increments mirror into a counter family).  Metric names are the
-# JAX package's, so dashboards read both packages alike.  Histograms and
-# sketches arrive with the serving slice.
+# what the host plane uses: counters, gauges, fixed-bucket histograms
+# (the event engine's handler latency), the registry that names them, and
+# MirroredStats (a stats dict whose increments mirror into a counter
+# family).  Metric names are the JAX package's, so dashboards read both
+# packages alike.  Sketches arrive with the serving slice.
 
 from __future__ import annotations
 
 from ..utils.lock import Lock
 
-__all__ = ["Counter", "Gauge", "MetricsRegistry", "MirroredStats",
-           "default_registry"]
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
+           "MirroredStats", "default_registry", "log_buckets",
+           "DEFAULT_LATENCY_BUCKETS"]
+
+
+def log_buckets(start: float, factor: float, count: int) -> tuple:
+    """`count` log-spaced bucket upper bounds: start, start*factor, ..."""
+    if start <= 0 or factor <= 1 or count < 1:
+        raise ValueError("log_buckets wants start>0, factor>1, count>=1")
+    bounds, value = [], float(start)
+    for _ in range(count):
+        bounds.append(value)
+        value *= factor
+    return tuple(bounds)
+
+
+# 0.1 ms .. ~52 s in powers of two: one bucket family resolves an event
+# handler and a first-call device build alike.
+DEFAULT_LATENCY_BUCKETS = log_buckets(0.0001, 2.0, 20)
 
 
 class Counter:
@@ -49,7 +66,36 @@ class Gauge:
         return self._value
 
 
-_KINDS = {"counter": Counter, "gauge": Gauge}
+class Histogram:
+    """Fixed-bucket histogram.  observe() is the lock-free hot path: a
+    linear scan over ~20 log-spaced bounds plus two slot adds."""
+    __slots__ = ("name", "labels", "bounds", "counts", "sum", "count")
+
+    def __init__(self, name: str, labels: dict, buckets=None):
+        self.name = name
+        self.labels = labels
+        self.bounds = tuple(float(b) for b in
+                            (buckets or DEFAULT_LATENCY_BUCKETS))
+        if list(self.bounds) != sorted(self.bounds):
+            raise ValueError(f"histogram {name}: buckets must ascend")
+        # counts[i] = observations <= bounds[i] exclusive of earlier
+        # buckets; counts[-1] = overflow (> bounds[-1])
+        self.counts = [0] * (len(self.bounds) + 1)
+        self.sum = 0.0
+        self.count = 0
+
+    def observe(self, value) -> None:
+        index = 0
+        for bound in self.bounds:
+            if value <= bound:
+                break
+            index += 1
+        self.counts[index] += 1
+        self.sum += value
+        self.count += 1
+
+
+_KINDS = {"counter": Counter, "gauge": Gauge, "histogram": Histogram}
 
 
 class MetricsRegistry:
@@ -67,7 +113,7 @@ class MetricsRegistry:
         return (name, tuple(sorted((labels or {}).items())))
 
     def _get_or_create(self, kind: str, name: str, help_text: str,
-                       labels: dict | None):
+                       labels: dict | None, **kwargs):
         key = self._key(name, labels)
         with self._lock:
             registered = self._types.get(name)
@@ -77,7 +123,7 @@ class MetricsRegistry:
                     f"{registered}, requested {kind}")
             metric = self._metrics.get(key)
             if metric is None:
-                metric = _KINDS[kind](name, dict(labels or {}))
+                metric = _KINDS[kind](name, dict(labels or {}), **kwargs)
                 self._types[name] = kind
                 self._metrics[key] = metric
                 if help_text:
@@ -91,6 +137,11 @@ class MetricsRegistry:
     def gauge(self, name: str, help: str = "",
               labels: dict | None = None) -> Gauge:
         return self._get_or_create("gauge", name, help, labels)
+
+    def histogram(self, name: str, help: str = "",
+                  labels: dict | None = None, buckets=None) -> Histogram:
+        return self._get_or_create("histogram", name, help, labels,
+                                   buckets=buckets)
 
 
 class MirroredStats(dict):

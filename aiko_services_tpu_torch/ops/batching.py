@@ -3,11 +3,10 @@
 # The port's own copy of aiko_services_tpu/ops/batching.py (host code,
 # no device work): frames from many streams accumulate in per-bucket
 # queues keyed by padded shape; the scheduler drains a full batch as soon
-# as (a) the batch is full, or (b) the oldest frame has waited max_wait.
-# Shape bucketing bounds the number of distinct shapes a program sees.
-# attach() to an event engine, completion deadlines and the dispatch gate
-# of the pipelined path arrive with the host-plane slice; until then the
-# owner drives drain() itself.
+# as (a) the batch is full, (b) the oldest frame has waited max_wait, or
+# (c) waiting longer would miss the earliest completion deadline.  Shape
+# bucketing bounds the number of distinct shapes a program sees.
+# attach() drives drain() from an event engine's timer.
 
 from __future__ import annotations
 
@@ -45,6 +44,7 @@ class BatchItem:
     enqueue_time: float
     callback: Callable          # callback(stream_id, result)
     bucket: int = 0
+    deadline: float | None = None   # absolute completion target
 
 
 @dataclass
@@ -72,13 +72,18 @@ class BatchingScheduler:
         self.clock = clock
         self._lock = Lock("batching.scheduler")
         self._queues: dict[int, _Bucket] = {}
+        # EWMA of recent per-batch service time (dispatch → results),
+        # fed back by the owner via observe_service_time(): the
+        # deadline-at-risk test needs to know how long a batch takes
+        self._service_ewma: dict[int, float] = {}
         # cumulative counters, mirrored onto the process metrics
         # registry (batch_scheduler_total{kind=...}); metrics_labels
         # (e.g. {"program": name}) separates schedulers per series
         from ..observe.metrics import MirroredStats
         self.stats = MirroredStats(
             {"batches": 0, "items": 0, "batch_size_sum": 0,
-             "full_batches": 0, "wait_sum": 0.0},
+             "full_batches": 0, "wait_sum": 0.0,
+             "deadline_dispatches": 0},
             metric="batch_scheduler_total",
             help="continuous-batching scheduler events by kind",
             labels=metrics_labels,
@@ -86,17 +91,43 @@ class BatchingScheduler:
             skip=("batch_size_sum", "wait_sum"))
 
     def submit(self, stream_id: str, payload, length: int,
-               callback) -> None:
-        """Enqueue one item."""
+               callback, deadline: float | None = None) -> None:
+        """Enqueue one item.  `deadline` (absolute, scheduler clock) is
+        the item's completion target: the batch former dispatches a
+        partial batch EARLY when waiting longer would make the earliest
+        deadline unmeetable, instead of sitting out the full max_wait."""
         bucket = self.buckets.bucket_for(length)
         item = BatchItem(stream_id, payload, self.clock(), callback,
-                         bucket)
+                         bucket, deadline)
         with self._lock:
             self._queues.setdefault(bucket, _Bucket()).items.append(item)
 
-    def _ready_bucket(self, now: float) -> int | None:
-        """A bucket is ready when full or its head item is older than
-        max_wait.  Oldest head wins (FIFO fairness across buckets)."""
+    def observe_service_time(self, bucket: int, seconds: float) -> None:
+        """Feed back a measured batch service time (dispatch → results
+        delivered) so deadline-at-risk admission has a current
+        estimate.  EWMA, alpha=0.3."""
+        with self._lock:
+            prior = self._service_ewma.get(bucket)
+            self._service_ewma[bucket] = seconds if prior is None \
+                else 0.7 * prior + 0.3 * seconds
+
+    def _deadline_at_risk(self, bucket_key: int, bucket: _Bucket,
+                          now: float) -> bool:
+        """True when waiting any longer would likely miss the earliest
+        deadline in this bucket: remaining slack has shrunk to the
+        estimated service time."""
+        estimate = self._service_ewma.get(bucket_key)
+        if estimate is None:
+            return False
+        earliest = min((i.deadline for i in bucket.items
+                        if i.deadline is not None), default=None)
+        return earliest is not None and earliest - now <= estimate
+
+    def _ready_bucket(self, now: float):
+        """A bucket is ready when full, its head item is older than
+        max_wait, or its earliest deadline is at risk.  Oldest head
+        wins (FIFO fairness across buckets).  Returns
+        (bucket_key, deadline_driven) or None."""
         best, best_age = None, -1.0
         for bucket_key, bucket in self._queues.items():
             if not bucket.items:
@@ -106,10 +137,19 @@ class BatchingScheduler:
                 age += 1e6          # full batch: dispatch first
             if age > best_age:
                 best, best_age = bucket_key, age
-        if best is not None and (
-                len(self._queues[best].items) >= self.max_batch or
-                best_age >= self.max_wait):
-            return best
+        if best is None:
+            return None
+        bucket = self._queues[best]
+        if len(bucket.items) >= self.max_batch or \
+                best_age >= self.max_wait:
+            return best, False
+        # the at-risk test must cover EVERY bucket, not just the one
+        # with the oldest head — a younger bucket can hold the tighter
+        # deadline
+        for bucket_key, bucket in self._queues.items():
+            if bucket.items and self._deadline_at_risk(bucket_key,
+                                                       bucket, now):
+                return bucket_key, True
         return None
 
     def drain(self, force: bool = False) -> int:
@@ -119,18 +159,25 @@ class BatchingScheduler:
         while True:
             now = self.clock()
             with self._lock:
-                bucket_key = self._ready_bucket(now)
-                if bucket_key is None and force:
+                ready = self._ready_bucket(now)
+                deadline_driven = False
+                if ready is not None:
+                    bucket_key, deadline_driven = ready
+                elif force:
                     nonempty = [k for k, b in self._queues.items()
                                 if b.items]
                     bucket_key = nonempty[0] if nonempty else None
+                else:
+                    bucket_key = None
                 if bucket_key is None:
                     return processed
+                if deadline_driven:
+                    self.stats["deadline_dispatches"] += 1
                 queue = self._queues[bucket_key].items
                 batch = [queue.popleft()
                          for _ in range(min(self.max_batch, len(queue)))]
             # items are already popped: every callback MUST fire, or the
-            # stream's frame silently vanishes — errors fan out as results
+            # stream's frame silently vanishes — errors fan out as results.
             try:
                 results = self.process_batch(bucket_key, batch)
                 if len(results) != len(batch):
@@ -149,6 +196,11 @@ class BatchingScheduler:
             for item, result in zip(batch, results):
                 item.callback(item.stream_id, result)
             processed += len(batch)
+
+    def attach(self, engine, period: float = 0.005) -> int:
+        """Drive from an EventEngine: a fast timer checks deadlines and
+        drains ready batches (control plane integration)."""
+        return engine.add_timer_handler(lambda: self.drain(), period)
 
     def mean_batch_size(self) -> float:
         batches = self.stats["batches"]

@@ -145,14 +145,14 @@ class ContinuousDecoder:
         # native pool (the stored K/V are rounded), so it is opt-in
         self.kv_int8 = dtype_norm == "int8"
         if speculate_k:
-            _not_ported("speculative decoding (speculate_k)", "11")
+            _not_ported("speculative decoding (speculate_k)", "9")
         if prefix_cache is not None:
-            _not_ported("the prefix cache (prefix_cache)", "11")
+            _not_ported("the prefix cache (prefix_cache)", "10")
         if weight_quant or fuse_projections:
             _not_ported("weight_quant and fuse_projections", "11")
         if config.num_experts:
             _not_ported("the mixture-of-experts FFN (num_experts > 0)",
-                        "10")
+                        "11")
         self.kv_block = int(kv_block)
         if self.kv_block < 1:
             raise ValueError(f"kv_block must be >= 1, got {kv_block}")
@@ -252,7 +252,7 @@ class ContinuousDecoder:
         if prefill_label is not None or kv_blocks is not None or \
                 progress_callback is not None:
             _not_ported("disaggregated prefill (prefill_label, kv_blocks, "
-                        "progress_callback)", "13")
+                        "progress_callback)", "12")
         if self.prefill_chunk:
             limit = self.max_seq - 1
         else:
@@ -263,7 +263,7 @@ class ContinuousDecoder:
         return True
 
     def attach(self, engine, period: float = 0.002) -> int:
-        _not_ported("attach(engine): pumping from an event engine", "7")
+        _not_ported("attach(engine): pumping from an event engine", "11")
 
     def attach_ledger(self, ledger) -> None:
         _not_ported("the KV memory ledger", "11")

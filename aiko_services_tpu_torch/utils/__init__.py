@@ -1,1 +1,15 @@
 # Host utilities the port keeps its own copies of.
+
+from .sexpr import (                                        # noqa: F401
+    ParseError, parse, parse_sexpr, generate, generate_sexpr,
+    parse_int, parse_float, parse_number, parse_bool,
+    list_to_dict, dict_to_list,
+)
+from .graph import Graph, Node, GraphError                  # noqa: F401
+from .configuration import (                                # noqa: F401
+    get_namespace, get_hostname, get_pid, get_username,
+)
+from .logger import get_logger, get_log_level_name          # noqa: F401
+from .lru_cache import LRUCache                             # noqa: F401
+from .importer import load_module, load_class               # noqa: F401
+from .lock import Lock                                      # noqa: F401

@@ -8,7 +8,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
   1. device and build: the card's name and power limit (nvidia-smi), and
      the seconds nvcc took to build every kernel from csrc/;
   2. kernels: each kernel against its plain PyTorch version at the shapes
-     its path gives it, in bf16, with its stated tolerance; median
+     its path gives it, in bf16, with its stated tolerance (flash at the
+     slice phase's batch of 8 and the pipeline's batch of 32); median
      device times (time_ms: the host runs ahead of the card, so the
      events bracket device work alone; the timer line shows a call that
      launches nothing at ~0) of the kernel, the plain version and one
@@ -23,13 +24,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
      from [0, 512]) with int8 pools dequantized and natively;
   3. slice: Whisper-small at full width (768 / 12 heads / 12 + 12 layers /
      51,865 vocab), bf16, seeded random weights, served through
-     ComputeRuntime + PE_WhisperASR: long requests (bucket 3072, audio
-     context 1536, the flash kernel) and short ones (bucket 500, plain
-     attention) on the int16 and mu-law wires; the launch counts of that
-     run; one long request's encoder features with the kernel against
-     the plain version;
+     ComputeRuntime + PE_WhisperASR (two elements of one port pipeline,
+     fed with submit()): long requests (bucket 3072, audio context 1536,
+     the flash kernel) and short ones (bucket 500, plain attention) on
+     the int16 and mu-law wires; the launch counts of that run; one long
+     request's encoder features with the kernel against the plain
+     version;
   4. profile: one steady batch per bucket under torch.profiler (device
      busy time, idle share, launches, the costliest kernels);
+  4b. pipeline: examples/speech/pipeline_transcription.json on the port's
+     host plane (ProcessRuntime + ComputeRuntime + Pipeline on a virtual
+     clock), Whisper-small in bf16 with only the gates opened: 8 short
+     streams (1 s chunks, window 3, 4 frames: bucket 500) and 4 long
+     ones (10 s chunks, 3 frames of 10 / 20 / 30 s: buckets 1000 and
+     3072); every frame completes with tokens and text, PE_Speaker
+     collects audio for every stream, the flash kernel launches 12 x the
+     bucket-3072 batches, the scheduler coalesces streams (mean batch
+     size > 1) and no timer outlives teardown; frames and batches per
+     bucket, virtual and wall seconds, first-call and steady seconds;
   5. llama: Llama-1B at full width (2048 / 32 heads / 8 KV heads / 16
      layers / 128,256 vocab), bf16, seeded random weights, served by the
      paged ContinuousDecoder (16 slots, 16 steps per sync, 32-token
@@ -122,6 +134,10 @@ KERNEL_TOLERANCE["paged_decode_attention_int8_fold"] = \
 ENCODER_REL_L2 = 0.03
 
 FLASH_KERNEL_LINE = "aiko_services_tpu/ops/attention.py:21"
+# the flash kernel's shape [B, H, S, D] in each phase that launches it:
+# bucket 3072 (context 1536) padded to the element's max_batch (8 in the
+# slice phase, the example definition's default 32 in the pipeline)
+FLASH_SHAPES = {"slice": (8, 12, 1536, 64), "pipeline": (32, 12, 1536, 64)}
 CROSS_KERNEL_LINE = "aiko_services_tpu/ops/attention.py:164"
 PAGED_KERNEL_LINE = "aiko_services_tpu/ops/paged_attention.py:59"
 
@@ -257,14 +273,14 @@ def phase_kernels(device, generator) -> list[dict]:
 
     scratch = torch.empty(32 * 1024 * 1024, dtype=torch.float32,
                           device=device)
-    b, h, s, d = 8, 12, 1536, 64
+    b, h, s, d = FLASH_SHAPES["slice"]
 
     def randn(*shape):
         return torch.randn(*shape, generator=generator, device=device,
                            dtype=torch.float32).to(torch.bfloat16)
 
     def record(name, source, replaces, errors, kernel, plain, library,
-               flops, nbytes, shape=(b, h, s, d)):
+               flops, nbytes, shape):
         bound_ms, bound_by = bound(flops, nbytes)
         result = {
             "name": name, "route": "cuda", "source": source,
@@ -277,30 +293,41 @@ def phase_kernels(device, generator) -> list[dict]:
         emit({"phase": "kernel", **result})
         return result
 
-    # flash attention at the encoder's shape (bucket 3072: context 1536):
-    # [B, S, H*D] projections viewed as heads, as layers.mha hands them
+    # flash attention at the encoder's shape (bucket 3072: context 1536),
+    # once per phase that launches it: [B, S, H*D] projections viewed as
+    # heads, as layers.mha hands them; the causal case (an option the
+    # path does not take) at the slice's batch only
     records = []
-    q, k, v = (split_heads(randn(b, s, h * d), h) for _ in range(3))
-    q32, k32, v32 = q.float(), k.float(), v.float()
-    for causal in (False, True):
+    cases = [(phase, shape, False) for phase, shape in FLASH_SHAPES.items()]
+    cases.append(("slice", FLASH_SHAPES["slice"], True))
+    for phase, (fb, fh, fs, fd), causal in cases:
+        q, k, v = (split_heads(randn(fb, fs, fh * fd), fh) for _ in range(3))
+        q32, k32, v32 = q.float(), k.float(), v.float()
         errors = compare(
             "flash_attention", A.flash_attention(q, k, v, causal=causal),
             lambda: A.flash_attention_reference(q32, k32, v32,
                                                 causal=causal),
             lambda: A.flash_attention_reference(q32, k32, v32.abs(),
                                                 causal=causal))
-        pairs = s * (s + 1) / 2 if causal else s * s   # keys each run needs
+        del q32, k32, v32
+        pairs = fs * (fs + 1) / 2 if causal else fs * fs   # keys a run needs
+        name = "flash_attention" + ("" if phase == "slice" else f"_b{fb}")
         result = record(
-            "flash_attention" + ("_causal" if causal else ""),
+            name + ("_causal" if causal else ""),
             "aiko_services_tpu_torch/csrc/flash_attention.cu",
             FLASH_KERNEL_LINE, errors,
             lambda: A.flash_attention(q, k, v, causal=causal),
             lambda: A.flash_attention_reference(q, k, v, causal=causal),
             lambda: F.scaled_dot_product_attention(q, k, v,
                                                    is_causal=causal),
-            flops=4.0 * b * h * pairs * d, nbytes=4.0 * b * h * s * d * 2)
+            flops=4.0 * fb * fh * pairs * fd,
+            nbytes=4.0 * fb * fh * fs * fd * 2, shape=(fb, fh, fs, fd))
         if not causal:
+            result["counter"] = "flash_attention"
+            result["counted_in"] = (phase,)
             records.append(result)
+        del q, k, v
+        torch.cuda.empty_cache()
 
     # cross-decode attention at the decode tail's shapes: one query row
     # against the precomputed cross K/V of the 3072-frame bucket (T =
@@ -325,6 +352,7 @@ def phase_kernels(device, generator) -> list[dict]:
             nbytes=(2.0 * b * h * t * d + 2.0 * b * h * d) * 2,
             shape=(b, h, t, d))
         result["counter"] = "cross_decode_attention"
+        result["counted_in"] = ("slice", "pipeline")
         records.append(result)
     return records
 
@@ -578,6 +606,36 @@ class plain_flash:
         return False
 
 
+class flash_shapes:
+    """Within this block every shape the dispatcher hands the flash
+    wrapper is recorded in `seen`; the wrapper itself runs unchanged and
+    keeps its own launch count."""
+
+    def __enter__(self):
+        from aiko_services_tpu_torch.ops import attention as A
+        self._module, self._kernel = A, A.flash_attention
+        self.seen = set()
+
+        def recorded(q, k, v, **kwargs):
+            self.seen.add(tuple(q.shape))
+            return self._kernel(q, k, v, **kwargs)
+        A.flash_attention = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._module.flash_attention = self._kernel
+        return False
+
+
+def check_flash_shapes(phase: str, seen: set) -> list:
+    """The flash kernel ran at the shape its kernels-line row was
+    compared and timed at, and at no other."""
+    if seen != {FLASH_SHAPES[phase]}:
+        raise AssertionError(f"{phase}: flash ran at {sorted(seen)}, its "
+                             f"row holds {FLASH_SHAPES[phase]}")
+    return list(FLASH_SHAPES[phase])
+
+
 def covered_ms(spans) -> float:
     """Milliseconds covered by the union of (name, start us, end us)
     spans."""
@@ -623,6 +681,26 @@ def profile_batch(label: str, submit, scheduler) -> dict:
             "top_kernels_ms": [[name[:80], ms] for name, ms in top]}
 
 
+def host_runtime():
+    """A port ProcessRuntime on its own event engine (virtual clock) and
+    in-memory broker, with a ComputeRuntime on the card."""
+    from aiko_services_tpu_torch.compute import ComputeRuntime
+    from aiko_services_tpu_torch.event import EventEngine, VirtualClock
+    from aiko_services_tpu_torch.process import ProcessRuntime
+    from aiko_services_tpu_torch.transport import MemoryBroker, MemoryMessage
+
+    broker = MemoryBroker()
+
+    def transport(on_message, lwt_topic, lwt_payload, lwt_retain):
+        return MemoryMessage(on_message=on_message, broker=broker,
+                             lwt_topic=lwt_topic, lwt_payload=lwt_payload,
+                             lwt_retain=lwt_retain)
+    runtime = ProcessRuntime(name="chip_smoke",
+                             engine=EventEngine(VirtualClock()),
+                             transport_factory=transport).initialize()
+    return runtime, ComputeRuntime(runtime, "compute")
+
+
 def phase_slice() -> dict:
     """Serve Whisper-small requests through ComputeRuntime +
     PE_WhisperASR; returns the kernel launch counts of that run."""
@@ -630,14 +708,14 @@ def phase_slice() -> dict:
 
     import numpy as np
 
-    from aiko_services_tpu_torch.compute import ComputeRuntime
-    from aiko_services_tpu_torch.elements.speech import PE_WhisperASR
     from aiko_services_tpu_torch.models.whisper import (
         encode, greedy_decode_from_audio)
     from aiko_services_tpu_torch.ops import attention as A
     from aiko_services_tpu_torch.ops.audio import log_mel_spectrogram
+    from aiko_services_tpu_torch.pipeline import (Pipeline,
+                                                  parse_pipeline_definition)
 
-    compute = ComputeRuntime("compute")
+    runtime, compute = host_runtime()
     parameters = {
         "preset": "small", "frontend": "audio", "buckets": [500, 1000, 3000],
         "max_batch": 8, "pad_batch": True, "max_tokens": 24,
@@ -646,11 +724,21 @@ def phase_slice() -> dict:
         # decode itself, so the gates are opened
         "logprob_threshold": -1e9, "compression_ratio_threshold": 1e9,
     }
-    services = {"compute": compute}
+    # two ASR elements (the int16 and mu-law wires) as the heads of one
+    # pipeline; requests reach them through submit(), outside a walk
+    elements = [{"name": name, "parameters": element_parameters,
+                 "input": [{"name": "audio"}],
+                 "output": [{"name": "tokens"}, {"name": "text"}],
+                 "deploy": {"local": {"class_name": "PE_WhisperASR"}}}
+                for name, element_parameters in (
+                    ("asr", parameters),
+                    ("asr_mulaw", {**parameters, "wire": "mulaw"}))]
+    pipeline = Pipeline(runtime, parse_pipeline_definition({
+        "version": 0, "name": "p_slice", "runtime": "python",
+        "graph": ["(asr)", "(asr_mulaw)"], "elements": elements}))
     start = time.perf_counter()
-    asr = PE_WhisperASR("asr", parameters, services)
-    asr_mulaw = PE_WhisperASR("asr_mulaw", {**parameters, "wire": "mulaw"},
-                              services)
+    asr = pipeline.graph.node("asr").element
+    asr_mulaw = pipeline.graph.node("asr_mulaw").element
     asr_scheduler, mulaw_scheduler = asr.scheduler, asr_mulaw.scheduler
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - start
@@ -687,9 +775,11 @@ def phase_slice() -> dict:
         A.launches[name] = 0
     dispatch_before = dict(A.dispatch_stats)
     start = time.perf_counter()
-    results = serve_round()
+    with flash_shapes() as shapes:
+        results = serve_round()
     first_round_s = time.perf_counter() - start
     counts = dict(A.launches)
+    flash_shape = check_flash_shapes("slice", shapes.seen)
     dispatched = {key: A.dispatch_stats[key] - dispatch_before[key]
                   for key in dispatch_before}
 
@@ -768,6 +858,7 @@ def phase_slice() -> dict:
                              for key, values in steady.items()},
           "launches": counts, "dispatch": dispatched,
           "flash_launches_expected": expected_flash,
+          "flash_shape": flash_shape,
           "encoder_rel_l2": rel_l2, "encoder_max_abs": max_abs,
           "encoder_rel_l2_limit": ENCODER_REL_L2,
           "token_agreement_kernel_vs_plain": agreement,
@@ -776,6 +867,139 @@ def phase_slice() -> dict:
           "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
     for record in profiles:
         emit({"phase": "profile", **record})
+    pipeline.stop()
+    compute.stop()
+    runtime.terminate()
+    return counts
+
+
+def phase_pipeline() -> dict:
+    """examples/speech/pipeline_transcription.json on the port, driven on
+    a virtual clock (PE_MicrophoneSim → PE_AudioFraming → PE_LogMel on the
+    card → PE_WhisperASR, Whisper-small in bf16 → PE_Synthesize →
+    PE_Speaker); returns the kernel launch counts of that run."""
+    import numpy as np
+
+    from aiko_services_tpu_torch.ops import attention as A
+    from aiko_services_tpu_torch.pipeline import (Pipeline,
+                                                  load_pipeline_definition)
+
+    runtime, compute = host_runtime()
+    engine = runtime.event
+    definition = load_pipeline_definition(
+        "examples/speech/pipeline_transcription.json")
+    # only the hallucination gates change: random weights give
+    # near-uniform logprobs
+    definition.parameters.update({
+        "PE_WhisperASR.logprob_threshold": -1e9,
+        "PE_WhisperASR.compression_ratio_threshold": 1e9})
+    pipeline = Pipeline(runtime, definition, stream_lease_time=0)
+    done = []
+    pipeline.add_frame_handler(done.append)
+    # 8 short streams with the example's parameters (1 s chunks, window
+    # 3: frames of 1-3 s, bucket 500) and 4 long ones (10 s chunks:
+    # frames of 10, 20 and 30 s, buckets 1000 and 3072)
+    streams = {f"short{i}": {"PE_MicrophoneSim.limit": 4,
+                             "PE_MicrophoneSim.frequency": 220.0 + 40 * i}
+               for i in range(8)}
+    streams.update({f"long{i}": {"PE_MicrophoneSim.chunk_seconds": 10.0,
+                                 "PE_AudioFraming.window_count": 3,
+                                 "PE_MicrophoneSim.limit": 3,
+                                 "PE_MicrophoneSim.frequency": 180.0 + 70 * i}
+                    for i in range(4)})
+    expected = 8 * 4 + 4 * 3
+    start = time.perf_counter()
+    # the main path's run: counts set to 0 just before, read just after
+    for name in A.launches:
+        A.launches[name] = 0
+    for stream_id, parameters in streams.items():
+        pipeline.create_stream(stream_id, parameters=parameters,
+                               lease_time=0)
+    asr = pipeline.graph.node("PE_WhisperASR").element
+    with flash_shapes() as shapes:
+        while len(done) < expected and engine.clock.now() < 60.0:
+            while engine.step():
+                pass
+            engine.clock.advance(0.01)
+        torch.cuda.synchronize()
+    counts = dict(A.launches)
+    wall_s = time.perf_counter() - start
+    virtual_s = engine.clock.now()
+
+    config = asr.config
+    if (config.dim, config.num_heads, config.enc_layers, config.dec_layers,
+            config.n_vocab) != (768, 12, 12, 12, 51865) or \
+            asr.buckets != [500, 1000, 3072]:
+        raise AssertionError(f"not Whisper-small in buckets [500, 1000, "
+                             f"3072]: {config}, {asr.buckets}")
+    failed = pipeline.recovery_stats["frames_failed"]
+    if len(done) != expected or failed:
+        raise AssertionError(f"{len(done)} of {expected} frames completed, "
+                             f"{failed} failed")
+    scheduler = asr.scheduler
+    frames_per_bucket = {}
+    for frame in done:
+        tokens = np.asarray(frame.swag["tokens"])
+        if tokens.size == 0 or tokens.min() < 0 or \
+                tokens.max() >= config.n_vocab or \
+                not isinstance(frame.swag["text"], str) or \
+                "time_PE_WhisperASR" not in frame.metrics:
+            raise AssertionError(f"frame {frame.stream_id}:{frame.frame_id}"
+                                 f": tokens {tokens}, swag "
+                                 f"{sorted(frame.swag)}, metrics "
+                                 f"{sorted(frame.metrics)}")
+        bucket = scheduler.buckets.bucket_for(frame.swag["mel"].shape[0])
+        frames_per_bucket[bucket] = frames_per_bucket.get(bucket, 0) + 1
+    speaker = {sid: stream.variables.get("speaker.audio")
+               for sid, stream in pipeline.streams.items()}
+    if sorted(sid for sid, audio in speaker.items()
+              if audio is not None and audio.size) != sorted(streams):
+        heard = [sid for sid, audio in speaker.items() if audio is not None]
+        raise AssertionError(f"PE_Speaker collected audio for {heard}")
+    program = compute.programs["whisper_asr.PE_WhisperASR"]
+    batches_per_bucket = {bucket: 1 for bucket in program.first_call_times}
+    steady = {}
+    for bucket, seconds in program.recent_service:
+        batches_per_bucket[bucket] += 1
+        steady.setdefault(bucket, []).append(seconds)
+    long_batches = batches_per_bucket.get(3072, 0)
+    expected_flash = config.enc_layers * long_batches
+    if not long_batches or counts["flash_attention"] != expected_flash:
+        raise AssertionError(f"flash launches {counts['flash_attention']} "
+                             f"!= 12 x {long_batches} bucket-3072 batches")
+    flash_shape = check_flash_shapes("pipeline", shapes.seen)
+    mean_batch = scheduler.mean_batch_size()
+    if not mean_batch > 1:
+        raise AssertionError(f"mean batch size {mean_batch}: no coalescing")
+    for stream_id in list(pipeline.streams):
+        pipeline.destroy_stream(stream_id)
+    # no microphone tick and no stream lease outlives its stream; the
+    # rest (the compute runtime's timers) goes with the runtime
+    stream_timers = [handler for handler in engine.live_timer_handlers()
+                     if "start_stream" in getattr(handler, "__qualname__", "")
+                     or type(getattr(handler, "__self__", None)).__name__
+                     == "Lease"]
+    share = dict(compute.ec_producer.share)
+    pipeline.stop()
+    compute.stop()
+    runtime.terminate()
+    live_timers = engine.live_timer_handlers()
+    if stream_timers or live_timers:
+        raise AssertionError(f"timers left after teardown: stream "
+                             f"{stream_timers}, all {live_timers}")
+    emit({"phase": "pipeline", "streams": len(streams), "frames": len(done),
+          "frames_failed": failed,
+          "frames_per_bucket": frames_per_bucket,
+          "batches_per_bucket": batches_per_bucket,
+          "mean_batch_size": mean_batch, "launches": counts,
+          "flash_launches_expected": expected_flash,
+          "flash_shape": flash_shape,
+          "virtual_s": virtual_s, "wall_s": wall_s,
+          "first_call_s": share.get("first_call", {}),
+          "steady_batch_s": {bucket: statistics.median(values)
+                             for bucket, values in steady.items()},
+          "live_timers_after_teardown": len(live_timers),
+          "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
     return counts
 
 
@@ -1342,8 +1566,11 @@ def main() -> int:
     records = phase_kernels(device, generator)
     paged = phase_paged_kernel(generator)
     counts = phase_slice()
+    pipeline_counts = phase_pipeline()
+    phase_counts = {"slice": counts, "pipeline": pipeline_counts}
     for record in records:
-        record["launches"] = counts[record.get("counter", record["name"])]
+        record["launches"] = sum(phase_counts[phase][record["counter"]]
+                                 for phase in record["counted_in"])
     # paged launches by (variant, path): the native decoder decodes, the
     # int8 one decodes with scales folded and extends dequantizing
     counts = {("paged_decode_attention", "decode"): phase_llama()}

@@ -18,6 +18,9 @@ from aiko_services_tpu.models import llama as JL
 from aiko_services_tpu.models import whisper as JW
 from aiko_services_tpu_torch import bridge
 from aiko_services_tpu_torch.compute import ComputeRuntime
+from aiko_services_tpu_torch.event import EventEngine, VirtualClock
+from aiko_services_tpu_torch.process import ProcessRuntime
+from aiko_services_tpu_torch.transport import MemoryBroker, MemoryMessage
 from aiko_services_tpu_torch.models import llama as TL
 from aiko_services_tpu_torch.models import whisper as TW
 from aiko_services_tpu_torch.ops import kernels
@@ -138,13 +141,18 @@ def test_load_flat_npz_slices_long_position_tables(tmp_path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    """No module imports jax or the JAX package, and none imports at
+    module level what the card's machine lacks (click, paho,
+    sounddevice): PE_Speaker's guarded sounddevice import sits inside
+    its process_frame, as in JAX."""
     # _build/ holds what the package generates (kernel libraries), not
     # its source
     sources = sorted(path for path in PACKAGE.rglob("*.py")
                      if "_build" not in path.relative_to(PACKAGE).parts)
-    offenders = []
+    offenders, module_level = [], []
     for path in sources:
         tree = ast.parse(path.read_text(), filename=str(path))
+        top = {id(node) for node in tree.body}
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 names = [alias.name for alias in node.names]
@@ -156,19 +164,36 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 root = name.split(".")[0]
                 if root in ("jax", "jaxlib", "aiko_services_tpu"):
                     offenders.append(f"{path.relative_to(PACKAGE)}: {name}")
+                if root in ("click", "paho", "sounddevice") and \
+                        id(node) in top:
+                    module_level.append(
+                        f"{path.relative_to(PACKAGE)}: {name}")
     assert not offenders, offenders
+    assert not module_level, module_level
     names = {str(path.relative_to(PACKAGE)) for path in sources}
     assert {"models/llama.py", "ops/paged_attention.py", "serving.py",
-            "serving_paged.py"} <= names
-    assert len(sources) >= 19
+            "serving_paged.py", "event.py", "state/wheel.py", "lease.py",
+            "connection.py", "service.py", "share.py", "actor.py",
+            "process.py", "pipeline.py", "transport/message.py",
+            "transport/memory.py", "observe/tracing.py", "utils/graph.py",
+            "utils/configuration.py", "utils/logger.py",
+            "utils/importer.py", "utils/lru_cache.py", "elements/audio.py",
+            "elements/speech.py"} <= names
+    assert len(sources) >= 40
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port.resolve_device(None)
+    broker = MemoryBroker()
+    runtime = ProcessRuntime(
+        name="host", engine=EventEngine(VirtualClock()),
+        transport_factory=lambda on_message, *_: MemoryMessage(
+            on_message=on_message, broker=broker)).initialize()
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        ComputeRuntime("compute")
+        ComputeRuntime(runtime, "compute")
+    assert runtime.services() == {}      # nothing half-registered
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TW.whisper_init(torch.Generator(), TW.WHISPER_PRESETS["test"])
     assert port.resolve_device("cpu") == torch.device("cpu")

@@ -412,3 +412,30 @@ def test_paged_kernel_decode_rows_over_block_sizes(card, dtype, variant,
     from aiko_services_tpu_torch.ops import paged_attention as P
     out = P.paged_decode_attention(*operands, groups=4, fold_scales=fold)
     _assert_paged_close(out, plain_operands, 4)
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_mel_collate_pads_card_rows_on_the_card(card, mixed):
+    """PE_WhisperASR's mel collate: rows that PE_LogMel left on the card
+    are padded there, host rows cross in one pinned copy, and either way
+    the padded bf16 batch equals the one collated from host rows."""
+    import numpy as np
+
+    from aiko_services_tpu_torch.elements.speech import collate_mel
+    generator = torch.Generator(device=card).manual_seed(7)
+    rows = [torch.randn(t, 80, generator=generator, device=card)
+            for t in (100, 300, 250)]
+    on_card = list(rows)
+    if mixed:
+        on_card[1] = rows[1].cpu().numpy()
+    batch = collate_mel(on_card, 8, 300, 80, card)
+    host = collate_mel([row.cpu().numpy() for row in rows], 8, 300, 80,
+                       card)
+    torch.cuda.synchronize()
+    assert batch.device.type == "cuda" and batch.dtype is torch.bfloat16
+    assert batch.shape == (8, 300, 80)
+    assert torch.equal(batch, host)
+    assert torch.equal(batch[0, 100:], torch.zeros_like(batch[0, 100:]))
+    assert torch.equal(batch[3:], torch.zeros_like(batch[3:]))
+    assert np.array_equal(batch[2, :250].float().cpu().numpy(),
+                          rows[2].to(torch.bfloat16).float().cpu().numpy())

@@ -4,7 +4,9 @@ on the same collated batches and the same weights (a JAX param tree
 written with the JAX package's save_flat_npz, loaded through the
 element's `weights` parameter).  The element serves in bf16, as the JAX
 element does; these tests switch its model to f32 after setup, as JAX
-runs here, so that tokens are equal."""
+runs here, so that tokens are equal.  Each element lives in a
+one-element pipeline of a port ProcessRuntime whose ComputeRuntime runs
+on the CPU."""
 
 import dataclasses
 import functools
@@ -20,7 +22,12 @@ from aiko_services_tpu.models import whisper as JW
 from aiko_services_tpu.ops import audio as JAU
 from aiko_services_tpu_torch.bridge import load_flat_npz
 from aiko_services_tpu_torch.compute import ComputeRuntime
-from aiko_services_tpu_torch.elements.speech import PE_WhisperASR
+from aiko_services_tpu_torch.elements.speech import collate_mel
+from aiko_services_tpu_torch.event import EventEngine, VirtualClock
+from aiko_services_tpu_torch.pipeline import (
+    Frame, Pipeline, Stream, parse_pipeline_definition)
+from aiko_services_tpu_torch.process import ProcessRuntime
+from aiko_services_tpu_torch.transport import MemoryBroker, MemoryMessage
 
 # One intra-op thread per test process: pytest-xdist already runs a
 # worker per core, and the first multi-threaded call of torch's
@@ -47,12 +54,38 @@ def jax_model(tmp_path_factory):
     return config, params, path
 
 
+def _runtime(compute=True):
+    """A port ProcessRuntime on a virtual clock with (or without) a
+    ComputeRuntime on the CPU."""
+    broker = MemoryBroker()
+    runtime = ProcessRuntime(
+        name="host", engine=EventEngine(VirtualClock()),
+        transport_factory=lambda on_message, *_: MemoryMessage(
+            on_message=on_message, broker=broker)).initialize()
+    return runtime, (ComputeRuntime(runtime, "compute", device="cpu")
+                     if compute else None)
+
+
+def _asr(parameters, name="asr", compute=True):
+    """A PE_WhisperASR named `name` in a one-element pipeline; its setup
+    has not run yet."""
+    runtime, compute = _runtime(compute)
+    pipeline = Pipeline(runtime, parse_pipeline_definition({
+        "version": 0, "name": f"p_{name}", "runtime": "python",
+        "graph": [f"({name})"],
+        "elements": [{"name": name, "parameters": parameters,
+                      "input": [{"name": "mel"}],
+                      "output": [{"name": "tokens"}, {"name": "text"}],
+                      "deploy": {"local": {"class_name": "PE_WhisperASR"}}}],
+    }), stream_lease_time=0)
+    return pipeline.graph.node(name).element, compute
+
+
 def _element(path, name="asr", **parameters):
-    compute = ComputeRuntime("compute", device="cpu")
     merged = {"preset": "test", "buckets": BUCKETS, "max_batch": 4,
               "max_tokens": MAX_TOKENS, "weights": path, **OPEN_GATES,
               **parameters}
-    element = PE_WhisperASR(name, merged, {"compute": compute})
+    element, compute = _asr(merged, name)
     # the batched program reads the element's config and params at each
     # call: an f32 copy of both makes it run in f32
     element.scheduler                                  # runs the setup
@@ -60,6 +93,12 @@ def _element(path, name="asr", **parameters):
                                          dtype=torch.float32)
     element.params = load_flat_npz(element.params.float(), path)
     return element, compute
+
+
+def _process(element, stream_id, **inputs):
+    """One frame through the element's process_frame (mode "sync")."""
+    frame = Frame(stream=Stream(stream_id), frame_id=0)
+    return element.process_frame(frame, **inputs)
 
 
 def _jax_decode(config, params, bucket, mel):
@@ -121,8 +160,12 @@ def test_mel_frontend_takes_float_and_packed_i8mel_rows(jax_model):
     rng = np.random.default_rng(9)
     mel = rng.standard_normal((80, 80)).astype(np.float32)
     packed = JAU.mel_i8_pack(mel)
-    float_answer = element.process_frame("a", mel=mel)
-    packed_answer = element.process_frame("b", mel=packed)
+    float_answer = _process(element, "a", mel=mel).outputs
+    packed_answer = _process(element, "b", mel=packed).outputs
+    # a CPU tensor (PE_LogMel's output on the host) is a host row too
+    tensor_answer = _process(element, "c", mel=torch.from_numpy(mel)).outputs
+    np.testing.assert_array_equal(tensor_answer["tokens"],
+                                  float_answer["tokens"])
     for payload, answer in ((mel, float_answer),
                             (JAU.mel_i8_unpack(packed), packed_answer)):
         batch = np.zeros((1, 100, 80), np.float32)   # sync: no padding
@@ -136,13 +179,14 @@ def test_mel_frontend_takes_float_and_packed_i8mel_rows(jax_model):
 def test_hallucination_gates_suppress_every_output(jax_model):
     _, _, path = jax_model
     audio = _pcm(0, 9000)
-    element, _ = _element(path, frontend="audio", logprob_threshold=0.0)
-    answer = element.process_frame("s", audio=audio)
+    element, _ = _element(path, frontend="audio", mode="sync",
+                          logprob_threshold=0.0)
+    answer = _process(element, "s", audio=audio).outputs
     assert answer["suppressed"].startswith("avg_logprob")
     assert answer["text"] == "" and answer["tokens"].size == 0
-    element, _ = _element(path, frontend="audio",
+    element, _ = _element(path, frontend="audio", mode="sync",
                           compression_ratio_threshold=0.0)
-    answer = element.process_frame("s", audio=audio)
+    answer = _process(element, "s", audio=audio).outputs
     assert answer["suppressed"].startswith("compression_ratio")
     assert answer["text"] == "" and answer["tokens"].size == 0
 
@@ -155,9 +199,9 @@ def test_flash_buckets_round_long_audio_to_kernel_geometry(jax_model):
             ({"flash_buckets": "false"}, ladder),
             ({"weights": path}, ladder),          # checkpoints: off
             ({"weights": path, "flash_buckets": True}, [500, 1000, 3072])):
-        element = PE_WhisperASR("asr", {
+        element, _ = _asr({
             "preset": "test", "buckets": ladder, "max_tokens": MAX_TOKENS,
-            **parameters}, {"compute": ComputeRuntime(device="cpu")})
+            **parameters})
         assert element.scheduler.buckets.buckets == expected
         assert element.buckets == expected
         assert element.config.dtype is torch.bfloat16    # as in JAX
@@ -165,14 +209,23 @@ def test_flash_buckets_round_long_audio_to_kernel_geometry(jax_model):
 
 def test_setup_rejects_bad_parameters():
     with pytest.raises(ValueError, match="kv_quant"):
-        PE_WhisperASR("asr", {"preset": "test", "kv_quant": "bogus"},
-                      {"compute": ComputeRuntime(device="cpu")}).scheduler
+        _asr({"preset": "test", "kv_quant": "bogus"})[0].scheduler
     with pytest.raises(RuntimeError, match="no ComputeRuntime"):
-        PE_WhisperASR("asr", {"preset": "test"}, {}).scheduler
+        _asr({"preset": "test"}, compute=False)[0].scheduler
+    # JAX options that wait for later ROADMAP items say which
+    for option, item in (({"tokenizer": "vocab.json"}, "item 4"),
+                         ({"pp_stages": 2}, "item 5"),
+                         ({"pipelined": True}, "item 8")):
+        with pytest.raises(NotImplementedError, match=item):
+            _asr({"preset": "test", **option})[0].scheduler
+    # a sync element never pipelines (resolve_pipelined)
+    assert _asr({"preset": "test", "pipelined": True,
+                 "mode": "sync"})[0].scheduler is not None
 
 
 def test_compute_runtime_direct_programs_and_errors():
-    compute = ComputeRuntime("compute", device="cpu")
+    runtime, compute = _runtime()
+    assert runtime.service_by_name("compute") is compute
     assert compute.device == torch.device("cpu")
     assert compute.device_kind == "cpu" and compute.memory_free is None
     compute.register_program("double", lambda x: 2 * x)
@@ -194,5 +247,43 @@ def test_batch_failure_reaches_every_callback(jax_model):
     element.scheduler.drain(force=True)
     assert set(answers) == {"good", "bad"}
     assert all(isinstance(r, TypeError) for r in answers.values())
-    with pytest.raises(TypeError):
-        element.process_frame("bad", audio=np.array(["x"] * 9000))
+    # in a pipeline walk (mode "sync") the failure fails the frame
+    element.mode = "sync"
+    result = _process(element, "bad", audio=np.array(["x"] * 9000))
+    assert not result.ok and "TypeError" in result.diagnostic
+
+
+def test_host_mel_rows_collate_into_one_padded_batch():
+    """numpy rows, CPU tensors and packed i8mel rows collate into the
+    same zero-padded bf16 batch as the JAX element's collate."""
+    rng = np.random.default_rng(3)
+    mels = [rng.standard_normal((t, 80)).astype(np.float32)
+            for t in (30, 100, 120)]
+    payloads = [mels[0], torch.from_numpy(mels[1]),
+                JAU.mel_i8_pack(mels[2])]
+    batch = collate_mel(payloads, 4, 100, 80, torch.device("cpu"))
+    expected = np.zeros((4, 100, 80), np.float32)
+    expected[0, :30] = mels[0]
+    expected[1] = mels[1]
+    expected[2] = JAU.mel_i8_unpack(JAU.mel_i8_pack(mels[2]))[:100]
+    assert batch.dtype is torch.bfloat16 and batch.shape == (4, 100, 80)
+    np.testing.assert_array_equal(
+        batch.float().numpy(),
+        np.asarray(jnp.asarray(expected, jnp.bfloat16).astype(jnp.float32)))
+
+
+def test_batched_frames_defer_and_carry_their_deadline(jax_model):
+    """In a pipeline walk a batched element parks the frame (DEFERRED)
+    and submits it with an absolute deadline on the engine clock."""
+    _, _, path = jax_model
+    element, compute = _element(path, frontend="audio", deadline_ms=250)
+    engine = element.runtime.event
+    engine.clock.advance(2.0)
+    result = _process(element, "s", audio=_pcm(0, 9000))
+    assert result.ok and result.outputs is not None
+    assert repr(result.outputs) == "DEFERRED"
+    scheduler = compute.programs["whisper_asr.asr"].scheduler
+    (queued,) = [item for bucket in scheduler._queues.values()
+                 for item in bucket.items]
+    assert queued.deadline == pytest.approx(2.25)
+    assert scheduler.clock() == 2.0          # the engine's clock
