@@ -1,14 +1,16 @@
 # Actor layer: message → method-call RPC over per-actor mailboxes.
 #
-# The port's own copy of aiko_services_tpu/actor.py for S-expression
-# payloads (the binary wire envelope waits for the port's remote hops):
+# The port's own copy of aiko_services_tpu/actor.py:
 #   * ActorMessage — deferred method invocation (target, command, args);
 #   * Actor — a Service with `control` and `in` mailboxes (control drains
-#     first), inbound payloads parsed as S-expressions and dispatched as
-#     method calls; built-in EC share with lifecycle / log_level;
+#     first), inbound payloads (S-expressions, or binary wire envelopes
+#     whose tensors arrive out of band) dispatched as method calls;
+#     built-in EC share with lifecycle / log_level;
 #   * get_remote_proxy — reflects a protocol class's public methods into a
-#     proxy whose calls serialize to S-expressions published to the target's
-#     `in` topic (the "function call → message" half of the RPC).
+#     proxy whose calls serialize (transport/wire.py encode_rpc: a binary
+#     envelope when an argument holds an array or tensor and the transport
+#     carries bytes, S-expression text otherwise) and publish to the
+#     target's `in` topic (the "function call → message" half of the RPC).
 
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ import time
 from .observe import tracing
 from .service import Service, ServiceProtocol
 from .share import ECProducer
-from .utils import generate, generate_sexpr, get_logger, parse
+from .transport import wire
+from .utils import get_logger, parse
 
 __all__ = ["ActorMessage", "Actor", "get_remote_proxy", "get_public_methods",
            "PROTOCOL_ACTOR"]
@@ -33,8 +36,8 @@ class ActorMessage:
         self.target = target
         self.command = command
         self.arguments = arguments
-        # trace context the message arrived under (a trailing sexpr
-        # marker): activated for the duration of the call, so the
+        # trace context the message arrived under (envelope header /
+        # sexpr marker): activated for the duration of the call, so the
         # handler — and anything it spawns — inherits the caller's
         # trace id and deadline
         self.trace = trace
@@ -86,8 +89,15 @@ class Actor(Service):
     def _topic_in_handler(self, _topic, payload) -> None:
         started = time.perf_counter()
         try:
-            command, params = parse(payload)
-            trace_fields = tracing.pop_trace(params)
+            if wire.is_envelope(payload):
+                # binary wire envelope: arrays arrive as read-only
+                # views, scalars keep sexpr (string) semantics
+                command, params, trace_fields = \
+                    wire.decode_envelope(payload, with_trace=True)
+            else:
+                command, params = parse(payload)
+                wire.pop_tenant(params)     # appended after trace
+                trace_fields = wire.pop_trace(params)
         except Exception:
             self.logger.warning("%s: unparseable payload %r",
                                 self.name, payload)
@@ -98,7 +108,19 @@ class Actor(Service):
             context = tracing.TraceContext.from_fields(trace_fields, now)
             trc = tracing.tracer
             if trc.enabled and context is not None:
-                trc.record("decode", started, time.perf_counter() - started,
+                decode_dur = time.perf_counter() - started
+                if context.sent is not None:
+                    # wire transit (engine-clock seconds), recordable
+                    # only when sender and receiver clocks are
+                    # comparable; the span ENDS at arrival
+                    transit = now - context.sent
+                    if 0.0 <= transit <= tracing.CLOCK_COMPARABLE_HORIZON:
+                        trc.record("deliver", started - transit, transit,
+                                   context=context, cat="wire",
+                                   proc=self.name,
+                                   span_id=tracing.new_span_id(),
+                                   args={"command": command})
+                trc.record("decode", started, decode_dur,
                            context=context, cat="wire", proc=self.name,
                            span_id=tracing.new_span_id(),
                            args={"command": command})
@@ -172,31 +194,45 @@ class _RemoteProxy:
         return f"RemoteProxy({self._topic_in})"
 
 
-def _text_parameter(value):
-    """Array-likes (numpy arrays, CPU tensors) cross as nested lists."""
-    if isinstance(value, (str, int, float, bool)) or \
-            not (hasattr(value, "shape") and hasattr(value, "tolist")):
-        return value
-    return generate_sexpr(value.tolist())
-
-
-def get_remote_proxy(runtime, topic_in: str, protocol_class):
+def get_remote_proxy(runtime, topic_in: str, protocol_class,
+                     codec_hints=None):
     """Build a proxy object: calling proxy.method(a, b) publishes
     "(method a b)" to `topic_in` (fire-and-forget, like the reference).
 
-    An ambient trace context at call time rides the payload as a trailing
-    marker parameter, so the receiving actor's dispatch inherits the
-    caller's trace id and remaining deadline."""
+    When the runtime's transport is binary-capable and an argument holds
+    an array, a tensor or bytes, the call ships as a binary wire envelope
+    instead of text; a tensor on the card takes one host copy there.
+    codec_hints ({dict_key: codec}) opts named arrays into a lossy wire
+    codec (see transport/wire.py).  A value the wire cannot carry raises
+    wire.WireError to the caller.
+
+    An ambient trace context at call time rides the wire — envelope
+    header on binary transports, trailing sexpr marker on text — so the
+    receiving actor's dispatch inherits the caller's trace id and
+    remaining deadline."""
     proxy = _RemoteProxy(runtime, topic_in)
     for method_name in get_public_methods(protocol_class):
         def remote_call(*args, _name=method_name, **kwargs):
             if kwargs:
                 raise TypeError("remote calls are positional-only")
-            parameters = [_text_parameter(arg) for arg in args]
             context = tracing.current_trace()
+            trace_fields = None
             if context is not None:
-                parameters.append(
-                    context.to_fields(runtime.event.clock.now()))
-            runtime.publish(topic_in, generate(_name, parameters))
+                trace_fields = context.to_fields(
+                    runtime.event.clock.now())
+            started = time.perf_counter()
+            payload = wire.encode_rpc(
+                _name, list(args), transport=runtime.message,
+                codec_hints=codec_hints, trace=trace_fields)
+            trc = tracing.tracer
+            if trc.enabled and context is not None:
+                trc.record("encode", started,
+                           time.perf_counter() - started,
+                           context=context, cat="wire",
+                           proc=getattr(runtime, "name", ""),
+                           span_id=tracing.new_span_id(),
+                           args={"command": _name})
+            runtime.publish(topic_in, payload)
         setattr(proxy, method_name, remote_call)
     return proxy
+

@@ -41,9 +41,9 @@ __all__ = [
 
 SAMPLE_RATE = 16000         # voice rate (reference: audio_io.py:224-228)
 TOKENIZER_NOT_PORTED = ("the tokenizer parameter is not ported yet "
-                        "(ROADMAP.md Queue 1 item 4)")
+                        "(ROADMAP.md Queue 1 item 3)")
 PP_STAGES_NOT_PORTED = ("pp_stages is not ported yet "
-                        "(ROADMAP.md Queue 1 item 5)")
+                        "(ROADMAP.md Queue 1 item 4)")
 
 
 def compression_ratio(text: str) -> float:
@@ -85,8 +85,12 @@ def _host_to(device: torch.device, array: np.ndarray) -> torch.Tensor:
     leaves a pinned buffer with non_blocking=True, so the host does not
     wait for the work queued on the stream (a copy from pageable memory
     synchronizes it); the caching host allocator keeps the buffer until
-    its copy has run."""
-    host = torch.from_numpy(np.ascontiguousarray(array))
+    its copy has run.  A read-only array (a wire view) is copied first:
+    torch must not wrap memory it may not write."""
+    array = np.ascontiguousarray(array)
+    if not array.flags.writeable:
+        array = array.copy()
+    host = torch.from_numpy(array)
     if device.type == "cuda":
         return host.pin_memory().to(device, non_blocking=True)
     return host.to(device)

@@ -143,6 +143,24 @@ class MetricsRegistry:
         return self._get_or_create("histogram", name, help, labels,
                                    buckets=buckets)
 
+    def series(self, name: str) -> list:
+        """Every live series of one metric family, whatever its labels:
+        [(labels_dict, metric), ...] (the admission gate's
+        batch_mean_wait_ms fallback reads the family this way)."""
+        with self._lock:
+            return [(dict(metric.labels), metric)
+                    for (metric_name, _), metric in self._metrics.items()
+                    if metric_name == name]
+
+    def value(self, name: str, labels: dict | None = None, default=0):
+        """Read one series' current value without creating it: a
+        counter's or gauge's value, a histogram's count."""
+        metric = self._metrics.get(self._key(name, labels))
+        if metric is None:
+            return default
+        return metric.count if isinstance(metric, Histogram) \
+            else metric.value
+
 
 class MirroredStats(dict):
     """A stats dict whose numeric increments mirror into a registry

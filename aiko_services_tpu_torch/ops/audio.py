@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 __all__ = ["mel_filterbank", "stft", "log_mel_spectrogram", "mulaw_encode",
-           "mulaw_decode", "mel_i8_unpack", "WHISPER_SAMPLE_RATE",
+           "mulaw_decode", "mel_i8_encode", "mel_i8_decode", "mel_i8_pack",
+           "mel_i8_unpack", "MULAW_MU", "WHISPER_SAMPLE_RATE",
            "WHISPER_N_FFT", "WHISPER_HOP"]
 
 WHISPER_SAMPLE_RATE = 16000
@@ -140,8 +141,44 @@ def mulaw_decode(codes):
 
 
 # -- 8-bit mel wire format ---------------------------------------------------
-# Packed rows [T, num_mels + 4]: int8 codes plus each row's f32 scale as
-# its trailing 4 bytes (the i8mel codec; host-side numpy).
+# Absmax int8 with one scale PER MEL FRAME (row): each 10 ms slice
+# quantizes against its own dynamic range.  Packed rows [T, num_mels + 4]:
+# int8 codes plus each row's f32 scale as its trailing 4 bytes (the i8mel
+# wire codec, transport/wire.py).  Host-side numpy: the transport never
+# touches the card.
+
+def mel_i8_encode(mel):
+    """float [T, M] log-mel → (int8 codes [T, M], float32 scales [T]).
+    Non-finite entries saturate (±inf) or zero (NaN) instead of
+    poisoning the row's scale."""
+    x = np.asarray(mel, dtype=np.float32)
+    if x.ndim != 2:
+        raise ValueError(f"mel_i8_encode wants [T, M], got {x.shape}")
+    finite = np.where(np.isfinite(x), np.abs(x), 0.0)
+    scales = finite.max(axis=1) / 127.0 if x.shape[1] else \
+        np.zeros((x.shape[0],), np.float32)
+    scales = np.where((scales > 0.0) & np.isfinite(scales),
+                      scales, 1.0).astype(np.float32)
+    bound = 127.0 * scales[:, None]
+    x = np.clip(np.nan_to_num(x, nan=0.0, posinf=np.inf,
+                              neginf=-np.inf), -bound, bound)
+    codes = np.round(x / scales[:, None]).astype(np.int8)
+    return codes, scales
+
+
+def mel_i8_decode(codes, scales):
+    """(int8 codes [T, M], float32 scales [T]) → float32 [T, M]."""
+    return np.asarray(codes, np.float32) * \
+        np.asarray(scales, np.float32)[:, None]
+
+
+def mel_i8_pack(mel):
+    """float [T, M] → packed int8 [T, M + 4] (codes + per-row scale
+    bytes): the single-buffer form the wire envelope ships."""
+    codes, scales = mel_i8_encode(mel)
+    scale_bytes = scales.view(np.int8).reshape(-1, 4)
+    return np.concatenate([codes, scale_bytes], axis=1)
+
 
 def mel_i8_unpack(packed):
     """packed int8 [T, M + 4] → float32 [T, M] (codes times each row's
@@ -153,4 +190,4 @@ def mel_i8_unpack(packed):
     codes = packed[:, :-4]
     scales = np.ascontiguousarray(packed[:, -4:]).view(
         np.float32).reshape(-1)
-    return np.asarray(codes, np.float32) * scales[:, None]
+    return mel_i8_decode(codes, scales)

@@ -6,7 +6,10 @@
 # as (a) the batch is full, (b) the oldest frame has waited max_wait, or
 # (c) waiting longer would miss the earliest completion deadline.  Shape
 # bucketing bounds the number of distinct shapes a program sees.
-# attach() drives drain() from an event engine's timer.
+# attach() drives drain() from an event engine's timer.  The wait estimate
+# (estimated_wait, service_estimate, next_deadline, pending) is what an
+# admission gate (ops/admission.py) sheds on.  The dispatch gate and the
+# pipelined results path wait for ROADMAP.md Queue 1 item 7.
 
 from __future__ import annotations
 
@@ -89,6 +92,8 @@ class BatchingScheduler:
             labels=metrics_labels,
             # sums are levels, not events: dict-only
             skip=("batch_size_sum", "wait_sum"))
+        # rolling queue-wait samples (seconds) for percentile reporting
+        self.recent_waits: deque = deque(maxlen=4096)
 
     def submit(self, stream_id: str, payload, length: int,
                callback, deadline: float | None = None) -> None:
@@ -110,6 +115,61 @@ class BatchingScheduler:
             prior = self._service_ewma.get(bucket)
             self._service_ewma[bucket] = seconds if prior is None \
                 else 0.7 * prior + 0.3 * seconds
+
+    def service_estimate(self, bucket: int) -> float | None:
+        with self._lock:
+            return self._service_ewma.get(bucket)
+
+    def estimated_wait(self, bucket_key: int | None = None,
+                       extra: int = 1) -> float | None:
+        """Expected queue wait for the NEXT `extra` item(s) submitted to
+        `bucket_key` (None = worst case over every non-empty bucket):
+        batch-forming delay plus the service time of every batch ahead
+        of — and including — the one the item would join.
+
+            wait ≈ forming_delay + ceil((occupancy + extra) / max_batch)
+                   × service_ewma
+
+        forming_delay is the head item's remaining max_wait share; it
+        collapses to 0 once the joining batch would be full.  With no
+        service EWMA yet (cold scheduler) the observed mean queue wait
+        substitutes, and a scheduler that has never dispatched returns
+        None: an admission gate must not shed on a number it does not
+        have."""
+        now = self.clock()
+        with self._lock:
+            if bucket_key is None:
+                keys = [k for k, b in self._queues.items() if b.items]
+                if not keys:
+                    keys = list(self._service_ewma)
+                if not keys:
+                    return self.mean_wait() if self.stats["items"] \
+                        else None
+                return max(
+                    (w for w in (self._estimate_locked(k, extra, now)
+                                 for k in keys) if w is not None),
+                    default=None)
+            return self._estimate_locked(bucket_key, extra, now)
+
+    def _estimate_locked(self, bucket_key: int, extra: int,
+                         now: float) -> float | None:
+        bucket = self._queues.get(bucket_key)
+        occupancy = len(bucket.items) if bucket is not None else 0
+        estimate = self._service_ewma.get(bucket_key)
+        if estimate is None:
+            # cold bucket: the scheduler-wide mean wait is the only
+            # signal there is
+            return self.mean_wait() if self.stats["items"] else None
+        joining = occupancy + max(1, extra)
+        if joining >= self.max_batch:
+            forming = 0.0
+        elif bucket is not None and bucket.items:
+            head_age = now - bucket.items[0].enqueue_time
+            forming = max(0.0, self.max_wait - head_age)
+        else:
+            forming = self.max_wait
+        batches_ahead = -(-joining // self.max_batch)   # ceil division
+        return forming + batches_ahead * estimate
 
     def _deadline_at_risk(self, bucket_key: int, bucket: _Bucket,
                           now: float) -> bool:
@@ -152,6 +212,32 @@ class BatchingScheduler:
                 return bucket_key, True
         return None
 
+    def next_deadline(self) -> float | None:
+        """When the next dispatch is due: now for an already-full bucket,
+        else the sooner of (oldest item's max_wait expiry, the moment
+        the earliest completion deadline becomes at-risk)."""
+        with self._lock:
+            dues = []
+            for bucket_key, bucket in self._queues.items():
+                if not bucket.items:
+                    continue
+                if len(bucket.items) >= self.max_batch:
+                    return self.clock()        # dispatchable right now
+                due = bucket.items[0].enqueue_time + self.max_wait
+                estimate = self._service_ewma.get(bucket_key)
+                if estimate is not None:
+                    earliest = min((i.deadline for i in bucket.items
+                                    if i.deadline is not None),
+                                   default=None)
+                    if earliest is not None:
+                        due = min(due, earliest - estimate)
+                dues.append(due)
+        return min(dues) if dues else None
+
+    def pending(self) -> int:
+        with self._lock:
+            return sum(len(b.items) for b in self._queues.values())
+
     def drain(self, force: bool = False) -> int:
         """Dispatch ready batches; force=True flushes everything.  Returns
         the number of items processed."""
@@ -191,8 +277,9 @@ class BatchingScheduler:
             self.stats["batch_size_sum"] += len(batch)
             self.stats["full_batches"] += \
                 int(len(batch) >= self.max_batch)
-            self.stats["wait_sum"] += sum(now - i.enqueue_time
-                                          for i in batch)
+            waits = [now - i.enqueue_time for i in batch]
+            self.stats["wait_sum"] += sum(waits)
+            self.recent_waits.extend(waits)
             for item, result in zip(batch, results):
                 item.callback(item.stream_id, result)
             processed += len(batch)

@@ -16,9 +16,14 @@
 #   * inbound messages always marshalled from the transport thread onto the
 #     event engine before any handler runs.
 #
+# Binary topics (add_message_handler(..., binary=True)) carry tensor and
+# media streams: their bytes payloads reach handlers undecoded, and the
+# transport gives them its data-plane treatment (bounded per-client
+# queues on the memory broker).  Binary wire envelopes (transport/wire.py)
+# pass through undecoded on any topic.
+#
 # The port's own copy of aiko_services_tpu/process.py without the peer data
-# plane, the binary (wire) topics and distributed logging, which wait for
-# the port's remote hops and registrar.
+# plane and distributed logging (ROADMAP.md Queue 1 items 1 and 2).
 
 from __future__ import annotations
 
@@ -29,13 +34,17 @@ from .connection import Connection, ConnectionState
 from .event import EventEngine
 from .transport.memory import MemoryMessage
 from .transport.message import topic_matches
+from .transport.wire import is_envelope as wire_is_envelope
 from .utils import (
     generate, get_hostname, get_namespace, get_username, get_logger, parse,
 )
 
-__all__ = ["ProcessRuntime", "REGISTRAR_BOOT_SUFFIX", "STATE_ABSENT"]
+__all__ = ["ProcessRuntime", "REGISTRAR_BOOT_SUFFIX", "STATE_ABSENT",
+           "PEER_NOT_PORTED"]
 
 REGISTRAR_BOOT_SUFFIX = "service/registrar"
+PEER_NOT_PORTED = ("the peer data plane (enable_peer) is not ported yet "
+                   "(ROADMAP.md Queue 1 item 1)")
 STATE_ABSENT = "(absent)"
 _process_counter = itertools.count()
 
@@ -74,6 +83,7 @@ class ProcessRuntime:
         self._services: dict[int, object] = {}
         self._service_counter = itertools.count(1)
         self._registrar_handlers = []
+        self._binary_topics: set[str] = set()
         self._queue_name = f"message:{self.topic_path}"
         self._initialized = False
 
@@ -99,6 +109,8 @@ class ProcessRuntime:
             self.topic_state, STATE_ABSENT, True)
         for topic, _ in self._message_handlers:
             self.message.subscribe(topic)
+        for topic in self._binary_topics:
+            self._mark_data_plane(topic)
         self.message.connect()
         self.connection.update(ConnectionState.TRANSPORT)
         # liveness: retained presence marker cleared by our LWT on death
@@ -138,7 +150,9 @@ class ProcessRuntime:
 
     def _on_message_queue(self, _name, item, _put_time) -> None:
         topic, payload = item
-        if isinstance(payload, bytes):
+        if isinstance(payload, bytes) and \
+                not self._is_binary_topic(topic) and \
+                not wire_is_envelope(payload):
             try:
                 payload = payload.decode("utf-8")
             except UnicodeDecodeError:
@@ -153,12 +167,29 @@ class ProcessRuntime:
             if topic_matches(pattern, topic):
                 handler(topic, payload)
 
-    def add_message_handler(self, handler, topic: str) -> None:
+    def _is_binary_topic(self, topic: str) -> bool:
+        return any(topic_matches(p, topic) for p in self._binary_topics)
+
+    def _mark_data_plane(self, topic: str) -> None:
+        """Binary topics carry tensor/media streams: give them the
+        transport's data-plane treatment (bounded per-client queues
+        with a drop policy on the memory broker) so a slow consumer
+        sheds stale frames instead of growing without bound."""
+        mark = getattr(self.message, "mark_data_plane", None)
+        if mark is not None:
+            mark(topic)
+
+    def add_message_handler(self, handler, topic: str,
+                            binary: bool = False) -> None:
         self._message_handlers.append((topic, handler))
         if "+" in topic or "#" in topic:
             self._wildcard_handlers.append((topic, handler))
         else:
             self._exact_handlers.setdefault(topic, []).append(handler)
+        if binary:
+            self._binary_topics.add(topic)
+            if self.message is not None:
+                self._mark_data_plane(topic)
         if self.message is not None:
             self.message.subscribe(topic)
 
@@ -182,6 +213,11 @@ class ProcessRuntime:
     def publish(self, topic: str, payload, retain: bool = False,
                 wait: bool = False) -> None:
         self.message.publish(topic, payload, retain, wait)
+
+    def enable_peer(self, *_args, **_kwargs):
+        """The peer data plane (direct channels that bypass the broker)
+        is not ported yet."""
+        raise NotImplementedError(PEER_NOT_PORTED)
 
     # -- service table -----------------------------------------------------
     def add_service(self, service) -> int:

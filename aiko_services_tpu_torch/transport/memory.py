@@ -6,16 +6,16 @@
 # last-will-and-testament, so an entire multi-"process" distributed system —
 # registrar failover included — runs deterministically inside one pytest.
 #
-# Routing is INDEXED: the original route() scanned every attached
-# client and matched every subscription pattern per message under one lock —
-# O(clients x patterns) per publish, the reference's documented scale
-# bottleneck (its lifecycle.py:18-24).  Now exact-topic subscriptions
-# hash-match in O(1) through a topic map, wildcard patterns walk a
-# per-level subscription trie, and delivery happens OUTSIDE the broker
-# lock through per-client FIFO queues.
+# Routing is INDEXED: exact-topic subscriptions hash-match in O(1) through
+# a topic map, wildcard patterns walk a per-level subscription trie, and
+# delivery happens OUTSIDE the broker lock through per-client FIFO queues.
+# Data-plane topics (opt-in via mark_data_plane) get BOUNDED per-client
+# queues with an explicit drop policy — a slow consumer sheds its own
+# stale frames instead of back-pressuring the broker, and control-plane
+# messages are never dropped.  Payloads may be text or bytes (binary wire
+# envelopes, transport/wire.py): MemoryMessage declares BINARY.
 #
-# The port's own copy of aiko_services_tpu/transport/memory.py without the
-# bounded data-plane queues (they come with the port's binary wire).
+# The port's own copy of aiko_services_tpu/transport/memory.py.
 
 from __future__ import annotations
 
@@ -115,21 +115,29 @@ class _SubscriptionTrie:
 
 
 class MemoryBroker:
-    """A process-local mosquitto: routes, retains, and fires LWTs."""
+    """A process-local mosquitto: routes, retains, and fires LWTs.
 
-    def __init__(self):
+    data_queue_limit bounds each client's pending DATA-plane messages
+    (topics registered via mark_data_plane); control-plane queues are
+    unbounded so protocol messages can never be shed."""
+
+    def __init__(self, data_queue_limit: int = 1024):
         self._lock = threading.RLock()
         self._clients: dict["MemoryMessage", int] = {}   # client -> seq
         self._seq = itertools.count()
         self._exact: dict[str, set] = {}
         self._trie = _SubscriptionTrie()
         self._retained: dict[str, object] = {}
-        # best-effort counters (delivered increments outside the broker
-        # lock), mirrored onto the process metrics registry:
-        # broker_messages_total{kind=...} aggregates across every broker
-        # instance in the process
+        self._data_patterns: list[str] = []
+        self.data_queue_limit = data_queue_limit
+        # best-effort counters: delivered/dropped increment outside the
+        # broker lock (per-client paths), so concurrent publishers may
+        # lose the odd count — they are diagnostics, not invariants.
+        # Mirrored onto the process metrics registry:
+        # broker_messages_total{kind=...} aggregates across every
+        # broker instance in the process
         self.stats = MirroredStats(
-            {"routed": 0, "delivered": 0},
+            {"routed": 0, "delivered": 0, "dropped": 0},
             metric="broker_messages_total",
             help="in-memory broker routing events by kind")
 
@@ -178,6 +186,18 @@ class MemoryBroker:
             if client in self._clients:
                 self._unindex(client, pattern)
 
+    # -- data-plane policy -------------------------------------------------
+    def mark_data_plane(self, pattern: str) -> None:
+        """Topics matching `pattern` are data plane: a slow consumer's
+        pending queue is bounded (data_queue_limit) and overflow is shed
+        per the client's drop_policy instead of growing without bound."""
+        with self._lock:
+            if pattern not in self._data_patterns:
+                self._data_patterns.append(pattern)
+
+    def _is_data_topic(self, topic: str) -> bool:
+        return any(topic_matches(p, topic) for p in self._data_patterns)
+
     # -- routing -----------------------------------------------------------
     def route(self, topic: str, payload, retain: bool = False) -> None:
         with self._lock:
@@ -191,20 +211,26 @@ class MemoryBroker:
             # deterministic fan-out order: attach order
             ordered = sorted(((self._clients[c], c) for c in recipients
                               if c in self._clients))
+            is_data = bool(self._data_patterns) and \
+                self._is_data_topic(topic)
             self.stats["routed"] += 1
         # delivery OUTSIDE the lock: a handler that publishes (actors
         # routinely do) re-enters route() without deadlock risk, and a
         # slow handler does not serialize every other publisher
         for _, client in ordered:
-            client._enqueue(topic, payload)
+            client._enqueue(topic, payload, is_data,
+                            self.data_queue_limit, self.stats)
 
     def deliver_retained(self, client: "MemoryMessage",
                          pattern: str) -> None:
         with self._lock:
             matches = [(t, p) for t, p in self._retained.items()
                        if topic_matches(pattern, t)]
-        for topic, payload in matches:
-            client._enqueue(topic, payload)
+            data_flags = [bool(self._data_patterns) and
+                          self._is_data_topic(t) for t, _ in matches]
+        for (topic, payload), is_data in zip(matches, data_flags):
+            client._enqueue(topic, payload, is_data, self.data_queue_limit,
+                            self.stats)
 
     def retained(self, topic: str):
         with self._lock:
@@ -222,27 +248,37 @@ class MemoryMessage(Message):
     """Message transport backed by a MemoryBroker.
 
     Inbound messages flow through a per-client FIFO queue drained outside
-    the broker lock."""
+    the broker lock; drop_policy ("oldest" | "newest") applies only to
+    data-plane topics when the queue is at the broker's bound."""
+
+    BINARY = True       # bytes payloads (wire.py envelopes) pass through
 
     def __init__(self, on_message: Callable | None = None, subscriptions=(),
                  broker: MemoryBroker | None = None,
                  lwt_topic: str | None = None, lwt_payload=None,
-                 lwt_retain: bool = False):
+                 lwt_retain: bool = False, drop_policy: str = "oldest"):
         super().__init__(on_message, subscriptions)
         self.broker = broker or _default_broker
         self.wills: list[tuple[str, object, bool]] = []
         if lwt_topic is not None:
             self.wills.append((lwt_topic, lwt_payload, lwt_retain))
         self._connected = False
+        self.drop_policy = drop_policy
         # per-client dict; the registry mirror aggregates across
         # clients (no per-client label: client ids are unbounded)
         self.stats = MirroredStats(
-            {"received": 0},
+            {"received": 0, "dropped": 0},
             metric="transport_client_messages_total",
-            help="per-client transport deliveries, aggregated")
-        self._rx: deque = deque()           # (topic, payload)
+            help="per-client transport deliveries/sheds, aggregated")
+        # two FIFO lanes with a shared sequence so the drain preserves
+        # global arrival order: the data lane is the bounded one, and
+        # shedding is O(1) (popleft), never a scan
+        self._rx_ctl: deque = deque()       # (seq, topic, payload)
+        self._rx_data: deque = deque()
+        self._rx_seq = itertools.count()
         self._rx_lock = Lock("memory.rx")
         self._draining = False
+        self._held = False
 
     # -- lifecycle ---------------------------------------------------------
     def connect(self) -> None:
@@ -281,6 +317,11 @@ class MemoryMessage(Message):
             self.subscriptions.discard(topic)
             self.broker.unsubscribe(self, topic)
 
+    def mark_data_plane(self, pattern) -> None:
+        """Declare a data-plane topic pattern on the backing broker
+        (bounded per-client queues + drop policy; see MemoryBroker)."""
+        self.broker.mark_data_plane(pattern)
+
     def set_last_will_and_testament(self, topic, payload,
                                     retain=False) -> None:
         self.wills = [(topic, payload, retain)]
@@ -295,30 +336,58 @@ class MemoryMessage(Message):
         self.wills = [w for w in self.wills if w[0] != topic]
 
     # -- delivery ----------------------------------------------------------
-    def _enqueue(self, topic: str, payload) -> None:
+    def hold(self) -> None:
+        """Pause delivery: inbound messages queue (tests exercise the
+        bounded-queue drop policy with this)."""
+        self._held = True
+
+    def release(self) -> None:
+        self._held = False
+        self._pump()
+
+    def _enqueue(self, topic: str, payload, is_data: bool,
+                 limit: int, broker_stats: dict) -> None:
         if not self._connected:
             return
         with self._rx_lock:
-            self._rx.append((topic, payload))
+            if is_data and limit and len(self._rx_data) >= limit:
+                if self.drop_policy == "newest":
+                    self.stats["dropped"] += 1
+                    broker_stats["dropped"] += 1
+                    return
+                # "oldest" (default): shed the stalest data frame —
+                # streaming consumers want the freshest payload
+                self._rx_data.popleft()
+                self.stats["dropped"] += 1
+                broker_stats["dropped"] += 1
+            lane = self._rx_data if is_data else self._rx_ctl
+            lane.append((next(self._rx_seq), topic, payload))
         self._pump()
 
     def _pump(self) -> None:
-        """Drain the rx queue in FIFO order.  Re-entrancy safe: a handler
-        that publishes back to this client appends and returns — the
-        outer drain delivers it, preserving order without unbounded
-        recursion.  The outer loop re-checks after the drain flag drops,
-        so an item another thread queued meanwhile is not stranded."""
+        """Drain both rx lanes in global FIFO (sequence) order.
+        Re-entrancy safe: a handler that publishes back to this client
+        appends and returns — the outer drain delivers it, preserving
+        order without unbounded recursion."""
         while True:
             with self._rx_lock:
-                if self._draining or not self._rx:
+                if self._draining or self._held or \
+                        not (self._rx_ctl or self._rx_data):
                     return
                 self._draining = True
             try:
                 while True:
                     with self._rx_lock:
-                        if not self._rx:
+                        if self._held:
                             break
-                        topic, payload = self._rx.popleft()
+                        if self._rx_ctl and (
+                                not self._rx_data or
+                                self._rx_ctl[0][0] < self._rx_data[0][0]):
+                            _, topic, payload = self._rx_ctl.popleft()
+                        elif self._rx_data:
+                            _, topic, payload = self._rx_data.popleft()
+                        else:
+                            break
                     if self._connected and self.on_message is not None:
                         self.stats["received"] += 1
                         self.broker.stats["delivered"] += 1

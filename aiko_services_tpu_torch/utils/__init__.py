@@ -13,3 +13,4 @@ from .logger import get_logger, get_log_level_name          # noqa: F401
 from .lru_cache import LRUCache                             # noqa: F401
 from .importer import load_module, load_class               # noqa: F401
 from .lock import Lock                                      # noqa: F401
+from .backoff import jittered_backoff                       # noqa: F401

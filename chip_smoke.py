@@ -42,6 +42,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
      bucket-3072 batches, the scheduler coalesces streams (mean batch
      size > 1) and no timer outlives teardown; frames and batches per
      bucket, virtual and wall seconds, first-call and steady seconds;
+  4c. remote_pipeline: examples/speech/pipeline_transcription_remote.json
+     unedited: a caller runtime whose remote_asr hop crosses the binary
+     wire (the i8mel codec the definition names, passed as
+     remote_wire_codecs) to a serving pipeline p_transcription_server
+     ((PE_WhisperASR (PE_Synthesize)), Whisper-small in bf16 with the
+     local example's parameters, behind an AdmissionGate reading the
+     scheduler's wait estimate) found through the port's Registrar, three
+     runtimes on one broker and a virtual clock: 4 short streams and 2
+     long ones, 22 frames; every frame completes with the server's
+     tokens, the i8mel bytes that crossed are mel_i8_pack of the
+     caller's mel, the wire and admission counters and the hop histogram
+     count every frame, the wire made one device-to-host copy per frame,
+     flash launches 12 x the bucket-3072 batches at the pipeline's shape,
+     no hop is pending and no timer outlives teardown; envelopes and
+     bytes each way, hop p50, virtual and wall seconds, the copies'
+     seconds;
   5. llama: Llama-1B at full width (2048 / 32 heads / 8 KV heads / 16
      layers / 128,256 vocab), bf16, seeded random weights, served by the
      paged ContinuousDecoder (16 slots, 16 steps per sync, 32-token
@@ -65,6 +81,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
   8. llama_int8_f32: full width at 2 layers in f32, the same decoder with
      4 slots: 4 requests of 40 / 100 / 200 / 300 prompt tokens against
      the same port decoder on the CPU (the kernels' plain versions).
+Every earlier phase's launch counts must equal EARLIER_COUNTS.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card the run fails before
 printing any result.  Imports nothing of JAX.
@@ -138,6 +155,18 @@ FLASH_KERNEL_LINE = "aiko_services_tpu/ops/attention.py:21"
 # bucket 3072 (context 1536) padded to the element's max_batch (8 in the
 # slice phase, the example definition's default 32 in the pipeline)
 FLASH_SHAPES = {"slice": (8, 12, 1536, 64), "pipeline": (32, 12, 1536, 64)}
+# each phase that launches flash, and the row (FLASH_SHAPES key) whose
+# shape it must run at: the remote pipeline's server pads to the same
+# max_batch of 32 as the local pipeline
+FLASH_ROWS = {"slice": "slice", "pipeline": "pipeline",
+              "remote_pipeline": "pipeline"}
+# Whisper-small (dim, heads, encoder layers, decoder layers, vocab)
+WHISPER_SMALL = (768, 12, 12, 12, 51865)
+# the counts every earlier phase gives (flash in slice and pipeline, the
+# paged kernel natively and its two int8 variants): the remote pipeline
+# phase leaves them as they were
+EARLIER_COUNTS = {"slice": 12, "pipeline": 24, "llama": 5216,
+                  "int8_fold": 1920, "int8_dequant": 192}
 CROSS_KERNEL_LINE = "aiko_services_tpu/ops/attention.py:164"
 PAGED_KERNEL_LINE = "aiko_services_tpu/ops/paged_attention.py:59"
 
@@ -324,7 +353,8 @@ def phase_kernels(device, generator) -> list[dict]:
             nbytes=4.0 * fb * fh * fs * fd * 2, shape=(fb, fh, fs, fd))
         if not causal:
             result["counter"] = "flash_attention"
-            result["counted_in"] = (phase,)
+            result["counted_in"] = tuple(
+                name for name, row in FLASH_ROWS.items() if row == phase)
             records.append(result)
         del q, k, v
         torch.cuda.empty_cache()
@@ -630,10 +660,11 @@ class flash_shapes:
 def check_flash_shapes(phase: str, seen: set) -> list:
     """The flash kernel ran at the shape its kernels-line row was
     compared and timed at, and at no other."""
-    if seen != {FLASH_SHAPES[phase]}:
+    shape = FLASH_SHAPES[FLASH_ROWS[phase]]
+    if seen != {shape}:
         raise AssertionError(f"{phase}: flash ran at {sorted(seen)}, its "
-                             f"row holds {FLASH_SHAPES[phase]}")
-    return list(FLASH_SHAPES[phase])
+                             f"row holds {shape}")
+    return list(shape)
 
 
 def covered_ms(spans) -> float:
@@ -928,7 +959,7 @@ def phase_pipeline() -> dict:
 
     config = asr.config
     if (config.dim, config.num_heads, config.enc_layers, config.dec_layers,
-            config.n_vocab) != (768, 12, 12, 12, 51865) or \
+            config.n_vocab) != WHISPER_SMALL or \
             asr.buckets != [500, 1000, 3072]:
         raise AssertionError(f"not Whisper-small in buckets [500, 1000, "
                              f"3072]: {config}, {asr.buckets}")
@@ -1538,6 +1569,296 @@ def phase_llama_int8_f32() -> dict:
     return record
 
 
+def phase_remote_pipeline() -> dict:
+    """examples/speech/pipeline_transcription_remote.json on the port,
+    unedited: the caller's remote_asr hop crosses the binary wire, with
+    the i8mel codec, to a serving pipeline p_transcription_server
+    ((PE_WhisperASR (PE_Synthesize)), Whisper-small in bf16 on the card,
+    behind an AdmissionGate reading the scheduler's wait estimate) that
+    the caller finds through the registrar.  Registrar, server and
+    caller are three runtimes on one broker and one engine under a
+    virtual clock.  Returns the kernel launch counts of that run."""
+    import numpy as np
+
+    from aiko_services_tpu_torch.compute import ComputeRuntime
+    from aiko_services_tpu_torch.event import EventEngine, VirtualClock
+    from aiko_services_tpu_torch.observe.metrics import default_registry
+    from aiko_services_tpu_torch.ops import attention as A
+    from aiko_services_tpu_torch.ops.admission import AdmissionGate
+    from aiko_services_tpu_torch.ops.audio import mel_i8_pack
+    from aiko_services_tpu_torch.pipeline import (
+        Pipeline, load_pipeline_definition, parse_pipeline_definition)
+    from aiko_services_tpu_torch.process import ProcessRuntime
+    from aiko_services_tpu_torch.registrar import Registrar
+    from aiko_services_tpu_torch.share import ServicesCache
+    from aiko_services_tpu_torch.transport import (MemoryBroker,
+                                                   MemoryMessage, wire)
+
+    engine, broker = EventEngine(VirtualClock()), MemoryBroker()
+
+    def runtime(name):
+        def transport(on_message, lwt_topic, lwt_payload, lwt_retain):
+            return MemoryMessage(on_message=on_message, broker=broker,
+                                 lwt_topic=lwt_topic,
+                                 lwt_payload=lwt_payload,
+                                 lwt_retain=lwt_retain)
+        return ProcessRuntime(name=name, engine=engine,
+                              transport_factory=transport).initialize()
+
+    def settle():
+        while engine.step():
+            pass
+
+    reg_rt = runtime("reg")
+    registrar = Registrar(reg_rt)
+    engine.clock.advance(2.1)           # past the 2.0 s primary search
+    settle()
+    if not registrar.is_primary:
+        raise AssertionError("the registrar did not become primary")
+
+    # the server: PE_WhisperASR with the local example's parameters and
+    # only the hallucination gates opened, then PE_Synthesize
+    serve_rt = runtime("serve")
+    compute = ComputeRuntime(serve_rt, "compute")
+    local = load_pipeline_definition(
+        "examples/speech/pipeline_transcription.json")
+    parameters = {key: value for key, value in local.parameters.items()
+                  if key.startswith("PE_WhisperASR.")}
+    parameters.update({"PE_WhisperASR.logprob_threshold": -1e9,
+                       "PE_WhisperASR.compression_ratio_threshold": 1e9})
+    server_definition = parse_pipeline_definition({
+        "version": 0, "name": "p_transcription_server", "runtime": "jax",
+        "graph": ["(PE_WhisperASR (PE_Synthesize))"],
+        "parameters": parameters,
+        "elements": [
+            {"name": "PE_WhisperASR", "input": [{"name": "mel"}],
+             "output": [{"name": "tokens"}, {"name": "text"}]},
+            {"name": "PE_Synthesize", "input": [{"name": "text"}],
+             "output": [{"name": "audio"}]}]})
+    gate = AdmissionGate(inflight_limit=128, metrics_labels={
+        "pipeline": "p_transcription_server"})
+    server = Pipeline(serve_rt, server_definition, stream_lease_time=0,
+                      auto_create_streams=True, admission=gate)
+    asr = server.graph.node("PE_WhisperASR").element
+    gate.watch_scheduler(asr.scheduler)         # sets the model up
+    served = {}
+    server.add_frame_handler(lambda frame: served.setdefault(
+        (frame.stream_id, frame.frame_id), np.asarray(frame.swag["tokens"])))
+
+    # the caller: the example, unedited; its wire_codecs parameter is
+    # read by no run time, so it is passed as remote_wire_codecs
+    call_rt = runtime("call")
+    definition = load_pipeline_definition(
+        "examples/speech/pipeline_transcription_remote.json")
+    codecs = dict(definition.parameters["wire_codecs"])
+    caller = Pipeline(call_rt, definition,
+                      services_cache=ServicesCache(call_rt),
+                      stream_lease_time=0, remote_timeout=60.0,
+                      remote_wire_codecs=codecs)
+    # every envelope to the server and back, as it crossed
+    requests, replies = [], []
+    for topic, into in ((f"{server.topic_path}/in", requests),
+                        (caller.topic_in, replies)):
+        spy = MemoryMessage(
+            on_message=lambda _topic, payload, into=into: into.append(
+                (engine.clock.now(), payload)), broker=broker)
+        spy.connect()
+        spy.subscribe(topic)
+    settle()
+    if not caller.remote_elements_ready():
+        raise AssertionError("remote_asr was not discovered")
+    done, finished = [], {}
+
+    def completed(frame):
+        done.append(frame)
+        finished[(frame.stream_id, frame.frame_id)] = engine.clock.now()
+    caller.add_frame_handler(completed)
+
+    # 4 short streams (1 s chunks, window 3: frames of 1-3 s, bucket
+    # 500) and 2 long ones (10 s chunks: 10, 20, 30 s, buckets 1000 and
+    # 3072)
+    streams = {f"short{i}": {"PE_MicrophoneSim.limit": 4,
+                             "PE_MicrophoneSim.frequency": 220.0 + 40 * i}
+               for i in range(4)}
+    streams.update({f"long{i}": {"PE_MicrophoneSim.chunk_seconds": 10.0,
+                                 "PE_AudioFraming.window_count": 3,
+                                 "PE_MicrophoneSim.limit": 3,
+                                 "PE_MicrophoneSim.frequency": 180.0 + 70 * i}
+                    for i in range(2)})
+    expected = 4 * 4 + 2 * 3
+    registry = default_registry()
+
+    def wire_count(kind, pipeline, direction):
+        return registry.value(f"pipeline_wire_{kind}_total",
+                              {"pipeline": pipeline,
+                               "direction": direction})
+
+    def admission_count(family):
+        return sum(metric.value for labels, metric in
+                   registry.series(f"admission_{family}_total")
+                   if labels.get("pipeline") == "p_transcription_server")
+    before = {"request_envelopes": wire_count(
+                  "envelopes", caller.name, "request"),
+              "request_frames": wire_count("frames", caller.name, "request"),
+              "reply_envelopes": wire_count(
+                  "envelopes", server.name, "reply"),
+              "reply_frames": wire_count("frames", server.name, "reply"),
+              "admitted": admission_count("admitted"),
+              "shed": admission_count("shed")}
+    hops = registry.histogram("pipeline_hop_seconds",
+                              labels={"pipeline": caller.name})
+    hops_before = hops.count
+    start = time.perf_counter()
+    virtual_start = engine.clock.now()
+    # the main path's run: counts set to 0 just before, read just after
+    for name in A.launches:
+        A.launches[name] = 0
+    wire.host_copies.update(count=0, seconds=0.0)
+    for stream_id, stream_parameters in streams.items():
+        caller.create_stream(stream_id, parameters=stream_parameters,
+                             lease_time=0)
+    with flash_shapes() as shapes:
+        while len(done) < expected and \
+                engine.clock.now() - virtual_start < 60.0:
+            settle()
+            engine.clock.advance(0.01)
+        torch.cuda.synchronize()
+    counts = dict(A.launches)
+    copies = dict(wire.host_copies)
+    wall_s = time.perf_counter() - start
+    virtual_s = engine.clock.now() - virtual_start
+
+    config = asr.config
+    if (config.dim, config.num_heads, config.enc_layers, config.dec_layers,
+            config.n_vocab) != WHISPER_SMALL or \
+            asr.buckets != [500, 1000, 3072]:
+        raise AssertionError(f"not Whisper-small in buckets [500, 1000, "
+                             f"3072]: {config}, {asr.buckets}")
+    failed = caller.recovery_stats["frames_failed"]
+    if len(done) != expected or failed:
+        raise AssertionError(f"{len(done)} of {expected} frames completed, "
+                             f"{failed} failed; server "
+                             f"{dict(server.recovery_stats)}")
+    # what crossed: each request's mel is i8mel of the caller's own mel,
+    # and the tokens merged at the caller are the server's
+    crossed, sent_at, request_bytes = {}, {}, 0
+    for when, payload in requests:
+        request_bytes += len(payload)
+        expr, buffers = wire.read_envelope(payload)
+        entries = expr[1] if expr[0] == "process_frames_remote" \
+            else [expr[1:]]
+        for entry in entries:
+            marker = entry[1]["mel"]
+            if marker[5] != "i8mel":
+                raise AssertionError(f"mel crossed as {marker}")
+            crossed.setdefault(entry[0], []).append(
+                bytes(buffers[int(marker[1])]))
+            sent_at.setdefault(entry[0], []).append(when)
+    frames_per_bucket, mel_bytes, hop_virtual = {}, 0, []
+    scheduler = asr.scheduler
+    for frame in done:
+        key = (frame.stream_id, frame.frame_id)
+        swag = frame.swag
+        tokens = np.asarray(swag["tokens"])
+        if key not in served or not np.array_equal(tokens, served[key]):
+            raise AssertionError(f"frame {key}: caller tokens {tokens}, "
+                                 f"server {served.get(key)}")
+        if tokens.size == 0 or tokens.min() < 0 or \
+                tokens.max() >= config.n_vocab or \
+                not isinstance(swag["text"], str) or not swag["text"] or \
+                not np.asarray(swag["audio"]).size:
+            raise AssertionError(f"frame {key}: tokens {tokens}, swag "
+                                 f"{sorted(swag)}")
+        mel = swag["mel"]
+        if mel.device.type != "cuda":
+            raise AssertionError(f"frame {key}: mel on {mel.device}")
+        packed = mel_i8_pack(mel.cpu().numpy())
+        if crossed[frame.stream_id][frame.frame_id] != packed.tobytes():
+            raise AssertionError(f"frame {key}: the bytes that crossed are "
+                                 f"not mel_i8_pack of the caller's mel")
+        mel_bytes += mel.numel() * 4
+        hop_virtual.append(finished[key] -
+                           sent_at[frame.stream_id][frame.frame_id])
+        bucket = scheduler.buckets.bucket_for(mel.shape[0])
+        frames_per_bucket[bucket] = frames_per_bucket.get(bucket, 0) + 1
+    wire_counts = {
+        "request_envelopes": wire_count("envelopes", caller.name,
+                                        "request"),
+        "request_frames": wire_count("frames", caller.name, "request"),
+        "reply_envelopes": wire_count("envelopes", server.name, "reply"),
+        "reply_frames": wire_count("frames", server.name, "reply"),
+        "admitted": admission_count("admitted"),
+        "shed": admission_count("shed")}
+    wire_counts = {key: value - before[key]
+                   for key, value in wire_counts.items()}
+    for direction in ("request", "reply"):
+        envelopes = wire_counts[f"{direction}_envelopes"]
+        if not 0 < envelopes <= expected:
+            raise AssertionError(f"{envelopes} {direction} envelopes for "
+                                 f"{expected} frames")
+    if wire_counts["request_frames"] != expected or \
+            len(requests) != wire_counts["request_envelopes"]:
+        raise AssertionError(f"wire counts {wire_counts}, "
+                             f"{len(requests)} request envelopes seen")
+    if wire_counts["admitted"] != expected or wire_counts["shed"] or \
+            server.recovery_stats["shed_early"]:
+        raise AssertionError(f"admission: {wire_counts}, server "
+                             f"{dict(server.recovery_stats)}")
+    if hops.count - hops_before != expected:
+        raise AssertionError(f"pipeline_hop_seconds counted "
+                             f"{hops.count - hops_before} hops")
+    if caller._pending_remote:
+        raise AssertionError(f"hops pending: {list(caller._pending_remote)}")
+    if copies["count"] != expected:
+        raise AssertionError(f"{copies['count']} device-to-host copies on "
+                             f"the wire for {expected} frames")
+    program = compute.programs["whisper_asr.PE_WhisperASR"]
+    batches = {bucket: 1 for bucket in program.first_call_times}
+    for bucket, _ in program.recent_service:
+        batches[bucket] += 1
+    long_batches = batches.get(3072, 0)
+    expected_flash = config.enc_layers * long_batches
+    if not long_batches or counts["flash_attention"] != expected_flash:
+        raise AssertionError(f"flash launches {counts['flash_attention']} "
+                             f"!= 12 x {long_batches} bucket-3072 batches")
+    flash_shape = check_flash_shapes("remote_pipeline", shapes.seen)
+    mean_batch = scheduler.mean_batch_size()
+    for pipeline in (caller, server):
+        for stream_id in list(pipeline.streams):
+            pipeline.destroy_stream(stream_id)
+    caller.stop()
+    server.stop()
+    compute.stop()
+    for rt in (call_rt, serve_rt, reg_rt):
+        rt.terminate()
+    live_timers = engine.live_timer_handlers()
+    if live_timers:
+        raise AssertionError(f"timers left after teardown: {live_timers}")
+    reply_bytes = sum(len(payload) for _, payload in replies)
+    emit({"phase": "remote_pipeline", "streams": len(streams),
+          "frames": len(done), "frames_failed": failed,
+          "frames_per_bucket": frames_per_bucket,
+          "batches_per_bucket": batches, "mean_batch_size": mean_batch,
+          "wire": wire_counts,
+          "frames_per_request_envelope":
+              expected / wire_counts["request_envelopes"],
+          "frames_per_reply_envelope":
+              wire_counts["reply_frames"] / wire_counts["reply_envelopes"],
+          "request_bytes_per_frame": request_bytes / expected,
+          "f32_mel_bytes_per_frame": mel_bytes / expected,
+          "reply_bytes_per_frame": reply_bytes / expected,
+          "hop_p50_virtual_s": statistics.median(hop_virtual),
+          "virtual_s": virtual_s, "wall_s": wall_s,
+          "device_to_host_copies": copies["count"],
+          "device_to_host_copy_s": copies["seconds"],
+          "device_to_host_copy_max_share_of_wall":
+              copies["seconds"] / wall_s,
+          "launches": counts, "flash_launches_expected": expected_flash,
+          "flash_shape": flash_shape,
+          "live_timers_after_teardown": len(live_timers)})
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1567,7 +1888,9 @@ def main() -> int:
     paged = phase_paged_kernel(generator)
     counts = phase_slice()
     pipeline_counts = phase_pipeline()
-    phase_counts = {"slice": counts, "pipeline": pipeline_counts}
+    remote_counts = phase_remote_pipeline()
+    phase_counts = {"slice": counts, "pipeline": pipeline_counts,
+                    "remote_pipeline": remote_counts}
     for record in records:
         record["launches"] = sum(phase_counts[phase][record["counter"]]
                                  for phase in record["counted_in"])
@@ -1581,6 +1904,15 @@ def main() -> int:
     counts[("paged_decode_attention_int8_dequant", "extend")] = \
         int8_counts["paged_decode_attention_int8_dequant"]
     phase_llama_int8_f32()
+    earlier = {"slice": phase_counts["slice"]["flash_attention"],
+               "pipeline": phase_counts["pipeline"]["flash_attention"],
+               "llama": counts[("paged_decode_attention", "decode")],
+               "int8_fold": int8_counts["paged_decode_attention_int8_fold"],
+               "int8_dequant":
+                   int8_counts["paged_decode_attention_int8_dequant"]}
+    if earlier != EARLIER_COUNTS:
+        raise AssertionError(f"earlier phases' counts {earlier} != "
+                             f"{EARLIER_COUNTS}")
     for record in paged:
         record["launches"] = counts.get((record["variant"], record["path"]),
                                         0)

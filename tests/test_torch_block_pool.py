@@ -126,14 +126,14 @@ def _decoder(model, **kwargs):
 
 
 @pytest.mark.parametrize("option,item", [
-    ({"paged_kv": False}, "item 11"),
-    ({"kv_cache_dtype": "int8", "speculate_k": 2}, "item 9"),
-    ({"speculate_k": 2}, "item 9"),
-    ({"prefill_chunk": 16, "prefix_cache": object()}, "item 10"),
-    ({"prefill_budget": 64, "weight_quant": True}, "item 11"),
-    ({"prefix_cache": object()}, "item 10"),
-    ({"weight_quant": True}, "item 11"),
-    ({"fuse_projections": True}, "item 11"),
+    ({"paged_kv": False}, "item 10"),
+    ({"kv_cache_dtype": "int8", "speculate_k": 2}, "item 8"),
+    ({"speculate_k": 2}, "item 8"),
+    ({"prefill_chunk": 16, "prefix_cache": object()}, "item 9"),
+    ({"prefill_budget": 64, "weight_quant": True}, "item 10"),
+    ({"prefix_cache": object()}, "item 9"),
+    ({"weight_quant": True}, "item 10"),
+    ({"fuse_projections": True}, "item 10"),
 ])
 def test_left_out_decoder_options_raise(model, option, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -148,16 +148,16 @@ def test_the_dense_path_is_the_jax_default_and_raises(model):
 def test_moe_configs_raise_at_construction(model):
     import dataclasses
     moe = dataclasses.replace(CONFIG, num_experts=4)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         ContinuousDecoder(model, moe, paged_kv=True, device="cpu")
 
 
 @pytest.mark.parametrize("option,item", [
-    ({"deadline": 1.0}, "item 11"),
-    ({"tenant": "t"}, "item 11"),
-    ({"prefill_label": "remote"}, "item 12"),
-    ({"kv_blocks": (8, [1])}, "item 12"),
-    ({"progress_callback": print}, "item 12"),
+    ({"deadline": 1.0}, "item 10"),
+    ({"tenant": "t"}, "item 10"),
+    ({"prefill_label": "remote"}, "item 11"),
+    ({"kv_blocks": (8, [1])}, "item 11"),
+    ({"progress_callback": print}, "item 11"),
 ])
 def test_left_out_submit_options_raise(model, option, item):
     decoder = _decoder(model)

@@ -316,29 +316,40 @@ def test_actor_posts_and_messages_become_method_calls():
     port_calls, greeter = _actor_script("torch")
     assert port_calls == _actor_script("jax")[0]
     assert port_calls[0] == ("control_ping",)
-    # a remote proxy publishes the call as an S-expression, with the
-    # ambient trace context riding as a trailing marker
+    # a remote proxy publishes the call, with the ambient trace context
+    # riding along: on the binary-capable memory transport an array
+    # argument ships in a binary wire envelope (trace in its header); on
+    # a text-only transport the call is an S-expression whose array is
+    # its nested list's text and whose trace is a trailing marker, as
+    # the JAX package's text path sends it
     engine = greeter.runtime.event
-    caller = TProcessRuntime(name="caller", engine=engine,
-                             transport_factory=lambda *args: TM.MemoryMessage(
-                                 on_message=args[0],
-                                 broker=greeter.runtime.message.broker))
-    caller.initialize()
-    proxy = get_remote_proxy(caller, greeter.topic_in, _Greeter)
+
+    class TextOnlyMessage(TM.MemoryMessage):
+        BINARY = False
+
     seen = []
     greeter.greet = lambda name, count: seen.append(
         (name, count, tracing.current_trace()))
-    context = tracing.new_trace(deadline=engine.clock.now() + 5.0)
-    with tracing.activate(context):
-        proxy.greet("Kai", np.arange(3))
-    while engine.step():
-        pass
-    (name, count, trace), = seen
-    # an array crosses as its nested list's S-expression text, as the
-    # JAX package's text path sends it
-    assert (name, count) == ("Kai", "(0 1 2)")
-    assert trace.trace_id == context.trace_id
-    assert trace.remaining(engine.clock.now()) == pytest.approx(5.0)
+    for message_class in (TM.MemoryMessage, TextOnlyMessage):
+        caller = TProcessRuntime(
+            name="caller", engine=engine,
+            transport_factory=lambda *args, cls=message_class: cls(
+                on_message=args[0], broker=greeter.runtime.message.broker))
+        caller.initialize()
+        proxy = get_remote_proxy(caller, greeter.topic_in, _Greeter)
+        context = tracing.new_trace(deadline=engine.clock.now() + 5.0)
+        with tracing.activate(context):
+            proxy.greet("Kai", np.arange(3))
+        while engine.step():
+            pass
+        (name, count, trace), = seen[-1:]
+        assert trace.trace_id == context.trace_id
+        assert trace.remaining(engine.clock.now()) == pytest.approx(5.0)
+        caller.terminate()
+    binary, text = seen
+    assert binary[0] == "Kai" and binary[1].tolist() == [0, 1, 2]
+    assert not binary[1].flags.writeable          # a view of the payload
+    assert text[:2] == ("Kai", "(0 1 2)")
 
 
 def _share_script(package):

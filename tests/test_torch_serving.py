@@ -213,9 +213,9 @@ def test_setup_rejects_bad_parameters():
     with pytest.raises(RuntimeError, match="no ComputeRuntime"):
         _asr({"preset": "test"}, compute=False)[0].scheduler
     # JAX options that wait for later ROADMAP items say which
-    for option, item in (({"tokenizer": "vocab.json"}, "item 4"),
-                         ({"pp_stages": 2}, "item 5"),
-                         ({"pipelined": True}, "item 8")):
+    for option, item in (({"tokenizer": "vocab.json"}, "item 3"),
+                         ({"pp_stages": 2}, "item 4"),
+                         ({"pipelined": True}, "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             _asr({"preset": "test", **option})[0].scheduler
     # a sync element never pipelines (resolve_pipelined)

@@ -165,18 +165,6 @@ def test_sync_mode_completes_frames_in_the_walk(weights):
     assert all(isinstance(f.swag["text"], str) for f in frames)
 
 
-def test_a_remote_element_raises_not_implemented():
-    runtime = TProcessRuntime(
-        name="caller", engine=TE.EventEngine(TE.VirtualClock()),
-        transport_factory=lambda on_message, *_: TM.MemoryMessage(
-            on_message=on_message, broker=TM.MemoryBroker())).initialize()
-    definition = TP.load_pipeline_definition(
-        "examples/speech/pipeline_transcription_remote.json")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 1\\)"):
-        TP.Pipeline(runtime, definition)
-    assert runtime.services() == {}
-
-
 def test_wav_elements_read_and_write_as_jax_does(tmp_path):
     from aiko_services_tpu.elements import speech as JS
     from aiko_services_tpu_torch.elements import speech as TS
