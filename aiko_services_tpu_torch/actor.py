@@ -15,16 +15,17 @@
 from __future__ import annotations
 
 import inspect
+import logging
 import time
 
 from .observe import tracing
 from .service import Service, ServiceProtocol
-from .share import ECProducer
+from .share import ECProducer, ServicesCache
 from .transport import wire
-from .utils import get_logger, parse
+from .utils import TransportLoggingHandler, get_logger, parse
 
-__all__ = ["ActorMessage", "Actor", "get_remote_proxy", "get_public_methods",
-           "PROTOCOL_ACTOR"]
+__all__ = ["ActorMessage", "Actor", "ActorDiscovery", "get_remote_proxy",
+           "get_public_methods", "PROTOCOL_ACTOR"]
 
 PROTOCOL_ACTOR = ServiceProtocol("actor")
 
@@ -66,6 +67,17 @@ class Actor(Service):
                  share: dict | None = None):
         super().__init__(runtime, name, protocol or PROTOCOL_ACTOR, tags)
         self.logger = get_logger(f"actor.{name}")
+        # distributed logging (runtime-gated): this actor's records also
+        # publish to {topic_path}/log, where the Recorder's namespace
+        # filter picks them up
+        self._transport_log_handler = None
+        if getattr(runtime, "log_transport", False):
+            handler = TransportLoggingHandler(lambda: runtime.message,
+                                              self.topic_log)
+            handler.setFormatter(logging.Formatter(
+                "%(levelname)s %(name)s: %(message)s"))
+            self.logger.addHandler(handler)
+            self._transport_log_handler = handler
         base_share = {
             "lifecycle": "ready",
             "log_level": "INFO",
@@ -164,6 +176,11 @@ class Actor(Service):
         self.stop()
 
     def stop(self) -> None:
+        if self._transport_log_handler is not None:
+            # loggers are global by name — leaked handlers would double-
+            # publish for a later same-named actor
+            self.logger.removeHandler(self._transport_log_handler)
+            self._transport_log_handler = None
         self.runtime.event.remove_mailbox_handler(self._mailbox_control)
         self.runtime.event.remove_mailbox_handler(self._mailbox_in)
         self.runtime.remove_message_handler(self._topic_in_handler,
@@ -236,3 +253,19 @@ def get_remote_proxy(runtime, topic_in: str, protocol_class,
         setattr(proxy, method_name, remote_call)
     return proxy
 
+
+class ActorDiscovery:
+    """Find actors by ServiceFilter and get live add/remove callbacks."""
+
+    def __init__(self, runtime, services_cache: ServicesCache | None = None):
+        self.runtime = runtime
+        self.cache = services_cache or ServicesCache(runtime)
+
+    def add_handler(self, handler, service_filter) -> None:
+        self.cache.add_handler(handler, service_filter)
+
+    def remove_handler(self, handler) -> None:
+        self.cache.remove_handler(handler)
+
+    def share_services(self) -> list:
+        return list(self.cache.services)

@@ -32,7 +32,7 @@ __all__ = ["ComputeRuntime", "CompiledProgram", "PROTOCOL_COMPUTE",
 
 PROTOCOL_COMPUTE = ServiceProtocol("compute")
 PIPELINED_NOT_PORTED = ("pipelined results (pipelined=True) are not ported "
-                        "yet (ROADMAP.md Queue 1 item 7)")
+                        "yet (ROADMAP.md Queue 1 item 2)")
 
 
 def resolve_pipelined(pipelined, mode: str) -> bool:

@@ -40,10 +40,8 @@ __all__ = [
 ]
 
 SAMPLE_RATE = 16000         # voice rate (reference: audio_io.py:224-228)
-TOKENIZER_NOT_PORTED = ("the tokenizer parameter is not ported yet "
-                        "(ROADMAP.md Queue 1 item 3)")
 PP_STAGES_NOT_PORTED = ("pp_stages is not ported yet "
-                        "(ROADMAP.md Queue 1 item 4)")
+                        "(ROADMAP.md Queue 1 item 10)")
 
 
 def compression_ratio(text: str) -> float:
@@ -272,7 +270,8 @@ class PE_WhisperASR(PipelineElement):
             self.kv_quant = parse_bool(kv_quant, False)
         tokenizer_path, _ = self.get_parameter("tokenizer", "")
         if tokenizer_path:
-            raise NotImplementedError(TOKENIZER_NOT_PORTED)
+            from ..models.tokenizer import load_tokenizer
+            self.detokenizer = load_tokenizer(str(tokenizer_path)).decode
         pp_stages, _ = self.get_parameter("pp_stages", 0)
         if int(pp_stages) >= 2:
             raise NotImplementedError(PP_STAGES_NOT_PORTED)

@@ -6,7 +6,7 @@
 # trace id just before the walk runs, for the request journey a decoder
 # reached inside that walk may claim (take_admission_note).  The journeys
 # themselves (RequestJourney, JourneyLog) come with the decoder's
-# journeys (ROADMAP.md Queue 1 item 10).  The verdict counters and wait
+# journeys (ROADMAP.md Queue 1 item 5).  The verdict counters and wait
 # histograms live in ops/admission.py under the JAX package's family
 # names (admission_admitted_total, admission_shed_total,
 # admission_rejected_total, admission_queue_wait_seconds).

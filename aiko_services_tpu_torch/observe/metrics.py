@@ -50,7 +50,7 @@ class Counter:
 
 
 class Gauge:
-    """Settable level."""
+    """Settable level; inc/dec for occupancy-style use."""
     __slots__ = ("name", "labels", "_value")
 
     def __init__(self, name: str, labels: dict):
@@ -60,6 +60,12 @@ class Gauge:
 
     def set(self, value) -> None:
         self._value = value
+
+    def inc(self, amount=1) -> None:
+        self._value += amount
+
+    def dec(self, amount=1) -> None:
+        self._value -= amount
 
     @property
     def value(self):

@@ -20,7 +20,7 @@
 # (pipeline.process_frame_remote) plugs in its own dispatch/shed
 # callables.  The decoder's admit-wait estimate (watch_decoder) and the
 # KV-ledger byte verdict (set_byte_policy / shed_on_bytes) wait for the
-# port decoder's admission and ledger (ROADMAP.md Queue 1 item 10).
+# port decoder's admission and ledger (ROADMAP.md Queue 1 item 5).
 
 from __future__ import annotations
 
@@ -36,10 +36,10 @@ __all__ = ["TenantPolicy", "TenantFairQueue", "AdmissionGate",
 
 DEFAULT_TENANT = "default"
 DECODER_NOT_PORTED = ("the decoder's admit-wait estimate (watch_decoder) "
-                      "is not ported yet (ROADMAP.md Queue 1 item 10)")
+                      "is not ported yet (ROADMAP.md Queue 1 item 5)")
 LEDGER_NOT_PORTED = ("the KV memory ledger byte verdict (set_byte_policy, "
                      "shed_on_bytes) is not ported yet (ROADMAP.md Queue 1 "
-                     "item 10)")
+                     "item 5)")
 
 
 @dataclass(frozen=True)

@@ -9,7 +9,7 @@
 # attach() drives drain() from an event engine's timer.  The wait estimate
 # (estimated_wait, service_estimate, next_deadline, pending) is what an
 # admission gate (ops/admission.py) sheds on.  The dispatch gate and the
-# pipelined results path wait for ROADMAP.md Queue 1 item 7.
+# pipelined results path wait for ROADMAP.md Queue 1 item 2.
 
 from __future__ import annotations
 

@@ -35,8 +35,9 @@
 # card: co-located elements hand tensors to each other with no copy; a
 # tensor that crosses a remote hop takes one host copy at the wire.
 # All timers (hop leases, retry backoff, the admission drain) run on the
-# engine clock.  The peer data plane is not ported yet: every hop rides
-# the broker.
+# engine clock.  Where both runtimes enabled the peer data plane, a hop's
+# envelopes ride a direct channel negotiated through the broker
+# (transport/peer.py); the broker stays the fallback.
 
 from __future__ import annotations
 
@@ -764,12 +765,39 @@ class Pipeline(PipelineElement):
     def _recovery_enabled(self) -> bool:
         return self.remote_retries > 0
 
+    @property
+    def _peer_host(self):
+        """The runtime's peer data plane, when enabled."""
+        return getattr(self.runtime, "peer", None)
+
     def _negotiate_peer(self, topic_path: str) -> None:
-        """The peer data-plane hook: a direct channel to the service at
-        `topic_path` would be negotiated here.  The peer data plane is
-        not ported yet (ROADMAP.md Queue 1 item 1), so every hop rides
-        the broker and this is a no-op."""
-        del topic_path
+        """Open a direct data-plane channel to the service at
+        `topic_path` when both sides speak peer: our requests to its
+        /in topic and its replies to our topic_in pin to the channel.
+        No-op (broker path stays) when either side lacks an endpoint —
+        and on refusal/death the PeerHost falls back by itself."""
+        host = self._peer_host
+        if host is None:
+            return
+        endpoint = None
+        for placeholder in self._remote.values():
+            if topic_path in placeholder.candidates:
+                endpoint = placeholder.candidates[topic_path]
+                break
+        if not endpoint:
+            return
+        try:
+            host.negotiate(topic_path, endpoint,
+                           pin_topics=[f"{topic_path}/in"],
+                           reply_topics=[self.topic_in])
+        except Exception:
+            # a broken advertisement must not abort _activate_remote —
+            # the failover redirect and buffered-frame flush that
+            # follow it are correctness, the peer channel is only an
+            # optimization
+            self.logger.exception(
+                "pipeline %s: peer negotiation with %s failed; "
+                "staying on the broker path", self.name, topic_path)
 
     def _watch_remote(self, node_name: str, element_def) -> None:
         """Swap the placeholder for a live proxy when the remote pipeline
@@ -803,6 +831,11 @@ class Pipeline(PipelineElement):
             elif command == "remove":
                 placeholder.candidates.pop(fields.topic_path, None)
                 placeholder.roles.pop(fields.topic_path, None)
+                if self._peer_host is not None:
+                    # the service left: its channel (if any) is a
+                    # corpse — unpin so traffic rides the broker to
+                    # whatever candidate activation picks next
+                    self._peer_host.release(f"{fields.topic_path}/in")
                 if placeholder.topic_path == fields.topic_path:
                     placeholder.proxy = None
                     placeholder.topic_path = None
@@ -825,8 +858,9 @@ class Pipeline(PipelineElement):
         placeholder.proxy = get_remote_proxy(
             self.runtime, f"{topic_path}/in", Pipeline,
             codec_hints=self._remote_wire_codecs)
-        # the peer data-plane hook (a no-op until the peer data plane is
-        # ported)
+        # first hop to a discovered proxy negotiates a direct channel
+        # through the control plane; data envelopes pin to it, with the
+        # broker as the standing fallback
         self._negotiate_peer(topic_path)
         if failover:
             self.recovery_stats["failovers"] += 1

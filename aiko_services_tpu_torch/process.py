@@ -22,8 +22,12 @@
 # queues on the memory broker).  Binary wire envelopes (transport/wire.py)
 # pass through undecoded on any topic.
 #
-# The port's own copy of aiko_services_tpu/process.py without the peer data
-# plane and distributed logging (ROADMAP.md Queue 1 items 1 and 2).
+# The peer data plane (enable_peer, transport/peer.py) moves binary
+# envelopes bound for a negotiated topic over a direct channel instead of
+# the broker.  Distributed logging (log_transport) makes every actor's
+# logger publish its records to {topic_path}/{sid}/log.
+#
+# The port's own copy of aiko_services_tpu/process.py.
 
 from __future__ import annotations
 
@@ -39,12 +43,9 @@ from .utils import (
     generate, get_hostname, get_namespace, get_username, get_logger, parse,
 )
 
-__all__ = ["ProcessRuntime", "REGISTRAR_BOOT_SUFFIX", "STATE_ABSENT",
-           "PEER_NOT_PORTED"]
+__all__ = ["ProcessRuntime", "REGISTRAR_BOOT_SUFFIX", "STATE_ABSENT"]
 
 REGISTRAR_BOOT_SUFFIX = "service/registrar"
-PEER_NOT_PORTED = ("the peer data plane (enable_peer) is not ported yet "
-                   "(ROADMAP.md Queue 1 item 1)")
 STATE_ABSENT = "(absent)"
 _process_counter = itertools.count()
 
@@ -55,7 +56,8 @@ class ProcessRuntime:
     def __init__(self, name: str | None = None, engine: EventEngine = None,
                  transport_factory=None, namespace: str | None = None,
                  process_id: str | None = None,
-                 terminate_on_registrar_absent: bool = False):
+                 terminate_on_registrar_absent: bool = False,
+                 log_transport: bool | None = None):
         self.namespace = namespace or get_namespace()
         self.hostname = get_hostname()
         # unique id even when many runtimes share one OS process (tests)
@@ -69,6 +71,10 @@ class ProcessRuntime:
             f"{self.namespace}/{REGISTRAR_BOOT_SUFFIX}"
         self.name = name or self.process_id
         self.logger = get_logger(f"process.{self.name}")
+        # distributed logging: actors publish their records to
+        # {topic_path}/{sid}/log (the Recorder's namespace filter)
+        self.log_transport = log_transport if log_transport is not None \
+            else os.environ.get("AIKO_TPU_LOG_TRANSPORT", "0") == "1"
 
         self.event = engine or EventEngine()
         self.connection = Connection()
@@ -77,6 +83,7 @@ class ProcessRuntime:
 
         self._transport_factory = transport_factory or self._default_factory
         self.message = None
+        self.peer = None        # PeerHost once enable_peer() is called
         self._message_handlers: list[tuple[str, object]] = []
         self._exact_handlers: dict[str, list] = {}
         self._wildcard_handlers: list[tuple[str, object]] = []
@@ -124,6 +131,9 @@ class ProcessRuntime:
     def terminate(self, graceful: bool = True) -> None:
         # stop() overrides run teardown (e.g. a primary registrar clears its
         # retained boot record and announces "(primary absent)")
+        if self.peer is not None:
+            self.peer.close()
+            self.peer = None
         for service_id, service in list(self._services.items()):
             stop = getattr(service, "stop", None)
             if stop:
@@ -143,13 +153,19 @@ class ProcessRuntime:
         self.connection.update(ConnectionState.NONE)
 
     # -- inbound message path ---------------------------------------------
-    def _on_transport_message(self, topic: str, payload) -> None:
+    def _on_transport_message(self, topic: str, payload,
+                              ack=None) -> None:
         # may be called on a transport thread: marshal onto the event
-        # engine
-        self.event.queue_put(self._queue_name, (topic, payload))
+        # engine.  `ack` (optional) is invoked when the item is drained
+        # — the peer data plane uses it to bound its in-flight window
+        self.event.queue_put(self._queue_name,
+                             (topic, payload) if ack is None
+                             else (topic, payload, ack))
 
     def _on_message_queue(self, _name, item, _put_time) -> None:
-        topic, payload = item
+        topic, payload = item[0], item[1]
+        if len(item) > 2:
+            item[2]()           # delivery ack: the queue slot is free
         if isinstance(payload, bytes) and \
                 not self._is_binary_topic(topic) and \
                 not wire_is_envelope(payload):
@@ -212,12 +228,32 @@ class ProcessRuntime:
 
     def publish(self, topic: str, payload, retain: bool = False,
                 wait: bool = False) -> None:
+        # peer data plane: binary envelopes bound for a topic with a live
+        # negotiated channel bypass the broker entirely; everything else
+        # — control text, retained state, unpinned topics, dead channels
+        # — falls through to the broker path
+        if self.peer is not None and not retain and \
+                self.peer.maybe_send(topic, payload):
+            return
         self.message.publish(topic, payload, retain, wait)
 
-    def enable_peer(self, *_args, **_kwargs):
-        """The peer data plane (direct channels that bypass the broker)
-        is not ported yet."""
-        raise NotImplementedError(PEER_NOT_PORTED)
+    # -- peer data plane ---------------------------------------------------
+    def enable_peer(self, kinds=("mem",), **kwargs):
+        """Turn on the peer data plane for this runtime: services
+        registered by this process advertise a direct-channel endpoint
+        (tag "peer=..."), inbound handshakes are answered, and
+        publish() pins negotiated data-plane traffic off the broker.
+        Idempotent; returns the PeerHost."""
+        if self.peer is None:
+            from .transport.peer import PeerHost
+            self.peer = PeerHost(self, kinds=kinds, **kwargs)
+            # services registered before enabling re-advertise with the
+            # endpoint tag so existing discovery records pick it up
+            for service in self._services.values():
+                service.add_tags([self.peer.tag])
+                if self.registrar is not None and self.message is not None:
+                    self._register_service(service)
+        return self.peer
 
     # -- service table -----------------------------------------------------
     def add_service(self, service) -> int:
@@ -228,6 +264,10 @@ class ProcessRuntime:
         # returned
         service.service_id = service_id
         service.topic_path = f"{self.topic_path}/{service_id}"
+        if self.peer is not None and self.peer.tag not in service.tags:
+            # every service of a peer-enabled runtime advertises the
+            # direct-channel endpoint in its discovery record
+            service.tags.append(self.peer.tag)
         if self.registrar is not None:
             self._register_service(service)
         return service_id

@@ -65,7 +65,7 @@ def _to_device(device: torch.device, *arrays) -> list:
 
 def measure_device_step(decoder, steps_per_sync: int = 64,
                         chains: int = 4) -> float:
-    _not_ported("measure_device_step", "10")
+    _not_ported("measure_device_step", "5")
 
 
 @dataclasses.dataclass
@@ -134,7 +134,7 @@ class ContinuousDecoder:
                  paged_kv: bool = False, kv_block: int = 32,
                  device=None):
         if not paged_kv:
-            _not_ported("the dense slot cache (paged_kv=False)", "10")
+            _not_ported("the dense slot cache (paged_kv=False)", "5")
         dtype_norm = (kv_cache_dtype or "native").lower()
         if dtype_norm not in ("native", "int8"):
             raise ValueError(
@@ -145,14 +145,14 @@ class ContinuousDecoder:
         # native pool (the stored K/V are rounded), so it is opt-in
         self.kv_int8 = dtype_norm == "int8"
         if speculate_k:
-            _not_ported("speculative decoding (speculate_k)", "8")
+            _not_ported("speculative decoding (speculate_k)", "3")
         if prefix_cache is not None:
-            _not_ported("the prefix cache (prefix_cache)", "9")
+            _not_ported("the prefix cache (prefix_cache)", "4")
         if weight_quant or fuse_projections:
-            _not_ported("weight_quant and fuse_projections", "10")
+            _not_ported("weight_quant and fuse_projections", "5")
         if config.num_experts:
             _not_ported("the mixture-of-experts FFN (num_experts > 0)",
-                        "10")
+                        "5")
         self.kv_block = int(kv_block)
         if self.kv_block < 1:
             raise ValueError(f"kv_block must be >= 1, got {kv_block}")
@@ -246,13 +246,13 @@ class ContinuousDecoder:
         (up to max_seq - 1 with chunked prefill); an empty prompt becomes
         one pad token.  Returns True."""
         if deadline is not None:
-            _not_ported("deadline-aware admission (deadline)", "10")
+            _not_ported("deadline-aware admission (deadline)", "5")
         if tenant is not None:
-            _not_ported("tenants (tenant)", "10")
+            _not_ported("tenants (tenant)", "5")
         if prefill_label is not None or kv_blocks is not None or \
                 progress_callback is not None:
             _not_ported("disaggregated prefill (prefill_label, kv_blocks, "
-                        "progress_callback)", "11")
+                        "progress_callback)", "6")
         if self.prefill_chunk:
             limit = self.max_seq - 1
         else:
@@ -263,24 +263,24 @@ class ContinuousDecoder:
         return True
 
     def attach(self, engine, period: float = 0.002) -> int:
-        _not_ported("attach(engine): pumping from an event engine", "10")
+        _not_ported("attach(engine): pumping from an event engine", "5")
 
     def attach_ledger(self, ledger) -> None:
-        _not_ported("the KV memory ledger", "10")
+        _not_ported("the KV memory ledger", "5")
 
     def drain(self, deadline: float | None = None, on_evacuate=None,
               on_complete=None) -> list:
-        _not_ported("graceful drain", "10")
+        _not_ported("graceful drain", "5")
 
     def resume(self) -> None:
-        _not_ported("graceful drain (resume)", "10")
+        _not_ported("graceful drain (resume)", "5")
 
     def slo_stats(self) -> dict:
-        _not_ported("request journeys and SLO samples", "10")
+        _not_ported("request journeys and SLO samples", "5")
 
     def slo_sketch_stats(self, prefill: str | None = None,
                          tenant: str | None = None) -> dict:
-        _not_ported("request journeys and SLO sketches", "10")
+        _not_ported("request journeys and SLO sketches", "5")
 
     @property
     def active_count(self) -> int:

@@ -157,7 +157,8 @@ class MemoryBroker:
                     self._unindex(client, pattern)
         if fire_lwt:
             for topic, payload, retain in list(client.wills):
-                self.route(topic, payload, retain=retain)
+                # the dying client is the logical sender of its own will
+                self.route(topic, payload, retain=retain, sender=client)
 
     # -- subscription index (lock held by callers below) -------------------
     def _index(self, client, pattern: str) -> None:
@@ -199,7 +200,8 @@ class MemoryBroker:
         return any(topic_matches(p, topic) for p in self._data_patterns)
 
     # -- routing -----------------------------------------------------------
-    def route(self, topic: str, payload, retain: bool = False) -> None:
+    def route(self, topic: str, payload, retain: bool = False,
+              sender=None) -> None:
         with self._lock:
             if retain:
                 if payload in ("", b"", None):
@@ -217,7 +219,16 @@ class MemoryBroker:
         # delivery OUTSIDE the lock: a handler that publishes (actors
         # routinely do) re-enters route() without deadlock risk, and a
         # slow handler does not serialize every other publisher
-        for _, client in ordered:
+        self._deliver([client for _, client in ordered], topic, payload,
+                      is_data, sender)
+
+    def _deliver(self, clients, topic: str, payload, is_data: bool,
+                 sender) -> None:
+        """Per-recipient delivery, outside the broker lock.  The seam the
+        chaos layer (transport/chaos.py) overrides to inject per-delivery
+        faults; `sender` is the publishing client (None for retained
+        replays), so partition rules can tell sides apart."""
+        for client in clients:
             client._enqueue(topic, payload, is_data,
                             self.data_queue_limit, self.stats)
 
@@ -228,9 +239,11 @@ class MemoryBroker:
                        if topic_matches(pattern, t)]
             data_flags = [bool(self._data_patterns) and
                           self._is_data_topic(t) for t, _ in matches]
+        # retained replays go through the same per-recipient delivery
+        # seam as live messages (sender=None), so chaos rules apply to
+        # them too
         for (topic, payload), is_data in zip(matches, data_flags):
-            client._enqueue(topic, payload, is_data, self.data_queue_limit,
-                            self.stats)
+            self._deliver([client], topic, payload, is_data, None)
 
     def retained(self, topic: str):
         with self._lock:
@@ -238,6 +251,7 @@ class MemoryBroker:
 
 
 _default_broker = MemoryBroker()
+_client_counter = itertools.count()
 
 
 def default_broker() -> MemoryBroker:
@@ -256,9 +270,14 @@ class MemoryMessage(Message):
     def __init__(self, on_message: Callable | None = None, subscriptions=(),
                  broker: MemoryBroker | None = None,
                  lwt_topic: str | None = None, lwt_payload=None,
-                 lwt_retain: bool = False, drop_policy: str = "oldest"):
+                 lwt_retain: bool = False, drop_policy: str = "oldest",
+                 client_id: str | None = None):
         super().__init__(on_message, subscriptions)
         self.broker = broker or _default_broker
+        # identity for per-client fault rules (transport/chaos.py); the
+        # LWT topic is the natural default — it names the owning process
+        self.client_id = client_id or lwt_topic or \
+            f"memory-{next(_client_counter)}"
         self.wills: list[tuple[str, object, bool]] = []
         if lwt_topic is not None:
             self.wills.append((lwt_topic, lwt_payload, lwt_retain))
@@ -302,7 +321,7 @@ class MemoryMessage(Message):
 
     # -- pub/sub -----------------------------------------------------------
     def publish(self, topic, payload, retain=False, wait=False) -> None:
-        self.broker.route(topic, payload, retain)
+        self.broker.route(topic, payload, retain, sender=self)
 
     def subscribe(self, topic) -> None:
         new = topic not in self.subscriptions

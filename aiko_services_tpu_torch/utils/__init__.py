@@ -7,9 +7,12 @@ from .sexpr import (                                        # noqa: F401
 )
 from .graph import Graph, Node, GraphError                  # noqa: F401
 from .configuration import (                                # noqa: F401
-    get_namespace, get_hostname, get_pid, get_username,
+    get_namespace, get_hostname, get_pid, get_username, pid_verified,
+    TransportConfig, get_transport_configuration,
 )
-from .logger import get_logger, get_log_level_name          # noqa: F401
+from .logger import (                                       # noqa: F401
+    get_logger, get_log_level_name, TransportLoggingHandler,
+)
 from .lru_cache import LRUCache                             # noqa: F401
 from .importer import load_module, load_class               # noqa: F401
 from .lock import Lock                                      # noqa: F401

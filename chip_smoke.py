@@ -58,6 +58,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
      no hop is pending and no timer outlives teardown; envelopes and
      bytes each way, hop p50, virtual and wall seconds, the copies'
      seconds;
+  4d. peer_pipeline: the same run with the caller's and the server's
+     runtime on TCP peer channels (enable_peer(kinds=("tcp",)),
+     127.0.0.1): every request and reply envelope of the hop crosses one
+     socket and none rides the broker (spies on both topics see none),
+     one handshake, the drive advancing the virtual clock only when no
+     envelope is on the socket (peer.in_flight); the caller's tokens
+     equal remote_pipeline's frame by frame; the channel's envelopes and
+     bytes each way, the copies;
+  4e. peer_chaos: the same traffic over the same channels under two
+     seeded FaultPlans (PEER_CHAOS: the caller's channel drops a fifth
+     of its requests, the server's delays half of its replies) with hop
+     retries: every frame completes, faults and retries above 0, one
+     device-to-host copy per frame sent, tokens equal peer_pipeline's;
+  4f. cli: `python -m aiko_services_tpu_torch pipeline show` and
+     `params` on both speech examples exit 0; ProcessManager.spawn_python
+     starts `pipeline create examples/speech/pipeline_transcription.json
+     --PE_MicrophoneSim.limit 3` on the card: the card's free memory
+     falls by at least CLI_MIN_FALL_GB while it runs, it does not exit
+     on its own, ProcessManager.delete stops it;
   5. llama: Llama-1B at full width (2048 / 32 heads / 8 KV heads / 16
      layers / 128,256 vocab), bf16, seeded random weights, served by the
      paged ContinuousDecoder (16 slots, 16 steps per sync, 32-token
@@ -159,14 +178,32 @@ FLASH_SHAPES = {"slice": (8, 12, 1536, 64), "pipeline": (32, 12, 1536, 64)}
 # shape it must run at: the remote pipeline's server pads to the same
 # max_batch of 32 as the local pipeline
 FLASH_ROWS = {"slice": "slice", "pipeline": "pipeline",
-              "remote_pipeline": "pipeline"}
+              "remote_pipeline": "pipeline", "peer_pipeline": "pipeline",
+              "peer_chaos": "pipeline"}
 # Whisper-small (dim, heads, encoder layers, decoder layers, vocab)
 WHISPER_SMALL = (768, 12, 12, 12, 51865)
-# the counts every earlier phase gives (flash in slice and pipeline, the
-# paged kernel natively and its two int8 variants): the remote pipeline
-# phase leaves them as they were
-EARLIER_COUNTS = {"slice": 12, "pipeline": 24, "llama": 5216,
-                  "int8_fold": 1920, "int8_dequant": 192}
+# flash launches in peer_chaos: 12 x its bucket-3072 batches
+PEER_CHAOS_FLASH = 36
+# the counts every earlier phase gives (flash in slice, pipeline and the
+# remote and peer phases, the paged kernel natively and its two int8
+# variants)
+EARLIER_COUNTS = {"slice": 12, "pipeline": 24, "remote_pipeline": 24,
+                  "peer_pipeline": 24, "peer_chaos": PEER_CHAOS_FLASH,
+                  "llama": 5216, "int8_fold": 1920, "int8_dequant": 192}
+# peer_chaos: the caller's channel drops a fifth of its request
+# envelopes, the server's delays half of its replies by 0.2 s; a hop
+# whose 3 s lease expires is sent again, up to 4 times.  Each side's
+# plan has its own seed (random.Random(0) draws nothing under 0.2 in its
+# first 16 draws: the run would inject no drop)
+PEER_CHAOS = {
+    "seeds": (2, 1),
+    "caller_rules": (("drop", {"topic": "{server}", "probability": 0.2}),),
+    "serving_rules": (("delay", {"topic": "{caller}", "probability": 0.5,
+                                 "delay": 0.2}),),
+    "retries": 4, "timeout": 3.0}
+# the CLI child: Whisper-small's ~241 M parameters take ~0.48 GB in bf16
+CLI_MIN_FALL_GB = 0.45
+CLI_TIMEOUT_S = 240.0
 CROSS_KERNEL_LINE = "aiko_services_tpu/ops/attention.py:164"
 PAGED_KERNEL_LINE = "aiko_services_tpu/ops/paged_attention.py:59"
 
@@ -1569,7 +1606,7 @@ def phase_llama_int8_f32() -> dict:
     return record
 
 
-def phase_remote_pipeline() -> dict:
+def phase_remote_pipeline() -> tuple:
     """examples/speech/pipeline_transcription_remote.json on the port,
     unedited: the caller's remote_asr hop crosses the binary wire, with
     the i8mel codec, to a serving pipeline p_transcription_server
@@ -1577,7 +1614,39 @@ def phase_remote_pipeline() -> dict:
     behind an AdmissionGate reading the scheduler's wait estimate) that
     the caller finds through the registrar.  Registrar, server and
     caller are three runtimes on one broker and one engine under a
-    virtual clock.  Returns the kernel launch counts of that run."""
+    virtual clock.  Returns the kernel launch counts of that run and the
+    caller's tokens by (stream, frame)."""
+    return remote_transcription("remote_pipeline")
+
+
+def phase_peer_pipeline(reference: dict) -> tuple:
+    """The remote_pipeline phase's run with one change: the caller's and
+    the server's runtime both call enable_peer(kinds=("tcp",)) on
+    127.0.0.1, so every request and reply envelope of the hop crosses a
+    real TCP socket and none rides the broker.  The caller's tokens must
+    equal `reference` (the remote_pipeline phase's) frame by frame."""
+    return remote_transcription("peer_pipeline", peer={},
+                                reference=reference)
+
+
+def phase_peer_chaos(reference: dict) -> tuple:
+    """The peer_pipeline phase's traffic over the same TCP channels with
+    a seeded FaultPlan on each side's channel: the caller's drops a fifth
+    of its request envelopes, the server's delays half of its replies by
+    0.2 s; the caller retries a hop whose 3 s lease expires (up to 4
+    times).  Every frame completes, with the tokens of `reference` (the
+    peer_pipeline phase's)."""
+    return remote_transcription("peer_chaos", peer=PEER_CHAOS,
+                                reference=reference)
+
+
+def remote_transcription(phase: str, peer: dict | None = None,
+                         reference: dict | None = None) -> tuple:
+    """The remote transcription example's run for the remote_pipeline
+    phase (peer None: the hop rides the broker) and the peer phases
+    (peer: {} for clean TCP channels, or PEER_CHAOS's fault rules,
+    retries and lease).  Returns the kernel launch counts of that run and
+    the caller's tokens by (stream, frame)."""
     import numpy as np
 
     from aiko_services_tpu_torch.compute import ComputeRuntime
@@ -1585,7 +1654,7 @@ def phase_remote_pipeline() -> dict:
     from aiko_services_tpu_torch.observe.metrics import default_registry
     from aiko_services_tpu_torch.ops import attention as A
     from aiko_services_tpu_torch.ops.admission import AdmissionGate
-    from aiko_services_tpu_torch.ops.audio import mel_i8_pack
+    from aiko_services_tpu_torch.ops.audio import mel_i8_pack, mel_i8_unpack
     from aiko_services_tpu_torch.pipeline import (
         Pipeline, load_pipeline_definition, parse_pipeline_definition)
     from aiko_services_tpu_torch.process import ProcessRuntime
@@ -1593,6 +1662,8 @@ def phase_remote_pipeline() -> dict:
     from aiko_services_tpu_torch.share import ServicesCache
     from aiko_services_tpu_torch.transport import (MemoryBroker,
                                                    MemoryMessage, wire)
+    from aiko_services_tpu_torch.transport.chaos import FaultPlan
+    from aiko_services_tpu_torch.transport.peer import in_flight
 
     engine, broker = EventEngine(VirtualClock()), MemoryBroker()
 
@@ -1616,9 +1687,19 @@ def phase_remote_pipeline() -> dict:
     if not registrar.is_primary:
         raise AssertionError("the registrar did not become primary")
 
+    # the peer phases: one seeded FaultPlan on each side's channel (no
+    # rule in peer_pipeline), a TCP endpoint on 127.0.0.1 for both
+    chaos = peer or {}
+    plans = tuple(FaultPlan(seed=seed)
+                  for seed in chaos.get("seeds", (0, 1)))
+    hosts = ()
+
     # the server: PE_WhisperASR with the local example's parameters and
     # only the hallucination gates opened, then PE_Synthesize
     serve_rt = runtime("serve")
+    if peer is not None:
+        serve_host = serve_rt.enable_peer(
+            kinds=("tcp",), fault_plan=plans[1] if peer else None)
     compute = ComputeRuntime(serve_rt, "compute")
     local = load_pipeline_definition(
         "examples/speech/pipeline_transcription.json")
@@ -1641,32 +1722,81 @@ def phase_remote_pipeline() -> dict:
                       auto_create_streams=True, admission=gate)
     asr = server.graph.node("PE_WhisperASR").element
     gate.watch_scheduler(asr.scheduler)         # sets the model up
-    served = {}
-    server.add_frame_handler(lambda frame: served.setdefault(
-        (frame.stream_id, frame.frame_id), np.asarray(frame.swag["tokens"])))
+    served, served_by_mel = {}, {}
+
+    def serve(frame):
+        tokens = np.asarray(frame.swag["tokens"])
+        served.setdefault((frame.stream_id, frame.frame_id), tokens)
+        # what the server received: the i8mel-unpacked mel, which names
+        # the caller's frame whatever order the frames arrived in
+        served_by_mel.setdefault(
+            (frame.stream_id, np.asarray(frame.swag["mel"]).tobytes()),
+            tokens)
+    server.add_frame_handler(serve)
 
     # the caller: the example, unedited; its wire_codecs parameter is
     # read by no run time, so it is passed as remote_wire_codecs
     call_rt = runtime("call")
+    if peer is not None:
+        call_host = call_rt.enable_peer(
+            kinds=("tcp",), fault_plan=plans[0] if peer else None)
+        hosts = (call_host, serve_host)
     definition = load_pipeline_definition(
         "examples/speech/pipeline_transcription_remote.json")
     codecs = dict(definition.parameters["wire_codecs"])
     caller = Pipeline(call_rt, definition,
                       services_cache=ServicesCache(call_rt),
-                      stream_lease_time=0, remote_timeout=60.0,
+                      stream_lease_time=0,
+                      remote_timeout=chaos.get("timeout", 60.0),
+                      remote_retries=chaos.get("retries", 0), retry_seed=3,
                       remote_wire_codecs=codecs)
-    # every envelope to the server and back, as it crossed
+    topics = {"server": f"{server.topic_path}/in",
+              "caller": caller.topic_in}
+    for plan, rules in zip(plans, (chaos.get("caller_rules", ()),
+                                   chaos.get("serving_rules", ()))):
+        for kind, rule in rules:
+            getattr(plan, kind)(**{**rule,
+                                   "topic": rule["topic"].format(**topics)})
+    # every envelope to the server and back, as it crossed: on the
+    # broker (spies on both topics) and, in the peer phases, as each
+    # side's peer host handed it to its runtime
     requests, replies = [], []
-    for topic, into in ((f"{server.topic_path}/in", requests),
-                        (caller.topic_in, replies)):
+    broker_requests, broker_replies = [], []
+    for topic, into in ((topics["server"], broker_requests),
+                        (topics["caller"], broker_replies)):
         spy = MemoryMessage(
             on_message=lambda _topic, payload, into=into: into.append(
                 (engine.clock.now(), payload)), broker=broker)
         spy.connect()
         spy.subscribe(topic)
+    if peer is None:
+        requests, replies = broker_requests, broker_replies
+    else:
+        for rt, topic, into in ((serve_rt, topics["server"], requests),
+                                (call_rt, topics["caller"], replies)):
+            # the peer host calls runtime._on_transport_message for each
+            # envelope off its channel (the broker holds the bound
+            # method it was given at initialize)
+            def delivered(topic_in, payload, ack=None, rt=rt, topic=topic,
+                          into=into, deliver=rt._on_transport_message):
+                if topic_in == topic:
+                    into.append((engine.clock.now(), payload))
+                deliver(topic_in, payload, ack)
+            rt._on_transport_message = delivered
     settle()
     if not caller.remote_elements_ready():
         raise AssertionError("remote_asr was not discovered")
+    if peer is not None:
+        # the dial thread pins the caller's end, the accept thread the
+        # server's: both before any frame
+        deadline = time.monotonic() + 30.0
+        while not (call_host.pinned(topics["server"]) and
+                   serve_host.pinned(topics["caller"])):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"no TCP channel: {call_host.info()}"
+                                     f", {serve_host.info()}")
+            settle()
+            time.sleep(0.001)
     done, finished = [], {}
 
     def completed(frame):
@@ -1710,6 +1840,7 @@ def phase_remote_pipeline() -> dict:
     hops_before = hops.count
     start = time.perf_counter()
     virtual_start = engine.clock.now()
+    in_flight_waits = 0
     # the main path's run: counts set to 0 just before, read just after
     for name in A.launches:
         A.launches[name] = 0
@@ -1721,6 +1852,12 @@ def phase_remote_pipeline() -> dict:
         while len(done) < expected and \
                 engine.clock.now() - virtual_start < 60.0:
             settle()
+            # the sockets deliver in wall time: the virtual clock waits
+            # for every envelope on a socket to reach its engine
+            while in_flight(hosts):
+                in_flight_waits += 1
+                time.sleep(0.0002)
+                settle()
             engine.clock.advance(0.01)
         torch.cuda.synchronize()
     counts = dict(A.launches)
@@ -1739,6 +1876,7 @@ def phase_remote_pipeline() -> dict:
         raise AssertionError(f"{len(done)} of {expected} frames completed, "
                              f"{failed} failed; server "
                              f"{dict(server.recovery_stats)}")
+    retries = caller.recovery_stats["retries"]
     # what crossed: each request's mel is i8mel of the caller's own mel,
     # and the tokens merged at the caller are the server's
     crossed, sent_at, request_bytes = {}, {}, 0
@@ -1754,31 +1892,47 @@ def phase_remote_pipeline() -> dict:
             crossed.setdefault(entry[0], []).append(
                 bytes(buffers[int(marker[1])]))
             sent_at.setdefault(entry[0], []).append(when)
-    frames_per_bucket, mel_bytes, hop_virtual = {}, 0, []
+    frames_per_bucket, mel_bytes, hop_virtual, tokens_by_key = {}, 0, [], {}
     scheduler = asr.scheduler
     for frame in done:
         key = (frame.stream_id, frame.frame_id)
         swag = frame.swag
         tokens = np.asarray(swag["tokens"])
-        if key not in served or not np.array_equal(tokens, served[key]):
+        tokens_by_key[key] = tokens
+        mel = swag["mel"]
+        if mel.device.type != "cuda":
+            raise AssertionError(f"frame {key}: mel on {mel.device}")
+        packed = mel_i8_pack(mel.cpu().numpy())
+        if peer is None:
+            served_tokens = served.get(key)
+            crossed_ok = crossed[frame.stream_id][frame.frame_id] == \
+                packed.tobytes()
+            hop_virtual.append(finished[key] -
+                               sent_at[frame.stream_id][frame.frame_id])
+        else:
+            # a retried request reaches the server after later frames of
+            # its stream: match the served frame by the mel it received
+            served_tokens = served_by_mel.get(
+                (frame.stream_id, mel_i8_unpack(packed).tobytes()))
+            crossed_ok = packed.tobytes() in crossed[frame.stream_id]
+        if served_tokens is None or \
+                not np.array_equal(tokens, served_tokens):
             raise AssertionError(f"frame {key}: caller tokens {tokens}, "
-                                 f"server {served.get(key)}")
+                                 f"server {served_tokens}")
+        if not crossed_ok:
+            raise AssertionError(f"frame {key}: the bytes that crossed are "
+                                 f"not mel_i8_pack of the caller's mel")
+        if reference is not None and \
+                not np.array_equal(tokens, reference.get(key)):
+            raise AssertionError(f"frame {key}: tokens {tokens}, the "
+                                 f"reference phase's {reference.get(key)}")
         if tokens.size == 0 or tokens.min() < 0 or \
                 tokens.max() >= config.n_vocab or \
                 not isinstance(swag["text"], str) or not swag["text"] or \
                 not np.asarray(swag["audio"]).size:
             raise AssertionError(f"frame {key}: tokens {tokens}, swag "
                                  f"{sorted(swag)}")
-        mel = swag["mel"]
-        if mel.device.type != "cuda":
-            raise AssertionError(f"frame {key}: mel on {mel.device}")
-        packed = mel_i8_pack(mel.cpu().numpy())
-        if crossed[frame.stream_id][frame.frame_id] != packed.tobytes():
-            raise AssertionError(f"frame {key}: the bytes that crossed are "
-                                 f"not mel_i8_pack of the caller's mel")
         mel_bytes += mel.numel() * 4
-        hop_virtual.append(finished[key] -
-                           sent_at[frame.stream_id][frame.frame_id])
         bucket = scheduler.buckets.bucket_for(mel.shape[0])
         frames_per_bucket[bucket] = frames_per_bucket.get(bucket, 0) + 1
     wire_counts = {
@@ -1791,15 +1945,18 @@ def phase_remote_pipeline() -> dict:
         "shed": admission_count("shed")}
     wire_counts = {key: value - before[key]
                    for key, value in wire_counts.items()}
+    dropped = plans[0].stats["drop"]
     for direction in ("request", "reply"):
         envelopes = wire_counts[f"{direction}_envelopes"]
-        if not 0 < envelopes <= expected:
+        if not 0 < envelopes <= expected + retries:
             raise AssertionError(f"{envelopes} {direction} envelopes for "
                                  f"{expected} frames")
-    if wire_counts["request_frames"] != expected or \
-            len(requests) != wire_counts["request_envelopes"]:
+    # each retry sends its frame again; a dropped envelope never arrives
+    if wire_counts["request_frames"] != expected + retries or \
+            len(requests) + dropped != wire_counts["request_envelopes"]:
         raise AssertionError(f"wire counts {wire_counts}, "
-                             f"{len(requests)} request envelopes seen")
+                             f"{len(requests)} request envelopes seen, "
+                             f"{dropped} dropped, {retries} retries")
     if wire_counts["admitted"] != expected or wire_counts["shed"] or \
             server.recovery_stats["shed_early"]:
         raise AssertionError(f"admission: {wire_counts}, server "
@@ -1809,9 +1966,47 @@ def phase_remote_pipeline() -> dict:
                              f"{hops.count - hops_before} hops")
     if caller._pending_remote:
         raise AssertionError(f"hops pending: {list(caller._pending_remote)}")
-    if copies["count"] != expected:
+    # one device-to-host copy per frame the wire encoded
+    if copies["count"] != wire_counts["request_frames"]:
         raise AssertionError(f"{copies['count']} device-to-host copies on "
-                             f"the wire for {expected} frames")
+                             f"the wire for "
+                             f"{wire_counts['request_frames']} frames sent")
+    channel = {}
+    if peer is not None:
+        if broker_requests or broker_replies:
+            raise AssertionError(
+                f"{len(broker_requests)} requests and {len(broker_replies)}"
+                f" replies of the hop rode the broker")
+        call_stats, serve_stats = dict(call_host.stats), \
+            dict(serve_host.stats)
+        ends = [getattr(end, "inner", end) for host in hosts
+                for end in host._channels.values()]
+        if [end.kind for end in ends] != ["tcp", "tcp"] or \
+                call_stats["handshakes"] != 1 or call_stats["fallback"] or \
+                serve_stats["fallback"]:
+            raise AssertionError(f"peer channels {[e.info() for e in ends]}"
+                                 f", caller {call_stats}, server "
+                                 f"{serve_stats}")
+        if len(replies) != wire_counts["reply_envelopes"]:
+            raise AssertionError(f"{len(replies)} replies off the channel, "
+                                 f"{wire_counts['reply_envelopes']} sent")
+        injected = (dict(plans[0].stats), dict(plans[1].stats))
+        if peer and not (dropped and retries and plans[1].stats["delay"]):
+            raise AssertionError(f"faults {injected}, {retries} retries")
+        channel = {
+            "kind": "tcp", "handshakes": call_stats["handshakes"],
+            "request_envelopes_on_channel": len(requests),
+            "reply_envelopes_on_channel": len(replies),
+            "request_bytes_on_channel": request_bytes,
+            "reply_bytes_on_channel": sum(len(p) for _, p in replies),
+            "broker_envelopes_of_the_hop":
+                len(broker_requests) + len(broker_replies),
+            "caller_host": {k: call_stats[k] for k in
+                            ("sent", "received", "fallback", "tx_shed")},
+            "server_host": {k: serve_stats[k] for k in
+                            ("sent", "received", "fallback", "tx_shed")},
+            "faults_injected": injected,
+            "in_flight_waits": in_flight_waits}
     program = compute.programs["whisper_asr.PE_WhisperASR"]
     batches = {bucket: 1 for bucket in program.first_call_times}
     for bucket, _ in program.recent_service:
@@ -1821,7 +2016,7 @@ def phase_remote_pipeline() -> dict:
     if not long_batches or counts["flash_attention"] != expected_flash:
         raise AssertionError(f"flash launches {counts['flash_attention']} "
                              f"!= 12 x {long_batches} bucket-3072 batches")
-    flash_shape = check_flash_shapes("remote_pipeline", shapes.seen)
+    flash_shape = check_flash_shapes(phase, shapes.seen)
     mean_batch = scheduler.mean_batch_size()
     for pipeline in (caller, server):
         for stream_id in list(pipeline.streams):
@@ -1835,28 +2030,141 @@ def phase_remote_pipeline() -> dict:
     if live_timers:
         raise AssertionError(f"timers left after teardown: {live_timers}")
     reply_bytes = sum(len(payload) for _, payload in replies)
-    emit({"phase": "remote_pipeline", "streams": len(streams),
-          "frames": len(done), "frames_failed": failed,
-          "frames_per_bucket": frames_per_bucket,
-          "batches_per_bucket": batches, "mean_batch_size": mean_batch,
-          "wire": wire_counts,
-          "frames_per_request_envelope":
-              expected / wire_counts["request_envelopes"],
-          "frames_per_reply_envelope":
-              wire_counts["reply_frames"] / wire_counts["reply_envelopes"],
-          "request_bytes_per_frame": request_bytes / expected,
-          "f32_mel_bytes_per_frame": mel_bytes / expected,
-          "reply_bytes_per_frame": reply_bytes / expected,
-          "hop_p50_virtual_s": statistics.median(hop_virtual),
-          "virtual_s": virtual_s, "wall_s": wall_s,
-          "device_to_host_copies": copies["count"],
-          "device_to_host_copy_s": copies["seconds"],
-          "device_to_host_copy_max_share_of_wall":
-              copies["seconds"] / wall_s,
-          "launches": counts, "flash_launches_expected": expected_flash,
-          "flash_shape": flash_shape,
-          "live_timers_after_teardown": len(live_timers)})
-    return counts
+    record = {
+        "phase": phase, "streams": len(streams),
+        "frames": len(done), "frames_failed": failed,
+        "frames_per_bucket": frames_per_bucket,
+        "batches_per_bucket": batches, "mean_batch_size": mean_batch,
+        "wire": wire_counts,
+        "frames_per_request_envelope":
+            wire_counts["request_frames"] / wire_counts["request_envelopes"],
+        "frames_per_reply_envelope":
+            wire_counts["reply_frames"] / wire_counts["reply_envelopes"],
+        "request_bytes_per_frame": request_bytes / expected,
+        "f32_mel_bytes_per_frame": mel_bytes / expected,
+        "reply_bytes_per_frame": reply_bytes / expected,
+        "virtual_s": virtual_s, "wall_s": wall_s,
+        "device_to_host_copies": copies["count"],
+        "device_to_host_copy_s": copies["seconds"],
+        "device_to_host_copy_max_share_of_wall":
+            copies["seconds"] / wall_s,
+        "launches": counts, "flash_launches_expected": expected_flash,
+        "flash_shape": flash_shape,
+        "live_timers_after_teardown": len(live_timers)}
+    if peer is None:
+        record["hop_p50_virtual_s"] = statistics.median(hop_virtual)
+    else:
+        record.update({"channel": channel, "retries": retries,
+                       "recovery": dict(caller.recovery_stats),
+                       "tokens_equal_reference_frames": len(done)})
+    emit(record)
+    return counts, tokens_by_key
+
+
+def phase_cli() -> dict:
+    """The port's command line on the card: `pipeline show` and `pipeline
+    params` on both speech examples (four children started together,
+    each exiting 0); then the port's ProcessManager.spawn_python starts
+    `python -m aiko_services_tpu_torch pipeline create
+    examples/speech/pipeline_transcription.json --PE_MicrophoneSim.limit
+    3`, whose ComputeRuntime takes the card (device None).  While it runs
+    the card's free memory, as this process reads it, falls by at least
+    CLI_MIN_FALL_GB (Whisper-small's ~241 M parameters in bf16); the
+    child must not exit on its own, and ProcessManager.delete stops it."""
+    import subprocess
+    import threading
+
+    from aiko_services_tpu_torch.event import EventEngine
+    from aiko_services_tpu_torch.process_manager import ProcessManager
+
+    module = "aiko_services_tpu_torch"
+    examples = ("examples/speech/pipeline_transcription.json",
+                "examples/speech/pipeline_transcription_remote.json")
+    start = time.perf_counter()
+    children = [(command, path, subprocess.Popen(
+                    [sys.executable, "-m", module, "pipeline", command, path],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True))
+                for command in ("show", "params") for path in examples]
+    shown = {}
+    for command, path, child in children:
+        out, err = child.communicate(timeout=120)
+        if child.returncode != 0 or not out:
+            raise AssertionError(f"pipeline {command} {path}: exit "
+                                 f"{child.returncode}: {err[-2000:]}")
+        shown[f"{command} {os.path.basename(path)}"] = len(out.splitlines())
+    show_s = time.perf_counter() - start
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free_before, total = torch.cuda.mem_get_info()
+    exits = []
+    engine = EventEngine()
+    manager = ProcessManager(
+        engine, process_exit_handler=lambda *exit: exits.append(exit))
+    lines, errors = [], []
+    pid = manager.spawn_python(
+        "cli", module, ["pipeline", "create", examples[0],
+                        "--PE_MicrophoneSim.limit", "3"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    child = manager.processes["cli"]
+    spawned = time.perf_counter()
+    readers = [threading.Thread(target=lambda stream=stream, into=into:
+                                into.extend(stream), daemon=True)
+               for stream, into in ((child.stdout, lines),
+                                    (child.stderr, errors))]
+    for reader in readers:
+        reader.start()
+    fall_gb, started_s = 0.0, None
+    try:
+        deadline = spawned + CLI_TIMEOUT_S
+        while time.perf_counter() < deadline:
+            engine.step()           # the manager polls its child here
+            if exits:
+                raise AssertionError(f"the CLI child exited on its own: "
+                                     f"{exits}: {''.join(errors)[-3000:]}")
+            fall_gb = max(fall_gb, (free_before -
+                                    torch.cuda.mem_get_info()[0]) / 1e9)
+            if started_s is None and lines:
+                started_s = time.perf_counter() - spawned
+            if started_s is not None and fall_gb >= CLI_MIN_FALL_GB:
+                break
+            time.sleep(0.1)
+        # it keeps running, streams done, until it is stopped
+        hold = time.perf_counter() + 3.0
+        while time.perf_counter() < hold:
+            engine.step()
+            time.sleep(0.1)
+        if exits or child.poll() is not None:
+            raise AssertionError(f"the CLI child exited on its own: "
+                                 f"{exits}: {''.join(errors)[-3000:]}")
+    finally:
+        ran_s = time.perf_counter() - spawned
+        manager.delete("cli")
+        manager.terminate()
+    for reader in readers:
+        reader.join(timeout=10)
+    if fall_gb < CLI_MIN_FALL_GB or not lines:
+        raise AssertionError(f"the CLI child took {fall_gb:.3f} GB of the "
+                             f"card, printed {lines}: "
+                             f"{''.join(errors)[-3000:]}")
+    if not lines[0].startswith("pipeline p_transcription on "):
+        raise AssertionError(f"the CLI child's start line: {lines[0]!r}")
+    # ProcessManager.delete (as in JAX) reports no exit to the handler:
+    # the return code is the Popen's the manager held
+    if child.returncode is None or exits:
+        raise AssertionError(f"the CLI child: return code "
+                             f"{child.returncode}, exits {exits}")
+    record = {"phase": "cli", "show_and_params_lines": shown,
+              "show_and_params_s": show_s,
+              "child": {"id": "cli", "pid": pid,
+                        "return_code": child.returncode},
+              "start_line": lines[0].strip(),
+              "start_line_after_s": started_s,
+              "card_free_memory_fall_gb": fall_gb,
+              "card_total_gb": total / 1e9, "ran_s": ran_s}
+    emit(record)
+    return record
 
 
 def main() -> int:
@@ -1888,9 +2196,13 @@ def main() -> int:
     paged = phase_paged_kernel(generator)
     counts = phase_slice()
     pipeline_counts = phase_pipeline()
-    remote_counts = phase_remote_pipeline()
+    remote_counts, remote_tokens = phase_remote_pipeline()
+    peer_counts, peer_tokens = phase_peer_pipeline(remote_tokens)
+    chaos_counts, _ = phase_peer_chaos(peer_tokens)
+    phase_cli()
     phase_counts = {"slice": counts, "pipeline": pipeline_counts,
-                    "remote_pipeline": remote_counts}
+                    "remote_pipeline": remote_counts,
+                    "peer_pipeline": peer_counts, "peer_chaos": chaos_counts}
     for record in records:
         record["launches"] = sum(phase_counts[phase][record["counter"]]
                                  for phase in record["counted_in"])
@@ -1904,12 +2216,15 @@ def main() -> int:
     counts[("paged_decode_attention_int8_dequant", "extend")] = \
         int8_counts["paged_decode_attention_int8_dequant"]
     phase_llama_int8_f32()
-    earlier = {"slice": phase_counts["slice"]["flash_attention"],
-               "pipeline": phase_counts["pipeline"]["flash_attention"],
-               "llama": counts[("paged_decode_attention", "decode")],
-               "int8_fold": int8_counts["paged_decode_attention_int8_fold"],
-               "int8_dequant":
-                   int8_counts["paged_decode_attention_int8_dequant"]}
+    earlier = {phase: phase_counts[phase]["flash_attention"] for phase in
+               ("slice", "pipeline", "remote_pipeline", "peer_pipeline",
+                "peer_chaos")}
+    earlier.update({
+                    "llama": counts[("paged_decode_attention", "decode")],
+                    "int8_fold":
+                        int8_counts["paged_decode_attention_int8_fold"],
+                    "int8_dequant":
+                        int8_counts["paged_decode_attention_int8_dequant"]})
     if earlier != EARLIER_COUNTS:
         raise AssertionError(f"earlier phases' counts {earlier} != "
                              f"{EARLIER_COUNTS}")

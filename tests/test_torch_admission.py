@@ -210,7 +210,7 @@ def test_deadline_router_call_for_call():
     lambda gate: gate.shed_on_bytes("acme")])
 def test_decoder_and_ledger_verdicts_raise_naming_their_item(call):
     gate = TA.AdmissionGate(registry=TMetrics.MetricsRegistry())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10\\)"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5\\)"):
         call(gate)
 
 

@@ -180,8 +180,33 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "utils/importer.py", "utils/lru_cache.py", "elements/audio.py",
             "elements/speech.py", "transport/wire.py", "state/fsm.py",
             "registrar.py", "elements/common.py", "ops/admission.py",
-            "observe/journey.py", "utils/backoff.py"} <= names
-    assert len(sources) >= 47
+            "observe/journey.py", "utils/backoff.py", "transport/chaos.py",
+            "transport/peer.py", "transport/mqtt.py",
+            "transport/paho_loopback.py", "process_manager.py",
+            "lifecycle.py", "recorder.py", "storage.py",
+            "models/tokenizer.py", "cli.py", "__main__.py"} <= names
+    assert len(sources) >= 58
+
+
+def test_importing_every_module_loads_no_jax_click_or_paho():
+    """Importing every module of the port, in a fresh interpreter, loads
+    none of jax, the JAX package, click or paho."""
+    import subprocess
+    import sys
+    script = (
+        "import importlib, pkgutil, sys\n"
+        "import aiko_services_tpu_torch as port\n"
+        "for info in pkgutil.walk_packages(port.__path__, 'aiko_services_"
+        "tpu_torch.'):\n"
+        "    if '_build' not in info.name:\n"
+        "        importlib.import_module(info.name)\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'aiko_services_tpu', 'click', 'paho')))\n")
+    result = subprocess.run([sys.executable, "-c", script],
+                            capture_output=True, text=True, timeout=120,
+                            cwd=PACKAGE.parent)
+    assert result.returncode == 0, result.stderr
+    assert result.stdout.strip() == "[]"
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

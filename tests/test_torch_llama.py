@@ -110,9 +110,9 @@ def test_llama_greedy_decode_tokens_identical(weights, eos):
 
 def test_moe_configs_raise():
     moe = dataclasses.replace(T_CONFIG, num_experts=4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         TL.llama_init(torch.Generator().manual_seed(0), moe, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         TL.llama_ffn({}, moe, torch.zeros(1, 1, moe.dim))
 
 

@@ -186,8 +186,8 @@ def test_chunked_options_are_checked(weights):
     with pytest.raises(ValueError, match="kv_cache_dtype must be"):
         ContinuousDecoder(model, T_CONFIG, paged_kv=True, device="cpu",
                           kv_cache_dtype="fp8")
-    for option, item in (({"speculate_k": 2}, "item 8"),
-                         ({"prefix_cache": object()}, "item 9")):
+    for option, item in (({"speculate_k": 2}, "item 3"),
+                         ({"prefix_cache": object()}, "item 4")):
         with pytest.raises(NotImplementedError, match=item):
             ContinuousDecoder(model, T_CONFIG, paged_kv=True, device="cpu",
                               kv_cache_dtype="int8", prefill_chunk=16,

@@ -212,10 +212,12 @@ def test_setup_rejects_bad_parameters():
         _asr({"preset": "test", "kv_quant": "bogus"})[0].scheduler
     with pytest.raises(RuntimeError, match="no ComputeRuntime"):
         _asr({"preset": "test"}, compute=False)[0].scheduler
+    # a tokenizer directory that holds no vocabulary fails to load
+    with pytest.raises(FileNotFoundError, match="vocab.json"):
+        _asr({"preset": "test", "tokenizer": "vocab.json"})[0].scheduler
     # JAX options that wait for later ROADMAP items say which
-    for option, item in (({"tokenizer": "vocab.json"}, "item 3"),
-                         ({"pp_stages": 2}, "item 4"),
-                         ({"pipelined": True}, "item 7")):
+    for option, item in (({"pp_stages": 2}, "item 10"),
+                         ({"pipelined": True}, "item 2")):
         with pytest.raises(NotImplementedError, match=item):
             _asr({"preset": "test", **option})[0].scheduler
     # a sync element never pipelines (resolve_pipelined)

@@ -66,3 +66,49 @@ def test_data_encode_takes_one_host_copy_of_a_card_tensor(card):
     on_card = element.process_frame(None, data=host.to(card))
     assert on_card.outputs == element.process_frame(None,
                                                     data=host).outputs
+
+
+def test_a_card_tensors_envelope_crosses_a_tcp_peer_channel(card):
+    """Two runtimes on TCP peer channels (127.0.0.1): the envelope of a
+    card tensor, encoded with its one host copy, crosses the socket byte
+    for byte and decodes to the tensor's values."""
+    import time
+
+    from aiko_services_tpu_torch.event import EventEngine
+    from aiko_services_tpu_torch.process import ProcessRuntime
+    from aiko_services_tpu_torch.transport import MemoryBroker, MemoryMessage
+
+    engine, broker = EventEngine(), MemoryBroker()
+    runtimes = [ProcessRuntime(
+        name=name, engine=engine,
+        transport_factory=lambda on_message, *_: MemoryMessage(
+            on_message=on_message, broker=broker)).initialize()
+        for name in ("tx", "rx")]
+    sender, receiver = runtimes
+    try:
+        sender.enable_peer(kinds=("tcp",))
+        receiver.enable_peer(kinds=("tcp",))
+        topic = f"{receiver.topic_path}/1/in"
+        got = []
+        receiver.add_message_handler(lambda t, p: got.append(bytes(p)),
+                                     topic)
+        sender.peer.negotiate(f"{receiver.topic_path}/1",
+                              receiver.peer.tag.split("=", 1)[1],
+                              pin_topics=[topic], reply_topics=[])
+        assert engine.run_until(lambda: sender.peer.pinned(topic),
+                                timeout=10.0)
+        values = torch.arange(300 * 80, dtype=torch.float32).reshape(300, 80)
+        wire.host_copies.update(count=0, seconds=0.0)
+        payload = _encode(values.to(card))
+        assert wire.host_copies["count"] == 1
+        started = time.monotonic()
+        sender.publish(topic, payload)
+        assert engine.run_until(lambda: got, timeout=10.0), \
+            time.monotonic() - started
+        assert got == [payload]
+        assert [c.kind for c in sender.peer._channels.values()] == ["tcp"]
+        _, (decoded,) = wire.decode_envelope(got[0])
+        assert torch.equal(torch.from_numpy(np.array(decoded["x"])), values)
+    finally:
+        for runtime in runtimes:
+            runtime.terminate()
