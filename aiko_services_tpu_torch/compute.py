@@ -28,11 +28,15 @@ from .service import ServiceProtocol
 from .utils import get_logger
 
 __all__ = ["ComputeRuntime", "CompiledProgram", "PROTOCOL_COMPUTE",
-           "resolve_pipelined", "PIPELINED_NOT_PORTED"]
+           "resolve_pipelined", "PIPELINED_NOT_PORTED",
+           "MESH_RULES_NOT_PORTED"]
 
 PROTOCOL_COMPUTE = ServiceProtocol("compute")
 PIPELINED_NOT_PORTED = ("pipelined results (pipelined=True) are not ported "
                         "yet (ROADMAP.md Queue 1 item 2)")
+MESH_RULES_NOT_PORTED = ("sharding rules for a device mesh (place_params "
+                         "rules) are not ported yet (ROADMAP.md Queue 1 "
+                         "item 8)")
 
 
 def resolve_pipelined(pipelined, mode: str) -> bool:
@@ -187,6 +191,15 @@ class ComputeRuntime(Actor):
                        labels).set(mean_size)
         registry.gauge("batch_mean_wait_ms", "mean batch-former queue wait",
                        labels).set(mean_wait_ms)
+
+    # -- placement ----------------------------------------------------------
+    def place_params(self, params, param_axes=None, rules=None):
+        """Place a parameter tree (a torch module) on this runtime's one
+        device.  The logical axes name a sharding that one card does not
+        split; mesh rules raise."""
+        if rules is not None:
+            raise NotImplementedError(MESH_RULES_NOT_PORTED)
+        return params.to(self.device)
 
     def stop(self) -> None:
         for timer in self._timers:

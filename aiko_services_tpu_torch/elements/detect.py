@@ -1,0 +1,365 @@
+# The LLM agent element.
+#
+# Counterpart of aiko_services_tpu/elements/detect.py's PE_LlamaAgent (and
+# its _session_key): a pipeline element that prompts a decoder-only Llama
+# with a frame's `text` and emits {"response", "response_tokens"}.  In
+# "continuous" mode it serves through the paged ContinuousDecoder pumped
+# from the pipeline's event engine, with the prefix cache and the session
+# table for multi-turn conversations; "batched" and "sync" run
+# llama_greedy_decode through a ComputeRuntime batched program.
+# PE_Detect and PE_Tracker wait for ROADMAP.md Queue 1 item 6.
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..pipeline import DEFERRED, Frame, FrameOutput, PipelineElement
+from ..utils import parse_bool
+
+__all__ = ["PE_LlamaAgent"]
+
+TIERED_NOT_PORTED = ("the host KV tier (host_kv_mb) is not ported yet "
+                     "(ROADMAP.md Queue 1 item 5)")
+DISAGG_NOT_PORTED = ("disaggregated prefill (disagg) and serving roles "
+                     "(role) are not ported yet (ROADMAP.md Queue 1 "
+                     "item 5)")
+
+
+def _session_key(raw: str) -> str:
+    """SessionTable keys may not contain '.', '/', or spaces; stream /
+    frame ids may (stream ids embed topic-ish paths).  Deterministic
+    sanitization keeps the same stream mapping to the same session."""
+    return raw.replace(".", "-").replace("/", "-").replace(" ", "-")
+
+
+class PE_LlamaAgent(PipelineElement):
+    """LLM agent stage: takes `text`, prompts the decoder-only model,
+    emits {"response", "response_tokens"}.
+
+    Parameters (name: default): preset "tiny" (models/llama.py
+    LLAMA_PRESETS, served in the preset's dtype), mode "batched" |
+    "sync" | "continuous", max_tokens 16, prompt_length 128, max_batch
+    8, max_wait 0.05, compute "compute" (the ComputeRuntime's service
+    name in this process), tokenizer "" (a tokenizer directory;
+    default: the byte fallback).  Continuous mode: steps_per_sync 4,
+    eos_token -1, prefix_block 0 (> 0 binds a prefix cache of that block
+    size and forces chunked prefill at prefill_chunk, default
+    prompt_length), prefix_cache_mb 64, prefix_tenant_mb 0, paged false,
+    sessions false, session_lease 300, session_shards 2, session_idle
+    0, session_mirror "", and per stream tenant and session.
+
+    The port's decoder is paged only: paged false in continuous mode,
+    the JAX element's default, raises the decoder's NotImplementedError
+    (ROADMAP.md Queue 1 item 4).  host_kv_mb, disagg and a non-empty
+    role raise naming item 5.  Weights are random, drawn from a
+    torch.Generator seeded 0 on the ComputeRuntime's device."""
+
+    contracts = {"in:text": "str", "out:response": "str",
+                 "out:response_tokens": "i32[*]"}
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._setup_done = False
+        self._stats_timer = None
+        self._open_streams = 0
+        self.prefix_cache = None
+        self._session_table = None
+        self._session_view = None
+        self.tokenizer = lambda text: [b % 250 for b in
+                                       text.encode("utf-8")][:120]
+        self.detokenizer = lambda tokens: " ".join(str(t) for t in tokens)
+
+    def _publish_serving_stats(self) -> None:
+        """Decoder occupancy and throughput into the pipeline's EC
+        share, deduplicated: an idle decoder streams nothing."""
+        producer = getattr(self.pipeline, "ec_producer", None)
+        if producer is None:
+            return
+        name = self.definition.name
+        stats = self.decoder.stats
+        for key, value in (
+                (f"serving.{name}.active", self.decoder.active_count),
+                (f"serving.{name}.completed", stats["completed"]),
+                (f"serving.{name}.steps", stats["steps"]),
+                (f"serving.{name}.occupancy",
+                 round(self.decoder.mean_occupancy(), 3))):
+            if producer.get(key) != value:
+                producer.update(key, value)
+
+    def _setup(self) -> None:
+        if self._setup_done:
+            return
+        from ..models.llama import (LLAMA_PRESETS, llama_greedy_decode,
+                                    llama_init)
+
+        preset, _ = self.get_parameter("preset", "tiny")
+        max_tokens, _ = self.get_parameter("max_tokens", 16)
+        self.prompt_length, _ = self.get_parameter("prompt_length", 128)
+        max_batch, _ = self.get_parameter("max_batch", 8)
+        max_wait, _ = self.get_parameter("max_wait", 0.05)
+        self.mode, _ = self.get_parameter("mode", "batched")
+        self._program = f"agent.{self.definition.name}"
+
+        compute_name, _ = self.get_parameter("compute", "compute")
+        self.compute = self.runtime.service_by_name(compute_name)
+        if self.compute is None:
+            raise RuntimeError(f"agent element {self.name}: no "
+                               f"ComputeRuntime named {compute_name!r}")
+        device = self.compute.device
+        config = LLAMA_PRESETS[str(preset)]
+        tokenizer_path, _ = self.get_parameter("tokenizer", "")
+        if tokenizer_path:
+            from ..models.tokenizer import load_tokenizer
+            bpe = load_tokenizer(str(tokenizer_path))
+            limit = int(self.prompt_length)
+            vocab = config.vocab
+            # drop ids the model's embedding cannot represent
+            self.tokenizer = lambda text: [
+                t for t in bpe.encode(text) if t < vocab][:limit]
+            self.detokenizer = bpe.decode
+        params = llama_init(torch.Generator(device=device).manual_seed(0),
+                            config, device=device)
+        self.params = self.compute.place_params(params)
+        tokens = int(max_tokens)
+        self.max_tokens = tokens
+
+        if self.mode == "continuous":
+            self._setup_continuous(config, int(max_batch))
+            self._setup_done = True
+            return
+
+        def run_bucket(_bucket, prompts):
+            return llama_greedy_decode(self.params, config, prompts,
+                                       max_tokens=tokens)
+
+        def collate(_bucket, payloads):
+            batch = torch.from_numpy(np.stack(payloads))
+            if device.type == "cuda":
+                batch = batch.pin_memory()
+            return batch.to(device, non_blocking=True)
+
+        def split(results, count):
+            generated = results.cpu().numpy()
+            return [generated[i].tolist() for i in range(count)]
+
+        self.compute.register_batched(
+            self._program, run_bucket, [int(self.prompt_length)],
+            collate, split, max_batch=int(max_batch),
+            max_wait=float(max_wait))
+        self._setup_done = True
+
+    def _setup_continuous(self, config, max_batch: int) -> None:
+        """The decoder, its prefix cache and the session table:
+        requests join and leave the running batch between decode steps
+        (serving.ContinuousDecoder)."""
+        from ..serving import ContinuousDecoder, PrefixKVCache
+        role, _ = self.get_parameter("role", "")
+        disagg, _ = self.get_parameter("disagg", False)
+        if role or parse_bool(disagg, False):
+            raise NotImplementedError(DISAGG_NOT_PORTED)
+        steps_per_sync, _ = self.get_parameter("steps_per_sync", 4)
+        eos_token, _ = self.get_parameter("eos_token", -1)
+        # prefix_block > 0 binds a hash-addressed prefix cache, so shared
+        # system prompts and multi-turn histories skip re-prefill.
+        # Chunked prefill is forced on (default: one bucket-sized chunk):
+        # histories outgrow the prefill bucket, and chunking lifts the
+        # prompt cap to max_seq
+        prefix_block, _ = self.get_parameter("prefix_block", 0)
+        prefill_chunk, _ = self.get_parameter("prefill_chunk", 0)
+        self.prefix_cache = None
+        if int(prefix_block) > 0:
+            cache_mb, _ = self.get_parameter("prefix_cache_mb", 64)
+            tenant_mb, _ = self.get_parameter("prefix_tenant_mb", 0)
+            self.prefix_cache = PrefixKVCache(
+                block_tokens=int(prefix_block),
+                max_bytes=int(float(cache_mb) * (1 << 20)),
+                tenant_max_bytes=int(float(tenant_mb) * (1 << 20))
+                or None,
+                name=self.definition.name)
+            prefill_chunk = int(prefill_chunk) or int(self.prompt_length)
+            host_kv_mb, _ = self.get_parameter("host_kv_mb", 0)
+            if int(host_kv_mb) > 0:
+                raise NotImplementedError(TIERED_NOT_PORTED)
+        paged, _ = self.get_parameter("paged", False)
+        self.decoder = ContinuousDecoder(
+            self.params, config, max_slots=max_batch,
+            prefill_buckets=(int(self.prompt_length),),
+            steps_per_sync=int(steps_per_sync),
+            prefill_chunk=int(prefill_chunk) or None,
+            eos_token=int(eos_token) if int(eos_token) >= 0 else None,
+            name=self.definition.name, prefix_cache=self.prefix_cache,
+            paged_kv=parse_bool(paged, False), kv_block=int(prefix_block)
+            or 32, device=self.compute.device)
+        # session-resident conversations: each turn re-submits the
+        # session's whole history from the SessionTable and the prefix
+        # cache longest-matches it, so a returning session resumes
+        # instead of re-prefilling; lease expiry and demotion release
+        # the pinned KV through the table's hooks
+        sessions, _ = self.get_parameter("sessions", False)
+        self._session_table = None
+        self._session_view = None
+        if parse_bool(sessions, False) and self.prefix_cache is not None:
+            from ..state.sessions import SessionTable, SessionView
+            session_lease, _ = self.get_parameter("session_lease", 300.0)
+            session_shards, _ = self.get_parameter("session_shards", 2)
+            session_idle, _ = self.get_parameter("session_idle", 0.0)
+            # without a host tier demote_sessions is release_sessions
+            self._session_table = SessionTable(
+                self.pipeline, num_shards=int(session_shards),
+                lease_time=float(session_lease),
+                on_expired=self.prefix_cache.demote_sessions,
+                on_demoted=self.prefix_cache.demote_sessions,
+                demote_idle=float(session_idle) or None)
+            # session_mirror names ANOTHER runtime's SessionTable topic
+            # root: its shard deltas replicate here, so a conversation
+            # that fails over to this pipeline keeps its history
+            mirror, _ = self.get_parameter("session_mirror", "")
+            if str(mirror or ""):
+                self._session_view = SessionView(
+                    self.runtime, str(mirror), int(session_shards))
+
+    def start_stream(self, stream) -> None:
+        self._setup()
+        if self.mode == "continuous":
+            # the pump timer lives while any stream is open
+            self._open_streams += 1
+            if self._open_streams == 1:
+                self.decoder.attach(self.runtime.event)
+                self.decoder.on_idle = None
+                if self._stats_timer is None:
+                    self._stats_timer = self.runtime.event.\
+                        add_timer_handler(self._publish_serving_stats,
+                                          1.0)
+
+    def stop_stream(self, stream) -> None:
+        if self.mode == "continuous":
+            self._open_streams = max(0, self._open_streams - 1)
+            if self._open_streams == 0:
+                # in-flight requests must still complete (their frames
+                # are parked DEFERRED): detach only once drained
+                if self.decoder.idle:
+                    self._teardown_continuous()
+                else:
+                    self.decoder.on_idle = lambda: (
+                        self._teardown_continuous()
+                        if self._open_streams == 0 else None)
+
+    def _teardown_continuous(self) -> None:
+        self._publish_serving_stats()       # final truth, not stale
+        if self._stats_timer is not None:
+            self.runtime.event.remove_timer_handler(self._stats_timer)
+            self._stats_timer = None
+        if self._session_view is not None:
+            self._session_view.terminate()
+            self._session_view = None
+        if self._session_table is not None:
+            self._session_table.stop()
+        self.decoder.detach(self.runtime.event)
+
+    def _pad_prompt(self, text):
+        tokens = self.tokenizer(str(text)) or [1]
+        length = int(self.prompt_length)
+        padded = ([0] * max(0, length - len(tokens)) + tokens)[-length:]
+        return np.asarray(padded, np.int32)
+
+    def _to_outputs(self, generated):
+        return {"response_tokens": generated,
+                "response": self.detokenizer(generated)}
+
+    def process_frame(self, frame: Frame, text="", **_) -> FrameOutput:
+        self._setup()
+        if self.mode == "continuous":
+            return self._process_continuous(frame, text)
+
+        prompt = self._pad_prompt(text)
+        length = int(self.prompt_length)
+        if self.mode == "sync":
+            box = {}
+            self.compute.submit(self._program, frame.stream_id, prompt,
+                                length,
+                                lambda _sid, r: box.setdefault("r", r))
+            self.compute.programs[self._program].scheduler.drain(
+                force=True)
+            result = box["r"]
+            if isinstance(result, Exception):
+                return FrameOutput(False, diagnostic=repr(result))
+            return FrameOutput(True, self._to_outputs(result))
+
+        def callback(_sid, result):
+            outputs = result if isinstance(result, Exception) else \
+                self._to_outputs(result)
+            self.pipeline.post("resume_frame", frame,
+                               self.definition.name, outputs)
+
+        self.compute.submit(self._program, frame.stream_id, prompt,
+                            length, callback)
+        return FrameOutput(True, DEFERRED)
+
+    def _process_continuous(self, frame: Frame, text) -> FrameOutput:
+        from ..observe.tracing import current_trace
+        turn = self.tokenizer(str(text)) or [1]
+        # with sessions on, the turn's prompt is the session's WHOLE
+        # history plus the new text, which the prefix cache
+        # longest-matches: only the new tokens prefill
+        tenant_param, _ = self.get_parameter("tenant", "", frame.stream)
+        # ONE normalized tenant key for decoder, cache and table
+        tenant = _session_key(str(tenant_param or "default"))
+        table = self._session_table
+        session_id = ""
+        history: list = []
+        cap = self.decoder.max_seq - self.max_tokens - 2
+        if table is not None:
+            session_param, _ = self.get_parameter("session", "",
+                                                  frame.stream)
+            session_id = _session_key(str(session_param or
+                                          frame.stream_id))
+            payload = table.get(tenant, session_id)
+            if isinstance(payload, dict):
+                history = [int(t) for t in payload.get("history", ())]
+            elif self._session_view is not None:
+                # a failover turn: the mirrored state plane knows the
+                # session; on_done re-creates it locally
+                mirrored = self._session_view.get(tenant, session_id)
+                if isinstance(mirrored, dict):
+                    history = [int(t) for t in
+                               mirrored.get("history", ())]
+        tokens = (history + turn)[-cap:] if history else turn[-cap:]
+
+        def on_done(_rid, generated):
+            if table is not None:
+                # the finished turn IS the next turn's prefix: pin its
+                # chain under the session handle and keep the history in
+                # the table; a shed create must release the pin it took
+                new_history = (tokens + [int(t) for t in
+                                         generated])[-cap:]
+                leaf, kv_tokens = self.prefix_cache.session_store(
+                    tenant, session_id, new_history)
+                if not table.create(tenant, session_id,
+                                    {"history": new_history,
+                                     "kv": leaf or "",
+                                     "kv_tokens": kv_tokens}):
+                    self.prefix_cache.session_release(tenant, session_id)
+            self.pipeline.post("resume_frame", frame, self.definition.name,
+                               self._to_outputs(generated))
+
+        # the frame's deadline rides the ambient TraceContext in
+        # engine-clock seconds; the decoder's admission runs on
+        # time.monotonic: carry only the remaining budget across
+        context = current_trace()
+        deadline = None
+        if context is not None and context.deadline is not None:
+            remaining = context.remaining(self.runtime.event.clock.now())
+            if remaining is not None:
+                deadline = time.monotonic() + max(0.0, remaining)
+        accepted = self.decoder.submit(
+            f"{frame.stream_id}.{frame.frame_id}", tokens, self.max_tokens,
+            on_done, deadline=deadline,
+            tenant=tenant if self.prefix_cache is not None else None)
+        if not accepted:
+            return FrameOutput(False, diagnostic=(
+                "decoder admission shed: estimated admit wait outruns "
+                "the remaining deadline budget"))
+        return FrameOutput(True, DEFERRED)

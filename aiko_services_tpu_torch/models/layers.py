@@ -25,7 +25,8 @@ __all__ = [
     "embedding", "conv1d", "mha", "precompute_kv", "quantize_kv",
     "dequantize_kv", "quantize_kv_cache", "dequantize_kv_cache",
     "init_kv_cache", "update_kv_cache", "gather_paged_kv",
-    "paged_pool_planes", "scatter_paged_rows", "write_paged_blocks",
+    "paged_pool_planes", "scatter_paged_rows", "slice_paged_block",
+    "write_paged_blocks",
     "sinusoid_position_encoding", "rope_frequencies", "apply_rope", "gelu",
 ]
 
@@ -333,6 +334,14 @@ def gather_paged_kv(pool, tables):
     g = pool[tables.long()]                      # [S, nb, H, B, (D)]
     s, nb, h, b = g.shape[:4]
     return g.transpose(1, 2).reshape(s, h, nb * b, *g.shape[4:])
+
+
+def slice_paged_block(pool, block_id: int):
+    """One block's rows [H, B, D] (or the int8 dict) of the pool: views,
+    not copies."""
+    if isinstance(pool, dict):
+        return {"q": pool["q"][block_id], "s": pool["s"][block_id]}
+    return pool[block_id]
 
 
 def _drop_to_null(pool, ids):

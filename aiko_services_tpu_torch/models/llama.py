@@ -6,7 +6,7 @@
 # paths joined by '.' (layers.3.attn.q.w ↔ layers/3/attn/q/w), so
 # bridge.py copies a JAX tree in by name.  The mixture-of-experts FFN
 # (num_experts > 0) and the sequence-parallel forward are not ported yet
-# (ROADMAP.md Queue 1 items 5 and 10).
+# (ROADMAP.md Queue 1 items 4 and 8).
 
 from __future__ import annotations
 
@@ -64,7 +64,7 @@ def _dense_only(config: LlamaConfig) -> None:
     if config.num_experts:
         raise NotImplementedError(
             "the mixture-of-experts FFN (num_experts > 0) is not ported "
-            "yet (ROADMAP.md Queue 1 item 5)")
+            "yet (ROADMAP.md Queue 1 item 4)")
 
 
 class LlamaLayer(L.Params):

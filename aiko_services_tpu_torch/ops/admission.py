@@ -18,9 +18,9 @@
 #
 # The module is transport-free: the Pipeline serving entry
 # (pipeline.process_frame_remote) plugs in its own dispatch/shed
-# callables.  The decoder's admit-wait estimate (watch_decoder) and the
-# KV-ledger byte verdict (set_byte_policy / shed_on_bytes) wait for the
-# port decoder's admission and ledger (ROADMAP.md Queue 1 item 5).
+# callables.  The KV-ledger byte verdict (set_byte_policy /
+# shed_on_bytes) waits for the port decoder's ledger (ROADMAP.md Queue 1
+# item 4).
 
 from __future__ import annotations
 
@@ -31,15 +31,12 @@ from typing import Callable
 from ..observe.metrics import MetricsRegistry, default_registry
 
 __all__ = ["TenantPolicy", "TenantFairQueue", "AdmissionGate",
-           "DeadlineRouter", "DEFAULT_TENANT", "DECODER_NOT_PORTED",
-           "LEDGER_NOT_PORTED"]
+           "DeadlineRouter", "DEFAULT_TENANT", "LEDGER_NOT_PORTED"]
 
 DEFAULT_TENANT = "default"
-DECODER_NOT_PORTED = ("the decoder's admit-wait estimate (watch_decoder) "
-                      "is not ported yet (ROADMAP.md Queue 1 item 5)")
 LEDGER_NOT_PORTED = ("the KV memory ledger byte verdict (set_byte_policy, "
                      "shed_on_bytes) is not ported yet (ROADMAP.md Queue 1 "
-                     "item 5)")
+                     "item 4)")
 
 
 @dataclass(frozen=True)
@@ -391,10 +388,8 @@ class AdmissionGate:
         self.add_wait_estimator(scheduler.estimated_wait)
 
     def watch_decoder(self, decoder) -> None:
-        """Estimate from a ContinuousDecoder's admit-wait heuristic: the
-        port decoder has none yet."""
-        if not hasattr(decoder, "estimated_admit_wait"):
-            raise NotImplementedError(DECODER_NOT_PORTED)
+        """Convenience: estimate from a ContinuousDecoder's admit-wait
+        heuristic (serving.py estimated_admit_wait)."""
         self.add_wait_estimator(decoder.estimated_admit_wait)
 
     def estimated_wait(self) -> float | None:

@@ -1,9 +1,10 @@
 # Paged KV block pool and the paged programs of ContinuousDecoder.
 #
 # Counterpart of aiko_services_tpu/serving_paged.py, the part the paged
-# kernel path runs: the BlockPool allocator (native or int8 pools), the
-# kernel attention of the decode step, the round-end side-buffer merge,
-# the bucketed admit, and the chunked-prefill extend.  The gather oracle
+# kernel path runs: the BlockPool allocator (native or int8 pools, shared
+# by a prefix cache: refcounts, block copies and installs), the kernel
+# attention of the decode step, the round-end side-buffer merge, the
+# bucketed admit, and the chunked-prefill extend.  The gather oracle
 # (_gather_views with the shared slot attention) is not ported: on the
 # card the kernel is the only paged path, and on the CPU its plain
 # version plays the oracle's part.
@@ -44,12 +45,15 @@ class BlockPool:
     entries point at it, so reads stay in bounds and see only masked
     positions.
 
-    Refcounts count logical owners (slot tables).  alloc_blocks() hands
-    out refs=1 ids, growing the device arrays geometrically when the free
-    list runs dry; retain()/release_blocks() move ownership; refs hitting
-    zero return the id to the free list with its contents left in place
-    (stale rows are only ever read at masked positions until the next
-    owner overwrites them).  Single-threaded like the decoder that owns
+    Refcounts count logical owners: slot tables, prefix-cache nodes (a
+    cached block holds one ref) and, through the cache, session pins.
+    alloc_blocks() hands out refs=1 ids, growing the device arrays
+    geometrically when the free list runs dry; retain()/release_blocks()
+    move ownership; refs hitting zero return the id to the free list with
+    its contents left in place (stale rows are only ever read at masked
+    positions until the next owner overwrites them).  `tenant` on
+    alloc/release is accounting only (the JAX pool's KV ledger hook; the
+    ledger is not ported).  Single-threaded like the decoder that owns
     it."""
 
     def __init__(self, config: LlamaConfig, block_tokens: int,
@@ -72,12 +76,22 @@ class BlockPool:
         self.v_pools = self._zero_pools(n)
         self._refs = np.zeros((n,), np.int32)
         self._free = list(range(n - 1, 0, -1))       # 0 reserved
+        itemsize = torch.empty((), dtype=config.dtype).element_size()
+        per_position = (config.head_dim + 4) if self.kv_int8 \
+            else config.head_dim * itemsize
+        # K + V, all layers, one block's tokens: the budget currency
+        self.block_nbytes = (2 * config.num_layers * config.num_kv_heads *
+                             per_position * self.block_tokens)
         self._registry = registry or default_registry()
         self.stats = MirroredStats(
-            {"allocs": 0, "frees": 0, "grows": 0, "shrinks": 0},
+            {"allocs": 0, "frees": 0, "grows": 0, "shrinks": 0,
+             "cow_copies": 0, "cow_copy_bytes": 0,
+             "install_blocks": 0, "install_bytes": 0},
             metric="kv_pool_events_total",
             help="paged KV block-pool events by kind",
-            registry=self._registry, labels={"pool": self.name})
+            registry=self._registry,
+            skip=("cow_copy_bytes", "install_bytes"),
+            labels={"pool": self.name})
         self._gauge_total = self._registry.gauge(
             "kv_pool_blocks", "paged KV pool capacity in blocks",
             labels={"pool": self.name})
@@ -188,7 +202,7 @@ class BlockPool:
         return released
 
     # -- allocator ---------------------------------------------------------
-    def alloc_blocks(self, count: int) -> list:
+    def alloc_blocks(self, count: int, tenant: str = "") -> list:
         """`count` fresh block ids, each with refs=1 owned by the
         caller.  Grows the device pools when the free list runs dry."""
         count = int(count)
@@ -213,7 +227,7 @@ class BlockPool:
                     f"{block_id}")
             self._refs[block_id] += 1
 
-    def release_blocks(self, ids) -> None:
+    def release_blocks(self, ids, tenant: str = "") -> None:
         """Drop one ref per id; refs hitting zero return the id to the
         free list (contents stay: dead cells until reallocated)."""
         freed = 0
@@ -238,9 +252,10 @@ class BlockPool:
         return int(self._refs[block_id])
 
     def used_blocks(self) -> int:
-        """Blocks with at least one live owner (null block excluded),
-        from the refcounts: the audit surface, against which the
-        incremental `_used` the gauges publish is kept exact."""
+        """Blocks with at least one live owner (null block excluded).
+        The refs scan is the audit surface (leak checks); the gauges
+        publish the incremental `_used` twin, which alloc (every 0->1)
+        and release (every 1->0) keep exact."""
         return int((self._refs[1:] > 0).sum())
 
     def occupancy(self) -> float:
@@ -262,6 +277,73 @@ class BlockPool:
         self._gauge_used.set(self._used)
         self._gauge_occupancy.set(
             self._used / capacity if capacity else 0.0)
+
+    # -- block content movement --------------------------------------------
+    def _ids(self, ids) -> torch.Tensor:
+        """Block ids as an int64 index on the pool's device, sent in one
+        non-blocking copy (no stream sync)."""
+        from .serving import _to_device
+        index, = _to_device(self.device, np.asarray(list(ids), np.int32))
+        return index.long()
+
+    def copy_blocks(self, src_ids, dst_ids) -> int:
+        """Device-copy block contents src -> dst (copy-on-extend): one
+        batched index copy per layer and plane, queued on the stream.
+        Returns the bytes copied."""
+        if not src_ids:
+            return 0
+        src, dst = self._ids(src_ids), self._ids(dst_ids)
+
+        def copy(plane):
+            plane.index_copy_(0, dst, plane.index_select(0, src))
+            return plane
+
+        self._map_leaves(self.k_pools, copy)
+        self._map_leaves(self.v_pools, copy)
+        copied = len(src_ids) * self.block_nbytes
+        self.stats["cow_copies"] += len(src_ids)
+        self.stats["cow_copy_bytes"] += copied
+        return copied
+
+    def write_blocks(self, ids, k_layers, v_layers) -> None:
+        """Install block rows into pool blocks: `k_layers` / `v_layers`
+        are per-layer stacks covering len(ids) blocks ([M, H, B, D]
+        arrays or {"q" [M, H, B, D], "s" [M, H, B]} dicts, numpy or
+        torch), written as one index copy per layer and plane."""
+        if not ids:
+            return
+        dst = self._ids(ids)
+
+        def write(pool, rows):
+            if isinstance(pool, dict):
+                for key in ("q", "s"):
+                    pool[key].index_copy_(0, dst, _as_rows(rows[key],
+                                                           pool[key]))
+            else:
+                pool.index_copy_(0, dst, _as_rows(rows, pool))
+
+        for pools, layers in ((self.k_pools, k_layers),
+                              (self.v_pools, v_layers)):
+            for pool, rows in zip(pools, layers):
+                write(pool, rows)
+        self.stats["install_blocks"] += len(ids)
+        self.stats["install_bytes"] += len(ids) * self.block_nbytes
+
+    def block_rows(self, block_id: int) -> tuple:
+        """(per-layer K leaves, per-layer V leaves) of one block: views
+        into the pool in its storage layout (the read behind shipping a
+        cached block; the wire itself is ROADMAP.md Queue 1 item 5)."""
+        return ([L.slice_paged_block(pool, block_id)
+                 for pool in self.k_pools],
+                [L.slice_paged_block(pool, block_id)
+                 for pool in self.v_pools])
+
+
+def _as_rows(rows, plane: torch.Tensor) -> torch.Tensor:
+    """Host or device rows in `plane`'s dtype on its device."""
+    if not isinstance(rows, torch.Tensor):
+        rows = torch.from_numpy(np.ascontiguousarray(rows))
+    return rows.to(device=plane.device, dtype=plane.dtype)
 
 
 # -- the decode step: paged kernel attention --------------------------------

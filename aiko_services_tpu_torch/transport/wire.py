@@ -85,10 +85,10 @@ _COUNT = struct.Struct("<I")
 _BUFLEN = struct.Struct("<Q")
 
 DCT8_NOT_PORTED = ("the dct8 image codec is not ported yet: it needs "
-                   "ops/image_wire.py (ROADMAP.md Queue 1 item 8)")
+                   "ops/image_wire.py (ROADMAP.md Queue 1 item 6)")
 KV_ENVELOPES_NOT_PORTED = ("the KV transfer and migrate envelopes are not "
                            "ported yet: they need disaggregated serving "
-                           "(ROADMAP.md Queue 1 item 6)")
+                           "(ROADMAP.md Queue 1 item 5)")
 
 # device-to-host copies made by the encoder (tensors on the card), and
 # the wall seconds they took: each waits for the tensor's stream

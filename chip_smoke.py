@@ -21,7 +21,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
      at the Llama decode shape, t_cap 256 and 512, natively and with int8
      pools (scales folded), and at the chunked-prefill extend shape (16
      rows of a 64-token chunk, 256 query rows per KV head, offsets drawn
-     from [0, 512]) with int8 pools dequantized and natively;
+     from [0, 512]) with int8 pools dequantized and natively, and at the
+     agent's extend (8 rows of a 128-token chunk, 512 query rows per KV
+     head, a 128-entry side buffer, offsets from [0, 1024]) natively;
   3. slice: Whisper-small at full width (768 / 12 heads / 12 + 12 layers /
      51,865 vocab), bf16, seeded random weights, served through
      ComputeRuntime + PE_WhisperASR (two elements of one port pipeline,
@@ -99,7 +101,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
      round under torch.profiler;
   8. llama_int8_f32: full width at 2 layers in f32, the same decoder with
      4 slots: 4 requests of 40 / 100 / 200 / 300 prompt tokens against
-     the same port decoder on the CPU (the kernels' plain versions).
+     the same port decoder on the CPU (the kernels' plain versions);
+  9. agent: a one-element pipeline (PE_LlamaAgent: Llama-1B at full
+     width, bf16, continuous mode through the paged decoder with a
+     prefix cache of 32-token blocks and the session table; 8 slots, 32
+     new tokens a turn, prompt_length 128, 4 steps per sync), 8 streams
+     x 3 turns on a virtual clock, each turn re-submitting the stream's
+     history: every frame completes, the prefix cache admits turns 2-3,
+     prefill + cached tokens = prompt tokens, the paged kernel launches
+     exactly 16 x the predicted decode steps and extend dispatches
+     (AGENT_*), the leases lapse to an empty table and no pinned block,
+     and after purge the pool holds no block; one round of prefix-hit
+     extends under torch.profiler;
+  10. agent_f32: the same conversation at full width and 2 layers in f32:
+     each turn against llama_greedy_decode on its whole history prompt;
+  11. assistant: examples/speech/pipeline_assistant.json with
+     PE_NeuralTTS replaced in memory by PE_Synthesize (TTS is ROADMAP
+     Queue 1 item 7) and the agent's preset, paged, prefix_block and
+     sessions overridden: Whisper-small and Llama-1B on one
+     ComputeRuntime, 4 streams x 3 five-second chunks.
+The 1b preset is f32 in the port as in JAX; the agent and assistant
+phases serve it in bf16 (agent_preset), agent_f32 at 2 layers in f32.
 Every earlier phase's launch counts must equal EARLIER_COUNTS.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card the run fails before
@@ -109,6 +131,8 @@ printing any result.  Imports nothing of JAX.
 from __future__ import annotations
 
 import collections
+import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -217,6 +241,52 @@ LLAMA_INT8_DECODER = {"max_slots": 16, "steps_per_sync": 8, "kv_block": 32,
                       "prefill_buckets": (64,), "prefill_chunk": 64,
                       "max_seq": 1024, "paged_kv": True,
                       "kv_cache_dtype": "int8"}
+# the conversational agent (phases agent and agent_f32): a one-element
+# pipeline (PE_LlamaAgent) with these parameters, Llama-1B (the 1b
+# preset) served through the paged decoder with the prefix cache and the
+# session table.  The cache holds 256 MB: a Llama-1B block of 32 tokens
+# takes 1 MiB in bf16, and 8 conversations of three turns keep ~120
+# blocks; the element's default of 64 MB would refuse part of each
+# harvest, so the schedule would depend on the model's widths
+AGENT_PARAMETERS = {"preset": "1b", "mode": "continuous", "paged": True,
+                    "prefix_block": 32, "sessions": True, "max_batch": 8,
+                    "max_tokens": 32, "prompt_length": 128,
+                    "steps_per_sync": 4, "session_lease": 30.0,
+                    "prefix_cache_mb": 256}
+AGENT_STREAMS, AGENT_TURNS, AGENT_SEED = 8, 3, 7
+# every stream's first turn opens with this system preamble (the
+# element's byte tokenizer keeps a turn's first 120 bytes, so turn 1 is
+# the preamble's first 120 bytes on every stream); each turn's user text
+# is 40-120 bytes of seeded words
+AGENT_PREAMBLE = (
+    "You are the operations assistant of a speech pipeline. Answer in "
+    "short sentences, name the stream you speak about, keep numbers "
+    "exact, and say when a measurement is missing instead of guessing.")
+AGENT_TEXT_BYTES = (40, 121)
+AGENT_WORDS = ("stream", "latency", "the", "batch", "card", "queue", "why",
+               "is", "slow", "frames", "tokens", "show", "me", "now",
+               "second", "window", "audio", "model", "drop", "retry")
+# decode steps and extend dispatches of the agent phase's run, from a CPU
+# rehearsal of the phase (the same drive on the same virtual clock with a
+# narrow stand-in of the preset: the schedule does not depend on the
+# widths or the token values); the paged kernel launches 16 x each
+AGENT_DECODE_STEPS = 128
+AGENT_EXTEND_DISPATCHES = 9
+# turns 2 and 3 of every stream admit through the cache
+AGENT_MIN_PREFIX_ADMITS = 2 * AGENT_STREAMS
+# the assistant example: the element parameters this run overrides
+# (everything else as the file has it), 4 streams of 3 five-second chunks
+ASSISTANT_OVERRIDES = {"PE_LlamaAgent.preset": "1b",
+                       "PE_LlamaAgent.paged": True,
+                       "PE_LlamaAgent.prefix_block": 32,
+                       "PE_LlamaAgent.sessions": True}
+ASSISTANT_STREAMS, ASSISTANT_CHUNKS = 4, 3
+ASSISTANT_MIN_PREFIX_ADMITS = 2 * ASSISTANT_STREAMS
+# the agent's chunk extend at the paged kernel (row
+# paged_decode_attention_extend_512): 8 slots, 8 KV heads, G = 4 x a
+# 128-token chunk = 512 query rows, the chunk as the side buffer (P =
+# 128), offsets from [0, 1024], a table at t_cap 1280
+EXTEND_512 = {"slots": 8, "chunk": 128, "max_offset": 1024, "t_cap": 1280}
 # llama_int8_f32: a first token mismatch against the CPU run passes only
 # where the CPU run's top-2 logit gap there is below this.  Two f32 runs
 # that sum in other orders store K/V that differ by an ulp or so, and
@@ -488,6 +558,41 @@ def extend_case(generator, block: int = 32):
             side_valid, offsets)
 
 
+def extend512_case(generator, block: int = 32):
+    """Operands of one chunk extend at the agent's shape (EXTEND_512): 8
+    slots, 8 KV heads, 4 x 128 query rows each, D = 64, bf16; the
+    chunk's own K/V as the side buffer under the causal triangle;
+    offsets (the pool extents) drawn from [0, 1024].  Slot 1 aliases
+    slot 0's first four blocks (a cached prefix two slots share) and its
+    offset, 96, lies inside them, as a hit that slides back does."""
+    chunk, slots = EXTEND_512["chunk"], EXTEND_512["slots"]
+    num_kv, groups, nb = 8, 4, EXTEND_512["t_cap"] // block
+    num_blocks = slots * nb + 1
+    device = generator.device
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=generator, device=device,
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    k_pool, v_pool = (randn(num_blocks, num_kv, block, 64) for _ in range(2))
+    k_pool[0] = v_pool[0] = 0
+    offsets = torch.randint(0, EXTEND_512["max_offset"] + 1, (slots,),
+                            generator=generator, device=device,
+                            dtype=torch.int32)
+    offsets[1] = 96
+    ids = (torch.randperm(num_blocks - 1, generator=generator,
+                          device=device) + 1).to(torch.int32).view(slots, nb)
+    ids[1, :4] = ids[0, :4]
+    needed = (offsets.long() + chunk + block - 1) // block
+    past = torch.arange(nb, device=device)[None] >= needed[:, None]
+    tables = ids.masked_fill(past, 0)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool, device=device).tril()
+    side_valid = tri.expand(slots, chunk, chunk).contiguous()
+    return (randn(slots, num_kv, groups * chunk, 64), k_pool, v_pool,
+            tables, randn(slots, num_kv, chunk, 64),
+            randn(slots, num_kv, chunk, 64), side_valid, offsets)
+
+
 def int8_pool(pool):
     """The int8 serving form of a bf16 pool (null block all zeros)."""
     from aiko_services_tpu_torch.models.layers import quantize_kv_cache
@@ -636,11 +741,18 @@ def phase_paged_kernel(generator) -> list[dict]:
     records.append(measure("paged_decode_attention_int8_dequant",
                            "paged_decode_attention_int8_dequant", quantized,
                            4, False, {"t_cap": 768, "path": "extend"}))
-    # no smoke decoder extends into a native pool: this row's launches
-    # stay 0
+    # no smoke decoder extends into a native pool at this shape: this
+    # row's launches stay 0
     records.append(measure("paged_decode_attention_extend",
                            "paged_decode_attention", operands, 4, False,
                            {"t_cap": 768, "path": "extend"}))
+    # the agent's extend: two 256-row tiles a (slot, KV head), a 128-entry
+    # side buffer under the per-query mask at W = 128; its launches are
+    # the agent phase's extends
+    records.append(measure("paged_decode_attention_extend_512",
+                           "paged_decode_attention", extend512_case(generator),
+                           4, False, {"t_cap": EXTEND_512["t_cap"],
+                                      "path": "extend_512"}))
     return records
 
 
@@ -1606,6 +1718,464 @@ def phase_llama_int8_f32() -> dict:
     return record
 
 
+@contextlib.contextmanager
+def agent_preset(**changes):
+    """The port's "1b" preset (the JAX package's: f32, max_seq 8192) with
+    `changes` for the element to read at its setup, restored after."""
+    from aiko_services_tpu_torch.models.llama import LLAMA_PRESETS
+    base = LLAMA_PRESETS["1b"]
+    LLAMA_PRESETS["1b"] = dataclasses.replace(base, **changes)
+    try:
+        yield LLAMA_PRESETS["1b"]
+    finally:
+        LLAMA_PRESETS["1b"] = base
+
+
+def check_1b(config) -> None:
+    if (config.dim, config.num_heads, config.num_kv_heads, config.ffn_dim,
+            config.vocab) != (2048, 32, 8, 8192, 128256):
+        raise AssertionError(f"not the 1b preset's widths: {config}")
+
+
+def agent_texts(rng) -> dict:
+    """{stream: [turn texts]}: turn 1 is the shared system preamble with
+    the stream's first user text behind it, turns 2 and 3 are user text
+    alone; user text is AGENT_TEXT_BYTES long, seeded words."""
+    def text():
+        n = int(rng.integers(*AGENT_TEXT_BYTES))
+        words = []
+        while sum(len(w) + 1 for w in words) < n:
+            words.append(AGENT_WORDS[int(rng.integers(len(AGENT_WORDS)))])
+        return " ".join(words)[:n]
+    texts = {f"c{i}": [AGENT_PREAMBLE + " " + text(), text(), text()]
+             for i in range(AGENT_STREAMS)}
+    return texts
+
+
+class RoundTimer:
+    """Wall seconds of every ContinuousDecoder.pump that found work,
+    by wrapping the class's pump (the element attaches the bound method
+    at its first stream); restored by close()."""
+
+    def __init__(self):
+        from aiko_services_tpu_torch.serving import ContinuousDecoder
+        self._class, self._pump = ContinuousDecoder, ContinuousDecoder.pump
+        self.rounds = []
+        timer, pump = self, self._pump
+
+        def timed(decoder):
+            if decoder.idle:
+                return pump(decoder)
+            start = time.perf_counter()
+            pump(decoder)
+            timer.rounds.append(time.perf_counter() - start)
+
+        ContinuousDecoder.pump = timed
+
+    def close(self) -> None:
+        self._class.pump = self._pump
+
+
+def count_extend_launches(decoder) -> list:
+    """[extend dispatches, paged launches inside them], counted by
+    wrapping the decoder's _extend_group."""
+    from aiko_services_tpu_torch.ops import paged_attention as P
+    counts = [0, 0]
+    extend_group = decoder._extend_group
+
+    def counted(*args, **kwargs):
+        before = sum(P.launches.values())
+        counts[0] += 1
+        extend_group(*args, **kwargs)
+        counts[1] += sum(P.launches.values()) - before
+
+    decoder._extend_group = counted
+    return counts
+
+
+def agent_definition():
+    from aiko_services_tpu_torch.pipeline import parse_pipeline_definition
+    return parse_pipeline_definition({
+        "version": 0, "name": "p_agent", "runtime": "python",
+        "graph": ["(PE_LlamaAgent)"],
+        "parameters": {f"PE_LlamaAgent.{key}": value
+                       for key, value in AGENT_PARAMETERS.items()},
+        "elements": [{
+            "name": "PE_LlamaAgent", "input": [{"name": "text"}],
+            "output": [{"name": "response"}, {"name": "response_tokens"}],
+            "parameters": {}}]})
+
+
+def conversation(runtime, texts: dict, before_drive=None) -> tuple:
+    """Drive AGENT_STREAMS streams through their turns on the runtime's
+    virtual clock: every stream posts turn 1 at once, and each later
+    turn as soon as the stream's previous turn came back.  Returns
+    (pipeline, agent element, frames by (stream, turn), virtual s, wall
+    s)."""
+    from aiko_services_tpu_torch.pipeline import Pipeline
+    engine = runtime.event
+    pipeline = Pipeline(runtime, agent_definition(), stream_lease_time=0)
+    done = []
+    pipeline.add_frame_handler(done.append)
+    for stream_id in texts:
+        pipeline.create_stream(stream_id, lease_time=0)
+    agent = pipeline.graph.node("PE_LlamaAgent").element
+    if before_drive is not None:
+        before_drive(agent)
+    frames, turn_of = {}, {stream_id: 0 for stream_id in texts}
+    total = sum(len(turns) for turns in texts.values())
+    start, virtual_start = time.perf_counter(), engine.clock.now()
+    for stream_id, turns in texts.items():
+        pipeline.post("process_frame", stream_id, {"text": turns[0]})
+    seen = 0
+    while len(done) < total:
+        for frame in done[seen:]:
+            stream_id = frame.stream_id
+            frames[(stream_id, turn_of[stream_id])] = frame
+            turn_of[stream_id] += 1
+            if turn_of[stream_id] < len(texts[stream_id]):
+                pipeline.post("process_frame", stream_id,
+                              {"text": texts[stream_id][turn_of[stream_id]]})
+        seen = len(done)
+        engine.clock.advance(0.002)
+        while engine.step():
+            pass
+        if engine.clock.now() - virtual_start > 120.0:
+            raise AssertionError(f"{len(done)} of {total} agent frames "
+                                 f"in 120 virtual s")
+    for frame in done[seen:]:
+        frames[(frame.stream_id, turn_of[frame.stream_id])] = frame
+        turn_of[frame.stream_id] += 1
+    return (pipeline, agent, frames, engine.clock.now() - virtual_start,
+            time.perf_counter() - start)
+
+
+def phase_agent() -> dict:
+    """A one-element pipeline (PE_LlamaAgent) serving Llama-1B at full
+    width in bf16 through the paged decoder with the prefix cache and
+    sessions: 8 streams x 3 turns on a virtual clock.  Returns the paged
+    kernel's launches by path in that run."""
+    import numpy as np
+
+    from aiko_services_tpu_torch.event import settle_virtual
+    from aiko_services_tpu_torch.ops import paged_attention as P
+
+    with agent_preset(dtype=torch.bfloat16) as config:
+        check_1b(config)
+        if config.num_layers != 16:
+            raise AssertionError(f"not 16 layers: {config}")
+        runtime, compute = host_runtime()
+        engine = runtime.event
+        texts = agent_texts(np.random.default_rng(AGENT_SEED))
+        extends, submitted = [], []
+
+        def before_drive(agent):
+            extends.extend([count_extend_launches(agent.decoder)])
+            submit = agent.decoder.submit
+
+            def recording(request_id, prompt, *args, **kwargs):
+                submitted.append(len(prompt))
+                return submit(request_id, prompt, *args, **kwargs)
+            agent.decoder.submit = recording
+            # the main path's run: counts set to 0 just before
+            for name in P.launches:
+                P.launches[name] = 0
+
+        timer = RoundTimer()
+        try:
+            pipeline, agent, frames, virtual_s, wall_s = conversation(
+                runtime, texts, before_drive)
+        finally:
+            timer.close()
+        torch.cuda.synchronize()
+        launches = dict(P.launches)
+    decoder, cache = agent.decoder, agent.prefix_cache
+    stats = dict(decoder.stats)
+    extend_dispatches, extend_launches = extends[0]
+    decode_launches = launches["paged_decode_attention"] - extend_launches
+    failed = pipeline.recovery_stats["frames_failed"]
+    if len(frames) != AGENT_STREAMS * AGENT_TURNS or failed:
+        raise AssertionError(f"{len(frames)} agent frames, {failed} failed")
+    for (stream_id, turn), frame in frames.items():
+        tokens = frame.swag["response_tokens"]
+        if len(tokens) != AGENT_PARAMETERS["max_tokens"] or not all(
+                0 <= t < config.vocab for t in tokens) or \
+                not isinstance(frame.swag["response"], str):
+            raise AssertionError(f"agent frame {stream_id} turn {turn}: "
+                                 f"{len(tokens)} tokens")
+    expected = {"decode": config.num_layers * AGENT_DECODE_STEPS,
+                "extend": config.num_layers * AGENT_EXTEND_DISPATCHES}
+    measured = {"decode": decode_launches, "extend": extend_launches}
+    if measured != expected or stats["steps"] != AGENT_DECODE_STEPS or \
+            extend_dispatches != AGENT_EXTEND_DISPATCHES or \
+            launches["paged_decode_attention_int8_fold"] or \
+            launches["paged_decode_attention_int8_dequant"]:
+        raise AssertionError(
+            f"agent paged launches {measured} != {expected} "
+            f"({stats['steps']} decode steps, {extend_dispatches} extend "
+            f"dispatches; predicted {AGENT_DECODE_STEPS} and "
+            f"{AGENT_EXTEND_DISPATCHES}), all {launches}")
+    if stats["prefix_admits"] < AGENT_MIN_PREFIX_ADMITS:
+        raise AssertionError(f"{stats['prefix_admits']} prefix admits")
+    prompt_tokens = sum(submitted)
+    cache_stats = dict(cache.stats)
+    if stats["tokens_prefill"] + cache_stats["hit_tokens"] != prompt_tokens:
+        raise AssertionError(
+            f"prefilled {stats['tokens_prefill']} + cached "
+            f"{cache_stats['hit_tokens']} != {prompt_tokens} prompt tokens")
+    used, resident = decoder.pool.used_blocks(), len(cache)
+    if used != resident:
+        raise AssertionError(f"{used} pool blocks owned with the decoder "
+                             f"idle, {resident} cached")
+
+    # one round with prefix-hit extends under the profiler: a fourth turn
+    # on every stream, its admits (table edits) and suffix extends
+    for stream_id in texts:
+        pipeline.post("process_frame", stream_id, {"text": "and then?"})
+    while engine.step():
+        pass
+    profile = profile_round(decoder, "agent prefix-hit admits + extends")
+    drained = engine.clock.now() + 60.0
+    while not decoder.idle and engine.clock.now() < drained:
+        engine.clock.advance(0.002)
+        while engine.step():
+            pass
+    # the leases lapse: the table's expiry releases every session pin
+    table = agent._session_table
+    sessions_before = len(table)
+    settle_virtual(engine, AGENT_PARAMETERS["session_lease"] + 1.0)
+    pinned = sum(1 for node in cache._nodes.values() if node.refs)
+    if len(table) or pinned:
+        raise AssertionError(f"{len(table)} sessions and {pinned} pinned "
+                             f"cache blocks after the leases lapsed")
+    for stream_id in list(pipeline.streams):
+        pipeline.destroy_stream(stream_id)
+    evicted = cache.purge()
+    if decoder.pool.used_blocks():
+        raise AssertionError(f"{decoder.pool.used_blocks()} pool blocks "
+                             f"owned after purge")
+    pipeline.stop()
+    compute.stop()
+    runtime.terminate()
+    rounds = timer.rounds
+    record = {
+        "phase": "agent", "streams": AGENT_STREAMS, "turns": AGENT_TURNS,
+        "frames": len(frames), "frames_failed": failed,
+        "prompt_tokens": prompt_tokens,
+        "tokens_prefill": stats["tokens_prefill"],
+        "hit_tokens": cache_stats["hit_tokens"],
+        "hit_rate": cache_stats["hit_tokens"] / prompt_tokens,
+        "prefix_admits": stats["prefix_admits"],
+        "dedup_deferred": stats["dedup_deferred"],
+        "dedup_shared": stats["dedup_shared"],
+        "cow_copies": stats["cow_copies"],
+        "session_handles": cache_stats["session_handles"],
+        "session_released": cache.stats["session_released"],
+        "sessions_before_expiry": sessions_before,
+        "decode_steps": stats["steps"],
+        "extend_dispatches": extend_dispatches,
+        "paged_launches": measured, "paged_launches_expected": expected,
+        "prefill_chunks": stats["prefill_chunks"],
+        "pool_blocks_used_idle": used, "cache_blocks": resident,
+        "evicted_by_purge": evicted, "pool_blocks_used_after_purge":
+            decoder.pool.used_blocks(),
+        "pool_blocks": decoder.pool.num_blocks - 1,
+        "virtual_s": virtual_s, "wall_s": wall_s,
+        "rounds": len(rounds), "first_round_s": rounds[0],
+        "steady_round_s": statistics.median(rounds[2:]),
+        "tokens": sum(len(f.swag["response_tokens"])
+                      for f in frames.values()),
+        "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(record)
+    emit({"phase": "profile", **profile})
+    return measured
+
+
+def greedy_check(params, config, prompt, got, label) -> dict | None:
+    """got against llama_greedy_decode on `prompt` (dense cache, plain
+    attention); None when identical, the tie's record when the first
+    mismatch's reference top-2 logit gap is under 1e-4; raises
+    otherwise."""
+    from aiko_services_tpu_torch.models.llama import (llama_forward,
+                                                      llama_greedy_decode)
+    device = params.embed.table.device
+    with torch.inference_mode():
+        ref = llama_greedy_decode(params, config, torch.tensor(
+            [prompt], device=device), max_tokens=len(got))[0].tolist()
+        if got == ref:
+            return None
+        i = next(j for j, (a, b) in enumerate(zip(got, ref)) if a != b)
+        logits = llama_forward(params, config, torch.tensor(
+            [prompt + ref[:i]], device=device))[0, -1]
+    top2 = torch.topk(logits, 2).values
+    gap = (top2[0] - top2[1]).item()
+    if gap >= 1e-4:
+        raise AssertionError(f"{label}: token {got[i]} != dense {ref[i]} "
+                             f"at step {i}, top-2 gap {gap}")
+    return {"request": label, "step": i, "gap": gap}
+
+
+def phase_agent_f32() -> dict:
+    """The same conversation at full width and 2 layers in f32 on the
+    card: each turn's response against llama_greedy_decode on that
+    turn's whole history prompt, under phase_llama_f32's tie rule."""
+    import numpy as np
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with agent_preset(num_layers=2, dtype=torch.float32) as config:
+        check_1b(config)
+        runtime, compute = host_runtime()
+        prompts = {}
+
+        def before_drive(agent):
+            submit = agent.decoder.submit
+
+            def recording(request_id, prompt, *args, **kwargs):
+                prompts[request_id] = list(prompt)
+                return submit(request_id, prompt, *args, **kwargs)
+            agent.decoder.submit = recording
+
+        pipeline, agent, frames, virtual_s, wall_s = conversation(
+            runtime, agent_texts(np.random.default_rng(AGENT_SEED)),
+            before_drive)
+        ties, identical = [], 0
+        for frame in frames.values():
+            request_id = f"{frame.stream_id}.{frame.frame_id}"
+            tie = greedy_check(agent.params, config, prompts[request_id],
+                               list(frame.swag["response_tokens"]),
+                               request_id)
+            if tie is None:
+                identical += 1
+            else:
+                ties.append(tie)
+    stats = agent.decoder.stats
+    if len(frames) != AGENT_STREAMS * AGENT_TURNS or \
+            stats["prefix_admits"] < AGENT_MIN_PREFIX_ADMITS:
+        raise AssertionError(f"{len(frames)} frames, "
+                             f"{stats['prefix_admits']} prefix admits")
+    for stream_id in list(pipeline.streams):
+        pipeline.destroy_stream(stream_id)
+    pipeline.stop()
+    compute.stop()
+    runtime.terminate()
+    record = {"phase": "agent_f32", "frames": len(frames),
+              "identical": identical, "ties": ties,
+              "prefix_admits": stats["prefix_admits"],
+              "cow_copies": stats["cow_copies"],
+              "hit_tokens": agent.prefix_cache.stats["hit_tokens"],
+              "longest_prompt": max(len(p) for p in prompts.values()),
+              "virtual_s": virtual_s, "wall_s": wall_s}
+    emit(record)
+    return record
+
+
+def phase_assistant() -> dict:
+    """examples/speech/pipeline_assistant.json on the port: PE_MicrophoneSim
+    → PE_LogMel → PE_WhisperASR (Whisper-small, buckets [500], 5 s
+    chunks) → PE_LlamaAgent (Llama-1B in bf16, continuous, paged, prefix
+    cache, sessions) → PE_Synthesize → PE_Speaker; 4 streams x 3 chunks
+    on a virtual clock."""
+    from aiko_services_tpu_torch.pipeline import (Pipeline,
+                                                  parse_pipeline_definition)
+
+    path = "examples/speech/pipeline_assistant.json"
+    with open(path) as file:
+        raw = json.load(file)
+    # PE_NeuralTTS is ROADMAP Queue 1 item 7: the placeholder voice takes
+    # its place, in memory
+    raw["graph"] = [graph.replace("PE_NeuralTTS", "PE_Synthesize")
+                    for graph in raw["graph"]]
+    raw["parameters"].pop("PE_NeuralTTS.preset")
+    raw["elements"] = [
+        {"name": "PE_Synthesize", "input": [{"name": "text", "type": "str"}],
+         "output": [{"name": "audio", "type": "audio"}]}
+        if element["name"] == "PE_NeuralTTS" else element
+        for element in raw["elements"]]
+    raw["parameters"].update(ASSISTANT_OVERRIDES)
+    with agent_preset(dtype=torch.bfloat16) as config:
+        check_1b(config)
+        definition = parse_pipeline_definition(raw, source=path)
+        runtime, compute = host_runtime()
+        engine = runtime.event
+        pipeline = Pipeline(runtime, definition, stream_lease_time=0)
+        done = []
+        pipeline.add_frame_handler(done.append)
+        streams = {f"a{i}": {"PE_MicrophoneSim.limit": ASSISTANT_CHUNKS,
+                             "PE_MicrophoneSim.frequency": 200.0 + 60 * i}
+                   for i in range(ASSISTANT_STREAMS)}
+        expected = ASSISTANT_STREAMS * ASSISTANT_CHUNKS
+        start = time.perf_counter()
+        for stream_id, parameters in streams.items():
+            pipeline.create_stream(stream_id, parameters=parameters,
+                                   lease_time=0)
+        while len(done) < expected and engine.clock.now() < 120.0:
+            while engine.step():
+                pass
+            engine.clock.advance(0.002)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - start
+    asr = pipeline.graph.node("PE_WhisperASR").element
+    agent = pipeline.graph.node("PE_LlamaAgent").element
+    failed = pipeline.recovery_stats["frames_failed"]
+    if len(done) != expected or failed:
+        raise AssertionError(f"{len(done)} of {expected} assistant frames, "
+                             f"{failed} failed")
+    whisper = asr.config
+    if (whisper.dim, whisper.num_heads, whisper.enc_layers,
+            whisper.dec_layers, whisper.n_vocab) != WHISPER_SMALL or \
+            asr.buckets != [500]:
+        raise AssertionError(f"not Whisper-small in bucket 500: {whisper}")
+    for frame in done:
+        # the frame's audio is the voice's: 0.08 s (1,280 samples) a word
+        # of the response, not the microphone's 5 s chunk
+        swag = frame.swag
+        if not isinstance(swag.get("text"), str) or \
+                not isinstance(swag.get("response"), str) or \
+                len(swag["response_tokens"]) != 32 or \
+                len(swag["audio"]) != 1280 * len(swag["response"].split()):
+            raise AssertionError(f"assistant frame {frame.stream_id}:"
+                                 f"{frame.frame_id}: {sorted(swag)}")
+    speaker = {sid: stream.variables.get("speaker.audio")
+               for sid, stream in pipeline.streams.items()}
+    if sorted(sid for sid, audio in speaker.items()
+              if audio is not None and audio.size) != sorted(streams):
+        raise AssertionError("PE_Speaker did not collect audio for every "
+                             "stream")
+    stats = agent.decoder.stats
+    program = compute.programs["whisper_asr.PE_WhisperASR"]
+    batches = len(program.first_call_times) + len(program.recent_service)
+    if stats["prefix_admits"] < ASSISTANT_MIN_PREFIX_ADMITS or \
+            agent.compute is not compute or asr.compute is not compute or \
+            agent.decoder.device != compute.device or not batches:
+        raise AssertionError(
+            f"{stats['prefix_admits']} prefix admits; the agent's and the "
+            f"ASR's ComputeRuntime: {agent.compute} / {asr.compute}")
+    for stream_id in list(pipeline.streams):
+        pipeline.destroy_stream(stream_id)
+    pipeline.stop()
+    compute.stop()
+    runtime.terminate()
+    record = {"phase": "assistant",
+              "note": "PE_NeuralTTS (ROADMAP Queue 1 item 7) replaced in "
+                      "memory by PE_Synthesize",
+              "streams": len(streams), "frames": len(done),
+              "frames_failed": failed,
+              "frames_with_text": sum(1 for f in done if f.swag["text"]),
+              "whisper_batches": batches,
+              "mean_batch_size": asr.scheduler.mean_batch_size(),
+              "agent_completed": stats["completed"],
+              "prefix_admits": stats["prefix_admits"],
+              "tokens_prefill": stats["tokens_prefill"],
+              "hit_tokens": agent.prefix_cache.stats["hit_tokens"],
+              "speaker_samples": {sid: int(audio.size)
+                                  for sid, audio in speaker.items()},
+              "virtual_s": engine.clock.now(), "wall_s": wall_s,
+              "compute_programs": sorted(compute.programs)}
+    emit(record)
+    return record
+
+
 def phase_remote_pipeline() -> tuple:
     """examples/speech/pipeline_transcription_remote.json on the port,
     unedited: the caller's remote_asr hop crosses the binary wire, with
@@ -2216,6 +2786,10 @@ def main() -> int:
     counts[("paged_decode_attention_int8_dequant", "extend")] = \
         int8_counts["paged_decode_attention_int8_dequant"]
     phase_llama_int8_f32()
+    agent = phase_agent()
+    counts[("paged_decode_attention", "extend_512")] = agent["extend"]
+    phase_agent_f32()
+    phase_assistant()
     earlier = {phase: phase_counts[phase]["flash_attention"] for phase in
                ("slice", "pipeline", "remote_pipeline", "peer_pipeline",
                 "peer_chaos")}

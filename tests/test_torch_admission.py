@@ -205,12 +205,11 @@ def test_deadline_router_call_for_call():
 
 
 @pytest.mark.parametrize("call", [
-    lambda gate: gate.watch_decoder(object()),
     lambda gate: gate.set_byte_policy(object(), budget_bytes=1),
     lambda gate: gate.shed_on_bytes("acme")])
 def test_decoder_and_ledger_verdicts_raise_naming_their_item(call):
     gate = TA.AdmissionGate(registry=TMetrics.MetricsRegistry())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5\\)"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4\\)"):
         call(gate)
 
 

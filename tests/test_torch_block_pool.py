@@ -126,14 +126,14 @@ def _decoder(model, **kwargs):
 
 
 @pytest.mark.parametrize("option,item", [
-    ({"paged_kv": False}, "item 5"),
+    ({"paged_kv": False}, "item 4"),
     ({"kv_cache_dtype": "int8", "speculate_k": 2}, "item 3"),
     ({"speculate_k": 2}, "item 3"),
-    ({"prefill_chunk": 16, "prefix_cache": object()}, "item 4"),
-    ({"prefill_budget": 64, "weight_quant": True}, "item 5"),
-    ({"prefix_cache": object()}, "item 4"),
-    ({"weight_quant": True}, "item 5"),
-    ({"fuse_projections": True}, "item 5"),
+    ({"prefill_chunk": 16, "fuse_projections": True}, "item 4"),
+    ({"prefill_budget": 64, "weight_quant": True}, "item 4"),
+    ({"kv_cache_dtype": "int8", "weight_quant": True}, "item 4"),
+    ({"weight_quant": True}, "item 4"),
+    ({"fuse_projections": True}, "item 4"),
 ])
 def test_left_out_decoder_options_raise(model, option, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -148,16 +148,16 @@ def test_the_dense_path_is_the_jax_default_and_raises(model):
 def test_moe_configs_raise_at_construction(model):
     import dataclasses
     moe = dataclasses.replace(CONFIG, num_experts=4)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         ContinuousDecoder(model, moe, paged_kv=True, device="cpu")
 
 
 @pytest.mark.parametrize("option,item", [
-    ({"deadline": 1.0}, "item 5"),
-    ({"tenant": "t"}, "item 5"),
-    ({"prefill_label": "remote"}, "item 6"),
-    ({"kv_blocks": (8, [1])}, "item 6"),
-    ({"progress_callback": print}, "item 6"),
+    ({"prefill_label": "remote", "deadline": 1.0}, "item 5"),
+    ({"kv_blocks": (8, [1]), "tenant": "t"}, "item 5"),
+    ({"prefill_label": "remote"}, "item 5"),
+    ({"kv_blocks": (8, [1])}, "item 5"),
+    ({"progress_callback": print}, "item 5"),
 ])
 def test_left_out_submit_options_raise(model, option, item):
     decoder = _decoder(model)
@@ -167,7 +167,8 @@ def test_left_out_submit_options_raise(model, option, item):
 
 
 @pytest.mark.parametrize("call", [
-    lambda d: d.drain(), lambda d: d.resume(), lambda d: d.attach(None),
+    lambda d: d.drain(), lambda d: d.resume(),
+    lambda d: d.install_shipped_blocks([1, 2], 0, []),
     lambda d: d.attach_ledger(None), lambda d: d.slo_stats(),
     lambda d: d.slo_sketch_stats(),
     lambda d: serving.measure_device_step(d)])

@@ -187,7 +187,7 @@ def test_chunked_options_are_checked(weights):
         ContinuousDecoder(model, T_CONFIG, paged_kv=True, device="cpu",
                           kv_cache_dtype="fp8")
     for option, item in (({"speculate_k": 2}, "item 3"),
-                         ({"prefix_cache": object()}, "item 4")):
+                         ({"weight_quant": True}, "item 4")):
         with pytest.raises(NotImplementedError, match=item):
             ContinuousDecoder(model, T_CONFIG, paged_kv=True, device="cpu",
                               kv_cache_dtype="int8", prefill_chunk=16,

@@ -216,7 +216,7 @@ def test_setup_rejects_bad_parameters():
     with pytest.raises(FileNotFoundError, match="vocab.json"):
         _asr({"preset": "test", "tokenizer": "vocab.json"})[0].scheduler
     # JAX options that wait for later ROADMAP items say which
-    for option, item in (({"pp_stages": 2}, "item 10"),
+    for option, item in (({"pp_stages": 2}, "item 8"),
                          ({"pipelined": True}, "item 2")):
         with pytest.raises(NotImplementedError, match=item):
             _asr({"preset": "test", **option})[0].scheduler
