@@ -1,5 +1,5 @@
 # Weight bridge: JAX param trees and flat-npz checkpoints → the port's
-# Whisper and Llama modules, and back.
+# Whisper, Llama, ResNet and Detector modules, and back.
 #
 # The flat-npz scheme is the JAX package's (elements/speech.py
 # load_flat_npz / save_flat_npz): one array per leaf, keyed by the
@@ -73,13 +73,21 @@ def _overlay(model: torch.nn.Module, flat: dict, strict: bool) -> None:
 
 
 def params_from_numpy(tree, config, device=None):
-    """A JAX Whisper or Llama param tree (leaves as numpy arrays, or
-    anything np.asarray takes) → the loaded port module that `config`'s
-    type names (WhisperConfig → Whisper, LlamaConfig → Llama) on `device`
+    """A JAX Whisper, Llama, ResNet or detector param tree (leaves as
+    numpy arrays, or anything np.asarray takes) → the loaded port module
+    that `config`'s type names (WhisperConfig → Whisper, LlamaConfig →
+    Llama, ResNetConfig → ResNet, DetectorConfig → Detector) on `device`
     (None: the card).  Every leaf must be present with its shape."""
+    from .models.detector import Detector, DetectorConfig
     from .models.llama import Llama, LlamaConfig
+    from .models.resnet import ResNet, ResNetConfig
     from .models.whisper import Whisper
-    model_type = Llama if isinstance(config, LlamaConfig) else Whisper
+    model_type = Whisper
+    for config_type, module_type in ((LlamaConfig, Llama),
+                                     (ResNetConfig, ResNet),
+                                     (DetectorConfig, Detector)):
+        if isinstance(config, config_type):
+            model_type = module_type
     model = model_type(config, device=resolve_device(device))
     _overlay(model, flatten_tree(tree), strict=True)
     return model

@@ -7,12 +7,21 @@
 # shape.  Its EC share carries the device (count, platform, kind, memory
 # occupancy), the program count and each bucket's first-call seconds, so
 # dashboards see device health.  PyTorch runs eagerly, so a program is a
-# plain callable; split() is where the host waits for the device.  The
-# pipelined results worker (a batch's device sync on a worker thread) is
-# not ported yet.
+# plain callable; split() is where the host waits for the device.
+#
+# Pipelined programs (pipelined=True) move that wait off the event loop:
+# the dispatching thread queues the batch's work, then one non-blocking
+# device-to-host copy of its results into pinned buffers, and records a
+# CUDA event after it; a worker thread waits on the event (the wait
+# releases the GIL), runs split() on the host copies and hands the
+# results back through the engine's event queue.  Batch N+1 collates and
+# uploads while batch N computes; a dispatch gate bounds the batches in
+# flight at max_in_flight.
 
 from __future__ import annotations
 
+import queue
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -28,15 +37,12 @@ from .service import ServiceProtocol
 from .utils import get_logger
 
 __all__ = ["ComputeRuntime", "CompiledProgram", "PROTOCOL_COMPUTE",
-           "resolve_pipelined", "PIPELINED_NOT_PORTED",
-           "MESH_RULES_NOT_PORTED"]
+           "resolve_pipelined", "MESH_RULES_NOT_PORTED"]
 
 PROTOCOL_COMPUTE = ServiceProtocol("compute")
-PIPELINED_NOT_PORTED = ("pipelined results (pipelined=True) are not ported "
-                        "yet (ROADMAP.md Queue 1 item 2)")
 MESH_RULES_NOT_PORTED = ("sharding rules for a device mesh (place_params "
                          "rules) are not ported yet (ROADMAP.md Queue 1 "
-                         "item 8)")
+                         "item 7)")
 
 
 def resolve_pipelined(pipelined, mode: str) -> bool:
@@ -58,6 +64,33 @@ class CompiledProgram:
     recent_service: Any = field(default_factory=lambda: deque(maxlen=512))
                                  # deque[(bucket, seconds)] after the
                                  # first call
+    in_flight: dict | None = None   # pipelined: {"now": N, "peak": N}
+
+
+def _to_host(results, device: torch.device):
+    """A program's results (a tensor, or a tuple or list of them) →
+    (host copies, the CUDA event recorded after the copies, or None).
+    On the card each tensor is copied with non_blocking=True into a
+    pinned buffer: the host does not wait, and the copies are valid
+    once the event has fired."""
+    if device.type != "cuda":
+        return results, None
+
+    def copy(value):
+        if isinstance(value, torch.Tensor):
+            if value.device.type != "cuda":
+                return value
+            host = torch.empty(value.shape, dtype=value.dtype,
+                               pin_memory=True)
+            return host.copy_(value, non_blocking=True)
+        if isinstance(value, (tuple, list)):
+            return type(value)(copy(v) for v in value)
+        return value
+
+    host = copy(results)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
 
 
 class ComputeRuntime(Actor):
@@ -79,6 +112,13 @@ class ComputeRuntime(Actor):
         self.drive_period = drive_period
         self.programs: dict[str, CompiledProgram] = {}
         self._timers: list[int] = []
+        # pipelined results: the worker thread waits for the device, and
+        # deliveries cross back onto the event loop through this queue
+        self._results_queue = f"compute.results.{name}"
+        self._worker = None
+        self._worker_queue = None
+        runtime.event.add_queue_handler(self._deliver_results,
+                                        self._results_queue)
         on_card = self.device.type == "cuda"
         self.device_kind = torch.cuda.get_device_name(self.device) \
             if on_card else "cpu"
@@ -124,22 +164,39 @@ class ComputeRuntime(Actor):
     # -- batched programs ---------------------------------------------------
     def register_batched(self, name: str, fn, buckets, collate, split,
                          max_batch: int = 32, max_wait: float = 0.05,
-                         pipelined: bool = False) -> BatchingScheduler:
+                         pipelined: bool = False,
+                         max_in_flight: int = 4) -> BatchingScheduler:
         """Register a batched program.
 
         fn(bucket, batch) -> batch_results;
         collate(bucket, payloads) -> batch (tensors on self.device);
         split(batch_results, count) -> list of per-item results (where
         the host waits for the device).  Returns the scheduler, attached
-        to the runtime's event engine."""
-        if pipelined:
-            raise NotImplementedError(PIPELINED_NOT_PORTED)
+        to the runtime's event engine.
+
+        pipelined=True runs split() on a worker thread, on host copies of
+        the results made without a host wait (_to_host), and delivers the
+        callbacks through the engine's event queue: they fire on a later
+        event-loop turn, so callers must drive the engine
+        (drain(force=True) alone does not complete items).
+        max_in_flight bounds the dispatched batches whose results have
+        not been delivered (>= 2 for any overlap)."""
+        in_flight = {"now": 0, "peak": 0}
 
         def process_batch(bucket, items):
             payloads = [item.payload for item in items]
             batch = collate(bucket, payloads)
             start = time.perf_counter()
             results = fn(bucket, batch)
+            if pipelined:
+                host, event = _to_host(results, self.device)
+                in_flight["now"] += 1
+                in_flight["peak"] = max(in_flight["peak"], in_flight["now"])
+                # the batch and the device results stay referenced until
+                # the event has fired
+                self._worker_submit((program, bucket, items, host, event,
+                                     (batch, results), split, start))
+                return None                   # ownership transferred
             per_item = split(results, len(items))    # device sync
             elapsed = time.perf_counter() - start
             if bucket not in program.first_call_times:
@@ -157,12 +214,16 @@ class ComputeRuntime(Actor):
 
         if not isinstance(buckets, ShapeBuckets):
             buckets = ShapeBuckets(buckets)
+        gate = (lambda: in_flight["now"] < int(max_in_flight)) \
+            if pipelined else None
         scheduler = BatchingScheduler(process_batch, buckets,
                                       max_batch=max_batch,
                                       max_wait=max_wait,
                                       clock=self.runtime.event.clock.now,
+                                      dispatch_gate=gate,
                                       metrics_labels={"program": name})
         program = CompiledProgram(name, fn, buckets, scheduler, {})
+        program.in_flight = in_flight
         self.programs[name] = program
         self._timers.append(scheduler.attach(self.runtime.event,
                                              self.drive_period))
@@ -176,6 +237,57 @@ class ComputeRuntime(Actor):
             raise ValueError(f"program {name} is not batched")
         program.scheduler.submit(stream_id, payload, length, callback,
                                  deadline=deadline)
+
+    # -- pipelined results path ---------------------------------------------
+    def _worker_submit(self, job) -> None:
+        if self._worker is None:
+            self._worker_queue = queue.Queue()
+            self._worker = threading.Thread(
+                target=self._worker_loop, name=f"compute.{self.name}",
+                daemon=True)
+            self._worker.start()
+        self._worker_queue.put(job)
+
+    def _worker_loop(self) -> None:
+        """Off the event loop: wait for each batch's event, split its host
+        copies.  Touches no device tensor (the batch and the device
+        results only ride along until the event has fired)."""
+        while True:
+            job = self._worker_queue.get()
+            if job is None:
+                return
+            program, bucket, items, host, event, _keep, split, start = job
+            try:
+                if event is not None:
+                    event.synchronize()         # releases the GIL
+                per_item = split(host, len(items))
+                if len(per_item) != len(items):
+                    raise RuntimeError(
+                        f"split returned {len(per_item)} results for "
+                        f"{len(items)} items")
+            except Exception as exc:
+                per_item = [exc] * len(items)
+            elapsed = time.perf_counter() - start
+            del job, _keep
+            self.runtime.event.queue_put(
+                self._results_queue,
+                (program, bucket, items, per_item, elapsed))
+
+    def _deliver_results(self, _queue_name, job, _put_time) -> None:
+        program, bucket, items, per_item, elapsed = job
+        if program.in_flight is not None:
+            program.in_flight["now"] = max(0, program.in_flight["now"] - 1)
+        if bucket not in program.first_call_times:
+            program.first_call_times[bucket] = elapsed
+            self.ec_producer.update(f"first_call.{program.name}.{bucket}",
+                                    round(elapsed, 3))
+        elif program.scheduler is not None:
+            program.scheduler.observe_service_time(bucket, elapsed)
+            program.recent_service.append((bucket, elapsed))
+        if program.scheduler is not None:
+            self._publish_stats(program.name, program.scheduler)
+        for item, result in zip(items, per_item):
+            item.callback(item.stream_id, result)
 
     def _publish_stats(self, name: str, scheduler) -> None:
         self.ec_producer.update(f"batch.{name}.batches",
@@ -208,4 +320,9 @@ class ComputeRuntime(Actor):
         for program in self.programs.values():
             if program.scheduler is not None:
                 program.scheduler.drain(force=True)
+        if self._worker is not None:
+            self._worker_queue.put(None)
+            self._worker.join(timeout=10.0)
+            self._worker = None
+        self.runtime.event.remove_queue_handler(self._results_queue)
         super().stop()

@@ -1,13 +1,21 @@
-# The LLM agent element.
+# Detection and agent elements.
 #
-# Counterpart of aiko_services_tpu/elements/detect.py's PE_LlamaAgent (and
-# its _session_key): a pipeline element that prompts a decoder-only Llama
-# with a frame's `text` and emits {"response", "response_tokens"}.  In
-# "continuous" mode it serves through the paged ContinuousDecoder pumped
-# from the pipeline's event engine, with the prefix cache and the session
-# table for multi-turn conversations; "batched" and "sync" run
-# llama_greedy_decode through a ComputeRuntime batched program.
-# PE_Detect and PE_Tracker wait for ROADMAP.md Queue 1 item 6.
+# Counterpart of aiko_services_tpu/elements/detect.py:
+#   * PE_Detect, the detect stage of video → detect → tracker (BASELINE.md
+#     config 4): frames batch through a ComputeRuntime program, padded to
+#     max_batch (one shape per bucket); the uint8 batch (or the int8 dct8
+#     codes) crosses to the card once, from a pinned buffer, and the
+#     program normalises, runs the detector and decodes its peaks there;
+#     split() strips zero-score rows on the host.  pipelined=True moves the
+#     wait for the device onto the ComputeRuntime's results worker.
+#   * PE_LlamaAgent (and its _session_key): a pipeline element that
+#     prompts a decoder-only Llama with a frame's `text` and emits
+#     {"response", "response_tokens"}.  In "continuous" mode it serves
+#     through the paged ContinuousDecoder pumped from the pipeline's event
+#     engine, with the prefix cache and the session table for multi-turn
+#     conversations; "batched" and "sync" run llama_greedy_decode through
+#     a ComputeRuntime batched program.
+# PE_Tracker is in elements/video.py, as in JAX.
 
 from __future__ import annotations
 
@@ -16,10 +24,13 @@ import time
 import numpy as np
 import torch
 
+from ..compute import resolve_pipelined
 from ..pipeline import DEFERRED, Frame, FrameOutput, PipelineElement
 from ..utils import parse_bool
+from .image import resize_image
+from .speech import _host_to
 
-__all__ = ["PE_LlamaAgent"]
+__all__ = ["PE_Detect", "PE_LlamaAgent"]
 
 TIERED_NOT_PORTED = ("the host KV tier (host_kv_mb) is not ported yet "
                      "(ROADMAP.md Queue 1 item 5)")
@@ -33,6 +44,163 @@ def _session_key(raw: str) -> str:
     frame ids may (stream ids embed topic-ish paths).  Deterministic
     sanitization keeps the same stream mapping to the same session."""
     return raw.replace(".", "-").replace("/", "-").replace(" ", "-")
+
+
+class PE_Detect(PipelineElement):
+    """Batched object detection through the ComputeRuntime.  Emits
+    {"boxes": [[x1, y1, x2, y2], ...], "scores", "classes"} with
+    zero-score detections stripped host-side.
+
+    Parameters (name: default): preset "detector_r18" (detector_r18 /
+    detector_test), image_size 256, mode "batched" | "sync",
+    score_threshold 0.3, max_batch 16, max_wait 0.05, compute "compute",
+    wire "raw" (uint8 frames) | "dct8" (int8 DCT codes, decoded on the
+    device), dct_keep 16, dtype "float32" | "bfloat16" (the convolutions;
+    the decode is f32 either way), pad_batch (default: mode ==
+    "batched"), pipelined false, max_in_flight 4.  Weights are random,
+    drawn from a torch.Generator seeded 0 on the ComputeRuntime's
+    device."""
+
+    # any-size RGB frame (resized host-side to image_size); uint8 is the
+    # wire-native form, floats keep the 0-255 contract.  Detections are
+    # host-side python lists
+    contracts = {
+        "in:image": "u8[*,*,3] | dct8-u8[*,*,3] | f32[*,*,3]",
+        "out:boxes": "any", "out:scores": "any", "out:classes": "any",
+    }
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._program = f"detect.{self.definition.name}"
+        self._setup_done = False
+
+    def _setup(self) -> None:
+        if self._setup_done:
+            return
+        import dataclasses
+
+        from ..models.detector import (DETECTOR_PRESETS, detect,
+                                       detector_init)
+        from ..ops.image_wire import dct8_decode, dct8_encode
+
+        preset, _ = self.get_parameter("preset", "detector_r18")
+        image_size, _ = self.get_parameter("image_size", 256)
+        threshold, _ = self.get_parameter("score_threshold", 0.3)
+        max_batch, _ = self.get_parameter("max_batch", 16)
+        max_wait, _ = self.get_parameter("max_wait", 0.05)
+        self.mode, _ = self.get_parameter("mode", "batched")
+        self.image_size = size = int(image_size)
+
+        compute_name, _ = self.get_parameter("compute", "compute")
+        self.compute = self.runtime.service_by_name(compute_name)
+        if self.compute is None:
+            raise RuntimeError(f"detect element {self.name}: no "
+                               f"ComputeRuntime named {compute_name!r}")
+        device = self.compute.device
+        config = DETECTOR_PRESETS[str(preset)]
+        dtype_name, _ = self.get_parameter("dtype", "float32")
+        if str(dtype_name) == "bfloat16":
+            config = dataclasses.replace(
+                config, dtype=torch.bfloat16,
+                backbone=dataclasses.replace(config.backbone,
+                                             dtype=torch.bfloat16))
+        self.config = config
+        self.params = self.compute.place_params(detector_init(
+            torch.Generator(device=device).manual_seed(0), config,
+            device=device))
+        threshold = float(threshold)
+
+        # wire format: "raw" ships uint8 (normalised on the device, a
+        # quarter of f32's bytes); "dct8" ships int8 DCT coefficients
+        # (another 4x under raw at keep=16) that the program decodes
+        wire, _ = self.get_parameter("wire", "raw")
+        self.wire = wire = str(wire)
+        dct_keep, _ = self.get_parameter("dct_keep", 16)
+        dct_keep = int(dct_keep)
+
+        @torch.no_grad()
+        def run_bucket(_bucket, batch):
+            if wire == "dct8":
+                images = dct8_decode(batch, size, size)
+            else:
+                images = batch.float() / 255.0
+            return detect(self.params, config, images,
+                          score_threshold=threshold)
+
+        def to_uint8(p):
+            # float frames keep the 0-255 contract
+            p = np.asarray(p)
+            if p.dtype == np.uint8:
+                return p
+            return np.clip(p, 0, 255).astype(np.uint8)
+
+        # pad partial batches to max_batch: one shape per bucket; split()
+        # only reads the real rows back
+        pad_batch, _ = self.get_parameter("pad_batch",
+                                          self.mode == "batched")
+        pad_batch = parse_bool(pad_batch, self.mode == "batched")
+        full = int(max_batch)
+
+        def collate(_bucket, payloads):
+            rows = full if pad_batch else len(payloads)
+            if wire == "dct8":
+                batch = np.zeros((rows, size // 8, size // 8, 3, dct_keep),
+                                 np.int8)
+                for i, p in enumerate(payloads):
+                    batch[i] = dct8_encode(to_uint8(p), keep=dct_keep)
+            else:
+                batch = np.zeros((rows, size, size, 3), np.uint8)
+                for i, p in enumerate(payloads):
+                    batch[i] = to_uint8(p)
+            return _host_to(device, batch)
+
+        def split(results, count):
+            boxes, scores, classes = (r.cpu().numpy() for r in results)
+            out = []
+            for i in range(count):
+                keep = scores[i] > 0.0
+                out.append({"boxes": boxes[i][keep].tolist(),
+                            "scores": scores[i][keep].tolist(),
+                            "classes": classes[i][keep].tolist()})
+            return out
+
+        pipelined, _ = self.get_parameter("pipelined", False)
+        max_in_flight, _ = self.get_parameter("max_in_flight", 4)
+        self.compute.register_batched(
+            self._program, run_bucket, [self.image_size], collate, split,
+            max_batch=int(max_batch), max_wait=float(max_wait),
+            pipelined=resolve_pipelined(pipelined, self.mode),
+            max_in_flight=int(max_in_flight))
+        self._setup_done = True
+
+    def start_stream(self, stream) -> None:
+        self._setup()
+
+    def process_frame(self, frame: Frame, image=None, **_) -> FrameOutput:
+        self._setup()
+        image = np.asarray(image)
+        if image.shape[:2] != (self.image_size, self.image_size):
+            image = resize_image(image, self.image_size, self.image_size)
+
+        if self.mode == "sync":
+            box = {}
+            self.compute.submit(self._program, frame.stream_id, image,
+                                self.image_size,
+                                lambda _sid, r: box.setdefault("r", r))
+            self.compute.programs[self._program].scheduler.drain(
+                force=True)
+            result = box["r"]
+            if isinstance(result, Exception):
+                return FrameOutput(False, diagnostic=repr(result))
+            return FrameOutput(True, result)
+
+        def callback(_sid, result):
+            self.pipeline.post("resume_frame", frame,
+                               self.definition.name, result)
+
+        self.compute.submit(self._program, frame.stream_id, image,
+                            self.image_size, callback)
+        return FrameOutput(True, DEFERRED)
 
 
 class PE_LlamaAgent(PipelineElement):

@@ -41,7 +41,7 @@ __all__ = [
 
 SAMPLE_RATE = 16000         # voice rate (reference: audio_io.py:224-228)
 PP_STAGES_NOT_PORTED = ("pp_stages is not ported yet "
-                        "(ROADMAP.md Queue 1 item 8)")
+                        "(ROADMAP.md Queue 1 item 7)")
 
 
 def compression_ratio(text: str) -> float:
@@ -354,10 +354,12 @@ class PE_WhisperASR(PipelineElement):
                      float(avg_logprob[i])) for i in range(count)]
 
         pipelined, _ = self.get_parameter("pipelined", False)
+        max_in_flight, _ = self.get_parameter("max_in_flight", 4)
         self.compute.register_batched(
             self._program, run_bucket, self.buckets, collate, split,
             max_batch=int(max_batch), max_wait=float(max_wait),
-            pipelined=resolve_pipelined(pipelined, self.mode))
+            pipelined=resolve_pipelined(pipelined, self.mode),
+            max_in_flight=int(max_in_flight))
         self._setup_done = True
 
     @property

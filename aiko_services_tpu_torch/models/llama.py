@@ -6,7 +6,7 @@
 # paths joined by '.' (layers.3.attn.q.w ↔ layers/3/attn/q/w), so
 # bridge.py copies a JAX tree in by name.  The mixture-of-experts FFN
 # (num_experts > 0) and the sequence-parallel forward are not ported yet
-# (ROADMAP.md Queue 1 items 4 and 8).
+# (ROADMAP.md Queue 1 items 4 and 7).
 
 from __future__ import annotations
 

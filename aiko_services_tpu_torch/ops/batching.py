@@ -8,8 +8,8 @@
 # bucketing bounds the number of distinct shapes a program sees.
 # attach() drives drain() from an event engine's timer.  The wait estimate
 # (estimated_wait, service_estimate, next_deadline, pending) is what an
-# admission gate (ops/admission.py) sheds on.  The dispatch gate and the
-# pipelined results path wait for ROADMAP.md Queue 1 item 2.
+# admission gate (ops/admission.py) sheds on.  A dispatch gate bounds how
+# many batches the pipelined results path (compute.py) has in flight.
 
 from __future__ import annotations
 
@@ -67,12 +67,17 @@ class BatchingScheduler:
 
     def __init__(self, process_batch, buckets: ShapeBuckets,
                  max_batch: int = 32, max_wait: float = 0.05,
-                 clock=time.monotonic, metrics_labels: dict | None = None):
+                 clock=time.monotonic, dispatch_gate=None,
+                 metrics_labels: dict | None = None):
         self.process_batch = process_batch
         self.buckets = buckets
         self.max_batch = max_batch
         self.max_wait = max_wait
         self.clock = clock
+        # dispatch_gate() -> bool: when False, drain stops dispatching
+        # (the pipelined path bounds how many batches are in flight on
+        # the device at once)
+        self.dispatch_gate = dispatch_gate
         self._lock = Lock("batching.scheduler")
         self._queues: dict[int, _Bucket] = {}
         # EWMA of recent per-batch service time (dispatch → results),
@@ -86,7 +91,7 @@ class BatchingScheduler:
         self.stats = MirroredStats(
             {"batches": 0, "items": 0, "batch_size_sum": 0,
              "full_batches": 0, "wait_sum": 0.0,
-             "deadline_dispatches": 0},
+             "gated": 0, "deadline_dispatches": 0},
             metric="batch_scheduler_total",
             help="continuous-batching scheduler events by kind",
             labels=metrics_labels,
@@ -257,6 +262,12 @@ class BatchingScheduler:
                     bucket_key = None
                 if bucket_key is None:
                     return processed
+                # force (teardown) bypasses the gate: every queued item
+                # must reach its callback even over-depth
+                if not force and self.dispatch_gate is not None and \
+                        not self.dispatch_gate():
+                    self.stats["gated"] += 1
+                    return processed
                 if deadline_driven:
                     self.stats["deadline_dispatches"] += 1
                 queue = self._queues[bucket_key].items
@@ -264,9 +275,16 @@ class BatchingScheduler:
                          for _ in range(min(self.max_batch, len(queue)))]
             # items are already popped: every callback MUST fire, or the
             # stream's frame silently vanishes — errors fan out as results.
+            # process_batch may return None: it took ownership of the
+            # items and fires their callbacks itself (the pipelined
+            # results path: the device works on this batch while the
+            # next one collates)
+            deferred = False
             try:
                 results = self.process_batch(bucket_key, batch)
-                if len(results) != len(batch):
+                if results is None:
+                    deferred = True
+                elif len(results) != len(batch):
                     raise RuntimeError(
                         f"process_batch returned {len(results)} results "
                         f"for {len(batch)} items")
@@ -280,8 +298,9 @@ class BatchingScheduler:
             waits = [now - i.enqueue_time for i in batch]
             self.stats["wait_sum"] += sum(waits)
             self.recent_waits.extend(waits)
-            for item, result in zip(batch, results):
-                item.callback(item.stream_id, result)
+            if not deferred:
+                for item, result in zip(batch, results):
+                    item.callback(item.stream_id, result)
             processed += len(batch)
 
     def attach(self, engine, period: float = 0.005) -> int:

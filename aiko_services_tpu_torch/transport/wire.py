@@ -30,7 +30,8 @@
 #   "i8"    — absmax int8 with one f32 scale in the tag;
 #   "i8mel" — log-mel int8 with one scale PER MEL FRAME packed into the
 #             buffer ([T, M+4] int8; ops/audio.py mel_i8_pack);
-#   "dct8"  — blockwise DCT of uint8 images: not ported yet.
+#   "dct8"  — blockwise DCT of uint8 images: int8 zigzag coefficients
+#             (ops/image_wire.py), decoded on the host.
 # A value the wire cannot carry, or a codec illegal for its dtype or
 # rank, raises WireError.
 #
@@ -84,8 +85,6 @@ _HEAD = struct.Struct("<BI")            # version, header_len
 _COUNT = struct.Struct("<I")
 _BUFLEN = struct.Struct("<Q")
 
-DCT8_NOT_PORTED = ("the dct8 image codec is not ported yet: it needs "
-                   "ops/image_wire.py (ROADMAP.md Queue 1 item 6)")
 KV_ENVELOPES_NOT_PORTED = ("the KV transfer and migrate envelopes are not "
                            "ported yet: they need disaggregated serving "
                            "(ROADMAP.md Queue 1 item 5)")
@@ -229,15 +228,33 @@ def _i8mel_decode(packed, meta):
     return _as_dtype(mel_i8_unpack(packed), meta[0] if meta else "float32")
 
 
-def _dct8(*_):
-    raise NotImplementedError(DCT8_NOT_PORTED)
+def _dct8_encode(array):
+    from ..ops.image_wire import dct8_encode
+    h, w, _ = array.shape
+    return dct8_encode(array), [str(array.dtype), str(h), str(w)]
+
+
+def _dct8_decode(codes, meta):
+    # numpy inverse of ops.image_wire.dct8_decode (host-side: the
+    # transport must not touch the card)
+    from ..ops.image_wire import _DCT, _QUANT, _ZIGZAG
+    dtype, height, width = meta[0], int(meta[1]), int(meta[2])
+    hb, wb, channels, keep = codes.shape
+    flat = np.zeros((hb, wb, channels, 64), np.float32)
+    flat[..., _ZIGZAG[:keep]] = codes.astype(np.float32)
+    coeffs = flat.reshape(hb, wb, channels, 8, 8) * _QUANT
+    blocks = np.einsum("ik,whckl,jl->whcij", _DCT.T, coeffs, _DCT.T,
+                       optimize=True)
+    image = (blocks + 128.0).transpose(0, 3, 1, 4, 2).reshape(
+        height, width, channels)
+    return np.clip(np.round(image), 0, 255).astype(dtype)
 
 
 WIRE_CODECS = {
     "mulaw": (_mulaw_encode, _mulaw_decode),
     "i8": (_i8_encode, _i8_decode),
     "i8mel": (_i8mel_encode, _i8mel_decode),
-    "dct8": (_dct8, _dct8),
+    "dct8": (_dct8_encode, _dct8_decode),
 }
 
 # What each lossy codec can CARRY (the JAX package's table, so a hint

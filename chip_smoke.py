@@ -117,9 +117,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
      each turn against llama_greedy_decode on its whole history prompt;
   11. assistant: examples/speech/pipeline_assistant.json with
      PE_NeuralTTS replaced in memory by PE_Synthesize (TTS is ROADMAP
-     Queue 1 item 7) and the agent's preset, paged, prefix_block and
+     Queue 1 item 6) and the agent's preset, paged, prefix_block and
      sessions overridden: Whisper-small and Llama-1B on one
      ComputeRuntime, 4 streams x 3 five-second chunks.
+  12. detect: examples/pipeline/pipeline_detect.json less its file source
+     (the repo holds no video file), at its own parameters (detector_r18:
+     a ResNet-18 backbone of width 64, 64-channel neck, 80 classes, K =
+     32; 256 x 256, max_batch 32, pipelined, max_in_flight 4, f32, the
+     raw uint8 wire): one warm-up batch, then 8 streams x 16 seeded frames
+     with moving rectangles posted into (PE_Detect (PE_Tracker)); every
+     frame completes with well-formed detections and tracks, the results
+     worker holds 2-4 batches in flight, each batch crosses to the card as
+     one uint8 copy; frames/s, steady batch service s, track ids per
+     stream, peak memory, one batch under torch.profiler, and the detect
+     program's device ms in f32 (TF32 off), f32 with TF32 and bf16;
+  13. detect_dct8: the same drive on the dct8 wire (keep 16): 49,152
+     bytes a frame cross to the card instead of 196,608;
+  14. detect_f32: the same weights and frames (2 streams x 8) through the
+     detect graph on the card and on the CPU: classes and track ids equal,
+     scores and boxes within DETECT_SCORE_TOL / DETECT_BOX_TOL (a CPU
+     score gap under DETECT_TIE at the first difference is a tie);
+  15. classify: ResNet-18 at 224 x 224 (1000 classes, f32) through
+     (PE_ImageClassify), batched, max_batch 32: 64 seeded frames; class
+     ids equal the CPU port's on the same weights, confidences within
+     CLASSIFY_TOL; frames/s, batch service s, peak memory.
+The vision phases launch none of the three attention kernels, and they
+need neither PIL nor OpenCV: every frame is posted at the element's size.
 The 1b preset is f32 in the port as in JAX; the agent and assistant
 phases serve it in bf16 (agent_preset), agent_f32 at 2 layers in f32.
 Every earlier phase's launch counts must equal EARLIER_COUNTS.
@@ -299,6 +322,29 @@ EXTEND_512 = {"slots": 8, "chunk": 128, "max_offset": 1024, "t_cap": 1280}
 # below that smallest gap, so a token whose gap is wider than any drift
 # seen must match.
 INT8_TIE_GAP = 2e-3
+# the vision path (phases detect, detect_dct8, detect_f32, classify).
+# detect: the example's own parameters (detector_r18, 256 x 256,
+# max_batch 32, pipelined, max_in_flight 4, f32) on DETECT_STREAMS x
+# DETECT_FRAMES seeded frames (the repo holds no video file); dct8 keeps
+# DCT_KEEP coefficients a block
+DETECT_STREAMS, DETECT_FRAMES, DETECT_SIZE, DETECT_SEED = 8, 16, 256, 11
+DETECT_MAX_IN_FLIGHT = 4
+DCT_KEEP = 16
+DETECT_TIMEOUT_S = 120.0
+DETECT_THRESHOLD = 0.3          # PE_Detect's score_threshold default
+# detect_f32: the card (f32, cuDNN's TF32 off) against the CPU on the
+# same weights and frames.  Scores are sigmoids in [0.3, 1] and boxes are
+# pixels at 256: f32 sums in other orders move them by ~1e-6 and ~1e-4;
+# the limits leave ~100x of that.  A first difference in a frame's
+# ranking passes only where the CPU's scores at that rank are within
+# DETECT_TIE of each other (a tie the card may order either way)
+DETECT_F32_STREAMS, DETECT_F32_FRAMES = 2, 8
+DETECT_SCORE_TOL, DETECT_BOX_TOL, DETECT_TIE = 1e-4, 1e-2, 1e-4
+# classify: ResNet-18 at 224, 1000 classes, f32, 64 frames; confidences
+# (softmax maxima ~1e-2 on random weights) against the CPU's within
+# CLASSIFY_TOL; a CPU top-2 probability gap under CLASSIFY_TIE is a tie
+CLASSIFY_FRAMES, CLASSIFY_SEED = 64, 13
+CLASSIFY_TOL, CLASSIFY_TIE = 1e-5, 1e-6
 
 
 def emit(record: dict) -> None:
@@ -861,9 +907,10 @@ def profile_batch(label: str, submit, scheduler) -> dict:
             "top_kernels_ms": [[name[:80], ms] for name, ms in top]}
 
 
-def host_runtime():
+def host_runtime(device=None):
     """A port ProcessRuntime on its own event engine (virtual clock) and
-    in-memory broker, with a ComputeRuntime on the card."""
+    in-memory broker, with a ComputeRuntime on `device` (None: the
+    card)."""
     from aiko_services_tpu_torch.compute import ComputeRuntime
     from aiko_services_tpu_torch.event import EventEngine, VirtualClock
     from aiko_services_tpu_torch.process import ProcessRuntime
@@ -878,7 +925,7 @@ def host_runtime():
     runtime = ProcessRuntime(name="chip_smoke",
                              engine=EventEngine(VirtualClock()),
                              transport_factory=transport).initialize()
-    return runtime, ComputeRuntime(runtime, "compute")
+    return runtime, ComputeRuntime(runtime, "compute", device=device)
 
 
 def phase_slice() -> dict:
@@ -2082,7 +2129,7 @@ def phase_assistant() -> dict:
     path = "examples/speech/pipeline_assistant.json"
     with open(path) as file:
         raw = json.load(file)
-    # PE_NeuralTTS is ROADMAP Queue 1 item 7: the placeholder voice takes
+    # PE_NeuralTTS is ROADMAP Queue 1 item 6: the placeholder voice takes
     # its place, in memory
     raw["graph"] = [graph.replace("PE_NeuralTTS", "PE_Synthesize")
                     for graph in raw["graph"]]
@@ -2157,7 +2204,7 @@ def phase_assistant() -> dict:
     compute.stop()
     runtime.terminate()
     record = {"phase": "assistant",
-              "note": "PE_NeuralTTS (ROADMAP Queue 1 item 7) replaced in "
+              "note": "PE_NeuralTTS (ROADMAP Queue 1 item 6) replaced in "
                       "memory by PE_Synthesize",
               "streams": len(streams), "frames": len(done),
               "frames_failed": failed,
@@ -2737,6 +2784,503 @@ def phase_cli() -> dict:
     return record
 
 
+# -- the vision path ---------------------------------------------------------
+
+def zero_attention_counts() -> None:
+    from aiko_services_tpu_torch.ops import attention as A
+    from aiko_services_tpu_torch.ops import paged_attention as PA
+    for counts in (A.launches, PA.launches):
+        for name in counts:
+            counts[name] = 0
+
+
+def attention_counts() -> dict:
+    from aiko_services_tpu_torch.ops import attention as A
+    from aiko_services_tpu_torch.ops import paged_attention as PA
+    return {**A.launches, **PA.launches}
+
+
+def moving_frames(streams: int, frames: int, size: int, seed: int) -> dict:
+    """{(stream, frame): uint8 [size, size, 3]}: seeded noise with two
+    bright rectangles per stream that move a few pixels a frame."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for s in range(streams):
+        boxes = [(rng.integers(8, size - 96, 2), rng.integers(24, 80, 2),
+                  rng.integers(-4, 5, 2), rng.integers(150, 256, 3))
+                 for _ in range(2)]
+        for f in range(frames):
+            image = rng.integers(0, 64, (size, size, 3), dtype=np.uint8)
+            for (x, y), (w, h), (dx, dy), colour in boxes:
+                x0 = int(np.clip(x + dx * f, 0, size - w))
+                y0 = int(np.clip(y + dy * f, 0, size - h))
+                image[y0:y0 + h, x0:x0 + w] = colour
+            out[(f"cam{s}", f)] = image
+    return out
+
+
+def detect_definition(**parameters):
+    """examples/pipeline/pipeline_detect.json less its file source (the
+    repo holds no video file): (PE_Detect (PE_Tracker)) at the example's
+    parameters, plus `parameters`."""
+    from aiko_services_tpu_torch.pipeline import parse_pipeline_definition
+
+    path = "examples/pipeline/pipeline_detect.json"
+    with open(path) as file:
+        raw = json.load(file)
+    raw["graph"] = ["(PE_Detect (PE_Tracker))"]
+    raw["elements"] = [element for element in raw["elements"]
+                       if element["name"] != "PE_VideoReadFile"]
+    raw["parameters"].update({f"PE_Detect.{key}": value
+                              for key, value in parameters.items()})
+    return parse_pipeline_definition(raw, source=path)
+
+
+def drive_frames(engine, pipeline, done: list, frames: dict, program,
+                 limit_s: float) -> list:
+    """Post every frame (frame f of every stream, then f + 1) and step
+    the engine until each has come back into `done` (the pipeline's frame
+    handler appends there); the virtual clock advances only while no
+    batch is in flight.  Returns the frames this call completed."""
+    first = len(done)
+    for stream, f in sorted(frames, key=lambda key: (key[1], key[0])):
+        pipeline.post("process_frame", stream, {"image": frames[(stream, f)]})
+    start = time.perf_counter()
+    while len(done) - first < len(frames):
+        if time.perf_counter() - start > limit_s:
+            raise AssertionError(f"{len(done) - first} of {len(frames)} "
+                                 f"frames in {limit_s} s")
+        busy = False
+        while engine.step():
+            busy = True
+        if program.in_flight["now"]:
+            time.sleep(0.0002)             # the results worker
+        elif not busy:
+            engine.clock.advance(0.01)
+    return done[first:]
+
+
+def check_detections(frame, classes: int) -> None:
+    swag = frame.swag
+    boxes, scores, labels = swag["boxes"], swag["scores"], swag["classes"]
+    if not (len(boxes) == len(scores) == len(labels) ==
+            len(swag["tracks"])) or \
+            any(len(box) != 4 or not all(math.isfinite(v) for v in box)
+                for box in boxes) or \
+            any(not 0.0 < s <= 1.0 for s in scores) or \
+            any(not 0 <= c < classes for c in labels):
+        raise AssertionError(f"frame {frame.stream_id}:{frame.frame_id}: "
+                             f"{len(boxes)} boxes, scores {scores[:4]}, "
+                             f"classes {labels[:4]}")
+
+
+def profile_detect_batch(compute, program_name: str, frames: list,
+                         engine) -> dict:
+    """One full batch submitted straight to the program under
+    torch.profiler (profile_batch), then its results delivered."""
+    program = compute.programs[program_name]
+    got = []
+    record = profile_batch(
+        "detect", lambda: [compute.submit(program_name, "profile", frame,
+                                          frame.shape[0],
+                                          lambda _sid, r: got.append(r))
+                           for frame in frames], program.scheduler)
+    deadline = time.perf_counter() + 30.0
+    while len(got) < len(frames) and time.perf_counter() < deadline:
+        if not engine.step():
+            time.sleep(0.0005)
+    if len(got) != len(frames) or any(isinstance(r, Exception) for r in got):
+        raise AssertionError(f"profiled batch: {len(got)} results")
+    return record
+
+
+@contextlib.contextmanager
+def cudnn_tf32():
+    """The detector's f32 forward with cuDNN's TF32 left on (its
+    exact_f32 scopes made no-ops), to time what exact f32 costs."""
+    from aiko_services_tpu_torch.models import detector, resnet
+    saved = resnet.exact_f32
+    before = torch.backends.cudnn.allow_tf32
+    resnet.exact_f32 = detector.exact_f32 = \
+        lambda dtype: contextlib.nullcontext()
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        resnet.exact_f32 = detector.exact_f32 = saved
+        torch.backends.cudnn.allow_tf32 = before
+
+
+def detect_forward_ms(element, frames: list) -> dict:
+    """Device ms of the detect program (normalise, forward, decode) on one
+    full batch of raw frames, by time_ms on the element's weights: f32
+    with TF32 off (the element's path), f32 with cuDNN's TF32, and bf16
+    convolutions (the element's dtype option)."""
+    import copy
+
+    import numpy as np
+
+    from aiko_services_tpu_torch.models.detector import detect
+
+    batch = torch.from_numpy(np.stack(frames)).cuda()
+    scratch = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
+    config = element.config
+    bf16 = dataclasses.replace(
+        config, dtype=torch.bfloat16,
+        backbone=dataclasses.replace(config.backbone, dtype=torch.bfloat16))
+    params_bf16 = copy.deepcopy(element.params).to(torch.bfloat16)
+
+    @torch.no_grad()
+    def run(params, cfg):
+        detect(params, cfg, batch.float() / 255.0, 0.3)
+
+    times = {"f32": time_ms(lambda: run(element.params, config), scratch,
+                            reps=10)}
+    with cudnn_tf32():
+        times["tf32"] = time_ms(lambda: run(element.params, config),
+                                scratch, reps=10)
+    times["bf16"] = time_ms(lambda: run(params_bf16, bf16), scratch,
+                            reps=10)
+    return times
+
+
+def phase_detect(wire: str) -> dict:
+    """The detect example's graph less its file source, at its own
+    parameters (detector_r18, 256 x 256, max_batch 32, pipelined,
+    max_in_flight 4, f32) on the `wire` ("raw" or "dct8", keep 16):
+    DETECT_STREAMS x DETECT_FRAMES seeded frames posted into (PE_Detect
+    (PE_Tracker)) after one warm-up batch.  Every frame completes with
+    well-formed detections and tracks, the results worker keeps 2-4
+    batches in flight, and no attention kernel launches."""
+    import numpy as np
+
+    from aiko_services_tpu_torch.elements import detect as detect_module
+    from aiko_services_tpu_torch.ops.image_wire import dct8_wire_bytes
+    from aiko_services_tpu_torch.pipeline import Pipeline
+
+    phase = "detect" if wire == "raw" else f"detect_{wire}"
+    start_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    runtime, compute = host_runtime()
+    engine = runtime.event
+    parameters = {"max_in_flight": DETECT_MAX_IN_FLIGHT}
+    if wire != "raw":
+        parameters.update({"wire": wire, "dct_keep": DCT_KEEP})
+    pipeline = Pipeline(runtime, detect_definition(**parameters),
+                        stream_lease_time=0)
+    done = []
+    pipeline.add_frame_handler(done.append)
+    frames = moving_frames(DETECT_STREAMS, DETECT_FRAMES, DETECT_SIZE,
+                           DETECT_SEED)
+    for s in range(DETECT_STREAMS):
+        pipeline.create_stream(f"cam{s}", lease_time=0)
+    pipeline.create_stream("warm", lease_time=0)
+    element = pipeline.graph.node("PE_Detect").element
+    config = element.config
+    if (config.backbone.stage_sizes, config.backbone.width,
+            config.head_channels, config.num_classes,
+            config.max_detections, config.dtype, element.image_size,
+            element.wire) != ((2, 2, 2, 2), 64, 64, 80, 32, torch.float32,
+                              DETECT_SIZE, wire):
+        raise AssertionError(f"not detector_r18 at {DETECT_SIZE}: {config}")
+    program = compute.programs[element._program]
+    scheduler = program.scheduler
+    if scheduler.max_batch != 32 or scheduler.dispatch_gate is None:
+        raise AssertionError("not the example's batch of 32, pipelined")
+    # bytes each batch sends to the card (the element's one copy)
+    sent = []
+    host_to = detect_module._host_to
+
+    def counted(device, array):
+        sent.append(array.nbytes)
+        return host_to(device, array)
+
+    detect_module._host_to = counted
+    try:
+        warm = {("warm", f): frames[("cam0", f)] for f in range(2)}
+        drive_frames(engine, pipeline, done, warm, program,
+                     DETECT_TIMEOUT_S)
+        program.in_flight["peak"] = 0
+        batches_before = scheduler.stats["batches"]
+        recent_before = len(program.recent_service)
+        # the main path's run: counts set to 0 just before, read after
+        zero_attention_counts()
+        start = time.perf_counter()
+        done = drive_frames(engine, pipeline, done, frames, program,
+                            DETECT_TIMEOUT_S)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - start
+        counts = attention_counts()
+    finally:
+        detect_module._host_to = host_to
+    if any(counts.values()):
+        raise AssertionError(f"{phase}: attention kernels launched {counts}")
+    failed = pipeline.recovery_stats["frames_failed"]
+    if len(done) != len(frames) or failed:
+        raise AssertionError(f"{phase}: {len(done)} of {len(frames)} frames "
+                             f"completed, {failed} failed")
+    for frame in done:
+        check_detections(frame, config.num_classes)
+    peak = program.in_flight["peak"]
+    if not 2 <= peak <= DETECT_MAX_IN_FLIGHT or program.in_flight["now"]:
+        raise AssertionError(f"{phase}: in_flight {program.in_flight}")
+    batches = scheduler.stats["batches"] - batches_before
+    steady = [s for _, s in list(program.recent_service)[recent_before:]]
+    wire_bytes = dct8_wire_bytes(DETECT_SIZE, DETECT_SIZE, 3, DCT_KEEP) \
+        if wire == "dct8" else DETECT_SIZE * DETECT_SIZE * 3
+    per_frame = set(nbytes // scheduler.max_batch for nbytes in sent)
+    if per_frame != {wire_bytes}:
+        raise AssertionError(f"{phase}: {per_frame} bytes a frame slot, "
+                             f"expected {wire_bytes}")
+    tracks = {}
+    for frame in sorted(done, key=lambda f: (f.stream_id, f.frame_id)):
+        tracks.setdefault(frame.stream_id, set()).update(
+            t["track_id"] for t in frame.swag["tracks"])
+    record = {"phase": phase, "wire": wire, "streams": DETECT_STREAMS,
+              "frames": len(done), "frames_failed": failed,
+              "batches": batches,
+              "mean_batch_size": len(done) / batches,
+              "in_flight_peak": peak, "launches": counts,
+              "h2d_bytes_per_frame": wire_bytes,
+              "raw_bytes_per_frame": DETECT_SIZE * DETECT_SIZE * 3,
+              "detections": sum(len(f.swag["scores"]) for f in done),
+              "track_ids_per_stream": {sid: len(ids) for sid, ids in
+                                       sorted(tracks.items())},
+              "wall_s": wall_s, "frames_per_s": len(done) / wall_s,
+              "first_call_s": program.first_call_times,
+              "steady_batch_s": statistics.median(steady) if steady
+              else None}
+    batch_frames = [frames[key] for key in sorted(frames)][:32]
+    record["profile"] = profile_detect_batch(compute, element._program,
+                                             batch_frames, engine)
+    if wire == "raw":
+        record["forward_ms"] = detect_forward_ms(element, batch_frames)
+    record["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    for stream_id in list(pipeline.streams):
+        pipeline.destroy_stream(stream_id)
+    pipeline.stop()
+    compute.stop()
+    runtime.terminate()
+    record["phase_s"] = time.perf_counter() - start_phase
+    emit(record)
+    return record
+
+
+def detect_on(device, frames: dict, params=None):
+    """The detect example's graph (raw wire) on `device` (None: the card;
+    "cpu"); `params`, when given, replaces the element's weights.
+    Returns ({(stream, frame): swag}, the element)."""
+    from aiko_services_tpu_torch.pipeline import Pipeline
+
+    runtime, compute = host_runtime(device)
+    pipeline = Pipeline(runtime, detect_definition(), stream_lease_time=0)
+    done = []
+    pipeline.add_frame_handler(done.append)
+    for stream in sorted({stream for stream, _ in frames}):
+        pipeline.create_stream(stream, lease_time=0)
+    element = pipeline.graph.node("PE_Detect").element
+    if params is not None:
+        element.params.load_state_dict(params.state_dict())
+    drive_frames(runtime.event, pipeline, done, frames,
+                 compute.programs[element._program], DETECT_TIMEOUT_S)
+    out = {(frame.stream_id, frame.frame_id): frame.swag for frame in done}
+    for stream_id in list(pipeline.streams):
+        pipeline.destroy_stream(stream_id)
+    pipeline.stop()
+    compute.stop()
+    runtime.terminate()
+    return out, element
+
+
+def first_difference(got: dict, want: dict) -> int | None:
+    """The first rank at which two frames' detections differ (class, or
+    score beyond DETECT_SCORE_TOL, or one list ends), or None."""
+    n = min(len(got["classes"]), len(want["classes"]))
+    for i in range(n):
+        if got["classes"][i] != want["classes"][i] or \
+                abs(got["scores"][i] - want["scores"][i]) > DETECT_SCORE_TOL:
+            return i
+    return None if len(got["classes"]) == len(want["classes"]) else n
+
+
+def phase_detect_f32() -> dict:
+    """The same weights and frames through the port's detect graph on the
+    card (f32, TF32 off) and on the CPU: classes and track ids equal,
+    scores within DETECT_SCORE_TOL and boxes within DETECT_BOX_TOL pixels;
+    a first mismatch in a frame's ranking passes only where the CPU's
+    scores at that rank are within DETECT_TIE of each other (the rest of
+    that stream is then not compared)."""
+    import numpy as np
+
+    frames = moving_frames(DETECT_F32_STREAMS, DETECT_F32_FRAMES,
+                           DETECT_SIZE, DETECT_SEED + 1)
+    zero_attention_counts()
+    card, element = detect_on(None, frames)
+    counts = attention_counts()
+    if any(counts.values()):
+        raise AssertionError(f"detect_f32: attention kernels {counts}")
+    cpu, _ = detect_on("cpu", frames, params=element.params)
+    score_err = box_err = 0.0
+    ties, compared, detections = [], 0, 0
+    tied_streams = set()
+    for key in sorted(frames):
+        if key[0] in tied_streams:
+            continue                   # the tracker saw other boxes
+        got, want = card[key], cpu[key]
+        n = len(want["classes"])
+        first = first_difference(got, want)
+        if first is not None:
+            # the CPU's scores at that rank: the next rank's, or the
+            # threshold where the lists' lengths part
+            scores = want["scores"] + [DETECT_THRESHOLD]
+            gap = abs(scores[first] - scores[first + 1]) \
+                if first < len(want["scores"]) else \
+                abs(got["scores"][first] - DETECT_THRESHOLD)
+            if gap >= DETECT_TIE:
+                raise AssertionError(
+                    f"detect_f32 {key}: rank {first} differs (card "
+                    f"{got['classes'][first:first + 2]} "
+                    f"{got['scores'][first:first + 2]}, CPU "
+                    f"{want['classes'][first:first + 2]} "
+                    f"{want['scores'][first:first + 2]}), CPU gap {gap}")
+            ties.append([key[0], key[1], first, gap])
+            tied_streams.add(key[0])
+            n = first
+        elif [t["track_id"] for t in got["tracks"]] != \
+                [t["track_id"] for t in want["tracks"]]:
+            raise AssertionError(f"detect_f32 {key}: track ids differ")
+        if n:
+            score_err = max(score_err, float(np.max(np.abs(np.subtract(
+                got["scores"][:n], want["scores"][:n])))))
+            box_err = max(box_err, float(np.max(np.abs(np.subtract(
+                got["boxes"][:n], want["boxes"][:n])))))
+        if box_err > DETECT_BOX_TOL:
+            raise AssertionError(f"detect_f32 {key}: boxes differ by "
+                                 f"{box_err} px")
+        compared += 1
+        detections += n
+    if not detections:
+        raise AssertionError("detect_f32: no detection to compare")
+    record = {"phase": "detect_f32", "frames": len(frames),
+              "frames_compared": compared, "detections_compared":
+              detections, "max_score_err": score_err,
+              "max_box_err_px": box_err, "ties": ties,
+              "score_tol": DETECT_SCORE_TOL, "box_tol_px": DETECT_BOX_TOL,
+              "tie_limit": DETECT_TIE, "launches": counts}
+    emit(record)
+    return record
+
+
+def phase_classify() -> dict:
+    """ResNet-18 at 224 x 224 (1000 classes, f32) through a one-element
+    pipeline (PE_ImageClassify, batched, max_batch 32): CLASSIFY_FRAMES
+    seeded frames posted at once after one full warm-up batch; the class ids
+    equal the CPU port's on the same weights and frames, confidences
+    within CLASSIFY_TOL of them (a top-2 probability gap under
+    CLASSIFY_TIE on the CPU counts as a tie)."""
+    import copy
+
+    import numpy as np
+
+    from aiko_services_tpu_torch.models.resnet import resnet_forward
+    from aiko_services_tpu_torch.pipeline import (Pipeline,
+                                                  parse_pipeline_definition)
+
+    definition = parse_pipeline_definition({
+        "version": 0, "name": "p_classify", "runtime": "python",
+        "graph": ["(PE_ImageClassify)"],
+        "parameters": {"PE_ImageClassify.preset": "resnet18",
+                       "PE_ImageClassify.image_size": 224,
+                       "PE_ImageClassify.mode": "batched",
+                       "PE_ImageClassify.max_batch": 32},
+        "elements": [{"name": "PE_ImageClassify",
+                      "input": [{"name": "image"}],
+                      "output": [{"name": "class_id"},
+                                 {"name": "confidence"}]}]})
+
+    start_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(CLASSIFY_SEED)
+    frames = {(f"cam{i % 8}", i // 8): rng.integers(
+        0, 256, (224, 224, 3), dtype=np.uint8)
+        for i in range(CLASSIFY_FRAMES)}
+    runtime, compute = host_runtime()
+    engine = runtime.event
+    pipeline = Pipeline(runtime, definition, stream_lease_time=0)
+    done = []
+    pipeline.add_frame_handler(done.append)
+    for stream in ["warm"] + [f"cam{s}" for s in range(8)]:
+        pipeline.create_stream(stream, lease_time=0)
+    element = pipeline.graph.node("PE_ImageClassify").element
+    config = element.config
+    if (config.stage_sizes, config.width, config.num_classes,
+            element.image_size) != ((2, 2, 2, 2), 64, 1000, 224):
+        raise AssertionError(f"not ResNet-18 at 224: {config}")
+    program = compute.programs[element._program]
+    # one full warm-up batch: the first call at a batch shape carries
+    # cuDNN's algorithm choice
+    drive_frames(engine, pipeline, done, {("warm", f): frames[key] for f, key
+                                          in enumerate(sorted(frames)[:32])},
+                 program, 60.0)
+    recent_before = len(program.recent_service)
+    zero_attention_counts()
+    start = time.perf_counter()
+    done = drive_frames(engine, pipeline, done, frames, program, 120.0)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - start
+    counts = attention_counts()
+    if any(counts.values()):
+        raise AssertionError(f"classify: attention kernels {counts}")
+    got = {(f.stream_id, f.frame_id): f.swag for f in done}
+    # the CPU port on the same weights: logits and probabilities of
+    # every frame in one batch
+    cpu_params = copy.deepcopy(element.params).cpu()
+    batch = torch.from_numpy(np.stack([frames[key] for key in
+                                       sorted(frames)]))
+    with torch.no_grad():
+        probs = torch.softmax(resnet_forward(
+            cpu_params, config, batch.float() / 255.0), dim=-1)
+    top2 = torch.topk(probs, 2, dim=-1)
+    conf_err, ties = 0.0, []
+    for row, key in enumerate(sorted(frames)):
+        class_id = int(top2.indices[row, 0])
+        confidence = float(top2.values[row, 0])
+        gap = float(top2.values[row, 0] - top2.values[row, 1])
+        swag = got[key]
+        if swag["class_id"] != class_id:
+            if gap >= CLASSIFY_TIE:
+                raise AssertionError(f"classify {key}: class "
+                                     f"{swag['class_id']} != CPU "
+                                     f"{class_id} (gap {gap})")
+            ties.append([key[0], key[1], gap])
+            continue
+        conf_err = max(conf_err, abs(swag["confidence"] - confidence))
+    if conf_err > CLASSIFY_TOL:
+        raise AssertionError(f"classify: confidences differ by {conf_err}")
+    steady = [s for _, s in list(program.recent_service)[recent_before:]]
+    batches = len(steady)
+    record = {"phase": "classify", "frames": len(done),
+              "frames_failed": pipeline.recovery_stats["frames_failed"],
+              "batches": batches, "launches": counts,
+              "max_confidence_err": conf_err, "ties": ties,
+              "confidence_tol": CLASSIFY_TOL, "tie_limit": CLASSIFY_TIE,
+              "wall_s": wall_s, "frames_per_s": len(done) / wall_s,
+              "first_call_s": program.first_call_times,
+              "steady_batch_s": statistics.median(steady) if steady
+              else None,
+              "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    for stream_id in list(pipeline.streams):
+        pipeline.destroy_stream(stream_id)
+    pipeline.stop()
+    compute.stop()
+    runtime.terminate()
+    record["phase_s"] = time.perf_counter() - start_phase
+    emit(record)
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2790,6 +3334,10 @@ def main() -> int:
     counts[("paged_decode_attention", "extend_512")] = agent["extend"]
     phase_agent_f32()
     phase_assistant()
+    phase_detect("raw")
+    phase_detect("dct8")
+    phase_detect_f32()
+    phase_classify()
     earlier = {phase: phase_counts[phase]["flash_attention"] for phase in
                ("slice", "pipeline", "remote_pipeline", "peer_pipeline",
                 "peer_chaos")}

@@ -33,6 +33,8 @@ from aiko_services_tpu_torch.models import llama as TL
 from aiko_services_tpu_torch.process import ProcessRuntime as TProcessRuntime
 from aiko_services_tpu_torch.transport import memory as TM
 
+from test_torch_paged_chunked import fresh_table_scratch
+
 torch.set_num_threads(1)
 
 PACKAGES = {
@@ -97,6 +99,11 @@ def _build(package, parameters, streams):
         JS.ATTENTION_IMPL = before
     agent = next(node.element for node in pipeline.graph.nodes()
                  if node.name == "PE_LlamaAgent")
+    if package == "jax" and parameters.get("mode") == "continuous":
+        # with prefix_block set the JAX agent forces chunked prefill: its
+        # decoder's shared table-row buffer races its own dispatch
+        # (ROADMAP.md Queue 3 items 1 and 7)
+        fresh_table_scratch(agent.decoder)
     return engine, pipeline, agent, done
 
 

@@ -92,6 +92,41 @@ def test_llama_params_cross_bit_exactly_and_round_trip(dtype, tmp_path):
                                  device="cpu")
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_resnet_and_detector_params_cross_bit_exactly(dtype):
+    """A ResNetConfig or DetectorConfig makes the bridge build a ResNet or
+    a Detector: every leaf lands under its '.'-joined path, conv leaves
+    in HWIO, with its exact bits; the flat-npz form carries them back."""
+    from aiko_services_tpu.models import detector as JD
+    from aiko_services_tpu.models import resnet as JR
+    from aiko_services_tpu_torch.models import detector as TD
+    from aiko_services_tpu_torch.models import resnet as TR
+    jax_dtype = getattr(jnp, dtype)
+    resnet = JR.ResNetConfig(stage_sizes=(1, 1), num_classes=5, width=8,
+                             dtype=jax_dtype)
+    detector = JD.DetectorConfig(num_classes=3, backbone=resnet,
+                                 head_channels=8, max_detections=4,
+                                 dtype=jax_dtype)
+    for init, config, port_type in (
+            (JR.resnet_init, resnet, TR.ResNet),
+            (JD.detector_init, detector, TD.Detector)):
+        params = jax.jit(functools.partial(init, config=config))(
+            jax.random.PRNGKey(0))
+        port_config = (TR.ResNetConfig if port_type is TR.ResNet
+                       else TD.DetectorConfig)(**config.__dict__)
+        model = bridge.params_from_numpy(jax.tree.map(np.asarray, params),
+                                         port_config, device="cpu")
+        assert isinstance(model, port_type)
+        flat = bridge.flatten_tree(params)
+        named = dict(model.named_parameters())
+        assert {name.replace(".", "/") for name in named} == set(flat)
+        for name, tensor in named.items():
+            assert tensor.dtype == getattr(torch, dtype)
+            np.testing.assert_array_equal(
+                tensor.float().numpy(), flat[name.replace(".", "/")],
+                err_msg=name)
+
+
 def test_params_from_numpy_rejects_a_mismatched_tree():
     config, params = _jax_params()
     tree = jax.tree.map(np.asarray, params)
@@ -143,8 +178,9 @@ def test_load_flat_npz_slices_long_position_tables(tmp_path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     """No module imports jax or the JAX package, and none imports at
     module level what the card's machine lacks (click, paho,
-    sounddevice): PE_Speaker's guarded sounddevice import sits inside
-    its process_frame, as in JAX."""
+    sounddevice, PIL, cv2): PE_Speaker's guarded sounddevice import sits
+    inside its process_frame, and the image and video elements import
+    PIL and cv2 inside the calls that need them, as in JAX."""
     # _build/ holds what the package generates (kernel libraries), not
     # its source
     sources = sorted(path for path in PACKAGE.rglob("*.py")
@@ -164,8 +200,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 root = name.split(".")[0]
                 if root in ("jax", "jaxlib", "aiko_services_tpu"):
                     offenders.append(f"{path.relative_to(PACKAGE)}: {name}")
-                if root in ("click", "paho", "sounddevice") and \
-                        id(node) in top:
+                if root in ("click", "paho", "sounddevice", "PIL",
+                            "cv2") and id(node) in top:
                     module_level.append(
                         f"{path.relative_to(PACKAGE)}: {name}")
     assert not offenders, offenders
@@ -184,13 +220,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "transport/peer.py", "transport/mqtt.py",
             "transport/paho_loopback.py", "process_manager.py",
             "lifecycle.py", "recorder.py", "storage.py",
-            "models/tokenizer.py", "cli.py", "__main__.py"} <= names
-    assert len(sources) >= 58
+            "models/tokenizer.py", "cli.py", "__main__.py",
+            "models/resnet.py", "models/detector.py", "ops/image_wire.py",
+            "elements/image.py", "elements/detect.py", "elements/video.py",
+            "elements/video_stream.py"} <= names
+    assert len(sources) >= 70
 
 
 def test_importing_every_module_loads_no_jax_click_or_paho():
     """Importing every module of the port, in a fresh interpreter, loads
-    none of jax, the JAX package, click or paho."""
+    none of jax, the JAX package, click, paho, PIL or cv2."""
     import subprocess
     import sys
     script = (
@@ -201,7 +240,8 @@ def test_importing_every_module_loads_no_jax_click_or_paho():
         "    if '_build' not in info.name:\n"
         "        importlib.import_module(info.name)\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'aiko_services_tpu', 'click', 'paho')))\n")
+        "('jax', 'jaxlib', 'aiko_services_tpu', 'click', 'paho', 'PIL', "
+        "'cv2')))\n")
     result = subprocess.run([sys.executable, "-c", script],
                             capture_output=True, text=True, timeout=120,
                             cwd=PACKAGE.parent)

@@ -26,6 +26,8 @@ from aiko_services_tpu_torch import bridge
 from aiko_services_tpu_torch import serving as TS
 from aiko_services_tpu_torch.models import llama as TL
 
+from test_torch_paged_chunked import fresh_table_scratch
+
 torch.set_num_threads(1)
 
 J_CONFIG = dataclasses.replace(JL.LLAMA_PRESETS["tiny"], max_seq_len=96)
@@ -103,6 +105,10 @@ def pair(weights, block=8, cache_kwargs=None, **kwargs):
             finally:
                 JS.ATTENTION_IMPL = before
             assert decoder.paged_kernel
+            # the JAX decoder's shared table-row buffer races its own
+            # dispatch when an admit and a chunk extend share a round
+            # (ROADMAP.md Queue 3 items 1 and 7)
+            fresh_table_scratch(decoder)
         else:
             decoder = TS.ContinuousDecoder(model, T_CONFIG, device="cpu",
                                            prefix_cache=cache, **kwargs)
@@ -172,6 +178,7 @@ def test_chunked_midstream_hits_beside_a_decoding_slot(weights):
                  "long": ((PROMPT * 2)[:70], 6)}
     jax_out, port_out = both(decoders, requests, midstream)
     assert port_out == jax_out
+    assert port_out["full"] == oracle(weights[0], PROMPT, 10)
     assert decoders["torch"][0].stats["prefix_admits"] >= 2
     assert_same_stats(decoders)
 

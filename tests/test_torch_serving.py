@@ -215,14 +215,15 @@ def test_setup_rejects_bad_parameters():
     # a tokenizer directory that holds no vocabulary fails to load
     with pytest.raises(FileNotFoundError, match="vocab.json"):
         _asr({"preset": "test", "tokenizer": "vocab.json"})[0].scheduler
-    # JAX options that wait for later ROADMAP items say which
-    for option, item in (({"pp_stages": 2}, "item 8"),
-                         ({"pipelined": True}, "item 2")):
-        with pytest.raises(NotImplementedError, match=item):
-            _asr({"preset": "test", **option})[0].scheduler
-    # a sync element never pipelines (resolve_pipelined)
+    # a JAX option that waits for a later ROADMAP item says which
+    with pytest.raises(NotImplementedError, match="item 7"):
+        _asr({"preset": "test", "pp_stages": 2})[0].scheduler
+    # pipelined batches dispatch behind the in-flight gate; a sync
+    # element never pipelines (resolve_pipelined)
     assert _asr({"preset": "test", "pipelined": True,
-                 "mode": "sync"})[0].scheduler is not None
+                 "max_in_flight": 3})[0].scheduler.dispatch_gate is not None
+    assert _asr({"preset": "test", "pipelined": True,
+                 "mode": "sync"})[0].scheduler.dispatch_gate is None
 
 
 def test_compute_runtime_direct_programs_and_errors():
