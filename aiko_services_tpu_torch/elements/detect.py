@@ -219,11 +219,12 @@ class PE_LlamaAgent(PipelineElement):
     sessions false, session_lease 300, session_shards 2, session_idle
     0, session_mirror "", and per stream tenant and session.
 
-    The port's decoder is paged only: paged false in continuous mode,
-    the JAX element's default, raises the decoder's NotImplementedError
-    (ROADMAP.md Queue 1 item 4).  host_kv_mb, disagg and a non-empty
-    role raise naming item 5.  Weights are random, drawn from a
-    torch.Generator seeded 0 on the ComputeRuntime's device."""
+    paged false, the default, serves through the dense slot cache (a
+    prefix hit copies the cached rows in), paged true through the block
+    pool and the paged kernel (a hit aliases the cached blocks).
+    host_kv_mb, disagg and a non-empty role raise naming ROADMAP.md
+    Queue 1 item 5.  Weights are random, drawn from a torch.Generator
+    seeded 0 on the ComputeRuntime's device."""
 
     contracts = {"in:text": "str", "out:response": "str",
                  "out:response_tokens": "i32[*]"}

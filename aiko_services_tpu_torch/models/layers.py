@@ -24,6 +24,7 @@ __all__ = [
     "MHA", "linear", "linear_logits", "layer_norm", "rms_norm",
     "embedding", "conv1d", "mha", "precompute_kv", "quantize_kv",
     "dequantize_kv", "quantize_kv_cache", "dequantize_kv_cache",
+    "slot_kv_blocks", "concat_kv_rows", "kv_rows_nbytes",
     "init_kv_cache", "update_kv_cache", "gather_paged_kv",
     "paged_pool_planes", "scatter_paged_rows", "slice_paged_block",
     "write_paged_blocks",
@@ -288,6 +289,45 @@ def dequantize_kv_cache(kv, dtype):
     if isinstance(kv, dict) and "q" in kv:
         return kv["q"].to(dtype) * kv["s"][..., None].to(dtype)
     return kv
+
+
+# -- dense slot-cache rows ------------------------------------------------------
+# The dense serving cache is one [S, H, T, D] tensor per layer (the int8
+# form: {"q" int8 [S, H, T, D], "s" f32 [S, H, T]}).  A prefix-cache block
+# is one slot's rows of one block, [H, B, D] (or the dict): harvest copies
+# them out, a hit concatenates them back in.
+
+def slot_kv_blocks(cache, slot: int, start: int, stop: int,
+                   block_tokens: int) -> list:
+    """One slot's rows [start, stop) of a dense cache leaf as per-block
+    COPIES [H, B, D] (or the dict with s [H, B]), each in storage of its
+    own: the cache updates in place, a cached block must not, and an
+    evicted block frees its bytes whatever its siblings' fate."""
+    def rows(plane, a):
+        return plane[slot, :, a:a + block_tokens].clone()
+    return [{"q": rows(cache["q"], a), "s": rows(cache["s"], a)}
+            if isinstance(cache, dict) else rows(cache, a)
+            for a in range(start, stop, block_tokens)]
+
+
+def concat_kv_rows(blocks):
+    """Per-block leaves back into contiguous rows along the time axis
+    (inverse of slot_kv_blocks), the int8 dict plane by plane: an int8
+    chain lands without a dequantize / requantize round trip."""
+    if isinstance(blocks[0], dict):
+        return {"q": torch.cat([b["q"] for b in blocks], dim=1),
+                "s": torch.cat([b["s"] for b in blocks], dim=1)}
+    return torch.cat(blocks, dim=1)
+
+
+def kv_rows_nbytes(rows) -> int:
+    """Bytes of K or V rows: a tensor or array, an int8 dict, or a list
+    of either (one leaf per layer)."""
+    if isinstance(rows, dict):
+        return sum(kv_rows_nbytes(leaf) for leaf in rows.values())
+    if isinstance(rows, (list, tuple)):
+        return sum(kv_rows_nbytes(leaf) for leaf in rows)
+    return int(rows.nbytes)
 
 
 # -- paged KV block pool primitives -------------------------------------------

@@ -1,30 +1,44 @@
-# Continuous-batching greedy Llama decoding over a paged KV block pool,
-# with the hash-addressed prefix cache.
+# Continuous-batching greedy Llama decoding over a dense slot cache or a
+# paged KV block pool, with speculation and the hash-addressed prefix
+# cache.
 #
 # Counterpart of aiko_services_tpu/serving.py's ContinuousDecoder and
-# PrefixKVCache in the mode this port has: paged_kv=True with the paged
-# decode-attention kernel (the JAX package's ATTENTION_IMPL=
-# "paged_kernel"), a native or int8 pool (kv_cache_dtype), bucketed
-# single-shot prefill and chunked prefill (prefill_chunk,
-# prefill_budget), greedy decoding and a dense SwiGLU FFN.  A bound
-# PrefixKVCache keeps its blocks in the decoder's BlockPool: a hit
-# aliases the cached blocks into the slot's table (no K/V rows move),
-# only the uncached suffix is prefilled by chunk extends, a write into a
-# shared block copies it first (copy-on-extend), and a retiring request's
-# blocks become cache entries by refcount.  The scheduling is the JAX
-# decoder's: decode-first rounds of up to steps_per_sync steps, admits
-# and chunk extends dispatched behind the round's decode steps and
-# resolved at the next round's sync, one host sync per round; the
-# decoder can pump itself from an event engine (attach), sheds requests
-# whose deadline its admit-wait estimate cannot meet, and bills cache
-# traffic to tenants.  Every other mode of the JAX decoder raises
+# PrefixKVCache in the modes this port has: the dense slot cache in the
+# block KV write (paged_kv=False, JAX's default: plain PyTorch, as JAX
+# computes it with einsums) and the paged pool read by the paged
+# decode-attention kernel (paged_kv=True, the JAX package's
+# ATTENTION_IMPL="paged_kernel"); native or int8 KV (kv_cache_dtype);
+# bucketed single-shot prefill and chunked prefill (prefill_chunk,
+# prefill_budget); greedy decoding, plain or self-speculative
+# (speculate_k tokens a step drafted by prompt lookup, speculate_ngram,
+# verified in one widened pass: the paged kernel at W = 1 + k); and a
+# dense SwiGLU FFN.  A bound PrefixKVCache holds row copies for a dense
+# decoder (a hit copies them into the slot) and pool blocks for a paged
+# one (a hit aliases them into the slot's table, a write into a shared
+# block copies it first, a retiring request's blocks become cache
+# entries by refcount); either way only the uncached suffix is
+# prefilled, by chunk extends.  The scheduling is the JAX decoder's:
+# decode-first rounds of up to steps_per_sync steps, admits and chunk
+# extends dispatched behind the round's decode steps and resolved at the
+# next round's sync, one host sync per round; the decoder can pump
+# itself from an event engine (attach), sheds requests whose deadline
+# its admit-wait estimate cannot meet, and bills cache traffic to
+# tenants.  Every other mode of the JAX decoder raises
 # NotImplementedError naming the ROADMAP.md item that brings it.
+#
+# From JAX to PyTorch: the programs run eagerly and update the caches,
+# pools, context buffer and token and length vectors IN PLACE; a lax.scan
+# becomes a Python loop with no host read inside it (every stop condition
+# stays on the device), and JAX's dropped scatter indices are written out
+# as explicit masks.
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import logging
+import os
 import time
 from collections import OrderedDict
 from typing import Callable
@@ -36,8 +50,8 @@ from . import resolve_device
 from .models import layers as L
 from .models.llama import LlamaConfig, llama_ffn
 from .observe.metrics import MirroredStats, default_registry
-from .serving_paged import (BlockPool, _build_paged_step, _paged_admit,
-                            _paged_extend)
+from .serving_paged import (BlockPool, _build_paged_spec_step,
+                            _build_paged_step, _paged_admit, _paged_extend)
 
 __all__ = ["ContinuousDecoder", "DecodeRequest", "PrefixKVCache",
            "prefix_chain_keys", "check_block_geometry",
@@ -78,7 +92,57 @@ def _to_device(device: torch.device, *arrays) -> list:
 
 def measure_device_step(decoder, steps_per_sync: int = 64,
                         chains: int = 4) -> float:
-    _not_ported("measure_device_step", "4")
+    """Milliseconds a decode step of `decoder`'s own round program takes
+    on its device at its serving shape: fresh zero caches (paged: fresh
+    zero pools at the pool's current capacity, round-robin distinct
+    tables at the current table width), `chains` rounds back to back
+    after one warm-up round, ONE host sync at the end.  Every round
+    starts its slots at length 0 (the JAX probe carries the lengths on,
+    past the RoPE tables once enough rounds ran), so a round of
+    steps_per_sync steps must fit in max_seq_len.  With speculation it
+    is per verify step, which emits up to 1 + speculate_k tokens."""
+    slots, device = decoder.max_slots, decoder.device
+    if steps_per_sync * (1 + decoder.speculate_k) > \
+            decoder.config.max_seq_len:
+        raise ValueError(
+            f"measure_device_step: {steps_per_sync} steps of "
+            f"{1 + decoder.speculate_k} tokens pass max_seq_len "
+            f"{decoder.config.max_seq_len}")
+    tokens = torch.ones((slots,), dtype=torch.int32, device=device)
+    lengths = torch.zeros((slots,), dtype=torch.int32, device=device)
+    active = torch.ones((slots,), dtype=torch.bool, device=device)
+    budgets = torch.full((slots,), 1 << 30, dtype=torch.int32,
+                         device=device)
+    context = (torch.zeros((slots, decoder.max_seq), dtype=torch.int32,
+                           device=device),) if decoder.speculate_k else ()
+    extent = {}
+    if decoder.paged:
+        pool = decoder.pool
+        nb = -(-decoder._cache_t // decoder.kv_block)
+        ids = 1 + np.arange(slots * nb) % max(1, pool.num_blocks - 1)
+        tables, = _to_device(device, ids.reshape(slots, nb))
+        store = (pool._zero_pools(pool.num_blocks),
+                 pool._zero_pools(pool.num_blocks), tables)
+        extent = {"t_cap": decoder._cache_t}
+    else:
+        store = (decoder._zero_caches(), decoder._zero_caches())
+
+    def chain(rounds):
+        nonlocal tokens
+        out = None
+        for _ in range(rounds):
+            out = decoder._step(decoder.params, tokens, lengths, active,
+                                budgets, *context, *store,
+                                num_steps=steps_per_sync, eos=-1, **extent)
+            tokens = out[2]
+        out[0][-1].cpu()                 # one sync for the chain
+
+    with torch.no_grad():
+        chain(1)                         # warm-up
+        start = time.perf_counter()
+        chain(chains)
+    return (time.perf_counter() - start) * 1000.0 / \
+        (chains * steps_per_sync)
 
 
 @dataclasses.dataclass
@@ -164,33 +228,40 @@ def check_block_geometry(layout, block_tokens: int, entry) -> None:
 
 
 class _PrefixBlock:
-    """One cached block: `pool_id` names its pool block (the cache holds
-    one pool ref on it), plus the tree bookkeeping eviction needs
-    (parent/children for leaf-first order, refs for pinning)."""
+    """One cached block: a dense node carries its own per-layer K/V rows
+    (k_rows / v_rows), a paged node names its pool block (`pool_id`: the
+    cache holds one pool ref on it); plus the tree bookkeeping eviction
+    needs (parent/children for leaf-first order, refs for pinning)."""
 
     __slots__ = ("key", "parent", "tenant", "refs", "children", "nbytes",
-                 "pool_id")
+                 "k_rows", "v_rows", "pool_id")
 
-    def __init__(self, key, parent, tenant, nbytes, pool_id):
+    def __init__(self, key, parent, tenant, k_rows, v_rows, nbytes,
+                 pool_id=None):
         self.key = key
         self.parent = parent
         self.tenant = tenant
         self.refs = 0
         self.children: set = set()
         self.nbytes = int(nbytes)
+        self.k_rows = k_rows
+        self.v_rows = v_rows
         self.pool_id = pool_id
 
 
 class PrefixKVCache:
-    """Hash-addressed prefix/KV reuse cache for a paged ContinuousDecoder.
+    """Hash-addressed prefix/KV reuse cache for a ContinuousDecoder.
 
     Prompts are chunked into fixed `block_tokens` blocks, each keyed by
     hash(parent_key, block tokens) (prefix_chain_keys).  Admit does a
-    longest-prefix match: a hit aliases the cached pool blocks into the
-    slot's table and prefill runs only on the uncached suffix.  Blocks
-    are harvested when a request retires (prompt + every generated token
-    but the last, whose K/V is never written), so a conversation's next
-    turn longest-matches everything it has said.
+    longest-prefix match and prefill runs only on the uncached suffix: a
+    dense decoder copies the cached rows into the slot, a paged one
+    aliases the cached pool blocks into the slot's table.  Blocks are
+    harvested when a request retires (prompt + every generated token but
+    the last, whose K/V is never written), so a conversation's next turn
+    longest-matches everything it has said.  Dense nodes hold their own
+    rows (insert), paged nodes one pool block each (insert_block); one
+    cache holds one kind.
 
     Budgets: a global byte cap plus an optional per-tenant cap; over
     budget, eviction walks LRU order and takes leaf blocks only (refs ==
@@ -203,10 +274,10 @@ class PrefixKVCache:
     total{cache, tenant}, prefix_cache_bytes and prefix_cache_blocks into
     the registry, under the JAX package's family names.
 
-    Paged storage only: the dense decoder's row-holding nodes (insert)
-    are ROADMAP.md Queue 1 item 4, the host tier and the disaggregated
-    install item 5.  Single-threaded like the decoder that owns it;
-    decoders of one geometry may share it (and then share its pool)."""
+    The host tier and the disaggregated install are ROADMAP.md Queue 1
+    item 5.  Single-threaded like the decoder that owns it; decoders of
+    one geometry and one storage kind may share it (paged: and then
+    share its pool)."""
 
     def __init__(self, block_tokens: int = 32,
                  max_bytes: int | None = 512 << 20,
@@ -227,7 +298,10 @@ class PrefixKVCache:
         self._sessions: dict = {}       # (tenant, sid) -> [keys]
         self.bytes_used = 0
         self._layout = None
+        # a paged decoder attaches its BlockPool: nodes then hold pool
+        # block ids and insert / evict move refcounts instead of rows
         self._pool = None
+        self._dense_bound = False
         self._registry = registry or default_registry()
         self.stats = MirroredStats(
             {"hits": 0, "misses": 0, "hit_tokens": 0, "miss_tokens": 0,
@@ -251,16 +325,18 @@ class PrefixKVCache:
     def bind(self, layout: tuple, paged: bool = False) -> None:
         """Record (and enforce) the storage layout this cache holds:
         decoders sharing a cache must agree on (layers, KV heads, head
-        dim, dtype, int8-ness, block size), or a hit would alias blocks
-        of the wrong shape into a live slot."""
-        if not paged:
-            _not_ported("a prefix cache bound by a dense decoder", "4")
+        dim, dtype, int8-ness, block size), or a hit would land rows of
+        the wrong shape in a live slot.  `paged` records the binder's
+        storage kind, so dense and paged decoders never share one cache
+        whichever binds first (a dense node's rows and a paged node's
+        pool id are unreadable to the other)."""
         if self._layout is None:
             self._layout = tuple(layout)
         elif self._layout != tuple(layout):
             raise ValueError(
                 f"prefix cache {self.name!r} already bound to layout "
                 f"{self._layout}, decoder wants {tuple(layout)}")
+        self._dense_bound = self._dense_bound or not paged
 
     @property
     def paged(self) -> bool:
@@ -279,6 +355,15 @@ class PrefixKVCache:
             raise ValueError(
                 f"prefix cache {self.name!r} is already attached to "
                 f"pool {self._pool.name!r}")
+        if self._dense_bound:
+            raise ValueError(
+                f"prefix cache {self.name!r} is bound by a dense "
+                f"decoder; dense and paged decoders cannot share a "
+                f"cache")
+        if self._pool is None and self._nodes:
+            raise ValueError(
+                f"prefix cache {self.name!r} holds dense blocks; it "
+                f"cannot switch to paged storage")
         self._pool = pool
 
     def attach_ledger(self, ledger) -> None:
@@ -309,7 +394,17 @@ class PrefixKVCache:
 
     def insert(self, tenant: str, parent: str, key: str,
                k_rows, v_rows) -> bool:
-        _not_ported("dense prefix blocks (insert)", "4")
+        """Register one dense block (per-layer K / V leaves [H, B, D], or
+        the int8 dicts).  Content-addressed: an existing key is just
+        touched.  Returns False when the byte budgets refused it (the
+        caller must stop its chain there, or children would dangle)."""
+        tenant = str(tenant or "default")
+        if key in self._nodes:
+            self._nodes.move_to_end(key)
+            return True
+        nbytes = L.kv_rows_nbytes(k_rows) + L.kv_rows_nbytes(v_rows)
+        return self._add_node(_PrefixBlock(key, parent, tenant, k_rows,
+                                           v_rows, nbytes))
 
     def insert_block(self, tenant: str, parent: str, key: str,
                      pool_id: int) -> bool:
@@ -324,23 +419,36 @@ class PrefixKVCache:
             self._nodes.move_to_end(key)
             return True
         self._pool.retain([pool_id])
-        node = _PrefixBlock(key, parent, tenant, self._pool.block_nbytes,
-                            int(pool_id))
-        self._nodes[key] = node
-        parent_node = self._nodes.get(parent)
+        return self._add_node(_PrefixBlock(
+            key, parent, tenant, None, None, self._pool.block_nbytes,
+            pool_id=int(pool_id)))
+
+    def _add_node(self, node: _PrefixBlock) -> bool:
+        """Link a new node under its parent, account its bytes and evict
+        to the budgets; False when the budget evicted the newcomer."""
+        self._nodes[node.key] = node
+        parent_node = self._nodes.get(node.parent)
         if parent_node is not None:
-            parent_node.children.add(key)
+            parent_node.children.add(node.key)
         self.bytes_used += node.nbytes
-        self._tenant_bytes[tenant] = \
-            self._tenant_bytes.get(tenant, 0) + node.nbytes
+        self._tenant_bytes[node.tenant] = \
+            self._tenant_bytes.get(node.tenant, 0) + node.nbytes
         self.stats["inserts"] += 1
-        self._evict_to_budget(tenant)
-        if key not in self._nodes:      # the budget evicted the newcomer
+        self._evict_to_budget(node.tenant)
+        if node.key not in self._nodes:  # the budget evicted the newcomer
             self.stats["insert_refused"] += 1
             self._publish_gauges()
             return False
         self._publish_gauges()
         return True
+
+    def block_rows(self, node) -> tuple:
+        """(per-layer K leaves, per-layer V leaves) of a cached block in
+        the storage layout: a dense node's own rows, a paged node's views
+        into the pool."""
+        if node.pool_id is not None:
+            return self._pool.block_rows(node.pool_id)
+        return node.k_rows, node.v_rows
 
     # -- lookup ------------------------------------------------------------
     def keys_for(self, tenant: str, tokens) -> list:
@@ -464,9 +572,10 @@ class PrefixKVCache:
 
     def _evict(self, node: _PrefixBlock) -> None:
         del self._nodes[node.key]
-        # the cache's ref goes; the pool block frees when no slot table
-        # still aliases it
-        self._pool.release_blocks([node.pool_id], tenant=node.tenant)
+        if node.pool_id is not None:
+            # the cache's ref goes; the pool block frees when no slot
+            # table still aliases it
+            self._pool.release_blocks([node.pool_id], tenant=node.tenant)
         parent = self._nodes.get(node.parent)
         if parent is not None:
             parent.children.discard(node.key)
@@ -567,7 +676,8 @@ def _token_block_argmax(params, config: LlamaConfig, token_block,
     cache-write strategy).  Returns the per-position argmax [S, W]
     int32 of f32 logits from the bf16 head (linear_logits): rounding the
     logits to bf16 first can flip near-ties against an f32 reference.
-    torch.argmax, like jnp.argmax, returns the first maximal index."""
+    torch.argmax, like jnp.argmax, returns the first maximal index.  W
+    is 1 for the decode step and 1 + speculate_k for the verify."""
     x = L.embedding(params["embed"], token_block).to(config.dtype)
     for i, layer in enumerate(params["layers"]):
         x = x + attend(i, layer, L.rms_norm(layer["ln_attn"], x))
@@ -577,17 +687,573 @@ def _token_block_argmax(params, config: LlamaConfig, token_block,
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
+# -- the dense slot cache: attention bodies -----------------------------------
+# The dense cache is one [S, Hkv, T, D] tensor per layer (int8: the
+# {"q", "s"} serving dict), T the round's extent (_fit_caches).  In the
+# "block" KV write (JAX's default, the one the port has) the main cache
+# is read-only through a round: the round's K/V go to side buffers and
+# merge once at its end.  The bodies below are the numerics of JAX's
+# einsums (f32 scores, -1e30 masks, one softmax over main + side, the
+# weights cast to the compute dtype before f32-accumulated PV products);
+# the paged kernel's plain version computes the same.
+
+def _kv_planes(cache, dtype):
+    """(dot-operand values, fold scale or None) of a main-cache leaf:
+    an int8 cache's values cast to the compute dtype (exact) and its
+    per-(slot, head, position) scale, folded into scores (K) and
+    weights (V)."""
+    if isinstance(cache, dict):
+        return cache["q"].to(dtype), cache["s"]
+    return cache, None
+
+
+def _cache_time(cache) -> int:
+    """Time extent of a main-cache leaf (tensor or int8 dict)."""
+    return (cache["q"] if isinstance(cache, dict) else cache).shape[2]
+
+
+def _grouped_block_attention(layer, config: LlamaConfig, x, cos, sin,
+                             k_cache, v_cache, k_side, v_side,
+                             entry_lengths, lengths, write_index: int,
+                             side_valid):
+    """The one place the dense decode numerics live: project QKV for
+    the [S, W] block at per-slot positions `lengths`, write the block's
+    K/V into the side buffers at `write_index` (in place), and attend
+    over the read-only main cache (positions < entry_lengths) plus the
+    side entries `side_valid` [S, W or 1, P] selects.  The decode step
+    (W = 1) and the speculative verify (W = 1 + k) share it, so their
+    greedy tokens agree.  Returns the attention output projection."""
+    num_heads, num_kv = config.num_heads, config.num_kv_heads
+    q, k, v = _project_qkv(layer, config, x)
+    q = L.apply_rope(q, cos, sin, lengths)
+    k = L.apply_rope(k, cos, sin, lengths)
+    slots_n, _, width, head_dim = q.shape
+    k_side[:, :, write_index:write_index + width] = k
+    v_side[:, :, write_index:write_index + width] = v
+    group = num_heads // num_kv
+    rows = group * width
+    # [S, Hkv, G*W, D]: row g*W + w of KV head h is query head h*G + g
+    q_rows = q.reshape(slots_n, num_kv, rows, head_dim).float()
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(head_dim)))
+    k_main, k_fold = _kv_planes(k_cache, x.dtype)
+    v_main, v_fold = _kv_planes(v_cache, x.dtype)
+    main_t = k_main.shape[2]
+    side_len = k_side.shape[2]
+    main_valid = (torch.arange(main_t, device=x.device)[None] <
+                  entry_lengths[:, None])[:, None, None, :]
+    side_ok = side_valid[:, None, None].expand(
+        slots_n, 1, group, width, side_len).reshape(slots_n, 1, rows,
+                                                    side_len)
+    scores_main = torch.matmul(q_rows, k_main.float().transpose(-1, -2)) \
+        * scale
+    if k_fold is not None:
+        scores_main = scores_main * k_fold[:, :, None, :]
+    scores_side = torch.matmul(q_rows, k_side.float().transpose(-1, -2)) \
+        * scale
+    scores = torch.cat([torch.where(main_valid, scores_main, -1e30),
+                        torch.where(side_ok, scores_side, -1e30)], dim=-1)
+    weights = torch.softmax(scores, dim=-1)
+    w_main = weights[..., :main_t]
+    if v_fold is not None:
+        w_main = w_main * v_fold[:, :, None, :]
+    out = torch.matmul(w_main.to(v_main.dtype).float(), v_main.float()) + \
+        torch.matmul(weights[..., main_t:].to(v_side.dtype).float(),
+                     v_side.float())
+    out = out.reshape(slots_n, num_heads, width, head_dim).to(x.dtype)
+    return L.linear(layer["attn"]["o"], L._merge_heads(out))
+
+
+def _slot_attention_block(layer, config: LlamaConfig, x, cos, sin,
+                          k_cache, v_cache, k_side, v_side, entry_lengths,
+                          lengths, step_index: int):
+    """Decode attention at loop step `step_index`: the side entries
+    written this round up to this step, and none past the slot's own
+    take (a slot that stopped keeps its stale side rows masked)."""
+    side_positions = torch.arange(k_side.shape[2], device=x.device)
+    side_valid = ((side_positions[None] <= step_index) &
+                  (side_positions[None] <
+                   (lengths - entry_lengths + 1)[:, None]))[:, None, :]
+    return _grouped_block_attention(layer, config, x, cos, sin, k_cache,
+                                    v_cache, k_side, v_side, entry_lengths,
+                                    lengths, step_index, side_valid)
+
+
+def _slot_attention_spec(layer, config: LlamaConfig, x, cos, sin, k_cache,
+                         v_cache, k_side, v_side, pos_side, entry_lengths,
+                         lengths, base: int):
+    """The speculative verify's attention: `x` carries W = 1 + k tokens a
+    slot at positions lengths + [0, W).  The round's side entries carry
+    their absolute positions (`pos_side`; rejected drafts hold
+    _POS_INVALID), so causality inside and across verify blocks is one
+    comparison, pos_side <= q_pos."""
+    width = x.shape[1]
+    q_pos = lengths[:, None] + torch.arange(width, device=x.device)[None]
+    side_valid = pos_side[:, None, :] <= q_pos[:, :, None]      # [S, W, P]
+    return _grouped_block_attention(layer, config, x, cos, sin, k_cache,
+                                    v_cache, k_side, v_side, entry_lengths,
+                                    lengths, base, side_valid)
+
+
+# -- in-place merges with JAX's dropped indices --------------------------------
+
+def _drop_positions(positions, live, extent: int, spare):
+    """(positions with every dropped entry sent to its row's `spare`
+    position, keep mask): an entry drops where `live` is False or its
+    position lies outside [0, extent), as a mode="drop" scatter drops
+    it.  A dropped entry writes back what its spare position holds, so
+    the write keeps its shape on the device; `spare` [S] must be a
+    position no kept entry of the row writes."""
+    keep = live & (positions >= 0) & (positions < extent)
+    return torch.where(keep, positions, spare[:, None]).long(), keep
+
+
+def _merge_rows(cache, positions, keep, side) -> None:
+    """Write side rows [S, H, P, D] into a dense cache leaf at per-slot
+    time positions [S, P] where `keep` holds, in place; the kept
+    positions of a row are distinct.  An int8 cache quantizes the side
+    rows once, here."""
+    rows = torch.arange(positions.shape[0], device=positions.device)[:, None]
+    stored = L.quantize_kv_cache(side) if isinstance(cache, dict) else side
+    for plane, values in L._plane_pairs(cache, stored):
+        values = values.transpose(1, 2).to(plane.dtype)  # [S, P, H, (D)]
+        mask = keep.view(*keep.shape, *([1] * (values.ndim - 2)))
+        plane[rows, :, positions] = torch.where(mask, values,
+                                                plane[rows, :, positions])
+
+
+def _admit_context(context, slots, prompts, valid) -> None:
+    """Seed the drafter's context rows of admitted slots with their
+    prompts [A, bucket], in place; pad rows rewrite their own."""
+    bucket = prompts.shape[1]
+    current = context[slots, :bucket]
+    context[slots, :bucket] = torch.where(valid[:, None], prompts, current)
+
+
+def _extend_context(context, slots, chunk_tokens, offsets, valid) -> None:
+    """Write a prompt chunk [A, C] into the drafter's context rows at
+    each row's offset, clamped into the row as dynamic_update_slice
+    clamps, in place; pad rows rewrite their own."""
+    chunk = chunk_tokens.shape[1]
+    starts = offsets.clamp(0, context.shape[1] - chunk)
+    positions = (starts[:, None] + torch.arange(
+        chunk, device=offsets.device)[None]).long()
+    rows = slots.long()[:, None]
+    context[rows, positions] = torch.where(valid[:, None], chunk_tokens,
+                                           context[rows, positions])
+
+
+# -- the decode and speculative rounds ------------------------------------------
+
+def _side_buffers(config: LlamaConfig, slots_n: int, length: int,
+                  device) -> tuple:
+    """A round's zeroed per-layer K and V side buffers [S, Hkv, length,
+    D] in the compute dtype."""
+    shape = (slots_n, config.num_kv_heads, length, config.head_dim)
+    k_sides = [torch.zeros(shape, dtype=config.dtype, device=device)
+               for _ in range(config.num_layers)]
+    return k_sides, [torch.zeros_like(side) for side in k_sides]
+
+
+def _decode_steps(params, config: LlamaConfig, tokens, lengths, active,
+                  budgets, eos: int, num_steps: int, attention) -> tuple:
+    """`num_steps` greedy steps for every slot with no host sync: a slot
+    stops inside the loop the moment it emits `eos` or spends its
+    budget.  `attention(i, layer, normed, lengths, step_index)` is one
+    layer's attention at a step.  Returns (emitted [K, S], emitted_active
+    [K, S], tokens, lengths)."""
+    emitted, emitted_active = [], []
+    for step_index in range(num_steps):
+        def attend(i, layer, normed, lengths=lengths,
+                   step_index=step_index):
+            return attention(i, layer, normed, lengths, step_index)
+
+        next_tokens = _token_block_argmax(params, config, tokens[:, None],
+                                          attend)[:, 0]
+        next_tokens = torch.where(active, next_tokens, tokens)
+        lengths = torch.where(active, lengths + 1, lengths)
+        budgets = torch.where(active, budgets - 1, budgets)
+        still = active & (budgets > 0) & (next_tokens != eos)
+        emitted.append(next_tokens)
+        emitted_active.append(active)
+        tokens, active = next_tokens, still
+    return torch.stack(emitted), torch.stack(emitted_active), tokens, \
+        lengths
+
+
+def _build_step(config: LlamaConfig, device):
+    """The dense decode round in the block KV write: `num_steps` greedy
+    steps over the read-only slot caches plus per-layer side buffers,
+    then one merge of each slot's side rows at its round-entry length
+    (clamped into the cache, as JAX's dynamic_update_slice clamps; rows
+    past a slot's take are dead cells beyond its length).  Slots
+    inactive at round entry merge nothing: a mid-prefill slot's stale
+    length points into the prompt its extends are writing.  Returns
+    step(params, tokens, lengths, active, budgets, k_caches, v_caches,
+    *, num_steps, eos) → (emitted [K, S], emitted_active [K, S], tokens,
+    lengths); the caches update in place."""
+    cos, sin = L.rope_frequencies(config.head_dim, config.max_seq_len,
+                                  config.rope_theta, device=device)
+
+    def step(params, tokens, lengths, active, budgets, k_caches, v_caches,
+             *, num_steps: int, eos: int):
+        entry_lengths, entry_active = lengths, active
+        k_sides, v_sides = _side_buffers(config, tokens.shape[0], num_steps,
+                                         device)
+
+        def attention(i, layer, normed, lengths, step_index):
+            return _slot_attention_block(
+                layer, config, normed, cos, sin, k_caches[i], v_caches[i],
+                k_sides[i], v_sides[i], entry_lengths, lengths, step_index)
+
+        emitted, emitted_active, tokens, lengths = _decode_steps(
+            params, config, tokens, lengths, active, budgets, eos,
+            num_steps, attention)
+        merge_at = entry_lengths.clamp(
+            0, max(0, _cache_time(k_caches[0]) - num_steps))
+        positions = (merge_at[:, None] + torch.arange(
+            num_steps, device=device)[None]).long()
+        keep = entry_active[:, None].expand(-1, num_steps)
+        for caches, sides in ((k_caches, k_sides), (v_caches, v_sides)):
+            for cache, side in zip(caches, sides):
+                _merge_rows(cache, positions, keep, side)
+        return emitted, emitted_active, tokens, lengths
+
+    return step
+
+
+# invalid side-buffer / context position: past any cache index, so the
+# position masks fail and the merges drop it
+_POS_INVALID = 1 << 30
+
+
+def _spec_rope(config: LlamaConfig, k_spec: int, device) -> tuple:
+    """RoPE tables for the verify: k_spec rows past max_seq_len, for the
+    drafts of a block near the sequence cap (never emitted: JAX's take
+    fills them with NaN, which an index past the table on the card would
+    fault on instead)."""
+    return L.rope_frequencies(config.head_dim, config.max_seq_len + k_spec,
+                              config.rope_theta, device=device)
+
+
+def _spec_scan_body(config: LlamaConfig, cos, sin, k_spec: int,
+                    ngram: int, params, eos: int, k_caches, v_caches,
+                    entry_lengths, k_sides, v_sides, pos_side,
+                    attention=None):
+    """The speculative draft / verify / accept step, the ONE copy the
+    dense (_build_spec_step) and paged (serving_paged.
+    _build_paged_spec_step) builders share; they differ only in the
+    main cache they hand it (dense slot caches, or the pool leaves with
+    the kernel's attention seam) and in how the round's consumed side
+    entries merge at its end.  Returns body(tokens, lengths, active,
+    budgets, context, step_index) → (tokens, lengths, active, budgets,
+    block_argmax [S, W], emit [S, W]); the context buffer, the side
+    buffers and pos_side update in place.
+
+    `attention` is the verify attention (default _slot_attention_spec);
+    it writes its block's K/V into the side buffers at the block's base
+    index and returns the output projection."""
+    width = k_spec + 1
+    if attention is None:
+        attention = _slot_attention_spec
+    device = entry_lengths.device
+    slots_n = entry_lengths.shape[0]
+    col = torch.arange(width, device=device)[None]              # [1, W]
+    draft_steps = torch.arange(k_spec, device=device)[None]
+
+    def draft(context, tokens, lengths):
+        """Prompt-lookup drafts [S, k_spec]: match the last `ngram` tokens
+        (the pending token and ngram - 1 history tokens) at every history
+        position, take the LATEST hit and propose the tokens that
+        followed it.  A miss proposes zeros (a certain rejection: the
+        block runs at width 1 + k_spec either way, and acceptance decides
+        how many tokens a step yields, never which)."""
+        ctx_len = context.shape[1]
+        pos = torch.arange(ctx_len, device=device)[None]        # [1, C]
+        lens = lengths[:, None]
+        hit = (pos >= ngram - 1) & (pos < lens) & \
+            (context == tokens[:, None])
+        for i in range(1, ngram):
+            prev = torch.gather(context, 1,
+                                (lens - i).clamp(0, ctx_len - 1).long())
+            # the roll never wraps into the valid region: a hit needs
+            # pos >= ngram - 1 >= i
+            hit = hit & (torch.roll(context, i, dims=1) == prev)
+        # prefer the latest hit whose continuation is all written
+        # history (k_spec real tokens follow it); else the latest with
+        # at least one
+        full = hit & (pos <= lens - 1 - k_spec)
+        some = hit & (pos < lens - 1)
+        best_full = torch.where(full, pos, -1).amax(dim=1)
+        best_some = torch.where(some, pos, -1).amax(dim=1)
+        best = torch.where(best_full >= 0, best_full, best_some)  # [S]
+        take = (best[:, None] + 1 + draft_steps).clamp(0, ctx_len - 1)
+        drafts = torch.gather(context, 1, take)
+        return torch.where(best[:, None] >= 0, drafts, 0)
+
+    def body(tokens, lengths, active, budgets, context, step_index: int):
+        drafts = draft(context, tokens, lengths)
+        seq = torch.cat([tokens[:, None], drafts], dim=1)       # [S, W]
+        base = step_index * width
+        q_pos = lengths[:, None] + col                          # [S, W]
+        # provisional: the whole block is live while it attends to
+        # itself; rejected entries are invalidated after acceptance
+        pos_side[:, base:base + width] = q_pos
+
+        def attend(i, layer, normed):
+            return attention(layer, config, normed, cos, sin, k_caches[i],
+                             v_caches[i], k_sides[i], v_sides[i], pos_side,
+                             entry_lengths, lengths, base)
+
+        block_argmax = _token_block_argmax(params, config, seq, attend)
+        # greedy acceptance: draft j survives iff the argmax after
+        # consuming seq[:j + 1] reproduces it; the first miss takes the
+        # model's own token (always emitted: the non-speculative step)
+        match = (drafts == block_argmax[:, :-1]).to(torch.int32)
+        accepted = torch.cumprod(match, dim=1).sum(dim=1)       # [S]
+        can = (col <= accepted[:, None]) & (col < budgets[:, None]) & \
+            active[:, None]
+        stop = (block_argmax == eos) & can
+        keep = torch.cumprod(1 - stop.to(torch.int32), dim=1)
+        keep_excl = torch.cat([torch.ones_like(keep[:, :1]), keep[:, :-1]],
+                              dim=1)
+        emit = can & (keep_excl > 0)
+        emitted_n = emit.sum(dim=1, dtype=torch.int32)
+        last = torch.gather(block_argmax, 1,
+                            (emitted_n - 1).clamp(min=0).long()[:, None])
+        tokens = torch.where(emitted_n > 0, last[:, 0], tokens)
+        # the context takes the whole block of an active slot: entries
+        # past the consumed run lie beyond the new length, rewritten by
+        # the next step before the drafter (pos < length) reads them
+        ctx_pos, ctx_keep = _drop_positions(
+            q_pos, active[:, None].expand(-1, width), context.shape[1],
+            (lengths - 1).clamp(min=0))
+        rows = torch.arange(slots_n, device=device)[:, None]
+        context[rows, ctx_pos] = torch.where(ctx_keep, seq,
+                                             context[rows, ctx_pos])
+        lengths = lengths + emitted_n
+        budgets = budgets - emitted_n
+        active = active & (budgets > 0) & ~(stop & emit).any(dim=1)
+        pos_side[:, base:base + width] = torch.where(
+            col < emitted_n[:, None], q_pos, _POS_INVALID)
+        return tokens, lengths, active, budgets, block_argmax, emit
+
+    return body
+
+
+def _spec_round(config: LlamaConfig, cos, sin, k_spec: int, ngram: int,
+                params, tokens, lengths, active, budgets, context, k_caches,
+                v_caches, *, num_steps: int, eos: int,
+                attention=None) -> tuple:
+    """`num_steps` speculative steps for every slot (_spec_scan_body over
+    fresh side buffers of num_steps x (1 + k_spec) entries, all
+    _POS_INVALID).  Returns (emitted [K, S, W], emit_mask [K, S, W],
+    tokens, lengths, k_sides, v_sides, pos_side): the builders merge the
+    consumed side entries into their store."""
+    side_len = num_steps * (k_spec + 1)
+    device = tokens.device
+    k_sides, v_sides = _side_buffers(config, tokens.shape[0], side_len,
+                                     device)
+    pos_side = torch.full((tokens.shape[0], side_len), _POS_INVALID,
+                          dtype=torch.int32, device=device)
+    body = _spec_scan_body(config, cos, sin, k_spec, ngram, params, eos,
+                           k_caches, v_caches, lengths, k_sides, v_sides,
+                           pos_side, attention=attention)
+    emitted, masks = [], []
+    for step_index in range(num_steps):
+        tokens, lengths, active, budgets, block, emit = body(
+            tokens, lengths, active, budgets, context, step_index)
+        emitted.append(block)
+        masks.append(emit)
+    return (torch.stack(emitted), torch.stack(masks), tokens, lengths,
+            k_sides, v_sides, pos_side)
+
+
+def _build_spec_step(config: LlamaConfig, k_spec: int, ngram: int, device):
+    """The dense speculative round: each step drafts `k_spec` tokens a
+    slot by prompt lookup in the slot's own context buffer (no second
+    model), scores the 1 + k_spec block in one widened forward and
+    advances each slot by its accepted run.  Greedy acceptance makes
+    the emitted stream the non-speculative greedy stream; speculation
+    changes only how many tokens one pass over the weights yields.  The
+    main caches stay read-only; the round's side entries, tagged with
+    their absolute positions, merge once at its end and the rejected
+    ones (_POS_INVALID) drop.  Returns spec_step(params, tokens,
+    lengths, active, budgets, context, k_caches, v_caches, *, num_steps,
+    eos) → (emitted [K, S, W], emit_mask [K, S, W], tokens, lengths);
+    the context buffer and the caches update in place."""
+    cos, sin = _spec_rope(config, k_spec, device)
+
+    def spec_step(params, tokens, lengths, active, budgets, context,
+                  k_caches, v_caches, *, num_steps: int, eos: int):
+        entry_lengths = lengths
+        emitted, emit_mask, tokens, lengths, k_sides, v_sides, pos_side = \
+            _spec_round(config, cos, sin, k_spec, ngram, params, tokens,
+                        lengths, active, budgets, context, k_caches,
+                        v_caches, num_steps=num_steps, eos=eos)
+        # each consumed side entry lands at its absolute position; the
+        # _POS_INVALID ones (rejected drafts, inactive slots) drop
+        positions, keep = _drop_positions(
+            pos_side, pos_side < _POS_INVALID, _cache_time(k_caches[0]),
+            (entry_lengths - 1).clamp(min=0))
+        for caches, sides in ((k_caches, k_sides), (v_caches, v_sides)):
+            for cache, side in zip(caches, sides):
+                _merge_rows(cache, positions, keep, side)
+        return emitted, emit_mask, tokens, lengths
+
+    return spec_step
+
+
+@functools.lru_cache(maxsize=16)
+def _round_step_for(config: LlamaConfig, paged: bool, k_spec: int,
+                    ngram: int, device):
+    """Process-wide builder cache: decoders of one (config, cache kind,
+    speculation, device) share one round step and its RoPE tables."""
+    if paged:
+        return _build_paged_spec_step(config, k_spec, ngram, device) \
+            if k_spec else _build_paged_step(config, device)
+    return _build_spec_step(config, k_spec, ngram, device) if k_spec \
+        else _build_step(config, device)
+
+
+# -- the dense programs: admit, prefix copy, chunk extend ----------------------
+
+def _dense_admit(params, config: LlamaConfig, k_caches, v_caches, tokens,
+                 lengths, context, prompts, true_lens, slots, valid):
+    """Bucketed single-shot prefill of `width` prompts [width, bucket]
+    into the dense slot caches: each valid row's K/V prefix lands in its
+    slot's rows [0, bucket) (quantized for an int8 cache), its first
+    token and length in `tokens` / `lengths`, its prompt in the
+    drafter's context row with speculation (all in place).  Pad rows
+    (valid False) sit on distinct spare slots and rewrite their own
+    content.  Returns the first tokens [width] int32."""
+    from .models.llama import init_llama_caches, llama_hidden
+    width, bucket = prompts.shape
+    caches = init_llama_caches(config, width, bucket, device=prompts.device)
+    hidden, caches = llama_hidden(params, config, prompts, caches)
+    idx = (true_lens - 1).clamp(min=0).long()
+    last_hidden = hidden[torch.arange(width, device=prompts.device), idx]
+    last = L.linear_logits(params["lm_head"], last_hidden)
+    firsts = torch.argmax(last, dim=-1).to(torch.int32)
+    slots = slots.long()
+    for i, cache in enumerate(caches):
+        for leaves, rows in ((k_caches, cache["k"]), (v_caches, cache["v"])):
+            stored = L.quantize_kv_cache(rows) \
+                if isinstance(leaves[i], dict) else rows
+            for plane, values in L._plane_pairs(leaves[i], stored):
+                mask = valid.view(-1, *([1] * (values.ndim - 1)))
+                plane[slots, :, :bucket] = torch.where(
+                    mask, values.to(plane.dtype), plane[slots, :, :bucket])
+    tokens[slots] = torch.where(valid, firsts, tokens[slots])
+    lengths[slots] = torch.where(valid, true_lens, lengths[slots])
+    if context is not None:
+        _admit_context(context, slots, prompts, valid)
+    return firsts
+
+
+def _dense_extend(params, config: LlamaConfig, k_caches, v_caches, tokens,
+                  lengths, context, chunk_tokens, offsets, slots, valid,
+                  finish, final_idx):
+    """One prompt chunk [width, chunk] for mid-prefill slots of the dense
+    cache: row a's tokens sit at positions offsets[a] + [0, chunk), each
+    query attends its slot's cache positions <= its own over the whole
+    extent, with the chunk's own K/V (exact, in the compute dtype) in
+    place of the cache's at the chunk's positions; an int8 cache
+    dequantizes the rest first.  Then the chunk's K/V (quantized for an
+    int8 cache) land at those positions, clamped into the cache as
+    dynamic_update_slice clamps.  Rows with `finish` take their first
+    token from position final_idx and set their slot's token and length;
+    pad rows (valid False, distinct spare slots) change nothing.
+    Returns the first tokens [width] int32."""
+    num_heads, num_kv = config.num_heads, config.num_kv_heads
+    group = num_heads // num_kv
+    width, chunk = chunk_tokens.shape
+    device = chunk_tokens.device
+    cos, sin = L.rope_frequencies(config.head_dim, config.max_seq_len,
+                                  config.rope_theta, device=device)
+    x = L.embedding(params["embed"], chunk_tokens).to(config.dtype)
+    t_cap = _cache_time(k_caches[0])
+    steps = torch.arange(chunk, device=device)
+    q_pos = offsets[:, None] + steps[None]                      # [A, C]
+    mask = (torch.arange(t_cap, device=device)[None, None, :] <=
+            q_pos[:, :, None])[:, None, None]                 # [A,1,1,C,T]
+    write_pos = (offsets.clamp(0, t_cap - chunk)[:, None] +
+                 steps[None]).long()
+    rows_index = torch.arange(width, device=device)[:, None]
+    slots = slots.long()
+    keep = valid[:, None].expand(-1, chunk)
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(config.head_dim)))
+    for i, layer in enumerate(params["layers"]):
+        q, k, v = _project_qkv(layer, config,
+                               L.rms_norm(layer["ln_attn"], x))
+        q = L.apply_rope(q, cos, sin, offsets)
+        k = L.apply_rope(k, cos, sin, offsets)
+        # the slots' rows, gathered (a copy) and dequantized
+        k_rows = L.dequantize_kv_cache(_rows_of(k_caches[i], slots),
+                                       x.dtype)
+        v_rows = L.dequantize_kv_cache(_rows_of(v_caches[i], slots),
+                                       x.dtype)
+        k_rows[rows_index, :, write_pos] = k.transpose(1, 2)
+        v_rows[rows_index, :, write_pos] = v.transpose(1, 2)
+        q_rows = q.reshape(width, num_kv, group * chunk,
+                           config.head_dim).float()
+        scores = (torch.matmul(q_rows, k_rows.float().transpose(-1, -2)) *
+                  scale).view(width, num_kv, group, chunk, t_cap)
+        weights = torch.softmax(torch.where(mask, scores, -1e30), dim=-1)
+        out = torch.matmul(
+            weights.view(width, num_kv, group * chunk, t_cap)
+            .to(v_rows.dtype).float(), v_rows.float())
+        out = out.reshape(width, num_heads, chunk,
+                          config.head_dim).to(x.dtype)
+        x = x + L.linear(layer["attn"]["o"], L._merge_heads(out))
+        x = x + llama_ffn(layer, config, L.rms_norm(layer["ln_mlp"], x))
+        for cache, new in ((k_caches[i], k), (v_caches[i], v)):
+            stored = L.quantize_kv_cache(new) if isinstance(cache, dict) \
+                else new
+            for plane, values in L._plane_pairs(cache, stored):
+                values = values.transpose(1, 2).to(plane.dtype)
+                where = keep.view(*keep.shape,
+                                  *([1] * (values.ndim - 2)))
+                plane[slots[:, None], :, write_pos] = torch.where(
+                    where, values, plane[slots[:, None], :, write_pos])
+    x = L.rms_norm(params["ln_out"], x)
+    last_hidden = x[torch.arange(width, device=device), final_idx.long()]
+    last = L.linear_logits(params["lm_head"], last_hidden)
+    firsts = torch.argmax(last, dim=-1).to(torch.int32)
+    apply = valid & finish
+    tokens[slots] = torch.where(apply, firsts, tokens[slots])
+    lengths[slots] = torch.where(apply, offsets + final_idx + 1,
+                                 lengths[slots])
+    if context is not None:
+        _extend_context(context, slots, chunk_tokens, offsets, valid)
+    return firsts
+
+
+def _rows_of(cache, slots):
+    """The given slots' rows of a dense cache leaf (a gather: a copy)."""
+    if isinstance(cache, dict):
+        return {key: plane[slots] for key, plane in cache.items()}
+    return cache[slots]
+
+
 class ContinuousDecoder:
-    """Iteration-level scheduler over a fixed slot pool, paged KV.
+    """Iteration-level scheduler over a fixed slot pool.
 
     submit() enqueues a request; drive it from an event engine (attach)
     or call pump() until idle.  Each round, decode-first: run up to
-    steps_per_sync decode steps for every live slot, dispatch prefix-hit
-    admits (table edits), bucketed admits and prompt chunks behind them,
-    fetch the round's emissions and earlier rounds' admit and extend
-    outputs in one host transfer, deliver tokens and retire finished
-    slots through their callbacks (harvesting their blocks into the
-    prefix cache when one is bound).
+    steps_per_sync decode steps (speculate_k: verify steps of 1 +
+    speculate_k tokens) for every live slot, dispatch prefix-hit admits,
+    bucketed admits and prompt chunks behind them, fetch the round's
+    emissions and earlier rounds' admit and extend outputs in one host
+    transfer, deliver tokens and retire finished slots through their
+    callbacks (harvesting their rows into the prefix cache when one is
+    bound).
+
+    The KV store is the dense slot cache (paged_kv False, the default:
+    one [S, Hkv, T, D] tensor per layer whose extent T follows the
+    workload) or the paged block pool (paged_kv True: blocks through
+    per-slot tables, read by the paged kernel; prefix hits alias
+    blocks).  kv_cache_dtype "int8" stores either as int8 with
+    per-position scales.
 
     params: the port's Llama (models/llama.py) on `device`; device None
     means the CUDA card, "cpu" runs the kernels' plain versions."""
@@ -600,12 +1266,23 @@ class ContinuousDecoder:
                  weight_quant: bool = False,
                  fuse_projections: bool = False,
                  kv_cache_dtype: str | None = None,
-                 speculate_k: int = 0, name: str = "decoder",
-                 registry=None, prefix_cache: PrefixKVCache | None = None,
+                 speculate_k: int = 0, speculate_ngram: int = 2,
+                 name: str = "decoder", registry=None,
+                 prefix_cache: PrefixKVCache | None = None,
                  paged_kv: bool = False, kv_block: int = 32,
                  device=None):
-        if not paged_kv:
-            _not_ported("the dense slot cache (paged_kv=False)", "4")
+        # the JAX decoder's A/B variants, read from its environment
+        # variables: the port runs the "block" KV write (JAX's default:
+        # a round's K/V go to side buffers merged at its end) and its
+        # two-pass or paged-kernel attention; "select" and its "online" /
+        # "vpu" inner loops are not ported
+        kv_write = os.environ.get("AIKO_DECODE_KV", "block")
+        attention = os.environ.get("AIKO_DECODE_ATTENTION", "two_pass")
+        if kv_write != "block":
+            _not_ported(f"the {kv_write!r} KV write (AIKO_DECODE_KV)", "4")
+        if attention in ("online", "vpu"):
+            _not_ported(f"the {attention!r} decode attention "
+                        f"(AIKO_DECODE_ATTENTION)", "4")
         dtype_norm = (kv_cache_dtype or "native").lower()
         if dtype_norm not in ("native", "int8"):
             raise ValueError(
@@ -615,8 +1292,19 @@ class ContinuousDecoder:
         # position) f32 scales; greedy outputs are not those of the
         # native pool (the stored K/V are rounded), so it is opt-in
         self.kv_int8 = dtype_norm == "int8"
-        if speculate_k:
-            _not_ported("speculative decoding (speculate_k)", "3")
+        # self-speculative decoding: each verify step drafts speculate_k
+        # tokens a slot by prompt lookup in a device-side context buffer
+        # and verifies the widened block in one forward; greedy
+        # acceptance keeps the emitted stream the non-speculative one.
+        # The side buffers hold steps_per_sync * (1 + speculate_k)
+        # entries
+        self.speculate_k = int(speculate_k or 0)
+        if self.speculate_k < 0:
+            raise ValueError(f"speculate_k must be >= 0, got "
+                             f"{speculate_k}")
+        self.speculate_ngram = int(speculate_ngram)
+        if self.speculate_k and self.speculate_ngram < 1:
+            raise ValueError("speculate_ngram must be >= 1")
         if weight_quant or fuse_projections:
             _not_ported("weight_quant and fuse_projections", "4")
         if config.num_experts:
@@ -624,9 +1312,10 @@ class ContinuousDecoder:
                         "4")
         # a bound prefix cache fixes the block size: its blocks ARE pool
         # blocks
+        self.paged = bool(paged_kv)
         self.kv_block = int(prefix_cache.block_tokens) \
             if prefix_cache is not None else int(kv_block)
-        if self.kv_block < 1:
+        if self.paged and self.kv_block < 1:
             raise ValueError(f"kv_block must be >= 1, got {kv_block}")
         self.config = config
         self.params = params
@@ -663,7 +1352,6 @@ class ContinuousDecoder:
         # hook: fires when the last slot retires and nothing is pending
         self.on_idle = None
         self._cache_t = min(self.t_block, self.max_seq)
-        block = self.kv_block
         # the prefix cache: hash-addressed block sharing across requests
         # and sessions; bind() enforces one layout across the decoders
         # sharing it
@@ -673,45 +1361,35 @@ class ContinuousDecoder:
                            config.head_dim, str(config.dtype),
                            self.kv_int8, self.kv_block, itemsize)
         if prefix_cache is not None:
-            prefix_cache.bind(self._kv_layout, paged=True)
-        # table width covers the worst-case extent _fit_caches can reach
-        # (max_seq + the round merge's headroom)
-        self._table_blocks = -(-(self.max_seq + steps_per_sync) // block)
-        initial = max_slots * (-(-self._cache_t // block))
-        if prefix_cache is not None and prefix_cache.paged:
-            # a decoder sharing an already-attached cache adopts its pool
-            # and reserves its own slot coverage on top of what is
-            # resident
-            self.pool = prefix_cache.pool
-            self.pool.reserve(self.pool.num_blocks - 1 + initial)
+            prefix_cache.bind(self._kv_layout, paged=self.paged)
+            if not self.paged and prefix_cache.paged:
+                raise ValueError(
+                    "prefix cache holds paged (pool-resident) blocks; a "
+                    "dense decoder cannot bind it")
+        # bytes one position of every slot's K and V takes, all layers
+        # (int8: D values and one f32 scale): the prefix copy and harvest
+        # byte counters' unit
+        per_position = (config.head_dim + 4) if self.kv_int8 \
+            else config.head_dim * itemsize
+        self._kv_bytes_per_t = (2 * config.num_layers * max_slots *
+                                config.num_kv_heads * per_position)
+        self.pool = None
+        if self.paged:
+            self._init_pool(prefix_cache, name, registry)
         else:
-            self.pool = BlockPool(
-                config, block, self.kv_int8, initial_blocks=initial,
-                grow_blocks=max(1, max_slots * self.t_block // block),
-                name=name, registry=registry, device=self.device)
-            if prefix_cache is not None:
-                prefix_cache.attach_pool(self.pool)
-                if prefix_cache.max_bytes:
-                    # the cache's pool residency up front, bounded by one
-                    # full-max_seq slot population: steady state needs no
-                    # growth inside the serving window
-                    anticipated = min(
-                        prefix_cache.max_bytes // self.pool.block_nbytes,
-                        max_slots * (-(-self.max_seq // block)))
-                    self.pool.reserve(initial + anticipated)
-        self._tables_np = np.zeros((max_slots, self._table_blocks),
-                                   np.int32)
-        # reused host buffer for admit table rows
-        self._tables_scratch = np.zeros_like(self._tables_np)
-        self._tables_dirty = True
-        self._tables_dev = None
-        self._tables_dev_nb = -1
-        # per-slot owned or aliased pool block ids, in table order
-        self._slot_blocks: list[list] = [[] for _ in range(max_slots)]
+            self._k = self._zero_caches()
+            self._v = self._zero_caches()
+        self._prefix_pad = None          # lazy zero block (dense copy-in)
         self._tokens = torch.zeros((max_slots,), dtype=torch.int32,
                                    device=self.device)
         self._lengths = torch.zeros_like(self._tokens)
-        self._step = _build_paged_step(config, self.device)
+        # the drafter's token history per slot, written by admits,
+        # extends, prefix admits and the verify steps (speculation only)
+        self._context = torch.zeros((max_slots, self.max_seq),
+                                    dtype=torch.int32, device=self.device) \
+            if self.speculate_k else None
+        self._step = _round_step_for(config, self.paged, self.speculate_k,
+                                     self.speculate_ngram, self.device)
         # in-flight prefix dedup window: leading block key -> the request
         # prefilling that chain now.  Bounded by the slot pool: entries
         # unregister at early harvest or retire
@@ -732,17 +1410,23 @@ class ContinuousDecoder:
              "tokens_prefill": 0, "prefill_chunks": 0, "chunk_admits": 0,
              "prefix_admits": 0, "round_prefill_tokens_max": 0,
              "admission_shed": 0, "dedup_deferred": 0, "dedup_shared": 0,
+             # drafts scored and accepted by the verify, and the mean
+             # tokens an emitting verify step yielded
+             "spec_proposed": 0, "spec_accepted": 0,
+             "accepted_per_step": 0.0,
              # bytes a hit copied into the slot and harvest copied out
-             # (0 here: aliasing and refcounts), and copy-on-extend
-             # events (a write into a shared block copies it first)
+             # (dense; 0 when paged: aliasing and refcounts), and
+             # copy-on-extend events (paged: a write into a shared block
+             # copies it first)
              "prefix_copy_bytes": 0, "harvest_copy_bytes": 0,
              "cow_copies": 0, "cow_copy_bytes": 0},
             metric="serving_decoder_total",
             help="continuous-decoder events by kind",
             registry=self._registry,
             skip=("occupancy_sum", "prefill_s", "decode_s",
-                  "round_prefill_tokens_max", "prefix_copy_bytes",
-                  "harvest_copy_bytes", "cow_copy_bytes"))
+                  "accepted_per_step", "round_prefill_tokens_max",
+                  "prefix_copy_bytes", "harvest_copy_bytes",
+                  "cow_copy_bytes"))
         # prefill tokens dispatched in the current round (the budget's
         # account)
         self._round_prefill_tokens = 0
@@ -908,9 +1592,19 @@ class ContinuousDecoder:
         self._gauge_active.set(self.active_count + len(self._pending))
 
     def kv_cache_bytes(self) -> int:
-        """Bytes allocated to the KV pool's device arrays plus the int32
-        block tables (shared prefixes count once)."""
-        return self.pool.nbytes() + int(self._tables_np.nbytes)
+        """Bytes allocated to the KV store: the dense slot caches (values
+        and scales), or the pool's device arrays plus the int32 block
+        tables (shared prefixes count once)."""
+        if self.paged:
+            return self.pool.nbytes() + int(self._tables_np.nbytes)
+        return sum(L.kv_rows_nbytes(cache) for cache in self._k + self._v)
+
+    def accept_rate(self) -> float:
+        """Share of the proposed drafts the verify accepted (0.0 when
+        speculation is off or nothing was scored)."""
+        proposed = self.stats["spec_proposed"]
+        return self.stats["spec_accepted"] / proposed if proposed \
+            else 0.0
 
     def wasted_fraction(self) -> float:
         total = self.stats["useful_steps"] + self.stats["wasted_steps"]
@@ -932,6 +1626,47 @@ class ContinuousDecoder:
         return 1 << max(0, (n - 1).bit_length())
 
     # -- paged block tables --------------------------------------------------
+    def _init_pool(self, prefix_cache, name: str, registry) -> None:
+        """The paged store: the block pool (a bound cache's, when it is
+        already attached to one), the host and device block tables and
+        the per-slot block lists."""
+        block, max_slots = self.kv_block, self.max_slots
+        # table width covers the worst-case extent _fit_caches can reach
+        # (max_seq, plus the round merge's headroom without speculation)
+        headroom = 0 if self.speculate_k else self.steps_per_sync
+        self._table_blocks = -(-(self.max_seq + headroom) // block)
+        initial = max_slots * (-(-self._cache_t // block))
+        if prefix_cache is not None and prefix_cache.paged:
+            # a decoder sharing an already-attached cache adopts its pool
+            # and reserves its own slot coverage on top of what is
+            # resident
+            self.pool = prefix_cache.pool
+            self.pool.reserve(self.pool.num_blocks - 1 + initial)
+        else:
+            self.pool = BlockPool(
+                self.config, block, self.kv_int8, initial_blocks=initial,
+                grow_blocks=max(1, max_slots * self.t_block // block),
+                name=name, registry=registry, device=self.device)
+            if prefix_cache is not None:
+                prefix_cache.attach_pool(self.pool)
+                if prefix_cache.max_bytes:
+                    # the cache's pool residency up front, bounded by one
+                    # full-max_seq slot population: steady state needs no
+                    # growth inside the serving window
+                    anticipated = min(
+                        prefix_cache.max_bytes // self.pool.block_nbytes,
+                        max_slots * (-(-self.max_seq // block)))
+                    self.pool.reserve(initial + anticipated)
+        self._tables_np = np.zeros((max_slots, self._table_blocks),
+                                   np.int32)
+        # reused host buffer for admit table rows
+        self._tables_scratch = np.zeros_like(self._tables_np)
+        self._tables_dirty = True
+        self._tables_dev = None
+        self._tables_dev_nb = -1
+        # per-slot owned or aliased pool block ids, in table order
+        self._slot_blocks: list[list] = [[] for _ in range(max_slots)]
+
     def _ensure_coverage(self, slot: int, upto: int,
                          tenant: str | None = None) -> None:
         """Extend `slot`'s block table to cover positions [0, upto) with
@@ -982,13 +1717,16 @@ class ContinuousDecoder:
     def _prepare_round_tables(self, occupied, num_steps: int):
         """Round prologue: extend every scanned slot's table to cover the
         positions this round's merge can write (entry length + num_steps
-        tokens), then hand back the device table at the current width."""
-        cap = self.max_seq + self.steps_per_sync
+        tokens, per verify block of 1 + speculate_k with speculation),
+        then hand back the device table at the current width."""
+        per_step = 1 + self.speculate_k
+        cap = self._extent_cap()
         for slot in occupied:
             request = self._slots[slot]
             owed = 0 if request.generated else 1
             current = len(request.prompt) + len(request.generated) + owed
-            self._ensure_coverage(slot, min(current + num_steps, cap))
+            self._ensure_coverage(slot,
+                                  min(current + num_steps * per_step, cap))
         return self._tables_device(-(-self._cache_t // self.kv_block))
 
     def _tables_device(self, nb: int):
@@ -1016,15 +1754,57 @@ class ContinuousDecoder:
             self._tables_np[slot, :len(owned)] = 0
             self._tables_dirty = True
 
+    def _extent_cap(self) -> int:
+        """The largest attention extent: max_seq, plus steps_per_sync of
+        headroom for the block merge, which writes a round's whole side
+        buffer at a slot's entry length (never attended past the slot's
+        take).  The speculative merge scatters at absolute positions and
+        drops those out of range, so it needs none."""
+        return self.max_seq if self.speculate_k \
+            else self.max_seq + self.steps_per_sync
+
+    def _zero_caches(self, t: int | None = None) -> list:
+        """Fresh per-layer dense slot caches at time extent `t` (default:
+        the current extent): [S, Hkv, T, D] tensors, or {"q" int8, "s"
+        f32 [S, Hkv, T]} dicts for int8."""
+        config = self.config
+        shape = (self.max_slots, config.num_kv_heads, t or self._cache_t,
+                 config.head_dim)
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        if self.kv_int8:
+            return [{"q": zeros(shape, torch.int8),
+                     "s": zeros(shape[:3], torch.float32)}
+                    for _ in range(config.num_layers)]
+        return [zeros(shape, config.dtype) for _ in range(config.num_layers)]
+
     def _fit_caches(self, required_t: int) -> None:
         """Set the attention extent to the t_block multiple covering
-        `required_t` (clamped to max_seq plus the merge's steps_per_sync
-        headroom).  The pool allocates per block on demand, so only the
-        table width read each round (and with it the bytes a step
-        streams) tracks the workload: no device copy."""
-        cap = self.max_seq + self.steps_per_sync
-        self._cache_t = min(cap, -(-required_t // self.t_block) *
-                            self.t_block)
+        `required_t`, clamped to _extent_cap.  Paged, the pool allocates
+        per block on demand, so only the table width read each round
+        (and with it the bytes a step streams) follows the workload.
+        Dense, the slot caches' time axis itself grows (zeros appended)
+        or shrinks (a sliced copy): one whole-cache copy, amortized over
+        the rounds run at the new extent.  Called with host-known
+        lengths only."""
+        new_t = min(self._extent_cap(),
+                    -(-required_t // self.t_block) * self.t_block)
+        if new_t == self._cache_t:
+            return
+        if not self.paged:
+            def resize(plane):
+                # the time axis is axis 2 of values and of scales
+                if new_t > plane.shape[2]:
+                    pad = list(plane.shape)
+                    pad[2] = new_t - plane.shape[2]
+                    return torch.cat([plane, plane.new_zeros(pad)], dim=2)
+                return plane[:, :, :new_t].contiguous()
+
+            self._k, self._v = (BlockPool._map_leaves(caches, resize)
+                                for caches in (self._k, self._v))
+        self._cache_t = new_t
 
     def _admit_pending(self) -> None:
         """Admit as many pending requests as there are free slots, in
@@ -1160,34 +1940,73 @@ class ContinuousDecoder:
 
     # -- prefix reuse ------------------------------------------------------
     def _prefix_write_len(self, request: DecodeRequest) -> int:
-        """A hit's chain tokens padded up to a pow2 block count, capped
-        at max_seq (the JAX decoder's copy-in extent; here it only sets
-        the admit round's attention extent, as it does there)."""
+        """A hit's copy-in extent: the chain's tokens padded up to a pow2
+        block count (zero blocks past the hit: dead cells), capped at
+        max_seq, where the exact length is taken.  Paged admits move no
+        rows; there it sizes the admit round's extent and the
+        speculative context seed."""
         blocks = request.prefix_hit // self.kv_block
         padded = self._next_pow2(blocks) * self.kv_block
         return padded if padded <= self.max_seq else request.prefix_hit
 
     def _prefix_admit(self, slot: int, request: DecodeRequest) -> None:
-        """Admit a prefix-hit request: alias the pinned chain's pool
-        blocks into the slot's table (one pool ref per block for the
-        slot; a host-side edit, no K/V rows move) and leave the slot
-        mid-prefill at the hit boundary: _advance_prefills runs the
-        uncached suffix, and its finishing extend gives the first
-        token."""
-        count = request.prefix_hit // self.kv_block
-        chain = self.prefix_cache.nodes(request.prefix_nodes)
-        ids = [node.pool_id for node in chain[:count]]
-        self.pool.retain(ids)
-        row = self._tables_np[slot]
-        for j, block_id in enumerate(ids):
-            row[j] = block_id
-        self._slot_blocks[slot] = list(ids)
-        self._tables_dirty = True
+        """Admit a prefix-hit request and leave the slot mid-prefill at
+        the hit boundary: _advance_prefills runs the uncached suffix, and
+        its finishing extend gives the first token.  Paged, the pinned
+        chain's pool blocks alias into the slot's table (one pool ref per
+        block for the slot; a host-side edit, no K/V rows move).  Dense,
+        the chain's rows are copied into the slot's cache rows [0,
+        _prefix_write_len), queued behind the round's decode steps like
+        every prefill dispatch.  With speculation the drafter's context
+        row takes the cached prompt tokens either way."""
+        t_write = self._prefix_write_len(request)
+        if self.paged:
+            count = request.prefix_hit // self.kv_block
+            chain = self.prefix_cache.nodes(request.prefix_nodes)
+            ids = [node.pool_id for node in chain[:count]]
+            self.pool.retain(ids)
+            row = self._tables_np[slot]
+            for j, block_id in enumerate(ids):
+                row[j] = block_id
+            self._slot_blocks[slot] = list(ids)
+            self._tables_dirty = True
+        else:
+            self._prefix_copy(slot, request, t_write)
+        if self.speculate_k:
+            ctx = np.zeros((t_write,), np.int32)
+            ctx[:request.prefix_hit] = request.prompt[:request.prefix_hit]
+            self._context[slot, :t_write] = _to_device(self.device, ctx)[0]
         request.slot = slot
         request.prefilling = True
         request.prefill_pos = request.prefix_hit
         self._slots[slot] = request
         self.stats["prefix_admits"] += 1
+
+    def _prefix_copy(self, slot: int, request: DecodeRequest,
+                     t_write: int) -> None:
+        """The dense hit's copy-in: the chain's rows (then zero blocks up
+        to t_write) into slot rows [0, t_write) of every layer, an int8
+        chain plane by plane (no second rounding)."""
+        cache = self.prefix_cache
+        pad = (t_write - request.prefix_hit) // cache.block_tokens
+        if pad and self._prefix_pad is None:
+            config = self.config
+            shape = (config.num_kv_heads, cache.block_tokens,
+                     config.head_dim)
+            zeros = functools.partial(torch.zeros, device=self.device)
+            self._prefix_pad = {"q": zeros(shape, dtype=torch.int8),
+                                "s": zeros(shape[:2], dtype=torch.float32)} \
+                if self.kv_int8 else zeros(shape, dtype=self.config.dtype)
+        chain = cache.nodes(request.prefix_nodes)
+        for attr, caches in (("k_rows", self._k), ("v_rows", self._v)):
+            for i, leaf in enumerate(caches):
+                rows = L.concat_kv_rows([getattr(node, attr)[i]
+                                         for node in chain] +
+                                        [self._prefix_pad] * pad)
+                for plane, values in L._plane_pairs(leaf, rows):
+                    plane[slot, :, :t_write] = values
+        copied = t_write * self._kv_bytes_per_t // self.max_slots
+        self.stats["prefix_copy_bytes"] += copied
 
     def _prefix_harvest(self, slot: int, request: DecodeRequest) -> None:
         """Register a retiring request's blocks with the cache: the
@@ -1214,8 +2033,11 @@ class ContinuousDecoder:
             request.inflight_key = ""
 
     def _harvest_rows(self, slot: int, tenant: str, tokens) -> None:
-        """Zero-copy harvest: the slot's own pool blocks become the cache
-        entries (retain + key), no rows move."""
+        """Register the complete blocks of `tokens` (the slot's written
+        positions) with the prefix cache, keys already cached skipped.
+        Paged, a zero-copy harvest: the slot's own pool blocks become the
+        cache entries (retain + key), no rows move.  Dense, the rows are
+        sliced out of the slot's cache into per-block copies."""
         cache = self.prefix_cache
         block = cache.block_tokens
         count = len(tokens) // block
@@ -1227,10 +2049,25 @@ class ContinuousDecoder:
             start += 1
         if start >= count:
             return
-        owned = self._slot_blocks[slot]
         parent = keys[start - 1] if start else ""
-        for j in range(start, min(count, len(owned))):
-            if not cache.insert_block(tenant, parent, keys[j], owned[j]):
+        if self.paged:
+            owned = self._slot_blocks[slot]
+            for j in range(start, min(count, len(owned))):
+                if not cache.insert_block(tenant, parent, keys[j],
+                                          owned[j]):
+                    break    # budget refused: stop, or children dangle
+                parent = keys[j]
+            return
+        base, end = start * block, count * block
+        k_splits, v_splits = ([L.slot_kv_blocks(leaf, slot, base, end, block)
+                               for leaf in caches]
+                              for caches in (self._k, self._v))
+        self.stats["harvest_copy_bytes"] += \
+            (end - base) * self._kv_bytes_per_t // self.max_slots
+        for j in range(start, count):
+            if not cache.insert(tenant, parent, keys[j],
+                                [rows[j - start] for rows in k_splits],
+                                [rows[j - start] for rows in v_splits]):
                 break        # budget refused: stop, or children dangle
             parent = keys[j]
 
@@ -1251,8 +2088,34 @@ class ContinuousDecoder:
             prompts[j, :len(request.prompt)] = request.prompt
             true_lens[j] = len(request.prompt)
             valid[j] = True
-        # each admitted slot gets fresh pool blocks padded to the block
-        # boundary; pad rows stay all-null and their writes drop
+        if self.paged:
+            firsts = self._admit_paged(bucket, width, chunk, free, slots,
+                                       pad_slots, prompts, true_lens,
+                                       valid)
+        else:
+            firsts = _dense_admit(
+                self.params, self.config, self._k, self._v, self._tokens,
+                self._lengths, self._context,
+                *_to_device(self.device, prompts, true_lens,
+                            slots + pad_slots, valid))
+        # no host sync here: the request is live with its first token
+        # owed; the stashed wave resolves it at the NEXT round's sync
+        wave = []
+        for j, request in enumerate(chunk):
+            request.slot = slots[j]
+            request.generated = []
+            self._slots[slots[j]] = request
+            self.stats["prefills"] += 1
+            self.stats["tokens_prefill"] += len(request.prompt)
+            wave.append((j, request))
+        self._admit_waves.append((firsts, wave))
+
+    def _admit_paged(self, bucket: int, width: int, chunk: list,
+                     free: list, slots: list, pad_slots: list, prompts,
+                     true_lens, valid):
+        """The paged admit dispatch: each admitted slot gets fresh pool
+        blocks padded to the block boundary; pad rows stay all-null and
+        their writes drop.  Returns the first tokens (on the device)."""
         nbb = -(-bucket // self.kv_block)
         tables_rows = self._tables_scratch[:width, :nbb]
         try:
@@ -1270,22 +2133,11 @@ class ContinuousDecoder:
             self._pending[:0] = chunk
             raise
         tables_rows[len(slots):] = 0
-        firsts = _paged_admit(
+        return _paged_admit(
             self.params, self.config, self.pool.k_pools, self.pool.v_pools,
-            self._tokens, self._lengths,
+            self._tokens, self._lengths, self._context,
             *_to_device(self.device, prompts, true_lens, slots + pad_slots,
                         valid, tables_rows))
-        # no host sync here: the request is live with its first token
-        # owed; the stashed wave resolves it at the NEXT round's sync
-        wave = []
-        for j, request in enumerate(chunk):
-            request.slot = slots[j]
-            request.generated = []
-            self._slots[slots[j]] = request
-            self.stats["prefills"] += 1
-            self.stats["tokens_prefill"] += len(request.prompt)
-            wave.append((j, request))
-        self._admit_waves.append((firsts, wave))
 
     def _advance_prefills(self) -> None:
         """Run one prompt chunk for the mid-prefill slots, batched in
@@ -1356,10 +2208,8 @@ class ContinuousDecoder:
 
     def _extend_group(self, chunk: int, width: int, batch: list) -> None:
         """Dispatch one chunk extend for `batch` [(slot, request, offset,
-        finish)] at `width` rows (pad rows on distinct spare slots, null
-        tables, offset 0).  A shared block under the chunk's writes is
-        copied to a fresh one first, queued on the stream before the
-        extend.  Rows that finish their prompt owe their first token,
+        finish)] at `width` rows (pad rows on distinct spare slots,
+        offset 0).  Rows that finish their prompt owe their first token,
         resolved from the stashed wave at the next round's sync."""
         n = len(batch)
         slots = [slot for slot, *_ in batch]
@@ -1379,28 +2229,15 @@ class ContinuousDecoder:
                 else 0
             valid[j] = True
             finish_rows[j] = finish
-        # copy-on-extend: the chunk writes positions [offset, offset +
-        # chunk); any shared block there moves to a fresh block first
-        pairs = []
-        for slot, request, offset, finish in batch:
-            self._ensure_coverage(slot, offset + chunk)
-            pairs.extend(self._copy_on_write(slot, offset, offset + chunk))
-        if pairs:
-            copied = self.pool.copy_blocks([src for src, _ in pairs],
-                                           [dst for _, dst in pairs])
-            self.stats["cow_copies"] += len(pairs)
-            self.stats["cow_copy_bytes"] += copied
-        nbt = -(-self._cache_t // self.kv_block)
-        tables_rows = self._tables_scratch[:width, :nbt]
-        for j, slot in enumerate(slots):
-            tables_rows[j] = self._tables_np[slot, :nbt]
-        tables_rows[n:] = 0                       # pad rows stay null
-        firsts = _paged_extend(
-            self.params, self.config, self.pool.k_pools, self.pool.v_pools,
-            self._tokens, self._lengths,
-            *_to_device(self.device, chunk_tokens, offsets,
-                        slots + pad_slots, valid, finish_rows, final_idx,
-                        tables_rows), t_cap=self._cache_t)
+        host = (chunk_tokens, offsets, slots + pad_slots, valid,
+                finish_rows, final_idx)
+        if self.paged:
+            firsts = self._extend_paged(chunk, width, batch, host)
+        else:
+            firsts = _dense_extend(
+                self.params, self.config, self._k, self._v, self._tokens,
+                self._lengths, self._context,
+                *_to_device(self.device, *host))
         wave = []
         for j, (slot, request, offset, finish) in enumerate(batch):
             new_pos = len(request.prompt) if finish else offset + chunk
@@ -1417,6 +2254,32 @@ class ContinuousDecoder:
             # resolved at the NEXT round's sync: the extend runs behind
             # this round's decode steps
             self._admit_waves.append((firsts, wave))
+
+    def _extend_paged(self, chunk: int, width: int, batch: list, host):
+        """The paged extend dispatch: a shared block under the chunk's
+        writes [offset, offset + chunk) is copied to a fresh one first
+        (copy-on-extend), queued on the stream before the extend; pad
+        rows get null tables.  Returns the first tokens (on the
+        device)."""
+        pairs = []
+        for slot, request, offset, finish in batch:
+            self._ensure_coverage(slot, offset + chunk)
+            pairs.extend(self._copy_on_write(slot, offset, offset + chunk))
+        if pairs:
+            copied = self.pool.copy_blocks([src for src, _ in pairs],
+                                           [dst for _, dst in pairs])
+            self.stats["cow_copies"] += len(pairs)
+            self.stats["cow_copy_bytes"] += copied
+        nbt = -(-self._cache_t // self.kv_block)
+        tables_rows = self._tables_scratch[:width, :nbt]
+        for j, (slot, *_) in enumerate(batch):
+            tables_rows[j] = self._tables_np[slot, :nbt]
+        tables_rows[len(batch):] = 0              # pad rows stay null
+        return _paged_extend(
+            self.params, self.config, self.pool.k_pools, self.pool.v_pools,
+            self._tokens, self._lengths, self._context,
+            *_to_device(self.device, *host, tables_rows),
+            t_cap=self._cache_t)
 
     def _finished(self, request: DecodeRequest, token: int) -> bool:
         return (self.eos_token is not None and token == self.eos_token) \
@@ -1443,9 +2306,10 @@ class ContinuousDecoder:
             if request.prefix_nodes:
                 self.prefix_cache.release(request.prefix_nodes)
                 request.prefix_nodes = []
-        # after the harvest retained what it keeps: cache-held blocks
-        # live on, purely owned ones return to the free list
-        self._release_slot_blocks(slot)
+        if self.paged:
+            # after the harvest retained what it keeps: cache-held blocks
+            # live on, purely owned ones return to the free list
+            self._release_slot_blocks(slot)
         self._slots[slot] = None
         self._note_active()
         self.stats["completed"] += 1
@@ -1465,10 +2329,14 @@ class ContinuousDecoder:
         many tokens each slot may still emit.  num_steps is
         retire-aligned (with requests waiting, the round ends near the
         earliest retirement so the freed slot refills) and pow2-ceiled;
-        the in-loop budget mask absorbs the overshoot."""
+        the in-loop budget mask absorbs the overshoot.  With speculation
+        a step can yield its whole block of 1 + speculate_k tokens, so
+        the steps a budget needs, and the extent a round can write, are
+        counted per block."""
         budgets = self._budgets_np
         budgets.fill(0)
         max_len = 0
+        per_step = 1 + self.speculate_k
         for slot in occupied:
             request = self._slots[slot]
             # a just-admitted slot still OWES its first token (resolved
@@ -1484,8 +2352,8 @@ class ContinuousDecoder:
         cap = int(remaining.min()) if self._pending \
             else int(remaining.max())
         num_steps = min(self.steps_per_sync,
-                        self._next_pow2(max(1, cap)))
-        return num_steps, max_len + num_steps + 1, budgets
+                        self._next_pow2(max(1, -(-cap // per_step))))
+        return num_steps, max_len + num_steps * per_step + 1, budgets
 
     def _start_fetch(self, tensors):
         """Start ONE device→host copy of the round's int tensors; on the
@@ -1546,15 +2414,21 @@ class ContinuousDecoder:
             self.stats["occupancy_sum"] += float(active.mean())
             decode_start = time.perf_counter()
             eos = -1 if self.eos_token is None else int(self.eos_token)
-            # every scanned slot's table must own the blocks this round's
-            # merge writes; then the device tables refresh if dirty
-            tables = self._prepare_round_tables(occupied, num_steps)
+            if self.paged:
+                # every scanned slot's table must own the blocks this
+                # round's merge writes; then the device tables refresh if
+                # dirty
+                tables = self._prepare_round_tables(occupied, num_steps)
+                store = (self.pool.k_pools, self.pool.v_pools, tables)
+                extent = {"t_cap": self._cache_t}
+            else:
+                store, extent = (self._k, self._v), {}
+            context = (self._context,) if self.speculate_k else ()
             emitted, emitted_active, self._tokens, self._lengths = \
                 self._step(self.params, self._tokens, self._lengths,
                            *_to_device(self.device, scan_active, budgets),
-                           self.pool.k_pools, self.pool.v_pools, tables,
-                           num_steps=num_steps, eos=eos,
-                           t_cap=self._cache_t)
+                           *context, *store, num_steps=num_steps, eos=eos,
+                           **extent)
             self.stats["steps"] += num_steps
             fetch = [emitted, emitted_active] + fetch
         transfer = self._start_fetch(fetch) if fetch else None
@@ -1565,9 +2439,11 @@ class ContinuousDecoder:
             self._round_prefill_tokens)
         host = self._finish_fetch(transfer) if transfer else []
         if scanned:
-            emitted = host[0].reshape(num_steps, self.max_slots)
-            emitted_active = host[1].reshape(num_steps,
-                                             self.max_slots).astype(bool)
+            # [K, S], or [K, S, 1 + speculate_k] verify blocks
+            shape = (num_steps, self.max_slots) + \
+                ((1 + self.speculate_k,) if self.speculate_k else ())
+            emitted = host[0].reshape(shape)
+            emitted_active = host[1].reshape(shape).astype(bool)
             host = host[2:]
             self.stats["decode_s"] += time.perf_counter() - decode_start
         # first tokens of admits from EARLIER rounds
@@ -1576,7 +2452,9 @@ class ContinuousDecoder:
                 if self._slots[request.slot] is request and \
                         not request.generated:
                     self._deliver(request.slot, int(firsts[j]))
-        if scanned:
+        if scanned and self.speculate_k:
+            self._deliver_spec(emitted, emitted_active, occupied, num_steps)
+        elif scanned:
             useful = int(emitted_active[:, occupied].sum())
             self.stats["useful_steps"] += useful
             self.stats["wasted_steps"] += \
@@ -1596,11 +2474,44 @@ class ContinuousDecoder:
             elapsed = time.perf_counter() - round_start
             self._round_ewma = elapsed if self._round_ewma is None \
                 else 0.7 * self._round_ewma + 0.3 * elapsed
-        elif self.idle:
+        elif self.idle and self.pool is not None:
             # idle tick: give the pool's free tail back
             self.pool.maybe_shrink()
         if self.idle and self.on_idle is not None:
             self.on_idle()
+
+    def _deliver_spec(self, emitted, emit_mask, occupied,
+                      num_steps: int) -> None:
+        """Walk a speculative round's [K, S, 1 + k] emissions: a slot's
+        masked tokens in (step, position) order are exactly its greedy
+        stream.  Settles the speculation counters: a verify step that
+        emitted is useful, spec_proposed counts its k drafts and
+        spec_accepted the tokens past its first; accepted_per_step is
+        the mean tokens an emitting step yielded (1.0: speculation never
+        helped)."""
+        counts = emit_mask.sum(axis=2)[:, occupied]     # [K, |occupied|]
+        verify_steps = int((counts > 0).sum())
+        self.stats["useful_steps"] += verify_steps
+        self.stats["wasted_steps"] += \
+            num_steps * len(occupied) - verify_steps
+        self.stats["spec_proposed"] += self.speculate_k * verify_steps
+        self.stats["spec_accepted"] += int(np.maximum(counts - 1, 0).sum())
+        # tokens_decode counts DELIVERED tokens: a wave-resolved EOS first
+        # token can retire a slot before its verify emissions land
+        delivered = 0
+        for slot in occupied:
+            mask = emit_mask[:, slot, :]
+            if not mask.any():
+                continue
+            for token in emitted[:, slot, :][mask]:
+                if self._slots[slot] is None:
+                    break                 # retired mid-burst (EOS)
+                self._deliver(slot, int(token))
+                delivered += 1
+        self.stats["tokens_decode"] += delivered
+        if self.stats["useful_steps"]:
+            self.stats["accepted_per_step"] = (
+                self.stats["tokens_decode"] / self.stats["useful_steps"])
 
     def _deliver(self, slot: int, token: int) -> None:
         request = self._slots[slot]

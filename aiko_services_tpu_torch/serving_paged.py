@@ -3,8 +3,9 @@
 # Counterpart of aiko_services_tpu/serving_paged.py, the part the paged
 # kernel path runs: the BlockPool allocator (native or int8 pools, shared
 # by a prefix cache: refcounts, block copies and installs), the kernel
-# attention of the decode step, the round-end side-buffer merge, the
-# bucketed admit, and the chunked-prefill extend.  The gather oracle
+# attention of the decode step and of the speculative verify (the same
+# kernel at W = 1 + speculate_k rows a slot), the round-end side-buffer
+# merge, the bucketed admit, and the chunked-prefill extend.  The gather oracle
 # (_gather_views with the shared slot attention) is not ported: on the
 # card the kernel is the only paged path, and on the CPU its plain
 # version plays the oracle's part.
@@ -18,6 +19,7 @@
 
 from __future__ import annotations
 
+import functools
 import logging
 
 import numpy as np
@@ -410,6 +412,23 @@ def _kernel_attention_block(tables, layer, config: LlamaConfig, x, cos,
                                      step_index, side_valid)
 
 
+def _kernel_attention_spec(tables, layer, config: LlamaConfig, x, cos,
+                           sin, k_pool, v_pool, k_side, v_side, pos_side,
+                           entry_lengths, lengths, base: int):
+    """The speculative verify through the paged kernel: the same kernel
+    at W = 1 + speculate_k query rows a slot, under the causal mask
+    pos_side <= q_pos ([S, W, P]).  Its signature is
+    serving._slot_attention_spec's after the leading `tables`, the
+    seam serving._spec_scan_body takes it through."""
+    width = x.shape[1]
+    q_pos = lengths[:, None] + torch.arange(width, device=x.device)[None]
+    side_valid = pos_side[:, None, :] <= q_pos[:, :, None]      # [S, W, P]
+    return _kernel_grouped_attention(layer, config, x, cos, sin, k_pool,
+                                     v_pool, tables, k_side, v_side,
+                                     entry_lengths, lengths, base,
+                                     side_valid)
+
+
 def _store_rows(pool, rows):
     """Rows [S, H, W, D] in the pool's form: quantized once
     (layers.quantize_kv_cache) for an int8 pool, as they are for a
@@ -442,7 +461,7 @@ def _build_paged_step(config: LlamaConfig, device):
     v_pools, tables, *, num_steps, eos, t_cap) → (emitted [K, S],
     emitted_active [K, S], tokens, lengths); the pools update in
     place."""
-    from .serving import _token_block_argmax
+    from .serving import _decode_steps, _side_buffers
     cos, sin = L.rope_frequencies(config.head_dim, config.max_seq_len,
                                   config.rope_theta, device=device)
 
@@ -451,31 +470,18 @@ def _build_paged_step(config: LlamaConfig, device):
         _, block_tokens = _pool_dims(k_pools[0])
         cap_tables = _table_cap(tables, block_tokens, t_cap)
         entry_lengths, entry_active = lengths, active
-        side_shape = (tokens.shape[0], config.num_kv_heads, num_steps,
-                      config.head_dim)
-        k_sides = [torch.zeros(side_shape, dtype=config.dtype,
-                               device=device)
-                   for _ in range(config.num_layers)]
-        v_sides = [torch.zeros_like(side) for side in k_sides]
-        emitted, emitted_active = [], []
-        for step_index in range(num_steps):
-            def attend(i, layer, normed, lengths=lengths,
-                       step_index=step_index):
-                return _kernel_attention_block(
-                    cap_tables, layer, config, normed, cos, sin,
-                    k_pools[i], v_pools[i], k_sides[i], v_sides[i],
-                    entry_lengths, lengths, step_index)
+        k_sides, v_sides = _side_buffers(config, tokens.shape[0], num_steps,
+                                         device)
 
-            next_tokens = _token_block_argmax(
-                params, config, tokens[:, None], attend)[:, 0]
-            next_tokens = torch.where(active, next_tokens, tokens)
-            lengths = torch.where(active, lengths + 1, lengths)
-            budgets = torch.where(active, budgets - 1, budgets)
-            still = active & (budgets > 0) & (next_tokens != eos)
-            emitted.append(next_tokens)
-            emitted_active.append(active)
-            tokens, active = next_tokens, still
+        def attention(i, layer, normed, lengths, step_index):
+            return _kernel_attention_block(
+                cap_tables, layer, config, normed, cos, sin, k_pools[i],
+                v_pools[i], k_sides[i], v_sides[i], entry_lengths, lengths,
+                step_index)
 
+        emitted, emitted_active, tokens, lengths = _decode_steps(
+            params, config, tokens, lengths, active, budgets, eos,
+            num_steps, attention)
         # merge: each slot's side rows land at their absolute positions
         # [entry_length, entry_length + num_steps); rows past a slot's
         # actual take are dead cells in blocks it owns.  Slots inactive
@@ -487,22 +493,61 @@ def _build_paged_step(config: LlamaConfig, device):
                        block_tokens)
         _paged_scatter(v_pools, tables, positions, live, v_sides,
                        block_tokens)
-        return (torch.stack(emitted), torch.stack(emitted_active), tokens,
-                lengths)
+        return emitted, emitted_active, tokens, lengths
 
     return step
 
 
+def _build_paged_spec_step(config: LlamaConfig, k_spec: int, ngram: int,
+                           device):
+    """The paged speculative round: the drafting / widened verify /
+    acceptance loop is serving._spec_round over _spec_scan_body, the one
+    copy the dense builder shares, with its attention seam on the paged kernel
+    (_kernel_attention_spec over the pool leaves and the round table);
+    the round's consumed side entries then scatter to their (block,
+    offset) pairs, rejected drafts dropping through their _POS_INVALID
+    positions.  Returns spec_step(params, tokens, lengths, active,
+    budgets, context, k_pools, v_pools, tables, *, num_steps, eos,
+    t_cap) → (emitted [K, S, W], emit_mask [K, S, W], tokens, lengths);
+    the context buffer and the pools update in place."""
+    from .serving import _POS_INVALID, _spec_round, _spec_rope
+    cos, sin = _spec_rope(config, k_spec, device)
+
+    def spec_step(params, tokens, lengths, active, budgets, context,
+                  k_pools, v_pools, tables, *, num_steps: int, eos: int,
+                  t_cap: int):
+        _, block_tokens = _pool_dims(k_pools[0])
+        attention = functools.partial(
+            _kernel_attention_spec, _table_cap(tables, block_tokens, t_cap))
+        emitted, emit_mask, tokens, lengths, k_sides, v_sides, pos_side = \
+            _spec_round(config, cos, sin, k_spec, ngram, params, tokens,
+                        lengths, active, budgets, context, k_pools,
+                        v_pools, num_steps=num_steps, eos=eos,
+                        attention=attention)
+        live = pos_side < _POS_INVALID
+        _paged_scatter(k_pools, tables, pos_side, live, k_sides,
+                       block_tokens)
+        _paged_scatter(v_pools, tables, pos_side, live, v_sides,
+                       block_tokens)
+        return emitted, emit_mask, tokens, lengths
+
+    return spec_step
+
+
 def _paged_admit(params, config: LlamaConfig, k_pools, v_pools, tokens,
-                 lengths, prompts, true_lens, slots, valid, tables_rows):
+                 lengths, context, prompts, true_lens, slots, valid,
+                 tables_rows):
     """Bucketed single-shot prefill of `width` prompts [width, bucket]:
     each valid row's K/V prefix lands in the pool blocks its table row
     names (padded with dead cells to the block boundary; quantized for
     an int8 pool), its first token and length in `tokens` / `lengths` at
-    its slot (all in place).  Pad rows (valid False) carry out-of-range
-    ids, so their writes drop, and rewrite their own distinct slot's
-    token and length.  Returns the first tokens [width] int32."""
+    its slot, and with speculation (`context` not None) its prompt in
+    the drafter's context row (all in place).  Pad rows (valid False)
+    carry out-of-range ids, so their writes drop, and rewrite their own
+    distinct slot's token and length.  Returns the first tokens [width]
+    int32."""
     from .models.llama import init_llama_caches, llama_hidden
+    from .serving import _admit_context
     num_total, block_tokens = _pool_dims(k_pools[0])
     width, bucket = prompts.shape
     caches = init_llama_caches(config, width, bucket,
@@ -522,12 +567,14 @@ def _paged_admit(params, config: LlamaConfig, k_pools, v_pools, tokens,
     slots = slots.long()
     tokens[slots] = torch.where(valid, firsts, tokens[slots])
     lengths[slots] = torch.where(valid, true_lens, lengths[slots])
+    if context is not None:
+        _admit_context(context, slots, prompts, valid)
     return firsts
 
 
 def _paged_extend(params, config: LlamaConfig, k_pools, v_pools, tokens,
-                  lengths, chunk_tokens, offsets, slots, valid, finish,
-                  final_idx, tables_rows, *, t_cap: int):
+                  lengths, context, chunk_tokens, offsets, slots, valid,
+                  finish, final_idx, tables_rows, *, t_cap: int):
     """One prompt chunk [width, chunk] for mid-prefill slots (the kernel
     path of JAX's _paged_extend_fn_for): row a's tokens sit at absolute
     positions offsets[a] + [0, chunk).  Each layer attends the pool's
@@ -538,10 +585,12 @@ def _paged_extend(params, config: LlamaConfig, k_pools, v_pools, tokens,
     dots.  Then the chunk's K/V (quantized for an int8 pool) land at
     their (block, offset) pairs, in place.  Rows with `finish` set take
     their first token from position final_idx and set their slot's token
-    and length; pad rows (valid False: null table rows, offset 0) drop
-    every write.  Returns the first tokens [width] int32."""
+    and length; with speculation (`context` not None) the chunk's tokens
+    land in the drafter's context rows at their offsets.  Pad rows (valid
+    False: null table rows, offset 0) drop every write.  Returns the
+    first tokens [width] int32."""
     from .ops.paged_attention import paged_decode_attention
-    from .serving import _project_qkv
+    from .serving import _extend_context, _project_qkv
     num_total, block_tokens = _pool_dims(k_pools[0])
     num_heads, num_kv = config.num_heads, config.num_kv_heads
     width, chunk = chunk_tokens.shape
@@ -589,4 +638,6 @@ def _paged_extend(params, config: LlamaConfig, k_pools, v_pools, tokens,
     tokens[slots] = torch.where(apply, firsts, tokens[slots])
     lengths[slots] = torch.where(apply, offsets + final_idx + 1,
                                  lengths[slots])
+    if context is not None:
+        _extend_context(context, slots, chunk_tokens, offsets, valid)
     return firsts

@@ -18,7 +18,7 @@
 # Key space: (tenant, session_id) maps to the EC item "tenant.sid".
 # Tenant and session ids must not contain ".", "/" or spaces.  The KV
 # memory ledger hook (attach_ledger) waits for ROADMAP.md Queue 1 item
-# 4; the load generator (state/loadgen.py) for item 14.
+# 4; the load generator (state/loadgen.py) for item 13.
 
 from __future__ import annotations
 

@@ -117,7 +117,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
      each turn against llama_greedy_decode on its whole history prompt;
   11. assistant: examples/speech/pipeline_assistant.json with
      PE_NeuralTTS replaced in memory by PE_Synthesize (TTS is ROADMAP
-     Queue 1 item 6) and the agent's preset, paged, prefix_block and
+     Queue 1 item 3) and the agent's preset, paged, prefix_block and
      sessions overridden: Whisper-small and Llama-1B on one
      ComputeRuntime, 4 streams x 3 five-second chunks.
   12. detect: examples/pipeline/pipeline_detect.json less its file source
@@ -141,6 +141,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
      (PE_ImageClassify), batched, max_batch 32: 64 seeded frames; class
      ids equal the CPU port's on the same weights, confidences within
      CLASSIFY_TOL; frames/s, batch service s, peak memory.
+  16. llama_dense: the llama phase's 24 requests through the dense slot
+     cache (paged_kv False, the JAX default) on its weights: every
+     request completes, no paged launch; tokens/s, rounds, the cache's
+     bytes, one round under torch.profiler, and the share of requests
+     whose tokens equal the llama phase's;
+  17. llama_spec: the same traffic through the paged decoder with
+     speculate_k 2, then 4 (speculate_ngram 2): the paged kernel
+     launches 16 x the verify steps, at W = 3 and W = 5; the accept
+     rate, tokens/s, rounds, one round under the profiler, the share of
+     requests equal to the llama phase's;
+  18. llama_spec_int8: the int8 chunked decoder and traffic with
+     speculate_k 2 under torch's sync debug mode: every request
+     completes, the folded kernel launches 16 x the verify steps and the
+     dequantizing one 16 x the extend dispatches;
+  19. decoder_f32: full width at 2 layers in f32: the dense decoder, the
+     dense one with speculate_k 2 and the paged one with speculate_k 2
+     and 4 against llama_greedy_decode, with a mid-stream admit and an
+     EOS inside a verify block; the dense int8 decoder on the card
+     against itself on the CPU;
+  20. agent_dense: the agent phase's conversation through PE_LlamaAgent
+     at paged false (the dense decoder, dense prefix nodes): every frame
+     completes, turns 2-3 hit the cache, hits copy rows, no paged
+     launch.
+The kernel section holds the paged kernel at the verify shapes too: W =
+3 (the split path) and W = 5 (the tensor cores) natively, W = 3 with
+int8 pools folded.
 The vision phases launch none of the three attention kernels, and they
 need neither PIL nor OpenCV: every frame is posted at the element's size.
 The 1b preset is f32 in the port as in JAX; the agent and assistant
@@ -310,6 +336,17 @@ ASSISTANT_MIN_PREFIX_ADMITS = 2 * ASSISTANT_STREAMS
 # 128-token chunk = 512 query rows, the chunk as the side buffer (P =
 # 128), offsets from [0, 1024], a table at t_cap 1280
 EXTEND_512 = {"slots": 8, "chunk": 128, "max_offset": 1024, "t_cap": 1280}
+# speculative decoding (phases llama_spec, llama_spec_int8, decoder_f32):
+# the prompt-lookup drafter matches bigrams and proposes k tokens; the
+# verify runs the paged kernel at W = 1 + k query positions a slot (G x W
+# rows a KV head: 12 for k = 2, the split path; 20 for k = 4, the
+# tensor-core path) over a side buffer of steps_per_sync x W entries
+SPEC_KS, SPEC_NGRAM = (2, 4), 2
+# decoder_f32: the four decoders held against llama_greedy_decode
+F32_DECODERS = {"dense": {"paged_kv": False},
+                "dense_spec2": {"paged_kv": False, "speculate_k": 2},
+                "paged_spec2": {"speculate_k": 2},
+                "paged_spec4": {"speculate_k": 4}}
 # llama_int8_f32: a first token mismatch against the CPU run passes only
 # where the CPU run's top-2 logit gap there is below this.  Two f32 runs
 # that sum in other orders store K/V that differ by an ulp or so, and
@@ -639,6 +676,40 @@ def extend512_case(generator, block: int = 32):
             randn(slots, num_kv, chunk, 64), side_valid, offsets)
 
 
+def verify_case(generator, width: int, steps: int, t_cap: int,
+                block: int = 32):
+    """Operands of one speculative verify call at the Llama decoder's
+    shape: 16 slots, 8 KV heads, 4 x W query rows (G = 4, W = 1 + k),
+    D = 64, bf16, extents from [1, t_cap]; a side buffer of `steps`
+    (the decoder's steps_per_sync) x W entries as it stands at a round's
+    last step: each earlier block kept 1 to W of its positions (the rest
+    invalid), the last block live, under the causal mask pos_side <=
+    q_pos."""
+    _, k_pool, v_pool, tables, k_side, v_side, _, entries = paged_case(
+        generator, t_cap, steps * width, block)
+    slots, num_kv = k_side.shape[:2]
+    device = generator.device
+    invalid = 1 << 30
+    cols = torch.arange(width, device=device)[None]
+    pos_side = torch.full((slots, steps * width), invalid,
+                          dtype=torch.int32, device=device)
+    lengths = entries.long()
+    for step in range(steps):
+        q_pos = lengths[:, None] + cols
+        block_pos = slice(step * width, (step + 1) * width)
+        if step == steps - 1:
+            pos_side[:, block_pos] = q_pos
+            break
+        kept = torch.randint(1, width + 1, (slots, 1), generator=generator,
+                             device=device)
+        pos_side[:, block_pos] = torch.where(cols < kept, q_pos, invalid)
+        lengths = lengths + kept[:, 0]
+    side_valid = (pos_side[:, None, :] <= q_pos[:, :, None]).contiguous()
+    q = torch.randn(slots, num_kv, 4 * width, 64, generator=generator,
+                    device=device).to(torch.bfloat16)
+    return q, k_pool, v_pool, tables, k_side, v_side, side_valid, entries
+
+
 def int8_pool(pool):
     """The int8 serving form of a bf16 pool (null block all zeros)."""
     from aiko_services_tpu_torch.models.layers import quantize_kv_cache
@@ -799,6 +870,24 @@ def phase_paged_kernel(generator) -> list[dict]:
                            "paged_decode_attention", extend512_case(generator),
                            4, False, {"t_cap": EXTEND_512["t_cap"],
                                       "path": "extend_512"}))
+    # the speculative verify at W = 1 + k: k = 2 on the split path, k = 4
+    # on the tensor cores, natively at the llama_spec decoder's shape
+    # (16 steps a sync, t_cap 512); k = 2 with int8 pools, scales folded,
+    # at the llama_spec_int8 decoder's (8 steps a sync, t_cap 768)
+    for k in SPEC_KS:
+        records.append(measure(
+            f"paged_decode_attention_verify_w{k + 1}",
+            "paged_decode_attention",
+            verify_case(generator, k + 1, LLAMA_DECODER["steps_per_sync"],
+                        512), 4, True,
+            {"t_cap": 512, "path": f"verify_w{k + 1}"}))
+    quantized = list(verify_case(generator, 3,
+                                 LLAMA_INT8_DECODER["steps_per_sync"], 768))
+    quantized[1], quantized[2] = int8_pool(quantized[1]), \
+        int8_pool(quantized[2])
+    records.append(measure("paged_decode_attention_int8_fold_verify_w3",
+                           "paged_decode_attention_int8_fold", quantized, 4,
+                           True, {"t_cap": 768, "path": "verify_w3"}))
     return records
 
 
@@ -1289,9 +1378,10 @@ def llama_traffic(rng, vocab: int) -> list:
     return requests
 
 
-def phase_llama() -> int:
+def phase_llama() -> tuple:
     """Serve Llama-1B requests through the paged ContinuousDecoder;
-    returns the paged kernel's launches in that run."""
+    returns (the paged kernel's launches in that run, its tokens by
+    request)."""
     import dataclasses
 
     import numpy as np
@@ -1389,7 +1479,7 @@ def phase_llama() -> int:
           "max_memory_gb": memory_gb,
           "sample_tokens": {rid: done[rid][:6] for rid in ("long", "r0")}})
     emit({"phase": "profile", **profile})
-    return launches
+    return launches, done
 
 
 def phase_llama_f32() -> dict:
@@ -1621,38 +1711,52 @@ class LogitGaps:
     """Records, per slot, the top-1 logit and the top-2 gap behind every
     token a decoder emits (first tokens from admits and extends, then the
     decode steps'), by wrapping layers.linear_logits, the decoder's step
-    and its admit and extend programs.  Each slot must serve one request
-    for the slot lists to be that request's tokens."""
+    and its admit and extend programs (the paged or the dense ones, as
+    the decoder's store).  by_slot is that request's list while each slot
+    serves one request; with slots reused, by_request finds each
+    request's rows by its tokens among the slots' runs (a run starts at
+    each first token)."""
 
     def __init__(self, decoder):
         from aiko_services_tpu_torch import serving
         from aiko_services_tpu_torch.models import layers
         self.by_slot = {slot: [] for slot in range(decoder.max_slots)}
+        # per slot, one list a request: [top-1, gap, token] per emit
+        self._runs = {slot: [] for slot in range(decoder.max_slots)}
         self._calls = []
+        self._names = ("_paged_admit", "_paged_extend") if decoder.paged \
+            else ("_dense_admit", "_dense_extend")
         self._layers, self._serving = layers, serving
-        self._saved = (layers.linear_logits, serving._paged_admit,
-                       serving._paged_extend)
+        self._saved = (layers.linear_logits,
+                       *(getattr(serving, name) for name in self._names))
         linear_logits, admit, extend = self._saved
 
         def recording_logits(params, x):
             logits = linear_logits(params, x)
-            top = torch.topk(logits.reshape(-1, logits.shape[-1]), 2).values
-            self._calls.append(torch.stack([top[:, 0], top[:, 0] -
-                                            top[:, 1]], dim=1).cpu())
+            top = torch.topk(logits.reshape(-1, logits.shape[-1]).float(),
+                             2)
+            values = top.values           # token ids exact in f32 < 2^24
+            self._calls.append(torch.stack([
+                values[:, 0], values[:, 0] - values[:, 1],
+                top.indices[:, 0].float()], dim=1).cpu())
             return logits
 
         def first_tokens(rows, slots, emits):
             for j in torch.nonzero(emits.cpu()).flatten().tolist():
-                self.by_slot[int(slots[j])].append(rows[j].tolist())
+                self.by_slot[int(slots[j])].append(rows[j, :2].tolist())
+                self._runs[int(slots[j])].append([rows[j].tolist()])
 
+        # (params, config, k, v, tokens, lengths, context, rows..., slots,
+        # valid[, finish], ...): slots at 9, valid at 10, finish at 11
         def recording_admit(*args):
             firsts = admit(*args)
-            first_tokens(self._calls[-1], args[8].cpu(), args[9])
+            first_tokens(self._calls[-1], args[9].cpu(), args[10])
             return firsts
 
         def recording_extend(*args, **kwargs):
             firsts = extend(*args, **kwargs)
-            first_tokens(self._calls[-1], args[8].cpu(), args[9] & args[10])
+            first_tokens(self._calls[-1], args[9].cpu(),
+                         args[10] & args[11])
             return firsts
 
         step = decoder._step
@@ -1663,25 +1767,46 @@ class LogitGaps:
             for k, active in enumerate(out[1].cpu()):
                 rows = self._calls[before + k]
                 for slot in torch.nonzero(active).flatten().tolist():
-                    self.by_slot[slot].append(rows[slot].tolist())
+                    self.by_slot[slot].append(rows[slot, :2].tolist())
+                    self._runs[slot][-1].append(rows[slot].tolist())
             return out
 
         layers.linear_logits = recording_logits
-        serving._paged_admit = recording_admit
-        serving._paged_extend = recording_extend
+        setattr(serving, self._names[0], recording_admit)
+        setattr(serving, self._names[1], recording_extend)
         decoder._step = recording_step
 
     def close(self) -> None:
-        (self._layers.linear_logits, self._serving._paged_admit,
-         self._serving._paged_extend) = self._saved
+        self._layers.linear_logits = self._saved[0]
+        for name, saved in zip(self._names, self._saved[1:]):
+            setattr(self._serving, name, saved)
+
+    def by_request(self, done: dict) -> dict:
+        """[top-1 logit, top-2 gap] per emitted token of each request in
+        `done` (its tokens by request id): the run whose tokens are the
+        request's."""
+        runs = [run for slot_runs in self._runs.values() for run in slot_runs]
+        found = {}
+        for rid, tokens in done.items():
+            run = next((run for run in runs if len(run) >= len(tokens) and
+                        [int(row[2]) for row in run[:len(tokens)]] ==
+                        tokens), None)
+            if run is None:
+                raise AssertionError(f"no recorded run emitted request "
+                                     f"{rid}'s tokens")
+            found[rid] = [row[:2] for row in run[:len(tokens)]]
+        return found
 
 
-def serve_with_gaps(params, config, device, prompts, max_new) -> tuple:
+def serve_with_gaps(params, config, device, prompts, max_new,
+                    paged: bool = True) -> tuple:
     """(tokens by request, [top-1 logit, top-2 gap] per emitted token by
-    request) of the int8 chunked decoder at 4 slots."""
+    request) of the int8 chunked decoder at 4 slots (paged, or the dense
+    slot cache)."""
     from aiko_services_tpu_torch.serving import ContinuousDecoder
     decoder = ContinuousDecoder(params, config, device=device, **{
-        **LLAMA_INT8_DECODER, "max_slots": len(prompts)})
+        **LLAMA_INT8_DECODER, "max_slots": len(prompts),
+        "paged_kv": paged})
     gaps = LogitGaps(decoder)
     done = {}
     try:
@@ -1693,7 +1818,7 @@ def serve_with_gaps(params, config, device, prompts, max_new) -> tuple:
             decoder.pump()
     finally:
         gaps.close()
-    if decoder.pool.used_blocks() != 0:
+    if paged and decoder.pool.used_blocks() != 0:
         raise AssertionError("int8 f32 run left pool blocks owned")
     return done, {r.request_id: gaps.by_slot[r.slot] for r in requests}
 
@@ -1704,6 +1829,15 @@ def phase_llama_int8_f32() -> dict:
     kernels' plain versions) with the same weights.  A first mismatch
     whose CPU top-2 logit gap is under INT8_TIE_GAP is printed as a tie;
     any other fails."""
+    record = {"phase": "llama_int8_f32", **int8_card_against_cpu(True)}
+    emit(record)
+    return record
+
+
+def int8_card_against_cpu(paged: bool) -> dict:
+    """phase_llama_int8_f32's check on the paged decoder or the dense
+    slot cache: the int8 chunked decoder at 2 layers in f32 on the card
+    against the same decoder on the CPU, under INT8_TIE_GAP."""
     import copy
     import dataclasses
 
@@ -1725,12 +1859,12 @@ def phase_llama_int8_f32() -> dict:
     max_new = 16
     start = time.perf_counter()
     got, gpu_gaps = serve_with_gaps(params, config, "cuda", prompts,
-                                    max_new)
+                                    max_new, paged)
     card_s = time.perf_counter() - start
     start = time.perf_counter()
     with torch.inference_mode():
         ref, cpu_gaps = serve_with_gaps(cpu_params, config, "cpu", prompts,
-                                        max_new)
+                                        max_new, paged)
     cpu_s = time.perf_counter() - start
     ties, identical, drift = [], 0, 0.0
     for rid in prompts:
@@ -1754,15 +1888,12 @@ def phase_llama_int8_f32() -> dict:
                 f"!= CPU {ref[rid][mismatch]} at step {mismatch}, CPU "
                 f"top-2 gap {gap} >= {INT8_TIE_GAP}")
         ties.append({"request": rid, "step": mismatch, "gap": gap})
-    record = {"phase": "llama_int8_f32", "requests": len(prompts),
-              "identical": identical, "ties": ties,
-              "tie_gap_limit": INT8_TIE_GAP,
-              "top1_logit_drift_before_mismatch": drift,
-              "min_cpu_gap": min(g for rid in prompts
-                                 for _, g in cpu_gaps[rid]),
-              "card_s": card_s, "cpu_s": cpu_s}
-    emit(record)
-    return record
+    return {"requests": len(prompts), "identical": identical, "ties": ties,
+            "tie_gap_limit": INT8_TIE_GAP,
+            "top1_logit_drift_before_mismatch": drift,
+            "min_cpu_gap": min(g for rid in prompts
+                               for _, g in cpu_gaps[rid]),
+            "card_s": card_s, "cpu_s": cpu_s}
 
 
 @contextlib.contextmanager
@@ -1840,20 +1971,21 @@ def count_extend_launches(decoder) -> list:
     return counts
 
 
-def agent_definition():
+def agent_definition(parameters=None):
     from aiko_services_tpu_torch.pipeline import parse_pipeline_definition
     return parse_pipeline_definition({
         "version": 0, "name": "p_agent", "runtime": "python",
         "graph": ["(PE_LlamaAgent)"],
-        "parameters": {f"PE_LlamaAgent.{key}": value
-                       for key, value in AGENT_PARAMETERS.items()},
+        "parameters": {f"PE_LlamaAgent.{key}": value for key, value in
+                       (parameters or AGENT_PARAMETERS).items()},
         "elements": [{
             "name": "PE_LlamaAgent", "input": [{"name": "text"}],
             "output": [{"name": "response"}, {"name": "response_tokens"}],
             "parameters": {}}]})
 
 
-def conversation(runtime, texts: dict, before_drive=None) -> tuple:
+def conversation(runtime, texts: dict, before_drive=None,
+                 parameters=None) -> tuple:
     """Drive AGENT_STREAMS streams through their turns on the runtime's
     virtual clock: every stream posts turn 1 at once, and each later
     turn as soon as the stream's previous turn came back.  Returns
@@ -1861,7 +1993,8 @@ def conversation(runtime, texts: dict, before_drive=None) -> tuple:
     s)."""
     from aiko_services_tpu_torch.pipeline import Pipeline
     engine = runtime.event
-    pipeline = Pipeline(runtime, agent_definition(), stream_lease_time=0)
+    pipeline = Pipeline(runtime, agent_definition(parameters),
+                        stream_lease_time=0)
     done = []
     pipeline.add_frame_handler(done.append)
     for stream_id in texts:
@@ -2129,7 +2262,7 @@ def phase_assistant() -> dict:
     path = "examples/speech/pipeline_assistant.json"
     with open(path) as file:
         raw = json.load(file)
-    # PE_NeuralTTS is ROADMAP Queue 1 item 6: the placeholder voice takes
+    # PE_NeuralTTS is ROADMAP Queue 1 item 3: the placeholder voice takes
     # its place, in memory
     raw["graph"] = [graph.replace("PE_NeuralTTS", "PE_Synthesize")
                     for graph in raw["graph"]]
@@ -2204,7 +2337,7 @@ def phase_assistant() -> dict:
     compute.stop()
     runtime.terminate()
     record = {"phase": "assistant",
-              "note": "PE_NeuralTTS (ROADMAP Queue 1 item 6) replaced in "
+              "note": "PE_NeuralTTS (ROADMAP Queue 1 item 3) replaced in "
                       "memory by PE_Synthesize",
               "streams": len(streams), "frames": len(done),
               "frames_failed": failed,
@@ -3281,6 +3414,532 @@ def phase_classify() -> dict:
     return record
 
 
+def llama_1b(**changes):
+    """The Llama-1B preset (2048 / 32 heads / 8 KV heads / 16 layers /
+    128,256 vocab) in bf16 at max_seq_len 1024, with `changes`."""
+    from aiko_services_tpu_torch.models.llama import LLAMA_PRESETS
+    config = dataclasses.replace(LLAMA_PRESETS["1b"], dtype=torch.bfloat16,
+                                 max_seq_len=1024, **changes)
+    check_1b(config)
+    return config
+
+
+def zero_paged_counts() -> None:
+    from aiko_services_tpu_torch.ops import paged_attention as P
+    for name in P.launches:
+        P.launches[name] = 0
+
+
+def serve_requests(decoder, requests, first: int = 16,
+                   sync_debug: bool = False) -> dict:
+    """The Llama phases' drive: requests[:first] submitted at once, the
+    rest after the first round, pump until idle (at most 500 rounds).
+    With sync_debug, torch's sync debug mode warns at every call that
+    synchronizes the stream, and the drive fails on any.  Returns the
+    tokens by request, each round's seconds and extent, the wall s and
+    the peak KV bytes."""
+    done = {}
+
+    def keep(request_id, tokens):
+        done[request_id] = list(tokens)
+
+    start = time.perf_counter()
+    for rid, prompt, new in requests[:first]:
+        decoder.submit(rid, prompt, new, keep)
+    round_s, t_caps, kv_bytes = [], [], 0
+    if sync_debug:
+        torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            while True:
+                round_start = time.perf_counter()
+                decoder.pump()
+                round_s.append(time.perf_counter() - round_start)
+                t_caps.append(decoder._cache_t)
+                kv_bytes = max(kv_bytes, decoder.kv_cache_bytes())
+                if len(round_s) == 1:
+                    for rid, prompt, new in requests[first:]:
+                        decoder.submit(rid, prompt, new, keep)
+                if decoder.idle:
+                    break
+                if len(round_s) > 500:
+                    raise AssertionError(
+                        "the decoder did not drain in 500 rounds")
+    finally:
+        if sync_debug:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    syncs = collections.Counter(
+        f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+        if "synchronizing" in str(w.message))
+    if syncs:
+        raise AssertionError(f"the decoder synchronized the stream beyond "
+                             f"its one wait a round: {dict(syncs)}")
+    budgets = {rid: new for rid, _, new in requests}
+    if sorted(done) != sorted(budgets):
+        raise AssertionError(f"{len(done)} of {len(budgets)} completed")
+    for rid, tokens in done.items():
+        if len(tokens) != budgets[rid] or \
+                not all(0 <= t < decoder.config.vocab for t in tokens):
+            raise AssertionError(f"request {rid}: {len(tokens)} tokens of "
+                                 f"{budgets[rid]}")
+    if decoder.paged and decoder.pool.used_blocks() != 0:
+        raise AssertionError(f"{decoder.pool.used_blocks()} pool blocks "
+                             f"still owned after the run")
+    return {"done": done, "round_s": round_s, "t_caps": t_caps,
+            "wall_s": wall, "kv_bytes_peak": kv_bytes,
+            "kv_bytes_final": decoder.kv_cache_bytes()}
+
+
+def served_record(run: dict, stats: dict, reference: dict | None,
+                  gap_run: tuple | None = None) -> dict:
+    """The numbers every Llama phase reports about its main run (`stats`:
+    the decoder's counters just after it).  With `gap_run` (the tokens
+    and logit gaps of reference_gaps), the top-2 gap of that run at each
+    request's first token that differs from it."""
+    tokens = sum(len(t) for t in run["done"].values())
+    record = {"requests": len(run["done"]), "tokens": tokens,
+              "wall_s": run["wall_s"], "tokens_per_s": tokens / run["wall_s"],
+              "rounds": len(run["round_s"]), "first_round_s": run["round_s"][0],
+              "steady_round_s": statistics.median(run["round_s"][2:]),
+              "t_cap_max": max(run["t_caps"]), "steps": stats["steps"],
+              "useful_steps": stats["useful_steps"],
+              "wasted_steps": stats["wasted_steps"],
+              "kv_cache_bytes_peak": run["kv_bytes_peak"],
+              "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if reference is not None:
+        # bf16 sums in another order than the reference run's: tokens may
+        # split at near-ties, so agreement is reported, not required
+        record["same_tokens_as_llama"] = sum(
+            run["done"][rid] == reference[rid] for rid in run["done"]) / \
+            len(run["done"])
+    if gap_run is not None:
+        tokens, gaps = gap_run
+        at_split = [gaps[rid][next(i for i, (a, b) in enumerate(zip(
+            got, tokens[rid])) if a != b)][1]
+            for rid, got in run["done"].items() if got != tokens[rid]]
+        record.update({
+            "splits_from_gap_run": len(at_split),
+            "max_gap_at_first_split": max(at_split, default=None),
+            "gaps_at_first_split": sorted(at_split),
+            "median_gap_of_gap_run": statistics.median(
+                gap for rows in gaps.values() for _, gap in rows)})
+    return record
+
+
+def reference_gaps(params, config, requests, reference) -> tuple:
+    """The llama phase's decoder and traffic again under LogitGaps: its
+    tokens by request, [top-1 logit, top-2 gap] per emitted token by
+    request, and whether its tokens repeat the llama phase's."""
+    from aiko_services_tpu_torch.serving import ContinuousDecoder
+    decoder = ContinuousDecoder(params, config, **LLAMA_DECODER)
+    gaps = LogitGaps(decoder)
+    try:
+        run = serve_requests(decoder, requests)
+    finally:
+        gaps.close()
+    return run["done"], gaps.by_request(run["done"]), \
+        run["done"] == reference
+
+
+def phase_llama_dense(reference: dict) -> dict:
+    """The llama phase's 24 requests (1,344 tokens) through the dense slot
+    cache (paged_kv False, the JAX default) with the llama phase's
+    weights: every request completes and no paged kernel launches;
+    tokens/s, rounds, the cache's bytes, one round under the profiler,
+    and the share of requests whose tokens equal the llama phase's; and
+    at each request's first token that splits from the llama decoder's
+    run again under LogitGaps, that run's top-2 logit gap.  Returns that
+    run's (tokens, gaps) for phase_llama_spec."""
+    import numpy as np
+
+    from aiko_services_tpu_torch.models.llama import llama_init
+    from aiko_services_tpu_torch.ops import paged_attention as P
+    from aiko_services_tpu_torch.serving import ContinuousDecoder
+
+    config = llama_1b()
+    params = llama_init(torch.Generator(device="cuda").manual_seed(0),
+                        config)
+    decoder = ContinuousDecoder(params, config,
+                                **{**LLAMA_DECODER, "paged_kv": False})
+    torch.cuda.reset_peak_memory_stats()
+    requests = llama_traffic(np.random.default_rng(0), config.vocab)
+    # the main path's run: counts set to 0 just before, read just after
+    zero_paged_counts()
+    run = serve_requests(decoder, requests)
+    launches = dict(P.launches)
+    if any(launches.values()):
+        raise AssertionError(f"the dense decoder launched the paged kernel "
+                             f"{launches}")
+    if max(run["t_caps"]) != 512:
+        raise AssertionError(f"t_cap reached {max(run['t_caps'])}, not 512")
+    stats = dict(decoder.stats)
+    rng = np.random.default_rng(1)
+    for i in range(16):
+        decoder.submit(f"p{i}", rng.integers(0, config.vocab, 64).tolist(),
+                       40, lambda *_: None)
+    decoder.pump()                 # admits
+    decoder.pump()                 # first decode round
+    profile = profile_round(decoder, "llama dense decode")
+    while not decoder.idle:
+        decoder.pump()
+    del decoder
+    gap_tokens, gaps, repeated = reference_gaps(params, config, requests,
+                                                reference)
+    record = {"phase": "llama_dense",
+              **served_record(run, stats, reference, (gap_tokens, gaps)),
+              "gap_run_repeats_llama": repeated,
+              "paged_launches": sum(launches.values()),
+              "kv_cache_bytes": run["kv_bytes_final"]}
+    emit(record)
+    emit({"phase": "profile", **profile})
+    return gap_tokens, gaps
+
+
+def phase_llama_spec(reference: dict, gap_run: tuple) -> dict:
+    """The llama phase's traffic through the paged decoder with
+    speculate_k 2, then 4 (speculate_ngram 2), on the llama phase's
+    weights: every request completes, the paged kernel launches once per
+    layer per verify step (at W = 3, then W = 5) and nothing else; the
+    accept rate, tokens/s, round s, one round under the profiler, and the
+    share of requests whose tokens equal the llama phase's, with
+    `gap_run`'s top-2 gap where they split from it (random weights: the
+    accept rate measures the machinery, not a real-text win).  Returns
+    the launches by k."""
+    import numpy as np
+
+    from aiko_services_tpu_torch.models.llama import llama_init
+    from aiko_services_tpu_torch.ops import paged_attention as P
+    from aiko_services_tpu_torch.serving import ContinuousDecoder
+
+    config = llama_1b()
+    params = llama_init(torch.Generator(device="cuda").manual_seed(0),
+                        config)
+    requests = llama_traffic(np.random.default_rng(0), config.vocab)
+    launches_by_k = {}
+    for k in SPEC_KS:
+        decoder = ContinuousDecoder(params, config, **LLAMA_DECODER,
+                                    speculate_k=k,
+                                    speculate_ngram=SPEC_NGRAM)
+        torch.cuda.reset_peak_memory_stats()
+        zero_paged_counts()
+        run = serve_requests(decoder, requests)
+        launches = dict(P.launches)
+        stats = dict(decoder.stats)
+        expected = {name: 0 for name in launches}
+        expected["paged_decode_attention"] = \
+            config.num_layers * stats["steps"]
+        if launches != expected or not stats["steps"]:
+            raise AssertionError(f"speculate_k {k}: paged launches "
+                                 f"{launches} != {expected}")
+        launches_by_k[k] = launches["paged_decode_attention"]
+        rng = np.random.default_rng(1)
+        for i in range(16):
+            decoder.submit(f"p{i}", rng.integers(0, config.vocab,
+                                                 64).tolist(), 40,
+                           lambda *_: None)
+        decoder.pump()
+        decoder.pump()
+        profile = profile_round(decoder, f"llama verify, speculate_k {k}")
+        while not decoder.idle:
+            decoder.pump()
+        emit({"phase": "llama_spec", "speculate_k": k,
+              "speculate_ngram": SPEC_NGRAM,
+              **served_record(run, stats, reference, gap_run),
+              "verify_width": k + 1,
+              "paged_launches": launches["paged_decode_attention"],
+              "paged_launches_expected": expected["paged_decode_attention"],
+              "accept_rate": decoder.accept_rate(),
+              "spec_proposed": stats["spec_proposed"],
+              "spec_accepted": stats["spec_accepted"],
+              "accepted_per_step": stats["accepted_per_step"]})
+        emit({"phase": "profile", **profile})
+        del decoder
+    return launches_by_k
+
+
+def phase_llama_spec_int8() -> dict:
+    """The int8 phase's decoder and traffic (int8 pools, chunks of 64)
+    with speculate_k 2, under torch's sync debug mode: every request
+    completes, the folded int8 kernel launches 16 x verify steps (at W =
+    3) and the dequantizing one 16 x extend dispatches, and no call
+    synchronizes the stream beyond each round's one wait.  Returns the
+    launches by variant."""
+    import numpy as np
+
+    from aiko_services_tpu_torch.models.llama import llama_init
+    from aiko_services_tpu_torch.ops import paged_attention as P
+    from aiko_services_tpu_torch.serving import ContinuousDecoder
+
+    config = llama_1b()
+    params = llama_init(torch.Generator(device="cuda").manual_seed(0),
+                        config)
+    decoder = ContinuousDecoder(params, config, **LLAMA_INT8_DECODER,
+                                speculate_k=2, speculate_ngram=SPEC_NGRAM)
+    dispatches = count_extends(decoder)
+    torch.cuda.reset_peak_memory_stats()
+    requests = int8_traffic(np.random.default_rng(3), config.vocab)
+    zero_paged_counts()
+    run = serve_requests(decoder, requests, sync_debug=True)
+    launches = dict(P.launches)
+    stats = dict(decoder.stats)
+    expected = {"paged_decode_attention": 0,
+                "paged_decode_attention_int8_fold":
+                    config.num_layers * stats["steps"],
+                "paged_decode_attention_int8_dequant":
+                    config.num_layers * dispatches[0]}
+    if launches != expected or not dispatches[0]:
+        raise AssertionError(f"paged kernel launches {launches} != "
+                             f"{expected}")
+    emit({"phase": "llama_spec_int8", **served_record(run, stats, None),
+          "extend_dispatches": dispatches[0], "launches": launches,
+          "stream_syncs": 0, "prefill_chunks": stats["prefill_chunks"],
+          "accept_rate": decoder.accept_rate(),
+          "spec_proposed": stats["spec_proposed"],
+          "spec_accepted": stats["spec_accepted"]})
+    return launches
+
+
+def accepted_positions(decoder) -> list:
+    """Record every token a speculative decoder delivers from past the
+    first position of a verify block (an accepted draft's place) as
+    (request id, index in its output, token), by wrapping
+    _deliver_spec."""
+    found = []
+    deliver = decoder._deliver_spec
+
+    def recording(emitted, emit_mask, occupied, num_steps):
+        for slot in occupied:
+            request = decoder._slots[slot]
+            if request is None:
+                continue
+            index = len(request.generated)
+            for step, position in zip(*emit_mask[:, slot, :].nonzero()):
+                if position > 0:
+                    found.append((request.request_id, index,
+                                  int(emitted[step, slot, position])))
+                index += 1
+        return deliver(emitted, emit_mask, occupied, num_steps)
+
+    decoder._deliver_spec = recording
+    return found
+
+
+def phase_decoder_f32() -> dict:
+    """Full width at 2 layers in f32 (TF32 off): the dense decoder, the
+    dense decoder with speculate_k 2 and the paged decoder with
+    speculate_k 2 and 4 each give the tokens of llama_greedy_decode
+    (phase_llama_f32's tie rule), with a mid-stream admit and an EOS
+    that lands inside one of its own verify blocks: a first run of each
+    speculative decoder without EOS finds a token it delivered from an
+    accepted draft's place, first in its request, and that token is the
+    decoder's EOS (the dense decoder, which has no verify block, takes
+    the paged k = 4 decoder's).  Then the
+    dense int8 chunked decoder on the card against itself on the CPU
+    (llama_int8_f32's tie rule)."""
+    import numpy as np
+
+    from aiko_services_tpu_torch.models.llama import LLAMA_PRESETS, llama_init
+    from aiko_services_tpu_torch.serving import ContinuousDecoder
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config = dataclasses.replace(LLAMA_PRESETS["1b"], num_layers=2,
+                                 dtype=torch.float32, max_seq_len=1024)
+    check_1b(config)
+    params = llama_init(torch.Generator(device="cuda").manual_seed(1),
+                        config)
+    rng = np.random.default_rng(6)
+    motif = rng.integers(0, config.vocab, 8).tolist()
+    prompts = {f"f{n}": rng.integers(0, config.vocab, n).tolist()
+               for n in (20, 57, 100)}
+    prompts["repeat"] = motif * 8              # 64 tokens, one bigram loop
+    later = {"mid": rng.integers(0, config.vocab, 40).tolist()}
+    max_new = 48
+
+    def serve(options, eos=None, watch=None):
+        decoder = ContinuousDecoder(params, config, **{
+            **LLAMA_DECODER, "max_slots": 8, "eos_token": eos, **options},
+            speculate_ngram=SPEC_NGRAM)
+        seen = watch(decoder) if watch and decoder.speculate_k else []
+        done = {}
+        for rid, prompt in prompts.items():
+            decoder.submit(rid, prompt, max_new,
+                           lambda r, t: done.update({r: list(t)}))
+        decoder.pump()
+        for rid, prompt in later.items():
+            decoder.submit(rid, prompt, max_new,
+                           lambda r, t: done.update({r: list(t)}))
+        while not decoder.idle:
+            decoder.pump()
+        if decoder.paged and decoder.pool.used_blocks():
+            raise AssertionError("f32 run left pool blocks owned")
+        return done, seen, decoder
+
+    eos_by = {}
+    for label, options in F32_DECODERS.items():
+        if not options.get("speculate_k"):
+            continue
+        first_run, accepted, _ = serve(options, watch=accepted_positions)
+        eos_by[label] = next((token for rid, index, token in accepted
+                              if first_run[rid].index(token) == index), None)
+        if eos_by[label] is None:
+            raise AssertionError(f"{label}: no accepted draft to stop at "
+                                 f"({len(accepted)} accepted)")
+    eos_by["dense"] = eos_by["paged_spec4"]
+    everything = {**prompts, **later}
+    with torch.inference_mode():
+        refs = {rid: llama_greedy_tokens(params, config, prompt, max_new)
+                for rid, prompt in everything.items()}
+    results = {}
+    for label, options in F32_DECODERS.items():
+        eos = eos_by[label]
+        done, inside, decoder = serve(options, eos, watch=accepted_positions)
+        ties, identical = [], 0
+        for rid, prompt in everything.items():
+            tie = stop_check(params, config, prompt, done[rid], refs[rid],
+                             eos, f"{label} {rid}")
+            identical += tie is None
+            ties += [tie] if tie else []
+        results[label] = {
+            "eos": eos, "identical": identical, "ties": ties,
+            "eos_inside_block": sum(token == eos for _, _, token in inside),
+            "accept_rate": decoder.accept_rate()}
+        if decoder.speculate_k and not results[label]["eos_inside_block"]:
+            raise AssertionError(f"{label}: the EOS did not land inside a "
+                                 f"verify block")
+    record = {"phase": "decoder_f32", "requests": len(everything),
+              "decoders": results,
+              "dense_int8_card_against_cpu": int8_card_against_cpu(False)}
+    emit(record)
+    return record
+
+
+def llama_greedy_tokens(params, config, prompt, max_new) -> list:
+    from aiko_services_tpu_torch.models.llama import llama_greedy_decode
+    return llama_greedy_decode(params, config, torch.tensor(
+        [prompt], device=params.embed.table.device),
+        max_tokens=max_new)[0].tolist()
+
+
+def stop_check(params, config, prompt, got, ref, eos, label) -> dict | None:
+    """got against the greedy reference `ref` cut at its first `eos` (the
+    decoder strips the EOS); None when equal, the tie's record when the
+    first difference's reference top-2 logit gap is under 1e-4; raises
+    otherwise."""
+    from aiko_services_tpu_torch.models.llama import llama_forward
+    want = ref[:ref.index(eos)] if eos in ref else ref
+    if got == want:
+        return None
+    i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+             min(len(got), len(want)))
+    with torch.inference_mode():
+        logits = llama_forward(params, config, torch.tensor(
+            [prompt + ref[:i]], device=params.embed.table.device))[0, -1]
+    top2 = torch.topk(logits, 2).values
+    gap = (top2[0] - top2[1]).item()
+    if gap >= 1e-4:
+        raise AssertionError(f"{label}: tokens {got[i:i + 3]} != greedy "
+                             f"{want[i:i + 3]} at step {i}, top-2 gap {gap}")
+    return {"request": label, "step": i, "gap": gap}
+
+
+def phase_agent_dense() -> dict:
+    """The agent phase's conversation (8 streams x 3 turns, Llama-1B in
+    bf16) through PE_LlamaAgent at `paged` false, the element's default:
+    the dense decoder with dense prefix nodes.  Every frame completes,
+    turns 2-3 admit through the cache, prefill + cached tokens = prompt
+    tokens, hits copy rows (prefix_copy_bytes > 0, where paged hits
+    alias), no paged kernel launches; the leases lapse and purge empties
+    the cache."""
+    import numpy as np
+
+    from aiko_services_tpu_torch.event import settle_virtual
+    from aiko_services_tpu_torch.ops import paged_attention as P
+
+    parameters = {**AGENT_PARAMETERS, "paged": False}
+    with agent_preset(dtype=torch.bfloat16) as config:
+        check_1b(config)
+        runtime, compute = host_runtime()
+        engine = runtime.event
+        texts = agent_texts(np.random.default_rng(AGENT_SEED))
+        submitted = []
+
+        def before_drive(agent):
+            submit = agent.decoder.submit
+
+            def recording(request_id, prompt, *args, **kwargs):
+                submitted.append(len(prompt))
+                return submit(request_id, prompt, *args, **kwargs)
+            agent.decoder.submit = recording
+            zero_paged_counts()
+
+        timer = RoundTimer()
+        try:
+            pipeline, agent, frames, virtual_s, wall_s = conversation(
+                runtime, texts, before_drive, parameters)
+        finally:
+            timer.close()
+        torch.cuda.synchronize()
+        launches = dict(P.launches)
+    decoder, cache = agent.decoder, agent.prefix_cache
+    stats, cache_stats = dict(decoder.stats), dict(cache.stats)
+    failed = pipeline.recovery_stats["frames_failed"]
+    if len(frames) != AGENT_STREAMS * AGENT_TURNS or failed:
+        raise AssertionError(f"{len(frames)} agent frames, {failed} failed")
+    for (stream_id, turn), frame in frames.items():
+        if len(frame.swag["response_tokens"]) != \
+                AGENT_PARAMETERS["max_tokens"]:
+            raise AssertionError(f"agent frame {stream_id} turn {turn}")
+    if decoder.paged or cache.paged or any(launches.values()):
+        raise AssertionError(f"not the dense decoder: paged "
+                             f"{decoder.paged}, launches {launches}")
+    prompt_tokens = sum(submitted)
+    if stats["prefix_admits"] < AGENT_MIN_PREFIX_ADMITS or \
+            stats["tokens_prefill"] + cache_stats["hit_tokens"] != \
+            prompt_tokens or not stats["prefix_copy_bytes"]:
+        raise AssertionError(
+            f"{stats['prefix_admits']} prefix admits, prefilled "
+            f"{stats['tokens_prefill']} + cached {cache_stats['hit_tokens']}"
+            f" of {prompt_tokens}, copied {stats['prefix_copy_bytes']} B")
+    settle_virtual(engine, AGENT_PARAMETERS["session_lease"] + 1.0)
+    table = agent._session_table
+    pinned = sum(1 for node in cache._nodes.values() if node.refs)
+    if len(table) or pinned:
+        raise AssertionError(f"{len(table)} sessions and {pinned} pinned "
+                             f"cache blocks after the leases lapsed")
+    for stream_id in list(pipeline.streams):
+        pipeline.destroy_stream(stream_id)
+    resident = len(cache)
+    evicted = cache.purge()
+    if len(cache):
+        raise AssertionError(f"{len(cache)} cache blocks after purge")
+    pipeline.stop()
+    compute.stop()
+    runtime.terminate()
+    rounds = timer.rounds
+    record = {
+        "phase": "agent_dense", "frames": len(frames),
+        "frames_failed": failed, "prompt_tokens": prompt_tokens,
+        "tokens_prefill": stats["tokens_prefill"],
+        "hit_tokens": cache_stats["hit_tokens"],
+        "prefix_admits": stats["prefix_admits"],
+        "prefix_copy_bytes": stats["prefix_copy_bytes"],
+        "harvest_copy_bytes": stats["harvest_copy_bytes"],
+        "decode_steps": stats["steps"],
+        "prefill_chunks": stats["prefill_chunks"],
+        "cache_blocks": resident, "evicted_by_purge": evicted,
+        "paged_launches": sum(launches.values()),
+        "kv_cache_bytes": decoder.kv_cache_bytes(),
+        "virtual_s": virtual_s, "wall_s": wall_s, "rounds": len(rounds),
+        "first_round_s": rounds[0],
+        "steady_round_s": statistics.median(rounds[2:])}
+    emit(record)
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3322,7 +3981,8 @@ def main() -> int:
                                  for phase in record["counted_in"])
     # paged launches by (variant, path): the native decoder decodes, the
     # int8 one decodes with scales folded and extends dequantizing
-    counts = {("paged_decode_attention", "decode"): phase_llama()}
+    llama_launches, llama_tokens = phase_llama()
+    counts = {("paged_decode_attention", "decode"): llama_launches}
     phase_llama_f32()
     int8_counts = phase_llama_int8_chunked()
     counts[("paged_decode_attention_int8_fold", "decode")] = \
@@ -3338,6 +3998,17 @@ def main() -> int:
     phase_detect("dct8")
     phase_detect_f32()
     phase_classify()
+    gap_run = phase_llama_dense(llama_tokens)
+    spec_counts = phase_llama_spec(llama_tokens, gap_run)
+    for k, launches in spec_counts.items():
+        counts[("paged_decode_attention", f"verify_w{k + 1}")] = launches
+    spec_int8 = phase_llama_spec_int8()
+    counts[("paged_decode_attention_int8_fold", "verify_w3")] = \
+        spec_int8["paged_decode_attention_int8_fold"]
+    counts[("paged_decode_attention_int8_dequant", "extend")] += \
+        spec_int8["paged_decode_attention_int8_dequant"]
+    phase_decoder_f32()
+    phase_agent_dense()
     earlier = {phase: phase_counts[phase]["flash_attention"] for phase in
                ("slice", "pipeline", "remote_pipeline", "peer_pipeline",
                 "peer_chaos")}

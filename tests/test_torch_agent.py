@@ -99,9 +99,10 @@ def _build(package, parameters, streams):
         JS.ATTENTION_IMPL = before
     agent = next(node.element for node in pipeline.graph.nodes()
                  if node.name == "PE_LlamaAgent")
-    if package == "jax" and parameters.get("mode") == "continuous":
+    if package == "jax" and parameters.get("mode") == "continuous" and \
+            parameters.get("paged"):
         # with prefix_block set the JAX agent forces chunked prefill: its
-        # decoder's shared table-row buffer races its own dispatch
+        # paged decoder's shared table-row buffer races its own dispatch
         # (ROADMAP.md Queue 3 items 1 and 7)
         fresh_table_scratch(agent.decoder)
     return engine, pipeline, agent, done
@@ -207,8 +208,20 @@ def test_session_history_feeds_the_next_turn(same_weights):
     assert payload["kv_tokens"] == (len(payload["history"]) - 1) // 8 * 8
 
 
+def test_continuous_mode_defaults_to_the_dense_decoder(same_weights):
+    """paged false, the JAX element's default: the dense decoder, with
+    no prefix cache unless prefix_block is set; responses equal JAX's."""
+    parameters = {"mode": "continuous", "max_batch": 2, "steps_per_sync": 2}
+    texts = {stream: turns[:2] for stream, turns in TEXTS.items()}
+    port, agent, *_ = _converse("torch", parameters, texts)
+    expected, jax_agent, *_ = _converse("jax", parameters, texts)
+    assert port == expected
+    assert not agent.decoder.paged and agent.prefix_cache is None
+    for key in ("completed", "tokens_prefill", "steps"):
+        assert agent.decoder.stats[key] == jax_agent.decoder.stats[key]
+
+
 @pytest.mark.parametrize("parameters,match", [
-    ({"mode": "continuous"}, "paged_kv=False"),
     ({**CONTINUOUS, "host_kv_mb": 8}, "Queue 1 item 5\\)"),
     ({**CONTINUOUS, "disagg": True}, "Queue 1 item 5\\)"),
     ({**CONTINUOUS, "role": "decode"}, "Queue 1 item 5\\)"),

@@ -1,6 +1,8 @@
 """The port's paged KV BlockPool (aiko_services_tpu_torch.serving_paged),
-native and int8, and the options of ContinuousDecoder that the port does
-not implement yet: each raises NotImplementedError naming its ROADMAP.md
+native and int8; the dense slot cache as ContinuousDecoder's default, the
+speculative and dense options serving, and measure_device_step in each
+mode; and the options of ContinuousDecoder that the port does not
+implement yet: each raises NotImplementedError naming its ROADMAP.md
 item, none is accepted and ignored."""
 
 import pytest
@@ -126,9 +128,6 @@ def _decoder(model, **kwargs):
 
 
 @pytest.mark.parametrize("option,item", [
-    ({"paged_kv": False}, "item 4"),
-    ({"kv_cache_dtype": "int8", "speculate_k": 2}, "item 3"),
-    ({"speculate_k": 2}, "item 3"),
     ({"prefill_chunk": 16, "fuse_projections": True}, "item 4"),
     ({"prefill_budget": 64, "weight_quant": True}, "item 4"),
     ({"kv_cache_dtype": "int8", "weight_quant": True}, "item 4"),
@@ -140,8 +139,42 @@ def test_left_out_decoder_options_raise(model, option, item):
         _decoder(model, **option)
 
 
-def test_the_dense_path_is_the_jax_default_and_raises(model):
-    with pytest.raises(NotImplementedError, match="paged_kv=False"):
+@pytest.mark.parametrize("option", [
+    {"paged_kv": False},
+    {"kv_cache_dtype": "int8", "speculate_k": 2},
+    {"speculate_k": 2},
+])
+def test_dense_and_speculative_options_serve(model, option):
+    decoder = _decoder(model, max_slots=2, prefill_buckets=(16,),
+                       kv_block=8, **option)
+    assert decoder.paged == option.get("paged_kv", True)
+    assert decoder.speculate_k == option.get("speculate_k", 0)
+    done = {}
+    decoder.submit("r", [3, 1, 4, 1, 5], 6,
+                   lambda rid, t: done.update({rid: t}))
+    while not decoder.idle:
+        decoder.pump()
+    assert len(done["r"]) == 6
+    if decoder.paged:
+        assert decoder.pool.used_blocks() == 0
+
+
+def test_the_dense_path_is_the_jax_default(model):
+    decoder = ContinuousDecoder(model, CONFIG, device="cpu")
+    assert not decoder.paged and decoder.pool is None
+    assert len(decoder._k) == CONFIG.num_layers
+    assert tuple(decoder._k[0].shape) == (8, CONFIG.num_kv_heads,
+                                          decoder._cache_t, CONFIG.head_dim)
+    assert decoder.kv_cache_bytes() == 2 * CONFIG.num_layers * \
+        decoder._k[0].numel() * decoder._k[0].element_size()
+
+
+@pytest.mark.parametrize("variant,value", [
+    ("AIKO_DECODE_KV", "select"), ("AIKO_DECODE_ATTENTION", "online"),
+    ("AIKO_DECODE_ATTENTION", "vpu")])
+def test_the_jax_decode_variants_raise(model, monkeypatch, variant, value):
+    monkeypatch.setenv(variant, value)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4\\)"):
         ContinuousDecoder(model, CONFIG, device="cpu")
 
 
@@ -170,11 +203,23 @@ def test_left_out_submit_options_raise(model, option, item):
     lambda d: d.drain(), lambda d: d.resume(),
     lambda d: d.install_shipped_blocks([1, 2], 0, []),
     lambda d: d.attach_ledger(None), lambda d: d.slo_stats(),
-    lambda d: d.slo_sketch_stats(),
-    lambda d: serving.measure_device_step(d)])
+    lambda d: d.slo_sketch_stats()])
 def test_left_out_methods_raise(model, call):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         call(_decoder(model))
+
+
+@pytest.mark.parametrize("option", [
+    {"paged_kv": False}, {}, {"paged_kv": False, "speculate_k": 2},
+    {"speculate_k": 2}])
+def test_measure_device_step_runs_the_decoders_own_round(model, option):
+    decoder = _decoder(model, max_slots=2, kv_block=8, **option)
+    ms = serving.measure_device_step(decoder, steps_per_sync=4, chains=2)
+    assert ms > 0.0
+    assert decoder.idle and decoder.stats["steps"] == 0
+    with pytest.raises(ValueError, match="pass max_seq_len"):
+        serving.measure_device_step(decoder,
+                                    steps_per_sync=CONFIG.max_seq_len + 1)
 
 
 def test_submit_normalises_prompts_and_kv_cache_bytes(model):

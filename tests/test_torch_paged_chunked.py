@@ -186,12 +186,16 @@ def test_chunked_options_are_checked(weights):
     with pytest.raises(ValueError, match="kv_cache_dtype must be"):
         ContinuousDecoder(model, T_CONFIG, paged_kv=True, device="cpu",
                           kv_cache_dtype="fp8")
-    for option, item in (({"speculate_k": 2}, "item 3"),
-                         ({"weight_quant": True}, "item 4")):
-        with pytest.raises(NotImplementedError, match=item):
-            ContinuousDecoder(model, T_CONFIG, paged_kv=True, device="cpu",
-                              kv_cache_dtype="int8", prefill_chunk=16,
-                              **option)
+    with pytest.raises(NotImplementedError, match="item 4"):
+        ContinuousDecoder(model, T_CONFIG, paged_kv=True, device="cpu",
+                          kv_cache_dtype="int8", prefill_chunk=16,
+                          weight_quant=True)
+    # speculation composes with int8 pools and chunked prefill
+    # (tests/test_torch_speculative_paged.py holds its tokens against JAX)
+    spec = ContinuousDecoder(model, T_CONFIG, paged_kv=True, device="cpu",
+                             kv_cache_dtype="int8", prefill_chunk=16,
+                             speculate_k=2)
+    assert spec.speculate_k == 2 and spec._context is not None
     decoder = ContinuousDecoder(model, T_CONFIG, paged_kv=True,
                                 device="cpu", prefill_chunk=16,
                                 prefill_buckets=(16,), max_seq=96)

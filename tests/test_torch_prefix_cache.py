@@ -272,10 +272,7 @@ def test_left_out_cache_surfaces_raise_naming_their_item():
                        (lambda: cache.prefetch("t", [1]), "5"),
                        (lambda: cache.install_chain("t", [1], 0, []), "5"),
                        (lambda: cache.wire_layout(), "5"),
-                       (lambda: cache.insert("t", "", "k", [], []), "4"),
-                       (lambda: cache.attach_ledger(None), "4"),
-                       (lambda: TS.PrefixKVCache().bind((1,), paged=False),
-                        "4")):
+                       (lambda: cache.attach_ledger(None), "4")):
         with pytest.raises(NotImplementedError,
                            match=f"Queue 1 item {item}\\)"):
             call()

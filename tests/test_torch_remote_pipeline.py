@@ -162,6 +162,11 @@ class System:
             else memory.MemoryMessage
         self.classes = classes(package)
         self.sent = []          # (clock, kind) of every message spied on
+        # each calling pipeline's wire counters before its frames run:
+        # the counters live in the package's process-wide registry, which
+        # another test in this process may have counted into under the
+        # same pipeline name
+        self.wire_start = {}
         self.m["registrar"](self.runtime("reg_host"))
         self.engine.clock.advance(2.1)
         self.settle()
@@ -204,6 +209,7 @@ class System:
         self.done = []
         caller.add_frame_handler(self.done.append)
         self.settle()
+        self.wire_start[name] = self.wire(name)
         return runtime, caller
 
     def spy(self, topic):
@@ -244,9 +250,12 @@ def plain(value):
 
 
 def outcome(system, caller, wire_before=None, served=()):
+    """The scenario's result; its wire counts are those since
+    `wire_before` (default: since the caller was made)."""
     wire = system.wire(caller.name)
-    if wire_before is not None:
-        wire = {k: wire[k] - wire_before[k] for k in wire}
+    if wire_before is None:
+        wire_before = system.wire_start[caller.name]
+    wire = {k: wire[k] - wire_before[k] for k in wire}
     return {
         "done": sorted(((f.stream_id, f.frame_id, plain(f.swag))
                         for f in system.done), key=str),
