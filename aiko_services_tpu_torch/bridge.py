@@ -1,5 +1,5 @@
 # Weight bridge: JAX param trees and flat-npz checkpoints → the port's
-# Whisper, Llama, ResNet and Detector modules, and back.
+# Whisper, Llama, ResNet, Detector, TTS and Vocoder modules, and back.
 #
 # The flat-npz scheme is the JAX package's (elements/speech.py
 # load_flat_npz / save_flat_npz): one array per leaf, keyed by the
@@ -73,19 +73,24 @@ def _overlay(model: torch.nn.Module, flat: dict, strict: bool) -> None:
 
 
 def params_from_numpy(tree, config, device=None):
-    """A JAX Whisper, Llama, ResNet or detector param tree (leaves as
-    numpy arrays, or anything np.asarray takes) → the loaded port module
-    that `config`'s type names (WhisperConfig → Whisper, LlamaConfig →
-    Llama, ResNetConfig → ResNet, DetectorConfig → Detector) on `device`
+    """A JAX Whisper, Llama, ResNet, detector, TTS or vocoder param tree
+    (leaves as numpy arrays, or anything np.asarray takes) → the loaded
+    port module that `config`'s type names (WhisperConfig → Whisper,
+    LlamaConfig → Llama, ResNetConfig → ResNet, DetectorConfig →
+    Detector, TTSConfig → TTS, VocoderConfig → Vocoder) on `device`
     (None: the card).  Every leaf must be present with its shape."""
     from .models.detector import Detector, DetectorConfig
     from .models.llama import Llama, LlamaConfig
     from .models.resnet import ResNet, ResNetConfig
+    from .models.tts import TTS, TTSConfig
+    from .models.vocoder import Vocoder, VocoderConfig
     from .models.whisper import Whisper
     model_type = Whisper
     for config_type, module_type in ((LlamaConfig, Llama),
                                      (ResNetConfig, ResNet),
-                                     (DetectorConfig, Detector)):
+                                     (DetectorConfig, Detector),
+                                     (TTSConfig, TTS),
+                                     (VocoderConfig, Vocoder)):
         if isinstance(config, config_type):
             model_type = module_type
     model = model_type(config, device=resolve_device(device))

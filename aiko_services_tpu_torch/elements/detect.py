@@ -33,10 +33,10 @@ from .speech import _host_to
 __all__ = ["PE_Detect", "PE_LlamaAgent"]
 
 TIERED_NOT_PORTED = ("the host KV tier (host_kv_mb) is not ported yet "
-                     "(ROADMAP.md Queue 1 item 5)")
+                     "(ROADMAP.md Queue 1 item 4)")
 DISAGG_NOT_PORTED = ("disaggregated prefill (disagg) and serving roles "
                      "(role) are not ported yet (ROADMAP.md Queue 1 "
-                     "item 5)")
+                     "item 4)")
 
 
 def _session_key(raw: str) -> str:
@@ -223,7 +223,7 @@ class PE_LlamaAgent(PipelineElement):
     prefix hit copies the cached rows in), paged true through the block
     pool and the paged kernel (a hit aliases the cached blocks).
     host_kv_mb, disagg and a non-empty role raise naming ROADMAP.md
-    Queue 1 item 5.  Weights are random, drawn from a torch.Generator
+    Queue 1 item 4.  Weights are random, drawn from a torch.Generator
     seeded 0 on the ComputeRuntime's device."""
 
     contracts = {"in:text": "str", "out:response": "str",

@@ -1,12 +1,13 @@
 # Llama-style decoder-only transformer in PyTorch.
 #
 # Counterpart of aiko_services_tpu/models/llama.py: GQA attention with
-# interleaved-pair RoPE, RMSNorm, a dense SwiGLU FFN and an untied
-# lm_head.  The Llama module's parameter names are the JAX param tree's
-# paths joined by '.' (layers.3.attn.q.w ↔ layers/3/attn/q/w), so
-# bridge.py copies a JAX tree in by name.  The mixture-of-experts FFN
-# (num_experts > 0) and the sequence-parallel forward are not ported yet
-# (ROADMAP.md Queue 1 items 4 and 7).
+# interleaved-pair RoPE, RMSNorm, a dense SwiGLU FFN or (num_experts > 0)
+# a top-k mixture-of-experts FFN (models/moe.py), and an untied lm_head.
+# The Llama module's parameter names are the JAX param tree's paths
+# joined by '.' (layers.3.attn.q.w ↔ layers/3/attn/q/w, layers.3.moe.w_in
+# ↔ layers/3/moe/w_in), so bridge.py copies a JAX tree in by name.  The
+# sequence-parallel forward is not ported yet (ROADMAP.md Queue 1 item
+# 5).
 
 from __future__ import annotations
 
@@ -25,8 +26,8 @@ __all__ = ["LlamaConfig", "Llama", "llama_init", "llama_hidden",
 
 @dataclass(frozen=True)
 class LlamaConfig:
-    """The JAX LlamaConfig field for field (num_experts / top_k describe
-    the MoE geometry, which raises until models/moe.py is ported)."""
+    """The JAX LlamaConfig field for field (num_experts > 0 swaps the
+    dense SwiGLU FFN for a top-k MoE layer)."""
     vocab: int = 128256
     dim: int = 4096
     ffn_dim: int = 14336
@@ -47,6 +48,12 @@ class LlamaConfig:
     def head_dim(self):
         return self.dim // self.num_heads
 
+    def moe_config(self):
+        from .moe import MoeConfig
+        return MoeConfig(dim=self.dim, ffn_dim=self.ffn_dim,
+                         num_experts=self.num_experts, top_k=self.top_k,
+                         dtype=self.dtype)
+
 
 LLAMA_PRESETS = {
     # llama-3-8b geometry
@@ -57,28 +64,32 @@ LLAMA_PRESETS = {
     # Llama-3.2-1B's widths
     "1b": LlamaConfig(vocab=128256, dim=2048, ffn_dim=8192, num_layers=16,
                       num_heads=32, num_kv_heads=8),
+    # MoE variants (Mixtral-style FFN): tiny for tests, 8x1b the
+    # serving-scale geometry (Llama-1B's widths, 8 experts, top 2)
+    "tiny_moe": LlamaConfig(vocab=256, dim=64, ffn_dim=128, num_layers=2,
+                            num_heads=4, num_kv_heads=2, max_seq_len=128,
+                            num_experts=4, top_k=2),
+    "8x1b": LlamaConfig(vocab=128256, dim=2048, ffn_dim=8192,
+                        num_layers=16, num_heads=32, num_kv_heads=8,
+                        num_experts=8, top_k=2),
 }
-
-
-def _dense_only(config: LlamaConfig) -> None:
-    if config.num_experts:
-        raise NotImplementedError(
-            "the mixture-of-experts FFN (num_experts > 0) is not ported "
-            "yet (ROADMAP.md Queue 1 item 4)")
 
 
 class LlamaLayer(L.Params):
     def __init__(self, config: LlamaConfig, device=None):
         super().__init__()
-        _dense_only(config)
         dim, dtype = config.dim, config.dtype
         self.ln_attn = L.RMSNorm(dim, dtype, device)
         self.attn = L.MHA(dim, config.num_heads, config.num_kv_heads,
                           bias=False, dtype=dtype, device=device)
         self.ln_mlp = L.RMSNorm(dim, dtype, device)
-        self.gate = L.Linear(dim, config.ffn_dim, False, dtype, device)
-        self.up = L.Linear(dim, config.ffn_dim, False, dtype, device)
-        self.down = L.Linear(config.ffn_dim, dim, False, dtype, device)
+        if config.num_experts:
+            from .moe import MoE
+            self.moe = MoE(config.moe_config(), device)
+        else:
+            self.gate = L.Linear(dim, config.ffn_dim, False, dtype, device)
+            self.up = L.Linear(dim, config.ffn_dim, False, dtype, device)
+            self.down = L.Linear(config.ffn_dim, dim, False, dtype, device)
 
 
 class Llama(L.Params):
@@ -139,8 +150,14 @@ def _swiglu(layer, x):
 
 
 def llama_ffn(layer, config: LlamaConfig, x):
-    """The per-layer FFN: dense SwiGLU (the MoE variant raises)."""
-    _dense_only(config)
+    """The per-layer FFN: dense SwiGLU, or top-k MoE when the config says
+    so.  The one seam of prefill, admits, extends, decode and verify
+    steps: an MoE model serves through the same programs, and each call
+    routes (and drops) over exactly the rows it is given."""
+    if config.num_experts:
+        from .moe import moe_forward
+        y, _ = moe_forward(layer["moe"], config.moe_config(), x)
+        return y
     return _swiglu(layer, x)
 
 

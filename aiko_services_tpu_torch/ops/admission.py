@@ -20,7 +20,7 @@
 # (pipeline.process_frame_remote) plugs in its own dispatch/shed
 # callables.  The KV-ledger byte verdict (set_byte_policy /
 # shed_on_bytes) waits for the port decoder's ledger (ROADMAP.md Queue 1
-# item 4).
+# item 3).
 
 from __future__ import annotations
 
@@ -36,7 +36,7 @@ __all__ = ["TenantPolicy", "TenantFairQueue", "AdmissionGate",
 DEFAULT_TENANT = "default"
 LEDGER_NOT_PORTED = ("the KV memory ledger byte verdict (set_byte_policy, "
                      "shed_on_bytes) is not ported yet (ROADMAP.md Queue 1 "
-                     "item 4)")
+                     "item 3)")
 
 
 @dataclass(frozen=True)

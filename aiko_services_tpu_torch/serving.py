@@ -275,7 +275,7 @@ class PrefixKVCache:
     the registry, under the JAX package's family names.
 
     The host tier and the disaggregated install are ROADMAP.md Queue 1
-    item 5.  Single-threaded like the decoder that owns it; decoders of
+    item 4.  Single-threaded like the decoder that owns it; decoders of
     one geometry and one storage kind may share it (paged: and then
     share its pool)."""
 
@@ -367,30 +367,30 @@ class PrefixKVCache:
         self._pool = pool
 
     def attach_ledger(self, ledger) -> None:
-        _not_ported("the KV memory ledger", "4")
+        _not_ported("the KV memory ledger", "3")
 
     def attach_host_store(self, store, promoter=None) -> None:
-        _not_ported("the host KV tier (attach_host_store)", "5")
+        _not_ported("the host KV tier (attach_host_store)", "4")
 
     @property
     def tiered(self) -> bool:
         return False
 
     def prefetch(self, tenant: str, tokens) -> int:
-        _not_ported("the host KV tier (prefetch)", "5")
+        _not_ported("the host KV tier (prefetch)", "4")
 
     def poll_promotions(self) -> int:
-        _not_ported("the host KV tier (poll_promotions)", "5")
+        _not_ported("the host KV tier (poll_promotions)", "4")
 
     def promote_for(self, tenant: str, tokens) -> int:
-        _not_ported("the host KV tier (promote_for)", "5")
+        _not_ported("the host KV tier (promote_for)", "4")
 
     def install_chain(self, tenant: str, tokens, start_block: int,
                       blocks) -> int:
-        _not_ported("the disaggregated KV install (install_chain)", "5")
+        _not_ported("the disaggregated KV install (install_chain)", "4")
 
     def wire_layout(self) -> tuple:
-        _not_ported("the disaggregated KV wire (wire_layout)", "5")
+        _not_ported("the disaggregated KV wire (wire_layout)", "4")
 
     def insert(self, tenant: str, parent: str, key: str,
                k_rows, v_rows) -> bool:
@@ -558,7 +558,7 @@ class PrefixKVCache:
     def demote_sessions(self, pairs) -> int:
         """Batch release in SessionTable's on_expired / on_demoted
         callback shape ([(tenant, sid), ...]).  Without a host tier
-        (ROADMAP.md Queue 1 item 5) demotion is release_sessions exactly:
+        (ROADMAP.md Queue 1 item 4) demotion is release_sessions exactly:
         each session's pin drops and its chain stays cached, evictable.
         Returns device blocks demoted (always 0 here)."""
         for tenant, sid in pairs:
@@ -1279,10 +1279,10 @@ class ContinuousDecoder:
         kv_write = os.environ.get("AIKO_DECODE_KV", "block")
         attention = os.environ.get("AIKO_DECODE_ATTENTION", "two_pass")
         if kv_write != "block":
-            _not_ported(f"the {kv_write!r} KV write (AIKO_DECODE_KV)", "4")
+            _not_ported(f"the {kv_write!r} KV write (AIKO_DECODE_KV)", "3")
         if attention in ("online", "vpu"):
             _not_ported(f"the {attention!r} decode attention "
-                        f"(AIKO_DECODE_ATTENTION)", "4")
+                        f"(AIKO_DECODE_ATTENTION)", "3")
         dtype_norm = (kv_cache_dtype or "native").lower()
         if dtype_norm not in ("native", "int8"):
             raise ValueError(
@@ -1306,10 +1306,7 @@ class ContinuousDecoder:
         if self.speculate_k and self.speculate_ngram < 1:
             raise ValueError("speculate_ngram must be >= 1")
         if weight_quant or fuse_projections:
-            _not_ported("weight_quant and fuse_projections", "4")
-        if config.num_experts:
-            _not_ported("the mixture-of-experts FFN (num_experts > 0)",
-                        "4")
+            _not_ported("weight_quant and fuse_projections", "3")
         # a bound prefix cache fixes the block size: its blocks ARE pool
         # blocks
         self.paged = bool(paged_kv)
@@ -1502,7 +1499,7 @@ class ContinuousDecoder:
         if prefill_label is not None or kv_blocks is not None or \
                 progress_callback is not None:
             _not_ported("disaggregated prefill (prefill_label, kv_blocks, "
-                        "progress_callback)", "5")
+                        "progress_callback)", "4")
         from .observe.journey import take_admission_note
         from .observe.tracing import current_trace
         now = time.monotonic()
@@ -1546,26 +1543,26 @@ class ContinuousDecoder:
             self._timer = None
 
     def attach_ledger(self, ledger) -> None:
-        _not_ported("the KV memory ledger", "4")
+        _not_ported("the KV memory ledger", "3")
 
     def drain(self, deadline: float | None = None, on_evacuate=None,
               on_complete=None) -> list:
-        _not_ported("graceful drain", "4")
+        _not_ported("graceful drain", "3")
 
     def resume(self) -> None:
-        _not_ported("graceful drain (resume)", "4")
+        _not_ported("graceful drain (resume)", "3")
 
     def slo_stats(self) -> dict:
-        _not_ported("request journeys and SLO samples", "4")
+        _not_ported("request journeys and SLO samples", "3")
 
     def slo_sketch_stats(self, prefill: str | None = None,
                          tenant: str | None = None) -> dict:
-        _not_ported("request journeys and SLO sketches", "4")
+        _not_ported("request journeys and SLO sketches", "3")
 
     def install_shipped_blocks(self, tokens, start_block: int,
                                blocks, tenant: str = "") -> tuple:
         _not_ported("the direct slot-table install "
-                    "(install_shipped_blocks)", "5")
+                    "(install_shipped_blocks)", "4")
 
     def harvest_progress(self, request: DecodeRequest) -> int:
         """Register the complete prompt blocks written so far ([0,

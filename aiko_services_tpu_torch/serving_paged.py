@@ -334,7 +334,7 @@ class BlockPool:
     def block_rows(self, block_id: int) -> tuple:
         """(per-layer K leaves, per-layer V leaves) of one block: views
         into the pool in its storage layout (the read behind shipping a
-        cached block; the wire itself is ROADMAP.md Queue 1 item 5)."""
+        cached block; the wire itself is ROADMAP.md Queue 1 item 4)."""
         return ([L.slice_paged_block(pool, block_id)
                  for pool in self.k_pools],
                 [L.slice_paged_block(pool, block_id)

@@ -18,7 +18,7 @@
 # Key space: (tenant, session_id) maps to the EC item "tenant.sid".
 # Tenant and session ids must not contain ".", "/" or spaces.  The KV
 # memory ledger hook (attach_ledger) waits for ROADMAP.md Queue 1 item
-# 4; the load generator (state/loadgen.py) for item 13.
+# 3; the load generator (state/loadgen.py) for item 12.
 
 from __future__ import annotations
 
@@ -212,7 +212,7 @@ class SessionTable:
     def attach_ledger(self, ledger) -> None:
         raise NotImplementedError(
             "the KV memory ledger is not ported yet (ROADMAP.md Queue 1 "
-            "item 4)")
+            "item 3)")
 
     # -- introspection -----------------------------------------------------
     def __len__(self) -> int:

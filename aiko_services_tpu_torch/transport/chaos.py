@@ -145,7 +145,7 @@ class FaultPlan:
         # telemetry snapshot shows chaos_faults_total beside the
         # recovery counters it provoked.  The JAX package also writes
         # each fault into the flight recorder's rings; that hook waits
-        # for the port's observe/ modules (ROADMAP.md Queue 1 item 9)
+        # for the port's observe/ modules (ROADMAP.md Queue 1 item 8)
         self.stats = MirroredStats(
             metric="chaos_faults_total",
             help="chaos faults injected by kind")

@@ -115,11 +115,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
      extends under torch.profiler;
   10. agent_f32: the same conversation at full width and 2 layers in f32:
      each turn against llama_greedy_decode on its whole history prompt;
-  11. assistant: examples/speech/pipeline_assistant.json with
-     PE_NeuralTTS replaced in memory by PE_Synthesize (TTS is ROADMAP
-     Queue 1 item 3) and the agent's preset, paged, prefix_block and
-     sessions overridden: Whisper-small and Llama-1B on one
-     ComputeRuntime, 4 streams x 3 five-second chunks.
+  11. assistant: examples/speech/pipeline_assistant.json as written
+     (PE_NeuralTTS at its base preset, Griffin-Lim) with the agent's
+     preset, paged, prefix_block and sessions overridden: Whisper-small,
+     Llama-1B and the TTS model on one ComputeRuntime, 4 streams x 3
+     five-second chunks; every frame carries whole hops of finite TTS
+     audio and PE_Speaker collects all of it.
   12. detect: examples/pipeline/pipeline_detect.json less its file source
      (the repo holds no video file), at its own parameters (detector_r18:
      a ResNet-18 backbone of width 64, 64-channel neck, 80 classes, K =
@@ -163,7 +164,37 @@ Phases, each printing one JSON line; any failure exits non-zero:
   20. agent_dense: the agent phase's conversation through PE_LlamaAgent
      at paged false (the dense decoder, dense prefix nodes): every frame
      completes, turns 2-3 hit the cache, hits copy rows, no paged
-     launch.
+     launch;
+  21. tts: a one-element pipeline (PE_NeuralTTS at preset base: dim 128,
+     4 layers, max_tokens 128, max_frames 1024, f32; batched, max_batch
+     16, 32 Griffin-Lim rounds) on a ComputeRuntime, one warm-up batch,
+     then 16 streams x 4 seeded texts of 8-128 bytes (one of 200: the
+     truncation binds): every frame completes with finite audio of the
+     element's voiced length (max(samples, 160) within the synthesized
+     row), no attention kernel launches; frames/s, steady batch s, and
+     one batch under torch.profiler (launches a batch, idle share);
+     then the same drive with a seeded base vocoder checkpoint (flat
+     npz written to a temporary directory) in place of Griffin-Lim;
+  22. tts_f32: the tts phase's weights and 2 x 4 of its texts through
+     the element on the card and on the CPU port, Griffin-Lim and the
+     vocoder: totals within 1e-4 + 1e-6 x the total (f32 sums of 128
+     durations in another order), equal voiced lengths (one frame off
+     only at a tie), mel, STFT magnitudes and vocoder waveforms
+     within TTS_*_REL_L2;
+  23. media: PE_MicrophoneSim → PE_FFT → PE_AudioFilter →
+     PE_AudioResampler and PE_MicrophoneSim → PE_FFT → PE_GraphXY: the
+     FFT runs on the card and its magnitudes equal numpy's within 1e-5;
+  24. llama_moe: 8x1b (Llama-1B's widths, 8 experts of 8192, top 2,
+     ~10 GB of weights) in bf16 served by the llama phase's paged
+     decoder and traffic: every request completes, the pool drains, the
+     paged kernel launches 16 x the predicted 326 decode steps; tokens/s,
+     rounds, dropped assignments a round, one round under the profiler;
+     the model is freed after;
+  25. llama_moe_f32: 8x1b at 2 layers in f32: the paged decoder with 16
+     slots on the card against the same decoder on the CPU (a split
+     passes only at a CPU top-2 logit gap or a router boundary gap under
+     MOE_*_TIE), and with every expert chosen (no drops) against
+     llama_greedy_decode.
 The kernel section holds the paged kernel at the verify shapes too: W =
 3 (the split path) and W = 5 (the tensor cores) natively, W = 3 with
 int8 pools folded.
@@ -171,6 +202,8 @@ The vision phases launch none of the three attention kernels, and they
 need neither PIL nor OpenCV: every frame is posted at the element's size.
 The 1b preset is f32 in the port as in JAX; the agent and assistant
 phases serve it in bf16 (agent_preset), agent_f32 at 2 layers in f32.
+The TTS phases launch none of the three attention kernels (S <= 128);
+llama_moe's paged launches join the decode row of the kernels line.
 Every earlier phase's launch counts must equal EARLIER_COUNTS.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card the run fails before
@@ -189,6 +222,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -383,6 +417,51 @@ DETECT_SCORE_TOL, DETECT_BOX_TOL, DETECT_TIE = 1e-4, 1e-2, 1e-4
 CLASSIFY_FRAMES, CLASSIFY_SEED = 64, 13
 CLASSIFY_TOL, CLASSIFY_TIE = 1e-5, 1e-6
 
+
+# text to speech (phases tts, tts_f32 and the assistant's voice):
+# PE_NeuralTTS at preset base (dim 128, 4 layers, max_tokens 128,
+# max_frames 1024, f32), batched, max_batch 16, 32 Griffin-Lim rounds;
+# TTS_STREAMS x TTS_TEXTS seeded texts of 8-128 bytes, the first
+# TTS_LONG_BYTES long (past max_tokens: truncation binds)
+TTS_PARAMETERS = {"preset": "base", "mode": "batched", "max_batch": 16,
+                  "gl_iters": 32}
+TTS_STREAMS, TTS_TEXTS, TTS_SEED, TTS_LONG_BYTES = 16, 4, 17, 200
+TTS_TIMEOUT_S = 120.0
+# tts_f32: TTS_F32_STREAMS x TTS_TEXTS of those texts on the card and on
+# the CPU port.  A total is the f32 cumsum of up to 128 durations, ~1,000
+# frames for most texts, where one f32 ulp is 6e-5-1.2e-4: two sums in
+# another order differ by a few ulps (2.4e-4 on an H100), so totals agree
+# within TTS_TIE + TTS_TOTAL_REL x the total (~16 ulps), and a voiced
+# length one frame off passes only where the total lies that close to an
+# integer (ceil may go either way).  The other limits come from the CPU
+# port against JAX (tests/test_torch_tts.py): mel ~2e-6 of its largest
+# value, the vocoder's waveform ~1.4e-6 relative.  Griffin-Lim is
+# chaotic at this model's size: each round re-derives the phase from
+# the last one's FFTs, and on the CPU a 1e-7 relative change of the
+# base preset's magnitudes moves the STFT magnitudes of the 32-round
+# result by 1.8e-2 relative L2 (the waveform by 8e-2); the CPU port
+# against JAX at the base preset measured 1.1e-2.  Each limit leaves ~3x
+# or more over its measurement
+TTS_F32_STREAMS = 2
+TTS_TIE, TTS_TOTAL_REL, TTS_MEL_REL_L2 = 1e-4, 1e-6, 1e-4
+TTS_GL_STFT_REL_L2, TTS_VOCODER_REL_L2 = 5e-2, 1e-4
+# media: 4 chunks of 0.25 s (4,000 samples) from PE_MicrophoneSim; the
+# card's f32 rfft against numpy's f64 one, max error / max magnitude
+MEDIA_CHUNK_S, MEDIA_CHUNKS, MEDIA_FFT_REL = 0.25, 4, 1e-5
+# the MoE Llama (phases llama_moe, llama_moe_f32): 8x1b (Llama-1B's
+# widths, 8 experts of 8192, top 2).  llama_moe serves the llama phase's
+# traffic through its decoder; its decode steps, from a CPU rehearsal of
+# the drive (a narrow stand-in: the schedule depends on neither widths
+# nor token values, no request stops early), are the llama phase's 326
+LLAMA_MOE_STEPS = 326
+# llama_moe_f32: 16 requests of 16 new tokens, one slot each (capacity 5
+# an expert at a decode step); a first split between the card and the
+# CPU passes only where the CPU's top-2 logit gap or the smallest router
+# top-k boundary gap of the program that emitted it lies under its limit
+# (f32 sums in other orders move logits and router probabilities by
+# ~1e-6: ~100x below)
+MOE_F32_REQUESTS, MOE_F32_NEW = 16, 16
+MOE_LOGIT_TIE, MOE_ROUTER_TIE = 1e-4, 1e-4
 
 def emit(record: dict) -> None:
     print(json.dumps(record), flush=True)
@@ -1717,34 +1796,58 @@ class LogitGaps:
     request's rows by its tokens among the slots' runs (a run starts at
     each first token)."""
 
-    def __init__(self, decoder):
+    def __init__(self, decoder, router: bool = False):
         from aiko_services_tpu_torch import serving
-        from aiko_services_tpu_torch.models import layers
+        from aiko_services_tpu_torch.models import layers, moe
         self.by_slot = {slot: [] for slot in range(decoder.max_slots)}
+        # with `router` (an MoE decoder): per slot, the smallest router
+        # top-k boundary gap (p_k - p_k+1 over every row of every MoE
+        # call) of the program that emitted each token
+        self.router_by_slot = {slot: [] for slot in range(decoder.max_slots)}
+        self._router_gaps = []
         # per slot, one list a request: [top-1, gap, token] per emit
         self._runs = {slot: [] for slot in range(decoder.max_slots)}
         self._calls = []
         self._names = ("_paged_admit", "_paged_extend") if decoder.paged \
             else ("_dense_admit", "_dense_extend")
-        self._layers, self._serving = layers, serving
+        self._layers, self._serving, self._moe = layers, serving, moe
         self._saved = (layers.linear_logits,
-                       *(getattr(serving, name) for name in self._names))
-        linear_logits, admit, extend = self._saved
+                       *(getattr(serving, name) for name in self._names),
+                       moe.moe_forward)
+        linear_logits, admit, extend, moe_forward = self._saved
+
+        def recording_moe(params, config, x):
+            logits = torch.matmul(x.reshape(-1, x.shape[-1]).float(),
+                                  params["router"]["w"].float())
+            probs = torch.sort(torch.softmax(logits, dim=-1), dim=-1,
+                               descending=True).values
+            self._router_gaps.append(
+                (probs[:, config.top_k - 1] - probs[:, config.top_k]).min())
+            return moe_forward(params, config, x)
 
         def recording_logits(params, x):
             logits = linear_logits(params, x)
             top = torch.topk(logits.reshape(-1, logits.shape[-1]).float(),
                              2)
             values = top.values           # token ids exact in f32 < 2^24
-            self._calls.append(torch.stack([
-                values[:, 0], values[:, 0] - values[:, 1],
-                top.indices[:, 0].float()], dim=1).cpu())
+            columns = [values[:, 0], values[:, 0] - values[:, 1],
+                       top.indices[:, 0].float()]
+            if router:
+                gap = torch.stack(self._router_gaps).min() \
+                    if self._router_gaps else torch.tensor(float("inf"))
+                self._router_gaps.clear()
+                columns.append(torch.full_like(values[:, 0],
+                                               float(gap)))
+            self._calls.append(torch.stack(columns, dim=1).cpu())
             return logits
 
         def first_tokens(rows, slots, emits):
             for j in torch.nonzero(emits.cpu()).flatten().tolist():
                 self.by_slot[int(slots[j])].append(rows[j, :2].tolist())
-                self._runs[int(slots[j])].append([rows[j].tolist()])
+                self._runs[int(slots[j])].append([rows[j, :3].tolist()])
+                if router:
+                    self.router_by_slot[int(slots[j])].append(
+                        float(rows[j, 3]))
 
         # (params, config, k, v, tokens, lengths, context, rows..., slots,
         # valid[, finish], ...): slots at 9, valid at 10, finish at 11
@@ -1768,18 +1871,24 @@ class LogitGaps:
                 rows = self._calls[before + k]
                 for slot in torch.nonzero(active).flatten().tolist():
                     self.by_slot[slot].append(rows[slot, :2].tolist())
-                    self._runs[slot][-1].append(rows[slot].tolist())
+                    self._runs[slot][-1].append(rows[slot, :3].tolist())
+                    if router:
+                        self.router_by_slot[slot].append(
+                            float(rows[slot, 3]))
             return out
 
         layers.linear_logits = recording_logits
         setattr(serving, self._names[0], recording_admit)
         setattr(serving, self._names[1], recording_extend)
         decoder._step = recording_step
+        if router:
+            moe.moe_forward = recording_moe
 
     def close(self) -> None:
         self._layers.linear_logits = self._saved[0]
-        for name, saved in zip(self._names, self._saved[1:]):
+        for name, saved in zip(self._names, self._saved[1:3]):
             setattr(self._serving, name, saved)
+        self._moe.moe_forward = self._saved[3]
 
     def by_request(self, done: dict) -> dict:
         """[top-1 logit, top-2 gap] per emitted token of each request in
@@ -2254,24 +2363,16 @@ def phase_assistant() -> dict:
     """examples/speech/pipeline_assistant.json on the port: PE_MicrophoneSim
     → PE_LogMel → PE_WhisperASR (Whisper-small, buckets [500], 5 s
     chunks) → PE_LlamaAgent (Llama-1B in bf16, continuous, paged, prefix
-    cache, sessions) → PE_Synthesize → PE_Speaker; 4 streams x 3 chunks
-    on a virtual clock."""
+    cache, sessions) → PE_NeuralTTS (the base preset, Griffin-Lim) →
+    PE_Speaker; 4 streams x 3 chunks on a virtual clock."""
+    import numpy as np
+
     from aiko_services_tpu_torch.pipeline import (Pipeline,
                                                   parse_pipeline_definition)
 
     path = "examples/speech/pipeline_assistant.json"
     with open(path) as file:
         raw = json.load(file)
-    # PE_NeuralTTS is ROADMAP Queue 1 item 3: the placeholder voice takes
-    # its place, in memory
-    raw["graph"] = [graph.replace("PE_NeuralTTS", "PE_Synthesize")
-                    for graph in raw["graph"]]
-    raw["parameters"].pop("PE_NeuralTTS.preset")
-    raw["elements"] = [
-        {"name": "PE_Synthesize", "input": [{"name": "text", "type": "str"}],
-         "output": [{"name": "audio", "type": "audio"}]}
-        if element["name"] == "PE_NeuralTTS" else element
-        for element in raw["elements"]]
     raw["parameters"].update(ASSISTANT_OVERRIDES)
     with agent_preset(dtype=torch.bfloat16) as config:
         check_1b(config)
@@ -2306,27 +2407,37 @@ def phase_assistant() -> dict:
             whisper.dec_layers, whisper.n_vocab) != WHISPER_SMALL or \
             asr.buckets != [500]:
         raise AssertionError(f"not Whisper-small in bucket 500: {whisper}")
+    tts = pipeline.graph.node("PE_NeuralTTS").element
+    if (tts.config.dim, tts.config.num_layers, tts.config.max_frames,
+            tts.max_tokens) != (128, 4, 1024, 128) or tts.vocoder is not None:
+        raise AssertionError(f"not the base TTS preset: {tts.config}")
     for frame in done:
-        # the frame's audio is the voice's: 0.08 s (1,280 samples) a word
-        # of the response, not the microphone's 5 s chunk
+        # the frame's audio is the voice's (whole hops of PE_NeuralTTS's
+        # Griffin-Lim output), not the microphone's 5 s chunk
         swag = frame.swag
+        audio = np.asarray(swag.get("audio"))
         if not isinstance(swag.get("text"), str) or \
                 not isinstance(swag.get("response"), str) or \
                 len(swag["response_tokens"]) != 32 or \
-                len(swag["audio"]) != 1280 * len(swag["response"].split()):
+                swag.get("sample_rate") != 16000 or \
+                audio.dtype != np.float32 or audio.size < 160 or \
+                audio.size % 160 or not np.all(np.isfinite(audio)):
             raise AssertionError(f"assistant frame {frame.stream_id}:"
                                  f"{frame.frame_id}: {sorted(swag)}")
     speaker = {sid: stream.variables.get("speaker.audio")
                for sid, stream in pipeline.streams.items()}
-    if sorted(sid for sid, audio in speaker.items()
-              if audio is not None and audio.size) != sorted(streams):
-        raise AssertionError("PE_Speaker did not collect audio for every "
-                             "stream")
+    voiced = {sid: sum(len(f.swag["audio"]) for f in done
+                       if f.stream_id == sid) for sid in streams}
+    if {sid: 0 if audio is None else int(audio.size)
+            for sid, audio in speaker.items()} != voiced:
+        raise AssertionError("PE_Speaker did not collect PE_NeuralTTS's "
+                             "audio of every frame")
     stats = agent.decoder.stats
     program = compute.programs["whisper_asr.PE_WhisperASR"]
     batches = len(program.first_call_times) + len(program.recent_service)
     if stats["prefix_admits"] < ASSISTANT_MIN_PREFIX_ADMITS or \
             agent.compute is not compute or asr.compute is not compute or \
+            tts.compute is not compute or \
             agent.decoder.device != compute.device or not batches:
         raise AssertionError(
             f"{stats['prefix_admits']} prefix admits; the agent's and the "
@@ -2336,9 +2447,8 @@ def phase_assistant() -> dict:
     pipeline.stop()
     compute.stop()
     runtime.terminate()
+    tts_program = compute.programs[tts._program]
     record = {"phase": "assistant",
-              "note": "PE_NeuralTTS (ROADMAP Queue 1 item 3) replaced in "
-                      "memory by PE_Synthesize",
               "streams": len(streams), "frames": len(done),
               "frames_failed": failed,
               "frames_with_text": sum(1 for f in done if f.swag["text"]),
@@ -2350,6 +2460,9 @@ def phase_assistant() -> dict:
               "hit_tokens": agent.prefix_cache.stats["hit_tokens"],
               "speaker_samples": {sid: int(audio.size)
                                   for sid, audio in speaker.items()},
+              "tts_batches": len(tts_program.first_call_times) +
+              len(tts_program.recent_service),
+              "tts_samples": sorted(len(f.swag["audio"]) for f in done),
               "virtual_s": engine.clock.now(), "wall_s": wall_s,
               "compute_programs": sorted(compute.programs)}
     emit(record)
@@ -3940,6 +4053,666 @@ def phase_agent_dense() -> dict:
     return record
 
 
+# -- text to speech, the audio elements, the MoE decoder --------------------
+
+def tts_texts(rng, streams: int = TTS_STREAMS) -> dict:
+    """{stream: [TTS_TEXTS texts]}: seeded words, 8-128 bytes each; the
+    first stream's first text is TTS_LONG_BYTES long, so truncation at
+    max_tokens binds."""
+    def text(n):
+        words = []
+        while sum(len(w) + 1 for w in words) < n:
+            words.append(AGENT_WORDS[int(rng.integers(len(AGENT_WORDS)))])
+        return " ".join(words)[:n]
+    texts = {f"t{s}": [text(int(rng.integers(8, 129)))
+                       for _ in range(TTS_TEXTS)] for s in range(streams)}
+    texts["t0"][0] = text(TTS_LONG_BYTES)
+    return texts
+
+
+def tts_definition(**parameters):
+    """A one-element pipeline, (PE_NeuralTTS), at TTS_PARAMETERS plus
+    `parameters`."""
+    from aiko_services_tpu_torch.pipeline import parse_pipeline_definition
+    return parse_pipeline_definition({
+        "version": 0, "name": "p_tts", "runtime": "python",
+        "graph": ["(PE_NeuralTTS)"],
+        "parameters": {f"PE_NeuralTTS.{key}": value for key, value in
+                       {**TTS_PARAMETERS, **parameters}.items()},
+        "elements": [{"name": "PE_NeuralTTS", "input": [{"name": "text"}],
+                      "output": [{"name": "audio"},
+                                 {"name": "sample_rate"}]}]})
+
+
+def speak(device, texts: dict, **parameters) -> tuple:
+    """Every text through (PE_NeuralTTS) on `device` (None: the card),
+    text i of every stream posted before text i + 1.  Returns ({(stream,
+    i): audio}, the element, the compute runtime, the runtime, the
+    pipeline, wall s); the caller stops them (stop_pipeline)."""
+    import numpy as np
+
+    from aiko_services_tpu_torch.pipeline import Pipeline
+
+    runtime, compute = host_runtime(device)
+    engine = runtime.event
+    pipeline = Pipeline(runtime, tts_definition(**parameters),
+                        stream_lease_time=0)
+    done = []
+    pipeline.add_frame_handler(done.append)
+    for stream_id in texts:
+        pipeline.create_stream(stream_id, lease_time=0)
+    element = pipeline.graph.node("PE_NeuralTTS").element
+    total = sum(len(t) for t in texts.values())
+    start = time.perf_counter()
+    for i in range(max(len(t) for t in texts.values())):
+        for stream_id, stream_texts in texts.items():
+            if i < len(stream_texts):
+                pipeline.post("process_frame", stream_id,
+                              {"text": stream_texts[i]})
+    while len(done) < total:
+        if time.perf_counter() - start > TTS_TIMEOUT_S:
+            raise AssertionError(f"{len(done)} of {total} TTS frames in "
+                                 f"{TTS_TIMEOUT_S} s")
+        if not engine.step():
+            engine.clock.advance(0.01)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - start
+    failed = pipeline.recovery_stats["frames_failed"]
+    if failed:
+        raise AssertionError(f"{failed} TTS frames failed")
+    audio = {}
+    for stream_id in texts:
+        frames = sorted((f for f in done if f.stream_id == stream_id),
+                        key=lambda f: f.frame_id)
+        for i, frame in enumerate(frames):
+            if frame.swag.get("sample_rate") != 16000:
+                raise AssertionError(f"TTS frame {stream_id}:{i}: "
+                                     f"{sorted(frame.swag)}")
+            audio[(stream_id, i)] = np.asarray(frame.swag["audio"])
+    return audio, element, compute, runtime, pipeline, wall_s
+
+
+def stop_pipeline(runtime, compute, pipeline) -> None:
+    for stream_id in list(pipeline.streams):
+        pipeline.destroy_stream(stream_id)
+    pipeline.stop()
+    compute.stop()
+    runtime.terminate()
+
+
+def tts_tokens(element, texts: dict) -> tuple:
+    """(keys in order, the element's collated [N, max_tokens] int32 token
+    batch of every text) — the same ids the element submits."""
+    import numpy as np
+
+    keys = [(sid, i) for sid in texts for i in range(len(texts[sid]))]
+    batch = np.zeros((len(keys), element.max_tokens), np.int32)
+    for row, (sid, i) in enumerate(keys):
+        ids = element.tokenizer.encode(texts[sid][i])[:element.max_tokens] \
+            or [32]
+        batch[row, :len(ids)] = ids
+    return keys, batch
+
+
+def tts_totals(element, tokens) -> tuple:
+    """(mel [N, max_frames, n_mels], total frames [N]) of the element's
+    model on its device."""
+    from aiko_services_tpu_torch.models.tts import tts_forward
+    mel, total = tts_forward(element.params, element.config,
+                             torch.from_numpy(tokens).to(
+                                 element.compute.device))
+    return mel.float().cpu().numpy(), total.cpu().numpy()
+
+
+def total_tolerance(total) -> float:
+    return TTS_TIE + TTS_TOTAL_REL * abs(float(total))
+
+
+def near_integer(total) -> bool:
+    return abs(float(total) - round(float(total))) <= total_tolerance(total)
+
+
+def check_tts_audio(audio: dict, keys, totals, row_samples: int) -> int:
+    """Every waveform finite, of max(samples, 160) samples (samples =
+    clip(ceil(total), 0, max_frames) x 160, within the synthesized row):
+    a count one frame off passes only where the total lies within
+    total_tolerance of an integer.  Returns those ties."""
+    import numpy as np
+
+    ties = 0
+    for key, total in zip(keys, totals):
+        wave = audio[key]
+        frames = int(min(max(math.ceil(float(total)), 0), 1024))
+        want = min(max(frames * 160, 160), row_samples)
+        if wave.dtype != np.float32 or not np.all(np.isfinite(wave)):
+            raise AssertionError(f"TTS {key}: not finite f32")
+        if wave.size != want:
+            if not near_integer(total) or abs(wave.size - want) != 160:
+                raise AssertionError(f"TTS {key}: {wave.size} samples, "
+                                     f"expected {want} (total {total})")
+            ties += 1
+    return ties
+
+
+def tts_record(label, audio, element, compute, wall_s, texts, keys,
+               totals, row_samples) -> dict:
+    program = compute.programs[element._program]
+    steady = [s for _, s in program.recent_service]
+    return {"phase": label, "frames": len(audio), "wall_s": wall_s,
+            "frames_per_s": len(audio) / wall_s,
+            "batches": len(program.first_call_times) + len(steady),
+            "first_call_s": program.first_call_times,
+            "steady_batch_s": statistics.median(steady) if steady else None,
+            "samples": sorted(int(a.size) for a in audio.values()),
+            "audio_s": sum(a.size for a in audio.values()) / 16000.0,
+            "row_samples": row_samples,
+            "truncated_texts": sum(1 for sid, i in keys
+                                   if len(element.tokenizer.encode(
+                                       texts[sid][i])) >
+                                   element.max_tokens),
+            "length_ties": check_tts_audio(audio, keys, totals,
+                                           row_samples)}
+
+
+def profile_tts_batch(element, compute, texts: dict) -> dict:
+    """One full batch (max_batch texts) submitted straight to the TTS
+    program under torch.profiler."""
+    program = compute.programs[element._program]
+    payloads = [element.tokenizer.encode(t)[:element.max_tokens] or [32]
+                for stream in texts.values() for t in stream]
+    payloads = payloads[:program.scheduler.max_batch]
+    got = []
+    record = profile_batch(
+        "tts", lambda: [compute.submit(element._program, "profile", ids,
+                                       len(ids), lambda _s, r: got.append(r))
+                        for ids in payloads], program.scheduler)
+    if len(got) != len(payloads) or \
+            any(isinstance(r, Exception) for r in got):
+        raise AssertionError(f"profiled TTS batch: {len(got)} results")
+    record["launches_per_batch"] = record["device_launches"]
+    return record
+
+
+def write_vocoder_npz(directory: str, device) -> str:
+    """A seeded base-preset vocoder checkpoint (flat npz) in `directory`."""
+    from aiko_services_tpu_torch.bridge import save_flat_npz
+    from aiko_services_tpu_torch.models.vocoder import (VOCODER_PRESETS,
+                                                        vocoder_init)
+    path = os.path.join(directory, "vocoder_base.npz")
+    save_flat_npz(vocoder_init(
+        torch.Generator(device=device).manual_seed(TTS_SEED),
+        VOCODER_PRESETS["base"], device=device), path)
+    return path
+
+
+def phase_tts(directory: str) -> dict:
+    """PE_NeuralTTS at preset base (dim 128, 4 layers, max_tokens 128,
+    max_frames 1024, f32), batched, max_batch 16, Griffin-Lim 32 rounds,
+    on a ComputeRuntime: one warm-up batch, then TTS_STREAMS x TTS_TEXTS
+    seeded texts; then the same drive with a seeded base vocoder
+    checkpoint.  No attention kernel launches (S = 128 < FLASH_MIN_SEQ).
+    Returns the Griffin-Lim element's weights path and the vocoder's."""
+    import numpy as np
+
+    from aiko_services_tpu_torch.bridge import save_flat_npz
+
+    torch.cuda.reset_peak_memory_stats()
+    texts = tts_texts(np.random.default_rng(TTS_SEED))
+    warm = {"warm": [t for stream in list(texts.values())[:4]
+                     for t in stream][:16]}
+    vocoder = write_vocoder_npz(directory, "cuda")
+    records, weights = [], None
+    for label, parameters in (("tts", {}),
+                              ("tts_vocoder", {"vocoder_weights": vocoder,
+                                               "vocoder_preset": "base"})):
+        pipeline_parts = None
+        try:
+            # warm-up: one batch carries cuFFT plans and cuDNN choices
+            _, element, compute_w, runtime_w, pipeline_w, _ = speak(
+                None, warm, **parameters)
+            stop_pipeline(runtime_w, compute_w, pipeline_w)
+            zero_attention_counts()
+            audio, element, compute, runtime, pipeline, wall_s = speak(
+                None, texts, **parameters)
+            counts = attention_counts()
+            pipeline_parts = (runtime, compute, pipeline)
+            config = element.config
+            if (config.dim, config.num_layers, config.max_tokens,
+                    config.max_frames, config.dtype) != \
+                    (128, 4, 128, 1024, torch.float32) or \
+                    element.max_tokens != 128 or \
+                    compute.programs[element._program].scheduler.max_batch \
+                    != 16:
+                raise AssertionError(f"not the base preset: {config}")
+            if any(counts.values()):
+                raise AssertionError(f"{label}: attention kernels "
+                                     f"launched {counts}")
+            if (element.vocoder is None) != (label == "tts"):
+                raise AssertionError(f"{label}: vocoder {element.vocoder}")
+            keys, tokens = tts_tokens(element, texts)
+            _, totals = tts_totals(element, tokens)
+            row = 160 * (config.max_frames - (label == "tts"))
+            record = tts_record(label, audio, element, compute, wall_s,
+                                texts, keys, totals, row)
+            record["profile"] = profile_tts_batch(element, compute, texts)
+            record["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            if label == "tts":
+                weights = os.path.join(directory, "tts_base.npz")
+                save_flat_npz(element.params, weights)
+        finally:
+            if pipeline_parts is not None:
+                stop_pipeline(*pipeline_parts)
+        emit(record)
+        records.append(record)
+    return {"weights": weights, "vocoder": vocoder, "records": records}
+
+
+def stft_magnitude(wave):
+    import numpy as np
+
+    from aiko_services_tpu_torch.ops.audio import stft_complex
+    return stft_complex(torch.from_numpy(np.asarray(
+        wave, np.float32)[None].copy())).abs()[0].numpy()
+
+
+def rel_l2(got, want) -> float:
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want),
+                                                  1e-30))
+
+
+def phase_tts_f32(paths: dict) -> dict:
+    """The tts phase's weights (flat npz) and TTS_F32_STREAMS x
+    TTS_TEXTS of its texts through PE_NeuralTTS on the card and on the
+    CPU port, with Griffin-Lim and with the vocoder: totals within
+    total_tolerance, mel within TTS_MEL_REL_L2, equal sample counts (one
+    frame off only at a tie), Griffin-Lim by the STFT magnitude within
+    TTS_GL_STFT_REL_L2 and the vocoder's waveform within
+    TTS_VOCODER_REL_L2."""
+    import numpy as np
+
+    texts = tts_texts(np.random.default_rng(TTS_SEED))
+    texts = dict(list(texts.items())[:TTS_F32_STREAMS])
+    record = {"phase": "tts_f32", "frames": 0, "ties": 0}
+    for label, parameters in (
+            ("griffin_lim", {"weights": paths["weights"]}),
+            ("vocoder", {"weights": paths["weights"],
+                         "vocoder_weights": paths["vocoder"],
+                         "vocoder_preset": "base"})):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            audio, element, compute, runtime, pipeline, wall_s = speak(
+                None if device == "cuda" else "cpu", texts, **parameters)
+            keys, tokens = tts_tokens(element, texts)
+            mel, totals = tts_totals(element, tokens)
+            runs[device] = (audio, mel, totals, wall_s)
+            stop_pipeline(runtime, compute, pipeline)
+        (card, card_mel, card_totals, card_s), \
+            (cpu, cpu_mel, cpu_totals, cpu_s) = runs["cuda"], runs["cpu"]
+        total_err = float(np.max(np.abs(card_totals - cpu_totals)))
+        mel_err = rel_l2(card_mel, cpu_mel)
+        if any(abs(a - b) > total_tolerance(b)
+               for a, b in zip(card_totals, cpu_totals)) or \
+                mel_err > TTS_MEL_REL_L2:
+            raise AssertionError(f"tts_f32 {label}: totals {total_err}, "
+                                 f"mel rel-L2 {mel_err}")
+        wave_errs = []
+        for key, total in zip(keys, cpu_totals):
+            a, b = card[key], cpu[key]
+            if a.size != b.size:
+                if not near_integer(total) or abs(a.size - b.size) != 160:
+                    raise AssertionError(f"tts_f32 {label} {key}: {a.size} "
+                                         f"/ {b.size} samples")
+                record["ties"] += 1
+                continue
+            err = rel_l2(stft_magnitude(a), stft_magnitude(b)) \
+                if label == "griffin_lim" else rel_l2(a, b)
+            wave_errs.append(err)
+        limit = TTS_GL_STFT_REL_L2 if label == "griffin_lim" \
+            else TTS_VOCODER_REL_L2
+        if max(wave_errs) > limit:
+            raise AssertionError(f"tts_f32 {label}: rel-L2 "
+                                 f"{max(wave_errs)} > {limit}")
+        record["frames"] += len(card)
+        record[label] = {"total_max_abs": total_err, "mel_rel_l2": mel_err,
+                         "audio_rel_l2_max": max(wave_errs),
+                         "audio_measure": "stft magnitude"
+                         if label == "griffin_lim" else "waveform",
+                         "limit": limit, "card_s": card_s, "cpu_s": cpu_s}
+    emit(record)
+    return record
+
+
+def phase_media() -> dict:
+    """PE_MicrophoneSim → PE_FFT → PE_AudioFilter → PE_AudioResampler and
+    PE_MicrophoneSim → PE_FFT → PE_GraphXY on the port's host plane: the
+    FFT runs on the card (every sample batch crosses to it), and its
+    magnitudes equal np.fft.rfft's within MEDIA_FFT_REL."""
+    import numpy as np
+
+    from aiko_services_tpu_torch.elements import audio as audio_module
+    from aiko_services_tpu_torch.pipeline import (Pipeline,
+                                                  parse_pipeline_definition)
+
+    def element(name, inputs, outputs, parameters=None):
+        return {"name": name, "input": [{"name": n} for n in inputs],
+                "output": [{"name": n} for n in outputs],
+                "parameters": parameters or {}}
+
+    source = element("PE_MicrophoneSim", [], ["audio"],
+                     {"chunk_seconds": MEDIA_CHUNK_S, "limit": MEDIA_CHUNKS,
+                      "frequency": 440.0})
+    fft = element("PE_FFT", ["audio"], ["frequencies", "magnitudes"])
+    graphs = {
+        "bands": ("(PE_MicrophoneSim (PE_FFT (PE_AudioFilter "
+                  "PE_AudioResampler)))",
+                  [element("PE_AudioFilter", ["frequencies", "magnitudes"],
+                           ["frequencies", "magnitudes"],
+                           {"low_hz": 100.0, "high_hz": 2000.0}),
+                   element("PE_AudioResampler",
+                           ["frequencies", "magnitudes"], ["bands"],
+                           {"band_count": 8})]),
+        "graph_xy": ("(PE_MicrophoneSim (PE_FFT (PE_GraphXY)))",
+                     [element("PE_GraphXY", ["frequencies", "magnitudes"],
+                              ["image"], {"width": 320, "height": 160})])}
+    devices = []
+    host_to = audio_module._host_to
+
+    def recording(device, array):
+        tensor = host_to(device, array)
+        devices.append(tensor.device.type)
+        return tensor
+
+    audio_module._host_to = recording
+    record = {"phase": "media"}
+    try:
+        for name, (graph, rest) in graphs.items():
+            runtime, compute = host_runtime()
+            engine = runtime.event
+            pipeline = Pipeline(runtime, parse_pipeline_definition({
+                "version": 0, "name": f"p_{name}", "runtime": "python",
+                "graph": [graph], "elements": [source, fft] + rest}),
+                stream_lease_time=0)
+            done = []
+            pipeline.add_frame_handler(done.append)
+            start = time.perf_counter()
+            pipeline.create_stream("s1", lease_time=0)
+            while len(done) < MEDIA_CHUNKS and engine.clock.now() < 60.0:
+                while engine.step():
+                    pass
+                engine.clock.advance(MEDIA_CHUNK_S)
+            wall_s = time.perf_counter() - start
+            if len(done) != MEDIA_CHUNKS or \
+                    pipeline.recovery_stats["frames_failed"]:
+                raise AssertionError(f"media {name}: {len(done)} of "
+                                     f"{MEDIA_CHUNKS} frames")
+            errors = []
+            for frame in done:
+                swag = frame.swag
+                if name == "bands":
+                    bands = np.asarray(swag["bands"])
+                    if bands.shape != (8,) or int(np.argmax(bands)) != 0:
+                        raise AssertionError(f"media bands {bands}")
+                    continue
+                want = np.abs(np.fft.rfft(np.asarray(swag["audio"],
+                                                     np.float64)))
+                got = np.asarray(swag["magnitudes"], np.float64)
+                errors.append(float(np.max(np.abs(got - want)) /
+                                    np.max(want)))
+                image = np.asarray(swag["image"])
+                if image.shape != (160, 320, 3) or not image.any():
+                    raise AssertionError(f"media raster {image.shape}")
+            if errors and max(errors) > MEDIA_FFT_REL:
+                raise AssertionError(f"media FFT rel {max(errors)} > "
+                                     f"{MEDIA_FFT_REL}")
+            record[name] = {"frames": len(done), "wall_s": wall_s,
+                            "fft_rel_err_max": max(errors) if errors
+                            else None}
+            stop_pipeline(runtime, compute, pipeline)
+    finally:
+        audio_module._host_to = host_to
+    if not devices or set(devices) != {"cuda"}:
+        raise AssertionError(f"PE_FFT ran on {collections.Counter(devices)}")
+    record["fft_calls_on_card"] = len(devices)
+    emit(record)
+    return record
+
+
+def moe_8x1b(**changes):
+    """The 8x1b preset (Llama-1B's widths, 8 experts of 8192, top 2) in
+    bf16 at max_seq_len 1024, with `changes`."""
+    from aiko_services_tpu_torch.models.llama import LLAMA_PRESETS
+    config = dataclasses.replace(LLAMA_PRESETS["8x1b"], **{
+        "dtype": torch.bfloat16, "max_seq_len": 1024, **changes})
+    check_1b(config)
+    if (config.num_experts, config.top_k) != (8, 2):
+        raise AssertionError(f"not the 8x1b preset: {config}")
+    return config
+
+
+def phase_llama_moe() -> int:
+    """The llama phase's drive (24 requests, 16 slots, 16 steps per sync)
+    through the paged decoder serving 8x1b at full width in bf16, seeded
+    random weights: every request completes, the pool drains, the paged
+    kernel launches 16 x the decode steps and the steps equal
+    LLAMA_MOE_STEPS; tokens/s, rounds, dropped assignments per round and
+    one round under the profiler.  The model is freed before returning
+    the paged kernel's launches."""
+    import gc
+
+    import numpy as np
+
+    from aiko_services_tpu_torch.models import moe
+    from aiko_services_tpu_torch.models.llama import llama_init
+    from aiko_services_tpu_torch.ops import paged_attention as P
+    from aiko_services_tpu_torch.serving import ContinuousDecoder
+
+    config = moe_8x1b()
+    if config.num_layers != 16:
+        raise AssertionError(f"not 16 layers: {config}")
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    params = llama_init(torch.Generator(device="cuda").manual_seed(3),
+                        config)
+    decoder = ContinuousDecoder(params, config, **LLAMA_DECODER)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - start
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in params.parameters())
+    expert_bytes = sum(p.numel() * p.element_size()
+                       for name, p in params.named_parameters()
+                       if ".moe.w_" in name)
+    requests = llama_traffic(np.random.default_rng(0), config.vocab)
+    # each FFN call's dropped assignments (a device count), grouped by
+    # round: the list's length after every pump
+    marks, pump = [], decoder.pump
+
+    def marked():
+        pump()
+        marks.append(len(moe.drop_counts))
+
+    decoder.pump = marked
+    moe.drop_counts = []
+    # the main path's run: counts set to 0 just before, read just after
+    zero_paged_counts()
+    try:
+        run = serve_requests(decoder, requests)
+        launches = P.launches["paged_decode_attention"]
+        drops = torch.stack(moe.drop_counts).cpu().tolist()
+    finally:
+        decoder.pump = pump
+        moe.drop_counts = None
+    stats = dict(decoder.stats)
+    if launches != config.num_layers * stats["steps"] or \
+            stats["steps"] != LLAMA_MOE_STEPS:
+        raise AssertionError(f"paged launches {launches}, decode steps "
+                             f"{stats['steps']} (predicted "
+                             f"{LLAMA_MOE_STEPS})")
+    per_round = [int(sum(drops[a:b])) for a, b in
+                 zip([0] + marks[:-1], marks)]
+    generated = sum(len(tokens) for tokens in run["done"].values())
+    rng = np.random.default_rng(1)
+    for i in range(16):
+        decoder.submit(f"p{i}", rng.integers(0, config.vocab, 64).tolist(),
+                       40, lambda *_: None)
+    decoder.pump()                 # admits
+    decoder.pump()                 # first decode round
+    profile = profile_round(decoder, "moe decode")
+    while not decoder.idle:
+        decoder.pump()
+    record = {"phase": "llama_moe", "requests": len(run["done"]),
+              "tokens": generated, "setup_s": setup_s,
+              "wall_s": run["wall_s"],
+              "tokens_per_s": generated / run["wall_s"],
+              "rounds": len(run["round_s"]),
+              "first_round_s": run["round_s"][0],
+              "steady_round_s": statistics.median(run["round_s"][2:]),
+              "steps": stats["steps"], "paged_launches": launches,
+              "paged_launches_expected": 16 * LLAMA_MOE_STEPS,
+              "dropped_assignments": sum(per_round),
+              "dropped_per_round": per_round,
+              "moe_calls": len(drops),
+              "weight_gb": weight_bytes / 1e9,
+              "expert_gb": expert_bytes / 1e9,
+              "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
+              "profile": profile,
+              "sample_tokens": {rid: run["done"][rid][:6]
+                                for rid in ("long", "r0")}}
+    emit(record)
+    del decoder, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_moe(params, config, device, prompts, max_new) -> tuple:
+    """(tokens by request, [top-1 logit, top-2 gap] per emitted token by
+    request, the router boundary gap behind each by request) of the
+    paged decoder with one slot per request."""
+    from aiko_services_tpu_torch.serving import ContinuousDecoder
+    decoder = ContinuousDecoder(params, config, device=device, **{
+        **LLAMA_DECODER, "max_slots": len(prompts)})
+    gaps = LogitGaps(decoder, router=True)
+    done = {}
+    try:
+        for rid, prompt in prompts.items():
+            decoder.submit(rid, prompt, max_new,
+                           lambda r, t: done.update({r: list(t)}))
+        requests = list(decoder._pending)
+        while not decoder.idle:
+            decoder.pump()
+    finally:
+        gaps.close()
+    if decoder.pool.used_blocks() != 0:
+        raise AssertionError("MoE f32 run left pool blocks owned")
+    return (done, {r.request_id: gaps.by_slot[r.slot] for r in requests},
+            {r.request_id: gaps.router_by_slot[r.slot] for r in requests})
+
+
+def phase_llama_moe_f32() -> dict:
+    """8x1b at full width, 2 layers, f32: (1) the paged decoder with 16
+    slots (capacity 5 an expert at each decode step) on the card against
+    the same decoder on the CPU, a first split passing only at a CPU
+    top-2 logit gap under MOE_LOGIT_TIE or a router top-k boundary gap
+    under MOE_ROUTER_TIE in the program that emitted it; (2) with top_k ==
+    num_experts (no drops) the decoder's tokens against
+    llama_greedy_decode, a split passing only under MOE_LOGIT_TIE."""
+    import copy
+
+    import numpy as np
+
+    from aiko_services_tpu_torch.models.llama import (
+        llama_forward, llama_greedy_decode, llama_init)
+    from aiko_services_tpu_torch.serving import ContinuousDecoder
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config = moe_8x1b(num_layers=2, dtype=torch.float32)
+    params = llama_init(torch.Generator(device="cuda").manual_seed(4),
+                        config)
+    cpu_params = copy.deepcopy(params).cpu()
+    rng = np.random.default_rng(6)
+    prompts = {f"m{i}": rng.integers(0, config.vocab,
+                                     int(rng.integers(16, 65))).tolist()
+               for i in range(MOE_F32_REQUESTS)}
+    start = time.perf_counter()
+    got, _, _ = serve_moe(params, config, "cuda", prompts, MOE_F32_NEW)
+    card_s = time.perf_counter() - start
+    start = time.perf_counter()
+    with torch.inference_mode():
+        ref, cpu_gaps, cpu_router = serve_moe(cpu_params, config, "cpu",
+                                              prompts, MOE_F32_NEW)
+    cpu_s = time.perf_counter() - start
+    del cpu_params
+    ties, identical = [], 0
+    for rid in prompts:
+        if len(got[rid]) != MOE_F32_NEW or len(ref[rid]) != MOE_F32_NEW:
+            raise AssertionError(f"MoE f32 request {rid}: {len(got[rid])} "
+                                 f"/ {len(ref[rid])} tokens")
+        i = next((j for j, (a, b) in enumerate(zip(got[rid], ref[rid]))
+                  if a != b), None)
+        if i is None:
+            identical += 1
+            continue
+        gap, router = cpu_gaps[rid][i][1], cpu_router[rid][i]
+        if gap >= MOE_LOGIT_TIE and router >= MOE_ROUTER_TIE:
+            raise AssertionError(
+                f"MoE f32 request {rid}: card token {got[rid][i]} != CPU "
+                f"{ref[rid][i]} at step {i}, CPU top-2 gap {gap}, router "
+                f"gap {router}")
+        ties.append({"request": rid, "step": i, "gap": gap,
+                     "router_gap": router})
+    # (2) top_k == num_experts: no assignment drops, so a request's
+    # tokens do not depend on the rows beside it
+    dense = dataclasses.replace(config, top_k=config.num_experts)
+    decoder = ContinuousDecoder(params, dense, **{**LLAMA_DECODER,
+                                                  "max_slots": 4})
+    greedy = dict(list(prompts.items())[:4])
+    done = {}
+    for rid, prompt in greedy.items():
+        decoder.submit(rid, prompt, MOE_F32_NEW,
+                       lambda r, t: done.update({r: list(t)}))
+    while not decoder.idle:
+        decoder.pump()
+    greedy_ties, greedy_identical = [], 0
+    device = params.embed.table.device
+    with torch.inference_mode():
+        for rid, prompt in greedy.items():
+            want = llama_greedy_decode(
+                params, dense, torch.tensor([prompt], device=device),
+                max_tokens=MOE_F32_NEW)[0].tolist()
+            if done[rid] == want:
+                greedy_identical += 1
+                continue
+            i = next(j for j, (a, b) in enumerate(zip(done[rid], want))
+                     if a != b)
+            logits = llama_forward(params, dense, torch.tensor(
+                [prompt + want[:i]], device=device))[0, -1]
+            top2 = torch.topk(logits, 2).values
+            gap = float(top2[0] - top2[1])
+            if gap >= MOE_LOGIT_TIE:
+                raise AssertionError(
+                    f"MoE top-{dense.top_k} request {rid}: decoder token "
+                    f"{done[rid][i]} != greedy {want[i]} at step {i}, "
+                    f"top-2 gap {gap}")
+            greedy_ties.append({"request": rid, "step": i, "gap": gap})
+    record = {"phase": "llama_moe_f32", "requests": len(prompts),
+              "identical": identical, "ties": ties,
+              "tie_limits": [MOE_LOGIT_TIE, MOE_ROUTER_TIE],
+              "min_cpu_gap": min(g for rid in prompts
+                                 for _, g in cpu_gaps[rid]),
+              "min_cpu_router_gap": min(g for rid in prompts
+                                        for g in cpu_router[rid]),
+              "card_s": card_s, "cpu_s": cpu_s,
+              "all_experts_identical": greedy_identical,
+              "all_experts_ties": greedy_ties}
+    emit(record)
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4009,11 +4782,17 @@ def main() -> int:
         spec_int8["paged_decode_attention_int8_dequant"]
     phase_decoder_f32()
     phase_agent_dense()
+    with tempfile.TemporaryDirectory() as directory:
+        paths = phase_tts(directory)
+        phase_tts_f32(paths)
+    phase_media()
+    counts[("paged_decode_attention", "decode")] += phase_llama_moe()
+    phase_llama_moe_f32()
     earlier = {phase: phase_counts[phase]["flash_attention"] for phase in
                ("slice", "pipeline", "remote_pipeline", "peer_pipeline",
                 "peer_chaos")}
     earlier.update({
-                    "llama": counts[("paged_decode_attention", "decode")],
+                    "llama": llama_launches,
                     "int8_fold":
                         int8_counts["paged_decode_attention_int8_fold"],
                     "int8_dequant":

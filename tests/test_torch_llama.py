@@ -108,14 +108,6 @@ def test_llama_greedy_decode_tokens_identical(weights, eos):
     np.testing.assert_array_equal(result.numpy(), np.asarray(expected))
 
 
-def test_moe_configs_raise():
-    moe = dataclasses.replace(T_CONFIG, num_experts=4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        TL.llama_init(torch.Generator().manual_seed(0), moe, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        TL.llama_ffn({}, moe, torch.zeros(1, 1, moe.dim))
-
-
 def test_llama_init_draws_the_jax_distributions():
     model = TL.llama_init(torch.Generator().manual_seed(0), T_CONFIG,
                           device="cpu")

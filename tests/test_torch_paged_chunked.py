@@ -186,7 +186,7 @@ def test_chunked_options_are_checked(weights):
     with pytest.raises(ValueError, match="kv_cache_dtype must be"):
         ContinuousDecoder(model, T_CONFIG, paged_kv=True, device="cpu",
                           kv_cache_dtype="fp8")
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         ContinuousDecoder(model, T_CONFIG, paged_kv=True, device="cpu",
                           kv_cache_dtype="int8", prefill_chunk=16,
                           weight_quant=True)

@@ -130,7 +130,7 @@ def test_budgets_and_stop_leave_no_timer():
     table.stop()
     assert not any(getattr(h, "__self__", None) is table
                    for h in engine.live_timer_handlers())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4\\)"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3\\)"):
         table.attach_ledger(object())
 
 
