@@ -15,8 +15,8 @@ import torch
 
 from . import resolve_device
 
-__all__ = ["flatten_tree", "params_from_numpy", "load_flat_npz",
-           "save_flat_npz"]
+__all__ = ["flatten_tree", "params_from_numpy", "quantized_from_numpy",
+           "load_flat_npz", "save_flat_npz"]
 
 
 def _to_numpy(leaf) -> np.ndarray:
@@ -96,6 +96,33 @@ def params_from_numpy(tree, config, device=None):
     model = model_type(config, device=resolve_device(device))
     _overlay(model, flatten_tree(tree), strict=True)
     return model
+
+
+def quantized_from_numpy(tree, config, device=None):
+    """A JAX weight-quantized Llama tree (layers.quantize_linear_tree:
+    {"w8" int8, "s" f32} linears beside the unquantized leaves) as the
+    port's nested dicts and lists of tensors, the form the port decoder
+    builds from its own weights with weight_quant: int8 leaves stay
+    int8, the scales "s" f32, every other float leaf takes `config`'s
+    dtype (bf16 through f32, as params_from_numpy).  The port can also
+    quantize the carried f32 / bf16 weights itself
+    (layers.quantize_linear_tree), with the same int8 values and
+    scales."""
+    device = resolve_device(device)
+
+    def walk(node, name=""):
+        if isinstance(node, dict):
+            return {key: walk(value, key) for key, value in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(value, name) for value in node]
+        array = _to_numpy(node)
+        if array.dtype == np.int8:
+            return torch.from_numpy(array).to(device)
+        tensor = torch.from_numpy(np.array(array, dtype=np.float32))
+        dtype = torch.float32 if name == "s" else config.dtype
+        return tensor.to(device=device, dtype=dtype)
+
+    return walk(tree)
 
 
 def load_flat_npz(model: torch.nn.Module, pathname: str):

@@ -32,11 +32,9 @@ from .speech import _host_to
 
 __all__ = ["PE_Detect", "PE_LlamaAgent"]
 
-TIERED_NOT_PORTED = ("the host KV tier (host_kv_mb) is not ported yet "
-                     "(ROADMAP.md Queue 1 item 4)")
 DISAGG_NOT_PORTED = ("disaggregated prefill (disagg) and serving roles "
                      "(role) are not ported yet (ROADMAP.md Queue 1 "
-                     "item 4)")
+                     "item 3)")
 
 
 def _session_key(raw: str) -> str:
@@ -222,8 +220,11 @@ class PE_LlamaAgent(PipelineElement):
     paged false, the default, serves through the dense slot cache (a
     prefix hit copies the cached rows in), paged true through the block
     pool and the paged kernel (a hit aliases the cached blocks).
-    host_kv_mb, disagg and a non-empty role raise naming ROADMAP.md
-    Queue 1 item 4.  Weights are random, drawn from a torch.Generator
+    host_kv_mb > 0 backs the prefix cache with a host KV tier of that
+    many MiB (host_kv_tenant_mb: a per-tenant cap): session demotion and
+    LRU pressure demote chain blocks to pinned host memory, and a
+    revived session's chain is prefetched back at its turn.  disagg and
+    a non-empty role raise naming ROADMAP.md Queue 1 item 3.  Weights are random, drawn from a torch.Generator
     seeded 0 on the ComputeRuntime's device."""
 
     contracts = {"in:text": "str", "out:response": "str",
@@ -349,9 +350,19 @@ class PE_LlamaAgent(PipelineElement):
                 or None,
                 name=self.definition.name)
             prefill_chunk = int(prefill_chunk) or int(self.prompt_length)
+            # the host KV tier: session demotion and LRU pressure demote
+            # chain blocks to host memory instead of forgetting them, and
+            # the admission / session-touch prefetch re-lands them
             host_kv_mb, _ = self.get_parameter("host_kv_mb", 0)
             if int(host_kv_mb) > 0:
-                raise NotImplementedError(TIERED_NOT_PORTED)
+                from ..serving_tiered import HostBlockStore
+                host_tenant_mb, _ = self.get_parameter("host_kv_tenant_mb",
+                                                       0)
+                self.prefix_cache.attach_host_store(HostBlockStore(
+                    max_bytes=int(float(host_kv_mb) * (1 << 20)),
+                    tenant_max_bytes=int(float(host_tenant_mb) *
+                                         (1 << 20)) or None,
+                    name=self.definition.name))
         paged, _ = self.get_parameter("paged", False)
         self.decoder = ContinuousDecoder(
             self.params, config, max_slots=max_batch,
@@ -496,6 +507,11 @@ class PE_LlamaAgent(PipelineElement):
                     history = [int(t) for t in
                                mirrored.get("history", ())]
         tokens = (history + turn)[-cap:] if history else turn[-cap:]
+        if history and self.prefix_cache is not None and \
+                self.prefix_cache.tiered:
+            # the session touch is the earliest promotion kick: a revived
+            # conversation's demoted chain starts re-landing now
+            self.prefix_cache.prefetch(tenant, tokens)
 
         def on_done(_rid, generated):
             if table is not None:

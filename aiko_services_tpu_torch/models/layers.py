@@ -21,7 +21,8 @@ from torch import nn
 
 __all__ = [
     "Params", "Linear", "LayerNorm", "RMSNorm", "Embedding", "Conv1d",
-    "MHA", "linear", "linear_logits", "layer_norm", "rms_norm",
+    "MHA", "linear", "linear_logits", "quantize_linear",
+    "quantize_linear_tree", "as_tree", "tree_leaves", "layer_norm", "rms_norm",
     "embedding", "conv1d", "mha", "precompute_kv", "quantize_kv",
     "dequantize_kv", "quantize_kv_cache", "dequantize_kv_cache",
     "slot_kv_blocks", "concat_kv_rows", "kv_rows_nbytes",
@@ -136,10 +137,30 @@ class MHA(Params):
 
 # -- functions ---------------------------------------------------------------
 
+def _mm_f32(flat, w):
+    """flat [N, in] @ w [in, out] accumulated in f32, returned in f32:
+    bf16 operands on the card go to one bf16-in / f32-out product (no
+    upcast copy of the weight); elsewhere both operands are taken in
+    f32 (the CPU has no such product)."""
+    if flat.is_cuda and flat.dtype == w.dtype == torch.bfloat16:
+        return torch.mm(flat, w, out_dtype=torch.float32)
+    return torch.mm(flat.float(), w.float())
+
+
 def linear(params, x):
-    """x [..., in] @ w [in, out] + b, in x's dtype (f32 accumulation)."""
-    w = params["w"]
+    """x [..., in] @ w [in, out] + b, in x's dtype (f32 accumulation).
+    A weight-only int8 linear ({"w8", "s"}, quantize_linear) takes its
+    int8 weight converted to x's dtype as the product's operand and
+    lands the per-output-channel scale on the f32 accumulator:
+    y = (x @ W8) * s + b."""
     flat = x.reshape(-1, x.shape[-1])
+    if "w8" in params:
+        w8 = params["w8"]
+        y = _mm_f32(flat, w8.to(x.dtype)) * params["s"]
+        if "b" in params:
+            y = y + params["b"]
+        return y.reshape(*x.shape[:-1], w8.shape[-1]).to(x.dtype)
+    w = params["w"]
     if "b" in params:
         y = torch.addmm(params["b"], flat, w)
     else:
@@ -153,15 +174,93 @@ def linear_logits(params, x):
     before an argmax can flip near-ties against an f32 reference.  bf16
     operands on the card go to one bf16-in / f32-out product, so the
     [dim, vocab] head is never upcast (that copy would be the decode
-    step's largest memory traffic); elsewhere both operands are taken in
-    f32 (the CPU has no such product)."""
-    w = params["w"]
+    step's largest memory traffic).  Consumes plain {"w"} and quantized
+    {"w8", "s"} heads."""
     flat = x.reshape(-1, x.shape[-1])
-    if flat.is_cuda and flat.dtype == w.dtype == torch.bfloat16:
-        y = torch.mm(flat, w, out_dtype=torch.float32)
-    else:
-        y = torch.mm(flat.float(), w.float())
+    if "w8" in params:
+        w8 = params["w8"]
+        y = _mm_f32(flat, w8.to(x.dtype)) * params["s"]
+        return y.reshape(*x.shape[:-1], w8.shape[-1])
+    w = params["w"]
+    y = _mm_f32(flat, w)
     return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def quantize_linear(params) -> dict:
+    """Weight-only int8 (W8A16) for one linear: one f32 scale per output
+    channel, max|w| over the input axis / 127 + 1e-12, and the weight
+    rounded half to even (torch.round, as jnp.round) and clipped to
+    [-127, 127].  Returns {"w8": int8 [in, out], "s": f32 [out]} (plus
+    "b" passed through), which linear() and linear_logits consume."""
+    w = params["w"]
+    scale = w.abs().amax(dim=0).float() / 127.0 + 1e-12
+    q = torch.clamp(torch.round(w.float() / scale), -127, 127).to(
+        torch.int8)
+    out = {"w8": q, "s": scale}
+    if "b" in params:
+        out["b"] = params["b"]
+    return out
+
+
+def _children(node):
+    """A param tree node's children as (name, child) pairs: a module's
+    parameters and submodules, a dict's items, a list's elements; None
+    for a leaf."""
+    if isinstance(node, nn.ModuleList):
+        return list(enumerate(node))
+    if isinstance(node, nn.Module):
+        return list(node._parameters.items()) + \
+            list(node._modules.items())
+    if isinstance(node, dict):
+        return list(node.items())
+    if isinstance(node, (list, tuple)):
+        return list(enumerate(node))
+    return None
+
+
+def quantize_linear_tree(params, exclude=("router",)):
+    """The param tree (a module or nested dicts and lists of tensors) as
+    nested dicts and lists with every linear ({"w": 2-D, ["b"]}) in its
+    quantize_linear form.  Everything else stays as it is: 3-D weights
+    (MoE experts, conv1d), embeddings, norms; keys in `exclude` are kept
+    whole (MoE routers: int8 rounding could flip the top-k)."""
+    def walk(node):
+        children = _children(node)
+        if children is None:
+            return node
+        names = {name for name, _ in children}
+        if names and names <= {"w", "b"} and \
+                getattr(dict(children).get("w"), "ndim", 0) == 2:
+            return quantize_linear(dict(children))
+        if isinstance(node, (nn.ModuleList, list, tuple)):
+            return [walk(child) for _, child in children]
+        return {name: (child if name in exclude else walk(child))
+                for name, child in children}
+    return walk(params)
+
+
+def as_tree(params):
+    """A param tree (a module, or nested dicts and lists) as nested
+    dicts and lists of its tensors (the tensors themselves, not
+    copies)."""
+    children = _children(params)
+    if children is None:
+        return params
+    if isinstance(params, (nn.ModuleList, list, tuple)):
+        return [as_tree(child) for _, child in children]
+    return {name: as_tree(child) for name, child in children}
+
+
+def tree_leaves(params, prefix: tuple = ()) -> list:
+    """[(path, tensor)] of every tensor in a param tree (a module, or
+    nested dicts and lists), the path a tuple of names and indices."""
+    children = _children(params)
+    if children is None:
+        return [(prefix, params)]
+    leaves = []
+    for name, child in children:
+        leaves.extend(tree_leaves(child, prefix + (name,)))
+    return leaves
 
 
 def layer_norm(params, x, eps: float = 1e-5):

@@ -144,6 +144,14 @@ def _attention(layer, config: LlamaConfig, x, cos, sin, cache,
 
 
 def _swiglu(layer, x):
+    if "gate_up" in layer:
+        # the fused serving form (fuse_projections): one [dim, 2*ffn]
+        # product, split after
+        gate_up = L.linear(layer["gate_up"], x)
+        ffn = gate_up.shape[-1] // 2
+        return L.linear(layer["down"],
+                        torch.nn.functional.silu(gate_up[..., :ffn]) *
+                        gate_up[..., ffn:])
     return L.linear(layer["down"],
                     torch.nn.functional.silu(L.linear(layer["gate"], x)) *
                     L.linear(layer["up"], x))

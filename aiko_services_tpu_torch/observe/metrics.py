@@ -1,17 +1,20 @@
-# Metrics registry: process-wide counters, gauges and histograms.
+# Metrics registry: process-wide counters, gauges, histograms and
+# sketches.
 #
-# The port's own copy of aiko_services_tpu/observe/metrics.py, trimmed to
-# what the host plane uses: counters, gauges, fixed-bucket histograms
-# (the event engine's handler latency), the registry that names them, and
-# MirroredStats (a stats dict whose increments mirror into a counter
-# family).  Metric names are the JAX package's, so dashboards read both
-# packages alike.  Sketches arrive with the serving slice.
+# The port's own copy of aiko_services_tpu/observe/metrics.py: counters,
+# gauges, fixed-bucket histograms (the event engine's handler latency),
+# mergeable quantile sketches (observe/sketch.py: the decoder's TTFT and
+# ITL families), the registry that names them and snapshots them as plain
+# data, and MirroredStats (a stats dict whose increments mirror into a
+# counter family).  Metric names are the JAX package's, so dashboards read
+# both packages alike.
 
 from __future__ import annotations
 
 from ..utils.lock import Lock
+from .sketch import Sketch
 
-__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
+__all__ = ["Counter", "Gauge", "Histogram", "Sketch", "MetricsRegistry",
            "MirroredStats", "default_registry", "log_buckets",
            "DEFAULT_LATENCY_BUCKETS"]
 
@@ -101,7 +104,8 @@ class Histogram:
         self.count += 1
 
 
-_KINDS = {"counter": Counter, "gauge": Gauge, "histogram": Histogram}
+_KINDS = {"counter": Counter, "gauge": Gauge, "histogram": Histogram,
+          "sketch": Sketch}
 
 
 class MetricsRegistry:
@@ -149,6 +153,14 @@ class MetricsRegistry:
         return self._get_or_create("histogram", name, help, labels,
                                    buckets=buckets)
 
+    def sketch(self, name: str, help: str = "",
+               labels: dict | None = None, **kwargs) -> Sketch:
+        """Mergeable quantile sketch (observe/sketch.py): relative-error
+        quantiles that merge across processes, with the worst requests'
+        trace ids as exemplars."""
+        return self._get_or_create("sketch", name, help, labels,
+                                   **kwargs)
+
     def series(self, name: str) -> list:
         """Every live series of one metric family, whatever its labels:
         [(labels_dict, metric), ...] (the admission gate's
@@ -166,6 +178,32 @@ class MetricsRegistry:
             return default
         return metric.count if isinstance(metric, Histogram) \
             else metric.value
+
+    def snapshot(self) -> dict:
+        """Plain-data view of every series, JSON-able:
+        {name: {"type", "help", "series": [{"labels", ...values}]}}."""
+        with self._lock:
+            items = list(self._metrics.items())
+        out: dict = {}
+        for (name, _), metric in items:
+            entry = out.setdefault(name, {
+                "type": self._types[name],
+                "help": self._help.get(name, ""),
+                "series": [],
+            })
+            labels = dict(metric.labels)
+            if isinstance(metric, Histogram):
+                entry["series"].append({
+                    "labels": labels, "bounds": list(metric.bounds),
+                    "counts": list(metric.counts),
+                    "sum": metric.sum, "count": metric.count})
+            elif isinstance(metric, Sketch):
+                entry["series"].append({"labels": labels,
+                                        **metric.to_dict()})
+            else:
+                entry["series"].append({"labels": labels,
+                                        "value": metric.value})
+        return out
 
 
 class MirroredStats(dict):

@@ -174,6 +174,9 @@ class Tracer:
     def __init__(self, maxlen: int = 65536, enabled: bool = False):
         self.enabled = enabled
         self.spans: deque = deque(maxlen=maxlen)
+        # span taps: callables invoked with each finished SpanRecord (the
+        # flight recorder's intake); a broken tap must not stop tracing
+        self.taps: list = []
 
     def enable(self, maxlen: int | None = None) -> None:
         if maxlen is not None and maxlen != self.spans.maxlen:
@@ -207,6 +210,11 @@ class Tracer:
             span_id=span_id or "", parent_id=parent_id or "",
             cat=cat, proc=proc, args=dict(args or {}))
         self.spans.append(span)
+        for tap in self.taps:
+            try:
+                tap(span)
+            except Exception:
+                pass
 
 
 tracer = Tracer(enabled=os.environ.get("AIKO_TRACE", "").lower() not in

@@ -18,9 +18,8 @@
 #
 # The module is transport-free: the Pipeline serving entry
 # (pipeline.process_frame_remote) plugs in its own dispatch/shed
-# callables.  The KV-ledger byte verdict (set_byte_policy /
-# shed_on_bytes) waits for the port decoder's ledger (ROADMAP.md Queue 1
-# item 3).
+# callables.  The byte verdict (set_byte_policy / shed_on_bytes) sheds a
+# tenant whose KV ledger balance would pass its byte budget.
 
 from __future__ import annotations
 
@@ -31,12 +30,9 @@ from typing import Callable
 from ..observe.metrics import MetricsRegistry, default_registry
 
 __all__ = ["TenantPolicy", "TenantFairQueue", "AdmissionGate",
-           "DeadlineRouter", "DEFAULT_TENANT", "LEDGER_NOT_PORTED"]
+           "DeadlineRouter", "DEFAULT_TENANT"]
 
 DEFAULT_TENANT = "default"
-LEDGER_NOT_PORTED = ("the KV memory ledger byte verdict (set_byte_policy, "
-                     "shed_on_bytes) is not ported yet (ROADMAP.md Queue 1 "
-                     "item 3)")
 
 
 @dataclass(frozen=True)
@@ -428,12 +424,47 @@ class AdmissionGate:
         self.queue._count("rejected", str(tenant or DEFAULT_TENANT),
                           int(tier), reason)
 
-    # -- byte-budget verdict ---------------------------------------------
-    def set_byte_policy(self, *_args, **_kwargs) -> None:
-        raise NotImplementedError(LEDGER_NOT_PORTED)
+    # -- byte-budget verdict -----------------------------------------------
+    def set_byte_policy(self, ledger, budget_bytes: int | None = None,
+                        tenant_budgets: dict | None = None,
+                        default_estimate: int = 0) -> None:
+        """Arm capacity-aware shedding against a KV memory ledger.
+        `budget_bytes` caps any one tenant's attributed device bytes
+        (tenant_budgets overrides per tenant).  A request whose projected
+        footprint (the tenant's ledger balance plus the per-request byte
+        estimate) breaches its budget is shed unless the pool-wide
+        occupancy trend relieves the overage inside the request's
+        remaining deadline budget.  Disarmed (no ledger, or every budget
+        None) the verdict never sheds."""
+        self._byte_ledger = ledger
+        self._byte_budget = None if budget_bytes is None \
+            else int(budget_bytes)
+        self._tenant_budgets = dict(tenant_budgets or {})
+        self._byte_estimate = max(0, int(default_estimate))
 
-    def shed_on_bytes(self, *_args, **_kwargs):
-        raise NotImplementedError(LEDGER_NOT_PORTED)
+    def shed_on_bytes(self, tenant: str, estimate_bytes: int | None = None,
+                      remaining: float | None = None):
+        """(shed?, projected_bytes): True when admitting `tenant`'s next
+        request would breach its byte budget with no relief in sight.
+        Callers reject with reason "byte-budget" via count_rejected."""
+        ledger = getattr(self, "_byte_ledger", None)
+        if ledger is None:
+            return False, None
+        key = str(tenant or DEFAULT_TENANT)
+        budget = self._tenant_budgets.get(key, self._byte_budget)
+        if budget is None:
+            return False, None
+        estimate = self._byte_estimate if estimate_bytes is None \
+            else max(0, int(estimate_bytes))
+        projected = int(ledger.device_bytes(key)) + estimate
+        if projected <= budget:
+            return False, projected
+        trend = ledger.device_trend()
+        if trend is not None and trend < 0 and remaining is not None:
+            relief = (projected - budget) / -trend
+            if relief < remaining:
+                return False, projected
+        return True, projected
 
     # -- fair-queue passage ------------------------------------------------
     def offer(self, tenant: str, item, shed: Callable | None = None,

@@ -1,30 +1,36 @@
 # Continuous-batching greedy Llama decoding over a dense slot cache or a
-# paged KV block pool, with speculation and the hash-addressed prefix
-# cache.
+# paged KV block pool, with speculation, the hash-addressed prefix cache
+# and its host tier.
 #
 # Counterpart of aiko_services_tpu/serving.py's ContinuousDecoder and
-# PrefixKVCache in the modes this port has: the dense slot cache in the
-# block KV write (paged_kv=False, JAX's default: plain PyTorch, as JAX
-# computes it with einsums) and the paged pool read by the paged
-# decode-attention kernel (paged_kv=True, the JAX package's
+# PrefixKVCache: the dense slot cache (paged_kv=False, JAX's default:
+# plain PyTorch, as JAX computes it with einsums) in the block KV write
+# or the select write (AIKO_DECODE_KV, with its two_pass / online / vpu
+# inner loops, AIKO_DECODE_ATTENTION) and the paged pool read by the
+# paged decode-attention kernel (paged_kv=True, the JAX package's
 # ATTENTION_IMPL="paged_kernel"); native or int8 KV (kv_cache_dtype);
-# bucketed single-shot prefill and chunked prefill (prefill_chunk,
-# prefill_budget); greedy decoding, plain or self-speculative
-# (speculate_k tokens a step drafted by prompt lookup, speculate_ngram,
-# verified in one widened pass: the paged kernel at W = 1 + k); and a
-# dense SwiGLU FFN.  A bound PrefixKVCache holds row copies for a dense
-# decoder (a hit copies them into the slot) and pool blocks for a paged
-# one (a hit aliases them into the slot's table, a write into a shared
-# block copies it first, a retiring request's blocks become cache
-# entries by refcount); either way only the uncached suffix is
-# prefilled, by chunk extends.  The scheduling is the JAX decoder's:
-# decode-first rounds of up to steps_per_sync steps, admits and chunk
-# extends dispatched behind the round's decode steps and resolved at the
-# next round's sync, one host sync per round; the decoder can pump
-# itself from an event engine (attach), sheds requests whose deadline
-# its admit-wait estimate cannot meet, and bills cache traffic to
-# tenants.  Every other mode of the JAX decoder raises
-# NotImplementedError naming the ROADMAP.md item that brings it.
+# int8 weights (weight_quant) and fused decode projections
+# (fuse_projections); bucketed single-shot prefill and chunked prefill
+# (prefill_chunk, prefill_budget); greedy decoding, plain or
+# self-speculative (speculate_k tokens a step drafted by prompt lookup,
+# speculate_ngram, verified in one widened pass: the paged kernel at W =
+# 1 + k); a dense SwiGLU or MoE FFN.  A bound PrefixKVCache holds row
+# copies for a dense decoder (a hit copies them into the slot) and pool
+# blocks for a paged one (a hit aliases them into the slot's table, a
+# write into a shared block copies it first, a retiring request's blocks
+# become cache entries by refcount; with a host store, evicted blocks
+# demote to pinned host memory and promote back, serving_tiered.py);
+# either way only the uncached suffix is prefilled, by chunk extends.
+# The scheduling is the JAX decoder's: decode-first rounds of up to
+# steps_per_sync steps, admits and chunk extends dispatched behind the
+# round's decode steps and resolved at the next round's sync, one host
+# sync per round; the decoder can pump itself from an event engine
+# (attach), sheds requests whose deadline its admit-wait estimate cannot
+# meet, bills cache traffic to tenants, keeps a journey and mergeable
+# TTFT / ITL sketches per request, reports its KV bytes to a ledger
+# (attach_ledger), and drains gracefully (drain, resume).  The
+# disaggregated prefill options raise NotImplementedError naming the
+# ROADMAP.md item that brings them.
 #
 # From JAX to PyTorch: the programs run eagerly and update the caches,
 # pools, context buffer and token and length vectors IN PLACE; a lax.scan
@@ -40,7 +46,7 @@ import hashlib
 import logging
 import os
 import time
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from typing import Callable
 
 import numpy as np
@@ -49,6 +55,7 @@ import torch
 from . import resolve_device
 from .models import layers as L
 from .models.llama import LlamaConfig, llama_ffn
+from .observe.journey import JourneyLog
 from .observe.metrics import MirroredStats, default_registry
 from .serving_paged import (BlockPool, _build_paged_spec_step,
                             _build_paged_step, _paged_admit, _paged_extend)
@@ -153,6 +160,17 @@ class DecodeRequest:
     callback: Callable                # callback(request_id, token_list)
     generated: list = dataclasses.field(default_factory=list)
     slot: int = -1
+    # SLO stamps (scheduler clock, time.monotonic): TTFT is first_time -
+    # submit_time; tokens arrive in per-sync bursts, so the stall metric
+    # is the worst gap BETWEEN bursts (max_gap)
+    submit_time: float = 0.0
+    first_time: float = 0.0
+    last_time: float = 0.0
+    max_gap: float = 0.0
+    # the request's journey (observe/journey.py) and its end-to-end
+    # completion deadline (scheduler clock), judged at completion
+    journey: object = None
+    deadline: float | None = None
     # chunked prefill: the slot is held while the prompt streams in
     # prefill_chunk tokens per round; prefill_pos of it are written
     prefilling: bool = False
@@ -274,10 +292,16 @@ class PrefixKVCache:
     total{cache, tenant}, prefix_cache_bytes and prefix_cache_blocks into
     the registry, under the JAX package's family names.
 
-    The host tier and the disaggregated install are ROADMAP.md Queue 1
-    item 4.  Single-threaded like the decoder that owns it; decoders of
-    one geometry and one storage kind may share it (paged: and then
-    share its pool)."""
+    The host tier (attach_host_store, serving_tiered.py): a paged cache
+    with a HostBlockStore demotes the pool blocks it evicts to pinned
+    host memory under their chain keys instead of forgetting them, and
+    its AsyncPromoter re-lands them (prefetch, poll_promotions,
+    promote_for) before the prompts that need them admit.  The KV memory
+    ledger (attach_ledger) reaches the cache, its pool and its host
+    store.  The disaggregated install is ROADMAP.md Queue 1 item 3.
+    Single-threaded like the decoder that owns it; decoders of one
+    geometry and one storage kind may share it (paged: and then share
+    its pool)."""
 
     def __init__(self, block_tokens: int = 32,
                  max_bytes: int | None = 512 << 20,
@@ -302,6 +326,14 @@ class PrefixKVCache:
         # block ids and insert / evict move refcounts instead of rows
         self._pool = None
         self._dense_bound = False
+        # the host tier: an attached HostBlockStore turns eviction of
+        # pool blocks into demotion, and its promoter re-lands them
+        self._host = None
+        self._promoter = None
+        # the KV memory ledger: dense inserts / evictions charge the
+        # device tier here (paged bytes are the pool's to report), and a
+        # release of an unpinned block is a recorded violation
+        self._ledger = None
         self._registry = registry or default_registry()
         self.stats = MirroredStats(
             {"hits": 0, "misses": 0, "hit_tokens": 0, "miss_tokens": 0,
@@ -365,32 +397,93 @@ class PrefixKVCache:
                 f"prefix cache {self.name!r} holds dense blocks; it "
                 f"cannot switch to paged storage")
         self._pool = pool
+        if self._ledger is not None:
+            pool.attach_ledger(self._ledger)
 
     def attach_ledger(self, ledger) -> None:
-        _not_ported("the KV memory ledger", "3")
+        """Wire the KV memory ledger through every tier this cache
+        fronts: the pool reports device transitions, the host store
+        demotions, host evictions and promotions, and the cache itself
+        dense bytes and double releases.  One call covers the stack
+        whichever attach order the caller used."""
+        self._ledger = ledger
+        if ledger is None:
+            return
+        ledger.attach_cache(self)
+        if self._pool is not None:
+            self._pool.attach_ledger(ledger)
+        if self._host is not None:
+            self._host.attach_ledger(ledger)
 
     def attach_host_store(self, store, promoter=None) -> None:
-        _not_ported("the host KV tier (attach_host_store)", "4")
+        """Bring the host KV tier online: pool blocks DEMOTE into
+        `store` instead of vanishing when LRU pressure or the
+        SessionTable's demotion wheel evicts them, and the promoter's
+        prefetch / promote_for seam re-lands them ahead of the prompts
+        that need them.  Paged caches only."""
+        if self._dense_bound:
+            raise ValueError(
+                f"prefix cache {self.name!r} is bound by a dense "
+                f"decoder; the host tier offloads pool blocks")
+        if self._host is not None and self._host is not store:
+            raise ValueError(
+                f"prefix cache {self.name!r} already has host store "
+                f"{self._host.name!r}")
+        self._host = store
+        if self._ledger is not None:
+            store.attach_ledger(self._ledger)
+        if self._promoter is None:
+            if promoter is None:
+                from .serving_tiered import AsyncPromoter
+                promoter = AsyncPromoter(self, store,
+                                         registry=self._registry)
+            self._promoter = promoter
+
+    @property
+    def host_store(self):
+        return self._host
+
+    @property
+    def promoter(self):
+        return self._promoter
 
     @property
     def tiered(self) -> bool:
-        return False
+        return self._host is not None
+
+    @property
+    def promotions_ready(self) -> bool:
+        """Staged async promotions wait for poll_promotions() (checked
+        every admit round)."""
+        return self._promoter is not None and self._promoter.ready
 
     def prefetch(self, tenant: str, tokens) -> int:
-        _not_ported("the host KV tier (prefetch)", "4")
+        """Non-blocking promotion kick for this prompt's host-resident
+        chain tail (admission probes, session touches).  No-op without a
+        host tier."""
+        if self._promoter is None:
+            return 0
+        return self._promoter.prefetch(tenant, tokens)
 
     def poll_promotions(self) -> int:
-        _not_ported("the host KV tier (poll_promotions)", "4")
+        """Land staged async promotions (event loop only)."""
+        if self._promoter is None:
+            return 0
+        return self._promoter.poll()
 
     def promote_for(self, tenant: str, tokens) -> int:
-        _not_ported("the host KV tier (promote_for)", "4")
+        """Admit-time fallback: make this prompt's promotable chain
+        tail device-resident before the probe runs."""
+        if self._promoter is None:
+            return 0
+        return self._promoter.promote_for(tenant, tokens)
 
     def install_chain(self, tenant: str, tokens, start_block: int,
                       blocks) -> int:
-        _not_ported("the disaggregated KV install (install_chain)", "4")
+        _not_ported("the disaggregated KV install (install_chain)", "3")
 
     def wire_layout(self) -> tuple:
-        _not_ported("the disaggregated KV wire (wire_layout)", "4")
+        _not_ported("the disaggregated KV wire (wire_layout)", "3")
 
     def insert(self, tenant: str, parent: str, key: str,
                k_rows, v_rows) -> bool:
@@ -434,6 +527,11 @@ class PrefixKVCache:
         self._tenant_bytes[node.tenant] = \
             self._tenant_bytes.get(node.tenant, 0) + node.nbytes
         self.stats["inserts"] += 1
+        if self._ledger is not None and node.pool_id is None:
+            # dense: the cache is the device tier's truth source (pool
+            # bytes are charged by the pool at alloc)
+            self._ledger.device_delta(node.tenant, node.nbytes,
+                                      "cache_insert")
         self._evict_to_budget(node.tenant)
         if node.key not in self._nodes:  # the budget evicted the newcomer
             self.stats["insert_refused"] += 1
@@ -500,6 +598,20 @@ class PrefixKVCache:
                 continue        # evicted or purged since the pin
             if node.refs > 0:
                 node.refs -= 1
+            elif self._ledger is not None:
+                # an unpin of an unpinned block is a paired-release bug
+                # upstream: record it under the chain key
+                self._ledger.violation(
+                    "double-release", tenant=node.tenant, chain_key=key,
+                    detail=f"cache {self.name}: refs already 0")
+
+    def evictable_bytes(self, tenant=None) -> int:
+        """Bytes held by unpinned (refs == 0) cached blocks: the
+        ledger's pinned-versus-evictable split."""
+        tenant = None if tenant is None else str(tenant or "default")
+        return sum(node.nbytes for node in self._nodes.values()
+                   if node.refs == 0 and
+                   (tenant is None or node.tenant == tenant))
 
     def hit_rate(self) -> float:
         total = self.stats["hit_tokens"] + self.stats["miss_tokens"]
@@ -552,15 +664,35 @@ class PrefixKVCache:
                 victim = node
                 break
             if victim is None:
+                # every evictable leaf is session-pinned: with a host
+                # tier, demote the oldest session's chain and retry
+                # instead of refusing the insert
+                if self._host is not None and \
+                        self._demote_oldest_session(scope):
+                    continue
                 return
             self._evict(victim)
 
+    def _demote_oldest_session(self, scope: str | None) -> int:
+        """Demote the oldest session handle (scope-matched on a tenant
+        breach) to the host tier; returns device blocks freed (0 ends the
+        caller's pressure loop: the remaining pins belong to live
+        requests)."""
+        for tenant, sid in self._sessions:
+            if scope and tenant != scope:
+                continue
+            return self.demote_sessions([(tenant, sid)])
+        return 0
+
     def demote_sessions(self, pairs) -> int:
-        """Batch release in SessionTable's on_expired / on_demoted
-        callback shape ([(tenant, sid), ...]).  Without a host tier
-        (ROADMAP.md Queue 1 item 4) demotion is release_sessions exactly:
-        each session's pin drops and its chain stays cached, evictable.
-        Returns device blocks demoted (always 0 here)."""
+        """Batch demotion in SessionTable's on_expired / on_demoted
+        callback shape ([(tenant, sid), ...]): release each session's
+        pin, then walk its chain leaf to root demoting blocks to the host
+        tier; a block still pinned by a live request or shared with
+        another chain ends the walk (it stays on the device).  Without a
+        host store this is release_sessions exactly.  Returns device
+        blocks demoted."""
+        demoted = 0
         for tenant, sid in pairs:
             keys = self._sessions.pop(
                 (str(tenant or "default"), str(sid)), None)
@@ -568,14 +700,39 @@ class PrefixKVCache:
                 continue
             self.release(keys)
             self.stats["session_released"] += 1
-        return 0
+            if self._ledger is not None:
+                self._ledger.event("session_demote")
+            if self._host is None:
+                continue
+            for key in reversed(keys):
+                node = self._nodes.get(key)
+                if node is None:
+                    continue    # already demoted or evicted: walk on up
+                if node.refs or node.children:
+                    break       # pinned or shared below: stays hot
+                self._evict(node)
+                demoted += 1
+        return demoted
 
     def _evict(self, node: _PrefixBlock) -> None:
         del self._nodes[node.key]
         if node.pool_id is not None:
+            # demote, not forget: with a host tier the rows copy down
+            # (queued on the stream ahead of any reuse of the block)
+            # before the pool ref goes; only a host-budget refusal makes
+            # this a true eviction
+            if self._host is not None:
+                k_rows, v_rows = self._pool.block_rows(node.pool_id)
+                if self._host.put_from_device(
+                        node.tenant, node.parent, node.key,
+                        k_rows, v_rows, node.nbytes):
+                    self.stats["demoted"] += 1
             # the cache's ref goes; the pool block frees when no slot
             # table still aliases it
             self._pool.release_blocks([node.pool_id], tenant=node.tenant)
+        elif self._ledger is not None:
+            self._ledger.device_delta(node.tenant, -node.nbytes,
+                                      "cache_evict")
         parent = self._nodes.get(node.parent)
         if parent is not None:
             parent.children.discard(node.key)
@@ -611,6 +768,8 @@ class PrefixKVCache:
             self._nodes.move_to_end(key)
         self._sessions[(str(tenant or "default"), str(sid))] = keys
         self.stats["session_handles"] += 1
+        if self._ledger is not None:
+            self._ledger.event("session_pin")
         return keys[-1], hit
 
     def session_release(self, tenant: str, sid: str) -> bool:
@@ -643,29 +802,76 @@ class PrefixKVCache:
         """Evict everything evictable: release every session pin, then
         strip the tree leaf-first until only request-pinned nodes
         remain (with no live request, the pool then holds no block the
-        cache owned).  `demote` has nothing to demote to without a host
-        tier.  Returns nodes evicted."""
+        cache owned).  With demote False a host tier receives nothing
+        (the drain endgame: a host copy of state another runtime now
+        owns is dead weight).  Returns nodes evicted."""
         for tenant, sid in list(self._sessions):
             self.session_release(tenant, sid)
+        host = self._host
+        if not demote:
+            self._host = None
         evicted = 0
-        progress = True
-        while progress:
-            progress = False
-            for node in list(self._nodes.values()):
-                if node.refs or node.children:
-                    continue
-                self._evict(node)
-                evicted += 1
-                progress = True
+        try:
+            progress = True
+            while progress:
+                progress = False
+                for node in list(self._nodes.values()):
+                    if node.refs or node.children:
+                        continue
+                    self._evict(node)
+                    evicted += 1
+                    progress = True
+        finally:
+            self._host = host
         return evicted
 
 
+def _fuse_decode_projections(params) -> dict:
+    """The fuse_projections serving transform: each layer's attention
+    gains a "qkv" linear (q, k and v weights concatenated to [dim,
+    (Hq + 2 Hkv) D]) beside q / k / v, which prefill's attention still
+    reads, and "gate_up" ([dim, 2 ffn]) replaces gate and up, which every
+    FFN path reads through llama_ffn.  A bias raises ValueError (dropping
+    one would corrupt every output).  Returns the tree as nested dicts
+    and lists; the decoder's parameter bytes count the duplicate once."""
+    tree = L.as_tree(params)
+    layers = []
+    for layer in tree["layers"]:
+        layer = dict(layer)
+        attn = dict(layer["attn"])
+        if any("b" in attn[name] for name in ("q", "k", "v")):
+            raise ValueError(
+                "fuse_projections drops linear biases; refusing")
+        attn["qkv"] = {"w": torch.cat([attn[name]["w"]
+                                       for name in ("q", "k", "v")],
+                                      dim=1)}
+        layer["attn"] = attn
+        if "gate" in layer:
+            if "b" in layer["gate"] or "b" in layer["up"]:
+                raise ValueError(
+                    "fuse_projections drops FFN biases; refusing")
+            layer["gate_up"] = {"w": torch.cat(
+                [layer["gate"]["w"], layer["up"]["w"]], dim=1)}
+            del layer["gate"], layer["up"]
+        layers.append(layer)
+    return {**tree, "layers": layers}
+
+
 def _project_qkv(layer, config: LlamaConfig, x):
-    """q/k/v [B, H, T, D] for the decode step: the three projections."""
+    """q/k/v [B, H, T, D] for the decode step: one fused product when the
+    layer carries the fuse_projections form, else the three."""
     attn = layer["attn"]
-    q = L._split_heads(L.linear(attn["q"], x), config.num_heads)
-    k = L._split_heads(L.linear(attn["k"], x), config.num_kv_heads)
-    v = L._split_heads(L.linear(attn["v"], x), config.num_kv_heads)
+    num_heads, num_kv = config.num_heads, config.num_kv_heads
+    if "qkv" in attn:
+        qkv = L.linear(attn["qkv"], x)
+        q_dim = num_heads * config.head_dim
+        kv_dim = num_kv * config.head_dim
+        return (L._split_heads(qkv[..., :q_dim], num_heads),
+                L._split_heads(qkv[..., q_dim:q_dim + kv_dim], num_kv),
+                L._split_heads(qkv[..., q_dim + kv_dim:], num_kv))
+    q = L._split_heads(L.linear(attn["q"], x), num_heads)
+    k = L._split_heads(L.linear(attn["k"], x), num_kv)
+    v = L._split_heads(L.linear(attn["v"], x), num_kv)
     return q, k, v
 
 
@@ -858,14 +1064,15 @@ def _decode_steps(params, config: LlamaConfig, tokens, lengths, active,
                   budgets, eos: int, num_steps: int, attention) -> tuple:
     """`num_steps` greedy steps for every slot with no host sync: a slot
     stops inside the loop the moment it emits `eos` or spends its
-    budget.  `attention(i, layer, normed, lengths, step_index)` is one
-    layer's attention at a step.  Returns (emitted [K, S], emitted_active
-    [K, S], tokens, lengths)."""
+    budget.  `attention(i, layer, normed, lengths, step_index, active)`
+    is one layer's attention at a step (`active`: the slots still
+    decoding).  Returns (emitted [K, S], emitted_active [K, S], tokens,
+    lengths)."""
     emitted, emitted_active = [], []
     for step_index in range(num_steps):
         def attend(i, layer, normed, lengths=lengths,
-                   step_index=step_index):
-            return attention(i, layer, normed, lengths, step_index)
+                   step_index=step_index, active=active):
+            return attention(i, layer, normed, lengths, step_index, active)
 
         next_tokens = _token_block_argmax(params, config, tokens[:, None],
                                           attend)[:, 0]
@@ -878,6 +1085,134 @@ def _decode_steps(params, config: LlamaConfig, tokens, lengths, active,
         tokens, active = next_tokens, still
     return torch.stack(emitted), torch.stack(emitted_active), tokens, \
         lengths
+
+
+# -- the "select" KV write ------------------------------------------------------
+# JAX's first decode design (AIKO_DECODE_KV=select): each step writes its
+# token's K/V into the slot cache at the slot's length (a masked select:
+# only slots still decoding write, and a length past the extent writes
+# nothing) and attends over the whole cache, positions <= length.  Dense,
+# native KV, not speculative.  Its inner loop (AIKO_DECODE_ATTENTION) is
+# "two_pass" (scores, softmax, weights), "online" (_online_decode_attention)
+# or "vpu" (broadcast-multiply reductions in f32, weights not rounded);
+# any other value falls through to two_pass, as in JAX.
+
+_ONLINE_BLOCK = 256         # time block of one online-softmax sweep step
+
+
+def _online_decode_attention(q_grouped, k_cache, v_cache, lengths,
+                             scale: float):
+    """Single-sweep GQA decode attention: a loop over 256-position time
+    blocks carrying a running (max, sum, accumulator), the flash
+    recurrence of JAX's lax.scan in plain PyTorch (masked with -inf, the
+    tail zero-padded to a whole block).  q_grouped [S, Hkv, G, 1, D],
+    caches [S, Hkv, T, D], lengths [S]; returns [S, Hkv, G, 1, D] f32."""
+    slots_n, num_kv, group, num_q, head_dim = q_grouped.shape
+    t_total = k_cache.shape[2]
+    block = min(_ONLINE_BLOCK, t_total)
+    num_blocks = -(-t_total // block)
+    pad = num_blocks * block - t_total
+    if pad:
+        k_cache = torch.nn.functional.pad(k_cache, (0, 0, 0, pad))
+        v_cache = torch.nn.functional.pad(v_cache, (0, 0, 0, pad))
+    positions = torch.arange(block, device=q_grouped.device)
+    q = q_grouped.float()
+    shape = (slots_n, num_kv, group, num_q, 1)
+    running_max = torch.full(shape, -torch.inf, device=q.device)
+    running_sum = torch.zeros(shape, device=q.device)
+    acc = torch.zeros((slots_n, num_kv, group, num_q, head_dim),
+                      device=q.device)
+    for index in range(num_blocks):
+        t0 = index * block
+        k_blk = k_cache[:, :, t0:t0 + block]
+        v_blk = v_cache[:, :, t0:t0 + block]
+        valid = ((t0 + positions)[None, :] <=
+                 lengths[:, None])[:, None, None, None]   # [S,1,1,1,B]
+        scores = torch.einsum("skgqd,skbd->skgqb", q, k_blk.float()) * \
+            scale
+        scores = torch.where(valid, scores, -torch.inf)
+        new_max = torch.maximum(running_max,
+                                scores.amax(dim=-1, keepdim=True))
+        # rescale the old accumulator into the new max's frame
+        correction = torch.exp(running_max - new_max)
+        probs = torch.exp(scores - new_max)
+        running_sum = running_sum * correction + \
+            probs.sum(dim=-1, keepdim=True)
+        acc = acc * correction + torch.einsum(
+            "skgqb,skbd->skgqd", probs.to(v_blk.dtype).float(),
+            v_blk.float())
+        running_max = new_max
+    return acc / running_sum.clamp_min(1e-30)
+
+
+def _slot_attention(layer, config: LlamaConfig, x, cos, sin, k_cache,
+                    v_cache, lengths, write_mask, attention_impl: str):
+    """One-token attention for every slot in the select KV write: write
+    this token's K/V at each slot's own position (in place, only where
+    `write_mask` [S] holds: a mid-prefill slot's stale length points into
+    the prompt its extends are writing), then attend over positions <=
+    lengths with the `attention_impl` inner loop.  x [S, 1, dim], caches
+    [S, Hkv, T, D].  Returns the attention output projection."""
+    num_heads, num_kv = config.num_heads, config.num_kv_heads
+    q, k, v = _project_qkv(layer, config, x)
+    q = L.apply_rope(q, cos, sin, lengths)
+    k = L.apply_rope(k, cos, sin, lengths)
+    t_total = k_cache.shape[2]
+    rows = torch.arange(k_cache.shape[0], device=x.device)
+    keep = (write_mask & (lengths < t_total))[:, None, None]
+    at = lengths.clamp(0, t_total - 1).long()
+    for cache, new in ((k_cache, k), (v_cache, v)):
+        current = cache[rows, :, at]                       # [S, H, D]
+        cache[rows, :, at] = torch.where(keep, new[:, :, 0].to(cache.dtype),
+                                         current)
+    slots_n, _, num_q, head_dim = q.shape
+    group = num_heads // num_kv
+    q_grouped = q.reshape(slots_n, num_kv, group, num_q, head_dim)
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(head_dim)))
+    positions = torch.arange(t_total, device=x.device)
+    if attention_impl == "online":
+        out = _online_decode_attention(q_grouped, k_cache, v_cache,
+                                       lengths, scale)
+    elif attention_impl == "vpu":
+        valid = (positions[None] <= lengths[:, None])[:, None, None]
+        q_sq = q_grouped[:, :, :, 0].float()               # [S,kv,G,D]
+        scores = (q_sq[:, :, :, None, :] *
+                  k_cache[:, :, None].float()).sum(dim=-1) * scale
+        scores = torch.where(valid, scores, -1e30)
+        weights = torch.softmax(scores, dim=-1)            # [S,kv,G,T]
+        out = (weights[..., None] *
+               v_cache[:, :, None].float()).sum(dim=3)[:, :, :, None, :]
+    else:
+        valid = (positions[None] <= lengths[:, None])[:, None, None, None]
+        scores = torch.einsum("skgqd,sktd->skgqt", q_grouped.float(),
+                              k_cache.float()) * scale
+        scores = torch.where(valid, scores, -1e30)
+        weights = torch.softmax(scores, dim=-1).to(v_cache.dtype)
+        out = torch.einsum("skgqt,sktd->skgqd", weights.float(),
+                           v_cache.float())
+    out = out.reshape(slots_n, num_heads, num_q, head_dim).to(x.dtype)
+    return L.linear(layer["attn"]["o"], L._merge_heads(out))
+
+
+def _build_select_step(config: LlamaConfig, attention_impl: str, device):
+    """The dense decode round in the select KV write: `num_steps`
+    greedy steps, each writing its K/V into the slot caches in place
+    and attending over them (no side buffers, no merge).  The signature
+    and returns of _build_step's step."""
+    cos, sin = L.rope_frequencies(config.head_dim, config.max_seq_len,
+                                  config.rope_theta, device=device)
+
+    def step(params, tokens, lengths, active, budgets, k_caches, v_caches,
+             *, num_steps: int, eos: int):
+        def attention(i, layer, normed, lengths, _step_index, active):
+            return _slot_attention(layer, config, normed, cos, sin,
+                                   k_caches[i], v_caches[i], lengths,
+                                   active, attention_impl)
+
+        return _decode_steps(params, config, tokens, lengths, active,
+                             budgets, eos, num_steps, attention)
+
+    return step
 
 
 def _build_step(config: LlamaConfig, device):
@@ -900,7 +1235,7 @@ def _build_step(config: LlamaConfig, device):
         k_sides, v_sides = _side_buffers(config, tokens.shape[0], num_steps,
                                          device)
 
-        def attention(i, layer, normed, lengths, step_index):
+        def attention(i, layer, normed, lengths, step_index, _active):
             return _slot_attention_block(
                 layer, config, normed, cos, sin, k_caches[i], v_caches[i],
                 k_sides[i], v_sides[i], entry_lengths, lengths, step_index)
@@ -1105,14 +1440,19 @@ def _build_spec_step(config: LlamaConfig, k_spec: int, ngram: int, device):
 
 @functools.lru_cache(maxsize=16)
 def _round_step_for(config: LlamaConfig, paged: bool, k_spec: int,
-                    ngram: int, device):
+                    ngram: int, device, kv_write: str = "block",
+                    attention_impl: str = "two_pass"):
     """Process-wide builder cache: decoders of one (config, cache kind,
-    speculation, device) share one round step and its RoPE tables."""
+    speculation, KV write, inner loop, device) share one round step and
+    its RoPE tables."""
     if paged:
         return _build_paged_spec_step(config, k_spec, ngram, device) \
             if k_spec else _build_paged_step(config, device)
-    return _build_spec_step(config, k_spec, ngram, device) if k_spec \
-        else _build_step(config, device)
+    if k_spec:
+        return _build_spec_step(config, k_spec, ngram, device)
+    if kv_write == "select":
+        return _build_select_step(config, attention_impl, device)
+    return _build_step(config, device)
 
 
 # -- the dense programs: admit, prefix copy, chunk extend ----------------------
@@ -1272,17 +1612,18 @@ class ContinuousDecoder:
                  paged_kv: bool = False, kv_block: int = 32,
                  device=None):
         # the JAX decoder's A/B variants, read from its environment
-        # variables: the port runs the "block" KV write (JAX's default:
-        # a round's K/V go to side buffers merged at its end) and its
-        # two-pass or paged-kernel attention; "select" and its "online" /
-        # "vpu" inner loops are not ported
-        kv_write = os.environ.get("AIKO_DECODE_KV", "block")
-        attention = os.environ.get("AIKO_DECODE_ATTENTION", "two_pass")
-        if kv_write != "block":
-            _not_ported(f"the {kv_write!r} KV write (AIKO_DECODE_KV)", "3")
-        if attention in ("online", "vpu"):
-            _not_ported(f"the {attention!r} decode attention "
-                        f"(AIKO_DECODE_ATTENTION)", "3")
+        # variables at construction: the KV write ("block", the default:
+        # a round's K/V go to side buffers merged at its end; "select":
+        # each step writes into the slot cache and attends all of it) and
+        # the select write's inner loop ("two_pass", "online", "vpu"; any
+        # other value, JAX's "paged_kernel" included, is two_pass there)
+        self.kv_write = os.environ.get("AIKO_DECODE_KV", "block")
+        self.attention_impl = os.environ.get("AIKO_DECODE_ATTENTION",
+                                             "two_pass")
+        if self.kv_write not in ("block", "select"):
+            raise ValueError(
+                f"AIKO_DECODE_KV must be 'block' or 'select', got "
+                f"{self.kv_write!r}")
         dtype_norm = (kv_cache_dtype or "native").lower()
         if dtype_norm not in ("native", "int8"):
             raise ValueError(
@@ -1292,6 +1633,12 @@ class ContinuousDecoder:
         # position) f32 scales; greedy outputs are not those of the
         # native pool (the stored K/V are rounded), so it is opt-in
         self.kv_int8 = dtype_norm == "int8"
+        if self.kv_int8 and self.kv_write != "block":
+            raise ValueError(
+                "kv_cache_dtype='int8' requires the block KV write mode "
+                "(AIKO_DECODE_KV=block): the select mode rewrites the "
+                "whole cache per step, which would re-encode int8 every "
+                "iteration")
         # self-speculative decoding: each verify step drafts speculate_k
         # tokens a slot by prompt lookup in a device-side context buffer
         # and verifies the widened block in one forward; greedy
@@ -1305,11 +1652,29 @@ class ContinuousDecoder:
         self.speculate_ngram = int(speculate_ngram)
         if self.speculate_k and self.speculate_ngram < 1:
             raise ValueError("speculate_ngram must be >= 1")
-        if weight_quant or fuse_projections:
-            _not_ported("weight_quant and fuse_projections", "3")
+        if self.speculate_k and self.kv_write != "block":
+            raise ValueError("speculate_k requires the block KV write mode "
+                             "(AIKO_DECODE_KV=block)")
+        # weight-only int8 (W8A16): every linear but the MoE routers
+        # becomes {w8, s} once here, which linear() and linear_logits
+        # consume across prefill, extends and decode; greedy outputs are
+        # those of the rounded weights, so it is opt-in.  fuse_projections
+        # adds one q/k/v product and fuses gate/up for the decode step
+        if fuse_projections:
+            params = _fuse_decode_projections(params)
+        if weight_quant:
+            params = L.quantize_linear_tree(params)
+        self.weight_quant = bool(weight_quant)
+        self.fuse_projections = bool(fuse_projections)
         # a bound prefix cache fixes the block size: its blocks ARE pool
         # blocks
         self.paged = bool(paged_kv)
+        if self.paged and self.kv_write != "block":
+            raise ValueError(
+                "paged_kv requires the block KV write mode "
+                "(AIKO_DECODE_KV=block): the select mode rewrites the "
+                "whole cache inside the loop, which a block pool cannot "
+                "express")
         self.kv_block = int(prefix_cache.block_tokens) \
             if prefix_cache is not None else int(kv_block)
         if self.paged and self.kv_block < 1:
@@ -1386,7 +1751,8 @@ class ContinuousDecoder:
                                     dtype=torch.int32, device=self.device) \
             if self.speculate_k else None
         self._step = _round_step_for(config, self.paged, self.speculate_k,
-                                     self.speculate_ngram, self.device)
+                                     self.speculate_ngram, self.device,
+                                     self.kv_write, self.attention_impl)
         # in-flight prefix dedup window: leading block key -> the request
         # prefilling that chain now.  Bounded by the slot pool: entries
         # unregister at early harvest or retire
@@ -1399,7 +1765,22 @@ class ContinuousDecoder:
         self._timer = None
         self._active_np = np.zeros((max_slots,), bool)
         self._budgets_np = np.zeros((max_slots,), np.int32)
+        # bytes one decode step streams: every weight but the embedding
+        # (a gather of S rows), the fused qkv duplicate counted once
+        self._param_bytes = sum(
+            leaf.numel() * leaf.element_size()
+            for path, leaf in L.tree_leaves(self.params)
+            if path[0] != "embed" and
+            not any("qkv" in str(part) for part in path))
         self._registry = registry or default_registry()
+        # request journeys and mergeable SLO sketches: every request gets
+        # a RequestJourney tied to the ambient TraceContext, and TTFT /
+        # ITL observations land in per-tenant sketch families
+        # serving_{ttft,itl}_seconds{decoder, tenant[, prefill]}
+        self.journeys = JourneyLog(name=name, proc=name,
+                                   registry=self._registry)
+        self._slo_sketches: dict = {}
+        self._ledger = None              # KV memory ledger (attach_ledger)
         self.stats = MirroredStats(
             {"steps": 0, "rounds": 0, "completed": 0, "prefills": 0,
              "occupancy_sum": 0.0, "prefill_s": 0.0, "decode_s": 0.0,
@@ -1416,7 +1797,13 @@ class ContinuousDecoder:
              # copy-on-extend events (paged: a write into a shared block
              # copies it first)
              "prefix_copy_bytes": 0, "harvest_copy_bytes": 0,
-             "cow_copies": 0, "cow_copy_bytes": 0},
+             "cow_copies": 0, "cow_copy_bytes": 0,
+             # modelled bytes the decode steps streamed (weights + the
+             # KV extent), and the graceful drain: submissions refused
+             # while draining, requests handed back, live slots
+             # checkpointed at the deadline
+             "bytes_moved": 0, "drain_refused": 0, "drain_evacuated": 0,
+             "drain_checkpoints": 0},
             metric="serving_decoder_total",
             help="continuous-decoder events by kind",
             registry=self._registry,
@@ -1424,6 +1811,12 @@ class ContinuousDecoder:
                   "accepted_per_step", "round_prefill_tokens_max",
                   "prefix_copy_bytes", "harvest_copy_bytes",
                   "cow_copy_bytes"))
+        # SLO samples (seconds): TTFT per request, mean inter-token
+        # latency per retired request, and each request's worst stall
+        # between syncs (what chunked prefill bounds)
+        self.ttft_samples: deque = deque(maxlen=8192)
+        self.itl_samples: deque = deque(maxlen=8192)
+        self.gap_samples: deque = deque(maxlen=8192)
         # prefill tokens dispatched in the current round (the budget's
         # account)
         self._round_prefill_tokens = 0
@@ -1432,6 +1825,14 @@ class ContinuousDecoder:
         # time base and prompt cost
         self._round_ewma: float | None = None
         self._prefill_token_ewma: float | None = None
+        # graceful drain (drain): submit refuses new work, pump
+        # checkpoints live slots past the deadline, and the completion
+        # callback fires once when the decoder is idle
+        self._draining = False
+        self._drained = False
+        self._drain_deadline: float | None = None
+        self._drain_evacuate = None
+        self._drain_complete = None
         # live slots + queued requests (the drain/shrink safety signal)
         self._gauge_active = self._registry.gauge(
             "serving_active_slots",
@@ -1462,6 +1863,11 @@ class ContinuousDecoder:
                 _, hit = self.prefix_cache.match(
                     tenant, prompt, limit=len(prompt) - 1)
                 uncached -= hit
+                if hit < len(prompt) - 1 and self.prefix_cache.tiered:
+                    # the probe knows this prompt is coming before its
+                    # admit round: start re-landing its host-tier chain
+                    # tail now (non-blocking)
+                    self.prefix_cache.prefetch(tenant, prompt)
             wait += uncached * self._prefill_token_ewma
         return wait
 
@@ -1480,6 +1886,27 @@ class ContinuousDecoder:
             self._prefill_token_ewma = \
                 0.7 * current + 0.3 * min(rate, 10.0 * current)
 
+    def _slo_sketch(self, kind: str, tenant: str,
+                    prefill: str | None = None):
+        """The (kind, tenant[, prefill]) SLO sketch, registered at first
+        use: serving_{kind}_seconds{decoder, tenant[, prefill]}, the JAX
+        package's family and labels (prefill splits TTFT into cached and
+        cold populations)."""
+        key = (kind, tenant, prefill)
+        sketch = self._slo_sketches.get(key)
+        if sketch is None:
+            labels = {"decoder": self.journeys.name,
+                      "tenant": tenant or "default"}
+            if prefill is not None:
+                labels["prefill"] = prefill
+            sketch = self._registry.sketch(
+                f"serving_{kind}_seconds",
+                f"per-request {kind} seconds (mergeable quantile sketch "
+                f"with worst-request trace-id exemplars)",
+                labels=labels)
+            self._slo_sketches[key] = sketch
+        return sketch
+
     def submit(self, request_id: str, prompt, max_new_tokens: int,
                callback, deadline: float | None = None,
                tenant: str | None = None,
@@ -1487,44 +1914,86 @@ class ContinuousDecoder:
                kv_blocks: tuple | None = None,
                progress_callback=None) -> bool:
         """Enqueue one request; its callback(request_id, tokens) fires
-        at retire.  Returns False when deadline-aware admission refused
-        it instead (the callback is not invoked): `deadline` is the
-        request's end-to-end completion target in time.monotonic
-        seconds, and a request whose estimated admit wait already passes
-        it is shed.  `tenant` bills the request's prefix-cache traffic
-        (default: the tenant of the pipeline's admission note for the
-        ambient trace, else "").  Prompts keep their tail up to the
-        largest bucket (up to max_seq - 1 with chunked prefill); an
-        empty prompt becomes one pad token."""
+        at retire.  Returns False when it was refused instead (the
+        callback is not invoked): while draining, or when deadline-aware
+        admission sheds it (`deadline`: the request's end-to-end
+        completion target in time.monotonic seconds, refused when the
+        estimated admit wait already passes it).  `tenant` bills the
+        request's prefix-cache traffic (default: the tenant of the
+        pipeline's admission note for the ambient trace, else "").
+        Every submission opens a RequestJourney tied to the ambient
+        TraceContext, and claims the admission note posted for it.
+        Prompts keep their tail up to the largest bucket (up to max_seq
+        - 1 with chunked prefill); an empty prompt becomes one pad
+        token."""
         if prefill_label is not None or kv_blocks is not None or \
                 progress_callback is not None:
             _not_ported("disaggregated prefill (prefill_label, kv_blocks, "
-                        "progress_callback)", "4")
-        from .observe.journey import take_admission_note
+                        "progress_callback)", "3")
+        from .observe.journey import RequestJourney, take_admission_note
         from .observe.tracing import current_trace
         now = time.monotonic()
         # the request claims the admission note posted for its trace
         context = current_trace()
         note = take_admission_note(context.trace_id) \
             if context is not None else None
-        if tenant is None:
-            tenant = (note or {}).get("tenant", "")
+        journey = RequestJourney(
+            request_id, now,
+            trace_id=context.trace_id if context is not None else "",
+            parent_span_id=context.span_id if context is not None else "",
+            tenant=tenant if tenant is not None
+            else (note or {}).get("tenant", ""),
+            tier=(note or {}).get("tier", 1),
+            deadline=deadline,
+            admission_verdict=(note or {}).get("verdict", ""),
+            admission_wait_s=(note or {}).get("queue_wait_s"),
+            prompt_tokens=len(prompt))
+        if self._draining:
+            # no new admissions: the caller re-routes
+            self.stats["drain_refused"] += 1
+            self.journeys.finish(journey, time.monotonic(),
+                                 outcome="drained")
+            return False
         if self.prefill_chunk:
             limit = self.max_seq - 1
         else:
             limit = min(self.max_seq - 1, self.prefill_buckets[-1])
         prompt = [int(t) for t in prompt] or [0]
         prompt = prompt[-limit:]
+        if self.prefix_cache is not None and len(prompt) > 1 and \
+                self.prefix_cache.tiered:
+            # the admit round is at least one pump away: a prefetch
+            # kicked here overlaps the queue wait
+            self.prefix_cache.prefetch(journey.tenant, prompt)
         if deadline is not None:
-            wait = self.estimated_admit_wait(prompt=prompt, tenant=tenant)
+            wait = self.estimated_admit_wait(prompt=prompt,
+                                             tenant=journey.tenant)
             if wait is not None and now + wait >= float(deadline):
                 self.stats["admission_shed"] += 1
+                self.journeys.finish(journey, time.monotonic(),
+                                     outcome="shed")
                 return False
         self._pending.append(DecodeRequest(
             request_id, prompt, int(max_new_tokens), callback,
-            tenant=tenant))
+            submit_time=now, journey=journey, deadline=deadline,
+            tenant=journey.tenant))
         self._note_active()
         return True
+
+    def attach_ledger(self, ledger) -> None:
+        """Wire the KV memory ledger (observe/ledger.py) through this
+        decoder's storage: the prefix cache fans it out to its pool and
+        host tier; a cacheless paged decoder attaches the pool.  A dense
+        decoder without a cache holds nothing per tenant."""
+        self._ledger = ledger
+        if self.prefix_cache is not None:
+            self.prefix_cache.attach_ledger(ledger)
+        elif self.paged and ledger is not None:
+            self.pool.attach_ledger(ledger)
+
+    @property
+    def ledger(self):
+        return self._ledger
 
     def attach(self, engine, period: float = 0.002) -> int:
         """Pump from `engine`'s timer every `period` seconds.
@@ -1542,27 +2011,10 @@ class ContinuousDecoder:
             engine.remove_timer_handler(self._timer)
             self._timer = None
 
-    def attach_ledger(self, ledger) -> None:
-        _not_ported("the KV memory ledger", "3")
-
-    def drain(self, deadline: float | None = None, on_evacuate=None,
-              on_complete=None) -> list:
-        _not_ported("graceful drain", "3")
-
-    def resume(self) -> None:
-        _not_ported("graceful drain (resume)", "3")
-
-    def slo_stats(self) -> dict:
-        _not_ported("request journeys and SLO samples", "3")
-
-    def slo_sketch_stats(self, prefill: str | None = None,
-                         tenant: str | None = None) -> dict:
-        _not_ported("request journeys and SLO sketches", "3")
-
     def install_shipped_blocks(self, tokens, start_block: int,
                                blocks, tenant: str = "") -> tuple:
         _not_ported("the direct slot-table install "
-                    "(install_shipped_blocks)", "4")
+                    "(install_shipped_blocks)", "3")
 
     def harvest_progress(self, request: DecodeRequest) -> int:
         """Register the complete prompt blocks written so far ([0,
@@ -1587,6 +2039,133 @@ class ContinuousDecoder:
 
     def _note_active(self) -> None:
         self._gauge_active.set(self.active_count + len(self._pending))
+
+    # -- graceful drain ----------------------------------------------------
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    @property
+    def drained(self) -> bool:
+        return self._drained
+
+    def drain(self, deadline: float | None = None,
+              on_evacuate=None, on_complete=None) -> list:
+        """Arm a graceful wind-down: stop admitting, let live slots finish
+        (or checkpoint them at the first round boundary past `deadline`,
+        seconds from now), harvest every live chain into the prefix
+        cache, and fire `on_complete(self)` once when the decoder is
+        idle.  Queued requests are evacuated now and returned as
+        descriptors (request_id, prompt, generated so far,
+        max_new_tokens, callback, deadline, tenant) for the caller to
+        resubmit; checkpointed slots evacuate the same way through
+        `on_evacuate`, or, without one, their callback gets what they
+        generated so far.  Re-arming tightens the deadline but never
+        un-drains (resume does)."""
+        now = time.monotonic()
+        self._draining = True
+        self._drained = False
+        self._drain_deadline = None if deadline is None \
+            else now + float(deadline)
+        if on_evacuate is not None:
+            self._drain_evacuate = on_evacuate
+        if on_complete is not None:
+            self._drain_complete = on_complete
+        pending, self._pending = self._pending, []
+        evacuated = [self._evacuate(request, now) for request in pending]
+        if self.idle:
+            self._drain_finish()
+        self._note_active()
+        return evacuated
+
+    def resume(self) -> None:
+        """Re-open admission after a drain."""
+        self._draining = False
+        self._drained = False
+        self._drain_deadline = None
+        self._drain_evacuate = None
+        self._drain_complete = None
+
+    def _evacuate(self, request: DecodeRequest, now: float) -> dict:
+        """Close one request's journey as evacuated and hand back its
+        resubmittable descriptor (prompt + generated so far is the
+        continuation's prompt)."""
+        if request.inflight_key and \
+                self._inflight_chains.get(request.inflight_key) \
+                is request:
+            # a queued dedup leader leaves with its registration, or a
+            # duplicate submitted after resume would wait forever
+            self._inflight_chains.pop(request.inflight_key, None)
+            request.inflight_key = ""
+        self.stats["drain_evacuated"] += 1
+        if request.journey is not None:
+            self.journeys.finish(request.journey, now, outcome="evacuated")
+            request.journey = None
+        return {"request_id": request.request_id,
+                "prompt": list(request.prompt),
+                "generated": list(request.generated or []),
+                "max_new_tokens": int(request.max_new_tokens),
+                "callback": request.callback,
+                "deadline": request.deadline,
+                "tenant": request.tenant}
+
+    def _drain_checkpoint(self) -> None:
+        """The deadline checkpoint, at a round boundary: every live slot
+        harvests the complete blocks of its written context into the
+        prefix cache (a mid-prefill slot [0, prefill_pos); a decoding slot
+        all but its last generated token, whose K/V row is written only
+        when it is fed back), then evacuates with its partial generation.
+        The resubmitted continuation hits the harvested chain."""
+        now = time.monotonic()
+        for slot in range(self.max_slots):
+            request = self._slots[slot]
+            if request is None:
+                continue
+            if self.prefix_cache is not None:
+                try:
+                    if request.prefilling:
+                        self.harvest_progress(request)
+                    else:
+                        context = list(request.prompt) + \
+                            list(request.generated or [])
+                        self._harvest_rows(slot, request.tenant,
+                                           context[:-1])
+                except Exception:
+                    self.logger.exception(
+                        "drain checkpoint harvest failed for %s",
+                        request.request_id)
+                if request.prefix_nodes:
+                    self.prefix_cache.release(request.prefix_nodes)
+                    request.prefix_nodes = []
+            if self.paged:
+                self._release_slot_blocks(slot)
+            self._slots[slot] = None
+            self.stats["drain_checkpoints"] += 1
+            descriptor = self._evacuate(request, now)
+            if self._drain_evacuate is not None:
+                try:
+                    self._drain_evacuate(descriptor)
+                except Exception:
+                    self.logger.exception("drain evacuation failed for %s",
+                                          request.request_id)
+            else:
+                try:
+                    request.callback(request.request_id,
+                                     descriptor["generated"])
+                except Exception:
+                    self.logger.exception("callback failed for %s",
+                                          request.request_id)
+        self._note_active()
+
+    def _drain_finish(self) -> None:
+        self._drained = True
+        self._drain_deadline = None
+        callback, self._drain_complete = self._drain_complete, None
+        if callback is not None:
+            try:
+                callback(self)
+            except Exception:
+                self.logger.exception("drain completion callback failed")
 
     def kv_cache_bytes(self) -> int:
         """Bytes allocated to the KV store: the dense slot caches (values
@@ -1756,8 +2335,10 @@ class ContinuousDecoder:
         headroom for the block merge, which writes a round's whole side
         buffer at a slot's entry length (never attended past the slot's
         take).  The speculative merge scatters at absolute positions and
-        drops those out of range, so it needs none."""
-        return self.max_seq if self.speculate_k \
+        drops those out of range, and the select write writes nothing
+        past the extent, so neither needs it."""
+        return self.max_seq if self.speculate_k or \
+            self.kv_write != "block" \
             else self.max_seq + self.steps_per_sync
 
     def _zero_caches(self, t: int | None = None) -> list:
@@ -1815,11 +2396,16 @@ class ContinuousDecoder:
         chunks; the others go through bucketed single-shot prefill
         groups.  With prefill_budget set, bucketed admission stops for
         the round once the budget is spent: later arrivals wait rather
-        than stall the decoding slots."""
+        than stall the decoding slots.  With a host tier, staged
+        promotions land first (a prefetch kicked rounds ago is then a
+        plain hit), and a request's host-resident chain tail is promoted
+        before its probe."""
+        cache = self.prefix_cache
+        if cache is not None and cache.promotions_ready:
+            cache.poll_promotions()
         free = [s for s in range(self.max_slots) if self._slots[s] is None]
         if not free or not self._pending:
             return
-        cache = self.prefix_cache
         groups: dict[int, list[DecodeRequest]] = {}
         chunked: list[DecodeRequest] = []
         cached: list[DecodeRequest] = []
@@ -1846,6 +2432,12 @@ class ContinuousDecoder:
                     index += 1                  # takes no slot
                     continue
             if cache is not None and not request.prefix_probed:
+                if cache.tiered:
+                    # whatever of the chain still lives on the host
+                    # must be device-resident before the probe: a
+                    # staged prefetch installs at once, else it stages
+                    # inline
+                    cache.promote_for(request.tenant, request.prompt)
                 block = cache.block_tokens
                 if len(request.prompt) > block:
                     lead = cache.keys_for(request.tenant,
@@ -1903,12 +2495,14 @@ class ContinuousDecoder:
             taken += 1
             index += 1
         self._pending = deferred + pending[index:]
+        admit_t = time.monotonic() if (chunked or groups or cached) \
+            else 0.0
         if cached:
             self._fit_caches(max(max(self._prefix_write_len(r)
                                      for r in cached), self._cache_t))
             start = time.perf_counter()
             for request in cached:
-                self._prefix_admit(free.pop(0), request)
+                self._prefix_admit(free.pop(0), request, admit_t)
             self.stats["prefill_s"] += time.perf_counter() - start
         for request in chunked:
             slot = free.pop(0)
@@ -1917,6 +2511,8 @@ class ContinuousDecoder:
             request.prefill_pos = 0
             self._slots[slot] = request
             self.stats["chunk_admits"] += 1
+            if request.journey is not None:
+                request.journey.admitted(admit_t, slot, "chunk-admit")
         if not groups:
             return
         # grow-only here (admits write [:bucket]); the round planner owns
@@ -1946,7 +2542,8 @@ class ContinuousDecoder:
         padded = self._next_pow2(blocks) * self.kv_block
         return padded if padded <= self.max_seq else request.prefix_hit
 
-    def _prefix_admit(self, slot: int, request: DecodeRequest) -> None:
+    def _prefix_admit(self, slot: int, request: DecodeRequest,
+                      admit_t: float) -> None:
         """Admit a prefix-hit request and leave the slot mid-prefill at
         the hit boundary: _advance_prefills runs the uncached suffix, and
         its finishing extend gives the first token.  Paged, the pinned
@@ -1978,6 +2575,9 @@ class ContinuousDecoder:
         request.prefill_pos = request.prefix_hit
         self._slots[slot] = request
         self.stats["prefix_admits"] += 1
+        if request.journey is not None:
+            request.journey.prefix_hit_tokens = request.prefix_hit
+            request.journey.admitted(admit_t, slot, "prefix-admit")
 
     def _prefix_copy(self, slot: int, request: DecodeRequest,
                      t_write: int) -> None:
@@ -2098,12 +2698,15 @@ class ContinuousDecoder:
         # no host sync here: the request is live with its first token
         # owed; the stashed wave resolves it at the NEXT round's sync
         wave = []
+        admit_t = time.monotonic()
         for j, request in enumerate(chunk):
             request.slot = slots[j]
             request.generated = []
             self._slots[slots[j]] = request
             self.stats["prefills"] += 1
             self.stats["tokens_prefill"] += len(request.prompt)
+            if request.journey is not None:
+                request.journey.admitted(admit_t, slots[j], "admit")
             wave.append((j, request))
         self._admit_waves.append((firsts, wave))
 
@@ -2241,6 +2844,8 @@ class ContinuousDecoder:
             self.stats["tokens_prefill"] += max(0,
                                                 new_pos - request.prefill_pos)
             request.prefill_pos = new_pos
+            if request.journey is not None:
+                request.journey.wave("extend")
             if finish:
                 request.prefilling = False
                 request.generated = []            # first token owed
@@ -2310,6 +2915,22 @@ class ContinuousDecoder:
         self._slots[slot] = None
         self._note_active()
         self.stats["completed"] += 1
+        journey = request.journey
+        count = len(request.generated)
+        if count >= 2 and request.last_time > request.first_time:
+            itl = (request.last_time - request.first_time) / (count - 1)
+            self.itl_samples.append(itl)
+            self._slo_sketch(
+                "itl", journey.tenant if journey else "").observe(
+                itl, exemplar=(journey.trace_id or request.request_id)
+                if journey else None)
+        if request.max_gap > 0:
+            self.gap_samples.append(request.max_gap)
+        if journey is not None:
+            # completion closes the journey: deadline margin, outcome per
+            # tenant, spans under the frame's trace id
+            self.journeys.finish(journey, request.last_time or
+                                 time.monotonic())
         generated = request.generated
         if self.eos_token is not None and generated and \
                 generated[-1] == self.eos_token:
@@ -2382,7 +3003,16 @@ class ContinuousDecoder:
         admit and extend outputs), THEN dispatch admits and chunk
         extends so they run on the device while the host waits; resolve
         earlier admits' first tokens, deliver this round's emissions,
-        retire finished slots."""
+        retire finished slots.  While draining, a round past the drain
+        deadline first checkpoints every live slot, and the drain
+        completes once the decoder is idle."""
+        if self._draining and not self._drained:
+            if self._drain_deadline is not None and \
+                    time.monotonic() >= self._drain_deadline and \
+                    self.active_count:
+                self._drain_checkpoint()
+            if self.idle:
+                self._drain_finish()
         self._round_prefill_tokens = 0
         round_start = time.perf_counter()
         # mid-prefill slots hold a slot but do not decode yet
@@ -2443,12 +3073,15 @@ class ContinuousDecoder:
             emitted_active = host[1].reshape(shape).astype(bool)
             host = host[2:]
             self.stats["decode_s"] += time.perf_counter() - decode_start
+            self.stats["bytes_moved"] += num_steps * (
+                self._param_bytes + self._kv_bytes_per_t * self._cache_t)
         # first tokens of admits from EARLIER rounds
+        now = time.monotonic()
         for firsts, (_, wave) in zip(host, waves_due):
             for j, request in wave:
                 if self._slots[request.slot] is request and \
                         not request.generated:
-                    self._deliver(request.slot, int(firsts[j]))
+                    self._deliver(request.slot, int(firsts[j]), now)
         if scanned and self.speculate_k:
             self._deliver_spec(emitted, emitted_active, occupied, num_steps)
         elif scanned:
@@ -2462,7 +3095,7 @@ class ContinuousDecoder:
                     if self._slots[slot] is None or \
                             not emitted_active[k, slot]:
                         continue
-                    self._deliver(slot, int(emitted[k, slot]))
+                    self._deliver(slot, int(emitted[k, slot]), now)
                     delivered += 1
             self.stats["tokens_decode"] += delivered
         if scanned or waves_due or self._round_prefill_tokens:
@@ -2495,6 +3128,7 @@ class ContinuousDecoder:
         self.stats["spec_accepted"] += int(np.maximum(counts - 1, 0).sum())
         # tokens_decode counts DELIVERED tokens: a wave-resolved EOS first
         # token can retire a slot before its verify emissions land
+        now = time.monotonic()
         delivered = 0
         for slot in occupied:
             mask = emit_mask[:, slot, :]
@@ -2503,24 +3137,90 @@ class ContinuousDecoder:
             for token in emitted[:, slot, :][mask]:
                 if self._slots[slot] is None:
                     break                 # retired mid-burst (EOS)
-                self._deliver(slot, int(token))
+                self._deliver(slot, int(token), now)
                 delivered += 1
         self.stats["tokens_decode"] += delivered
         if self.stats["useful_steps"]:
             self.stats["accepted_per_step"] = (
                 self.stats["tokens_decode"] / self.stats["useful_steps"])
 
-    def _deliver(self, slot: int, token: int) -> None:
+    def _deliver(self, slot: int, token: int, now: float) -> None:
+        """Append one resolved token and stamp the SLO clocks: tokens land
+        in per-sync bursts, so TTFT is submit to the first burst and the
+        stall is the worst gap BETWEEN bursts."""
         request = self._slots[slot]
-        if not request.generated and request.dedup_hot and \
-                self.prefix_cache is not None:
-            # a duplicate waits on this prompt: its rows are written now
-            # (the first token resolved), so harvest them early
-            try:
-                self._prefix_harvest_prompt(slot, request)
-            except Exception:
-                self.logger.exception("early prompt harvest failed for %s",
-                                      request.request_id)
+        journey = request.journey
+        if not request.generated:
+            request.first_time = now
+            ttft = now - request.submit_time
+            self.ttft_samples.append(ttft)
+            self._slo_sketch(
+                "ttft", journey.tenant if journey else "",
+                "cached" if request.prefix_hit else "cold").observe(
+                ttft, exemplar=(journey.trace_id or request.request_id)
+                if journey else None)
+            if request.dedup_hot and self.prefix_cache is not None:
+                # a duplicate waits on this prompt: its rows are written
+                # now (the first token resolved), so harvest them early
+                try:
+                    self._prefix_harvest_prompt(slot, request)
+                except Exception:
+                    self.logger.exception(
+                        "early prompt harvest failed for %s",
+                        request.request_id)
+        elif now > request.last_time:
+            request.max_gap = max(request.max_gap, now - request.last_time)
+        if journey is not None:
+            journey.token(now)
         request.generated.append(token)
+        request.last_time = now
         if self._finished(request, token):
             self._retire(slot)
+
+    def slo_stats(self) -> dict:
+        """Measured per-request latency SLOs in milliseconds: TTFT
+        (submit to first token burst), per-request mean inter-token
+        latency, and the p95 of each request's worst stall between
+        bursts."""
+        def pct(samples, q):
+            return float(np.percentile(np.fromiter(samples, float),
+                                       q)) * 1000.0 if samples else None
+        return {
+            "ttft_p50_ms": pct(self.ttft_samples, 50),
+            "ttft_p95_ms": pct(self.ttft_samples, 95),
+            "itl_p50_ms": pct(self.itl_samples, 50),
+            "itl_p95_ms": pct(self.itl_samples, 95),
+            "stall_p95_ms": pct(self.gap_samples, 95),
+            "ttft_count": len(self.ttft_samples),
+            "itl_count": len(self.itl_samples),
+        }
+
+    def slo_sketch_stats(self, prefill: str | None = None,
+                         tenant: str | None = None) -> dict:
+        """slo_stats' latencies read from the mergeable sketches: p50 /
+        p95 / p99 per kind merged across this decoder's tenants, and the
+        worst exemplar ids.  `prefill` ("cached" / "cold") restricts the
+        TTFT merge to one population; `tenant` restricts both kinds to
+        one tenant's sketches."""
+        from .observe.sketch import merge_sketches
+        out: dict = {}
+        for kind in ("ttft", "itl"):
+            merged = merge_sketches(
+                sketch for (sketch_kind, sketch_tenant, sketch_prefill),
+                sketch in self._slo_sketches.items()
+                if sketch_kind == kind and
+                (tenant is None or sketch_tenant == tenant) and
+                (prefill is None or kind != "ttft" or
+                 sketch_prefill == prefill))
+            for q, suffix in ((0.5, "p50"), (0.95, "p95"), (0.99, "p99")):
+                value = merged.quantile(q) if merged is not None else None
+                out[f"{kind}_{suffix}_ms"] = \
+                    None if value is None else value * 1000.0
+            out[f"{kind}_exemplars"] = [] if merged is None else \
+                [e[1] for e in merged.worst_exemplars(4)]
+        return out
+
+    def clear_slo_sketches(self) -> None:
+        """Drop sketch observations and exemplars (a warm-up boundary)."""
+        for sketch in self._slo_sketches.values():
+            sketch.clear()

@@ -53,10 +53,13 @@ class BlockPool:
     geometrically when the free list runs dry; retain()/release_blocks()
     move ownership; refs hitting zero return the id to the free list with
     its contents left in place (stale rows are only ever read at masked
-    positions until the next owner overwrites them).  `tenant` on
-    alloc/release is accounting only (the JAX pool's KV ledger hook; the
-    ledger is not ported).  Single-threaded like the decoder that owns
-    it."""
+    positions until the next owner overwrites them).  With a KV memory
+    ledger attached (attach_ledger, observe/ledger.py) every physical
+    transition reports a tenant-attributed byte delta: alloc, and the
+    refs 1->0 release; retains are ownership moves and stay invisible,
+    so the ledger's device bytes equal used_blocks() * block_nbytes.
+    `tenant` on alloc / release is that attribution only.
+    Single-threaded like the decoder that owns it."""
 
     def __init__(self, config: LlamaConfig, block_tokens: int,
                  kv_int8: bool, initial_blocks: int = 64,
@@ -106,11 +109,17 @@ class BlockPool:
             "used / capacity fraction of the paged KV pool",
             labels={"pool": self.name})
         self._used = 0
+        self._ledger = None              # KV memory ledger (attach_ledger)
         # shrink floor: construction capacity, raised by reserve() —
         # maybe_shrink never goes below what a caller declared as steady
         # state, so drain/refill cycles do not thrash the pool
         self._floor_blocks = n
         self._publish_gauges()
+
+    def attach_ledger(self, ledger) -> None:
+        self._ledger = ledger
+        if ledger is not None:
+            ledger.attach_pool(self)
 
     # -- device arrays -----------------------------------------------------
     def _zero_pools(self, n: int) -> list:
@@ -217,6 +226,9 @@ class BlockPool:
             self._refs[block_id] = 1
         self._used += count
         self.stats["allocs"] += count
+        if self._ledger is not None:
+            self._ledger.device_delta(tenant, count * self.block_nbytes,
+                                      "alloc")
         self._publish_gauges()
         return ids
 
@@ -248,6 +260,9 @@ class BlockPool:
         if freed:
             self._used -= freed
             self.stats["frees"] += freed
+            if self._ledger is not None:
+                self._ledger.device_delta(
+                    tenant, -freed * self.block_nbytes, "release")
             self._publish_gauges()
 
     def refs(self, block_id: int) -> int:
@@ -334,7 +349,7 @@ class BlockPool:
     def block_rows(self, block_id: int) -> tuple:
         """(per-layer K leaves, per-layer V leaves) of one block: views
         into the pool in its storage layout (the read behind shipping a
-        cached block; the wire itself is ROADMAP.md Queue 1 item 4)."""
+        cached block; the wire itself is ROADMAP.md Queue 1 item 3)."""
         return ([L.slice_paged_block(pool, block_id)
                  for pool in self.k_pools],
                 [L.slice_paged_block(pool, block_id)
@@ -473,7 +488,7 @@ def _build_paged_step(config: LlamaConfig, device):
         k_sides, v_sides = _side_buffers(config, tokens.shape[0], num_steps,
                                          device)
 
-        def attention(i, layer, normed, lengths, step_index):
+        def attention(i, layer, normed, lengths, step_index, _active):
             return _kernel_attention_block(
                 cap_tables, layer, config, normed, cos, sin, k_pools[i],
                 v_pools[i], k_sides[i], v_sides[i], entry_lengths, lengths,

@@ -16,9 +16,10 @@
 #     dedup-only: payload dropped, key retained.
 #
 # Key space: (tenant, session_id) maps to the EC item "tenant.sid".
-# Tenant and session ids must not contain ".", "/" or spaces.  The KV
-# memory ledger hook (attach_ledger) waits for ROADMAP.md Queue 1 item
-# 3; the load generator (state/loadgen.py) for item 12.
+# Tenant and session ids must not contain ".", "/" or spaces.  With a KV
+# memory ledger attached (attach_ledger), lease pins and demotions count
+# as its lifecycle events.  The load generator (state/loadgen.py) waits
+# for ROADMAP.md Queue 1 item 11.
 
 from __future__ import annotations
 
@@ -208,11 +209,12 @@ class SessionTable:
             buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 4096,
                      16384, 65536))
         self._stopped = False
+        # KV memory ledger: lease pins and demotions count as lifecycle
+        # events (the KV bytes they pin are the prefix cache's to charge)
+        self._ledger = None
 
     def attach_ledger(self, ledger) -> None:
-        raise NotImplementedError(
-            "the KV memory ledger is not ported yet (ROADMAP.md Queue 1 "
-            "item 3)")
+        self._ledger = ledger
 
     # -- introspection -----------------------------------------------------
     def __len__(self) -> int:
@@ -279,6 +281,8 @@ class SessionTable:
         self._wheel.schedule(session.due, (key, session.gen))
         self._publish(session)
         self.stats["created"] += 1
+        if self._ledger is not None:
+            self._ledger.event("lease_pin")
         self._gauge_sessions.inc()
         self._gauge_bytes.inc(nbytes)
         self._enforce_bytes(tenant)
@@ -391,6 +395,8 @@ class SessionTable:
         self._tenant_bytes[session.tenant] -= freed
         self._gauge_bytes.dec(freed)
         self.stats["demoted"] += 1
+        if self._ledger is not None:
+            self._ledger.event("lease_demote")
         self._publish(session)
         return freed
 

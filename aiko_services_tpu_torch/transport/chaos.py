@@ -37,6 +37,7 @@ import random
 from dataclasses import dataclass, field
 from fnmatch import fnmatchcase
 
+from ..observe import flight as _flight
 from ..observe.metrics import MirroredStats
 from .memory import MemoryBroker
 from .message import Message, topic_matches
@@ -143,9 +144,8 @@ class FaultPlan:
         # Counter-compatible (missing keys read 0); injected-fault
         # counts also mirror onto the metrics registry, so a soak's
         # telemetry snapshot shows chaos_faults_total beside the
-        # recovery counters it provoked.  The JAX package also writes
-        # each fault into the flight recorder's rings; that hook waits
-        # for the port's observe/ modules (ROADMAP.md Queue 1 item 8)
+        # recovery counters it provoked; each fault also lands in the
+        # flight recorder's rings (observe/flight.py record_fault)
         self.stats = MirroredStats(
             metric="chaos_faults_total",
             help="chaos faults injected by kind")
@@ -192,6 +192,8 @@ class FaultPlan:
                     partition.severs(sender_id, recipient_id):
                 verdict.drop = True
                 self.stats["partitioned"] += 1
+                _flight.record_fault("partitioned", topic, sender_id,
+                                     recipient_id, now)
                 return verdict
         for rule in self.rules:
             if not rule.matches(topic, sender_id, recipient_id, payload,
@@ -210,6 +212,8 @@ class FaultPlan:
                 continue
             rule.fired += 1
             self.stats[rule.kind] += 1
+            _flight.record_fault(rule.kind, topic, sender_id,
+                                 recipient_id, now)
             if rule.kind == "drop":
                 verdict.drop = True
                 return verdict

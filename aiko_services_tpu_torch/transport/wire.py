@@ -87,7 +87,7 @@ _BUFLEN = struct.Struct("<Q")
 
 KV_ENVELOPES_NOT_PORTED = ("the KV transfer and migrate envelopes are not "
                            "ported yet: they need disaggregated serving "
-                           "(ROADMAP.md Queue 1 item 4)")
+                           "(ROADMAP.md Queue 1 item 3)")
 
 # device-to-host copies made by the encoder (tensors on the card), and
 # the wall seconds they took: each waits for the tensor's stream

@@ -195,6 +195,39 @@ Phases, each printing one JSON line; any failure exits non-zero:
      passes only at a CPU top-2 logit gap or a router boundary gap under
      MOE_*_TIE), and with every expert chosen (no drops) against
      llama_greedy_decode.
+  26. agent_tiered: the agent phase's conversation with a host KV tier
+     (host_kv_mb 512) and a 64-block prefix cache, the 8 streams' turns
+     in lockstep and every session demoted (PrefixKVCache.
+     demote_sessions) between turns, under torch's sync debug mode: the
+     demotions copy pool blocks to pinned host memory and the next turn
+     prefetches (a worker thread on its own stream, handing back a CUDA
+     event) and promotes them without any synchronizing call; every
+     stream's chain demotes, prefill + cached = prompt tokens, the KV
+     ledger conserves after every round with no violation, the paged
+     kernel launches 16 x AGENT_TIERED_DECODE_STEPS and 16 x
+     AGENT_TIERED_EXTEND_DISPATCHES, and after the leases lapse every
+     chain promotes back and a purge leaves both tiers empty; one round
+     of promotions and extends under torch.profiler;
+  27. agent_tiered_f32: the same at 2 layers in f32: every turn against
+     llama_greedy_decode on its whole history;
+  28. llama_wq: the llama phase's traffic and decoder with weight_quant,
+     then with fuse_projections: tokens/s, parameter bytes (JAX's rule),
+     peak memory, 16 x 326 paged launches each; both at 2 layers in f32
+     on the card against the same decoder on the CPU;
+  29. llama_select: the dense decoder in the select KV write
+     (AIKO_DECODE_KV=select): the llama traffic at full width with the
+     two_pass inner loop (tokens/s, no paged launch); at 2 layers in
+     f32, two_pass, online and vpu each against llama_greedy_decode and
+     the block write;
+  30. decoder_chaos: ChaosDecoder around the prefix-cached paged
+     Llama-1B decoder (bf16, prefill chunks of 128): a preemption, a
+     pool-growth refusal and a hung scan, each drained with a deadline
+     of 0, checkpointed and resumed from prompt + generated: every
+     request completes with its budget, CHAOS_EVACUATED evacuations and
+     CHAOS_CHECKPOINTS checkpoints, one flight record a fault, one
+     journey a submission, a TTFT p50 per tenant, the predicted paged
+     launches; at 2 layers in f32 the faulted run's streams against the
+     same drive without faults.
 The kernel section holds the paged kernel at the verify shapes too: W =
 3 (the split path) and W = 5 (the tensor cores) natively, W = 3 with
 int8 pools folded.
@@ -293,10 +326,13 @@ WHISPER_SMALL = (768, 12, 12, 12, 51865)
 PEER_CHAOS_FLASH = 36
 # the counts every earlier phase gives (flash in slice, pipeline and the
 # remote and peer phases, the paged kernel natively and its two int8
-# variants)
+# variants; agent_tiered's decode and extend launches, llama_wq's two
+# runs' and decoder_chaos's, from the CPU rehearsals of their drives)
 EARLIER_COUNTS = {"slice": 12, "pipeline": 24, "remote_pipeline": 24,
                   "peer_pipeline": 24, "peer_chaos": PEER_CHAOS_FLASH,
-                  "llama": 5216, "int8_fold": 1920, "int8_dequant": 192}
+                  "llama": 5216, "int8_fold": 1920, "int8_dequant": 192,
+                  "agent_tiered": 16 * (112 + 5), "llama_wq": 2 * 5216,
+                  "decoder_chaos": 16 * (414 + 6)}
 # peer_chaos: the caller's channel drops a fifth of its request
 # envelopes, the server's delays half of its replies by 0.2 s; a hop
 # whose 3 s lease expires is sent again, up to 4 times.  Each side's
@@ -462,6 +498,47 @@ LLAMA_MOE_STEPS = 326
 # ~1e-6: ~100x below)
 MOE_F32_REQUESTS, MOE_F32_NEW = 16, 16
 MOE_LOGIT_TIE, MOE_ROUTER_TIE = 1e-4, 1e-4
+# the tiered agent (phases agent_tiered, agent_tiered_f32): the agent's
+# parameters with a host KV tier of AGENT_TIERED_HOST_MB and a prefix
+# cache of AGENT_TIERED_BLOCKS blocks (prefix_cache_mb from the preset's
+# block bytes: 64 MiB for Llama-1B in bf16, under what eight
+# conversations harvest, so LRU pressure demotes too).  The streams take
+# their turns in lockstep, and between turns every session demotes
+# through PrefixKVCache.demote_sessions, the hook the session table's
+# expiry and demotion call (their own demotion drops the table's
+# history, which the next turn needs): every stream's chain goes to
+# pinned host memory, and its next turn prefetches it at the session
+# touch and promotes it at the admit.  Decode steps and extend
+# dispatches are a CPU rehearsal's (a narrow stand-in of the preset with
+# the same block count; the schedule depends on neither widths nor
+# token values)
+AGENT_TIERED_HOST_MB, AGENT_TIERED_BLOCKS = 512, 64
+AGENT_TIERED_DECODE_STEPS = 112
+AGENT_TIERED_EXTEND_DISPATCHES = 5
+# llama_wq: the llama phase's traffic through its decoder with
+# weight_quant, then with fuse_projections; no request stops early, so
+# each takes the llama phase's decode steps
+LLAMA_WQ_STEPS = 326
+# llama_select: the dense decoder in the select KV write; its inner loops
+# at full width in f32 at 2 layers
+SELECT_IMPLS = ("two_pass", "online", "vpu")
+# decoder_chaos: Llama-1B (bf16) through the paged decoder with a prefix
+# cache of 32-token blocks and prefill chunks of 128 (every extend then
+# runs at the agent's 512-row shape), wrapped in ChaosDecoder: a
+# preemption at CHAOS_PREEMPT_ROUND of the llama traffic, a pool-growth
+# refusal of CHAOS_REFUSAL_ROUNDS rounds (the free list held dry), and a
+# hung-scan watchdog (an injected clock adds CHAOS_HANG_S to one round);
+# every fault drains with a deadline of 0 s, checkpoints the live slots
+# into the cache, and the evacuated requests resume from prompt +
+# generated after resume.  The counts are a CPU rehearsal's
+CHAOS_DECODER = {**LLAMA_DECODER, "prefill_chunk": 128}
+CHAOS_PREEMPT_ROUND, CHAOS_REFUSAL_ROUNDS = 4, 3
+CHAOS_HANG_S, CHAOS_HANG_THRESHOLD_S = 5.0, 1.0
+CHAOS_TENANTS = ("acme", "beta")
+CHAOS_EVACUATED = 26
+CHAOS_CHECKPOINTS = 16
+CHAOS_DECODE_STEPS = 414
+CHAOS_EXTEND_DISPATCHES = 6
 
 def emit(record: dict) -> None:
     print(json.dumps(record), flush=True)
@@ -2094,12 +2171,14 @@ def agent_definition(parameters=None):
 
 
 def conversation(runtime, texts: dict, before_drive=None,
-                 parameters=None) -> tuple:
+                 parameters=None, between_turns=None) -> tuple:
     """Drive AGENT_STREAMS streams through their turns on the runtime's
     virtual clock: every stream posts turn 1 at once, and each later
-    turn as soon as the stream's previous turn came back.  Returns
-    (pipeline, agent element, frames by (stream, turn), virtual s, wall
-    s)."""
+    turn as soon as the stream's previous turn came back; with
+    `between_turns`, in lockstep instead: turn k + 1 is posted on every
+    stream once every stream's turn k came back, after
+    between_turns(k).  Returns (pipeline, agent element, frames by
+    (stream, turn), virtual s, wall s)."""
     from aiko_services_tpu_torch.pipeline import Pipeline
     engine = runtime.event
     pipeline = Pipeline(runtime, agent_definition(parameters),
@@ -2116,16 +2195,24 @@ def conversation(runtime, texts: dict, before_drive=None,
     start, virtual_start = time.perf_counter(), engine.clock.now()
     for stream_id, turns in texts.items():
         pipeline.post("process_frame", stream_id, {"text": turns[0]})
-    seen = 0
+    seen, posted = 0, 1
     while len(done) < total:
         for frame in done[seen:]:
             stream_id = frame.stream_id
             frames[(stream_id, turn_of[stream_id])] = frame
             turn_of[stream_id] += 1
-            if turn_of[stream_id] < len(texts[stream_id]):
+            if between_turns is None and \
+                    turn_of[stream_id] < len(texts[stream_id]):
                 pipeline.post("process_frame", stream_id,
                               {"text": texts[stream_id][turn_of[stream_id]]})
         seen = len(done)
+        if between_turns is not None and len(done) < total and \
+                min(turn_of.values()) == posted:
+            between_turns(posted)
+            for stream_id in texts:
+                pipeline.post("process_frame", stream_id,
+                              {"text": texts[stream_id][posted]})
+            posted += 1
         engine.clock.advance(0.002)
         while engine.step():
             pass
@@ -4713,6 +4800,895 @@ def phase_llama_moe_f32() -> dict:
     return record
 
 
+@contextlib.contextmanager
+def sync_watch(arm: bool = True):
+    """torch's sync debug mode ("warn") over the block: yields a Counter
+    that holds, after the block, each call that synchronized the stream,
+    by the innermost frame of this repo on the stack at the warning
+    (file:line -> calls).  The decoder's one wait a round, on the event
+    behind its device-to-host copy, is not one of them.  With arm False
+    the caller sets the mode inside the block (after its set-up)."""
+    import traceback
+
+    syncs = collections.Counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    shown = warnings.showwarning
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        # torch's warning at each synchronizing call ("... called a
+        # synchronizing CUDA operation"), not set_sync_debug_mode's own
+        # note that the mode is a prototype
+        if "called a synchronizing" not in str(message):
+            return
+        frames = [frame for frame in traceback.extract_stack()[:-1]
+                  if frame.filename.startswith(root)]
+        where = frames[-1] if frames else None
+        syncs[f"{os.path.basename(filename)}:{lineno} from "
+              f"{os.path.relpath(where.filename, root)}:{where.lineno}"
+              if where else f"{os.path.basename(filename)}:{lineno}"] += 1
+
+    if arm:
+        torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            yield syncs
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        warnings.showwarning = shown
+
+
+def tiered_parameters(config) -> dict:
+    """AGENT_PARAMETERS with the host tier and a prefix cache of
+    AGENT_TIERED_BLOCKS blocks of `config`."""
+    itemsize = torch.empty((), dtype=config.dtype).element_size()
+    block_nbytes = (2 * config.num_layers * config.num_kv_heads *
+                    config.head_dim * itemsize *
+                    AGENT_PARAMETERS["prefix_block"])
+    return {**AGENT_PARAMETERS, "host_kv_mb": AGENT_TIERED_HOST_MB,
+            "prefix_cache_mb": AGENT_TIERED_BLOCKS * block_nbytes /
+            (1 << 20)}
+
+
+def demote_between_turns(agents: list):
+    """conversation's between_turns for the tiered phases: every live
+    session of the element (agents[0], set in before_drive) demotes its
+    chain to the host tier; the table keeps the histories."""
+    def demote(_turn):
+        cache = agents[0].prefix_cache
+        cache.demote_sessions(cache.sessions())
+    return demote
+
+
+class TierAudit:
+    """A KV memory ledger on a tiered decoder, audited after every pump
+    round, and the blocks each session demotion moved to the host tier,
+    by session.  ContinuousDecoder.pump and PrefixKVCache.demote_sessions
+    are wrapped at their classes (the element binds them as callbacks
+    when its first stream opens, before bind()); after each round of the
+    bound decoder the ledger must conserve: device bytes = the pool's
+    used blocks x block bytes, host bytes = the store's, no auditor
+    finding.  close() restores both classes."""
+
+    def __init__(self):
+        from aiko_services_tpu_torch.observe.ledger import KVMemoryLedger
+        from aiko_services_tpu_torch.serving import (ContinuousDecoder,
+                                                     PrefixKVCache)
+        self.ledger = KVMemoryLedger(name="smoke_tier")
+        self.decoder = None
+        self.rounds, self.failures = 0, []
+        self.demotions = collections.Counter()
+        self._saved = ((ContinuousDecoder, "pump", ContinuousDecoder.pump),
+                       (PrefixKVCache, "demote_sessions",
+                        PrefixKVCache.demote_sessions))
+        audit = self
+        pump, demote = self._saved[0][2], self._saved[1][2]
+
+        def audited(target):
+            pump(target)
+            if target is audit.decoder:
+                audit.check(target)
+
+        def demote_each(cache, pairs):
+            if audit.decoder is None or \
+                    cache is not audit.decoder.prefix_cache:
+                return demote(cache, pairs)
+            moved = 0
+            for pair in list(pairs):
+                blocks = demote(cache, [pair])
+                audit.demotions[pair[1]] += blocks
+                moved += blocks
+            return moved
+
+        ContinuousDecoder.pump = audited
+        PrefixKVCache.demote_sessions = demote_each
+
+    def bind(self, decoder) -> None:
+        self.decoder = decoder
+        decoder.attach_ledger(self.ledger)
+
+    def check(self, decoder) -> None:
+        self.rounds += 1
+        pool, store = decoder.pool, decoder.prefix_cache.host_store
+        found = self.ledger.audit()
+        device = self.ledger.device_bytes()
+        if found or device != pool.used_blocks() * pool.block_nbytes or \
+                self.ledger.host_bytes() != store.bytes_used:
+            self.failures.append({
+                "round": self.rounds, "found": found, "device": device,
+                "pool": pool.used_blocks() * pool.block_nbytes,
+                "host": self.ledger.host_bytes(),
+                "store": store.bytes_used})
+
+    def close(self) -> None:
+        for owner, name, method in self._saved:
+            setattr(owner, name, method)
+
+
+def promote_and_purge(cache, histories: dict) -> int:
+    """Promote every conversation's host-tier chain back (promote_for on
+    its whole history, the cache's byte budget lifted so no promotion
+    evicts another), then purge the device tier without demotion:
+    returns the blocks promoted; both tiers are then empty."""
+    cache.max_bytes = None
+    promoted = sum(cache.promote_for("default", history)
+                   for history in histories.values()) // \
+        cache.block_tokens
+    cache.purge(demote=False)
+    return promoted
+
+
+def phase_agent_tiered() -> dict:
+    """The agent phase's conversation with a host KV tier: 8 streams x 3
+    turns through PE_LlamaAgent (Llama-1B, bf16, paged, sessions) under
+    torch's sync debug mode, a prefix cache of AGENT_TIERED_BLOCKS blocks
+    forcing every stream's chain to pinned host memory between its turns
+    and back.  Returns the paged kernel's launches by path."""
+    import numpy as np
+
+    from aiko_services_tpu_torch.event import settle_virtual
+    from aiko_services_tpu_torch.observe.ledger import assert_ledger_clean
+    from aiko_services_tpu_torch.ops import paged_attention as P
+
+    with agent_preset(dtype=torch.bfloat16) as config:
+        check_1b(config)
+        if config.num_layers != 16:
+            raise AssertionError(f"not 16 layers: {config}")
+        parameters = tiered_parameters(config)
+        runtime, compute = host_runtime()
+        engine = runtime.event
+        texts = agent_texts(np.random.default_rng(AGENT_SEED))
+        extends, submitted, agents = [], {}, []
+        audit = TierAudit()
+
+        def before_drive(agent):
+            agents.append(agent)
+            extends.append(count_extend_launches(agent.decoder))
+            audit.bind(agent.decoder)
+            submit = agent.decoder.submit
+
+            def recording(request_id, prompt, *args, **kwargs):
+                submitted[request_id] = list(prompt)
+                return submit(request_id, prompt, *args, **kwargs)
+            agent.decoder.submit = recording
+            # the main path's run: counts set to 0 just before
+            for name in P.launches:
+                P.launches[name] = 0
+            torch.cuda.set_sync_debug_mode("warn")
+
+        timer = RoundTimer()
+        try:
+            with sync_watch(arm=False) as syncs:
+                pipeline, agent, frames, virtual_s, wall_s = conversation(
+                    runtime, texts, before_drive, parameters,
+                    demote_between_turns(agents))
+        finally:
+            timer.close()
+        torch.cuda.synchronize()
+        launches = dict(P.launches)
+    decoder, cache = agent.decoder, agent.prefix_cache
+    store, promoter = cache.host_store, cache.promoter
+    stats, cache_stats = dict(decoder.stats), dict(cache.stats)
+    extend_dispatches, extend_launches = extends[0]
+    decode_launches = launches["paged_decode_attention"] - extend_launches
+    if syncs:
+        raise AssertionError(f"the tiered agent synchronized the stream "
+                             f"beyond its one wait a round: {dict(syncs)}")
+    failed = pipeline.recovery_stats["frames_failed"]
+    if len(frames) != AGENT_STREAMS * AGENT_TURNS or failed:
+        raise AssertionError(f"{len(frames)} agent frames, {failed} failed")
+    for (stream_id, turn), frame in frames.items():
+        tokens = frame.swag["response_tokens"]
+        if len(tokens) != AGENT_PARAMETERS["max_tokens"] or not all(
+                0 <= t < config.vocab for t in tokens):
+            raise AssertionError(f"tiered agent frame {stream_id} turn "
+                                 f"{turn}: {len(tokens)} tokens")
+    expected = {"decode": config.num_layers * AGENT_TIERED_DECODE_STEPS,
+                "extend": config.num_layers * AGENT_TIERED_EXTEND_DISPATCHES}
+    measured = {"decode": decode_launches, "extend": extend_launches}
+    if measured != expected or \
+            stats["steps"] != AGENT_TIERED_DECODE_STEPS or \
+            extend_dispatches != AGENT_TIERED_EXTEND_DISPATCHES or \
+            launches["paged_decode_attention_int8_fold"] or \
+            launches["paged_decode_attention_int8_dequant"]:
+        raise AssertionError(
+            f"tiered agent paged launches {measured} != {expected} "
+            f"({stats['steps']} decode steps, {extend_dispatches} extend "
+            f"dispatches), all {launches}")
+    prompt_tokens = sum(len(p) for p in submitted.values())
+    if stats["tokens_prefill"] + cache_stats["hit_tokens"] != prompt_tokens:
+        raise AssertionError(
+            f"prefilled {stats['tokens_prefill']} + cached "
+            f"{cache_stats['hit_tokens']} != {prompt_tokens} prompt tokens")
+    if audit.failures:
+        raise AssertionError(f"the KV ledger did not conserve: "
+                             f"{audit.failures[:3]}")
+    demoted_streams = sorted(sid for sid, blocks in audit.demotions.items()
+                             if blocks)
+    if demoted_streams != sorted(texts) or not cache_stats["promoted"]:
+        raise AssertionError(f"streams demoted {demoted_streams}, "
+                             f"{cache_stats['promoted']} blocks promoted")
+    rounds = list(timer.rounds)
+
+    # one round with promotions and extends under the profiler: a fourth
+    # turn on every stream, their chains demoted first
+    demote_between_turns(agents)(AGENT_TURNS)
+    for stream_id in texts:
+        pipeline.post("process_frame", stream_id, {"text": "and then?"})
+    while engine.step():
+        pass
+    profile = profile_round(decoder, "agent_tiered promotions + extends")
+    drained = engine.clock.now() + 60.0
+    while not decoder.idle and engine.clock.now() < drained:
+        engine.clock.advance(0.002)
+        while engine.step():
+            pass
+    histories = {stream_id: list(agent._session_table.get(
+        "default", stream_id)["history"]) for stream_id in texts}
+    settle_virtual(engine, AGENT_PARAMETERS["session_lease"] + 1.0)
+    for stream_id in list(pipeline.streams):
+        pipeline.destroy_stream(stream_id)
+    host_blocks_before = len(store)
+    promoted_back = promote_and_purge(cache, histories)
+    assert_ledger_clean(cache=cache, ledger=audit.ledger)
+    audit.close()
+    promoter.stop()
+    pipeline.stop()
+    compute.stop()
+    runtime.terminate()
+    record = {
+        "phase": "agent_tiered", "streams": AGENT_STREAMS,
+        "turns": AGENT_TURNS, "frames": len(frames),
+        "cache_blocks_budget": AGENT_TIERED_BLOCKS,
+        "prefix_cache_mb": parameters["prefix_cache_mb"],
+        "host_kv_mb": AGENT_TIERED_HOST_MB,
+        "prompt_tokens": prompt_tokens,
+        "tokens_prefill": stats["tokens_prefill"],
+        "hit_tokens": cache_stats["hit_tokens"],
+        "promoted_tokens": cache_stats["promoted"] * cache.block_tokens,
+        "prefix_admits": stats["prefix_admits"],
+        "demoted_blocks": cache_stats["demoted"],
+        "promoted_blocks": cache_stats["promoted"],
+        "cache_evictions": cache_stats["evictions"],
+        "host_evicted": store.stats["evicted"],
+        "host_refused": store.stats["refused"],
+        "promoter": dict(promoter.stats),
+        "session_demotions": dict(audit.demotions),
+        "decode_steps": stats["steps"],
+        "extend_dispatches": extend_dispatches,
+        "paged_launches": measured, "paged_launches_expected": expected,
+        "stream_syncs": sum(syncs.values()),
+        "ledger_rounds_audited": audit.rounds,
+        "ledger_violations": len(audit.ledger.violations),
+        "ledger_events": dict(audit.ledger.stats),
+        "host_blocks_at_end": host_blocks_before,
+        "promoted_back": promoted_back,
+        "pool_blocks_after_purge": decoder.pool.used_blocks(),
+        "host_blocks_after_purge": len(store),
+        "virtual_s": virtual_s, "wall_s": wall_s, "rounds": len(rounds),
+        "first_round_s": rounds[0],
+        "steady_round_s": statistics.median(rounds[2:]),
+        "tokens": sum(len(f.swag["response_tokens"])
+                      for f in frames.values()),
+        "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(record)
+    emit({"phase": "profile", **profile})
+    return measured
+
+
+def phase_agent_tiered_f32() -> dict:
+    """agent_tiered's conversation at full width and 2 layers in f32:
+    every turn against llama_greedy_decode on its whole history prompt
+    (a first mismatch at a top-2 logit gap under 1e-4 is a tie), with
+    chains demoted and promoted between the turns."""
+    import numpy as np
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with agent_preset(num_layers=2, dtype=torch.float32) as config:
+        check_1b(config)
+        runtime, compute = host_runtime()
+        prompts, agents = {}, []
+
+        def before_drive(agent):
+            agents.append(agent)
+            submit = agent.decoder.submit
+
+            def recording(request_id, prompt, *args, **kwargs):
+                prompts[request_id] = list(prompt)
+                return submit(request_id, prompt, *args, **kwargs)
+            agent.decoder.submit = recording
+
+        pipeline, agent, frames, virtual_s, wall_s = conversation(
+            runtime, agent_texts(np.random.default_rng(AGENT_SEED)),
+            before_drive, tiered_parameters(config),
+            demote_between_turns(agents))
+        ties, identical = [], 0
+        for frame in frames.values():
+            request_id = f"{frame.stream_id}.{frame.frame_id}"
+            tie = greedy_check(agent.params, config, prompts[request_id],
+                               list(frame.swag["response_tokens"]),
+                               request_id)
+            if tie is None:
+                identical += 1
+            else:
+                ties.append(tie)
+    cache = agent.prefix_cache
+    if len(frames) != AGENT_STREAMS * AGENT_TURNS or \
+            not cache.stats["demoted"] or not cache.stats["promoted"]:
+        raise AssertionError(f"{len(frames)} frames, "
+                             f"{cache.stats['demoted']} demoted, "
+                             f"{cache.stats['promoted']} promoted")
+    for stream_id in list(pipeline.streams):
+        pipeline.destroy_stream(stream_id)
+    cache.promoter.stop()
+    pipeline.stop()
+    compute.stop()
+    runtime.terminate()
+    record = {"phase": "agent_tiered_f32", "frames": len(frames),
+              "identical": identical, "ties": ties,
+              "demoted_blocks": cache.stats["demoted"],
+              "promoted_blocks": cache.stats["promoted"],
+              "hit_tokens": cache.stats["hit_tokens"],
+              "prefix_admits": agent.decoder.stats["prefix_admits"],
+              "virtual_s": virtual_s, "wall_s": wall_s}
+    emit(record)
+    return record
+
+
+def serve_llama_traffic(decoder, requests) -> tuple:
+    """The llama phase's drive: the first 16 requests, the other 8 after
+    the first round, pumped until idle.  Returns (tokens by request,
+    wall s, round s)."""
+    done, round_s = {}, []
+
+    def keep(request_id, tokens):
+        done[request_id] = list(tokens)
+
+    start = time.perf_counter()
+    for rid, prompt, new in requests[:16]:
+        decoder.submit(rid, prompt, new, keep)
+    while True:
+        round_start = time.perf_counter()
+        decoder.pump()
+        round_s.append(time.perf_counter() - round_start)
+        if len(round_s) == 1:
+            for rid, prompt, new in requests[16:]:
+                decoder.submit(rid, prompt, new, keep)
+        if decoder.idle:
+            break
+        if len(round_s) > 500:
+            raise AssertionError("the decoder did not drain in 500 rounds")
+    torch.cuda.synchronize()
+    return done, time.perf_counter() - start, round_s
+
+
+def check_served(done, requests, vocab: int, label: str) -> int:
+    budgets = {rid: new for rid, _, new in requests}
+    if sorted(done) != sorted(budgets):
+        raise AssertionError(f"{label}: {len(done)} of {len(budgets)} "
+                             f"completed")
+    for rid, tokens in done.items():
+        if len(tokens) != budgets[rid] or \
+                not all(0 <= t < vocab for t in tokens):
+            raise AssertionError(f"{label} request {rid}: {len(tokens)} "
+                                 f"tokens of {budgets[rid]}")
+    return sum(len(tokens) for tokens in done.values())
+
+
+def card_against_cpu(options: dict, seed: int, label: str,
+                     decoder_kwargs: dict | None = None) -> dict:
+    """The decoder with `options` at full width and 2 layers in f32 on
+    the card against the same decoder on the CPU (the kernels' plain
+    versions) on the same weights: 4 requests of 24 new tokens; a first
+    mismatch passes only at a CPU top-2 logit gap under 1e-4."""
+    import copy
+
+    import numpy as np
+
+    from aiko_services_tpu_torch.models.llama import LLAMA_PRESETS, llama_init
+    from aiko_services_tpu_torch.serving import ContinuousDecoder
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config = dataclasses.replace(LLAMA_PRESETS["1b"], num_layers=2,
+                                 dtype=torch.float32, max_seq_len=1024)
+    params = llama_init(torch.Generator(device="cuda").manual_seed(seed),
+                        config)
+    cpu_params = copy.deepcopy(params).cpu()
+    rng = np.random.default_rng(seed)
+    prompts = {f"q{n}": rng.integers(0, config.vocab, n).tolist()
+               for n in (20, 57, 100, 128)}
+    max_new = 24
+    kwargs = {**(decoder_kwargs or LLAMA_DECODER), "max_slots": 4,
+              **options}
+    runs = {}
+    for device, weights in (("cuda", params), ("cpu", cpu_params)):
+        decoder = ContinuousDecoder(weights, config, device=device, **kwargs)
+        gaps = LogitGaps(decoder) if device == "cpu" else None
+        done = {}
+        try:
+            with torch.inference_mode():
+                for rid, prompt in prompts.items():
+                    decoder.submit(rid, prompt, max_new,
+                                   lambda r, t: done.update({r: list(t)}))
+                requests = list(decoder._pending)
+                while not decoder.idle:
+                    decoder.pump()
+        finally:
+            if gaps is not None:
+                gaps.close()
+        cpu_gaps = {r.request_id: gaps.by_slot[r.slot] for r in requests} \
+            if gaps is not None else None
+        runs[device] = (done, cpu_gaps, decoder._param_bytes)
+    got, _, param_bytes = runs["cuda"]
+    ref, cpu_gaps, _ = runs["cpu"]
+    ties, identical = [], 0
+    for rid in prompts:
+        if len(got[rid]) != max_new or len(ref[rid]) != max_new:
+            raise AssertionError(f"{label} request {rid}: {len(got[rid])} "
+                                 f"/ {len(ref[rid])} tokens of {max_new}")
+        mismatch = next((i for i, (a, b) in enumerate(zip(got[rid],
+                                                          ref[rid]))
+                         if a != b), None)
+        if mismatch is None:
+            identical += 1
+            continue
+        gap = cpu_gaps[rid][mismatch][1]
+        if gap >= 1e-4:
+            raise AssertionError(
+                f"{label} request {rid}: card token {got[rid][mismatch]} "
+                f"!= CPU {ref[rid][mismatch]} at step {mismatch}, CPU "
+                f"top-2 gap {gap}")
+        ties.append({"request": rid, "step": mismatch, "gap": gap})
+    return {"requests": len(prompts), "identical": identical, "ties": ties,
+            "param_bytes_f32_2_layers": param_bytes,
+            "min_cpu_gap": min(g for rid in prompts
+                               for _, g in cpu_gaps[rid])}
+
+
+def phase_llama_wq() -> dict:
+    """The llama phase's traffic through its paged decoder with
+    weight_quant, then with fuse_projections (bf16, full width): every
+    request completes, the paged kernel launches 16 x LLAMA_WQ_STEPS
+    each; tokens/s, the decoder's parameter bytes (JAX's _param_bytes
+    rule: every weight but the embedding, the fused copy once), peak
+    memory.  Then both at 2 layers in f32 on the card against the CPU.
+    Returns the decode launches of both runs."""
+    import numpy as np
+
+    from aiko_services_tpu_torch.models.llama import LLAMA_PRESETS, llama_init
+    from aiko_services_tpu_torch.ops import paged_attention as P
+    from aiko_services_tpu_torch.serving import ContinuousDecoder
+
+    config = dataclasses.replace(LLAMA_PRESETS["1b"], dtype=torch.bfloat16,
+                                 max_seq_len=1024)
+    check_1b(config)
+    params = llama_init(torch.Generator(device="cuda").manual_seed(0),
+                        config)
+    requests = llama_traffic(np.random.default_rng(0), config.vocab)
+    plain_bytes = ContinuousDecoder(params, config, **{
+        **LLAMA_DECODER, "max_slots": 1})._param_bytes
+    records, total = {}, 0
+    for name, options in (("weight_quant", {"weight_quant": True}),
+                          ("fuse_projections", {"fuse_projections": True})):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        decoder = ContinuousDecoder(params, config, **LLAMA_DECODER,
+                                    **options)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - start
+        # the main path's run: counts set to 0 just before, read after
+        for key in P.launches:
+            P.launches[key] = 0
+        done, wall, round_s = serve_llama_traffic(decoder, requests)
+        launches = dict(P.launches)
+        generated = check_served(done, requests, config.vocab, name)
+        steps = decoder.stats["steps"]
+        if steps != LLAMA_WQ_STEPS or launches["paged_decode_attention"] \
+                != config.num_layers * steps or decoder.pool.used_blocks():
+            raise AssertionError(f"{name}: {steps} decode steps, launches "
+                                 f"{launches}, {decoder.pool.used_blocks()}"
+                                 f" blocks owned")
+        total += launches["paged_decode_attention"]
+        records[name] = {
+            "tokens": generated, "setup_s": setup_s, "wall_s": wall,
+            "tokens_per_s": generated / wall, "rounds": len(round_s),
+            "steady_round_s": statistics.median(round_s[2:]),
+            "steps": steps, "paged_launches":
+                launches["paged_decode_attention"],
+            "param_bytes": decoder._param_bytes,
+            "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "sample_tokens": done["r0"][:6]}
+        del decoder
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    f32 = {name: card_against_cpu(options, 6, name) for name, options in (
+        ("weight_quant", {"weight_quant": True}),
+        ("fuse_projections", {"fuse_projections": True}))}
+    record = {"phase": "llama_wq", "requests": len(requests),
+              "param_bytes_bf16": plain_bytes, **records, "f32": f32}
+    emit(record)
+    return {"decode": total}
+
+
+def phase_llama_select() -> dict:
+    """The dense decoder in the select KV write (AIKO_DECODE_KV=select):
+    the llama phase's traffic at full width in bf16 with the two_pass
+    inner loop (tokens/s, no paged launch); then, at 2 layers in f32,
+    each inner loop (two_pass, online, vpu) and the block write against
+    llama_greedy_decode, and each select run against the block run."""
+    import numpy as np
+
+    from aiko_services_tpu_torch.models.llama import LLAMA_PRESETS, llama_init
+    from aiko_services_tpu_torch.ops import paged_attention as P
+    from aiko_services_tpu_torch.serving import ContinuousDecoder
+
+    saved = {key: os.environ.get(key) for key in ("AIKO_DECODE_KV",
+                                                  "AIKO_DECODE_ATTENTION")}
+    try:
+        config = dataclasses.replace(LLAMA_PRESETS["1b"],
+                                     dtype=torch.bfloat16, max_seq_len=1024)
+        check_1b(config)
+        params = llama_init(torch.Generator(device="cuda").manual_seed(0),
+                            config)
+        os.environ["AIKO_DECODE_KV"] = "select"
+        os.environ["AIKO_DECODE_ATTENTION"] = "two_pass"
+        decoder = ContinuousDecoder(params, config, **{**LLAMA_DECODER,
+                                                       "paged_kv": False})
+        requests = llama_traffic(np.random.default_rng(0), config.vocab)
+        for key in P.launches:
+            P.launches[key] = 0
+        done, wall, round_s = serve_llama_traffic(decoder, requests)
+        if any(P.launches.values()):
+            raise AssertionError(f"select launched {P.launches}")
+        generated = check_served(done, requests, config.vocab, "select")
+        full = {"tokens": generated, "wall_s": wall,
+                "tokens_per_s": generated / wall, "rounds": len(round_s),
+                "steady_round_s": statistics.median(round_s[2:]),
+                "steps": decoder.stats["steps"],
+                "kv_cache_bytes": decoder.kv_cache_bytes()}
+        del decoder, params
+        torch.cuda.empty_cache()
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        small = dataclasses.replace(LLAMA_PRESETS["1b"], num_layers=2,
+                                    dtype=torch.float32, max_seq_len=1024)
+        params = llama_init(torch.Generator(device="cuda").manual_seed(7),
+                            small)
+        rng = np.random.default_rng(7)
+        prompts = {f"s{n}": rng.integers(0, small.vocab, n).tolist()
+                   for n in (20, 57, 100, 128)}
+        runs = {}
+        for kv_write, impl in (("block", "two_pass"),) + tuple(
+                ("select", impl) for impl in SELECT_IMPLS):
+            os.environ["AIKO_DECODE_KV"] = kv_write
+            os.environ["AIKO_DECODE_ATTENTION"] = impl
+            decoder = ContinuousDecoder(params, small, **{
+                **LLAMA_DECODER, "paged_kv": False, "max_slots": 4})
+            got = {}
+            for rid, prompt in prompts.items():
+                decoder.submit(rid, prompt, 24,
+                               lambda r, t: got.update({r: list(t)}))
+            while not decoder.idle:
+                decoder.pump()
+            runs[f"{kv_write}_{impl}"] = got
+        checks = {}
+        for label, got in runs.items():
+            ties, identical, same_as_block = [], 0, 0
+            for rid, prompt in prompts.items():
+                tie = greedy_check(params, small, prompt, got[rid],
+                                   f"{label} {rid}")
+                identical += tie is None
+                if tie is not None:
+                    ties.append(tie)
+                same_as_block += got[rid] == runs["block_two_pass"][rid]
+            checks[label] = {"identical": identical, "ties": ties,
+                             "equal_to_block": same_as_block}
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    record = {"phase": "llama_select", "full_width_two_pass": full,
+              "f32": checks}
+    emit(record)
+    return record
+
+
+def chaos_traffic(rng, vocab: int) -> tuple:
+    """(the llama traffic with the tenants alternating, 4 later requests
+    of fresh 16-128-token prompts and 48 new tokens): [(id, prompt, new,
+    tenant)] each."""
+    traffic = [(rid, prompt, new, CHAOS_TENANTS[i % 2])
+               for i, (rid, prompt, new) in enumerate(
+                   llama_traffic(rng, vocab))]
+    later = [(f"late{i}", rng.integers(0, vocab, int(rng.integers(
+        16, 129))).tolist(), 48, CHAOS_TENANTS[i % 2]) for i in range(4)]
+    return traffic, later
+
+
+def chaos_drive(config, params, device, traffic: list, later: list,
+                faults: bool, preempt_round: int = CHAOS_PREEMPT_ROUND) -> dict:
+    """Serve `traffic` [(id, prompt, new, tenant)] through a ChaosDecoder
+    around the prefix-cached paged decoder (CHAOS_DECODER), the first 16
+    at once and the rest after the first round, then `later`'s 4
+    requests, two at a time once the decoder is idle.  With `faults`: a
+    preemption at `preempt_round`; under the first pair, the free
+    list held dry and a pool-growth refusal armed for
+    CHAOS_REFUSAL_ROUNDS rounds; under the second, a hung round (the
+    injected clock stamps its end CHAOS_HANG_S late).  Each fault drains
+    (deadline 0), the evacuated requests are resubmitted from prompt +
+    generated after resume, and a request's tokens are its partial
+    generation plus its continuation.  Returns the run's record."""
+    from aiko_services_tpu_torch.serving import (ContinuousDecoder,
+                                                 PrefixKVCache)
+    from aiko_services_tpu_torch.serving_chaos import ChaosDecoder
+
+    cache = PrefixKVCache(block_tokens=CHAOS_DECODER["kv_block"],
+                          max_bytes=512 << 20, name=f"chaos_{device}")
+    decoder = ContinuousDecoder(params, config, device=device,
+                                prefix_cache=cache, name=f"chaos_{device}",
+                                **CHAOS_DECODER)
+    hang = {"armed": False, "calls": 0}
+
+    def clock():
+        # armed, the second stamp (a round's end) comes CHAOS_HANG_S late
+        if hang["armed"]:
+            hang["calls"] += 1
+            if hang["calls"] == 2:
+                hang["armed"] = False
+                return time.perf_counter() + CHAOS_HANG_S
+        return time.perf_counter()
+
+    chaos = ChaosDecoder(decoder, name=f"smoke_{device}", clock=clock,
+                         drain_deadline=0.0)
+    kinds, evacuated = [], []
+    chaos.on_alert.append(lambda kind, detail: kinds.append(kind))
+    chaos.on_evacuate = evacuated.append
+    done, partial, budgets, tenants = {}, {}, {}, {}
+    submissions = [0]
+
+    def submit(rid, prompt, new, tenant):
+        budgets.setdefault(rid, new)
+        tenants[rid] = tenant
+        submissions[0] += 1
+
+        def keep(_request_id, tokens, rid=rid):
+            done[rid] = partial.get(rid, []) + list(tokens)
+        decoder.submit(f"{rid}.{submissions[0]}", prompt, new, keep,
+                       tenant=tenant)
+
+    def resubmit():
+        """After a drain: resume and resubmit every evacuated request."""
+        chaos.disarm()
+        decoder.resume()
+        for descriptor in evacuated:
+            rid = descriptor["request_id"].rsplit(".", 1)[0]
+            generated = list(descriptor["generated"])
+            partial[rid] = partial.get(rid, []) + generated
+            submit(rid, list(descriptor["prompt"]) + generated,
+                   descriptor["max_new_tokens"] - len(generated),
+                   tenants[rid])
+        evacuated.clear()
+
+    def pump_until(predicate, limit=600):
+        for _ in range(limit):
+            if predicate():
+                return
+            chaos.pump()
+        raise AssertionError("the chaos drive did not settle")
+
+    if faults:
+        chaos.arm_preemption(preempt_round)
+    for request in traffic[:16]:
+        submit(*request)
+    chaos.pump()
+    for request in traffic[16:]:
+        submit(*request)
+    pump_until(lambda: decoder.drained or decoder.idle)
+    if faults:
+        resubmit()
+        pump_until(lambda: decoder.idle)
+        pool = decoder.pool
+        held = pool.alloc_blocks(len(pool._free))       # the free list dry
+        chaos.arm_alloc_refusal(CHAOS_REFUSAL_ROUNDS)
+    for request in later[:2]:
+        submit(*request)
+    pump_until(lambda: decoder.drained or decoder.idle)
+    if faults:
+        pool.release_blocks(held)
+        resubmit()
+        pump_until(lambda: decoder.idle)
+        chaos.arm_hung_scan(CHAOS_HANG_THRESHOLD_S)
+    for request in later[2:]:
+        submit(*request)
+    chaos.pump()                           # admits
+    chaos.pump()                           # decoding
+    if faults:
+        hang["armed"] = True               # this round "hangs"
+    pump_until(lambda: decoder.drained or decoder.idle)
+    if faults:
+        resubmit()
+        pump_until(lambda: decoder.idle)
+    torch.cuda.synchronize()
+    outcomes = collections.Counter(journey.outcome for journey in
+                                   decoder.journeys.journeys())
+    sketches = {tenant: decoder.slo_sketch_stats(tenant=tenant)
+                for tenant in CHAOS_TENANTS}
+    record = {"done": done, "budgets": budgets, "kinds": kinds,
+              "chaos": dict(chaos.stats), "submissions": submissions[0],
+              "journeys": len(decoder.journeys.journeys()),
+              "outcomes": dict(outcomes),
+              "ttft_p50_ms": {tenant: sketch["ttft_p50_ms"]
+                              for tenant, sketch in sketches.items()},
+              "stats": {key: decoder.stats[key] for key in (
+                  "drain_evacuated", "drain_checkpoints", "drain_refused",
+                  "steps", "prefix_admits", "completed", "prefill_chunks")},
+              "pool_blocks_used": decoder.pool.used_blocks()}
+    cache.purge(demote=False)
+    record["pool_blocks_after_purge"] = decoder.pool.used_blocks()
+    return record
+
+
+def phase_decoder_chaos() -> dict:
+    """ChaosDecoder around the prefix-cached paged Llama-1B decoder
+    (bf16): preemption, pool-growth refusal and a hung scan, each drained
+    with a checkpoint and resumed (chaos_drive).  Every request completes
+    with its budget, the evacuated and checkpointed counts are the
+    rehearsal's, the flight recorder holds one record per injected fault,
+    one journey per submission, a TTFT p50 per tenant; then at 2 layers
+    in f32 the faulted run's tokens against the same drive without
+    faults.  Returns the paged launches by path."""
+    import logging
+
+    import numpy as np
+
+    from aiko_services_tpu_torch.models.llama import LLAMA_PRESETS, llama_init
+    from aiko_services_tpu_torch.observe import flight
+    from aiko_services_tpu_torch.ops import paged_attention as P
+
+    config = dataclasses.replace(LLAMA_PRESETS["1b"], dtype=torch.bfloat16,
+                                 max_seq_len=1024)
+    check_1b(config)
+    params = llama_init(torch.Generator(device="cuda").manual_seed(0),
+                        config)
+    traffic, later = chaos_traffic(np.random.default_rng(0),
+                                   config.vocab)
+    recorder = flight.FlightRecorder(name="decoder_chaos")
+    handler = flight.FlightLogHandler()
+    logging.getLogger("serving.chaos").addHandler(handler)
+    extends = [0, 0]
+    from aiko_services_tpu_torch.serving import ContinuousDecoder
+    extend_group = ContinuousDecoder._extend_group
+
+    def counted(decoder, *args, **kwargs):
+        before = sum(P.launches.values())
+        extends[0] += 1
+        extend_group(decoder, *args, **kwargs)
+        extends[1] += sum(P.launches.values()) - before
+
+    ContinuousDecoder._extend_group = counted
+    try:
+        for key in P.launches:
+            P.launches[key] = 0
+        start = time.perf_counter()
+        run = chaos_drive(config, params, "cuda", traffic, later,
+                          faults=True)
+        wall = time.perf_counter() - start
+        launches = dict(P.launches)
+    finally:
+        ContinuousDecoder._extend_group = extend_group
+        logging.getLogger("serving.chaos").removeHandler(handler)
+        recorder.close()
+    faults = [log for log in recorder.logs if "fault at round" in log[3]]
+    for rid, budget in run["budgets"].items():
+        tokens = run["done"].get(rid)
+        if tokens is None or len(tokens) != budget:
+            raise AssertionError(f"chaos request {rid}: "
+                                 f"{None if tokens is None else len(tokens)}"
+                                 f" tokens of {budget}")
+    stats = run["stats"]
+    measured = {"decode": launches["paged_decode_attention"] - extends[1],
+                "extend": extends[1]}
+    expected = {"decode": config.num_layers * CHAOS_DECODE_STEPS,
+                "extend": config.num_layers * CHAOS_EXTEND_DISPATCHES}
+    predicted = {"evacuated": CHAOS_EVACUATED,
+                 "checkpoints": CHAOS_CHECKPOINTS}
+    got = {"evacuated": stats["drain_evacuated"],
+           "checkpoints": stats["drain_checkpoints"]}
+    if run["kinds"] != ["preemption", "pool_refusal", "hung_scan"] or \
+            len(faults) != 3 or got != predicted or measured != expected \
+            or stats["steps"] != CHAOS_DECODE_STEPS or \
+            extends[0] != CHAOS_EXTEND_DISPATCHES or \
+            run["journeys"] != run["submissions"] or \
+            None in run["ttft_p50_ms"].values() or \
+            run["pool_blocks_after_purge"]:
+        raise AssertionError(
+            f"decoder_chaos: faults {run['kinds']} ({len(faults)} flight "
+            f"records), {got} (predicted {predicted}), launches {measured} "
+            f"(predicted {expected}), {stats['steps']} steps, "
+            f"{extends[0]} extends, {run['journeys']} journeys of "
+            f"{run['submissions']} submissions, ttft {run['ttft_p50_ms']}, "
+            f"{run['pool_blocks_after_purge']} blocks after purge")
+    del params
+    torch.cuda.empty_cache()
+
+    # f32 at 2 layers: the faulted drive against the same drive unfaulted
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    small = dataclasses.replace(LLAMA_PRESETS["1b"], num_layers=2,
+                                dtype=torch.float32, max_seq_len=1024)
+    params = llama_init(torch.Generator(device="cuda").manual_seed(8),
+                        small)
+    rng = np.random.default_rng(8)
+    requests_f32 = [(f"f{i}", rng.integers(0, small.vocab, n).tolist(), 48,
+                     CHAOS_TENANTS[i % 2])
+                    for i, n in enumerate((20, 57, 100, 128, 33, 90, 64,
+                                           120, 41, 77))]
+    traffic_f32, later_f32 = requests_f32[:6], requests_f32[6:]
+    # preempted at round 3: the first 16 decode steps ran, every stream
+    # checkpoints mid-generation
+    faulted = chaos_drive(small, params, "cuda", traffic_f32, later_f32,
+                          faults=True, preempt_round=3)
+    clean = chaos_drive(small, params, "cuda", traffic_f32, later_f32,
+                        faults=False)
+    ties, identical = [], 0
+    for rid, prompt, new, _ in requests_f32:
+        got_tokens, want = faulted["done"][rid], clean["done"][rid]
+        if got_tokens == want:
+            identical += 1
+            continue
+        tie = greedy_check(params, small, prompt, got_tokens, f"resumed {rid}")
+        if tie is None:
+            tie = greedy_check(params, small, prompt, want, f"clean {rid}")
+        if tie is None:
+            raise AssertionError(f"chaos f32 {rid}: resumed {got_tokens} "
+                                 f"!= unpreempted {want}")
+        ties.append(tie)
+    record = {"phase": "decoder_chaos", "requests": len(run["budgets"]),
+              "submissions": run["submissions"], "faults": run["kinds"],
+              "flight_fault_records": len(faults), "chaos": run["chaos"],
+              "evacuated": got["evacuated"],
+              "checkpoints": got["checkpoints"],
+              "journeys": run["journeys"], "outcomes": run["outcomes"],
+              "ttft_p50_ms": run["ttft_p50_ms"],
+              "decode_steps": stats["steps"], "extend_dispatches": extends[0],
+              "paged_launches": measured, "paged_launches_expected": expected,
+              "prefix_admits": stats["prefix_admits"], "wall_s": wall,
+              "f32": {"requests": len(requests_f32), "identical": identical,
+                      "ties": ties,
+                      "checkpoints": faulted["stats"]["drain_checkpoints"],
+                      "evacuated": faulted["stats"]["drain_evacuated"]}}
+    emit(record)
+    return measured
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4788,6 +5764,15 @@ def main() -> int:
     phase_media()
     counts[("paged_decode_attention", "decode")] += phase_llama_moe()
     phase_llama_moe_f32()
+    tiered = phase_agent_tiered()
+    phase_agent_tiered_f32()
+    quantized = phase_llama_wq()
+    phase_llama_select()
+    chaos = phase_decoder_chaos()
+    for run in (tiered, quantized, chaos):
+        counts[("paged_decode_attention", "decode")] += run["decode"]
+        counts[("paged_decode_attention", "extend_512")] += \
+            run.get("extend", 0)
     earlier = {phase: phase_counts[phase]["flash_attention"] for phase in
                ("slice", "pipeline", "remote_pipeline", "peer_pipeline",
                 "peer_chaos")}
@@ -4796,7 +5781,10 @@ def main() -> int:
                     "int8_fold":
                         int8_counts["paged_decode_attention_int8_fold"],
                     "int8_dequant":
-                        int8_counts["paged_decode_attention_int8_dequant"]})
+                        int8_counts["paged_decode_attention_int8_dequant"],
+                    "agent_tiered": tiered["decode"] + tiered["extend"],
+                    "llama_wq": quantized["decode"],
+                    "decoder_chaos": chaos["decode"] + chaos["extend"]})
     if earlier != EARLIER_COUNTS:
         raise AssertionError(f"earlier phases' counts {earlier} != "
                              f"{EARLIER_COUNTS}")

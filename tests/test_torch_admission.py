@@ -204,15 +204,6 @@ def test_deadline_router_call_for_call():
     assert port[0][2] == "a" and port[0][-1] is None
 
 
-@pytest.mark.parametrize("call", [
-    lambda gate: gate.set_byte_policy(object(), budget_bytes=1),
-    lambda gate: gate.shed_on_bytes("acme")])
-def test_decoder_and_ledger_verdicts_raise_naming_their_item(call):
-    gate = TA.AdmissionGate(registry=TMetrics.MetricsRegistry())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3\\)"):
-        call(gate)
-
-
 # -- a serving pipeline behind a gate ----------------------------------------
 
 def _shed_early_script(package):

@@ -222,9 +222,8 @@ def test_continuous_mode_defaults_to_the_dense_decoder(same_weights):
 
 
 @pytest.mark.parametrize("parameters,match", [
-    ({**CONTINUOUS, "host_kv_mb": 8}, "Queue 1 item 4\\)"),
-    ({**CONTINUOUS, "disagg": True}, "Queue 1 item 4\\)"),
-    ({**CONTINUOUS, "role": "decode"}, "Queue 1 item 4\\)"),
+    ({**CONTINUOUS, "disagg": True}, "Queue 1 item 3\\)"),
+    ({**CONTINUOUS, "role": "decode"}, "Queue 1 item 3\\)"),
 ])
 def test_left_out_options_raise_naming_their_item(same_weights, parameters,
                                                   match):

@@ -186,10 +186,13 @@ def test_chunked_options_are_checked(weights):
     with pytest.raises(ValueError, match="kv_cache_dtype must be"):
         ContinuousDecoder(model, T_CONFIG, paged_kv=True, device="cpu",
                           kv_cache_dtype="fp8")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        ContinuousDecoder(model, T_CONFIG, paged_kv=True, device="cpu",
-                          kv_cache_dtype="int8", prefill_chunk=16,
-                          weight_quant=True)
+    # int8 pools, chunked prefill and int8 weights compose
+    # (tests/test_torch_decoder_variants.py holds their tokens against JAX)
+    quantized = ContinuousDecoder(model, T_CONFIG, paged_kv=True,
+                                  device="cpu", kv_cache_dtype="int8",
+                                  prefill_chunk=16, weight_quant=True)
+    assert quantized.weight_quant and quantized.kv_int8
+    assert quantized.params["lm_head"]["w8"].dtype == torch.int8
     # speculation composes with int8 pools and chunked prefill
     # (tests/test_torch_speculative_paged.py holds its tokens against JAX)
     spec = ContinuousDecoder(model, T_CONFIG, paged_kv=True, device="cpu",

@@ -130,8 +130,20 @@ def test_budgets_and_stop_leave_no_timer():
     table.stop()
     assert not any(getattr(h, "__self__", None) is table
                    for h in engine.live_timer_handlers())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3\\)"):
-        table.attach_ledger(object())
+    # a KV memory ledger counts the table's lease pins and demotions
+    from aiko_services_tpu_torch.observe.ledger import KVMemoryLedger
+    engine, runtime, service, sessions = _runtime("torch", "ledgered")
+    table = sessions.SessionTable(
+        service, num_shards=2, lease_time=5.0,
+        default_budget=sessions.TenantBudget(max_bytes=8))
+    ledger = KVMemoryLedger(name="sessions")
+    table.attach_ledger(ledger)
+    assert table.create("t", "a", {"history": [1, 2, 3, 4]})
+    assert ledger.stats["lease_pin"] == 1
+    assert table.create("t", "b", {"history": [5, 6, 7, 8, 9]})
+    assert ledger.stats["lease_pin"] == 2
+    assert ledger.stats["lease_demote"] == table.stats["demoted"] >= 1
+    table.stop()
 
 
 @pytest.mark.parametrize("package", ["jax", "torch"])

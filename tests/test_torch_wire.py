@@ -287,7 +287,7 @@ def test_later_items_raise_not_implemented_naming_them():
                   TW.encode_kv_batch, TW.decode_kv_batch,
                   TW.encode_kv_migrate, TW.encode_kv_migrate_reply):
         with pytest.raises(NotImplementedError,
-                           match="Queue 1 item 4\\)"):
+                           match="Queue 1 item 3\\)"):
             entry("x")
     assert TW.codec_legal("dct8", "uint8", 3) == \
         JW.codec_legal("dct8", "uint8", 3)
