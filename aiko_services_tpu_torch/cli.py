@@ -29,9 +29,9 @@ import sys
 __all__ = ["main", "CliError", "parse_element_flags", "build_pipeline"]
 
 DASHBOARD_NOT_PORTED = ("the dashboard is not ported yet "
-                        "(ROADMAP.md Queue 1 item 8)")
+                        "(ROADMAP.md Queue 1 item 7)")
 MESH_NOT_PORTED = ("--mesh (a device mesh for the ComputeRuntime) is not "
-                   "ported yet (ROADMAP.md Queue 1 item 4)")
+                   "ported yet (ROADMAP.md Queue 1 item 3)")
 _DEFAULT_STATE_FILE = "~/.aiko_tpu_system.json"
 _CHILD_MODULE = "aiko_services_tpu_torch"
 

@@ -42,7 +42,7 @@ __all__ = ["ComputeRuntime", "CompiledProgram", "PROTOCOL_COMPUTE",
 PROTOCOL_COMPUTE = ServiceProtocol("compute")
 MESH_RULES_NOT_PORTED = ("sharding rules for a device mesh (place_params "
                          "rules) are not ported yet (ROADMAP.md Queue 1 "
-                         "item 4)")
+                         "item 3)")
 
 
 def resolve_pipelined(pipelined, mode: str) -> bool:

@@ -32,11 +32,6 @@ from .speech import _host_to
 
 __all__ = ["PE_Detect", "PE_LlamaAgent"]
 
-DISAGG_NOT_PORTED = ("disaggregated prefill (disagg) and serving roles "
-                     "(role) are not ported yet (ROADMAP.md Queue 1 "
-                     "item 3)")
-
-
 def _session_key(raw: str) -> str:
     """SessionTable keys may not contain '.', '/', or spaces; stream /
     frame ids may (stream ids embed topic-ish paths).  Deterministic
@@ -223,8 +218,12 @@ class PE_LlamaAgent(PipelineElement):
     host_kv_mb > 0 backs the prefix cache with a host KV tier of that
     many MiB (host_kv_tenant_mb: a per-tenant cap): session demotion and
     LRU pressure demote chain blocks to pinned host memory, and a
-    revived session's chain is prefetched back at its turn.  disagg and
-    a non-empty role raise naming ROADMAP.md Queue 1 item 3.  Weights are random, drawn from a torch.Generator
+    revived session's chain is prefetched back at its turn.  role
+    (default "") tags the owning pipeline's discovery record role=<role>;
+    disagg true (with a prefix cache or paged true) routes prompts
+    through a PrefillClient to a discovered role=prefill runtime, with
+    disagg_timeout 5.0 and disagg_retries 1, falling back to local
+    prefill, counted.  Weights are random, drawn from a torch.Generator
     seeded 0 on the ComputeRuntime's device."""
 
     contracts = {"in:text": "str", "out:response": "str",
@@ -238,6 +237,7 @@ class PE_LlamaAgent(PipelineElement):
         self.prefix_cache = None
         self._session_table = None
         self._session_view = None
+        self._prefill_client = None
         self.tokenizer = lambda text: [b % 250 for b in
                                        text.encode("utf-8")][:120]
         self.detokenizer = lambda tokens: " ".join(str(t) for t in tokens)
@@ -326,10 +326,13 @@ class PE_LlamaAgent(PipelineElement):
         requests join and leave the running batch between decode steps
         (serving.ContinuousDecoder)."""
         from ..serving import ContinuousDecoder, PrefixKVCache
+        # the serving role tags the owning pipeline's discovery record,
+        # so role-aware discovery and routing tell prefill, decode and
+        # colocated pools apart
         role, _ = self.get_parameter("role", "")
-        disagg, _ = self.get_parameter("disagg", False)
-        if role or parse_bool(disagg, False):
-            raise NotImplementedError(DISAGG_NOT_PORTED)
+        if role and self.pipeline is not None:
+            from ..serving_disagg import tag_role
+            tag_role(self.pipeline, str(role))
         steps_per_sync, _ = self.get_parameter("steps_per_sync", 4)
         eos_token, _ = self.get_parameter("eos_token", -1)
         # prefix_block > 0 binds a hash-addressed prefix cache, so shared
@@ -400,6 +403,25 @@ class PE_LlamaAgent(PipelineElement):
             if str(mirror or ""):
                 self._session_view = SessionView(
                     self.runtime, str(mirror), int(session_shards))
+        # disaggregated serving: a role=prefill runtime computes the
+        # prompt KV and ships it; this decoder prefills only the ragged
+        # suffix.  The chain lands in the prefix cache, or (cacheless,
+        # paged) straight in the pool; without a pool the client
+        # prefills locally, never dropping a request
+        self._prefill_client = None
+        disagg, _ = self.get_parameter("disagg", False)
+        if parse_bool(disagg, False) and \
+                (self.prefix_cache is not None or self.decoder.paged):
+            from ..serving_disagg import PrefillClient
+            transfer_timeout, _ = self.get_parameter("disagg_timeout", 5.0)
+            disagg_retries, _ = self.get_parameter("disagg_retries", 1)
+            self._prefill_client = PrefillClient(
+                self.runtime, self.decoder,
+                services_cache=getattr(self.pipeline, "_services_cache",
+                                       None),
+                name=self.definition.name,
+                transfer_timeout=float(transfer_timeout),
+                retries=int(disagg_retries))
 
     def start_stream(self, stream) -> None:
         self._setup()
@@ -432,6 +454,9 @@ class PE_LlamaAgent(PipelineElement):
         if self._stats_timer is not None:
             self.runtime.event.remove_timer_handler(self._stats_timer)
             self._stats_timer = None
+        if self._prefill_client is not None:
+            self._prefill_client.stop()
+            self._prefill_client = None
         if self._session_view is not None:
             self._session_view.terminate()
             self._session_view = None
@@ -539,10 +564,24 @@ class PE_LlamaAgent(PipelineElement):
             remaining = context.remaining(self.runtime.event.clock.now())
             if remaining is not None:
                 deadline = time.monotonic() + max(0.0, remaining)
-        accepted = self.decoder.submit(
-            f"{frame.stream_id}.{frame.frame_id}", tokens, self.max_tokens,
-            on_done, deadline=deadline,
-            tenant=tenant if self.prefix_cache is not None else None)
+        request_id = f"{frame.stream_id}.{frame.frame_id}"
+        if self._prefill_client is not None:
+            # the transfer is asynchronous: a decoder refusal after the
+            # KV landed fails the parked frame through resume_frame
+            def on_refused(_rid):
+                self.pipeline.post(
+                    "resume_frame", frame, self.definition.name,
+                    RuntimeError("decoder admission shed after prefill "
+                                 "transfer: estimated admit wait outruns "
+                                 "the remaining deadline budget"))
+            accepted = self._prefill_client.submit(
+                request_id, tokens, self.max_tokens, on_done,
+                deadline=deadline, tenant=tenant, on_refused=on_refused)
+        else:
+            accepted = self.decoder.submit(
+                request_id, tokens, self.max_tokens, on_done,
+                deadline=deadline,
+                tenant=tenant if self.prefix_cache is not None else None)
         if not accepted:
             return FrameOutput(False, diagnostic=(
                 "decoder admission shed: estimated admit wait outruns "

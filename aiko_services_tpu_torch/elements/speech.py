@@ -41,7 +41,7 @@ __all__ = [
 
 SAMPLE_RATE = 16000         # voice rate (reference: audio_io.py:224-228)
 PP_STAGES_NOT_PORTED = ("pp_stages is not ported yet "
-                        "(ROADMAP.md Queue 1 item 4)")
+                        "(ROADMAP.md Queue 1 item 3)")
 
 
 def compression_ratio(text: str) -> float:

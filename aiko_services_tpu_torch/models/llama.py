@@ -7,7 +7,7 @@
 # joined by '.' (layers.3.attn.q.w ↔ layers/3/attn/q/w, layers.3.moe.w_in
 # ↔ layers/3/moe/w_in), so bridge.py copies a JAX tree in by name.  The
 # sequence-parallel forward is not ported yet (ROADMAP.md Queue 1 item
-# 5).
+# 3).
 
 from __future__ import annotations
 

@@ -10,7 +10,7 @@
 #
 # The topic names and the retained-JSON decode are the port's own copies
 # of the few names it needs from aiko_services_tpu/observe/export.py and
-# observe/series.py, which wait for ROADMAP.md Queue 1 item 7.
+# observe/series.py, which wait for ROADMAP.md Queue 1 item 6.
 
 from __future__ import annotations
 

@@ -28,9 +28,11 @@
 # (attach), sheds requests whose deadline its admit-wait estimate cannot
 # meet, bills cache traffic to tenants, keeps a journey and mergeable
 # TTFT / ITL sketches per request, reports its KV bytes to a ledger
-# (attach_ledger), and drains gracefully (drain, resume).  The
-# disaggregated prefill options raise NotImplementedError naming the
-# ROADMAP.md item that brings them.
+# (attach_ledger), and drains gracefully (drain, resume).  For
+# disaggregated serving (serving_disagg.py) a cache installs shipped
+# chain blocks (install_chain), a cacheless paged decoder takes them
+# straight into its pool (install_shipped_blocks, submit's kv_blocks),
+# and a progress callback sees each prefill chunk land.
 #
 # From JAX to PyTorch: the programs run eagerly and update the caches,
 # pools, context buffer and token and length vectors IN PLACE; a lax.scan
@@ -63,11 +65,6 @@ from .serving_paged import (BlockPool, _build_paged_spec_step,
 __all__ = ["ContinuousDecoder", "DecodeRequest", "PrefixKVCache",
            "prefix_chain_keys", "check_block_geometry",
            "measure_device_step"]
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
 
 
 def _to_device(device: torch.device, *arrays) -> list:
@@ -191,6 +188,16 @@ class DecodeRequest:
     dedup_wait: str = ""
     dedup_hot: bool = False
     inflight_key: str = ""
+    # the TTFT / journey population override ("" derives cached / cold
+    # from prefix_hit; a disaggregated client stamps "remote")
+    prefill_label: str = ""
+    # pool block ids a disaggregated client installed for this request
+    # on a cacheless paged decoder (install_shipped_blocks): admit
+    # aliases them into the slot's table, ownership passing to the slot
+    kv_block_ids: list = dataclasses.field(default_factory=list)
+    # progress_callback(request, finished) after each prefill chunk
+    # advances prefill_pos (a prefill runtime ships the chunk's blocks)
+    progress_callback: object = None
 
 
 def prefix_chain_keys(tenant: str, tokens, block_tokens: int) -> list:
@@ -243,6 +250,96 @@ def check_block_geometry(layout, block_tokens: int, entry) -> None:
                 raise ValueError(
                     f"block {side} scale shape "
                     f"{tuple(leaf['s'].shape)} != {want[:2]}")
+
+
+def _stack_block_leaves(leaves):
+    """Stack per-block leaves ([H, B, D] numpy arrays or tensors, int8
+    dicts plane by plane) into one [M, H, B, D] layer stack: the form
+    BlockPool.write_blocks installs with one index copy per plane."""
+    if isinstance(leaves[0], dict):
+        return {key: _stack_planes([leaf[key] for leaf in leaves])
+                for key in ("q", "s")}
+    return _stack_planes(leaves)
+
+
+def _stack_planes(planes) -> torch.Tensor:
+    if not any(isinstance(plane, torch.Tensor) for plane in planes):
+        return torch.from_numpy(np.stack(planes))
+    return torch.stack([_as_tensor(plane) for plane in planes])
+
+
+def _as_tensor(plane) -> torch.Tensor:
+    """A plane as a tensor; a numpy array (a read-only wire view,
+    perhaps) is copied out."""
+    return plane if isinstance(plane, torch.Tensor) \
+        else torch.from_numpy(np.array(plane))
+
+
+def _leaf_planes(leaf) -> list:
+    return [leaf["q"], leaf["s"]] if isinstance(leaf, dict) else [leaf]
+
+
+def _with_planes(leaf, planes):
+    """`leaf`'s form (tensor or int8 dict) around new planes."""
+    return {"q": planes[0], "s": planes[1]} if isinstance(leaf, dict) \
+        else planes[0]
+
+
+def _to_device_groups(device: torch.device, groups) -> list:
+    """Host tensors to `device`, one device buffer per group: the
+    planes are packed into ONE fresh pinned buffer (each on a 16-byte
+    boundary) and every group's span is copied with non_blocking=True,
+    so the host does not wait for the work queued on the stream (a copy
+    from pageable memory synchronizes it).  A group's tensors come back
+    as typed views of its own buffer, so each group's storage is freed
+    on its own.  On the CPU, or for tensors already on `device`, the
+    tensors come back as they are."""
+    if device.type != "cuda" or all(
+            tensor.device.type == "cuda" for group in groups
+            for tensor in group):
+        return [list(group) for group in groups]
+    spans, total = [], 0
+    for group in groups:
+        start, offsets = total, []
+        for tensor in group:
+            offsets.append(total - start)
+            total += -(-tensor.numel() * tensor.element_size() // 16) * 16
+        spans.append((start, total, offsets))
+    host = torch.empty((max(total, 1),), dtype=torch.uint8,
+                       pin_memory=True)
+    out = []
+    for group, (start, stop, offsets) in zip(groups, spans):
+        for tensor, offset in zip(group, offsets):
+            nbytes = tensor.numel() * tensor.element_size()
+            host[start + offset:start + offset + nbytes].view(
+                tensor.dtype).view(tensor.shape).copy_(tensor)
+        flat = host[start:stop].to(device, non_blocking=True)
+        out.append([flat[offset:offset + tensor.numel() *
+                         tensor.element_size()].view(tensor.dtype)
+                    .view(tensor.shape)
+                    for tensor, offset in zip(group, offsets)])
+    return out
+
+
+def _install_blocks(pool, entries, tenant: str) -> list:
+    """Write shipped blocks ([{"k": per-layer leaves, "v": ...}], host
+    arrays or tensors) into fresh pool blocks: each layer's and plane's
+    stack staged in one pinned buffer and copied to the card without a
+    host sync, then one index copy per layer and plane.  Returns the
+    ids, refs=1 owned by the caller."""
+    ids = pool.alloc_blocks(len(entries), tenant=tenant)
+    layers = len(entries[0]["k"])
+    leaves = [_stack_block_leaves([entry[side][i] for entry in entries])
+              for side in ("k", "v") for i in range(layers)]
+    planes, = _to_device_groups(pool.device, [
+        [plane for leaf in leaves for plane in _leaf_planes(leaf)]])
+    staged, at = [], 0
+    for leaf in leaves:
+        width = len(_leaf_planes(leaf))
+        staged.append(_with_planes(leaf, planes[at:at + width]))
+        at += width
+    pool.write_blocks(ids, staged[:layers], staged[layers:])
+    return ids
 
 
 class _PrefixBlock:
@@ -298,10 +395,10 @@ class PrefixKVCache:
     its AsyncPromoter re-lands them (prefetch, poll_promotions,
     promote_for) before the prompts that need them admit.  The KV memory
     ledger (attach_ledger) reaches the cache, its pool and its host
-    store.  The disaggregated install is ROADMAP.md Queue 1 item 3.
-    Single-threaded like the decoder that owns it; decoders of one
-    geometry and one storage kind may share it (paged: and then share
-    its pool)."""
+    store.  install_chain lands shipped chain blocks (the decode side of
+    disaggregated serving, serving_disagg.py).  Single-threaded like the
+    decoder that owns it; decoders of one geometry and one storage kind
+    may share it (paged: and then share its pool)."""
 
     def __init__(self, block_tokens: int = 32,
                  max_bytes: int | None = 512 << 20,
@@ -322,6 +419,7 @@ class PrefixKVCache:
         self._sessions: dict = {}       # (tenant, sid) -> [keys]
         self.bytes_used = 0
         self._layout = None
+        self._device = None             # the binding decoder's device
         # a paged decoder attaches its BlockPool: nodes then hold pool
         # block ids and insert / evict move refcounts instead of rows
         self._pool = None
@@ -354,14 +452,16 @@ class PrefixKVCache:
         self._token_counters: dict = {}
 
     # -- binding -----------------------------------------------------------
-    def bind(self, layout: tuple, paged: bool = False) -> None:
+    def bind(self, layout: tuple, paged: bool = False,
+             device=None) -> None:
         """Record (and enforce) the storage layout this cache holds:
         decoders sharing a cache must agree on (layers, KV heads, head
         dim, dtype, int8-ness, block size), or a hit would land rows of
         the wrong shape in a live slot.  `paged` records the binder's
         storage kind, so dense and paged decoders never share one cache
         whichever binds first (a dense node's rows and a paged node's
-        pool id are unreadable to the other)."""
+        pool id are unreadable to the other).  `device` is where a
+        dense cache's installed rows land."""
         if self._layout is None:
             self._layout = tuple(layout)
         elif self._layout != tuple(layout):
@@ -369,6 +469,8 @@ class PrefixKVCache:
                 f"prefix cache {self.name!r} already bound to layout "
                 f"{self._layout}, decoder wants {tuple(layout)}")
         self._dense_bound = self._dense_bound or not paged
+        if device is not None and self._device is None:
+            self._device = torch.device(device)
 
     @property
     def paged(self) -> bool:
@@ -478,12 +580,84 @@ class PrefixKVCache:
             return 0
         return self._promoter.promote_for(tenant, tokens)
 
+    def wire_layout(self) -> tuple:
+        """The bound layout as wire-safe string fields (what
+        transport.wire.encode_kv_transfer ships)."""
+        return tuple(str(f) for f in (self._layout or ()))
+
+    def layout_compatible(self, fields) -> bool:
+        """True when a transfer's declared layout fields match this
+        cache's bound layout (compared as strings: the fields crossed a
+        text-semantics wire)."""
+        return self._layout is not None and \
+            tuple(str(f) for f in fields) == self.wire_layout()
+
     def install_chain(self, tenant: str, tokens, start_block: int,
                       blocks) -> int:
-        _not_ported("the disaggregated KV install (install_chain)", "3")
+        """Install shipped chain blocks [start_block, start_block +
+        len(blocks)) of `tokens`: the decode side's KV admit in
+        disaggregated serving.  Keys are recomputed here from the tokens
+        (content-addressed: for blocks this cache holds already only the
+        index crossed).  `blocks` are [{"k": per-layer leaves, "v": ...}]
+        in this cache's storage layout, host arrays or tensors; every
+        block's geometry is checked before any row lands.  Paged, the
+        rows go into fresh pool blocks, one index copy per layer and
+        plane from one pinned staging buffer, and insert_block records
+        them; dense, each node owns its rows on the device, staged the
+        same way.  Stops at the first budget refusal, so children never
+        dangle.  Returns the blocks now resident (keys cached already
+        count: the transfer confirmed them)."""
+        tokens = [int(t) for t in tokens]
+        count = min(len(tokens) // self.block_tokens,
+                    start_block + len(blocks))
+        if count <= start_block:
+            return 0
+        keys = self.keys_for(tenant, tokens[:count * self.block_tokens])
+        entries = blocks[:count - start_block]
+        for entry in entries:
+            self._check_block_geometry(entry)
+        parent = keys[start_block - 1] if start_block else ""
+        installed = 0
+        if self.paged:
+            # the alloc refs are ours; insert_block retains its own, so
+            # the release at the end leaves cached blocks at refs 1 and
+            # refused ones free
+            pool = self._pool
+            ids = _install_blocks(pool, entries, tenant)
+            for j in range(start_block, count):
+                if not self.insert_block(tenant, parent, keys[j],
+                                         ids[j - start_block]):
+                    break
+                installed += 1
+                parent = keys[j]
+            pool.release_blocks(ids, tenant=tenant)
+            if installed and self._ledger is not None:
+                self._ledger.event("install", installed)
+            return installed
+        # one device buffer per block: each node owns its storage
+        groups = [[_as_tensor(plane) for leaf in entry["k"] + entry["v"]
+                   for plane in _leaf_planes(leaf)] for entry in entries]
+        landed = _to_device_groups(self._device or torch.device("cpu"),
+                                   groups)
+        for j in range(start_block, count):
+            entry, planes = entries[j - start_block], landed[j - start_block]
+            rows, at = [], 0
+            for leaf in entry["k"] + entry["v"]:
+                width = 2 if isinstance(leaf, dict) else 1
+                rows.append(_with_planes(leaf, planes[at:at + width]))
+                at += width
+            layers = len(entry["k"])
+            if not self.insert(tenant, parent, keys[j], rows[:layers],
+                               rows[layers:]):
+                break
+            installed += 1
+            parent = keys[j]
+        return installed
 
-    def wire_layout(self) -> tuple:
-        _not_ported("the disaggregated KV wire (wire_layout)", "3")
+    def _check_block_geometry(self, entry) -> None:
+        if self._layout is None:
+            raise ValueError("install into an unbound prefix cache")
+        check_block_geometry(self._layout, self.block_tokens, entry)
 
     def insert(self, tenant: str, parent: str, key: str,
                k_rows, v_rows) -> bool:
@@ -1723,7 +1897,8 @@ class ContinuousDecoder:
                            config.head_dim, str(config.dtype),
                            self.kv_int8, self.kv_block, itemsize)
         if prefix_cache is not None:
-            prefix_cache.bind(self._kv_layout, paged=self.paged)
+            prefix_cache.bind(self._kv_layout, paged=self.paged,
+                              device=self.device)
             if not self.paged and prefix_cache.paged:
                 raise ValueError(
                     "prefix cache holds paged (pool-resident) blocks; a "
@@ -1798,6 +1973,8 @@ class ContinuousDecoder:
              # copies it first)
              "prefix_copy_bytes": 0, "harvest_copy_bytes": 0,
              "cow_copies": 0, "cow_copy_bytes": 0,
+             # kv_blocks installs dropped because the prompt was cut
+             "install_misaligned": 0,
              # modelled bytes the decode steps streamed (weights + the
              # KV extent), and the graceful drain: submissions refused
              # while draining, requests handed back, live slots
@@ -1925,11 +2102,16 @@ class ContinuousDecoder:
         TraceContext, and claims the admission note posted for it.
         Prompts keep their tail up to the largest bucket (up to max_seq
         - 1 with chunked prefill); an empty prompt becomes one pad
-        token."""
-        if prefill_label is not None or kv_blocks is not None or \
-                progress_callback is not None:
-            _not_ported("disaggregated prefill (prefill_label, kv_blocks, "
-                        "progress_callback)", "3")
+        token.
+
+        For disaggregated serving: `prefill_label` names the request's
+        TTFT / journey population ("remote"); `kv_blocks` (covered
+        tokens, pool ids), on a paged decoder, hands over pool blocks
+        installed by install_shipped_blocks for the prompt's head, which
+        admit aliases into the slot (ownership passes on acceptance
+        only; a whole-prompt cover drops its last block so one suffix
+        token remains); `progress_callback(request, finished)` runs
+        after each prefill chunk lands."""
         from .observe.journey import RequestJourney, take_admission_note
         from .observe.tracing import current_trace
         now = time.monotonic()
@@ -1959,6 +2141,7 @@ class ContinuousDecoder:
         else:
             limit = min(self.max_seq - 1, self.prefill_buckets[-1])
         prompt = [int(t) for t in prompt] or [0]
+        truncated = len(prompt) > limit
         prompt = prompt[-limit:]
         if self.prefix_cache is not None and len(prompt) > 1 and \
                 self.prefix_cache.tiered:
@@ -1973,10 +2156,39 @@ class ContinuousDecoder:
                 self.journeys.finish(journey, time.monotonic(),
                                      outcome="shed")
                 return False
-        self._pending.append(DecodeRequest(
+        if prefill_label:
+            journey.prefill_label = str(prefill_label)
+        request = DecodeRequest(
             request_id, prompt, int(max_new_tokens), callback,
             submit_time=now, journey=journey, deadline=deadline,
-            tenant=journey.tenant))
+            tenant=journey.tenant, prefill_label=str(prefill_label or ""),
+            progress_callback=progress_callback)
+        if kv_blocks:
+            if not self.paged:
+                raise ValueError("kv_blocks install needs a paged decoder")
+            covered, ids = int(kv_blocks[0]), list(kv_blocks[1])
+            if truncated:
+                # the ids cover the original prompt's head, which the
+                # truncation cut: aliasing them would attend to another
+                # prompt's KV, so the request prefills cold instead
+                self.logger.warning(
+                    "kv_blocks install for %s dropped: prompt exceeds "
+                    "the admit cap %d (%d-token cover); cold prefill",
+                    request_id, limit, covered)
+                self.stats["install_misaligned"] += 1
+                self.pool.release_blocks(ids, tenant=journey.tenant)
+            else:
+                block = self.kv_block
+                usable = min(covered, len(ids) * block,
+                             ((len(prompt) - 1) // block) * block)
+                keep = max(0, usable // block)
+                if len(ids) > keep:
+                    self.pool.release_blocks(ids[keep:],
+                                             tenant=journey.tenant)
+                request.kv_block_ids = ids[:keep]
+                request.prefix_hit = keep * block
+                request.prefix_probed = True
+        self._pending.append(request)
         self._note_active()
         return True
 
@@ -2011,10 +2223,35 @@ class ContinuousDecoder:
             engine.remove_timer_handler(self._timer)
             self._timer = None
 
+    def kv_wire_layout(self) -> tuple:
+        """The storage layout as wire-safe string fields: what a
+        cacheless paged decoder matches a transfer's donor layout
+        against (PrefixKVCache.wire_layout's twin)."""
+        return tuple(str(f) for f in self._kv_layout)
+
     def install_shipped_blocks(self, tokens, start_block: int,
                                blocks, tenant: str = "") -> tuple:
-        _not_ported("the direct slot-table install "
-                    "(install_shipped_blocks)", "3")
+        """Write shipped chain blocks straight into fresh pool blocks
+        (the cacheless paged decoder's landing) and hand the ids to the
+        caller for submit(kv_blocks=...).  Returns (covered tokens, ids)
+        for these blocks; the caller owns the ids (and releases them on
+        a refused submit).  `start_block` > 0 continues a chunk-streamed
+        install whose earlier ids the caller holds: contiguity is the
+        caller's.  Raises ValueError on a geometry mismatch, before any
+        row lands."""
+        if not self.paged:
+            raise ValueError("install_shipped_blocks needs a paged decoder")
+        start = int(start_block)
+        if start < 0:
+            raise ValueError(f"negative start_block {start}")
+        block = self.kv_block
+        count = min(len(blocks), max(0, len(tokens) // block - start))
+        entries = blocks[:count]
+        for entry in entries:
+            check_block_geometry(self._kv_layout, block, entry)
+        if not entries:
+            return 0, []
+        return count * block, _install_blocks(self.pool, entries, tenant)
 
     def harvest_progress(self, request: DecodeRequest) -> int:
         """Register the complete prompt blocks written so far ([0,
@@ -2417,6 +2654,13 @@ class ContinuousDecoder:
             request = pending[index]
             if taken >= len(free):
                 break
+            if request.kv_block_ids:
+                # installed by install_shipped_blocks: the blocks are in
+                # the pool already, admit is a table edit and the suffix
+                cached.append(request)
+                taken += 1
+                index += 1
+                continue
             if cache is not None and request.dedup_wait:
                 # deferred behind a duplicate whose prompt is prefilling:
                 # the leader's prompt blocks land at its first token; a
@@ -2556,9 +2800,14 @@ class ContinuousDecoder:
         t_write = self._prefix_write_len(request)
         if self.paged:
             count = request.prefix_hit // self.kv_block
-            chain = self.prefix_cache.nodes(request.prefix_nodes)
-            ids = [node.pool_id for node in chain[:count]]
-            self.pool.retain(ids)
+            if request.kv_block_ids:
+                # a direct install: the caller's refs pass to the slot
+                ids = request.kv_block_ids[:count]
+                request.kv_block_ids = []
+            else:
+                chain = self.prefix_cache.nodes(request.prefix_nodes)
+                ids = [node.pool_id for node in chain[:count]]
+                self.pool.retain(ids)
             row = self._tables_np[slot]
             for j, block_id in enumerate(ids):
                 row[j] = block_id
@@ -2844,6 +3093,15 @@ class ContinuousDecoder:
             self.stats["tokens_prefill"] += max(0,
                                                 new_pos - request.prefill_pos)
             request.prefill_pos = new_pos
+            if request.progress_callback is not None:
+                # a prefill runtime harvests and ships the chunk's
+                # finished blocks from here (a host-side table walk)
+                try:
+                    request.progress_callback(request, bool(finish))
+                except Exception:
+                    self.logger.exception(
+                        "progress callback failed for %s",
+                        request.request_id)
             if request.journey is not None:
                 request.journey.wave("extend")
             if finish:
@@ -3156,7 +3414,8 @@ class ContinuousDecoder:
             self.ttft_samples.append(ttft)
             self._slo_sketch(
                 "ttft", journey.tenant if journey else "",
-                "cached" if request.prefix_hit else "cold").observe(
+                request.prefill_label or
+                ("cached" if request.prefix_hit else "cold")).observe(
                 ttft, exemplar=(journey.trace_id or request.request_id)
                 if journey else None)
             if request.dedup_hot and self.prefix_cache is not None:

@@ -1,0 +1,1669 @@
+# Disaggregated prefill / decode serving and session migration.
+#
+# The port's own copy of aiko_services_tpu/serving_disagg.py.  Prefill
+# and decode run in separately scaled pools, so prompt bursts do not
+# dilate the decode pool's inter-token latency:
+#
+#   * PrefillRuntime: a role-tagged actor owning a ContinuousDecoder and
+#     PrefixKVCache whose only job is prompt KV.  Each request prefills
+#     (max_new_tokens 1), the retire harvest drops the prompt blocks into
+#     its cache, and the chain ships to the decode side as KV-transfer
+#     envelopes (transport/wire.py encode_kv_transfer), chunk by chunk
+#     while a long prompt is still prefilling;
+#   * PrefillClient: the decode side.  It routes prompts to a discovered
+#     prefill runtime by remaining deadline (ops/admission.DeadlineRouter),
+#     installs the shipped chain into the decode decoder's PrefixKVCache
+#     (install_chain) or, cacheless and paged, straight into its pool
+#     (install_shipped_blocks), and submits the request: the chain admits
+#     as a prefix hit and only the ragged suffix prefills here.  Blocks
+#     the decode side already holds cross as handles (an index, never
+#     bytes).  No pool, a transfer timeout after its retries, a corrupt
+#     payload or a layout mismatch all fall back to local prefill,
+#     counted, never a dropped request;
+#   * SessionMigrator: both roles of moving pinned conversations (chain
+#     and SessionTable record) between two serving runtimes;
+#   * DisaggHarness: the two-pool plane in one process (registrar, peer-
+#     enabled prefill and decode runtimes over one MemoryBroker and one
+#     real-clock EventEngine), and its colocated A/B.
+#
+# From JAX to PyTorch: a shipped chain is gathered on the device, one
+# index_select per layer and plane (paged) or one stack (dense), into one
+# device buffer, copied into one pinned host buffer with non_blocking=True
+# on the stream that runs the decode rounds (so a later write to those
+# blocks, an eviction or a copy-on-extend, queues behind the copy), and a
+# CUDA event marks it.  The envelope is encoded and posted once the event
+# has completed, polled from the engine, in FIFO order (the receiver's
+# ordered-cursor guard drops chunks that arrive out of order): shipping
+# makes no host sync.  An install stages its rows in one fresh pinned
+# buffer and copies them with non_blocking=True (serving.install_chain).
+# On the CPU the copies are plain and every envelope posts at once.
+
+from __future__ import annotations
+
+import time
+import uuid
+from collections import deque
+
+import numpy as np
+import torch
+
+from .actor import Actor
+from .observe import tracing
+from .observe.metrics import MirroredStats, default_registry
+from .ops.admission import DeadlineRouter
+from .service import ServiceFilter, ServiceProtocol, ServiceTags
+from .transport import wire
+from .utils import get_logger
+
+__all__ = ["PROTOCOL_PREFILL", "ROLE_PREFILL", "ROLE_DECODE",
+           "ROLE_COLOCATED", "role_tag", "tag_role", "PrefillRuntime",
+           "PrefillClient", "SessionMigrator", "two_pool_autoscalers",
+           "DisaggHarness", "AUTOSCALER_NOT_PORTED"]
+
+PROTOCOL_PREFILL = ServiceProtocol("prefill")
+ROLE_PREFILL = "prefill"
+ROLE_DECODE = "decode"
+ROLE_COLOCATED = "colocated"
+
+AUTOSCALER_NOT_PORTED = ("two_pool_autoscalers is not ported yet: it needs "
+                         "the autoscaler (ROADMAP.md Queue 1 item 7)")
+
+
+def role_tag(role: str) -> str:
+    """The discovery-record tag form of a serving role."""
+    return f"role={role}"
+
+
+def tag_role(service, role: str) -> None:
+    """Tag a service's registrar record with its serving role and
+    re-register, so the changed record propagates (the registrar drops
+    identical re-adds but forwards changed ones)."""
+    service.add_tags([role_tag(role)])
+    runtime = service.runtime
+    if runtime.registrar is not None and runtime.message is not None:
+        runtime._register_service(service)
+
+
+# -- shipping chain blocks to the host --------------------------------------
+
+class _HostRows:
+    """Chain blocks on their way to the host for the wire: `blocks` is
+    [per block [per layer {"k": leaf, "v": leaf}]] of host tensors, valid
+    once ready() (the device-to-host copy's CUDA event has completed;
+    at once on the CPU)."""
+
+    __slots__ = ("blocks", "event")
+
+    def __init__(self, blocks, event=None):
+        self.blocks = blocks
+        self.event = event
+
+    def ready(self) -> bool:
+        return self.event is None or self.event.query()
+
+    def wait(self) -> None:
+        if self.event is not None:
+            self.event.synchronize()
+
+
+def _chain_wire_blocks(cache, keys) -> _HostRows:
+    """Cached chain blocks -> host rows for the wire, in the donor's
+    storage layout (int8 {"q", "s"} leaves plane by plane, bit-exact).
+    Paged, the blocks are gathered from the pool with one index_select
+    per layer and plane; dense, each layer's node rows are stacked.  On
+    the card the gathers fill one device buffer that is copied into one
+    pinned host buffer without a host sync (_to_host)."""
+    nodes = cache.nodes(keys)
+    if not nodes:
+        return _HostRows([])
+    if cache.paged:
+        pool = cache.pool
+        index = pool._ids([node.pool_id for node in nodes])
+        sides = (pool.k_pools, pool.v_pools)
+
+        def source(side, layer, key):
+            pools = sides[side][layer]
+            return pools if key is None else pools[key]
+
+        def fill(side, layer, key, out):
+            return torch.index_select(source(side, layer, key), 0, index,
+                                      out=out)
+    else:
+        def source(side, layer, key):
+            leaf = cache.block_rows(nodes[0])[side][layer]
+            return leaf if key is None else leaf[key]
+
+        def fill(side, layer, key, out):
+            planes = []
+            for node in nodes:
+                leaf = cache.block_rows(node)[side][layer]
+                planes.append(leaf if key is None else leaf[key])
+            return torch.stack(planes, out=out)
+    first = cache.block_rows(nodes[0])[0]
+    keys_of = ("q", "s") if isinstance(first[0], dict) else (None,)
+    layers = len(first)
+    specs = []
+    for side in (0, 1):
+        for layer in range(layers):
+            for key in keys_of:
+                plane = source(side, layer, key)
+                shape = tuple(plane.shape[1:]) if cache.paged \
+                    else tuple(plane.shape)
+                specs.append((side, layer, key, plane.dtype, shape))
+    stacks, event = _to_host(specs, fill, len(nodes),
+                             source(0, 0, keys_of[0]).device)
+    blocks = []
+    for j in range(len(nodes)):
+        per_layer = [{} for _ in range(layers)]
+        for (side, layer, key, *_), stack in zip(specs, stacks):
+            if key is None:
+                per_layer[layer]["kv"[side]] = stack[j]
+            else:
+                per_layer[layer].setdefault("kv"[side], {})[key] = stack[j]
+        blocks.append(per_layer)
+    return _HostRows(blocks, event)
+
+
+def _to_host(specs, fill, count: int, device):
+    """Run each spec's gather into [count, *shape] stacks and bring them
+    to the host: (host stacks, CUDA event or None).  On the card the
+    stacks fill typed views of one device buffer, which is copied into
+    one pinned buffer with non_blocking=True on the current stream, and
+    the event marks the copy; on the CPU the gathers are the stacks."""
+    if device.type != "cuda":
+        return [fill(side, layer, key, None)
+                for side, layer, key, _, _ in specs], None
+    spans, total = [], 0
+    for *_, dtype, shape in specs:
+        nbytes = count * int(np.prod(shape)) * \
+            torch.empty((), dtype=dtype).element_size()
+        spans.append((total, nbytes))
+        total += -(-nbytes // 16) * 16
+    flat = torch.empty((total,), dtype=torch.uint8, device=device)
+    for (side, layer, key, dtype, shape), (start, nbytes) in \
+            zip(specs, spans):
+        fill(side, layer, key, flat[start:start + nbytes].view(dtype)
+             .view((count,) + shape))
+    host = torch.empty((total,), dtype=torch.uint8, pin_memory=True)
+    host.copy_(flat, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return [host[start:start + nbytes].view(dtype).view((count,) + shape)
+            for (*_, dtype, shape), (start, nbytes) in
+            zip(specs, spans)], event
+
+
+class _Outbox:
+    """Envelopes whose rows are still crossing to the host, posted in
+    FIFO order once each one's copy has completed: a flatout handler
+    polls the engine while any wait (it is removed when the queue
+    drains), and put() posts at once whatever is ready."""
+
+    def __init__(self, engine):
+        self._engine = engine
+        self._queue: deque = deque()
+        self._polling = False
+
+    def put(self, rows: _HostRows, send) -> None:
+        self._queue.append((rows, send))
+        self.poll()
+
+    def poll(self) -> None:
+        while self._queue and self._queue[0][0].ready():
+            _, send = self._queue.popleft()
+            send()
+        self._arm(bool(self._queue))
+
+    def flush(self) -> None:
+        """Post everything owed now, waiting for the copies (teardown)."""
+        while self._queue:
+            rows, send = self._queue.popleft()
+            rows.wait()
+            send()
+        self._arm(False)
+
+    def _arm(self, on: bool) -> None:
+        if on and not self._polling:
+            self._engine.add_flatout_handler(self.poll)
+            self._polling = True
+        elif not on and self._polling:
+            self._engine.remove_flatout_handler(self.poll)
+            self._polling = False
+
+
+def _prompt_cap(decoder) -> int:
+    """The prompt length decoder.submit admits (its tail-truncation
+    cap).  Both sides truncate with this before keying anything, so the
+    harvested chain, the shipped tokens and the decode-side probe agree
+    on one prompt."""
+    if decoder.prefill_chunk:
+        return decoder.max_seq - 1
+    return min(decoder.max_seq - 1, decoder.prefill_buckets[-1])
+
+
+def _landing(wire_blocks) -> list:
+    """Wire blocks -> install_chain's [{"k": per-layer, "v": ...}] form
+    (install_chain stages the rows onto the device itself)."""
+    return [{"k": [layer["k"] for layer in block],
+             "v": [layer["v"] for layer in block]}
+            for block in wire_blocks]
+
+
+# -- the prefill pool --------------------------------------------------------
+
+class PrefillRuntime(Actor):
+    """A prefill-pool member: computes prompt KV and ships it.
+
+    RPC (binary envelope on {topic_path}/in):
+        (prefill transfer_id reply_topic tenant have_tokens
+         {"tokens": i32[*]})
+    The reply is a KV-transfer envelope on `reply_topic` carrying chain
+    blocks [have_tokens / block, ...): blocks the caller declared it
+    holds are handles, not bytes.
+
+    The decoder is an ordinary ContinuousDecoder with a bound
+    PrefixKVCache: a request prefills, emits one token, retires, and the
+    retire harvest inserts its prompt blocks (repeated prefixes prefill
+    once here too).  Its geometry must match the decode pool's; the
+    transfer declares the donor layout and the decode side refuses a
+    mismatch."""
+
+    def __init__(self, runtime, name: str = "prefill", *,
+                 params=None, config=None, decoder=None, cache=None,
+                 block_tokens: int = 32, cache_mb: int = 256,
+                 max_slots: int = 8, prefill_buckets=(128,),
+                 steps_per_sync: int = 1,
+                 prefill_chunk: int | None = None,
+                 decoder_opts: dict | None = None,
+                 pump_period: float = 0.002,
+                 batch_window: float = 0.0,
+                 chunk_stream: bool | None = None, registry=None):
+        super().__init__(runtime, name, PROTOCOL_PREFILL,
+                         tags=[role_tag(ROLE_PREFILL)])
+        from .serving import ContinuousDecoder, PrefixKVCache
+        self.logger = get_logger(f"disagg.prefill.{name}")
+        self._registry = registry or default_registry()
+        if decoder is not None:
+            self.cache = cache if cache is not None \
+                else decoder.prefix_cache
+            self.decoder = decoder
+        else:
+            self.cache = cache or PrefixKVCache(
+                block_tokens=int(block_tokens),
+                max_bytes=int(cache_mb) << 20,
+                name=f"{name}.cache", registry=self._registry)
+            self.decoder = ContinuousDecoder(
+                params, config, max_slots=int(max_slots),
+                prefill_buckets=tuple(prefill_buckets),
+                steps_per_sync=int(steps_per_sync),
+                # chunked prefill forced on (the largest bucket): without
+                # it the decoder truncates prompts to the bucket, the
+                # harvest keys the truncated tail and a ship matches
+                # nothing
+                prefill_chunk=int(prefill_chunk)
+                if prefill_chunk else max(prefill_buckets),
+                name=name, prefix_cache=self.cache,
+                registry=self._registry, **(decoder_opts or {}))
+        if self.cache is None:
+            raise ValueError(
+                "PrefillRuntime needs a decoder with a bound "
+                "PrefixKVCache (the harvest is what it ships)")
+        # chunk streaming: ship each chunk's finished blocks as the chunk
+        # lands, overlapping the transfer with the rest of the prefill.
+        # On whenever chunked prefill is on
+        if chunk_stream is None:
+            chunk_stream = bool(self.decoder.prefill_chunk)
+        self.chunk_stream = bool(chunk_stream)
+        # pump_period <= 0 pumps flat-out (once per engine step) instead
+        # of from a periodic timer (what the one-engine harness uses)
+        self._flatout = pump_period is not None and pump_period <= 0
+        if self._flatout:
+            runtime.event.add_flatout_handler(self.decoder.pump)
+        else:
+            self.decoder.attach(runtime.event, period=pump_period)
+        self._outbox = _Outbox(runtime.event)
+        self.stats = MirroredStats(
+            {"requests": 0, "computed": 0, "blocks_shipped": 0,
+             "bytes_shipped": 0, "handle_blocks": 0, "refused": 0,
+             "empty_ships": 0, "envelopes": 0, "batched_envelopes": 0,
+             "chunks_shipped": 0, "chunk_blocks": 0},
+            metric="prefill_runtime_events_total",
+            help="prefill-runtime events by kind",
+            registry=self._registry, skip=("bytes_shipped",),
+            labels={"runtime": name})
+        # transfers to one destination finishing within batch_window
+        # seconds coalesce into one kv_transfer_batch envelope; 0 ships
+        # each on its own
+        self.batch_window = max(0.0, float(batch_window))
+        self._ship_queue: dict[str, list] = {}
+        self._ship_timers: dict[str, int] = {}
+        self._batched_counter = self._registry.counter(
+            "disagg_transfer_batched_total",
+            "KV transfers that rode a coalesced batch envelope",
+            labels={"runtime": name})
+        # the prefill pool's own scale signal: prompts waiting for KV
+        self._queue_gauge = self._registry.gauge(
+            "prefill_queue_depth",
+            "prompts queued or resident in the prefill runtime",
+            labels={"runtime": name})
+
+    def _publish_depth(self) -> None:
+        self._queue_gauge.set(len(self.decoder._pending) +
+                              self.decoder.active_count)
+
+    # -- RPC ---------------------------------------------------------------
+    def prefill(self, transfer_id, reply_topic, tenant, have_tokens,
+                box) -> None:
+        """Compute prompt KV for `tokens` and ship the chain blocks the
+        caller does not hold already."""
+        self.stats["requests"] += 1
+        try:
+            tokens = [int(t) for t in np.asarray(box["tokens"])]
+            have = max(0, int(str(have_tokens)))
+        except (TypeError, KeyError, ValueError) as exc:
+            self.stats["refused"] += 1
+            self.logger.warning("prefill %s: malformed request %r: %r",
+                                self.name, transfer_id, exc)
+            return
+        # truncate exactly as decoder.submit will, so the harvest, the
+        # match and the shipped tokens key one prompt
+        tokens = tokens[-_prompt_cap(self.decoder):] or [0]
+        tenant = str(tenant)
+        context = tracing.current_trace()
+        # the chunk-stream cursor: the next chain block to ship, shared
+        # by the progress callback and the final ship so each block
+        # crosses once
+        state = {"cursor": None}
+
+        def computed(_rid, generated):
+            self._publish_depth()
+            with tracing.activate(context):
+                self._ship(str(transfer_id), str(reply_topic), tenant,
+                           have, tokens,
+                           int(generated[0]) if generated else None,
+                           cursor=state["cursor"])
+
+        progress = None
+        if self.chunk_stream:
+            def progress(request, finished):
+                if finished:
+                    return   # the final ship (with first_token) owns it
+                with tracing.activate(context):
+                    self._ship_chunk(str(transfer_id), str(reply_topic),
+                                     tenant, have, tokens, request, state)
+
+        accepted = self.decoder.submit(str(transfer_id), tokens, 1,
+                                       computed, tenant=tenant,
+                                       progress_callback=progress)
+        if not accepted:
+            self.stats["refused"] += 1
+        self._publish_depth()
+
+    def _trace_fields(self):
+        context = tracing.current_trace()
+        return context.to_fields(self.runtime.event.clock.now()) \
+            if context is not None else None
+
+    def _ship(self, transfer_id: str, reply_topic: str, tenant: str,
+              have: int, tokens, first_token, cursor=None) -> None:
+        self.stats["computed"] += 1
+        cache = self.cache
+        block = cache.block_tokens
+        keys, hit = cache.match(tenant, tokens)
+        if hit == 0 and len(tokens) >= block:
+            # the computed prompt left no cached chain (the budget
+            # refused every insert): ship nothing, but say so
+            self.stats["empty_ships"] += 1
+            self.logger.warning(
+                "prefill %s: transfer %s computed %d tokens but the "
+                "cache holds none of its chain; shipping empty",
+                self.name, transfer_id, len(tokens))
+        start_block = min(have // block, hit // block)
+        # handle accounting keys on the caller's holdings, before the
+        # chunk cursor moves the window
+        self.stats["handle_blocks"] += start_block
+        if cursor:
+            # chunk streaming shipped the blocks below the cursor; the
+            # final envelope carries the tail (and first_token, always)
+            start_block = min(max(start_block, int(cursor)), hit // block)
+        rows = _chain_wire_blocks(cache, keys[start_block:hit // block])
+        trace, layout = self._trace_fields(), cache.wire_layout()
+
+        def send():
+            payload = wire.encode_kv_transfer(
+                transfer_id, tenant, tokens, start_block, block, layout,
+                rows.blocks, first_token=first_token, trace=trace)
+            self.stats["blocks_shipped"] += len(rows.blocks)
+            self.stats["bytes_shipped"] += len(payload)
+            self._post(reply_topic, payload)
+        self._outbox.put(rows, send)
+
+    def _ship_chunk(self, transfer_id: str, reply_topic: str,
+                    tenant: str, have: int, tokens, request,
+                    state: dict) -> None:
+        """Ship the chain blocks a finished prefill chunk made durable.
+        Runs from the decoder's progress callback while the request is
+        resident: its rows harvest into the cache first and ship from
+        there, by the final ship's path."""
+        cache = self.cache
+        block = cache.block_tokens
+        self.decoder.harvest_progress(request)
+        pos = int(request.prefill_pos)
+        keys, hit = cache.match(tenant, list(tokens[:pos]))
+        if state["cursor"] is None:
+            # blocks the caller holds never ship: start at the handle
+            # boundary
+            state["cursor"] = min(have // block, hit // block)
+        cursor = state["cursor"]
+        end = hit // block
+        if end <= cursor:
+            return
+        rows = _chain_wire_blocks(cache, keys[cursor:end])
+        trace, layout = self._trace_fields(), cache.wire_layout()
+        state["cursor"] = end
+        self.stats["chunks_shipped"] += 1
+
+        def send():
+            payload = wire.encode_kv_transfer(
+                transfer_id, tenant, list(tokens[:end * block]), cursor,
+                block, layout, rows.blocks, final=False, trace=trace)
+            self.stats["chunk_blocks"] += len(rows.blocks)
+            self.stats["blocks_shipped"] += len(rows.blocks)
+            self.stats["bytes_shipped"] += len(payload)
+            self._post(reply_topic, payload)
+        self._outbox.put(rows, send)
+
+    def _post(self, reply_topic: str, payload: bytes) -> None:
+        """Ship one envelope: at once, or coalesced with others to the
+        same destination inside the batch window.  It rides the peer
+        channel when the caller's reply topic is pinned, else the
+        broker."""
+        if self.batch_window <= 0:
+            self.stats["envelopes"] += 1
+            self.runtime.publish(reply_topic, payload)
+            return
+        queue = self._ship_queue.setdefault(reply_topic, [])
+        queue.append(payload)
+        if reply_topic not in self._ship_timers:
+            self._ship_timers[reply_topic] = \
+                self.runtime.event.add_oneshot_handler(
+                    lambda: self._flush_ships(reply_topic),
+                    self.batch_window)
+
+    def _flush_ships(self, reply_topic: str) -> None:
+        self._ship_timers.pop(reply_topic, None)
+        payloads = self._ship_queue.pop(reply_topic, None)
+        if not payloads:
+            return
+        self.stats["envelopes"] += 1
+        if len(payloads) == 1:
+            self.runtime.publish(reply_topic, payloads[0])
+            return
+        self.stats["batched_envelopes"] += 1
+        self._batched_counter.inc(len(payloads))
+        self.runtime.publish(reply_topic, wire.encode_kv_batch(payloads))
+
+    def stop(self) -> None:
+        self._outbox.flush()                 # owed transfers ship now
+        for reply_topic, timer in list(self._ship_timers.items()):
+            self.runtime.event.remove_timer_handler(timer)
+            self._ship_timers.pop(reply_topic, None)
+            self._flush_ships(reply_topic)
+        if self._flatout:
+            self.runtime.event.remove_flatout_handler(self.decoder.pump)
+        else:
+            self.decoder.detach(self.runtime.event)
+        super().stop()
+
+
+# -- the decode side ---------------------------------------------------------
+
+class PrefillClient:
+    """The decode side of the split: remote prefill with a local
+    fallback ladder.
+
+    submit() routes the prompt to a discovered prefill runtime
+    (deadline-aware, least-loaded under pressure); on the KV-transfer
+    reply it installs the chain into the decode decoder's PrefixKVCache
+    (or, cacheless and paged, into its pool) and submits the request,
+    which admits as a prefix hit: only the ragged suffix prefills here.
+    Failures degrade in order: a retry against another candidate, then
+    local prefill on the decode runtime.  Every rung is counted; none
+    drops the request.  Single-threaded on the owning runtime's engine,
+    like the decoder it feeds."""
+
+    def __init__(self, runtime, decoder, services_cache=None,
+                 name: str = "disagg",
+                 transfer_timeout: float = 5.0, retries: int = 1,
+                 urgent_budget_s: float = 1.0,
+                 min_remote_tokens: int | None = None,
+                 registry=None):
+        if decoder.prefix_cache is None and \
+                not getattr(decoder, "paged", False):
+            raise ValueError(
+                "PrefillClient needs a decoder with a bound "
+                "PrefixKVCache, or a paged decoder (the shipped KV has "
+                "to land somewhere: a cache chain or a direct slot-table "
+                "install)")
+        self.runtime = runtime
+        self.decoder = decoder
+        # cacheless paged decoders land shipped KV by
+        # install_shipped_blocks: pool blocks aliased into the request's
+        # slot table
+        self.cache = decoder.prefix_cache
+        self.block_tokens = self.cache.block_tokens \
+            if self.cache is not None else decoder.kv_block
+        self.name = str(name)
+        self.logger = get_logger(f"disagg.client.{name}")
+        self.transfer_timeout = float(transfer_timeout)
+        self.retries = max(0, int(retries))
+        # a prompt shorter than one block has nothing to ship
+        self.min_remote_tokens = int(min_remote_tokens) \
+            if min_remote_tokens is not None else self.block_tokens
+        self._registry = registry or default_registry()
+        self.router = DeadlineRouter(urgent_budget_s=urgent_budget_s,
+                                     name=name, registry=self._registry)
+        self.loads: dict[str, int] = {}     # topic_path -> in flight
+        self._endpoints: dict[str, str | None] = {}
+        self._pending: dict[str, dict] = {}
+        self.reply_topic = \
+            f"{runtime.topic_path}/0/kv.{uuid.uuid4().hex[:8]}"
+        runtime.add_message_handler(self._on_reply, self.reply_topic,
+                                    binary=True)
+        self.stats = MirroredStats(
+            {"transfers": 0, "transfer_bytes": 0, "installs": 0,
+             "installed_blocks": 0, "handle_blocks": 0,
+             "raw_blocks": 0, "retries": 0, "transfer_timeouts": 0,
+             "transfer_corrupt": 0, "layout_mismatch": 0,
+             "local_fallbacks": 0, "local_short": 0,
+             "local_no_pool": 0, "local_cached": 0,
+             "install_shed": 0, "direct_installs": 0,
+             "batched_replies": 0, "chunk_installs": 0,
+             "chunk_blocks": 0, "chunk_dropped": 0,
+             "chunk_streamed": 0, "transfer_overlap_s": 0.0},
+            metric="disagg_client_events_total",
+            help="disaggregated serving client events by kind",
+            registry=self._registry,
+            skip=("transfer_bytes", "transfer_overlap_s"),
+            labels={"client": name})
+        self._transfer_seconds = self._registry.histogram(
+            "disagg_transfer_seconds",
+            "prefill request -> installed KV wall seconds",
+            labels={"client": name})
+        self.transfer_samples: deque = deque(maxlen=4096)
+        self._cache_handler = None
+        if services_cache is not None:
+            self._services_cache = services_cache
+            self._cache_handler = self._on_discovery
+            # protocol and role: a pipeline tagged role=prefill has no
+            # `prefill` RPC, and a transfer routed there would stall a
+            # whole timeout
+            services_cache.add_handler(
+                self._cache_handler,
+                ServiceFilter(protocol=str(PROTOCOL_PREFILL),
+                              tags=[role_tag(ROLE_PREFILL)]))
+
+    # -- discovery ---------------------------------------------------------
+    def _on_discovery(self, command, fields) -> None:
+        if command == "add":
+            self.loads.setdefault(fields.topic_path, 0)
+            endpoint = ServiceTags.to_dict(fields.tags).get("peer")
+            self._endpoints[fields.topic_path] = endpoint
+            if endpoint and self.runtime.peer is not None:
+                # pin the transfer path onto a direct channel: our
+                # requests to its /in, its KV replies to our reply topic;
+                # the broker stays the standing fallback
+                try:
+                    self.runtime.peer.negotiate(
+                        fields.topic_path, endpoint,
+                        pin_topics=[f"{fields.topic_path}/in"],
+                        reply_topics=[self.reply_topic])
+                except Exception:
+                    self.logger.exception(
+                        "disagg %s: peer negotiation with %s failed; "
+                        "the broker path stays", self.name,
+                        fields.topic_path)
+        elif command == "remove":
+            self.loads.pop(fields.topic_path, None)
+            self._endpoints.pop(fields.topic_path, None)
+            if self.runtime.peer is not None:
+                self.runtime.peer.release(f"{fields.topic_path}/in")
+
+    def add_candidate(self, topic_path: str,
+                      endpoint: str | None = None) -> None:
+        """Register a prefill runtime by hand (static fleets, tests)."""
+        self.loads.setdefault(topic_path, 0)
+        self._endpoints[topic_path] = endpoint
+
+    # -- submit path -------------------------------------------------------
+    def submit(self, request_id: str, prompt, max_new_tokens: int,
+               callback, deadline: float | None = None,
+               tenant: str | None = None, on_refused=None) -> bool:
+        """Route one request through the split.  True when it is in
+        flight somewhere (a remote transfer pending, or submitted
+        locally); False only when the decoder's own deadline admission
+        refused a synchronous local submit (the caller owns that
+        refusal, as with ContinuousDecoder.submit)."""
+        # truncate with the decode decoder's own cap first: the probe,
+        # the shipped tokens and the final submit must key one prompt
+        prompt = ([int(t) for t in prompt] or
+                  [0])[-_prompt_cap(self.decoder):]
+        tenant_key = str(tenant or "")
+        # synchronous local rungs return the refusal (notify=False):
+        # calling on_refused too would signal one shed twice
+        if len(prompt) < self.min_remote_tokens:
+            self.stats["local_short"] += 1
+            return self._local(request_id, prompt, max_new_tokens,
+                               callback, deadline, tenant, on_refused,
+                               notify=False)
+        have = 0
+        if self.cache is not None:
+            _, have = self.cache.match(tenant_key, prompt)
+            complete = (len(prompt) // self.block_tokens) * \
+                self.block_tokens
+            if have < complete and self.cache.tiered:
+                # the probe kicks promotion of host-resident chain
+                # blocks while the transfer is in flight
+                self.cache.prefetch(tenant_key, prompt)
+            if complete and have >= complete:
+                # the decode side holds the whole chain: a remote hop
+                # would ship nothing, so prefix-admit locally
+                self.stats["local_cached"] += 1
+                return self._local(request_id, prompt, max_new_tokens,
+                                   callback, deadline, tenant,
+                                   on_refused, notify=False)
+        remaining = None
+        if deadline is not None:
+            remaining = float(deadline) - time.monotonic()
+        target = self.router.route(self.loads, remaining)
+        if target is None:
+            self.stats["local_no_pool"] += 1
+            return self._local(request_id, prompt, max_new_tokens,
+                               callback, deadline, tenant, on_refused,
+                               notify=False)
+        transfer_id = f"kv-{uuid.uuid4().hex[:12]}"
+        entry = {
+            "request_id": str(request_id), "prompt": prompt,
+            "max_new": int(max_new_tokens), "callback": callback,
+            "deadline": deadline, "tenant": tenant,
+            "on_refused": on_refused, "attempts": 0,
+            "started": time.perf_counter(),
+            "trace": tracing.current_trace(), "target": target,
+        }
+        self._pending[transfer_id] = entry
+        self._send(transfer_id, entry, target, have)
+        return True
+
+    def _send(self, transfer_id: str, entry: dict, target: str,
+              have: int) -> None:
+        entry["target"] = target
+        entry["timer"] = self.runtime.event.add_oneshot_handler(
+            lambda: self._transfer_expired(transfer_id),
+            self.transfer_timeout)
+        self.loads[target] = self.loads.get(target, 0) + 1
+        self.stats["transfers"] += 1
+        context = entry.get("trace")
+        payload = wire.encode_envelope(
+            "prefill",
+            [transfer_id, self.reply_topic,
+             str(entry["tenant"] or ""), str(int(have)),
+             {"tokens": np.asarray(entry["prompt"], np.int32)}],
+            trace=context.to_fields(self.runtime.event.clock.now())
+            if context is not None else None)
+        self.runtime.publish(f"{target}/in", payload)
+
+    def _settle(self, transfer_id: str):
+        entry = self._pending.pop(transfer_id, None)
+        if entry is None:
+            return None
+        timer = entry.pop("timer", None)
+        if timer is not None:
+            self.runtime.event.remove_timer_handler(timer)
+        target = entry.get("target")
+        if target in self.loads:
+            self.loads[target] = max(0, self.loads[target] - 1)
+        return entry
+
+    def _drop_chunks(self, entry: dict) -> None:
+        """Forget a transfer's streamed-chunk progress.  Cache installs
+        stay (content-addressed: a retry's have probe reuses them);
+        direct pool blocks belong to the stream and are released."""
+        entry.pop("chunk_next", None)
+        entry.pop("chunk_first", None)
+        entry.pop("chunk_base", None)
+        ids = entry.pop("direct_ids", None)
+        if ids:
+            self.decoder.pool.release_blocks(
+                ids, tenant=str(entry.get("tenant") or ""))
+
+    # -- the fallback ladder ----------------------------------------------
+    def _transfer_expired(self, transfer_id: str) -> None:
+        entry = self._pending.get(transfer_id)
+        if entry is None:
+            return
+        entry.pop("timer", None)
+        target = entry.get("target")
+        if target in self.loads:
+            self.loads[target] = max(0, self.loads[target] - 1)
+        self.stats["transfer_timeouts"] += 1
+        if entry["attempts"] < self.retries:
+            # rung 1: retry against another candidate (a late duplicate
+            # transfer from the first only re-confirms cached blocks)
+            entry["attempts"] += 1
+            others = {c: load for c, load in self.loads.items()
+                      if c != target}
+            remaining = None
+            if entry["deadline"] is not None:
+                remaining = float(entry["deadline"]) - time.monotonic()
+            retry_target = self.router.route(others or self.loads,
+                                             remaining)
+            if retry_target is not None:
+                self.stats["retries"] += 1
+                self._drop_chunks(entry)      # the retry streams afresh
+                have = 0
+                if self.cache is not None:
+                    _, have = self.cache.match(
+                        str(entry["tenant"] or ""), entry["prompt"])
+                self._send(transfer_id, entry, retry_target, have)
+                return
+        # rung 2: local prefill, counted, never dropped
+        self._pending.pop(transfer_id, None)
+        self._drop_chunks(entry)
+        self.stats["local_fallbacks"] += 1
+        self.logger.warning(
+            "disagg %s: transfer %s to %s gave up after %d attempt(s); "
+            "prefilling locally", self.name, transfer_id, target,
+            entry["attempts"] + 1)
+        self._local_entry(entry)
+
+    def _local_entry(self, entry: dict) -> bool:
+        return self._local(entry["request_id"], entry["prompt"],
+                           entry["max_new"], entry["callback"],
+                           entry["deadline"], entry["tenant"],
+                           entry["on_refused"])
+
+    def _local(self, request_id, prompt, max_new, callback, deadline,
+               tenant, on_refused, notify: bool = True) -> bool:
+        """The local-prefill rung.  `notify` fires on_refused on a shed:
+        True only on asynchronous paths (timeout fallback, reply
+        install, teardown) where submit() returned long ago."""
+        accepted = self.decoder.submit(request_id, prompt, max_new,
+                                       callback, deadline=deadline,
+                                       tenant=tenant)
+        if not accepted:
+            self.stats["install_shed"] += 1
+            if notify and on_refused is not None:
+                on_refused(request_id)
+        return accepted
+
+    # -- KV admit (the reply path) -----------------------------------------
+    def _on_reply(self, _topic, payload) -> None:
+        try:
+            command, params = wire.decode_envelope(payload)
+        except wire.WireError as exc:
+            # a truncated or foreign payload: dropped; the transfer timer
+            # retries, then the ladder prefills locally
+            self.stats["transfer_corrupt"] += 1
+            self.logger.warning("disagg %s: corrupt KV transfer "
+                                "dropped: %s", self.name, exc)
+            return
+        if command == wire.KV_BATCH_COMMAND:
+            # coalesced transfers: each member runs the lone envelope's
+            # validation and install, so a corrupt member fails alone
+            try:
+                members = wire.kv_batch_members(command, params)
+            except wire.WireError as exc:
+                self.stats["transfer_corrupt"] += 1
+                self.logger.warning(
+                    "disagg %s: corrupt KV transfer batch dropped: %s",
+                    self.name, exc)
+                return
+            self.stats["batched_replies"] += 1
+            for member in members:
+                try:
+                    inner_command, inner_params = \
+                        wire.decode_envelope(member)
+                except wire.WireError as exc:
+                    self.stats["transfer_corrupt"] += 1
+                    self.logger.warning(
+                        "disagg %s: corrupt batch member dropped: %s",
+                        self.name, exc)
+                    continue
+                self._handle_transfer(member, inner_command, inner_params)
+            return
+        self._handle_transfer(payload, command, params)
+
+    def _local_layout(self) -> tuple:
+        return self.cache.wire_layout() if self.cache is not None \
+            else self.decoder.kv_wire_layout()
+
+    def _handle_transfer(self, payload, command, params) -> None:
+        try:
+            out = wire.validate_kv_transfer_params(command, params)
+        except wire.WireError as exc:
+            self.stats["transfer_corrupt"] += 1
+            self.logger.warning("disagg %s: corrupt KV transfer "
+                                "dropped: %s", self.name, exc)
+            return
+        if not out.get("final", True):
+            # a streamed chunk: install it without settling (the final
+            # envelope still owes first_token and the submit)
+            self._handle_chunk(payload, out)
+            return
+        entry = self._settle(out["transfer_id"])
+        if entry is None:
+            return              # a late duplicate after timeout/fallback
+        chunk_first = entry.get("chunk_first")
+        # out["first_token"] goes unused: the decode-side suffix extend
+        # recomputes the first token, so parity never depends on donor
+        # state (the field is a wire-level diagnostic)
+        elapsed = time.perf_counter() - entry["started"]
+        self.stats["transfer_bytes"] += len(payload)
+        self._transfer_seconds.observe(elapsed)
+        self.transfer_samples.append(elapsed)
+        tenant_key = str(entry["tenant"] or "")
+        local_layout = self._local_layout()
+        if out["blocks"] and \
+                tuple(str(f) for f in out["layout"]) != local_layout:
+            self.stats["layout_mismatch"] += 1
+            self.stats["local_fallbacks"] += 1
+            self.logger.warning(
+                "disagg %s: transfer %s layout %r does not match the "
+                "decode cache %r; prefilling locally", self.name,
+                out["transfer_id"], out["layout"], local_layout)
+            self._drop_chunks(entry)
+            self._local_entry(entry)
+            return
+        blocks = _landing(out["blocks"])
+        direct_ids: list = []
+        try:
+            if self.cache is not None:
+                installed = self.cache.install_chain(
+                    tenant_key, out["tokens"], out["start_block"], blocks)
+            else:
+                # direct slot-table install: streamed chunks landed a
+                # contiguous prefix already; the final span must continue
+                # it exactly (the ordered-cursor guard), or the prefix
+                # alone is used
+                prior = entry.get("direct_ids") or []
+                start = out["start_block"]
+                if prior and entry.get("chunk_next") == start:
+                    _, ids = self.decoder.install_shipped_blocks(
+                        out["tokens"], start, blocks, tenant=tenant_key)
+                    direct_ids = prior + ids
+                elif prior:
+                    self.stats["chunk_dropped"] += 1
+                    direct_ids = prior
+                else:
+                    if start != 0:
+                        raise ValueError(
+                            "direct install cannot start mid-chain "
+                            f"(start_block={start}) with no streamed "
+                            "prefix")
+                    _, direct_ids = self.decoder.install_shipped_blocks(
+                        out["tokens"], 0, blocks, tenant=tenant_key)
+                entry.pop("direct_ids", None)
+                installed = len(direct_ids)
+                self.stats["direct_installs"] += 1
+        except (ValueError, TypeError, IndexError) as exc:
+            # schema-legal but geometry-wrong blocks are refused before
+            # any row lands; the ladder prefills locally
+            self.stats["transfer_corrupt"] += 1
+            self.stats["local_fallbacks"] += 1
+            self.logger.warning(
+                "disagg %s: transfer %s refused at install (%s); "
+                "prefilling locally", self.name, out["transfer_id"], exc)
+            self._drop_chunks(entry)
+            self._local_entry(entry)
+            return
+        self.stats["installs"] += 1
+        self.stats["installed_blocks"] += installed
+        # a streamed transfer's final start_block sits at the chunk
+        # cursor: only blocks below the stream's low-water mark crossed
+        # as handles
+        handle = out["start_block"]
+        base = entry.get("chunk_base")
+        if base is not None:
+            handle = min(handle, int(base))
+        self.stats["handle_blocks"] += handle
+        self.stats["raw_blocks"] += len(out["blocks"])
+        if chunk_first is not None:
+            # the stream began landing KV while the donor was prefilling:
+            # the time since the first chunk was hidden behind compute
+            self.stats["chunk_streamed"] += 1
+            self.stats["transfer_overlap_s"] += \
+                max(0.0, time.perf_counter() - chunk_first)
+        trc = tracing.tracer
+        if trc.enabled and entry.get("trace") is not None:
+            trc.record("kv_transfer", entry["started"], elapsed,
+                       context=entry["trace"], cat="disagg",
+                       proc=self.name, span_id=tracing.new_span_id(),
+                       args={"bytes": len(payload),
+                             "raw_blocks": len(out["blocks"]),
+                             "handle_blocks": out["start_block"],
+                             "installed": installed})
+        # the decode-side submit: the probe longest-matches the installed
+        # chain (paged: aliases its pool blocks) and only the ragged
+        # suffix prefills; a cacheless pool hands the ids over instead.
+        # Labelled "remote" for the TTFT sketches and journeys
+        with tracing.activate(entry.get("trace")):
+            if self.cache is None:
+                covered = installed * self.decoder.kv_block
+                self._submit_installed(entry,
+                                       kv_blocks=(covered, direct_ids))
+            else:
+                self._submit_installed(entry)
+
+    def _handle_chunk(self, payload, out: dict) -> None:
+        """Install one streamed chunk of a pending transfer.  Chunks are
+        best effort: a gap, a layout drift or an install refusal drops
+        the chunk and leaves correctness to the final envelope's ladder
+        (cache installs are content-addressed; direct installs keep only
+        a contiguous-from-zero prefix)."""
+        transfer_id = out["transfer_id"]
+        entry = self._pending.get(transfer_id)
+        if entry is None:
+            return          # a late chunk after settle/timeout/fallback
+        if not out["blocks"] or \
+                tuple(str(f) for f in out["layout"]) != \
+                self._local_layout():
+            self.stats["chunk_dropped"] += 1
+            return
+        expected = entry.get("chunk_next")
+        if expected is not None and out["start_block"] != expected:
+            # the ordered-cursor guard: a lost sibling left a gap
+            self.stats["chunk_dropped"] += 1
+            return
+        if self.cache is None and expected is None and \
+                out["start_block"] != 0:
+            # a direct stream is usable only from block 0
+            self.stats["chunk_dropped"] += 1
+            return
+        try:
+            if self.cache is not None:
+                installed = self.cache.install_chain(
+                    str(entry["tenant"] or ""), out["tokens"],
+                    out["start_block"], _landing(out["blocks"]))
+            else:
+                _, ids = self.decoder.install_shipped_blocks(
+                    out["tokens"], out["start_block"],
+                    _landing(out["blocks"]),
+                    tenant=str(entry["tenant"] or ""))
+                entry.setdefault("direct_ids", []).extend(ids)
+                installed = len(ids)
+        except (ValueError, TypeError, IndexError) as exc:
+            self.stats["chunk_dropped"] += 1
+            self.logger.warning(
+                "disagg %s: streamed chunk for %s refused at install "
+                "(%s); dropped", self.name, transfer_id, exc)
+            return
+        if "chunk_first" not in entry:
+            entry["chunk_first"] = time.perf_counter()
+            # the stream's low-water mark: blocks below it crossed as
+            # handles, blocks above it as streamed bytes
+            entry["chunk_base"] = out["start_block"]
+        entry["chunk_next"] = out["start_block"] + len(out["blocks"])
+        self.stats["chunk_installs"] += 1
+        self.stats["chunk_blocks"] += installed
+        self.stats["raw_blocks"] += len(out["blocks"])
+        self.stats["transfer_bytes"] += len(payload)
+        # a streaming donor is alive: restart the timeout per chunk, so
+        # a long prompt's stream outlives a budget sized for one envelope
+        timer = entry.pop("timer", None)
+        if timer is not None:
+            self.runtime.event.remove_timer_handler(timer)
+            entry["timer"] = self.runtime.event.add_oneshot_handler(
+                lambda: self._transfer_expired(transfer_id),
+                self.transfer_timeout)
+
+    def _submit_installed(self, entry: dict,
+                          kv_blocks: tuple | None = None) -> None:
+        accepted = self.decoder.submit(
+            entry["request_id"], entry["prompt"], entry["max_new"],
+            entry["callback"], deadline=entry["deadline"],
+            tenant=entry["tenant"], prefill_label="remote",
+            kv_blocks=kv_blocks)
+        if not accepted:
+            self.stats["install_shed"] += 1
+            if kv_blocks is not None and kv_blocks[1]:
+                # ownership never passed: the shed request must not leak
+                # its installed pool blocks
+                self.decoder.pool.release_blocks(
+                    kv_blocks[1], tenant=str(entry["tenant"] or ""))
+            if entry["on_refused"] is not None:
+                entry["on_refused"](entry["request_id"])
+
+    def handle_hit_rate(self) -> float:
+        """Fraction of transferred chain blocks that crossed as handles
+        instead of bytes (chains the decode side held)."""
+        total = self.stats["handle_blocks"] + self.stats["raw_blocks"]
+        return self.stats["handle_blocks"] / total if total else 0.0
+
+    def pending_count(self) -> int:
+        return len(self._pending)
+
+    def stop(self) -> None:
+        for transfer_id in list(self._pending):
+            entry = self._settle(transfer_id)
+            if entry is not None:
+                # teardown owes every in-flight request a local home
+                self._drop_chunks(entry)
+                self.stats["local_fallbacks"] += 1
+                self._local_entry(entry)
+        if self._cache_handler is not None:
+            self._services_cache.remove_handler(self._cache_handler)
+            self._cache_handler = None
+        if self.runtime.peer is not None:
+            # this client's reply topic must not be re-pinned on later
+            # redials of the shared channel
+            self.runtime.peer.unregister_reply_topic(self.reply_topic)
+        self.runtime.remove_message_handler(self._on_reply,
+                                            self.reply_topic)
+
+
+# -- session migration -------------------------------------------------------
+
+class SessionMigrator:
+    """Both halves of session KV migration.
+
+    A draining runtime's sessions (pinned prefix-cache chains and their
+    SessionTable records) ship to a destination, so a migrated
+    conversation's next turn is a prefix hit there, not a full
+    re-prefill.  One instance serves both roles on one binary topic,
+    {runtime.topic_path}/migrate:
+
+      source:  migrate(dest) offers each live session (encode_kv_migrate:
+               the tokens the pinned chain covers and the history); on
+               the destination's ack it ships the chain as chunk-streamed
+               KV_TRANSFER envelopes (blocks the destination holds cross
+               as handles; host-tier rows are promoted first, promote_for)
+               and the done leg releases the local pin and record;
+      dest:    probes its cache for the offered chain, acks with its
+               resident-block count, installs arriving chunks under the
+               ordered-cursor guard, and on the final envelope re-pins
+               the chain under the session handle, re-creates the record
+               and sends done.
+
+    Failure degrades, never corrupts: a timed-out transfer keeps the
+    session at the source, a shed destination table.create releases the
+    pin it took and withholds done, and a layout or gap anomaly drops
+    chunks (the destination lands history only and re-prefills).
+    Single-threaded on the owning runtime's engine."""
+
+    def __init__(self, runtime, cache, table=None, name: str = "migrate",
+                 chunk_blocks: int = 8, transfer_timeout: float = 5.0,
+                 registry=None):
+        if cache is None:
+            raise ValueError("SessionMigrator needs a PrefixKVCache "
+                             "(the pinned chains are the cargo)")
+        self.runtime = runtime
+        self.cache = cache
+        self.table = table
+        self.name = str(name)
+        self.logger = get_logger(f"disagg.migrate.{name}")
+        self.chunk_blocks = max(1, int(chunk_blocks))
+        self.transfer_timeout = float(transfer_timeout)
+        self._registry = registry or default_registry()
+        self.topic = f"{runtime.topic_path}/migrate"
+        runtime.add_message_handler(self._on_message, self.topic,
+                                    binary=True)
+        self._outbound: dict[str, dict] = {}     # source-role transfers
+        self._inbound: dict[str, dict] = {}      # destination-role
+        self._done_callback = None
+        self._outbox = _Outbox(runtime.event)
+        self.stats = MirroredStats(
+            {"offers": 0, "received": 0, "acks": 0, "chunks": 0,
+             "shipped_blocks": 0, "handle_blocks": 0,
+             "installed_blocks": 0, "landed": 0, "migrated": 0,
+             "refused": 0, "expired": 0, "dropped_chunks": 0,
+             "corrupt": 0},
+            metric="kv_migrate_events_total",
+            help="session KV migration events by kind",
+            registry=self._registry, labels={"migrator": self.name})
+
+    def _trace_fields(self):
+        context = tracing.current_trace()
+        return context.to_fields(self.runtime.event.clock.now()) \
+            if context is not None else None
+
+    # -- source role -------------------------------------------------------
+    def migrate(self, dest_topic: str, on_done=None) -> int:
+        """Offer every live session to the migrator at `dest_topic` (a
+        peer's .topic).  Returns the offers sent; `on_done(self)` fires
+        once every offer has settled (done leg or timeout), at once with
+        no sessions."""
+        self._done_callback = on_done
+        sessions = self.table.items() if self.table is not None else []
+        sent = 0
+        for tenant, sid, payload in sessions:
+            history, kv_tokens = [], 0
+            if isinstance(payload, dict):
+                history = [int(t) for t in payload.get("history", ())]
+                kv_tokens = max(0, int(payload.get("kv_tokens", 0)))
+            # the pinned chain covers a history prefix
+            tokens = history[:kv_tokens]
+            transfer_id = f"mig-{uuid.uuid4().hex[:12]}"
+            entry = {"tenant": str(tenant), "sid": str(sid),
+                     "tokens": tokens, "history": history,
+                     "dest": str(dest_topic)}
+            entry["timer"] = self.runtime.event.add_oneshot_handler(
+                lambda tid=transfer_id: self._expired(tid),
+                self.transfer_timeout)
+            self._outbound[transfer_id] = entry
+            self.runtime.publish(str(dest_topic), wire.encode_kv_migrate(
+                transfer_id, str(tenant), str(sid), self.topic,
+                np.asarray(tokens, np.int32),
+                np.asarray(history, np.int32),
+                trace=self._trace_fields()))
+            self.stats["offers"] += 1
+            sent += 1
+        if sent == 0:
+            self._maybe_finished()
+        return sent
+
+    def _restart_timer(self, entry: dict, transfer_id: str,
+                       inbound: bool = False) -> None:
+        timer = entry.pop("timer", None)
+        if timer is not None:
+            self.runtime.event.remove_timer_handler(timer)
+        entry["timer"] = self.runtime.event.add_oneshot_handler(
+            lambda: self._expired(transfer_id, inbound=inbound),
+            self.transfer_timeout)
+
+    def _expired(self, transfer_id: str, inbound: bool = False) -> None:
+        table = self._inbound if inbound else self._outbound
+        entry = table.pop(transfer_id, None)
+        if entry is None:
+            return
+        entry.pop("timer", None)
+        self.stats["expired"] += 1
+        self.logger.warning(
+            "migrate %s: transfer %s (%s/%s) timed out; the session "
+            "stays %s", self.name, transfer_id, entry["tenant"],
+            entry["sid"], "unlanded" if inbound else "at the source")
+        if inbound:
+            # a half-streamed chain stays cached (content-addressed), but
+            # the session never landed: no pin, no record
+            return
+        self._maybe_finished()
+
+    def _maybe_finished(self) -> None:
+        if self._outbound or self._done_callback is None:
+            return
+        callback, self._done_callback = self._done_callback, None
+        callback(self)
+
+    def _settle(self, transfer_id: str, inbound: bool = False):
+        table = self._inbound if inbound else self._outbound
+        entry = table.pop(transfer_id, None)
+        if entry is None:
+            return None
+        timer = entry.pop("timer", None)
+        if timer is not None:
+            self.runtime.event.remove_timer_handler(timer)
+        return entry
+
+    # -- wire dispatch -----------------------------------------------------
+    def _on_message(self, _topic, payload) -> None:
+        try:
+            command, params = wire.decode_envelope(payload)
+        except wire.WireError as exc:
+            self.stats["corrupt"] += 1
+            self.logger.warning("migrate %s: corrupt envelope dropped: "
+                                "%s", self.name, exc)
+            return
+        try:
+            if command == wire.KV_MIGRATE_COMMAND:
+                self._on_offer(command, params)
+            elif command == wire.KV_MIGRATE_ACK_COMMAND:
+                self._on_ack(command, params)
+            elif command == wire.KV_MIGRATE_DONE_COMMAND:
+                self._on_done_leg(command, params)
+            elif command == wire.KV_TRANSFER_COMMAND:
+                self._on_transfer(command, params)
+            else:
+                self.stats["corrupt"] += 1
+                self.logger.warning("migrate %s: unexpected command %r "
+                                    "dropped", self.name, command)
+        except wire.WireError as exc:
+            self.stats["corrupt"] += 1
+            self.logger.warning("migrate %s: malformed %s dropped: %s",
+                                self.name, command, exc)
+
+    # -- destination role --------------------------------------------------
+    def _on_offer(self, command, params) -> None:
+        out = wire.validate_kv_migrate_params(command, params)
+        transfer_id = out["transfer_id"]
+        tenant = out["tenant"]
+        tokens = [int(t) for t in np.asarray(out["tokens"])]
+        self.stats["received"] += 1
+        have = 0
+        if tokens:
+            if self.cache.tiered:
+                # this chain may be host-resident here already: promote
+                # before probing, so the ack's mark spares those blocks
+                # the wire.  promote_for has admit semantics ((len - 1) //
+                # block); the sentinel token promotes the final block too
+                self.cache.promote_for(tenant, tokens + tokens[-1:])
+            _, have = self.cache.match(tenant, tokens)
+        block = self.cache.block_tokens
+        entry = {"tenant": tenant, "sid": out["sid"], "tokens": tokens,
+                 "history": [int(t) for t in np.asarray(out["history"])],
+                 "reply_topic": out["reply_topic"],
+                 "cursor": None, "installed": 0}
+        self._inbound[transfer_id] = entry
+        self._restart_timer(entry, transfer_id, inbound=True)
+        self.runtime.publish(
+            out["reply_topic"],
+            wire.encode_kv_migrate_reply(
+                wire.KV_MIGRATE_ACK_COMMAND, transfer_id, have // block,
+                trace=self._trace_fields()))
+
+    def _on_transfer(self, command, params) -> None:
+        out = wire.validate_kv_transfer_params(command, params)
+        transfer_id = out["transfer_id"]
+        entry = self._inbound.get(transfer_id)
+        if entry is None:
+            return              # a late chunk after timeout
+        cache = self.cache
+        installed = 0
+        usable = not out["blocks"] or \
+            tuple(str(f) for f in out["layout"]) == cache.wire_layout()
+        if usable and out["blocks"] and entry["cursor"] is not None \
+                and out["start_block"] != entry["cursor"]:
+            # the ordered-cursor guard: a lost sibling left a gap
+            usable = False
+        if usable and out["blocks"]:
+            try:
+                installed = cache.install_chain(
+                    entry["tenant"], out["tokens"], out["start_block"],
+                    _landing(out["blocks"]))
+                entry["cursor"] = out["start_block"] + len(out["blocks"])
+                entry["installed"] += installed
+                self.stats["installed_blocks"] += installed
+                ledger = getattr(cache, "_ledger", None)
+                if ledger is not None and installed:
+                    ledger.event("migrate_in", installed)
+            except (ValueError, TypeError, IndexError) as exc:
+                self.stats["dropped_chunks"] += 1
+                self.logger.warning(
+                    "migrate %s: transfer %s chunk refused at install "
+                    "(%s); dropped", self.name, transfer_id, exc)
+        elif out["blocks"]:
+            self.stats["dropped_chunks"] += 1
+        if not out["final"]:
+            self._restart_timer(entry, transfer_id, inbound=True)
+            return
+        self._land(transfer_id, self._settle(transfer_id, inbound=True))
+
+    def _land(self, transfer_id: str, entry: dict) -> None:
+        """The final envelope arrived: pin the landed chain under the
+        session handle, re-create the table record and send done.  A
+        shed create withholds done, so the source's timeout keeps the
+        session there instead of deleting the only copy."""
+        cache = self.cache
+        tenant, sid = entry["tenant"], entry["sid"]
+        leaf, kv_tokens = cache.session_store(tenant, sid,
+                                              entry["history"])
+        if self.table is not None and not self.table.create(
+                tenant, sid, {"history": entry["history"],
+                              "kv": leaf or "", "kv_tokens": kv_tokens}):
+            cache.session_release(tenant, sid)
+            self.stats["refused"] += 1
+            self.logger.warning(
+                "migrate %s: transfer %s refused: destination table shed "
+                "(%s/%s); withholding done", self.name, transfer_id,
+                tenant, sid)
+            return
+        self.stats["landed"] += 1
+        self.runtime.publish(
+            entry["reply_topic"],
+            wire.encode_kv_migrate_reply(
+                wire.KV_MIGRATE_DONE_COMMAND, transfer_id,
+                entry["installed"], trace=self._trace_fields()))
+
+    # -- source role, reply legs -------------------------------------------
+    def _on_ack(self, command, params) -> None:
+        transfer_id, have_blocks = \
+            wire.validate_kv_migrate_reply(command, params)
+        entry = self._outbound.get(transfer_id)
+        if entry is None:
+            return
+        self.stats["acks"] += 1
+        cache = self.cache
+        block = cache.block_tokens
+        tenant, tokens = entry["tenant"], entry["tokens"]
+        if cache.tiered and tokens:
+            # demoted session rows must be pool-resident before they can
+            # ship (the admit-semantics sentinel again)
+            cache.promote_for(tenant, tokens + tokens[-1:])
+        keys, hit = cache.match(tenant, tokens)
+        start = min(max(0, int(have_blocks)), hit // block)
+        end = hit // block
+        self.stats["handle_blocks"] += start
+        self.stats["shipped_blocks"] += end - start
+        ledger = getattr(cache, "_ledger", None)
+        if ledger is not None and end > start:
+            ledger.event("migrate_out", end - start)
+        trace, layout = self._trace_fields(), cache.wire_layout()
+        # a chunk-streamed ship: every envelope carries the whole token
+        # list (install_chain re-keys from it), blocks in chunk_blocks
+        # strides; the final flag rides the last envelope, sent even
+        # with no blocks, since it triggers the destination's land
+        cursor = start
+        while True:
+            upto = min(end, cursor + self.chunk_blocks)
+            final = upto >= end
+            rows = _chain_wire_blocks(cache, keys[cursor:upto])
+
+            def send(rows=rows, cursor=cursor, final=final):
+                self.runtime.publish(entry["dest"], wire.encode_kv_transfer(
+                    transfer_id, tenant, tokens, cursor, block, layout,
+                    rows.blocks, trace=trace, final=final))
+            self._outbox.put(rows, send)
+            self.stats["chunks"] += 1
+            cursor = upto
+            if final:
+                break
+        self._restart_timer(entry, transfer_id)
+
+    def _on_done_leg(self, command, params) -> None:
+        transfer_id, _installed = \
+            wire.validate_kv_migrate_reply(command, params)
+        entry = self._settle(transfer_id)
+        if entry is None:
+            return
+        # the destination owns the session now: drop the local pin and
+        # the record (remove, not demote: its demotion hook must not fire)
+        self.cache.session_release(entry["tenant"], entry["sid"])
+        if self.table is not None:
+            self.table.remove(entry["tenant"], entry["sid"],
+                              reason="migrated")
+        self.stats["migrated"] += 1
+        self._maybe_finished()
+
+    def pending_count(self) -> int:
+        return len(self._outbound) + len(self._inbound)
+
+    def stop(self) -> None:
+        self._outbox.flush()
+        for transfer_id in list(self._outbound):
+            self._settle(transfer_id)       # sessions stay local
+        for transfer_id in list(self._inbound):
+            self._settle(transfer_id, inbound=True)
+        self.runtime.remove_message_handler(self._on_message, self.topic)
+
+
+def two_pool_autoscalers(runtime, prefill_manager, decode_manager,
+                         prefill_policy=None, decode_policy=None,
+                         interval: float = 2.0,
+                         topic_filter: str | None = None):
+    """One autoscaler per pool, each armed with its own pool's signals
+    (prefill queue depth for the prefill pool, fleet-merged ITL p95 for
+    the decode pool).  Not ported yet: it needs the autoscaler."""
+    raise NotImplementedError(AUTOSCALER_NOT_PORTED)
+
+
+# -- the two-pool harness ----------------------------------------------------
+
+class DisaggHarness:
+    """A two-pool serving plane in one process: a registrar and peer-
+    enabled prefill and decode runtimes over one MemoryBroker and one
+    real-clock EventEngine.  disagg=False builds the colocated A/B: the
+    same decode decoder and cache, no prefill pool, no client.  Both
+    sides' decoders take decoder_opts (without a "device": the card) and
+    may share one set of parameter tensors."""
+
+    def __init__(self, params, config, *, disagg: bool = True,
+                 block_tokens: int = 16, max_slots: int = 8,
+                 prefill_slots: int = 4, steps_per_sync: int = 4,
+                 prefill_buckets=(64,), prefill_chunk: int | None = None,
+                 cache_mb: int = 512, decoder_opts: dict | None = None,
+                 fault_plan=None, transfer_timeout: float = 5.0,
+                 retries: int = 1, batch_window: float = 0.0,
+                 chunk_stream: bool | None = None, registry=None):
+        from .event import EventEngine
+        from .process import ProcessRuntime
+        from .registrar import Registrar
+        from .serving import ContinuousDecoder, PrefixKVCache
+        from .share import ServicesCache
+        from .transport.memory import MemoryBroker, MemoryMessage
+
+        self.engine = EventEngine()
+        self.broker = MemoryBroker()
+        self.disagg = bool(disagg)
+        self._registry = registry or default_registry()
+
+        def make_rt(name):
+            def factory(on_message, lwt_topic, lwt_payload, lwt_retain):
+                return MemoryMessage(
+                    on_message=on_message, broker=self.broker,
+                    lwt_topic=lwt_topic, lwt_payload=lwt_payload,
+                    lwt_retain=lwt_retain, client_id=name)
+            return ProcessRuntime(name=name, engine=self.engine,
+                                  transport_factory=factory).initialize()
+
+        self.registrar_rt = make_rt("disagg_reg")
+        self.registrar = Registrar(self.registrar_rt)
+        opts = dict(decoder_opts or {})
+
+        self.decode_rt = make_rt("disagg_decode")
+        self.decode_rt.enable_peer()
+        self.cache = PrefixKVCache(
+            block_tokens=int(block_tokens), max_bytes=int(cache_mb) << 20,
+            name="disagg.decode", registry=self._registry)
+        self.decoder = ContinuousDecoder(
+            params, config, max_slots=int(max_slots),
+            prefill_buckets=tuple(prefill_buckets),
+            steps_per_sync=int(steps_per_sync),
+            prefill_chunk=prefill_chunk, name="disagg.decode",
+            prefix_cache=self.cache, registry=self._registry, **opts)
+        # pump flat-out (once per engine step), not from a periodic
+        # timer: a short timer against long rounds replays the pump in
+        # the engine's catch-up loop and starves the message queues,
+        # and a slow one idles the decoder and hides the prefill
+        # interference this harness measures
+        self.engine.add_flatout_handler(self.decoder.pump)
+
+        self.prefill_rt = None
+        self.prefill = None
+        self.client = None
+        if self.disagg:
+            self.prefill_rt = make_rt("disagg_prefill")
+            self.prefill_rt.enable_peer(fault_plan=fault_plan)
+            self.prefill = PrefillRuntime(
+                self.prefill_rt, "disagg_prefill",
+                params=params, config=config,
+                block_tokens=int(block_tokens), cache_mb=cache_mb,
+                max_slots=int(prefill_slots),
+                prefill_buckets=tuple(prefill_buckets),
+                prefill_chunk=prefill_chunk, decoder_opts=opts,
+                pump_period=0, batch_window=batch_window,
+                chunk_stream=chunk_stream, registry=self._registry)
+            cache = ServicesCache(self.decode_rt)
+            self.client = PrefillClient(
+                self.decode_rt, self.decoder, services_cache=cache,
+                name="disagg", transfer_timeout=transfer_timeout,
+                retries=retries, registry=self._registry)
+            self._services_cache = cache
+
+    # -- driving ------------------------------------------------------------
+    def wait_discovered(self, timeout: float = 10.0) -> bool:
+        """Step the engine until the client sees the prefill pool; True
+        at once when colocated."""
+        if not self.disagg:
+            return True
+        return self.engine.run_until(lambda: bool(self.client.loads),
+                                     timeout=timeout)
+
+    def submit(self, request_id, prompt, max_new, callback,
+               tenant: str = "", deadline=None):
+        if self.client is not None:
+            return self.client.submit(request_id, prompt, max_new,
+                                      callback, deadline=deadline,
+                                      tenant=tenant)
+        return self.decoder.submit(request_id, prompt, max_new, callback,
+                                   deadline=deadline, tenant=tenant)
+
+    def run_until(self, predicate, timeout: float = 30.0) -> bool:
+        return self.engine.run_until(predicate, timeout=timeout)
+
+    def measure(self, window: float = 6.0, streams: int = 6,
+                stream_prompt: int = 12, stream_new: int = 24,
+                burst: int = 4, burst_prompt: int = 288,
+                burst_new: int = 4, burst_every: float = 1.5,
+                seed: int = 11) -> dict:
+        """The two-pool workload: `streams` closed-loop decode streams
+        (short prompts, long generations, tenant "stream") run the whole
+        window; its second half adds a cold-prefill burst (`burst` long
+        prompts every `burst_every` seconds, tenant "burst") sharing a
+        seeded half-prompt prefix.  Reports the streams' ITL p50 / p95
+        per half from the tenant-filtered sketches, the worst stall per
+        request, transfer cost and volume, the handle-hit rate, the
+        fallback counts and a zero-lost account (submitted == completed
+        after the drain)."""
+        rng = np.random.default_rng(seed)
+        vocab = self.decoder.config.vocab
+        state = {"stop": False, "stream_done": 0, "burst_done": 0,
+                 "stream_posted": 0, "burst_posted": 0, "seq": 0}
+        # after the first burst's harvest the decode side holds the
+        # shared prefix, so later transfers ship it as handles
+        shared_prefix = rng.integers(
+            1, vocab, size=burst_prompt // 2).tolist()
+
+        def post_stream(i):
+            state["seq"] += 1
+            state["stream_posted"] += 1
+            prompt = rng.integers(1, vocab, size=stream_prompt).tolist()
+
+            def on_done(_rid, _tokens):
+                state["stream_done"] += 1
+                if not state["stop"]:
+                    post_stream(i)
+
+            self.submit(f"st{i}.{state['seq']}", prompt, stream_new,
+                        on_done, tenant="stream")
+
+        def on_burst_done(_rid, _tokens):
+            state["burst_done"] += 1
+
+        def post_burst(count=None):
+            for _ in range(count or burst):
+                state["seq"] += 1
+                state["burst_posted"] += 1
+                prompt = shared_prefix + rng.integers(
+                    1, vocab,
+                    size=burst_prompt - len(shared_prefix)).tolist()
+                self.submit(f"bu{state['seq']}", prompt, burst_new,
+                            on_burst_done, tenant="burst")
+
+        # warm-up: every dispatch shape (stream admit widths, burst chunk
+        # extends, prefix-hit widths, the transfer machinery) runs once
+        # before anything is measured, a full burst and a lone prompt
+        # among them; gated on the burst completions, since the streams
+        # finish early and resubmit
+        for i in range(streams):
+            post_stream(i)
+        post_burst()
+        post_burst(1)
+        self.run_until(
+            lambda: state["burst_done"] >= burst + 1 and
+            state["stream_done"] >= streams, timeout=600.0)
+        # a second wave with the shared prefix cached: the prefix-hit
+        # shapes (and, disaggregated, the handle path) before the window
+        post_burst()
+        self.run_until(lambda: state["burst_done"] >= 2 * burst + 1,
+                       timeout=600.0)
+        self.decoder.clear_slo_sketches()
+        self.decoder.ttft_samples.clear()
+        self.decoder.itl_samples.clear()
+        self.decoder.gap_samples.clear()
+
+        def stall_p95():
+            samples = sorted(self.decoder.gap_samples)
+            self.decoder.gap_samples.clear()
+            if not samples:
+                return None
+            return round(samples[int(0.95 * (len(samples) - 1))] * 1000.0,
+                         3)
+
+        deadline = time.perf_counter() + window / 2.0
+        self.run_until(lambda: time.perf_counter() >= deadline,
+                       timeout=window + 120.0)
+        baseline = self.decoder.slo_sketch_stats(tenant="stream")
+        baseline_stall = stall_p95()
+        base_done = state["stream_done"]
+        self.decoder.clear_slo_sketches()
+
+        timer = self.engine.add_timer_handler(post_burst, burst_every)
+        deadline = time.perf_counter() + window / 2.0
+        self.run_until(lambda: time.perf_counter() >= deadline,
+                       timeout=window + 120.0)
+        self.engine.remove_timer_handler(timer)
+        state["stop"] = True
+        drained = self.run_until(
+            lambda: self.decoder.idle and
+            (self.client is None or self.client.pending_count() == 0),
+            timeout=180.0)
+        burst_phase = self.decoder.slo_sketch_stats(tenant="stream")
+        posted = state["stream_posted"] + state["burst_posted"]
+        done = state["stream_done"] + state["burst_done"]
+        out = {
+            "itl_p95_baseline_ms": baseline["itl_p95_ms"],
+            "itl_p50_baseline_ms": baseline["itl_p50_ms"],
+            "itl_p95_burst_ms": burst_phase["itl_p95_ms"],
+            "itl_p50_burst_ms": burst_phase["itl_p50_ms"],
+            # the worst inter-sync stall per request: what prefill
+            # interference inflates most directly
+            "stall_p95_baseline_ms": baseline_stall,
+            "stall_p95_burst_ms": stall_p95(),
+            "stream_completions": state["stream_done"],
+            "stream_completions_baseline": base_done,
+            "burst_completions": state["burst_done"],
+            "posted": posted, "completed": done,
+            "lost": posted - done, "drained": bool(drained),
+        }
+        if self.client is not None:
+            stats = self.client.stats
+            samples = sorted(self.client.transfer_samples)
+            out.update({
+                "transfers": stats["transfers"],
+                "transfer_bytes": stats["transfer_bytes"],
+                "transfer_p50_ms": round(
+                    samples[len(samples) // 2] * 1000.0, 3)
+                if samples else None,
+                "transfer_p95_ms": round(
+                    samples[int(0.95 * (len(samples) - 1))] * 1000.0, 3)
+                if samples else None,
+                "handle_hit_rate": round(self.client.handle_hit_rate(), 4),
+                "local_fallbacks": stats["local_fallbacks"],
+                "install_shed": stats["install_shed"],
+                # chunk streaming: transfers that overlapped the donor's
+                # prefill, and the transfer time that overlap hid
+                "chunk_streamed": stats["chunk_streamed"],
+                "chunk_installs": stats["chunk_installs"],
+                "chunk_dropped": stats["chunk_dropped"],
+                "transfer_overlap_s": round(
+                    stats["transfer_overlap_s"], 4),
+            })
+        return out
+
+    def kill_prefill(self) -> None:
+        """Chaos: the prefill pool dies (a crash: its last will removes
+        its records and channels collapse).  In-flight transfers ride the
+        client's fallback ladder."""
+        if self.prefill_rt is not None:
+            self.prefill_rt.terminate(graceful=False)
+            self.prefill_rt = None
+            self.prefill = None
+
+    def stop(self) -> None:
+        if self.client is not None:
+            self.client.stop()
+        if self.prefill is not None:
+            self.prefill.stop()
+        self.engine.remove_flatout_handler(self.decoder.pump)
+        if self.prefill_rt is not None:
+            self.prefill_rt.terminate()
+        self.decode_rt.terminate()
+        self.registrar_rt.terminate()

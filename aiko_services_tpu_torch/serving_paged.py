@@ -349,7 +349,7 @@ class BlockPool:
     def block_rows(self, block_id: int) -> tuple:
         """(per-layer K leaves, per-layer V leaves) of one block: views
         into the pool in its storage layout (the read behind shipping a
-        cached block; the wire itself is ROADMAP.md Queue 1 item 3)."""
+        cached block, serving_disagg.py)."""
         return ([L.slice_paged_block(pool, block_id)
                  for pool in self.k_pools],
                 [L.slice_paged_block(pool, block_id)

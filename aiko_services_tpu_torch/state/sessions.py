@@ -19,7 +19,7 @@
 # Tenant and session ids must not contain ".", "/" or spaces.  With a KV
 # memory ledger attached (attach_ledger), lease pins and demotions count
 # as its lifecycle events.  The load generator (state/loadgen.py) waits
-# for ROADMAP.md Queue 1 item 11.
+# for ROADMAP.md Queue 1 item 10.
 
 from __future__ import annotations
 

@@ -1152,6 +1152,21 @@ class PeerHost:
                        record.get("pin_topics", ()),
                        record.get("reply_topics", ()), _redial=True)
 
+    def unregister_reply_topic(self, topic: str) -> None:
+        """Remove `topic` from every negotiation record's reply list and
+        its attach marks: a per-instance reply topic (a disaggregated
+        client's) whose owner is gone must not be re-pinned on every
+        redial.  Serving-side pins of the dead topic die with the
+        channel."""
+        with self._lock:
+            for record in self._negotiations.values():
+                topics = record.get("reply_topics")
+                if topics and topic in topics:
+                    record["reply_topics"] = [t for t in topics
+                                              if t != topic]
+            for key in [k for k in self._attached if k[1] == topic]:
+                del self._attached[key]
+
     def release(self, topic: str, close_channel: bool = True) -> None:
         """Drop the pin for `topic` (service left, pipeline stopped).
         The channel closes once nothing is pinned to it."""

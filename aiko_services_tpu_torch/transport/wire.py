@@ -59,9 +59,14 @@ __all__ = [
     "tenant_fields", "is_tenant_fields", "parse_tenant", "pop_tenant",
     "BUFFER_MARKER", "BUFFER_MARKER_ARITY", "TRACE_FIELDS_ARITY",
     "TENANT_FIELDS_ARITY", "HOP_ENTRY_FIELDS", "HOP_ENTRY_OPTIONAL",
-    "host_copies", "encode_kv_transfer", "decode_kv_transfer",
-    "encode_kv_batch", "decode_kv_batch", "encode_kv_migrate",
-    "encode_kv_migrate_reply",
+    "host_copies", "KV_TRANSFER_PARAMS", "KV_TRANSFER_COMMAND",
+    "KV_TRANSFER_SCHEMA", "KV_TRANSFER_DTYPES", "KV_TRANSFER_RANK",
+    "kv_leaf_legal", "encode_kv_transfer", "decode_kv_transfer",
+    "validate_kv_transfer_params", "KV_BATCH_COMMAND", "encode_kv_batch",
+    "decode_kv_batch", "kv_batch_members", "KV_MIGRATE_COMMAND",
+    "KV_MIGRATE_ACK_COMMAND", "KV_MIGRATE_DONE_COMMAND",
+    "encode_kv_migrate", "validate_kv_migrate_params",
+    "encode_kv_migrate_reply", "validate_kv_migrate_reply",
 ]
 
 MAGIC = b"AIKW"
@@ -85,9 +90,7 @@ _HEAD = struct.Struct("<BI")            # version, header_len
 _COUNT = struct.Struct("<I")
 _BUFLEN = struct.Struct("<Q")
 
-KV_ENVELOPES_NOT_PORTED = ("the KV transfer and migrate envelopes are not "
-                           "ported yet: they need disaggregated serving "
-                           "(ROADMAP.md Queue 1 item 3)")
+KV_TRANSFER_PARAMS = 8     # required param count; optional 9th "chunk"
 
 # device-to-host copies made by the encoder (tensors on the card), and
 # the wall seconds they took: each waits for the tensor's stream
@@ -525,13 +528,332 @@ def decode_envelope(payload, with_trace: bool = False,
 
 
 # -- KV transfer / migrate envelopes (disaggregated serving) -----------------
+# A prefill runtime ships computed prompt KV to a decode runtime as an
+# ordinary binary envelope whose command is KV_TRANSFER_COMMAND: it rides
+# peer channels, the broker fallback, chaos seams and tracing like every
+# other data-plane envelope, but its tensor fields are declared here and
+# checked on both ends, so a malformed transfer fails loudly instead of
+# scattering garbage rows into a live KV cache.
+#
+# Wire layout (envelope params):
+#   [transfer_id, tenant, start_block, block_tokens, first_token,
+#    [layout fields...], {"tokens": i32[*]},
+#    [ per-block [ per-layer {"k": leaf, "v": leaf} ] ]]
+# where a leaf is a native rows array ([H, B, D], the decoder's compute
+# dtype; bfloat16 as a torch tensor) or the int8 serving form
+# {"q": i8[H, B, D], "s": f32[H, B]} (layers.quantize_kv_cache), carried
+# bit-exact: the decode side installs the very bytes the donor stored.
+# An optional ninth param "chunk" marks a non-final member of a
+# chunk-streamed transfer.
 
-def encode_kv_transfer(*_args, **_kwargs):
-    raise NotImplementedError(KV_ENVELOPES_NOT_PORTED)
+KV_TRANSFER_COMMAND = "kv_transfer"
+KV_TRANSFER_SCHEMA = {
+    "tokens": "i32[*]",
+    "kv": "bf16[*,*,*] | f32[*,*,*] | f16[*,*,*]",
+    "kv_q": "i8[*,*,*]",
+    "kv_s": "f32[*,*]",
+}
+# the enforcement twin of the schema above
+KV_TRANSFER_DTYPES = {
+    "tokens": ("int32",),
+    "kv": ("bfloat16", "float32", "float16"),
+    "kv_q": ("int8",),
+    "kv_s": ("float32",),
+}
+KV_TRANSFER_RANK = {"tokens": 1, "kv": 3, "kv_q": 3, "kv_s": 2}
 
 
-decode_kv_transfer = encode_kv_batch = decode_kv_batch = \
-    encode_kv_migrate = encode_kv_migrate_reply = encode_kv_transfer
+def _dtype_name(dtype) -> str:
+    """A numpy or torch dtype as the wire names it ("bfloat16", ...)."""
+    return str(dtype).replace("torch.", "")
+
+
+def kv_leaf_legal(field: str, dtype, ndim: int) -> bool:
+    """True when `field` may legally carry an array of `dtype` / rank
+    (the KV-transfer analogue of codec_legal)."""
+    allowed = KV_TRANSFER_DTYPES.get(field)
+    return allowed is not None and _dtype_name(dtype) in allowed and \
+        ndim == KV_TRANSFER_RANK[field]
+
+
+def _is_nd_value(value) -> bool:
+    return hasattr(value, "dtype") and hasattr(value, "ndim") and \
+        hasattr(value, "shape")
+
+
+def _check_kv_leaf(leaf, what: str):
+    """Validate one K or V rows leaf against the declared schema and
+    return it unchanged: encode fails before bytes move, decode before
+    rows could reach a cache.  A leaf that decoded as something other
+    than an array (a corrupt or drifted payload) is a WireError too."""
+    if isinstance(leaf, dict):
+        if set(leaf) != {"q", "s"}:
+            raise WireError(
+                f"kv_transfer {what}: int8 leaf must be {{'q','s'}}, "
+                f"got keys {sorted(leaf)}")
+        q, s = leaf["q"], leaf["s"]
+        if not _is_nd_value(q) or not _is_nd_value(s):
+            raise WireError(
+                f"kv_transfer {what}: q/s must be arrays, got "
+                f"{type(q).__name__}/{type(s).__name__}")
+        if not kv_leaf_legal("kv_q", q.dtype, q.ndim):
+            raise WireError(
+                f"kv_transfer {what}: q must be "
+                f"{KV_TRANSFER_SCHEMA['kv_q']}, got "
+                f"{_dtype_name(q.dtype)} rank {q.ndim}")
+        if not kv_leaf_legal("kv_s", s.dtype, s.ndim):
+            raise WireError(
+                f"kv_transfer {what}: s must be "
+                f"{KV_TRANSFER_SCHEMA['kv_s']}, got "
+                f"{_dtype_name(s.dtype)} rank {s.ndim}")
+        if tuple(q.shape[:2]) != tuple(s.shape):
+            raise WireError(
+                f"kv_transfer {what}: scale shape {tuple(s.shape)} does "
+                f"not match values {tuple(q.shape)}")
+        return leaf
+    if not _is_nd_value(leaf) or \
+            not kv_leaf_legal("kv", leaf.dtype, leaf.ndim):
+        dtype = getattr(leaf, "dtype", None)
+        got = type(leaf).__name__ if dtype is None else _dtype_name(dtype)
+        raise WireError(
+            f"kv_transfer {what}: rows must be "
+            f"{KV_TRANSFER_SCHEMA['kv']}, got {got} "
+            f"rank {getattr(leaf, 'ndim', '?')}")
+    return leaf
+
+
+def encode_kv_transfer(transfer_id: str, tenant: str, tokens,
+                       start_block: int, block_tokens: int,
+                       layout, blocks, first_token: int | None = None,
+                       trace=None, final: bool = True) -> bytes:
+    """One KV-transfer envelope: `blocks` is [per block [per layer
+    {"k": leaf, "v": leaf}]] covering chain blocks [start_block,
+    start_block + len(blocks)) of `tokens`.  Blocks below start_block
+    are handles: the receiver holds them already (its chain keys are
+    content-addressed from the tokens), so only the index crosses.
+    `layout` is the donor's storage-layout tuple (wire_layout), which
+    the receiver matches before any row lands.  `final=False` marks a
+    non-final chunk-stream member (the ninth "chunk" param)."""
+    block_tokens = int(block_tokens)
+    payload_blocks = []
+    for b, per_layer in enumerate(blocks):
+        layers = []
+        for i, entry in enumerate(per_layer):
+            what = f"block {b} layer {i}"
+            layers.append({
+                "k": _check_kv_leaf(entry["k"], what + " k"),
+                "v": _check_kv_leaf(entry["v"], what + " v")})
+        payload_blocks.append(layers)
+    tokens = np.asarray(tokens, np.int32)
+    if tokens.ndim != 1:
+        raise WireError(
+            f"kv_transfer tokens must be rank 1, got {tokens.ndim}")
+    params = [str(transfer_id), str(tenant), str(int(start_block)),
+              str(block_tokens),
+              "" if first_token is None else str(int(first_token)),
+              [str(f) for f in layout], {"tokens": tokens},
+              payload_blocks]
+    if not final:
+        params.append("chunk")
+    return encode_envelope(KV_TRANSFER_COMMAND, params, trace=trace)
+
+
+# same-destination transfers coalesced into one envelope: the params are
+# the members' complete encoded payloads as bytes fields, each decoded
+# and checked on its own, so a truncated member fails alone
+KV_BATCH_COMMAND = "kv_transfer_batch"
+
+
+def encode_kv_batch(payloads, trace=None) -> bytes:
+    """Coalesce encoded KV-transfer payloads into one batch envelope."""
+    members = [bytes(p) for p in payloads]
+    if not members:
+        raise WireError("kv_transfer_batch with no members")
+    return encode_envelope(KV_BATCH_COMMAND, [members], trace=trace)
+
+
+def decode_kv_batch(payload) -> list:
+    """The member payloads (bytes) of a batch envelope: decode each with
+    decode_kv_transfer.  Raises WireError on a foreign command or
+    members that are not bytes."""
+    command, params = decode_envelope(payload)
+    return kv_batch_members(command, params)
+
+
+def kv_batch_members(command, params) -> list:
+    """Validate an already-decoded batch envelope's (command, params)."""
+    if command != KV_BATCH_COMMAND:
+        raise WireError(f"not a kv_transfer_batch envelope: "
+                        f"{command!r}")
+    if not params or not isinstance(params[0], list) or not params[0]:
+        raise WireError("kv_transfer_batch carries no members")
+    members = params[0]
+    for i, member in enumerate(members):
+        if not isinstance(member, (bytes, bytearray)):
+            raise WireError(
+                f"kv_transfer_batch member {i} is "
+                f"{type(member).__name__}, want bytes")
+    return [bytes(m) for m in members]
+
+
+def decode_kv_transfer(payload) -> dict:
+    """Decode and validate one KV-transfer envelope: {transfer_id,
+    tenant, start_block, block_tokens, first_token, layout, tokens,
+    blocks, final}, every leaf schema-checked (dtype, rank, scale and
+    value agreement, uniform block length).  A truncated or foreign
+    payload raises WireError instead of reaching a cache."""
+    command, params = decode_envelope(payload)
+    return validate_kv_transfer_params(command, params)
+
+
+def validate_kv_transfer_params(command, params) -> dict:
+    """The validation body of decode_kv_transfer over an already-decoded
+    (command, params), shared with the batch path."""
+    if command != KV_TRANSFER_COMMAND:
+        raise WireError(f"not a kv_transfer envelope: {command!r}")
+    if len(params) < KV_TRANSFER_PARAMS:
+        raise WireError(f"kv_transfer envelope short: {len(params)} "
+                        f"params")
+    (transfer_id, tenant, start_block, block_tokens, first_token,
+     layout, token_box, blocks) = params[:KV_TRANSFER_PARAMS]
+    try:
+        start_block = int(str(start_block))
+        block_tokens = int(str(block_tokens))
+        first_token = None if str(first_token) == "" \
+            else int(str(first_token))
+    except (TypeError, ValueError) as exc:
+        raise WireError(f"kv_transfer header fields malformed: "
+                        f"{exc}") from exc
+    if block_tokens < 1 or start_block < 0:
+        raise WireError(
+            f"kv_transfer header out of range: start_block "
+            f"{start_block}, block_tokens {block_tokens}")
+    tokens = (token_box or {}).get("tokens") \
+        if isinstance(token_box, dict) else None
+    if tokens is None or not _is_nd_value(tokens) or \
+            not kv_leaf_legal("tokens", tokens.dtype, tokens.ndim):
+        raise WireError("kv_transfer tokens missing or not i32[*]")
+    if not isinstance(blocks, list):
+        raise WireError("kv_transfer blocks must be a list")
+    checked = []
+    for b, per_layer in enumerate(blocks):
+        if not isinstance(per_layer, list) or not per_layer:
+            raise WireError(f"kv_transfer block {b} empty")
+        layers = []
+        for i, entry in enumerate(per_layer):
+            if not isinstance(entry, dict) or set(entry) != {"k", "v"}:
+                raise WireError(
+                    f"kv_transfer block {b} layer {i}: want "
+                    f"{{'k','v'}}")
+            what = f"block {b} layer {i}"
+            k = _check_kv_leaf(entry["k"], what + " k")
+            v = _check_kv_leaf(entry["v"], what + " v")
+            for name, leaf in (("k", k), ("v", v)):
+                rows = leaf["q"] if isinstance(leaf, dict) else leaf
+                if rows.shape[1] != block_tokens:
+                    raise WireError(
+                        f"kv_transfer {what} {name}: {rows.shape[1]} "
+                        f"rows, want block_tokens={block_tokens}")
+            layers.append({"k": k, "v": v})
+        checked.append(layers)
+    return {
+        "transfer_id": str(transfer_id), "tenant": str(tenant),
+        "start_block": start_block, "block_tokens": block_tokens,
+        "first_token": first_token,
+        "layout": tuple(str(f) for f in (layout or [])),
+        "tokens": tokens, "blocks": checked,
+        # a ninth "chunk" param marks a non-final stream member; anything
+        # else (its absence included) is a complete transfer
+        "final": not (len(params) > KV_TRANSFER_PARAMS
+                      and str(params[KV_TRANSFER_PARAMS]) == "chunk"),
+    }
+
+
+# Session KV migration: a draining runtime ships each session's pinned
+# chain as ordinary chunk-streamed KV_TRANSFER envelopes; three small
+# control legs surround them.  The offer carries both token lists a
+# session owns (the pinned chain's tokens and the conversation history),
+# so the destination re-pins and re-creates the session record at once.
+#
+#   offer (source -> destination /migrate):
+#     [transfer_id, tenant, sid, reply_topic,
+#      {"tokens": i32[*]}, {"history": i32[*]}]
+#   ack (destination -> reply_topic): [transfer_id, have_blocks]
+#     (the leading chain blocks already resident at the destination:
+#     the source ships handles below that mark, bytes above it)
+#   done (destination -> reply_topic): [transfer_id, installed_blocks]
+
+KV_MIGRATE_COMMAND = "kv_migrate"
+KV_MIGRATE_ACK_COMMAND = "kv_migrate_ack"
+KV_MIGRATE_DONE_COMMAND = "kv_migrate_done"
+KV_MIGRATE_PARAMS = 6       # the offer's required param count
+
+
+def encode_kv_migrate(transfer_id: str, tenant: str, sid: str,
+                      reply_topic: str, tokens, history,
+                      trace=None) -> bytes:
+    """One session-migration offer envelope (layout above)."""
+    tokens = np.asarray(tokens, np.int32)
+    history = np.asarray(history, np.int32)
+    if tokens.ndim != 1 or history.ndim != 1:
+        raise WireError(
+            f"kv_migrate tokens/history must be rank 1, got "
+            f"{tokens.ndim}/{history.ndim}")
+    return encode_envelope(
+        KV_MIGRATE_COMMAND,
+        [str(transfer_id), str(tenant), str(sid), str(reply_topic),
+         {"tokens": tokens}, {"history": history}], trace=trace)
+
+
+def validate_kv_migrate_params(command, params) -> dict:
+    """The decode side of encode_kv_migrate: {transfer_id, tenant, sid,
+    reply_topic, tokens, history}, both arrays schema-checked, or
+    WireError."""
+    if command != KV_MIGRATE_COMMAND:
+        raise WireError(f"not a kv_migrate envelope: {command!r}")
+    if len(params) < KV_MIGRATE_PARAMS:
+        raise WireError(
+            f"kv_migrate envelope short: {len(params)} params")
+    (transfer_id, tenant, sid, reply_topic,
+     token_box, history_box) = params[:KV_MIGRATE_PARAMS]
+    arrays = {}
+    for name, box in (("tokens", token_box), ("history", history_box)):
+        value = (box or {}).get(name) if isinstance(box, dict) else None
+        if value is None or not _is_nd_value(value) or \
+                not kv_leaf_legal("tokens", value.dtype, value.ndim):
+            raise WireError(f"kv_migrate {name} missing or not i32[*]")
+        arrays[name] = value
+    return {"transfer_id": str(transfer_id), "tenant": str(tenant),
+            "sid": str(sid), "reply_topic": str(reply_topic),
+            "tokens": arrays["tokens"], "history": arrays["history"]}
+
+
+def encode_kv_migrate_reply(command: str, transfer_id: str,
+                            blocks: int, trace=None) -> bytes:
+    """An ack or done leg: [transfer_id, blocks] under `command`
+    (KV_MIGRATE_ACK_COMMAND or KV_MIGRATE_DONE_COMMAND)."""
+    if command not in (KV_MIGRATE_ACK_COMMAND, KV_MIGRATE_DONE_COMMAND):
+        raise WireError(f"not a kv_migrate reply command: {command!r}")
+    return encode_envelope(command,
+                           [str(transfer_id), str(int(blocks))],
+                           trace=trace)
+
+
+def validate_kv_migrate_reply(command, params) -> tuple:
+    """(transfer_id, blocks) of an ack or done leg, or WireError."""
+    if command not in (KV_MIGRATE_ACK_COMMAND, KV_MIGRATE_DONE_COMMAND):
+        raise WireError(f"not a kv_migrate reply envelope: {command!r}")
+    if len(params) < 2:
+        raise WireError(
+            f"kv_migrate reply short: {len(params)} params")
+    try:
+        blocks = int(str(params[1]))
+    except (TypeError, ValueError) as exc:
+        raise WireError(
+            f"kv_migrate reply blocks malformed: {exc}") from exc
+    if blocks < 0:
+        raise WireError(f"kv_migrate reply blocks negative: {blocks}")
+    return str(params[0]), blocks
 
 
 # -- the RPC entry -----------------------------------------------------------

@@ -228,9 +228,36 @@ Phases, each printing one JSON line; any failure exits non-zero:
      journey a submission, a TTFT p50 per tenant, the predicted paged
      launches; at 2 layers in f32 the faulted run's streams against the
      same drive without faults.
+  31. disagg: DisaggHarness (serving_disagg.py) on Llama-1B in bf16 with
+     the JAX rung's geometry (DISAGG_HARNESS), colocated then
+     disaggregated: the probe (200 tokens, 16 new) and measure() (6
+     decode streams, bursts of 4 prompts of 288 tokens sharing a
+     144-token prefix every 0.4 s in the window's second half) under
+     torch's sync debug mode and a KV ledger audited every decode round:
+     nothing lost, no local fallback, every installed block byte-equal
+     to the shipped one, no synchronizing call, the probe's counts
+     (DISAGG_PROBE_COUNTS); transfers, bytes, handle-hit rate and the
+     streams' ITL p50 / p95 with and without the burst (reported, not
+     gated: both decoders share one card and one host thread);
+  32. disagg_variants: the probe disaggregated with int8 KV, with chunk
+     streaming off, and into a cacheless paged pool (the direct
+     install), each byte-checked and counted (DISAGG_VARIANT_COUNTS);
+  33. disagg_f32: the probe at 2 layers in f32, colocated and
+     disaggregated against llama_greedy_decode, int8 disaggregated
+     against int8 colocated;
+  34. agent_disagg: the agent's conversation with role "decode" and
+     disagg true beside a PrefillRuntime found through the registrar:
+     every first turn remote, prefill + cached = prompt tokens,
+     role=decode in the pipeline's tags, AGENT_DISAGG_COUNTS;
+  35. agent_migrate: two serving sides (decoder, prefix cache, session
+     table, SessionMigrator; A with a 512 MB host tier), 8 sessions x 2
+     turns on A, demoted, migrated to B, A purged to 0 blocks, both
+     ledgers clean, turn 3 on B a prefix hit of every chain; at 2 layers
+     in f32 turn 3 against llama_greedy_decode.
 The kernel section holds the paged kernel at the verify shapes too: W =
 3 (the split path) and W = 5 (the tensor cores) natively, W = 3 with
-int8 pools folded.
+int8 pools folded; and at the decode side's suffix extend after a
+shipped cover (SUFFIX_EXTEND: 4 rows of a 64-token chunk, t_cap 512).
 The vision phases launch none of the three attention kernels, and they
 need neither PIL nor OpenCV: every frame is posted at the element's size.
 The 1b preset is f32 in the port as in JAX; the agent and assistant
@@ -327,12 +354,18 @@ PEER_CHAOS_FLASH = 36
 # the counts every earlier phase gives (flash in slice, pipeline and the
 # remote and peer phases, the paged kernel natively and its two int8
 # variants; agent_tiered's decode and extend launches, llama_wq's two
-# runs' and decoder_chaos's, from the CPU rehearsals of their drives)
+# runs', decoder_chaos's, the disagg phase's two probes', the three
+# disagg_variants probes', agent_disagg's and agent_migrate's, from the
+# CPU rehearsals of their drives)
 EARLIER_COUNTS = {"slice": 12, "pipeline": 24, "remote_pipeline": 24,
                   "peer_pipeline": 24, "peer_chaos": PEER_CHAOS_FLASH,
                   "llama": 5216, "int8_fold": 1920, "int8_dequant": 192,
                   "agent_tiered": 16 * (112 + 5), "llama_wq": 2 * 5216,
-                  "decoder_chaos": 16 * (414 + 6)}
+                  "decoder_chaos": 16 * (414 + 6),
+                  "disagg_probe": 16 * (16 + 4) + 16 * (16 + 1 + 4),
+                  "disagg_variants": 3 * 16 * (16 + 1 + 4),
+                  "agent_disagg": 16 * (128 + 9 + 9),
+                  "agent_migrate": 16 * (100 + 4)}
 # peer_chaos: the caller's channel drops a fifth of its request
 # envelopes, the server's delays half of its replies by 0.2 s; a hop
 # whose 3 s lease expires is sent again, up to 4 times.  Each side's
@@ -539,6 +572,66 @@ CHAOS_EVACUATED = 26
 CHAOS_CHECKPOINTS = 16
 CHAOS_DECODE_STEPS = 414
 CHAOS_EXTEND_DISPATCHES = 6
+# disaggregated serving (phases disagg, disagg_variants, disagg_f32): the
+# JAX bench's lat_llama_disagg rung (bench.py:1788-1796) on Llama-1B in
+# bf16 at max_seq_len 1024: 32-token blocks, 16 decode slots, 4 prefill
+# slots, 4 steps a sync, buckets (64,), prefill chunks of 64, transfers
+# timing out after 60 s; the probe (a 200-token prompt of seed 7, 16 new
+# tokens) and measure(window 8 s, a burst every 0.4 s)
+DISAGG_HARNESS = {"block_tokens": 32, "max_slots": 16, "prefill_slots": 4,
+                  "steps_per_sync": 4, "prefill_buckets": (64,),
+                  "prefill_chunk": 64, "transfer_timeout": 60.0,
+                  "decoder_opts": {"paged_kv": True, "kv_block": 32}}
+DISAGG_PROBE = {"tokens": 200, "seed": 7, "new": 16}
+DISAGG_WINDOW, DISAGG_BURST_EVERY = 8.0, 0.4
+# the probe's counts, from a CPU rehearsal (one request: the schedule
+# depends on neither widths nor token values).  Disaggregated, the
+# decode side installs the 6 complete blocks the prefill side streamed
+# in 3 chunks
+# (the final envelope then installs nothing new) and prefills the
+# 8-token suffix; paged launches are 16 x (16 decode steps + the 4
+# chunk extends, or the suffix extend and the prefill side's 4)
+DISAGG_PROBE_COUNTS = {
+    "colocated": {"tokens_prefill": 200, "prefix_admits": 0,
+                  "paged_launches": 16 * (16 + 4)},
+    "disaggregated": {"tokens_prefill": 8, "prefix_admits": 1,
+                      "transfers": 1, "installs": 1, "installed_blocks": 0,
+                      "chunk_installs": 3, "local_fallbacks": 0,
+                      "paged_launches": 16 * (16 + 1 + 4)}}
+PROBE_REMOTE = {"tokens_prefill": 8, "prefix_admits": 1, "transfers": 1,
+                "installs": 1, "local_fallbacks": 0,
+                "paged_launches": 16 * (16 + 1 + 4)}
+DISAGG_VARIANT_COUNTS = {
+    "int8": {**PROBE_REMOTE, "installed_blocks": 0, "direct_installs": 0,
+             "chunk_installs": 3, "chunk_blocks": 6},
+    "chunk_stream_off": {**PROBE_REMOTE, "installed_blocks": 6,
+                         "direct_installs": 0, "chunk_installs": 0,
+                         "chunk_blocks": 0},
+    "cacheless": {**PROBE_REMOTE, "installed_blocks": 6,
+                  "direct_installs": 1, "chunk_installs": 3,
+                  "chunk_blocks": 6, "pool_blocks_after": 0}}
+# agent_disagg: the agent's parameters with role "decode" and disagg
+# true; its counts, from a CPU rehearsal of the drive
+AGENT_DISAGG = {**AGENT_PARAMETERS, "role": "decode", "disagg": True}
+AGENT_DISAGG_COUNTS = {"decode_steps": 128, "extend_dispatches": 9,
+                       "prefill_extends": 9, "transfers": 24, "installs": 24,
+                       "local_fallbacks": 0, "prefix_admits": 24,
+                       "paged_launches": 16 * (128 + 9 + 9)}
+# agent_migrate: 8 sessions of 80-160 seeded prompt tokens, 2 turns of 32
+# new tokens (turn 2 adds 24 tokens) on side A, then turn 3 on B; its
+# paged launches (16 x 100 decode steps + 16 x 4 extends), from a CPU
+# rehearsal
+MIGRATE = {"block": 32, "sessions": 8, "chunk_blocks": 8, "host_mb": 512,
+           "prompt_tokens": (80, 161), "turn_tokens": 24, "new": 32,
+           "seed": 21}
+MIGRATE_LAUNCHES = 16 * (100 + 4)
+# the decode side's suffix extend after a shipped cover, at the paged
+# kernel (row paged_decode_attention_suffix_extend): a burst's 4 rows of
+# a 64-token chunk (the harness's prefill_chunk: G = 4 x 64 = 256 query
+# rows) at offsets 192 or 256 (a cover of 6 or 8 blocks), the chunk as
+# the side buffer, a table at the decoder's t_cap of 512
+SUFFIX_EXTEND = {"slots": 4, "chunk": 64, "offsets": (192, 256),
+                 "t_cap": 512}
 
 def emit(record: dict) -> None:
     print(json.dumps(record), flush=True)
@@ -832,6 +925,39 @@ def extend512_case(generator, block: int = 32):
             randn(slots, num_kv, chunk, 64), side_valid, offsets)
 
 
+def suffix_case(generator, block: int = 32):
+    """Operands of the decode side's suffix extend (SUFFIX_EXTEND): 4
+    rows of a 64-token chunk, 8 KV heads, 4 x 64 query rows each, D =
+    64, bf16; offsets drawn from SUFFIX_EXTEND["offsets"]; the chunk's
+    own K/V as the side buffer under the causal triangle; the table at
+    t_cap 512, null past offset + chunk."""
+    chunk, slots = SUFFIX_EXTEND["chunk"], SUFFIX_EXTEND["slots"]
+    num_kv, groups, nb = 8, 4, SUFFIX_EXTEND["t_cap"] // block
+    num_blocks = slots * nb + 1
+    device = generator.device
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=generator, device=device,
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    k_pool, v_pool = (randn(num_blocks, num_kv, block, 64) for _ in range(2))
+    k_pool[0] = v_pool[0] = 0
+    choice = torch.randint(0, len(SUFFIX_EXTEND["offsets"]), (slots,),
+                           generator=generator, device=device)
+    offsets = torch.tensor(SUFFIX_EXTEND["offsets"], dtype=torch.int32,
+                           device=device)[choice]
+    ids = (torch.randperm(num_blocks - 1, generator=generator,
+                          device=device) + 1).to(torch.int32).view(slots, nb)
+    needed = (offsets.long() + chunk + block - 1) // block
+    past = torch.arange(nb, device=device)[None] >= needed[:, None]
+    tables = ids.masked_fill(past, 0)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool, device=device).tril()
+    side_valid = tri.expand(slots, chunk, chunk).contiguous()
+    return (randn(slots, num_kv, groups * chunk, 64), k_pool, v_pool,
+            tables, randn(slots, num_kv, chunk, 64),
+            randn(slots, num_kv, chunk, 64), side_valid, offsets)
+
+
 def verify_case(generator, width: int, steps: int, t_cap: int,
                 block: int = 32):
     """Operands of one speculative verify call at the Llama decoder's
@@ -1044,6 +1170,12 @@ def phase_paged_kernel(generator) -> list[dict]:
     records.append(measure("paged_decode_attention_int8_fold_verify_w3",
                            "paged_decode_attention_int8_fold", quantized, 4,
                            True, {"t_cap": 768, "path": "verify_w3"}))
+    # the decode side's suffix extend after a shipped cover (the disagg
+    # phases' decode-side extends)
+    records.append(measure("paged_decode_attention_suffix_extend",
+                           "paged_decode_attention", suffix_case(generator),
+                           4, False, {"t_cap": SUFFIX_EXTEND["t_cap"],
+                                      "path": "suffix_extend"}))
     return records
 
 
@@ -2171,18 +2303,20 @@ def agent_definition(parameters=None):
 
 
 def conversation(runtime, texts: dict, before_drive=None,
-                 parameters=None, between_turns=None) -> tuple:
+                 parameters=None, between_turns=None,
+                 services_cache=None) -> tuple:
     """Drive AGENT_STREAMS streams through their turns on the runtime's
     virtual clock: every stream posts turn 1 at once, and each later
     turn as soon as the stream's previous turn came back; with
     `between_turns`, in lockstep instead: turn k + 1 is posted on every
     stream once every stream's turn k came back, after
-    between_turns(k).  Returns (pipeline, agent element, frames by
-    (stream, turn), virtual s, wall s)."""
+    between_turns(k).  `services_cache` is the pipeline's discovery
+    cache.  Returns (pipeline, agent element, frames by (stream, turn),
+    virtual s, wall s)."""
     from aiko_services_tpu_torch.pipeline import Pipeline
     engine = runtime.event
     pipeline = Pipeline(runtime, agent_definition(parameters),
-                        stream_lease_time=0)
+                        stream_lease_time=0, services_cache=services_cache)
     done = []
     pipeline.add_frame_handler(done.append)
     for stream_id in texts:
@@ -4868,8 +5002,8 @@ class TierAudit:
     are wrapped at their classes (the element binds them as callbacks
     when its first stream opens, before bind()); after each round of the
     bound decoder the ledger must conserve: device bytes = the pool's
-    used blocks x block bytes, host bytes = the store's, no auditor
-    finding.  close() restores both classes."""
+    used blocks x block bytes, host bytes = the store's (0 without a
+    host tier), no auditor finding.  close() restores both classes."""
 
     def __init__(self):
         from aiko_services_tpu_torch.observe.ledger import KVMemoryLedger
@@ -4913,13 +5047,13 @@ class TierAudit:
         pool, store = decoder.pool, decoder.prefix_cache.host_store
         found = self.ledger.audit()
         device = self.ledger.device_bytes()
+        host = store.bytes_used if store is not None else 0
         if found or device != pool.used_blocks() * pool.block_nbytes or \
-                self.ledger.host_bytes() != store.bytes_used:
+                self.ledger.host_bytes() != host:
             self.failures.append({
                 "round": self.rounds, "found": found, "device": device,
                 "pool": pool.used_blocks() * pool.block_nbytes,
-                "host": self.ledger.host_bytes(),
-                "store": store.bytes_used})
+                "host": self.ledger.host_bytes(), "store": host})
 
     def close(self) -> None:
         for owner, name, method in self._saved:
@@ -5689,6 +5823,868 @@ def phase_decoder_chaos() -> dict:
     return measured
 
 
+def disagg_config(**changes):
+    """The 1b preset as the JAX bench's disaggregated rung serves it:
+    bf16, max_seq_len 1024 (`changes` on top)."""
+    from aiko_services_tpu_torch.models.llama import LLAMA_PRESETS
+    return dataclasses.replace(LLAMA_PRESETS["1b"], **{
+        "dtype": torch.bfloat16, "max_seq_len": 1024, **changes})
+
+
+def disagg_probe_prompt(vocab: int) -> list:
+    import numpy as np
+    return np.random.default_rng(DISAGG_PROBE["seed"]).integers(
+        1, vocab, size=DISAGG_PROBE["tokens"]).tolist()
+
+
+def probe_tokens(harness, prompt) -> list:
+    """The probe through `harness` (its client when disaggregated)."""
+    done = {}
+    harness.submit("probe", prompt, DISAGG_PROBE["new"],
+                   lambda rid, t: done.update({rid: [int(x) for x in t]}))
+    if not harness.run_until(lambda: "probe" in done, timeout=300.0):
+        raise AssertionError("the disagg probe never completed")
+    return done["probe"]
+
+
+def pool_rows(pool, ids) -> list:
+    """Device copies of pool blocks `ids`: [per block [per layer {"k",
+    "v"}]], each leaf a tensor or the int8 dict (one index_select per
+    layer and plane, queued on the stream: no host sync)."""
+    index = pool._ids(ids)
+
+    def take(leaf):
+        if isinstance(leaf, dict):
+            return {key: plane.index_select(0, index)
+                    for key, plane in leaf.items()}
+        return leaf.index_select(0, index)
+
+    layers = [(take(k), take(v)) for k, v in zip(pool.k_pools,
+                                                 pool.v_pools)]
+
+    def row(leaf, j):
+        return {key: plane[j] for key, plane in leaf.items()} \
+            if isinstance(leaf, dict) else leaf[j]
+    return [[{"k": row(k, j), "v": row(v, j)} for k, v in layers]
+            for j in range(len(ids))]
+
+
+class ShipRecord:
+    """Bytes that crossed against bytes that landed.  Wraps, at their
+    module and classes, serving_disagg._chain_wire_blocks (the host rows
+    each chain key shipped, kept by key), PrefixKVCache.install_chain
+    (device copies of the pool blocks an install added, by key: a key
+    the cache held already is not an installed block) and
+    ContinuousDecoder.install_shipped_blocks (the same for a cacheless
+    pool's direct install).  verify() compares every installed block
+    with the shipped one by torch.equal, plane by plane; close()
+    restores the wrapped functions."""
+
+    def __init__(self):
+        from aiko_services_tpu_torch import serving_disagg as D
+        from aiko_services_tpu_torch.serving import (ContinuousDecoder,
+                                                     PrefixKVCache,
+                                                     prefix_chain_keys)
+        self.shipped, self.installed = {}, []
+        self._saved = ((D, "_chain_wire_blocks", D._chain_wire_blocks),
+                       (PrefixKVCache, "install_chain",
+                        PrefixKVCache.install_chain),
+                       (ContinuousDecoder, "install_shipped_blocks",
+                        ContinuousDecoder.install_shipped_blocks))
+        record = self
+        (_, _, ship), (_, _, install), (_, _, direct) = self._saved
+
+        def shipping(cache, keys):
+            rows = ship(cache, keys)
+            for key, block in zip(keys, rows.blocks):
+                record.shipped.setdefault(key, block)
+            return rows
+
+        def installing(cache, tenant, tokens, start_block, blocks):
+            keys = cache.keys_for(tenant, [int(t) for t in tokens])
+            fresh = [key for key in keys[start_block:start_block +
+                                         len(blocks)]
+                     if not cache.has(key)]
+            installed = install(cache, tenant, tokens, start_block, blocks)
+            nodes = [cache._nodes[key] for key in fresh
+                     if key in cache._nodes]
+            if nodes and cache.paged:
+                record.installed.extend(zip(
+                    [node.key for node in nodes],
+                    pool_rows(cache.pool, [n.pool_id for n in nodes])))
+            return installed
+
+        def direct_install(decoder, tokens, start_block, blocks,
+                           tenant=""):
+            covered, ids = direct(decoder, tokens, start_block, blocks,
+                                  tenant=tenant)
+            keys = prefix_chain_keys(tenant, [int(t) for t in tokens],
+                                     decoder.kv_block)
+            record.installed.extend(zip(
+                keys[start_block:start_block + len(ids)],
+                pool_rows(decoder.pool, ids)))
+            return covered, ids
+
+        D._chain_wire_blocks = shipping
+        PrefixKVCache.install_chain = installing
+        ContinuousDecoder.install_shipped_blocks = direct_install
+
+    def verify(self) -> dict:
+        torch.cuda.synchronize()
+        equal = unmatched = 0
+        for key, landed in self.installed:
+            sent = self.shipped.get(key)
+            if sent is None:
+                unmatched += 1
+                continue
+            for got, want in zip(landed, sent):
+                for side in ("k", "v"):
+                    a, b = got[side], want[side]
+                    pairs = [(a[p], b[p]) for p in ("q", "s")] \
+                        if isinstance(a, dict) else [(a, b)]
+                    for x, y in pairs:
+                        if not torch.equal(x.cpu(), y.cpu()):
+                            raise AssertionError(
+                                f"installed block {key[:12]} differs "
+                                f"from the shipped one ({side})")
+            equal += 1
+        if unmatched or not equal:
+            raise AssertionError(f"{equal} installed blocks compared, "
+                                 f"{unmatched} never shipped")
+        return {"blocks_compared": equal,
+                "blocks_shipped": len(self.shipped)}
+
+    def close(self) -> None:
+        for owner, name, value in self._saved:
+            setattr(owner, name, value)
+
+
+class SideLaunches:
+    """Paged kernel launches by decoder (the decoder object), counted
+    around every ContinuousDecoder.pump (wrapped at the class: the
+    harness registers the bound methods at construction); close()
+    restores it."""
+
+    def __init__(self):
+        from aiko_services_tpu_torch.ops import paged_attention as P
+        from aiko_services_tpu_torch.serving import ContinuousDecoder
+        self.by_decoder = collections.Counter()
+        self._class, self._pump = ContinuousDecoder, ContinuousDecoder.pump
+        pump, counter = self._pump, self.by_decoder
+
+        def counted(decoder):
+            before = sum(P.launches.values())
+            pump(decoder)
+            counter[decoder] += sum(P.launches.values()) - before
+
+        ContinuousDecoder.pump = counted
+
+    def close(self) -> None:
+        self._class.pump = self._pump
+
+
+def split_launches(launches: dict, extends: list) -> dict:
+    """A run's paged launches by (variant, path): the extend launches
+    counted around _extend_group go to the dequantizing variant on an
+    int8 pool and to the native one otherwise; the rest decode."""
+    out = collections.Counter()
+    extend = extends[1]
+    for variant, count in launches.items():
+        if variant == "paged_decode_attention_int8_dequant":
+            out[(variant, "extend")] += count
+            extend -= count
+        elif variant == "paged_decode_attention_int8_fold":
+            out[(variant, "decode")] += count
+    native = launches.get("paged_decode_attention", 0)
+    out[("paged_decode_attention", "extend")] += max(0, extend)
+    out[("paged_decode_attention", "decode")] += native - max(0, extend)
+    return {key: value for key, value in out.items() if value}
+
+
+def disagg_harness(params, config, disagg: bool, **changes):
+    from aiko_services_tpu_torch.serving_disagg import DisaggHarness
+    kwargs = {**DISAGG_HARNESS, **changes}
+    kwargs["decoder_opts"] = {**DISAGG_HARNESS["decoder_opts"],
+                              **changes.get("decoder_opts", {})}
+    harness = DisaggHarness(params, config, disagg=disagg, **kwargs)
+    if disagg and not harness.wait_discovered(30.0):
+        harness.stop()
+        raise AssertionError("the prefill pool was never discovered")
+    return harness
+
+
+def phase_disagg() -> dict:
+    """DisaggHarness on Llama-1B in bf16 with the JAX rung's geometry
+    (DISAGG_HARNESS), colocated and then disaggregated: the probe (a
+    200-token prompt, 16 new tokens), then measure(): 6 decode streams
+    and, in the window's second half, bursts of 4 prompts of 288 tokens
+    sharing a 144-token prefix every 0.4 s.  Both runs under torch's sync
+    debug mode and a KV memory ledger audited after every decode round.
+    Checks: nothing lost, no local fallback, transfers that moved KV and
+    handle blocks once the prefix is resident, every installed block
+    byte-equal to the shipped one, no synchronizing call, the probe's
+    counts (DISAGG_PROBE_COUNTS) and paged launches on both sides.
+    Returns the paged launches by (variant, path) of both runs and the
+    decode side's suffix extends."""
+    from aiko_services_tpu_torch.models.llama import llama_init
+    from aiko_services_tpu_torch.ops import paged_attention as P
+
+    config = disagg_config()
+    check_1b(config)
+    params = llama_init(torch.Generator(device="cuda").manual_seed(0),
+                        config)
+    prompt = disagg_probe_prompt(config.vocab)
+    runs, counts, probes = {}, collections.Counter(), {}
+    for mode in ("colocated", "disaggregated"):
+        disagg = mode == "disaggregated"
+        audit, sides = TierAudit(), SideLaunches()
+        ships = ShipRecord() if disagg else None
+        try:
+            harness = disagg_harness(params, config, disagg)
+            audit.bind(harness.decoder)
+            decode_ext = count_extend_launches(harness.decoder)
+            prefill_ext = count_extend_launches(harness.prefill.decoder) \
+                if disagg else [0, 0]
+            for name in P.launches:
+                P.launches[name] = 0
+            start = time.perf_counter()
+            with sync_watch() as syncs:
+                probes[mode] = probe_tokens(harness, prompt)
+                probe_stats = {"tokens_prefill":
+                               harness.decoder.stats["tokens_prefill"],
+                               "prefix_admits":
+                               harness.decoder.stats["prefix_admits"]}
+                if disagg:
+                    probe_stats.update({
+                        key: harness.client.stats[key] for key in (
+                            "transfers", "installs", "installed_blocks",
+                            "chunk_installs", "local_fallbacks")})
+                probe_stats["paged_launches"] = sum(P.launches.values())
+                measured = harness.measure(window=DISAGG_WINDOW,
+                                           burst_every=DISAGG_BURST_EVERY)
+            wall = time.perf_counter() - start
+            torch.cuda.synchronize()
+            launches = dict(P.launches)
+            by_side = {"decode": sides.by_decoder[harness.decoder]}
+            if disagg:
+                by_side["prefill"] = sides.by_decoder[
+                    harness.prefill.decoder]
+            client = dict(harness.client.stats) if disagg else {}
+            prefill = dict(harness.prefill.stats) if disagg else {}
+            decoder_stats = dict(harness.decoder.stats)
+            landed = ships.verify() if disagg else {}
+        finally:
+            if ships is not None:
+                ships.close()
+            sides.close()
+            audit.close()
+        harness.stop()
+        expected = DISAGG_PROBE_COUNTS[mode]
+        if probe_stats != expected:
+            raise AssertionError(f"disagg {mode} probe: {probe_stats} != "
+                                 f"{expected}")
+        if measured["lost"] or not measured["drained"] or syncs or \
+                audit.failures or measured.get("local_fallbacks", 0):
+            raise AssertionError(
+                f"disagg {mode}: {measured}, syncs {dict(syncs)}, ledger "
+                f"{audit.failures[:3]}")
+        decode_side = by_side["decode"]
+        prefill_side = by_side.get("prefill", 0)
+        if not decode_side or (disagg and not prefill_side):
+            raise AssertionError(f"disagg {mode}: paged launches by side "
+                                 f"{by_side}")
+        if disagg and (client["raw_blocks"] == 0 or
+                       client["handle_blocks"] == 0 or
+                       client["transfers"] == 0):
+            raise AssertionError(f"disagg: transfers {client}")
+        # the decode side's extends are the suffixes after a shipped
+        # cover; the prefill side's are 64-token chunks
+        suffix = decode_ext[1] if disagg else 0
+        for key, value in split_launches(
+                launches, [0, decode_ext[1] + prefill_ext[1] - suffix]
+                ).items():
+            counts[key] += value
+        counts[("paged_decode_attention", "suffix_extend")] += suffix
+        counts[("paged_decode_attention", "decode")] -= suffix
+        runs[mode] = {
+            "probe": probe_stats, "measure": measured, "wall_s": wall,
+            "stream_syncs": sum(syncs.values()),
+            "ledger_rounds": audit.rounds,
+            "paged_launches_by_side": by_side,
+            "extends": {"decode": decode_ext, "prefill": prefill_ext},
+            "decode_steps": decoder_stats["steps"],
+            "prefix_admits": decoder_stats["prefix_admits"],
+            "tokens_prefill": decoder_stats["tokens_prefill"],
+            "client": client, "prefill": prefill, "installed": landed}
+    probe_launches = sum(run["probe"]["paged_launches"]
+                         for run in runs.values())
+    record = {"phase": "disagg", "probe_tokens_equal":
+              probes["colocated"] == probes["disaggregated"], **runs,
+              "paged_launches": {f"{v}/{p}": n
+                                 for (v, p), n in counts.items()}}
+    emit(record)
+    del params
+    torch.cuda.empty_cache()
+    return dict(counts), probe_launches
+
+
+def variant_probe(params, config, label: str, cacheless: bool = False,
+                  **changes) -> tuple:
+    """The probe through a disaggregated harness (`changes` on
+    DISAGG_HARNESS), or through a cacheless paged decode pool's own
+    PrefillClient beside it: (record, launches by (variant, path))."""
+    from aiko_services_tpu_torch.ops import paged_attention as P
+    from aiko_services_tpu_torch.serving import ContinuousDecoder
+    from aiko_services_tpu_torch.serving_disagg import PrefillClient
+
+    ships = ShipRecord()
+    try:
+        harness = disagg_harness(params, config, True, **changes)
+        target, client = harness, harness.client
+        if cacheless:
+            decoder = ContinuousDecoder(
+                params, config, max_slots=DISAGG_HARNESS["max_slots"],
+                prefill_buckets=DISAGG_HARNESS["prefill_buckets"],
+                steps_per_sync=DISAGG_HARNESS["steps_per_sync"],
+                prefill_chunk=DISAGG_HARNESS["prefill_chunk"],
+                name="cacheless", **DISAGG_HARNESS["decoder_opts"])
+            harness.engine.add_flatout_handler(decoder.pump)
+            client = PrefillClient(harness.decode_rt, decoder,
+                                   name="cacheless",
+                                   transfer_timeout=60.0)
+            client.add_candidate(harness.prefill.topic_path)
+
+            class Through:
+                def submit(self, *args, **kwargs):
+                    return client.submit(*args, **kwargs)
+
+                def run_until(self, predicate, timeout=30.0):
+                    return harness.run_until(predicate, timeout=timeout)
+            target = Through()
+        else:
+            decoder = harness.decoder
+        decode_ext = count_extend_launches(decoder)
+        prefill_ext = count_extend_launches(harness.prefill.decoder)
+        for name in P.launches:
+            P.launches[name] = 0
+        tokens = probe_tokens(target, disagg_probe_prompt(config.vocab))
+        if cacheless:
+            harness.run_until(lambda: decoder.idle, timeout=60.0)
+        torch.cuda.synchronize()
+        launches = dict(P.launches)
+        landed = ships.verify()
+        stats = {key: client.stats[key] for key in (
+            "transfers", "installs", "installed_blocks", "direct_installs",
+            "chunk_installs", "chunk_blocks", "local_fallbacks")}
+        record = {"tokens_prefill": decoder.stats["tokens_prefill"],
+                  "prefix_admits": decoder.stats["prefix_admits"],
+                  "decode_steps": decoder.stats["steps"],
+                  "extends": {"decode": decode_ext,
+                              "prefill": prefill_ext},
+                  "pool_blocks_after": decoder.pool.used_blocks()
+                  if cacheless else None, **stats, **landed,
+                  "tokens": len(tokens)}
+        if cacheless:
+            client.stop()
+            harness.engine.remove_flatout_handler(decoder.pump)
+    finally:
+        ships.close()
+    harness.stop()
+    # the decode side's native extends are suffixes after a shipped
+    # cover; int8 extends stay on the dequantizing variant's extend row
+    suffix = 0 if "int8" in label else decode_ext[1]
+    counts = collections.Counter(split_launches(
+        launches, [0, decode_ext[1] + prefill_ext[1] - suffix]))
+    counts[("paged_decode_attention", "suffix_extend")] += suffix
+    counts[("paged_decode_attention", "decode")] -= suffix
+    record["paged_launches"] = sum(launches.values())
+    return record, {key: value for key, value in counts.items() if value}
+
+
+def phase_disagg_variants() -> dict:
+    """The probe, disaggregated, three more ways on Llama-1B bf16: int8
+    KV (the {"q", "s"} layout ships as the donor stored it), chunk
+    streaming off, and a cacheless paged decode pool (the direct
+    install_shipped_blocks landing).  Each: the installed blocks byte-
+    equal to the shipped ones and the counts of DISAGG_VARIANT_COUNTS.
+    Returns the paged launches by (variant, path)."""
+    from aiko_services_tpu_torch.models.llama import llama_init
+
+    config = disagg_config()
+    check_1b(config)
+    params = llama_init(torch.Generator(device="cuda").manual_seed(0),
+                        config)
+    runs, counts = {}, collections.Counter()
+    for label, options in (
+            ("int8", {"decoder_opts": {"kv_cache_dtype": "int8"}}),
+            ("chunk_stream_off", {"chunk_stream": False}),
+            ("cacheless", {"cacheless": True})):
+        record, launches = variant_probe(params, config, label, **options)
+        want = DISAGG_VARIANT_COUNTS[label]
+        got = {key: record[key] for key in want}
+        if got != want:
+            raise AssertionError(f"disagg_variants {label}: {got} != "
+                                 f"{want}")
+        runs[label] = record
+        counts.update(launches)
+    record = {"phase": "disagg_variants", **runs,
+              "paged_launches": {f"{v}/{p}": n
+                                 for (v, p), n in counts.items()}}
+    emit(record)
+    del params
+    torch.cuda.empty_cache()
+    return dict(counts)
+
+
+def phase_disagg_f32() -> dict:
+    """The probe at full width, 2 layers, f32: colocated, disaggregated,
+    and both with int8 KV.  The native runs' tokens against each other
+    and llama_greedy_decode, the disaggregated int8 run's against the
+    colocated int8 run's, a first split passing only at a top-2 logit
+    gap under 1e-4."""
+    from aiko_services_tpu_torch.models.llama import llama_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config = disagg_config(num_layers=2, dtype=torch.float32)
+    params = llama_init(torch.Generator(device="cuda").manual_seed(3),
+                        config)
+    prompt = disagg_probe_prompt(config.vocab)
+    tokens = {}
+    for label, disagg, options in (
+            ("colocated", False, {}), ("disaggregated", True, {}),
+            ("int8_colocated", False,
+             {"decoder_opts": {"kv_cache_dtype": "int8"}}),
+            ("int8_disaggregated", True,
+             {"decoder_opts": {"kv_cache_dtype": "int8"}})):
+        harness = disagg_harness(params, config, disagg, **options)
+        try:
+            tokens[label] = probe_tokens(harness, prompt)
+            if disagg and (harness.client.stats["installs"] != 1 or
+                           harness.client.stats["local_fallbacks"]):
+                raise AssertionError(f"disagg_f32 {label}: "
+                                     f"{dict(harness.client.stats)}")
+        finally:
+            harness.stop()
+    checks = {}
+    for label in ("colocated", "disaggregated"):
+        checks[label] = greedy_check(params, config, prompt, tokens[label],
+                                     f"disagg_f32 {label}")
+    # int8 KV differs from the dense reference by design: the
+    # disaggregated int8 run against the colocated one, a first split
+    # passing only at a reference top-2 gap under INT8_TIE_GAP (the
+    # llama_int8_f32 rule)
+    got, want = tokens["int8_disaggregated"], tokens["int8_colocated"]
+    if got != want:
+        from aiko_services_tpu_torch.models.llama import llama_forward
+        i = next(j for j, (x, y) in enumerate(zip(got, want)) if x != y)
+        with torch.inference_mode():
+            logits = llama_forward(params, config, torch.tensor(
+                [prompt + want[:i]], device=params.embed.table.device))[
+                0, -1]
+        top2 = torch.topk(logits, 2).values
+        gap = (top2[0] - top2[1]).item()
+        if gap >= INT8_TIE_GAP:
+            raise AssertionError(f"disagg_f32 int8: {got} != {want} at "
+                                 f"step {i}, top-2 gap {gap}")
+        checks["int8"] = {"step": i, "gap": gap}
+    record = {"phase": "disagg_f32", "tokens": tokens,
+              "ties": {k: v for k, v in checks.items() if v is not None},
+              "disagg_equals_colocated":
+                  tokens["disaggregated"] == tokens["colocated"],
+              "int8_equal": got == want}
+    emit(record)
+    return record
+
+
+def disagg_runtimes():
+    """(host runtime with a ComputeRuntime on the card, prefill runtime):
+    two port ProcessRuntimes and a registrar's on one virtual-clock
+    engine and in-memory broker, the registrar promoted to primary."""
+    from aiko_services_tpu_torch.compute import ComputeRuntime
+    from aiko_services_tpu_torch.event import EventEngine, VirtualClock
+    from aiko_services_tpu_torch.process import ProcessRuntime
+    from aiko_services_tpu_torch.registrar import Registrar
+    from aiko_services_tpu_torch.transport import MemoryBroker, MemoryMessage
+
+    engine, broker = EventEngine(VirtualClock()), MemoryBroker()
+
+    def runtime(name):
+        def transport(on_message, lwt_topic, lwt_payload, lwt_retain):
+            return MemoryMessage(on_message=on_message, broker=broker,
+                                 lwt_topic=lwt_topic,
+                                 lwt_payload=lwt_payload,
+                                 lwt_retain=lwt_retain)
+        return ProcessRuntime(name=name, engine=engine,
+                              transport_factory=transport).initialize()
+
+    Registrar(runtime("smoke_registrar"))
+    engine.clock.advance(2.1)                  # the primary's promotion
+    for _ in range(300):
+        engine.step()
+    host = runtime("chip_smoke")
+    ComputeRuntime(host, "compute")
+    return host, runtime("smoke_prefill")
+
+
+def phase_agent_disagg() -> dict:
+    """The agent phase's conversation (8 streams x 3 turns, Llama-1B
+    bf16, paged, sessions) with role "decode" and disagg true: the
+    element's PrefillClient finds a PrefillRuntime (Llama-1B on the same
+    parameter tensors, 32-token blocks, 128-token chunks) through the
+    registrar.  Checks: every first turn went remote (transfers, installs
+    and the remote TTFT population, no local fallback), later turns hit
+    the decode side's cache, prefill + cached = prompt tokens, 32 tokens
+    a frame, role=decode in the pipeline's tags, and the decode steps,
+    extend dispatches and paged launches of AGENT_DISAGG_COUNTS.
+    Returns the paged launches by (variant, path)."""
+    import numpy as np
+
+    from aiko_services_tpu_torch.ops import paged_attention as P
+    from aiko_services_tpu_torch.serving_disagg import PrefillRuntime
+    from aiko_services_tpu_torch.share import ServicesCache
+
+    with agent_preset(dtype=torch.bfloat16) as config:
+        check_1b(config)
+        runtime, prefill_rt = disagg_runtimes()
+        engine = runtime.event
+        texts = agent_texts(np.random.default_rng(AGENT_SEED))
+        extends, submitted, prefill = [], [], []
+        sides = SideLaunches()
+
+        def before_drive(agent):
+            prefill.append(PrefillRuntime(
+                prefill_rt, "agent_prefill", params=agent.params,
+                config=agent.decoder.config,
+                block_tokens=AGENT_PARAMETERS["prefix_block"],
+                max_slots=AGENT_PARAMETERS["max_batch"],
+                prefill_buckets=(AGENT_PARAMETERS["prompt_length"],),
+                prefill_chunk=AGENT_PARAMETERS["prompt_length"],
+                decoder_opts={"paged_kv": True,
+                              "kv_block": AGENT_PARAMETERS["prefix_block"]}))
+            for _ in range(2000):
+                if agent._prefill_client.loads:
+                    break
+                engine.clock.advance(0.002)
+                while engine.step():
+                    pass
+            if not agent._prefill_client.loads:
+                raise AssertionError("the agent's client found no pool")
+            extends.extend([count_extend_launches(agent.decoder),
+                            count_extend_launches(prefill[0].decoder)])
+            submit = agent.decoder.submit
+
+            def recording(request_id, prompt, *args, **kwargs):
+                submitted.append(len(prompt))
+                return submit(request_id, prompt, *args, **kwargs)
+            agent.decoder.submit = recording
+            for name in P.launches:
+                P.launches[name] = 0
+
+        try:
+            pipeline, agent, frames, virtual_s, wall_s = conversation(
+                runtime, texts, before_drive, parameters=AGENT_DISAGG,
+                services_cache=ServicesCache(runtime))
+            torch.cuda.synchronize()
+        finally:
+            sides.close()
+        launches = dict(P.launches)
+    decoder, cache = agent.decoder, agent.prefix_cache
+    client = dict(agent._prefill_client.stats)
+    stats = dict(decoder.stats)
+    remote = decoder.slo_sketch_stats(prefill="remote")
+    failed = pipeline.recovery_stats["frames_failed"]
+    if len(frames) != AGENT_STREAMS * AGENT_TURNS or failed:
+        raise AssertionError(f"{len(frames)} agent frames, {failed} failed")
+    for (stream_id, turn), frame in frames.items():
+        if len(frame.swag["response_tokens"]) != \
+                AGENT_PARAMETERS["max_tokens"]:
+            raise AssertionError(f"agent_disagg {stream_id} turn {turn}")
+    prompt_tokens = sum(submitted)
+    hit = cache.stats["hit_tokens"]
+    got = {"decode_steps": stats["steps"],
+           "extend_dispatches": extends[0][0],
+           "prefill_extends": extends[1][0],
+           "transfers": client["transfers"],
+           "installs": client["installs"],
+           "local_fallbacks": client["local_fallbacks"],
+           "prefix_admits": stats["prefix_admits"],
+           "paged_launches": sum(launches.values())}
+    # every turn went remote (no local rung), and the later turns'
+    # histories crossed as handles to blocks the decode side held
+    local = sum(client[key] for key in ("local_short", "local_cached",
+                                        "local_no_pool"))
+    if got != AGENT_DISAGG_COUNTS or remote["ttft_p50_ms"] is None or \
+            stats["tokens_prefill"] + hit != prompt_tokens or \
+            "role=decode" not in pipeline.tags or local or \
+            not client["handle_blocks"] or \
+            client["transfers"] < AGENT_STREAMS:
+        raise AssertionError(
+            f"agent_disagg: {got} (predicted {AGENT_DISAGG_COUNTS}), "
+            f"remote TTFT {remote['ttft_p50_ms']}, prefilled "
+            f"{stats['tokens_prefill']} + cached {hit} of {prompt_tokens}, "
+            f"tags {pipeline.tags}, client {client}")
+    for stream_id in list(pipeline.streams):
+        pipeline.destroy_stream(stream_id)
+    pipeline.stop()
+    by_side = {"decode": sides.by_decoder[decoder],
+               "prefill": sides.by_decoder[prefill[0].decoder]}
+    prefill[0].stop()
+    runtime.terminate()
+    prefill_rt.terminate()
+    # prefill_chunk is the prompt length (128): every extend on either
+    # side runs at the agent's 512-row shape
+    counts = collections.Counter()
+    counts[("paged_decode_attention", "extend_512")] += \
+        extends[0][1] + extends[1][1]
+    counts[("paged_decode_attention", "decode")] += \
+        sum(launches.values()) - extends[0][1] - extends[1][1]
+    record = {"phase": "agent_disagg", **got,
+              "prompt_tokens": prompt_tokens,
+              "tokens_prefill": stats["tokens_prefill"], "hit_tokens": hit,
+              "client": client, "remote_ttft_p50_ms": remote["ttft_p50_ms"],
+              "paged_launches_by_side": by_side, "virtual_s": virtual_s,
+              "wall_s": wall_s}
+    emit(record)
+    return {key: value for key, value in counts.items() if value}
+
+
+class MigrateSide:
+    """One serving side of the migration phase: a paged decoder on
+    `params`, a prefix cache (with a host tier of host_mb MiB when
+    given), a session table, a SessionMigrator and a KV memory ledger,
+    pumping flat-out on the shared real-clock engine and broker (JAX's
+    tests/test_drain_migrate.py _Side)."""
+
+    def __init__(self, engine, broker, params, config, name, host_mb=0):
+        from types import SimpleNamespace
+
+        from aiko_services_tpu_torch.observe.ledger import KVMemoryLedger
+        from aiko_services_tpu_torch.process import ProcessRuntime
+        from aiko_services_tpu_torch.serving import (ContinuousDecoder,
+                                                     PrefixKVCache)
+        from aiko_services_tpu_torch.serving_disagg import SessionMigrator
+        from aiko_services_tpu_torch.serving_tiered import HostBlockStore
+        from aiko_services_tpu_torch.state.sessions import SessionTable
+        from aiko_services_tpu_torch.transport import MemoryMessage
+
+        def transport(on_message, lwt_topic, lwt_payload, lwt_retain):
+            return MemoryMessage(on_message=on_message, broker=broker,
+                                 lwt_topic=lwt_topic,
+                                 lwt_payload=lwt_payload,
+                                 lwt_retain=lwt_retain, client_id=name)
+        self.engine = engine
+        self.rt = ProcessRuntime(name=name, engine=engine,
+                                 transport_factory=transport).initialize()
+        block = MIGRATE["block"]
+        self.cache = PrefixKVCache(block_tokens=block, max_bytes=512 << 20,
+                                   name=name)
+        if host_mb:
+            self.cache.attach_host_store(HostBlockStore(
+                max_bytes=host_mb << 20, name=f"{name}.host"))
+        self.decoder = ContinuousDecoder(
+            params, config, paged_kv=True, kv_block=block,
+            prefix_cache=self.cache, max_slots=MIGRATE["sessions"],
+            prefill_buckets=(128,), prefill_chunk=128, steps_per_sync=4,
+            name=name)
+        self.ledger = KVMemoryLedger(name=name)
+        self.decoder.attach_ledger(self.ledger)
+        self.table = SessionTable(
+            SimpleNamespace(runtime=self.rt, topic_path=self.rt.topic_path),
+            num_shards=1)
+        self.mig = SessionMigrator(self.rt, self.cache, table=self.table,
+                                   name=name,
+                                   chunk_blocks=MIGRATE["chunk_blocks"],
+                                   transfer_timeout=60.0)
+        engine.add_flatout_handler(self.decoder.pump)
+
+    def turns(self, prompts: dict, new: int) -> dict:
+        """Every prompt at once; {sid: generated tokens}."""
+        done = {}
+        for sid, prompt in prompts.items():
+            self.decoder.submit(sid, prompt, new, lambda rid, t: done.update(
+                {rid: [int(x) for x in t]}))
+        if not self.engine.run_until(lambda: len(done) == len(prompts),
+                                     timeout=300.0):
+            raise AssertionError(f"{len(done)} of {len(prompts)} turns")
+        return done
+
+    def store(self, sid, history) -> int:
+        leaf, kv_tokens = self.cache.session_store("default", sid, history)
+        if not self.table.create("default", sid, {
+                "history": history, "kv": leaf or "",
+                "kv_tokens": kv_tokens}):
+            raise AssertionError(f"session {sid} shed")
+        return kv_tokens
+
+    def stop(self) -> None:
+        self.mig.stop()
+        self.table.stop()
+        self.engine.remove_flatout_handler(self.decoder.pump)
+        self.rt.terminate()
+
+
+def migrate_run(config, params, seed: int) -> dict:
+    """MIGRATE["sessions"] sessions x 2 turns on side A (a host tier of
+    MIGRATE["host_mb"] MiB), every session demoted, migrated to side B in
+    chunks of MIGRATE["chunk_blocks"] blocks, A purged; then turn 3 on
+    B.  Returns the run's record (histories and turn-3 tokens too)."""
+    import numpy as np
+
+    from aiko_services_tpu_torch.event import EventEngine
+    from aiko_services_tpu_torch.observe.ledger import assert_ledger_clean
+    from aiko_services_tpu_torch.ops import paged_attention as P
+    from aiko_services_tpu_torch.transport import MemoryBroker
+
+    rng = np.random.default_rng(seed)
+    engine, broker = EventEngine(), MemoryBroker()
+    sides = SideLaunches()
+    a = MigrateSide(engine, broker, params, config, "migrate_a",
+                    host_mb=MIGRATE["host_mb"])
+    b = MigrateSide(engine, broker, params, config, "migrate_b")
+    extends = [count_extend_launches(a.decoder),
+               count_extend_launches(b.decoder)]
+    try:
+        for name in P.launches:
+            P.launches[name] = 0
+        prompts = {f"s{i}": rng.integers(1, config.vocab, int(n)).tolist()
+                   for i, n in enumerate(rng.integers(
+                       *MIGRATE["prompt_tokens"], MIGRATE["sessions"]))}
+        histories, pinned = {}, {}
+        for turn in range(2):
+            out = a.turns(prompts, MIGRATE["new"])
+            for sid, prompt in prompts.items():
+                histories[sid] = prompt + out[sid]
+                pinned[sid] = a.store(sid, histories[sid])
+            if turn == 0:
+                prompts = {sid: history + rng.integers(
+                    1, config.vocab, MIGRATE["turn_tokens"]).tolist()
+                    for sid, history in histories.items()}
+        demoted = a.cache.demote_sessions(a.cache.sessions())
+        done = []
+        offers = a.mig.migrate(b.mig.topic,
+                               on_done=lambda m: done.append(1))
+        if not engine.run_until(lambda: bool(done), timeout=120.0):
+            raise AssertionError("the migration never settled")
+        a_stats, b_stats = dict(a.mig.stats), dict(b.mig.stats)
+        a.cache.purge(demote=False)
+        a_left = (len(a.table), a.cache.sessions(),
+                  a.decoder.pool.used_blocks())
+        assert_ledger_clean(cache=a.cache, ledger=a.ledger)
+        hits_before = b.cache.stats["hit_tokens"]
+        third = {sid: history + rng.integers(
+            1, config.vocab, MIGRATE["turn_tokens"]).tolist()
+            for sid, history in histories.items()}
+        admits_before = b.decoder.stats["prefix_admits"]
+        out3 = b.turns(third, MIGRATE["new"])
+        hit = b.cache.stats["hit_tokens"] - hits_before
+        b_audit = b.ledger.audit()
+        torch.cuda.synchronize()
+        launches = dict(P.launches)
+        b.cache.release_sessions(b.cache.sessions())
+        b.cache.purge(demote=False)
+        assert_ledger_clean(cache=b.cache, ledger=b.ledger)
+        return {"offers": offers, "demoted": demoted, "a": a_stats,
+                "b": b_stats, "a_left": a_left, "pinned": pinned,
+                "hit_tokens": hit, "prefix_admits":
+                b.decoder.stats["prefix_admits"] - admits_before,
+                "b_audit": b_audit, "third": third, "out3": out3,
+                "migrate_out": a.ledger.stats["migrate_out"],
+                "migrate_in": b.ledger.stats["migrate_in"],
+                "launches": launches,
+                "by_side": {"a": sides.by_decoder[a.decoder],
+                            "b": sides.by_decoder[b.decoder]},
+                "extends": [extends[0][:], extends[1][:]]}
+    finally:
+        sides.close()
+        a.stop()
+        b.stop()
+
+
+def phase_agent_migrate() -> dict:
+    """Two serving sides (decoder, prefix cache, session table,
+    SessionMigrator) on Llama-1B bf16 sharing one set of parameters,
+    side A with a 512 MB host tier: 8 sessions x 2 turns on A, every
+    session demoted, migrated to B in chunks of 8 blocks (the chains
+    promote back before they ship), A purged; turn 3 on B.  Checks:
+    offers = migrated = 8, none expired or dropped, shipped blocks = the
+    pinned chains' (no handles: B is cold), A's sessions and pool at 0,
+    both ledgers clean, every turn-3 chain a prefix hit of the chain's
+    tokens; at 2 layers in f32, B's turn 3 against llama_greedy_decode on
+    the whole history.  Returns the paged launches by (variant, path)."""
+    from aiko_services_tpu_torch.models.llama import llama_init
+
+    config = disagg_config()
+    check_1b(config)
+    params = llama_init(torch.Generator(device="cuda").manual_seed(0),
+                        config)
+    start = time.perf_counter()
+    run = migrate_run(config, params, MIGRATE["seed"])
+    wall = time.perf_counter() - start
+    pinned_blocks = sum(run["pinned"].values()) // MIGRATE["block"]
+    sessions = MIGRATE["sessions"]
+    got = {"offers": run["a"]["offers"], "migrated": run["a"]["migrated"],
+           "expired": run["a"]["expired"] + run["b"]["expired"],
+           "dropped": run["b"]["dropped_chunks"],
+           "shipped_blocks": run["a"]["shipped_blocks"],
+           "handle_blocks": run["a"]["handle_blocks"],
+           "installed_blocks": run["b"]["installed_blocks"]}
+    want = {"offers": sessions, "migrated": sessions, "expired": 0,
+            "dropped": 0, "shipped_blocks": pinned_blocks,
+            "handle_blocks": 0, "installed_blocks": pinned_blocks}
+    if got != want or run["a_left"] != (0, [], 0) or run["b_audit"] or \
+            sum(run["launches"].values()) != MIGRATE_LAUNCHES or \
+            run["hit_tokens"] != sum(run["pinned"].values()) or \
+            run["prefix_admits"] != sessions or \
+            run["migrate_out"] != pinned_blocks or \
+            run["migrate_in"] != pinned_blocks or not run["demoted"]:
+        raise AssertionError(
+            f"agent_migrate: {got} (want {want}), source left "
+            f"{run['a_left']}, B audit {run['b_audit']}, hit "
+            f"{run['hit_tokens']} of {sum(run['pinned'].values())}, "
+            f"{run['prefix_admits']} admits, ledger events "
+            f"{run['migrate_out']} / {run['migrate_in']}")
+    launches = sum(run["launches"].values())
+    extend = run["extends"][0][1] + run["extends"][1][1]
+    del params
+    torch.cuda.empty_cache()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    small = disagg_config(num_layers=2, dtype=torch.float32)
+    params = llama_init(torch.Generator(device="cuda").manual_seed(5),
+                        small)
+    f32 = migrate_run(small, params, MIGRATE["seed"])
+    ties, identical = [], 0
+    for sid, prompt in f32["third"].items():
+        tie = greedy_check(params, small, prompt, f32["out3"][sid],
+                           f"migrated {sid}")
+        identical += tie is None
+        if tie is not None:
+            ties.append(tie)
+    if f32["a"]["migrated"] != sessions or \
+            f32["prefix_admits"] != sessions:
+        raise AssertionError(f"agent_migrate f32: {f32['a']}, "
+                             f"{f32['prefix_admits']} admits")
+    record = {"phase": "agent_migrate", **got,
+              "pinned_tokens": sum(run["pinned"].values()),
+              "hit_tokens": run["hit_tokens"],
+              "demoted_blocks": run["demoted"],
+              "chunks": run["a"]["chunks"],
+              "migrate_events": [run["migrate_out"], run["migrate_in"]],
+              "paged_launches_by_side": run["by_side"],
+              "extends": run["extends"], "paged_launches": launches,
+              "wall_s": wall,
+              "f32": {"sessions": sessions, "identical": identical,
+                      "ties": ties}}
+    emit(record)
+    del params
+    torch.cuda.empty_cache()
+    # prefill chunks of 128: the extends run at the agent's 512-row shape
+    return {("paged_decode_attention", "decode"): launches - extend,
+            ("paged_decode_attention", "extend_512"): extend}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5773,6 +6769,14 @@ def main() -> int:
         counts[("paged_decode_attention", "decode")] += run["decode"]
         counts[("paged_decode_attention", "extend_512")] += \
             run.get("extend", 0)
+    disagg, disagg_probe = phase_disagg()
+    variants = phase_disagg_variants()
+    phase_disagg_f32()
+    agent_disagg = phase_agent_disagg()
+    migrate = phase_agent_migrate()
+    for run in (disagg, variants, agent_disagg, migrate):
+        for key, launches in run.items():
+            counts[key] = counts.get(key, 0) + launches
     earlier = {phase: phase_counts[phase]["flash_attention"] for phase in
                ("slice", "pipeline", "remote_pipeline", "peer_pipeline",
                 "peer_chaos")}
@@ -5784,7 +6788,11 @@ def main() -> int:
                         int8_counts["paged_decode_attention_int8_dequant"],
                     "agent_tiered": tiered["decode"] + tiered["extend"],
                     "llama_wq": quantized["decode"],
-                    "decoder_chaos": chaos["decode"] + chaos["extend"]})
+                    "decoder_chaos": chaos["decode"] + chaos["extend"],
+                    "disagg_probe": disagg_probe,
+                    "disagg_variants": sum(variants.values()),
+                    "agent_disagg": sum(agent_disagg.values()),
+                    "agent_migrate": sum(migrate.values())})
     if earlier != EARLIER_COUNTS:
         raise AssertionError(f"earlier phases' counts {earlier} != "
                              f"{EARLIER_COUNTS}")

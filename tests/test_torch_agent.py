@@ -221,17 +221,6 @@ def test_continuous_mode_defaults_to_the_dense_decoder(same_weights):
         assert agent.decoder.stats[key] == jax_agent.decoder.stats[key]
 
 
-@pytest.mark.parametrize("parameters,match", [
-    ({**CONTINUOUS, "disagg": True}, "Queue 1 item 3\\)"),
-    ({**CONTINUOUS, "role": "decode"}, "Queue 1 item 3\\)"),
-])
-def test_left_out_options_raise_naming_their_item(same_weights, parameters,
-                                                  match):
-    _, _, agent, _ = _build("torch", parameters, [])
-    with pytest.raises(NotImplementedError, match=match):
-        agent._setup()
-
-
 def test_place_params_moves_to_the_runtime_device():
     from aiko_services_tpu_torch.compute import MESH_RULES_NOT_PORTED
     engine, pipeline, agent, _ = _build("torch", {"mode": "sync"}, ["s0"])

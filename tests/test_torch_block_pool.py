@@ -157,28 +157,6 @@ def test_the_dense_path_is_the_jax_default(model):
         decoder._k[0].numel() * decoder._k[0].element_size()
 
 
-@pytest.mark.parametrize("option,item", [
-    ({"prefill_label": "remote", "deadline": 1.0}, "item 3"),
-    ({"kv_blocks": (8, [1]), "tenant": "t"}, "item 3"),
-    ({"prefill_label": "remote"}, "item 3"),
-    ({"kv_blocks": (8, [1])}, "item 3"),
-    ({"progress_callback": print}, "item 3"),
-])
-def test_left_out_submit_options_raise(model, option, item):
-    decoder = _decoder(model)
-    with pytest.raises(NotImplementedError, match=item):
-        decoder.submit("r", [1, 2, 3], 4, lambda *_: None, **option)
-    assert decoder.idle                   # nothing was queued
-
-
-@pytest.mark.parametrize("call", [
-    lambda d: d.install_shipped_blocks([1, 2], 0, [])])
-def test_left_out_methods_raise(model, call):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 3\\)"):
-        call(_decoder(model))
-
-
 @pytest.mark.parametrize("option", [
     {"paged_kv": False}, {}, {"paged_kv": False, "speculate_k": 2},
     {"speculate_k": 2}])
@@ -208,3 +186,29 @@ def test_submit_normalises_prompts_and_kv_cache_bytes(model):
     assert [len(done[r]) for r in ("empty", "long")] == [2, 3]
     assert decoder.pool.used_blocks() == 0
     assert decoder.stats["tokens_prefill"] == 17
+
+
+def test_disaggregated_submit_options(model):
+    """prefill_label names the TTFT / journey population, and the
+    progress callback sees every prefill chunk land (its exceptions
+    are logged, not raised)."""
+    decoder = _decoder(model, max_slots=2, prefill_buckets=(16,),
+                       prefill_chunk=16, kv_block=8)
+    seen, done = [], {}
+
+    def progress(request, finished):
+        seen.append((request.prefill_pos, finished))
+        raise RuntimeError("a failing callback must not stop the round")
+
+    assert decoder.submit("r", list(range(1, 41)), 3,
+                          lambda rid, t: done.update({rid: t}),
+                          prefill_label="remote",
+                          progress_callback=progress)
+    assert decoder._pending[0].journey.prefill_label == "remote"
+    while not decoder.idle:
+        decoder.pump()
+    assert seen == [(16, False), (32, False), (40, True)]
+    assert len(done["r"]) == 3
+    assert decoder.slo_sketch_stats(prefill="remote")["ttft_p50_ms"] \
+        is not None
+    assert decoder.slo_sketch_stats(prefill="cold")["ttft_p50_ms"] is None

@@ -103,9 +103,9 @@ def test_element_flags_parse_as_jax_parses_them():
 
 
 def test_the_parts_left_for_later_items_raise_naming_them(capsys):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8\\)"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7\\)"):
         TCli.main(["dashboard"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4\\)"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3\\)"):
         TCli.main(["pipeline", "create", EXAMPLES[0], "--mesh",
                    "model=2"])
     # the commands that need nothing spawned print the JAX lines

@@ -265,16 +265,6 @@ def test_pool_copy_install_and_read_agree(int8):
                 np.testing.assert_array_equal(port, ref)
 
 
-def test_left_out_cache_surfaces_raise_naming_their_item():
-    cache, _, _ = _cache("torch", name="later")
-    assert not cache.tiered
-    for call, item in ((lambda: cache.install_chain("t", [1], 0, []), "3"),
-                       (lambda: cache.wire_layout(), "3")):
-        with pytest.raises(NotImplementedError,
-                           match=f"Queue 1 item {item}\\)"):
-            call()
-
-
 def test_bind_enforces_one_layout_and_one_pool():
     cache, pool, _ = _cache("torch", name="bind")
     cache.bind((2, 2, 16, "torch.float32", False, 4, 4), paged=True)
@@ -285,3 +275,56 @@ def test_bind_enforces_one_layout_and_one_pool():
         cache.attach_pool(other)
     cache.attach_pool(pool)                  # the same pool: a no-op
     assert cache.pool is pool and cache.paged
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_install_chain_matches_jax_call_for_call(int8):
+    """Shipped chain blocks installed into both packages' paged caches:
+    the same nodes, refs, pool ids and counters after every call, the
+    rows landed exactly, a cached prefix counts without a new block, and
+    a budget refusal stops the chain."""
+    rng = np.random.default_rng(9)
+    shape = (J_CONFIG.num_kv_heads, 4, J_CONFIG.head_dim)
+
+    def leaf():
+        if int8:
+            return {"q": rng.integers(-127, 127, shape, dtype=np.int8),
+                    "s": rng.random(shape[:2], np.float32)}
+        return rng.standard_normal(shape).astype(np.float32)
+
+    blocks = [{"k": [leaf() for _ in range(J_CONFIG.num_layers)],
+               "v": [leaf() for _ in range(J_CONFIG.num_layers)]}
+              for _ in range(3)]
+    tokens = list(range(1, 14))
+    records = {}
+    for package in PACKAGES:
+        cache, pool, _ = _cache(package, block_bytes_cap=4, int8=int8,
+                                name=f"install{int8}")
+        layout = (J_CONFIG.num_layers, J_CONFIG.num_kv_heads,
+                  J_CONFIG.head_dim, "f32", int8, 4, 4)
+        cache.bind(layout, paged=True)
+        record = [cache.wire_layout(), cache.layout_compatible(
+            [str(f) for f in layout]), cache.layout_compatible(["x"])]
+        record.append(cache.install_chain("t", tokens, 0, blocks[:2]))
+        record.append(_state(cache, pool))
+        # the second call re-ships block 1 and adds block 2: one new
+        # pool block, and the budget (4 blocks) still holds
+        record.append(cache.install_chain("t", tokens, 1, blocks[1:]))
+        record.append(_state(cache, pool))
+        keys = cache.keys_for("t", tokens)
+        for j, node in enumerate(cache.nodes(keys)):
+            k_rows, _ = cache.block_rows(node)
+            for i, got in enumerate(k_rows):
+                sent = blocks[j]["k"][i]
+                for name, plane in (got.items() if int8
+                                    else [("", got)]):
+                    want = sent[name] if int8 else sent
+                    np.testing.assert_array_equal(np.asarray(plane), want)
+        # two tenants' chains against a 4-block budget: the second
+        # tenant's third block is refused and the chain stops there
+        record.append(cache.install_chain("u", tokens, 0, blocks))
+        record.append(_state(cache, pool))
+        records[package] = record
+    assert records["torch"] == records["jax"]
+    assert records["torch"][3] == 2 and records["torch"][5] == 2
+    assert records["torch"][1] and not records["torch"][2]

@@ -216,7 +216,7 @@ def test_setup_rejects_bad_parameters():
     with pytest.raises(FileNotFoundError, match="vocab.json"):
         _asr({"preset": "test", "tokenizer": "vocab.json"})[0].scheduler
     # a JAX option that waits for a later ROADMAP item says which
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         _asr({"preset": "test", "pp_stages": 2})[0].scheduler
     # pipelined batches dispatch behind the in-flight gate; a sync
     # element never pipelines (resolve_pipelined)
