@@ -175,6 +175,15 @@ class Actor(Service):
         self.ec_producer.update("lifecycle", "stopped")
         self.stop()
 
+    def control_drain(self, drain_s="0") -> None:
+        """Graceful wind-down request: the lifecycle manager's planned
+        retirements publish `(control_drain N)` instead of
+        `(control_stop)`.  The base actor has nothing to drain, so it
+        stops at once; serving actors may override this to drain first
+        and stop before the deadline the manager holds."""
+        del drain_s
+        self.control_stop()
+
     def stop(self) -> None:
         if self._transport_log_handler is not None:
             # loggers are global by name — leaked handlers would double-

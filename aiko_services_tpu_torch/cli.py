@@ -26,12 +26,11 @@ import os
 import re
 import sys
 
-__all__ = ["main", "CliError", "parse_element_flags", "build_pipeline"]
+__all__ = ["main", "CliError", "parse_element_flags", "parse_mesh_spec",
+           "build_pipeline"]
 
 DASHBOARD_NOT_PORTED = ("the dashboard is not ported yet "
                         "(ROADMAP.md Queue 1 item 7)")
-MESH_NOT_PORTED = ("--mesh (a device mesh for the ComputeRuntime) is not "
-                   "ported yet (ROADMAP.md Queue 1 item 3)")
 _DEFAULT_STATE_FILE = "~/.aiko_tpu_system.json"
 _CHILD_MODULE = "aiko_services_tpu_torch"
 
@@ -128,6 +127,45 @@ def parse_element_flags(definition, extra_args) -> dict:
     return overrides
 
 
+def parse_mesh_spec(spec: str | None, device=None):
+    """'model=4,data=2' → a DeviceMesh over the ranks of the process
+    group (parallel.create_mesh; None passes through: a one-device
+    ComputeRuntime).  The axis names are the ones the logical-axis rules
+    shard over (TP 'model', MoE 'expert', ring attention 'seq', DP
+    'data').  One process is one device: on one card only axes of size
+    1 resolve, as on one TPU device under JAX."""
+    if not spec:
+        return None
+    axes = {}
+    for part in str(spec).split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" not in part:
+            raise CliError(f"--mesh: expected axis=N, got {part!r}")
+        axis, _, count = part.partition("=")
+        axis = axis.strip()
+        if not axis:
+            raise CliError(f"--mesh: missing axis name in {part!r}")
+        if axis in axes:
+            raise CliError(f"--mesh: duplicate axis {axis!r}")
+        try:
+            size = int(count)
+        except ValueError:
+            raise CliError(f"--mesh: axis size must be an integer, got "
+                           f"{count!r}") from None
+        if size < 1:
+            raise CliError(f"--mesh: axis size must be >= 1, got {size}")
+        axes[axis] = size
+    from .parallel import create_mesh
+    try:
+        return create_mesh(axes, device)
+    except ValueError as exc:
+        raise CliError(
+            f"--mesh {spec!r}: {exc} (the mesh spans the ranks of the "
+            f"process group, one device each)") from None
+
+
 # -- commands ----------------------------------------------------------------
 
 def registrar(args) -> None:
@@ -143,19 +181,21 @@ def registrar(args) -> None:
 def build_pipeline(definition_pathname, name=None, stream_id="*",
                    stream_parameters="{}", frame_json=None,
                    transport="memory", device=None, element_flags=(),
-                   engine=None):
+                   engine=None, mesh_spec=None):
     """What `pipeline create` builds before it runs: the runtime (on
     `engine`, a new one by default), a ComputeRuntime on `device` (None:
-    the card), the pipeline and its stream, and the optional first frame.
-    Returns (runtime, pipeline)."""
+    the card) over the mesh `mesh_spec` names (parse_mesh_spec), the
+    pipeline and its stream, and the optional first frame.  Returns
+    (runtime, pipeline)."""
     from .compute import ComputeRuntime
     from .pipeline import Pipeline, load_pipeline_definition
 
     definition = load_pipeline_definition(definition_pathname)
     parameters = json.loads(stream_parameters)
     parameters |= parse_element_flags(definition, element_flags)
+    mesh = parse_mesh_spec(mesh_spec, device)
     runtime = _make_runtime(name or definition.name, transport, engine)
-    ComputeRuntime(runtime, "compute", device=device)
+    ComputeRuntime(runtime, "compute", device=device, mesh=mesh)
     pipe = Pipeline(runtime, definition, name=name,
                     definition_pathname=definition_pathname)
     pipe.create_stream(stream_id, parameters=parameters)
@@ -170,12 +210,10 @@ def pipeline_create(args) -> None:
     Every element parameter is additionally a flag:
     `--PE_Element.param VALUE` or `--pe-element-param VALUE`
     (see `pipeline params DEFINITION` for the list)."""
-    if args.mesh_spec:
-        raise NotImplementedError(MESH_NOT_PORTED)
     runtime, pipe = build_pipeline(
         args.definition_pathname, args.name, args.stream_id,
         args.stream_parameters, args.frame_json, args.transport,
-        args.device, args.element_flags)
+        args.device, args.element_flags, mesh_spec=args.mesh_spec)
     echo(f"pipeline {pipe.name} on {pipe.topic_path} "
          f"({len(pipe.graph)} elements, {args.transport})")
     runtime.run(loop_when_no_handlers=True)
@@ -479,8 +517,8 @@ def _parser() -> argparse.ArgumentParser:
     create.add_argument("--frame", dest="frame_json", default=None,
                         help="JSON swag for one immediate frame")
     create.add_argument("--mesh", dest="mesh_spec", default=None,
-                        help="device mesh for the ComputeRuntime "
-                             "(not ported)")
+                        help="device mesh for the ComputeRuntime, e.g. "
+                             "data=1 (one rank per device)")
     create.add_argument("--device", default=None,
                         help="the ComputeRuntime's device (default: the "
                              "CUDA card; cpu runs on the CPU)")

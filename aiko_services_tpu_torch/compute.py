@@ -37,12 +37,13 @@ from .service import ServiceProtocol
 from .utils import get_logger
 
 __all__ = ["ComputeRuntime", "CompiledProgram", "PROTOCOL_COMPUTE",
-           "resolve_pipelined", "MESH_RULES_NOT_PORTED"]
+           "resolve_pipelined", "SHARDED_SERVING_NOT_PORTED"]
 
 PROTOCOL_COMPUTE = ServiceProtocol("compute")
-MESH_RULES_NOT_PORTED = ("sharding rules for a device mesh (place_params "
-                         "rules) are not ported yet (ROADMAP.md Queue 1 "
-                         "item 3)")
+SHARDED_SERVING_NOT_PORTED = (
+    "serving on a mesh of more than one device (sharded serving: the "
+    "kernels take one device's tensors) is not ported yet (ROADMAP.md "
+    "Queue 1 item 3)")
 
 
 def resolve_pipelined(pipelined, mode: str) -> bool:
@@ -97,15 +98,22 @@ class ComputeRuntime(Actor):
     """Hosts programs on one device and schedules their batches.
 
     device=None means the CUDA card (raises when there is none);
-    device="cpu" runs the same programs on the CPU.  Batched programs'
-    schedulers read the engine clock and are drained by an engine timer
-    every `drive_period` seconds."""
+    device="cpu" runs the same programs on the CPU.  mesh: a DeviceMesh
+    (parallel.create_mesh) whose rank this process is; place_params
+    shards over it, and the runtime's device is the mesh's (a mesh of
+    more than one device serves nothing yet: SHARDED_SERVING_NOT_PORTED).
+    Batched programs' schedulers read the engine clock and are drained
+    by an engine timer every `drive_period` seconds."""
 
     def __init__(self, runtime, name: str = "compute", device=None,
-                 drive_period: float = 0.005):
+                 drive_period: float = 0.005, mesh=None):
         # resolve first: a runtime without the card must not register a
         # service that cannot run anything
+        if mesh is not None:
+            from .parallel.sharding import mesh_device
+            device = mesh_device(mesh)
         self.device = resolve_device(device)
+        self._mesh = mesh
         share = {"device_count": 0, "program_count": 0}
         super().__init__(runtime, name, PROTOCOL_COMPUTE, share=share)
         self.logger = get_logger(f"compute.{name}")
@@ -123,7 +131,10 @@ class ComputeRuntime(Actor):
         self.device_kind = torch.cuda.get_device_name(self.device) \
             if on_card else "cpu"
         self.memory_free = self.memory_total = None
-        self.ec_producer.update("device_count", 1)
+        self.ec_producer.update("device_count",
+                                1 if mesh is None else mesh.size())
+        self.ec_producer.update("mesh", {} if mesh is None else dict(
+            zip(mesh.mesh_dim_names, mesh.mesh.shape)))
         self.ec_producer.update("platform", "gpu" if on_card else "cpu")
         self.ec_producer.update("device_kind", self.device_kind)
         self.refresh_device_health()
@@ -147,9 +158,25 @@ class ComputeRuntime(Actor):
         if self.ec_producer.get("device.0.mem_pct") != value:
             self.ec_producer.update("device.0.mem_pct", value)
 
+    @property
+    def mesh(self):
+        """The runtime's mesh: the one it was given, else a mesh of its
+        one device (built at first use)."""
+        if self._mesh is None:
+            from .parallel import single_device_mesh
+            self._mesh = single_device_mesh(device=self.device)
+        return self._mesh
+
+    def _serves(self) -> None:
+        """Programs run on one device's tensors: a mesh of more than one
+        device serves nothing yet."""
+        if self._mesh is not None and self._mesh.size() > 1:
+            raise NotImplementedError(SHARDED_SERVING_NOT_PORTED)
+
     # -- direct (unbatched) programs ---------------------------------------
     def register_program(self, name: str, fn) -> None:
         """Register a callable for direct invocation via run()."""
+        self._serves()
         self.programs[name] = CompiledProgram(name, fn, None, None, {})
         self.ec_producer.update("program_count", len(self.programs))
 
@@ -181,6 +208,7 @@ class ComputeRuntime(Actor):
         (drain(force=True) alone does not complete items).
         max_in_flight bounds the dispatched batches whose results have
         not been delivered (>= 2 for any overlap)."""
+        self._serves()
         in_flight = {"now": 0, "peak": 0}
 
         def process_batch(bucket, items):
@@ -306,12 +334,17 @@ class ComputeRuntime(Actor):
 
     # -- placement ----------------------------------------------------------
     def place_params(self, params, param_axes=None, rules=None):
-        """Place a parameter tree (a torch module) on this runtime's one
-        device.  The logical axes name a sharding that one card does not
-        split; mesh rules raise."""
-        if rules is not None:
-            raise NotImplementedError(MESH_RULES_NOT_PORTED)
-        return params.to(self.device)
+        """Place a parameter tree (a torch module) on this runtime's
+        mesh.  On one device (no mesh, or a mesh of one) that is the
+        device, whatever the axes say; a larger mesh shards the
+        parameters by their logical axes (parallel.shard_pytree), and
+        placing without axes there is serving placement, which raises."""
+        if self._mesh is None or self._mesh.size() == 1:
+            return params.to(self.device)
+        if param_axes is None:
+            raise NotImplementedError(SHARDED_SERVING_NOT_PORTED)
+        from .parallel import shard_pytree
+        return shard_pytree(params, param_axes, self._mesh, rules)
 
     def stop(self) -> None:
         for timer in self._timers:

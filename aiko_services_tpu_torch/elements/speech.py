@@ -40,8 +40,6 @@ __all__ = [
 ]
 
 SAMPLE_RATE = 16000         # voice rate (reference: audio_io.py:224-228)
-PP_STAGES_NOT_PORTED = ("pp_stages is not ported yet "
-                        "(ROADMAP.md Queue 1 item 3)")
 
 
 def compression_ratio(text: str) -> float:
@@ -273,8 +271,7 @@ class PE_WhisperASR(PipelineElement):
             from ..models.tokenizer import load_tokenizer
             self.detokenizer = load_tokenizer(str(tokenizer_path)).decode
         pp_stages, _ = self.get_parameter("pp_stages", 0)
-        if int(pp_stages) >= 2:
-            raise NotImplementedError(PP_STAGES_NOT_PORTED)
+        pp_stages = int(pp_stages)
 
         compute_name, _ = self.get_parameter("compute", "compute")
         self.compute = self.runtime.service_by_name(compute_name)
@@ -317,21 +314,75 @@ class PE_WhisperASR(PipelineElement):
                              suppress_timestamps=not self.timestamps,
                              kv_quant=self.kv_quant)
 
+        def to_mel(batch, config):
+            if not audio_frontend:
+                return batch
+            # wire codes expand to float on the device: the host does no
+            # per-frame feature work at all
+            if wire == "mulaw":
+                audio = mulaw_decode(batch)
+            else:
+                audio = batch.float() / 32768.0
+            return log_mel_spectrogram(audio, num_mels=config.n_mels)
+
+        # pp_stages >= 2: pipeline parallelism over device groups: the
+        # mel + encoder stage on one group, the autoregressive decode
+        # stage on another (StagedExecutor), so batch k+1 encodes while
+        # batch k decodes.  The compute program's in_flight is the
+        # measured overlap.  Each stage holds only its own parameter
+        # subtree, shared by every bucket's executor.  The groups come
+        # from parallel.devices(): one card is one device, and the two
+        # stages on it raise here, as JAX's do on one device.
+        executors = {}
+        if pp_stages >= 2:
+            from ..parallel import devices, stage_device_groups
+            stage_devices = devices(device)
+            stage_device_groups(stage_devices, 2)
+            self._stage_params = (
+                {k: self.params[k]
+                 for k in ("conv1", "conv2", "enc_blocks", "ln_enc")},
+                {k: self.params[k]
+                 for k in ("tok_embed", "pos_embed", "dec_blocks",
+                           "ln_dec")},
+            )
+
+        def staged(config):
+            from ..models.whisper import encode, greedy_decode_from_audio
+            from ..parallel import StagedExecutor
+
+            @torch.inference_mode()
+            def stage_encode(params, payload):
+                return encode(params, config,
+                              to_mel(payload, config).to(config.dtype))
+
+            def stage_decode(params, audio):
+                return greedy_decode_from_audio(params, config, audio,
+                                                **decode_kwargs)
+
+            executor = StagedExecutor(
+                [(stage_encode, self._stage_params[0]),
+                 (stage_decode, self._stage_params[1])],
+                devices=stage_devices)
+
+            def run_staged(batch):
+                y = executor.submit(batch)
+                # occupancy is the compute program's in_flight (split()
+                # retires there, not through executor.collect): undo
+                # submit's count so the executor's gauge cannot drift
+                executor.in_flight -= 1
+                return y
+            return run_staged
+
         def run_bucket(bucket, batch):
             config = dataclasses.replace(self.config,
                                          n_audio_ctx=bucket // 2)
-            if audio_frontend:
-                # wire codes expand to float on the device: the host does
-                # no per-frame feature work at all
-                if wire == "mulaw":
-                    audio = mulaw_decode(batch)
-                else:
-                    audio = batch.float() / 32768.0
-                mel = log_mel_spectrogram(audio, num_mels=config.n_mels)
-            else:
-                mel = batch
+            if pp_stages >= 2:
+                if bucket not in executors:
+                    executors[bucket] = staged(config)
+                return executors[bucket](batch)
             return greedy_decode_scored(self.params, config,
-                                        mel.to(config.dtype),
+                                        to_mel(batch, config).to(
+                                            config.dtype),
                                         **decode_kwargs)
 
         # batched mode pads the batch dim to max_batch so each bucket

@@ -31,8 +31,8 @@ from .resnet import (BatchNorm, ResNet, ResNetConfig, _bn, _conv,
                      _conv_init_, _conv_param, exact_f32, init_params_,
                      resnet_features)
 
-__all__ = ["DetectorConfig", "Detector", "detector_init", "detector_forward",
-           "detect", "top_k_stable", "DETECTOR_PRESETS"]
+__all__ = ["DetectorConfig", "Detector", "detector_init", "detector_axes",
+           "detector_forward", "detect", "top_k_stable", "DETECTOR_PRESETS"]
 
 
 @dataclass(frozen=True)
@@ -97,6 +97,19 @@ def detector_init(generator: torch.Generator, config: DetectorConfig,
     model = Detector(config, device=resolve_device(device))
     init_params_(model, generator)
     return model
+
+
+def detector_axes(params):
+    """Each parameter's logical axes, shaped like the JAX param tree."""
+    from .resnet import resnet_axes
+    return {
+        "backbone": resnet_axes(params["backbone"]),
+        "neck": (None, None, None, "channels"),
+        "bn_neck": {"scale": ("channels",), "bias": ("channels",)},
+        "head_heat": (None, None, None, None),
+        "head_size": (None, None, None, None),
+        "head_offset": (None, None, None, None),
+    }
 
 
 def _nhwc(x):

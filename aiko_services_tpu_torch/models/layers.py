@@ -30,6 +30,8 @@ __all__ = [
     "paged_pool_planes", "scatter_paged_rows", "slice_paged_block",
     "write_paged_blocks",
     "sinusoid_position_encoding", "rope_frequencies", "apply_rope", "gelu",
+    "linear_axes", "layer_norm_axes", "rms_norm_axes", "embedding_axes",
+    "conv1d_axes", "mha_axes",
 ]
 
 
@@ -644,3 +646,39 @@ def apply_rope(x, cos, sin, position_offset=0):
 def gelu(x):
     # exact (erf) gelu: what whisper checkpoints are trained under
     return F.gelu(x, approximate="none")
+
+
+# -- logical sharding axes ---------------------------------------------------
+# Each parameter's axes by logical name, a tree shaped like the JAX param
+# tree (parallel/sharding.py maps the names onto a mesh).
+
+def linear_axes(in_axis: str, out_axis: str, bias: bool = True):
+    axes = {"w": (in_axis, out_axis)}
+    if bias:
+        axes["b"] = (out_axis,)
+    return axes
+
+
+def layer_norm_axes():
+    return {"scale": ("embed",), "bias": ("embed",)}
+
+
+def rms_norm_axes():
+    return {"scale": ("embed",)}
+
+
+def embedding_axes():
+    return {"table": ("vocab", "embed")}
+
+
+def conv1d_axes():
+    return {"w": (None, None, "embed"), "b": ("embed",)}
+
+
+def mha_axes(bias: bool = True):
+    return {
+        "q": linear_axes("embed", "heads", bias),
+        "k": linear_axes("embed", "kv_heads", False),
+        "v": linear_axes("embed", "kv_heads", bias),
+        "o": linear_axes("heads", "embed", bias),
+    }

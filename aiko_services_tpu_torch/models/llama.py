@@ -5,9 +5,9 @@
 # a top-k mixture-of-experts FFN (models/moe.py), and an untied lm_head.
 # The Llama module's parameter names are the JAX param tree's paths
 # joined by '.' (layers.3.attn.q.w ↔ layers/3/attn/q/w, layers.3.moe.w_in
-# ↔ layers/3/moe/w_in), so bridge.py copies a JAX tree in by name.  The
-# sequence-parallel forward is not ported yet (ROADMAP.md Queue 1 item
-# 3).
+# ↔ layers/3/moe/w_in), so bridge.py copies a JAX tree in by name.
+# llama_forward_sp is the sequence-parallel prefill: each rank of a mesh's
+# "seq" axis holds S/n tokens and attends through ring attention.
 
 from __future__ import annotations
 
@@ -19,8 +19,9 @@ from torch import nn
 from .. import resolve_device, torch_dtype
 from . import layers as L
 
-__all__ = ["LlamaConfig", "Llama", "llama_init", "llama_hidden",
-           "llama_decode_step", "llama_forward", "llama_greedy_decode",
+__all__ = ["LlamaConfig", "Llama", "llama_init", "llama_axes",
+           "llama_hidden", "llama_decode_step", "llama_forward",
+           "llama_forward_sp", "llama_greedy_decode",
            "llama_ffn", "init_llama_caches", "LLAMA_PRESETS"]
 
 
@@ -120,6 +121,34 @@ def llama_init(generator: torch.Generator, config: LlamaConfig,
     return model
 
 
+def _layer_axes(config: LlamaConfig | None = None):
+    axes = {
+        "ln_attn": L.rms_norm_axes(),
+        "attn": L.mha_axes(bias=False),
+        "ln_mlp": L.rms_norm_axes(),
+    }
+    if config is not None and config.num_experts:
+        from .moe import moe_axes
+        axes["moe"] = moe_axes()
+    else:
+        axes |= {
+            "gate": L.linear_axes("embed", "ffn", bias=False),
+            "up": L.linear_axes("embed", "ffn", bias=False),
+            "down": L.linear_axes("ffn", "embed", bias=False),
+        }
+    return axes
+
+
+def llama_axes(config: LlamaConfig):
+    """Each parameter's logical axes, shaped like the JAX param tree."""
+    return {
+        "embed": L.embedding_axes(),
+        "layers": [_layer_axes(config)] * config.num_layers,
+        "ln_out": L.rms_norm_axes(),
+        "lm_head": L.linear_axes("embed", "vocab", bias=False),
+    }
+
+
 def init_llama_caches(config: LlamaConfig, batch: int,
                       max_len: int | None = None, device=None):
     device = resolve_device(device)
@@ -214,6 +243,51 @@ def llama_forward(params, config: LlamaConfig, tokens):
                                device=tokens.device)
     logits, _ = llama_decode_step(params, config, tokens, caches)
     return logits
+
+
+def llama_forward_sp(params, config: LlamaConfig, tokens, mesh,
+                     axis_name: str = "seq", batch_axis: str = "data"):
+    """Sequence-parallel long-context forward (prefill): activations
+    sharded over the sequence axis of `mesh`, exact causal attention by
+    ring attention (K/V blocks rotate, online softmax), so each rank
+    holds S/n of the sequence and no rank holds the S x S scores.
+
+    tokens: [B, S] (a full tensor every rank holds, or a DTensor) with S
+    divisible by the axis size; the parameters are replicated (every
+    rank holds them whole).  Returns logits [B, S, vocab] f32 as a
+    DTensor sharded the same way."""
+    from ..parallel.collectives import axis_index, shard_map
+    from ..parallel.ring_attention import ring_attention_sharded
+
+    def body(tokens_local):
+        cos, sin = L.rope_frequencies(config.head_dim, config.max_seq_len,
+                                      config.rope_theta,
+                                      device=tokens_local.device)
+        offset = axis_index(axis_name, mesh=mesh) * tokens_local.shape[1]
+        x = L.embedding(params["embed"], tokens_local).to(config.dtype)
+        for layer in params["layers"]:
+            attn = layer["attn"]
+            normed = L.rms_norm(layer["ln_attn"], x)
+            q = L._split_heads(L.linear(attn["q"], normed), config.num_heads)
+            k = L._split_heads(L.linear(attn["k"], normed),
+                               config.num_kv_heads)
+            v = L._split_heads(L.linear(attn["v"], normed),
+                               config.num_kv_heads)
+            q = L.apply_rope(q, cos, sin, offset)
+            k = L.apply_rope(k, cos, sin, offset)
+            # K/V stay at num_kv_heads: the ring rotates the small
+            # blocks and expands them per block
+            out = ring_attention_sharded(q, k, v, axis_name=axis_name,
+                                         causal=True, mesh=mesh)
+            x = x + L.linear(attn["o"], L._merge_heads(out))
+            x = x + llama_ffn(layer, config,
+                              L.rms_norm(layer["ln_mlp"], x))
+        x = L.rms_norm(params["ln_out"], x)
+        return L.linear_logits(params["lm_head"], x.float())
+
+    batch = batch_axis if batch_axis in mesh.mesh_dim_names else None
+    return shard_map(body, mesh, ((batch, axis_name),),
+                     (batch, axis_name, None))(tokens)
 
 
 @torch.inference_mode()

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from .. import torch_dtype
 from . import layers as L
 
-__all__ = ["MoeConfig", "MoE", "moe_forward", "drop_counts"]
+__all__ = ["MoeConfig", "MoE", "moe_axes", "moe_forward", "drop_counts"]
 
 # when a list, each moe_forward call appends its count of dropped
 # assignments as a device tensor (no host wait); None records nothing
@@ -69,6 +69,14 @@ class MoE(L.Params):
         L._normal_(self.w_in, generator, 1.0 / math.sqrt(self.w_in.shape[1]))
         L._normal_(self.w_out, generator,
                    1.0 / math.sqrt(self.w_out.shape[1]))
+
+
+def moe_axes():
+    return {
+        "router": L.linear_axes("embed", None, bias=False),
+        "w_in": ("expert", "embed", "ffn"),
+        "w_out": ("expert", "ffn", "embed"),
+    }
 
 
 def _bmm_f32(a, b):

@@ -38,8 +38,9 @@ from torch import nn
 from .. import resolve_device, torch_dtype
 from . import layers as L
 
-__all__ = ["ResNetConfig", "ResNet", "resnet_init", "resnet_forward",
-           "resnet_features", "exact_f32", "RESNET_PRESETS"]
+__all__ = ["ResNetConfig", "ResNet", "resnet_init", "resnet_axes",
+           "resnet_forward", "resnet_features", "exact_f32",
+           "RESNET_PRESETS"]
 
 
 @dataclass(frozen=True)
@@ -165,6 +166,31 @@ def exact_f32(dtype):
         yield
     finally:
         torch.backends.cudnn.allow_tf32 = before
+
+
+def _block_axes(block):
+    axes = {"conv1": (None, None, None, "channels"),
+            "bn1": {"scale": ("channels",), "bias": ("channels",)},
+            "conv2": (None, None, None, "channels"),
+            "bn2": {"scale": ("channels",), "bias": ("channels",)}}
+    if "proj" in block:
+        axes["proj"] = (None, None, None, "channels")
+        axes["bn_proj"] = {"scale": ("channels",), "bias": ("channels",)}
+    return axes
+
+
+def resnet_axes(params):
+    """Each parameter's logical axes for a ResNet (a module or its param
+    tree; a backbone built without its head has no "head" entry)."""
+    axes = {
+        "stem": (None, None, None, "channels"),
+        "bn_stem": {"scale": ("channels",), "bias": ("channels",)},
+        "stages": [[_block_axes(b) for b in stage]
+                   for stage in params["stages"]],
+    }
+    if "head" in params:
+        axes["head"] = {"w": ("channels", "vocab"), "b": ("vocab",)}
+    return axes
 
 
 def _oihw(w: torch.Tensor) -> torch.Tensor:

@@ -26,7 +26,8 @@ from torch import nn
 from .. import resolve_device, torch_dtype
 from . import layers as L
 
-__all__ = ["TTSConfig", "TTS", "TTS_PRESETS", "tts_init", "tts_forward",
+__all__ = ["TTSConfig", "TTS", "TTS_PRESETS", "tts_init", "tts_axes",
+           "tts_forward",
            "predict_durations", "regulate", "synthesize"]
 
 
@@ -94,6 +95,26 @@ def tts_init(generator: torch.Generator, config: TTSConfig,
         if hasattr(module, "init_"):
             module.init_(generator)
     return model
+
+
+def _block_axes():
+    return {
+        "ln_attn": L.layer_norm_axes(),
+        "attn": L.mha_axes(),
+        "ln_mlp": L.layer_norm_axes(),
+        "mlp_in": L.linear_axes("embed", "ffn"),
+        "mlp_out": L.linear_axes("ffn", "embed"),
+    }
+
+
+def tts_axes(config: TTSConfig):
+    return {
+        "embed": L.embedding_axes(),
+        "blocks": [_block_axes()] * config.num_layers,
+        "ln_out": L.layer_norm_axes(),
+        "mel_head": L.linear_axes("embed", None),
+        "dur_head": L.linear_axes("embed", None),
+    }
 
 
 def _encode(params, config: TTSConfig, tokens):

@@ -32,6 +32,7 @@ from . import layers as L
 from .resnet import exact_f32
 
 __all__ = ["VocoderConfig", "Vocoder", "VOCODER_PRESETS", "vocoder_init",
+           "vocoder_axes",
            "vocoder_forward", "oscillator_bank"]
 
 
@@ -124,6 +125,17 @@ def vocoder_init(generator: torch.Generator, config: VocoderConfig,
         if hasattr(module, "init_"):
             module.init_(generator)
     return model
+
+
+def vocoder_axes(config: VocoderConfig):
+    return {
+        "pre": L.conv1d_axes(),
+        "stages": [L.conv1d_axes()] * (len(config.upsample) - 1),
+        "gate": L.conv1d_axes(),
+        "gain": L.conv1d_axes(),
+        "post": L.conv1d_axes(),
+        "freqs": None,
+    }
 
 
 def oscillator_bank(length: int, config: VocoderConfig, freqs):

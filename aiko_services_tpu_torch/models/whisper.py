@@ -20,7 +20,8 @@ from torch import nn
 from .. import resolve_device, torch_dtype
 from . import layers as L
 
-__all__ = ["WhisperConfig", "Whisper", "whisper_init", "encode",
+__all__ = ["WhisperConfig", "Whisper", "whisper_init", "whisper_axes",
+           "encode",
            "precompute_cross_kv", "init_caches", "decode_step",
            "greedy_decode_scored", "greedy_decode_from_audio", "forward",
            "WHISPER_PRESETS", "sot_sequence_for", "parse_timestamp_segments",
@@ -204,6 +205,34 @@ def whisper_init(generator: torch.Generator, config: WhisperConfig,
     return model
 
 
+def _block_axes(cross: bool):
+    axes = {
+        "ln_attn": L.layer_norm_axes(),
+        "attn": L.mha_axes(),
+        "ln_mlp": L.layer_norm_axes(),
+        "mlp_in": L.linear_axes("embed", "ffn"),
+        "mlp_out": L.linear_axes("ffn", "embed"),
+    }
+    if cross:
+        axes["ln_cross"] = L.layer_norm_axes()
+        axes["cross"] = L.mha_axes()
+    return axes
+
+
+def whisper_axes(config: WhisperConfig):
+    """Each parameter's logical axes, shaped like the JAX param tree."""
+    return {
+        "conv1": L.conv1d_axes(),
+        "conv2": L.conv1d_axes(),
+        "enc_blocks": [_block_axes(False)] * config.enc_layers,
+        "ln_enc": L.layer_norm_axes(),
+        "tok_embed": L.embedding_axes(),
+        "pos_embed": (None, "embed"),
+        "dec_blocks": [_block_axes(True)] * config.dec_layers,
+        "ln_dec": L.layer_norm_axes(),
+    }
+
+
 def _mlp(block, x):
     return L.linear(block["mlp_out"],
                     L.gelu(L.linear(block["mlp_in"], x)))
@@ -351,9 +380,12 @@ def greedy_decode_from_audio(params, config: WhisperConfig, audio,
             -1, token[:, None])[:, 0]
         return token.to(torch.int32), logprob
 
-    # prefill the start-of-transcript prompt
-    prompt = torch.tensor(sot_sequence, dtype=torch.int64,
-                          device=device)[None].repeat(batch, 1)
+    # prefill the start-of-transcript prompt, filled on the device: a
+    # host-to-device copy of the list would wait for the queued work
+    prompt = torch.empty((batch, len(sot_sequence)), dtype=torch.int64,
+                         device=device)
+    for column, token_id in enumerate(sot_sequence):
+        prompt[:, column] = token_id
     logits, caches = decode_step(params, config, prompt, cross_kv, caches)
     token, token_logprob = pick(logits[:, -1])
 

@@ -16,7 +16,7 @@ import math
 
 import torch
 
-from .kernels import check, entry, require_cuda
+from .kernels import check, entry, refuse_grad, require_cuda
 
 __all__ = ["flash_attention", "flash_attention_reference", "attention",
            "cross_decode_attention", "cross_decode_attention_reference",
@@ -102,6 +102,7 @@ def flash_attention(q, k, v, causal: bool = False,
         return flash_attention_reference(q, k, v, causal=causal,
                                          scale=scale)
     require_cuda("flash_attention", q)
+    refuse_grad("flash_attention", q, k, v)
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)} differ")
@@ -202,6 +203,7 @@ def cross_decode_attention(q, k, v, scale: float | None = None):
     if q.device.type == "cpu":
         return cross_decode_attention_reference(q, k, v, scale=scale)
     require_cuda("cross_decode_attention", q)
+    refuse_grad("cross_decode_attention", q, k, v)
     if k.shape != (b, h, t, d) or v.shape != k.shape:
         raise ValueError(f"cross_decode_attention: k/v shapes "
                          f"{tuple(k.shape)}, {tuple(v.shape)} do not match "

@@ -21,7 +21,7 @@ import threading
 from pathlib import Path
 
 __all__ = ["KERNEL_SOURCES", "NVCC_FLAGS", "build", "load", "entry",
-           "check", "require_cuda", "nvcc_path"]
+           "check", "require_cuda", "refuse_grad", "nvcc_path"]
 
 _PACKAGE = Path(__file__).resolve().parent.parent
 _CSRC = _PACKAGE / "csrc"
@@ -120,6 +120,22 @@ def require_cuda(name: str, tensor) -> None:
     the card has no kernel."""
     if tensor.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {tensor.device}")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """A wrapper's guard before its launch: the kernels have no backward
+    (the JAX package's Pallas kernels have no custom_vjp either), and
+    an output filled through ctypes carries no autograd graph, so an
+    operand that requires grad under grad mode would get no gradient
+    without a word.  Raise instead; the plain versions carry gradients."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            getattr(tensor, "requires_grad", False) for tensor in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an operand "
+            f"requires grad; run it under torch.no_grad() or "
+            f"torch.inference_mode(), or detach the operands")
 
 
 def check(library: ctypes.CDLL, name: str, code: int) -> None:

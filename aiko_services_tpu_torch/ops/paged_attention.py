@@ -19,7 +19,7 @@ import torch
 
 from ..models.layers import (dequantize_kv_cache, gather_paged_kv,
                              paged_pool_planes)
-from .kernels import check, entry, require_cuda
+from .kernels import check, entry, refuse_grad, require_cuda
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_reference",
            "kernel_plan", "launches"]
@@ -251,6 +251,7 @@ def paged_decode_attention(q, k_pool, v_pool, tables, k_side, v_side,
             entry_lengths, groups=groups, scale=scale,
             fold_scales=fold_scales)
     require_cuda("paged_decode_attention", q)
+    refuse_grad("paged_decode_attention", q, kq, ks, vq, vs, k_side, v_side)
     _check_operands(q, kq, ks, vq, vs, tables, k_side, v_side, side_valid,
                     entry_lengths, groups)
     mode = _NATIVE if ks is None else (_INT8_FOLD if fold_scales

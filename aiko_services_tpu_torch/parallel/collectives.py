@@ -1,0 +1,179 @@
+# Collective communication over the axes of a device mesh.
+#
+# Counterpart of aiko_services_tpu/parallel/collectives.py.  Inside a JAX
+# shard_map the collectives name an axis and XLA finds its devices; here
+# each rank is a process, so every collective names its axis AND the mesh
+# whose dimension it runs over, and maps onto a torch.distributed
+# operation on that dimension's process group (mesh.get_group(axis)):
+# NCCL on the card, gloo for CPU tensors.  shard_map is the seam between
+# global tensors (DTensors, or full tensors every rank holds) and the
+# per-rank bodies that call these collectives.
+
+from __future__ import annotations
+
+import os
+
+import torch
+import torch.distributed as dist
+
+from .sharding import NamedSharding, distribute, placements
+
+__all__ = ["psum", "pmean", "pmax", "all_gather", "ppermute_ring",
+           "reduce_scatter", "axis_index", "axis_size", "device_transfer",
+           "ring_neighbours", "shard_map", "axis_fabric",
+           "mesh_fabric_report", "reshard", "collective_bytes"]
+
+
+def _group(mesh, axis_name):
+    return mesh.get_group(axis_name)
+
+
+def psum(x, axis_name, *, mesh):
+    """Sum of x over the ranks along `axis_name` (a new tensor)."""
+    out = x.clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=_group(mesh, axis_name))
+    return out
+
+
+def pmean(x, axis_name, *, mesh):
+    return psum(x, axis_name, mesh=mesh) / axis_size(axis_name, mesh=mesh)
+
+
+def pmax(x, axis_name, *, mesh):
+    out = x.clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=_group(mesh, axis_name))
+    return out
+
+
+def all_gather(x, axis_name, axis: int = 0, tiled: bool = True, *, mesh):
+    """Every rank's x along `axis_name`, in rank order: concatenated on
+    `axis` (tiled) or stacked on a new `axis`."""
+    parts = [torch.empty_like(x) for _ in range(axis_size(axis_name,
+                                                          mesh=mesh))]
+    dist.all_gather(parts, x.contiguous(), group=_group(mesh, axis_name))
+    return torch.cat(parts, dim=axis) if tiled else torch.stack(parts, axis)
+
+
+def reduce_scatter(x, axis_name, axis: int = 0, *, mesh):
+    """psum, then this rank's chunk of the sum along `axis` (JAX's tiled
+    psum_scatter; the sum is formed in full on every rank, which gloo
+    needs: it has no reduce-scatter)."""
+    chunks = psum(x, axis_name, mesh=mesh).chunk(
+        axis_size(axis_name, mesh=mesh), dim=axis)
+    return chunks[axis_index(axis_name, mesh=mesh)].contiguous()
+
+
+def axis_index(axis_name, *, mesh) -> int:
+    return mesh.get_local_rank(axis_name)
+
+
+def axis_size(axis_name, *, mesh) -> int:
+    return mesh.size(mesh.mesh_dim_names.index(axis_name))
+
+
+def ring_neighbours(n: int, reverse: bool = False):
+    """Permutation table sending shard j → j+1 (mod n): the ring."""
+    if reverse:
+        return [(j, (j - 1) % n) for j in range(n)]
+    return [(j, (j + 1) % n) for j in range(n)]
+
+
+def ppermute_ring(x, axis_name, n: int, reverse: bool = False, *, mesh):
+    """Rotate x one hop around the ring of `axis_name` (ring attention,
+    pipeline-parallel stage handoff): this rank's x goes to the next
+    rank, the previous rank's arrives, as one paired isend / irecv."""
+    if n == 1:
+        return x
+    group = _group(mesh, axis_name)
+    me = axis_index(axis_name, mesh=mesh)
+    step = -1 if reverse else 1
+    send_to = dist.get_global_rank(group, (me + step) % n)
+    recv_from = dist.get_global_rank(group, (me - step) % n)
+    out = torch.empty_like(x)
+    requests = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, x.contiguous(), send_to, group),
+        dist.P2POp(dist.irecv, out, recv_from, group)])
+    for request in requests:
+        request.wait()
+    return out
+
+
+def _to_local(x, mesh, spec):
+    return distribute(x, NamedSharding(mesh, tuple(spec))).to_local()
+
+
+def shard_map(fn, mesh, in_specs, out_specs):
+    """The counterpart of jax.shard_map: returns f(*args) that hands
+    fn this rank's shard of each tensor argument (its spec: a tuple of
+    mesh axes or None per dimension, () replicated) and returns fn's
+    output as a DTensor with `out_specs` (a list of specs for several
+    outputs).  fn calls the collectives with the mesh."""
+    from torch.distributed.tensor import DTensor
+
+    def wrap(out, spec):
+        return DTensor.from_local(out, mesh, placements(mesh, spec),
+                                  run_check=False)
+
+    def mapped(*args):
+        local = [_to_local(arg, mesh, spec)
+                 for arg, spec in zip(args, in_specs)]
+        out = fn(*local)
+        if isinstance(out_specs, list):
+            return tuple(wrap(o, s) for o, s in zip(out, out_specs))
+        return wrap(out, out_specs)
+    return mapped
+
+
+def device_transfer(x, sharding):
+    """Host-side: move x to a device (torch.device) or onto a mesh
+    (NamedSharding).  A copy to the card does not wait for it."""
+    if isinstance(sharding, NamedSharding):
+        return distribute(x, sharding)
+    return x.to(sharding, non_blocking=True)
+
+
+# -- mesh-aware helpers -------------------------------------------------------
+# Axes whose ranks share a host ride its fast links (NVLink between the
+# cards of one host: JAX's "ici"); axes spanning hosts ride the network
+# ("dcn").  High-frequency axes (tensor, expert) belong on one host.
+
+def axis_fabric(mesh, axis_name: str) -> str:
+    """"ici" if every rank along `axis_name` (for each fixed point of
+    the other axes) runs on one host, else "dcn".  A rank's host is
+    rank // LOCAL_WORLD_SIZE (the launcher's ranks per host; without
+    one, every rank of the group is on this host)."""
+    per_host = int(os.environ.get("LOCAL_WORLD_SIZE",
+                                  dist.get_world_size()))
+    ranks = mesh.mesh.movedim(mesh.mesh_dim_names.index(axis_name), -1)
+    for row in ranks.reshape(-1, ranks.shape[-1]).tolist():
+        if len({rank // per_host for rank in row}) > 1:
+            return "dcn"
+    return "ici"
+
+
+def mesh_fabric_report(mesh) -> dict:
+    """axis name → "ici"|"dcn" for every mesh axis."""
+    return {axis: axis_fabric(mesh, axis) for axis in mesh.mesh_dim_names}
+
+
+def reshard(x, mesh, partition_spec):
+    """Place a full tensor (or reshard a DTensor) onto `mesh` with a spec
+    (a tuple of mesh axes or None per dimension)."""
+    return distribute(x, NamedSharding(mesh, tuple(partition_spec)))
+
+
+def collective_bytes(x, axis_name, mesh, op: str = "all_gather") -> int:
+    """Wire-byte estimate for a collective over `axis_name`: ring
+    algorithms move ~(n-1)/n of the payload per hop; all_gather /
+    reduce_scatter move the full gathered size, psum ~2x scatter."""
+    n = axis_size(axis_name, mesh=mesh)
+    item_bytes = x.numel() * x.element_size()
+    if op in ("all_gather",):
+        return item_bytes * (n - 1)
+    if op in ("reduce_scatter",):
+        return item_bytes * (n - 1) // n
+    if op in ("psum", "all_reduce"):
+        return 2 * item_bytes * (n - 1) // n
+    if op in ("ppermute", "ring"):
+        return item_bytes
+    raise ValueError(f"unknown collective {op!r}")

@@ -1,0 +1,177 @@
+# Sharding rules: logical tensor axes → mesh axes → DTensor placements.
+#
+# Counterpart of aiko_services_tpu/parallel/sharding.py.  Models name
+# their parameters' axes logically ("embed", "heads", "vocab", ...); a
+# ShardingRules table maps those to mesh axes, and a spec (one mesh axis
+# or None per tensor dimension, JAX's PartitionSpec) becomes DTensor
+# placements: Shard(d) on the mesh dimension that tensor dimension d
+# maps to, Replicate() on every other.  One model definition then runs
+# unsharded on one card or sharded over a mesh of ranks.
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import torch
+from torch import nn
+
+from .mesh import AXIS_DATA, AXIS_EXPERT, AXIS_MODEL, AXIS_SEQUENCE
+
+__all__ = ["ShardingRules", "DEFAULT_RULES", "NamedSharding",
+           "named_sharding", "shard_pytree", "constrain", "replicated",
+           "placements", "distribute", "mesh_device"]
+
+
+@dataclass
+class ShardingRules:
+    """logical axis name → mesh axis name (or None = replicate)."""
+    rules: dict = field(default_factory=dict)
+
+    def spec(self, *logical_axes) -> tuple:
+        return tuple(self.rules.get(axis) for axis in logical_axes)
+
+    def with_overrides(self, **overrides) -> "ShardingRules":
+        merged = dict(self.rules)
+        merged.update(overrides)
+        return ShardingRules(merged)
+
+
+# The standard megatron-style layout:
+#   batch over data axis; attention heads + ffn hidden over model axis;
+#   embed/ffn-in replicated within a TP group; sequence over seq axis for
+#   context parallelism; experts over the expert axis.
+DEFAULT_RULES = ShardingRules({
+    "batch": AXIS_DATA,
+    "sequence": AXIS_SEQUENCE,
+    "heads": AXIS_MODEL,
+    "kv_heads": AXIS_MODEL,
+    "embed": None,
+    "head_dim": None,
+    "ffn": AXIS_MODEL,
+    "vocab": AXIS_MODEL,
+    "expert": AXIS_EXPERT,
+    "channels": None,
+})
+
+
+def placements(mesh, spec) -> list:
+    """A spec (mesh axis name or None per tensor dimension) → DTensor
+    placements, one per mesh dimension.  Axes the mesh lacks replicate."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = mesh.mesh_dim_names
+    result = [Replicate()] * len(names)
+    for dim, axis in enumerate(spec):
+        if axis is None or axis not in names:
+            continue
+        index = names.index(axis)
+        if isinstance(result[index], Shard):
+            raise ValueError(f"spec {spec} maps two tensor dimensions to "
+                             f"mesh axis {axis!r}")
+        result[index] = Shard(dim)
+    return result
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A mesh and a spec: the counterpart of jax.sharding.NamedSharding.
+    `placements` are the spec's DTensor placements on the mesh."""
+    mesh: object
+    spec: tuple = ()
+
+    @property
+    def placements(self) -> list:
+        return placements(self.mesh, self.spec)
+
+
+def named_sharding(mesh, *logical_axes, rules: ShardingRules = None):
+    rules = rules or DEFAULT_RULES
+    spec = rules.spec(*logical_axes)
+    # drop mesh axes the mesh doesn't have (e.g. TP rules on a DP-only mesh)
+    names = mesh.mesh_dim_names
+    return NamedSharding(mesh, tuple(axis if axis in names else None
+                                     for axis in spec))
+
+
+def replicated(mesh) -> NamedSharding:
+    return NamedSharding(mesh, ())
+
+
+def mesh_device(mesh) -> torch.device:
+    """The device this rank's shards live on."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def distribute(x, sharding: NamedSharding):
+    """A full tensor, the same on every rank of the mesh, → a DTensor
+    holding this rank's shard (a local slice: no communication).  A
+    DTensor is redistributed instead."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = sharding.mesh
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x.to(mesh_device(mesh)), mesh,
+                               [Replicate()] * mesh.ndim, run_check=False)
+    return x.redistribute(mesh, sharding.placements)
+
+
+def _axes_at(axes_tree, path):
+    """The logical axes of the leaf at `path` (names and list indices)
+    in a JAX-style axes tree; None (replicate) where the tree stops."""
+    node = axes_tree
+    for key in path:
+        if node is None or isinstance(node, tuple):
+            return node
+        node = node[int(key)] if isinstance(node, list) else node[key]
+    return node
+
+
+def _place(leaf, axes, mesh, rules):
+    if mesh.size() == 1:
+        # a mesh of one shards nothing: the leaf lives on its device
+        return leaf.to(mesh_device(mesh))
+    sharding = replicated(mesh) if axes is None else \
+        named_sharding(mesh, *axes, rules=rules)
+    return distribute(leaf.detach(), sharding)
+
+
+def shard_pytree(tree, axes_tree, mesh, rules: ShardingRules = None):
+    """Place a parameter tree onto the mesh.
+
+    tree: an nn.Module (its parameters are replaced in place, the axes
+    looked up by each parameter's name split at '.', as bridge.py maps
+    names onto JAX tree paths) or nested dicts and lists of tensors (a
+    new tree is returned).  axes_tree mirrors the JAX param tree, each
+    leaf a tuple of logical axis names (or None = replicate).  On a mesh
+    of more than one device each leaf becomes a DTensor; on a mesh of one
+    it stays a plain tensor on the mesh's device."""
+    if isinstance(tree, nn.Module):
+        for name, param in list(tree.named_parameters()):
+            *owner_path, leaf_name = name.split(".")
+            owner = tree.get_submodule(".".join(owner_path))
+            axes = _axes_at(axes_tree, name.split("."))
+            placed = _place(param.data, axes, mesh, rules)
+            setattr(owner, leaf_name, nn.Parameter(
+                placed, requires_grad=param.requires_grad))
+        return tree
+
+    def walk(node, axes):
+        if isinstance(node, dict):
+            return {key: walk(value, _axes_at(axes, [key]))
+                    for key, value in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(value, _axes_at(axes, [i]))
+                    for i, value in enumerate(node)]
+        return _place(node, axes, mesh, rules)
+    return walk(tree, axes_tree)
+
+
+def constrain(x, mesh, *logical_axes, rules: ShardingRules = None):
+    """with_sharding_constraint under logical names: a DTensor is
+    redistributed to them, a full tensor distributed (its local shard
+    kept); on a mesh of one, a no-op."""
+    if mesh.size() == 1:
+        return x
+    return distribute(x, named_sharding(mesh, *logical_axes, rules=rules))

@@ -254,6 +254,33 @@ Phases, each printing one JSON line; any failure exits non-zero:
      turns on A, demoted, migrated to B, A purged to 0 blocks, both
      ledgers clean, turn 3 on B a prefix hit of every chain; at 2 layers
      in f32 turn 3 against llama_greedy_decode.
+  36. grad_guard: each of the three kernel wrappers raises on a CUDA
+     operand that requires grad (the kernels have no backward) and
+     launches nothing doing so.
+  37. train: Whisper-small at its published widths (12 + 12 layers, 768
+     wide, vocabulary 51,865, audio context 1500 from 3000 mel frames),
+     f32 parameters with seeded weights, AdamW with optax's defaults
+     (train.adamw), batch 4 with 64 target tokens, 5 steps on one batch
+     through init_train_state / make_train_step on a one-rank NCCL mesh:
+     every loss finite, the last below the first, state.step 5, no
+     flash launch (context 1500 is not a multiple of 128); ms a step
+     after the first and peak memory.
+  38. train_f32: the widths at 2 + 2 layers (context 500), TF32 off, 3
+     steps on the card against the same 3 steps on the CPU: losses and
+     every parameter within TRAIN_F32_LOSS_RTOL / TRAIN_F32_STEP_SHARE.
+  39. checkpoint: that model on the card, 3 steps, save_checkpoint, 2
+     more; a fresh state restored from the save and run 2 steps equals
+     the uninterrupted run, parameters and both AdamW moments, within
+     CHECKPOINT_RTOL (cuDNN's deterministic algorithms on).
+  40. sp_prefill: llama_forward_sp on a one-rank seq mesh against
+     llama_forward at 2048 tokens: Llama-1B in bf16 (argmax agreement at
+     least SP_ARGMAX_MIN) and at 2 layers in f32 (within SP_F32_TOL).
+  41. staged: StagedExecutor([encode, greedy_decode_from_audio]) with
+     both stages on the card, Whisper-small in bf16 at bucket 3072, 3
+     batches of 8: tokens and lengths equal to greedy_decode_scored's,
+     12 flash launches a batch at the slice row's shape (they join that
+     row's launches), in_flight 3 and then 0, and no host wait in
+     submit(): it runs under torch.cuda's sync debug mode "error".
 The kernel section holds the paged kernel at the verify shapes too: W =
 3 (the split path) and W = 5 (the tensor cores) natively, W = 3 with
 int8 pools folded; and at the decode side's suffix extend after a
@@ -346,7 +373,7 @@ FLASH_SHAPES = {"slice": (8, 12, 1536, 64), "pipeline": (32, 12, 1536, 64)}
 # max_batch of 32 as the local pipeline
 FLASH_ROWS = {"slice": "slice", "pipeline": "pipeline",
               "remote_pipeline": "pipeline", "peer_pipeline": "pipeline",
-              "peer_chaos": "pipeline"}
+              "peer_chaos": "pipeline", "staged": "slice"}
 # Whisper-small (dim, heads, encoder layers, decoder layers, vocab)
 WHISPER_SMALL = (768, 12, 12, 12, 51865)
 # flash launches in peer_chaos: 12 x its bucket-3072 batches
@@ -6685,6 +6712,467 @@ def phase_agent_migrate() -> dict:
             ("paged_decode_attention", "extend_512"): extend}
 
 
+# -- the parallel substrate and the training path ------------------------------
+
+# train: Whisper-small at its published widths (12 + 12 layers, 768 wide,
+# 12 heads, vocabulary 51,865, audio context 1500 from 3000 mel frames),
+# f32 parameters, AdamW with optax's defaults at a fine-tuning rate, a
+# batch of 4 with 64 target tokens, 5 steps on that one batch
+TRAIN = {"batch": 4, "tokens": 64, "frames": 3000, "steps": 5, "lr": 1e-4}
+# train_f32 and checkpoint: the widths at 2 + 2 layers and context 500
+# (1000 frames), a batch of 2 with 32 target tokens
+TRAIN_SMALL = {"batch": 2, "tokens": 32, "frames": 1000, "layers": 2}
+# train_f32: the card's 3 steps against the CPU's, TF32 off.  The losses
+# agree within TRAIN_F32_LOSS_RTOL.  Adam's normalised update
+# m / (sqrt(v) + eps) turns the rounding of a gradient near zero into up
+# to a whole step lr in either direction for that element (the first
+# chip run measured one element 0.385 of a step apart after 3 steps, 739
+# of 75,209,472 over a hundredth of a step), so each element is held
+# within TRAIN_F32_STEP_SHARE of one step, and the update as a whole
+# (parameters after minus before, every tensor) within
+# TRAIN_F32_UPDATE_REL_L2 relative L2 of the CPU's (measured 5.45e-5)
+TRAIN_F32_LOSS_RTOL = 1e-5
+TRAIN_F32_STEP_SHARE = 1.0
+TRAIN_F32_UPDATE_REL_L2 = 2e-4
+# checkpoint: the resumed run against the uninterrupted one, on one card:
+# JAX's test holds rtol 1e-6
+CHECKPOINT_RTOL = 1e-6
+# sp_prefill: Llama-1B in bf16 at 2048 tokens (argmax agreement with the
+# plain forward at least SP_ARGMAX_MIN: the ring keeps its probabilities
+# in f32 where the plain path rounds them to bf16, and random weights
+# put many positions at near-ties: the first chip run agreed at 0.955),
+# and at 2 layers in f32 (logits within SP_F32_TOL, the CPU test's and
+# JAX's own limit; measured 2.5e-5)
+SP_TOKENS = 2048
+SP_ARGMAX_MIN = 0.9
+SP_F32_TOL = 2e-4
+# staged: Whisper-small in bf16 at bucket 3072 (context 1536: the flash
+# kernel's shape in the slice phase), 3 batches of 8, 24 tokens each
+STAGED = {"batches": 3, "batch": 8, "frames": 3072, "max_tokens": 24}
+STAGED_FLASH = 12 * 3
+
+
+def whisper_loss(config):
+    from aiko_services_tpu_torch.models.whisper import forward
+    from aiko_services_tpu_torch.parallel.train import cross_entropy_loss
+
+    def loss_fn(params, batch):
+        logits = forward(params, config, batch["mel"], batch["tokens"])
+        return cross_entropy_loss(logits, batch["targets"])
+    return loss_fn
+
+
+def train_batch(config, shape: dict, seed: int, device) -> dict:
+    """Seeded mel frames and token sequences (targets the next token)."""
+    generator = torch.Generator(device=device).manual_seed(seed)
+    mel = torch.randn((shape["batch"], shape["frames"], config.n_mels),
+                      generator=generator, device=device)
+    seq = torch.randint(0, config.n_vocab,
+                        (shape["batch"], shape["tokens"] + 1),
+                        generator=generator, device=device)
+    return {"mel": mel, "tokens": seq[:, :-1], "targets": seq[:, 1:]}
+
+
+def run_steps(state, step, batch, steps: int) -> tuple:
+    """(state, losses, seconds of each step, each ending in the host's
+    read of its loss)."""
+    losses, seconds = [], []
+    for _ in range(steps):
+        start = time.perf_counter()
+        state, loss = step(state, batch)
+        losses.append(float(loss))
+        seconds.append(time.perf_counter() - start)
+    return state, losses, seconds
+
+
+def small_whisper(**changes):
+    from aiko_services_tpu_torch.models.whisper import WHISPER_PRESETS
+    return dataclasses.replace(
+        WHISPER_PRESETS["small"], enc_layers=TRAIN_SMALL["layers"],
+        dec_layers=TRAIN_SMALL["layers"],
+        n_audio_ctx=TRAIN_SMALL["frames"] // 2, **changes)
+
+
+def phase_train() -> dict:
+    """Whisper-small AdamW steps through init_train_state /
+    make_train_step on a one-rank NCCL mesh."""
+    import torch.distributed as dist
+
+    from aiko_services_tpu_torch.models.whisper import (
+        WHISPER_PRESETS, whisper_axes, whisper_init)
+    from aiko_services_tpu_torch.ops import attention as A
+    from aiko_services_tpu_torch.parallel import (
+        create_mesh, init_train_state, make_train_step)
+    from aiko_services_tpu_torch.parallel.train import adamw
+
+    config = WHISPER_PRESETS["small"]
+    if (config.dim, config.num_heads, config.enc_layers, config.dec_layers,
+            config.n_vocab, config.n_audio_ctx) != \
+            (*WHISPER_SMALL, 1500) or config.dtype != torch.float32:
+        raise AssertionError(f"not Whisper-small in f32: {config}")
+    mesh = create_mesh({"data": 1})
+    if dist.get_backend() != "nccl" or mesh.size() != 1 or \
+            mesh.device_type != "cuda":
+        raise AssertionError(f"mesh {mesh} on {dist.get_backend()}")
+    # the phase's own memory: what earlier phases left allocated is
+    # subtracted from the peak
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    model = whisper_init(torch.Generator(device="cuda").manual_seed(0),
+                         config)
+    parameters = sum(p.numel() for p in model.parameters())
+    batch = train_batch(config, TRAIN, 1, "cuda")
+    state = init_train_state(model, adamw(TRAIN["lr"]), mesh,
+                             whisper_axes(config))
+    step = make_train_step(whisper_loss(config), mesh=mesh)
+    zero_attention_counts()
+    dispatch_before = dict(A.dispatch_stats)
+    state, losses, seconds = run_steps(state, step, batch, TRAIN["steps"])
+    counts = attention_counts()
+    if not all(math.isfinite(loss) for loss in losses) or \
+            not losses[-1] < losses[0] or state.step != TRAIN["steps"]:
+        raise AssertionError(f"train: losses {losses}, step {state.step}")
+    if any(counts.values()):
+        raise AssertionError(f"train launched kernels: {counts}")
+    step_s = statistics.median(seconds[1:])
+    record = {"phase": "train", "parameters": parameters,
+              "batch": TRAIN["batch"], "target_tokens": TRAIN["tokens"],
+              "audio_ctx": config.n_audio_ctx, "lr": TRAIN["lr"],
+              "losses": losses, "step": state.step,
+              "first_step_s": seconds[0], "ms_per_step": step_s * 1e3,
+              "target_tokens_per_s": TRAIN["batch"] * TRAIN["tokens"] /
+              step_s,
+              "peak_memory_gb": (torch.cuda.max_memory_allocated() -
+                                 before) / 1e9,
+              "allocated_before_gb": before / 1e9,
+              "flash_launches": counts["flash_attention"],
+              "attention_dispatch": {
+                  key: A.dispatch_stats[key] - dispatch_before[key]
+                  for key in dispatch_before},
+              "mesh": {"data": 1, "backend": dist.get_backend()}}
+    emit(record)
+    del state, model, step
+    torch.cuda.empty_cache()
+    return record
+
+
+def phase_train_f32() -> dict:
+    """A 2-layer Whisper at Whisper-small's widths: 3 AdamW steps on the
+    card against the same 3 steps of the port on the CPU, in f32."""
+    import copy
+
+    from aiko_services_tpu_torch.models.whisper import whisper_init
+    from aiko_services_tpu_torch.parallel import (
+        init_train_state, make_train_step)
+    from aiko_services_tpu_torch.parallel.train import adamw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config = small_whisper()
+    cpu_model = whisper_init(torch.Generator().manual_seed(3), config,
+                             device="cpu")
+    card_model = copy.deepcopy(cpu_model).to("cuda")
+    before = [p.detach().clone() for p in cpu_model.parameters()]
+    cpu_batch = train_batch(config, TRAIN_SMALL, 4, "cpu")
+    card_batch = {key: value.cuda() for key, value in cpu_batch.items()}
+    runs = {}
+    for device, model, batch in (("cuda", card_model, card_batch),
+                                 ("cpu", cpu_model, cpu_batch)):
+        state = init_train_state(model, adamw(TRAIN["lr"]))
+        step = make_train_step(whisper_loss(config))
+        zero_attention_counts()
+        start = time.perf_counter()
+        state, losses, _ = run_steps(state, step, batch, 3)
+        runs[device] = (state, losses, time.perf_counter() - start,
+                        attention_counts())
+    card, cpu = runs["cuda"], runs["cpu"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card[1], cpu[1]))
+    gap, worst, diff_sq, update_sq, over = 0.0, None, 0.0, 0.0, 0
+    for (name, p), q, p0 in zip(card[0].params.named_parameters(),
+                                cpu[0].params.parameters(), before):
+        diff = (p.detach().cpu() - q.detach()).abs()
+        over += int((diff > 0.01 * TRAIN["lr"]).sum())
+        diff_sq += float((diff.double() ** 2).sum())
+        update_sq += float(((q.detach() - p0).double() ** 2).sum())
+        if diff.max().item() > gap:
+            gap, worst = diff.max().item(), name
+    share = gap / TRAIN["lr"]
+    update_rel_l2 = math.sqrt(diff_sq / update_sq)
+    if loss_rel > TRAIN_F32_LOSS_RTOL or share > TRAIN_F32_STEP_SHARE or \
+            update_rel_l2 > TRAIN_F32_UPDATE_REL_L2 or \
+            any(card[3].values()):
+        raise AssertionError(f"train_f32: losses {card[1]} vs {cpu[1]} "
+                             f"(rel {loss_rel}), parameter gap {gap} = "
+                             f"{share} of a step at {worst}, update rel "
+                             f"L2 {update_rel_l2}, launches {card[3]}")
+    record = {"phase": "train_f32", "layers": TRAIN_SMALL["layers"],
+              "losses_card": card[1], "losses_cpu": cpu[1],
+              "loss_max_rel": loss_rel, "param_max_abs": gap,
+              "param_max_abs_in_steps": share, "worst": worst,
+              "step_share_limit": TRAIN_F32_STEP_SHARE,
+              "update_rel_l2": update_rel_l2,
+              "update_rel_l2_limit": TRAIN_F32_UPDATE_REL_L2,
+              "elements_over_a_hundredth_step": over,
+              "elements": sum(p.numel() for p in before),
+              "card_s": card[2], "cpu_s": cpu[2]}
+    emit(record)
+    return record
+
+
+def phase_checkpoint() -> dict:
+    """On the card: 3 steps, save, 2 more; a fresh state restored from the
+    save and run 2 steps must equal the uninterrupted run."""
+    from aiko_services_tpu_torch.models.whisper import whisper_init
+    from aiko_services_tpu_torch.parallel import (
+        TrainState, init_train_state, make_train_step, restore_checkpoint,
+        save_checkpoint)
+    from aiko_services_tpu_torch.parallel.train import adamw
+
+    # the two runs must repeat each other's arithmetic: cuDNN's
+    # deterministic convolution algorithms (cuBLAS's products repeat)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _checkpoint_runs()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _checkpoint_runs() -> dict:
+    from aiko_services_tpu_torch.models.whisper import whisper_init
+    from aiko_services_tpu_torch.parallel import (
+        TrainState, init_train_state, make_train_step, restore_checkpoint,
+        save_checkpoint)
+    from aiko_services_tpu_torch.parallel.train import adamw
+
+    config = small_whisper()
+    batch = train_batch(config, TRAIN_SMALL, 5, "cuda")
+    step = make_train_step(whisper_loss(config))
+
+    def fresh(seed):
+        return init_train_state(whisper_init(
+            torch.Generator(device="cuda").manual_seed(seed), config),
+            adamw(TRAIN["lr"]))
+
+    state, _, _ = run_steps(fresh(6), step, batch, 3)
+    with tempfile.TemporaryDirectory() as directory:
+        start = time.perf_counter()
+        path = save_checkpoint(directory, {
+            "params": state.params, "opt_state": state.opt_state,
+            "step": int(state.step)}, step=int(state.step))
+        save_s = time.perf_counter() - start
+        nbytes = os.path.getsize(os.path.join(path, "state.npz"))
+        with open(os.path.join(path, "manifest.json")) as handle:
+            manifest = json.load(handle)
+        state, _, _ = run_steps(state, step, batch, 2)
+        template = fresh(7)
+        start = time.perf_counter()
+        loaded = restore_checkpoint(path, {
+            "params": template.params, "opt_state": template.opt_state,
+            "step": 0})
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - start
+    resumed = TrainState(loaded["params"], loaded["opt_state"],
+                         loaded["step"])
+    resumed, _, _ = run_steps(resumed, step, batch, 2)
+    worst = 0.0
+    for p, q in zip(state.params.parameters(), resumed.params.parameters()):
+        for a, b in ((p, q), (state.opt_state.state[p]["exp_avg"],
+                              resumed.opt_state.state[q]["exp_avg"]),
+                     (state.opt_state.state[p]["exp_avg_sq"],
+                      resumed.opt_state.state[q]["exp_avg_sq"])):
+            rel = ((a - b).abs() / b.abs().clamp_min(1e-30)).max().item()
+            worst = max(worst, rel)
+    if worst > CHECKPOINT_RTOL or not resumed.step == state.step == 5:
+        raise AssertionError(f"checkpoint: resumed run differs (max rel "
+                             f"{worst}), steps {resumed.step} / "
+                             f"{state.step}")
+    record = {"phase": "checkpoint", "leaves": manifest["leaves"],
+              "manifest_step": manifest["step"], "npz_bytes": nbytes,
+              "save_s": save_s, "restore_s": restore_s,
+              "max_rel_diff": worst, "rtol": CHECKPOINT_RTOL,
+              "step": resumed.step}
+    emit(record)
+    return record
+
+
+def phase_sp_prefill() -> dict:
+    """llama_forward_sp on a one-rank seq mesh against llama_forward:
+    Llama-1B in bf16 (argmax agreement) and at 2 layers in f32."""
+    from aiko_services_tpu_torch.models.llama import (
+        LLAMA_PRESETS, llama_forward, llama_forward_sp, llama_init)
+    from aiko_services_tpu_torch.parallel import create_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = create_mesh({"seq": 1})
+    record = {"phase": "sp_prefill", "tokens": SP_TOKENS}
+    for label, changes in (("bf16", {"dtype": torch.bfloat16}),
+                           ("f32", {"num_layers": 2})):
+        config = dataclasses.replace(LLAMA_PRESETS["1b"], **changes)
+        params = llama_init(torch.Generator(device="cuda").manual_seed(8),
+                            config)
+        tokens = torch.randint(
+            0, config.vocab, (1, SP_TOKENS), device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(9))
+        zero_attention_counts()
+        with torch.no_grad():
+            start = time.perf_counter()
+            sp = llama_forward_sp(params, config, tokens, mesh).to_local()
+            torch.cuda.synchronize()
+            sp_s = time.perf_counter() - start
+            start = time.perf_counter()
+            plain = llama_forward(params, config, tokens)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - start
+        counts = attention_counts()
+        if sp.shape != plain.shape or not torch.isfinite(sp).all() or \
+                any(counts.values()):
+            raise AssertionError(f"sp_prefill {label}: shape "
+                                 f"{tuple(sp.shape)}, launches {counts}")
+        split = sp.argmax(-1) != plain.argmax(-1)
+        agreement = 1.0 - split.float().mean().item()
+        err = (sp - plain).abs().max().item()
+        # the plain forward's top-2 logit gap where the two split
+        top2 = torch.topk(plain[split], 2, dim=-1).values
+        gaps = (top2[:, 0] - top2[:, 1]).sort().values.tolist()
+        record[label] = {"layers": config.num_layers,
+                         "argmax_agreement": agreement, "max_abs_err": err,
+                         "split_gap_median": statistics.median(gaps)
+                         if gaps else None,
+                         "split_gap_max": max(gaps) if gaps else None,
+                         "sp_s": sp_s, "plain_s": plain_s}
+        if label == "bf16" and agreement < SP_ARGMAX_MIN:
+            raise AssertionError(f"sp_prefill bf16: argmax agreement "
+                                 f"{agreement} < {SP_ARGMAX_MIN}")
+        if label == "f32" and not torch.allclose(sp, plain, rtol=SP_F32_TOL,
+                                                 atol=SP_F32_TOL):
+            raise AssertionError(f"sp_prefill f32: max abs err {err}")
+        del params, sp, plain
+        torch.cuda.empty_cache()
+    emit(record)
+    return record
+
+
+def phase_staged() -> int:
+    """StagedExecutor([encode, greedy_decode_from_audio]) on one card's
+    two stages: tokens equal to the unstaged program's; returns the
+    flash launches of the staged run."""
+    from aiko_services_tpu_torch.models.whisper import (
+        WHISPER_PRESETS, encode, greedy_decode_from_audio,
+        greedy_decode_scored, whisper_init)
+    from aiko_services_tpu_torch.parallel import StagedExecutor
+
+    base = WHISPER_PRESETS["small"]
+    # the slice phase's element config at bucket 3072
+    config = dataclasses.replace(
+        base, n_audio_ctx=STAGED["frames"] // 2,
+        n_text_ctx=STAGED["max_tokens"] + 8, dtype=torch.bfloat16)
+    params = whisper_init(torch.Generator(device="cuda").manual_seed(0),
+                          config)
+    kwargs = {"max_tokens": STAGED["max_tokens"],
+              "suppress_timestamps": True}
+
+    @torch.inference_mode()
+    def stage_encode(p, mel):
+        return encode(p, config, mel)
+
+    def stage_decode(p, audio):
+        return greedy_decode_from_audio(p, config, audio, **kwargs)
+
+    encoder = {k: params[k] for k in ("conv1", "conv2", "enc_blocks",
+                                      "ln_enc")}
+    decoder = {k: params[k] for k in ("tok_embed", "pos_embed",
+                                      "dec_blocks", "ln_dec")}
+    card = torch.device("cuda", 0)
+    executor = StagedExecutor([(stage_encode, encoder),
+                               (stage_decode, decoder)],
+                              devices=[card, card])
+    generator = torch.Generator(device="cuda").manual_seed(10)
+    mels = [torch.randn((STAGED["batch"], STAGED["frames"], config.n_mels),
+                        generator=generator, device="cuda").to(config.dtype)
+            for _ in range(STAGED["batches"])]
+    torch.cuda.synchronize()
+    zero_attention_counts()
+    # submit() must queue the stages without a host wait: under sync
+    # debug mode "error" any synchronizing call in it raises
+    sync_mode = torch.cuda.get_sync_debug_mode()
+    with flash_shapes() as shapes:
+        start = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending = [executor.submit(mel) for mel in mels]
+        finally:
+            torch.cuda.set_sync_debug_mode(sync_mode)
+        submit_s = time.perf_counter() - start
+        queued = torch.cuda.Event()
+        queued.record()
+        busy_at_return = not queued.query()
+        in_flight = executor.in_flight
+        staged = [executor.collect(y) for y in pending]
+        total_s = time.perf_counter() - start
+    counts = attention_counts()
+    flash_shape = check_flash_shapes("staged", shapes.seen)
+    if in_flight != STAGED["batches"] or executor.in_flight != 0 or \
+            counts["flash_attention"] != STAGED_FLASH:
+        raise AssertionError(f"staged: in flight {in_flight} then "
+                             f"{executor.in_flight}, launches {counts}")
+    identical = 0
+    for mel, (tokens, lengths, scores) in zip(mels, staged):
+        ref = greedy_decode_scored(params, config, mel, **kwargs)
+        if not (torch.equal(torch.from_numpy(tokens), ref[0].cpu()) and
+                torch.equal(torch.from_numpy(lengths), ref[1].cpu())):
+            raise AssertionError("staged tokens differ from the unstaged "
+                                 "program's")
+        identical += 1
+    emit({"phase": "staged", "batches": STAGED["batches"],
+          "batch": STAGED["batch"], "identical_batches": identical,
+          "in_flight_peak": in_flight, "in_flight_after": executor.in_flight,
+          "flash_launches": counts["flash_attention"],
+          "flash_shape": flash_shape, "submit_s": submit_s,
+          "total_s": total_s,
+          "device_busy_at_submit_return": busy_at_return})
+    return counts["flash_attention"]
+
+
+def phase_grad_guard() -> dict:
+    """Each kernel wrapper raises on a CUDA operand that requires grad
+    (the kernels have no backward), and launches nothing doing so."""
+    from aiko_services_tpu_torch.ops import attention as A
+    from aiko_services_tpu_torch.ops import paged_attention as PA
+
+    generator = torch.Generator(device="cuda").manual_seed(11)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=generator, device="cuda",
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    q, k, v = (randn(1, 2, 1024, 64) for _ in range(3))
+    qd = randn(1, 2, 1, 64)
+    paged = list(paged_case(generator, 256, 8))
+    calls = {
+        "flash_attention": lambda grad: A.flash_attention(
+            grad(q), k, v),
+        "cross_decode_attention": lambda grad: A.cross_decode_attention(
+            qd, grad(k), v),
+        "paged_decode_attention": lambda grad: PA.paged_decode_attention(
+            grad(paged[0]), *paged[1:], groups=4),
+    }
+    zero_attention_counts()
+    refused = {}
+    for name, call in calls.items():
+        try:
+            call(lambda t: t.clone().requires_grad_(True))
+        except RuntimeError as error:
+            refused[name] = "no backward" in str(error)
+    counts = attention_counts()
+    if refused != {name: True for name in calls} or any(counts.values()):
+        raise AssertionError(f"grad guard: refused {refused}, launches "
+                             f"{counts}")
+    emit({"phase": "grad_guard", "refused": sorted(refused)})
+    return refused
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6721,9 +7209,6 @@ def main() -> int:
     phase_counts = {"slice": counts, "pipeline": pipeline_counts,
                     "remote_pipeline": remote_counts,
                     "peer_pipeline": peer_counts, "peer_chaos": chaos_counts}
-    for record in records:
-        record["launches"] = sum(phase_counts[phase][record["counter"]]
-                                 for phase in record["counted_in"])
     # paged launches by (variant, path): the native decoder decodes, the
     # int8 one decodes with scales folded and extends dequantizing
     llama_launches, llama_tokens = phase_llama()
@@ -6796,6 +7281,18 @@ def main() -> int:
     if earlier != EARLIER_COUNTS:
         raise AssertionError(f"earlier phases' counts {earlier} != "
                              f"{EARLIER_COUNTS}")
+    phase_grad_guard()
+    phase_train()
+    phase_train_f32()
+    phase_checkpoint()
+    phase_sp_prefill()
+    phase_counts["staged"] = {"flash_attention": phase_staged(),
+                              "cross_decode_attention": 0}
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    for record in records:
+        record["launches"] = sum(phase_counts[phase][record["counter"]]
+                                 for phase in record["counted_in"])
     for record in paged:
         record["launches"] = counts.get((record["variant"], record["path"]),
                                         0)

@@ -108,6 +108,18 @@ def _build(package, parameters, streams):
     return engine, pipeline, agent, done
 
 
+def _await_promotions(agent, timeout=60.0):
+    """Wait until the host tier's promoter thread has staged every
+    promotion it was kicked for, so that the next engine step's poll()
+    installs the same jobs in every run: the engine runs on a virtual
+    clock, the promoter on wall time, and which chain an install evicts
+    from a small device cache depends on when its job lands."""
+    promoter = getattr(getattr(agent, "prefix_cache", None), "promoter",
+                       None)
+    for job in list(getattr(promoter, "_jobs", {}).values()):
+        assert job.done.wait(timeout), "a promotion did not stage"
+
+
 def _converse(package, parameters, texts, settle=0.0):
     """Every stream posts its turns one after another (a turn only once
     the stream's previous turn came back).  Returns ({(stream, turn):
@@ -132,6 +144,7 @@ def _converse(package, parameters, texts, settle=0.0):
         if len(responses) == total:
             break
         engine.clock.advance(0.002)
+        _await_promotions(agent)
         engine.step()
     assert len(responses) == total, f"{len(responses)}/{total}"
     event = PACKAGES[package][0]
@@ -222,12 +235,17 @@ def test_continuous_mode_defaults_to_the_dense_decoder(same_weights):
 
 
 def test_place_params_moves_to_the_runtime_device():
-    from aiko_services_tpu_torch.compute import MESH_RULES_NOT_PORTED
+    """One device (no mesh): placement is the device, whatever the axes
+    and rules say; the parameters stay plain tensors."""
+    from aiko_services_tpu_torch.parallel import DEFAULT_RULES
     engine, pipeline, agent, _ = _build("torch", {"mode": "sync"}, ["s0"])
-    model = TL.llama_init(torch.Generator().manual_seed(1),
-                          TL.LLAMA_PRESETS["tiny"], device="cpu")
+    config = TL.LLAMA_PRESETS["tiny"]
+    model = TL.llama_init(torch.Generator().manual_seed(1), config,
+                          device="cpu")
     assert agent.compute.place_params(model) is model
-    with pytest.raises(NotImplementedError) as error:
-        agent.compute.place_params(model, rules=("x",))
-    assert str(error.value) == MESH_RULES_NOT_PORTED
+    rules = DEFAULT_RULES.with_overrides(embed="model")
+    assert agent.compute.place_params(model, TL.llama_axes(config),
+                                      rules=rules) is model
+    assert all(type(p.data) is torch.Tensor and p.device.type == "cpu"
+               for p in model.parameters())
     assert dataclasses.is_dataclass(TL.LLAMA_PRESETS["tiny"])

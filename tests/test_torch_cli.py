@@ -6,8 +6,9 @@ overrides (both spellings, `=` values, the longest prefix) and fail with
 the same messages; `system start` / `status` / `stop` spawns, reports
 and stops a real `python -m aiko_services_tpu_torch registrar` child;
 `pipeline create --device cpu` is built by build_pipeline on the test's
-own engine and driven to its frames; the parts that wait for other
-ROADMAP items raise NotImplementedError naming them."""
+own engine and driven to its frames, also over a --mesh of one device;
+the parts that wait for other ROADMAP items raise NotImplementedError
+naming them."""
 
 import glob
 import json
@@ -105,9 +106,19 @@ def test_element_flags_parse_as_jax_parses_them():
 def test_the_parts_left_for_later_items_raise_naming_them(capsys):
     with pytest.raises(NotImplementedError, match="Queue 1 item 7\\)"):
         TCli.main(["dashboard"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3\\)"):
-        TCli.main(["pipeline", "create", EXAMPLES[0], "--mesh",
-                   "model=2"])
+    # --mesh parses as JAX's does; its mesh spans the process group's
+    # ranks, one device each: a one-process CPU run has one device, and
+    # serving on a larger mesh waits for sharded serving (Queue 1 item 3)
+    for bad in ("model", "=2", "model=2,model=2", "model=x", "model=0"):
+        with pytest.raises(TCli.CliError) as port_error:
+            TCli.parse_mesh_spec(bad, "cpu")
+        with pytest.raises(click.ClickException) as jax_error:
+            JCli.parse_mesh_spec(bad)
+        assert str(port_error.value) == jax_error.value.message
+    code, _, err = port(["pipeline", "create", EXAMPLES[0], "--device",
+                         "cpu", "--mesh", "model=2"], capsys)
+    assert code == 1 and err.startswith(
+        "Error: --mesh 'model=2': mesh {'model': 2} wants 2 devices, have 1")
     # the commands that need nothing spawned print the JAX lines
     for argv in (["system", "reset", "--transport", "memory"],
                  ["system", "status", "--state-file", "/nonexistent/s"],
@@ -167,10 +178,10 @@ def test_module_entry_point_runs_the_cli():
         ["pipeline", "show", "examples/pipeline/pipeline_local.json"])[1]
 
 
-def test_pipeline_create_builds_on_the_given_engine_and_device(tmp_path):
-    """`pipeline create --device cpu`: build_pipeline is what the command
-    builds before it runs its loop; here the test drives it on its own
-    engine (virtual clock) until the stream's three frames complete."""
+def _create_and_drive(tmp_path, **kwargs):
+    """build_pipeline on the test's own engine (virtual clock), driven
+    until the stream's three frames complete; returns the compute
+    runtime."""
     with open("examples/speech/pipeline_transcription.json") as handle:
         definition = json.load(handle)
     definition["parameters"].update({
@@ -181,7 +192,7 @@ def test_pipeline_create_builds_on_the_given_engine_and_device(tmp_path):
     engine = EventEngine(VirtualClock())
     runtime, pipeline = TCli.build_pipeline(
         str(path), name="p_cli", device="cpu", engine=engine,
-        element_flags=["--PE_MicrophoneSim.limit", "3"])
+        element_flags=["--PE_MicrophoneSim.limit", "3"], **kwargs)
     done = []
     pipeline.add_frame_handler(done.append)
     try:
@@ -194,7 +205,25 @@ def test_pipeline_create_builds_on_the_given_engine_and_device(tmp_path):
         assert [(f.stream_id, f.frame_id) for f in done] == \
             [("*", 0), ("*", 1), ("*", 2)]
         assert pipeline.recovery_stats["frames_failed"] == 0
+        return compute
     finally:
         for stream_id in list(pipeline.streams):
             pipeline.destroy_stream(stream_id)
         runtime.terminate()
+
+
+def test_pipeline_create_builds_on_the_given_engine_and_device(tmp_path):
+    """`pipeline create --device cpu`: build_pipeline is what the command
+    builds before it runs its loop; here the test drives it on its own
+    engine (virtual clock) until the stream's three frames complete."""
+    compute = _create_and_drive(tmp_path)
+    assert compute.ec_producer.get("mesh") == {}
+
+
+def test_pipeline_create_over_a_mesh_of_one_device(tmp_path):
+    """`--mesh data=1 --device cpu`: a one-process gloo mesh of one
+    device; the pipeline serves on it as on no mesh at all."""
+    compute = _create_and_drive(tmp_path, mesh_spec="data=1")
+    assert compute.mesh.size() == 1 and compute.mesh.device_type == "cpu"
+    assert compute.ec_producer.get("mesh") == {"data": 1}
+    assert compute.ec_producer.get("device_count") == 1

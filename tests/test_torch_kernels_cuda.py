@@ -439,3 +439,39 @@ def test_mel_collate_pads_card_rows_on_the_card(card, mixed):
     assert torch.equal(batch[3:], torch.zeros_like(batch[3:]))
     assert np.array_equal(batch[2, :250].float().cpu().numpy(),
                           rows[2].to(torch.bfloat16).float().cpu().numpy())
+
+
+# -- autograd: the kernels have no backward -----------------------------------
+
+def test_flash_and_cross_decode_refuse_grad(card):
+    """A CUDA operand that requires grad under grad mode raises (the
+    output, filled through ctypes, would carry no gradient); under
+    no_grad or inference_mode the kernels run."""
+    generator = torch.Generator(device=card).manual_seed(0)
+    q, k, v = (_randn(generator, 1, 2, 128, 64) for _ in range(3))
+    qd = _randn(generator, 1, 2, 1, 64)
+    for call, query in ((A.flash_attention, q),
+                        (A.cross_decode_attention, qd)):
+        for operands in ((query.clone().requires_grad_(True), k, v),
+                         (query, k, v.clone().requires_grad_(True))):
+            with pytest.raises(RuntimeError, match="no backward"):
+                call(*operands)
+            with torch.no_grad():
+                assert torch.isfinite(call(*operands).float()).all()
+        with torch.inference_mode():
+            assert torch.isfinite(call(query, k, v).float()).all()
+
+
+def test_paged_kernel_refuses_grad(card):
+    from aiko_services_tpu_torch.ops import paged_attention as P
+    generator = torch.Generator(device=card).manual_seed(1)
+    operands = list(_paged_case(generator, torch.bfloat16, 2, 2, 2, 2, 8, 3,
+                                3, [13, 24]))
+    for index in (0, 1, 5):                      # q, a pool, a side buffer
+        grad = list(operands)
+        grad[index] = grad[index].clone().requires_grad_(True)
+        with pytest.raises(RuntimeError, match="no backward"):
+            P.paged_decode_attention(*grad, groups=2)
+        with torch.no_grad():
+            assert torch.isfinite(
+                P.paged_decode_attention(*grad, groups=2)).all()

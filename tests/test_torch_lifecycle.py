@@ -226,6 +226,39 @@ def test_lifecycle_fleet_handshake_mirror_delete_and_timeout():
     assert pending == 2 and reaped == 0
 
 
+def test_a_drained_retirement_stops_a_plain_client_at_once():
+    """delete_client(drain_s=N) publishes (control_drain N): a plain
+    actor has nothing to drain and stops on the next engine turns, long
+    before the N-second hard deadline would send (control_stop)."""
+    def scenario(package):
+        host = Host(package)
+        lifecycle = host.m["lifecycle"]
+        workers = {}
+
+        def spawner(client_id, manager_topic):
+            rt = host.runtime(f"worker4_{client_id}")
+            lifecycle.LifeCycleClient(rt, f"client4_{client_id}",
+                                      manager_topic, client_id)
+            workers[client_id] = rt
+            return rt
+        manager = lifecycle.LifeCycleManager(
+            host.runtime("lcm4_host"), "lcm4", spawner)
+        ids = manager.create_clients(2)
+        host.settle(12)
+        before = [workers[cid].service_by_name(f"client4_{cid}") is not None
+                  for cid in ids]
+        start = host.engine.clock.now()
+        manager.delete_client(ids[0], drain_s=30.0)
+        host.settle(8)
+        after = [workers[cid].service_by_name(f"client4_{cid}") is not None
+                 for cid in ids]
+        return (before, after, host.engine.clock.now() - start,
+                manager.ready_ids())
+    before, after, elapsed, ready = both(scenario)
+    assert before == [True, True] and after == [False, True]
+    assert elapsed == 0.0 and ready == ["1"]
+
+
 def test_lifecycle_restart_policy_replaces_dead_clients():
     def scenario(package):
         host = Host(package)

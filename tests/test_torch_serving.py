@@ -207,7 +207,7 @@ def test_flash_buckets_round_long_audio_to_kernel_geometry(jax_model):
         assert element.config.dtype is torch.bfloat16    # as in JAX
 
 
-def test_setup_rejects_bad_parameters():
+def test_setup_rejects_bad_parameters(monkeypatch):
     with pytest.raises(ValueError, match="kv_quant"):
         _asr({"preset": "test", "kv_quant": "bogus"})[0].scheduler
     with pytest.raises(RuntimeError, match="no ComputeRuntime"):
@@ -215,8 +215,14 @@ def test_setup_rejects_bad_parameters():
     # a tokenizer directory that holds no vocabulary fails to load
     with pytest.raises(FileNotFoundError, match="vocab.json"):
         _asr({"preset": "test", "tokenizer": "vocab.json"})[0].scheduler
-    # a JAX option that waits for a later ROADMAP item says which
-    with pytest.raises(NotImplementedError, match="item 3"):
+    # pp_stages: the encoder and decode stages over the CPU's eight
+    # logical devices build; with one device (one card) they raise, as
+    # JAX's StagedExecutor does on one device
+    assert _asr({"preset": "test", "pp_stages": 2})[0].scheduler is not None
+    from aiko_services_tpu_torch import parallel
+    monkeypatch.setattr(parallel, "devices",
+                        lambda device=None: [torch.device("cpu")])
+    with pytest.raises(ValueError, match="1 devices not divisible into 2"):
         _asr({"preset": "test", "pp_stages": 2})[0].scheduler
     # pipelined batches dispatch behind the in-flight gate; a sync
     # element never pipelines (resolve_pipelined)

@@ -1,0 +1,279 @@
+"""Rank bodies of the port's multi-process CPU tests.
+
+Each function runs on every rank of a gloo group (tests/torch_spmd.py
+`run_ranks`) and returns what its test compares, as numpy arrays and
+plain values.  This module imports neither jax nor the JAX package: the
+ranks are fresh interpreters that need only the port."""
+
+import torch
+
+
+def _spec(tensor, mesh):
+    """A DTensor's spec: the mesh axis sharding each tensor dimension
+    (None where none does); a plain tensor's is all None."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    spec = [None] * tensor.ndim
+    if isinstance(tensor, DTensor):
+        for name, placement in zip(mesh.mesh_dim_names, tensor.placements):
+            if isinstance(placement, Shard):
+                spec[placement.dim] = name
+    return tuple(spec)
+
+
+def _placements_of(module, mesh):
+    return {name: (_spec(param, mesh), tuple(param.to_local().shape))
+            for name, param in module.named_parameters()}
+
+
+# -- tests/test_torch_mesh_sharding.py ---------------------------------------
+
+def placements(rank, world):
+    """Whisper-tiny, Llama-tiny and the tiny MoE placed on {data: 2,
+    model: 2} (and {data: 2, expert: 2}) by their logical axes, the
+    ComputeRuntime's placement on the same mesh, and the mesh helpers."""
+    from aiko_services_tpu_torch.compute import ComputeRuntime
+    from aiko_services_tpu_torch.event import EventEngine, VirtualClock
+    from aiko_services_tpu_torch.models import llama as TL
+    from aiko_services_tpu_torch.models import moe as TM
+    from aiko_services_tpu_torch.models import whisper as TW
+    from aiko_services_tpu_torch.parallel import (
+        collectives as C, create_mesh, named_sharding, shard_pytree)
+    from aiko_services_tpu_torch.process import ProcessRuntime
+    from aiko_services_tpu_torch.transport import MemoryBroker, MemoryMessage
+
+    generator = torch.Generator().manual_seed(0)
+    mesh = create_mesh({"data": 2, "model": 2}, device="cpu")
+    whisper = TW.whisper_init(generator, TW.WHISPER_PRESETS["tiny"],
+                              device="cpu")
+    shard_pytree(whisper, TW.whisper_axes(whisper.config), mesh)
+    llama_config = TL.LLAMA_PRESETS["tiny"]
+    llama = TL.llama_init(generator, llama_config, device="cpu")
+    full = {name: p.detach().clone() for name, p in llama.named_parameters()}
+
+    broker = MemoryBroker()
+    runtime = ProcessRuntime(
+        name=f"rank{rank}", engine=EventEngine(VirtualClock()),
+        transport_factory=lambda on_message, *_: MemoryMessage(
+            on_message=on_message, broker=broker)).initialize()
+    compute = ComputeRuntime(runtime, "compute", mesh=mesh)
+    placed = compute.place_params(llama, TL.llama_axes(llama_config))
+    gathered_equal = all(torch.equal(p.full_tensor(), full[name])
+                         for name, p in placed.named_parameters())
+    refusals = []
+    for attempt in (lambda: compute.place_params(llama),
+                    lambda: compute.register_program("f", lambda x: x),
+                    lambda: compute.register_batched(
+                        "g", lambda b, x: x, [8], lambda b, p: p,
+                        lambda r, n: r)):
+        try:
+            attempt()
+        except NotImplementedError as error:
+            refusals.append(str(error))
+    share = (compute.ec_producer.get("mesh"),
+             compute.ec_producer.get("device_count"), str(compute.device))
+    runtime.terminate()
+
+    moe_mesh = create_mesh({"data": 2, "expert": 2}, device="cpu")
+    moe_config = TL.LLAMA_PRESETS["tiny_moe"].moe_config()
+    moe = TM.MoE(moe_config, device="cpu")
+    for module in moe.modules():
+        if hasattr(module, "init_"):
+            module.init_(generator)
+    x = torch.randn((2, 8, moe_config.dim), generator=generator)
+    expected, _ = TM.moe_forward(moe, moe_config, x)
+    shard_pytree(moe, TM.moe_axes(), moe_mesh)
+    gathered = {"router": {"w": moe.router.w.full_tensor()},
+                "w_in": moe.w_in.full_tensor(),
+                "w_out": moe.w_out.full_tensor()}
+    got, _ = TM.moe_forward(gathered, moe_config, x)
+
+    x16 = torch.ones((8, 16), dtype=torch.bfloat16)
+    return {
+        "whisper": _placements_of(whisper, mesh),
+        "llama": _placements_of(placed, mesh),
+        "llama_gathered_equal": gathered_equal,
+        "moe": _placements_of(moe, moe_mesh),
+        "moe_max_err": float((got - expected).abs().max()),
+        "refusals": refusals,
+        "share": share,
+        "named": [named_sharding(mesh, *axes).spec for axes in (
+            ("batch", "embed"), ("batch", "sequence", "heads"))],
+        "fabric": C.mesh_fabric_report(mesh),
+        "resharded": _spec(C.reshard(x16, mesh, ("data", "model")), mesh),
+        "bytes": [C.collective_bytes(x16, "model", mesh, op)
+                  for op in ("all_gather", "reduce_scatter", "psum",
+                             "ppermute")],
+    }
+
+
+# -- tests/test_torch_collectives.py ------------------------------------------
+
+def collectives(rank, world, x, y):
+    """Each collective over the ranks of a 1-D mesh {"x": world}, and
+    over the model axis of {data: 2, model: 2}; rank r holds x[r]."""
+    from aiko_services_tpu_torch.parallel import collectives as C
+    from aiko_services_tpu_torch.parallel import create_mesh
+
+    mesh = create_mesh({"x": world}, device="cpu")
+    local = torch.from_numpy(x[rank])
+    kw = {"mesh": mesh}
+    out = {
+        "psum": C.psum(local, "x", **kw),
+        "pmean": C.pmean(local, "x", **kw),
+        "pmax": C.pmax(local, "x", **kw),
+        "all_gather": C.all_gather(local, "x", **kw),
+        "all_gather_axis1": C.all_gather(local, "x", axis=1, **kw),
+        "all_gather_stacked": C.all_gather(local, "x", tiled=False, **kw),
+        "reduce_scatter": C.reduce_scatter(local, "x", **kw),
+        "reduce_scatter_axis1": C.reduce_scatter(local, "x", axis=1, **kw),
+        "ring": C.ppermute_ring(local, "x", world, **kw),
+        "ring_reverse": C.ppermute_ring(local, "x", world, reverse=True,
+                                        **kw),
+        "index": torch.tensor(C.axis_index("x", **kw)),
+        "size": torch.tensor(C.axis_size("x", **kw)),
+    }
+    out = {key: value.numpy() for key, value in out.items()}
+    grid = create_mesh({"data": 2, "model": 2}, device="cpu")
+    local = torch.from_numpy(y[rank])
+    out["model_psum"] = C.psum(local, "model", mesh=grid).numpy()
+    out["data_ring"] = C.ppermute_ring(local, "data", 2, mesh=grid).numpy()
+    return out
+
+
+# -- tests/test_torch_ring_attention.py ---------------------------------------
+
+def ring(rank, world, cases):
+    """ring_attention over {seq: 4} and {data: 2, seq: 2} for each case
+    (q, k, v full arrays, causal); every rank returns the gathered
+    output."""
+    from aiko_services_tpu_torch.parallel import create_mesh, ring_attention
+
+    results = {}
+    for axes in ({"seq": 4}, {"data": 2, "seq": 2}):
+        mesh = create_mesh(axes, device="cpu")
+        for name, (q, k, v, causal) in cases.items():
+            out = ring_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                 mesh, causal=causal)
+            results[(tuple(axes), name)] = out.full_tensor().numpy()
+    return results
+
+
+# -- tests/test_torch_train.py ------------------------------------------------
+
+def dp_tp_train(rank, world, flat, config_fields, batch, mask, steps,
+                directory):
+    """Whisper's AdamW steps on {data: 2, model: 2} from the parameters
+    `flat` ('/'-joined paths → arrays), three ways: the plain mean loss
+    with a checkpoint saved after step 3; a fresh sharded state restored
+    from that checkpoint and run to the last step; and the masked loss
+    (cross_entropy_sum) with `mask`.  Each: losses and the gathered
+    parameters, moments and placements after the last step."""
+    import numpy as np
+
+    from aiko_services_tpu_torch import bridge
+    from aiko_services_tpu_torch.models import whisper as TW
+    from aiko_services_tpu_torch.parallel import (
+        TrainState, checkpoint, create_mesh, train)
+
+    config = TW.WhisperConfig(**config_fields)
+    mesh = create_mesh({"data": 2, "model": 2}, device="cpu")
+
+    def fresh():
+        model = bridge.params_from_numpy(flat, config, device="cpu")
+        return train.init_train_state(model, train.adamw(1e-2), mesh,
+                                      TW.whisper_axes(config))
+
+    def loss_fn(params, batch):
+        logits = TW.forward(params, config, batch["mel"], batch["tokens"])
+        return train.cross_entropy_loss(logits, batch["targets"])
+
+    def masked_loss_fn(params, batch):
+        logits = TW.forward(params, config, batch["mel"], batch["tokens"])
+        return train.cross_entropy_sum(logits, batch["targets"],
+                                       batch["mask"])
+
+    def run(state, step, batch, first, last, save_at=None):
+        losses = []
+        for index in range(first, last):
+            if index == save_at:
+                saved.append(checkpoint.save_checkpoint(directory, {
+                    "params": state.params, "opt_state": state.opt_state,
+                    "step": int(state.step)}, step=int(state.step)))
+            state, loss = step(state, batch)
+            losses.append(float(loss))
+        opt = state.opt_state
+        q_w = state.params.enc_blocks[0].attn.q.w
+        return {"losses": losses, "step": state.step,
+                "params": {name: p.full_tensor().detach().numpy()
+                           for name, p in state.params.named_parameters()},
+                "moments": {name: opt.state[p]["exp_avg"].full_tensor().
+                            numpy()
+                            for name, p in state.params.named_parameters()},
+                "q_spec": _spec(q_w, mesh),
+                "q_local": tuple(q_w.to_local().shape)}
+
+    # count the writes this rank makes: only global rank 0 may write
+    writes = []
+    savez = np.savez
+    np.savez = lambda *args, **kw: (writes.append(rank), savez(*args, **kw))
+    saved = []
+    batch = {key: torch.from_numpy(value) for key, value in batch.items()}
+    step = train.make_train_step(loss_fn, mesh=mesh)
+    out = {"plain": run(fresh(), step, batch, 0, steps, save_at=3)}
+    template = fresh()
+    loaded = checkpoint.restore_checkpoint(saved[0], {
+        "params": template.params, "opt_state": template.opt_state,
+        "step": 0})
+    out["resumed"] = run(TrainState(loaded["params"], loaded["opt_state"],
+                                    loaded["step"]), step, batch, 3, steps)
+    out["resumed"]["restored_step"] = loaded["step"]
+    masked = dict(batch, mask=torch.from_numpy(mask))
+    out["masked"] = run(fresh(), train.make_train_step(masked_loss_fn,
+                                                       mesh=mesh),
+                        masked, 0, steps)
+    out["writes"] = len(writes)
+    return out
+
+
+# -- tests/test_torch_pipeline_parallel.py ------------------------------------
+
+def gpipe(rank, world, weights, microbatches):
+    """gpipe_spmd over {stage: world}: stage s applies tanh(x @ w[s]);
+    the stacked weights are passed full and as DTensors sharded over the
+    stage axis."""
+    from aiko_services_tpu_torch.parallel import create_mesh, gpipe_spmd
+    from aiko_services_tpu_torch.parallel.collectives import reshard
+
+    mesh = create_mesh({"stage": world}, device="cpu")
+
+    def stage_fn(params, x):
+        return torch.tanh(x @ params["w"])
+
+    step = gpipe_spmd(stage_fn, mesh, microbatches.shape[0])
+    w = torch.from_numpy(weights)
+    x = torch.from_numpy(microbatches)
+    full = step({"w": w}, x)
+    sharded = step({"w": reshard(w, mesh, ("stage",))}, x)
+    return full.numpy(), sharded.numpy()
+
+
+# -- tests/test_torch_llama_sp.py ---------------------------------------------
+
+def llama_sp(rank, world, flat, config_fields, tokens):
+    """llama_forward_sp over {seq: 4} and {data: 2, seq: 2}: the gathered
+    logits on every rank."""
+    from aiko_services_tpu_torch import bridge
+    from aiko_services_tpu_torch.models import llama as TL
+    from aiko_services_tpu_torch.parallel import create_mesh
+
+    config = TL.LlamaConfig(**config_fields)
+    model = bridge.params_from_numpy(flat, config, device="cpu")
+    tokens = torch.from_numpy(tokens)
+    out = {}
+    with torch.no_grad():
+        for axes in ({"seq": 4}, {"data": 2, "seq": 2}):
+            mesh = create_mesh(axes, device="cpu")
+            logits = TL.llama_forward_sp(model, config, tokens, mesh)
+            out[tuple(axes)] = logits.full_tensor().numpy()
+    return out
