@@ -48,3 +48,14 @@ def torch_dtype(dtype) -> torch.dtype:
     if name not in _DTYPES:
         raise ValueError(f"unsupported dtype {dtype!r}")
     return _DTYPES[name]
+
+
+# the operations plane's entry points, as the JAX package's __init__
+# exports them (imported last: they import the modules above)
+from .autoscaler import Autoscaler, ScalePolicy             # noqa: E402,F401
+from .placement import (                                    # noqa: E402,F401
+    DevicePool, DeviceSlice, PlacementManager,
+)
+
+__all__ += ["Autoscaler", "ScalePolicy", "DevicePool", "DeviceSlice",
+            "PlacementManager"]

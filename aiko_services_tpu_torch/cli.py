@@ -7,7 +7,7 @@
 #   python -m aiko_services_tpu_torch pipeline create DEF.json [--device D]
 #   python -m aiko_services_tpu_torch pipeline params DEF.json
 #   python -m aiko_services_tpu_torch pipeline show DEF.json [--dump json]
-#   python -m aiko_services_tpu_torch storage | recorder
+#   python -m aiko_services_tpu_torch storage | recorder | dashboard
 #   python -m aiko_services_tpu_torch system start|stop|status|reset
 #
 # The JAX CLI is built on click, which the card's machine lacks.  Errors
@@ -29,8 +29,6 @@ import sys
 __all__ = ["main", "CliError", "parse_element_flags", "parse_mesh_spec",
            "build_pipeline"]
 
-DASHBOARD_NOT_PORTED = ("the dashboard is not ported yet "
-                        "(ROADMAP.md Queue 1 item 7)")
 _DEFAULT_STATE_FILE = "~/.aiko_tpu_system.json"
 _CHILD_MODULE = "aiko_services_tpu_torch"
 
@@ -303,9 +301,12 @@ def recorder(args) -> None:
     runtime.run(loop_when_no_handlers=True)
 
 
-def dashboard(_args) -> None:
+def dashboard(args) -> None:
     """Curses dashboard: live service table + EC share browser."""
-    raise NotImplementedError(DASHBOARD_NOT_PORTED)
+    from .dashboard import run_dashboard
+
+    runtime = _make_runtime("dashboard", args.transport)
+    run_dashboard(runtime)
 
 
 # -- system bring-up ----------------------------------------------------------

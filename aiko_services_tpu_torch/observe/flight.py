@@ -29,6 +29,7 @@ import threading
 import time
 from collections import deque
 
+from .export import series_key
 from .metrics import MetricsRegistry, default_registry
 from .tracing import SpanRecord, tracer as _global_tracer
 from ..utils import get_logger, parse
@@ -94,13 +95,6 @@ def _install_tracer_tap(trace_source=None) -> None:
     source = trace_source or _global_tracer
     if _tracer_tap not in source.taps:
         source.taps.append(_tracer_tap)
-
-
-def series_key(name: str, labels: dict) -> str:
-    """Display key 'name{k=v,...}' for one snapshot series (the port's
-    copy of observe/export.py's series_key: plain join, no escaping)."""
-    inner = ",".join(f"{k}={v}" for k, v in sorted(labels.items()))
-    return f"{name}{{{inner}}}" if inner else name
 
 
 class FlightLogHandler(logging.Handler):

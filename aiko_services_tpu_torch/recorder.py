@@ -7,17 +7,14 @@
 # tails.  The same discipline holds the retained {topic_path}/0/metrics
 # snapshots (browsable with metrics_tail, persistable to Storage beside
 # the log rings) and the latest SLO alert record per rule.
-#
-# The topic names and the retained-JSON decode are the port's own copies
-# of the few names it needs from aiko_services_tpu/observe/export.py and
-# observe/series.py, which wait for ROADMAP.md Queue 1 item 6.
 
 from __future__ import annotations
 
-import json
 from collections import deque
 
 from .actor import Actor, get_remote_proxy
+from .observe.export import METRICS_TOPIC_SUFFIX, parse_retained_json
+from .observe.series import ALERT_TOPIC_PREFIX
 from .service import ServiceProtocol
 from .storage import Storage
 from .utils import LRUCache, get_logger
@@ -26,32 +23,11 @@ __all__ = ["Recorder", "PROTOCOL_RECORDER", "METRICS_TOPIC_SUFFIX",
            "ALERT_TOPIC_PREFIX", "parse_retained_json"]
 
 PROTOCOL_RECORDER = ServiceProtocol("recorder")
-METRICS_TOPIC_SUFFIX = "0/metrics"  # retained {topic_path}/0/metrics
-ALERT_TOPIC_PREFIX = "alert"        # retained {namespace}/alert/{rule}
 _TOPIC_LIMIT = 64           # LRU of log topics
 _RING_LIMIT = 128           # records per topic
 _METRICS_RING_LIMIT = 8     # snapshots kept per metrics topic (each is
                             # a full registry dump — deep history is the
                             # scraper's job, the tail is the Recorder's)
-
-
-def parse_retained_json(payload, require_key: str | None = None):
-    """Decode one retained control-plane JSON payload (metrics
-    snapshot, alert record): bytes-tolerant, returns the dict or None
-    on any malformed input — a bad retained record must never fail a
-    subscriber.  `require_key` additionally rejects documents missing
-    that key."""
-    try:
-        if isinstance(payload, (bytes, bytearray)):
-            payload = payload.decode("utf-8")
-        document = json.loads(payload)
-    except Exception:
-        return None
-    if not isinstance(document, dict):
-        return None
-    if require_key is not None and require_key not in document:
-        return None
-    return document
 
 
 class Recorder(Actor):

@@ -59,6 +59,7 @@ from .models import layers as L
 from .models.llama import LlamaConfig, llama_ffn
 from .observe.journey import JourneyLog
 from .observe.metrics import MirroredStats, default_registry
+from .observe.profiler import PhaseProfiler
 from .serving_paged import (BlockPool, _build_paged_spec_step,
                             _build_paged_step, _paged_admit, _paged_extend)
 
@@ -1947,6 +1948,11 @@ class ContinuousDecoder:
             for path, leaf in L.tree_leaves(self.params)
             if path[0] != "embed" and
             not any("qkv" in str(part) for part in path))
+        # the decode-round phase profiler: every working pump round's
+        # wall time split into named phases, with the modeled device
+        # bytes charged to the phase that explains them; a mark is one
+        # perf_counter read, so it is always on
+        self.profiler = PhaseProfiler(name)
         self._registry = registry or default_registry()
         # request journeys and mergeable SLO sketches: every request gets
         # a RequestJourney tied to the ambient TraceContext, and TTFT /
@@ -2404,6 +2410,11 @@ class ContinuousDecoder:
             except Exception:
                 self.logger.exception("drain completion callback failed")
 
+    def phase_stats(self) -> dict:
+        """The profiler's phase split of the committed rounds so far
+        (PhaseProfiler.phase_stats)."""
+        return self.profiler.phase_stats()
+
     def kv_cache_bytes(self) -> int:
         """Bytes allocated to the KV store: the dense slot caches (values
         and scales), or the pool's device arrays plus the int32 block
@@ -2819,6 +2830,9 @@ class ContinuousDecoder:
             ctx = np.zeros((t_write,), np.int32)
             ctx[:request.prefix_hit] = request.prompt[:request.prefix_hit]
             self._context[slot, :t_write] = _to_device(self.device, ctx)[0]
+            if self.paged:
+                # the dense copy's bytes above carry the context row
+                self.profiler.add_bytes("admit_dispatch", t_write * 4)
         request.slot = slot
         request.prefilling = True
         request.prefill_pos = request.prefix_hit
@@ -2852,6 +2866,7 @@ class ContinuousDecoder:
                 for plane, values in L._plane_pairs(leaf, rows):
                     plane[slot, :, :t_write] = values
         copied = t_write * self._kv_bytes_per_t // self.max_slots
+        self.profiler.add_bytes("admit_dispatch", copied)
         self.stats["prefix_copy_bytes"] += copied
 
     def _prefix_harvest(self, slot: int, request: DecodeRequest) -> None:
@@ -2944,6 +2959,12 @@ class ContinuousDecoder:
                 self._lengths, self._context,
                 *_to_device(self.device, prompts, true_lens,
                             slots + pad_slots, valid))
+        # the admit's modeled bytes: one weight stream plus the K/V rows
+        # written for `width` slots over `bucket` positions
+        self.profiler.add_bytes(
+            "admit_dispatch",
+            self._param_bytes +
+            width * bucket * self._kv_bytes_per_t // self.max_slots)
         # no host sync here: the request is live with its first token
         # owed; the stashed wave resolves it at the NEXT round's sync
         wave = []
@@ -3087,6 +3108,13 @@ class ContinuousDecoder:
                 self.params, self.config, self._k, self._v, self._tokens,
                 self._lengths, self._context,
                 *_to_device(self.device, *host))
+        # the extend's modeled bytes: one weight stream plus each row's
+        # prefix read and chunk write
+        row_bytes = self._kv_bytes_per_t // self.max_slots
+        self.profiler.add_bytes(
+            "extend_dispatch",
+            self._param_bytes + sum((offset + chunk) * row_bytes
+                                    for _, _, offset, _ in batch))
         wave = []
         for j, (slot, request, offset, finish) in enumerate(batch):
             new_pos = len(request.prompt) if finish else offset + chunk
@@ -3272,6 +3300,8 @@ class ContinuousDecoder:
             if self.idle:
                 self._drain_finish()
         self._round_prefill_tokens = 0
+        profiler = self.profiler
+        profiler.begin_round()
         round_start = time.perf_counter()
         # mid-prefill slots hold a slot but do not decode yet
         active = self._active_np
@@ -3293,6 +3323,7 @@ class ContinuousDecoder:
             # needs no decode
             scan_active = active & (budgets > 0)
             scanned = bool(scan_active.any())
+        profiler.mark("plan")
         fetch = [firsts for firsts, _ in waves_due]
         if scanned:
             self.stats["rounds"] += 1
@@ -3317,8 +3348,13 @@ class ContinuousDecoder:
             self.stats["steps"] += num_steps
             fetch = [emitted, emitted_active] + fetch
         transfer = self._start_fetch(fetch) if fetch else None
+        if scanned:
+            profiler.mark("spec_verify" if self.speculate_k
+                          else "scan_dispatch")
         self._admit_pending()
+        profiler.mark("admit_dispatch")
         self._advance_prefills()
+        profiler.mark("extend_dispatch")
         self.stats["round_prefill_tokens_max"] = max(
             self.stats["round_prefill_tokens_max"],
             self._round_prefill_tokens)
@@ -3331,8 +3367,14 @@ class ContinuousDecoder:
             emitted_active = host[1].reshape(shape).astype(bool)
             host = host[2:]
             self.stats["decode_s"] += time.perf_counter() - decode_start
-            self.stats["bytes_moved"] += num_steps * (
+            round_bytes = num_steps * (
                 self._param_bytes + self._kv_bytes_per_t * self._cache_t)
+            self.stats["bytes_moved"] += round_bytes
+            # charged to host_sync as the JAX package charges them (its
+            # sync wall); on the card the steps run while the host is
+            # still launching them, so this implied rate is no device rate
+            profiler.add_bytes("host_sync", round_bytes)
+        profiler.mark("host_sync")
         # first tokens of admits from EARLIER rounds
         now = time.monotonic()
         for firsts, (_, wave) in zip(host, waves_due):
@@ -3340,6 +3382,7 @@ class ContinuousDecoder:
                 if self._slots[request.slot] is request and \
                         not request.generated:
                     self._deliver(request.slot, int(firsts[j]), now)
+        profiler.mark("wave_resolve")
         if scanned and self.speculate_k:
             self._deliver_spec(emitted, emitted_active, occupied, num_steps)
         elif scanned:
@@ -3356,15 +3399,20 @@ class ContinuousDecoder:
                     self._deliver(slot, int(emitted[k, slot]), now)
                     delivered += 1
             self.stats["tokens_decode"] += delivered
+        if scanned:
+            profiler.mark("deliver")
         if scanned or waves_due or self._round_prefill_tokens:
             # working rounds only: idle ticks would drag the estimate
-            # toward the timer period
+            # toward the timer period, and dilute the phase split
             elapsed = time.perf_counter() - round_start
             self._round_ewma = elapsed if self._round_ewma is None \
                 else 0.7 * self._round_ewma + 0.3 * elapsed
-        elif self.idle and self.pool is not None:
-            # idle tick: give the pool's free tail back
-            self.pool.maybe_shrink()
+            profiler.commit_round()
+        else:
+            profiler.abandon_round()
+            if self.idle and self.pool is not None:
+                # idle tick: give the pool's free tail back
+                self.pool.maybe_shrink()
         if self.idle and self.on_idle is not None:
             self.on_idle()
 

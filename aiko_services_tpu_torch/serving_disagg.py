@@ -58,15 +58,12 @@ from .utils import get_logger
 __all__ = ["PROTOCOL_PREFILL", "ROLE_PREFILL", "ROLE_DECODE",
            "ROLE_COLOCATED", "role_tag", "tag_role", "PrefillRuntime",
            "PrefillClient", "SessionMigrator", "two_pool_autoscalers",
-           "DisaggHarness", "AUTOSCALER_NOT_PORTED"]
+           "DisaggHarness"]
 
 PROTOCOL_PREFILL = ServiceProtocol("prefill")
 ROLE_PREFILL = "prefill"
 ROLE_DECODE = "decode"
 ROLE_COLOCATED = "colocated"
-
-AUTOSCALER_NOT_PORTED = ("two_pool_autoscalers is not ported yet: it needs "
-                         "the autoscaler (ROADMAP.md Queue 1 item 7)")
 
 
 def role_tag(role: str) -> str:
@@ -1398,10 +1395,33 @@ def two_pool_autoscalers(runtime, prefill_manager, decode_manager,
                          prefill_policy=None, decode_policy=None,
                          interval: float = 2.0,
                          topic_filter: str | None = None):
-    """One autoscaler per pool, each armed with its own pool's signals
-    (prefill queue depth for the prefill pool, fleet-merged ITL p95 for
-    the decode pool).  Not ported yet: it needs the autoscaler."""
-    raise NotImplementedError(AUTOSCALER_NOT_PORTED)
+    """One autoscaler per pool, each armed with its own pool's signals:
+    the prefill pool scales on prefill queue depth (only prefill
+    runtimes publish the gauge), the decode pool on the fleet-merged ITL
+    p95 (only multi-token generation observes ITL).  Both pools
+    subscribe the same namespace snapshots, so the default worst-of
+    signals (mailbox, batch wait, hop p95, queue depth) are disarmed for
+    both: a prompt burst backlogging the prefill runtimes must not grow
+    the decode pool through their batch gauges.  Returns
+    (prefill_autoscaler, decode_autoscaler), two scale loops over two
+    LifeCycleManagers."""
+    from .autoscaler import Autoscaler, ScalePolicy
+    prefill_policy = prefill_policy or ScalePolicy(
+        prefill_queue_up=8.0, prefill_queue_down=1.0,
+        mailbox_depth_up=float("inf"), hop_p95_up=float("inf"),
+        batch_wait_up=float("inf"), queue_depth_up=float("inf"))
+    decode_policy = decode_policy or ScalePolicy(
+        itl_p95_up=0.05, itl_p95_down=0.005,
+        mailbox_depth_up=float("inf"), hop_p95_up=float("inf"),
+        batch_wait_up=float("inf"), queue_depth_up=float("inf"))
+    prefill = Autoscaler(runtime, "prefill-pool",
+                         manager=prefill_manager,
+                         policy=prefill_policy, interval=interval,
+                         topic_filter=topic_filter)
+    decode = Autoscaler(runtime, "decode-pool", manager=decode_manager,
+                        policy=decode_policy, interval=interval,
+                        topic_filter=topic_filter)
+    return prefill, decode
 
 
 # -- the two-pool harness ----------------------------------------------------

@@ -18,8 +18,7 @@
 # Key space: (tenant, session_id) maps to the EC item "tenant.sid".
 # Tenant and session ids must not contain ".", "/" or spaces.  With a KV
 # memory ledger attached (attach_ledger), lease pins and demotions count
-# as its lifecycle events.  The load generator (state/loadgen.py) waits
-# for ROADMAP.md Queue 1 item 10.
+# as its lifecycle events.  state/loadgen.py drives the table open-loop.
 
 from __future__ import annotations
 

@@ -15,5 +15,8 @@ from .logger import (                                       # noqa: F401
 )
 from .lru_cache import LRUCache                             # noqa: F401
 from .importer import load_module, load_class               # noqa: F401
-from .lock import Lock                                      # noqa: F401
+from .lock import (                                         # noqa: F401
+    Lock, LockOrderViolation, enable_lock_check, lock_check_enabled,
+    lock_check_report, lock_check_reset,
+)
 from .backoff import jittered_backoff                       # noqa: F401

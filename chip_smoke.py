@@ -254,6 +254,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
      turns on A, demoted, migrated to B, A purged to 0 blocks, both
      ledgers clean, turn 3 on B a prefix hit of every chain; at 2 layers
      in f32 turn 3 against llama_greedy_decode.
+  35b. ops: the operations plane around the paged decoder: Llama-1B in
+     bf16 (the llama phase's decoder, its PhaseProfiler always on)
+     serves OPS_REQUESTS seeded requests while a MetricsPublisher
+     publishes its registry on a memory broker, a SeriesStore +
+     HealthAggregator evaluates one SLORule on the serving_ttft_seconds
+     sketch, an Autoscaler drives a LifeCycleManager of in-process
+     clients on the TTFT signal, and a DevicePool holds the card; one
+     arm_trace window (torch.profiler) covers a round or two.  The
+     phases sum to the committed rounds' wall within 1% (rounds outside
+     the window, timed around pump), attributed_fraction >= 0.9, the
+     Chrome trace's paged kernel launches equal the wrapper's count in
+     the window, every round outside the window runs under sync debug
+     mode "error", the autoscaler's decisions and the alert states are
+     OPS_DECISIONS / OPS_ALERTS (from the CPU rehearsal: they depend on
+     virtual time only), a second allocation of the one-card pool is
+     refused while the first holds it; the phase split (seconds, share,
+     bytes, implied GB/s of host_sync against PEAK_BYTES_PER_S).
   36. grad_guard: each of the three kernel wrappers raises on a CUDA
      operand that requires grad (the kernels have no backward) and
      launches nothing doing so.
@@ -306,6 +323,7 @@ import functools
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -382,7 +400,8 @@ PEER_CHAOS_FLASH = 36
 # remote and peer phases, the paged kernel natively and its two int8
 # variants; agent_tiered's decode and extend launches, llama_wq's two
 # runs', decoder_chaos's, the disagg phase's two probes', the three
-# disagg_variants probes', agent_disagg's and agent_migrate's, from the
+# disagg_variants probes', agent_disagg's, agent_migrate's and the ops
+# phase's 16 x OPS_DECODE_STEPS, from the
 # CPU rehearsals of their drives)
 EARLIER_COUNTS = {"slice": 12, "pipeline": 24, "remote_pipeline": 24,
                   "peer_pipeline": 24, "peer_chaos": PEER_CHAOS_FLASH,
@@ -392,7 +411,8 @@ EARLIER_COUNTS = {"slice": 12, "pipeline": 24, "remote_pipeline": 24,
                   "disagg_probe": 16 * (16 + 4) + 16 * (16 + 1 + 4),
                   "disagg_variants": 3 * 16 * (16 + 1 + 4),
                   "agent_disagg": 16 * (128 + 9 + 9),
-                  "agent_migrate": 16 * (100 + 4)}
+                  "agent_migrate": 16 * (100 + 4),
+                  "ops": 16 * 160}
 # peer_chaos: the caller's channel drops a fifth of its request
 # envelopes, the server's delays half of its replies by 0.2 s; a hop
 # whose 3 s lease expires is sent again, up to 4 times.  Each side's
@@ -7173,6 +7193,257 @@ def phase_grad_guard() -> dict:
     return refused
 
 
+# the ops phase: 8 requests of 64 prompt tokens and 160 new tokens
+# through the llama phase's decoder (16 steps a round: ~10 decode rounds),
+# one virtual second a quarter per round; the publisher, the health
+# aggregator and the autoscaler tick every half virtual second
+OPS_REQUESTS = {"count": 8, "prompt": 64, "new": 160, "seed": 17}
+OPS_ROUND_S = 0.25                  # virtual seconds a pump round
+OPS_TAIL_S = 8.0                    # virtual seconds after the last round
+OPS_TRACE_AFTER = 3                 # rounds before the window is armed
+OPS_TRACE_S = 0.15                  # the window's wall seconds
+OPS_POLICY = {"min_clients": 1, "max_clients": 2, "ttft_p95_up": 1e-4,
+              "ttft_p95_down": 1e-4, "mailbox_depth_up": math.inf,
+              "hop_p95_up": math.inf, "batch_wait_up": math.inf,
+              "queue_depth_up": math.inf, "window": 2.0, "hysteresis": 2,
+              "cooldown": 2.0}
+# the trace's event categories that are kernels run on the card
+TRACE_KERNEL_CATEGORIES = ("kernel",)
+# what the CPU rehearsal of the drive gives: the decode steps, and the
+# autoscaler's (virtual second, action, reason) and the SLO rule's alert
+# states in order (they depend on virtual time and the request stream,
+# not on the card's speed: any TTFT is above OPS_POLICY's 1e-4 s)
+OPS_DECODE_STEPS = 160
+OPS_DECISIONS = [(1.0, "hold", "at-min"), (2.0, "up", "overload")] + \
+    [(t, "hold", "cooldown") for t in (2.55, 3.05, 3.55)] + \
+    [(4.05, "down", "underload")] + \
+    [(t, "hold", "cooldown") for t in (4.55, 5.05, 5.55, 6.05)] + \
+    [(t, "hold", "at-min") for t in (6.55, 7.05, 7.55, 8.05, 8.55, 9.05,
+                                     9.5, 10.0, 10.5, 11.0)]
+OPS_ALERTS = [(1.5, "firing"), (3.05, "resolved")]
+
+
+def trace_kernel_launches(path: str, names) -> int:
+    """Kernel events in a torch.profiler Chrome trace whose name holds
+    one of `names`."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return sum(1 for event in events
+               if event.get("cat") in TRACE_KERNEL_CATEGORIES and
+               any(name in event.get("name", "") for name in names))
+
+
+def phase_ops() -> int:
+    """The operations plane around Llama-1B's paged decoder (35b in the
+    docstring); returns the paged kernel's launches in the drive."""
+    import numpy as np
+
+    from aiko_services_tpu_torch.autoscaler import Autoscaler, ScalePolicy
+    from aiko_services_tpu_torch.event import (EventEngine, VirtualClock,
+                                               settle_virtual)
+    from aiko_services_tpu_torch.lifecycle import (LifeCycleClient,
+                                                   LifeCycleManager)
+    from aiko_services_tpu_torch.models.llama import llama_init
+    from aiko_services_tpu_torch.observe import profiler as OP
+    from aiko_services_tpu_torch.observe.export import MetricsPublisher
+    from aiko_services_tpu_torch.observe.metrics import MetricsRegistry
+    from aiko_services_tpu_torch.observe.series import (HealthAggregator,
+                                                        SLORule)
+    from aiko_services_tpu_torch.ops import paged_attention as P
+    from aiko_services_tpu_torch.placement import DevicePool
+    from aiko_services_tpu_torch.process import ProcessRuntime
+    from aiko_services_tpu_torch.serving import ContinuousDecoder
+    from aiko_services_tpu_torch.transport import MemoryBroker, MemoryMessage
+
+    engine, broker = EventEngine(VirtualClock()), MemoryBroker()
+
+    def runtime(name):
+        return ProcessRuntime(
+            name=name, engine=engine, namespace="ops", process_id=name,
+            transport_factory=lambda on_message, lwt_topic, lwt_payload,
+            lwt_retain: MemoryMessage(
+                on_message=on_message, broker=broker, lwt_topic=lwt_topic,
+                lwt_payload=lwt_payload, lwt_retain=lwt_retain)
+        ).initialize()
+
+    start = time.perf_counter()
+    config = llama_1b()
+    params = llama_init(torch.Generator(device="cuda").manual_seed(0),
+                        config)
+    registry = MetricsRegistry()
+    decoder = ContinuousDecoder(params, config, name="ops",
+                                registry=registry, **LLAMA_DECODER)
+    serve_rt, health_rt = runtime("ops_serve"), runtime("ops_health")
+    publisher = MetricsPublisher(serve_rt, interval=0.5, registry=registry)
+    rule = SLORule(name="ops-ttft", kind="level",
+                   series="serving_ttft_seconds:p95",
+                   threshold=OPS_POLICY["ttft_p95_up"], window=2.0)
+    aggregator = HealthAggregator(health_rt, rules=[rule], interval=0.5,
+                                  registry=MetricsRegistry())
+    alerts = []
+    health_rt.add_message_handler(
+        lambda _topic, payload: alerts.append(
+            (round(engine.clock.now(), 6), json.loads(payload)["state"])),
+        "ops/alert/ops-ttft")
+
+    def spawner(client_id, manager_topic):
+        client_rt = runtime(f"ops_client{client_id}")
+        LifeCycleClient(client_rt, f"ops_client{client_id}", manager_topic,
+                        client_id)
+        return client_rt
+
+    manager = LifeCycleManager(health_rt, "ops_fleet", spawner,
+                               terminator=lambda _id, rt: rt.terminate())
+    autoscaler = Autoscaler(health_rt, "ops_scale", manager=manager,
+                            policy=ScalePolicy(**OPS_POLICY), interval=0.5)
+    decisions = []
+    count_decision = autoscaler._count_decision
+
+    def decided(action, reason):
+        decisions.append((round(engine.clock.now(), 6), action, reason))
+        count_decision(action, reason)
+
+    autoscaler._count_decision = decided
+    manager.create_clients(1)
+    settle_virtual(engine, 0.5)
+    pool = DevicePool()
+    held = pool.allocate(1, "ops_decoder")
+    try:
+        pool.allocate(1, "ops_second")
+        second = "allocated"
+    except RuntimeError as exc:
+        second = f"refused: {exc}"
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - start
+
+    rng = np.random.default_rng(OPS_REQUESTS["seed"])
+    done = {}
+    for i in range(OPS_REQUESTS["count"]):
+        decoder.submit(f"ops{i}", rng.integers(
+            0, config.vocab, OPS_REQUESTS["prompt"]).tolist(),
+            OPS_REQUESTS["new"], lambda rid, t: done.update({rid: list(t)}))
+    profiler = decoder.profiler
+    logdir = os.path.join(tempfile.mkdtemp(prefix="aiko_ops_"), "trace")
+    zero_paged_counts()
+    window = {"start": None, "stop": None}
+    # committed rounds in and outside the trace window: their count, the
+    # profiler's wall and (outside) the wall timed around pump
+    inside = {"rounds": 0, "profiled_wall_s": 0.0}
+    outside = {"rounds": 0, "pump_wall_s": 0.0, "profiled_wall_s": 0.0,
+               "sync_debug": "error"}
+    split = []                      # each committed round's phases, ms
+    rounds = 0
+    while not decoder.idle:
+        if rounds == OPS_TRACE_AFTER:
+            OP.arm_trace(logdir, OPS_TRACE_S)
+        before = OP.trace_state()
+        in_window = before["armed"] or before["active"]
+        committed, wall = profiler.rounds, profiler.wall_s
+        phase_s = dict(profiler.phase_s)
+        if not in_window:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            round_start = time.perf_counter()
+            decoder.pump()
+            external = time.perf_counter() - round_start
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        after = OP.trace_state()
+        launched = P.launches["paged_decode_attention"]
+        if after["active"] and not before["active"]:
+            window["start"] = launched
+        if before["active"] and not after["active"]:
+            window["stop"] = launched
+        if profiler.rounds > committed:
+            split.append({name: round(1e3 * (s - phase_s[name]), 3)
+                          for name, s in profiler.phase_s.items()
+                          if s > phase_s[name]})
+            if in_window:
+                inside["rounds"] += 1
+                inside["profiled_wall_s"] += profiler.wall_s - wall
+            else:
+                outside["rounds"] += 1
+                outside["pump_wall_s"] += external
+                outside["profiled_wall_s"] += profiler.wall_s - wall
+        rounds += 1
+        settle_virtual(engine, OPS_ROUND_S)
+        if rounds > 200:
+            raise AssertionError("the ops decoder did not drain")
+    torch.cuda.synchronize()
+    launches = P.launches["paged_decode_attention"]
+    stats = decoder.phase_stats()
+    steps = decoder.stats["steps"]
+    settle_virtual(engine, OPS_TAIL_S)
+    state = OP.trace_state()
+    for part in (autoscaler, aggregator, publisher, manager):
+        part.stop()
+    released = pool.release("ops_decoder")
+    again = pool.allocate(1, "ops_after")
+    pool.release("ops_after")
+
+    if sorted(done) != [f"ops{i}" for i in range(OPS_REQUESTS["count"])] \
+            or any(len(t) != OPS_REQUESTS["new"] for t in done.values()):
+        raise AssertionError(f"{len(done)} requests completed")
+    if decoder.pool.used_blocks() != 0:
+        raise AssertionError("pool blocks still owned after the ops drive")
+    if launches != config.num_layers * steps:
+        raise AssertionError(f"paged launches {launches} != "
+                             f"{config.num_layers} x {steps} steps")
+    if OPS_DECODE_STEPS is not None and steps != OPS_DECODE_STEPS:
+        raise AssertionError(f"{steps} decode steps, not {OPS_DECODE_STEPS}")
+    phase_sum = sum(entry["s"] for entry in stats["phases"].values())
+    if abs(phase_sum - stats["wall_s"]) > 0.01 * stats["wall_s"]:
+        raise AssertionError(f"phases sum to {phase_sum} s of a "
+                             f"{stats['wall_s']} s wall")
+    if not outside["rounds"] or abs(outside["profiled_wall_s"] -
+                                    outside["pump_wall_s"]) > \
+            0.01 * outside["pump_wall_s"]:
+        raise AssertionError(f"the profiler's wall against the wall timed "
+                             f"around pump: {outside}")
+    if stats["attributed_frac"] < 0.9:
+        raise AssertionError(f"attributed fraction "
+                             f"{stats['attributed_frac']}")
+    if state["error"] is not None or state["captures"] != 1 or \
+            window["start"] is None or window["stop"] is None:
+        raise AssertionError(f"the trace window did not open and close: "
+                             f"{state} {window}")
+    window_launches = window["stop"] - window["start"]
+    traced = trace_kernel_launches(
+        state["path"], ("paged_split_kernel", "paged_mma_kernel"))
+    trace_bytes = os.path.getsize(state["path"])
+    shutil.rmtree(os.path.dirname(logdir))
+    if traced != window_launches or not window_launches:
+        raise AssertionError(f"the trace holds {traced} paged launches, "
+                             f"the wrapper counted {window_launches}")
+    if OPS_DECISIONS is not None and decisions != OPS_DECISIONS:
+        raise AssertionError(f"autoscaler decisions {decisions} != "
+                             f"{OPS_DECISIONS}")
+    if OPS_ALERTS is not None and alerts != OPS_ALERTS:
+        raise AssertionError(f"alert states {alerts} != {OPS_ALERTS}")
+    if not second.startswith("refused") or not released or \
+            again.device_ids != held.device_ids:
+        raise AssertionError(f"the one-card pool: second allocation "
+                             f"{second}, released {released}")
+    host_sync = stats["phases"].get("host_sync", {})
+    emit({"phase": "ops", "setup_s": setup_s, "rounds": rounds,
+          "committed_rounds": stats["rounds"], "steps": steps,
+          "paged_launches": launches, "phase_stats": stats,
+          "attributed_fraction": profiler.attributed_fraction(),
+          "host_sync_gb_per_s": host_sync.get("gb_per_s"),
+          "host_sync_share_of_peak_bytes":
+              host_sync.get("gb_per_s", 0.0) * 1e9 / PEAK_BYTES_PER_S,
+          "round_phase_ms": split, "outside_window": outside,
+          "trace_window": {**inside, "wrapper_launches": window_launches,
+                           "trace_launches": traced,
+                           "trace_bytes": trace_bytes},
+          "decisions": decisions, "clients": len(manager.clients),
+          "alerts": alerts, "fired": dict(aggregator.fired),
+          "pool": {"devices": [str(d) for d in pool.devices],
+                   "first": held.describe(), "second": second,
+                   "released": released, "again": again.describe()}})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7262,6 +7533,8 @@ def main() -> int:
     for run in (disagg, variants, agent_disagg, migrate):
         for key, launches in run.items():
             counts[key] = counts.get(key, 0) + launches
+    ops = phase_ops()
+    counts[("paged_decode_attention", "decode")] += ops
     earlier = {phase: phase_counts[phase]["flash_attention"] for phase in
                ("slice", "pipeline", "remote_pipeline", "peer_pipeline",
                 "peer_chaos")}
@@ -7277,7 +7550,8 @@ def main() -> int:
                     "disagg_probe": disagg_probe,
                     "disagg_variants": sum(variants.values()),
                     "agent_disagg": sum(agent_disagg.values()),
-                    "agent_migrate": sum(migrate.values())})
+                    "agent_migrate": sum(migrate.values()),
+                    "ops": ops})
     if earlier != EARLIER_COUNTS:
         raise AssertionError(f"earlier phases' counts {earlier} != "
                              f"{EARLIER_COUNTS}")

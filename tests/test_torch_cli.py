@@ -104,8 +104,6 @@ def test_element_flags_parse_as_jax_parses_them():
 
 
 def test_the_parts_left_for_later_items_raise_naming_them(capsys):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7\\)"):
-        TCli.main(["dashboard"])
     # --mesh parses as JAX's does; its mesh spans the process group's
     # ranks, one device each: a one-process CPU run has one device, and
     # serving on a larger mesh waits for sharded serving (Queue 1 item 3)

@@ -695,8 +695,3 @@ class TestReviewFixes:
         finally:
             harness.stop()
 
-
-def test_two_pool_autoscalers_raises_naming_its_item():
-    with pytest.raises(NotImplementedError,
-                       match="autoscaler \\(ROADMAP.md Queue 1 item 7\\)"):
-        TD.two_pool_autoscalers(None, None, None)
