@@ -130,8 +130,12 @@ def parse_mesh_spec(spec: str | None, device=None):
     group (parallel.create_mesh; None passes through: a one-device
     ComputeRuntime).  The axis names are the ones the logical-axis rules
     shard over (TP 'model', MoE 'expert', ring attention 'seq', DP
-    'data').  One process is one device: on one card only axes of size
-    1 resolve, as on one TPU device under JAX."""
+    'data').  One process is one device: a mesh of n ranks is n
+    processes, each running the same `pipeline create` on the same
+    inputs, launched as torchrun launches them (RANK, WORLD_SIZE,
+    MASTER_ADDR, MASTER_PORT in the environment; parallel.create_mesh
+    joins them); a lone process fills only axes of size 1, as one TPU
+    device does under JAX."""
     if not spec:
         return None
     axes = {}
@@ -519,7 +523,8 @@ def _parser() -> argparse.ArgumentParser:
                         help="JSON swag for one immediate frame")
     create.add_argument("--mesh", dest="mesh_spec", default=None,
                         help="device mesh for the ComputeRuntime, e.g. "
-                             "data=1 (one rank per device)")
+                             "expert=4 (one process per rank and device, "
+                             "launched as torchrun launches them)")
     create.add_argument("--device", default=None,
                         help="the ComputeRuntime's device (default: the "
                              "CUDA card; cpu runs on the CPU)")

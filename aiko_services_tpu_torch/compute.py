@@ -37,13 +37,9 @@ from .service import ServiceProtocol
 from .utils import get_logger
 
 __all__ = ["ComputeRuntime", "CompiledProgram", "PROTOCOL_COMPUTE",
-           "resolve_pipelined", "SHARDED_SERVING_NOT_PORTED"]
+           "resolve_pipelined"]
 
 PROTOCOL_COMPUTE = ServiceProtocol("compute")
-SHARDED_SERVING_NOT_PORTED = (
-    "serving on a mesh of more than one device (sharded serving: the "
-    "kernels take one device's tensors) is not ported yet (ROADMAP.md "
-    "Queue 1 item 3)")
 
 
 def resolve_pipelined(pipelined, mode: str) -> bool:
@@ -99,11 +95,16 @@ class ComputeRuntime(Actor):
 
     device=None means the CUDA card (raises when there is none);
     device="cpu" runs the same programs on the CPU.  mesh: a DeviceMesh
-    (parallel.create_mesh) whose rank this process is; place_params
-    shards over it, and the runtime's device is the mesh's (a mesh of
-    more than one device serves nothing yet: SHARDED_SERVING_NOT_PORTED).
-    Batched programs' schedulers read the engine clock and are drained
-    by an engine timer every `drive_period` seconds."""
+    (parallel.create_mesh) whose rank this process is; the runtime's
+    device is the mesh's, place_params gives this rank's shards, and
+    every rank of the mesh runs the same programs on the same inputs
+    (sharded serving: each program's collectives pair up across the
+    ranks; serving.py's header says how the decoder keeps them in
+    step).  Batched programs' schedulers read the engine clock and are
+    drained by an engine timer every `drive_period` seconds, so each
+    rank forms its own batches: a batched program on a mesh of more than
+    one rank must make no collective call (the agent refuses its batched
+    mode there)."""
 
     def __init__(self, runtime, name: str = "compute", device=None,
                  drive_period: float = 0.005, mesh=None):
@@ -143,6 +144,12 @@ class ComputeRuntime(Actor):
         self._timers.append(runtime.event.add_timer_handler(
             self.refresh_device_health, period=10.0))
 
+    @property
+    def sharding_mesh(self):
+        """The mesh place_params shards over: the one the runtime was
+        given, or None on one device."""
+        return self._mesh
+
     def refresh_device_health(self) -> None:
         """Read the card's free and total memory (bytes) and publish its
         occupancy as device.0.mem_pct; the CPU reports no such figures
@@ -167,16 +174,9 @@ class ComputeRuntime(Actor):
             self._mesh = single_device_mesh(device=self.device)
         return self._mesh
 
-    def _serves(self) -> None:
-        """Programs run on one device's tensors: a mesh of more than one
-        device serves nothing yet."""
-        if self._mesh is not None and self._mesh.size() > 1:
-            raise NotImplementedError(SHARDED_SERVING_NOT_PORTED)
-
     # -- direct (unbatched) programs ---------------------------------------
     def register_program(self, name: str, fn) -> None:
         """Register a callable for direct invocation via run()."""
-        self._serves()
         self.programs[name] = CompiledProgram(name, fn, None, None, {})
         self.ec_producer.update("program_count", len(self.programs))
 
@@ -208,7 +208,6 @@ class ComputeRuntime(Actor):
         (drain(force=True) alone does not complete items).
         max_in_flight bounds the dispatched batches whose results have
         not been delivered (>= 2 for any overlap)."""
-        self._serves()
         in_flight = {"now": 0, "peak": 0}
 
         def process_batch(bucket, items):
@@ -336,15 +335,17 @@ class ComputeRuntime(Actor):
     def place_params(self, params, param_axes=None, rules=None):
         """Place a parameter tree (a torch module) on this runtime's
         mesh.  On one device (no mesh, or a mesh of one) that is the
-        device, whatever the axes say; a larger mesh shards the
-        parameters by their logical axes (parallel.shard_pytree), and
-        placing without axes there is serving placement, which raises."""
-        if self._mesh is None or self._mesh.size() == 1:
+        device, whatever the axes say.  On a larger mesh a tree with axes
+        becomes this rank's shards, plain tensors cut by their logical
+        axes (parallel.local_shards: nested dicts and lists, what the
+        serving programs read); a tree without axes is replicated, every
+        rank holding it whole, as JAX places an axis-free tree."""
+        if self._mesh is None or self._mesh.size() == 1 or \
+                param_axes is None:
             return params.to(self.device)
-        if param_axes is None:
-            raise NotImplementedError(SHARDED_SERVING_NOT_PORTED)
-        from .parallel import shard_pytree
-        return shard_pytree(params, param_axes, self._mesh, rules)
+        from .parallel.sharding import local_shards
+        placed, _ = local_shards(params, param_axes, self._mesh, rules)
+        return placed
 
     def stop(self) -> None:
         for timer in self._timers:

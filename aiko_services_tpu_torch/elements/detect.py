@@ -224,7 +224,10 @@ class PE_LlamaAgent(PipelineElement):
     through a PrefillClient to a discovered role=prefill runtime, with
     disagg_timeout 5.0 and disagg_retries 1, falling back to local
     prefill, counted.  Weights are random, drawn from a torch.Generator
-    seeded 0 on the ComputeRuntime's device."""
+    seeded 0 on the ComputeRuntime's device.  On a ComputeRuntime mesh
+    of more than one rank the element serves this rank's shards in mode
+    "continuous" or "sync" and refuses the batched mode, sessions,
+    host_kv_mb and disagg (each would decide by the rank's own clock)."""
 
     contracts = {"in:text": "str", "out:response": "str",
                  "out:response_tokens": "i32[*]"}
@@ -262,8 +265,8 @@ class PE_LlamaAgent(PipelineElement):
     def _setup(self) -> None:
         if self._setup_done:
             return
-        from ..models.llama import (LLAMA_PRESETS, llama_greedy_decode,
-                                    llama_init)
+        from ..models.llama import (LLAMA_PRESETS, llama_axes,
+                                    llama_greedy_decode, llama_init)
 
         preset, _ = self.get_parameter("preset", "tiny")
         max_tokens, _ = self.get_parameter("max_tokens", 16)
@@ -292,18 +295,44 @@ class PE_LlamaAgent(PipelineElement):
             self.detokenizer = bpe.decode
         params = llama_init(torch.Generator(device=device).manual_seed(0),
                             config, device=device)
-        self.params = self.compute.place_params(params)
+        # placed by the model's logical axes, as JAX's element places
+        # them: on a mesh of more than one rank this rank's shards, served
+        # with the rank-local config and the mesh's collectives
+        self.params = self.compute.place_params(params, llama_axes(config))
+        mesh = self.compute.sharding_mesh
+        if mesh is not None:
+            from ..parallel.sharding import local_config
+            rank_config = local_config(config, mesh)
+        else:
+            rank_config = config
         tokens = int(max_tokens)
         self.max_tokens = tokens
+        sharded = mesh is not None and mesh.size() > 1
+        if sharded:
+            # a mesh of more than one rank serves in lockstep: refuse
+            # what each rank would decide by its own clock (serving.py's
+            # header)
+            timed = [name for name, default in (
+                ("sessions", False), ("disagg", False))
+                if parse_bool(self.get_parameter(name, default)[0], False)]
+            if int(self.get_parameter("host_kv_mb", 0)[0]) > 0:
+                timed.append("host_kv_mb")
+            if self.mode == "batched":
+                timed.append("mode batched")
+            if timed:
+                raise ValueError(
+                    f"agent element {self.name}: on a mesh of more than "
+                    f"one rank {', '.join(timed)} would decide by each "
+                    f"rank's clock and the ranks would leave lockstep")
 
         if self.mode == "continuous":
-            self._setup_continuous(config, int(max_batch))
+            self._setup_continuous(config, int(max_batch), mesh)
             self._setup_done = True
             return
 
         def run_bucket(_bucket, prompts):
-            return llama_greedy_decode(self.params, config, prompts,
-                                       max_tokens=tokens)
+            return llama_greedy_decode(self.params, rank_config, prompts,
+                                       max_tokens=tokens, mesh=mesh)
 
         def collate(_bucket, payloads):
             batch = torch.from_numpy(np.stack(payloads))
@@ -321,7 +350,7 @@ class PE_LlamaAgent(PipelineElement):
             max_wait=float(max_wait))
         self._setup_done = True
 
-    def _setup_continuous(self, config, max_batch: int) -> None:
+    def _setup_continuous(self, config, max_batch: int, mesh=None) -> None:
         """The decoder, its prefix cache and the session table:
         requests join and leave the running batch between decode steps
         (serving.ContinuousDecoder)."""
@@ -375,7 +404,7 @@ class PE_LlamaAgent(PipelineElement):
             eos_token=int(eos_token) if int(eos_token) >= 0 else None,
             name=self.definition.name, prefix_cache=self.prefix_cache,
             paged_kv=parse_bool(paged, False), kv_block=int(prefix_block)
-            or 32, device=self.compute.device)
+            or 32, device=self.compute.device, mesh=mesh)
         # session-resident conversations: each turn re-submits the
         # session's whole history from the SessionTable and the prefix
         # cache longest-matches it, so a returning session resumes
@@ -557,10 +586,13 @@ class PE_LlamaAgent(PipelineElement):
 
         # the frame's deadline rides the ambient TraceContext in
         # engine-clock seconds; the decoder's admission runs on
-        # time.monotonic: carry only the remaining budget across
+        # time.monotonic: carry only the remaining budget across.  A
+        # decoder on a mesh takes none: its ranks' admissions must not
+        # read their own clocks (serving.py's header)
         context = current_trace()
         deadline = None
-        if context is not None and context.deadline is not None:
+        if context is not None and context.deadline is not None and \
+                not self.decoder.sharded:
             remaining = context.remaining(self.runtime.event.clock.now())
             if remaining is not None:
                 deadline = time.monotonic() + max(0.0, remaining)

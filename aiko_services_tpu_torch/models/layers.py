@@ -21,7 +21,8 @@ from torch import nn
 
 __all__ = [
     "Params", "Linear", "LayerNorm", "RMSNorm", "Embedding", "Conv1d",
-    "MHA", "linear", "linear_logits", "quantize_linear",
+    "MHA", "linear", "row_parallel_linear", "linear_logits",
+    "greedy_tokens", "quantize_linear",
     "quantize_linear_tree", "as_tree", "tree_leaves", "layer_norm", "rms_norm",
     "embedding", "conv1d", "mha", "precompute_kv", "quantize_kv",
     "dequantize_kv", "quantize_kv_cache", "dequantize_kv_cache",
@@ -170,14 +171,57 @@ def linear(params, x):
     return y.reshape(*x.shape[:-1], w.shape[-1]).to(x.dtype)
 
 
-def linear_logits(params, x):
+def _model_axis_spans(mesh) -> bool:
+    """Whether `mesh` has a model axis of more than one rank (the axis
+    heads, ffn and vocab shard over)."""
+    if mesh is None:
+        return False
+    from ..parallel.collectives import axis_spans
+    return axis_spans(mesh, "model")
+
+
+def row_parallel_linear(params, x, mesh=None):
+    """A linear whose input axis is sharded over the model axis of
+    `mesh` (attention's o over heads, the FFN's down over ffn): each
+    rank's product over its slice of the input is a partial sum, summed
+    over the model axis in f32 (in place), then the bias and the cast to
+    x's dtype, as GSPMD partitions JAX's f32-accumulated einsum.  With
+    no mesh, or a model axis of one rank, it is linear() exactly."""
+    if not _model_axis_spans(mesh):
+        return linear(params, x)
+    from ..parallel.collectives import psum_
+    flat = x.reshape(-1, x.shape[-1])
+    if "w8" in params:
+        w = params["w8"]
+        y = _mm_f32(flat, w.to(x.dtype)) * params["s"]
+    else:
+        w = params["w"]
+        y = _mm_f32(flat, w)
+    y = psum_(y, "model", mesh=mesh)
+    if "b" in params:
+        y = y + params["b"]
+    return y.reshape(*x.shape[:-1], w.shape[-1]).to(x.dtype)
+
+
+def linear_logits(params, x, mesh=None):
     """Vocab projection x [..., dim] @ w [dim, vocab] with f32
     accumulation KEPT f32: rounding logits to the activations' dtype
     before an argmax can flip near-ties against an f32 reference.  bf16
     operands on the card go to one bf16-in / f32-out product, so the
     [dim, vocab] head is never upcast (that copy would be the decode
     step's largest memory traffic).  Consumes plain {"w"} and quantized
-    {"w8", "s"} heads."""
+    {"w8", "s"} heads.  With a mesh whose model axis spans ranks, w is
+    this rank's vocabulary shard and its logits are gathered over the
+    axis in rank order into the whole vocabulary (the serving rounds
+    pick from the shards instead: collectives.greedy_pick)."""
+    y = _local_logits(params, x)
+    if not _model_axis_spans(mesh):
+        return y
+    from ..parallel.collectives import all_gather
+    return all_gather(y, "model", axis=-1, mesh=mesh)
+
+
+def _local_logits(params, x):
     flat = x.reshape(-1, x.shape[-1])
     if "w8" in params:
         w8 = params["w8"]
@@ -186,6 +230,18 @@ def linear_logits(params, x):
     w = params["w"]
     y = _mm_f32(flat, w)
     return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def greedy_tokens(params, x, mesh=None):
+    """The greedy tokens [...] int32 of hidden states x [..., dim] under
+    the head: the argmax of linear_logits (the first maximal index, as
+    jnp.argmax); with a vocab-sharded head on a mesh, the pick over the
+    shards (collectives.greedy_pick), without gathering the logits."""
+    if not _model_axis_spans(mesh):
+        return torch.argmax(linear_logits(params, x), dim=-1).to(
+            torch.int32)
+    from ..parallel.collectives import greedy_pick
+    return greedy_pick(_local_logits(params, x), "model", mesh=mesh)
 
 
 def quantize_linear(params) -> dict:
@@ -279,8 +335,21 @@ def rms_norm(params, x, eps: float = 1e-6):
     return (y * params["scale"]).to(x.dtype)
 
 
-def embedding(params, token_ids):
-    return params["table"][token_ids]
+def embedding(params, token_ids, mesh=None):
+    """Rows of the table for token_ids.  With a mesh whose model axis
+    spans ranks the table is this rank's contiguous vocabulary shard:
+    ids outside it are masked, the rest looked up, and the rows summed
+    over the axis (one rank holds each id, so the sum is exact)."""
+    table = params["table"]
+    if not _model_axis_spans(mesh):
+        return table[token_ids]
+    from ..parallel.collectives import axis_index, psum_
+    rows = table.shape[0]
+    local = token_ids - axis_index("model", mesh=mesh) * rows
+    inside = (local >= 0) & (local < rows)
+    out = table[torch.where(inside, local, 0)]
+    out = out * inside[..., None].to(out.dtype)
+    return psum_(out, "model", mesh=mesh)
 
 
 def conv1d(params, x, stride: int = 1, padding=None):
@@ -531,7 +600,8 @@ def _foldable(scale) -> bool:
 
 def mha(params, x, kv_input=None, mask=None, cache=None,
         num_heads: int = 8, num_kv_heads: int | None = None,
-        qk_transform=None, precomputed_kv=None, fused: bool = True):
+        qk_transform=None, precomputed_kv=None, fused: bool = True,
+        mesh=None):
     """Attention: self (kv_input None), cross (kv_input or precomputed_kv),
     optional KV cache (updated in place, see update_kv_cache).
 
@@ -539,7 +609,9 @@ def mha(params, x, kv_input=None, mask=None, cache=None,
     qk_transform(q, k) -> (q, k): applied after the head split, before
     the cache write.  precomputed_kv: (k, v) already projected and split,
     each a tensor or a quantize_kv dict; "tensor"-mode scales fold into
-    the score scale and the output.  Returns (output, new_cache)."""
+    the score scale and the output.  mesh: the heads are this rank's
+    share of a model axis, and the output projection is row-parallel
+    over it (row_parallel_linear).  Returns (output, new_cache)."""
     num_kv_heads = num_kv_heads or num_heads
     q = _split_heads(linear(params["q"], x), num_heads)
     k_scale = v_scale = None
@@ -577,7 +649,8 @@ def mha(params, x, kv_input=None, mask=None, cache=None,
         # tile, plain attention otherwise
         from ..ops.attention import attention
         out = attention(q, k, v)
-        return linear(params["o"], _merge_heads(out)), cache
+        return row_parallel_linear(params["o"], _merge_heads(out),
+                                   mesh), cache
 
     scale = 1.0 / math.sqrt(q.shape[-1])
     if k_scale is not None:
@@ -590,7 +663,7 @@ def mha(params, x, kv_input=None, mask=None, cache=None,
     if v_scale is not None:
         out = out * v_scale
     out = out.to(x.dtype)
-    return linear(params["o"], _merge_heads(out)), cache
+    return row_parallel_linear(params["o"], _merge_heads(out), mesh), cache
 
 
 def sinusoid_position_encoding(length: int, dim: int,

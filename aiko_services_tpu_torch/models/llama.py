@@ -8,6 +8,18 @@
 # ↔ layers/3/moe/w_in), so bridge.py copies a JAX tree in by name.
 # llama_forward_sp is the sequence-parallel prefill: each rank of a mesh's
 # "seq" axis holds S/n tokens and attends through ring attention.
+#
+# Tensor and expert parallelism (sharded serving): with a mesh, the
+# functions below take this rank's shards (parallel.sharding.local_shards)
+# and its rank-local config (local_config: heads, KV heads, ffn and vocab
+# divided over the model axis, experts over the expert axis).  q/k/v and
+# gate/up are column-parallel and need nothing; o and down are
+# row-parallel, each followed by a sum over the model axis
+# (layers.row_parallel_linear); the embedding and the head are
+# vocab-sharded (layers.embedding, layers.linear_logits); the MoE FFN
+# runs the rank's experts and sums over the expert axis
+# (moe.moe_forward).  With mesh=None, or a mesh whose axes are one rank,
+# nothing changes: the same launches and the same numbers.
 
 from __future__ import annotations
 
@@ -22,7 +34,8 @@ from . import layers as L
 __all__ = ["LlamaConfig", "Llama", "llama_init", "llama_axes",
            "llama_hidden", "llama_decode_step", "llama_forward",
            "llama_forward_sp", "llama_greedy_decode",
-           "llama_ffn", "init_llama_caches", "LLAMA_PRESETS"]
+           "llama_ffn", "init_llama_caches", "llama_rank_budget",
+           "LLAMA_PRESETS"]
 
 
 @dataclass(frozen=True)
@@ -40,6 +53,10 @@ class LlamaConfig:
     dtype: torch.dtype = torch.float32
     num_experts: int = 0
     top_k: int = 2
+    # the port's one field more: a rank-local config (local_config) holds
+    # this rank's num_heads, and head_shards their divisor, so head_dim
+    # stays the model's; 1 for a model's own config
+    head_shards: int = 1
 
     def __post_init__(self):
         # accept the JAX config's spellings (jnp.bfloat16, "float32", ...)
@@ -47,7 +64,7 @@ class LlamaConfig:
 
     @property
     def head_dim(self):
-        return self.dim // self.num_heads
+        return self.dim // (self.num_heads * self.head_shards)
 
     def moe_config(self):
         from .moe import MoeConfig
@@ -149,6 +166,42 @@ def llama_axes(config: LlamaConfig):
     }
 
 
+def llama_rank_budget(config: LlamaConfig, mesh_axes: dict, slots: int,
+                      positions: int, rules=None) -> dict:
+    """One rank's device bytes for serving `config` sharded over a mesh
+    of `mesh_axes` sizes (e.g. {"model": 8}): {"weight_bytes": this
+    rank's shards of every parameter, "kv_bytes": K and V of every layer
+    for `slots` slots of `positions` positions at its KV heads}.  The
+    tree is built on the meta device, so no weight is materialised and
+    no process group is needed; a dimension whose logical axis maps to
+    a mesh axis counts its share (local_config's widths).  The port's
+    counterpart of the JAX package's 8B agent plan arithmetic."""
+    from ..parallel.sharding import DEFAULT_RULES, _axes_at
+    rules = rules or DEFAULT_RULES
+    model = Llama(config, device="meta")
+    axes_tree = llama_axes(config)
+    weight_bytes = 0
+    for path, leaf in L.tree_leaves(model):
+        numel = leaf.numel()
+        for size, logical in zip(leaf.shape,
+                                 _axes_at(axes_tree, list(path)) or ()):
+            share = mesh_axes.get(rules.rules.get(logical), 1)
+            if size % share:
+                raise ValueError(f"{'.'.join(map(str, path))}: {size} "
+                                 f"does not divide over {share} ranks")
+            numel //= share
+        weight_bytes += numel * leaf.element_size()
+    kv_share = mesh_axes.get(rules.rules.get("kv_heads"), 1)
+    if config.num_kv_heads % kv_share:
+        raise ValueError(f"num_kv_heads {config.num_kv_heads} does not "
+                         f"divide over {kv_share} ranks")
+    itemsize = torch.empty((), dtype=config.dtype).element_size()
+    kv_bytes = (2 * config.num_layers * slots *
+                (config.num_kv_heads // kv_share) * positions *
+                config.head_dim * itemsize)
+    return {"weight_bytes": weight_bytes, "kv_bytes": kv_bytes}
+
+
 def init_llama_caches(config: LlamaConfig, batch: int,
                       max_len: int | None = None, device=None):
     device = resolve_device(device)
@@ -159,54 +212,61 @@ def init_llama_caches(config: LlamaConfig, batch: int,
 
 
 def _attention(layer, config: LlamaConfig, x, cos, sin, cache,
-               position_offset, mask):
+               position_offset, mask, mesh=None):
     """RoPE attention with GQA + KV cache: layers.mha with the rotation
     injected via qk_transform, so cached keys are stored
-    already-positioned."""
+    already-positioned.  mesh: the config's heads are this rank's and o
+    is row-parallel."""
     def rope(q, k):
         return (L.apply_rope(q, cos, sin, position_offset),
                 L.apply_rope(k, cos, sin, position_offset))
 
     return L.mha(layer["attn"], x, mask=mask, cache=cache,
                  num_heads=config.num_heads,
-                 num_kv_heads=config.num_kv_heads, qk_transform=rope)
+                 num_kv_heads=config.num_kv_heads, qk_transform=rope,
+                 mesh=mesh)
 
 
-def _swiglu(layer, x):
+def _swiglu(layer, x, mesh=None):
     if "gate_up" in layer:
         # the fused serving form (fuse_projections): one [dim, 2*ffn]
         # product, split after
         gate_up = L.linear(layer["gate_up"], x)
         ffn = gate_up.shape[-1] // 2
-        return L.linear(layer["down"],
-                        torch.nn.functional.silu(gate_up[..., :ffn]) *
-                        gate_up[..., ffn:])
-    return L.linear(layer["down"],
-                    torch.nn.functional.silu(L.linear(layer["gate"], x)) *
-                    L.linear(layer["up"], x))
+        return L.row_parallel_linear(
+            layer["down"], torch.nn.functional.silu(gate_up[..., :ffn]) *
+            gate_up[..., ffn:], mesh)
+    return L.row_parallel_linear(
+        layer["down"],
+        torch.nn.functional.silu(L.linear(layer["gate"], x)) *
+        L.linear(layer["up"], x), mesh)
 
 
-def llama_ffn(layer, config: LlamaConfig, x):
+def llama_ffn(layer, config: LlamaConfig, x, mesh=None):
     """The per-layer FFN: dense SwiGLU, or top-k MoE when the config says
     so.  The one seam of prefill, admits, extends, decode and verify
     steps: an MoE model serves through the same programs, and each call
-    routes (and drops) over exactly the rows it is given."""
+    routes (and drops) over exactly the rows it is given.  mesh: the
+    dense FFN's down is row-parallel over the model axis; the MoE runs
+    this rank's experts."""
     if config.num_experts:
         from .moe import moe_forward
-        y, _ = moe_forward(layer["moe"], config.moe_config(), x)
+        y, _ = moe_forward(layer["moe"], config.moe_config(), x, mesh=mesh)
         return y
-    return _swiglu(layer, x)
+    return _swiglu(layer, x, mesh)
 
 
 def llama_hidden(params, config: LlamaConfig, tokens, caches,
-                 position_offset=0):
+                 position_offset=0, mesh=None):
     """tokens: [B, T] → (final hidden states [B, T, dim], caches).  T=1
     for incremental decode; T>1 prefills with an in-step causal mask.
-    The caches update in place (layers.update_kv_cache)."""
+    The caches update in place (layers.update_kv_cache).  mesh: the
+    params are this rank's shards and config its rank-local config (the
+    caches hold its KV heads)."""
     device = tokens.device
     cos, sin = L.rope_frequencies(config.head_dim, config.max_seq_len,
                                   config.rope_theta, device=device)
-    x = L.embedding(params["embed"], tokens).to(config.dtype)
+    x = L.embedding(params["embed"], tokens, mesh).to(config.dtype)
     t = tokens.shape[1]
 
     mask = None
@@ -219,29 +279,31 @@ def llama_hidden(params, config: LlamaConfig, tokens, caches,
     for layer, cache in zip(params["layers"], caches):
         attn_out, cache = _attention(
             layer, config, L.rms_norm(layer["ln_attn"], x), cos, sin,
-            cache, position_offset, mask)
+            cache, position_offset, mask, mesh)
         x = x + attn_out
-        x = x + llama_ffn(layer, config, L.rms_norm(layer["ln_mlp"], x))
+        x = x + llama_ffn(layer, config, L.rms_norm(layer["ln_mlp"], x),
+                          mesh)
         new_caches.append(cache)
     return L.rms_norm(params["ln_out"], x), new_caches
 
 
 def llama_decode_step(params, config: LlamaConfig, tokens, caches,
-                      position_offset=0):
+                      position_offset=0, mesh=None):
     """tokens: [B, T] → (logits [B, T, vocab] f32, caches).  The head
     runs on the f32 hidden states with f32 accumulation (the JAX code's
     linear(lm_head, x.astype(f32)); without a bias that is
-    linear_logits' product)."""
+    linear_logits' product).  mesh: the logits of the whole vocabulary,
+    gathered over the model axis."""
     x, new_caches = llama_hidden(params, config, tokens, caches,
-                                 position_offset)
-    return L.linear_logits(params["lm_head"], x.float()), new_caches
+                                 position_offset, mesh)
+    return L.linear_logits(params["lm_head"], x.float(), mesh), new_caches
 
 
-def llama_forward(params, config: LlamaConfig, tokens):
+def llama_forward(params, config: LlamaConfig, tokens, mesh=None):
     """Teacher-forced full-sequence forward: tokens [B, S] → logits."""
     caches = init_llama_caches(config, tokens.shape[0], tokens.shape[1],
                                device=tokens.device)
-    logits, _ = llama_decode_step(params, config, tokens, caches)
+    logits, _ = llama_decode_step(params, config, tokens, caches, mesh=mesh)
     return logits
 
 
@@ -292,14 +354,18 @@ def llama_forward_sp(params, config: LlamaConfig, tokens, mesh,
 
 @torch.inference_mode()
 def llama_greedy_decode(params, config: LlamaConfig, prompt,
-                        max_tokens: int = 32, eos_token: int | None = None):
+                        max_tokens: int = 32, eos_token: int | None = None,
+                        mesh=None):
     """prompt: [B, S] → generated tokens [B, max_tokens] int32: a prefill,
     then one decode step per token over a dense static-shape cache (the
-    JAX lax.scan as a Python loop).  Finished rows keep emitting EOS."""
+    JAX lax.scan as a Python loop).  Finished rows keep emitting EOS.
+    mesh: rank-local params and config; every rank returns the same
+    tokens."""
     batch, prompt_len = prompt.shape
     caches = init_llama_caches(config, batch, prompt_len + max_tokens,
                                device=prompt.device)
-    logits, caches = llama_decode_step(params, config, prompt, caches)
+    logits, caches = llama_decode_step(params, config, prompt, caches,
+                                       mesh=mesh)
     token = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
     eos = eos_token if eos_token is not None else -1
     done = token == eos
@@ -308,7 +374,7 @@ def llama_greedy_decode(params, config: LlamaConfig, prompt,
         emitted.append(token)
         logits, caches = llama_decode_step(
             params, config, token[:, None], caches,
-            position_offset=prompt_len + step)
+            position_offset=prompt_len + step, mesh=mesh)
         next_token = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         token = torch.where(done, torch.full_like(next_token, eos),
                             next_token)

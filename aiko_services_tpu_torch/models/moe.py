@@ -19,6 +19,17 @@
 #     product on the card, f32 operands elsewhere) and the activation,
 #     jax.nn.gelu's default tanh form, runs on the f32 sums before the
 #     cast back to the token dtype, as preferred_element_type does.
+#
+# Expert parallelism (a mesh with an expert axis): every rank routes the
+# same rows through the replicated router, so top-k, queue positions,
+# capacity (JAX's global one, over every expert) and drops are the
+# unsharded layer's on every rank; each rank scatters only the
+# assignments of its own contiguous run of experts, runs them, and the
+# weighted combine of its kept assignments is summed over the expert
+# axis in f32 (and over the model axis too when ffn is sharded there:
+# each expert's product is then a partial sum).  A sum of one or two
+# non-zero terms and zeros is exact in any order, so an expert-sharded
+# layer gives the unsharded layer's bits.
 
 from __future__ import annotations
 
@@ -87,15 +98,34 @@ def _bmm_f32(a, b):
     return torch.bmm(a.float(), b.float())
 
 
-def moe_forward(params, config: MoeConfig, x):
+def _expert_axes(mesh) -> list:
+    """The mesh axes an expert's output is partial over: expert (each
+    rank holds some experts) and model (ffn sharded inside each expert),
+    those that span more than one rank."""
+    if mesh is None:
+        return []
+    from ..parallel.collectives import axis_spans
+    return [axis for axis in ("expert", "model") if axis_spans(mesh, axis)]
+
+
+def moe_forward(params, config: MoeConfig, x, mesh=None):
     """x: [B, S, D] → (y [B, S, D], aux_loss scalar f32).  Top-k routing
     with capacity C per expert; aux_loss is the Switch-style balance term
     (fraction of top-1 choices kept by each expert × its mean router
-    probability, summed, × E)."""
+    probability, summed, × E).  mesh: params hold this rank's experts
+    (w_in / w_out [E / n, ...], the router whole) and config their
+    count; routing and capacity are over all E experts."""
     b, s, d = x.shape
     tokens = x.reshape(b * s, d)
-    n, e, k = b * s, config.num_experts, config.top_k
+    k = config.top_k
+    n, e = b * s, params["router"]["w"].shape[-1]
     capacity = max(1, int(config.capacity_factor * n * k / e))
+    partial = _expert_axes(mesh)
+    local_e = params["w_in"].shape[0]
+    first = 0
+    if "expert" in partial:
+        from ..parallel.collectives import axis_index
+        first = axis_index("expert", mesh=mesh) * local_e
 
     router_logits = torch.matmul(tokens.float(),
                                  params["router"]["w"].float())   # [N, E]
@@ -114,22 +144,35 @@ def moe_forward(params, config: MoeConfig, x):
     if drop_counts is not None:
         drop_counts.append((~keep).sum())
 
-    # scatter into the expert batch [E * C (+ 1 trash row), D]
-    slots = torch.where(keep, top_experts * capacity + position,
-                        torch.full_like(position, e * capacity)).reshape(-1)
-    expert_in = tokens.new_zeros((e * capacity + 1, d))
+    # scatter into the expert batch [E_local * C (+ 1 trash row), D]:
+    # this rank's experts [first, first + E_local); the others' and the
+    # dropped assignments go to the trash row
+    mine = keep & (top_experts >= first) & (top_experts < first + local_e)
+    trash = local_e * capacity
+    slots = torch.where(mine, (top_experts - first) * capacity + position,
+                        torch.full_like(position, trash)).reshape(-1)
+    expert_in = tokens.new_zeros((trash + 1, d))
     expert_in[slots] = tokens.repeat_interleave(k, dim=0)
-    expert_in = expert_in[:e * capacity].reshape(e, capacity, d)
+    expert_in = expert_in[:trash].reshape(local_e, capacity, d)
+    # with ffn sharded over model each rank holds a slice of the hidden
+    # units (gelu acts on each alone), so only the output is partial
     hidden = F.gelu(_bmm_f32(expert_in, params["w_in"]),
                     approximate="tanh").to(tokens.dtype)
-    expert_out = _bmm_f32(hidden, params["w_out"]).to(tokens.dtype)
+    expert_out = _bmm_f32(hidden, params["w_out"])
+    if "model" in partial:
+        from ..parallel.collectives import psum_
+        expert_out = psum_(expert_out, "model", mesh=mesh)
+    expert_out = expert_out.to(tokens.dtype)
 
     # combine: Σ_k bf16(p_k) · out[e_k, c_k] in f32, dropped terms 0
-    rows = torch.cat([expert_out.reshape(e * capacity, d),
+    rows = torch.cat([expert_out.reshape(trash, d),
                       expert_out.new_zeros((1, d))])[slots]
-    weights = top_probs.to(tokens.dtype).float() * keep
-    y = (weights.reshape(n, k, 1) * rows.reshape(n, k, d).float()
-         ).sum(1).to(tokens.dtype)
+    weights = top_probs.to(tokens.dtype).float() * mine
+    y = (weights.reshape(n, k, 1) * rows.reshape(n, k, d).float()).sum(1)
+    if "expert" in partial:
+        from ..parallel.collectives import psum_
+        y = psum_(y, "expert", mesh=mesh)
+    y = y.to(tokens.dtype)
 
     routed_fraction = (one_hot[:, 0] * keep[:, 0:1]).float().mean(dim=0)
     aux_loss = e * torch.sum(routed_fraction * probs.mean(dim=0))

@@ -385,7 +385,14 @@ class AdmissionGate:
 
     def watch_decoder(self, decoder) -> None:
         """Convenience: estimate from a ContinuousDecoder's admit-wait
-        heuristic (serving.py estimated_admit_wait)."""
+        heuristic (serving.py estimated_admit_wait).  Refuses a decoder
+        on a mesh of more than one rank: the gate would shed by each
+        rank's wall-clock estimate and hand the ranks different
+        requests."""
+        if getattr(decoder, "sharded", False):
+            raise ValueError("watch_decoder refuses a decoder on a mesh "
+                             "of more than one rank: each rank would shed "
+                             "by its own clock")
         self.add_wait_estimator(decoder.estimated_admit_wait)
 
     def estimated_wait(self) -> float | None:

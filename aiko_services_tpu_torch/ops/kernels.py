@@ -1,8 +1,8 @@
 # Build and load the port's CUDA kernels (csrc/*.cu).
 #
-# Each source is a self-contained CUDA C++ file with a plain C interface,
-# compiled by nvcc for sm_90a into its own shared library and loaded with
-# ctypes (no PyTorch headers, so a build takes seconds, not minutes).
+# Each source is a CUDA C++ file with a plain C interface (it may include
+# a header of csrc/), compiled by nvcc for sm_90a into its own shared
+# library and loaded with ctypes (no PyTorch headers, so a build takes seconds, not minutes).
 # Libraries land in aiko_services_tpu_torch/_build/ (listed in
 # .gitignore), named by a hash of the source and the flags, and are built
 # at first use.  Several sources build in parallel: one nvcc process each.
@@ -28,7 +28,9 @@ _CSRC = _PACKAGE / "csrc"
 _BUILD = _PACKAGE / "_build"
 
 KERNEL_SOURCES = ("flash_attention", "cross_decode_attention",
-                  "paged_decode_attention")
+                  "paged_decode_attention", "paged_decode_attention_f32",
+                  "paged_decode_attention_d128",
+                  "paged_decode_attention_d128_f32")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 # reported, not part of the library's identity: it changes no code
@@ -55,8 +57,12 @@ def nvcc_path() -> str:
 
 
 def _library_path(name: str) -> tuple[Path, Path]:
+    """(the source, its library): named by a hash of the source, every
+    header in csrc/ (a source may include one) and the flags."""
     source = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes() +
+    headers = b"".join(path.read_bytes()
+                       for path in sorted(_CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(source.read_bytes() + headers +
                             " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return source, _BUILD / f"{name}-{digest}.so"
 

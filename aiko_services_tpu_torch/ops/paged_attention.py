@@ -8,7 +8,9 @@
 # chunked-prefill extend: blocks dequantize in the compute dtype before
 # the dots).  The wrapper takes its plain version only for tensors on the
 # CPU; for a CUDA tensor it launches the kernel
-# (csrc/paged_decode_attention.cu) or raises.
+# (csrc/paged_decode_attention.cuh, built for each compute type and head
+# dim by its own source: csrc/paged_decode_attention{,_d128}{,_f32}.cu)
+# or raises.
 
 from __future__ import annotations
 
@@ -30,8 +32,9 @@ launches = {"paged_decode_attention": 0,
             "paged_decode_attention_int8_fold": 0,
             "paged_decode_attention_int8_dequant": 0}
 
-# what the kernel takes (csrc/paged_decode_attention.cu)
-_KERNEL_HEAD_DIM = 64
+# what the kernel takes (csrc/paged_decode_attention.cuh): every kernel is
+# instantiated at each of these head dims
+_KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_MAX_BLOCK_TOKENS = 128
 _KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 # the C entry's `mode`
@@ -42,19 +45,22 @@ _VARIANTS = {_NATIVE: "paged_decode_attention",
 # the C entry's `path`
 SPLIT_PATH, TENSOR_PATH = 0, 1
 # the tensor-core path: bf16 above this many rows per (slot, KV head),
-# 256 rows a block (8 warps of 32).  At 16 rows or fewer a K/V element
-# takes at most 16 multiply-adds, so the CUDA cores keep up with the
-# loads and the split over T fills the card; above, the products belong
-# on the tensor cores and each K/V position is read once per (slot, KV
-# head) for all its rows.
+# 256 rows a block at D = 64 (8 warps of 32) and 128 at D = 128 (8 warps
+# of 16: a warp's accumulators grow with D).  At 16 rows or fewer a K/V
+# element takes at most 16 multiply-adds, so the CUDA cores keep up with
+# the loads and the split over T fills the card; above, the products
+# belong on the tensor cores and each K/V position is read once per
+# (slot, KV head, row tile) for all its rows.
 _TENSOR_MIN_ROWS = 17
-_TENSOR_TILE_ROWS = 256
+_TENSOR_TILE_ROWS = {64: 256, 128: 128}
 # the split path: positions per main split (one warp per 64, each taking
 # two 32-position tiles), from 64 doubling up to 256 while the grid keeps
 # at least _SPLIT_WAVES blocks a multiprocessor (fewer, longer splits:
-# less to merge)
+# less to merge) and the block's shared memory fits an SM
+# (_split_block_bytes <= _MAX_SHARED_BYTES)
 _SPLIT_MIN, _SPLIT_MAX, _SPLIT_WAVES = 64, 256, 4
-_PARTIAL_FLOATS = _KERNEL_HEAD_DIM + 2      # a split's sums, max and sum
+_SPLIT_WARPS, _WARP_TILE, _SPLIT_STAGES = 4, 32, 2
+_MAX_SHARED_BYTES = 232448                  # 227 KB, an SM's opt-in limit
 
 
 def paged_decode_attention_reference(q, k_pool, v_pool, tables, k_side,
@@ -106,23 +112,43 @@ def paged_decode_attention_reference(q, k_pool, v_pool, tables, k_side,
         torch.matmul(w_side, v_side.float())
 
 
+def _split_block_bytes(itemsize: int, tile_rows: int, head_dim: int,
+                       split: int) -> int:
+    """Shared memory of one split-path block (the kernel's
+    split_shared_bytes): the query rows in f32 and in the compute type,
+    then per warp (one per 64 positions, at most 4) two stages of K and V
+    rows in the compute type and their scales, and the tile's weights."""
+    warps = max(1, min(_SPLIT_WARPS, split // (_SPLIT_STAGES * _WARP_TILE)))
+    stage = 2 * _WARP_TILE * head_dim * itemsize + 2 * _WARP_TILE * 4
+    warp_bytes = _SPLIT_STAGES * stage + tile_rows * _WARP_TILE * 4
+    return tile_rows * head_dim * (4 + itemsize) + warps * warp_bytes
+
+
 def kernel_plan(is_bf16: bool, slots: int, num_kv: int, rows: int,
-                positions: int, multiprocessors: int) -> tuple:
+                positions: int, multiprocessors: int,
+                head_dim: int = 64) -> tuple:
     """How the CUDA kernel splits one call, from host-known shapes only
     (never from entry_lengths, which live on the card): (path, rows per
     block, positions per main split, main splits).  `positions` is the
     table's nb * B.  The tensor-core path (bf16, more than 16 rows) takes
-    all of a (slot, KV head)'s positions in one block; the split path
-    covers them in main splits of split positions each, plus one split
-    for the side buffer, and merges the splits in a second kernel."""
+    all of a (slot, KV head)'s positions in one block of
+    _TENSOR_TILE_ROWS[head_dim] rows; the split path covers them in main
+    splits of split positions each, plus one split for the side buffer,
+    and merges the splits in a second kernel.  A split's block holds its
+    warps' rings of whole rows, so the split stops growing where the
+    next would not fit an SM's shared memory (at D = 128 in f32: 128
+    positions, two warps; every D = 64 plan fits)."""
     if is_bf16 and rows >= _TENSOR_MIN_ROWS:
-        return TENSOR_PATH, _TENSOR_TILE_ROWS, positions, 1
+        return TENSOR_PATH, _TENSOR_TILE_ROWS[head_dim], positions, 1
     tile_rows = 4 if rows <= 4 else 16
+    itemsize = 2 if is_bf16 else 4
     blocks = slots * num_kv * -(-rows // tile_rows)
     split = _SPLIT_MIN
     while split < _SPLIT_MAX and blocks * (-(-positions // (2 * split)) +
                                            1) >= _SPLIT_WAVES * \
-            multiprocessors:
+            multiprocessors and _split_block_bytes(
+                itemsize, tile_rows, head_dim, 2 * split) <= \
+            _MAX_SHARED_BYTES:
         split *= 2
     return SPLIT_PATH, tile_rows, split, -(-positions // split)
 
@@ -205,9 +231,9 @@ def _check_operands(q, kq, ks, vq, vs, tables, k_side, v_side, side_valid,
         if tensor.data_ptr() % 16:
             raise ValueError(f"{name}: {label} must start on a 16-byte "
                              f"boundary")
-    if head_dim != _KERNEL_HEAD_DIM:
-        raise ValueError(f"{name}: the CUDA kernel takes head dim "
-                         f"{_KERNEL_HEAD_DIM}, got {head_dim}")
+    if head_dim not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: the CUDA kernel takes head dim 64 or "
+                         f"128, got {head_dim}")
     if not 1 <= block_tokens <= _KERNEL_MAX_BLOCK_TOKENS:
         raise ValueError(f"{name}: the CUDA kernel takes 1 to "
                          f"{_KERNEL_MAX_BLOCK_TOKENS} tokens per block, "
@@ -233,10 +259,10 @@ def paged_decode_attention(q, k_pool, v_pool, tables, k_side, v_side,
 
     Returns [S, Hkv, G*W, D] f32.  fold_scales chooses between the int8
     pools' two numerics (paged_decode_attention_reference); native pools
-    ignore it.  On the card the kernel takes bf16 or f32 with D = 64 and
-    B <= 128 (contiguous operands, q, pools and side buffers on 16-byte
-    boundaries; the table may be a column slice), split as kernel_plan
-    says."""
+    ignore it.  On the card the kernel takes bf16 or f32 with D = 64 or
+    128 and B <= 128 (contiguous operands, q, pools and side buffers on
+    16-byte boundaries; the table may be a column slice), split as
+    kernel_plan says; any other head dim raises there (no fallback)."""
     kq, ks, vq, vs = _check_planes(k_pool, v_pool)
     slots_n, num_kv, gw, head_dim = q.shape
     if gw % groups:
@@ -256,19 +282,24 @@ def paged_decode_attention(q, k_pool, v_pool, tables, k_side, v_side,
                     entry_lengths, groups)
     mode = _NATIVE if ks is None else (_INT8_FOLD if fold_scales
                                        else _INT8_DEQUANT)
+    # one library per head dim and compute type (csrc/paged_decode_
+    # attention{,_d128}{,_f32}.cu: the four build in parallel)
     library, function = entry(
-        "paged_decode_attention", "aiko_paged_decode_attention",
+        "paged_decode_attention" + ("_d128" if head_dim == 128 else "") +
+        ("" if q.dtype == torch.bfloat16 else "_f32"),
+        "aiko_paged_decode_attention",
         [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_longlong] +
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float] +
         [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
     nb, block_tokens = tables.shape[1], kq.shape[2]
     path, tile_rows, split, main_splits = kernel_plan(
         q.dtype == torch.bfloat16, slots_n, num_kv, gw, nb * block_tokens,
-        torch.cuda.get_device_properties(q.device).multi_processor_count)
+        torch.cuda.get_device_properties(q.device).multi_processor_count,
+        head_dim)
     out = torch.empty((slots_n, num_kv, gw, head_dim), dtype=torch.float32,
                       device=q.device)
     partials = None if path == TENSOR_PATH else torch.empty(
-        slots_n * num_kv * (main_splits + 1) * gw * _PARTIAL_FLOATS,
+        slots_n * num_kv * (main_splits + 1) * gw * (head_dim + 2),
         dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

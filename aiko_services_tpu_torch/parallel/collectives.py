@@ -18,7 +18,9 @@ import torch.distributed as dist
 
 from .sharding import NamedSharding, distribute, placements
 
-__all__ = ["psum", "pmean", "pmax", "all_gather", "ppermute_ring",
+__all__ = ["psum", "psum_", "pmean", "pmax", "all_gather", "greedy_pick",
+           "axis_spans",
+           "ppermute_ring",
            "reduce_scatter", "axis_index", "axis_size", "device_transfer",
            "ring_neighbours", "shard_map", "axis_fabric",
            "mesh_fabric_report", "reshard", "collective_bytes"]
@@ -33,6 +35,48 @@ def psum(x, axis_name, *, mesh):
     out = x.clone()
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=_group(mesh, axis_name))
     return out
+
+
+def axis_spans(mesh, axis_name) -> bool:
+    """Whether `axis_name` names an axis of `mesh` (None: no mesh) that
+    spans more than one rank: where a sharded program needs its
+    collectives."""
+    return mesh is not None and axis_name in mesh.mesh_dim_names and \
+        axis_size(axis_name, mesh=mesh) > 1
+
+
+def psum_(x, axis_name, *, mesh):
+    """Sum x over the ranks along `axis_name` IN PLACE and return it: the
+    row-parallel outputs (attention's o, the FFN's down, the expert
+    FFN), each rank's product a partial sum.  Without a mesh, or on an
+    axis of one rank (or one the mesh lacks), no collective is called."""
+    if axis_spans(mesh, axis_name):
+        dist.all_reduce(x, op=dist.ReduceOp.SUM,
+                        group=_group(mesh, axis_name))
+    return x
+
+
+def greedy_pick(logits, axis_name, *, mesh):
+    """The greedy token of vocab-sharded logits: logits [..., V / n] are
+    this rank's contiguous vocabulary shard along `axis_name`; returns
+    the global argmax [...] int32, the same on every rank.  Each rank's
+    local max and its global index (first maximal, as torch.argmax) are
+    gathered in one collective; the largest value wins and, at equal
+    values, the smallest index: jnp.argmax's first-index rule over the
+    whole vocabulary.  A rank of one makes no collective call."""
+    index = torch.argmax(logits, dim=-1)
+    if not axis_spans(mesh, axis_name):
+        return index.to(torch.int32)
+    value = torch.gather(logits, -1, index[..., None])[..., 0]
+    index = index + axis_index(axis_name, mesh=mesh) * logits.shape[-1]
+    # f64 holds an f32 value and an int32 index exactly: one all_gather
+    pair = torch.stack([value.double(), index.double()], dim=-1)
+    pairs = all_gather(pair, axis_name, tiled=False, mesh=mesh)  # [n,...,2]
+    values, indices = pairs[..., 0], pairs[..., 1]
+    best = values.amax(dim=0)
+    indices = torch.where(values == best, indices,
+                          torch.full_like(indices, float("inf")))
+    return indices.amin(dim=0).to(torch.int32)
 
 
 def pmean(x, axis_name, *, mesh):

@@ -11,6 +11,7 @@
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass, field
 
 import torch
@@ -90,10 +91,19 @@ def _backend(device: torch.device) -> str:
 
 def _process_group(device: torch.device) -> None:
     """The default process group for `device`'s tensors: NCCL for the
-    card, gloo for the CPU.  A process that has none gets a group of
-    one; a group of the other backend raises (never a fallback)."""
+    card, gloo for the CPU.  A process that has none joins the group its
+    launcher describes when WORLD_SIZE is above one (one process per
+    rank, as torchrun starts them: RANK, WORLD_SIZE, MASTER_ADDR and
+    MASTER_PORT from the environment, the card LOCAL_RANK), else gets a
+    group of one; a group of the other backend raises (never a
+    fallback)."""
     backend = _backend(device)
     if not dist.is_initialized():
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            if device.type == "cuda":
+                torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+            dist.init_process_group(backend, init_method="env://")
+            return
         dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                                 world_size=1)
         return

@@ -7,9 +7,17 @@
 # placements: Shard(d) on the mesh dimension that tensor dimension d
 # maps to, Replicate() on every other.  One model definition then runs
 # unsharded on one card or sharded over a mesh of ranks.
+#
+# Serving takes another form of the same layout: local_shards gives each
+# rank its slice of every leaf as a plain tensor (no DTensor, whose
+# dispatch would add host cost to every op of a decode round) and the
+# rank-local widths (local_config), from which the serving programs size
+# their caches and pools and launch the same kernels as unsharded, with
+# fewer heads.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 
 import torch
@@ -19,7 +27,8 @@ from .mesh import AXIS_DATA, AXIS_EXPERT, AXIS_MODEL, AXIS_SEQUENCE
 
 __all__ = ["ShardingRules", "DEFAULT_RULES", "NamedSharding",
            "named_sharding", "shard_pytree", "constrain", "replicated",
-           "placements", "distribute", "mesh_device"]
+           "placements", "distribute", "mesh_device", "local_config",
+           "local_shards"]
 
 
 @dataclass
@@ -175,3 +184,94 @@ def constrain(x, mesh, *logical_axes, rules: ShardingRules = None):
     if mesh.size() == 1:
         return x
     return distribute(x, named_sharding(mesh, *logical_axes, rules=rules))
+
+
+# -- rank-local shards (sharded serving) ----------------------------------------
+
+def _axis_size(mesh, axis) -> int:
+    names = mesh.mesh_dim_names
+    return mesh.size(names.index(axis)) if axis in names else 1
+
+
+def local_config(config, mesh, rules: ShardingRules = None):
+    """The rank-local widths of a (global) LlamaConfig on `mesh`: its
+    num_heads, num_kv_heads, ffn_dim and vocab divided by the size of the
+    mesh axis their logical axes map to (the model axis under
+    DEFAULT_RULES), num_experts by the expert axis's, and head_shards set
+    to the heads' divisor, so head_dim stays the model's.  Caches, pools
+    and side buffers sized from it are this rank's.  Raises ValueError
+    where a width does not divide: JAX pads an uneven split, the port
+    refuses it."""
+    rules = rules or DEFAULT_RULES
+    if config.head_shards != 1:
+        raise ValueError("local_config takes the model's config, not a "
+                         "rank-local one")
+    widths = {}
+    for field_name, logical in (("num_heads", "heads"),
+                                ("num_kv_heads", "kv_heads"),
+                                ("ffn_dim", "ffn"), ("vocab", "vocab"),
+                                ("num_experts", "expert")):
+        width = getattr(config, field_name)
+        n = _axis_size(mesh, rules.rules.get(logical))
+        if width % n:
+            raise ValueError(
+                f"{field_name} {width} does not divide over the "
+                f"{rules.rules.get(logical)!r} axis of size {n} (the port "
+                f"refuses an uneven split, where JAX would pad)")
+        widths[field_name] = width // n
+    return dataclasses.replace(
+        config, **widths,
+        head_shards=config.num_heads // widths["num_heads"])
+
+
+def _local_leaf(leaf, axes, mesh, rules, device):
+    """This rank's slice of a full leaf, on `device`: each dimension whose
+    logical axis maps to a mesh axis is cut to the rank's contiguous
+    chunk along it (the chunk DTensor's Shard gives the same rank).  A
+    leaf that is not cut moves without a copy; a cut one is copied, so
+    the full tensor can be freed."""
+    spec = named_sharding(mesh, *axes, rules=rules).spec if axes else ()
+    part = leaf.detach()
+    for dim, axis in enumerate(spec):
+        if axis is None:
+            continue
+        n = _axis_size(mesh, axis)
+        if part.shape[dim] % n:
+            raise ValueError(
+                f"a leaf of shape {tuple(leaf.shape)} does not divide over "
+                f"the {axis!r} axis of size {n} along dimension {dim} (the "
+                f"port refuses an uneven split, where JAX would pad)")
+        chunk = part.shape[dim] // n
+        part = part.narrow(dim, mesh.get_local_rank(axis) * chunk, chunk)
+    if part.shape == leaf.shape:
+        return part.to(device)
+    return part.to(device, copy=True, memory_format=torch.contiguous_format)
+
+
+def local_shards(tree, axes_tree, mesh, rules: ShardingRules = None,
+                 config=None):
+    """(this rank's shards of `tree`, the rank-local config).
+
+    tree: an nn.Module (read through its parameter names, as
+    shard_pytree does) or nested dicts and lists of full tensors, the
+    same on every rank; axes_tree mirrors the JAX param tree.  Returns
+    nested dicts and lists of plain tensors on the rank's device (the
+    serving programs read both forms alike), each leaf cut along the
+    mesh axes its logical axes map to (replicated over every other, the
+    data axis included), and local_config(config, mesh, rules), or None
+    without a config.  Raises ValueError where a dimension does not
+    divide over its axis (JAX pads; the port refuses)."""
+    from ..models.layers import as_tree
+
+    local = None if config is None else local_config(config, mesh, rules)
+    device = mesh_device(mesh)
+
+    def walk(node, axes):
+        if isinstance(node, dict):
+            return {key: walk(value, _axes_at(axes, [key]))
+                    for key, value in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(value, _axes_at(axes, [i]))
+                    for i, value in enumerate(node)]
+        return _local_leaf(node, axes, mesh, rules, device)
+    return walk(as_tree(tree), axes_tree), local

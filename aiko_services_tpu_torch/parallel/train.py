@@ -16,9 +16,10 @@
 #     rank of a model group computes the same full product and holds
 #     full parameters and gradients during the step, so its peak memory
 #     is the unsharded step's: the model axis shards only what rests
-#     between steps, the parameters and the Adam moments
-#     (tensor-parallel compute inside the layers is sharded serving's
-#     work, ROADMAP.md Queue 1 item 3);
+#     between steps, the parameters and the Adam moments.  Tensor-
+#     parallel compute inside the step's layers is not ported yet
+#     (ROADMAP.md Queue 1 item 3; the serving programs shard theirs:
+#     models/llama.py with a mesh);
 #   * a mesh of one shards nothing: the step is the unsharded one.
 # The loss is the global batch's, as JAX's is.  A loss_fn returns either
 # a scalar mean over its batch, which the step takes for a mean over

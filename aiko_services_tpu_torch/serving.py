@@ -34,6 +34,48 @@
 # straight into its pool (install_shipped_blocks, submit's kv_blocks),
 # and a progress callback sees each prefill chunk land.
 #
+# Sharded serving (mesh): the decoder takes this rank's shards of the
+# weights (ComputeRuntime.place_params with llama_axes, i.e.
+# parallel.local_shards) and the mesh, and serves on plain local tensors:
+# the round programs launch the same kernels as unsharded with the rank's
+# heads, KV heads, ffn and vocab (and experts), the caches, pools and
+# ledger bytes are the rank's, and the collectives (the row-parallel sums
+# of o and down, the vocab-sharded embedding, the sharded greedy pick,
+# the expert sum) run on the mesh axes' groups (models/llama.py,
+# models/moe.py, parallel/collectives.py).  JAX partitions one program
+# under GSPMD; here every rank runs its own decoder, so the ranks must
+# stay in step: a collective paired with another rank's different
+# program hangs.  Lockstep holds because every round decision (admits,
+# chunk plans, evictions, block allocations, pool shrinks, the extent,
+# the number of steps) is a function of the agreed queue and of the round
+# count alone, and the one host sync returns the same tokens on every
+# rank (the pick is replicated).  The queue is agreed, not assumed: a
+# submission waits in the rank's arrivals until every rank holds it, and
+# each round that could admit (a busy decoder, or arrivals on this rank)
+# opens with one host-side all_gather of every rank's arrivals (ids and
+# a digest of each request); the requests that all ranks hold join the
+# queue in rank 0's order.  So a rank pumped from its own timer, whose
+# frames land in other rounds than another rank's, still admits each
+# request in the same round as every other rank; a request id whose
+# content differs between ranks raises.  An idle decoder with no
+# arrivals makes no collective call, and a decoder of one rank never
+# does.  The agreement runs on the mesh's gloo group (a gloo group beside
+# an NCCL mesh), so it adds no device sync.  Decisions that read a clock
+# or a thread's timing are refused on a mesh of more than one rank:
+# deadline-aware admission (submit's `deadline`), drain (each rank would
+# stop admitting at its own moment), a prefix cache with a host tier
+# (promotions land by thread timing), shipped KV blocks (the
+# disaggregated path's transfers time out by each rank's clock), and
+# elsewhere the agent's batched mode (its batches form by the engine
+# clock), its session table (leases expire by each rank's clock) and
+# AdmissionGate.watch_decoder (it sheds by a wall-clock estimate).  The
+# SLO stamps and journeys read the clock but decide nothing.  Every rank
+# must be handed every request: one that some rank never receives waits
+# in the others' arrivals, and their next agreement waits for that rank.
+# `plan_digests`, when set to a list, receives a digest of every working
+# round's plan, for comparing the ranks after a drive (no collective, no
+# sync).
+#
 # From JAX to PyTorch: the programs run eagerly and update the caches,
 # pools, context buffer and token and length vectors IN PLACE; a lax.scan
 # becomes a Python loop with no host read inside it (every stop condition
@@ -66,6 +108,19 @@ from .serving_paged import (BlockPool, _build_paged_spec_step,
 __all__ = ["ContinuousDecoder", "DecodeRequest", "PrefixKVCache",
            "prefix_chain_keys", "check_block_geometry",
            "measure_device_step"]
+
+
+def _agreement_group(mesh):
+    """The host-side group a sharded decoder agrees its queue over:
+    every rank of `mesh`, which spans the default process group
+    (parallel.create_mesh).  The default group where it is gloo, else a
+    gloo group beside it (the NCCL one would stage the gathered bytes
+    through the card and sync the stream).  Every rank of the default
+    group builds its decoder, and so this group, alike."""
+    import torch.distributed as dist
+    if dist.get_backend() == "gloo":
+        return None
+    return dist.new_group(backend="gloo")
 
 
 def _to_device(device: torch.device, *arrays) -> list:
@@ -199,6 +254,9 @@ class DecodeRequest:
     # progress_callback(request, finished) after each prefill chunk
     # advances prefill_pos (a prefill runtime ships the chunk's blocks)
     progress_callback: object = None
+    # sharded serving: a digest of the request's content, which every
+    # rank's copy of it must share (ContinuousDecoder._agree_arrivals)
+    agree_key: str = ""
 
 
 def prefix_chain_keys(tenant: str, tokens, block_tokens: int) -> list:
@@ -425,6 +483,7 @@ class PrefixKVCache:
         # block ids and insert / evict move refcounts instead of rows
         self._pool = None
         self._dense_bound = False
+        self._sharded_bound = False
         # the host tier: an attached HostBlockStore turns eviction of
         # pool blocks into demotion, and its promoter re-lands them
         self._host = None
@@ -454,7 +513,7 @@ class PrefixKVCache:
 
     # -- binding -----------------------------------------------------------
     def bind(self, layout: tuple, paged: bool = False,
-             device=None) -> None:
+             device=None, sharded: bool = False) -> None:
         """Record (and enforce) the storage layout this cache holds:
         decoders sharing a cache must agree on (layers, KV heads, head
         dim, dtype, int8-ness, block size), or a hit would land rows of
@@ -462,7 +521,15 @@ class PrefixKVCache:
         storage kind, so dense and paged decoders never share one cache
         whichever binds first (a dense node's rows and a paged node's
         pool id are unreadable to the other).  `device` is where a
-        dense cache's installed rows land."""
+        dense cache's installed rows land.  `sharded`: the binder serves
+        on a mesh of more than one rank, which refuses a host tier (its
+        promotions land by thread timing: serving.py's header)."""
+        if sharded and self._host is not None:
+            raise ValueError(
+                f"prefix cache {self.name!r} has a host tier; a decoder on "
+                f"a mesh of more than one rank refuses one (promotions "
+                f"land by thread timing, and the ranks would leave "
+                f"lockstep)")
         if self._layout is None:
             self._layout = tuple(layout)
         elif self._layout != tuple(layout):
@@ -470,6 +537,7 @@ class PrefixKVCache:
                 f"prefix cache {self.name!r} already bound to layout "
                 f"{self._layout}, decoder wants {tuple(layout)}")
         self._dense_bound = self._dense_bound or not paged
+        self._sharded_bound = self._sharded_bound or sharded
         if device is not None and self._device is None:
             self._device = torch.device(device)
 
@@ -528,6 +596,11 @@ class PrefixKVCache:
             raise ValueError(
                 f"prefix cache {self.name!r} is bound by a dense "
                 f"decoder; the host tier offloads pool blocks")
+        if self._sharded_bound:
+            raise ValueError(
+                f"prefix cache {self.name!r} is bound by a decoder on a "
+                f"mesh of more than one rank, which refuses a host tier "
+                f"(promotions land by thread timing)")
         if self._host is not None and self._host is not store:
             raise ValueError(
                 f"prefix cache {self.name!r} already has host store "
@@ -638,8 +711,10 @@ class PrefixKVCache:
         # one device buffer per block: each node owns its storage
         groups = [[_as_tensor(plane) for leaf in entry["k"] + entry["v"]
                    for plane in _leaf_planes(leaf)] for entry in entries]
-        landed = _to_device_groups(self._device or torch.device("cpu"),
-                                   groups)
+        # a cache bound without a device lands on the card, as every
+        # entry point's device=None does (resolve_device raises without
+        # one)
+        landed = _to_device_groups(resolve_device(self._device), groups)
         for j in range(start_block, count):
             entry, planes = entries[j - start_block], landed[j - start_block]
             rows, at = [], 0
@@ -1051,21 +1126,23 @@ def _project_qkv(layer, config: LlamaConfig, x):
 
 
 def _token_block_argmax(params, config: LlamaConfig, token_block,
-                        attend):
+                        attend, mesh=None):
     """Transformer pass over a [S, W] token block: `attend(i, layer,
     normed)` supplies each layer's attention output (and owns the
     cache-write strategy).  Returns the per-position argmax [S, W]
     int32 of f32 logits from the bf16 head (linear_logits): rounding the
     logits to bf16 first can flip near-ties against an f32 reference.
     torch.argmax, like jnp.argmax, returns the first maximal index.  W
-    is 1 for the decode step and 1 + speculate_k for the verify."""
-    x = L.embedding(params["embed"], token_block).to(config.dtype)
+    is 1 for the decode step and 1 + speculate_k for the verify.  mesh:
+    sharded serving (the vocab-sharded embedding and head, the sharded
+    pick; the attention seams sum their own o)."""
+    x = L.embedding(params["embed"], token_block, mesh).to(config.dtype)
     for i, layer in enumerate(params["layers"]):
         x = x + attend(i, layer, L.rms_norm(layer["ln_attn"], x))
-        x = x + llama_ffn(layer, config, L.rms_norm(layer["ln_mlp"], x))
+        x = x + llama_ffn(layer, config, L.rms_norm(layer["ln_mlp"], x),
+                          mesh)
     x = L.rms_norm(params["ln_out"], x)
-    logits = L.linear_logits(params["lm_head"], x)
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+    return L.greedy_tokens(params["lm_head"], x, mesh)
 
 
 # -- the dense slot cache: attention bodies -----------------------------------
@@ -1096,7 +1173,7 @@ def _cache_time(cache) -> int:
 def _grouped_block_attention(layer, config: LlamaConfig, x, cos, sin,
                              k_cache, v_cache, k_side, v_side,
                              entry_lengths, lengths, write_index: int,
-                             side_valid):
+                             side_valid, mesh=None):
     """The one place the dense decode numerics live: project QKV for
     the [S, W] block at per-slot positions `lengths`, write the block's
     K/V into the side buffers at `write_index` (in place), and attend
@@ -1141,12 +1218,13 @@ def _grouped_block_attention(layer, config: LlamaConfig, x, cos, sin,
         torch.matmul(weights[..., main_t:].to(v_side.dtype).float(),
                      v_side.float())
     out = out.reshape(slots_n, num_heads, width, head_dim).to(x.dtype)
-    return L.linear(layer["attn"]["o"], L._merge_heads(out))
+    return L.row_parallel_linear(layer["attn"]["o"], L._merge_heads(out),
+                                 mesh)
 
 
 def _slot_attention_block(layer, config: LlamaConfig, x, cos, sin,
                           k_cache, v_cache, k_side, v_side, entry_lengths,
-                          lengths, step_index: int):
+                          lengths, step_index: int, mesh=None):
     """Decode attention at loop step `step_index`: the side entries
     written this round up to this step, and none past the slot's own
     take (a slot that stopped keeps its stale side rows masked)."""
@@ -1156,12 +1234,12 @@ def _slot_attention_block(layer, config: LlamaConfig, x, cos, sin,
                    (lengths - entry_lengths + 1)[:, None]))[:, None, :]
     return _grouped_block_attention(layer, config, x, cos, sin, k_cache,
                                     v_cache, k_side, v_side, entry_lengths,
-                                    lengths, step_index, side_valid)
+                                    lengths, step_index, side_valid, mesh)
 
 
 def _slot_attention_spec(layer, config: LlamaConfig, x, cos, sin, k_cache,
                          v_cache, k_side, v_side, pos_side, entry_lengths,
-                         lengths, base: int):
+                         lengths, base: int, mesh=None):
     """The speculative verify's attention: `x` carries W = 1 + k tokens a
     slot at positions lengths + [0, W).  The round's side entries carry
     their absolute positions (`pos_side`; rejected drafts hold
@@ -1172,7 +1250,7 @@ def _slot_attention_spec(layer, config: LlamaConfig, x, cos, sin, k_cache,
     side_valid = pos_side[:, None, :] <= q_pos[:, :, None]      # [S, W, P]
     return _grouped_block_attention(layer, config, x, cos, sin, k_cache,
                                     v_cache, k_side, v_side, entry_lengths,
-                                    lengths, base, side_valid)
+                                    lengths, base, side_valid, mesh)
 
 
 # -- in-place merges with JAX's dropped indices --------------------------------
@@ -1236,7 +1314,8 @@ def _side_buffers(config: LlamaConfig, slots_n: int, length: int,
 
 
 def _decode_steps(params, config: LlamaConfig, tokens, lengths, active,
-                  budgets, eos: int, num_steps: int, attention) -> tuple:
+                  budgets, eos: int, num_steps: int, attention,
+                  mesh=None) -> tuple:
     """`num_steps` greedy steps for every slot with no host sync: a slot
     stops inside the loop the moment it emits `eos` or spends its
     budget.  `attention(i, layer, normed, lengths, step_index, active)`
@@ -1250,7 +1329,7 @@ def _decode_steps(params, config: LlamaConfig, tokens, lengths, active,
             return attention(i, layer, normed, lengths, step_index, active)
 
         next_tokens = _token_block_argmax(params, config, tokens[:, None],
-                                          attend)[:, 0]
+                                          attend, mesh)[:, 0]
         next_tokens = torch.where(active, next_tokens, tokens)
         lengths = torch.where(active, lengths + 1, lengths)
         budgets = torch.where(active, budgets - 1, budgets)
@@ -1321,7 +1400,8 @@ def _online_decode_attention(q_grouped, k_cache, v_cache, lengths,
 
 
 def _slot_attention(layer, config: LlamaConfig, x, cos, sin, k_cache,
-                    v_cache, lengths, write_mask, attention_impl: str):
+                    v_cache, lengths, write_mask, attention_impl: str,
+                    mesh=None):
     """One-token attention for every slot in the select KV write: write
     this token's K/V at each slot's own position (in place, only where
     `write_mask` [S] holds: a mid-prefill slot's stale length points into
@@ -1366,10 +1446,12 @@ def _slot_attention(layer, config: LlamaConfig, x, cos, sin, k_cache,
         out = torch.einsum("skgqt,sktd->skgqd", weights.float(),
                            v_cache.float())
     out = out.reshape(slots_n, num_heads, num_q, head_dim).to(x.dtype)
-    return L.linear(layer["attn"]["o"], L._merge_heads(out))
+    return L.row_parallel_linear(layer["attn"]["o"], L._merge_heads(out),
+                                 mesh)
 
 
-def _build_select_step(config: LlamaConfig, attention_impl: str, device):
+def _build_select_step(config: LlamaConfig, attention_impl: str, device,
+                       mesh=None):
     """The dense decode round in the select KV write: `num_steps`
     greedy steps, each writing its K/V into the slot caches in place
     and attending over them (no side buffers, no merge).  The signature
@@ -1382,15 +1464,15 @@ def _build_select_step(config: LlamaConfig, attention_impl: str, device):
         def attention(i, layer, normed, lengths, _step_index, active):
             return _slot_attention(layer, config, normed, cos, sin,
                                    k_caches[i], v_caches[i], lengths,
-                                   active, attention_impl)
+                                   active, attention_impl, mesh)
 
         return _decode_steps(params, config, tokens, lengths, active,
-                             budgets, eos, num_steps, attention)
+                             budgets, eos, num_steps, attention, mesh)
 
     return step
 
 
-def _build_step(config: LlamaConfig, device):
+def _build_step(config: LlamaConfig, device, mesh=None):
     """The dense decode round in the block KV write: `num_steps` greedy
     steps over the read-only slot caches plus per-layer side buffers,
     then one merge of each slot's side rows at its round-entry length
@@ -1413,11 +1495,12 @@ def _build_step(config: LlamaConfig, device):
         def attention(i, layer, normed, lengths, step_index, _active):
             return _slot_attention_block(
                 layer, config, normed, cos, sin, k_caches[i], v_caches[i],
-                k_sides[i], v_sides[i], entry_lengths, lengths, step_index)
+                k_sides[i], v_sides[i], entry_lengths, lengths, step_index,
+                mesh)
 
         emitted, emitted_active, tokens, lengths = _decode_steps(
             params, config, tokens, lengths, active, budgets, eos,
-            num_steps, attention)
+            num_steps, attention, mesh)
         merge_at = entry_lengths.clamp(
             0, max(0, _cache_time(k_caches[0]) - num_steps))
         positions = (merge_at[:, None] + torch.arange(
@@ -1448,7 +1531,7 @@ def _spec_rope(config: LlamaConfig, k_spec: int, device) -> tuple:
 def _spec_scan_body(config: LlamaConfig, cos, sin, k_spec: int,
                     ngram: int, params, eos: int, k_caches, v_caches,
                     entry_lengths, k_sides, v_sides, pos_side,
-                    attention=None):
+                    attention=None, mesh=None):
     """The speculative draft / verify / accept step, the ONE copy the
     dense (_build_spec_step) and paged (serving_paged.
     _build_paged_spec_step) builders share; they differ only in the
@@ -1461,7 +1544,8 @@ def _spec_scan_body(config: LlamaConfig, cos, sin, k_spec: int,
 
     `attention` is the verify attention (default _slot_attention_spec);
     it writes its block's K/V into the side buffers at the block's base
-    index and returns the output projection."""
+    index and returns the output projection (summed over the model axis
+    of `mesh`)."""
     width = k_spec + 1
     if attention is None:
         attention = _slot_attention_spec
@@ -1512,9 +1596,10 @@ def _spec_scan_body(config: LlamaConfig, cos, sin, k_spec: int,
         def attend(i, layer, normed):
             return attention(layer, config, normed, cos, sin, k_caches[i],
                              v_caches[i], k_sides[i], v_sides[i], pos_side,
-                             entry_lengths, lengths, base)
+                             entry_lengths, lengths, base, mesh=mesh)
 
-        block_argmax = _token_block_argmax(params, config, seq, attend)
+        block_argmax = _token_block_argmax(params, config, seq, attend,
+                                           mesh)
         # greedy acceptance: draft j survives iff the argmax after
         # consuming seq[:j + 1] reproduces it; the first miss takes the
         # model's own token (always emitted: the non-speculative step)
@@ -1553,7 +1638,7 @@ def _spec_scan_body(config: LlamaConfig, cos, sin, k_spec: int,
 def _spec_round(config: LlamaConfig, cos, sin, k_spec: int, ngram: int,
                 params, tokens, lengths, active, budgets, context, k_caches,
                 v_caches, *, num_steps: int, eos: int,
-                attention=None) -> tuple:
+                attention=None, mesh=None) -> tuple:
     """`num_steps` speculative steps for every slot (_spec_scan_body over
     fresh side buffers of num_steps x (1 + k_spec) entries, all
     _POS_INVALID).  Returns (emitted [K, S, W], emit_mask [K, S, W],
@@ -1567,7 +1652,7 @@ def _spec_round(config: LlamaConfig, cos, sin, k_spec: int, ngram: int,
                           dtype=torch.int32, device=device)
     body = _spec_scan_body(config, cos, sin, k_spec, ngram, params, eos,
                            k_caches, v_caches, lengths, k_sides, v_sides,
-                           pos_side, attention=attention)
+                           pos_side, attention=attention, mesh=mesh)
     emitted, masks = [], []
     for step_index in range(num_steps):
         tokens, lengths, active, budgets, block, emit = body(
@@ -1578,7 +1663,8 @@ def _spec_round(config: LlamaConfig, cos, sin, k_spec: int, ngram: int,
             k_sides, v_sides, pos_side)
 
 
-def _build_spec_step(config: LlamaConfig, k_spec: int, ngram: int, device):
+def _build_spec_step(config: LlamaConfig, k_spec: int, ngram: int, device,
+                     mesh=None):
     """The dense speculative round: each step drafts `k_spec` tokens a
     slot by prompt lookup in the slot's own context buffer (no second
     model), scores the 1 + k_spec block in one widened forward and
@@ -1599,7 +1685,7 @@ def _build_spec_step(config: LlamaConfig, k_spec: int, ngram: int, device):
         emitted, emit_mask, tokens, lengths, k_sides, v_sides, pos_side = \
             _spec_round(config, cos, sin, k_spec, ngram, params, tokens,
                         lengths, active, budgets, context, k_caches,
-                        v_caches, num_steps=num_steps, eos=eos)
+                        v_caches, num_steps=num_steps, eos=eos, mesh=mesh)
         # each consumed side entry lands at its absolute position; the
         # _POS_INVALID ones (rejected drafts, inactive slots) drop
         positions, keep = _drop_positions(
@@ -1616,24 +1702,25 @@ def _build_spec_step(config: LlamaConfig, k_spec: int, ngram: int, device):
 @functools.lru_cache(maxsize=16)
 def _round_step_for(config: LlamaConfig, paged: bool, k_spec: int,
                     ngram: int, device, kv_write: str = "block",
-                    attention_impl: str = "two_pass"):
+                    attention_impl: str = "two_pass", mesh=None):
     """Process-wide builder cache: decoders of one (config, cache kind,
-    speculation, KV write, inner loop, device) share one round step and
-    its RoPE tables."""
+    speculation, KV write, inner loop, device, mesh) share one round
+    step and its RoPE tables."""
     if paged:
-        return _build_paged_spec_step(config, k_spec, ngram, device) \
-            if k_spec else _build_paged_step(config, device)
+        return _build_paged_spec_step(config, k_spec, ngram, device, mesh) \
+            if k_spec else _build_paged_step(config, device, mesh)
     if k_spec:
-        return _build_spec_step(config, k_spec, ngram, device)
+        return _build_spec_step(config, k_spec, ngram, device, mesh)
     if kv_write == "select":
-        return _build_select_step(config, attention_impl, device)
-    return _build_step(config, device)
+        return _build_select_step(config, attention_impl, device, mesh)
+    return _build_step(config, device, mesh)
 
 
 # -- the dense programs: admit, prefix copy, chunk extend ----------------------
 
 def _dense_admit(params, config: LlamaConfig, k_caches, v_caches, tokens,
-                 lengths, context, prompts, true_lens, slots, valid):
+                 lengths, context, prompts, true_lens, slots, valid,
+                 mesh=None):
     """Bucketed single-shot prefill of `width` prompts [width, bucket]
     into the dense slot caches: each valid row's K/V prefix lands in its
     slot's rows [0, bucket) (quantized for an int8 cache), its first
@@ -1644,11 +1731,11 @@ def _dense_admit(params, config: LlamaConfig, k_caches, v_caches, tokens,
     from .models.llama import init_llama_caches, llama_hidden
     width, bucket = prompts.shape
     caches = init_llama_caches(config, width, bucket, device=prompts.device)
-    hidden, caches = llama_hidden(params, config, prompts, caches)
+    hidden, caches = llama_hidden(params, config, prompts, caches,
+                                  mesh=mesh)
     idx = (true_lens - 1).clamp(min=0).long()
     last_hidden = hidden[torch.arange(width, device=prompts.device), idx]
-    last = L.linear_logits(params["lm_head"], last_hidden)
-    firsts = torch.argmax(last, dim=-1).to(torch.int32)
+    firsts = L.greedy_tokens(params["lm_head"], last_hidden, mesh)
     slots = slots.long()
     for i, cache in enumerate(caches):
         for leaves, rows in ((k_caches, cache["k"]), (v_caches, cache["v"])):
@@ -1667,7 +1754,7 @@ def _dense_admit(params, config: LlamaConfig, k_caches, v_caches, tokens,
 
 def _dense_extend(params, config: LlamaConfig, k_caches, v_caches, tokens,
                   lengths, context, chunk_tokens, offsets, slots, valid,
-                  finish, final_idx):
+                  finish, final_idx, mesh=None):
     """One prompt chunk [width, chunk] for mid-prefill slots of the dense
     cache: row a's tokens sit at positions offsets[a] + [0, chunk), each
     query attends its slot's cache positions <= its own over the whole
@@ -1685,7 +1772,7 @@ def _dense_extend(params, config: LlamaConfig, k_caches, v_caches, tokens,
     device = chunk_tokens.device
     cos, sin = L.rope_frequencies(config.head_dim, config.max_seq_len,
                                   config.rope_theta, device=device)
-    x = L.embedding(params["embed"], chunk_tokens).to(config.dtype)
+    x = L.embedding(params["embed"], chunk_tokens, mesh).to(config.dtype)
     t_cap = _cache_time(k_caches[0])
     steps = torch.arange(chunk, device=device)
     q_pos = offsets[:, None] + steps[None]                      # [A, C]
@@ -1719,8 +1806,10 @@ def _dense_extend(params, config: LlamaConfig, k_caches, v_caches, tokens,
             .to(v_rows.dtype).float(), v_rows.float())
         out = out.reshape(width, num_heads, chunk,
                           config.head_dim).to(x.dtype)
-        x = x + L.linear(layer["attn"]["o"], L._merge_heads(out))
-        x = x + llama_ffn(layer, config, L.rms_norm(layer["ln_mlp"], x))
+        x = x + L.row_parallel_linear(layer["attn"]["o"],
+                                      L._merge_heads(out), mesh)
+        x = x + llama_ffn(layer, config, L.rms_norm(layer["ln_mlp"], x),
+                          mesh)
         for cache, new in ((k_caches[i], k), (v_caches[i], v)):
             stored = L.quantize_kv_cache(new) if isinstance(cache, dict) \
                 else new
@@ -1732,8 +1821,7 @@ def _dense_extend(params, config: LlamaConfig, k_caches, v_caches, tokens,
                     where, values, plane[slots[:, None], :, write_pos])
     x = L.rms_norm(params["ln_out"], x)
     last_hidden = x[torch.arange(width, device=device), final_idx.long()]
-    last = L.linear_logits(params["lm_head"], last_hidden)
-    firsts = torch.argmax(last, dim=-1).to(torch.int32)
+    firsts = L.greedy_tokens(params["lm_head"], last_hidden, mesh)
     apply = valid & finish
     tokens[slots] = torch.where(apply, firsts, tokens[slots])
     lengths[slots] = torch.where(apply, offsets + final_idx + 1,
@@ -1771,7 +1859,11 @@ class ContinuousDecoder:
     per-position scales.
 
     params: the port's Llama (models/llama.py) on `device`; device None
-    means the CUDA card, "cpu" runs the kernels' plain versions."""
+    means the CUDA card, "cpu" runs the kernels' plain versions.  mesh:
+    sharded serving (the module header): params are this rank's shards
+    (parallel.local_shards) and config the model's; the decoder serves
+    on the mesh's device with the rank-local config
+    (parallel.sharding.local_config) as `config`."""
 
     def __init__(self, params, config: LlamaConfig, max_slots: int = 8,
                  max_seq: int | None = None, eos_token: int | None = None,
@@ -1785,7 +1877,7 @@ class ContinuousDecoder:
                  name: str = "decoder", registry=None,
                  prefix_cache: PrefixKVCache | None = None,
                  paged_kv: bool = False, kv_block: int = 32,
-                 device=None):
+                 device=None, mesh=None):
         # the JAX decoder's A/B variants, read from its environment
         # variables at construction: the KV write ("block", the default:
         # a round's K/V go to side buffers merged at its end; "select":
@@ -1835,6 +1927,27 @@ class ContinuousDecoder:
         # consume across prefill, extends and decode; greedy outputs are
         # those of the rounded weights, so it is opt-in.  fuse_projections
         # adds one q/k/v product and fuses gate/up for the decode step
+        self.mesh = mesh
+        self.sharded = mesh is not None and mesh.size() > 1
+        if mesh is not None:
+            from .parallel.sharding import local_config, mesh_device
+            if config.head_shards == 1:
+                config = local_config(config, mesh)
+            device = mesh_device(mesh)
+            table = params["embed"]["table"]
+            if table.shape[0] != config.vocab:
+                raise ValueError(
+                    f"a decoder on a mesh takes this rank's shards "
+                    f"(ComputeRuntime.place_params with llama_axes, or "
+                    f"parallel.local_shards): the embedding holds "
+                    f"{table.shape[0]} rows, the rank's vocabulary "
+                    f"{config.vocab}")
+            if weight_quant and config.head_shards > 1:
+                # each rank would take its scales over its own rows of o
+                # and down, where JAX takes them over the whole input
+                raise NotImplementedError(
+                    "weight_quant on a model axis of more than one rank "
+                    "is not ported yet (ROADMAP.md Queue 1 item 3)")
         if fuse_projections:
             params = _fuse_decode_projections(params)
         if weight_quant:
@@ -1899,7 +2012,7 @@ class ContinuousDecoder:
                            self.kv_int8, self.kv_block, itemsize)
         if prefix_cache is not None:
             prefix_cache.bind(self._kv_layout, paged=self.paged,
-                              device=self.device)
+                              device=self.device, sharded=self.sharded)
             if not self.paged and prefix_cache.paged:
                 raise ValueError(
                     "prefix cache holds paged (pool-resident) blocks; a "
@@ -1928,13 +2041,20 @@ class ContinuousDecoder:
             if self.speculate_k else None
         self._step = _round_step_for(config, self.paged, self.speculate_k,
                                      self.speculate_ngram, self.device,
-                                     self.kv_write, self.attention_impl)
+                                     self.kv_write, self.attention_impl,
+                                     self.mesh)
         # in-flight prefix dedup window: leading block key -> the request
         # prefilling that chain now.  Bounded by the slot pool: entries
         # unregister at early harvest or retire
         self._inflight_chains: dict[str, DecodeRequest] = {}
         self._slots: list[DecodeRequest | None] = [None] * max_slots
         self._pending: list[DecodeRequest] = []
+        # sharded: submissions not yet held by every rank (_agree_arrivals
+        # moves the agreed ones into _pending), and the host-side group
+        # the agreement gathers over
+        self._arrivals: list[DecodeRequest] = []
+        self._agree_group = _agreement_group(mesh) if self.sharded \
+            else None
         # admit output stash: (firsts device tensor, [(row, request)])
         # per dispatch, resolved at the NEXT round's sync
         self._admit_waves: list = []
@@ -1962,6 +2082,9 @@ class ContinuousDecoder:
                                    registry=self._registry)
         self._slo_sketches: dict = {}
         self._ledger = None              # KV memory ledger (attach_ledger)
+        # a list: every working round appends a digest of its plan
+        # (_plan_digest), for comparing the ranks of a mesh after a drive
+        self.plan_digests: list | None = None
         self.stats = MirroredStats(
             {"steps": 0, "rounds": 0, "completed": 0, "prefills": 0,
              "occupancy_sum": 0.0, "prefill_s": 0.0, "decode_s": 0.0,
@@ -2108,7 +2231,12 @@ class ContinuousDecoder:
         TraceContext, and claims the admission note posted for it.
         Prompts keep their tail up to the largest bucket (up to max_seq
         - 1 with chunked prefill); an empty prompt becomes one pad
-        token.
+        token.  A decoder on a mesh of more than one rank refuses a
+        `deadline` and `kv_blocks` (ValueError: the shed would read each
+        rank's clock, a shipped install lands by its own), and queues
+        the request in its arrivals until every rank holds it (the
+        module header); request ids must then be unique among the
+        queued ones.
 
         For disaggregated serving: `prefill_label` names the request's
         TTFT / journey population ("remote"); `kv_blocks` (covered
@@ -2120,6 +2248,15 @@ class ContinuousDecoder:
         after each prefill chunk lands."""
         from .observe.journey import RequestJourney, take_admission_note
         from .observe.tracing import current_trace
+        if deadline is not None and self.sharded:
+            raise ValueError(
+                "a decoder on a mesh refuses deadline-aware admission: "
+                "each rank would shed by its own clock and the ranks "
+                "would leave lockstep")
+        if kv_blocks and self.sharded:
+            raise ValueError(
+                "a decoder on a mesh refuses shipped KV blocks: each "
+                "rank's transfer lands at its own moment")
         now = time.monotonic()
         # the request claims the admission note posted for its trace
         context = current_trace()
@@ -2194,7 +2331,18 @@ class ContinuousDecoder:
                 request.kv_block_ids = ids[:keep]
                 request.prefix_hit = keep * block
                 request.prefix_probed = True
-        self._pending.append(request)
+        if self.sharded:
+            if any(queued.request_id == request_id for queued in
+                   self._arrivals + self._pending):
+                raise ValueError(
+                    f"request id {request_id!r} is queued already: a "
+                    f"decoder on a mesh agrees its queue by request id")
+            request.agree_key = hashlib.sha256(repr(
+                (prompt, int(max_new_tokens), request.tenant)).encode()
+            ).hexdigest()[:16]
+            self._arrivals.append(request)
+        else:
+            self._pending.append(request)
         self._note_active()
         return True
 
@@ -2278,10 +2426,45 @@ class ContinuousDecoder:
 
     @property
     def idle(self) -> bool:
-        return self.active_count == 0 and not self._pending
+        return self.active_count == 0 and not self._pending and \
+            not self._arrivals
 
     def _note_active(self) -> None:
-        self._gauge_active.set(self.active_count + len(self._pending))
+        self._gauge_active.set(self.active_count + len(self._pending) +
+                               len(self._arrivals))
+
+    def _agree_arrivals(self) -> None:
+        """Sharded: move the arrivals that every rank holds into the
+        queue, in rank 0's order (the module header).  Gathers every
+        rank's arrivals (request id, content digest) on the host group;
+        called at the top of every round of a busy decoder, which every
+        rank runs alike, and of an idle one with arrivals, which waits
+        for the other ranks' next such round.  Raises when one request
+        id carries other content on another rank."""
+        busy = self.active_count or self._pending or self._admit_waves
+        if not busy and not self._arrivals:
+            return
+        import torch.distributed as dist
+        mine = [(r.request_id, r.agree_key) for r in self._arrivals]
+        every = [None] * dist.get_world_size(self._agree_group)
+        dist.all_gather_object(every, mine, group=self._agree_group)
+        keys = [dict(entries) for entries in every]
+        for request_id, key in mine:
+            for rank, theirs in enumerate(keys):
+                if theirs.get(request_id, key) != key:
+                    raise RuntimeError(
+                        f"request {request_id!r} differs between this "
+                        f"rank and rank {rank}: the ranks of a mesh must "
+                        f"be handed the same requests")
+        agreed = [entry for entry in every[0]
+                  if all(entry in theirs.items() for theirs in keys)]
+        if not agreed:
+            return
+        by_id = {r.request_id: r for r in self._arrivals}
+        self._pending.extend(by_id[request_id] for request_id, _ in agreed)
+        taken = {request_id for request_id, _ in agreed}
+        self._arrivals = [r for r in self._arrivals
+                          if r.request_id not in taken]
 
     # -- graceful drain ----------------------------------------------------
     @property
@@ -2303,8 +2486,14 @@ class ContinuousDecoder:
         max_new_tokens, callback, deadline, tenant) for the caller to
         resubmit; checkpointed slots evacuate the same way through
         `on_evacuate`, or, without one, their callback gets what they
-        generated so far.  Re-arming tightens the deadline but never
-        un-drains (resume does)."""
+        generated so far.  A decoder on a mesh of more than one rank
+        refuses to drain: each rank would stop admitting at its own
+        moment.  Re-arming tightens the deadline but never un-drains
+        (resume does)."""
+        if self.sharded:
+            raise ValueError("a decoder on a mesh refuses to drain: each "
+                             "rank would stop admitting at its own "
+                             "moment and the ranks would leave lockstep")
         now = time.monotonic()
         self._draining = True
         self._drained = False
@@ -2958,7 +3147,7 @@ class ContinuousDecoder:
                 self.params, self.config, self._k, self._v, self._tokens,
                 self._lengths, self._context,
                 *_to_device(self.device, prompts, true_lens,
-                            slots + pad_slots, valid))
+                            slots + pad_slots, valid), mesh=self.mesh)
         # the admit's modeled bytes: one weight stream plus the K/V rows
         # written for `width` slots over `bucket` positions
         self.profiler.add_bytes(
@@ -3007,7 +3196,7 @@ class ContinuousDecoder:
             self.params, self.config, self.pool.k_pools, self.pool.v_pools,
             self._tokens, self._lengths, self._context,
             *_to_device(self.device, prompts, true_lens, slots + pad_slots,
-                        valid, tables_rows))
+                        valid, tables_rows), mesh=self.mesh)
 
     def _advance_prefills(self) -> None:
         """Run one prompt chunk for the mid-prefill slots, batched in
@@ -3107,7 +3296,7 @@ class ContinuousDecoder:
             firsts = _dense_extend(
                 self.params, self.config, self._k, self._v, self._tokens,
                 self._lengths, self._context,
-                *_to_device(self.device, *host))
+                *_to_device(self.device, *host), mesh=self.mesh)
         # the extend's modeled bytes: one weight stream plus each row's
         # prefix read and chunk write
         row_bytes = self._kv_bytes_per_t // self.max_slots
@@ -3167,7 +3356,7 @@ class ContinuousDecoder:
             self.params, self.config, self.pool.k_pools, self.pool.v_pools,
             self._tokens, self._lengths, self._context,
             *_to_device(self.device, *host, tables_rows),
-            t_cap=self._cache_t)
+            t_cap=self._cache_t, mesh=self.mesh)
 
     def _finished(self, request: DecodeRequest, token: int) -> bool:
         return (self.eos_token is not None and token == self.eos_token) \
@@ -3291,7 +3480,10 @@ class ContinuousDecoder:
         earlier admits' first tokens, deliver this round's emissions,
         retire finished slots.  While draining, a round past the drain
         deadline first checkpoints every live slot, and the drain
-        completes once the decoder is idle."""
+        completes once the decoder is idle.  On a mesh of more than one
+        rank the round first agrees the queue (_agree_arrivals)."""
+        if self.sharded:
+            self._agree_arrivals()
         if self._draining and not self._drained:
             if self._drain_deadline is not None and \
                     time.monotonic() >= self._drain_deadline and \
@@ -3408,13 +3600,38 @@ class ContinuousDecoder:
             self._round_ewma = elapsed if self._round_ewma is None \
                 else 0.7 * self._round_ewma + 0.3 * elapsed
             profiler.commit_round()
+            if self.sharded and self.pool is not None and \
+                    self.active_count == 0 and not self._pending:
+                # the ranks give the pool's free tail back at the round
+                # that emptied the decoder, which they run alike: idle
+                # ticks fall on each rank's own timer
+                self.pool.maybe_shrink()
+            if self.plan_digests is not None:
+                self.plan_digests.append(
+                    self._plan_digest(num_steps if scanned else 0))
         else:
             profiler.abandon_round()
-            if self.idle and self.pool is not None:
+            if self.idle and self.pool is not None and not self.sharded:
                 # idle tick: give the pool's free tail back
                 self.pool.maybe_shrink()
         if self.idle and self.on_idle is not None:
             self.on_idle()
+
+    def _plan_digest(self, num_steps: int) -> str:
+        """A digest of the round's plan as it stands after the round: its
+        steps and extent, each slot's request and prefill progress, the
+        queue, and (paged) the block tables and the pool's free count."""
+        plan = [self.stats["rounds"], num_steps, self._cache_t,
+                [None if r is None else (r.request_id, r.prefill_pos,
+                                         len(r.generated))
+                 for r in self._slots],
+                [r.request_id for r in self._pending]]
+        digest = hashlib.sha256(repr(plan).encode())
+        if self.paged:
+            digest.update(self._tables_np.tobytes())
+            digest.update(str(self.pool.num_blocks - 1 -
+                              self.pool.used_blocks()).encode())
+        return digest.hexdigest()[:16]
 
     def _deliver_spec(self, emitted, emit_mask, occupied,
                       num_steps: int) -> None:

@@ -388,13 +388,14 @@ def _grouped_queries(q, num_kv: int):
 def _kernel_grouped_attention(layer, config: LlamaConfig, x, cos, sin,
                               k_pool, v_pool, tables, k_side, v_side,
                               entry_lengths, lengths, write_index,
-                              side_valid):
+                              side_valid, mesh=None):
     """Project QKV for the [S, W] block at per-slot positions `lengths`,
     write this block's K/V into the side buffers at `write_index` (in
     place), and attend through the paged kernel over the pool (positions
     < entry_lengths) plus the side entries `side_valid` [S, W, P]
     selects; int8 pools fold their scales (fold_scales=True).  Returns
-    the attention output projection."""
+    the attention output projection (row-parallel over the model axis of
+    `mesh`: the config's heads are this rank's)."""
     from .ops.paged_attention import paged_decode_attention
     from .serving import _project_qkv
     num_heads, num_kv = config.num_heads, config.num_kv_heads
@@ -408,12 +409,14 @@ def _kernel_grouped_attention(layer, config: LlamaConfig, x, cos, sin,
                                  v_pool, tables, k_side, v_side, side_valid,
                                  entry_lengths, groups=num_heads // num_kv)
     out = out.reshape(slots_n, num_heads, num_q, head_dim).to(x.dtype)
-    return L.linear(layer["attn"]["o"], L._merge_heads(out))
+    return L.row_parallel_linear(layer["attn"]["o"], L._merge_heads(out),
+                                 mesh)
 
 
 def _kernel_attention_block(tables, layer, config: LlamaConfig, x, cos,
                             sin, k_pool, v_pool, k_side, v_side,
-                            entry_lengths, lengths, step_index: int):
+                            entry_lengths, lengths, step_index: int,
+                            mesh=None):
     """Decode attention at scan step `step_index`: the side entries
     written this round up to this step, and none past the slot's own
     take (a slot that stopped keeps its stale side rows masked)."""
@@ -424,12 +427,12 @@ def _kernel_attention_block(tables, layer, config: LlamaConfig, x, cos,
     return _kernel_grouped_attention(layer, config, x, cos, sin,
                                      k_pool, v_pool, tables, k_side,
                                      v_side, entry_lengths, lengths,
-                                     step_index, side_valid)
+                                     step_index, side_valid, mesh)
 
 
 def _kernel_attention_spec(tables, layer, config: LlamaConfig, x, cos,
                            sin, k_pool, v_pool, k_side, v_side, pos_side,
-                           entry_lengths, lengths, base: int):
+                           entry_lengths, lengths, base: int, mesh=None):
     """The speculative verify through the paged kernel: the same kernel
     at W = 1 + speculate_k query rows a slot, under the causal mask
     pos_side <= q_pos ([S, W, P]).  Its signature is
@@ -441,7 +444,7 @@ def _kernel_attention_spec(tables, layer, config: LlamaConfig, x, cos,
     return _kernel_grouped_attention(layer, config, x, cos, sin, k_pool,
                                      v_pool, tables, k_side, v_side,
                                      entry_lengths, lengths, base,
-                                     side_valid)
+                                     side_valid, mesh)
 
 
 def _store_rows(pool, rows):
@@ -468,7 +471,7 @@ def _paged_scatter(pools, tables, positions, live, sides,
         L.scatter_paged_rows(pool, dest, offsets, _store_rows(pool, side))
 
 
-def _build_paged_step(config: LlamaConfig, device):
+def _build_paged_step(config: LlamaConfig, device, mesh=None):
     """The paged decode round: `num_steps` greedy steps for every slot
     over the pool (read-only through the round) plus per-layer side
     buffers, then one merge of the side rows into the slots' blocks.
@@ -492,11 +495,11 @@ def _build_paged_step(config: LlamaConfig, device):
             return _kernel_attention_block(
                 cap_tables, layer, config, normed, cos, sin, k_pools[i],
                 v_pools[i], k_sides[i], v_sides[i], entry_lengths, lengths,
-                step_index)
+                step_index, mesh)
 
         emitted, emitted_active, tokens, lengths = _decode_steps(
             params, config, tokens, lengths, active, budgets, eos,
-            num_steps, attention)
+            num_steps, attention, mesh)
         # merge: each slot's side rows land at their absolute positions
         # [entry_length, entry_length + num_steps); rows past a slot's
         # actual take are dead cells in blocks it owns.  Slots inactive
@@ -514,7 +517,7 @@ def _build_paged_step(config: LlamaConfig, device):
 
 
 def _build_paged_spec_step(config: LlamaConfig, k_spec: int, ngram: int,
-                           device):
+                           device, mesh=None):
     """The paged speculative round: the drafting / widened verify /
     acceptance loop is serving._spec_round over _spec_scan_body, the one
     copy the dense builder shares, with its attention seam on the paged kernel
@@ -538,7 +541,7 @@ def _build_paged_spec_step(config: LlamaConfig, k_spec: int, ngram: int,
             _spec_round(config, cos, sin, k_spec, ngram, params, tokens,
                         lengths, active, budgets, context, k_pools,
                         v_pools, num_steps=num_steps, eos=eos,
-                        attention=attention)
+                        attention=attention, mesh=mesh)
         live = pos_side < _POS_INVALID
         _paged_scatter(k_pools, tables, pos_side, live, k_sides,
                        block_tokens)
@@ -551,7 +554,7 @@ def _build_paged_spec_step(config: LlamaConfig, k_spec: int, ngram: int,
 
 def _paged_admit(params, config: LlamaConfig, k_pools, v_pools, tokens,
                  lengths, context, prompts, true_lens, slots, valid,
-                 tables_rows):
+                 tables_rows, mesh=None):
     """Bucketed single-shot prefill of `width` prompts [width, bucket]:
     each valid row's K/V prefix lands in the pool blocks its table row
     names (padded with dead cells to the block boundary; quantized for
@@ -567,11 +570,11 @@ def _paged_admit(params, config: LlamaConfig, k_pools, v_pools, tokens,
     width, bucket = prompts.shape
     caches = init_llama_caches(config, width, bucket,
                                device=prompts.device)
-    hidden, caches = llama_hidden(params, config, prompts, caches)
+    hidden, caches = llama_hidden(params, config, prompts, caches,
+                                  mesh=mesh)
     idx = (true_lens - 1).clamp(min=0).long()
     last_hidden = hidden[torch.arange(width, device=prompts.device), idx]
-    last = L.linear_logits(params["lm_head"], last_hidden)
-    firsts = torch.argmax(last, dim=-1).to(torch.int32)
+    firsts = L.greedy_tokens(params["lm_head"], last_hidden, mesh)
     pad = tables_rows.shape[1] * block_tokens - bucket
     dest = torch.where(valid[:, None], tables_rows, num_total)
     for i, cache in enumerate(caches):
@@ -589,7 +592,8 @@ def _paged_admit(params, config: LlamaConfig, k_pools, v_pools, tokens,
 
 def _paged_extend(params, config: LlamaConfig, k_pools, v_pools, tokens,
                   lengths, context, chunk_tokens, offsets, slots, valid,
-                  finish, final_idx, tables_rows, *, t_cap: int):
+                  finish, final_idx, tables_rows, *, t_cap: int,
+                  mesh=None):
     """One prompt chunk [width, chunk] for mid-prefill slots (the kernel
     path of JAX's _paged_extend_fn_for): row a's tokens sit at absolute
     positions offsets[a] + [0, chunk).  Each layer attends the pool's
@@ -612,7 +616,7 @@ def _paged_extend(params, config: LlamaConfig, k_pools, v_pools, tokens,
     device = chunk_tokens.device
     cos, sin = L.rope_frequencies(config.head_dim, config.max_seq_len,
                                   config.rope_theta, device=device)
-    x = L.embedding(params["embed"], chunk_tokens).to(config.dtype)
+    x = L.embedding(params["embed"], chunk_tokens, mesh).to(config.dtype)
     cap_tables = _table_cap(tables_rows, block_tokens, t_cap)
     # per-query chunk causality: side position p is visible to chunk
     # query c iff p <= c (both offset-relative)
@@ -638,16 +642,17 @@ def _paged_extend(params, config: LlamaConfig, k_pools, v_pools, tokens,
             fold_scales=False)
         out = out.reshape(width, num_heads, chunk,
                           config.head_dim).to(x.dtype)
-        x = x + L.linear(layer["attn"]["o"], L._merge_heads(out))
-        x = x + llama_ffn(layer, config, L.rms_norm(layer["ln_mlp"], x))
+        x = x + L.row_parallel_linear(layer["attn"]["o"],
+                                      L._merge_heads(out), mesh)
+        x = x + llama_ffn(layer, config, L.rms_norm(layer["ln_mlp"], x),
+                          mesh)
         L.scatter_paged_rows(k_pools[i], dest, block_offsets,
                              _store_rows(k_pools[i], k))
         L.scatter_paged_rows(v_pools[i], dest, block_offsets,
                              _store_rows(v_pools[i], v))
     x = L.rms_norm(params["ln_out"], x)
     last_hidden = x[torch.arange(width, device=device), final_idx.long()]
-    last = L.linear_logits(params["lm_head"], last_hidden)
-    firsts = torch.argmax(last, dim=-1).to(torch.int32)
+    firsts = L.greedy_tokens(params["lm_head"], last_hidden, mesh)
     apply = valid & finish
     slots = slots.long()
     tokens[slots] = torch.where(apply, firsts, tokens[slots])

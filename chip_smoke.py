@@ -6,7 +6,9 @@ NVIDIA card.
 
 Phases, each printing one JSON line; any failure exits non-zero:
   1. device and build: the card's name and power limit (nvidia-smi), and
-     the seconds nvcc took to build every kernel from csrc/;
+     the seconds nvcc took to build every kernel from csrc/ (every nvcc
+     starts at once; the head-dim-128 libraries finish while the phases
+     before llama_8b run, and their line comes before llama_8b);
   2. kernels: each kernel against its plain PyTorch version at the shapes
      its path gives it, in bf16, with its stated tolerance (flash at the
      slice phase's batch of 8 and the pipeline's batch of 32); median
@@ -271,6 +273,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
      virtual time only), a second allocation of the one-card pool is
      refused while the first holds it; the phase split (seconds, share,
      bytes, implied GB/s of host_sync against PEAK_BYTES_PER_S).
+  35c. llama_8b: Llama-3-8B (the 8b preset: 4096 / 32 heads / 8 KV heads,
+     head dim 128 / 32 layers / 14,336 ffn / 128,256 vocab) in bf16,
+     seeded weights made on the card (~16 GB), placed by
+     ComputeRuntime.place_params with llama_axes on a one-rank model
+     mesh and served by the paged decoder on that mesh
+     (LLAMA_8B_DECODER, a pool under 2 GB): LLAMA_8B_REQUESTS complete
+     with their budgets, the pool drains, the paged kernel launches 32 x
+     LLAMA_8B_DECODE_STEPS at head dim 128; tokens/s, round seconds, the
+     TP-8 plan's per-rank bytes (LLAMA_8B_PLAN), one round profiled;
+  35d. llama_8b_f32: the 8B widths at 2 layers in f32 on the mesh: the
+     paged decoder's tokens against llama_greedy_decode;
+  35e. agent_mesh: the agent phase's conversation through a
+     ComputeRuntime over create_mesh({"model": 1}) (PE_LlamaAgent
+     places with llama_axes): tokens, prefill and hit tokens, prefix
+     admits, decode steps and launches equal the agent phase's.
   36. grad_guard: each of the three kernel wrappers raises on a CUDA
      operand that requires grad (the kernels have no backward) and
      launches nothing doing so.
@@ -300,8 +317,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
      submit(): it runs under torch.cuda's sync debug mode "error".
 The kernel section holds the paged kernel at the verify shapes too: W =
 3 (the split path) and W = 5 (the tensor cores) natively, W = 3 with
-int8 pools folded; and at the decode side's suffix extend after a
-shipped cover (SUFFIX_EXTEND: 4 rows of a 64-token chunk, t_cap 512).
+int8 pools folded; at the decode side's suffix extend after a shipped
+cover (SUFFIX_EXTEND: 4 rows of a 64-token chunk, t_cap 512); and at
+head dim 128: Llama-3-8B's decode (16 slots, 8 KV heads, G 4, t_cap 512,
+P 16: llama_8b's launches), its extend (256 rows, P 64), the decode with
+int8 pools folded, and a TP-8 rank's decode (one KV head).
 The vision phases launch none of the three attention kernels, and they
 need neither PIL nor OpenCV: every frame is posted at the element's size.
 The 1b preset is f32 in the port as in JAX; the agent and assistant
@@ -434,6 +454,18 @@ PAGED_KERNEL_LINE = "aiko_services_tpu/ops/paged_attention.py:59"
 LLAMA_DECODER = {"max_slots": 16, "steps_per_sync": 16, "kv_block": 32,
                  "prefill_buckets": (128,), "max_seq": 1024,
                  "paged_kv": True}
+# Llama-3-8B (the 8b preset, head dim 128) served by the paged decoder on
+# a one-rank model mesh (phases llama_8b and llama_8b_f32): 8 seeded
+# requests of 64 prompt and 64 new tokens on 16 slots; LLAMA_8B_DECODE_STEPS
+# from the CPU rehearsal of the drive (a 64-wide stand-in keeps the
+# schedule: it depends on the request lengths alone); the per-rank plan
+# of the JAX package's 8B agent (TP 8, 32 slots x 2,048 positions)
+LLAMA_8B_DECODER = {"max_slots": 16, "steps_per_sync": 16, "kv_block": 32,
+                    "prefill_buckets": (64,), "max_seq": 1024,
+                    "paged_kv": True}
+LLAMA_8B_REQUESTS = {"count": 8, "prompt": 64, "new": 64, "seed": 23}
+LLAMA_8B_DECODE_STEPS = 64
+LLAMA_8B_PLAN = {"tp": 8, "slots": 32, "positions": 2048}
 # int8 KV and chunked prefill: the JAX bench's conversation-rung decoder
 # (bench.py:1605-1611) without its prefix cache
 LLAMA_INT8_DECODER = {"max_slots": 16, "steps_per_sync": 8, "kv_block": 32,
@@ -873,13 +905,15 @@ def phase_kernels(device, generator) -> list[dict]:
     return records
 
 
-def paged_case(generator, t_cap: int, side_len: int, block: int = 32):
+def paged_case(generator, t_cap: int, side_len: int, block: int = 32,
+               head_dim: int = 64, num_kv: int = 8):
     """Operands of one paged decode-attention call at the Llama slice's
     shape: max_slots slots, 8 KV heads, 4 query rows each (G = 4, W = 1),
     D = 64, bf16, a pool of shuffled blocks, extents from 1 to t_cap, a
     side buffer of side_len entries (the decoder's steps_per_sync) under
-    a partial mask."""
-    slots, num_kv, groups = LLAMA_DECODER["max_slots"], 8, 4
+    a partial mask; head_dim and num_kv give Llama-3-8B's (D = 128) and
+    a TP-8 rank's (one KV head)."""
+    slots, groups = LLAMA_DECODER["max_slots"], 4
     nb = t_cap // block
     num_blocks = slots * nb + 1
     device = generator.device
@@ -888,7 +922,8 @@ def paged_case(generator, t_cap: int, side_len: int, block: int = 32):
         return torch.randn(*shape, generator=generator, device=device,
                            dtype=torch.float32).to(torch.bfloat16)
 
-    k_pool, v_pool = (randn(num_blocks, num_kv, block, 64) for _ in range(2))
+    k_pool, v_pool = (randn(num_blocks, num_kv, block, head_dim)
+                      for _ in range(2))
     k_pool[0] = v_pool[0] = 0                     # the null block
     entries = torch.randint(1, t_cap + 1, (slots,), generator=generator,
                             device=device, dtype=torch.int32)
@@ -900,17 +935,18 @@ def paged_case(generator, t_cap: int, side_len: int, block: int = 32):
     side_valid = torch.rand((slots, 1, side_len), generator=generator,
                             device=device) < 0.5
     side_valid[:, :, 0] = True
-    return (randn(slots, num_kv, groups, 64), k_pool, v_pool, tables,
-            randn(slots, num_kv, side_len, 64),
-            randn(slots, num_kv, side_len, 64), side_valid, entries)
+    return (randn(slots, num_kv, groups, head_dim), k_pool, v_pool, tables,
+            randn(slots, num_kv, side_len, head_dim),
+            randn(slots, num_kv, side_len, head_dim), side_valid, entries)
 
 
-def extend_case(generator, block: int = 32):
+def extend_case(generator, block: int = 32, head_dim: int = 64):
     """Operands of one chunk extend at the int8 Llama decoder's shape: 16
-    rows of a 64-token chunk, 8 KV heads, 4 x 64 query rows each, D = 64,
-    bf16; offsets (the pool extents) drawn from [0, 512], row 0's 0 (a
-    first chunk); the chunk's own K/V as the side buffer under the causal
-    triangle; the table at t_cap 768, null past offset + chunk."""
+    rows of a 64-token chunk, 8 KV heads, 4 x 64 query rows each, D = 64
+    (or head_dim), bf16; offsets (the pool extents) drawn from [0, 512],
+    row 0's 0 (a first chunk); the chunk's own K/V as the side buffer
+    under the causal triangle; the table at t_cap 768, null past offset
+    + chunk."""
     chunk = LLAMA_INT8_DECODER["prefill_chunk"]
     slots, num_kv, groups, nb = 16, 8, 4, 768 // block
     num_blocks = slots * nb + 1
@@ -920,7 +956,8 @@ def extend_case(generator, block: int = 32):
         return torch.randn(*shape, generator=generator, device=device,
                            dtype=torch.float32).to(torch.bfloat16)
 
-    k_pool, v_pool = (randn(num_blocks, num_kv, block, 64) for _ in range(2))
+    k_pool, v_pool = (randn(num_blocks, num_kv, block, head_dim)
+                      for _ in range(2))
     k_pool[0] = v_pool[0] = 0
     offsets = torch.randint(0, 513, (slots,), generator=generator,
                             device=device, dtype=torch.int32)
@@ -932,9 +969,9 @@ def extend_case(generator, block: int = 32):
     tables = ids.masked_fill(past, 0)
     tri = torch.ones((chunk, chunk), dtype=torch.bool, device=device).tril()
     side_valid = tri.expand(slots, chunk, chunk).contiguous()
-    return (randn(slots, num_kv, groups * chunk, 64), k_pool, v_pool, tables,
-            randn(slots, num_kv, chunk, 64), randn(slots, num_kv, chunk, 64),
-            side_valid, offsets)
+    return (randn(slots, num_kv, groups * chunk, head_dim), k_pool, v_pool,
+            tables, randn(slots, num_kv, chunk, head_dim),
+            randn(slots, num_kv, chunk, head_dim), side_valid, offsets)
 
 
 def extend512_case(generator, block: int = 32):
@@ -1047,15 +1084,19 @@ def int8_pool(pool):
     return leaf
 
 
-def phase_paged_kernel(generator) -> list[dict]:
+def phase_paged_kernel(generator, head_dim: int = 64) -> list[dict]:
     """The paged kernel against its plain version, in its three numerics:
     natively and with int8 pools (scales folded) at the decode shape,
     t_cap 256 and 512; with int8 pools dequantized and natively at the
-    extend shape.  Returns every record, for the kernels line.
+    extend shape; head_dim 128: the rows of Llama-3-8B's shapes (their
+    libraries build while the earlier phases run).  Returns every
+    record, for the kernels line.
     library_ms: scaled_dot_product_attention
     over K/V gathered (and dequantized) contiguously beforehand and a
     boolean mask built beforehand (excluded from the time)."""
     import torch.nn.functional as F
+
+    import numpy as np
 
     from aiko_services_tpu_torch.models.layers import (dequantize_kv_cache,
                                                        gather_paged_kv)
@@ -1063,29 +1104,36 @@ def phase_paged_kernel(generator) -> list[dict]:
 
     scratch = torch.empty(32 * 1024 * 1024, dtype=torch.float32,
                           device=generator.device)
-    scale = 0.125
 
-    # the timer on a call that does the wrapper's host work (its checks
-    # and its output allocation) and launches nothing: ~0 ms with the
-    # host ahead of the card, the host's time without (operands from a
-    # generator of their own, so the rows below keep theirs)
-    idle = paged_case(torch.Generator(device=generator.device).manual_seed(1),
-                      256, LLAMA_DECODER["steps_per_sync"])
+    if head_dim == 64:
+        # the timer on a call that does the wrapper's host work (its
+        # checks and its output allocation) and launches nothing: ~0 ms
+        # with the host ahead of the card, the host's time without
+        # (operands from a generator of their own, so the rows below keep
+        # theirs)
+        idle = paged_case(
+            torch.Generator(device=generator.device).manual_seed(1), 256,
+            LLAMA_DECODER["steps_per_sync"])
 
-    def host_only():
-        kq, ks, vq, vs = P._check_planes(idle[1], idle[2])
-        P._check_operands(idle[0], kq, ks, vq, vs, *idle[3:], 4)
-        torch.empty(idle[0].shape, dtype=torch.float32, device=idle[0].device)
+        def host_only():
+            kq, ks, vq, vs = P._check_planes(idle[1], idle[2])
+            P._check_operands(idle[0], kq, ks, vq, vs, *idle[3:], 4)
+            torch.empty(idle[0].shape, dtype=torch.float32,
+                        device=idle[0].device)
 
-    emit({"phase": "timer", "host_only_call_ms": time_ms(host_only, scratch),
-          "host_only_call_ms_without_spin": time_ms(host_only, scratch,
-                                                    host_ahead=False),
-          "spin_cycles_per_ms": spin_cycles_per_ms()})
+        emit({"phase": "timer",
+              "host_only_call_ms": time_ms(host_only, scratch),
+              "host_only_call_ms_without_spin": time_ms(
+                  host_only, scratch, host_ahead=False),
+              "spin_cycles_per_ms": spin_cycles_per_ms()})
 
     def measure(name, variant, operands, groups, fold, extra):
         q, k_pool, v_pool, tables, k_side, v_side, side_valid, entries = \
             operands
         int8 = isinstance(k_pool, dict)
+        head_dim = q.shape[-1]
+        # the wrapper's default scale, f32(1) / sqrt(f32(D))
+        scale = float(np.float32(1.0) / np.sqrt(np.float32(head_dim)))
         # the plain version in f32 on the values the kernel sees
         if int8 and not fold:
             plain_k, plain_v = (dequantize_kv_cache(leaf, q.dtype).float()
@@ -1136,18 +1184,18 @@ def phase_paged_kernel(generator) -> list[dict]:
         # visible (query row, side entry)
         positions = int(((entries.long() + block - 1) // block).sum()) * \
             block
-        per_position = 64 + 4 if int8 else 64 * 2
+        per_position = head_dim + 4 if int8 else head_dim * 2
         nbytes = (q.numel() * 2 + 2 * positions * num_kv * per_position +
                   2 * k_side.numel() * 2 + side_valid.numel() +
                   tables.numel() * 4 + entries.numel() * 4 +
-                  slots * num_kv * rows * 64 * 4)
+                  slots * num_kv * rows * head_dim * 4)
         side_pairs = int(side_valid.sum()) * groups
-        flops = 4.0 * num_kv * 64 * (rows * positions + side_pairs)
+        flops = 4.0 * num_kv * head_dim * (rows * positions + side_pairs)
         bound_ms, bound_by = bound(flops, nbytes)
         record = {
             "name": name, "route": "cuda",
             "source": "aiko_services_tpu_torch/csrc/"
-                      "paged_decode_attention.cu",
+                      "paged_decode_attention.cuh",
             "replaces": PAGED_KERNEL_LINE, "variant": variant, **extra,
             "shape": list(q.shape), **errors,
             "ms": time_ms(lambda: P.paged_decode_attention(
@@ -1162,6 +1210,8 @@ def phase_paged_kernel(generator) -> list[dict]:
         emit({"phase": "kernel", **record})
         return record
 
+    if head_dim == 128:
+        return d128_rows(generator, measure)
     # each row at the side-buffer length of the decoder that runs it:
     # the native decoder's steps_per_sync (16), the int8 one's (8);
     # "path" keys the launches the smoke's decoders make at that shape
@@ -1223,6 +1273,35 @@ def phase_paged_kernel(generator) -> list[dict]:
                            "paged_decode_attention", suffix_case(generator),
                            4, False, {"t_cap": SUFFIX_EXTEND["t_cap"],
                                       "path": "suffix_extend"}))
+    return records
+
+
+def d128_rows(generator, measure) -> list[dict]:
+    """The paged kernel at head dim 128 (Llama-3-8B): the decode at the
+    llama_8b decoder's shape (16 slots, 8 KV heads, G 4, t_cap 512, P 16:
+    its launches are that phase's), the extend (256 rows a KV head, P
+    64), int8 pools folded, and a TP-8 rank's decode (one KV head)."""
+    records = []
+    steps = LLAMA_8B_DECODER["steps_per_sync"]
+    records.append(measure(
+        "paged_decode_attention_d128", "paged_decode_attention",
+        paged_case(generator, 512, steps, head_dim=128), 4, True,
+        {"t_cap": 512, "path": "decode_d128"}))
+    records.append(measure(
+        "paged_decode_attention_d128_extend", "paged_decode_attention",
+        extend_case(generator, head_dim=128), 4, False,
+        {"t_cap": 768, "path": "extend_d128"}))
+    quantized = list(paged_case(generator, 512, steps, head_dim=128))
+    quantized[1], quantized[2] = int8_pool(quantized[1]), \
+        int8_pool(quantized[2])
+    records.append(measure(
+        "paged_decode_attention_int8_fold_d128",
+        "paged_decode_attention_int8_fold", quantized, 4, True,
+        {"t_cap": 512, "path": "decode_d128"}))
+    records.append(measure(
+        "paged_decode_attention_tp8_d128", "paged_decode_attention",
+        paged_case(generator, 512, steps, head_dim=128, num_kv=1), 4, True,
+        {"t_cap": 512, "path": "decode_tp8_d128"}))
     return records
 
 
@@ -1331,10 +1410,10 @@ def profile_batch(label: str, submit, scheduler) -> dict:
             "top_kernels_ms": [[name[:80], ms] for name, ms in top]}
 
 
-def host_runtime(device=None):
+def host_runtime(device=None, mesh=None):
     """A port ProcessRuntime on its own event engine (virtual clock) and
     in-memory broker, with a ComputeRuntime on `device` (None: the
-    card)."""
+    card), over `mesh` when given."""
     from aiko_services_tpu_torch.compute import ComputeRuntime
     from aiko_services_tpu_torch.event import EventEngine, VirtualClock
     from aiko_services_tpu_torch.process import ProcessRuntime
@@ -1349,7 +1428,8 @@ def host_runtime(device=None):
     runtime = ProcessRuntime(name="chip_smoke",
                              engine=EventEngine(VirtualClock()),
                              transport_factory=transport).initialize()
-    return runtime, ComputeRuntime(runtime, "compute", device=device)
+    return runtime, ComputeRuntime(runtime, "compute", device=device,
+                                   mesh=mesh)
 
 
 def phase_slice() -> dict:
@@ -1826,8 +1906,8 @@ def phase_llama_f32() -> dict:
 
     import numpy as np
 
-    from aiko_services_tpu_torch.models.llama import (
-        LLAMA_PRESETS, llama_forward, llama_greedy_decode, llama_init)
+    from aiko_services_tpu_torch.models.llama import (LLAMA_PRESETS,
+                                                      llama_init)
     from aiko_services_tpu_torch.serving import ContinuousDecoder
 
     # f32 products in full f32, no TF32
@@ -1842,7 +1922,20 @@ def phase_llama_f32() -> dict:
     rng = np.random.default_rng(2)
     prompts = {f"f{n}": rng.integers(0, config.vocab, n).tolist()
                for n in (20, 57, 100, 128)}
-    max_new = 24
+    record = {"phase": "llama_f32",
+              **paged_against_greedy(params, config, decoder, prompts, 24)}
+    emit(record)
+    return record
+
+
+def paged_against_greedy(params, config, decoder, prompts: dict,
+                         max_new: int) -> dict:
+    """Serve `prompts` through `decoder` and hold each request's tokens
+    against llama_greedy_decode on the same params (dense cache, plain
+    attention), f32: identical, or a tie (the reference's top-2 logit
+    gap under 1e-4 at the first mismatch); any other mismatch raises."""
+    from aiko_services_tpu_torch.models.llama import (llama_forward,
+                                                      llama_greedy_decode)
     done = {}
     for rid, prompt in prompts.items():
         decoder.submit(rid, prompt, max_new,
@@ -1869,11 +1962,8 @@ def phase_llama_f32() -> dict:
                     f"f32 request {rid}: paged token {got[i]} != dense "
                     f"{ref[i]} at step {i}, top-2 gap {gap}")
             ties.append({"request": rid, "step": i, "gap": gap})
-    record = {"phase": "llama_f32", "requests": len(prompts),
-              "identical": identical, "ties": ties,
-              "pool_blocks_used": decoder.pool.used_blocks()}
-    emit(record)
-    return record
+    return {"requests": len(prompts), "identical": identical, "ties": ties,
+            "pool_blocks_used": decoder.pool.used_blocks()}
 
 
 def int8_traffic(rng, vocab: int) -> list:
@@ -2072,17 +2162,17 @@ class LogitGaps:
                        moe.moe_forward)
         linear_logits, admit, extend, moe_forward = self._saved
 
-        def recording_moe(params, config, x):
+        def recording_moe(params, config, x, mesh=None):
             logits = torch.matmul(x.reshape(-1, x.shape[-1]).float(),
                                   params["router"]["w"].float())
             probs = torch.sort(torch.softmax(logits, dim=-1), dim=-1,
                                descending=True).values
             self._router_gaps.append(
                 (probs[:, config.top_k - 1] - probs[:, config.top_k]).min())
-            return moe_forward(params, config, x)
+            return moe_forward(params, config, x, mesh=mesh)
 
-        def recording_logits(params, x):
-            logits = linear_logits(params, x)
+        def recording_logits(params, x, mesh=None):
+            logits = linear_logits(params, x, mesh)
             top = torch.topk(logits.reshape(-1, logits.shape[-1]).float(),
                              2)
             values = top.values           # token ids exact in f32 < 2^24
@@ -2107,8 +2197,8 @@ class LogitGaps:
 
         # (params, config, k, v, tokens, lengths, context, rows..., slots,
         # valid[, finish], ...): slots at 9, valid at 10, finish at 11
-        def recording_admit(*args):
-            firsts = admit(*args)
+        def recording_admit(*args, **kwargs):
+            firsts = admit(*args, **kwargs)
             first_tokens(self._calls[-1], args[9].cpu(), args[10])
             return firsts
 
@@ -2407,11 +2497,12 @@ def conversation(runtime, texts: dict, before_drive=None,
             time.perf_counter() - start)
 
 
-def phase_agent() -> dict:
+def phase_agent() -> tuple:
     """A one-element pipeline (PE_LlamaAgent) serving Llama-1B at full
     width in bf16 through the paged decoder with the prefix cache and
-    sessions: 8 streams x 3 turns on a virtual clock.  Returns the paged
-    kernel's launches by path in that run."""
+    sessions: 8 streams x 3 turns on a virtual clock.  Returns (the paged
+    kernel's launches by path in that run, the run's tokens and counts
+    for agent_mesh)."""
     import numpy as np
 
     from aiko_services_tpu_torch.event import settle_virtual
@@ -2545,7 +2636,20 @@ def phase_agent() -> dict:
         "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(record)
     emit({"phase": "profile", **profile})
-    return measured
+    return measured, agent_outcome(frames, stats, cache_stats)
+
+
+def agent_outcome(frames: dict, stats: dict, cache_stats: dict) -> dict:
+    """What two drives of the agent's conversation compare: each
+    (stream, turn)'s tokens, the prefill and hit tokens, the prefix
+    admits and the decode steps."""
+    return {"tokens": {f"{stream}/{turn}": [int(t) for t in
+                                             frame.swag["response_tokens"]]
+                       for (stream, turn), frame in frames.items()},
+            "tokens_prefill": stats["tokens_prefill"],
+            "hit_tokens": cache_stats["hit_tokens"],
+            "prefix_admits": stats["prefix_admits"],
+            "decode_steps": stats["steps"]}
 
 
 def greedy_check(params, config, prompt, got, label) -> dict | None:
@@ -7444,6 +7548,240 @@ def phase_ops() -> int:
     return launches
 
 
+# -- Llama-3-8B on a one-rank mesh, the agent on a mesh -----------------------
+
+def llama_8b(**changes):
+    """The port's 8b preset (Llama-3-8B: 4096 / 32 heads / 8 KV heads,
+    head dim 128 / 32 layers / 14,336 ffn / 128,256 vocab) with
+    `changes`, its widths checked."""
+    from aiko_services_tpu_torch.models.llama import LLAMA_PRESETS
+    config = dataclasses.replace(LLAMA_PRESETS["8b"], max_seq_len=1024,
+                                 **changes)
+    if (config.dim, config.num_heads, config.num_kv_heads, config.ffn_dim,
+            config.vocab, config.head_dim) != \
+            (4096, 32, 8, 14336, 128256, 128):
+        raise AssertionError(f"not the 8b preset's widths: {config}")
+    return config
+
+
+def phase_llama_8b() -> int:
+    """Llama-3-8B at full width and depth in bf16, seeded weights made on
+    the card, placed by ComputeRuntime.place_params with llama_axes on a
+    one-rank model mesh and served by the paged ContinuousDecoder on
+    that mesh (LLAMA_8B_DECODER): LLAMA_8B_REQUESTS; every request
+    completes with its budget, the pool drains, the paged kernel
+    launches 32 x LLAMA_8B_DECODE_STEPS at head dim 128; tokens/s, round
+    s, the weights' and the pool's bytes, the per-rank plan of TP 8
+    (llama_rank_budget), one steady round under torch.profiler.  Returns
+    the paged launches."""
+    import numpy as np
+
+    from aiko_services_tpu_torch.models.llama import (LLAMA_PRESETS,
+                                                      llama_axes,
+                                                      llama_init,
+                                                      llama_rank_budget)
+    from aiko_services_tpu_torch.ops import paged_attention as P
+    from aiko_services_tpu_torch.parallel import create_mesh
+    from aiko_services_tpu_torch.serving import ContinuousDecoder
+
+    config = llama_8b(dtype=torch.bfloat16)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runtime, compute = host_runtime(mesh=create_mesh({"model": 1}))
+    start = time.perf_counter()
+    params = compute.place_params(
+        llama_init(torch.Generator(device="cuda").manual_seed(0), config),
+        llama_axes(config))
+    decoder = ContinuousDecoder(params, config, mesh=compute.sharding_mesh,
+                                **LLAMA_8B_DECODER)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - start
+    weight_bytes = sum(leaf.numel() * leaf.element_size()
+                       for leaf in params.parameters())
+
+    spec = LLAMA_8B_REQUESTS
+    rng = np.random.default_rng(spec["seed"])
+    requests = [(f"q{i}", rng.integers(0, config.vocab,
+                                       spec["prompt"]).tolist(), spec["new"])
+                for i in range(spec["count"])]
+    done = {}
+
+    def keep(request_id, tokens):
+        done[request_id] = list(tokens)
+
+    # the main path's run: counts set to 0 just before, read just after
+    for name in P.launches:
+        P.launches[name] = 0
+    start = time.perf_counter()
+    for rid, prompt, new in requests:
+        decoder.submit(rid, prompt, new, keep)
+    round_s = []
+    while not decoder.idle:
+        round_start = time.perf_counter()
+        decoder.pump()
+        round_s.append(time.perf_counter() - round_start)
+        if len(round_s) > 100:
+            raise AssertionError("the 8B decoder did not drain in 100 "
+                                 "rounds")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    launches = dict(P.launches)
+    stats = dict(decoder.stats)
+    if sorted(done) != sorted(rid for rid, *_ in requests) or any(
+            len(tokens) != spec["new"] or
+            not all(0 <= t < config.vocab for t in tokens)
+            for tokens in done.values()):
+        raise AssertionError(f"8B requests: {len(done)} of {len(requests)} "
+                             f"completed with their budgets")
+    if decoder.pool.used_blocks() != 0:
+        raise AssertionError(f"{decoder.pool.used_blocks()} pool blocks "
+                             f"still owned after the run")
+    expected = config.num_layers * LLAMA_8B_DECODE_STEPS
+    if stats["steps"] != LLAMA_8B_DECODE_STEPS or \
+            launches["paged_decode_attention"] != expected or \
+            sum(launches.values()) != expected:
+        raise AssertionError(
+            f"8B paged launches {launches} over {stats['steps']} decode "
+            f"steps; predicted {expected} over {LLAMA_8B_DECODE_STEPS}")
+    generated = sum(len(tokens) for tokens in done.values())
+    pool_bytes = decoder.kv_cache_bytes()
+    memory_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # one steady decode round of 16 fresh requests under the profiler
+    for i in range(16):
+        decoder.submit(f"p{i}", rng.integers(0, config.vocab, 64).tolist(),
+                       40, lambda *_: None)
+    decoder.pump()                 # admits
+    decoder.pump()                 # first decode round
+    profile = profile_round(decoder, "llama_8b decode")
+    while not decoder.idle:
+        decoder.pump()
+    # the plan on the meta device: no weight materialised
+    plan = dataclasses.replace(LLAMA_PRESETS["8b"], dtype=torch.bfloat16,
+                               max_seq_len=LLAMA_8B_PLAN["positions"])
+    budget = llama_rank_budget(plan, {"model": LLAMA_8B_PLAN["tp"]},
+                               LLAMA_8B_PLAN["slots"],
+                               LLAMA_8B_PLAN["positions"])
+    emit({"phase": "llama_8b", "requests": len(done), "tokens": generated,
+          "setup_s": setup_s, "wall_s": wall,
+          "tokens_per_s": generated / wall, "rounds": len(round_s),
+          "first_round_s": round_s[0],
+          "steady_round_s": statistics.median(round_s[1:]),
+          "round_s": round_s, "steps": stats["steps"],
+          "paged_launches": launches["paged_decode_attention"],
+          "paged_launches_expected": expected,
+          "mesh": compute.ec_producer.get("mesh"),
+          "weight_gb": weight_bytes / 1e9, "kv_cache_gb": pool_bytes / 1e9,
+          "pool_blocks": decoder.pool.num_blocks - 1,
+          "max_memory_gb": memory_gb,
+          "tp8_plan_gb_per_rank": {key: value / 1e9
+                                   for key, value in budget.items()},
+          "sample_tokens": done["q0"][:6]})
+    emit({"phase": "profile", **profile})
+    compute.stop()
+    runtime.terminate()
+    del params, decoder
+    torch.cuda.empty_cache()
+    return launches["paged_decode_attention"]
+
+
+def phase_llama_8b_f32() -> dict:
+    """Llama-3-8B's widths at 2 layers in f32 on the one-rank model mesh:
+    the paged decoder's tokens (the kernel's f32 split path at head dim
+    128) against llama_greedy_decode's plain path, a top-2 gap under
+    1e-4 a tie."""
+    import numpy as np
+
+    from aiko_services_tpu_torch.models.llama import llama_init
+    from aiko_services_tpu_torch.parallel import create_mesh
+    from aiko_services_tpu_torch.serving import ContinuousDecoder
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config = llama_8b(num_layers=2, dtype=torch.float32)
+    params = llama_init(torch.Generator(device="cuda").manual_seed(1),
+                        config)
+    decoder = ContinuousDecoder(params, config,
+                                mesh=create_mesh({"model": 1}),
+                                **{**LLAMA_8B_DECODER, "max_slots": 4})
+    rng = np.random.default_rng(3)
+    prompts = {f"f{n}": rng.integers(0, config.vocab, n).tolist()
+               for n in (20, 41, 64)}
+    record = {"phase": "llama_8b_f32",
+              **paged_against_greedy(params, config, decoder, prompts, 24)}
+    emit(record)
+    del params, decoder
+    torch.cuda.empty_cache()
+    return record
+
+
+def phase_agent_mesh(reference: dict) -> dict:
+    """The agent phase's pipeline, parameters and conversation on a
+    ComputeRuntime built over create_mesh({"model": 1}): PE_LlamaAgent
+    places Llama-1B with llama_axes and serves through its decoder on
+    the mesh.  Every (stream, turn)'s tokens, the prefill and hit tokens,
+    the prefix admits, the decode steps and the paged launches equal the
+    agent phase's (the same seed, the same card).  Returns the paged
+    launches by path."""
+    import numpy as np
+
+    from aiko_services_tpu_torch.ops import paged_attention as P
+    from aiko_services_tpu_torch.parallel import create_mesh
+
+    with agent_preset(dtype=torch.bfloat16) as config:
+        check_1b(config)
+        runtime, compute = host_runtime(mesh=create_mesh({"model": 1}))
+        texts = agent_texts(np.random.default_rng(AGENT_SEED))
+        extends = []
+
+        def before_drive(agent):
+            extends.append(count_extend_launches(agent.decoder))
+            for name in P.launches:
+                P.launches[name] = 0
+
+        pipeline, agent, frames, virtual_s, wall_s = conversation(
+            runtime, texts, before_drive)
+        torch.cuda.synchronize()
+        launches = dict(P.launches)
+    decoder, cache = agent.decoder, agent.prefix_cache
+    outcome = agent_outcome(frames, dict(decoder.stats), dict(cache.stats))
+    extend_dispatches, extend_launches = extends[0]
+    measured = {"decode": launches["paged_decode_attention"] -
+                extend_launches, "extend": extend_launches}
+    failed = pipeline.recovery_stats["frames_failed"]
+    if decoder.mesh is not compute.sharding_mesh or \
+            compute.ec_producer.get("mesh") != {"model": 1}:
+        raise AssertionError("the agent's decoder is not on the runtime's "
+                             "mesh")
+    if failed or outcome != reference:
+        differing = sorted(key for key in reference
+                           if outcome.get(key) != reference[key])
+        raise AssertionError(f"agent on the mesh differs from the agent "
+                             f"phase in {differing} ({failed} frames "
+                             f"failed)")
+    expected = {"decode": config.num_layers * AGENT_DECODE_STEPS,
+                "extend": config.num_layers * AGENT_EXTEND_DISPATCHES}
+    if measured != expected or extend_dispatches != AGENT_EXTEND_DISPATCHES:
+        raise AssertionError(f"agent_mesh paged launches {measured} != "
+                             f"{expected}")
+    for stream_id in list(pipeline.streams):
+        pipeline.destroy_stream(stream_id)
+    cache.purge()
+    pipeline.stop()
+    compute.stop()
+    runtime.terminate()
+    emit({"phase": "agent_mesh", "mesh": {"model": 1},
+          "frames": len(frames), "frames_failed": failed,
+          "tokens_equal_agent": True,
+          "hit_tokens": outcome["hit_tokens"],
+          "tokens_prefill": outcome["tokens_prefill"],
+          "prefix_admits": outcome["prefix_admits"],
+          "decode_steps": outcome["decode_steps"],
+          "paged_launches": measured, "virtual_s": virtual_s,
+          "wall_s": wall_s})
+    return measured
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7491,7 +7829,7 @@ def main() -> int:
     counts[("paged_decode_attention_int8_dequant", "extend")] = \
         int8_counts["paged_decode_attention_int8_dequant"]
     phase_llama_int8_f32()
-    agent = phase_agent()
+    agent, agent_reference = phase_agent()
     counts[("paged_decode_attention", "extend_512")] = agent["extend"]
     phase_agent_f32()
     phase_assistant()
@@ -7535,6 +7873,12 @@ def main() -> int:
             counts[key] = counts.get(key, 0) + launches
     ops = phase_ops()
     counts[("paged_decode_attention", "decode")] += ops
+    paged += phase_paged_kernel(generator, head_dim=128)
+    counts[("paged_decode_attention", "decode_d128")] = phase_llama_8b()
+    phase_llama_8b_f32()
+    agent_mesh = phase_agent_mesh(agent_reference)
+    counts[("paged_decode_attention", "decode")] += agent_mesh["decode"]
+    counts[("paged_decode_attention", "extend_512")] += agent_mesh["extend"]
     earlier = {phase: phase_counts[phase]["flash_attention"] for phase in
                ("slice", "pipeline", "remote_pipeline", "peer_pipeline",
                 "peer_chaos")}

@@ -175,6 +175,51 @@ def test_load_flat_npz_slices_long_position_tables(tmp_path):
             torch.Generator(), wrong, device="cpu"), path)
 
 
+def _audit_imports(text: str, filename: str = "<source>") -> tuple:
+    """(imports of jax, jaxlib or the JAX package anywhere in the source;
+    module-level imports of what the card's machine lacks)."""
+    tree = ast.parse(text, filename=filename)
+    top = {id(node) for node in tree.body}
+    jax_names, top_names = [], []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            root = name.split(".")[0]
+            if root in ("jax", "jaxlib", "aiko_services_tpu"):
+                jax_names.append(name)
+            if root in ("click", "paho", "sounddevice", "PIL",
+                        "cv2") and id(node) in top:
+                top_names.append(name)
+    return jax_names, top_names
+
+
+def test_the_import_audit_flags_every_jax_import():
+    """The audit below fails for a port module that imports jax or the
+    JAX package, at module level or inside a function, and passes the
+    port's own relative and absolute imports."""
+    flagged = (
+        "import jax\n",
+        "import jax.numpy as jnp\n",
+        "from jax import lax\n",
+        "def f():\n    from aiko_services_tpu.models import llama\n",
+        "from aiko_services_tpu import parallel\n",
+        "import aiko_services_tpu.serving as S\n",
+    )
+    for text in flagged:
+        assert _audit_imports(text)[0], text
+    for text in ("from .models import llama\n",
+                 "from aiko_services_tpu_torch.parallel import mesh\n",
+                 "import aiko_services_tpu_torch.serving\n"):
+        assert _audit_imports(text) == ([], []), text
+    assert _audit_imports("import cv2\n")[1] == ["cv2"]
+    assert _audit_imports("def f():\n    import cv2\n")[1] == []
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     """No module imports jax or the JAX package, and none imports at
     module level what the card's machine lacks (click, paho,
@@ -187,23 +232,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      if "_build" not in path.relative_to(PACKAGE).parts)
     offenders, module_level = [], []
     for path in sources:
-        tree = ast.parse(path.read_text(), filename=str(path))
-        top = {id(node) for node in tree.body}
-        for node in ast.walk(tree):
-            if isinstance(node, ast.Import):
-                names = [alias.name for alias in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                names = [node.module or ""]
-            else:
-                continue
-            for name in names:
-                root = name.split(".")[0]
-                if root in ("jax", "jaxlib", "aiko_services_tpu"):
-                    offenders.append(f"{path.relative_to(PACKAGE)}: {name}")
-                if root in ("click", "paho", "sounddevice", "PIL",
-                            "cv2") and id(node) in top:
-                    module_level.append(
-                        f"{path.relative_to(PACKAGE)}: {name}")
+        jax_names, top_names = _audit_imports(path.read_text(), str(path))
+        offenders += [f"{path.relative_to(PACKAGE)}: {name}"
+                      for name in jax_names]
+        module_level += [f"{path.relative_to(PACKAGE)}: {name}"
+                         for name in top_names]
     assert not offenders, offenders
     assert not module_level, module_level
     names = {str(path.relative_to(PACKAGE)) for path in sources}

@@ -7,6 +7,8 @@ the same messages; `system start` / `status` / `stop` spawns, reports
 and stops a real `python -m aiko_services_tpu_torch registrar` child;
 `pipeline create --device cpu` is built by build_pipeline on the test's
 own engine and driven to its frames, also over a --mesh of one device;
+--mesh in two processes launched as torchrun launches them (RANK,
+WORLD_SIZE, MASTER_ADDR, MASTER_PORT) joins both ranks in one mesh;
 the parts that wait for other ROADMAP items raise NotImplementedError
 naming them."""
 
@@ -105,8 +107,9 @@ def test_element_flags_parse_as_jax_parses_them():
 
 def test_the_parts_left_for_later_items_raise_naming_them(capsys):
     # --mesh parses as JAX's does; its mesh spans the process group's
-    # ranks, one device each: a one-process CPU run has one device, and
-    # serving on a larger mesh waits for sharded serving (Queue 1 item 3)
+    # ranks, one device each: a one-process CPU run has one device, so a
+    # mesh of two raises (a mesh of n ranks is n processes, each running
+    # `pipeline create`: test_mesh_joins_the_ranks_its_launcher_describes)
     for bad in ("model", "=2", "model=2,model=2", "model=x", "model=0"):
         with pytest.raises(TCli.CliError) as port_error:
             TCli.parse_mesh_spec(bad, "cpu")
@@ -225,3 +228,45 @@ def test_pipeline_create_over_a_mesh_of_one_device(tmp_path):
     assert compute.mesh.size() == 1 and compute.mesh.device_type == "cpu"
     assert compute.ec_producer.get("mesh") == {"data": 1}
     assert compute.ec_producer.get("device_count") == 1
+
+
+RANK_SCRIPT = """
+import sys
+from aiko_services_tpu_torch import cli
+from aiko_services_tpu_torch.parallel import collectives
+import torch
+mesh = cli.parse_mesh_spec("model=2", "cpu")
+total = collectives.psum(torch.tensor([1.0 + mesh.get_rank()]), "model",
+                         mesh=mesh)
+print(dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)), float(total[0]))
+"""
+
+
+def test_mesh_joins_the_ranks_its_launcher_describes(tmp_path):
+    """`--mesh model=2` in two processes whose environment names their
+    rank, the world and the rendezvous (as torchrun sets it): each joins
+    the group and builds the same two-rank mesh, and a sum over its axis
+    sees both ranks."""
+    import socket
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port_number = probe.getsockname()[1]
+    children = []
+    for rank in range(2):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE="2",
+                   LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port_number), GLOO_SOCKET_IFNAME="lo")
+        children.append(subprocess.Popen(
+            [sys.executable, "-c", RANK_SCRIPT], env=env, cwd=os.getcwd(),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outputs = []
+    try:
+        for child in children:
+            out, err = child.communicate(timeout=120)
+            assert child.returncode == 0, err
+            outputs.append(out.strip())
+    finally:
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+    assert outputs == ["{'model': 2} 3.0"] * 2

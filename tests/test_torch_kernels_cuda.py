@@ -13,8 +13,11 @@ need more than 48 KB of shared memory; for the paged kernel, its three
 numerics (native, int8 folded, int8 dequantized) on both of its paths
 (split over T; tensor cores for more than 16 bf16 rows per KV head),
 extents around split boundaries, fully masked rows, B not a power of
-two, and more blocks than multiprocessors."""
+two, and more blocks than multiprocessors; the paged kernel again at
+head dim 128 (Llama-3-8B), every numerics on both paths, at the 8B
+decode shape and a TP-8 rank's (one KV head)."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -164,11 +167,11 @@ def _paged_tolerance(q):
 
 
 def _paged_case(generator, dtype, slots, num_kv, groups, width, block, nb,
-                side_len, entries):
+                side_len, entries, head_dim=64):
     """Pool, tables and side buffer of one case; entries[s] is slot s's
     extent (0 on slot 0 also masks its query row 0 completely)."""
     num_blocks = slots * nb + 3
-    shape = (num_blocks, num_kv, block, 64)
+    shape = (num_blocks, num_kv, block, head_dim)
     k_pool, v_pool = (torch.randn(shape, generator=generator, device="cuda")
                       .to(dtype) for _ in range(2))
     k_pool[0] = 0
@@ -179,9 +182,9 @@ def _paged_case(generator, dtype, slots, num_kv, groups, width, block, nb,
     for s, entry in enumerate(entries):
         used = -(-entry // block)
         tables[s, :used] = ids[s * nb:s * nb + used].to(torch.int32)
-    q = torch.randn((slots, num_kv, groups * width, 64), generator=generator,
-                    device="cuda").to(dtype)
-    k_side, v_side = (torch.randn((slots, num_kv, side_len, 64),
+    q = torch.randn((slots, num_kv, groups * width, head_dim),
+                    generator=generator, device="cuda").to(dtype)
+    k_side, v_side = (torch.randn((slots, num_kv, side_len, head_dim),
                                   generator=generator, device="cuda")
                       .to(dtype) for _ in range(2))
     side_valid = torch.rand((slots, width, side_len), generator=generator,
@@ -204,7 +207,8 @@ def _assert_paged_close(out, operands, groups):
            for x in (q, k_pool, v_pool, k_side, v_side)]
     v_abs = dict(f32[2], q=f32[2]["q"].abs()) if isinstance(f32[2], dict) \
         else f32[2].abs()
-    scale = 0.125
+    # the wrapper's default, f32(1) / sqrt(f32(D)): 0.125 at D = 64
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(q.shape[-1])))
     ref = plain(f32[0], f32[1], f32[2], tables, f32[3], f32[4], side_valid,
                 entry, groups=groups, scale=scale)
     magnitude = plain(f32[0], f32[1], v_abs, tables, f32[3],
@@ -475,3 +479,64 @@ def test_paged_kernel_refuses_grad(card):
         with torch.no_grad():
             assert torch.isfinite(
                 P.paged_decode_attention(*grad, groups=2)).all()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("variant", ["native", "int8_fold", "int8_dequant"])
+@pytest.mark.parametrize("groups,width", [(4, 1), (4, 4), (1, 17), (4, 64)])
+def test_paged_kernel_at_head_dim_128_matches_plain(card, dtype, variant,
+                                                    groups, width):
+    """D = 128 on both paths: split over T (4 and 16-row tiles; f32 at
+    most 128 positions a split, so a ~256-position table takes two or
+    more splits), tensor cores in bf16 for 17 rows (one 128-row tile)
+    and 256 (two); extents 0 (slot 0's query 0 fully masked), around a
+    split boundary, inside a block and the whole table; each numerics
+    against the plain version on the values the kernel sees."""
+    from aiko_services_tpu_torch.ops import paged_attention as P
+    torch_dtype = getattr(torch, dtype)
+    generator = torch.Generator(device=card).manual_seed(groups * width + 5)
+    block, nb = 16, 16
+    entries = [0, 127, 128, 129, 19, nb * block]
+    operands = list(_paged_case(generator, torch_dtype, len(entries), 2,
+                                groups, width, block, nb,
+                                width if width > 1 else 5, entries,
+                                head_dim=128))
+    if width > 1:
+        tri = torch.ones((width, width), dtype=torch.bool,
+                         device=card).tril()
+        operands[6] = tri.expand(len(entries), width, width).clone()
+        operands[6][0, 0] = False
+    operands, plain_operands, fold = _variant_operands(operands, variant,
+                                                       torch_dtype)
+    path, tile_rows, split, _ = P.kernel_plan(
+        dtype == "bfloat16", len(entries), 2, groups * width, nb * block,
+        torch.cuda.get_device_properties(card).multi_processor_count, 128)
+    if path == P.TENSOR_PATH:
+        assert tile_rows == 128
+    else:
+        assert split <= (128 if dtype == "float32" else 256)
+    name = "paged_decode_attention" + ("" if variant == "native"
+                                       else "_" + variant)
+    before = dict(P.launches)
+    out = P.paged_decode_attention(*operands, groups=groups,
+                                   fold_scales=fold)
+    assert P.launches[name] == before[name] + 1
+    assert out.shape == (len(entries), 2, groups * width, 128)
+    _assert_paged_close(out, plain_operands, groups)
+
+
+@pytest.mark.parametrize("num_kv", [8, 1], ids=["8b", "tp8_rank"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_paged_kernel_llama_8b_decode_shapes_match_plain(card, num_kv,
+                                                         dtype):
+    """Llama-3-8B's decode rows (G = 4, W = 1, D = 128, B = 32, t_cap
+    512, P = 16) over 16 slots with its 8 KV heads, and a TP-8 rank's one
+    KV head."""
+    from aiko_services_tpu_torch.ops import paged_attention as P
+    generator = torch.Generator(device=card).manual_seed(num_kv)
+    entries = torch.randint(1, 513, (16,), generator=generator,
+                            device=card).tolist()
+    operands = _paged_case(generator, getattr(torch, dtype), 16, num_kv, 4,
+                           1, 32, 16, 16, entries, head_dim=128)
+    out = P.paged_decode_attention(*operands, groups=4)
+    _assert_paged_close(out, operands, 4)

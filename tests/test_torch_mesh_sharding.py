@@ -10,9 +10,11 @@ for leaf: the port's
 spec is the mesh axis sharding each tensor dimension, JAX's PartitionSpec
 padded with None to the leaf's rank.  The same ranks check the
 ComputeRuntime's placement on that mesh (sharded parameters equal to the
-unsharded ones when gathered; serving placement and programs refuse,
-naming sharded serving), the fabric report, resharding and the
-collective byte estimates."""
+unsharded ones when gathered; the runtime's own placement giving each
+rank its shards as plain tensors, the DTensors' local tensors; a
+placement without axes replicating; programs registered and run on the
+mesh), the fabric report, resharding and the collective byte
+estimates."""
 
 import functools
 
@@ -26,7 +28,6 @@ from aiko_services_tpu.models import llama as JL
 from aiko_services_tpu.models import moe as JM
 from aiko_services_tpu.models import whisper as JW
 from aiko_services_tpu_torch import parallel as TP
-from aiko_services_tpu_torch.compute import SHARDED_SERVING_NOT_PORTED
 from aiko_services_tpu_torch.parallel import sharding as TS
 
 import torch_spmd_cases as cases
@@ -167,10 +168,14 @@ def test_moe_experts_split_over_the_expert_axis(ranks):
 
 
 def test_compute_runtime_places_on_its_mesh_and_refuses_serving(ranks):
+    """Sharded serving is ported: the runtime on a mesh of four places
+    each rank's shards, replicates an axis-free tree and serves its
+    programs (the name keeps the test's history: it asserted the
+    refusal before)."""
     for rank, result in enumerate(ranks):
-        assert result["refusals"] == [SHARDED_SERVING_NOT_PORTED] * 3
+        assert result["llama_local_equal"]
+        assert result["served"] == [True, True, True]
         assert result["share"] == ({"data": 2, "model": 2}, 4, "cpu")
-    assert "Queue 1 item 3" in SHARDED_SERVING_NOT_PORTED
 
 
 def test_fabric_reshard_and_collective_bytes_match_jax(ranks):

@@ -1,6 +1,6 @@
 """The paged kernel's split over T, in plain arithmetic on the CPU.
 
-The CUDA kernel (csrc/paged_decode_attention.cu) cuts a call as
+The CUDA kernel (csrc/paged_decode_attention.cuh) cuts a call as
 `kernel_plan` says: on the split path each block covers a run of main
 positions of one (slot, KV head, row tile), or the side buffer, and
 keeps a partial (max, sum of weights, weighted sum of values); a second

@@ -5,6 +5,7 @@ Each function runs on every rank of a gloo group (tests/torch_spmd.py
 plain values.  This module imports neither jax nor the JAX package: the
 ranks are fresh interpreters that need only the port."""
 
+import numpy as np
 import torch
 
 
@@ -32,8 +33,13 @@ def placements(rank, world):
     """Whisper-tiny, Llama-tiny and the tiny MoE placed on {data: 2,
     model: 2} (and {data: 2, expert: 2}) by their logical axes, the
     ComputeRuntime's placement on the same mesh, and the mesh helpers."""
+    import copy
+
+    from torch.distributed.tensor import DTensor
+
     from aiko_services_tpu_torch.compute import ComputeRuntime
     from aiko_services_tpu_torch.event import EventEngine, VirtualClock
+    from aiko_services_tpu_torch.models.layers import tree_leaves
     from aiko_services_tpu_torch.models import llama as TL
     from aiko_services_tpu_torch.models import moe as TM
     from aiko_services_tpu_torch.models import whisper as TW
@@ -57,19 +63,29 @@ def placements(rank, world):
         transport_factory=lambda on_message, *_: MemoryMessage(
             on_message=on_message, broker=broker)).initialize()
     compute = ComputeRuntime(runtime, "compute", mesh=mesh)
-    placed = compute.place_params(llama, TL.llama_axes(llama_config))
+    # the training placement (DTensors, parallel.shard_pytree) of a copy
+    # gives the specs; the runtime's serving placement gives this rank's
+    # shards as plain tensors, the DTensors' local tensors
+    placed = shard_pytree(copy.deepcopy(llama), TL.llama_axes(llama_config),
+                          mesh)
     gathered_equal = all(torch.equal(p.full_tensor(), full[name])
                          for name, p in placed.named_parameters())
-    refusals = []
-    for attempt in (lambda: compute.place_params(llama),
-                    lambda: compute.register_program("f", lambda x: x),
-                    lambda: compute.register_batched(
-                        "g", lambda b, x: x, [8], lambda b, p: p,
-                        lambda r, n: r)):
-        try:
-            attempt()
-        except NotImplementedError as error:
-            refusals.append(str(error))
+    shards = dict(placed.named_parameters())
+    local = compute.place_params(llama, TL.llama_axes(llama_config))
+    local_equal = all(
+        not isinstance(leaf, DTensor) and
+        torch.equal(leaf, shards[".".join(map(str, path))].to_local())
+        for path, leaf in tree_leaves(local))
+    # serving on the mesh: a placement without axes replicates, and the
+    # runtime takes programs and runs them
+    whole = compute.place_params(llama)
+    compute.register_program("f", lambda x: x + 1)
+    scheduler = compute.register_batched(
+        "g", lambda b, x: x, [8], lambda b, p: p, lambda r, n: r)
+    served = [all(torch.equal(p, full[name])
+                  for name, p in whole.named_parameters()),
+              compute.run("f", 1) == 2,
+              compute.programs["g"].scheduler is scheduler]
     share = (compute.ec_producer.get("mesh"),
              compute.ec_producer.get("device_count"), str(compute.device))
     runtime.terminate()
@@ -93,9 +109,10 @@ def placements(rank, world):
         "whisper": _placements_of(whisper, mesh),
         "llama": _placements_of(placed, mesh),
         "llama_gathered_equal": gathered_equal,
+        "llama_local_equal": local_equal,
         "moe": _placements_of(moe, moe_mesh),
         "moe_max_err": float((got - expected).abs().max()),
-        "refusals": refusals,
+        "served": served,
         "share": share,
         "named": [named_sharding(mesh, *axes).spec for axes in (
             ("batch", "embed"), ("batch", "sequence", "heads"))],
@@ -276,4 +293,244 @@ def llama_sp(rank, world, flat, config_fields, tokens):
             mesh = create_mesh(axes, device="cpu")
             logits = TL.llama_forward_sp(model, config, tokens, mesh)
             out[tuple(axes)] = logits.full_tensor().numpy()
+    return out
+
+
+# -- tests/test_torch_tp_serving.py, tests/test_torch_ep_serving.py -----------
+
+def _serve(decoder, prompts, max_new):
+    """Submit every prompt in order and pump to completion: {id: tokens}."""
+    done = {}
+    for request_id, prompt in prompts.items():
+        decoder.submit(request_id, prompt, max_new,
+                       lambda rid, tokens: done.update(
+                           {rid: [int(t) for t in tokens]}))
+    for _ in range(400):
+        if len(done) == len(prompts):
+            break
+        decoder.pump()
+    return done
+
+
+def _serve_staggered(decoder, prompts, max_new, rank):
+    """Submit the prompts at rank-dependent rounds and in a rank-dependent
+    order (even ranks in order, odd ranks reversed; the k-th joins
+    before this rank's local pump 2k + 3 * rank), as ranks pumped from
+    their own timers see their frames, and pump to completion."""
+    order = list(prompts) if rank % 2 == 0 else list(reversed(prompts))
+    due = {2 * k + 3 * rank: request_id
+           for k, request_id in enumerate(order)}
+    done = {}
+    for pump in range(600):
+        if pump in due:
+            decoder.submit(due[pump], prompts[due[pump]], max_new,
+                           lambda rid, tokens: done.update(
+                               {rid: [int(t) for t in tokens]}))
+        if len(done) == len(prompts):
+            break
+        decoder.pump()
+    return done
+
+
+def _refusals(decoder, params, config, mesh):
+    """What a decoder on a mesh of more than one rank refuses: each
+    entry the ValueError's message, or None where nothing was raised."""
+    from aiko_services_tpu_torch.observe.metrics import MetricsRegistry
+    from aiko_services_tpu_torch.ops.admission import AdmissionGate
+    from aiko_services_tpu_torch.serving import (ContinuousDecoder,
+                                                 PrefixKVCache)
+    from aiko_services_tpu_torch.serving_tiered import HostBlockStore
+
+    def message(call):
+        try:
+            call()
+        except ValueError as exc:
+            return str(exc)
+        return None
+
+    cache = PrefixKVCache(block_tokens=8, max_bytes=1 << 20,
+                          registry=MetricsRegistry())
+    ContinuousDecoder(params, config, mesh=mesh, max_slots=2,
+                      prefill_buckets=(16,), prefill_chunk=8, paged_kv=True,
+                      kv_block=8, prefix_cache=cache,
+                      registry=MetricsRegistry())
+    decoder.submit("twice", [1, 2], 2, lambda *_: None)
+    return {
+        "drain": message(decoder.drain),
+        "deadline": message(lambda: decoder.submit(
+            "late", [1], 2, lambda *_: None, deadline=1e9)),
+        "kv_blocks": message(lambda: decoder.submit(
+            "shipped", [1], 2, lambda *_: None, kv_blocks=(8, [1]))),
+        "duplicate": message(lambda: decoder.submit(
+            "twice", [1, 2], 2, lambda *_: None)),
+        "host_tier": message(lambda: cache.attach_host_store(
+            HostBlockStore(max_bytes=1 << 20))),
+        "watch_decoder": message(lambda: AdmissionGate(
+            registry=MetricsRegistry()).watch_decoder(decoder)),
+    }
+
+
+def sharded_serving(rank, world, mesh_axes, flat, config_fields, variants,
+                    prompts, max_new):
+    """Each variant's ContinuousDecoder (kwargs in `variants`) on this
+    rank's shards of the JAX tree `flat` over create_mesh(mesh_axes):
+    tokens, every round's plan digest, the MoE's dropped assignments,
+    the KV bytes and the rank-local widths; then the same with the
+    prompts submitted at other rounds on each rank (_serve_staggered),
+    and what a sharded decoder refuses."""
+    from aiko_services_tpu_torch import bridge
+    from aiko_services_tpu_torch.models import llama as TL
+    from aiko_services_tpu_torch.models import moe as TM
+    from aiko_services_tpu_torch.observe.metrics import MetricsRegistry
+    from aiko_services_tpu_torch.parallel import create_mesh
+    from aiko_services_tpu_torch.parallel.sharding import local_shards
+    from aiko_services_tpu_torch.serving import ContinuousDecoder
+
+    config = TL.LlamaConfig(**config_fields)
+    mesh = create_mesh(mesh_axes, device="cpu")
+    full = bridge.params_from_numpy(flat, config, device="cpu")
+    params, local = local_shards(full, TL.llama_axes(config), mesh,
+                                 config=config)
+    out = {"local": (local.num_heads, local.num_kv_heads, local.ffn_dim,
+                     local.vocab, local.num_experts, local.head_dim),
+           "moe_w_in": tuple(params["layers"][0]["moe"]["w_in"].shape)
+           if config.num_experts else None}
+    for name, kwargs in variants.items():
+        TM.drop_counts = []
+        try:
+            decoder = ContinuousDecoder(params, config, mesh=mesh,
+                                        registry=MetricsRegistry(),
+                                        **kwargs)
+            decoder.plan_digests = []
+            tokens = _serve(decoder, prompts, max_new)
+            drops = [int(count) for count in TM.drop_counts]
+        finally:
+            TM.drop_counts = None
+        out[name] = {"tokens": tokens, "plans": decoder.plan_digests,
+                     "drops": drops, "kv_bytes": decoder.kv_cache_bytes(),
+                     "config": (decoder.config.num_heads,
+                                decoder.config.num_kv_heads)}
+        decoder = ContinuousDecoder(params, config, mesh=mesh,
+                                    registry=MetricsRegistry(), **kwargs)
+        decoder.plan_digests = []
+        out[name]["staggered"] = {
+            "tokens": _serve_staggered(decoder, prompts, max_new, rank),
+            "plans": decoder.plan_digests}
+    if mesh.size() > 1 and not config.num_experts:
+        out["refusals"] = _refusals(decoder, params, config, mesh)
+    return out
+
+
+def sharded_greedy(rank, world, mesh_axes, flat, config_fields, prompt,
+                   max_tokens):
+    """llama_greedy_decode and llama_forward on this rank's shards: the
+    tokens and the gathered logits, the same on every rank; and the
+    sharded pick's tie rule on logits with the maximum on every rank."""
+    from aiko_services_tpu_torch import bridge
+    from aiko_services_tpu_torch.models import llama as TL
+    from aiko_services_tpu_torch.parallel import collectives as C
+    from aiko_services_tpu_torch.parallel import create_mesh
+    from aiko_services_tpu_torch.parallel.sharding import local_shards
+
+    config = TL.LlamaConfig(**config_fields)
+    mesh = create_mesh(mesh_axes, device="cpu")
+    full = bridge.params_from_numpy(flat, config, device="cpu")
+    params, local = local_shards(full, TL.llama_axes(config), mesh,
+                                 config=config)
+    prompt = torch.from_numpy(prompt)
+    tokens = TL.llama_greedy_decode(params, local, prompt,
+                                    max_tokens=max_tokens, mesh=mesh)
+    with torch.no_grad():
+        logits = TL.llama_forward(params, local, prompt, mesh=mesh)
+    # every rank's shard holds its maximum 7.0 at local index 1, and rank
+    # 1's shard at 0 as well: the pick is rank 0's index 1
+    shard = torch.zeros((2, 8))
+    shard[:, 1] = 7.0
+    if C.axis_index("model", mesh=mesh) == 1:
+        shard[:, 0] = 7.0
+    ties = C.greedy_pick(shard, "model", mesh=mesh)
+    return {"tokens": tokens.numpy(), "logits": logits.numpy(),
+            "ties": ties.numpy()}
+
+
+def tp_case(rank, world, geometries, flat, config_fields, variants,
+            prompts, max_new, greedy_prompt):
+    """sharded_serving and sharded_greedy on each mesh of `geometries`
+    (name → axes, each filling the group), in one spawn."""
+    out = {}
+    for name, mesh_axes in geometries.items():
+        out[name] = sharded_serving(rank, world, mesh_axes, flat,
+                                    config_fields, variants, prompts,
+                                    max_new)
+        out[name]["greedy"] = sharded_greedy(rank, world, mesh_axes, flat,
+                                             config_fields, greedy_prompt,
+                                             max_new)
+    return out
+
+
+# -- tests/test_torch_parallel_example.py --------------------------------------
+
+def parallel_example(rank, world, definition, whisper_npz, agent_flat,
+                     agent_fields, stream_parameters):
+    """examples/speech/pipeline_assistant_parallel.json (a copy naming
+    the ASR weights) built as `pipeline create --mesh expert=4 --device
+    cpu` builds it (cli.build_pipeline), the agent's llama_init returning
+    the JAX tree `agent_flat`, the ASR switched to f32 after its setup;
+    driven on a virtual clock to one completed frame.  Returns the
+    frame's ASR and agent outputs, the agent's MoE leaf shapes and what
+    its setup refuses on the mesh."""
+    import dataclasses
+    import json
+
+    from aiko_services_tpu_torch import bridge, cli
+    from aiko_services_tpu_torch.event import EventEngine, VirtualClock
+    from aiko_services_tpu_torch.models import llama as TL
+
+    def seeded(generator, config, device=None):
+        return bridge.params_from_numpy(agent_flat, config, device=device)
+
+    TL.llama_init = seeded
+    engine = EventEngine(VirtualClock())
+    runtime, pipeline = cli.build_pipeline(
+        definition, stream_id="s0",
+        stream_parameters=json.dumps(stream_parameters), device="cpu",
+        engine=engine, mesh_spec="expert=4")
+    done = []
+    pipeline.add_frame_handler(done.append)
+    asr = pipeline.graph.node("PE_WhisperASR").element
+    asr.config = dataclasses.replace(asr.config, dtype=torch.float32)
+    asr.params = bridge.load_flat_npz(asr.params.float(), whisper_npz)
+    asr._stage_params = tuple({key: asr.params[key] for key in stage}
+                              for stage in asr._stage_params)
+    for _ in range(3000):
+        if done:
+            break
+        engine.clock.advance(0.01)
+        engine.step()
+    agent = pipeline.graph.node("PE_LlamaAgent").element
+    layer = agent.decoder.params["layers"][0]["moe"]
+    swag = done[0].swag if done else {}
+    out = {"frames": len(done),
+           "text": swag.get("text"),
+           "tokens": np.asarray(swag.get("tokens")).tolist(),
+           "response": swag.get("response"),
+           "response_tokens": np.asarray(
+               swag.get("response_tokens")).tolist(),
+           "w_in": tuple(layer["w_in"].shape),
+           "router": tuple(layer["router"]["w"].shape),
+           "mesh": runtime.service_by_name("compute").ec_producer.get(
+               "mesh")}
+    # what the agent refuses on four ranks: set up again with each option
+    refused = {}
+    for name, value in (("sessions", True), ("mode", "batched")):
+        agent.definition.parameters[name] = value
+        agent._setup_done = False
+        try:
+            agent._setup()
+        except ValueError as exc:
+            refused[name] = str(exc)
+        agent.definition.parameters.pop(name)
+    agent.mode, agent._setup_done = "continuous", True
+    out["refused"] = refused
+    runtime.terminate()
     return out
