@@ -305,11 +305,14 @@ class ComputeRuntime(Actor):
         if program.in_flight is not None:
             program.in_flight["now"] = max(0, program.in_flight["now"] - 1)
         if bucket not in program.first_call_times:
+            # keyed by the program's fixed bucket ladder — bounded:
+            # graft: disable=lint-unbounded-cache
             program.first_call_times[bucket] = elapsed
             self.ec_producer.update(f"first_call.{program.name}.{bucket}",
                                     round(elapsed, 3))
         elif program.scheduler is not None:
             program.scheduler.observe_service_time(bucket, elapsed)
+            # audited: deque(maxlen=512)  # graft: disable=lint-unbounded-queue
             program.recent_service.append((bucket, elapsed))
         if program.scheduler is not None:
             self._publish_stats(program.name, program.scheduler)

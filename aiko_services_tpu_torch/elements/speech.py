@@ -153,6 +153,8 @@ class PE_AudioFraming(PipelineElement):
     per stream and emits their concatenation — more ASR context per frame
     (reference: speech_elements.py:44-73)."""
 
+    contracts = {"audio": "f32[*]"}
+
     def start_stream(self, stream) -> None:
         count, _ = self.get_parameter("window_count", 3, stream)
         stream.variables[f"{self.definition.name}.window"] = \
@@ -171,6 +173,8 @@ class PE_LogMel(PipelineElement):
 
     Parameter `device`: "default" runs on the card (the mel stays there
     for the encoder; raises without a card); "cpu" runs on the host."""
+
+    contracts = {"in:audio": "f32[*]", "out:mel": "f32[*,80]"}
 
     def process_frame(self, frame: Frame, audio=None, **_) -> FrameOutput:
         device, _ = self.get_parameter("device", "default", frame.stream)
@@ -194,6 +198,16 @@ class PE_WhisperASR(PipelineElement):
     "compute" (the ComputeRuntime's service name in this process).  The
     model runs in bfloat16.  Emits {"tokens", "text", "avg_logprob"}
     (+ "segments" with timestamps, + "suppressed" when a gate fired)."""
+
+    contracts = {
+        # float mel, or pre-packed i8mel rows ([T, 80+4]: int8 codes +
+        # per-row f32 scale bytes — the ASR wire codec, ops/audio.py)
+        "in:mel": "f32[*,80] | bf16[*,80] | i8mel-i8[*,84]",
+        # raw float samples, 16-bit PCM, or pre-encoded µ-law codes
+        "in:audio": "f32[*] | i16[*] | mulaw-u8[*]",
+        "out:tokens": "i32[*]",
+        "out:text": "str",
+    }
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -269,7 +283,8 @@ class PE_WhisperASR(PipelineElement):
         tokenizer_path, _ = self.get_parameter("tokenizer", "")
         if tokenizer_path:
             from ..models.tokenizer import load_tokenizer
-            self.detokenizer = load_tokenizer(str(tokenizer_path)).decode
+            # stream-start model load is the sanctioned lazy-init seam
+            self.detokenizer = load_tokenizer(str(tokenizer_path)).decode  # graft: disable=lint-blocking-call
         pp_stages, _ = self.get_parameter("pp_stages", 0)
         pp_stages = int(pp_stages)
 
@@ -510,6 +525,8 @@ class PE_Synthesize(PipelineElement):
     Tones are seeded with the JAX element's hash(word) % 800, so they
     agree with it inside one process; Python randomises string hashes per
     process, so they are not reproducible across processes."""
+
+    contracts = {"in:text": "str", "out:audio": "f32[*]"}
 
     def process_frame(self, frame: Frame, text="", **_) -> FrameOutput:
         words = str(text).split() or ["_"]

@@ -67,8 +67,9 @@ class PE_NeuralTTS(PipelineElement):
         self.config = config = TTS_PRESETS[str(preset)]
         max_tokens, _ = self.get_parameter("max_tokens", config.max_tokens)
         self.max_tokens = min(int(max_tokens), config.max_tokens)
+        # stream-start model load is the sanctioned lazy-init seam
         self.tokenizer = ByteTokenizer() if tokenizer_path == \
-            "builtin:byte" else load_tokenizer(str(tokenizer_path))
+            "builtin:byte" else load_tokenizer(str(tokenizer_path))  # graft: disable=lint-blocking-call
         params = tts_init(torch.Generator(device=device).manual_seed(0),
                           config, device=device)
         if weights:

@@ -307,7 +307,7 @@ class PE_VideoStreamWrite(PipelineElement):
             try:
                 # first-frame egress open: the encoder spawn is the
                 # sanctioned lazy-init seam (size is only known here)
-                state = self._open(frame.stream, rgb.shape[1],
+                state = self._open(frame.stream, rgb.shape[1],  # graft: disable=lint-blocking-call
                                    rgb.shape[0])
             except Exception as exc:
                 return FrameOutput(False,

@@ -17,8 +17,9 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
+
+from ..utils.lock import Lock
 
 __all__ = ["KERNEL_SOURCES", "NVCC_FLAGS", "build", "load", "entry",
            "check", "require_cuda", "refuse_grad", "nvcc_path"]
@@ -36,7 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # reported, not part of the library's identity: it changes no code
 _VERBOSE_FLAGS = ("-Xptxas", "-v")
 
-_lock = threading.Lock()
+# held across a build (nvcc runs for seconds): load() never re-enters it
+_lock = Lock("ops.kernels")
 _libraries: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}      # name -> nvcc/ptxas output of its build
 
@@ -80,6 +82,10 @@ def build(names=KERNEL_SOURCES) -> list[str]:
         partial = target.with_name(f"{target.name}.{os.getpid()}.tmp")
         command = [nvcc_path(), *NVCC_FLAGS, *_VERBOSE_FLAGS,
                    "-o", str(partial), str(source)]
+        # a kernel's first launch builds it, as XLA compiles a program
+        # at its first call: a serving round can reach this (an extend's
+        # paged attention), so chip_smoke.py builds every source ahead
+        # graft: disable=lint-blocking-call
         process = subprocess.Popen(command, stdout=subprocess.PIPE,
                                    stderr=subprocess.STDOUT, text=True)
         jobs.append((name, target, partial, process))

@@ -66,6 +66,7 @@ __all__ = [
     "PipelineGraph", "PipelineElement", "Pipeline", "Stream", "Frame",
     "FrameOutput", "DEFERRED", "parse_pipeline_definition",
     "load_pipeline_definition", "definition_to_dict", "PipelineError",
+    "lookup_contract",
 ]
 
 PROTOCOL_PIPELINE = ServiceProtocol("pipeline")
@@ -76,6 +77,14 @@ DEFAULT_STREAM_ID = "*"
 
 class PipelineError(ValueError):
     pass
+
+
+def lookup_contract(contracts: dict, name: str, direction: str):
+    """The one contract-lookup rule: a direction-prefixed key
+    ("in:audio"/"out:audio") beats a plain one ("audio").  Shared by
+    PipelineElementDefinition.contract_for and the static checker's
+    class-attribute fallback so the two can never drift."""
+    return contracts.get(f"{direction}:{name}", contracts.get(name))
 
 
 # ---------------------------------------------------------------------------
@@ -90,12 +99,14 @@ class PipelineElementDefinition:
     — or remote — {"remote": {"service_filter": {...}}} (reference:
     pipeline.py:156-173).
 
-    contracts maps io names to dtype/shape/codec contract strings, e.g.
-    {"audio": "f32[*] | mulaw-u8[*]"} ("in:"/"out:" prefixes for
-    direction-specific ones), declared here or per io item ({"name":
-    "audio", "contract": "f32[*]"}).  The port validates and keeps them
-    so definitions round-trip; the JAX package's static checker reads
-    them."""
+    contracts maps io names to dtype/shape/codec contract strings (see
+    analysis/contracts.py), e.g. {"audio": "f32[*] | mulaw-u8[*]"}.
+    Prefix a key "in:"/"out:" when the same name needs different
+    contracts per direction; a plain key covers both.  Declared either
+    here, per io item ({"name": "audio", "contract": "f32[*]"}), or as
+    a class-level `contracts` attribute on the element class — the
+    static checker (python -m aiko_services_tpu_torch.analysis) proves
+    producer/consumer compatibility per edge before deployment."""
     name: str
     input: list = field(default_factory=list)    # [{"name":..,"type":..}]
     output: list = field(default_factory=list)
@@ -114,6 +125,10 @@ class PipelineElementDefinition:
     @property
     def is_remote(self) -> bool:
         return "remote" in self.deploy
+
+    def contract_for(self, name: str, direction: str) -> str | None:
+        """Contract string for an io name; direction is "in" or "out"."""
+        return lookup_contract(self.contracts, name, direction)
 
 
 @dataclass
@@ -397,7 +412,14 @@ class PipelineElement(Actor):
 
     Elements whose compute runs on the card should build it once in
     __init__ or start_stream and call it in process_frame — process_frame
-    itself is host-side control code."""
+    itself is host-side control code.
+
+    Subclasses may declare a class-level `contracts` dict (io name →
+    contract string, "in:"/"out:" prefixes for direction-specific ones)
+    that the static checker uses when the pipeline definition doesn't
+    declare its own — resolved by import only, never construction."""
+
+    contracts: dict = {}
 
     def __init__(self, runtime, name, definition: PipelineElementDefinition,
                  pipeline: "Pipeline | None" = None, protocol=None,

@@ -93,7 +93,8 @@ class Recorder(Actor):
             self.logger.debug("recorder: unparseable alert record on "
                               "%s", topic)
             return
-        # keyed by fleet SLO rule names — bounded
+        # keyed by fleet SLO rule names — bounded:
+        # graft: disable=lint-unbounded-cache
         self.alerts[str(record["rule"])] = record
         self.ec_producer.update("alerts_firing", sum(
             1 for entry in self.alerts.values()

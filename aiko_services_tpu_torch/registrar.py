@@ -177,6 +177,7 @@ class Registrar(Service):
         elif command == "remove" and params:
             fields = self.services.remove(params[0])
             if fields is not None:
+                # audited: deque(maxlen=_HISTORY_LIMIT)  # graft: disable=lint-unbounded-queue
                 self.history.appendleft(fields)
                 self.runtime.publish(self.topic_out,
                                      generate("remove", [params[0]]))
@@ -239,6 +240,7 @@ class Registrar(Service):
         if topic_path.service_id == "0":
             removed = self.services.remove_process(topic_path.process_path)
             for fields in removed:
+                # audited: deque(maxlen=_HISTORY_LIMIT)  # graft: disable=lint-unbounded-queue
                 self.history.appendleft(fields)
                 self.runtime.publish(self.topic_out,
                                      generate("remove", [fields.topic_path]))

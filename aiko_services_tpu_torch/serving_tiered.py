@@ -73,7 +73,8 @@ def _to_host(layers) -> tuple:
         plane = torch.stack([torch.as_tensor(_planes(leaf)[name])
                              for leaf in layers])
         if plane.is_cuda:
-            host = torch.empty(plane.shape, dtype=plane.dtype,
+            # the demotion's pinned host copy, one per demoted block set
+            host = torch.empty(plane.shape, dtype=plane.dtype,  # graft: disable=lint-hot-alloc
                                pin_memory=True)
             host.copy_(plane, non_blocking=True)
             plane = host

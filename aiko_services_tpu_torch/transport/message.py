@@ -7,8 +7,9 @@
 # may call it from any thread; the process runtime is responsible for
 # marshalling onto its event engine.
 #
-# The port's own copy of aiko_services_tpu/transport/message.py, with the
-# pure-Python topic matcher only.
+# The port's own copy of aiko_services_tpu/transport/message.py: the
+# topic matcher dispatches to the port's native extension (native/) when
+# it builds, with the pure-Python matcher as its plain version.
 
 from __future__ import annotations
 
@@ -17,8 +18,7 @@ from typing import Callable
 __all__ = ["Message", "topic_matches"]
 
 
-def topic_matches(pattern: str, topic: str) -> bool:
-    """MQTT-style topic match: '+' one level, '#' trailing multi-level."""
+def _py_topic_matches(pattern: str, topic: str) -> bool:
     if pattern == topic:
         return True
     p_parts = pattern.split("/")
@@ -31,6 +31,30 @@ def topic_matches(pattern: str, topic: str) -> bool:
         if p != "+" and p != t_parts[i]:
             return False
     return len(p_parts) == len(t_parts)
+
+
+def _select_topic_matches():
+    try:
+        from ..native import NATIVE_AVAILABLE, native_topic_matches
+        if NATIVE_AVAILABLE:
+            return native_topic_matches
+    except Exception:
+        pass
+    return _py_topic_matches
+
+
+_impl_topic_matches = None
+
+
+def topic_matches(pattern: str, topic: str) -> bool:
+    """MQTT-style topic match: '+' one level, '#' trailing multi-level.
+    Native (C++) implementation when the toolchain built it; Python
+    plain version otherwise (parity tested in
+    tests/test_torch_native.py)."""
+    global _impl_topic_matches
+    if _impl_topic_matches is None:
+        _impl_topic_matches = _select_topic_matches()
+    return _impl_topic_matches(pattern, topic)
 
 
 class Message:

@@ -8,8 +8,9 @@
 # This is a fresh implementation: a single-pass tokenizer + recursive-descent
 # reader, with symmetric generate() that round-trips every parse() result.
 #
-# The port's own copy of aiko_services_tpu/utils/sexpr.py: the pure-Python
-# reader only (the JAX package's optional C extension is not ported).
+# The port's own copy of aiko_services_tpu/utils/sexpr.py: parse_sexpr
+# dispatches to the port's C extension (native/) when it builds, with the
+# pure-Python reader as its plain version.
 
 from __future__ import annotations
 
@@ -70,12 +71,36 @@ class _Raw(str):
     """An atom produced from a length-prefixed token (never a dict key)."""
 
 
+_native_parse = None
+
+
 def parse_sexpr(payload: str):
     """Parse a payload into nested Python lists/dicts of strings.
 
     A parenthesised group whose members all look like "key:" value pairs is
     returned as a dict (insertion-ordered); otherwise a list.  Top level must
-    be a single expression; bare atoms are returned as-is."""
+    be a single expression; bare atoms are returned as-is.
+
+    Dispatches to the C extension (native/aiko_native.cpp) when built;
+    _parse_sexpr_py is the plain version, and parses what the extension
+    does not cover (non-ASCII payloads)."""
+    global _native_parse
+    if _native_parse is None:
+        try:
+            from ..native import NATIVE_AVAILABLE, native_parse_sexpr
+            _native_parse = native_parse_sexpr if NATIVE_AVAILABLE \
+                else False
+        except Exception:
+            _native_parse = False
+    if _native_parse:
+        try:
+            return _native_parse(payload)
+        except RuntimeError:
+            pass        # non-ascii payload: fall through to Python
+    return _parse_sexpr_py(payload)
+
+
+def _parse_sexpr_py(payload: str):
     tokens = list(_tokenize(payload))
     if not tokens:
         return []
