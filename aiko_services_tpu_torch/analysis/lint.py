@@ -852,7 +852,7 @@ class PagedFreeRule(LintRule):
 # import or run at import time (the CPU tests import every module on a
 # machine with neither nvcc nor triton)
 _KERNEL_LOADERS = {"entry", "load"}
-_KERNEL_BUILDERS = _KERNEL_LOADERS | {"build"}
+_KERNEL_BUILDERS = _KERNEL_LOADERS | {"build", "prepare"}
 _TOOLCHAIN_MODULES = ("triton", "torch.utils.cpp_extension")
 _TOOLCHAIN_CALLS = {"ctypes.CDLL", "CDLL", "ctypes.cdll.LoadLibrary",
                     "cdll.LoadLibrary", "load_inline"}

@@ -225,9 +225,12 @@ class PE_LlamaAgent(PipelineElement):
     disagg_timeout 5.0 and disagg_retries 1, falling back to local
     prefill, counted.  Weights are random, drawn from a torch.Generator
     seeded 0 on the ComputeRuntime's device.  On a ComputeRuntime mesh
-    of more than one rank the element serves this rank's shards in mode
-    "continuous" or "sync" and refuses the batched mode, sessions,
-    host_kv_mb and disagg (each would decide by the rank's own clock)."""
+    the element serves this rank's shards in mode "continuous" or
+    "sync"; sessions (their lease expiries and idle demotions) and
+    host_kv_mb ride the decoder's round note, rank 0 deciding.  On a
+    mesh of more than one rank it refuses the batched mode (ROADMAP.md
+    Queue 1 item 3.2) and disagg (item 3.1): each would decide by the
+    rank's own clock."""
 
     contracts = {"in:text": "str", "out:response": "str",
                  "out:response_tokens": "i32[*]"}
@@ -310,21 +313,22 @@ class PE_LlamaAgent(PipelineElement):
         self.max_tokens = tokens
         sharded = mesh is not None and mesh.size() > 1
         if sharded:
-            # a mesh of more than one rank serves in lockstep: refuse
-            # what each rank would decide by its own clock (serving.py's
-            # header)
-            timed = [name for name, default in (
-                ("sessions", False), ("disagg", False))
-                if parse_bool(self.get_parameter(name, default)[0], False)]
-            if int(self.get_parameter("host_kv_mb", 0)[0]) > 0:
-                timed.append("host_kv_mb")
+            # a mesh of more than one rank serves in lockstep, its timed
+            # decisions agreed in the decoder's round note (serving.py's
+            # header); what is not agreed yet is refused
+            timed = []
+            if parse_bool(self.get_parameter("disagg", False)[0], False):
+                timed.append("disagg (ROADMAP.md Queue 1 item 3.1: "
+                             "shipped KV blocks and disagg on a mesh)")
             if self.mode == "batched":
-                timed.append("mode batched")
+                timed.append("mode batched (ROADMAP.md Queue 1 item 3.2: "
+                             "the agent's batched mode on a mesh)")
             if timed:
                 raise ValueError(
                     f"agent element {self.name}: on a mesh of more than "
-                    f"one rank {', '.join(timed)} would decide by each "
-                    f"rank's clock and the ranks would leave lockstep")
+                    f"one rank {' and '.join(timed)} would decide by "
+                    f"each rank's clock and the ranks would leave "
+                    f"lockstep")
 
         if self.mode == "continuous":
             self._setup_continuous(config, int(max_batch), mesh)
@@ -354,7 +358,14 @@ class PE_LlamaAgent(PipelineElement):
     def _setup_continuous(self, config, max_batch: int, mesh=None) -> None:
         """The decoder, its prefix cache and the session table:
         requests join and leave the running batch between decode steps
-        (serving.ContinuousDecoder)."""
+        (serving.ContinuousDecoder).  The byte budgets (prefix_cache_mb,
+        prefix_tenant_mb, host_kv_mb, host_kv_tenant_mb) count the
+        model's KV bytes, as the JAX element's do: on a mesh each rank
+        holds its head shards of every block, so its budgets are these
+        over the KV heads' divisor.  On a mesh the session table's lease
+        expiries and idle demotions ride the decoder's round note: rank
+        0's clock decides them, and every rank applies them in one
+        round."""
         from ..serving import ContinuousDecoder, PrefixKVCache
         # the serving role tags the owning pipeline's discovery record,
         # so role-aware discovery and routing tell prefill, decode and
@@ -373,14 +384,22 @@ class PE_LlamaAgent(PipelineElement):
         prefix_block, _ = self.get_parameter("prefix_block", 0)
         prefill_chunk, _ = self.get_parameter("prefill_chunk", 0)
         self.prefix_cache = None
+        shards = 1
+        if mesh is not None:
+            from ..parallel.sharding import local_config
+            shards = config.num_kv_heads // \
+                local_config(config, mesh).num_kv_heads
+
+        def budget(megabytes) -> int:
+            return int(float(megabytes) * (1 << 20)) // shards
+
         if int(prefix_block) > 0:
             cache_mb, _ = self.get_parameter("prefix_cache_mb", 64)
             tenant_mb, _ = self.get_parameter("prefix_tenant_mb", 0)
             self.prefix_cache = PrefixKVCache(
                 block_tokens=int(prefix_block),
-                max_bytes=int(float(cache_mb) * (1 << 20)),
-                tenant_max_bytes=int(float(tenant_mb) * (1 << 20))
-                or None,
+                max_bytes=budget(cache_mb),
+                tenant_max_bytes=budget(tenant_mb) or None,
                 name=self.definition.name)
             prefill_chunk = int(prefill_chunk) or int(self.prompt_length)
             # the host KV tier: session demotion and LRU pressure demote
@@ -392,9 +411,8 @@ class PE_LlamaAgent(PipelineElement):
                 host_tenant_mb, _ = self.get_parameter("host_kv_tenant_mb",
                                                        0)
                 self.prefix_cache.attach_host_store(HostBlockStore(
-                    max_bytes=int(float(host_kv_mb) * (1 << 20)),
-                    tenant_max_bytes=int(float(host_tenant_mb) *
-                                         (1 << 20)) or None,
+                    max_bytes=budget(host_kv_mb),
+                    tenant_max_bytes=budget(host_tenant_mb) or None,
                     name=self.definition.name))
         paged, _ = self.get_parameter("paged", False)
         self.decoder = ContinuousDecoder(
@@ -425,7 +443,13 @@ class PE_LlamaAgent(PipelineElement):
                 lease_time=float(session_lease),
                 on_expired=self.prefix_cache.demote_sessions,
                 on_demoted=self.prefix_cache.demote_sessions,
-                demote_idle=float(session_idle) or None)
+                demote_idle=float(session_idle) or None,
+                agree_lapses=mesh is not None)
+            if mesh is not None:
+                self.decoder.add_note_hook(
+                    self._session_table.take_lapses,
+                    self._session_table.apply_lapses,
+                    self._session_table.lapses_pending)
             # session_mirror names ANOTHER runtime's SessionTable topic
             # root: its shard deltas replicate here, so a conversation
             # that fails over to this pipeline keeps its history
@@ -587,13 +611,11 @@ class PE_LlamaAgent(PipelineElement):
 
         # the frame's deadline rides the ambient TraceContext in
         # engine-clock seconds; the decoder's admission runs on
-        # time.monotonic: carry only the remaining budget across.  A
-        # decoder on a mesh takes none: its ranks' admissions must not
-        # read their own clocks (serving.py's header)
+        # time.monotonic: carry only the remaining budget across (on a
+        # mesh rank 0's verdict and deadline decide, at the round note)
         context = current_trace()
         deadline = None
-        if context is not None and context.deadline is not None and \
-                not self.decoder.sharded:
+        if context is not None and context.deadline is not None:
             remaining = context.remaining(self.runtime.event.clock.now())
             if remaining is not None:
                 deadline = time.monotonic() + max(0.0, remaining)
@@ -611,10 +633,20 @@ class PE_LlamaAgent(PipelineElement):
                 request_id, tokens, self.max_tokens, on_done,
                 deadline=deadline, tenant=tenant, on_refused=on_refused)
         else:
+            def on_refused(_rid, reason):
+                # a decoder on a mesh refuses at its round note
+                self.pipeline.post(
+                    "resume_frame", frame, self.definition.name,
+                    RuntimeError(f"decoder admission refused ({reason}): "
+                                 f"estimated admit wait outruns the "
+                                 f"remaining deadline budget"
+                                 if reason == "shed" else
+                                 f"decoder admission refused ({reason})"))
             accepted = self.decoder.submit(
                 request_id, tokens, self.max_tokens, on_done,
                 deadline=deadline,
-                tenant=tenant if self.prefix_cache is not None else None)
+                tenant=tenant if self.prefix_cache is not None else None,
+                on_refused=on_refused)
         if not accepted:
             return FrameOutput(False, diagnostic=(
                 "decoder admission shed: estimated admit wait outruns "

@@ -24,7 +24,7 @@ __all__ = [
     "MHA", "linear", "row_parallel_linear", "linear_logits",
     "greedy_tokens", "quantize_linear",
     "quantize_linear_tree", "as_tree", "tree_leaves", "layer_norm", "rms_norm",
-    "embedding", "conv1d", "mha", "precompute_kv", "quantize_kv",
+    "embedding", "conv1d", "mha", "cached_mha", "precompute_kv", "quantize_kv",
     "dequantize_kv", "quantize_kv_cache", "dequantize_kv_cache",
     "slot_kv_blocks", "concat_kv_rows", "kv_rows_nbytes",
     "init_kv_cache", "update_kv_cache", "gather_paged_kv",
@@ -244,14 +244,20 @@ def greedy_tokens(params, x, mesh=None):
     return greedy_pick(_local_logits(params, x), "model", mesh=mesh)
 
 
-def quantize_linear(params) -> dict:
+def quantize_linear(params, input_max=None) -> dict:
     """Weight-only int8 (W8A16) for one linear: one f32 scale per output
     channel, max|w| over the input axis / 127 + 1e-12, and the weight
     rounded half to even (torch.round, as jnp.round) and clipped to
     [-127, 127].  Returns {"w8": int8 [in, out], "s": f32 [out]} (plus
-    "b" passed through), which linear() and linear_logits consume."""
+    "b" passed through), which linear() and linear_logits consume.
+    input_max(amax) -> amax: where the input axis is a shard of a longer
+    one, the per-channel max over the whole axis (a max over the ranks
+    holding its shards), so the scales are the unsharded weight's."""
     w = params["w"]
-    scale = w.abs().amax(dim=0).float() / 127.0 + 1e-12
+    amax = w.abs().amax(dim=0).float()
+    if input_max is not None:
+        amax = input_max(amax)
+    scale = amax / 127.0 + 1e-12
     q = torch.clamp(torch.round(w.float() / scale), -127, 127).to(
         torch.int8)
     out = {"w8": q, "s": scale}
@@ -276,25 +282,32 @@ def _children(node):
     return None
 
 
-def quantize_linear_tree(params, exclude=("router",)):
+def quantize_linear_tree(params, exclude=("router",), input_max=None):
     """The param tree (a module or nested dicts and lists of tensors) as
     nested dicts and lists with every linear ({"w": 2-D, ["b"]}) in its
     quantize_linear form.  Everything else stays as it is: 3-D weights
     (MoE experts, conv1d), embeddings, norms; keys in `exclude` are kept
-    whole (MoE routers: int8 rounding could flip the top-k)."""
-    def walk(node):
+    whole (MoE routers: int8 rounding could flip the top-k).
+    input_max(path, amax) -> amax: quantize_linear's input_max for the
+    linear at `path` (a tuple of names and list indices), e.g.
+    parallel.sharding.input_axis_max on a mesh."""
+    def walk(node, path):
         children = _children(node)
         if children is None:
             return node
         names = {name for name, _ in children}
         if names and names <= {"w", "b"} and \
                 getattr(dict(children).get("w"), "ndim", 0) == 2:
-            return quantize_linear(dict(children))
+            return quantize_linear(
+                dict(children), None if input_max is None else
+                lambda amax: input_max(path, amax))
         if isinstance(node, (nn.ModuleList, list, tuple)):
-            return [walk(child) for _, child in children]
-        return {name: (child if name in exclude else walk(child))
+            return [walk(child, path + (index,))
+                    for index, child in children]
+        return {name: (child if name in exclude
+                       else walk(child, path + (name,)))
                 for name, child in children}
-    return walk(params)
+    return walk(params, ())
 
 
 def as_tree(params):
@@ -598,21 +611,12 @@ def _foldable(scale) -> bool:
     return scale.ndim == 0 or all(d == 1 for d in scale.shape[1:])
 
 
-def mha(params, x, kv_input=None, mask=None, cache=None,
-        num_heads: int = 8, num_kv_heads: int | None = None,
-        qk_transform=None, precomputed_kv=None, fused: bool = True,
-        mesh=None):
-    """Attention: self (kv_input None), cross (kv_input or precomputed_kv),
-    optional KV cache (updated in place, see update_kv_cache).
-
-    mask: broadcastable to [B, H, Tq, Tk], True = attend.
-    qk_transform(q, k) -> (q, k): applied after the head split, before
-    the cache write.  precomputed_kv: (k, v) already projected and split,
-    each a tensor or a quantize_kv dict; "tensor"-mode scales fold into
-    the score scale and the output.  mesh: the heads are this rank's
-    share of a model axis, and the output projection is row-parallel
-    over it (row_parallel_linear).  Returns (output, new_cache)."""
-    num_kv_heads = num_kv_heads or num_heads
+def _mha_project(params, x, kv_input, num_heads: int, num_kv_heads: int,
+                 qk_transform, precomputed_kv) -> tuple:
+    """The projections of mha and cached_mha: (q, k, v, k_scale,
+    v_scale), heads split, the
+    qk_transform applied; k_scale / v_scale the foldable "tensor"-mode
+    scales of a precomputed int8 K/V, else None."""
     q = _split_heads(linear(params["q"], x), num_heads)
     k_scale = v_scale = None
     if precomputed_kv is not None:
@@ -629,7 +633,23 @@ def mha(params, x, kv_input=None, mask=None, cache=None,
                              num_kv_heads)
     if qk_transform is not None:
         q, k = qk_transform(q, k)
+    return q, k, v, k_scale, v_scale
 
+
+def _repeat_kv(k, v, num_heads: int, num_kv_heads: int) -> tuple:
+    if num_kv_heads != num_heads:                  # GQA: repeat KV groups
+        repeat = num_heads // num_kv_heads
+        k = torch.repeat_interleave(k, repeat, dim=1)
+        v = torch.repeat_interleave(v, repeat, dim=1)
+    return k, v
+
+
+def _plain_attention(params, x, q, k, v, mask, cache, k_scale, v_scale,
+                     num_heads: int, num_kv_heads: int, mesh) -> tuple:
+    """The plain product of mha and cached_mha: the cache write (and its
+    valid-position
+    mask), the GQA repeat, an f32 softmax under the mask, the output
+    projection.  Returns (output, new_cache)."""
     if cache is not None:
         cache = update_kv_cache(cache, k, v)
         k, v = cache["k"], cache["v"]
@@ -637,21 +657,7 @@ def mha(params, x, kv_input=None, mask=None, cache=None,
         valid = (torch.arange(k.shape[2], device=k.device)
                  < cache["index"])[None, None, None]
         mask = valid if mask is None else (mask & valid)
-
-    if num_kv_heads != num_heads:                  # GQA: repeat KV groups
-        repeat = num_heads // num_kv_heads
-        k = torch.repeat_interleave(k, repeat, dim=1)
-        v = torch.repeat_interleave(v, repeat, dim=1)
-
-    if fused and mask is None and cache is None and k_scale is None \
-            and q.shape[2] == k.shape[2]:
-        # mask-free self/cross attention: the flash kernel where shapes
-        # tile, plain attention otherwise
-        from ..ops.attention import attention
-        out = attention(q, k, v)
-        return row_parallel_linear(params["o"], _merge_heads(out),
-                                   mesh), cache
-
+    k, v = _repeat_kv(k, v, num_heads, num_kv_heads)
     scale = 1.0 / math.sqrt(q.shape[-1])
     if k_scale is not None:
         scale = scale * k_scale
@@ -664,6 +670,53 @@ def mha(params, x, kv_input=None, mask=None, cache=None,
         out = out * v_scale
     out = out.to(x.dtype)
     return row_parallel_linear(params["o"], _merge_heads(out), mesh), cache
+
+
+def mha(params, x, kv_input=None, mask=None, num_heads: int = 8,
+        num_kv_heads: int | None = None, qk_transform=None,
+        precomputed_kv=None, fused: bool = True, mesh=None):
+    """Attention without a KV cache (cached_mha takes one): self
+    (kv_input None) or cross (kv_input or precomputed_kv).
+
+    mask: broadcastable to [B, H, Tq, Tk], True = attend.
+    qk_transform(q, k) -> (q, k): applied after the head split.
+    precomputed_kv: (k, v) already projected and split, each a tensor or
+    a quantize_kv dict; "tensor"-mode scales fold into the score scale
+    and the output.  mesh: the heads are this rank's share of a model
+    axis, and the output projection is row-parallel over it
+    (row_parallel_linear).  Mask-free attention of equal lengths goes to
+    ops.attention's dispatch (the flash kernel where shapes tile).
+    Returns (output, None), as the JAX package's mha without a cache."""
+    num_kv_heads = num_kv_heads or num_heads
+    q, k, v, k_scale, v_scale = _mha_project(
+        params, x, kv_input, num_heads, num_kv_heads, qk_transform,
+        precomputed_kv)
+    if fused and mask is None and k_scale is None \
+            and q.shape[2] == k.shape[2]:
+        # mask-free self/cross attention: the flash kernel where shapes
+        # tile, plain attention otherwise
+        from ..ops.attention import attention
+        k, v = _repeat_kv(k, v, num_heads, num_kv_heads)
+        out = attention(q, k, v)
+        return row_parallel_linear(params["o"], _merge_heads(out),
+                                   mesh), None
+    return _plain_attention(params, x, q, k, v, mask, None, k_scale,
+                            v_scale, num_heads, num_kv_heads, mesh)
+
+
+def cached_mha(params, x, cache, mask=None, num_heads: int = 8,
+               num_kv_heads: int | None = None, qk_transform=None,
+               mesh=None):
+    """Self-attention over a KV cache (updated in place, see
+    update_kv_cache; None: no cache), the JAX package's mha with a
+    cache: qk_transform applies before the cache write, and the product
+    is the plain one (the flash kernel takes no cache), so a decoder's
+    rounds dispatch no kernel here.  Returns (output, new_cache)."""
+    num_kv_heads = num_kv_heads or num_heads
+    q, k, v, k_scale, v_scale = _mha_project(
+        params, x, None, num_heads, num_kv_heads, qk_transform, None)
+    return _plain_attention(params, x, q, k, v, mask, cache, k_scale,
+                            v_scale, num_heads, num_kv_heads, mesh)
 
 
 def sinusoid_position_encoding(length: int, dim: int,

@@ -213,18 +213,18 @@ def init_llama_caches(config: LlamaConfig, batch: int,
 
 def _attention(layer, config: LlamaConfig, x, cos, sin, cache,
                position_offset, mask, mesh=None):
-    """RoPE attention with GQA + KV cache: layers.mha with the rotation
-    injected via qk_transform, so cached keys are stored
+    """RoPE attention with GQA + KV cache: layers.cached_mha with the
+    rotation injected via qk_transform, so cached keys are stored
     already-positioned.  mesh: the config's heads are this rank's and o
     is row-parallel."""
     def rope(q, k):
         return (L.apply_rope(q, cos, sin, position_offset),
                 L.apply_rope(k, cos, sin, position_offset))
 
-    return L.mha(layer["attn"], x, mask=mask, cache=cache,
-                 num_heads=config.num_heads,
-                 num_kv_heads=config.num_kv_heads, qk_transform=rope,
-                 mesh=mesh)
+    return L.cached_mha(layer["attn"], x, cache, mask=mask,
+                        num_heads=config.num_heads,
+                        num_kv_heads=config.num_kv_heads,
+                        qk_transform=rope, mesh=mesh)
 
 
 def _swiglu(layer, x, mesh=None):

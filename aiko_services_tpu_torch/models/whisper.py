@@ -258,9 +258,9 @@ def encode(params, config: WhisperConfig, mel):
 
 
 def _decoder_block(block, x, cross_kv, num_heads, self_cache, mask):
-    attn_out, self_cache = L.mha(
-        block["attn"], L.layer_norm(block["ln_attn"], x),
-        cache=self_cache, mask=mask, num_heads=num_heads)
+    attn_out, self_cache = L.cached_mha(
+        block["attn"], L.layer_norm(block["ln_attn"], x), self_cache,
+        mask=mask, num_heads=num_heads)
     x = x + attn_out
     cross_out, _ = L.mha(block["cross"],
                          L.layer_norm(block["ln_cross"], x),

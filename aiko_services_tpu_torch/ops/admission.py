@@ -367,6 +367,8 @@ class AdmissionGate:
         self.inflight_limit = max(1, int(inflight_limit))
         self.inflight = 0
         self._estimators: list[Callable] = []
+        # a watched decoder on a mesh sheds by deadline at its note
+        self._decoder_sheds = False
         self._inflight_gauge = self._registry.gauge(
             "admission_inflight",
             "admitted frames awaiting their serving reply",
@@ -385,14 +387,17 @@ class AdmissionGate:
 
     def watch_decoder(self, decoder) -> None:
         """Convenience: estimate from a ContinuousDecoder's admit-wait
-        heuristic (serving.py estimated_admit_wait).  Refuses a decoder
-        on a mesh of more than one rank: the gate would shed by each
-        rank's wall-clock estimate and hand the ranks different
-        requests."""
-        if getattr(decoder, "sharded", False):
-            raise ValueError("watch_decoder refuses a decoder on a mesh "
-                             "of more than one rank: each rank would shed "
-                             "by its own clock")
+        heuristic (serving.py estimated_admit_wait).  A decoder on a
+        mesh (one rank included) gives the estimate agreed in its last
+        round note (rank 0's, agreed_admit_wait), and the gate then
+        sheds nothing early by it: a gate on each rank, judging frames
+        that reach the ranks at other moments, would hand the ranks
+        different requests.  The request's deadline sheds it at the
+        decoder's note instead (submit), by rank 0's verdict."""
+        if getattr(decoder, "agreed", False):
+            self._decoder_sheds = True
+            self.add_wait_estimator(decoder.agreed_admit_wait)
+            return
         self.add_wait_estimator(decoder.estimated_admit_wait)
 
     def estimated_wait(self) -> float | None:
@@ -419,9 +424,11 @@ class AdmissionGate:
         """(shed?, estimated_wait): True when the remaining deadline
         budget cannot survive the estimated queue wait.  A request with
         no deadline, or a gate with no wait signal, never sheds here —
-        admission must not drop work on information it doesn't have."""
+        admission must not drop work on information it doesn't have.
+        Nor does a gate that watches a decoder on a mesh (watch_decoder):
+        the decoder sheds by the request's deadline at its round note."""
         wait = self.estimated_wait()
-        if remaining is None or wait is None:
+        if remaining is None or wait is None or self._decoder_sheds:
             return False, wait
         return (wait + self.margin) >= remaining, wait
 

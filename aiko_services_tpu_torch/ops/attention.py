@@ -16,7 +16,7 @@ import math
 
 import torch
 
-from .kernels import check, entry, refuse_grad, require_cuda
+from .kernels import check, entry, prepare, refuse_grad, require_cuda
 
 __all__ = ["flash_attention", "flash_attention_reference", "attention",
            "cross_decode_attention", "cross_decode_attention_reference",
@@ -113,6 +113,7 @@ def flash_attention(q, k, v, causal: bool = False,
         raise ValueError(f"flash_attention: the CUDA kernel takes a "
                          f"positive scale, got {scale}")
     _check_cuda_operands("flash_attention", (q, k, v), d)
+    prepare(("flash_attention",))        # built at the first call
     library, function = entry(
         "flash_attention", "aiko_flash_attention_bf16",
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
@@ -209,6 +210,7 @@ def cross_decode_attention(q, k, v, scale: float | None = None):
                          f"{tuple(k.shape)}, {tuple(v.shape)} do not match "
                          f"q {tuple(q.shape)}")
     _check_cuda_operands("cross_decode_attention", (q, k, v), d)
+    prepare(("cross_decode_attention",))     # built at the first call
     library, function = entry(
         "cross_decode_attention", "aiko_cross_decode_attention_bf16",
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [

@@ -4,8 +4,13 @@
 # a header of csrc/), compiled by nvcc for sm_90a into its own shared
 # library and loaded with ctypes (no PyTorch headers, so a build takes seconds, not minutes).
 # Libraries land in aiko_services_tpu_torch/_build/ (listed in
-# .gitignore), named by a hash of the source and the flags, and are built
-# at first use.  Several sources build in parallel: one nvcc process each.
+# .gitignore), named by a hash of the source and the flags.  prepare()
+# builds what is missing (one nvcc process per source, all started
+# together) and loads it; load() and entry() only look a loaded library
+# up, so the call that launches a kernel never runs nvcc.  A wrapper
+# called bare builds its library at its first call through prepare(); a
+# serving decoder prepares every source its rounds can reach at
+# construction, and its rounds launch through the lookup alone.
 #
 # Nothing CUDA-specific is imported or run when this module is imported,
 # so the CPU tests import the package on a machine without nvcc.
@@ -21,8 +26,8 @@ from pathlib import Path
 
 from ..utils.lock import Lock
 
-__all__ = ["KERNEL_SOURCES", "NVCC_FLAGS", "build", "load", "entry",
-           "check", "require_cuda", "refuse_grad", "nvcc_path"]
+__all__ = ["KERNEL_SOURCES", "NVCC_FLAGS", "build", "prepare", "load",
+           "entry", "check", "require_cuda", "refuse_grad", "nvcc_path"]
 
 _PACKAGE = Path(__file__).resolve().parent.parent
 _CSRC = _PACKAGE / "csrc"
@@ -37,7 +42,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # reported, not part of the library's identity: it changes no code
 _VERBOSE_FLAGS = ("-Xptxas", "-v")
 
-# held across a build (nvcc runs for seconds): load() never re-enters it
+# held across a build and load (nvcc runs for seconds)
 _lock = Lock("ops.kernels")
 _libraries: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}      # name -> nvcc/ptxas output of its build
@@ -82,10 +87,6 @@ def build(names=KERNEL_SOURCES) -> list[str]:
         partial = target.with_name(f"{target.name}.{os.getpid()}.tmp")
         command = [nvcc_path(), *NVCC_FLAGS, *_VERBOSE_FLAGS,
                    "-o", str(partial), str(source)]
-        # a kernel's first launch builds it, as XLA compiles a program
-        # at its first call: a serving round can reach this (an extend's
-        # paged attention), so chip_smoke.py builds every source ahead
-        # graft: disable=lint-blocking-call
         process = subprocess.Popen(command, stdout=subprocess.PIPE,
                                    stderr=subprocess.STDOUT, text=True)
         jobs.append((name, target, partial, process))
@@ -104,22 +105,43 @@ def build(names=KERNEL_SOURCES) -> list[str]:
     return [name for name, *_ in jobs]
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built first if missing."""
+def prepare(names=KERNEL_SOURCES) -> list[str]:
+    """Build every named source whose library is missing (all nvcc
+    processes started together) and load every one not loaded yet.
+    Returns the names it built.  Never called from a serving round: a
+    decoder prepares its sources at construction."""
+    if all(name in _libraries for name in names):
+        return []
     with _lock:
-        library = _libraries.get(name)
-        if library is None:
-            build((name,))
+        missing = [name for name in names if name not in _libraries]
+        if not missing:
+            return []
+        built = build(missing)
+        for name in missing:
             library = ctypes.CDLL(str(_library_path(name)[1]))
             library.aiko_error_string.argtypes = [ctypes.c_int]
             library.aiko_error_string.restype = ctypes.c_char_p
             _libraries[name] = library
-        return library
+        return built
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu: a dictionary lookup, which
+    raises when the library is not loaded yet (prepare builds and loads
+    it).  It never builds."""
+    library = _libraries.get(name)
+    if library is None:
+        raise RuntimeError(
+            f"kernel library {name!r} is not loaded: prepare it first "
+            f"(ops.kernels.prepare, which a decoder on the card calls at "
+            f"construction)")
+    return library
 
 
 def entry(source: str, symbol: str, argtypes):
-    """(library, C function) of one kernel, built and loaded at first
-    use, with its ctypes signature declared."""
+    """(library, C function) of one loaded kernel library, with its
+    ctypes signature declared; raises when the library is not loaded
+    (load)."""
     library = load(source)
     function = getattr(library, symbol)
     function.argtypes = argtypes

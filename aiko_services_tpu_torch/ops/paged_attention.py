@@ -10,7 +10,10 @@
 # CPU; for a CUDA tensor it launches the kernel
 # (csrc/paged_decode_attention.cuh, built for each compute type and head
 # dim by its own source: csrc/paged_decode_attention{,_d128}{,_f32}.cu)
-# or raises.
+# or raises.  A bare call builds its library at its first call; a serving
+# decoder prepares its source at construction (prepare_paged_kernel) and
+# its rounds launch through _paged_decode_attention, which only looks the
+# library up: no round runs nvcc.
 
 from __future__ import annotations
 
@@ -21,10 +24,11 @@ import torch
 
 from ..models.layers import (dequantize_kv_cache, gather_paged_kv,
                              paged_pool_planes)
-from .kernels import check, entry, refuse_grad, require_cuda
+from .kernels import check, entry, prepare, refuse_grad, require_cuda
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_reference",
-           "kernel_plan", "launches"]
+           "kernel_plan", "launches", "paged_kernel_source",
+           "prepare_paged_kernel"]
 
 # kernel launches, counted by the wrapper where it launches its kernel,
 # one count per numerics variant
@@ -263,6 +267,37 @@ def paged_decode_attention(q, k_pool, v_pool, tables, k_side, v_side,
     128 and B <= 128 (contiguous operands, q, pools and side buffers on
     16-byte boundaries; the table may be a column slice), split as
     kernel_plan says; any other head dim raises there (no fallback)."""
+    if q.device.type == "cuda":
+        # a bare call builds its library at the first call
+        prepare((paged_kernel_source(q.dtype, q.shape[-1]),))
+    return _paged_decode_attention(
+        q, k_pool, v_pool, tables, k_side, v_side, side_valid,
+        entry_lengths, groups=groups, scale=scale, fold_scales=fold_scales)
+
+
+def paged_kernel_source(dtype, head_dim: int) -> str:
+    """The csrc source whose library serves a compute dtype and head dim:
+    one per head dim (64, 128) and compute type (bf16, f32; any other
+    dtype takes the f32 name, whose wrapper then refuses the operand)."""
+    return "paged_decode_attention" + ("_d128" if head_dim == 128 else "") \
+        + ("" if dtype == torch.bfloat16 else "_f32")
+
+
+def prepare_paged_kernel(dtype, head_dim: int) -> None:
+    """Build and load, ahead of any serving round, the paged kernel's
+    library for a decoder of this compute dtype and head dim (the rounds
+    of a paged decoder, its extends and speculative verifies included,
+    launch only this one)."""
+    prepare((paged_kernel_source(dtype, head_dim),))
+
+
+def _paged_decode_attention(q, k_pool, v_pool, tables, k_side, v_side,
+                            side_valid, entry_lengths, *, groups: int,
+                            scale: float | None = None,
+                            fold_scales: bool = True):
+    """paged_decode_attention with its library already loaded: what a
+    decoder's rounds call (the decoder prepared the library at
+    construction; an unloaded library raises, it never builds)."""
     kq, ks, vq, vs = _check_planes(k_pool, v_pool)
     slots_n, num_kv, gw, head_dim = q.shape
     if gw % groups:
@@ -285,9 +320,7 @@ def paged_decode_attention(q, k_pool, v_pool, tables, k_side, v_side,
     # one library per head dim and compute type (csrc/paged_decode_
     # attention{,_d128}{,_f32}.cu: the four build in parallel)
     library, function = entry(
-        "paged_decode_attention" + ("_d128" if head_dim == 128 else "") +
-        ("" if q.dtype == torch.bfloat16 else "_f32"),
-        "aiko_paged_decode_attention",
+        paged_kernel_source(q.dtype, head_dim), "aiko_paged_decode_attention",
         [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_longlong] +
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float] +
         [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)

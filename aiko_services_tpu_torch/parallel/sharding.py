@@ -28,7 +28,7 @@ from .mesh import AXIS_DATA, AXIS_EXPERT, AXIS_MODEL, AXIS_SEQUENCE
 __all__ = ["ShardingRules", "DEFAULT_RULES", "NamedSharding",
            "named_sharding", "shard_pytree", "constrain", "replicated",
            "placements", "distribute", "mesh_device", "local_config",
-           "local_shards"]
+           "local_shards", "input_axis_max"]
 
 
 @dataclass
@@ -222,6 +222,30 @@ def local_config(config, mesh, rules: ShardingRules = None):
     return dataclasses.replace(
         config, **widths,
         head_shards=config.num_heads // widths["num_heads"])
+
+
+def input_axis_max(mesh, axes_tree, rules: ShardingRules = None):
+    """quantize_linear_tree's input_max for this rank's shards on
+    `mesh`: a linear whose input axis maps to a mesh axis of more than
+    one rank (the row-parallel o and down over the model axis) takes
+    each output channel's max over that axis's group (collectives.pmax),
+    so its scales are the whole weight's and each rank's int8 weight its
+    slice of the unsharded quantization; every other linear (its input
+    axis whole: q, k, v, gate, up, the head, a fused projection the axes
+    tree does not name) keeps its own max."""
+    from .collectives import axis_spans, pmax
+    rules = rules or DEFAULT_RULES
+
+    def reduce(path, amax):
+        try:
+            axes = _axes_at(axes_tree, list(path) + ["w"])
+        except (KeyError, IndexError, TypeError):
+            axes = None
+        axis = rules.rules.get(axes[0]) if axes else None
+        if axis is None or not axis_spans(mesh, axis):
+            return amax
+        return pmax(amax, axis, mesh=mesh)
+    return reduce
 
 
 def _local_leaf(leaf, axes, mesh, rules, device):

@@ -49,29 +49,38 @@
 # chunk plans, evictions, block allocations, pool shrinks, the extent,
 # the number of steps) is a function of the agreed queue and of the round
 # count alone, and the one host sync returns the same tokens on every
-# rank (the pick is replicated).  The queue is agreed, not assumed: a
-# submission waits in the rank's arrivals until every rank holds it, and
-# each round that could admit (a busy decoder, or arrivals on this rank)
-# opens with one host-side all_gather of every rank's arrivals (ids and
-# a digest of each request); the requests that all ranks hold join the
-# queue in rank 0's order.  So a rank pumped from its own timer, whose
-# frames land in other rounds than another rank's, still admits each
-# request in the same round as every other rank; a request id whose
-# content differs between ranks raises.  An idle decoder with no
-# arrivals makes no collective call, and a decoder of one rank never
-# does.  The agreement runs on the mesh's gloo group (a gloo group beside
-# an NCCL mesh), so it adds no device sync.  Decisions that read a clock
-# or a thread's timing are refused on a mesh of more than one rank:
-# deadline-aware admission (submit's `deadline`), drain (each rank would
-# stop admitting at its own moment), a prefix cache with a host tier
-# (promotions land by thread timing), shipped KV blocks (the
-# disaggregated path's transfers time out by each rank's clock), and
-# elsewhere the agent's batched mode (its batches form by the engine
-# clock), its session table (leases expire by each rank's clock) and
-# AdmissionGate.watch_decoder (it sheds by a wall-clock estimate).  The
-# SLO stamps and journeys read the clock but decide nothing.  Every rank
-# must be handed every request: one that some rank never receives waits
-# in the others' arrivals, and their next agreement waits for that rank.
+# rank (the pick is replicated).  The queue is agreed, not assumed, and
+# so is every decision that reads a clock or a thread's timing: each
+# round that could decide something (a busy decoder, or arrivals or
+# drain / resume calls on this rank) opens with the round note, one
+# host-side all_gather of every rank's note: its arrivals (ids and a
+# digest of each request), its drain and resume calls, the host tier's
+# promotions that landed on it, the proposals of note hooks (the agent's
+# session-lease expiries), and from rank 0 its clock, its admit-wait
+# estimate and its deadline verdict on each of its arrivals.  Rank 0
+# decides; every rank applies its decisions in that round
+# (_apply_note): the requests that all ranks hold join the queue in rank
+# 0's order unless rank 0 shed them (refused through on_refused, never
+# by submit's return value); a drain begins once every rank holds its
+# call, its deadline checkpoint comes at the round whose rank-0 clock
+# passes it; a promotion lands only where every rank staged it (an AND
+# of the ranks' landed chains), so an admit's hit and aliased blocks are
+# the same everywhere; rank 0's hook proposals apply.  So a rank pumped
+# from its own timer, whose frames land in other rounds than another
+# rank's, or whose clock runs apart, still admits, sheds, drains and
+# promotes in the same round as every other rank; a request id whose
+# content differs between ranks raises.  The note runs on every mesh,
+# one rank included (there the gather is skipped, the decisions are
+# not); an idle decoder with nothing to agree makes no call.  It runs on
+# the mesh's gloo group (a gloo group beside an NCCL mesh), so it adds
+# no device sync.  Still refused on a mesh of more than one rank:
+# shipped KV blocks (the disaggregated path's transfers time out by
+# each rank's clock), and elsewhere the agent's disagg and batched mode
+# (ROADMAP.md Queue 1 items 3.1, 3.2).  The SLO stamps and journeys read
+# each rank's clock but decide nothing.  Every rank must be handed every
+# request and every drain or resume call: one that some rank never
+# receives waits in the others' note, and their next agreement waits for
+# that rank.
 # `plan_digests`, when set to a list, receives a digest of every working
 # round's plan, for comparing the ranks after a drive (no collective, no
 # sync).
@@ -255,9 +264,13 @@ class DecodeRequest:
     # progress_callback(request, finished) after each prefill chunk
     # advances prefill_pos (a prefill runtime ships the chunk's blocks)
     progress_callback: object = None
-    # sharded serving: a digest of the request's content, which every
-    # rank's copy of it must share (ContinuousDecoder._agree_arrivals)
+    # serving on a mesh: a digest of the request's content, which every
+    # rank's copy of it must share (ContinuousDecoder._round_note), and
+    # on_refused(request_id, reason) for a refusal at the agreeing round
+    # ("shed": rank 0's deadline verdict; "drained")
     agree_key: str = ""
+    on_refused: object = None
+    calls_before: int = 0             # drain / resume calls handed first
 
 
 def prefix_chain_keys(tenant: str, tokens, block_tokens: int) -> list:
@@ -455,7 +468,10 @@ class PrefixKVCache:
     its AsyncPromoter re-lands them (prefetch, poll_promotions,
     promote_for) before the prompts that need them admit.  The KV memory
     ledger (attach_ledger) reaches the cache, its pool and its host
-    store.  install_chain lands shipped chain blocks (the decode side of
+    store.  Bound by a decoder on a mesh, a promotion lands only where
+    the decoder's round note shows it landed on every rank
+    (landed_promotions, land_promotions), and the admit-time fallback
+    stages inline without waiting on a thread.  install_chain lands shipped chain blocks (the decode side of
     disaggregated serving, serving_disagg.py).  Single-threaded like the
     decoder that owns it; decoders of one geometry and one storage kind
     may share it (paged: and then share its pool)."""
@@ -484,7 +500,7 @@ class PrefixKVCache:
         # block ids and insert / evict move refcounts instead of rows
         self._pool = None
         self._dense_bound = False
-        self._sharded_bound = False
+        self._agreed = False            # bound by a decoder on a mesh
         # the host tier: an attached HostBlockStore turns eviction of
         # pool blocks into demotion, and its promoter re-lands them
         self._host = None
@@ -514,7 +530,7 @@ class PrefixKVCache:
 
     # -- binding -----------------------------------------------------------
     def bind(self, layout: tuple, paged: bool = False,
-             device=None, sharded: bool = False) -> None:
+             device=None, agreed: bool = False) -> None:
         """Record (and enforce) the storage layout this cache holds:
         decoders sharing a cache must agree on (layers, KV heads, head
         dim, dtype, int8-ness, block size), or a hit would land rows of
@@ -522,15 +538,9 @@ class PrefixKVCache:
         storage kind, so dense and paged decoders never share one cache
         whichever binds first (a dense node's rows and a paged node's
         pool id are unreadable to the other).  `device` is where a
-        dense cache's installed rows land.  `sharded`: the binder serves
-        on a mesh of more than one rank, which refuses a host tier (its
-        promotions land by thread timing: serving.py's header)."""
-        if sharded and self._host is not None:
-            raise ValueError(
-                f"prefix cache {self.name!r} has a host tier; a decoder on "
-                f"a mesh of more than one rank refuses one (promotions "
-                f"land by thread timing, and the ranks would leave "
-                f"lockstep)")
+        dense cache's installed rows land.  `agreed`: the binder serves
+        on a mesh, whose round note decides when a promotion lands
+        (serving.py's header)."""
         if self._layout is None:
             self._layout = tuple(layout)
         elif self._layout != tuple(layout):
@@ -538,7 +548,10 @@ class PrefixKVCache:
                 f"prefix cache {self.name!r} already bound to layout "
                 f"{self._layout}, decoder wants {tuple(layout)}")
         self._dense_bound = self._dense_bound or not paged
-        self._sharded_bound = self._sharded_bound or sharded
+        if agreed:
+            self._agreed = True
+            if self._promoter is not None:
+                self._promoter.agreed = True
         if device is not None and self._device is None:
             self._device = torch.device(device)
 
@@ -597,11 +610,6 @@ class PrefixKVCache:
             raise ValueError(
                 f"prefix cache {self.name!r} is bound by a dense "
                 f"decoder; the host tier offloads pool blocks")
-        if self._sharded_bound:
-            raise ValueError(
-                f"prefix cache {self.name!r} is bound by a decoder on a "
-                f"mesh of more than one rank, which refuses a host tier "
-                f"(promotions land by thread timing)")
         if self._host is not None and self._host is not store:
             raise ValueError(
                 f"prefix cache {self.name!r} already has host store "
@@ -615,6 +623,7 @@ class PrefixKVCache:
                 promoter = AsyncPromoter(self, store,
                                          registry=self._registry)
             self._promoter = promoter
+            promoter.agreed = promoter.agreed or self._agreed
 
     @property
     def host_store(self):
@@ -634,16 +643,36 @@ class PrefixKVCache:
         every admit round)."""
         return self._promoter is not None and self._promoter.ready
 
-    def prefetch(self, tenant: str, tokens) -> int:
+    def prefetch(self, tenant: str, tokens,
+                 agreed_kick: bool = False) -> int:
         """Non-blocking promotion kick for this prompt's host-resident
         chain tail (admission probes, session touches).  No-op without a
-        host tier."""
+        host tier, and bound on a mesh, unless `agreed_kick` (the round
+        note's kick for an agreed arrival, made alike on every rank)."""
         if self._promoter is None:
             return 0
-        return self._promoter.prefetch(tenant, tokens)
+        return self._promoter.prefetch(tenant, tokens,
+                                       agreed_kick=agreed_kick)
+
+    def landed_promotions(self) -> list:
+        """The staged promotions ready to land here, as picklable
+        identities, in kick order (a decoder on a mesh sends them in its
+        round note)."""
+        if self._promoter is None:
+            return []
+        return self._promoter.landed()
+
+    def land_promotions(self, jobs) -> int:
+        """Install the staged promotions named by `jobs` (identities of
+        landed_promotions), in order: a decoder on a mesh lands those
+        its round note found on every rank.  Returns tokens landed."""
+        if self._promoter is None:
+            return 0
+        return self._promoter.land(jobs)
 
     def poll_promotions(self) -> int:
-        """Land staged async promotions (event loop only)."""
+        """Land staged async promotions (event loop only; a no-op when
+        bound on a mesh, where the round note lands them)."""
         if self._promoter is None:
             return 0
         return self._promoter.poll()
@@ -1933,6 +1962,9 @@ class ContinuousDecoder:
         # adds one q/k/v product and fuses gate/up for the decode step
         self.mesh = mesh
         self.sharded = mesh is not None and mesh.size() > 1
+        # on any mesh, one rank included, every decision that reads a
+        # clock or a thread's timing rides the round note (_round_note)
+        self.agreed = mesh is not None
         if mesh is not None:
             from .parallel.sharding import local_config, mesh_device
             if config.head_shards == 1:
@@ -1946,16 +1978,20 @@ class ContinuousDecoder:
                     f"parallel.local_shards): the embedding holds "
                     f"{table.shape[0]} rows, the rank's vocabulary "
                     f"{config.vocab}")
-            if weight_quant and config.head_shards > 1:
-                # each rank would take its scales over its own rows of o
-                # and down, where JAX takes them over the whole input
-                raise NotImplementedError(
-                    "weight_quant on a model axis of more than one rank "
-                    "is not ported yet (ROADMAP.md Queue 1 item 3)")
         if fuse_projections:
             params = _fuse_decode_projections(params)
         if weight_quant:
-            params = L.quantize_linear_tree(params)
+            # on a mesh a linear whose input axis is sharded (the
+            # row-parallel o and down) takes each output channel's scale
+            # over the whole input: the max of |w| over the ranks that
+            # share it, once, here; so each rank's w8 is its slice of the
+            # unsharded quantization
+            input_max = None
+            if mesh is not None:
+                from .models.llama import llama_axes
+                from .parallel.sharding import input_axis_max
+                input_max = input_axis_max(mesh, llama_axes(config))
+            params = L.quantize_linear_tree(params, input_max=input_max)
         self.weight_quant = bool(weight_quant)
         self.fuse_projections = bool(fuse_projections)
         # a bound prefix cache fixes the block size: its blocks ARE pool
@@ -1974,6 +2010,14 @@ class ContinuousDecoder:
         self.config = config
         self.params = params
         self.device = resolve_device(device)
+        if self.paged and self.device.type == "cuda":
+            # the kernel library every round of this decoder launches
+            # (decode, extend and verify), built and loaded here, once
+            # (an element builds its decoder at its first stream, with
+            # its weights): the rounds only look it up, so no round runs
+            # nvcc
+            from .ops.paged_attention import prepare_paged_kernel
+            prepare_paged_kernel(config.dtype, config.head_dim)  # graft: disable=lint-blocking-call
         self.max_slots = max_slots
         self.max_seq = max_seq or config.max_seq_len
         self.eos_token = eos_token
@@ -2016,7 +2060,7 @@ class ContinuousDecoder:
                            self.kv_int8, self.kv_block, itemsize)
         if prefix_cache is not None:
             prefix_cache.bind(self._kv_layout, paged=self.paged,
-                              device=self.device, sharded=self.sharded)
+                              device=self.device, agreed=self.agreed)
             if not self.paged and prefix_cache.paged:
                 raise ValueError(
                     "prefix cache holds paged (pool-resident) blocks; a "
@@ -2053,12 +2097,20 @@ class ContinuousDecoder:
         self._inflight_chains: dict[str, DecodeRequest] = {}
         self._slots: list[DecodeRequest | None] = [None] * max_slots
         self._pending: list[DecodeRequest] = []
-        # sharded: submissions not yet held by every rank (_agree_arrivals
-        # moves the agreed ones into _pending), and the host-side group
-        # the agreement gathers over
+        # on a mesh: submissions, and drain / resume calls, not yet held
+        # by every rank (_round_note moves the agreed ones on), the
+        # host-side group the note gathers over, the hooks whose rank-0
+        # proposals ride it, and the last note's rank-0 clock and
+        # admit-wait estimate
         self._arrivals: list[DecodeRequest] = []
+        self._calls: list[dict] = []
+        self._calls_handed = 0           # drain / resume calls, all time
+        self._calls_applied = 0
         self._agree_group = _agreement_group(mesh) if self.sharded \
             else None
+        self._note_hooks: list = []
+        self.note_clock: float | None = None
+        self._agreed_wait: float | None = None
         # admit output stash: (firsts device tensor, [(row, request)])
         # per dispatch, resolved at the NEXT round's sync
         self._admit_waves: list = []
@@ -2157,7 +2209,10 @@ class ContinuousDecoder:
         backlog's share of the slot pool when all are taken; None until
         a round has been measured.  With `prompt`, adds its prefill cost
         at the measured per-token rate, crediting the tokens the prefix
-        cache would hit (a pure probe, no side effects)."""
+        cache would hit; with a host tier it also kicks the prompt's
+        promotion (otherwise a pure probe; on a mesh the promoter takes
+        only the round note's kicks).  On a mesh this is this rank's own
+        estimate: agreed_admit_wait gives the one the ranks decide by."""
         if self._round_ewma is None:
             return None
         free = sum(1 for request in self._slots if request is None)
@@ -2180,6 +2235,24 @@ class ContinuousDecoder:
                     self.prefix_cache.prefetch(tenant, prompt)
             wait += uncached * self._prefill_token_ewma
         return wait
+
+    def agreed_admit_wait(self) -> float | None:
+        """On a mesh, the admit-wait estimate of the last round note:
+        rank 0's (estimated_admit_wait), the same on every rank; None
+        before the first note."""
+        return self._agreed_wait
+
+    def add_note_hook(self, propose, apply, pending=None) -> None:
+        """On a mesh: at every round note each rank calls propose()
+        (a picklable value, consumed), and every rank then calls
+        apply(value) in that round with rank 0's value, when it is
+        truthy.  How a timed decision made outside the decoder (the
+        agent's session expiries) reaches every rank in the same round.
+        A proposal rides the next note; while `pending()` is true an
+        idle decoder makes one, as it does for an arrival (on more than
+        one rank it waits in the gather for the other ranks' next note,
+        which their own proposals or arrivals make)."""
+        self._note_hooks.append((propose, apply, pending))
 
     def _note_prefill_rate(self, tokens: int, elapsed: float) -> None:
         """Fold one prefill dispatch's (tokens, wall) into the per-token
@@ -2222,25 +2295,30 @@ class ContinuousDecoder:
                tenant: str | None = None,
                prefill_label: str | None = None,
                kv_blocks: tuple | None = None,
-               progress_callback=None) -> bool:
+               progress_callback=None, on_refused=None) -> bool:
         """Enqueue one request; its callback(request_id, tokens) fires
         at retire.  Returns False when it was refused instead (the
         callback is not invoked): while draining, or when deadline-aware
         admission sheds it (`deadline`: the request's end-to-end
         completion target in time.monotonic seconds, refused when the
-        estimated admit wait already passes it).  `tenant` bills the
+        estimated admit wait already passes it).  On a mesh (one rank
+        included) submit refuses nothing by time: the request waits in
+        this rank's arrivals for the round note that finds it on every
+        rank, and a shed (rank 0's verdict, by its clock and estimate,
+        carried in the note) or an arrival while draining is reported
+        at that round through on_refused(request_id, "shed" |
+        "drained"), never by the return value; rank 0's deadline
+        becomes the request's on every rank.  `tenant` bills the
         request's prefix-cache traffic (default: the tenant of the
         pipeline's admission note for the ambient trace, else "").
         Every submission opens a RequestJourney tied to the ambient
         TraceContext, and claims the admission note posted for it.
         Prompts keep their tail up to the largest bucket (up to max_seq
         - 1 with chunked prefill); an empty prompt becomes one pad
-        token.  A decoder on a mesh of more than one rank refuses a
-        `deadline` and `kv_blocks` (ValueError: the shed would read each
-        rank's clock, a shipped install lands by its own), and queues
-        the request in its arrivals until every rank holds it (the
-        module header); request ids must then be unique among the
-        queued ones.
+        token.  A decoder on a mesh of more than one rank refuses
+        `kv_blocks` (ValueError: a shipped install lands by each rank's
+        own clock; ROADMAP.md Queue 1 item 3.1); request ids must be unique
+        among the queued ones on a mesh.
 
         For disaggregated serving: `prefill_label` names the request's
         TTFT / journey population ("remote"); `kv_blocks` (covered
@@ -2252,15 +2330,11 @@ class ContinuousDecoder:
         after each prefill chunk lands."""
         from .observe.journey import RequestJourney, take_admission_note
         from .observe.tracing import current_trace
-        if deadline is not None and self.sharded:
-            raise ValueError(
-                "a decoder on a mesh refuses deadline-aware admission: "
-                "each rank would shed by its own clock and the ranks "
-                "would leave lockstep")
         if kv_blocks and self.sharded:
             raise ValueError(
                 "a decoder on a mesh refuses shipped KV blocks: each "
-                "rank's transfer lands at its own moment")
+                "rank's transfer lands at its own moment (ROADMAP.md "
+                "Queue 1 item 3.1)")
         now = time.monotonic()
         # the request claims the admission note posted for its trace
         context = current_trace()
@@ -2277,7 +2351,7 @@ class ContinuousDecoder:
             admission_verdict=(note or {}).get("verdict", ""),
             admission_wait_s=(note or {}).get("queue_wait_s"),
             prompt_tokens=len(prompt))
-        if self._draining:
+        if self._draining and not self.agreed:
             # no new admissions: the caller re-routes
             self.stats["drain_refused"] += 1
             self.journeys.finish(journey, time.monotonic(),
@@ -2295,7 +2369,7 @@ class ContinuousDecoder:
             # the admit round is at least one pump away: a prefetch
             # kicked here overlaps the queue wait
             self.prefix_cache.prefetch(journey.tenant, prompt)
-        if deadline is not None:
+        if deadline is not None and not self.agreed:
             wait = self.estimated_admit_wait(prompt=prompt,
                                              tenant=journey.tenant)
             if wait is not None and now + wait >= float(deadline):
@@ -2309,7 +2383,7 @@ class ContinuousDecoder:
             request_id, prompt, int(max_new_tokens), callback,
             submit_time=now, journey=journey, deadline=deadline,
             tenant=journey.tenant, prefill_label=str(prefill_label or ""),
-            progress_callback=progress_callback)
+            progress_callback=progress_callback, on_refused=on_refused)
         if kv_blocks:
             if not self.paged:
                 raise ValueError("kv_blocks install needs a paged decoder")
@@ -2335,7 +2409,7 @@ class ContinuousDecoder:
                 request.kv_block_ids = ids[:keep]
                 request.prefix_hit = keep * block
                 request.prefix_probed = True
-        if self.sharded:
+        if self.agreed:
             if any(queued.request_id == request_id for queued in
                    self._arrivals + self._pending):
                 raise ValueError(
@@ -2344,6 +2418,7 @@ class ContinuousDecoder:
             request.agree_key = hashlib.sha256(repr(
                 (prompt, int(max_new_tokens), request.tenant)).encode()
             ).hexdigest()[:16]
+            request.calls_before = self._calls_handed
             self._arrivals.append(request)
         else:
             self._pending.append(request)
@@ -2437,38 +2512,157 @@ class ContinuousDecoder:
         self._gauge_active.set(self.active_count + len(self._pending) +
                                len(self._arrivals))
 
-    def _agree_arrivals(self) -> None:
-        """Sharded: move the arrivals that every rank holds into the
-        queue, in rank 0's order (the module header).  Gathers every
-        rank's arrivals (request id, content digest) on the host group;
-        called at the top of every round of a busy decoder, which every
-        rank runs alike, and of an idle one with arrivals, which waits
-        for the other ranks' next such round.  Raises when one request
-        id carries other content on another rank."""
+    def _round_note(self) -> None:
+        """On a mesh: agree this round's timed decisions (the module
+        header).  Every rank sends its note: its arrivals (request id,
+        content digest), its drain / resume calls, the host tier's
+        promotions that landed on it, and its note hooks' proposals;
+        rank 0 adds its clock, its admit-wait estimate and its deadline
+        verdict on each of its arrivals.  One host-side all_gather on a
+        mesh of more than one rank (none on one rank), at the top of
+        every round of a busy decoder, which every rank runs alike, and
+        of an idle one with arrivals or calls, which waits for the other
+        ranks' next such round.  Every rank then applies rank 0's
+        decisions (_apply_note).  Raises when one request id carries
+        other content on another rank."""
         busy = self.active_count or self._pending or self._admit_waves
-        if not busy and not self._arrivals:
+        if not busy and not self._arrivals and not self._calls and \
+                not any(pending is not None and pending()
+                        for _, _, pending in self._note_hooks):
             return
-        import torch.distributed as dist
-        mine = [(r.request_id, r.agree_key) for r in self._arrivals]
-        every = [None] * dist.get_world_size(self._agree_group)
-        dist.all_gather_object(every, mine, group=self._agree_group)
-        keys = [dict(entries) for entries in every]
-        for request_id, key in mine:
+        cache = self.prefix_cache
+        mine = {"arrivals": [(r.request_id, r.agree_key)
+                             for r in self._arrivals],
+                "calls": [call["note"] for call in self._calls],
+                "landed": cache.landed_promotions()
+                if cache is not None and cache.tiered else [],
+                "hooks": [propose() for propose, _, _ in self._note_hooks]}
+        if self.sharded:
+            import torch.distributed as dist
+            lead = dist.get_rank(self._agree_group) == 0
+        else:
+            lead = True
+        if lead:
+            now = time.monotonic()
+            mine["clock"] = now
+            mine["wait"] = self.estimated_admit_wait()
+            mine["verdicts"] = {r.request_id: (self._sheds(r, now),
+                                               r.deadline, r.calls_before)
+                                for r in self._arrivals}
+        if self.sharded:
+            every = [None] * dist.get_world_size(self._agree_group)
+            dist.all_gather_object(every, mine, group=self._agree_group)
+        else:
+            every = [mine]
+        self._apply_note(every)
+
+    def _sheds(self, request: DecodeRequest, now: float) -> bool:
+        """Rank 0's deadline verdict on one arrival, at the note: the
+        unsharded submit's rule (shed when now + the estimated admit
+        wait passes the deadline)."""
+        if request.deadline is None:
+            return False
+        wait = self.estimated_admit_wait(prompt=request.prompt,
+                                         tenant=request.tenant)
+        return wait is not None and now + wait >= float(request.deadline)
+
+    def _apply_note(self, every: list) -> None:
+        """Apply one round note on this rank, as every rank does: rank
+        0's clock and estimate become the round's; rank 0's hook
+        proposals apply; the host-tier promotions that landed on every
+        rank install, in rank 0's order; the arrivals that every rank
+        holds join the queue in rank 0's order, except those rank 0 shed
+        and, while draining, every one (each refused through
+        on_refused); then the drain / resume calls that every rank holds
+        apply, in order."""
+        lead = every[0]
+        self.note_clock = lead["clock"]
+        self._agreed_wait = lead["wait"]
+        for (_, apply, _), value in zip(self._note_hooks, lead["hooks"]):
+            if value:
+                apply(value)
+        if lead["landed"]:
+            held = [set(note["landed"]) for note in every]
+            self.prefix_cache.land_promotions(
+                [job for job in lead["landed"]
+                 if all(job in theirs for theirs in held)])
+        keys = [dict(note["arrivals"]) for note in every]
+        for request in self._arrivals:
             for rank, theirs in enumerate(keys):
-                if theirs.get(request_id, key) != key:
+                if theirs.get(request.request_id, request.agree_key) != \
+                        request.agree_key:
                     raise RuntimeError(
-                        f"request {request_id!r} differs between this "
-                        f"rank and rank {rank}: the ranks of a mesh must "
-                        f"be handed the same requests")
-        agreed = [entry for entry in every[0]
+                        f"request {request.request_id!r} differs between "
+                        f"this rank and rank {rank}: the ranks of a mesh "
+                        f"must be handed the same requests")
+        agreed = [entry for entry in lead["arrivals"]
                   if all(entry in theirs.items() for theirs in keys)]
-        if not agreed:
-            return
         by_id = {r.request_id: r for r in self._arrivals}
-        self._pending.extend(by_id[request_id] for request_id, _ in agreed)
         taken = {request_id for request_id, _ in agreed}
         self._arrivals = [r for r in self._arrivals
                           if r.request_id not in taken]
+        count = min(len(note["calls"]) for note in every)
+        calls, self._calls = self._calls[:count], self._calls[count:]
+        # rank 0's order of requests and calls: an arrival joins before
+        # the first call rank 0 was handed after it
+        arrivals = [by_id[request_id] for request_id, _ in agreed]
+        for call, note in zip(calls, lead["calls"]):
+            index = self._calls_applied
+            while arrivals and \
+                    lead["verdicts"][arrivals[0].request_id][2] <= index:
+                self._agreed_arrival(arrivals.pop(0), lead)
+            self._calls_applied += 1
+            if note[0] == "drain":
+                call["evacuated"].extend(self._begin_drain(
+                    self.note_clock, note[1], call["on_evacuate"],
+                    call["on_complete"]))
+            else:
+                self._resume()
+        for request in arrivals:
+            self._agreed_arrival(request, lead)
+        self._note_active()
+
+    def _agreed_arrival(self, request: DecodeRequest, lead: dict) -> None:
+        """One arrival every rank holds: refused if draining or shed by
+        rank 0's verdict, else queued, with rank 0's deadline."""
+        shed, request.deadline, _ = lead["verdicts"][request.request_id]
+        if request.journey is not None:
+            request.journey.deadline = request.deadline
+        if self._draining:
+            self._refuse(request, "drained")
+        elif shed:
+            self._refuse(request, "shed")
+        else:
+            self._pending.append(request)
+            cache = self.prefix_cache
+            if cache is not None and cache.tiered and \
+                    len(request.prompt) > 1:
+                # the kick submit makes off a mesh, made here alike on
+                # every rank
+                cache.prefetch(request.tenant, request.prompt,
+                               agreed_kick=True)
+
+    def _refuse(self, request: DecodeRequest, reason: str) -> None:
+        """Refuse an agreed arrival at its round (on a mesh): counted as
+        the unsharded submit counts it, its shipped pool blocks
+        released, its journey closed, and its on_refused(request_id,
+        reason) called."""
+        self.stats["admission_shed" if reason == "shed"
+                   else "drain_refused"] += 1
+        if request.kv_block_ids:
+            # ownership of shipped blocks passes on acceptance only
+            ids, request.kv_block_ids = request.kv_block_ids, []
+            self.pool.release_blocks(ids, tenant=request.tenant)
+        if request.journey is not None:
+            self.journeys.finish(request.journey, time.monotonic(),
+                                 outcome=reason)
+            request.journey = None
+        if request.on_refused is not None:
+            try:
+                request.on_refused(request.request_id, reason)
+            except Exception:
+                self.logger.exception("refusal callback failed for %s",
+                                      request.request_id)
 
     # -- graceful drain ----------------------------------------------------
     @property
@@ -2478,6 +2672,12 @@ class ContinuousDecoder:
     @property
     def drained(self) -> bool:
         return self._drained
+
+    @property
+    def calls_pending(self) -> bool:
+        """A drain or resume call that no round note has applied yet (on
+        a mesh; never off one)."""
+        return bool(self._calls)
 
     def drain(self, deadline: float | None = None,
               on_evacuate=None, on_complete=None) -> list:
@@ -2490,15 +2690,30 @@ class ContinuousDecoder:
         max_new_tokens, callback, deadline, tenant) for the caller to
         resubmit; checkpointed slots evacuate the same way through
         `on_evacuate`, or, without one, their callback gets what they
-        generated so far.  A decoder on a mesh of more than one rank
-        refuses to drain: each rank would stop admitting at its own
-        moment.  Re-arming tightens the deadline but never un-drains
-        (resume does)."""
-        if self.sharded:
-            raise ValueError("a decoder on a mesh refuses to drain: each "
-                             "rank would stop admitting at its own "
-                             "moment and the ranks would leave lockstep")
-        now = time.monotonic()
+        generated so far.  Re-arming tightens the deadline but never
+        un-drains (resume does).  On a mesh (one rank included) the call
+        is handed to every rank, as every request is, and the drain
+        begins at the first round note that holds it from every rank:
+        the list returned is filled then, the deadline counts from rank
+        0's clock at that note, and the checkpoint comes at the round in
+        which rank 0's clock passes it; queued requests agreed in that
+        note are evacuated with the queue, and later arrivals are
+        refused ("drained")."""
+        if self.agreed:
+            call = {"note": ("drain", None if deadline is None
+                             else float(deadline)),
+                    "on_evacuate": on_evacuate,
+                    "on_complete": on_complete, "evacuated": []}
+            self._calls.append(call)
+            self._calls_handed += 1
+            return call["evacuated"]
+        return self._begin_drain(time.monotonic(), deadline, on_evacuate,
+                                 on_complete)
+
+    def _begin_drain(self, now: float, deadline, on_evacuate,
+                     on_complete) -> list:
+        """Arm the drain at `now` (drain's body): evacuate the queue and
+        return its descriptors."""
         self._draining = True
         self._drained = False
         self._drain_deadline = None if deadline is None \
@@ -2509,13 +2724,29 @@ class ContinuousDecoder:
             self._drain_complete = on_complete
         pending, self._pending = self._pending, []
         evacuated = [self._evacuate(request, now) for request in pending]
-        if self.idle:
+        if self._quiet():
             self._drain_finish()
         self._note_active()
         return evacuated
 
     def resume(self) -> None:
-        """Re-open admission after a drain."""
+        """Re-open admission after a drain.  On a mesh, at the first
+        round note that holds the call from every rank (as drain)."""
+        if self.agreed:
+            self._calls.append({"note": ("resume",)})
+            self._calls_handed += 1
+            return
+        self._resume()
+
+    def _quiet(self) -> bool:
+        """No live slot and nothing queued: a drain is done.  On a mesh
+        this reads the agreed state only (this rank's unagreed arrivals
+        are refused when they are agreed)."""
+        if self.agreed:
+            return self.active_count == 0 and not self._pending
+        return self.idle
+
+    def _resume(self) -> None:
         self._draining = False
         self._drained = False
         self._drain_deadline = None
@@ -3507,16 +3738,17 @@ class ContinuousDecoder:
         earlier admits' first tokens, deliver this round's emissions,
         retire finished slots.  While draining, a round past the drain
         deadline first checkpoints every live slot, and the drain
-        completes once the decoder is idle.  On a mesh of more than one
-        rank the round first agrees the queue (_agree_arrivals)."""
-        if self.sharded:
-            self._agree_arrivals()
+        completes once the decoder is idle.  On a mesh the round first
+        agrees its timed decisions (_round_note), and the drain deadline
+        is judged by rank 0's clock there."""
+        if self.agreed:
+            self._round_note()
         if self._draining and not self._drained:
-            if self._drain_deadline is not None and \
-                    time.monotonic() >= self._drain_deadline and \
-                    self.active_count:
+            now = self.note_clock if self.agreed else time.monotonic()
+            if self._drain_deadline is not None and now is not None and \
+                    now >= self._drain_deadline and self.active_count:
                 self._drain_checkpoint()
-            if self.idle:
+            if self._quiet():
                 self._drain_finish()
         self._round_prefill_tokens = 0
         profiler = self.profiler

@@ -63,6 +63,10 @@ class ChaosDecoder:
         # the partial generation (degraded, never silently dropped)
         self.on_evacuate = None
         self.evacuated: list = []
+        # the lists drain returned, routed as they fill: on a mesh (one
+        # rank included) the queue evacuates at the round note that
+        # agrees the drain, a round after the escalation
+        self._drain_lists: list = []
         self.round = 0
         self._preempt_round: int | None = None
         self._refuse_until_round: int | None = None
@@ -167,10 +171,18 @@ class ChaosDecoder:
         # queued (never-admitted) requests come back as the drain's
         # return value — route them like the checkpointed ones; a
         # dropped descriptor would be a lost request
-        for descriptor in self.decoder.drain(
-                deadline=self.drain_deadline,
-                on_evacuate=self._evacuated):
-            self._evacuated(descriptor)
+        self._drain_lists.append(self.decoder.drain(
+            deadline=self.drain_deadline, on_evacuate=self._evacuated))
+        self._route_drained()
+
+    def _route_drained(self) -> None:
+        """Route what the drains' lists hold now; a list is let go once
+        the decoder holds no drain call still to apply."""
+        for listed in self._drain_lists:
+            while listed:
+                self._evacuated(listed.pop(0))
+        if not self.decoder.calls_pending:
+            self._drain_lists = []
 
     # -- the wrapped pump --------------------------------------------------
     def pump(self) -> None:
@@ -196,6 +208,7 @@ class ChaosDecoder:
                     self.round >= self._refuse_until_round:
                 self._refuse_until_round = None
                 self._restore_alloc()
+            self._route_drained()
         elapsed = self._clock() - started
         if self._hung_threshold is not None and \
                 elapsed > self._hung_threshold:

@@ -389,9 +389,14 @@ class PrefillRuntime(Actor):
                     self._ship_chunk(str(transfer_id), str(reply_topic),
                                      tenant, have, tokens, request, state)
 
+        def refused(_rid, _reason):
+            # a decoder on a mesh refuses at its round note
+            self.stats["refused"] += 1
+
         accepted = self.decoder.submit(str(transfer_id), tokens, 1,
                                        computed, tenant=tenant,
-                                       progress_callback=progress)
+                                       progress_callback=progress,
+                                       on_refused=refused)
         if not accepted:
             self.stats["refused"] += 1
         self._publish_depth()
@@ -783,10 +788,17 @@ class PrefillClient:
                tenant, on_refused, notify: bool = True) -> bool:
         """The local-prefill rung.  `notify` fires on_refused on a shed:
         True only on asynchronous paths (timeout fallback, reply
-        install, teardown) where submit() returned long ago."""
+        install, teardown) where submit() returned long ago.  A decoder
+        on a mesh refuses at its round note, after every path has
+        returned, so that refusal always fires on_refused."""
+        def refused(rid, _reason):
+            self.stats["install_shed"] += 1
+            if on_refused is not None:
+                on_refused(rid)
+
         accepted = self.decoder.submit(request_id, prompt, max_new,
                                        callback, deadline=deadline,
-                                       tenant=tenant)
+                                       tenant=tenant, on_refused=refused)
         if not accepted:
             self.stats["install_shed"] += 1
             if notify and on_refused is not None:
@@ -1015,11 +1027,18 @@ class PrefillClient:
 
     def _submit_installed(self, entry: dict,
                           kv_blocks: tuple | None = None) -> None:
+        def refused(rid, _reason):
+            # a decoder on a mesh refuses at its round note, and releases
+            # the request's installed blocks itself
+            self.stats["install_shed"] += 1
+            if entry["on_refused"] is not None:
+                entry["on_refused"](rid)
+
         accepted = self.decoder.submit(
             entry["request_id"], entry["prompt"], entry["max_new"],
             entry["callback"], deadline=entry["deadline"],
             tenant=entry["tenant"], prefill_label="remote",
-            kv_blocks=kv_blocks)
+            kv_blocks=kv_blocks, on_refused=refused)
         if not accepted:
             self.stats["install_shed"] += 1
             if kv_blocks is not None and kv_blocks[1]:

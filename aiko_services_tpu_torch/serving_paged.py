@@ -398,7 +398,8 @@ def _kernel_grouped_attention(layer, config: LlamaConfig, x, cos, sin,
     selects; int8 pools fold their scales (fold_scales=True).  Returns
     the attention output projection (row-parallel over the model axis of
     `mesh`: the config's heads are this rank's)."""
-    from .ops.paged_attention import paged_decode_attention
+    from .ops.paged_attention import \
+        _paged_decode_attention as paged_decode_attention
     from .serving import _project_qkv
     num_heads, num_kv = config.num_heads, config.num_kv_heads
     q, k, v = _project_qkv(layer, config, x)
@@ -610,7 +611,8 @@ def _paged_extend(params, config: LlamaConfig, k_pools, v_pools, tokens,
     land in the drafter's context rows at their offsets.  Pad rows (valid
     False: null table rows, offset 0) drop every write.  Returns the
     first tokens [width] int32."""
-    from .ops.paged_attention import paged_decode_attention
+    from .ops.paged_attention import \
+        _paged_decode_attention as paged_decode_attention
     from .serving import _extend_context, _project_qkv
     num_total, block_tokens = _pool_dims(k_pools[0])
     num_heads, num_kv = config.num_heads, config.num_kv_heads

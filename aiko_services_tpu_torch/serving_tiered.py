@@ -287,9 +287,10 @@ class HostBlockStore:
 
 class _PromoteJob:
     __slots__ = ("key", "tenant", "keys", "parent", "rows", "device",
-                 "stacks", "event", "done")
+                 "stacks", "event", "done", "identity", "superseded")
 
-    def __init__(self, key, tenant, keys, parent, nodes, device):
+    def __init__(self, key, tenant, keys, parent, nodes, device,
+                 kick: int = 0):
         self.key = key              # dedup key: the first host-tier key
         self.tenant = tenant
         self.keys = keys            # chain keys being promoted
@@ -302,6 +303,10 @@ class _PromoteJob:
         self.stacks = None          # staged (k_layers, v_layers)
         self.event = None           # the staging copies' event
         self.done = threading.Event()
+        # what the ranks of a mesh compare (AsyncPromoter.landed), and
+        # whether an admit staged its blocks inline instead
+        self.identity = (kick, key, tuple(keys), parent)
+        self.superseded = False
 
 
 def _stage_stacks(rows, device, stream) -> tuple:
@@ -344,7 +349,17 @@ class AsyncPromoter:
     staging (installs_wait) or stages inline (installs_sync).  Staging
     is bounded: at most `max_batch_blocks` blocks a kick and
     `max_inflight` chains at once (kv_promote_deferred_total counts the
-    rest, which re-kicks on the chain's next probe)."""
+    rest, which re-kicks on the chain's next probe).
+
+    `agreed` (set by a cache bound on a mesh): the ranks must kick and
+    land the same promotions in the same rounds, so nothing depends on
+    a thread's timing or on when a rank saw a prompt.  prefetch kicks
+    only when the decoder's round note asks (`agreed_kick`: an arrival
+    every rank holds, in rank 0's order, so every rank's jobs are the
+    same); poll() lands nothing; the note gathers each rank's landed()
+    jobs and every rank installs, through land(), the ones staged on
+    every rank; promote_for never waits on a job, it stages inline and
+    the job it passes over never lands."""
 
     def __init__(self, cache, store: HostBlockStore,
                  name: str | None = None, registry=None,
@@ -359,6 +374,8 @@ class AsyncPromoter:
         self.logger = logging.getLogger(f"serving.promote.{self.name}")
         self._jobs: dict = {}           # first key -> _PromoteJob
         self._ready: list = []          # staged, awaiting install
+        self.agreed = False
+        self._kicks = 0                 # numbers each job (its identity)
         self._lock = Lock(f"{self.name}._ready")
         self._queue: queue.Queue = queue.Queue()
         self._thread = None
@@ -402,16 +419,21 @@ class AsyncPromoter:
         return keys, device, self.store.chain_nodes(keys[device:])
 
     def _job(self, tenant, keys, device: int, nodes) -> _PromoteJob:
+        self._kicks += 1
         return _PromoteJob(keys[device], str(tenant or "default"),
                            keys[device:device + len(nodes)],
                            keys[device - 1] if device else "", nodes,
-                           self.cache.pool.device)
+                           self.cache.pool.device, self._kicks)
 
-    def prefetch(self, tenant: str, tokens) -> int:
+    def prefetch(self, tenant: str, tokens,
+                 agreed_kick: bool = False) -> int:
         """Kick an async promotion of the host-resident tail of this
         prompt's chain; returns the tokens being promoted (0: nothing
-        host-resident, already resident, already in flight, or deferred
-        by the staging bounds).  Non-blocking."""
+        host-resident, already resident, already in flight, deferred by
+        the staging bounds, or agreed and not an agreed kick).
+        Non-blocking."""
+        if self.agreed and not agreed_kick:
+            return 0
         keys, device, nodes = self._segment(tenant, tokens)
         if not nodes or self.cache.pool is None:
             return 0
@@ -430,10 +452,45 @@ class AsyncPromoter:
         self.stats["kicks"] += 1
         return len(nodes) * self.cache.block_tokens
 
+    def landed(self) -> list:
+        """Identities of the staged jobs ready to install, in kick
+        order: (kick number, first key, keys, parent), what the ranks'
+        copies of one agreed kick share.  A job an admit passed over
+        (promote_for) is dropped here: it never lands."""
+        with self._lock:
+            self._ready = [job for job in self._ready
+                           if not job.superseded]
+            ready = list(self._ready)
+        return sorted(job.identity for job in ready)
+
+    def land(self, identities) -> int:
+        """Install the staged jobs named by `identities`, in that order
+        (event loop only); returns tokens landed."""
+        wanted = set(identities)
+        with self._lock:
+            jobs = {job.identity: job for job in self._ready
+                    if job.identity in wanted}
+            self._ready = [job for job in self._ready
+                           if job.identity not in wanted]
+        landed = sum(self._install(jobs[identity], kind="installs_async")
+                     for identity in identities if identity in jobs)
+        # a staged job whose chain is resident now (promoted inline at an
+        # admit, or re-prefilled) never lands: drop it, or it would hold
+        # its in-flight place
+        cache = self.cache
+        with self._lock:
+            stale = [job for job in self._ready if cache.has(job.key)]
+            self._ready = [job for job in self._ready
+                           if not cache.has(job.key)]
+        for job in stale:
+            if self._jobs.get(job.key) is job:
+                self._jobs.pop(job.key)
+        return landed
+
     def poll(self) -> int:
         """Install every staged promotion (event loop only); returns
-        tokens landed."""
-        if not self._ready:
+        tokens landed.  Agreed: lands nothing (land does)."""
+        if not self._ready or self.agreed:
             return 0
         with self._lock:
             jobs, self._ready = self._ready, []
@@ -454,7 +511,11 @@ class AsyncPromoter:
         if not nodes or self.cache.pool is None:
             return 0
         job = self._jobs.get(keys[device])
-        if job is not None:
+        if job is not None and self.agreed:
+            # never wait on a thread: stage inline, and the passed-over
+            # job never lands (every rank passes over the same one)
+            job.superseded = True
+        elif job is not None:
             if not job.done.wait(self.wait_s):
                 return 0                 # mid-stage: lands next round
             with self._lock:
@@ -467,7 +528,8 @@ class AsyncPromoter:
         return self._install(job, kind="installs_sync")
 
     def _install(self, job: _PromoteJob, kind: str) -> int:
-        self._jobs.pop(job.key, None)
+        if self._jobs.get(job.key) is job:
+            self._jobs.pop(job.key)
         cache = self.cache
         pool = cache.pool
         if pool is None or job.stacks is None:

@@ -148,7 +148,8 @@ class SessionTable:
                  default_budget: TenantBudget | None = None,
                  budgets: dict[str, TenantBudget] | None = None,
                  on_expired=None, on_demoted=None,
-                 demote_idle: float | None = None):
+                 demote_idle: float | None = None,
+                 agree_lapses: bool = False):
         """`service` supplies the runtime and the topic root (a Service
         or anything with .runtime/.topic_path).  `on_expired(keys)` is
         the expiry-batch callback: one call per wheel advance that
@@ -165,7 +166,14 @@ class SessionTable:
         survives for dedup/revival but its payload — and whatever it
         pinned outside the table, when on_demoted routes into a tiered
         KV cache — drops to the cold tier early instead of hogging the
-        hot tier for a whole lease."""
+        hot tier for a whole lease.
+        `agree_lapses`: the table serves one rank of a mesh, whose ranks
+        must lapse the same sessions in the same round.  Its own wheel
+        then lapses and idle-demotes nothing: it proposes (take_lapses;
+        lapses_pending says one waits), and apply_lapses applies the
+        proposals the ranks agreed on (the serving decoder's round note
+        carries rank 0's, and a pending proposal makes a note on an idle
+        decoder)."""
         self.runtime = service.runtime
         self.topic_path = service.topic_path
         self.num_shards = int(num_shards)
@@ -208,6 +216,9 @@ class SessionTable:
             buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 4096,
                      16384, 65536))
         self._stopped = False
+        self.agree_lapses = bool(agree_lapses)
+        # (kind, tenant, sid) -> gen: lapses this table's clock proposes
+        self._proposals: dict = {}
         # KV memory ledger: lease pins and demotions count as lifecycle
         # events (the KV bytes they pin are the prefix cache's to charge)
         self._ledger = None
@@ -399,29 +410,94 @@ class SessionTable:
         self._publish(session)
         return freed
 
-    def _demote_idle(self, now: float) -> None:
-        """Idle-demote sweep: one pass per wheel tick over
-        each tenant's oldest-touched session(s).  The per-tenant dicts
-        iterate oldest-touched-first, so the scan stops at the first
-        live session that is not yet idle — cost is O(idle found), not
-        O(sessions)."""
-        idle_before = now - self.demote_idle
-        demoted = []
-        for held in list(self._by_tenant.values()):
-            for session in list(held.values()):
+    def _lapse(self, lapsed) -> None:
+        """Expire the (tenant, sid) keys of `lapsed` and deliver the
+        expiry batch."""
+        for tenant, sid in lapsed:
+            self.remove(tenant, sid, reason="expired")
+        if lapsed:
+            self._expiry_batches.observe(len(lapsed))
+            if self.on_expired is not None:
+                self.on_expired(lapsed)
+
+    def _idle_sessions(self, idle_before: float) -> list:
+        """Sessions with a payload untouched since `idle_before`.  The
+        per-tenant dicts iterate oldest-touched-first, so each scan
+        stops at the first live session that is not yet idle — cost is
+        O(idle found), not O(sessions)."""
+        idle = []
+        for held in self._by_tenant.values():
+            for session in held.values():
                 if session.touched > idle_before:
                     break           # oldest-first: the rest are newer
-                if session.demoted or session.nbytes == 0:
-                    continue
-                self._demote(session)
-                self.stats["demoted_idle"] += 1
-                demoted.append(session.key)
-        if demoted and self.on_demoted is not None:
-            self.on_demoted(demoted)
+                if not session.demoted and session.nbytes:
+                    idle.append(session)
+        return idle
+
+    def _demote_batch(self, sessions) -> None:
+        for session in sessions:
+            self._demote(session)
+            self.stats["demoted_idle"] += 1
+        if sessions and self.on_demoted is not None:
+            self.on_demoted([session.key for session in sessions])
+
+    def _demote_idle(self, now: float) -> None:
+        """Idle-demote sweep: one pass per wheel tick over each tenant's
+        oldest-touched session(s)."""
+        self._demote_batch(self._idle_sessions(now - self.demote_idle))
+
+    def take_lapses(self) -> list:
+        """With agree_lapses: the lapses this table's clock proposes and
+        no note has applied yet, [(kind, tenant, sid, gen)] with kind
+        "expire" or "idle".  A proposal stays until a note applies it or
+        a touch, lapse or demotion makes it stale, so one that rank 0
+        has yet to make rides every note until it does."""
+        self._prune_proposals()
+        return [(kind, tenant, sid, gen)
+                for (kind, tenant, sid), gen in self._proposals.items()]
+
+    def lapses_pending(self) -> bool:
+        """With agree_lapses: a proposal waits (take_lapses)."""
+        self._prune_proposals()
+        return bool(self._proposals)
+
+    def _lapsable(self, kind: str, tenant: str, sid: str, gen: int):
+        """The session a (kind, tenant, sid, gen) proposal would lapse,
+        or None when it is stale."""
+        session = self._sessions.get((tenant, sid))
+        if session is None or session.gen != gen:
+            return None             # touched or gone since proposed
+        if kind == "idle" and (session.demoted or not session.nbytes):
+            return None
+        return session
+
+    def _prune_proposals(self) -> None:
+        if self._proposals:
+            self._proposals = {
+                key: gen for key, gen in self._proposals.items()
+                if self._lapsable(*key, gen) is not None}
+
+    def apply_lapses(self, proposals) -> None:
+        """Apply agreed lapse proposals (take_lapses' shape, rank 0's on
+        every rank): each session still at the proposal's lease
+        generation expires or idle-demotes, and the batches are
+        delivered as the table's own wheel delivers them."""
+        lapsed, idle = [], []
+        for kind, tenant, sid, gen in proposals:
+            session = self._lapsable(kind, tenant, sid, gen)
+            if session is None:
+                continue
+            if kind == "expire":
+                lapsed.append((tenant, sid))
+            else:
+                idle.append(session)
+        self._lapse(lapsed)
+        self._demote_batch(idle)
 
     def _advance(self) -> None:
         """The ONE engine timer behind every session lease: advance the
-        wheel, lapse what's due, deliver the expiry batch."""
+        wheel, lapse what's due, deliver the expiry batch (with
+        agree_lapses: propose it, and the idle demotions)."""
         if self._stopped:
             return
         now = self.runtime.event.clock.now()
@@ -432,14 +508,21 @@ class SessionTable:
             if session is None or session.gen != gen:
                 continue            # touched since scheduled: stale
             lapsed.append(key)
-        for tenant, sid in lapsed:
-            self.remove(tenant, sid, reason="expired")
-        if lapsed:
-            self._expiry_batches.observe(len(lapsed))
-            if self.on_expired is not None:
-                self.on_expired(lapsed)
-        if self.demote_idle is not None:
-            self._demote_idle(now)
+        if self.agree_lapses:
+            # at most two entries a live session, pruned when stale
+            # (take_lapses)
+            for tenant, sid in lapsed:
+                gen = self._sessions[(tenant, sid)].gen
+                self._proposals[("expire", tenant, sid)] = gen  # graft: disable=lint-unbounded-cache
+            if self.demote_idle is not None:
+                idle_before = now - self.demote_idle
+                for session in self._idle_sessions(idle_before):
+                    key = ("idle", session.tenant, session.sid)
+                    self._proposals[key] = session.gen  # graft: disable=lint-unbounded-cache
+        else:
+            self._lapse(lapsed)
+            if self.demote_idle is not None:
+                self._demote_idle(now)
         if self._snapshot_interval > 0 and now >= self._next_snapshot:
             self._next_snapshot = now + self._snapshot_interval
             self._compact()

@@ -478,6 +478,29 @@ LLAMA_8B_DECODER = {"max_slots": 16, "steps_per_sync": 16, "kv_block": 32,
 LLAMA_8B_REQUESTS = {"count": 8, "prompt": 64, "new": 64, "seed": 23}
 LLAMA_8B_DECODE_STEPS = 64
 LLAMA_8B_PLAN = {"tp": 8, "slots": 32, "positions": 2048}
+# the agent on Llama-3-8B (phases agent_8b and agent_8b_f32): the agent
+# phase's streams and turns through PE_LlamaAgent at the 8b preset on a
+# one-rank model mesh, with sessions and the host KV tier as in
+# agent_tiered (a prefix cache of AGENT_TIERED_BLOCKS blocks of the
+# preset, every session demoted between turns) and 64-token prompt
+# chunks, so every extend runs at row 3i's shape (G 4 x 64 rows a KV
+# head, head dim 128).  Every frame carries a deadline 1e9 s away; one
+# more request, submitted after the first turns with its deadline
+# passed, is shed at the round note; after the turns a fourth turn on
+# every stream is drained with a zero deadline after
+# AGENT_8B_DRAIN_ROUNDS rounds, its live slots checkpointed and its
+# queue evacuated, and resubmitted after resume.  The counts are a CPU
+# rehearsal's (a 4-layer, 256-wide stand-in at head dim 128 with the
+# same block count: the schedule depends on neither widths nor token
+# values while the cache budget is in blocks)
+AGENT_8B_OVERRIDES = {"preset": "8b", "prompt_length": 64}
+AGENT_8B_HOST_MB = 1024
+AGENT_8B_DRAIN_ROUNDS = 4
+AGENT_8B_DECODE_STEPS = 116
+AGENT_8B_EXTEND_DISPATCHES = 9
+AGENT_8B_DRAIN = {"evacuated": 8, "checkpoints": 8}
+EARLIER_COUNTS["agent_8b"] = 32 * (AGENT_8B_DECODE_STEPS +
+                                   AGENT_8B_EXTEND_DISPATCHES)
 # int8 KV and chunked prefill: the JAX bench's conversation-rung decoder
 # (bench.py:1605-1611) without its prefix cache
 LLAMA_INT8_DECODER = {"max_slots": 16, "steps_per_sync": 8, "kv_block": 32,
@@ -2550,19 +2573,21 @@ def agent_definition(parameters=None):
 
 def conversation(runtime, texts: dict, before_drive=None,
                  parameters=None, between_turns=None,
-                 services_cache=None) -> tuple:
+                 services_cache=None, frame_deadline: float = 0.0) -> tuple:
     """Drive AGENT_STREAMS streams through their turns on the runtime's
     virtual clock: every stream posts turn 1 at once, and each later
     turn as soon as the stream's previous turn came back; with
     `between_turns`, in lockstep instead: turn k + 1 is posted on every
     stream once every stream's turn k came back, after
     between_turns(k).  `services_cache` is the pipeline's discovery
-    cache.  Returns (pipeline, agent element, frames by (stream, turn),
+    cache; `frame_deadline` > 0 gives every frame that end-to-end
+    deadline (engine-clock seconds from its creation).  Returns (pipeline, agent element, frames by (stream, turn),
     virtual s, wall s)."""
     from aiko_services_tpu_torch.pipeline import Pipeline
     engine = runtime.event
     pipeline = Pipeline(runtime, agent_definition(parameters),
-                        stream_lease_time=0, services_cache=services_cache)
+                        stream_lease_time=0, services_cache=services_cache,
+                        frame_deadline=frame_deadline)
     done = []
     pipeline.add_frame_handler(done.append)
     for stream_id in texts:
@@ -7896,6 +7921,308 @@ def phase_agent_mesh(reference: dict) -> dict:
     return measured
 
 
+@contextlib.contextmanager
+def agent_8b_preset(**changes):
+    """The port's "8b" preset as llama_8b gives it (max_seq 1024) with
+    `changes`, for the element to read at its setup; restored after."""
+    from aiko_services_tpu_torch.models.llama import LLAMA_PRESETS
+    base = LLAMA_PRESETS["8b"]
+    LLAMA_PRESETS["8b"] = llama_8b(**changes)
+    try:
+        yield LLAMA_PRESETS["8b"]
+    finally:
+        LLAMA_PRESETS["8b"] = base
+
+
+def agent_8b_parameters(config) -> dict:
+    return {**tiered_parameters(config), **AGENT_8B_OVERRIDES,
+            "host_kv_mb": AGENT_8B_HOST_MB}
+
+
+def drain_fourth_turn(engine, pipeline, agent, texts) -> dict:
+    """A fourth turn on every stream, drained with a zero deadline after
+    AGENT_8B_DRAIN_ROUNDS rounds: the live slots checkpoint into the
+    cache, the queue evacuates, and after resume every descriptor is
+    resubmitted (prompt + generated) so each frame completes.  Returns
+    the counts."""
+    decoder = agent.decoder
+    done = []
+    pipeline.add_frame_handler(done.append)
+    for stream_id in texts:
+        pipeline.post("process_frame", stream_id, {"text": "and then?"})
+    while engine.step():
+        pass
+    rounds = decoder.stats["rounds"] + AGENT_8B_DRAIN_ROUNDS
+    while decoder.stats["rounds"] < rounds:
+        engine.clock.advance(0.002)
+        engine.step()
+    checkpointed = []
+    evacuated = decoder.drain(deadline=0.0, on_evacuate=checkpointed.append)
+    for _ in range(1000):
+        if decoder.drained:
+            break
+        engine.clock.advance(0.002)
+        engine.step()
+    if not decoder.drained:
+        raise AssertionError("the agent's drain did not complete")
+    counts = {"evacuated": decoder.stats["drain_evacuated"],
+              "checkpoints": decoder.stats["drain_checkpoints"],
+              "queued_evacuated": len(evacuated),
+              "live_checkpointed": len(checkpointed)}
+    decoder.resume()
+    for entry in evacuated + checkpointed:
+        left = entry["max_new_tokens"] - len(entry["generated"])
+        if left <= 0:
+            entry["callback"](entry["request_id"], entry["generated"])
+            continue
+        decoder.submit(f"{entry['request_id']}.resumed",
+                       entry["prompt"] + entry["generated"], left,
+                       entry["callback"], tenant=entry["tenant"])
+    for _ in range(20000):
+        if len(done) >= len(texts):
+            break
+        engine.clock.advance(0.002)
+        engine.step()
+    counts["resumed_frames"] = len(done)
+    if len(done) != len(texts):
+        raise AssertionError(f"{len(done)} of {len(texts)} drained turns "
+                             f"completed after resume")
+    return counts
+
+
+def phase_agent_8b() -> dict:
+    """PE_LlamaAgent serving Llama-3-8B at full width and depth in bf16 on
+    a ComputeRuntime over create_mesh({"model": 1}), with sessions and
+    the host KV tier, under torch's sync debug mode, the KV ledger
+    audited after every round, an AdmissionGate watching the decoder;
+    the timed decisions (a passed deadline's shed, the drain and its
+    checkpoint) ride the decoder's round note.  Returns the paged
+    kernel's launches by path."""
+    import numpy as np
+
+    from aiko_services_tpu_torch.event import settle_virtual
+    from aiko_services_tpu_torch.observe.ledger import assert_ledger_clean
+    from aiko_services_tpu_torch.ops import paged_attention as P
+    from aiko_services_tpu_torch.ops.admission import AdmissionGate
+    from aiko_services_tpu_torch.parallel import create_mesh
+
+    with agent_8b_preset(dtype=torch.bfloat16) as config:
+        parameters = agent_8b_parameters(config)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        runtime, compute = host_runtime(mesh=create_mesh({"model": 1}))
+        engine = runtime.event
+        texts = agent_texts(np.random.default_rng(AGENT_SEED))
+        extends, submitted, agents, refused = [], {}, [], {}
+        audit = TierAudit()
+        gate = AdmissionGate()
+        demote = demote_between_turns(agents)
+        verdicts = []
+
+        def before_drive(agent):
+            agents.append(agent)
+            extends.append(count_extend_launches(agent.decoder))
+            audit.bind(agent.decoder)
+            gate.watch_decoder(agent.decoder)
+            submit = agent.decoder.submit
+
+            def recording(request_id, prompt, *args, **kwargs):
+                submitted[request_id] = list(prompt)
+                return submit(request_id, prompt, *args, **kwargs)
+            agent.decoder.submit = recording
+            # the main path's run: counts set to 0 just before
+            for name in P.launches:
+                P.launches[name] = 0
+            torch.cuda.set_sync_debug_mode("warn")
+
+        def between_turns(turn):
+            demote(turn)
+            if turn == 1:
+                # a request whose deadline has passed: the gate does not
+                # shed it (the decoder's note does), rank 0's verdict
+                # refuses it at the next round
+                verdicts.append(gate.shed_early(-1.0))
+                agents[0].decoder.submit(
+                    "late", [1] * 8, 4, lambda *_: None,
+                    deadline=time.monotonic() - 1.0,
+                    on_refused=lambda rid, why: refused.update(
+                        {rid: why}))
+
+        timer = RoundTimer()
+        try:
+            with sync_watch(arm=False) as syncs:
+                pipeline, agent, frames, virtual_s, wall_s = conversation(
+                    runtime, texts, before_drive, parameters,
+                    between_turns, frame_deadline=1e9)
+        finally:
+            timer.close()
+        torch.cuda.synchronize()
+        launches = dict(P.launches)
+        extend_dispatches, extend_launches = extends[0]
+        rounds = list(timer.rounds)
+        decoder, cache = agent.decoder, agent.prefix_cache
+        stats, cache_stats = dict(decoder.stats), dict(cache.stats)
+        store, promoter = cache.host_store, cache.promoter
+        prompt_tokens = sum(len(p) for rid, p in submitted.items()
+                            if rid != "late")
+        drain = drain_fourth_turn(engine, pipeline, agent, texts)
+        histories = {stream_id: list(agent._session_table.get(
+            "default", stream_id)["history"]) for stream_id in texts}
+        settle_virtual(engine, AGENT_PARAMETERS["session_lease"] + 1.0)
+        for stream_id in list(pipeline.streams):
+            pipeline.destroy_stream(stream_id)
+        promoted_back = promote_and_purge(cache, histories)
+        # what no session's history reaches (the drained turn's
+        # checkpointed chains: its resumed request's history is prompt +
+        # continuation) leaves the host tier by eviction
+        host_left = len(store)
+        store.max_bytes = 0
+        store._evict_to_budget("")
+        assert_ledger_clean(cache=cache, ledger=audit.ledger)
+        audit.close()
+        memory_gb = torch.cuda.max_memory_allocated() / 1e9
+        promoter.stop()
+        pipeline.stop()
+        compute.stop()
+        runtime.terminate()
+    decode_launches = launches["paged_decode_attention"] - extend_launches
+    if syncs:
+        raise AssertionError(f"the 8B agent synchronized the stream "
+                             f"beyond its one wait a round: {dict(syncs)}")
+    failed = pipeline.recovery_stats["frames_failed"]
+    if len(frames) != AGENT_STREAMS * AGENT_TURNS or failed:
+        raise AssertionError(f"{len(frames)} agent frames, {failed} failed")
+    for (stream_id, turn), frame in frames.items():
+        tokens = frame.swag["response_tokens"]
+        if len(tokens) != AGENT_PARAMETERS["max_tokens"] or not all(
+                0 <= t < config.vocab for t in tokens):
+            raise AssertionError(f"8B agent frame {stream_id} turn "
+                                 f"{turn}: {len(tokens)} tokens")
+    expected = {"decode": config.num_layers * AGENT_8B_DECODE_STEPS,
+                "extend": config.num_layers * AGENT_8B_EXTEND_DISPATCHES}
+    measured = {"decode": decode_launches, "extend": extend_launches}
+    if measured != expected or stats["steps"] != AGENT_8B_DECODE_STEPS or \
+            extend_dispatches != AGENT_8B_EXTEND_DISPATCHES or \
+            sum(launches.values()) != launches["paged_decode_attention"]:
+        raise AssertionError(
+            f"8B agent paged launches {measured} != {expected} "
+            f"({stats['steps']} decode steps, {extend_dispatches} extend "
+            f"dispatches), all {launches}")
+    if stats["tokens_prefill"] + cache_stats["hit_tokens"] != prompt_tokens:
+        raise AssertionError(
+            f"prefilled {stats['tokens_prefill']} + cached "
+            f"{cache_stats['hit_tokens']} != {prompt_tokens} prompt tokens")
+    if stats["prefix_admits"] < AGENT_MIN_PREFIX_ADMITS or \
+            not cache_stats["demoted"] or not cache_stats["promoted"]:
+        raise AssertionError(
+            f"{stats['prefix_admits']} prefix admits, "
+            f"{cache_stats['demoted']} demoted, {cache_stats['promoted']} "
+            f"promoted")
+    if refused != {"late": "shed"} or stats["admission_shed"] != 1 or \
+            verdicts[0][0] or verdicts[0][1] is None:
+        raise AssertionError(f"shed {refused}, {stats['admission_shed']} "
+                             f"counted, the gate's verdict {verdicts}")
+    if audit.failures:
+        raise AssertionError(f"the KV ledger did not conserve: "
+                             f"{audit.failures[:3]}")
+    if {key: drain[key] for key in AGENT_8B_DRAIN} != AGENT_8B_DRAIN:
+        raise AssertionError(f"drain {drain} != {AGENT_8B_DRAIN}")
+    generated = sum(len(f.swag["response_tokens"]) for f in frames.values())
+    emit({"phase": "agent_8b", "mesh": {"model": 1},
+          "streams": AGENT_STREAMS, "turns": AGENT_TURNS,
+          "frames": len(frames), "frames_failed": failed,
+          "tokens": generated, "wall_s": wall_s, "virtual_s": virtual_s,
+          "tokens_per_s": generated / wall_s, "rounds": len(rounds),
+          "first_round_s": rounds[0],
+          "steady_round_s": statistics.median(rounds[2:]),
+          "prompt_tokens": prompt_tokens,
+          "tokens_prefill": stats["tokens_prefill"],
+          "hit_tokens": cache_stats["hit_tokens"],
+          "prefix_admits": stats["prefix_admits"],
+          "demoted_blocks": cache_stats["demoted"],
+          "promoted_blocks": cache_stats["promoted"],
+          "cache_evictions": cache_stats["evictions"],
+          "host_evicted": store.stats["evicted"],
+          "promoter": dict(promoter.stats),
+          "shed": sorted(refused), "gate_wait_s": verdicts[0][1],
+          "drain": drain, "promoted_back": promoted_back,
+          "host_blocks_evicted_at_end": host_left,
+          "pool_blocks_after_purge": decoder.pool.used_blocks(),
+          "host_blocks_after_purge": len(store),
+          "decode_steps": stats["steps"],
+          "extend_dispatches": extend_dispatches,
+          "paged_launches": measured, "paged_launches_expected": expected,
+          "stream_syncs": sum(syncs.values()),
+          "ledger_rounds_audited": audit.rounds,
+          "max_memory_gb": memory_gb})
+    del agent, decoder, cache
+    torch.cuda.empty_cache()
+    return measured
+
+
+def phase_agent_8b_f32() -> dict:
+    """agent_8b's conversation at the 8B widths and 2 layers in f32:
+    every turn against llama_greedy_decode on its whole history prompt
+    (a first mismatch at a top-2 logit gap under 1e-4 is a tie), with
+    chains demoted and promoted between the turns."""
+    import numpy as np
+
+    from aiko_services_tpu_torch.parallel import create_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with agent_8b_preset(num_layers=2, dtype=torch.float32) as config:
+        runtime, compute = host_runtime(mesh=create_mesh({"model": 1}))
+        prompts, agents = {}, []
+
+        def before_drive(agent):
+            agents.append(agent)
+            submit = agent.decoder.submit
+
+            def recording(request_id, prompt, *args, **kwargs):
+                prompts[request_id] = list(prompt)
+                return submit(request_id, prompt, *args, **kwargs)
+            agent.decoder.submit = recording
+
+        pipeline, agent, frames, virtual_s, wall_s = conversation(
+            runtime, agent_texts(np.random.default_rng(AGENT_SEED)),
+            before_drive, agent_8b_parameters(config),
+            demote_between_turns(agents))
+        ties, identical = [], 0
+        for frame in frames.values():
+            request_id = f"{frame.stream_id}.{frame.frame_id}"
+            tie = greedy_check(agent.params, config, prompts[request_id],
+                               list(frame.swag["response_tokens"]),
+                               request_id)
+            if tie is None:
+                identical += 1
+            else:
+                ties.append(tie)
+    cache = agent.prefix_cache
+    if len(frames) != AGENT_STREAMS * AGENT_TURNS or \
+            not cache.stats["demoted"] or not cache.stats["promoted"]:
+        raise AssertionError(f"{len(frames)} frames, "
+                             f"{cache.stats['demoted']} demoted, "
+                             f"{cache.stats['promoted']} promoted")
+    for stream_id in list(pipeline.streams):
+        pipeline.destroy_stream(stream_id)
+    cache.promoter.stop()
+    pipeline.stop()
+    compute.stop()
+    runtime.terminate()
+    record = {"phase": "agent_8b_f32", "frames": len(frames),
+              "identical": identical, "ties": ties,
+              "demoted_blocks": cache.stats["demoted"],
+              "promoted_blocks": cache.stats["promoted"],
+              "hit_tokens": cache.stats["hit_tokens"],
+              "prefix_admits": agent.decoder.stats["prefix_admits"],
+              "virtual_s": virtual_s, "wall_s": wall_s}
+    emit(record)
+    del agent
+    torch.cuda.empty_cache()
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7997,6 +8324,10 @@ def main() -> int:
     agent_mesh = phase_agent_mesh(agent_reference)
     counts[("paged_decode_attention", "decode")] += agent_mesh["decode"]
     counts[("paged_decode_attention", "extend_512")] += agent_mesh["extend"]
+    agent_8b = phase_agent_8b()
+    counts[("paged_decode_attention", "decode_d128")] += agent_8b["decode"]
+    counts[("paged_decode_attention", "extend_d128")] = agent_8b["extend"]
+    phase_agent_8b_f32()
     earlier = {phase: phase_counts[phase]["flash_attention"] for phase in
                ("slice", "pipeline", "remote_pipeline", "peer_pipeline",
                 "peer_chaos")}
@@ -8013,7 +8344,8 @@ def main() -> int:
                     "disagg_variants": sum(variants.values()),
                     "agent_disagg": sum(agent_disagg.values()),
                     "agent_migrate": sum(migrate.values()),
-                    "ops": ops})
+                    "ops": ops,
+                    "agent_8b": agent_8b["decode"] + agent_8b["extend"]})
     if earlier != EARLIER_COUNTS:
         raise AssertionError(f"earlier phases' counts {earlier} != "
                              f"{EARLIER_COUNTS}")

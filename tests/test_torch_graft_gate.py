@@ -65,3 +65,15 @@ def test_pump_reaches_exactly_one_waived_sync():
     assert waived
     assert PUMP in analysis.graph.hot_roots
     assert PUMP in analysis.graph.event_roots
+
+
+def test_no_serving_round_reaches_a_kernel_build():
+    """Nothing the serving round reaches starts a process: a decoder
+    builds its kernel library at construction, and the rounds launch
+    through a lookup that never builds (ops/kernels.py load)."""
+    analysis = EffectAnalysis(build_graph(
+        [PORT, REPO_ROOT / "chip_smoke.py"], REPO_ROOT)).run()
+    leaves = analysis.reachable_leaves(PUMP, "blocks")
+    assert leaves, "the round's event wait is a blocking leaf"
+    assert not [leaf for leaf, _ in leaves if "subprocess" in leaf], leaves
+    assert all(waived for _, waived in leaves), leaves

@@ -164,15 +164,15 @@ def test_mha_cache_branch_prefill_then_step(dtype):
     t_cache = TL.init_kv_cache(2, 6, 4, 8, getattr(torch, dtype))
     j_cache = JL.init_kv_cache(2, 6, 4, 8, getattr(jnp, dtype))
     causal = (np.arange(6)[None, :] <= np.arange(3)[:, None])[None, None]
-    t_out, t_cache = TL.mha(t_params, _torch(prompt, dtype),
-                            mask=torch.from_numpy(causal), cache=t_cache,
-                            num_heads=4)
+    t_out, t_cache = TL.cached_mha(t_params, _torch(prompt, dtype),
+                                   t_cache, mask=torch.from_numpy(causal),
+                                   num_heads=4)
     j_out, j_cache = JL.mha(j_params, _jax(prompt, dtype),
                             mask=jnp.asarray(causal), cache=j_cache,
                             num_heads=4)
     _close(t_out, j_out, dtype)
-    t_out, t_cache = TL.mha(t_params, _torch(step, dtype), cache=t_cache,
-                            num_heads=4)
+    t_out, t_cache = TL.cached_mha(t_params, _torch(step, dtype), t_cache,
+                                   num_heads=4)
     j_out, j_cache = JL.mha(j_params, _jax(step, dtype), cache=j_cache,
                             num_heads=4)
     _close(t_out, j_out, dtype)
@@ -313,9 +313,9 @@ def test_mha_gqa_with_rope_and_cache(dtype):
             return (JL.apply_rope(q, j_cos, j_sin, start),
                     JL.apply_rope(k, j_cos, j_sin, start))
 
-        result, t_cache = TL.mha(
+        result, t_cache = TL.cached_mha(
             _torch(params, dtype), _torch(x[:, start:stop], dtype),
-            mask=t_mask, cache=t_cache, num_heads=heads,
+            t_cache, mask=t_mask, num_heads=heads,
             num_kv_heads=kv_heads, qk_transform=t_rope)
         expected, j_cache = JL.mha(
             _jax(params, dtype), _jax(x[:, start:stop], dtype),

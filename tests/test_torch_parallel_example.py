@@ -143,11 +143,15 @@ def test_the_agent_holds_one_expert_of_four_on_each_rank(frames):
 
 
 def test_the_agent_on_four_ranks_refuses_what_each_rank_would_time(frames):
-    """Sessions expire by each rank's clock and batched mode forms its
-    batches by it: on a mesh of more than one rank the agent refuses
-    both."""
+    """Batched mode forms its batches by each rank's clock and disagg's
+    transfers time out by it: on a mesh of more than one rank the agent
+    refuses both, naming their ROADMAP items.  Sessions are agreed in
+    the decoder's round note (rank 0's clock expires the leases) and
+    are not refused."""
     _, ranks = frames
     for rank in ranks:
-        assert set(rank["refused"]) == {"sessions", "mode"}
-        assert "sessions" in rank["refused"]["sessions"]
+        assert set(rank["refused"]) == {"mode", "disagg"}
         assert "mode batched" in rank["refused"]["mode"]
+        assert "Queue 1 item 3.2" in rank["refused"]["mode"]
+        assert "disagg" in rank["refused"]["disagg"]
+        assert "Queue 1 item 3.1" in rank["refused"]["disagg"]

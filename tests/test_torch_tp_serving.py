@@ -180,18 +180,18 @@ def test_tp_ranks_agree_on_requests_submitted_at_other_rounds(
 
 @pytest.mark.parametrize("geometry", list(GEOMETRIES))
 def test_sharded_decoder_refuses_what_each_rank_would_time(ranks, geometry):
-    """Drain, a submit deadline, shipped KV blocks, a host tier and an
-    AdmissionGate watching the decoder would each decide by a rank's own
-    clock; a request id queued twice cannot be agreed by id."""
+    """Shipped KV blocks would land by each rank's own clock (ROADMAP.md
+    Queue 1 item 3.1), and a request id queued twice cannot be agreed by
+    id: both are refused.  Drain, a submit deadline, a host tier and an
+    AdmissionGate watching the decoder are agreed in the round note
+    (rank 0 decides) and no longer raise."""
     for rank in ranks[geometry]:
         refusals = rank["refusals"]
-        assert all(refusals.values()), refusals
-        assert "drain" in refusals["drain"]
-        assert "deadline" in refusals["deadline"]
         assert "shipped KV" in refusals["kv_blocks"]
+        assert "Queue 1 item 3.1" in refusals["kv_blocks"]
         assert "queued already" in refusals["duplicate"]
-        assert "host tier" in refusals["host_tier"]
-        assert "own clock" in refusals["watch_decoder"]
+        for agreed in ("drain", "deadline", "host_tier", "watch_decoder"):
+            assert refusals[agreed] is None, refusals
 
 
 @pytest.mark.parametrize("geometry", list(GEOMETRIES))

@@ -334,7 +334,10 @@ def _serve_staggered(decoder, prompts, max_new, rank):
 
 def _refusals(decoder, params, config, mesh):
     """What a decoder on a mesh of more than one rank refuses: each
-    entry the ValueError's message, or None where nothing was raised."""
+    entry the ValueError's message, or None where nothing was raised
+    (drain, a deadline, a host tier and watch_decoder are agreed in the
+    round note and raise nothing; the drain and the submissions are
+    queued on the note and never pumped here)."""
     from aiko_services_tpu_torch.observe.metrics import MetricsRegistry
     from aiko_services_tpu_torch.ops.admission import AdmissionGate
     from aiko_services_tpu_torch.serving import (ContinuousDecoder,
@@ -522,7 +525,8 @@ def parallel_example(rank, world, definition, whisper_npz, agent_flat,
                "mesh")}
     # what the agent refuses on four ranks: set up again with each option
     refused = {}
-    for name, value in (("sessions", True), ("mode", "batched")):
+    for name, value in (("sessions", True), ("mode", "batched"),
+                        ("disagg", True)):
         agent.definition.parameters[name] = value
         agent._setup_done = False
         try:
@@ -534,3 +538,398 @@ def parallel_example(rank, world, definition, whisper_npz, agent_flat,
     out["refused"] = refused
     runtime.terminate()
     return out
+
+
+# -- tests/test_torch_tp_serving_ops.py ---------------------------------------
+
+class _SkewedTime:
+    """The time module with monotonic() offset by `offset` seconds: a
+    rank whose clock runs apart from the others'."""
+
+    def __init__(self, offset: float):
+        self.offset = float(offset)
+
+    def monotonic(self) -> float:
+        import time
+        return time.monotonic() + self.offset
+
+    def __getattr__(self, name):
+        import time
+        return getattr(time, name)
+
+
+def _skewed(rank: int, staggered: bool):
+    """Patch the serving modules' clock by a per-rank offset when
+    staggered (undone by the returned function)."""
+    import time
+
+    from aiko_services_tpu_torch import serving as TS
+    if staggered:
+        TS.time = _SkewedTime(1000.0 * rank + 7.25 * rank * rank)
+    return lambda: setattr(TS, "time", time)
+
+
+def _descriptor(entry: dict) -> tuple:
+    return (entry["request_id"], list(entry["prompt"]),
+            list(entry["generated"]), int(entry["max_new_tokens"]),
+            entry["deadline"], entry["tenant"])
+
+
+def _pump_until(decoder, done, count, rounds=400):
+    for _ in range(rounds):
+        if len(done) >= count:
+            return
+        decoder.pump()
+
+
+def _submit_phase(decoder, requests, done, rank, staggered, refused=None,
+                  deadlines=None):
+    """Submit `requests` ({id: (prompt, max_new)}) and pump until they
+    are answered (tokens or a refusal): at once, or when staggered at
+    this rank's own pumps (the k-th before local pump 2k + 3 * rank, odd
+    ranks in reverse order).  `deadlines` maps ids to seconds from this
+    rank's now."""
+    import time as clock
+
+    from aiko_services_tpu_torch import serving as TS
+    refused = {} if refused is None else refused
+    deadlines = deadlines or {}
+    order = list(requests)
+    if staggered and rank % 2:
+        order.reverse()
+    due = {(2 * k + 3 * rank) if staggered else 0: [rid]
+           for k, rid in enumerate(order)} if staggered else {0: order}
+
+    def keep(rid, tokens):
+        done[rid] = [int(t) for t in tokens]
+
+    for pump in range(600):
+        for rid in due.get(pump, ()):
+            prompt, max_new = requests[rid]
+            deadline = None if rid not in deadlines else \
+                getattr(TS, "time", clock).monotonic() + deadlines[rid]
+            decoder.submit(rid, prompt, max_new, keep, deadline=deadline,
+                           on_refused=lambda r, why: refused.update(
+                               {r: why}))
+        if pump >= max(due) and all(rid in done or rid in refused
+                                    for rid in requests):
+            return
+        decoder.pump()
+    raise AssertionError(f"unanswered: {set(requests) - set(done)}")
+
+
+def tp_ops_weight_quant(rank, params, config, mesh, base, prompts, max_new,
+                        staggered):
+    """weight_quant on the mesh: tokens, plans, and layer 0's quantized
+    o, down and q as this rank holds them."""
+    from aiko_services_tpu_torch.observe.metrics import MetricsRegistry
+    from aiko_services_tpu_torch.serving import ContinuousDecoder
+
+    decoder = ContinuousDecoder(params, config, mesh=mesh,
+                                weight_quant=True,
+                                registry=MetricsRegistry(), **base)
+    decoder.plan_digests = []
+    done = {}
+    _submit_phase(decoder, {rid: (prompt, max_new)
+                            for rid, prompt in prompts.items()}, done, rank,
+                  staggered)
+    layer = decoder.params["layers"][0]
+    leaves = {name: {key: leaf[key].numpy() for key in ("w8", "s")}
+              for name, leaf in (("o", layer["attn"]["o"]),
+                                 ("q", layer["attn"]["q"]),
+                                 ("down", layer["down"]))}
+    return {"tokens": done, "plans": decoder.plan_digests,
+            "leaves": leaves}
+
+
+def tp_ops_drain(rank, params, config, mesh, base, prompts, max_new,
+                 staggered, deadline):
+    """Four requests on two slots, a drain after this rank's second
+    round (its fourth when staggered) with `deadline`, pumped until
+    drained; then resume and one more request."""
+    from aiko_services_tpu_torch.observe.metrics import MetricsRegistry
+    from aiko_services_tpu_torch.serving import ContinuousDecoder
+
+    decoder = ContinuousDecoder(params, config, mesh=mesh,
+                                registry=MetricsRegistry(), **base)
+    decoder.plan_digests = []
+    done, checkpointed = {}, []
+    requests = {rid: (prompt, max_new) for rid, prompt in prompts.items()}
+
+    def keep(rid, tokens):
+        done[rid] = [int(t) for t in tokens]
+
+    order = list(requests)
+    if staggered and rank % 2:
+        order.reverse()
+    # idle pumps: nothing to agree, so no note
+    for _ in range(3 * rank if staggered else 0):
+        decoder.pump()
+    for rid in order:
+        decoder.submit(rid, *requests[rid], keep)
+        if staggered:
+            decoder.pump()
+    for _ in range(2 + (2 * rank if staggered else 0)):
+        decoder.pump()
+    evacuated = decoder.drain(deadline=deadline,
+                              on_evacuate=checkpointed.append)
+    for _ in range(200):
+        if decoder.drained:
+            break
+        decoder.pump()
+    drained = decoder.drained
+    decoder.resume()
+    first = next(iter(prompts))
+    _submit_phase(decoder, {"after": (prompts[first], max_new)}, done, rank,
+                  staggered)
+    return {"tokens": done, "plans": decoder.plan_digests,
+            "evacuated": [_descriptor(e) for e in evacuated],
+            "checkpointed": [_descriptor(e) for e in checkpointed],
+            "stats": {key: decoder.stats[key] for key in (
+                "drain_evacuated", "drain_checkpoints", "drain_refused",
+                "completed")},
+            "drained": drained, "draining": decoder.draining}
+
+
+def tp_ops_deadlines(rank, params, config, mesh, base, prompts, max_new,
+                     staggered):
+    """A warm request, then decisive deadlines (seconds from each rank's
+    own now: -1 passed, 1e9 not): half through an AdmissionGate watching
+    the decoder, half straight to submit.  The shed set, the tokens and
+    the gate's estimate after the drive."""
+    from aiko_services_tpu_torch.observe.metrics import MetricsRegistry
+    from aiko_services_tpu_torch.ops.admission import AdmissionGate
+    from aiko_services_tpu_torch.serving import ContinuousDecoder
+
+    decoder = ContinuousDecoder(params, config, mesh=mesh,
+                                registry=MetricsRegistry(), **base)
+    decoder.plan_digests = []
+    gate = AdmissionGate(registry=MetricsRegistry())
+    gate.watch_decoder(decoder)
+    done, refused = {}, {}
+    first = next(iter(prompts))
+    _submit_phase(decoder, {"warm": (prompts[first], max_new)}, done, rank,
+                  staggered)
+    remaining = {f"{rid}_late": -1.0 for rid in prompts} | \
+        {f"{rid}_ok": 1e9 for rid in prompts}
+    gated = sorted(remaining)[::2]
+    gate_shed = sorted(rid for rid in gated
+                       if gate.shed_early(remaining[rid])[0])
+    requests = {rid: (prompts[rid.rsplit("_", 1)[0]], max_new)
+                for rid in remaining if rid not in gate_shed}
+    _submit_phase(decoder, requests, done, rank, staggered, refused,
+                  deadlines=remaining)
+    return {"tokens": done, "plans": decoder.plan_digests,
+            "shed": sorted(gate_shed + [rid for rid, why in refused.items()
+                                        if why == "shed"]),
+            "refused": refused, "gate_wait": gate.estimated_wait(),
+            "stats": {key: decoder.stats[key] for key in (
+                "admission_shed", "completed")}}
+
+
+def tp_ops_tier(rank, params, config, mesh, base, prompt, other, max_new,
+                staggered):
+    """The host tier under LRU pressure: one conversation, a device
+    budget of three blocks that demotes its chain as another request's
+    harvest lands, then the conversation again (promoted).  Budgets in
+    this rank's blocks."""
+    from aiko_services_tpu_torch.observe.metrics import MetricsRegistry
+    from aiko_services_tpu_torch.serving import (ContinuousDecoder,
+                                                 PrefixKVCache)
+    from aiko_services_tpu_torch.serving_tiered import HostBlockStore
+
+    registry = MetricsRegistry()
+    cache = PrefixKVCache(block_tokens=8, max_bytes=64 << 20,
+                          registry=registry, name=f"tier{rank}")
+    store = HostBlockStore(max_bytes=64 << 20, name=f"tier{rank}h",
+                           registry=registry)
+    cache.attach_host_store(store)
+    decoder = ContinuousDecoder(params, config, mesh=mesh, paged_kv=True,
+                                kv_block=8, prefix_cache=cache,
+                                registry=registry, **base)
+    decoder.plan_digests = []
+    done = {}
+    _submit_phase(decoder, {"a": (prompt, max_new)}, done, rank, staggered)
+    cache.max_bytes = 3 * decoder.pool.block_nbytes
+    _submit_phase(decoder, {"c": (other, max_new)}, done, rank, staggered)
+    cache.max_bytes = 64 << 20
+    _submit_phase(decoder, {"a2": (prompt, max_new)}, done, rank, staggered)
+    node = next(iter(store._nodes.values()), None)
+    return {"tokens": done, "plans": decoder.plan_digests,
+            "cache": {key: cache.stats[key] for key in (
+                "demoted", "promoted", "evictions", "hit_tokens")},
+            "store": {key: store.stats[key] for key in (
+                "demoted", "promoted", "evicted", "refused")},
+            "host_heads": None if node is None else
+            tuple(next(iter(node.k_host.values())).shape)}
+
+
+def tp_ops(rank, world, geometries, flat, config_fields, base, prompts,
+           max_new, tier):
+    """Every scenario of tests/test_torch_tp_serving_ops.py on each mesh
+    of `geometries` (name → axes filling the group), each driven in
+    lockstep and staggered (requests at other rounds on each rank, each
+    rank's clock skewed)."""
+    from aiko_services_tpu_torch import bridge
+    from aiko_services_tpu_torch.models import llama as TL
+    from aiko_services_tpu_torch.parallel import create_mesh
+    from aiko_services_tpu_torch.parallel.sharding import local_shards
+
+    config = TL.LlamaConfig(**config_fields)
+    full = bridge.params_from_numpy(flat, config, device="cpu")
+    out = {}
+    for name, mesh_axes in geometries.items():
+        mesh = create_mesh(mesh_axes, device="cpu")
+        params, _ = local_shards(full, TL.llama_axes(config), mesh,
+                                 config=config)
+        results = {"model_rank": mesh.get_local_rank("model")}
+        for staggered in (False, True):
+            undo = _skewed(rank, staggered)
+            try:
+                args = (rank, params, config, mesh, base, prompts, max_new,
+                        staggered)
+                results[("weight_quant", staggered)] = \
+                    tp_ops_weight_quant(*args)
+                for deadline in (0.0, None):
+                    results[("drain", deadline, staggered)] = \
+                        tp_ops_drain(*args, deadline)
+                results[("deadlines", staggered)] = tp_ops_deadlines(*args)
+                results[("tier", staggered)] = tp_ops_tier(
+                    rank, params, config, mesh, tier["base"],
+                    tier["prompt"], tier["other"], tier["max_new"],
+                    staggered)
+            finally:
+                undo()
+        out[name] = results
+    return out
+
+
+# -- tests/test_torch_tp_agent_sessions.py -----------------------------------
+
+def _agent_definition(module, parameters):
+    return module.parse_pipeline_definition({
+        "version": 0, "name": "p_agent", "runtime": "jax",
+        "graph": ["(PE_LlamaAgent)"],
+        "parameters": {f"PE_LlamaAgent.{key}": value for key, value in {
+            "preset": "tiny", "max_tokens": 6, "prompt_length": 16,
+            **parameters}.items()},
+        "elements": [{
+            "name": "PE_LlamaAgent", "input": [{"name": "text"}],
+            "output": [{"name": "response"},
+                       {"name": "response_tokens"}],
+            "parameters": {}}]})
+
+
+def _await_staging(agent, timeout: float = 30.0) -> None:
+    """Wait until the host tier's promoter has staged every job it was
+    kicked for, so that which round a promotion lands in (the first
+    note after every rank staged it) does not hang on thread timing."""
+    import time
+
+    cache = agent.prefix_cache
+    if cache is None or not cache.tiered:
+        return
+    deadline = time.monotonic() + timeout
+    for job in list(cache.promoter._jobs.values()):
+        job.done.wait(max(0.0, deadline - time.monotonic()))
+
+
+def _agent_run(rank, mesh_axes, parameters, texts, staggered, settle):
+    """One agent pipeline on this rank's ComputeRuntime over the mesh:
+    every stream's turns one after another (staggered: each next turn
+    posted 3 * rank engine steps late, the engine clock and the serving
+    clock offset per rank); then the clock settled `settle` s, in which
+    the idle decoder's round notes apply rank 0's lease expiries, and
+    one more stream's frame."""
+    from aiko_services_tpu_torch import pipeline as TP
+    from aiko_services_tpu_torch.compute import ComputeRuntime
+    from aiko_services_tpu_torch.event import (EventEngine, VirtualClock,
+                                               settle_virtual)
+    from aiko_services_tpu_torch.parallel import create_mesh
+    from aiko_services_tpu_torch.process import ProcessRuntime
+    from aiko_services_tpu_torch.transport import MemoryBroker, MemoryMessage
+
+    undo = _skewed(rank, staggered)
+    engine = EventEngine(VirtualClock(250.0 * rank if staggered else 0.0))
+    broker = MemoryBroker()
+    runtime = ProcessRuntime(
+        name=f"agent{rank}", engine=engine,
+        transport_factory=lambda on_message, *_: MemoryMessage(
+            on_message=on_message, broker=broker)).initialize()
+    ComputeRuntime(runtime, "compute",
+                   mesh=create_mesh(mesh_axes, device="cpu"))
+    pipeline = TP.Pipeline(runtime, _agent_definition(TP, parameters),
+                           stream_lease_time=0)
+    done = []
+    pipeline.add_frame_handler(done.append)
+    for stream_id in list(texts) + ["s9"]:
+        pipeline.create_stream(stream_id, lease_time=0)
+    agent = next(node.element for node in pipeline.graph.nodes()
+                 if node.name == "PE_LlamaAgent")
+    agent.decoder.plan_digests = []
+    lag = 3 * rank if staggered else 0
+    turn_of = {stream_id: 0 for stream_id in texts}
+    posts = [(lag, stream_id, turns[0]) for stream_id, turns in
+             texts.items()]
+    responses, seen = {}, 0
+    total = sum(len(turns) for turns in texts.values())
+    try:
+        for step in range(20000):
+            for frame in done[seen:]:
+                stream_id = frame.stream_id
+                responses[(stream_id, turn_of[stream_id])] = [
+                    int(t) for t in frame.swag["response_tokens"]]
+                turn_of[stream_id] += 1
+                if turn_of[stream_id] < len(texts[stream_id]):
+                    posts.append((step + lag, stream_id,
+                                  texts[stream_id][turn_of[stream_id]]))
+            seen = len(done)
+            for due, stream_id, text in [p for p in posts if p[0] <= step]:
+                pipeline.post("process_frame", stream_id, {"text": text})
+            posts = [p for p in posts if p[0] > step]
+            if len(responses) == total:
+                break
+            engine.clock.advance(0.002)
+            _await_staging(agent)
+            engine.step()
+        settle_virtual(engine, settle)
+        sessions_settled = len(agent._session_table)
+        pipeline.post("process_frame", "s9", {"text": "one more"})
+        for _ in range(20000):
+            if len(done) > seen:
+                break
+            engine.clock.advance(0.002)
+            _await_staging(agent)
+            engine.step()
+        responses[("s9", 0)] = [int(t) for t in
+                                done[-1].swag["response_tokens"]]
+        cache = agent.prefix_cache
+        out = {"responses": responses,
+               "plans": agent.decoder.plan_digests,
+               "cache": {key: cache.stats[key] for key in (
+                   "demoted", "promoted", "hit_tokens", "session_handles",
+                   "session_released")},
+               "sessions": (sessions_settled, len(agent._session_table)),
+               "host_max": cache.host_store.max_bytes,
+               "cache_max": cache.max_bytes}
+    finally:
+        runtime.terminate()
+        undo()
+    return out
+
+
+def agent_sessions(rank, world, mesh_axes, agent_flat, parameters, texts,
+                   settle):
+    """PE_LlamaAgent with sessions and a host tier on this rank of
+    `mesh_axes`, its llama_init returning the JAX tree `agent_flat`:
+    the conversation in lockstep, then staggered with skewed clocks."""
+    from aiko_services_tpu_torch import bridge
+    from aiko_services_tpu_torch.models import llama as TL
+
+    def seeded(generator, config, device=None):
+        return bridge.params_from_numpy(agent_flat, config, device=device)
+
+    TL.llama_init = seeded
+    return {staggered: _agent_run(rank, mesh_axes, parameters, texts,
+                                  staggered, settle)
+            for staggered in (False, True)}
