@@ -20,6 +20,7 @@
 
 from __future__ import annotations
 
+import pickle
 import queue
 import threading
 import time
@@ -101,10 +102,18 @@ class ComputeRuntime(Actor):
     (sharded serving: each program's collectives pair up across the
     ranks; serving.py's header says how the decoder keeps them in
     step).  Batched programs' schedulers read the engine clock and are
-    drained by an engine timer every `drive_period` seconds, so each
-    rank forms its own batches: a batched program on a mesh of more than
-    one rank must make no collective call (the agent refuses its batched
-    mode there)."""
+    drained by an engine timer every `drive_period` seconds.  On a mesh
+    (one rank included) their batch cuts are agreed instead: one timer
+    drives every batched program, and each tick that has something
+    queued starts one host-side exchange over a gloo group of the mesh
+    (none on one rank) of every program's note (ops/batching.py: the
+    items each rank holds, by stream id and per-stream sequence, and
+    rank 0's cuts, by its clock and estimates); every rank then runs
+    the same batches in rank 0's order, so a program's collectives pair
+    up.  The exchange is asynchronous: a rank with items goes on serving
+    until the others' next tick with items completes it, and an idle
+    rank makes no call.  A sync caller's forced drain runs its own item
+    at once, as off a mesh."""
 
     def __init__(self, runtime, name: str = "compute", device=None,
                  drive_period: float = 0.005, mesh=None):
@@ -126,6 +135,11 @@ class ComputeRuntime(Actor):
         self._results_queue = f"compute.results.{name}"
         self._worker = None
         self._worker_queue = None
+        # the agreed batch cut on a mesh: its timer and gloo group, made
+        # at the first batched program
+        self._agree_timer = None
+        self._agree_group = None
+        self._agreement = None          # an exchange in flight
         runtime.event.add_queue_handler(self._deliver_results,
                                         self._results_queue)
         on_card = self.device.type == "cuda"
@@ -243,19 +257,102 @@ class ComputeRuntime(Actor):
             buckets = ShapeBuckets(buckets)
         gate = (lambda: in_flight["now"] < int(max_in_flight)) \
             if pipelined else None
+        room = (lambda: int(max_in_flight) - in_flight["now"]) \
+            if pipelined else None
+        agreed = self._mesh is not None
         scheduler = BatchingScheduler(process_batch, buckets,
                                       max_batch=max_batch,
                                       max_wait=max_wait,
                                       clock=self.runtime.event.clock.now,
                                       dispatch_gate=gate,
-                                      metrics_labels={"program": name})
+                                      metrics_labels={"program": name},
+                                      agreed=agreed, dispatch_room=room)
         program = CompiledProgram(name, fn, buckets, scheduler, {})
         program.in_flight = in_flight
         self.programs[name] = program
-        self._timers.append(scheduler.attach(self.runtime.event,
-                                             self.drive_period))
+        if not agreed:
+            self._timers.append(scheduler.attach(self.runtime.event,
+                                                 self.drive_period))
+        elif self._agree_timer is None:
+            if self._mesh.size() > 1:
+                # a gloo group of its own: the decoder's round notes
+                # gather on the default group, at other moments
+                import torch.distributed as dist
+                self._agree_group = dist.new_group(backend="gloo")
+            self._agree_timer = self.runtime.event.add_timer_handler(
+                self._agree_batches, self.drive_period)
+            self._timers.append(self._agree_timer)
         self.ec_producer.update("program_count", len(self.programs))
         return scheduler
+
+    def _agree_batches(self) -> None:
+        """On a mesh, one drive tick of every batched program: exchange
+        the programs' notes (ops/batching.py BatchingScheduler.note) when
+        this rank holds an item of any, and apply rank 0's cuts on every
+        rank (apply_note), program by program in rank 0's order.  On more
+        than one rank the exchange never blocks the event loop: its two
+        gathers (the notes' sizes, then their bytes) are asynchronous on
+        the runtime's own gloo group, polled at each tick, so a rank
+        waiting for the others' notes goes on serving (a decoder's round
+        note gathers meanwhile) and the exchange completes at a later
+        tick, the same exchange on every rank."""
+        schedulers = {name: program.scheduler
+                      for name, program in self.programs.items()
+                      if program.scheduler is not None and
+                      program.scheduler.agreed}
+        if self._agree_group is None:
+            mine = {name: note for name, note in
+                    ((name, scheduler.note(True))
+                     for name, scheduler in schedulers.items())
+                    if note is not None}
+            if mine:
+                self._apply_batch_notes(schedulers, [mine])
+            return
+        import torch.distributed as dist
+        if self._agreement is None:
+            lead = dist.get_rank(self._agree_group) == 0
+            mine = {name: note for name, note in
+                    ((name, scheduler.note(lead))
+                     for name, scheduler in schedulers.items())
+                    if note is not None}
+            if not mine:
+                return
+            payload = torch.frombuffer(bytearray(pickle.dumps(mine)),
+                                       dtype=torch.uint8)
+            size = torch.tensor([payload.numel()], dtype=torch.int64)
+            sizes = [torch.zeros_like(size) for _ in
+                     range(dist.get_world_size(self._agree_group))]
+            self._agreement = {"payload": payload, "sizes": sizes,
+                               "work": dist.all_gather(
+                                   sizes, size, group=self._agree_group,
+                                   async_op=True)}
+        agreement = self._agreement
+        if not agreement["work"].is_completed():
+            return
+        agreement["work"].wait()
+        if "notes" not in agreement:
+            longest = max(int(size) for size in agreement["sizes"])
+            padded = torch.zeros((longest,), dtype=torch.uint8)
+            padded[:agreement["payload"].numel()] = agreement["payload"]
+            agreement["notes"] = [torch.zeros_like(padded) for _ in
+                                  agreement["sizes"]]
+            agreement["work"] = dist.all_gather(
+                agreement["notes"], padded, group=self._agree_group,
+                async_op=True)
+            if not agreement["work"].is_completed():
+                return
+            agreement["work"].wait()
+        self._agreement = None
+        every = [pickle.loads(note[:int(size)].numpy().tobytes())
+                 for note, size in zip(agreement["notes"],
+                                       agreement["sizes"])]
+        self._apply_batch_notes(schedulers, every)
+
+    @staticmethod
+    def _apply_batch_notes(schedulers: dict, every: list) -> None:
+        for name in every[0]:
+            schedulers[name].apply_note([notes.get(name)
+                                         for notes in every])
 
     def submit(self, name: str, stream_id: str, payload, length: int,
                callback, deadline: float | None = None) -> None:

@@ -225,12 +225,13 @@ class PE_LlamaAgent(PipelineElement):
     disagg_timeout 5.0 and disagg_retries 1, falling back to local
     prefill, counted.  Weights are random, drawn from a torch.Generator
     seeded 0 on the ComputeRuntime's device.  On a ComputeRuntime mesh
-    the element serves this rank's shards in mode "continuous" or
-    "sync"; sessions (their lease expiries and idle demotions) and
-    host_kv_mb ride the decoder's round note, rank 0 deciding.  On a
-    mesh of more than one rank it refuses the batched mode (ROADMAP.md
-    Queue 1 item 3.2) and disagg (item 3.1): each would decide by the
-    rank's own clock."""
+    the element serves this rank's shards in every mode, rank 0
+    deciding every timed matter: the batched mode's cut is agreed by
+    the runtime (compute.py), so every rank runs the same batches;
+    sessions (their lease expiries and idle demotions), host_kv_mb and
+    disagg (rank 0's client alone sends a prompt, and every rank
+    installs its KV heads of the shipped blocks in the round rank 0's
+    landing rides) ride the decoder's round note."""
 
     contracts = {"in:text": "str", "out:response": "str",
                  "out:response_tokens": "i32[*]"}
@@ -311,25 +312,6 @@ class PE_LlamaAgent(PipelineElement):
             rank_config = config
         tokens = int(max_tokens)
         self.max_tokens = tokens
-        sharded = mesh is not None and mesh.size() > 1
-        if sharded:
-            # a mesh of more than one rank serves in lockstep, its timed
-            # decisions agreed in the decoder's round note (serving.py's
-            # header); what is not agreed yet is refused
-            timed = []
-            if parse_bool(self.get_parameter("disagg", False)[0], False):
-                timed.append("disagg (ROADMAP.md Queue 1 item 3.1: "
-                             "shipped KV blocks and disagg on a mesh)")
-            if self.mode == "batched":
-                timed.append("mode batched (ROADMAP.md Queue 1 item 3.2: "
-                             "the agent's batched mode on a mesh)")
-            if timed:
-                raise ValueError(
-                    f"agent element {self.name}: on a mesh of more than "
-                    f"one rank {' and '.join(timed)} would decide by "
-                    f"each rank's clock and the ranks would leave "
-                    f"lockstep")
-
         if self.mode == "continuous":
             self._setup_continuous(config, int(max_batch), mesh)
             self._setup_done = True

@@ -10,10 +10,21 @@
 # (estimated_wait, service_estimate, next_deadline, pending) is what an
 # admission gate (ops/admission.py) sheds on.  A dispatch gate bounds how
 # many batches the pipelined results path (compute.py) has in flight.
+#
+# On a mesh (one rank included) every rank runs the same batches, whose
+# collectives pair up across the ranks: the batch cut is agreed
+# (agreed=True, driven by ComputeRuntime's one agreement per drive tick).
+# Each item is named by its stream id and a per-stream sequence number,
+# never by its arrival time; every rank offers the items it holds (note),
+# rank 0 adds the cuts its clock and estimates decide, and every rank
+# dispatches, in rank 0's order, the items of those cuts that every rank
+# holds (apply_note).  An item some rank does not hold yet waits; one
+# whose content differs between ranks raises.
 
 from __future__ import annotations
 
 import bisect
+import hashlib
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -48,6 +59,28 @@ class BatchItem:
     callback: Callable          # callback(stream_id, result)
     bucket: int = 0
     deadline: float | None = None   # absolute completion target
+    key: tuple = ()                 # (stream id, per-stream sequence)
+    digest: str = ""                # agreed: the payload's content
+
+
+def _payload_digest(payload, length: int, deadline) -> str:
+    """What the ranks compare of one item: its host payload's bytes (an
+    array's dtype, shape and data; a card tensor's dtype and shape, which
+    reading would synchronize), its length and its deadline's presence."""
+    digest = hashlib.sha256(repr((int(length),
+                                  deadline is None)).encode())
+    data = getattr(payload, "numpy", None)
+    if getattr(payload, "device", None) is not None and \
+            getattr(payload.device, "type", "cpu") != "cpu":
+        digest.update(repr((str(payload.dtype),
+                            tuple(payload.shape))).encode())
+    elif data is not None or hasattr(payload, "tobytes"):
+        array = payload.numpy() if data is not None else payload
+        digest.update(repr((str(array.dtype), array.shape)).encode())
+        digest.update(array.tobytes())
+    else:
+        digest.update(repr(payload).encode())
+    return digest.hexdigest()[:16]
 
 
 @dataclass
@@ -68,7 +101,8 @@ class BatchingScheduler:
     def __init__(self, process_batch, buckets: ShapeBuckets,
                  max_batch: int = 32, max_wait: float = 0.05,
                  clock=time.monotonic, dispatch_gate=None,
-                 metrics_labels: dict | None = None):
+                 metrics_labels: dict | None = None,
+                 agreed: bool = False, dispatch_room=None):
         self.process_batch = process_batch
         self.buckets = buckets
         self.max_batch = max_batch
@@ -78,6 +112,13 @@ class BatchingScheduler:
         # (the pipelined path bounds how many batches are in flight on
         # the device at once)
         self.dispatch_gate = dispatch_gate
+        # agreed (on a mesh): drain() cuts nothing by this rank's clock;
+        # note() / apply_note() form the batches every rank runs, and
+        # dispatch_room() -> int (the pipelined path's free in-flight
+        # places, None: unbounded) is what each rank offers
+        self.agreed = bool(agreed)
+        self.dispatch_room = dispatch_room
+        self._sequence: dict[str, int] = {}
         self._lock = Lock("batching.scheduler")
         self._queues: dict[int, _Bucket] = {}
         # EWMA of recent per-batch service time (dispatch → results),
@@ -110,6 +151,11 @@ class BatchingScheduler:
         item = BatchItem(stream_id, payload, self.clock(), callback,
                          bucket, deadline)
         with self._lock:
+            if self.agreed:
+                number = self._sequence.get(stream_id, 0)
+                self._sequence[stream_id] = number + 1
+                item.key = (str(stream_id), number)
+                item.digest = _payload_digest(payload, length, deadline)
             self._queues.setdefault(bucket, _Bucket()).items.append(item)
 
     def observe_service_time(self, bucket: int, seconds: float) -> None:
@@ -176,7 +222,7 @@ class BatchingScheduler:
         batches_ahead = -(-joining // self.max_batch)   # ceil division
         return forming + batches_ahead * estimate
 
-    def _deadline_at_risk(self, bucket_key: int, bucket: _Bucket,
+    def _deadline_at_risk(self, bucket_key: int, items,
                           now: float) -> bool:
         """True when waiting any longer would likely miss the earliest
         deadline in this bucket: remaining slack has shrunk to the
@@ -184,36 +230,38 @@ class BatchingScheduler:
         estimate = self._service_ewma.get(bucket_key)
         if estimate is None:
             return False
-        earliest = min((i.deadline for i in bucket.items
+        earliest = min((i.deadline for i in items
                         if i.deadline is not None), default=None)
         return earliest is not None and earliest - now <= estimate
 
-    def _ready_bucket(self, now: float):
+    def _ready_bucket(self, now: float, queues=None):
         """A bucket is ready when full, its head item is older than
         max_wait, or its earliest deadline is at risk.  Oldest head
-        wins (FIFO fairness across buckets).  Returns
+        wins (FIFO fairness across buckets).  `queues` (bucket -> its
+        items) defaults to the live queues.  Returns
         (bucket_key, deadline_driven) or None."""
+        if queues is None:
+            queues = {key: bucket.items
+                      for key, bucket in self._queues.items()}
         best, best_age = None, -1.0
-        for bucket_key, bucket in self._queues.items():
-            if not bucket.items:
+        for bucket_key, items in queues.items():
+            if not items:
                 continue
-            age = now - bucket.items[0].enqueue_time
-            if len(bucket.items) >= self.max_batch:
+            age = now - items[0].enqueue_time
+            if len(items) >= self.max_batch:
                 age += 1e6          # full batch: dispatch first
             if age > best_age:
                 best, best_age = bucket_key, age
         if best is None:
             return None
-        bucket = self._queues[best]
-        if len(bucket.items) >= self.max_batch or \
+        if len(queues[best]) >= self.max_batch or \
                 best_age >= self.max_wait:
             return best, False
         # the at-risk test must cover EVERY bucket, not just the one
         # with the oldest head — a younger bucket can hold the tighter
         # deadline
-        for bucket_key, bucket in self._queues.items():
-            if bucket.items and self._deadline_at_risk(bucket_key,
-                                                       bucket, now):
+        for bucket_key, items in queues.items():
+            if items and self._deadline_at_risk(bucket_key, items, now):
                 return bucket_key, True
         return None
 
@@ -245,7 +293,11 @@ class BatchingScheduler:
 
     def drain(self, force: bool = False) -> int:
         """Dispatch ready batches; force=True flushes everything.  Returns
-        the number of items processed."""
+        the number of items processed.  Agreed: only force dispatches
+        here (a sync caller's own item, or teardown); the timed cuts
+        come from apply_note."""
+        if self.agreed and not force:
+            return 0
         processed = 0
         while True:
             now = self.clock()
@@ -273,35 +325,124 @@ class BatchingScheduler:
                 queue = self._queues[bucket_key].items
                 batch = [queue.popleft()
                          for _ in range(min(self.max_batch, len(queue)))]
-            # items are already popped: every callback MUST fire, or the
-            # stream's frame silently vanishes — errors fan out as results.
-            # process_batch may return None: it took ownership of the
-            # items and fires their callbacks itself (the pipelined
-            # results path: the device works on this batch while the
-            # next one collates)
-            deferred = False
-            try:
-                results = self.process_batch(bucket_key, batch)
-                if results is None:
-                    deferred = True
-                elif len(results) != len(batch):
-                    raise RuntimeError(
-                        f"process_batch returned {len(results)} results "
-                        f"for {len(batch)} items")
-            except Exception as exc:
-                results = [exc] * len(batch)
-            self.stats["batches"] += 1
-            self.stats["items"] += len(batch)
-            self.stats["batch_size_sum"] += len(batch)
-            self.stats["full_batches"] += \
-                int(len(batch) >= self.max_batch)
-            waits = [now - i.enqueue_time for i in batch]
-            self.stats["wait_sum"] += sum(waits)
-            self.recent_waits.extend(waits)
-            if not deferred:
-                for item, result in zip(batch, results):
-                    item.callback(item.stream_id, result)
+            self._dispatch(bucket_key, batch, now)
             processed += len(batch)
+
+    # -- the agreed cut (on a mesh) ------------------------------------------
+    def note(self, lead: bool) -> dict | None:
+        """This rank's part of one agreement: the items it holds (key,
+        digest) and its dispatch room; rank 0 (`lead`) adds its cuts,
+        the batches its clock and estimates make ready now (drain's
+        rule, run on a copy of its queues), each (bucket, deadline
+        driven, keys in order).  None when nothing is queued."""
+        now = self.clock()
+        with self._lock:
+            queues = {key: list(bucket.items)
+                      for key, bucket in self._queues.items()
+                      if bucket.items}
+            if not queues:
+                return None
+            mine = {"held": [(item.key, item.digest)
+                             for items in queues.values()
+                             for item in items],
+                    "room": None if self.dispatch_room is None
+                    else int(self.dispatch_room())}
+            if lead:
+                cuts = []
+                while True:
+                    ready = self._ready_bucket(now, queues)
+                    if ready is None:
+                        break
+                    bucket_key, deadline_driven = ready
+                    items = queues[bucket_key]
+                    take = min(self.max_batch, len(items))
+                    cuts.append((bucket_key, deadline_driven,
+                                 [item.key for item in items[:take]]))
+                    queues[bucket_key] = items[take:]
+                mine["cuts"] = cuts
+        return mine
+
+    def apply_note(self, every: list) -> int:
+        """Dispatch one agreement's batches on this rank, as every rank
+        does: `every` is each rank's note (None: that rank holds none of
+        this program's items).  Rank 0's cuts in order, each keeping the
+        items every rank holds, while every rank has dispatch room.
+        Raises when an item's content differs between ranks.  Returns
+        the items processed."""
+        lead = every[0]
+        if lead is None or not lead.get("cuts"):
+            return 0
+        held = [dict(note["held"]) if note is not None else {}
+                for note in every]
+        now = self.clock()
+        with self._lock:
+            items = {item.key: item for bucket in self._queues.values()
+                     for item in bucket.items}
+        for key, item in items.items():
+            for rank, theirs in enumerate(held):
+                if theirs.get(key, item.digest) != item.digest:
+                    raise RuntimeError(
+                        f"batch item {key} differs between this rank and "
+                        f"rank {rank}: the ranks of a mesh must be handed "
+                        f"the same items")
+        rooms = [note["room"] for note in every
+                 if note is not None and note["room"] is not None]
+        room = min(rooms) if rooms else None
+        processed = 0
+        for bucket_key, deadline_driven, keys in lead["cuts"]:
+            keys = [tuple(key) for key in keys]
+            kept = [key for key in keys
+                    if key in items and all(key in theirs
+                                            for theirs in held)]
+            if not kept:
+                continue
+            if room is not None and room <= 0:
+                self.stats["gated"] += 1
+                break
+            with self._lock:
+                queue = self._queues[bucket_key].items
+                chosen = set(kept)
+                batch = [items[key] for key in kept]
+                self._queues[bucket_key].items = type(queue)(
+                    item for item in queue if item.key not in chosen)
+            if deadline_driven:
+                self.stats["deadline_dispatches"] += 1
+            self._dispatch(bucket_key, batch, now)
+            processed += len(batch)
+            if room is not None:
+                room -= 1
+        return processed
+
+    def _dispatch(self, bucket_key: int, batch: list, now: float) -> None:
+        """Run one popped batch and fan its results out."""
+        # items are already popped: every callback MUST fire, or the
+        # stream's frame silently vanishes — errors fan out as results.
+        # process_batch may return None: it took ownership of the
+        # items and fires their callbacks itself (the pipelined
+        # results path: the device works on this batch while the
+        # next one collates)
+        deferred = False
+        try:
+            results = self.process_batch(bucket_key, batch)
+            if results is None:
+                deferred = True
+            elif len(results) != len(batch):
+                raise RuntimeError(
+                    f"process_batch returned {len(results)} results "
+                    f"for {len(batch)} items")
+        except Exception as exc:
+            results = [exc] * len(batch)
+        self.stats["batches"] += 1
+        self.stats["items"] += len(batch)
+        self.stats["batch_size_sum"] += len(batch)
+        self.stats["full_batches"] += \
+            int(len(batch) >= self.max_batch)
+        waits = [now - i.enqueue_time for i in batch]
+        self.stats["wait_sum"] += sum(waits)
+        self.recent_waits.extend(waits)
+        if not deferred:
+            for item, result in zip(batch, results):
+                item.callback(item.stream_id, result)
 
     def attach(self, engine, period: float = 0.005) -> int:
         """Drive from an EventEngine: a fast timer checks deadlines and

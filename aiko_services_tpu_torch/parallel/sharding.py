@@ -224,6 +224,19 @@ def local_config(config, mesh, rules: ShardingRules = None):
         head_shards=config.num_heads // widths["num_heads"])
 
 
+def kv_head_range(config, mesh, rules: ShardingRules = None) -> tuple:
+    """(first, stop) of this rank's KV heads of a (global) LlamaConfig on
+    `mesh`: the contiguous chunk local_shards cuts the K and V
+    projections' kv_heads axis to, so a whole KV block's rows [H, B, D]
+    sliced [first:stop] are what this rank's pool holds of it."""
+    rules = rules or DEFAULT_RULES
+    local = local_config(config, mesh, rules).num_kv_heads
+    axis = rules.rules.get("kv_heads")
+    index = mesh.get_local_rank(axis) \
+        if axis in (mesh.mesh_dim_names or ()) else 0
+    return index * local, (index + 1) * local
+
+
 def input_axis_max(mesh, axes_tree, rules: ShardingRules = None):
     """quantize_linear_tree's input_max for this rank's shards on
     `mesh`: a linear whose input axis maps to a mesh axis of more than

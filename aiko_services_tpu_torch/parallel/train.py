@@ -18,7 +18,7 @@
 #     is the unsharded step's: the model axis shards only what rests
 #     between steps, the parameters and the Adam moments.  Tensor-
 #     parallel compute inside the step's layers is not ported yet
-#     (ROADMAP.md Queue 1 item 3.3; the serving programs shard theirs:
+#     (ROADMAP.md Queue 1 item 3.1; the serving programs shard theirs:
 #     models/llama.py with a mesh);
 #   * a mesh of one shards nothing: the step is the unsharded one.
 # The loss is the global batch's, as JAX's is.  A loss_fn returns either

@@ -73,10 +73,14 @@
 # one rank included (there the gather is skipped, the decisions are
 # not); an idle decoder with nothing to agree makes no call.  It runs on
 # the mesh's gloo group (a gloo group beside an NCCL mesh), so it adds
-# no device sync.  Still refused on a mesh of more than one rank:
-# shipped KV blocks (the disaggregated path's transfers time out by
-# each rank's clock), and elsewhere the agent's disagg and batched mode
-# (ROADMAP.md Queue 1 items 3.1, 3.2).  The SLO stamps and journeys read
+# no device sync.  A host-tier promotion is kicked at the note that
+# agrees its arrival (every rank kicks the same job) and lands at a later
+# note, the AND of the ranks' staged jobs; the admit waits for it, within
+# rank 0's bound of notes (promote_wait_notes), then stages inline.
+# Shipped KV blocks land by note hook: rank 0's PrefillClient alone
+# sends, times out and falls back, and every rank installs its KV heads
+# of the shipped rows in the round rank 0's landing rides
+# (serving_disagg.py).  The SLO stamps and journeys read
 # each rank's clock but decide nothing.  Every rank must be handed every
 # request and every drain or resume call: one that some rank never
 # receives waits in the others' note, and their next agreement waits for
@@ -501,6 +505,7 @@ class PrefixKVCache:
         self._pool = None
         self._dense_bound = False
         self._agreed = False            # bound by a decoder on a mesh
+        self.sharded = False            # ... of more than one rank
         # the host tier: an attached HostBlockStore turns eviction of
         # pool blocks into demotion, and its promoter re-lands them
         self._host = None
@@ -530,7 +535,8 @@ class PrefixKVCache:
 
     # -- binding -----------------------------------------------------------
     def bind(self, layout: tuple, paged: bool = False,
-             device=None, agreed: bool = False) -> None:
+             device=None, agreed: bool = False,
+             sharded: bool = False) -> None:
         """Record (and enforce) the storage layout this cache holds:
         decoders sharing a cache must agree on (layers, KV heads, head
         dim, dtype, int8-ness, block size), or a hit would land rows of
@@ -540,7 +546,8 @@ class PrefixKVCache:
         pool id are unreadable to the other).  `device` is where a
         dense cache's installed rows land.  `agreed`: the binder serves
         on a mesh, whose round note decides when a promotion lands
-        (serving.py's header)."""
+        (serving.py's header); `sharded`: a mesh of more than one rank,
+        whose blocks hold this rank's KV heads only."""
         if self._layout is None:
             self._layout = tuple(layout)
         elif self._layout != tuple(layout):
@@ -552,6 +559,7 @@ class PrefixKVCache:
             self._agreed = True
             if self._promoter is not None:
                 self._promoter.agreed = True
+        self.sharded = self.sharded or bool(sharded)
         if device is not None and self._device is None:
             self._device = torch.device(device)
 
@@ -669,6 +677,23 @@ class PrefixKVCache:
         if self._promoter is None:
             return 0
         return self._promoter.land(jobs)
+
+    def promotion_pending(self, tenant: str, tokens) -> bool:
+        """Bound on a mesh: an agreed kick of this prompt's chain tail
+        lands at a later round note, and its admit waits for it."""
+        return self._promoter is not None and \
+            self._promoter.pending(tenant, tokens)
+
+    @property
+    def promotions_inflight(self) -> bool:
+        """Kicked promotions that have not landed (or been given up)."""
+        return self._promoter is not None and self._promoter.inflight
+
+    def age_promotions(self, bound: int) -> None:
+        """Bound on a mesh: one more round note passed; agreed kicks
+        older than `bound` notes that did not land are given up."""
+        if self._promoter is not None:
+            self._promoter.age(bound)
 
     def poll_promotions(self) -> int:
         """Land staged async promotions (event loop only; a no-op when
@@ -1965,9 +1990,15 @@ class ContinuousDecoder:
         # on any mesh, one rank included, every decision that reads a
         # clock or a thread's timing rides the round note (_round_note)
         self.agreed = mesh is not None
+        # on a mesh: this rank's KV heads of the model's, and how many
+        # the model has (a shipped block carries them all)
+        self.kv_heads = None
         if mesh is not None:
-            from .parallel.sharding import local_config, mesh_device
+            from .parallel.sharding import (kv_head_range, local_config,
+                                            mesh_device)
             if config.head_shards == 1:
+                self.kv_heads = kv_head_range(config, mesh) + \
+                    (config.num_kv_heads,)
                 config = local_config(config, mesh)
             device = mesh_device(mesh)
             table = params["embed"]["table"]
@@ -2060,7 +2091,8 @@ class ContinuousDecoder:
                            self.kv_int8, self.kv_block, itemsize)
         if prefix_cache is not None:
             prefix_cache.bind(self._kv_layout, paged=self.paged,
-                              device=self.device, agreed=self.agreed)
+                              device=self.device, agreed=self.agreed,
+                              sharded=self.sharded)
             if not self.paged and prefix_cache.paged:
                 raise ValueError(
                     "prefix cache holds paged (pool-resident) blocks; a "
@@ -2111,6 +2143,10 @@ class ContinuousDecoder:
         self._note_hooks: list = []
         self.note_clock: float | None = None
         self._agreed_wait: float | None = None
+        # round notes an agreed host-tier kick may take to land before
+        # its admit stages the chain inline (rank 0's value rides the
+        # note)
+        self.promote_wait_notes = 8
         # admit output stash: (firsts device tensor, [(row, request)])
         # per dispatch, resolved at the NEXT round's sync
         self._admit_waves: list = []
@@ -2242,17 +2278,20 @@ class ContinuousDecoder:
         before the first note."""
         return self._agreed_wait
 
-    def add_note_hook(self, propose, apply, pending=None) -> None:
+    def add_note_hook(self, propose, apply, pending=None,
+                      every: bool = False) -> None:
         """On a mesh: at every round note each rank calls propose()
         (a picklable value, consumed), and every rank then calls
         apply(value) in that round with rank 0's value, when it is
-        truthy.  How a timed decision made outside the decoder (the
-        agent's session expiries) reaches every rank in the same round.
-        A proposal rides the next note; while `pending()` is true an
+        truthy (`every`: apply(values) with every rank's value, in rank
+        order, at every note).  How a timed decision made outside the
+        decoder (the agent's session expiries, a disaggregated
+        transfer's landing) reaches every rank in the same round.  A
+        proposal rides the next note; while `pending()` is true an
         idle decoder makes one, as it does for an arrival (on more than
         one rank it waits in the gather for the other ranks' next note,
         which their own proposals or arrivals make)."""
-        self._note_hooks.append((propose, apply, pending))
+        self._note_hooks.append((propose, apply, pending, every))
 
     def _note_prefill_rate(self, tokens: int, elapsed: float) -> None:
         """Fold one prefill dispatch's (tokens, wall) into the per-token
@@ -2315,10 +2354,8 @@ class ContinuousDecoder:
         TraceContext, and claims the admission note posted for it.
         Prompts keep their tail up to the largest bucket (up to max_seq
         - 1 with chunked prefill); an empty prompt becomes one pad
-        token.  A decoder on a mesh of more than one rank refuses
-        `kv_blocks` (ValueError: a shipped install lands by each rank's
-        own clock; ROADMAP.md Queue 1 item 3.1); request ids must be unique
-        among the queued ones on a mesh.
+        token; request ids must be unique among the queued ones on a
+        mesh.
 
         For disaggregated serving: `prefill_label` names the request's
         TTFT / journey population ("remote"); `kv_blocks` (covered
@@ -2326,15 +2363,14 @@ class ContinuousDecoder:
         installed by install_shipped_blocks for the prompt's head, which
         admit aliases into the slot (ownership passes on acceptance
         only; a whole-prompt cover drops its last block so one suffix
-        token remains); `progress_callback(request, finished)` runs
-        after each prefill chunk lands."""
+        token remains): on a mesh each rank hands over the ids of its
+        own head slices of the blocks, installed in the same round on
+        every rank (PrefillClient applies rank 0's landing at a round
+        note), and the request's admit, in that round or later, is
+        ordered after the install's copies by the stream; `progress_callback(
+        request, finished)` runs after each prefill chunk lands."""
         from .observe.journey import RequestJourney, take_admission_note
         from .observe.tracing import current_trace
-        if kv_blocks and self.sharded:
-            raise ValueError(
-                "a decoder on a mesh refuses shipped KV blocks: each "
-                "rank's transfer lands at its own moment (ROADMAP.md "
-                "Queue 1 item 3.1)")
         now = time.monotonic()
         # the request claims the admission note posted for its trace
         context = current_trace()
@@ -2459,8 +2495,35 @@ class ContinuousDecoder:
     def kv_wire_layout(self) -> tuple:
         """The storage layout as wire-safe string fields: what a
         cacheless paged decoder matches a transfer's donor layout
-        against (PrefixKVCache.wire_layout's twin)."""
-        return tuple(str(f) for f in self._kv_layout)
+        against (PrefixKVCache.wire_layout's twin).  On a mesh the
+        model's: a shipped block carries every KV head, of which this
+        rank keeps its own (shard_kv_blocks)."""
+        layout = list(self._kv_layout)
+        if self.kv_heads is not None:
+            layout[1] = self.kv_heads[2]
+        return tuple(str(f) for f in layout)
+
+    def shard_kv_blocks(self, blocks) -> list:
+        """Shipped blocks ([{"k": per-layer leaves, "v": ...}], leaves
+        [H, B, D] host arrays, int8 {"q", "s"} dicts) cut to this rank's
+        KV heads on a mesh (parallel.sharding.kv_head_range); unchanged
+        off one.  A block whose head count is not the model's raises
+        ValueError, before any row lands."""
+        if self.kv_heads is None:
+            return list(blocks)
+        first, stop, total = self.kv_heads
+
+        def cut(leaf):
+            if isinstance(leaf, dict):
+                return {name: cut(plane) for name, plane in leaf.items()}
+            if leaf.shape[0] != total:
+                raise ValueError(
+                    f"a shipped block holds {leaf.shape[0]} KV heads, the "
+                    f"model {total}")
+            return leaf[first:stop]
+
+        return [{side: [cut(leaf) for leaf in block[side]]
+                 for side in ("k", "v")} for block in blocks]
 
     def install_shipped_blocks(self, tokens, start_block: int,
                                blocks, tenant: str = "") -> tuple:
@@ -2470,8 +2533,9 @@ class ContinuousDecoder:
         for these blocks; the caller owns the ids (and releases them on
         a refused submit).  `start_block` > 0 continues a chunk-streamed
         install whose earlier ids the caller holds: contiguity is the
-        caller's.  Raises ValueError on a geometry mismatch, before any
-        row lands."""
+        caller's.  On a mesh the blocks carry the model's KV heads and
+        each rank installs its own (shard_kv_blocks).  Raises ValueError
+        on a geometry mismatch, before any row lands."""
         if not self.paged:
             raise ValueError("install_shipped_blocks needs a paged decoder")
         start = int(start_block)
@@ -2479,7 +2543,7 @@ class ContinuousDecoder:
             raise ValueError(f"negative start_block {start}")
         block = self.kv_block
         count = min(len(blocks), max(0, len(tokens) // block - start))
-        entries = blocks[:count]
+        entries = self.shard_kv_blocks(blocks[:count])
         for entry in entries:
             check_block_geometry(self._kv_layout, block, entry)
         if not entries:
@@ -2525,18 +2589,20 @@ class ContinuousDecoder:
         ranks' next such round.  Every rank then applies rank 0's
         decisions (_apply_note).  Raises when one request id carries
         other content on another rank."""
-        busy = self.active_count or self._pending or self._admit_waves
+        cache = self.prefix_cache
+        busy = self.active_count or self._pending or self._admit_waves or \
+            (cache is not None and cache.tiered and
+             cache.promotions_inflight)
         if not busy and not self._arrivals and not self._calls and \
                 not any(pending is not None and pending()
-                        for _, _, pending in self._note_hooks):
+                        for _, _, pending, _ in self._note_hooks):
             return
-        cache = self.prefix_cache
         mine = {"arrivals": [(r.request_id, r.agree_key)
                              for r in self._arrivals],
                 "calls": [call["note"] for call in self._calls],
                 "landed": cache.landed_promotions()
                 if cache is not None and cache.tiered else [],
-                "hooks": [propose() for propose, _, _ in self._note_hooks]}
+                "hooks": [hook[0]() for hook in self._note_hooks]}
         if self.sharded:
             import torch.distributed as dist
             lead = dist.get_rank(self._agree_group) == 0
@@ -2546,6 +2612,7 @@ class ContinuousDecoder:
             now = time.monotonic()
             mine["clock"] = now
             mine["wait"] = self.estimated_admit_wait()
+            mine["promote_bound"] = self.promote_wait_notes
             mine["verdicts"] = {r.request_id: (self._sheds(r, now),
                                                r.deadline, r.calls_before)
                                 for r in self._arrivals}
@@ -2555,6 +2622,18 @@ class ContinuousDecoder:
         else:
             every = [mine]
         self._apply_note(every)
+
+    def admit_agreed(self, request_id: str, shed: bool,
+                     deadline: float | None) -> None:
+        """Inside a note hook's apply, on a mesh: the arrival this rank
+        has just submitted, which every rank submits in that same apply,
+        joins the queue at once (or is refused), with rank 0's shed
+        verdict and deadline, as an arrival the note agreed."""
+        request = next(r for r in self._arrivals
+                       if r.request_id == request_id)
+        self._arrivals.remove(request)
+        self._agreed_arrival(request, {"verdicts": {
+            request_id: (bool(shed), deadline, self._calls_applied)}})
 
     def _sheds(self, request: DecodeRequest, now: float) -> bool:
         """Rank 0's deadline verdict on one arrival, at the note: the
@@ -2578,14 +2657,22 @@ class ContinuousDecoder:
         lead = every[0]
         self.note_clock = lead["clock"]
         self._agreed_wait = lead["wait"]
-        for (_, apply, _), value in zip(self._note_hooks, lead["hooks"]):
-            if value:
-                apply(value)
+        for index, (_, apply, _, every_rank) in \
+                enumerate(self._note_hooks):
+            if every_rank:
+                apply([note["hooks"][index] for note in every])
+            elif lead["hooks"][index]:
+                apply(lead["hooks"][index])
+        cache = self.prefix_cache
         if lead["landed"]:
             held = [set(note["landed"]) for note in every]
-            self.prefix_cache.land_promotions(
+            cache.land_promotions(
                 [job for job in lead["landed"]
                  if all(job in theirs for theirs in held)])
+        if cache is not None and cache.tiered:
+            # an agreed kick not landed within rank 0's bound of notes
+            # is given up on every rank: its admit stages inline
+            cache.age_promotions(lead["promote_bound"])
         keys = [dict(note["arrivals"]) for note in every]
         for request in self._arrivals:
             for rank, theirs in enumerate(keys):
@@ -3112,6 +3199,13 @@ class ContinuousDecoder:
                     continue
             if cache is not None and not request.prefix_probed:
                 if cache.tiered:
+                    if cache.promotion_pending(request.tenant,
+                                               request.prompt):
+                        # on a mesh: the agreed kick of this chain lands
+                        # at a later note; admit then, on its hits
+                        deferred.append(request)    # keeps its FIFO
+                        index += 1                  # rank, no slot
+                        continue
                     # whatever of the chain still lives on the host
                     # must be device-resident before the probe: a
                     # staged prefetch installs at once, else it stages

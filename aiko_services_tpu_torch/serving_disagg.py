@@ -52,6 +52,7 @@ from .observe import tracing
 from .observe.metrics import MirroredStats, default_registry
 from .ops.admission import DeadlineRouter
 from .service import ServiceFilter, ServiceProtocol, ServiceTags
+from .serving import check_block_geometry
 from .transport import wire
 from .utils import get_logger
 
@@ -275,6 +276,12 @@ class PrefillRuntime(Actor):
                  pump_period: float = 0.002,
                  batch_window: float = 0.0,
                  chunk_stream: bool | None = None, registry=None):
+        if decoder is not None and decoder.sharded:
+            raise ValueError(
+                "a PrefillRuntime's decoder on a mesh of more than one "
+                "rank would ship this rank's KV heads of each block as "
+                "the whole block: the prefill side serves unsharded "
+                "(ROADMAP.md Queue 1 item 3.3)")
         super().__init__(runtime, name, PROTOCOL_PREFILL,
                          tags=[role_tag(ROLE_PREFILL)])
         from .serving import ContinuousDecoder, PrefixKVCache
@@ -305,6 +312,7 @@ class PrefillRuntime(Actor):
             raise ValueError(
                 "PrefillRuntime needs a decoder with a bound "
                 "PrefixKVCache (the harvest is what it ships)")
+
         # chunk streaming: ship each chunk's finished blocks as the chunk
         # lands, overlapping the transfer with the rest of the prefill.
         # On whenever chunked prefill is on
@@ -532,7 +540,21 @@ class PrefillClient:
     Failures degrade in order: a retry against another candidate, then
     local prefill on the decode runtime.  Every rung is counted; none
     drops the request.  Single-threaded on the owning runtime's engine,
-    like the decoder it feeds."""
+    like the decoder it feeds.
+
+    On a mesh (the decoder's, one rank included) every rank's client is
+    handed every request, and rank 0's alone sends it, owns its
+    transfer's timeout, retries and local fallback, and reads its clock
+    and cache: what it decides (a streamed chunk's or the final
+    envelope's landing, with the shipped rows, a fallback to local
+    prefill, a retry's release of streamed blocks) rides the decoder's
+    round note (a note hook), and every rank applies it in that round,
+    once every rank holds the request.  A landing installs each rank's
+    own KV heads of the rows (ContinuousDecoder.shard_kv_blocks) and
+    submits the request, agreed at once with rank 0's verdict and
+    deadline (admit_agreed); its admit, at the next round, is ordered
+    after the install's copies by the stream.  The other ranks' clients
+    send nothing."""
 
     def __init__(self, runtime, decoder, services_cache=None,
                  name: str = "disagg",
@@ -593,6 +615,19 @@ class PrefillClient:
             "prefill request -> installed KV wall seconds",
             labels={"client": name})
         self.transfer_samples: deque = deque(maxlen=4096)
+        # on a mesh: each rank's requests awaiting rank 0's decision (by
+        # request id), and rank 0's decisions not yet applied, numbered
+        self.agreed = bool(getattr(decoder, "agreed", False))
+        self.lead = True
+        self._held: dict[str, dict] = {}
+        self._decisions: list = []
+        self._decided = 0
+        if self.agreed:
+            if decoder.sharded:
+                import torch.distributed as dist
+                self.lead = dist.get_rank(decoder._agree_group) == 0
+            decoder.add_note_hook(self._note_propose, self._note_apply,
+                                  self._note_pending, every=True)
         self._cache_handler = None
         if services_cache is not None:
             self._services_cache = services_cache
@@ -658,6 +693,22 @@ class PrefillClient:
             return self._local(request_id, prompt, max_new_tokens,
                                callback, deadline, tenant, on_refused,
                                notify=False)
+        entry = {
+            "request_id": str(request_id), "prompt": prompt,
+            "max_new": int(max_new_tokens), "callback": callback,
+            "deadline": deadline, "tenant": tenant,
+            "on_refused": on_refused, "attempts": 0,
+            "started": time.perf_counter(),
+            "trace": tracing.current_trace(),
+        }
+        if self.agreed:
+            if entry["request_id"] in self._held:
+                raise ValueError(
+                    f"request id {request_id!r} is in flight already: "
+                    f"the ranks of a mesh agree a transfer by request id")
+            self._held[entry["request_id"]] = entry
+            if not self.lead:
+                return True         # rank 0 decides; the note applies
         have = 0
         if self.cache is not None:
             _, have = self.cache.match(tenant_key, prompt)
@@ -670,28 +721,17 @@ class PrefillClient:
             if complete and have >= complete:
                 # the decode side holds the whole chain: a remote hop
                 # would ship nothing, so prefix-admit locally
-                self.stats["local_cached"] += 1
-                return self._local(request_id, prompt, max_new_tokens,
-                                   callback, deadline, tenant,
-                                   on_refused, notify=False)
+                return self._effect("local", entry, stat="local_cached",
+                                    notify=False)
         remaining = None
         if deadline is not None:
             remaining = float(deadline) - time.monotonic()
         target = self.router.route(self.loads, remaining)
         if target is None:
-            self.stats["local_no_pool"] += 1
-            return self._local(request_id, prompt, max_new_tokens,
-                               callback, deadline, tenant, on_refused,
-                               notify=False)
+            return self._effect("local", entry, stat="local_no_pool",
+                                notify=False)
         transfer_id = f"kv-{uuid.uuid4().hex[:12]}"
-        entry = {
-            "request_id": str(request_id), "prompt": prompt,
-            "max_new": int(max_new_tokens), "callback": callback,
-            "deadline": deadline, "tenant": tenant,
-            "on_refused": on_refused, "attempts": 0,
-            "started": time.perf_counter(),
-            "trace": tracing.current_trace(), "target": target,
-        }
+        entry["target"] = target
         self._pending[transfer_id] = entry
         self._send(transfer_id, entry, target, have)
         return True
@@ -729,10 +769,14 @@ class PrefillClient:
     def _drop_chunks(self, entry: dict) -> None:
         """Forget a transfer's streamed-chunk progress.  Cache installs
         stay (content-addressed: a retry's have probe reuses them);
-        direct pool blocks belong to the stream and are released."""
+        direct pool blocks belong to the stream and are released (on a
+        mesh by every rank, at the note)."""
         entry.pop("chunk_next", None)
         entry.pop("chunk_first", None)
         entry.pop("chunk_base", None)
+        self._effect("drop", entry)
+
+    def _release_direct(self, entry: dict) -> None:
         ids = entry.pop("direct_ids", None)
         if ids:
             self.decoder.pool.release_blocks(
@@ -771,18 +815,104 @@ class PrefillClient:
         # rung 2: local prefill, counted, never dropped
         self._pending.pop(transfer_id, None)
         self._drop_chunks(entry)
-        self.stats["local_fallbacks"] += 1
         self.logger.warning(
             "disagg %s: transfer %s to %s gave up after %d attempt(s); "
             "prefilling locally", self.name, transfer_id, target,
             entry["attempts"] + 1)
-        self._local_entry(entry)
+        self._effect("local", entry, stat="local_fallbacks")
 
     def _local_entry(self, entry: dict) -> bool:
         return self._local(entry["request_id"], entry["prompt"],
                            entry["max_new"], entry["callback"],
                            entry["deadline"], entry["tenant"],
                            entry["on_refused"])
+
+    def _in_range(self, out: dict) -> int:
+        """How many of a transfer's blocks its tokens cover (the ones an
+        install writes)."""
+        return max(0, len(out["tokens"]) // self.block_tokens -
+                   int(out["start_block"]))
+
+    # -- decisions: applied at once, or on a mesh at the round note ---------
+    def _effect(self, kind: str, entry: dict, **args):
+        """Apply one decision ("local", "chunk", "land", "drop") to
+        `entry` now; on a mesh queue it for the decoder's next round
+        note, where every rank applies it (_note_apply).  Returns what
+        a local submit returned (True when queued)."""
+        if self.agreed:
+            self._decided += 1
+            self._decisions.append((self._decided, kind,
+                                    entry["request_id"], args))
+            return True
+        return getattr(self, f"_apply_{kind}")(entry, **args)
+
+    def _apply_local(self, entry: dict, stat=(), notify: bool = True,
+                     verdict=None) -> bool:
+        """The local-prefill rung for `entry`, counting `stat` (a name
+        or names); on a mesh (`verdict`: rank 0's shed verdict and
+        deadline) the request is agreed at once."""
+        for name in (stat,) if isinstance(stat, str) else stat:
+            self.stats[name] += 1
+        accepted = self._local(entry["request_id"], entry["prompt"],
+                               entry["max_new"], entry["callback"],
+                               entry["deadline"], entry["tenant"],
+                               entry["on_refused"], notify=notify)
+        if verdict is not None:
+            self.decoder.admit_agreed(entry["request_id"], *verdict)
+        return accepted
+
+    def _apply_drop(self, entry: dict, verdict=None) -> None:
+        entry.pop("applied_next", None)
+        self._release_direct(entry)
+
+    def _note_pending(self) -> bool:
+        """An idle decoder makes round notes while a request waits for
+        rank 0's decision, or one waits to be applied."""
+        return bool(self._held) or bool(self._decisions)
+
+    def _note_propose(self) -> dict:
+        """This rank's part of the note: the requests it holds; rank 0's
+        adds its decisions, each submitting one with rank 0's verdict
+        (shed or not, by its clock and admit-wait estimate, as an
+        arrival's) and deadline."""
+        value = {"held": sorted(self._held)}
+        if self.lead and self._decisions:
+            now = time.monotonic()
+            decisions = []
+            for number, kind, request_id, args in self._decisions:
+                entry = self._held.get(request_id)
+                if kind in ("local", "land") and entry is not None:
+                    deadline = entry["deadline"]
+                    wait = self.decoder.estimated_admit_wait(
+                        prompt=entry["prompt"],
+                        tenant=str(entry["tenant"] or ""))
+                    shed = deadline is not None and wait is not None and \
+                        now + wait >= float(deadline)
+                    args = {**args, "verdict": (shed, deadline)}
+                decisions.append((number, kind, request_id, args))
+            value["decisions"] = decisions
+        return value
+
+    def _note_apply(self, values: list) -> None:
+        """Apply rank 0's decisions on this rank, in order, for the
+        requests every rank holds (a later decision of a request some
+        rank does not hold yet waits with it); a request leaves the held
+        set at its landing or fallback."""
+        held = set.intersection(*(set(value["held"]) for value in values))
+        waiting, applied = set(), set()
+        for number, kind, request_id, args in \
+                values[0].get("decisions", ()):
+            if request_id not in held or request_id in waiting:
+                waiting.add(request_id)
+                continue
+            entry = self._held[request_id]
+            if kind in ("local", "land"):
+                del self._held[request_id]
+            getattr(self, f"_apply_{kind}")(entry, **args)
+            applied.add(number)
+        if applied:
+            self._decisions = [decision for decision in self._decisions
+                               if decision[0] not in applied]
 
     def _local(self, request_id, prompt, max_new, callback, deadline,
                tenant, on_refused, notify: bool = True) -> bool:
@@ -843,8 +973,13 @@ class PrefillClient:
         self._handle_transfer(payload, command, params)
 
     def _local_layout(self) -> tuple:
-        return self.cache.wire_layout() if self.cache is not None \
-            else self.decoder.kv_wire_layout()
+        """The layout a transfer must declare: the cache's (or the
+        cacheless decoder's); on a mesh the model's, whose KV heads
+        each rank cuts to its own at the install."""
+        if self.cache is not None and \
+                getattr(self.decoder, "kv_heads", None) is None:
+            return self.cache.wire_layout()
+        return self.decoder.kv_wire_layout()
 
     def _handle_transfer(self, payload, command, params) -> None:
         try:
@@ -862,7 +997,6 @@ class PrefillClient:
         entry = self._settle(out["transfer_id"])
         if entry is None:
             return              # a late duplicate after timeout/fallback
-        chunk_first = entry.get("chunk_first")
         # out["first_token"] goes unused: the decode-side suffix extend
         # recomputes the first token, so parity never depends on donor
         # state (the field is a wire-level diagnostic)
@@ -870,35 +1004,68 @@ class PrefillClient:
         self.stats["transfer_bytes"] += len(payload)
         self._transfer_seconds.observe(elapsed)
         self.transfer_samples.append(elapsed)
-        tenant_key = str(entry["tenant"] or "")
         local_layout = self._local_layout()
         if out["blocks"] and \
                 tuple(str(f) for f in out["layout"]) != local_layout:
-            self.stats["layout_mismatch"] += 1
-            self.stats["local_fallbacks"] += 1
             self.logger.warning(
                 "disagg %s: transfer %s layout %r does not match the "
                 "decode cache %r; prefilling locally", self.name,
                 out["transfer_id"], out["layout"], local_layout)
             self._drop_chunks(entry)
-            self._local_entry(entry)
+            self._effect("local", entry,
+                         stat=("layout_mismatch", "local_fallbacks"))
             return
         blocks = _landing(out["blocks"])
+        try:
+            for block in blocks[:self._in_range(out)]:
+                check_block_geometry(local_layout, self.block_tokens, block)
+        except (ValueError, TypeError, IndexError) as exc:
+            self._refused_install(entry, out["transfer_id"], exc)
+            return
+        # a streamed transfer's final start_block sits at the chunk
+        # cursor: only blocks below the stream's low-water mark crossed
+        # as handles
+        handle = out["start_block"]
+        base = entry.get("chunk_base")
+        if base is not None:
+            handle = min(handle, int(base))
+        self._effect("land", entry, tokens=out["tokens"],
+                     start=out["start_block"], blocks=blocks,
+                     handle=handle, raw=len(out["blocks"]),
+                     transfer_id=out["transfer_id"], nbytes=len(payload),
+                     elapsed=elapsed)
+
+    def _refused_install(self, entry: dict, transfer_id: str, exc) -> None:
+        # schema-legal but geometry-wrong blocks are refused before any
+        # row lands; the ladder prefills locally
+        self.logger.warning(
+            "disagg %s: transfer %s refused at install (%s); "
+            "prefilling locally", self.name, transfer_id, exc)
+        self._drop_chunks(entry)
+        self._effect("local", entry,
+                     stat=("transfer_corrupt", "local_fallbacks"))
+
+    def _apply_land(self, entry: dict, tokens, start: int, blocks,
+                    handle: int, raw: int, transfer_id: str, nbytes: int,
+                    elapsed: float, verdict=None) -> None:
+        """Install a final envelope's blocks (this rank's KV heads of
+        them on a mesh) and submit the request."""
+        tenant_key = str(entry["tenant"] or "")
         direct_ids: list = []
         try:
             if self.cache is not None:
                 installed = self.cache.install_chain(
-                    tenant_key, out["tokens"], out["start_block"], blocks)
+                    tenant_key, tokens, start,
+                    self.decoder.shard_kv_blocks(blocks))
             else:
                 # direct slot-table install: streamed chunks landed a
                 # contiguous prefix already; the final span must continue
                 # it exactly (the ordered-cursor guard), or the prefix
                 # alone is used
                 prior = entry.get("direct_ids") or []
-                start = out["start_block"]
-                if prior and entry.get("chunk_next") == start:
+                if prior and entry.get("applied_next") == start:
                     _, ids = self.decoder.install_shipped_blocks(
-                        out["tokens"], start, blocks, tenant=tenant_key)
+                        tokens, start, blocks, tenant=tenant_key)
                     direct_ids = prior + ids
                 elif prior:
                     self.stats["chunk_dropped"] += 1
@@ -910,32 +1077,23 @@ class PrefillClient:
                             f"(start_block={start}) with no streamed "
                             "prefix")
                     _, direct_ids = self.decoder.install_shipped_blocks(
-                        out["tokens"], 0, blocks, tenant=tenant_key)
+                        tokens, 0, blocks, tenant=tenant_key)
                 entry.pop("direct_ids", None)
                 installed = len(direct_ids)
                 self.stats["direct_installs"] += 1
         except (ValueError, TypeError, IndexError) as exc:
-            # schema-legal but geometry-wrong blocks are refused before
-            # any row lands; the ladder prefills locally
-            self.stats["transfer_corrupt"] += 1
-            self.stats["local_fallbacks"] += 1
             self.logger.warning(
                 "disagg %s: transfer %s refused at install (%s); "
-                "prefilling locally", self.name, out["transfer_id"], exc)
-            self._drop_chunks(entry)
-            self._local_entry(entry)
+                "prefilling locally", self.name, transfer_id, exc)
+            self._release_direct(entry)
+            self._apply_local(entry, ("transfer_corrupt",
+                                      "local_fallbacks"), True, verdict)
             return
         self.stats["installs"] += 1
         self.stats["installed_blocks"] += installed
-        # a streamed transfer's final start_block sits at the chunk
-        # cursor: only blocks below the stream's low-water mark crossed
-        # as handles
-        handle = out["start_block"]
-        base = entry.get("chunk_base")
-        if base is not None:
-            handle = min(handle, int(base))
         self.stats["handle_blocks"] += handle
-        self.stats["raw_blocks"] += len(out["blocks"])
+        self.stats["raw_blocks"] += raw
+        chunk_first = entry.get("chunk_first")
         if chunk_first is not None:
             # the stream began landing KV while the donor was prefilling:
             # the time since the first chunk was hidden behind compute
@@ -947,9 +1105,8 @@ class PrefillClient:
             trc.record("kv_transfer", entry["started"], elapsed,
                        context=entry["trace"], cat="disagg",
                        proc=self.name, span_id=tracing.new_span_id(),
-                       args={"bytes": len(payload),
-                             "raw_blocks": len(out["blocks"]),
-                             "handle_blocks": out["start_block"],
+                       args={"bytes": nbytes, "raw_blocks": raw,
+                             "handle_blocks": start,
                              "installed": installed})
         # the decode-side submit: the probe longest-matches the installed
         # chain (paged: aliases its pool blocks) and only the ragged
@@ -959,9 +1116,10 @@ class PrefillClient:
             if self.cache is None:
                 covered = installed * self.decoder.kv_block
                 self._submit_installed(entry,
-                                       kv_blocks=(covered, direct_ids))
+                                       kv_blocks=(covered, direct_ids),
+                                       verdict=verdict)
             else:
-                self._submit_installed(entry)
+                self._submit_installed(entry, verdict=verdict)
 
     def _handle_chunk(self, payload, out: dict) -> None:
         """Install one streamed chunk of a pending transfer.  Chunks are
@@ -988,18 +1146,11 @@ class PrefillClient:
             # a direct stream is usable only from block 0
             self.stats["chunk_dropped"] += 1
             return
+        blocks = _landing(out["blocks"])
         try:
-            if self.cache is not None:
-                installed = self.cache.install_chain(
-                    str(entry["tenant"] or ""), out["tokens"],
-                    out["start_block"], _landing(out["blocks"]))
-            else:
-                _, ids = self.decoder.install_shipped_blocks(
-                    out["tokens"], out["start_block"],
-                    _landing(out["blocks"]),
-                    tenant=str(entry["tenant"] or ""))
-                entry.setdefault("direct_ids", []).extend(ids)
-                installed = len(ids)
+            for block in blocks[:self._in_range(out)]:
+                check_block_geometry(self._local_layout(),
+                                     self.block_tokens, block)
         except (ValueError, TypeError, IndexError) as exc:
             self.stats["chunk_dropped"] += 1
             self.logger.warning(
@@ -1012,10 +1163,9 @@ class PrefillClient:
             # handles, blocks above it as streamed bytes
             entry["chunk_base"] = out["start_block"]
         entry["chunk_next"] = out["start_block"] + len(out["blocks"])
-        self.stats["chunk_installs"] += 1
-        self.stats["chunk_blocks"] += installed
-        self.stats["raw_blocks"] += len(out["blocks"])
         self.stats["transfer_bytes"] += len(payload)
+        self._effect("chunk", entry, tokens=out["tokens"],
+                     start=out["start_block"], blocks=blocks)
         # a streaming donor is alive: restart the timeout per chunk, so
         # a long prompt's stream outlives a budget sized for one envelope
         timer = entry.pop("timer", None)
@@ -1025,8 +1175,35 @@ class PrefillClient:
                 lambda: self._transfer_expired(transfer_id),
                 self.transfer_timeout)
 
+    def _apply_chunk(self, entry: dict, tokens, start: int, blocks,
+                     verdict=None) -> None:
+        """Install one streamed chunk's blocks (this rank's KV heads of
+        them on a mesh)."""
+        tenant_key = str(entry["tenant"] or "")
+        try:
+            if self.cache is not None:
+                installed = self.cache.install_chain(
+                    tenant_key, tokens, start,
+                    self.decoder.shard_kv_blocks(blocks))
+            else:
+                _, ids = self.decoder.install_shipped_blocks(
+                    tokens, start, blocks, tenant=tenant_key)
+                entry.setdefault("direct_ids", []).extend(ids)
+                installed = len(ids)
+        except (ValueError, TypeError, IndexError) as exc:
+            self.stats["chunk_dropped"] += 1
+            self.logger.warning(
+                "disagg %s: streamed chunk for %s refused at install "
+                "(%s); dropped", self.name, entry["request_id"], exc)
+            return
+        entry["applied_next"] = start + len(blocks)
+        self.stats["chunk_installs"] += 1
+        self.stats["chunk_blocks"] += installed
+        self.stats["raw_blocks"] += len(blocks)
+
     def _submit_installed(self, entry: dict,
-                          kv_blocks: tuple | None = None) -> None:
+                          kv_blocks: tuple | None = None,
+                          verdict=None) -> None:
         def refused(rid, _reason):
             # a decoder on a mesh refuses at its round note, and releases
             # the request's installed blocks itself
@@ -1039,6 +1216,9 @@ class PrefillClient:
             entry["callback"], deadline=entry["deadline"],
             tenant=entry["tenant"], prefill_label="remote",
             kv_blocks=kv_blocks, on_refused=refused)
+        if verdict is not None:
+            self.decoder.admit_agreed(entry["request_id"], *verdict)
+            return
         if not accepted:
             self.stats["install_shed"] += 1
             if kv_blocks is not None and kv_blocks[1]:
@@ -1061,11 +1241,18 @@ class PrefillClient:
     def stop(self) -> None:
         for transfer_id in list(self._pending):
             entry = self._settle(transfer_id)
-            if entry is not None:
+            if entry is not None and not self.agreed:
                 # teardown owes every in-flight request a local home
                 self._drop_chunks(entry)
                 self.stats["local_fallbacks"] += 1
                 self._local_entry(entry)
+        # on a mesh every rank gives each request it holds a local home
+        # (submitted, so agreed by the decoder's note as any arrival)
+        held, self._held, self._decisions = self._held, {}, []
+        for entry in held.values():
+            self._apply_drop(entry)
+            self.stats["local_fallbacks"] += 1
+            self._local_entry(entry)
         if self._cache_handler is not None:
             self._services_cache.remove_handler(self._cache_handler)
             self._cache_handler = None
@@ -1112,6 +1299,12 @@ class SessionMigrator:
         if cache is None:
             raise ValueError("SessionMigrator needs a PrefixKVCache "
                              "(the pinned chains are the cargo)")
+        if cache.sharded:
+            raise ValueError(
+                "a SessionMigrator on a prefix cache sharded over a mesh "
+                "of more than one rank would move this rank's KV heads of "
+                "each chain block as the whole block (ROADMAP.md Queue 1 "
+                "item 3.3)")
         self.runtime = runtime
         self.cache = cache
         self.table = table

@@ -20,6 +20,10 @@
 #     [M, H, B, D] stacks on the card; poll() (every admit round) and
 #     promote_for() (the admit-time fallback) land the stacks in freshly
 #     allocated pool blocks and register the chain with insert_block.
+#     Bound by a decoder on a mesh, the promoter kicks at the round note
+#     that agrees an arrival, stages the job at once on its own stream
+#     (no worker thread), and lands it at the next note, before the
+#     admit that waits for it (AsyncPromoter's docstring).
 #
 # Copies without a host sync.  A demotion stacks the block's per-layer
 # rows on the card and copies them into a pinned host buffer with
@@ -287,7 +291,8 @@ class HostBlockStore:
 
 class _PromoteJob:
     __slots__ = ("key", "tenant", "keys", "parent", "rows", "device",
-                 "stacks", "event", "done", "identity", "superseded")
+                 "stacks", "event", "done", "identity", "superseded",
+                 "notes")
 
     def __init__(self, key, tenant, keys, parent, nodes, device,
                  kick: int = 0):
@@ -307,6 +312,7 @@ class _PromoteJob:
         # whether an admit staged its blocks inline instead
         self.identity = (kick, key, tuple(keys), parent)
         self.superseded = False
+        self.notes = 0              # round notes since an agreed kick
 
 
 def _stage_stacks(rows, device, stream) -> tuple:
@@ -356,10 +362,15 @@ class AsyncPromoter:
     a thread's timing or on when a rank saw a prompt.  prefetch kicks
     only when the decoder's round note asks (`agreed_kick`: an arrival
     every rank holds, in rank 0's order, so every rank's jobs are the
-    same); poll() lands nothing; the note gathers each rank's landed()
-    jobs and every rank installs, through land(), the ones staged on
-    every rank; promote_for never waits on a job, it stages inline and
-    the job it passes over never lands."""
+    same), and stages the job at once on the loop, its copies queued on
+    the promoter's own stream (no worker thread: what is staged by the
+    next note is then no matter of timing); poll() lands nothing; the
+    note gathers each rank's landed() jobs and every rank installs,
+    through land(), the ones staged on every rank, at the first note
+    after the kick.  Until then pending() holds the admit of the kick's
+    prompt back, so it sees the landed blocks as hits; a job that has
+    not landed after `age(bound)` counted `bound` notes is given up on
+    every rank alike, and promote_for then stages the chain inline."""
 
     def __init__(self, cache, store: HostBlockStore,
                  name: str | None = None, registry=None,
@@ -400,6 +411,11 @@ class AsyncPromoter:
     def ready(self) -> bool:
         """Staged promotions wait for poll() (plain list truthiness)."""
         return bool(self._ready)
+
+    @property
+    def inflight(self) -> bool:
+        """Kicked jobs not installed, dropped or given up yet."""
+        return bool(self._jobs)
 
     def _segment(self, tenant: str, tokens) -> tuple:
         """(keys, device-resident blocks, host nodes) of the chain's
@@ -447,10 +463,39 @@ class AsyncPromoter:
             nodes = nodes[:self.max_batch_blocks]
         job = self._job(tenant, keys, device, nodes)
         self._jobs[job.key] = job
-        self._ensure_thread()
-        self._queue.put(job)
         self.stats["kicks"] += 1
+        if self.agreed:
+            # staged now, on the promoter's stream: the note after this
+            # one finds it staged on every rank
+            self._stage(job)
+            with self._lock:
+                self._ready.append(job)
+            job.done.set()
+        else:
+            self._ensure_thread()
+            self._queue.put(job)
         return len(nodes) * self.cache.block_tokens
+
+    def pending(self, tenant: str, tokens) -> bool:
+        """Agreed: an agreed kick of this prompt's host-resident chain
+        tail waits to land at a later note (the admit waits with it)."""
+        if not self.agreed:
+            return False
+        keys, device, nodes = self._segment(tenant, tokens)
+        if not nodes:
+            return False
+        job = self._jobs.get(keys[device])
+        return job is not None and not job.superseded
+
+    def age(self, bound: int) -> None:
+        """Agreed: one more round note passed.  A job kicked `bound`
+        notes ago that has not landed is given up (its chain's admit
+        stages inline), the same job on every rank."""
+        for key, job in list(self._jobs.items()):
+            job.notes += 1
+            if job.notes > bound and not job.superseded:
+                job.superseded = True
+                self._jobs.pop(key)
 
     def landed(self) -> list:
         """Identities of the staged jobs ready to install, in kick
@@ -512,8 +557,10 @@ class AsyncPromoter:
             return 0
         job = self._jobs.get(keys[device])
         if job is not None and self.agreed:
-            # never wait on a thread: stage inline, and the passed-over
-            # job never lands (every rank passes over the same one)
+            # never wait: the decoder admits only once pending() is
+            # false, so a job here was kicked for another prompt of the
+            # chain; stage inline, and the passed-over job never lands
+            # (every rank passes over the same one)
             job.superseded = True
         elif job is not None:
             if not job.done.wait(self.wait_s):

@@ -297,6 +297,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
      ComputeRuntime over create_mesh({"model": 1}) (PE_LlamaAgent
      places with llama_axes): tokens, prefill and hit tokens, prefix
      admits, decode steps and launches equal the agent phase's.
+  35f. agent_8b / agent_8b_f32: PE_LlamaAgent at Llama-3-8B on that
+     mesh with sessions, the host tier, a shed, a drain (the counts
+     AGENT_8B_*; the conversation's host-tier installs AGENT_8B_INSTALLS,
+     async where an agreed kick landed at the note after it), and the
+     f32 turns against llama_greedy_decode.
+  35g. agent_mesh_modes: the agent on that mesh in batched mode (its
+     default, the cut agreed by the runtime) at Llama-1B in bf16 and at
+     AGENT_BATCHED_F32 layers in f32, against the same agent without a
+     mesh (batches and tokens); then agent_disagg's drive with the agent
+     over the mesh under the sync debug mode (rank 0's client decides,
+     the note lands): its counts, tokens equal agent_disagg's, every
+     installed block byte-equal to its shipped rows, 0 syncs.
   36. grad_guard: each of the three kernel wrappers raises on a CUDA
      operand that requires grad (the kernels have no backward) and
      launches nothing doing so.
@@ -499,6 +511,14 @@ AGENT_8B_DRAIN_ROUNDS = 4
 AGENT_8B_DECODE_STEPS = 116
 AGENT_8B_EXTEND_DISPATCHES = 9
 AGENT_8B_DRAIN = {"evacuated": 8, "checkpoints": 8}
+# the conversation's host-tier installs (blocks), before the drained
+# fourth turn and the closing promote_and_purge: a revived chain's
+# promotion is kicked at the round note that agrees its arrival and lands
+# at the next (async); the streams' chains start with the system
+# preamble's shared blocks, so one kick a turn takes the first stream's
+# chain, the other streams' admits wait for it and then stage what is
+# left of their own chains on the host inline (sync)
+AGENT_8B_INSTALLS = {"async": 11, "sync": 26}
 EARLIER_COUNTS["agent_8b"] = 32 * (AGENT_8B_DECODE_STEPS +
                                    AGENT_8B_EXTEND_DISPATCHES)
 # int8 KV and chunked prefill: the JAX bench's conversation-rung decoder
@@ -6585,10 +6605,11 @@ def phase_disagg_f32() -> dict:
     return record
 
 
-def disagg_runtimes():
-    """(host runtime with a ComputeRuntime on the card, prefill runtime):
-    two port ProcessRuntimes and a registrar's on one virtual-clock
-    engine and in-memory broker, the registrar promoted to primary."""
+def disagg_runtimes(mesh=None):
+    """(host runtime with a ComputeRuntime on the card, over `mesh` when
+    given, prefill runtime): two port ProcessRuntimes and a registrar's
+    on one virtual-clock engine and in-memory broker, the registrar
+    promoted to primary."""
     from aiko_services_tpu_torch.compute import ComputeRuntime
     from aiko_services_tpu_torch.event import EventEngine, VirtualClock
     from aiko_services_tpu_torch.process import ProcessRuntime
@@ -6611,11 +6632,11 @@ def disagg_runtimes():
     for _ in range(300):
         engine.step()
     host = runtime("chip_smoke")
-    ComputeRuntime(host, "compute")
+    ComputeRuntime(host, "compute", mesh=mesh)
     return host, runtime("smoke_prefill")
 
 
-def phase_agent_disagg() -> dict:
+def phase_agent_disagg() -> tuple:
     """The agent phase's conversation (8 streams x 3 turns, Llama-1B
     bf16, paged, sessions) with role "decode" and disagg true: the
     element's PrefillClient finds a PrefillRuntime (Llama-1B on the same
@@ -6625,19 +6646,34 @@ def phase_agent_disagg() -> dict:
     the decode side's cache, prefill + cached = prompt tokens, 32 tokens
     a frame, role=decode in the pipeline's tags, and the decode steps,
     extend dispatches and paged launches of AGENT_DISAGG_COUNTS.
-    Returns the paged launches by (variant, path)."""
+    Returns (the paged launches by (variant, path), the run's tokens by
+    stream and turn)."""
+    run = agent_disagg_run()
+    emit({"phase": "agent_disagg", **run["record"]})
+    return run["counts"], run["tokens"]
+
+
+def agent_disagg_run(mesh=None, watch_syncs: bool = False) -> dict:
+    """phase_agent_disagg's drive and checks, the agent's ComputeRuntime
+    over `mesh` when given; with `watch_syncs` under torch's sync debug
+    mode from the drive's start (the count of synchronizing calls in the
+    record).  Every block the client installed is read back after the
+    drive, where the cache still holds it, and held byte for byte
+    against the rows shipped for it.  Returns {"record", "counts",
+    "tokens"}."""
     import numpy as np
 
     from aiko_services_tpu_torch.ops import paged_attention as P
-    from aiko_services_tpu_torch.serving_disagg import PrefillRuntime
+    from aiko_services_tpu_torch.serving_disagg import (PrefillRuntime,
+                                                        _chain_wire_blocks)
     from aiko_services_tpu_torch.share import ServicesCache
 
     with agent_preset(dtype=torch.bfloat16) as config:
         check_1b(config)
-        runtime, prefill_rt = disagg_runtimes()
+        runtime, prefill_rt = disagg_runtimes(mesh)
         engine = runtime.event
         texts = agent_texts(np.random.default_rng(AGENT_SEED))
-        extends, submitted, prefill = [], [], []
+        extends, submitted, prefill, shipped = [], [], [], []
         sides = SideLaunches()
 
         def before_drive(agent):
@@ -6660,19 +6696,35 @@ def phase_agent_disagg() -> dict:
                 raise AssertionError("the agent's client found no pool")
             extends.extend([count_extend_launches(agent.decoder),
                             count_extend_launches(prefill[0].decoder)])
+            client = agent._prefill_client
+            for kind in ("land", "chunk"):
+                apply = getattr(client, f"_apply_{kind}")
+
+                def recording(entry, tokens, start, blocks, *args,
+                              _apply=apply, **kwargs):
+                    shipped.append((str(entry["tenant"] or ""),
+                                    list(tokens), start, blocks))
+                    return _apply(entry, tokens, start, blocks, *args,
+                                  **kwargs)
+                setattr(client, f"_apply_{kind}", recording)
             submit = agent.decoder.submit
 
-            def recording(request_id, prompt, *args, **kwargs):
+            def recording_submit(request_id, prompt, *args, **kwargs):
                 submitted.append(len(prompt))
                 return submit(request_id, prompt, *args, **kwargs)
-            agent.decoder.submit = recording
+            agent.decoder.submit = recording_submit
             for name in P.launches:
                 P.launches[name] = 0
+            if watch_syncs:
+                torch.cuda.set_sync_debug_mode("warn")
 
         try:
-            pipeline, agent, frames, virtual_s, wall_s = conversation(
-                runtime, texts, before_drive, parameters=AGENT_DISAGG,
-                services_cache=ServicesCache(runtime))
+            with sync_watch(arm=False) as syncs:
+                pipeline, agent, frames, virtual_s, wall_s = conversation(
+                    runtime, texts, before_drive, parameters=AGENT_DISAGG,
+                    services_cache=ServicesCache(runtime))
+                if not watch_syncs:
+                    syncs.clear()
             torch.cuda.synchronize()
         finally:
             sides.close()
@@ -6712,6 +6764,36 @@ def phase_agent_disagg() -> dict:
             f"remote TTFT {remote['ttft_p50_ms']}, prefilled "
             f"{stats['tokens_prefill']} + cached {hit} of {prompt_tokens}, "
             f"tags {pipeline.tags}, client {client}")
+    if syncs:
+        raise AssertionError(f"the disaggregated agent synchronized the "
+                             f"stream: {dict(syncs)}")
+    # the installed blocks the cache still holds, read back, against the
+    # rows shipped for them
+    compared = 0
+    block = AGENT_PARAMETERS["prefix_block"]
+    for tenant, tokens, start, blocks in shipped:
+        count = min(len(tokens) // block, start + len(blocks))
+        keys = cache.keys_for(tenant, tokens[:count * block])[start:]
+        held = [(key, rows) for key, rows in zip(keys, blocks)
+                if cache.has(key)]
+        if not held:
+            continue
+        host = _chain_wire_blocks(cache, [key for key, _ in held])
+        host.wait()
+        for (key, rows), layers in zip(held, host.blocks):
+            for side in ("k", "v"):
+                for sent, kept in zip(rows[side],
+                                      [layer[side] for layer in layers]):
+                    if not torch.equal(leaf_bytes(sent), leaf_bytes(kept)):
+                        raise AssertionError(
+                            f"installed block {key} differs from the "
+                            f"shipped rows")
+            compared += 1
+    if not compared:
+        raise AssertionError("no installed block left to compare")
+    tokens = {f"{stream}/{turn}": [int(t) for t in
+                                   frame.swag["response_tokens"]]
+              for (stream, turn), frame in frames.items()}
     for stream_id in list(pipeline.streams):
         pipeline.destroy_stream(stream_id)
     pipeline.stop()
@@ -6727,14 +6809,25 @@ def phase_agent_disagg() -> dict:
         extends[0][1] + extends[1][1]
     counts[("paged_decode_attention", "decode")] += \
         sum(launches.values()) - extends[0][1] - extends[1][1]
-    record = {"phase": "agent_disagg", **got,
-              "prompt_tokens": prompt_tokens,
+    record = {**got, "prompt_tokens": prompt_tokens,
               "tokens_prefill": stats["tokens_prefill"], "hit_tokens": hit,
               "client": client, "remote_ttft_p50_ms": remote["ttft_p50_ms"],
               "paged_launches_by_side": by_side, "virtual_s": virtual_s,
-              "wall_s": wall_s}
-    emit(record)
-    return {key: value for key, value in counts.items() if value}
+              "wall_s": wall_s, "installed_blocks_compared": compared,
+              "stream_syncs": sum(syncs.values())}
+    return {"record": record, "tokens": tokens,
+            "counts": {key: value for key, value in counts.items()
+                       if value}}
+
+
+def leaf_bytes(leaf) -> torch.Tensor:
+    """A KV leaf's (or an int8 dict's planes') raw bytes on the host."""
+    import numpy as np
+    if isinstance(leaf, dict):
+        return torch.cat([leaf_bytes(leaf[key]) for key in sorted(leaf)])
+    tensor = torch.as_tensor(np.asarray(leaf)) \
+        if not isinstance(leaf, torch.Tensor) else leaf
+    return tensor.detach().cpu().contiguous().view(-1).view(torch.uint8)
 
 
 class MigrateSide:
@@ -7921,6 +8014,112 @@ def phase_agent_mesh(reference: dict) -> dict:
     return measured
 
 
+# the agent's batched mode, its default (phase agent_mesh_modes): the
+# agent phase's streams and turns through PE_LlamaAgent at the 1b preset,
+# each batch up to AGENT_STREAMS prompts padded to prompt_length and
+# answered by llama_greedy_decode (no paged kernel); AGENT_BATCHED_F32
+# layers for the f32 token check
+AGENT_BATCHED = {"preset": "1b", "mode": "batched",
+                 "max_batch": AGENT_STREAMS,
+                 "max_tokens": AGENT_PARAMETERS["max_tokens"],
+                 "prompt_length": AGENT_PARAMETERS["prompt_length"],
+                 "max_wait": 0.01}
+AGENT_BATCHED_F32 = 2
+
+
+def batched_run(texts: dict, mesh=None, **changes) -> dict:
+    """The agent's conversation in batched mode on a ComputeRuntime over
+    `mesh` (None: none), the 1b preset with `changes`: each (stream,
+    turn)'s tokens, the batch former's counts, whether its cut was
+    agreed, and the paged kernel's launches (none)."""
+    from aiko_services_tpu_torch.ops import paged_attention as P
+
+    for name in P.launches:
+        P.launches[name] = 0
+    with agent_preset(**changes) as config:
+        if "num_layers" not in changes:
+            check_1b(config)
+        runtime, compute = host_runtime(mesh=mesh)
+        pipeline, agent, frames, virtual_s, wall_s = conversation(
+            runtime, texts, parameters=AGENT_BATCHED)
+        scheduler = compute.programs[agent._program].scheduler
+        stats = dict(scheduler.stats)
+        failed = pipeline.recovery_stats["frames_failed"]
+        for stream_id in list(pipeline.streams):
+            pipeline.destroy_stream(stream_id)
+        pipeline.stop()
+        compute.stop()
+        runtime.terminate()
+    if len(frames) != AGENT_STREAMS * AGENT_TURNS or failed:
+        raise AssertionError(f"batched agent: {len(frames)} frames, "
+                             f"{failed} failed")
+    return {"tokens": {f"{stream}/{turn}": [int(t) for t in
+                                            frame.swag["response_tokens"]]
+                       for (stream, turn), frame in frames.items()},
+            "counts": {key: stats[key] for key in (
+                "batches", "items", "full_batches", "deadline_dispatches")},
+            "agreed": scheduler.agreed,
+            "paged_launches": sum(P.launches.values()),
+            "virtual_s": virtual_s, "wall_s": wall_s}
+
+
+def phase_agent_mesh_modes(disagg_tokens: dict) -> dict:
+    """The agent's batched mode and its disagg on a ComputeRuntime over
+    create_mesh({"model": 1}), the agreed paths of a mesh at one rank
+    (the cut and the landings decided at rank 0, with no gather):
+    batched at Llama-1B's full width in bf16, against the same agent
+    without a mesh (its batches, items and tokens), and in f32 at
+    AGENT_BATCHED_F32 layers (tokens); then agent_disagg's drive with
+    the agent over the mesh, under torch's sync debug mode: its counts
+    AGENT_DISAGG_COUNTS, no request lost, no local fallback, no
+    synchronizing call, every installed block byte-equal to its shipped
+    rows, and every turn's tokens agent_disagg's.  Returns the paged
+    launches by (variant, path)."""
+    import numpy as np
+
+    from aiko_services_tpu_torch.parallel import create_mesh
+
+    texts = agent_texts(np.random.default_rng(AGENT_SEED))
+    runs = {}
+    for label, changes in (("bf16", {"dtype": torch.bfloat16}),
+                           ("f32", {"dtype": torch.float32,
+                                    "num_layers": AGENT_BATCHED_F32})):
+        plain = batched_run(texts, **changes)
+        meshed = batched_run(texts, mesh=create_mesh({"model": 1}),
+                             **changes)
+        if not meshed["agreed"] or plain["agreed"] or \
+                meshed["tokens"] != plain["tokens"] or \
+                meshed["counts"] != plain["counts"] or \
+                meshed["paged_launches"] or plain["paged_launches"]:
+            raise AssertionError(
+                f"batched agent on the mesh ({label}): counts "
+                f"{meshed['counts']} against {plain['counts']}, tokens "
+                f"equal {meshed['tokens'] == plain['tokens']}, agreed "
+                f"{meshed['agreed']}, paged launches "
+                f"{meshed['paged_launches']}")
+        runs[label] = {"counts": meshed["counts"],
+                       "tokens_equal_unsharded": True,
+                       "wall_s": meshed["wall_s"],
+                       "wall_s_unsharded": plain["wall_s"]}
+    # the counts are set to 0 just before the disaggregated drive
+    # (agent_disagg_run's before_drive) and read just after
+    disagg = agent_disagg_run(mesh=create_mesh({"model": 1}),
+                              watch_syncs=True)
+    record = disagg["record"]
+    if disagg["tokens"] != disagg_tokens or \
+            record["client"]["local_fallbacks"] or \
+            record["stream_syncs"]:
+        raise AssertionError(
+            f"agent_disagg on the mesh: tokens equal "
+            f"{disagg['tokens'] == disagg_tokens}, client "
+            f"{record['client']}, {record['stream_syncs']} syncs")
+    emit({"phase": "agent_mesh_modes", "mesh": {"model": 1},
+          "batched": runs,
+          "disagg": {**record, "tokens_equal_agent_disagg": True,
+                     "requests_lost": 0}})
+    return disagg["counts"]
+
+
 @contextlib.contextmanager
 def agent_8b_preset(**changes):
     """The port's "8b" preset as llama_8b gives it (max_seq 1024) with
@@ -8063,6 +8262,7 @@ def phase_agent_8b() -> dict:
         decoder, cache = agent.decoder, agent.prefix_cache
         stats, cache_stats = dict(decoder.stats), dict(cache.stats)
         store, promoter = cache.host_store, cache.promoter
+        conversation_promoter = dict(promoter.stats)
         prompt_tokens = sum(len(p) for rid, p in submitted.items()
                             if rid != "late")
         drain = drain_fourth_turn(engine, pipeline, agent, texts)
@@ -8125,6 +8325,11 @@ def phase_agent_8b() -> dict:
     if audit.failures:
         raise AssertionError(f"the KV ledger did not conserve: "
                              f"{audit.failures[:3]}")
+    installs = {"async": conversation_promoter["installs_async"],
+                "sync": conversation_promoter["installs_sync"]}
+    if installs != AGENT_8B_INSTALLS:
+        raise AssertionError(f"the conversation's host-tier installs "
+                             f"{installs} != {AGENT_8B_INSTALLS}")
     if {key: drain[key] for key in AGENT_8B_DRAIN} != AGENT_8B_DRAIN:
         raise AssertionError(f"drain {drain} != {AGENT_8B_DRAIN}")
     generated = sum(len(f.swag["response_tokens"]) for f in frames.values())
@@ -8144,6 +8349,7 @@ def phase_agent_8b() -> dict:
           "cache_evictions": cache_stats["evictions"],
           "host_evicted": store.stats["evicted"],
           "promoter": dict(promoter.stats),
+          "promoter_conversation": conversation_promoter,
           "shed": sorted(refused), "gate_wait_s": verdicts[0][1],
           "drain": drain, "promoted_back": promoted_back,
           "host_blocks_evicted_at_end": host_left,
@@ -8311,7 +8517,7 @@ def main() -> int:
     disagg, disagg_probe = phase_disagg()
     variants = phase_disagg_variants()
     phase_disagg_f32()
-    agent_disagg = phase_agent_disagg()
+    agent_disagg, disagg_tokens = phase_agent_disagg()
     migrate = phase_agent_migrate()
     for run in (disagg, variants, agent_disagg, migrate):
         for key, launches in run.items():
@@ -8328,6 +8534,8 @@ def main() -> int:
     counts[("paged_decode_attention", "decode_d128")] += agent_8b["decode"]
     counts[("paged_decode_attention", "extend_d128")] = agent_8b["extend"]
     phase_agent_8b_f32()
+    for key, launches in phase_agent_mesh_modes(disagg_tokens).items():
+        counts[key] = counts.get(key, 0) + launches
     earlier = {phase: phase_counts[phase]["flash_attention"] for phase in
                ("slice", "pipeline", "remote_pipeline", "peer_pipeline",
                 "peer_chaos")}

@@ -143,15 +143,28 @@ def test_the_agent_holds_one_expert_of_four_on_each_rank(frames):
 
 
 def test_the_agent_on_four_ranks_refuses_what_each_rank_would_time(frames):
-    """Batched mode forms its batches by each rank's clock and disagg's
-    transfers time out by it: on a mesh of more than one rank the agent
-    refuses both, naming their ROADMAP items.  Sessions are agreed in
-    the decoder's round note (rank 0's clock expires the leases) and
-    are not refused."""
-    _, ranks = frames
+    """Nothing is refused on four ranks any more: the agent's batched
+    mode agrees its batch cut over the mesh (rank 0's clock decides which
+    items form each batch, every rank runs it), disagg's transfers are
+    sent, timed out and landed by rank 0's client alone and applied at
+    the decoder's round note, and sessions ride that note too.  Set up
+    again in batched mode, the agent answers the frame's text as
+    llama_greedy_decode does on the whole model; with disagg and no
+    prefill pool, every rank prefills it locally (local_short, or
+    local_no_pool decided by rank 0 and applied at the note; no rank
+    sends) and answers as its decoder
+    answers the text submitted directly (the paged pool: tiny_moe's
+    expert capacity counts the rows each program hands it, so the
+    dense decoder's answer is another), the same on every rank."""
+    want, ranks = frames
     for rank in ranks:
-        assert set(rank["refused"]) == {"mode", "disagg"}
-        assert "mode batched" in rank["refused"]["mode"]
-        assert "Queue 1 item 3.2" in rank["refused"]["mode"]
-        assert "disagg" in rank["refused"]["disagg"]
-        assert "Queue 1 item 3.1" in rank["refused"]["disagg"]
+        assert rank["refused"] == {}
+        batched = rank["batched"]
+        assert batched["agreed"]
+        assert batched["tokens"] == batched["unsharded"]
+        disagg = rank["disagg"]
+        assert disagg["tokens"] == disagg["direct"]
+        assert len(disagg["tokens"]) == len(want["response_tokens"])
+        assert disagg["tokens"] == ranks[0]["disagg"]["tokens"]
+        assert sum(disagg["local"]) == 1 and disagg["transfers"] == 0
+        assert disagg["local"] == ranks[0]["disagg"]["local"]

@@ -93,19 +93,17 @@ def test_four_ranks_answer_like_the_jax_agent(ranks, reference, staggered):
 def test_every_rank_plans_and_demotes_alike(ranks, reference, staggered):
     """One plan digest sequence, and the same tier traffic, hits and
     session releases, on every rank; the conversation's chains demoted,
-    and its hits, promotions and session handles are JAX's.  The demoted
-    count is not compared with JAX's: JAX's agent also lands the
-    promotion its session touch kicked at the frame's arrival, whenever
-    its promoter thread has staged it (its drive waits for that), and
-    that attempt demotes other blocks to make room; on a mesh a kick by
-    one rank's arrival time is not agreed, so the ranks kick at the
-    round note and the admit promotes inline."""
+    and its demotions, hits, promotions and session handles are JAX's:
+    the ranks kick a host-resident chain's promotion at the note that
+    agrees its arrival and land it at the next one, before its admit, as
+    JAX's agent lands the promotion its session touch kicked before the
+    admit round (the landing demotes other blocks to make room)."""
     runs = [rank[staggered] for rank in ranks]
     assert runs[0]["plans"]
     for run in runs:
         assert run["plans"] == runs[0]["plans"]
         assert run["cache"] == runs[0]["cache"]
-        for key in ("promoted", "hit_tokens", "session_handles",
+        for key in ("demoted", "promoted", "hit_tokens", "session_handles",
                     "session_released"):
             assert run["cache"][key] == reference["cache"][key], key
     assert runs[0]["cache"]["demoted"] > 0

@@ -180,18 +180,30 @@ def test_tp_ranks_agree_on_requests_submitted_at_other_rounds(
 
 @pytest.mark.parametrize("geometry", list(GEOMETRIES))
 def test_sharded_decoder_refuses_what_each_rank_would_time(ranks, geometry):
-    """Shipped KV blocks would land by each rank's own clock (ROADMAP.md
-    Queue 1 item 3.1), and a request id queued twice cannot be agreed by
-    id: both are refused.  Drain, a submit deadline, a host tier and an
-    AdmissionGate watching the decoder are agreed in the round note
-    (rank 0 decides) and no longer raise."""
-    for rank in ranks[geometry]:
+    """A request id queued twice cannot be agreed by id: it is refused.
+    Drain, a submit deadline, a host tier and an AdmissionGate watching
+    the decoder are agreed in the round note (rank 0 decides) and raise
+    nothing; shipped KV blocks are served (submit's kv_blocks, each rank
+    handing over its own heads of the blocks, installed in one round):
+    the request admits on the shipped cover, prefills only its suffix
+    and gives the tokens of the same prompt served cold, every rank's
+    installed rows byte-equal to its heads of the shipped rows."""
+    runs = ranks[geometry]
+    n = GEOMETRIES[geometry]["model"]
+    for rank in runs:
         refusals = rank["refusals"]
-        assert "shipped KV" in refusals["kv_blocks"]
-        assert "Queue 1 item 3.1" in refusals["kv_blocks"]
         assert "queued already" in refusals["duplicate"]
+        assert set(refusals) == {"drain", "deadline", "duplicate",
+                                 "host_tier", "watch_decoder"}
         for agreed in ("drain", "deadline", "host_tier", "watch_decoder"):
             assert refusals[agreed] is None, refusals
+        shipped = rank["shipped"]
+        assert shipped["tokens"] == shipped["cold"]
+        assert len(shipped["tokens"]) == MAX_NEW
+        assert shipped["covered"] == 16 and shipped["hit"] == 16
+        assert shipped["rows_equal"]
+        assert shipped["heads"][1] - shipped["heads"][0] == 4 // n
+        assert shipped["plans"] == runs[0]["shipped"]["plans"]
 
 
 @pytest.mark.parametrize("geometry", list(GEOMETRIES))

@@ -332,6 +332,65 @@ def _serve_staggered(decoder, prompts, max_new, rank):
     return done
 
 
+SHIPPED_PROMPT = [(7 * i) % 200 + 3 for i in range(21)]
+
+
+def _shipped_serving(full, params, config, mesh, max_new):
+    """submit(kv_blocks=...) on a paged decoder over `mesh`: an unsharded
+    decoder with a prefix cache computes SHIPPED_PROMPT's blocks, whose
+    rows (every KV head) every rank hands to install_shipped_blocks; the
+    request then admits on the installed blocks (this rank's heads of
+    them) and only the suffix prefills.  Returns the tokens, the same
+    prompt's tokens served cold on another decoder over the mesh, the
+    request's prefix hit, the plans, and whether each installed block's
+    rows are byte-equal to this rank's head slice of the shipped rows."""
+    from aiko_services_tpu_torch.observe.metrics import MetricsRegistry
+    from aiko_services_tpu_torch.serving import (ContinuousDecoder,
+                                                 PrefixKVCache)
+    from aiko_services_tpu_torch.serving_disagg import (_chain_wire_blocks,
+                                                        _landing)
+
+    base = {"max_slots": 2, "prefill_buckets": (32,), "paged_kv": True,
+            "kv_block": 8}
+    cache = PrefixKVCache(block_tokens=8, registry=MetricsRegistry())
+    donor = ContinuousDecoder(full, config, device="cpu",
+                              prefix_cache=cache,
+                              registry=MetricsRegistry(), **base)
+    _serve(donor, {"donor": SHIPPED_PROMPT}, 1)
+    keys = cache.keys_for("", SHIPPED_PROMPT[:16])
+    rows = _chain_wire_blocks(cache, keys).blocks
+    blocks = _landing([[{"k": layer["k"].numpy(), "v": layer["v"].numpy()}
+                        for layer in block] for block in rows])
+    decoder = ContinuousDecoder(params, config, mesh=mesh,
+                                registry=MetricsRegistry(), **base)
+    decoder.plan_digests = []
+    covered, ids = decoder.install_shipped_blocks(SHIPPED_PROMPT, 0, blocks)
+    first, stop, _ = decoder.kv_heads
+    pool = decoder.pool
+    equal = all(
+        pool.k_pools[layer][block_id].numpy().tobytes() ==
+        blocks[j]["k"][layer][first:stop].tobytes() and
+        pool.v_pools[layer][block_id].numpy().tobytes() ==
+        blocks[j]["v"][layer][first:stop].tobytes()
+        for j, block_id in enumerate(ids)
+        for layer in range(config.num_layers))
+    done = {}
+    decoder.submit("shipped", SHIPPED_PROMPT, max_new,
+                   lambda rid, tokens: done.update(
+                       {rid: [int(t) for t in tokens]}),
+                   kv_blocks=(covered, ids))
+    hit = decoder._arrivals[0].prefix_hit
+    _pump_until(decoder, done, 1)
+    cold = ContinuousDecoder(params, config, mesh=mesh,
+                             registry=MetricsRegistry(), **base)
+    return {"tokens": done.get("shipped"),
+            "cold": _serve(cold, {"cold": SHIPPED_PROMPT},
+                           max_new)["cold"],
+            "hit": hit, "covered": covered, "plans": decoder.plan_digests,
+            "rows_equal": equal, "heads": (first, stop),
+            "pool_used": pool.used_blocks()}
+
+
 def _refusals(decoder, params, config, mesh):
     """What a decoder on a mesh of more than one rank refuses: each
     entry the ValueError's message, or None where nothing was raised
@@ -362,8 +421,6 @@ def _refusals(decoder, params, config, mesh):
         "drain": message(decoder.drain),
         "deadline": message(lambda: decoder.submit(
             "late", [1], 2, lambda *_: None, deadline=1e9)),
-        "kv_blocks": message(lambda: decoder.submit(
-            "shipped", [1], 2, lambda *_: None, kv_blocks=(8, [1]))),
         "duplicate": message(lambda: decoder.submit(
             "twice", [1, 2], 2, lambda *_: None)),
         "host_tier": message(lambda: cache.attach_host_store(
@@ -421,6 +478,8 @@ def sharded_serving(rank, world, mesh_axes, flat, config_fields, variants,
             "plans": decoder.plan_digests}
     if mesh.size() > 1 and not config.num_experts:
         out["refusals"] = _refusals(decoder, params, config, mesh)
+        out["shipped"] = _shipped_serving(full, params, config, mesh,
+                                          max_new)
     return out
 
 
@@ -523,21 +582,80 @@ def parallel_example(rank, world, definition, whisper_npz, agent_flat,
            "router": tuple(layer["router"]["w"].shape),
            "mesh": runtime.service_by_name("compute").ec_producer.get(
                "mesh")}
-    # what the agent refuses on four ranks: set up again with each option
+    # what the agent refuses on four ranks (nothing): set up again with
+    # each option, and serve the frame's text in batched mode and with
+    # disagg (no prefill pool: rank 0's client decides local_no_pool)
     refused = {}
+    # the batched mode pads each prompt to prompt_length: 16, within
+    # tiny_moe's positions with the answer's
+    agent.definition.parameters["prompt_length"] = 16
     for name, value in (("sessions", True), ("mode", "batched"),
                         ("disagg", True)):
         agent.definition.parameters[name] = value
+        if name == "disagg":
+            # the shipped KV lands in the paged pool (no prefix cache)
+            agent.definition.parameters["paged"] = True
         agent._setup_done = False
         try:
             agent._setup()
         except ValueError as exc:
             refused[name] = str(exc)
+        if name == "mode" and not refused:
+            out["batched"] = _served_batched(agent, engine, swag)
+        if name == "disagg" and not refused:
+            out["disagg"] = _served_disagg(agent, swag)
         agent.definition.parameters.pop(name)
     agent.mode, agent._setup_done = "continuous", True
     out["refused"] = refused
     runtime.terminate()
     return out
+
+
+def _served_batched(agent, engine, swag) -> dict:
+    """The frame's text through the agent's batched program (the cut
+    agreed over the mesh), against llama_greedy_decode on the whole
+    model in this process."""
+    from aiko_services_tpu_torch.models import llama as TL
+    config = TL.LLAMA_PRESETS[str(agent.get_parameter("preset")[0])]
+    prompt = agent._pad_prompt(swag.get("text", ""))
+    box = {}
+    agent.compute.submit(agent._program, "s0", prompt, len(prompt),
+                         lambda _sid, result: box.setdefault("r", result))
+    for _ in range(2000):
+        if "r" in box:
+            break
+        engine.clock.advance(0.01)
+        engine.step()
+    whole = TL.llama_init(None, config, device="cpu")
+    unsharded = TL.llama_greedy_decode(
+        whole, config, torch.from_numpy(prompt[None]),
+        max_tokens=agent.max_tokens)
+    return {"tokens": box.get("r"), "unsharded": unsharded[0].tolist(),
+            "agreed": agent.compute.programs[agent._program]
+            .scheduler.agreed}
+
+
+def _served_disagg(agent, swag) -> dict:
+    """The frame's text through the agent's PrefillClient on its new
+    (paged) decoder over the mesh: with no prefill pool every rank
+    prefills it locally (a prompt under a block on every rank at once,
+    a longer one at the round note that applies rank 0's decision);
+    then the same text submitted to that decoder directly."""
+    done = {}
+    tokens = agent.tokenizer(swag.get("text", "")) or [1]
+    client = agent._prefill_client
+    client.submit("disagg", tokens, agent.max_tokens,
+                  lambda rid, generated: done.update(
+                      {rid: [int(t) for t in generated]}))
+    _pump_until(agent.decoder, done, 1)
+    agent.decoder.submit("direct", tokens, agent.max_tokens,
+                         lambda rid, generated: done.update(
+                             {rid: [int(t) for t in generated]}))
+    _pump_until(agent.decoder, done, 2)
+    return {"tokens": done.get("disagg"), "direct": done.get("direct"),
+            "local": (client.stats["local_short"],
+                      client.stats["local_no_pool"]),
+            "transfers": client.stats["transfers"]}
 
 
 # -- tests/test_torch_tp_serving_ops.py ---------------------------------------
@@ -933,3 +1051,352 @@ def agent_sessions(rank, world, mesh_axes, agent_flat, parameters, texts,
     return {staggered: _agent_run(rank, mesh_axes, parameters, texts,
                                   staggered, settle)
             for staggered in (False, True)}
+
+
+# -- tests/test_torch_tp_agent_batched.py, test_torch_tp_agent_disagg.py ------
+
+def _agent_pipeline(rank, mesh, parameters, streams, staggered):
+    """A one-element PE_LlamaAgent pipeline on this rank's ComputeRuntime
+    over `mesh`, its engine clock offset by 250 s a rank when staggered:
+    (runtime, engine, pipeline, agent, the completed frames)."""
+    from aiko_services_tpu_torch import pipeline as TP
+    from aiko_services_tpu_torch.compute import ComputeRuntime
+    from aiko_services_tpu_torch.event import EventEngine, VirtualClock
+    from aiko_services_tpu_torch.process import ProcessRuntime
+    from aiko_services_tpu_torch.transport import MemoryBroker, MemoryMessage
+
+    engine = EventEngine(VirtualClock(250.0 * rank if staggered else 0.0))
+    broker = MemoryBroker()
+    runtime = ProcessRuntime(
+        name=f"agent{rank}", engine=engine,
+        transport_factory=lambda on_message, *_: MemoryMessage(
+            on_message=on_message, broker=broker)).initialize()
+    ComputeRuntime(runtime, "compute", mesh=mesh)
+    pipeline = TP.Pipeline(runtime, _agent_definition(TP, parameters),
+                           stream_lease_time=0)
+    done = []
+    pipeline.add_frame_handler(done.append)
+    for stream_id in streams:
+        pipeline.create_stream(stream_id, lease_time=0)
+    agent = next(node.element for node in pipeline.graph.nodes()
+                 if node.name == "PE_LlamaAgent")
+    return runtime, engine, pipeline, agent, done
+
+
+def _agent_turns(engine, pipeline, done, texts, lag, before_step=None):
+    """Every stream's turns one after another, each next turn posted
+    `lag` engine steps after the stream's previous turn came back:
+    {(stream, turn): response tokens}."""
+    turn_of = {stream_id: 0 for stream_id in texts}
+    posts = [(lag, stream_id, turns[0]) for stream_id, turns in
+             texts.items()]
+    responses, seen = {}, 0
+    total = sum(len(turns) for turns in texts.values())
+    for step in range(20000):
+        for frame in done[seen:]:
+            stream_id = frame.stream_id
+            responses[(stream_id, turn_of[stream_id])] = [
+                int(t) for t in frame.swag["response_tokens"]]
+            turn_of[stream_id] += 1
+            if turn_of[stream_id] < len(texts[stream_id]):
+                posts.append((step + lag, stream_id,
+                              texts[stream_id][turn_of[stream_id]]))
+        seen = len(done)
+        for _, stream_id, text in [p for p in posts if p[0] <= step]:
+            pipeline.post("process_frame", stream_id, {"text": text})
+        posts = [p for p in posts if p[0] > step]
+        if len(responses) == total:
+            return responses
+        engine.clock.advance(0.002)
+        if before_step is not None:
+            before_step()
+        engine.step()
+    raise AssertionError(f"{len(responses)} of {total} turns answered")
+
+
+def agent_batched(rank, world, geometries, agent_flat, config_fields,
+                  parameters, texts):
+    """PE_LlamaAgent in batched mode on each mesh of `geometries` (name →
+    axes filling the group), its preset the config `config_fields` and
+    its llama_init the JAX tree `agent_flat`: the conversation in
+    lockstep, then staggered (each next turn posted 3 * rank engine
+    steps late, the engine clock offset per rank), then in sync mode in
+    lockstep (each frame's item run at once by the forced drain).
+    Returns each drive's responses and the batches the rank ran, in
+    order (each the items' (stream, sequence) keys)."""
+    from aiko_services_tpu_torch import bridge
+    from aiko_services_tpu_torch.models import llama as TL
+    from aiko_services_tpu_torch.parallel import create_mesh
+
+    config = TL.LlamaConfig(**config_fields)
+    TL.LLAMA_PRESETS["tiny"] = config
+
+    def seeded(generator, config, device=None):
+        return bridge.params_from_numpy(agent_flat, config, device=device)
+
+    TL.llama_init = seeded
+    out = {}
+    for name, mesh_axes in geometries.items():
+        mesh = create_mesh(mesh_axes, device="cpu")
+        for staggered in (False, True, "sync"):
+            runtime, engine, pipeline, agent, done = _agent_pipeline(
+                rank, mesh, {**parameters, "mode": "sync"}
+                if staggered == "sync" else parameters, texts,
+                staggered is True)
+            agent._setup()
+            scheduler = agent.compute.programs[agent._program].scheduler
+            batches = []
+            dispatch = scheduler._dispatch
+
+            def recorded(bucket, batch, now, _dispatch=dispatch,
+                         _batches=batches):
+                _batches.append([list(item.key) for item in batch])
+                return _dispatch(bucket, batch, now)
+
+            scheduler._dispatch = recorded
+            try:
+                responses = _agent_turns(engine, pipeline, done, texts,
+                                         3 * rank if staggered is True
+                                         else 0)
+            finally:
+                runtime.terminate()
+            out[(name, staggered)] = {
+                "responses": responses, "batches": batches,
+                "agreed": scheduler.agreed,
+                "vocab_shard": tuple(agent.params["lm_head"]["w"].shape)}
+    return out
+
+
+def _replaying_donor(shipped):
+    """Make the port's prefill side ship the JAX donor's rows for every
+    chain key the JAX run shipped (`shipped`: key -> [per layer (k, v)]
+    host arrays): each rank then installs its KV heads of JAX's block
+    bytes.  Returns the undo."""
+    from aiko_services_tpu_torch import serving_disagg as TD
+
+    real = TD._chain_wire_blocks
+
+    def replay(cache, keys):
+        if keys and all(key in shipped for key in keys):
+            return TD._HostRows([
+                [{"k": torch.from_numpy(k), "v": torch.from_numpy(v)}
+                 for k, v in shipped[key]] for key in keys])
+        return real(cache, keys)
+
+    TD._chain_wire_blocks = replay
+    return lambda: setattr(TD, "_chain_wire_blocks", real)
+
+
+def _installed_rows(agent, keys) -> dict:
+    """key -> [per layer (k, v)] of this rank's pool rows of each cached
+    chain block of `keys`."""
+    cache = agent.prefix_cache
+    present = [key for key in keys if cache.has(key)]
+    out = {}
+    for key, node in zip(present, cache.nodes(present)):
+        k_rows, v_rows = cache.block_rows(node)
+        out[key] = [(k.numpy().copy(), v.numpy().copy())
+                    for k, v in zip(k_rows, v_rows)]
+    return out
+
+
+def _prefill_side_refusals(runtime, agent) -> dict:
+    """The prefill side serves unsharded: a PrefillRuntime handed the
+    agent's decoder over the mesh, and a SessionMigrator on its prefix
+    cache, would ship this rank's KV heads as whole blocks; each raises
+    (the ValueError's message)."""
+    from aiko_services_tpu_torch.serving_disagg import (PrefillRuntime,
+                                                        SessionMigrator)
+    out = {}
+    for name, build in (
+            ("prefill", lambda: PrefillRuntime(runtime, "sharded_prefill",
+                                               decoder=agent.decoder)),
+            ("migrate", lambda: SessionMigrator(runtime,
+                                                agent.prefix_cache))):
+        try:
+            build()
+            out[name] = None
+        except ValueError as exc:
+            out[name] = str(exc)
+    return out
+
+
+def agent_disagg(rank, world, geometries, agent_flat, config_fields,
+                 parameters, texts, shipped, timeout_parameters,
+                 cacheless_parameters):
+    """PE_LlamaAgent with disagg on each mesh of `geometries`: rank 0
+    alone hosts a PrefillRuntime (unsharded, the whole model, its ship
+    replaying the JAX donor's rows `shipped`) and its client alone sends;
+    the conversation in lockstep, then staggered with skewed clocks.
+    Then with `timeout_parameters` and a prefill candidate that never
+    answers: every transfer times out, retries and falls back.  Then with
+    `cacheless_parameters` (no prefix cache: the blocks land in the
+    pool, the prefill side in the decoder's 32-token blocks).  Returns
+    each drive's responses, plan digests, client counters, the rounds at
+    which requests were submitted to the decoder, and this rank's
+    installed rows of every shipped key."""
+    from aiko_services_tpu_torch import bridge
+    from aiko_services_tpu_torch.models import llama as TL
+    from aiko_services_tpu_torch.parallel import create_mesh
+    from aiko_services_tpu_torch.parallel.sharding import kv_head_range
+    from aiko_services_tpu_torch.process import ProcessRuntime
+    from aiko_services_tpu_torch.serving_disagg import PrefillRuntime
+    from aiko_services_tpu_torch.transport import MemoryMessage
+
+    config = TL.LlamaConfig(**config_fields)
+    TL.LLAMA_PRESETS["tiny"] = config
+
+    def seeded(generator, config, device=None):
+        return bridge.params_from_numpy(agent_flat, config, device=device)
+
+    TL.llama_init = seeded
+    undo_donor = _replaying_donor(shipped)
+    out = {}
+    try:
+        for name, mesh_axes in geometries.items():
+            mesh = create_mesh(mesh_axes, device="cpu")
+            out[(name, "heads")] = kv_head_range(config, mesh)
+            drives = [(False, parameters, True), (True, parameters, True),
+                      (False, timeout_parameters, False),
+                      (False, cacheless_parameters, True)]
+            for index, (staggered, agent_parameters, answers) in \
+                    enumerate(drives):
+                undo = _skewed(rank, staggered)
+                runtime, engine, pipeline, agent, done = _agent_pipeline(
+                    rank, mesh, agent_parameters, texts, staggered)
+                try:
+                    agent._setup()
+                    client = agent._prefill_client
+                    decoder = agent.decoder
+                    decoder.plan_digests = []
+                    submitted = []
+                    submit = decoder.submit
+
+                    def recording(request_id, *args, _submit=submit,
+                                  _decoder=decoder, _log=submitted,
+                                  **kwargs):
+                        _log.append((request_id, _decoder.stats["rounds"]))
+                        return _submit(request_id, *args, **kwargs)
+
+                    decoder.submit = recording
+                    prefill = None
+                    if rank == 0:
+                        if answers:
+                            prefill = PrefillRuntime(
+                                ProcessRuntime(
+                                    name=f"prefill{index}", engine=engine,
+                                    transport_factory=lambda on_message, *_:
+                                    MemoryMessage(on_message=on_message,
+                                                  broker=runtime.message
+                                                  .broker)).initialize(),
+                                "prefill", params=bridge.params_from_numpy(
+                                    agent_flat, config, device="cpu"),
+                                config=config, block_tokens=agent_parameters
+                                .get("prefix_block", 32), max_slots=2,
+                                prefill_buckets=(16,), prefill_chunk=16,
+                                decoder_opts={"device": "cpu"})
+                            client.add_candidate(prefill.topic_path)
+                        else:
+                            client.add_candidate(f"{runtime.topic_path}/"
+                                                 f"nobody")
+                    if index == 0:
+                        out[(name, "refusals")] = _prefill_side_refusals(
+                            runtime, agent)
+                    responses = _agent_turns(engine, pipeline, done, texts,
+                                             3 * rank if staggered else 0)
+                    stats = {key: client.stats[key] for key in (
+                        "transfers", "installs", "installed_blocks",
+                        "local_fallbacks", "transfer_timeouts", "retries",
+                        "install_shed", "direct_installs")}
+                    rows = _installed_rows(agent, list(shipped)) \
+                        if agent.prefix_cache is not None else {}
+                    out[(name, index)] = {
+                        "responses": responses,
+                        "plans": decoder.plan_digests,
+                        "client": stats, "submitted": submitted,
+                        "prefix_admits": decoder.stats["prefix_admits"],
+                        "rows": rows}
+                    if prefill is not None:
+                        prefill.stop()
+                finally:
+                    runtime.terminate()
+                    undo()
+    finally:
+        undo_donor()
+    return out
+
+
+def batched_beside_decoder(rank, world, flat, config_fields, prompts,
+                           max_new, items):
+    """A ComputeRuntime over {model: world} holding a batched program
+    (each item's payload summed: no collective) and, on the same engine,
+    a ContinuousDecoder on this rank's shards pumped by its timer: each
+    rank submits its batch items and its decoder requests at engine steps
+    of its own (offset by rank), so the runtime's batch exchange and the
+    decoder's round-note gather interleave differently on each rank.
+    Returns the batch results, the decoder's tokens and plan digests,
+    and the batches this rank ran."""
+    from aiko_services_tpu_torch import bridge
+    from aiko_services_tpu_torch.compute import ComputeRuntime
+    from aiko_services_tpu_torch.event import EventEngine, VirtualClock
+    from aiko_services_tpu_torch.models import llama as TL
+    from aiko_services_tpu_torch.observe.metrics import MetricsRegistry
+    from aiko_services_tpu_torch.parallel import create_mesh
+    from aiko_services_tpu_torch.parallel.sharding import local_shards
+    from aiko_services_tpu_torch.process import ProcessRuntime
+    from aiko_services_tpu_torch.serving import ContinuousDecoder
+    from aiko_services_tpu_torch.transport import MemoryBroker, MemoryMessage
+
+    config = TL.LlamaConfig(**config_fields)
+    mesh = create_mesh({"model": world}, device="cpu")
+    params, _ = local_shards(bridge.params_from_numpy(flat, config,
+                                                      device="cpu"),
+                             TL.llama_axes(config), mesh, config=config)
+    engine = EventEngine(VirtualClock(100.0 * rank))
+    broker = MemoryBroker()
+    runtime = ProcessRuntime(
+        name=f"beside{rank}", engine=engine,
+        transport_factory=lambda on_message, *_: MemoryMessage(
+            on_message=on_message, broker=broker)).initialize()
+    compute = ComputeRuntime(runtime, "compute", mesh=mesh)
+    batches = []
+
+    def run(_bucket, batch):
+        batches.append(batch.tolist())
+        return batch.sum(dim=1)
+
+    compute.register_batched(
+        "sum", run, [4], lambda _bucket, payloads: torch.from_numpy(
+            np.stack(payloads)), lambda results, count: [
+            int(results[i]) for i in range(count)], max_batch=3,
+        max_wait=0.004)
+    decoder = ContinuousDecoder(params, config, mesh=mesh, max_slots=2,
+                                prefill_buckets=(16,), steps_per_sync=2,
+                                registry=MetricsRegistry())
+    decoder.plan_digests = []
+    decoder.attach(engine, period=0.002)
+    sums, tokens = {}, {}
+    item_due = {2 * k + rank: k for k in range(len(items))}
+    request_due = {3 * k + 2 * rank: rid for k, rid in enumerate(prompts)}
+    try:
+        for step in range(4000):
+            if step in item_due:
+                k = item_due[step]
+                compute.submit("sum", f"s{k % 2}",
+                               np.asarray(items[k], np.int64), 4,
+                               lambda _sid, total, k=k: sums.update(
+                                   {k: total}))
+            if step in request_due:
+                rid = request_due[step]
+                decoder.submit(rid, prompts[rid], max_new,
+                               lambda r, t: tokens.update(
+                                   {r: [int(x) for x in t]}))
+            if len(sums) == len(items) and len(tokens) == len(prompts):
+                break
+            engine.clock.advance(0.002)
+            engine.step()
+    finally:
+        decoder.detach(engine)
+        runtime.terminate()
+    return {"sums": sums, "tokens": tokens, "plans": decoder.plan_digests,
+            "batches": batches}
