@@ -438,12 +438,17 @@ class ComputeRuntime(Actor):
         device, whatever the axes say.  On a larger mesh a tree with axes
         becomes this rank's shards, plain tensors cut by their logical
         axes (parallel.local_shards: nested dicts and lists, what the
-        serving programs read); a tree without axes is replicated, every
-        rank holding it whole, as JAX places an axis-free tree."""
+        serving programs read; a vocabulary that does not divide is
+        padded to equal chunks, parallel/sharding.py); a tree without
+        axes, or whose axes cut nothing on this mesh (Whisper's on an
+        expert-only mesh), is replicated: every rank holds it whole, as
+        JAX places an axis-free tree, and it stays the module."""
         if self._mesh is None or self._mesh.size() == 1 or \
                 param_axes is None:
             return params.to(self.device)
-        from .parallel.sharding import local_shards
+        from .parallel.sharding import cuts_any, local_shards
+        if not cuts_any(params, param_axes, self._mesh, rules):
+            return params.to(self.device)
         placed, _ = local_shards(params, param_axes, self._mesh, rules)
         return placed
 

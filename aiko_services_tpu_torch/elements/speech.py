@@ -14,7 +14,13 @@
 #     log-mel frontend fused into the device program, or mel incl. packed
 #     i8mel rows) and its hallucination gates.  One batched program per
 #     mel-frame bucket runs frontend → encoder → cross-KV → greedy decode
-#     on the device;
+#     on the device.  Its parameters are placed by whisper_axes through
+#     the runtime (ComputeRuntime.place_params), as the JAX element's
+#     are: on a mesh whose model axis spans ranks each rank holds its
+#     heads, its share of the FFN and its chunk of the vocabulary, and
+#     the programs run tensor-parallel over the runtime's sharding_mesh
+#     (models/whisper.py), their batches cut alike on every rank (the
+#     runtime's agreed batch cut), every rank giving the same tokens;
 #   * PE_Synthesize is the placeholder voice (a formant-ish sine stack).
 
 from __future__ import annotations
@@ -223,7 +229,7 @@ class PE_WhisperASR(PipelineElement):
         from ..bridge import load_flat_npz
         from ..models.whisper import (
             WHISPER_PRESETS, WhisperConfig, greedy_decode_scored,
-            sot_sequence_for, whisper_init)
+            sot_sequence_for, whisper_axes, whisper_init)
         from ..ops.attention import FLASH_MIN_SEQ
 
         preset, _ = self.get_parameter("preset", "tiny")
@@ -305,9 +311,14 @@ class PE_WhisperASR(PipelineElement):
             enc_layers=base.enc_layers, dec_layers=base.dec_layers,
             dtype=torch.bfloat16, sot=base.sot, eot=base.eot)
         generator = torch.Generator(device=device).manual_seed(0)
-        self.params = whisper_init(generator, self.config, device=device)
+        params = whisper_init(generator, self.config, device=device)
         if weights:
-            load_flat_npz(self.params, str(weights))
+            load_flat_npz(params, str(weights))
+        # this rank's shards on a model axis (the module itself on one
+        # device, or where whisper_axes cut nothing on the mesh)
+        self.params = self.compute.place_params(
+            params, whisper_axes(self.config))
+        mesh = self.compute.sharding_mesh
 
         audio_frontend = self.frontend == "audio"
         # audio wire: "int16" ships lossless PCM; "mulaw" ships uint8
@@ -368,11 +379,12 @@ class PE_WhisperASR(PipelineElement):
             @torch.inference_mode()
             def stage_encode(params, payload):
                 return encode(params, config,
-                              to_mel(payload, config).to(config.dtype))
+                              to_mel(payload, config).to(config.dtype),
+                              mesh)
 
             def stage_decode(params, audio):
                 return greedy_decode_from_audio(params, config, audio,
-                                                **decode_kwargs)
+                                                mesh=mesh, **decode_kwargs)
 
             executor = StagedExecutor(
                 [(stage_encode, self._stage_params[0]),
@@ -398,7 +410,7 @@ class PE_WhisperASR(PipelineElement):
             return greedy_decode_scored(self.params, config,
                                         to_mel(batch, config).to(
                                             config.dtype),
-                                        **decode_kwargs)
+                                        mesh=mesh, **decode_kwargs)
 
         # batched mode pads the batch dim to max_batch so each bucket
         # sees exactly one shape; split() slices the real rows back out

@@ -21,7 +21,8 @@ from torch import nn
 
 __all__ = [
     "Params", "Linear", "LayerNorm", "RMSNorm", "Embedding", "Conv1d",
-    "MHA", "linear", "row_parallel_linear", "linear_logits",
+    "MHA", "linear", "row_parallel_linear", "enter_columns",
+    "linear_logits",
     "greedy_tokens", "quantize_linear",
     "quantize_linear_tree", "as_tree", "tree_leaves", "layer_norm", "rms_norm",
     "embedding", "conv1d", "mha", "cached_mha", "precompute_kv", "quantize_kv",
@@ -180,16 +181,39 @@ def _model_axis_spans(mesh) -> bool:
     return axis_spans(mesh, "model")
 
 
+def _sum_over_model(y, mesh):
+    """A rank's partial sum y summed over the model axis: in place
+    (psum_) with grad off (serving), through the autograd pair's
+    reduce_from_axis with it on (training)."""
+    from ..parallel.collectives import psum_, reduce_from_axis
+    if torch.is_grad_enabled():
+        return reduce_from_axis(y, "model", mesh=mesh)
+    return psum_(y, "model", mesh=mesh)
+
+
+def enter_columns(x, mesh=None):
+    """x, the same on every rank of the model axis, as the input of a
+    column-parallel product over it (q / k / v, the FFN's in, the
+    vocab-sharded head): under autograd with a model axis of more than
+    one rank, the identity whose gradient is summed over the axis
+    (collectives.copy_to_axis); otherwise x itself."""
+    if not (torch.is_grad_enabled() and _model_axis_spans(mesh)):
+        return x
+    from ..parallel.collectives import copy_to_axis
+    return copy_to_axis(x, "model", mesh=mesh)
+
+
 def row_parallel_linear(params, x, mesh=None):
     """A linear whose input axis is sharded over the model axis of
     `mesh` (attention's o over heads, the FFN's down over ffn): each
     rank's product over its slice of the input is a partial sum, summed
-    over the model axis in f32 (in place), then the bias and the cast to
-    x's dtype, as GSPMD partitions JAX's f32-accumulated einsum.  With
-    no mesh, or a model axis of one rank, it is linear() exactly."""
+    over the model axis in f32 (in place; under autograd through
+    collectives.reduce_from_axis, whose gradient reaches every rank
+    whole), then the bias and the cast to x's dtype, as GSPMD partitions
+    JAX's f32-accumulated einsum.  With no mesh, or a model axis of one
+    rank, it is linear() exactly."""
     if not _model_axis_spans(mesh):
         return linear(params, x)
-    from ..parallel.collectives import psum_
     flat = x.reshape(-1, x.shape[-1])
     if "w8" in params:
         w = params["w8"]
@@ -197,7 +221,7 @@ def row_parallel_linear(params, x, mesh=None):
     else:
         w = params["w"]
         y = _mm_f32(flat, w)
-    y = psum_(y, "model", mesh=mesh)
+    y = _sum_over_model(y, mesh)
     if "b" in params:
         y = y + params["b"]
     return y.reshape(*x.shape[:-1], w.shape[-1]).to(x.dtype)
@@ -213,8 +237,9 @@ def linear_logits(params, x, mesh=None):
     {"w8", "s"} heads.  With a mesh whose model axis spans ranks, w is
     this rank's vocabulary shard and its logits are gathered over the
     axis in rank order into the whole vocabulary (the serving rounds
-    pick from the shards instead: collectives.greedy_pick)."""
-    y = _local_logits(params, x)
+    pick from the shards instead: collectives.greedy_pick).  Under
+    autograd x enters the vocabulary's columns through enter_columns."""
+    y = _local_logits(params, enter_columns(x, mesh))
     if not _model_axis_spans(mesh):
         return y
     from ..parallel.collectives import all_gather
@@ -350,19 +375,22 @@ def rms_norm(params, x, eps: float = 1e-6):
 
 def embedding(params, token_ids, mesh=None):
     """Rows of the table for token_ids.  With a mesh whose model axis
-    spans ranks the table is this rank's contiguous vocabulary shard:
-    ids outside it are masked, the rest looked up, and the rows summed
-    over the axis (one rank holds each id, so the sum is exact)."""
+    spans ranks the table is this rank's contiguous vocabulary shard, an
+    equal chunk (the last one padded where the vocabulary does not
+    divide): ids outside it are masked, the rest looked up, and the rows
+    summed over the axis (one rank holds each id, so the sum is exact;
+    under autograd through collectives.reduce_from_axis, so each id's
+    gradient lands on the rank that holds its row)."""
     table = params["table"]
     if not _model_axis_spans(mesh):
         return table[token_ids]
-    from ..parallel.collectives import axis_index, psum_
+    from ..parallel.collectives import axis_index
     rows = table.shape[0]
     local = token_ids - axis_index("model", mesh=mesh) * rows
     inside = (local >= 0) & (local < rows)
     out = table[torch.where(inside, local, 0)]
     out = out * inside[..., None].to(out.dtype)
-    return psum_(out, "model", mesh=mesh)
+    return _sum_over_model(out, mesh)
 
 
 def conv1d(params, x, stride: int = 1, padding=None):
@@ -418,9 +446,12 @@ def update_kv_cache(cache, k_new, v_new):
             "index": int(cache["index"]) + t}
 
 
-def precompute_kv(params, kv_input, num_kv_heads: int):
+def precompute_kv(params, kv_input, num_kv_heads: int, mesh=None):
     """Project K/V once for reuse across many queries (the encoder output
-    attended by every decode step).  Returns (k, v): [B, H_kv, T, D]."""
+    attended by every decode step).  Returns (k, v): [B, H_kv, T, D].
+    mesh: k and v are this rank's KV heads of a model axis, their input
+    entering the columns through enter_columns."""
+    kv_input = enter_columns(kv_input, mesh)
     k = _split_heads(linear(params["k"], kv_input), num_kv_heads)
     v = _split_heads(linear(params["v"], kv_input), num_kv_heads)
     return k, v
@@ -612,11 +643,14 @@ def _foldable(scale) -> bool:
 
 
 def _mha_project(params, x, kv_input, num_heads: int, num_kv_heads: int,
-                 qk_transform, precomputed_kv) -> tuple:
+                 qk_transform, precomputed_kv, mesh=None) -> tuple:
     """The projections of mha and cached_mha: (q, k, v, k_scale,
     v_scale), heads split, the
     qk_transform applied; k_scale / v_scale the foldable "tensor"-mode
-    scales of a precomputed int8 K/V, else None."""
+    scales of a precomputed int8 K/V, else None.  mesh: the heads are
+    this rank's, x (and kv_input) entering their columns once each
+    (enter_columns)."""
+    x = enter_columns(x, mesh)
     q = _split_heads(linear(params["q"], x), num_heads)
     k_scale = v_scale = None
     if precomputed_kv is not None:
@@ -630,7 +664,8 @@ def _mha_project(params, x, kv_input, num_heads: int, num_kv_heads: int,
             v = dequantize_kv(v, x.dtype)
     else:
         k, v = precompute_kv(params, x if kv_input is None else kv_input,
-                             num_kv_heads)
+                             num_kv_heads,
+                             None if kv_input is None else mesh)
     if qk_transform is not None:
         q, k = qk_transform(q, k)
     return q, k, v, k_scale, v_scale
@@ -690,7 +725,7 @@ def mha(params, x, kv_input=None, mask=None, num_heads: int = 8,
     num_kv_heads = num_kv_heads or num_heads
     q, k, v, k_scale, v_scale = _mha_project(
         params, x, kv_input, num_heads, num_kv_heads, qk_transform,
-        precomputed_kv)
+        precomputed_kv, mesh)
     if fused and mask is None and k_scale is None \
             and q.shape[2] == k.shape[2]:
         # mask-free self/cross attention: the flash kernel where shapes
@@ -714,7 +749,7 @@ def cached_mha(params, x, cache, mask=None, num_heads: int = 8,
     rounds dispatch no kernel here.  Returns (output, new_cache)."""
     num_kv_heads = num_kv_heads or num_heads
     q, k, v, k_scale, v_scale = _mha_project(
-        params, x, None, num_heads, num_kv_heads, qk_transform, None)
+        params, x, None, num_heads, num_kv_heads, qk_transform, None, mesh)
     return _plain_attention(params, x, q, k, v, mask, cache, k_scale,
                             v_scale, num_heads, num_kv_heads, mesh)
 

@@ -9,6 +9,23 @@
 # package's flat-npz keys (enc_blocks.3.attn.q.w ↔ enc_blocks/3/attn/q/w).
 # Greedy decode is a Python loop over static-shape KV caches (the JAX
 # package's lax.scan), with the same EOT fill and logprob accounting.
+#
+# Tensor parallelism (mesh=): the functions take the model's own config
+# and this rank's shards of a model axis (parallel.local_shards with
+# whisper_axes for serving; the train step's local views of its
+# DTensors), as GSPMD partitions JAX's program over whisper_axes: q, k,
+# v and mlp_in are column-parallel (the rank's heads and its share of
+# the FFN's 4·dim), attn.o, cross.o and mlp_out row-parallel, each
+# followed by a sum over the model axis (layers.row_parallel_linear);
+# the tied embedding and head hold the rank's vocabulary chunk, ceil(
+# n_vocab / n) rows with the last one padded (parallel/sharding.py), so
+# decode_step's logits are the rank's chunk with the padding at -inf,
+# and the greedy pick and its logprob reduce over the chunks
+# (collectives.greedy_pick_scored, shifted_logsumexp).  Under autograd
+# the sums and the column-parallel inputs use the collectives' autograd
+# pair, so a loss backpropagates into the shards.  With mesh=None, or a
+# model axis of one rank, nothing changes: the same launches and the
+# same numbers.
 
 from __future__ import annotations
 
@@ -21,7 +38,7 @@ from .. import resolve_device, torch_dtype
 from . import layers as L
 
 __all__ = ["WhisperConfig", "Whisper", "whisper_init", "whisper_axes",
-           "encode",
+           "local_heads", "encode",
            "precompute_cross_kv", "init_caches", "decode_step",
            "greedy_decode_scored", "greedy_decode_from_audio", "forward",
            "WHISPER_PRESETS", "sot_sequence_for", "parse_timestamp_segments",
@@ -233,49 +250,71 @@ def whisper_axes(config: WhisperConfig):
     }
 
 
-def _mlp(block, x):
-    return L.linear(block["mlp_out"],
-                    L.gelu(L.linear(block["mlp_in"], x)))
+def local_heads(config: WhisperConfig, mesh=None) -> int:
+    """This rank's attention heads: the config's over the size of the
+    model axis (heads map to it under DEFAULT_RULES); all of them
+    without a mesh.  Heads that do not divide raise ValueError, as
+    JAX's placement does (only the vocabulary pads)."""
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        return config.num_heads
+    from ..parallel.collectives import axis_size
+    n = axis_size("model", mesh=mesh)
+    if config.num_heads % n:
+        raise ValueError(f"num_heads {config.num_heads} does not divide "
+                         f"over the 'model' axis of size {n}")
+    return config.num_heads // n
 
 
-def _encoder_block(block, x, num_heads):
+def _mlp(block, x, mesh=None):
+    hidden = L.linear(block["mlp_in"], L.enter_columns(x, mesh))
+    return L.row_parallel_linear(block["mlp_out"], L.gelu(hidden), mesh)
+
+
+def _encoder_block(block, x, num_heads, mesh=None):
     attn_out, _ = L.mha(block["attn"], L.layer_norm(block["ln_attn"], x),
-                        num_heads=num_heads)
+                        num_heads=num_heads, mesh=mesh)
     x = x + attn_out
-    return x + _mlp(block, L.layer_norm(block["ln_mlp"], x))
+    return x + _mlp(block, L.layer_norm(block["ln_mlp"], x), mesh)
 
 
-def encode(params, config: WhisperConfig, mel):
-    """mel: [B, T_frames, n_mels] → audio features [B, T_frames/2, dim]."""
+def encode(params, config: WhisperConfig, mel, mesh=None):
+    """mel: [B, T_frames, n_mels] → audio features [B, T_frames/2, dim]
+    (the same on every rank of a mesh)."""
     x = L.gelu(L.conv1d(params["conv1"], mel.to(config.dtype)))
     x = L.gelu(L.conv1d(params["conv2"], x, stride=2))
     positions = L.sinusoid_position_encoding(x.shape[1], config.dim,
                                              device=x.device)
     x = x + positions.to(x.dtype)
+    heads = local_heads(config, mesh)
     for block in params["enc_blocks"]:
-        x = _encoder_block(block, x, config.num_heads)
+        x = _encoder_block(block, x, heads, mesh)
     return L.layer_norm(params["ln_enc"], x)
 
 
-def _decoder_block(block, x, cross_kv, num_heads, self_cache, mask):
+def _decoder_block(block, x, cross_kv, num_heads, self_cache, mask,
+                   mesh=None):
     attn_out, self_cache = L.cached_mha(
         block["attn"], L.layer_norm(block["ln_attn"], x), self_cache,
-        mask=mask, num_heads=num_heads)
+        mask=mask, num_heads=num_heads, mesh=mesh)
     x = x + attn_out
     cross_out, _ = L.mha(block["cross"],
                          L.layer_norm(block["ln_cross"], x),
-                         precomputed_kv=cross_kv, num_heads=num_heads)
+                         precomputed_kv=cross_kv, num_heads=num_heads,
+                         mesh=mesh)
     x = x + cross_out
-    return x + _mlp(block, L.layer_norm(block["ln_mlp"], x)), self_cache
+    return x + _mlp(block, L.layer_norm(block["ln_mlp"], x), mesh), \
+        self_cache
 
 
 def precompute_cross_kv(params, config: WhisperConfig, audio,
-                        quantize=False):
+                        quantize=False, mesh=None):
     """Project every decoder block's cross-attention K/V over the audio
     features once per utterance.  quantize: False, True/"position"
     (int8, per-position scales) or "tensor" (int8, one scale per batch
-    element, folded into the attention by mha)."""
-    kv = [L.precompute_kv(block["cross"], audio, config.num_heads)
+    element, folded into the attention by mha).  mesh: this rank's
+    heads."""
+    heads = local_heads(config, mesh)
+    kv = [L.precompute_kv(block["cross"], audio, heads, mesh)
           for block in params["dec_blocks"]]
     if quantize:
         mode = quantize if isinstance(quantize, str) else "position"
@@ -285,23 +324,27 @@ def precompute_cross_kv(params, config: WhisperConfig, audio,
 
 
 def init_caches(config: WhisperConfig, batch: int,
-                max_len: int | None = None, device=None):
+                max_len: int | None = None, device=None, mesh=None):
+    """The decoder's self-attention caches, of this rank's heads on a
+    mesh."""
     max_len = max_len or config.n_text_ctx
     device = resolve_device(device)
-    return [L.init_kv_cache(batch, max_len, config.num_heads,
+    return [L.init_kv_cache(batch, max_len, local_heads(config, mesh),
                             config.head_dim, config.dtype, device)
             for _ in range(config.dec_layers)]
 
 
 def decode_step(params, config: WhisperConfig, tokens, cross_kv, caches,
-                position_offset: int = 0):
+                position_offset: int = 0, mesh=None):
     """tokens: [B, T_step]; cross_kv is precompute_cross_kv(...)'s output
     (raw audio features are also accepted and projected here).  Returns
     (logits [B, T_step, vocab] f32, new_caches); the caches are updated
-    in place."""
+    in place.  mesh: the logits are this rank's vocabulary chunk, its
+    padding columns (ids at or past n_vocab) at -inf."""
     if not isinstance(cross_kv, (list, tuple)):
-        cross_kv = precompute_cross_kv(params, config, cross_kv)
-    x = L.embedding(params["tok_embed"], tokens)
+        cross_kv = precompute_cross_kv(params, config, cross_kv,
+                                       mesh=mesh)
+    x = L.embedding(params["tok_embed"], tokens, mesh)
     t = tokens.shape[1]
     x = x + params["pos_embed"][position_offset:position_offset + t][None]
     x = x.to(config.dtype)
@@ -314,21 +357,26 @@ def decode_step(params, config: WhisperConfig, tokens, cross_kv, caches,
         mask = (k_pos <= q_pos)[None, None]
 
     new_caches = []
+    heads = local_heads(config, mesh)
     for block, block_kv, cache in zip(params["dec_blocks"], cross_kv,
                                       caches):
-        x, cache = _decoder_block(block, x, block_kv, config.num_heads,
-                                  cache, mask)
+        x, cache = _decoder_block(block, x, block_kv, heads, cache, mask,
+                                  mesh)
         new_caches.append(cache)
-    x = L.layer_norm(params["ln_dec"], x)
+    x = L.enter_columns(L.layer_norm(params["ln_dec"], x), mesh)
     logits = torch.matmul(x.float(),
                           params["tok_embed"]["table"].float().t())
+    if L._model_axis_spans(mesh):
+        from ..parallel.collectives import mask_vocab_padding
+        logits = mask_vocab_padding(logits, "model", mesh=mesh,
+                                    vocab=config.n_vocab)
     return logits, new_caches
 
 
 def greedy_decode_scored(params, config: WhisperConfig, mel,
                          max_tokens: int = 64, sot_sequence=None,
                          suppress_timestamps: bool = False,
-                         kv_quant=False):
+                         kv_quant=False, mesh=None):
     """Batched greedy decoding with per-sequence quality scores.
 
     mel: [B, T_frames, n_mels] →
@@ -336,18 +384,19 @@ def greedy_decode_scored(params, config: WhisperConfig, mel,
     Finished sequences keep emitting EOT; avg_logprob is the mean
     log-probability of the emitted tokens, EOT included.
     suppress_timestamps masks ids >= TOKEN_TIMESTAMP_BEGIN out of the
-    argmax."""
+    argmax.  mesh: this rank's shards; every rank returns the same
+    tokens, lengths and scores."""
     with torch.inference_mode():
         return greedy_decode_from_audio(
-            params, config, encode(params, config, mel), max_tokens,
-            sot_sequence, suppress_timestamps, kv_quant)
+            params, config, encode(params, config, mel, mesh), max_tokens,
+            sot_sequence, suppress_timestamps, kv_quant, mesh)
 
 
 @torch.inference_mode()
 def greedy_decode_from_audio(params, config: WhisperConfig, audio,
                              max_tokens: int = 64, sot_sequence=None,
                              suppress_timestamps: bool = False,
-                             kv_quant=False):
+                             kv_quant=False, mesh=None):
     """greedy_decode_scored from already-encoded audio features
     [B, n_audio_ctx, dim]."""
     if sot_sequence is None:
@@ -364,17 +413,34 @@ def greedy_decode_from_audio(params, config: WhisperConfig, audio,
             f"n_text_ctx({config.n_text_ctx})")
     batch, device = audio.shape[0], audio.device
     cross_kv = precompute_cross_kv(params, config, audio,
-                                   quantize=kv_quant)
-    caches = init_caches(config, batch, max_len=total, device=device)
+                                   quantize=kv_quant, mesh=mesh)
+    caches = init_caches(config, batch, max_len=total, device=device,
+                         mesh=mesh)
+    sharded = L._model_axis_spans(mesh)
 
     ts_mask = None
     if suppress_timestamps and TOKEN_TIMESTAMP_BEGIN < config.n_vocab:
-        ts_mask = torch.arange(config.n_vocab, device=device) >= \
-            TOKEN_TIMESTAMP_BEGIN
+        width = params["tok_embed"]["table"].shape[0]
+        ids = torch.arange(width, device=device)
+        if sharded:
+            from ..parallel.collectives import vocab_offset
+            ids = ids + vocab_offset(width, "model", mesh=mesh)
+        ts_mask = ids >= TOKEN_TIMESTAMP_BEGIN
 
     def pick(logits_last):
         if ts_mask is not None:
             logits_last = logits_last.masked_fill(ts_mask, float("-inf"))
+        if sharded:
+            # the pick and log_softmax's value at it over the chunks:
+            # the token is the global max, so its logprob is
+            # (value - top) - log Σ exp(logits - top)
+            from ..parallel.collectives import (greedy_pick_scored,
+                                                shifted_logsumexp)
+            token, value = greedy_pick_scored(logits_last, "model",
+                                              mesh=mesh)
+            top, log_total = shifted_logsumexp(logits_last, "model",
+                                               mesh=mesh)
+            return token, (value - top) - log_total
         token = torch.argmax(logits_last, dim=-1)
         logprob = torch.log_softmax(logits_last, dim=-1).gather(
             -1, token[:, None])[:, 0]
@@ -386,7 +452,8 @@ def greedy_decode_from_audio(params, config: WhisperConfig, audio,
                          device=device)
     for column, token_id in enumerate(sot_sequence):
         prompt[:, column] = token_id
-    logits, caches = decode_step(params, config, prompt, cross_kv, caches)
+    logits, caches = decode_step(params, config, prompt, cross_kv, caches,
+                                 mesh=mesh)
     token, token_logprob = pick(logits[:, -1])
 
     done = torch.zeros(batch, dtype=torch.bool, device=device)
@@ -403,7 +470,7 @@ def greedy_decode_from_audio(params, config: WhisperConfig, audio,
         done = done | (token == eot)
         logits, caches = decode_step(
             params, config, token[:, None].long(), cross_kv, caches,
-            position_offset=len(sot_sequence) + step)
+            position_offset=len(sot_sequence) + step, mesh=mesh)
         next_token, next_logprob = pick(logits[:, -1])
         emitted.append(token)
         token = torch.where(done, torch.full_like(next_token, eot),
@@ -414,11 +481,14 @@ def greedy_decode_from_audio(params, config: WhisperConfig, audio,
     return tokens, lengths, logprob_sum / torch.clamp(count, min=1)
 
 
-def forward(params, config: WhisperConfig, mel, tokens):
+def forward(params, config: WhisperConfig, mel, tokens, mesh=None):
     """Teacher-forced forward: mel [B, T, n_mels], tokens [B, S] →
-    logits [B, S, vocab]."""
-    audio = encode(params, config, mel)
+    logits [B, S, vocab] (mesh: this rank's vocabulary chunk, as
+    decode_step's; train.cross_entropy_loss with the mesh takes it)."""
+    audio = encode(params, config, mel, mesh)
     batch, s = tokens.shape
-    caches = init_caches(config, batch, max_len=s, device=tokens.device)
-    logits, _ = decode_step(params, config, tokens, audio, caches)
+    caches = init_caches(config, batch, max_len=s, device=tokens.device,
+                         mesh=mesh)
+    logits, _ = decode_step(params, config, tokens, audio, caches,
+                            mesh=mesh)
     return logits

@@ -12,7 +12,12 @@
 #     (exp_avg), 0/2/<path> each nu (exp_avg_sq); an SGD without momentum
 #     holds no leaves, as optax.sgd's state has none.
 # DTensor leaves are gathered in full to save and sliced to each rank's
-# shard to restore.  Under torch.distributed every rank joins the
+# shard to restore.  A vocabulary split unevenly over a model axis
+# (Whisper's odd one) keeps its global shape at rest, in DTensor's
+# uneven chunks: the padding to equal chunks lives only in the train
+# step's local views and the serving shards (parallel/sharding.py), so
+# a save holds the model's rows and no padding, and a restore cuts them
+# back into the same chunks.  Under torch.distributed every rank joins the
 # gathers, global rank 0 alone writes, and a barrier holds the others
 # until the files are complete: the directory must be one that every
 # rank can read.

@@ -19,7 +19,8 @@ import torch.distributed as dist
 from .sharding import NamedSharding, distribute, placements
 
 __all__ = ["psum", "psum_", "pmean", "pmax", "all_gather", "greedy_pick",
-           "axis_spans",
+           "greedy_pick_scored", "shifted_logsumexp", "mask_vocab_padding",
+           "vocab_offset", "axis_spans", "copy_to_axis", "reduce_from_axis",
            "ppermute_ring",
            "reduce_scatter", "axis_index", "axis_size", "device_transfer",
            "ring_neighbours", "shard_map", "axis_fabric",
@@ -56,19 +57,100 @@ def psum_(x, axis_name, *, mesh):
     return x
 
 
+class _CopyToAxis(torch.autograd.Function):
+    """Identity forward; the gradient summed over the axis backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, op=dist.ReduceOp.SUM, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromAxis(torch.autograd.Function):
+    """The sum over the axis forward; the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_axis(x, axis_name, *, mesh):
+    """x, the same on every rank of `axis_name`, entering a column-
+    parallel product (q / k / v, the FFN's in, the vocab-sharded head):
+    the identity, whose gradient is summed over the axis, because each
+    rank's product over its slice of the output contributes a part of
+    x's gradient.  Megatron's "f".  Without a spanning axis it is x."""
+    if not axis_spans(mesh, axis_name):
+        return x
+    return _CopyToAxis.apply(x, _group(mesh, axis_name))
+
+
+def reduce_from_axis(x, axis_name, *, mesh):
+    """The sum of each rank's partial x over `axis_name` (a row-parallel
+    product, a vocab-sharded lookup), into a new tensor, whose gradient
+    passes unchanged to every rank: the consumer downstream is the same
+    on every rank, so each rank's partial takes the whole gradient.
+    Megatron's "g".  torch.distributed.nn's all_reduce would sum the
+    gradient over the axis as well, giving every parameter upstream n
+    times its gradient.  Without a spanning axis it is x."""
+    if not axis_spans(mesh, axis_name):
+        return x
+    return _ReduceFromAxis.apply(x, _group(mesh, axis_name))
+
+
 def greedy_pick(logits, axis_name, *, mesh):
     """The greedy token of vocab-sharded logits: logits [..., V / n] are
-    this rank's contiguous vocabulary shard along `axis_name`; returns
-    the global argmax [...] int32, the same on every rank.  Each rank's
-    local max and its global index (first maximal, as torch.argmax) are
-    gathered in one collective; the largest value wins and, at equal
-    values, the smallest index: jnp.argmax's first-index rule over the
-    whole vocabulary.  A rank of one makes no collective call."""
+    this rank's contiguous vocabulary shard along `axis_name`, equal
+    chunks (an uneven split's padding columns at -inf:
+    mask_vocab_padding); returns the global argmax [...] int32, the same
+    on every rank.  Each rank's local max and its global index (first
+    maximal, as torch.argmax) are gathered in one collective; the
+    largest value wins and, at equal values, the smallest index:
+    jnp.argmax's first-index rule over the whole vocabulary.  A rank of
+    one makes no collective call."""
+    return greedy_pick_scored(logits, axis_name, mesh=mesh)[0]
+
+
+def vocab_offset(logits_width: int, axis_name, *, mesh) -> int:
+    """The global index of this rank's first vocabulary column: shards
+    are equal chunks (padded where the vocabulary does not divide)."""
+    return axis_index(axis_name, mesh=mesh) * logits_width
+
+
+def mask_vocab_padding(logits, axis_name, *, mesh, vocab: int):
+    """logits [..., chunk] of this rank's vocabulary shard with every
+    column at or past `vocab` (the padding of an uneven split) at -inf;
+    unchanged when no column is padding."""
+    width = logits.shape[-1]
+    offset = vocab_offset(width, axis_name, mesh=mesh) \
+        if axis_spans(mesh, axis_name) else 0
+    if offset + width <= vocab:
+        return logits
+    ids = torch.arange(width, device=logits.device) + offset
+    return logits.masked_fill(ids >= vocab, float("-inf"))
+
+
+def greedy_pick_scored(logits, axis_name, *, mesh):
+    """greedy_pick and the winning logit: (token [...] int32, its value
+    [...] in logits' dtype), both the same on every rank (the value is
+    the largest logit of the whole vocabulary)."""
     index = torch.argmax(logits, dim=-1)
-    if not axis_spans(mesh, axis_name):
-        return index.to(torch.int32)
     value = torch.gather(logits, -1, index[..., None])[..., 0]
-    index = index + axis_index(axis_name, mesh=mesh) * logits.shape[-1]
+    if not axis_spans(mesh, axis_name):
+        return index.to(torch.int32), value
+    index = index + vocab_offset(logits.shape[-1], axis_name, mesh=mesh)
     # f64 holds an f32 value and an int32 index exactly: one all_gather
     pair = torch.stack([value.double(), index.double()], dim=-1)
     pairs = all_gather(pair, axis_name, tiled=False, mesh=mesh)  # [n,...,2]
@@ -76,7 +158,24 @@ def greedy_pick(logits, axis_name, *, mesh):
     best = values.amax(dim=0)
     indices = torch.where(values == best, indices,
                           torch.full_like(indices, float("inf")))
-    return indices.amin(dim=0).to(torch.int32)
+    return indices.amin(dim=0).to(torch.int32), best.to(logits.dtype)
+
+
+def shifted_logsumexp(logits, axis_name, *, mesh):
+    """(top, log Σ exp(logits - top)) over the last axis of vocab-
+    sharded logits and every shard along `axis_name` (each [...] f32,
+    the same on every rank): top is the largest logit of the whole
+    vocabulary, taken without a gradient (the sum does not depend on
+    it); the shifted exponentials' sums are summed through
+    reduce_from_axis, so the gradient reaches every shard.  Padding
+    columns must be -inf (mask_vocab_padding)."""
+    logits = logits.float()
+    with torch.no_grad():
+        top = logits.amax(dim=-1)
+        if axis_spans(mesh, axis_name):
+            top = pmax(top, axis_name, mesh=mesh)
+    total = torch.exp(logits - top[..., None]).sum(dim=-1)
+    return top, torch.log(reduce_from_axis(total, axis_name, mesh=mesh))
 
 
 def pmean(x, axis_name, *, mesh):

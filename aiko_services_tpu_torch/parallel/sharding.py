@@ -28,7 +28,9 @@ from .mesh import AXIS_DATA, AXIS_EXPERT, AXIS_MODEL, AXIS_SEQUENCE
 __all__ = ["ShardingRules", "DEFAULT_RULES", "NamedSharding",
            "named_sharding", "shard_pytree", "constrain", "replicated",
            "placements", "distribute", "mesh_device", "local_config",
-           "local_shards", "input_axis_max"]
+           "local_shards", "cuts_any", "input_axis_max", "padded_chunk",
+           "pad_chunk",
+           "PADDED_AXES"]
 
 
 @dataclass
@@ -137,10 +139,40 @@ def _axes_at(axes_tree, path):
     return node
 
 
+# Logical axes whose uneven split is padded, as GSPMD pads it: every
+# rank holds an equal contiguous chunk of ceil(width / n) rows, the last
+# rank's tail being zero rows past the end.  Whisper's vocabulary is
+# odd (51,865).  Every other uneven split (heads, ffn) raises.
+PADDED_AXES = ("vocab",)
+
+
+def padded_chunk(width: int, n: int) -> int:
+    """The rows of each rank's chunk of a dimension of `width` split
+    over n ranks: ceil(width / n), the padded split's equal chunk."""
+    return -(-int(width) // int(n))
+
+
+def _check_divides(shape, axes, mesh, rules) -> None:
+    """Raise where a dimension whose logical axis maps to a mesh axis
+    of more than one rank does not divide over it, except the padded
+    axes."""
+    spec = named_sharding(mesh, *axes, rules=rules).spec if axes else ()
+    for dim, (logical, axis) in enumerate(zip(axes or (), spec)):
+        if axis is None or logical in PADDED_AXES:
+            continue
+        n = _axis_size(mesh, axis)
+        if shape[dim] % n:
+            raise ValueError(
+                f"a leaf of shape {tuple(shape)} does not divide over the "
+                f"{axis!r} axis of size {n} along dimension {dim} "
+                f"({logical!r}; only {', '.join(PADDED_AXES)} is padded)")
+
+
 def _place(leaf, axes, mesh, rules):
     if mesh.size() == 1:
         # a mesh of one shards nothing: the leaf lives on its device
         return leaf.to(mesh_device(mesh))
+    _check_divides(leaf.shape, axes, mesh, rules)
     sharding = replicated(mesh) if axes is None else \
         named_sharding(mesh, *axes, rules=rules)
     return distribute(leaf.detach(), sharding)
@@ -155,7 +187,13 @@ def shard_pytree(tree, axes_tree, mesh, rules: ShardingRules = None):
     new tree is returned).  axes_tree mirrors the JAX param tree, each
     leaf a tuple of logical axis names (or None = replicate).  On a mesh
     of more than one device each leaf becomes a DTensor; on a mesh of one
-    it stays a plain tensor on the mesh's device."""
+    it stays a plain tensor on the mesh's device.  A vocab dimension
+    that does not divide keeps its global size: DTensor's contiguous
+    chunks are then ceil(V / n) rows on every rank but the last, the
+    padded split's chunks without their padding rows (the train step
+    pads its local views, parallel/train.py), so checkpoints and moments
+    hold the real vocabulary only.  Any other dimension that does not
+    divide raises ValueError."""
     if isinstance(tree, nn.Module):
         for name, param in list(tree.named_parameters()):
             *owner_path, leaf_name = name.split(".")
@@ -200,8 +238,10 @@ def local_config(config, mesh, rules: ShardingRules = None):
     DEFAULT_RULES), num_experts by the expert axis's, and head_shards set
     to the heads' divisor, so head_dim stays the model's.  Caches, pools
     and side buffers sized from it are this rank's.  Raises ValueError
-    where a width does not divide: JAX pads an uneven split, the port
-    refuses it."""
+    where a width does not divide, as JAX's device_put does: the Llama
+    serving programs pick their tokens without the vocabulary's size,
+    so they take no padded vocabulary (Whisper's functions do: they
+    take the model's config and the mesh, models/whisper.py)."""
     rules = rules or DEFAULT_RULES
     if config.head_shards != 1:
         raise ValueError("local_config takes the model's config, not a "
@@ -216,8 +256,9 @@ def local_config(config, mesh, rules: ShardingRules = None):
         if width % n:
             raise ValueError(
                 f"{field_name} {width} does not divide over the "
-                f"{rules.rules.get(logical)!r} axis of size {n} (the port "
-                f"refuses an uneven split, where JAX would pad)")
+                f"{rules.rules.get(logical)!r} axis of size {n} (a "
+                f"Llama config's widths must divide, as JAX's placement "
+                f"needs)")
         widths[field_name] = width // n
     return dataclasses.replace(
         config, **widths,
@@ -261,28 +302,54 @@ def input_axis_max(mesh, axes_tree, rules: ShardingRules = None):
     return reduce
 
 
+def pad_chunk(part, dim: int, rows: int):
+    """part with zero rows appended along `dim` up to `rows` (a padded
+    split's short last chunk); part itself when it has them."""
+    short = rows - part.shape[dim]
+    if short <= 0:
+        return part
+    pad = [0, 0] * (part.ndim - 1 - dim) + [0, short]
+    return torch.nn.functional.pad(part, pad)
+
+
 def _local_leaf(leaf, axes, mesh, rules, device):
     """This rank's slice of a full leaf, on `device`: each dimension whose
     logical axis maps to a mesh axis is cut to the rank's contiguous
-    chunk along it (the chunk DTensor's Shard gives the same rank).  A
-    leaf that is not cut moves without a copy; a cut one is copied, so
-    the full tensor can be freed."""
+    chunk along it (the chunk DTensor's Shard gives the same rank); a
+    vocab dimension that does not divide is padded with zero rows to
+    ceil(V / n) a rank first (PADDED_AXES), every other raises.  A leaf
+    that is not cut moves without a copy; a cut one is copied, so the
+    full tensor can be freed."""
+    _check_divides(leaf.shape, axes, mesh, rules)
     spec = named_sharding(mesh, *axes, rules=rules).spec if axes else ()
     part = leaf.detach()
     for dim, axis in enumerate(spec):
         if axis is None:
             continue
         n = _axis_size(mesh, axis)
-        if part.shape[dim] % n:
-            raise ValueError(
-                f"a leaf of shape {tuple(leaf.shape)} does not divide over "
-                f"the {axis!r} axis of size {n} along dimension {dim} (the "
-                f"port refuses an uneven split, where JAX would pad)")
-        chunk = part.shape[dim] // n
-        part = part.narrow(dim, mesh.get_local_rank(axis) * chunk, chunk)
+        chunk = padded_chunk(part.shape[dim], n)
+        start = min(mesh.get_local_rank(axis) * chunk, part.shape[dim])
+        part = pad_chunk(part.narrow(
+            dim, start, min(chunk, part.shape[dim] - start)), dim, chunk)
     if part.shape == leaf.shape:
         return part.to(device)
     return part.to(device, copy=True, memory_format=torch.contiguous_format)
+
+
+def cuts_any(tree, axes_tree, mesh, rules: ShardingRules = None) -> bool:
+    """Whether local_shards would cut any leaf of `tree` on `mesh`: some
+    leaf's logical axis maps to a mesh axis of more than one rank (a
+    Whisper tree on an expert-only mesh cuts nothing)."""
+    from ..models.layers import tree_leaves
+    rules = rules or DEFAULT_RULES
+    for path, _ in tree_leaves(tree):
+        axes = _axes_at(axes_tree, [str(key) for key in path])
+        spec = named_sharding(mesh, *axes, rules=rules).spec \
+            if axes else ()
+        if any(axis is not None and _axis_size(mesh, axis) > 1
+               for axis in spec):
+            return True
+    return False
 
 
 def local_shards(tree, axes_tree, mesh, rules: ShardingRules = None,
@@ -296,8 +363,10 @@ def local_shards(tree, axes_tree, mesh, rules: ShardingRules = None,
     serving programs read both forms alike), each leaf cut along the
     mesh axes its logical axes map to (replicated over every other, the
     data axis included), and local_config(config, mesh, rules), or None
-    without a config.  Raises ValueError where a dimension does not
-    divide over its axis (JAX pads; the port refuses)."""
+    without a config.  A vocab dimension that does not divide is padded
+    to equal chunks of ceil(V / n) rows (zero rows past the end: the
+    logits' consumers mask them, collectives.mask_vocab_padding); any
+    other dimension that does not divide raises ValueError."""
     from ..models.layers import as_tree
 
     local = None if config is None else local_config(config, mesh, rules)

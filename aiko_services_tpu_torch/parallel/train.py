@@ -8,18 +8,21 @@
 #   * the batch is sharded over the data axis (each rank takes its
 #     slice of the full batch, which every rank passes);
 #   * the parameters (and the optimizer's moments, which follow them)
-#     are DTensors placed by their logical axes (shard_pytree); the step
-#     all-gathers them over the axes they are sharded on (the model
-#     axis), runs forward and backward on plain tensors, sums the
-#     gradients over the data axis in one flat bucket, and hands each
-#     rank's optimizer the slice of the gradient its shard owns.  Every
-#     rank of a model group computes the same full product and holds
-#     full parameters and gradients during the step, so its peak memory
-#     is the unsharded step's: the model axis shards only what rests
-#     between steps, the parameters and the Adam moments.  Tensor-
-#     parallel compute inside the step's layers is not ported yet
-#     (ROADMAP.md Queue 1 item 3.1; the serving programs shard theirs:
-#     models/llama.py with a mesh);
+#     are DTensors placed by their logical axes (shard_pytree).  The
+#     step hands loss_fn each DTensor's local shard (to_local(), as a
+#     fresh leaf that requires grad; a vocabulary chunk short of
+#     ceil(V / n) rows, an uneven split's last, padded with zero rows to
+#     it, as parallel/sharding.py's serving shards are), so the model
+#     computes tensor-parallel: loss_fn calls the model with the mesh
+#     (models/whisper.py: column-parallel q / k / v and mlp_in,
+#     row-parallel o and mlp_out, the vocab-sharded embedding and head,
+#     their sums through collectives' autograd pair) and a
+#     vocab-parallel loss (cross_entropy_loss / cross_entropy_sum with
+#     the mesh: no rank forms the whole [B, S, V] logits).  Nothing
+#     all-gathers a parameter: a rank's activations, gradients and peak
+#     memory are its shards'.  The local gradients are summed over the
+#     data axis in one flat bucket and become each parameter's gradient
+#     as a DTensor of its own placement;
 #   * a mesh of one shards nothing: the step is the unsharded one.
 # The loss is the global batch's, as JAX's is.  A loss_fn returns either
 # a scalar mean over its batch, which the step takes for a mean over
@@ -40,8 +43,10 @@ from dataclasses import dataclass
 
 import torch
 
-from .collectives import axis_size, psum
-from .sharding import NamedSharding, distribute, named_sharding, shard_pytree
+from .collectives import (axis_size, axis_spans, psum, reduce_from_axis,
+                          shifted_logsumexp, vocab_offset)
+from .sharding import (distribute, named_sharding, pad_chunk, padded_chunk,
+                       shard_pytree)
 
 __all__ = ["make_train_step", "cross_entropy_loss", "cross_entropy_sum",
            "TrainState", "init_train_state", "adamw", "sgd"]
@@ -93,22 +98,26 @@ class sgd:
                                lr=self.learning_rate)
 
 
-def cross_entropy_loss(logits, targets, mask=None):
+def cross_entropy_loss(logits, targets, mask=None, mesh=None):
     """logits [B,S,V] float32, targets [B,S] int: the mean negative
     log-likelihood over every token, or sum(nll·mask) / max(sum(mask), 1)
-    with a mask."""
-    nll = _nll(logits, targets)
+    with a mask.  mesh: logits are this rank's vocabulary chunk of a
+    model axis, an uneven split's padding columns at -inf (the model's
+    forward with the mesh), and the loss is vocab-parallel (_nll), the
+    same on every rank."""
+    nll = _nll(logits, targets, mesh)
     if mask is not None:
         mask = mask.to(nll.dtype)
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
 
 
-def cross_entropy_sum(logits, targets, mask=None):
+def cross_entropy_sum(logits, targets, mask=None, mesh=None):
     """cross_entropy_loss as the pair (sum of nll·mask, sum of mask), the
     mask all ones when none is given: a loss_fn that returns it gets the
-    global batch's masked mean from a train step on a data axis."""
-    nll = _nll(logits, targets)
+    global batch's masked mean from a train step on a data axis.  mesh:
+    as cross_entropy_loss's."""
+    nll = _nll(logits, targets, mesh)
     if mask is None:
         return nll.sum(), torch.full((), float(nll.numel()),
                                     device=nll.device)
@@ -116,9 +125,25 @@ def cross_entropy_sum(logits, targets, mask=None):
     return (nll * mask).sum(), mask.sum()
 
 
-def _nll(logits, targets):
-    log_probs = torch.log_softmax(logits.float(), dim=-1)
-    return -log_probs.gather(-1, targets.long()[..., None])[..., 0]
+def _nll(logits, targets, mesh=None):
+    """-log softmax(logits)[target].  On a model axis of more than one
+    rank the logits are the rank's vocabulary chunk: the max and the
+    sum of exponentials reduce over the axis (shifted_logsumexp), and
+    the target's logit comes from the rank whose chunk holds it (a
+    masked gather summed through reduce_from_axis, so its gradient
+    lands there alone)."""
+    if not axis_spans(mesh, "model"):
+        log_probs = torch.log_softmax(logits.float(), dim=-1)
+        return -log_probs.gather(-1, targets.long()[..., None])[..., 0]
+    logits = logits.float()
+    top, log_total = shifted_logsumexp(logits, "model", mesh=mesh)
+    width = logits.shape[-1]
+    local = targets.long() - vocab_offset(width, "model", mesh=mesh)
+    inside = (local >= 0) & (local < width)
+    picked = logits.gather(-1, torch.where(inside, local, 0)[..., None])
+    picked = torch.where(inside, picked[..., 0], 0.0)
+    target = reduce_from_axis(picked, "model", mesh=mesh)
+    return (top + log_total) - target
 
 
 def init_train_state(params, optimizer, mesh=None, param_axes=None,
@@ -133,15 +158,29 @@ def init_train_state(params, optimizer, mesh=None, param_axes=None,
     return TrainState(params, optimizer.init(params))
 
 
-def _gathered_tree(module):
+def _local_tree(module, mesh):
     """The module's parameters as nested dicts and lists of plain
-    leaf tensors that require grad: each DTensor all-gathered in full,
-    each plain parameter itself.  Returns (tree, [(param, leaf)])."""
-    from torch.distributed.tensor import DTensor
+    tensors: each DTensor's local shard as a fresh leaf that requires
+    grad (no communication), a chunk short of its split's ceil(width /
+    n) rows padded with zero rows to it (the padding's gradient is
+    dropped by the pad's backward); each plain parameter itself.
+    Returns (tree, [(param, leaf)])."""
+    from torch.distributed.tensor import DTensor, Shard
 
     from ..models.layers import as_tree
 
     pairs = []
+
+    def local(node):
+        leaf = node.to_local().detach().requires_grad_(True)
+        pairs.append((node, leaf))
+        view = leaf
+        for mesh_dim, placement in enumerate(node.placements):
+            if isinstance(placement, Shard):
+                dim = placement.dim
+                view = pad_chunk(view, dim, padded_chunk(
+                    node.shape[dim], mesh.size(mesh_dim)))
+        return view
 
     def walk(node):
         if isinstance(node, dict):
@@ -149,9 +188,7 @@ def _gathered_tree(module):
         if isinstance(node, list):
             return [walk(value) for value in node]
         if isinstance(node, DTensor):
-            leaf = node.full_tensor().detach().requires_grad_(True)
-            pairs.append((node, leaf))
-            return leaf
+            return local(node)
         return node
     return walk(as_tree(module)), pairs
 
@@ -178,9 +215,13 @@ def make_train_step(loss_fn, mesh=None, batch_axes=("batch",), rules=None):
     loss): loss → backward → state.opt_state's step, in place (the
     parameters and moments update where they live, as JAX's donation
     lets them), and state.step counts.  With a mesh, the batch (a dict
-    of full tensors) is sharded over the data axis and the step runs
-    the collectives the module's header describes."""
+    of full tensors) is sharded over the data axis, loss_fn is handed
+    the parameters' local shards (the module's header), and the step
+    runs the collectives the header describes: loss_fn then calls the
+    model and the loss with the mesh."""
     sharded = mesh is not None and mesh.size() > 1
+    if sharded:
+        from torch.distributed.tensor import DTensor
 
     def step(state, batch):
         opt = state.opt_state
@@ -194,13 +235,13 @@ def make_train_step(loss_fn, mesh=None, batch_axes=("batch",), rules=None):
         local = {key: distribute(x, named_sharding(
             mesh, *batch_axes[:x.ndim], rules=rules)).to_local()
             for key, x in batch.items()}
-        tree, pairs = _gathered_tree(state.params)
+        tree, pairs = _local_tree(state.params, mesh)
         data = "data" if "data" in mesh.mesh_dim_names else None
         loss = _share(loss_fn(tree, local), data, mesh)
         loss.backward()
-        gathered = {id(param) for param, _ in pairs}
+        localised = {id(param) for param, _ in pairs}
         pairs += [(param, param) for param in state.params.parameters()
-                  if id(param) not in gathered and param.grad is not None]
+                  if id(param) not in localised and param.grad is not None]
         grads = [leaf.grad if leaf.grad is not None else
                  torch.zeros_like(leaf) for _, leaf in pairs]
         if data is not None:        # one all-reduce for every gradient
@@ -210,8 +251,10 @@ def make_train_step(loss_fn, mesh=None, batch_axes=("batch",), rules=None):
                 bucket.split([g.numel() for g in grads]), grads)]
         for (param, leaf), grad in zip(pairs, grads):
             if param is not leaf:
-                grad = distribute(grad, NamedSharding(mesh, ())).\
-                    redistribute(mesh, param.placements)
+                grad = DTensor.from_local(grad, mesh, param.placements,
+                                          run_check=False,
+                                          shape=param.shape,
+                                          stride=param.stride())
             param.grad = grad
         opt.step()
         loss = loss.detach()

@@ -506,6 +506,7 @@ class PrefixKVCache:
         self._dense_bound = False
         self._agreed = False            # bound by a decoder on a mesh
         self.sharded = False            # ... of more than one rank
+        self.mesh = None                # ... that one
         # the host tier: an attached HostBlockStore turns eviction of
         # pool blocks into demotion, and its promoter re-lands them
         self._host = None
@@ -536,7 +537,7 @@ class PrefixKVCache:
     # -- binding -----------------------------------------------------------
     def bind(self, layout: tuple, paged: bool = False,
              device=None, agreed: bool = False,
-             sharded: bool = False) -> None:
+             sharded: bool = False, mesh=None) -> None:
         """Record (and enforce) the storage layout this cache holds:
         decoders sharing a cache must agree on (layers, KV heads, head
         dim, dtype, int8-ness, block size), or a hit would land rows of
@@ -546,8 +547,8 @@ class PrefixKVCache:
         pool id are unreadable to the other).  `device` is where a
         dense cache's installed rows land.  `agreed`: the binder serves
         on a mesh, whose round note decides when a promotion lands
-        (serving.py's header); `sharded`: a mesh of more than one rank,
-        whose blocks hold this rank's KV heads only."""
+        (serving.py's header); `sharded`: a mesh of more than one rank
+        (`mesh`), whose blocks hold this rank's KV heads only."""
         if self._layout is None:
             self._layout = tuple(layout)
         elif self._layout != tuple(layout):
@@ -560,6 +561,8 @@ class PrefixKVCache:
             if self._promoter is not None:
                 self._promoter.agreed = True
         self.sharded = self.sharded or bool(sharded)
+        if mesh is not None:
+            self.mesh = mesh
         if device is not None and self._device is None:
             self._device = torch.device(device)
 
@@ -2092,7 +2095,8 @@ class ContinuousDecoder:
         if prefix_cache is not None:
             prefix_cache.bind(self._kv_layout, paged=self.paged,
                               device=self.device, agreed=self.agreed,
-                              sharded=self.sharded)
+                              sharded=self.sharded,
+                              mesh=mesh if self.sharded else None)
             if not self.paged and prefix_cache.paged:
                 raise ValueError(
                     "prefix cache holds paged (pool-resident) blocks; a "

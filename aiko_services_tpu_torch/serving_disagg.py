@@ -40,6 +40,7 @@
 
 from __future__ import annotations
 
+import pickle
 import time
 import uuid
 from collections import deque
@@ -229,6 +230,259 @@ class _Outbox:
             self._polling = False
 
 
+# -- a prefill side or a migrator on a mesh -----------------------------------
+# A decoder (or a prefix cache) sharded over a mesh of more than one rank
+# holds this rank's KV heads of each block, and its ranks must be handed
+# the same requests.  The lead (global rank 0) is the side's address: it
+# alone receives the wire's calls, hands each to the other ranks over a
+# link, and alone posts envelopes; before a ship, the ranks of its model
+# group gather their KV-head slices of the blocks to it, which it joins
+# in kv_head_range order into whole blocks, under the model's layout:
+# the envelope an unsharded side would send, its rows computed
+# tensor-parallel (past the first layer they differ from an unsharded
+# model's by the row-parallel sums' rounding).  The link is two gloo
+# groups of its own, host-side:
+# the calls ride broadcasts from the lead, for which the other ranks
+# keep one standing; a shipment's slices ride one all_gather over the
+# lead's model group, joined by each rank once its rows' device-to-host
+# copy has completed (its CUDA event).  Nothing on the link blocks: every
+# collective is asynchronous and polled (the other ranks poll the calls
+# from an engine timer, the lead its gathers from the outbox that waits
+# for them), and the decoder's round note alone agrees when a request
+# joins.
+
+_LINK_TIMEOUT = 60.0                 # bound on every wait at teardown
+
+
+def _leaves(blocks):
+    """Every tensor of shipped blocks ([per block [per layer {"k", "v"}]],
+    a leaf a tensor or an int8 {"q", "s"} dict), in one fixed order."""
+    for block in blocks:
+        for layer in block:
+            for side in ("k", "v"):
+                leaf = layer[side]
+                if isinstance(leaf, dict):
+                    yield from (leaf["q"], leaf["s"])
+                else:
+                    yield leaf
+
+
+def _rows_bytes(blocks) -> torch.Tensor:
+    """Shipped blocks' leaves as one flat uint8 host tensor."""
+    leaves = [leaf.contiguous().reshape(-1).view(torch.uint8)
+              for leaf in _leaves(blocks)]
+    return torch.cat(leaves) if leaves else torch.empty((0,), torch.uint8)
+
+
+def _join_heads(mine, theirs: list):
+    """Whole blocks from the lead's KV-head slices `mine` and the other
+    ranks' slices (flat uint8 tensors, _rows_bytes), in model order:
+    each leaf's rows [H/n, B, (D)] concatenated along the head axis."""
+    parts = []
+    for data in theirs:
+        offset, leaves = 0, []
+        for leaf in _leaves(mine):
+            nbytes = leaf.numel() * leaf.element_size()
+            leaves.append(data[offset:offset + nbytes].view(leaf.dtype)
+                          .view(leaf.shape))
+            offset += nbytes
+        parts.append(iter(leaves))
+
+    def join(leaf):
+        return torch.cat([leaf] + [next(part) for part in parts], dim=0)
+
+    return [[{side: ({key: join(layer[side][key]) for key in ("q", "s")}
+                     if isinstance(layer[side], dict)
+                     else join(layer[side])) for side in ("k", "v")}
+             for layer in block] for block in mine]
+
+
+class _MeshLink:
+    """The lead's link to the other ranks of a mesh (the section above):
+    call() on the lead hands a picklable call to every other rank, whose
+    `on_call` runs it when its timer's poll finds it; gathered() on the
+    lead wraps its own rows of a shipment as the whole blocks the
+    gather of its model group's slices completes; gather() on another
+    rank of that group joins the gather of the next shipment.
+    Built on every rank of the default group alike (its groups are new
+    ones)."""
+
+    def __init__(self, engine, mesh, on_call, poll_period: float = 0.002):
+        import torch.distributed as dist
+        self.rank = dist.get_rank()
+        self.world = dist.get_world_size()
+        self.lead = self.rank == 0
+        names = tuple(mesh.mesh_dim_names)
+        grid = mesh.mesh
+        if "model" in names:
+            dim = names.index("model")
+            grid = grid.movedim(dim, 0).reshape(grid.shape[dim], -1)[:, 0]
+        else:
+            grid = grid.reshape(-1)[:1]
+        self.model_ranks = [int(rank) for rank in grid.tolist()]
+        self._calls = dist.new_group(backend="gloo")
+        self._slices = dist.new_group(ranks=sorted(self.model_ranks),
+                                      backend="gloo")
+        self._engine = engine
+        self._on_call = on_call
+        self._pending: list = []       # (work, tensors) not yet complete
+        self._standing = None          # another rank: the calls' receive
+        self._timer = None
+        self.closed = False
+        if not self.lead:
+            self._stand()
+            self._timer = engine.add_timer_handler(self.poll, poll_period)
+
+    @property
+    def heads(self) -> int:
+        """How many ranks' KV-head slices make a whole block."""
+        return len(self.model_ranks)
+
+    def _keep(self, work, *tensors) -> None:
+        self._pending = [(w, t) for w, t in self._pending
+                         if not w.is_completed()] + [(work, tensors)]
+
+    def _stand(self, size: int | None = None) -> None:
+        """Another rank: post the receive of the calls' next header (or
+        of the body of `size` bytes its header announced)."""
+        import torch.distributed as dist
+        buffer = torch.zeros((1,), dtype=torch.int64) if size is None \
+            else torch.empty((size,), dtype=torch.uint8)
+        self._standing = (dist.broadcast(buffer, src=0, group=self._calls,
+                                         async_op=True), buffer,
+                          size is None)
+
+    def call(self, message) -> None:
+        """Lead: hand `message` to every other rank, in order."""
+        self._broadcast(pickle.dumps(message))
+
+    def _broadcast(self, data: bytes | None) -> None:
+        import torch.distributed as dist
+        head = torch.tensor([-1 if data is None else len(data)],
+                            dtype=torch.int64)
+        self._keep(dist.broadcast(head, src=0, group=self._calls,
+                                  async_op=True), head)
+        if data:
+            body = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+            self._keep(dist.broadcast(body, src=0, group=self._calls,
+                                      async_op=True), body)
+
+    def poll(self) -> None:
+        """Another rank: run every call the lead has handed over."""
+        while self._standing is not None and \
+                self._standing[0].is_completed():
+            work, buffer, is_head = self._standing
+            work.wait()
+            if not is_head:
+                self._stand()
+                self._on_call(pickle.loads(buffer.numpy().tobytes()))
+            elif int(buffer[0]) < 0:
+                self._standing = None
+                self.closed = True
+            elif int(buffer[0]) == 0:
+                self._stand()
+            else:
+                self._stand(int(buffer[0]))
+
+    def gather(self, rows):
+        """Join the next shipment's gather over the lead's model group
+        with this rank's rows (ready): (work, parts by model index), or
+        None for a rank outside the group or an empty shipment (every
+        rank ships the same block count)."""
+        import torch.distributed as dist
+        if self.rank not in self.model_ranks or not rows.blocks:
+            return None
+        mine = _rows_bytes(rows.blocks)
+        parts = [torch.empty_like(mine) for _ in self.model_ranks]
+        work = dist.all_gather(parts, mine, group=self._slices,
+                               async_op=True)
+        self._keep(work, mine, *parts)
+        order = sorted(self.model_ranks)
+        return work, [parts[order.index(rank)] for rank in self.model_ranks]
+
+    def gathered(self, rows) -> "_GatheredRows":
+        return _GatheredRows(self, rows)
+
+    def close(self) -> None:
+        """Every rank at teardown: the lead tells the others the link
+        closes; each waits (bounded) for its collectives and, another
+        rank, for the lead's word."""
+        if self._timer is not None:
+            self._engine.remove_timer_handler(self._timer)
+            self._timer = None
+        if self.lead:
+            self._broadcast(None)
+        deadline = time.monotonic() + _LINK_TIMEOUT
+        while time.monotonic() < deadline and (
+                not all(work.is_completed() for work, _ in self._pending)
+                or not (self.lead or self.closed)):
+            if not self.lead:
+                self.poll()
+            time.sleep(0.001)
+
+
+class _GatheredRows:
+    """The lead's rows of one shipment and, once the gather of its model
+    group's KV-head slices has completed, the whole blocks (`blocks`)."""
+
+    def __init__(self, link, rows):
+        self._link, self._rows = link, rows
+        self._gather = None
+        self._blocks = None
+
+    def ready(self) -> bool:
+        if self._blocks is not None:
+            return True
+        if not self._rows.ready():
+            return False
+        if self._gather is None:
+            self._gather = self._link.gather(self._rows) or (None, None)
+        work, parts = self._gather
+        if work is None:
+            self._blocks = self._rows.blocks
+            return True
+        if not work.is_completed():
+            return False
+        work.wait()
+        self._blocks = _join_heads(self._rows.blocks, parts[1:])
+        return True
+
+    def wait(self) -> None:
+        self._rows.wait()
+        deadline = time.monotonic() + _LINK_TIMEOUT
+        while not self.ready():
+            if time.monotonic() > deadline:
+                raise RuntimeError("the KV-head slices' gather never "
+                                   "completed")
+            time.sleep(0.001)
+
+    @property
+    def blocks(self):
+        return self._blocks
+
+
+def _queue_rows(outbox, link, rows, send) -> None:
+    """Queue a shipment's rows: send(blocks) posts them once they are on
+    the host; on the lead of a mesh once joined into whole blocks
+    (link.gathered); another rank of a mesh joins the gather of its KV
+    heads to the lead instead, and posts nothing."""
+    if link is not None and not link.lead:
+        outbox.put(rows, lambda: link.gather(rows))
+        return
+    if link is not None:
+        rows = link.gathered(rows)
+    outbox.put(rows, lambda: send(rows.blocks))
+
+
+def _whole_layout(layout, heads: int) -> tuple:
+    """A rank's wire layout with its KV heads multiplied back to the
+    model's (`heads` ranks' slices): what an envelope of whole blocks
+    declares."""
+    layout = list(layout)
+    layout[1] = str(int(layout[1]) * heads)
+    return tuple(layout)
+
+
 def _prompt_cap(decoder) -> int:
     """The prompt length decoder.submit admits (its tail-truncation
     cap).  Both sides truncate with this before keying anything, so the
@@ -264,7 +518,17 @@ class PrefillRuntime(Actor):
     retire harvest inserts its prompt blocks (repeated prefixes prefill
     once here too).  Its geometry must match the decode pool's; the
     transfer declares the donor layout and the decode side refuses a
-    mismatch."""
+    mismatch.
+
+    A decoder sharded over a mesh of more than one rank takes a
+    PrefillRuntime on every rank, built alike; the lead's (global rank
+    0's) is the side's address.  The lead hands each request to the
+    other ranks over its link (the section above _prompt_cap), every
+    rank submits it and the decoder's round note agrees when it joins;
+    the rounds, the harvest and the ship decisions are then the same on
+    every rank, each rank of the lead's model group sends the lead its
+    KV heads of every shipped block, and the lead alone posts the
+    envelope of whole blocks, each the ranks' KV heads joined."""
 
     def __init__(self, runtime, name: str = "prefill", *,
                  params=None, config=None, decoder=None, cache=None,
@@ -276,12 +540,6 @@ class PrefillRuntime(Actor):
                  pump_period: float = 0.002,
                  batch_window: float = 0.0,
                  chunk_stream: bool | None = None, registry=None):
-        if decoder is not None and decoder.sharded:
-            raise ValueError(
-                "a PrefillRuntime's decoder on a mesh of more than one "
-                "rank would ship this rank's KV heads of each block as "
-                "the whole block: the prefill side serves unsharded "
-                "(ROADMAP.md Queue 1 item 3.3)")
         super().__init__(runtime, name, PROTOCOL_PREFILL,
                          tags=[role_tag(ROLE_PREFILL)])
         from .serving import ContinuousDecoder, PrefixKVCache
@@ -327,6 +585,10 @@ class PrefillRuntime(Actor):
         else:
             self.decoder.attach(runtime.event, period=pump_period)
         self._outbox = _Outbox(runtime.event)
+        self._link = _MeshLink(
+            runtime.event, self.decoder.mesh, self._on_link_call,
+            pump_period if pump_period and pump_period > 0 else 0.002) \
+            if self.decoder.sharded else None
         self.stats = MirroredStats(
             {"requests": 0, "computed": 0, "blocks_shipped": 0,
              "bytes_shipped": 0, "handle_blocks": 0, "refused": 0,
@@ -360,7 +622,9 @@ class PrefillRuntime(Actor):
     def prefill(self, transfer_id, reply_topic, tenant, have_tokens,
                 box) -> None:
         """Compute prompt KV for `tokens` and ship the chain blocks the
-        caller does not hold already."""
+        caller does not hold already.  On a mesh the lead hands the
+        request to every other rank first; another rank takes requests
+        from the lead alone."""
         self.stats["requests"] += 1
         try:
             tokens = [int(t) for t in np.asarray(box["tokens"])]
@@ -370,6 +634,35 @@ class PrefillRuntime(Actor):
             self.logger.warning("prefill %s: malformed request %r: %r",
                                 self.name, transfer_id, exc)
             return
+        if self._link is not None:
+            if not self._link.lead:
+                self.stats["refused"] += 1
+                self.logger.warning(
+                    "prefill %s: request %r sent to rank %d, not the "
+                    "lead of its mesh: refused", self.name, transfer_id,
+                    self._link.rank)
+                return
+            self._link.call(("prefill", (str(transfer_id),
+                                         str(reply_topic), str(tenant),
+                                         have, tokens)))
+        self._prefill(transfer_id, reply_topic, tenant, have, tokens)
+
+    def _on_link_call(self, message) -> None:
+        """Another rank of a mesh: a request the lead handed over."""
+        name, args = message
+        if name == "prefill":
+            self.stats["requests"] += 1
+            self._prefill(*args)
+
+    def _wire_layout(self) -> tuple:
+        """The layout an envelope declares: the cache's, on a mesh with
+        the model's KV heads (the lead ships whole blocks)."""
+        layout = self.cache.wire_layout()
+        return layout if self._link is None else \
+            _whole_layout(layout, self._link.heads)
+
+    def _prefill(self, transfer_id, reply_topic, tenant, have: int,
+                 tokens) -> None:
         # truncate exactly as decoder.submit will, so the harvest, the
         # match and the shipped tokens key one prompt
         tokens = tokens[-_prompt_cap(self.decoder):] or [0]
@@ -437,16 +730,16 @@ class PrefillRuntime(Actor):
             # final envelope carries the tail (and first_token, always)
             start_block = min(max(start_block, int(cursor)), hit // block)
         rows = _chain_wire_blocks(cache, keys[start_block:hit // block])
-        trace, layout = self._trace_fields(), cache.wire_layout()
+        trace, layout = self._trace_fields(), self._wire_layout()
 
-        def send():
+        def send(blocks):
             payload = wire.encode_kv_transfer(
                 transfer_id, tenant, tokens, start_block, block, layout,
-                rows.blocks, first_token=first_token, trace=trace)
-            self.stats["blocks_shipped"] += len(rows.blocks)
+                blocks, first_token=first_token, trace=trace)
+            self.stats["blocks_shipped"] += len(blocks)
             self.stats["bytes_shipped"] += len(payload)
             self._post(reply_topic, payload)
-        self._outbox.put(rows, send)
+        _queue_rows(self._outbox, self._link, rows, send)
 
     def _ship_chunk(self, transfer_id: str, reply_topic: str,
                     tenant: str, have: int, tokens, request,
@@ -469,19 +762,19 @@ class PrefillRuntime(Actor):
         if end <= cursor:
             return
         rows = _chain_wire_blocks(cache, keys[cursor:end])
-        trace, layout = self._trace_fields(), cache.wire_layout()
+        trace, layout = self._trace_fields(), self._wire_layout()
         state["cursor"] = end
         self.stats["chunks_shipped"] += 1
 
-        def send():
+        def send(blocks):
             payload = wire.encode_kv_transfer(
                 transfer_id, tenant, list(tokens[:end * block]), cursor,
-                block, layout, rows.blocks, final=False, trace=trace)
-            self.stats["chunk_blocks"] += len(rows.blocks)
-            self.stats["blocks_shipped"] += len(rows.blocks)
+                block, layout, blocks, final=False, trace=trace)
+            self.stats["chunk_blocks"] += len(blocks)
+            self.stats["blocks_shipped"] += len(blocks)
             self.stats["bytes_shipped"] += len(payload)
             self._post(reply_topic, payload)
-        self._outbox.put(rows, send)
+        _queue_rows(self._outbox, self._link, rows, send)
 
     def _post(self, reply_topic: str, payload: bytes) -> None:
         """Ship one envelope: at once, or coalesced with others to the
@@ -523,6 +816,8 @@ class PrefillRuntime(Actor):
             self.runtime.event.remove_flatout_handler(self.decoder.pump)
         else:
             self.decoder.detach(self.runtime.event)
+        if self._link is not None:
+            self._link.close()
         super().stop()
 
 
@@ -1291,7 +1586,21 @@ class SessionMigrator:
     session at the source, a shed destination table.create releases the
     pin it took and withholds done, and a layout or gap anomaly drops
     chunks (the destination lands history only and re-prefills).
-    Single-threaded on the owning runtime's engine."""
+    Single-threaded on the owning runtime's engine.
+
+    On a prefix cache sharded over a mesh of more than one rank (a
+    migrator on every rank, built alike) the lead (global rank 0) is
+    the migrator's address and sole voice: its migrate() call, every
+    envelope it receives and every timeout it decides reach the other
+    ranks over its link (the section above _prompt_cap), which run them
+    alike without a clock of their own, and migrate() on another rank
+    sends nothing (its on_done fires when the lead's migration has
+    settled there).  A ship's blocks are joined from every rank of the
+    lead's model group's KV heads, so the destination receives whole
+    blocks, each the ranks' KV heads joined.  Such a cache is a source
+    only: an offer to it is refused (its ranks would each have to
+    install their heads at an agreed round; ROADMAP.md Queue 1 item
+    3.2), and the session stays at its source."""
 
     def __init__(self, runtime, cache, table=None, name: str = "migrate",
                  chunk_blocks: int = 8, transfer_timeout: float = 5.0,
@@ -1299,12 +1608,6 @@ class SessionMigrator:
         if cache is None:
             raise ValueError("SessionMigrator needs a PrefixKVCache "
                              "(the pinned chains are the cargo)")
-        if cache.sharded:
-            raise ValueError(
-                "a SessionMigrator on a prefix cache sharded over a mesh "
-                "of more than one rank would move this rank's KV heads of "
-                "each chain block as the whole block (ROADMAP.md Queue 1 "
-                "item 3.3)")
         self.runtime = runtime
         self.cache = cache
         self.table = table
@@ -1320,6 +1623,10 @@ class SessionMigrator:
         self._inbound: dict[str, dict] = {}      # destination-role
         self._done_callback = None
         self._outbox = _Outbox(runtime.event)
+        self._link = _MeshLink(runtime.event, cache.mesh,
+                               self._on_link_call) if cache.sharded \
+            else None
+        self._mirrored = False      # another rank: the lead's migrate()
         self.stats = MirroredStats(
             {"offers": 0, "received": 0, "acks": 0, "chunks": 0,
              "shipped_blocks": 0, "handle_blocks": 0,
@@ -1340,8 +1647,14 @@ class SessionMigrator:
         """Offer every live session to the migrator at `dest_topic` (a
         peer's .topic).  Returns the offers sent; `on_done(self)` fires
         once every offer has settled (done leg or timeout), at once with
-        no sessions."""
+        no sessions.  On a mesh another rank than the lead sends nothing
+        and returns 0; its on_done fires once the lead's migration has
+        settled on it."""
         self._done_callback = on_done
+        if self._link is not None and not self._link.lead:
+            if self._mirrored:
+                self._maybe_finished()
+            return 0
         sessions = self.table.items() if self.table is not None else []
         sent = 0
         for tenant, sid, payload in sessions:
@@ -1366,12 +1679,34 @@ class SessionMigrator:
                 trace=self._trace_fields()))
             self.stats["offers"] += 1
             sent += 1
+        if self._link is not None:
+            self._link.call(("migrate", [
+                (transfer_id, {key: value for key, value in entry.items()
+                               if key != "timer"})
+                for transfer_id, entry in self._outbound.items()]))
         if sent == 0:
             self._maybe_finished()
         return sent
 
+    def _on_link_call(self, message) -> None:
+        """Another rank of a mesh: what the lead did, done alike."""
+        name, *args = message
+        if name == "migrate":
+            for transfer_id, entry in args[0]:
+                self._outbound[transfer_id] = dict(entry)
+            self._mirrored = True
+            self._maybe_finished()
+        elif name == "message":
+            self._dispatch(args[0])
+        elif name == "expired":
+            self._expired(*args)
+
+
+
     def _restart_timer(self, entry: dict, transfer_id: str,
                        inbound: bool = False) -> None:
+        if self._link is not None and not self._link.lead:
+            return              # the lead's clock decides every timeout
         timer = entry.pop("timer", None)
         if timer is not None:
             self.runtime.event.remove_timer_handler(timer)
@@ -1384,6 +1719,8 @@ class SessionMigrator:
         entry = table.pop(transfer_id, None)
         if entry is None:
             return
+        if self._link is not None and self._link.lead:
+            self._link.call(("expired", transfer_id, inbound))
         entry.pop("timer", None)
         self.stats["expired"] += 1
         self.logger.warning(
@@ -1398,6 +1735,9 @@ class SessionMigrator:
 
     def _maybe_finished(self) -> None:
         if self._outbound or self._done_callback is None:
+            return
+        if self._link is not None and not self._link.lead and \
+                not self._mirrored:
             return
         callback, self._done_callback = self._done_callback, None
         callback(self)
@@ -1414,6 +1754,17 @@ class SessionMigrator:
 
     # -- wire dispatch -----------------------------------------------------
     def _on_message(self, _topic, payload) -> None:
+        if self._link is not None:
+            if not self._link.lead:
+                self.stats["refused"] += 1
+                self.logger.warning(
+                    "migrate %s: an envelope sent to rank %d, not the lead "
+                    "of its mesh: refused", self.name, self._link.rank)
+                return
+            self._link.call(("message", bytes(payload)))
+        self._dispatch(payload)
+
+    def _dispatch(self, payload) -> None:
         try:
             command, params = wire.decode_envelope(payload)
         except wire.WireError as exc:
@@ -1446,6 +1797,15 @@ class SessionMigrator:
         tenant = out["tenant"]
         tokens = [int(t) for t in np.asarray(out["tokens"])]
         self.stats["received"] += 1
+        if self._link is not None:
+            # a sharded destination is not ported: no ack, so the
+            # source's timeout keeps the session there
+            self.stats["refused"] += 1
+            self.logger.warning(
+                "migrate %s: offer %s refused: a prefix cache sharded over "
+                "a mesh is a migration source only (ROADMAP.md Queue 1 "
+                "item 3.2)", self.name, transfer_id)
+            return
         have = 0
         if tokens:
             if self.cache.tiered:
@@ -1555,6 +1915,8 @@ class SessionMigrator:
         if ledger is not None and end > start:
             ledger.event("migrate_out", end - start)
         trace, layout = self._trace_fields(), cache.wire_layout()
+        if self._link is not None:
+            layout = _whole_layout(layout, self._link.heads)
         # a chunk-streamed ship: every envelope carries the whole token
         # list (install_chain re-keys from it), blocks in chunk_blocks
         # strides; the final flag rides the last envelope, sent even
@@ -1565,11 +1927,11 @@ class SessionMigrator:
             final = upto >= end
             rows = _chain_wire_blocks(cache, keys[cursor:upto])
 
-            def send(rows=rows, cursor=cursor, final=final):
+            def send(blocks, cursor=cursor, final=final):
                 self.runtime.publish(entry["dest"], wire.encode_kv_transfer(
                     transfer_id, tenant, tokens, cursor, block, layout,
-                    rows.blocks, trace=trace, final=final))
-            self._outbox.put(rows, send)
+                    blocks, trace=trace, final=final))
+            _queue_rows(self._outbox, self._link, rows, send)
             self.stats["chunks"] += 1
             cursor = upto
             if final:
@@ -1601,6 +1963,8 @@ class SessionMigrator:
         for transfer_id in list(self._inbound):
             self._settle(transfer_id, inbound=True)
         self.runtime.remove_message_handler(self._on_message, self.topic)
+        if self._link is not None:
+            self._link.close()
 
 
 def two_pool_autoscalers(runtime, prefill_manager, decode_manager,

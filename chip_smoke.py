@@ -20,7 +20,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
      message._impl_topic_matches, each above 0);
   2. kernels: each kernel against its plain PyTorch version at the shapes
      its path gives it, in bf16, with its stated tolerance (flash at the
-     slice phase's batch of 8 and the pipeline's batch of 32); median
+     slice phase's batch of 8 and the pipeline's batch of 32, and at a
+     TP-2 rank's 6 of Whisper-small's 12 heads at that batch, the
+     flash_attention_tp2 row, which no phase of one card launches);
+     median
      device times (time_ms: the host runs ahead of the card, so the
      events bracket device work alone; the timer line shows a call that
      launches nothing at ~0) of the kernel, the plain version and one
@@ -197,8 +200,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
      FFT runs on the card and its magnitudes equal numpy's within 1e-5;
   24. llama_moe: 8x1b (Llama-1B's widths, 8 experts of 8192, top 2,
      ~10 GB of weights) in bf16 served by the llama phase's paged
-     decoder and traffic: every request completes, the pool drains, the
-     paged kernel launches 16 x the predicted 326 decode steps; tokens/s,
+     decoder on LLAMA_MOE_REQUESTS of its requests (its long one left
+     out): every request completes, the pool drains, the paged kernel
+     launches 16 x the predicted LLAMA_MOE_STEPS decode steps; tokens/s,
      rounds, dropped assignments a round, one round under the profiler;
      the model is freed after;
   25. llama_moe_f32: 8x1b at 2 layers in f32: the paged decoder with 16
@@ -307,8 +311,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
      AGENT_BATCHED_F32 layers in f32, against the same agent without a
      mesh (batches and tokens); then agent_disagg's drive with the agent
      over the mesh under the sync debug mode (rank 0's client decides,
-     the note lands): its counts, tokens equal agent_disagg's, every
-     installed block byte-equal to its shipped rows, 0 syncs.
+     the note lands; its prefill side's decoder on the mesh too): its
+     counts, tokens equal agent_disagg's, every installed block
+     byte-equal to its shipped rows, 0 syncs.
+  35h. asr_mesh: the pipeline phase's drive with its ComputeRuntime over
+     create_mesh({"model": 1}): PE_WhisperASR places Whisper-small by
+     whisper_axes through the runtime and runs its programs with the
+     mesh, its batches cut by the runtime's agreement; its flash
+     launches and every frame's tokens equal the pipeline phase's.
   36. grad_guard: each of the three kernel wrappers raises on a CUDA
      operand that requires grad (the kernels have no backward) and
      launches nothing doing so.
@@ -323,6 +333,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
   38. train_f32: the widths at 2 + 2 layers (context 500), TF32 off, 3
      steps on the card against the same 3 steps on the CPU: losses and
      every parameter within TRAIN_F32_LOSS_RTOL / TRAIN_F32_STEP_SHARE.
+  38b. train_mesh: those widths, 3 steps on the card unsharded and 3 on
+     a one-rank mesh {model: 1} (parameters placed by whisper_axes, the
+     forward and the vocab-parallel loss called with the mesh), f32:
+     losses and parameters within train_f32's limits, bit equality
+     recorded.
   39. checkpoint: that model on the card, 3 steps, save_checkpoint, 2
      more; a fresh state restored from the save and run 2 steps equals
      the uninterrupted run, parameters and both AdamW moments, within
@@ -429,13 +444,21 @@ FLASH_KERNEL_LINE = "aiko_services_tpu/ops/attention.py:21"
 # the flash kernel's shape [B, H, S, D] in each phase that launches it:
 # bucket 3072 (context 1536) padded to the element's max_batch (8 in the
 # slice phase, the example definition's default 32 in the pipeline)
-FLASH_SHAPES = {"slice": (8, 12, 1536, 64), "pipeline": (32, 12, 1536, 64)}
+FLASH_SHAPES = {"slice": (8, 12, 1536, 64), "pipeline": (32, 12, 1536, 64),
+                # a TP-2 rank's encoder attention at the pipeline's
+                # batch: 6 of Whisper-small's 12 heads.  One card serves
+                # one rank, so no phase launches it (the TP-2 ranks run
+                # as gloo CPU ranks in tier-1)
+                "tp2": (32, 6, 1536, 64)}
+FLASH_NAMES = {"slice": "flash_attention", "pipeline": "flash_attention_b32",
+               "tp2": "flash_attention_tp2"}
 # each phase that launches flash, and the row (FLASH_SHAPES key) whose
 # shape it must run at: the remote pipeline's server pads to the same
 # max_batch of 32 as the local pipeline
 FLASH_ROWS = {"slice": "slice", "pipeline": "pipeline",
               "remote_pipeline": "pipeline", "peer_pipeline": "pipeline",
-              "peer_chaos": "pipeline", "staged": "slice"}
+              "peer_chaos": "pipeline", "staged": "slice",
+              "asr_mesh": "pipeline"}
 # Whisper-small (dim, heads, encoder layers, decoder layers, vocab)
 WHISPER_SMALL = (768, 12, 12, 12, 51865)
 # flash launches in peer_chaos: 12 x its bucket-3072 batches
@@ -456,7 +479,10 @@ EARLIER_COUNTS = {"slice": 12, "pipeline": 24, "remote_pipeline": 24,
                   "disagg_variants": 3 * 16 * (16 + 1 + 4),
                   "agent_disagg": 16 * (128 + 9 + 9),
                   "agent_migrate": 16 * (100 + 4),
-                  "ops": 16 * 160}
+                  "ops": 16 * 160,
+                  # the pipeline's drive on a one-rank model mesh: the
+                  # pipeline phase's 2 bucket-3072 batches
+                  "asr_mesh": 24}
 # peer_chaos: the caller's channel drops a fifth of its request
 # envelopes, the server's delays half of its replies by 0.2 s; a hop
 # whose 3 s lease expires is sent again, up to 4 times.  Each side's
@@ -652,11 +678,15 @@ TTS_GL_STFT_REL_L2, TTS_VOCODER_REL_L2 = 5e-2, 1e-4
 # card's f32 rfft against numpy's f64 one, max error / max magnitude
 MEDIA_CHUNK_S, MEDIA_CHUNKS, MEDIA_FFT_REL = 0.25, 4, 1e-5
 # the MoE Llama (phases llama_moe, llama_moe_f32): 8x1b (Llama-1B's
-# widths, 8 experts of 8192, top 2).  llama_moe serves the llama phase's
-# traffic through its decoder; its decode steps, from a CPU rehearsal of
-# the drive (a narrow stand-in: the schedule depends on neither widths
-# nor token values, no request stops early), are the llama phase's 326
-LLAMA_MOE_STEPS = 326
+# widths, 8 experts of 8192, top 2).  llama_moe serves LLAMA_MOE_REQUESTS
+# of the llama phase's requests through its decoder, r0 onwards (its
+# 320-token "long" request left out: the phase's depth cut, which keeps
+# the script inside its time); its decode steps are a CPU rehearsal's
+# (tools/chip_rehearsal_mesh.py: a narrow stand-in, the schedule
+# depending on neither widths nor token values, no request stopping
+# early)
+LLAMA_MOE_REQUESTS = 16
+LLAMA_MOE_STEPS = 64
 # llama_moe_f32: 16 requests of 16 new tokens, one slot each (capacity 5
 # an expert at a decode step); a first split between the card and the
 # CPU passes only where the CPU's top-2 logit gap or the smallest router
@@ -1009,7 +1039,7 @@ def phase_kernels(device, generator) -> list[dict]:
                                                 causal=causal))
         del q32, k32, v32
         pairs = fs * (fs + 1) / 2 if causal else fs * fs   # keys a run needs
-        name = "flash_attention" + ("" if phase == "slice" else f"_b{fb}")
+        name = FLASH_NAMES[phase]
         result = record(
             name + ("_causal" if causal else ""),
             "aiko_services_tpu_torch/csrc/flash_attention.cu",
@@ -1756,18 +1786,20 @@ def phase_slice() -> dict:
     return counts
 
 
-def phase_pipeline() -> dict:
+def phase_pipeline(mesh=None, phase: str = "pipeline") -> tuple:
     """examples/speech/pipeline_transcription.json on the port, driven on
     a virtual clock (PE_MicrophoneSim → PE_AudioFraming → PE_LogMel on the
     card → PE_WhisperASR, Whisper-small in bf16 → PE_Synthesize →
-    PE_Speaker); returns the kernel launch counts of that run."""
+    PE_Speaker), its ComputeRuntime over `mesh` when given; returns (the
+    kernel launch counts of that run, each frame's tokens by stream and
+    frame)."""
     import numpy as np
 
     from aiko_services_tpu_torch.ops import attention as A
     from aiko_services_tpu_torch.pipeline import (Pipeline,
                                                   load_pipeline_definition)
 
-    runtime, compute = host_runtime()
+    runtime, compute = host_runtime(mesh=mesh)
     engine = runtime.event
     definition = load_pipeline_definition(
         "examples/speech/pipeline_transcription.json")
@@ -1850,7 +1882,13 @@ def phase_pipeline() -> dict:
     if not long_batches or counts["flash_attention"] != expected_flash:
         raise AssertionError(f"flash launches {counts['flash_attention']} "
                              f"!= 12 x {long_batches} bucket-3072 batches")
-    flash_shape = check_flash_shapes("pipeline", shapes.seen)
+    flash_shape = check_flash_shapes(phase, shapes.seen)
+    tokens = {f"{frame.stream_id}/{frame.frame_id}":
+              np.asarray(frame.swag["tokens"]).tolist() for frame in done}
+    placed = {"agreed": scheduler.agreed,
+              "q_columns": int(asr.params["enc_blocks"][0]["attn"]["q"]
+                               ["w"].shape[1]),
+              "vocab_rows": int(asr.params["tok_embed"]["table"].shape[0])}
     mean_batch = scheduler.mean_batch_size()
     if not mean_batch > 1:
         raise AssertionError(f"mean batch size {mean_batch}: no coalescing")
@@ -1870,8 +1908,8 @@ def phase_pipeline() -> dict:
     if stream_timers or live_timers:
         raise AssertionError(f"timers left after teardown: stream "
                              f"{stream_timers}, all {live_timers}")
-    emit({"phase": "pipeline", "streams": len(streams), "frames": len(done),
-          "frames_failed": failed,
+    emit({"phase": phase, "streams": len(streams), "frames": len(done),
+          "frames_failed": failed, "placed": placed,
           "frames_per_bucket": frames_per_bucket,
           "batches_per_bucket": batches_per_bucket,
           "mean_batch_size": mean_batch, "launches": counts,
@@ -1883,6 +1921,36 @@ def phase_pipeline() -> dict:
                              for bucket, values in steady.items()},
           "live_timers_after_teardown": len(live_timers),
           "max_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return counts, tokens
+
+
+def phase_asr_mesh(reference_counts: dict, reference_tokens: dict) -> dict:
+    """The pipeline phase's drive with its ComputeRuntime over a one-rank
+    NCCL mesh {model: 1}: PE_WhisperASR places Whisper-small by
+    whisper_axes through the runtime (every head, the whole FFN and
+    vocabulary on one rank) and runs its programs with the runtime's
+    sharding_mesh, its batches cut by the runtime's agreement (at one
+    rank, no gather).  Its flash launches and every frame's tokens must
+    equal the pipeline phase's.  Returns the run's launch counts."""
+    import torch.distributed as dist
+
+    from aiko_services_tpu_torch.parallel import create_mesh
+
+    mesh = create_mesh({"model": 1})
+    if dist.get_backend() != "nccl" or mesh.size() != 1 or \
+            mesh.device_type != "cuda":
+        raise AssertionError(f"mesh {mesh} on {dist.get_backend()}")
+    counts, tokens = phase_pipeline(mesh=mesh, phase="asr_mesh")
+    if counts != reference_counts or tokens != reference_tokens:
+        differing = sorted(key for key in set(tokens) | set(
+            reference_tokens) if tokens.get(key) !=
+            reference_tokens.get(key))
+        raise AssertionError(
+            f"asr_mesh: launches {counts} against the pipeline's "
+            f"{reference_counts}, frames differing {differing[:8]}")
+    emit({"phase": "asr_mesh_check", "mesh": {"model": 1},
+          "launches_equal_pipeline": True, "tokens_equal_pipeline": True,
+          "frames": len(tokens)})
     return counts
 
 
@@ -5020,8 +5088,9 @@ def moe_8x1b(**changes):
 
 
 def phase_llama_moe() -> int:
-    """The llama phase's drive (24 requests, 16 slots, 16 steps per sync)
-    through the paged decoder serving 8x1b at full width in bf16, seeded
+    """LLAMA_MOE_REQUESTS of the llama phase's requests (16 slots, 16
+    steps per sync) through the paged decoder serving 8x1b at full width
+    in bf16, seeded
     random weights: every request completes, the pool drains, the paged
     kernel launches 16 x the decode steps and the steps equal
     LLAMA_MOE_STEPS; tokens/s, rounds, dropped assignments per round and
@@ -5051,7 +5120,8 @@ def phase_llama_moe() -> int:
     expert_bytes = sum(p.numel() * p.element_size()
                        for name, p in params.named_parameters()
                        if ".moe.w_" in name)
-    requests = llama_traffic(np.random.default_rng(0), config.vocab)
+    requests = llama_traffic(np.random.default_rng(0), config.vocab)[
+        1:1 + LLAMA_MOE_REQUESTS]
     # each FFN call's dropped assignments (a device count), grouped by
     # round: the list's length after every pump
     marks, pump = [], decoder.pump
@@ -5107,7 +5177,7 @@ def phase_llama_moe() -> int:
               "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
               "profile": profile,
               "sample_tokens": {rid: run["done"][rid][:6]
-                                for rid in ("long", "r0")}}
+                                for rid in ("r0", "r1")}}
     emit(record)
     del decoder, params
     gc.collect()
@@ -6677,6 +6747,8 @@ def agent_disagg_run(mesh=None, watch_syncs: bool = False) -> dict:
         sides = SideLaunches()
 
         def before_drive(agent):
+            # over a mesh the prefill side's decoder serves on it too
+            # (its round note at one rank)
             prefill.append(PrefillRuntime(
                 prefill_rt, "agent_prefill", params=agent.params,
                 config=agent.decoder.config,
@@ -6685,7 +6757,10 @@ def agent_disagg_run(mesh=None, watch_syncs: bool = False) -> dict:
                 prefill_buckets=(AGENT_PARAMETERS["prompt_length"],),
                 prefill_chunk=AGENT_PARAMETERS["prompt_length"],
                 decoder_opts={"paged_kv": True,
-                              "kv_block": AGENT_PARAMETERS["prefix_block"]}))
+                              "kv_block": AGENT_PARAMETERS["prefix_block"],
+                              **({} if mesh is None else {"mesh": mesh})}))
+            if mesh is not None and prefill[0].decoder.mesh is not mesh:
+                raise AssertionError("the prefill side is not on the mesh")
             for _ in range(2000):
                 if agent._prefill_client.loads:
                     break
@@ -7271,6 +7346,96 @@ def phase_train_f32() -> dict:
               "elements": sum(p.numel() for p in before),
               "card_s": card[2], "cpu_s": cpu[2]}
     emit(record)
+    return record
+
+
+def whisper_mesh_loss(config, mesh):
+    """whisper_loss on a model axis: the forward and the vocab-parallel
+    loss called with the mesh (a rank's shards; at one rank the model)."""
+    from aiko_services_tpu_torch.models.whisper import forward
+    from aiko_services_tpu_torch.parallel.train import cross_entropy_loss
+
+    def loss_fn(params, batch):
+        logits = forward(params, config, batch["mel"], batch["tokens"],
+                         mesh=mesh)
+        return cross_entropy_loss(logits, batch["targets"], mesh=mesh)
+    return loss_fn
+
+
+def phase_train_mesh() -> dict:
+    """train_f32's 2-layer Whisper at Whisper-small's widths: 3 AdamW
+    steps on the card unsharded (whisper_loss, no mesh), and 3 on a
+    one-rank NCCL mesh {model: 1} with the parameters placed by
+    whisper_axes and the forward and vocab-parallel loss called with the
+    mesh, in f32 from the same start and batch.  A model axis of one rank
+    computes as unsharded, the same launches and products; the one
+    nondeterminism is the card's embedding backward (an atomic
+    scatter-add of repeated tokens), so the two runs are held to
+    train_f32's limits of the card against the CPU, and whether they
+    came out bit-equal is recorded."""
+    import copy
+
+    import torch.distributed as dist
+
+    from aiko_services_tpu_torch.models.whisper import (whisper_axes,
+                                                        whisper_init)
+    from aiko_services_tpu_torch.parallel import (
+        create_mesh, init_train_state, make_train_step)
+    from aiko_services_tpu_torch.parallel.train import adamw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config = small_whisper()
+    mesh = create_mesh({"model": 1})
+    if dist.get_backend() != "nccl" or mesh.size() != 1:
+        raise AssertionError(f"mesh {mesh} on {dist.get_backend()}")
+    model = whisper_init(torch.Generator(device="cuda").manual_seed(5),
+                         config)
+    batch = train_batch(config, TRAIN_SMALL, 6, "cuda")
+    start_params = [p.detach().clone() for p in model.parameters()]
+    runs = {}
+    for label, start, on, axes in (
+            ("unsharded", copy.deepcopy(model), None, None),
+            ("mesh", model, mesh, whisper_axes(config))):
+        state = init_train_state(start, adamw(TRAIN["lr"]), on, axes)
+        step = make_train_step(whisper_mesh_loss(config, on), mesh=on)
+        zero_attention_counts()
+        began = time.perf_counter()
+        state, losses, _ = run_steps(state, step, batch, 3)
+        runs[label] = (state, losses, time.perf_counter() - began,
+                       attention_counts())
+    plain, meshed = runs["unsharded"], runs["mesh"]
+    gap, worst, diff_sq, update_sq = 0.0, None, 0.0, 0.0
+    for (name, p), q, p0 in zip(meshed[0].params.named_parameters(),
+                                plain[0].params.parameters(),
+                                start_params):
+        diff = (p.detach() - q.detach()).abs()
+        diff_sq += float((diff.double() ** 2).sum())
+        update_sq += float(((q.detach() - p0).double() ** 2).sum())
+        if diff.max().item() > gap:
+            gap, worst = diff.max().item(), name
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(meshed[1], plain[1]))
+    update_rel_l2 = math.sqrt(diff_sq / update_sq)
+    if loss_rel > TRAIN_F32_LOSS_RTOL or \
+            gap / TRAIN["lr"] > TRAIN_F32_STEP_SHARE or \
+            update_rel_l2 > TRAIN_F32_UPDATE_REL_L2 or \
+            not meshed[1][-1] < meshed[1][0] or meshed[3] != plain[3]:
+        raise AssertionError(f"train_mesh: losses {meshed[1]} vs "
+                             f"{plain[1]} (rel {loss_rel}), parameter gap "
+                             f"{gap} at {worst}, update rel L2 "
+                             f"{update_rel_l2}, launches {meshed[3]} vs "
+                             f"{plain[3]}")
+    record = {"phase": "train_mesh", "layers": TRAIN_SMALL["layers"],
+              "mesh": {"model": 1, "backend": dist.get_backend()},
+              "losses": meshed[1], "losses_unsharded": plain[1],
+              "loss_max_rel": loss_rel, "param_max_abs": gap,
+              "param_max_abs_in_steps": gap / TRAIN["lr"],
+              "update_rel_l2": update_rel_l2, "worst": worst,
+              "bit_equal": gap == 0.0 and meshed[1] == plain[1],
+              "mesh_s": meshed[2], "unsharded_s": plain[2]}
+    emit(record)
+    del runs, model
+    torch.cuda.empty_cache()
     return record
 
 
@@ -8458,7 +8623,7 @@ def main() -> int:
     records = phase_kernels(device, generator)
     paged = phase_paged_kernel(generator)
     counts = phase_slice()
-    pipeline_counts = phase_pipeline()
+    pipeline_counts, pipeline_tokens = phase_pipeline()
     with native_routing("remote_pipeline"):
         remote_counts, remote_tokens = phase_remote_pipeline()
     with native_routing("peer_pipeline"):
@@ -8536,9 +8701,11 @@ def main() -> int:
     phase_agent_8b_f32()
     for key, launches in phase_agent_mesh_modes(disagg_tokens).items():
         counts[key] = counts.get(key, 0) + launches
+    phase_counts["asr_mesh"] = phase_asr_mesh(pipeline_counts,
+                                              pipeline_tokens)
     earlier = {phase: phase_counts[phase]["flash_attention"] for phase in
                ("slice", "pipeline", "remote_pipeline", "peer_pipeline",
-                "peer_chaos")}
+                "peer_chaos", "asr_mesh")}
     earlier.update({
                     "llama": llama_launches,
                     "int8_fold":
@@ -8560,6 +8727,7 @@ def main() -> int:
     phase_grad_guard()
     phase_train()
     phase_train_f32()
+    phase_train_mesh()
     phase_checkpoint()
     phase_sp_prefill()
     phase_counts["staged"] = {"flash_attention": phase_staged(),

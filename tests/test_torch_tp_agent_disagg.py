@@ -18,8 +18,9 @@ lockstep, then staggered with skewed clocks; then with a prefill
 candidate that never answers, where every transfer times out, retries
 and falls back to local prefill; and without a prefix cache, the
 shipped blocks landing straight in each rank's pool (submit's
-kv_blocks).  The prefill side stays unsharded: a
-PrefillRuntime or a SessionMigrator on a sharded decoder raises.
+kv_blocks).  A PrefillRuntime on a decoder sharded over the mesh, and a
+SessionMigrator on its cache, are built beside it on every rank and
+serve (tests/test_torch_tp_prefill.py drives such a side).
 
 Tolerance, f32: every response equals the JAX disaggregated agent's and
 the JAX colocated agent's; every rank plans every round alike (plan
@@ -263,16 +264,17 @@ def test_a_timed_out_transfer_falls_back_on_every_rank_in_one_round(
 
 
 @pytest.mark.parametrize("geometry", list(GEOMETRIES))
-def test_the_prefill_side_refuses_a_sharded_decoder(ranks, geometry):
-    """A PrefillRuntime handed a decoder on a mesh of more than one
-    rank, and a SessionMigrator on its prefix cache, would ship one
-    rank's KV heads as the whole block: both raise, naming the item
-    that would shard the prefill side."""
+def test_the_prefill_side_serves_a_sharded_decoder(ranks, geometry):
+    """A PrefillRuntime handed a decoder sharded over the agent's mesh,
+    and a SessionMigrator on its prefix cache, are built on every rank
+    and serve through their link to the lead (whole blocks gathered from
+    every rank's KV heads: tests/test_torch_tp_prefill.py drives them);
+    neither refuses."""
     for run in ranks[geometry]:
+        side = run["prefill_side"]
         for name in ("prefill", "migrate"):
-            message = run["refusals"][name]
-            assert message is not None and "KV heads" in message
-            assert "Queue 1 item 3.3" in message
+            assert side[name] is None
+            assert side[f"{name}_linked"]
 
 
 @pytest.mark.parametrize("geometry", list(GEOMETRIES))

@@ -13,7 +13,10 @@
   one step's size lr = 1e-2 (measured: 1.53e-5 after five steps, in
   enc_blocks/0/mlp_in/w; the limit is ~3x that).
 * The same five steps on four gloo ranks as DP 2 x TP 2 (batch over
-  data, parameters and moments sharded over model): losses equal to the
+  data, parameters and moments sharded over model, and the compute
+  too: the model and the loss are called with the mesh on the step's
+  local shards, whose shapes are recorded, and the steps make no
+  all-gather): losses equal to the
   port's unsharded run within rtol 1e-6, parameters and first moments
   within atol 1e-5, a thousandth of one step's size (each data shard's
   products sum over half the batch, and the sum over the data axis adds
@@ -24,7 +27,9 @@
   unsharded step on the global masked mean within the same limits; and
   a checkpoint of the sharded state after step 3, written by rank 0
   alone, restored into a fresh sharded state whose last two steps equal
-  the unsharded run.
+  the unsharded run; and the vocab-parallel loss of seeded logits over
+  an odd vocabulary (33, padded to two chunks of 17), equal to the
+  unsharded cross_entropy_loss and cross_entropy_sum within rtol 1e-6.
 * Checkpoints (tests/test_parallel.py's round trip, retention and SGD
   resume, and an AdamW resume), and both directions across packages: a
   checkpoint JAX wrote after three steps resumes in the port, whose next
@@ -67,6 +72,12 @@ BATCH = {"mel": _rng.standard_normal((8, 16, 8)).astype(np.float32),
 # one data shard (rows 0-3) counts 16 target tokens, the other 4
 MASK = np.concatenate([np.ones((4, 4), np.float32),
                        np.repeat([[1, 0, 0, 0]], 4, 0).astype(np.float32)])
+# seeded logits over an odd vocabulary, each target's id spread over
+# both chunks (the vocab-parallel loss)
+_loss_rng = np.random.default_rng(2)
+LOSS_INPUTS = (_loss_rng.standard_normal((3, 5, 33)).astype(np.float32),
+               _loss_rng.integers(0, 33, (3, 5)).astype(np.int64),
+               (_loss_rng.random((3, 5)) < 0.6).astype(np.float32))
 STEPS = 5
 TOL = dict(rtol=1e-5, atol=1e-6)             # losses
 PARAM_TOL = dict(rtol=1e-5, atol=5e-5)       # parameters
@@ -197,7 +208,7 @@ def dp_tp_ranks(tmp_path_factory):
     directory = tmp_path_factory.mktemp("dp_tp")
     return run_ranks(cases.dp_tp_train, 4, directory, _flat(_j_start()),
                      FIELDS, BATCH, MASK, STEPS, str(directory / "ckpt"),
-                     timeout=240.0)
+                     LOSS_INPUTS, timeout=240.0)
 
 
 def _assert_like_unsharded(result, state, losses):
@@ -219,6 +230,33 @@ def test_dp_tp_step_equals_the_unsharded_step(port_run, dp_tp_ranks):
     state, losses = port_run
     for result in dp_tp_ranks:
         _assert_like_unsharded(result["plain"], state, losses)
+
+
+def test_dp_tp_step_computes_on_local_shards_and_gathers_nothing(
+        dp_tp_ranks):
+    """loss_fn is handed each rank's shards (4 heads of dim 4 over two:
+    q's 8 of 16 columns, the FFN's 32 of 64, 16 of 32 vocabulary rows),
+    the forward's logits are the rank's vocabulary chunk, and a step
+    makes no all-gather of any kind."""
+    for result in dp_tp_ranks:
+        assert result["gathers"] == 0
+        assert result["seen"] == {"q_w": (16, 8), "mlp_in_w": (16, 32),
+                                  "table": (16, 16), "logits": (4, 4, 16)}
+
+
+def test_vocab_parallel_loss_equals_the_unsharded_loss(dp_tp_ranks):
+    logits, targets, mask = (torch.from_numpy(x) for x in LOSS_INPUTS)
+    want = {"mean": float(TT.cross_entropy_loss(logits, targets)),
+            "masked": float(TT.cross_entropy_loss(logits, targets, mask))}
+    total, count = TT.cross_entropy_sum(logits, targets, mask)
+    for result in dp_tp_ranks:
+        got = result["vocab_parallel"]
+        assert got["chunk"] == (3, 5, 17)
+        np.testing.assert_allclose(got["mean"], want["mean"], rtol=1e-6)
+        np.testing.assert_allclose(got["masked"], want["masked"],
+                                   rtol=1e-6)
+        np.testing.assert_allclose(got["sum"], (float(total), float(count)),
+                                   rtol=1e-6)
 
 
 def test_masked_dp_tp_step_equals_the_global_masked_mean(dp_tp_ranks):

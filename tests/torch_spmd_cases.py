@@ -5,6 +5,8 @@ Each function runs on every rank of a gloo group (tests/torch_spmd.py
 plain values.  This module imports neither jax nor the JAX package: the
 ranks are fresh interpreters that need only the port."""
 
+import os
+
 import numpy as np
 import torch
 
@@ -178,37 +180,90 @@ def ring(rank, world, cases):
 
 # -- tests/test_torch_train.py ------------------------------------------------
 
+def _count_all_gathers():
+    """Count every all-gather this process makes (torch.distributed's,
+    the functional collectives' that DTensor redistributes with, and
+    DTensor.full_tensor) until the returned undo is called: (counts,
+    undo)."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor
+
+    counts = {"n": 0}
+    patched = [(dist, "all_gather"), (dist, "all_gather_into_tensor"),
+               (funcol, "all_gather_tensor"),
+               (funcol, "all_gather_tensor_autograd"),
+               (DTensor, "full_tensor")]
+    saved = [(owner, name, getattr(owner, name)) for owner, name in patched
+             if hasattr(owner, name)]
+
+    def counting(real):
+        def wrapper(*args, **kwargs):
+            counts["n"] += 1
+            return real(*args, **kwargs)
+        return wrapper
+
+    for owner, name, real in saved:
+        setattr(owner, name, counting(real))
+
+    def undo():
+        for owner, name, real in saved:
+            setattr(owner, name, real)
+    return counts, undo
+
+
 def dp_tp_train(rank, world, flat, config_fields, batch, mask, steps,
-                directory):
+                directory, loss_inputs):
     """Whisper's AdamW steps on {data: 2, model: 2} from the parameters
-    `flat` ('/'-joined paths → arrays), three ways: the plain mean loss
-    with a checkpoint saved after step 3; a fresh sharded state restored
-    from that checkpoint and run to the last step; and the masked loss
-    (cross_entropy_sum) with `mask`.  Each: losses and the gathered
-    parameters, moments and placements after the last step."""
+    `flat` ('/'-joined paths → arrays), tensor-parallel (the model and
+    the loss called with the mesh on the step's local shards), three
+    ways: the plain mean loss with a checkpoint saved after step 3; a
+    fresh sharded state restored from that checkpoint and run to the
+    last step; and the masked loss (cross_entropy_sum) with `mask`.
+    Each: losses and the gathered parameters, moments and placements
+    after the last step, the shapes of the tree loss_fn was handed, and
+    the all-gathers the steps made.  Then the vocab-parallel loss of
+    `loss_inputs` (logits [B, S, V] with an odd V, targets, mask): each
+    rank's chunk of the logits, padded with -inf as the model's forward
+    pads it, through cross_entropy_loss and cross_entropy_sum with the
+    mesh."""
     import numpy as np
 
     from aiko_services_tpu_torch import bridge
     from aiko_services_tpu_torch.models import whisper as TW
     from aiko_services_tpu_torch.parallel import (
         TrainState, checkpoint, create_mesh, train)
+    from aiko_services_tpu_torch.parallel.sharding import padded_chunk
 
     config = TW.WhisperConfig(**config_fields)
     mesh = create_mesh({"data": 2, "model": 2}, device="cpu")
+    seen = {}
 
     def fresh():
         model = bridge.params_from_numpy(flat, config, device="cpu")
         return train.init_train_state(model, train.adamw(1e-2), mesh,
                                       TW.whisper_axes(config))
 
+    def record(params):
+        seen.setdefault("q_w", tuple(
+            params["enc_blocks"][0]["attn"]["q"]["w"].shape))
+        seen.setdefault("mlp_in_w", tuple(
+            params["dec_blocks"][0]["mlp_in"]["w"].shape))
+        seen.setdefault("table", tuple(params["tok_embed"]["table"].shape))
+
     def loss_fn(params, batch):
-        logits = TW.forward(params, config, batch["mel"], batch["tokens"])
-        return train.cross_entropy_loss(logits, batch["targets"])
+        record(params)
+        logits = TW.forward(params, config, batch["mel"], batch["tokens"],
+                            mesh=mesh)
+        seen.setdefault("logits", tuple(logits.shape))
+        return train.cross_entropy_loss(logits, batch["targets"],
+                                        mesh=mesh)
 
     def masked_loss_fn(params, batch):
-        logits = TW.forward(params, config, batch["mel"], batch["tokens"])
+        logits = TW.forward(params, config, batch["mel"], batch["tokens"],
+                            mesh=mesh)
         return train.cross_entropy_sum(logits, batch["targets"],
-                                       batch["mask"])
+                                       batch["mask"], mesh=mesh)
 
     def run(state, step, batch, first, last, save_at=None):
         losses = []
@@ -237,7 +292,14 @@ def dp_tp_train(rank, world, flat, config_fields, batch, mask, steps,
     saved = []
     batch = {key: torch.from_numpy(value) for key, value in batch.items()}
     step = train.make_train_step(loss_fn, mesh=mesh)
-    out = {"plain": run(fresh(), step, batch, 0, steps, save_at=3)}
+    state = fresh()
+    gathers, undo = _count_all_gathers()
+    try:
+        state, _ = step(state, batch)
+    finally:
+        undo()
+    out = {"gathers": gathers["n"], "seen": dict(seen),
+           "plain": run(fresh(), step, batch, 0, steps, save_at=3)}
     template = fresh()
     loaded = checkpoint.restore_checkpoint(saved[0], {
         "params": template.params, "opt_state": template.opt_state,
@@ -250,6 +312,21 @@ def dp_tp_train(rank, world, flat, config_fields, batch, mask, steps,
                                                        mesh=mesh),
                         masked, 0, steps)
     out["writes"] = len(writes)
+    logits, targets, loss_mask = (torch.from_numpy(x) for x in loss_inputs)
+    vocab = logits.shape[-1]
+    chunk = padded_chunk(vocab, 2)
+    index = mesh.get_local_rank("model")
+    mine = logits[..., index * chunk:(index + 1) * chunk]
+    mine = torch.cat([mine, torch.full(
+        (*mine.shape[:-1], chunk - mine.shape[-1]), float("-inf"))], -1)
+    total, count = train.cross_entropy_sum(mine, targets, loss_mask,
+                                           mesh=mesh)
+    out["vocab_parallel"] = {
+        "chunk": tuple(mine.shape),
+        "mean": float(train.cross_entropy_loss(mine, targets, mesh=mesh)),
+        "masked": float(train.cross_entropy_loss(mine, targets, loss_mask,
+                                                 mesh=mesh)),
+        "sum": (float(total), float(count))}
     return out
 
 
@@ -1200,22 +1277,36 @@ def _installed_rows(agent, keys) -> dict:
     return out
 
 
-def _prefill_side_refusals(runtime, agent) -> dict:
-    """The prefill side serves unsharded: a PrefillRuntime handed the
-    agent's decoder over the mesh, and a SessionMigrator on its prefix
-    cache, would ship this rank's KV heads as whole blocks; each raises
-    (the ValueError's message)."""
+def _prefill_side_on_the_mesh(runtime, agent) -> dict:
+    """The prefill side on the agent's mesh: a PrefillRuntime handed a
+    decoder sharded alike (the agent's shards, config and mesh, a prefix
+    cache of its own), and a SessionMigrator on that cache.  Each is
+    built and stopped; returns each one's ValueError message, or None,
+    and whether each serves through its link (the sharded prefill side
+    is driven in tests/test_torch_tp_prefill.py)."""
+    from aiko_services_tpu_torch.observe.metrics import MetricsRegistry
+    from aiko_services_tpu_torch.serving import (ContinuousDecoder,
+                                                 PrefixKVCache)
     from aiko_services_tpu_torch.serving_disagg import (PrefillRuntime,
                                                         SessionMigrator)
+    decoder = agent.decoder
+    cache = PrefixKVCache(block_tokens=8, max_bytes=1 << 20,
+                          registry=MetricsRegistry())
+    sharded = ContinuousDecoder(decoder.params, decoder.config,
+                                mesh=decoder.mesh, max_slots=2,
+                                prefill_buckets=(16,), prefill_chunk=16,
+                                prefix_cache=cache,
+                                registry=MetricsRegistry())
     out = {}
     for name, build in (
             ("prefill", lambda: PrefillRuntime(runtime, "sharded_prefill",
-                                               decoder=agent.decoder)),
-            ("migrate", lambda: SessionMigrator(runtime,
-                                                agent.prefix_cache))):
+                                               decoder=sharded)),
+            ("migrate", lambda: SessionMigrator(runtime, cache))):
         try:
-            build()
+            side = build()
             out[name] = None
+            out[f"{name}_linked"] = side._link is not None
+            side.stop()
         except ValueError as exc:
             out[name] = str(exc)
     return out
@@ -1226,7 +1317,9 @@ def agent_disagg(rank, world, geometries, agent_flat, config_fields,
                  cacheless_parameters):
     """PE_LlamaAgent with disagg on each mesh of `geometries`: rank 0
     alone hosts a PrefillRuntime (unsharded, the whole model, its ship
-    replaying the JAX donor's rows `shipped`) and its client alone sends;
+    replaying the JAX donor's rows `shipped`) and its client alone sends
+    (a prefill side sharded over the mesh is built beside it, and
+    stopped);
     the conversation in lockstep, then staggered with skewed clocks.
     Then with `timeout_parameters` and a prefill candidate that never
     answers: every transfer times out, retries and falls back.  Then with
@@ -1300,8 +1393,8 @@ def agent_disagg(rank, world, geometries, agent_flat, config_fields,
                             client.add_candidate(f"{runtime.topic_path}/"
                                                  f"nobody")
                     if index == 0:
-                        out[(name, "refusals")] = _prefill_side_refusals(
-                            runtime, agent)
+                        out[(name, "prefill_side")] = \
+                            _prefill_side_on_the_mesh(runtime, agent)
                     responses = _agent_turns(engine, pipeline, done, texts,
                                              3 * rank if staggered else 0)
                     stats = {key: client.stats[key] for key in (
@@ -1400,3 +1493,454 @@ def batched_beside_decoder(rank, world, flat, config_fields, prompts,
         runtime.terminate()
     return {"sums": sums, "tokens": tokens, "plans": decoder.plan_digests,
             "batches": batches}
+
+
+# -- tests/test_torch_tp_whisper.py -------------------------------------------
+
+def _expanded(tree):
+    """A param tree of zero-stride zeros shaped like `tree`'s leaves (a
+    meta-device model's): local_shards copies only a rank's cut slices."""
+    if isinstance(tree, dict):
+        return {key: _expanded(value) for key, value in tree.items()}
+    if isinstance(tree, list):
+        return [_expanded(value) for value in tree]
+    return torch.zeros((), dtype=tree.dtype).expand(tree.shape)
+
+
+def _odd_vocab_training(flat, config, batch, steps, directory):
+    """Whisper's SGD steps with an odd vocabulary on {data: 2, model:
+    2}, tensor-parallel (the step pads the last rank's vocabulary chunk),
+    beside the unsharded step in this process; then a checkpoint of the
+    sharded state, restored into a fresh one.  Returns both runs'
+    losses and parameters, the checkpoint's table shape and whether
+    the restored parameters equal the saved ones."""
+    from aiko_services_tpu_torch import bridge
+    from aiko_services_tpu_torch.models import whisper as TW
+    from aiko_services_tpu_torch.parallel import (checkpoint, create_mesh,
+                                                  train)
+
+    mesh = create_mesh({"data": 2, "model": 2}, device="cpu")
+
+    def loss(on):
+        def fn(params, batch):
+            logits = TW.forward(params, config, batch["mel"],
+                                batch["tokens"], mesh=on)
+            return train.cross_entropy_loss(logits, batch["targets"],
+                                            mesh=on)
+        return fn
+
+    def state(on):
+        return train.init_train_state(
+            bridge.params_from_numpy(flat, config, device="cpu"),
+            train.sgd(0.5), on,
+            None if on is None else TW.whisper_axes(config))
+
+    plain, sharded = state(None), state(mesh)
+    plain_step = train.make_train_step(loss(None))
+    sharded_step = train.make_train_step(loss(mesh), mesh=mesh)
+    losses = {"plain": [], "sharded": []}
+    for _ in range(steps):
+        plain, value = plain_step(plain, batch)
+        losses["plain"].append(float(value))
+        sharded, value = sharded_step(sharded, batch)
+        losses["sharded"].append(float(value))
+    saved = {name: p.full_tensor().detach().clone()
+             for name, p in sharded.params.named_parameters()}
+    path = checkpoint.save_checkpoint(directory, {
+        "params": sharded.params, "opt_state": sharded.opt_state,
+        "step": int(sharded.step)})
+    fresh = state(mesh)
+    loaded = checkpoint.restore_checkpoint(path, {
+        "params": fresh.params, "opt_state": fresh.opt_state, "step": 0})
+    with np.load(os.path.join(path, "state.npz")) as arrays:
+        table = [tuple(arrays[key].shape) for key in arrays.files
+                 if key.endswith("tok_embed/table")]
+    return {"losses": losses,
+            "plain": {name: p.detach().numpy()
+                      for name, p in plain.params.named_parameters()},
+            "sharded": {name: value.numpy()
+                        for name, value in saved.items()},
+            "table": table,
+            "restored": all(
+                torch.equal(p.full_tensor(), saved[name])
+                for name, p in loaded["params"].named_parameters()),
+            "local_table": tuple(sharded.params.tok_embed.table.to_local()
+                                 .shape)}
+
+
+def tp_whisper(rank, world, geometries, flat, config_fields, mel, tokens,
+               max_tokens, train_batch=None, directory=None):
+    """Whisper on each mesh of `geometries` from the JAX tree `flat`, in
+    f32, each rank on its shards (ComputeRuntime.place_params with
+    whisper_axes: parallel.local_shards): the teacher-forced forward's
+    logits gathered over the model axis (the padding cut off), the same
+    forward under autograd, greedy_decode_scored's tokens, lengths and
+    scores, and the shapes of this rank's leaves; then which leaves of
+    Whisper-small a rank of {model: 2} holds, and its heads."""
+    from aiko_services_tpu_torch import bridge
+    from aiko_services_tpu_torch.compute import ComputeRuntime
+    from aiko_services_tpu_torch.event import EventEngine, VirtualClock
+    from aiko_services_tpu_torch.models import layers as TL
+    from aiko_services_tpu_torch.models import whisper as TW
+    from aiko_services_tpu_torch.parallel import create_mesh
+    from aiko_services_tpu_torch.parallel.collectives import all_gather
+    from aiko_services_tpu_torch.parallel.sharding import local_shards
+    from aiko_services_tpu_torch.process import ProcessRuntime
+    from aiko_services_tpu_torch.transport import MemoryBroker, MemoryMessage
+
+    config = TW.WhisperConfig(**config_fields)
+    mel, tokens = torch.from_numpy(mel), torch.from_numpy(tokens)
+    out = {}
+    for name, mesh_axes in geometries.items():
+        mesh = create_mesh(mesh_axes, device="cpu")
+        runtime = ProcessRuntime(
+            name=f"rank{rank}", engine=EventEngine(VirtualClock()),
+            transport_factory=lambda on_message, *_: MemoryMessage(
+                on_message=on_message, broker=MemoryBroker())).initialize()
+        compute = ComputeRuntime(runtime, "compute", mesh=mesh)
+        params = compute.place_params(
+            bridge.params_from_numpy(flat, config, device="cpu"),
+            TW.whisper_axes(config))
+
+        def gathered(logits):
+            whole = all_gather(logits.detach(), "model", axis=-1, mesh=mesh)
+            return whole[..., :config.n_vocab].numpy()
+        with torch.no_grad():
+            logits = TW.forward(params, config, mel, tokens, mesh=mesh)
+        trained = TW.forward(params, config, mel, tokens, mesh=mesh)
+        decoded = TW.greedy_decode_scored(params, config, mel,
+                                          max_tokens=max_tokens, mesh=mesh)
+        out[name] = {
+            "logits": gathered(logits), "autograd": gathered(trained),
+            "chunk": tuple(logits.shape),
+            "decoded": [x.numpy() for x in decoded],
+            "q": tuple(params["dec_blocks"][0]["attn"]["q"]["w"].shape),
+            "o": tuple(params["dec_blocks"][0]["cross"]["o"]["w"].shape),
+            "mlp_in": tuple(params["enc_blocks"][0]["mlp_in"]["w"].shape),
+            "table": tuple(params["tok_embed"]["table"].shape),
+            "padding": float(params["tok_embed"]["table"][
+                config.n_vocab - mesh.get_local_rank("model") *
+                params["tok_embed"]["table"].shape[0]:].abs().sum())
+            if "model" in mesh.mesh_dim_names else 0.0}
+        runtime.terminate()
+    if train_batch is not None:
+        out["training"] = _odd_vocab_training(
+            flat, config, {key: torch.from_numpy(value)
+                           for key, value in train_batch.items()}, 3,
+            directory)
+    small = TW.WHISPER_PRESETS["small"]
+    meta = TL.as_tree(TW.Whisper(small, device="meta"))
+    tree = _expanded({"enc_blocks": [meta["enc_blocks"][0]],
+                      "tok_embed": meta["tok_embed"]})
+    mesh = create_mesh({"data": world // 2, "model": 2}, device="cpu")
+    shards, _ = local_shards(tree, TW.whisper_axes(small), mesh)
+    block = shards["enc_blocks"][0]
+    out["small"] = {"heads": TW.local_heads(small, mesh),
+                    "q": tuple(block["attn"]["q"]["w"].shape),
+                    "o": tuple(block["attn"]["o"]["w"].shape),
+                    "mlp_in": tuple(block["mlp_in"]["w"].shape),
+                    "mlp_out": tuple(block["mlp_out"]["w"].shape),
+                    "table": tuple(shards["tok_embed"]["table"].shape)}
+    return out
+
+
+def tp_transcription(rank, world, definition, npz, streams, frequencies,
+                     presets):
+    """examples/speech/pipeline_transcription.json (a copy naming the
+    weights and its overrides) built as `pipeline create --mesh model=2
+    --device cpu` builds it (cli.build_pipeline), with the Whisper
+    presets `presets` (name -> (base preset, field overrides)) added,
+    its ASR switched to f32 on this rank's shards of the npz, driven on
+    a virtual clock until every stream's frames complete.  Returns each
+    frame's tokens and text, the ASR's leaf shapes and its batch
+    statistics."""
+    import dataclasses
+    import json
+
+    from aiko_services_tpu_torch import bridge, cli
+    from aiko_services_tpu_torch.event import EventEngine, VirtualClock
+    from aiko_services_tpu_torch.models import whisper as TW
+
+    for name, (base, fields) in presets.items():
+        TW.WHISPER_PRESETS[name] = dataclasses.replace(
+            TW.WHISPER_PRESETS[base], **fields)
+
+    engine = EventEngine(VirtualClock())
+    runtime, pipeline = cli.build_pipeline(
+        definition, stream_id="s0",
+        stream_parameters=json.dumps(dict(streams, **{
+            "PE_MicrophoneSim.frequency": frequencies[0]})),
+        device="cpu", engine=engine, mesh_spec=f"model={world}")
+    for index, frequency in enumerate(frequencies[1:], start=1):
+        pipeline.create_stream(f"s{index}", parameters=dict(
+            streams, **{"PE_MicrophoneSim.frequency": frequency}))
+    done = []
+    pipeline.add_frame_handler(done.append)
+    asr = pipeline.graph.node("PE_WhisperASR").element
+    asr.config = dataclasses.replace(asr.config, dtype=torch.float32)
+    whole = TW.whisper_init(torch.Generator().manual_seed(0), asr.config,
+                            device="cpu")
+    asr.params = asr.compute.place_params(
+        bridge.load_flat_npz(whole, npz), TW.whisper_axes(asr.config))
+    expected = len(frequencies) * int(streams["PE_MicrophoneSim.limit"])
+    for _ in range(6000):
+        if len(done) >= expected:
+            break
+        engine.clock.advance(0.01)
+        engine.step()
+    scheduler = asr.compute.programs[asr._program].scheduler
+    out = {"frames": {(frame.stream_id, frame.frame_id):
+                      (np.asarray(frame.swag["tokens"]).tolist(),
+                       frame.swag["text"]) for frame in done},
+           "q": tuple(asr.params["enc_blocks"][0]["attn"]["q"]["w"].shape),
+           "table": tuple(asr.params["tok_embed"]["table"].shape),
+           "mesh": asr.compute.ec_producer.get("mesh"),
+           "agreed": scheduler.agreed,
+           "batches": scheduler.stats["batches"]}
+    runtime.terminate()
+    return out
+
+
+# -- tests/test_torch_tp_prefill.py -------------------------------------------
+
+def _recording_ships():
+    """Record every KV-transfer envelope this process encodes: (records
+    [(tokens, start block, [per block [per layer (k, v) bytes]],
+    layout)], undo)."""
+    from aiko_services_tpu_torch.transport import wire
+
+    records = []
+    real = wire.encode_kv_transfer
+
+    def leaf_bytes(leaf):
+        if isinstance(leaf, dict):
+            return b"".join(leaf_bytes(leaf[key]) for key in ("q", "s"))
+        return np.ascontiguousarray(np.asarray(leaf)).tobytes()
+
+    def recording(transfer_id, tenant, tokens, start_block, block, layout,
+                  blocks, *args, **kwargs):
+        records.append(([int(t) for t in tokens], int(start_block), [
+            [(leaf_bytes(layer["k"]), leaf_bytes(layer["v"]))
+             for layer in one] for one in blocks], tuple(layout)))
+        return real(transfer_id, tenant, tokens, start_block, block,
+                    layout, blocks, *args, **kwargs)
+
+    wire.encode_kv_transfer = recording
+    return records, lambda: setattr(wire, "encode_kv_transfer", real)
+
+
+def _prefill_plane(rank, mesh, params, config, engine, broker, tag):
+    """A PrefillRuntime (its decoder dense, prefix blocks of 8, chunks of
+    16) on `mesh` (None: unsharded) over `params`."""
+    from aiko_services_tpu_torch.observe.metrics import MetricsRegistry
+    from aiko_services_tpu_torch.process import ProcessRuntime
+    from aiko_services_tpu_torch.serving import (ContinuousDecoder,
+                                                 PrefixKVCache)
+    from aiko_services_tpu_torch.serving_disagg import PrefillRuntime
+    from aiko_services_tpu_torch.transport import MemoryMessage
+
+    registry = MetricsRegistry()
+    runtime = ProcessRuntime(
+        name=f"{tag}{rank}", engine=engine,
+        transport_factory=lambda on_message, *_: MemoryMessage(
+            on_message=on_message, broker=broker)).initialize()
+    cache = PrefixKVCache(block_tokens=8, max_bytes=64 << 20,
+                          name=f"{tag}.cache", registry=registry)
+    decoder = ContinuousDecoder(
+        params, config, mesh=mesh, max_slots=2, prefill_buckets=(16,),
+        prefill_chunk=16, prefix_cache=cache, name=tag, registry=registry,
+        **({} if mesh is not None else {"device": "cpu"}))
+    return runtime, PrefillRuntime(runtime, tag, decoder=decoder)
+
+
+def _decode_plane(params, config, engine, broker, tag, prefill_topic):
+    """The decode side in one process: an unsharded decoder with a
+    prefix cache and a PrefillClient whose one candidate is
+    `prefill_topic` (None: no client), pumped from the engine."""
+    from types import SimpleNamespace
+
+    from aiko_services_tpu_torch.observe.metrics import MetricsRegistry
+    from aiko_services_tpu_torch.process import ProcessRuntime
+    from aiko_services_tpu_torch.serving import (ContinuousDecoder,
+                                                 PrefixKVCache)
+    from aiko_services_tpu_torch.serving_disagg import (PrefillClient,
+                                                        SessionMigrator)
+    from aiko_services_tpu_torch.state.sessions import SessionTable
+    from aiko_services_tpu_torch.transport import MemoryMessage
+
+    registry = MetricsRegistry()
+    runtime = ProcessRuntime(
+        name=tag, engine=engine,
+        transport_factory=lambda on_message, *_: MemoryMessage(
+            on_message=on_message, broker=broker)).initialize()
+    cache = PrefixKVCache(block_tokens=8, max_bytes=64 << 20,
+                          name=f"{tag}.cache", registry=registry)
+    decoder = ContinuousDecoder(
+        params, config, max_slots=2, prefill_buckets=(16,),
+        prefill_chunk=16, prefix_cache=cache, name=tag, registry=registry,
+        device="cpu")
+    decoder.attach(engine, period=0.002)
+    client = None
+    if prefill_topic is not None:
+        client = PrefillClient(runtime, decoder, name=tag, registry=registry,
+                               transfer_timeout=30.0)
+        client.add_candidate(prefill_topic)
+    table = SessionTable(SimpleNamespace(runtime=runtime,
+                                         topic_path=runtime.topic_path),
+                         num_shards=1)
+    migrator = SessionMigrator(runtime, cache, table=table, name=tag,
+                               transfer_timeout=30.0, registry=registry)
+    return SimpleNamespace(runtime=runtime, cache=cache, decoder=decoder,
+                           client=client, table=table, migrator=migrator)
+
+
+def _step(engine, until, steps=20000):
+    for _ in range(steps):
+        if until():
+            return True
+        engine.clock.advance(0.002)
+        engine.step()
+    return until()
+
+
+def _chain_rows(cache, tokens) -> list:
+    """[per block [per layer (k, v) bytes]] of the cached chain of
+    `tokens` in `cache` (dense rows)."""
+    keys, hit = cache.match("default", tokens)
+    out = []
+    for node in cache.nodes(keys[:hit // cache.block_tokens]):
+        k_rows, v_rows = cache.block_rows(node)
+        out.append([(k.numpy().tobytes(), v.numpy().tobytes())
+                    for k, v in zip(k_rows, v_rows)])
+    return out
+
+
+def sharded_prefill(rank, world, geometries, flat, config_fields, prompts,
+                    max_new, session):
+    """A prefill side sharded over each mesh of `geometries`: a
+    PrefillRuntime on every rank over its shards of the JAX tree `flat`;
+    rank 0's is the side's address, and rank 0 alone also hosts the
+    decode side (unsharded, its PrefillClient sending each of `prompts`
+    there).  Every envelope rank 0 encodes is recorded.  Then the
+    session `session` (a history whose chain the prefill side cached)
+    is pinned on every rank and migrated by the sharded cache's
+    SessionMigrator (the lead sending) to an unsharded destination on
+    rank 0.  On rank 0 also the same prompts through an unsharded
+    prefill side, and the same session migrated from its cache, for the
+    byte comparison."""
+    from types import SimpleNamespace
+
+    from aiko_services_tpu_torch import bridge
+    from aiko_services_tpu_torch.event import EventEngine, VirtualClock
+    from aiko_services_tpu_torch.models import llama as TL
+    from aiko_services_tpu_torch.parallel import create_mesh
+    from aiko_services_tpu_torch.parallel.sharding import local_shards
+    from aiko_services_tpu_torch.serving_disagg import SessionMigrator
+    from aiko_services_tpu_torch.state.sessions import SessionTable
+    from aiko_services_tpu_torch.transport import MemoryBroker
+
+    config = TL.LlamaConfig(**config_fields)
+    full = bridge.params_from_numpy(flat, config, device="cpu")
+
+    def drive(mesh, tag):
+        """One prefill side (on `mesh`, or unsharded on rank 0 alone),
+        its ships recorded; then the session migrated from its cache."""
+        engine, broker = EventEngine(VirtualClock()), MemoryBroker()
+        params = full if mesh is None else local_shards(
+            full, TL.llama_axes(config), mesh, config=config)[0]
+        runtime, prefill = _prefill_plane(rank, mesh, params, config,
+                                          engine, broker, f"{tag}p")
+        records, undo = _recording_ships()
+        lead = rank == 0
+        try:
+            decode = _decode_plane(full, config, engine, broker,
+                                   f"{tag}d", prefill.topic_path) \
+                if lead else None
+            done = {}
+            if lead:
+                for request_id, prompt in prompts.items():
+                    decode.client.submit(
+                        request_id, prompt, max_new,
+                        lambda rid, tokens: done.update(
+                            {rid: [int(t) for t in tokens]}))
+                finished = _step(engine, lambda: len(done) == len(prompts))
+            else:
+                # until this rank's decoder is idle, which the lead's is
+                # in the same round: a rank that stopped pumping a busy
+                # decoder would leave the lead's next round note alone
+                finished = _step(engine, lambda: prefill.stats["computed"]
+                                 == len(prompts) and
+                                 not prefill._outbox._queue and
+                                 prefill.decoder.idle)
+            prefill_envelopes = len(records)
+            # this rank's own rows (its KV heads) of every prompt's chain
+            cache = prefill.cache
+            own = {rid: _chain_rows(cache, prompt)
+                   for rid, prompt in prompts.items()}
+            # the session: its chain is cached on every rank alike
+            table = SessionTable(SimpleNamespace(
+                runtime=runtime, topic_path=runtime.topic_path),
+                num_shards=1)
+            leaf, kv_tokens = cache.session_store("default", "sid", session)
+            session_rows = _chain_rows(cache, session[:kv_tokens])
+            table.create("default", "sid", {"history": session,
+                                            "kv": leaf or "",
+                                            "kv_tokens": kv_tokens})
+            source = SessionMigrator(runtime, cache, table=table,
+                                     name=f"{tag}m", transfer_timeout=30.0)
+            # a fresh destination: the decode side's cache holds the
+            # shipped chains already, and would take them as handles
+            dest = _decode_plane(full, config, engine, broker, f"{tag}t",
+                                 None) if lead else None
+            settled = []
+            sent = source.migrate(dest.migrator.topic if lead else "",
+                                  settled.append)
+            migrated = _step(engine, lambda: bool(settled))
+            out = {"finished": finished, "migrated": migrated,
+                   "offers": sent, "own_rows": own,
+                   "prefill_envelopes": prefill_envelopes,
+                   "session_rows": session_rows,
+                   "source": {key: source.stats[key] for key in (
+                       "acks", "chunks", "shipped_blocks", "migrated")},
+                   "pinned": table.get("default", "sid") is not None,
+                   "prefill": {key: prefill.stats[key] for key in (
+                       "requests", "computed", "blocks_shipped",
+                       "envelopes", "chunks_shipped", "refused")}}
+            if lead:
+                out |= {
+                    "responses": done,
+                    "client": {key: decode.client.stats[key] for key in (
+                        "transfers", "installs", "installed_blocks",
+                        "local_fallbacks")},
+                    "landed": dest.migrator.stats["landed"],
+                    "migrated_rows": _chain_rows(dest.cache,
+                                                 session[:kv_tokens]),
+                    "kv_tokens": kv_tokens}
+            source.stop()
+            prefill.stop()
+            if lead:
+                for plane in (decode, dest):
+                    plane.migrator.stop()
+                    if plane.client is not None:
+                        plane.client.stop()
+                    plane.decoder.detach(engine)
+                    plane.runtime.terminate()
+        finally:
+            undo()
+        out["ships"] = records
+        runtime.terminate()
+        return out
+
+    out = {}
+    for name, mesh_axes in geometries.items():
+        mesh = create_mesh(mesh_axes, device="cpu")
+        out[name] = drive(mesh, name)
+        # this rank's place in the lead's model group (None: outside it)
+        lead_group = all(index == 0 for axis, index in
+                         zip(mesh.mesh_dim_names, mesh.get_coordinate())
+                         if axis != "model")
+        out[name]["model_index"] = mesh.get_local_rank("model") \
+            if lead_group else None
+    if rank == 0:
+        out["unsharded"] = drive(None, "plain")
+    return out
