@@ -73,7 +73,7 @@ class PE_Detect(PipelineElement):
         import dataclasses
 
         from ..models.detector import (DETECTOR_PRESETS, detect,
-                                       detector_init)
+                                       detector_axes, detector_init)
         from ..ops.image_wire import dct8_decode, dct8_encode
 
         preset, _ = self.get_parameter("preset", "detector_r18")
@@ -98,9 +98,13 @@ class PE_Detect(PipelineElement):
                 backbone=dataclasses.replace(config.backbone,
                                              dtype=torch.bfloat16))
         self.config = config
-        self.params = self.compute.place_params(detector_init(
-            torch.Generator(device=device).manual_seed(0), config,
-            device=device))
+        params = detector_init(torch.Generator(device=device).manual_seed(0),
+                               config, device=device)
+        # detector_axes cut nothing under DEFAULT_RULES ("channels" maps
+        # to no mesh axis): place_params keeps the module, whole on every
+        # rank of a mesh, as JAX replicates the detector
+        self.params = self.compute.place_params(params,
+                                                detector_axes(params))
         threshold = float(threshold)
 
         # wire format: "raw" ships uint8 (normalised on the device, a

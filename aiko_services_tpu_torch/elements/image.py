@@ -145,8 +145,11 @@ class PE_ImageClassify(PipelineElement):
     def _setup(self) -> None:
         if self._setup_done:
             return
-        from ..models.resnet import (RESNET_PRESETS, resnet_forward,
+        from ..models.resnet import (RESNET_PRESETS, local_classes,
+                                     resnet_axes, resnet_forward,
                                      resnet_init)
+        from ..parallel.collectives import (axis_spans, greedy_pick,
+                                            shifted_logsumexp)
 
         preset, _ = self.get_parameter("preset", "resnet18")
         image_size, _ = self.get_parameter("image_size", 224)
@@ -163,14 +166,25 @@ class PE_ImageClassify(PipelineElement):
                 f"service named {compute_name!r}")
         device = self.compute.device
         self.config = config = RESNET_PRESETS[str(preset)]
-        self.params = self.compute.place_params(resnet_init(
-            torch.Generator(device=device).manual_seed(0), config,
-            device=device))
+        # on a model axis the head is cut by its classes (resnet_axes),
+        # which must divide; the backbone stays whole on every rank
+        mesh = self.compute.sharding_mesh
+        local_classes(config, mesh)
+        params = resnet_init(torch.Generator(device=device).manual_seed(0),
+                             config, device=device)
+        self.params = self.compute.place_params(params, resnet_axes(params))
+        sharded = axis_spans(mesh, "model")
 
         @torch.no_grad()
         def run_bucket(_bucket, images):
             logits = resnet_forward(self.params, config,
-                                    images.float() / 255.0)
+                                    images.float() / 255.0, mesh)
+            if sharded:
+                # JAX's argmax and max of the softmax over every rank's
+                # chunk: the first maximal class, and exp(max - logsumexp)
+                _, shifted = shifted_logsumexp(logits, "model", mesh=mesh)
+                return greedy_pick(logits, "model", mesh=mesh), \
+                    torch.exp(-shifted)
             probs = torch.softmax(logits, dim=-1)
             return probs.argmax(dim=-1), probs.max(dim=-1).values
 

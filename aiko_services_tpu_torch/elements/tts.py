@@ -47,7 +47,8 @@ class PE_NeuralTTS(PipelineElement):
             return
         from ..bridge import load_flat_npz
         from ..models.tokenizer import ByteTokenizer, load_tokenizer
-        from ..models.tts import TTS_PRESETS, synthesize, tts_init
+        from ..models.tts import (TTS_PRESETS, local_heads, synthesize,
+                                  tts_axes, tts_init)
         from ..ops.audio import WHISPER_HOP
 
         preset, _ = self.get_parameter("preset", "test")
@@ -74,7 +75,11 @@ class PE_NeuralTTS(PipelineElement):
                           config, device=device)
         if weights:
             load_flat_npz(params, str(weights))
-        self.params = self.compute.place_params(params)
+        # on a model axis this rank's shards (tts_axes: heads, ffn and
+        # the byte embedding's rows; the heads must divide)
+        mesh = self.compute.sharding_mesh
+        local_heads(config, mesh)
+        self.params = self.compute.place_params(params, tts_axes(config))
         gl_iters = int(gl_iters)
 
         # mel → waveform: the neural vocoder when a checkpoint is given,
@@ -83,18 +88,23 @@ class PE_NeuralTTS(PipelineElement):
         vocoder_preset, _ = self.get_parameter("vocoder_preset", "test")
         self.vocoder = self.vocoder_config = None
         if vocoder_weights:
-            from ..models.vocoder import VOCODER_PRESETS, vocoder_init
+            from ..models.vocoder import (VOCODER_PRESETS, vocoder_axes,
+                                          vocoder_init)
             self.vocoder_config = VOCODER_PRESETS[str(vocoder_preset)]
             vocoder = vocoder_init(
                 torch.Generator(device=device).manual_seed(0),
                 self.vocoder_config, device=device)
             load_flat_npz(vocoder, str(vocoder_weights))
-            self.vocoder = self.compute.place_params(vocoder)
+            # vocoder_axes cut nothing under DEFAULT_RULES ("embed" maps
+            # to no mesh axis): place_params keeps the module, whole on
+            # every rank, as JAX replicates it
+            self.vocoder = self.compute.place_params(
+                vocoder, vocoder_axes(self.vocoder_config))
 
         def run_bucket(_bucket, token_batch):
             return synthesize(self.params, config, token_batch,
                               n_iter=gl_iters, vocoder=self.vocoder,
-                              vocoder_config=self.vocoder_config)
+                              vocoder_config=self.vocoder_config, mesh=mesh)
 
         def collate(bucket, payloads):
             batch = np.zeros((len(payloads), bucket), dtype=np.int32)

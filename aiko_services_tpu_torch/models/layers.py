@@ -21,7 +21,7 @@ from torch import nn
 
 __all__ = [
     "Params", "Linear", "LayerNorm", "RMSNorm", "Embedding", "Conv1d",
-    "MHA", "linear", "row_parallel_linear", "enter_columns",
+    "MHA", "linear", "row_parallel_linear", "enter_columns", "model_share",
     "linear_logits",
     "greedy_tokens", "quantize_linear",
     "quantize_linear_tree", "as_tree", "tree_leaves", "layer_norm", "rms_norm",
@@ -179,6 +179,21 @@ def _model_axis_spans(mesh) -> bool:
         return False
     from ..parallel.collectives import axis_spans
     return axis_spans(mesh, "model")
+
+
+def model_share(count: int, what: str, mesh=None) -> int:
+    """This rank's share of `count` (heads, classes) cut over the model
+    axis of `mesh`: all of them without one.  A count that does not
+    divide raises ValueError, as JAX's placement does (only the
+    vocabulary pads)."""
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        return count
+    from ..parallel.collectives import axis_size
+    n = axis_size("model", mesh=mesh)
+    if count % n:
+        raise ValueError(f"{what} {count} does not divide over the "
+                         f"'model' axis of size {n}")
+    return count // n
 
 
 def _sum_over_model(y, mesh):

@@ -24,6 +24,11 @@
 # TF32: cuDNN runs f32 convolutions in TF32 by default; the JAX reference
 # accumulates f32 products in f32.  The f32 forward turns TF32 off for
 # its own duration (exact_f32), leaving the process-wide flag as it was.
+#
+# On a model axis (mesh=) the model is placed by resnet_axes, as JAX
+# places it: "channels" maps to no mesh axis under DEFAULT_RULES, so the
+# backbone stays whole on every rank, and the head is cut by its classes
+# ("vocab"): each rank's logits are its chunk of them (local_classes).
 
 from __future__ import annotations
 
@@ -39,7 +44,8 @@ from .. import resolve_device, torch_dtype
 from . import layers as L
 
 __all__ = ["ResNetConfig", "ResNet", "resnet_init", "resnet_axes",
-           "resnet_forward", "resnet_features", "exact_f32",
+           "resnet_forward", "resnet_features", "local_classes",
+           "exact_f32",
            "RESNET_PRESETS"]
 
 
@@ -263,8 +269,18 @@ def resnet_features(params, images):
     return x
 
 
-def resnet_forward(params, config: ResNetConfig, images):
-    """images: [B, H, W, 3] → logits [B, num_classes] in f32."""
+def local_classes(config: ResNetConfig, mesh=None) -> int:
+    """This rank's chunk of the classes on the model axis of `mesh`; all
+    of them without one.  Classes that do not divide raise ValueError
+    (the head is not padded)."""
+    return L.model_share(config.num_classes, "num_classes", mesh)
+
+
+def resnet_forward(params, config: ResNetConfig, images, mesh=None):
+    """images: [B, H, W, 3] → logits [B, num_classes] in f32.  mesh:
+    this rank's shards (resnet_axes); the logits are the rank's
+    contiguous chunk of the classes [B, local_classes]."""
+    local_classes(config, mesh)
     x = resnet_features(params, images.to(config.dtype))
     x = x.mean(dim=(2, 3))                  # global avg pool
     head = params["head"]

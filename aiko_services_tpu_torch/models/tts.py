@@ -14,6 +14,15 @@
 # token with starts <= t < ends on f32 frame indices, gathered by a
 # [T, S] one-hot product; the voiced length is ceil(total) frames clipped
 # to [0, max_frames], times the hop.
+#
+# Tensor parallelism (mesh=): the model is placed by tts_axes, as JAX
+# places it (ComputeRuntime.place_params): the byte embedding is cut
+# into vocabulary chunks, attention runs on the rank's heads with its o
+# projection row-parallel, mlp_in is column-parallel over "ffn" and
+# mlp_out row-parallel; mel_head and dur_head stay whole, so every rank
+# regulates and synthesizes the same frames (Griffin-Lim and the
+# vocoder run whole on every rank).  With mesh=None, or a one-rank
+# model axis, the path is the unsharded one.
 
 from __future__ import annotations
 
@@ -27,7 +36,7 @@ from .. import resolve_device, torch_dtype
 from . import layers as L
 
 __all__ = ["TTSConfig", "TTS", "TTS_PRESETS", "tts_init", "tts_axes",
-           "tts_forward",
+           "local_heads", "tts_forward",
            "predict_durations", "regulate", "synthesize"]
 
 
@@ -117,18 +126,28 @@ def tts_axes(config: TTSConfig):
     }
 
 
-def _encode(params, config: TTSConfig, tokens):
-    x = L.embedding(params["embed"], tokens).to(config.dtype)
+def local_heads(config: TTSConfig, mesh=None) -> int:
+    """This rank's attention heads: the config's over the size of the
+    model axis; all of them without a mesh.  Heads that do not divide
+    raise ValueError, as JAX's placement does."""
+    return L.model_share(config.num_heads, "num_heads", mesh)
+
+
+def _encode(params, config: TTSConfig, tokens, mesh=None):
+    x = L.embedding(params["embed"], tokens, mesh).to(config.dtype)
     positions = L.sinusoid_position_encoding(tokens.shape[1], config.dim,
                                              device=tokens.device)
     x = x + positions[None].to(x.dtype)
+    heads = local_heads(config, mesh)
     for block in params["blocks"]:
         attn_out, _ = L.mha(block["attn"],
                             L.layer_norm(block["ln_attn"], x),
-                            num_heads=config.num_heads)
+                            num_heads=heads, mesh=mesh)
         x = x + attn_out
-        x = x + L.linear(block["mlp_out"], L.gelu(
-            L.linear(block["mlp_in"], L.layer_norm(block["ln_mlp"], x))))
+        hidden = L.linear(block["mlp_in"], L.enter_columns(
+            L.layer_norm(block["ln_mlp"], x), mesh))
+        x = x + L.row_parallel_linear(block["mlp_out"], L.gelu(hidden),
+                                      mesh)
     return L.layer_norm(params["ln_out"], x)
 
 
@@ -142,9 +161,9 @@ def _durations_from_hidden(params, config: TTSConfig, tokens, hidden):
 
 
 @torch.no_grad()
-def predict_durations(params, config: TTSConfig, tokens):
+def predict_durations(params, config: TTSConfig, tokens, mesh=None):
     """tokens [B, S] → (log-durations, durations)."""
-    hidden = _encode(params, config, tokens)
+    hidden = _encode(params, config, tokens, mesh)
     return _durations_from_hidden(params, config, tokens, hidden)
 
 
@@ -163,10 +182,12 @@ def regulate(hidden, durations, max_frames: int):
 
 
 @torch.no_grad()
-def tts_forward(params, config: TTSConfig, tokens, durations=None):
+def tts_forward(params, config: TTSConfig, tokens, durations=None,
+                mesh=None):
     """tokens: [B, S] int (pad with 0) → (log-mel [B, max_frames,
-    n_mels], total frames [B]).  durations=None predicts them."""
-    hidden = _encode(params, config, tokens)
+    n_mels], total frames [B]).  durations=None predicts them.  mesh:
+    this rank's shards (tts_axes); every rank returns the same mel."""
+    hidden = _encode(params, config, tokens, mesh)
     if durations is None:
         _, durations = _durations_from_hidden(params, config, tokens,
                                               hidden)
@@ -176,15 +197,16 @@ def tts_forward(params, config: TTSConfig, tokens, durations=None):
 
 @torch.no_grad()
 def synthesize(params, config: TTSConfig, tokens, n_iter: int = 32,
-               vocoder=None, vocoder_config=None):
+               vocoder=None, vocoder_config=None, mesh=None):
     """tokens → (waveform [B, samples], voiced sample counts [B] int32):
     predicted durations → mel → waveform, all on the tokens' device.
     Callers trim each row to its count.  The mel → waveform leg is the
     neural vocoder when `vocoder` params are given, else Griffin-Lim
-    (`n_iter` rounds)."""
+    (`n_iter` rounds).  mesh: the acoustic model's shards (tts_axes);
+    the mel → waveform leg runs whole on every rank."""
     from ..ops.audio import WHISPER_HOP, griffin_lim, mel_to_linear
 
-    mel, total_frames = tts_forward(params, config, tokens)
+    mel, total_frames = tts_forward(params, config, tokens, mesh=mesh)
     if vocoder is not None:
         from .vocoder import vocoder_forward
         audio = vocoder_forward(vocoder, vocoder_config, mel.float())

@@ -255,14 +255,7 @@ def local_heads(config: WhisperConfig, mesh=None) -> int:
     model axis (heads map to it under DEFAULT_RULES); all of them
     without a mesh.  Heads that do not divide raise ValueError, as
     JAX's placement does (only the vocabulary pads)."""
-    if mesh is None or "model" not in mesh.mesh_dim_names:
-        return config.num_heads
-    from ..parallel.collectives import axis_size
-    n = axis_size("model", mesh=mesh)
-    if config.num_heads % n:
-        raise ValueError(f"num_heads {config.num_heads} does not divide "
-                         f"over the 'model' axis of size {n}")
-    return config.num_heads // n
+    return L.model_share(config.num_heads, "num_heads", mesh)
 
 
 def _mlp(block, x, mesh=None):

@@ -476,7 +476,8 @@ class PrefixKVCache:
     the decoder's round note shows it landed on every rank
     (landed_promotions, land_promotions), and the admit-time fallback
     stages inline without waiting on a thread.  install_chain lands shipped chain blocks (the decode side of
-    disaggregated serving, serving_disagg.py).  Single-threaded like the
+    disaggregated serving and a migration destination,
+    serving_disagg.py); check_chain checks them without landing them.  Single-threaded like the
     decoder that owns it; decoders of one geometry and one storage kind
     may share it (paged: and then share its pool)."""
 
@@ -569,6 +570,12 @@ class PrefixKVCache:
     @property
     def paged(self) -> bool:
         return self._pool is not None
+
+    @property
+    def agreed(self) -> bool:
+        """Bound by a decoder on a mesh (one rank included), whose round
+        note decides this cache's timed changes."""
+        return self._agreed
 
     @property
     def pool(self):
@@ -746,8 +753,7 @@ class PrefixKVCache:
             return 0
         keys = self.keys_for(tenant, tokens[:count * self.block_tokens])
         entries = blocks[:count - start_block]
-        for entry in entries:
-            self._check_block_geometry(entry)
+        self.check_chain(tokens, start_block, blocks)
         parent = keys[start_block - 1] if start_block else ""
         installed = 0
         if self.paged:
@@ -787,6 +793,16 @@ class PrefixKVCache:
             installed += 1
             parent = keys[j]
         return installed
+
+    def check_chain(self, tokens, start_block: int, blocks) -> None:
+        """Raise ValueError (or TypeError, IndexError) where install_chain
+        would refuse `blocks` before any row lands: a block whose
+        geometry is not this cache's bound layout (bound on a mesh, the
+        rank's own: its KV heads)."""
+        count = min(len(tokens) // self.block_tokens,
+                    start_block + len(blocks))
+        for entry in blocks[:max(0, count - start_block)]:
+            self._check_block_geometry(entry)
 
     def _check_block_geometry(self, entry) -> None:
         if self._layout is None:

@@ -1588,29 +1588,44 @@ class SessionMigrator:
     chunks (the destination lands history only and re-prefills).
     Single-threaded on the owning runtime's engine.
 
-    On a prefix cache sharded over a mesh of more than one rank (a
-    migrator on every rank, built alike) the lead (global rank 0) is
-    the migrator's address and sole voice: its migrate() call, every
+    On a mesh (a cache bound by a decoder on one, one rank included; a
+    migrator on every rank, built alike and handed that `decoder`) the
+    lead (global rank 0) is the migrator's address and sole voice.  On
+    a cache sharded over more than one rank, its migrate() call, every
     envelope it receives and every timeout it decides reach the other
     ranks over its link (the section above _prompt_cap), which run them
-    alike without a clock of their own, and migrate() on another rank
-    sends nothing (its on_done fires when the lead's migration has
-    settled there).  A ship's blocks are joined from every rank of the
-    lead's model group's KV heads, so the destination receives whole
-    blocks, each the ranks' KV heads joined.  Such a cache is a source
-    only: an offer to it is refused (its ranks would each have to
-    install their heads at an agreed round; ROADMAP.md Queue 1 item
-    3.2), and the session stays at its source."""
+    alike without a clock of their own; migrate() on another rank sends
+    nothing (its on_done fires when the lead's migration has settled
+    there), and a ship's blocks are joined from every rank of the lead's
+    model group's KV heads, so the destination receives whole blocks.
+    As a destination every rank queues what reaches it, in the lead's
+    order: offers, transfers (each with this rank's KV heads of its
+    blocks, cut by the decoder's shard_kv_blocks and checked as
+    install_chain checks them) and the lead's expiries.  The decoder's
+    round note applies them on every rank in the same round, once every
+    rank holds them: an offer's host-tier promotion (promote_for,
+    installed in that round) and probe, a chunk's install (refused on
+    every rank where any rank's check refused it), a landing's
+    session_store and table.create (a shed create withholds done on
+    every rank), an expiry.  Only the lead acks, sends done and runs
+    the timers."""
 
     def __init__(self, runtime, cache, table=None, name: str = "migrate",
                  chunk_blocks: int = 8, transfer_timeout: float = 5.0,
-                 registry=None):
+                 registry=None, decoder=None):
         if cache is None:
             raise ValueError("SessionMigrator needs a PrefixKVCache "
                              "(the pinned chains are the cargo)")
+        if cache.agreed and (decoder is None or
+                             decoder.prefix_cache is not cache):
+            raise ValueError(
+                "a SessionMigrator on a prefix cache bound on a mesh takes "
+                "the decoder bound to it (decoder=): its round note lands "
+                "the migrated sessions")
         self.runtime = runtime
         self.cache = cache
         self.table = table
+        self.decoder = decoder
         self.name = str(name)
         self.logger = get_logger(f"disagg.migrate.{name}")
         self.chunk_blocks = max(1, int(chunk_blocks))
@@ -1627,6 +1642,14 @@ class SessionMigrator:
                                self._on_link_call) if cache.sharded \
             else None
         self._mirrored = False      # another rank: the lead's migrate()
+        # on a mesh: the destination's arrivals that no note has applied,
+        # [(number, kind, args)] in the lead's order
+        self.agreed = cache.agreed
+        self._arrived: list = []
+        self._numbered = 0
+        if self.agreed:
+            decoder.add_note_hook(self._note_propose, self._note_apply,
+                                  self._note_pending, every=True)
         self.stats = MirroredStats(
             {"offers": 0, "received": 0, "acks": 0, "chunks": 0,
              "shipped_blocks": 0, "handle_blocks": 0,
@@ -1636,6 +1659,11 @@ class SessionMigrator:
             metric="kv_migrate_events_total",
             help="session KV migration events by kind",
             registry=self._registry, labels={"migrator": self.name})
+
+    @property
+    def _lead(self) -> bool:
+        """This rank speaks for the migrator: off a mesh, or its lead."""
+        return self._link is None or self._link.lead
 
     def _trace_fields(self):
         context = tracing.current_trace()
@@ -1651,7 +1679,7 @@ class SessionMigrator:
         and returns 0; its on_done fires once the lead's migration has
         settled on it."""
         self._done_callback = on_done
-        if self._link is not None and not self._link.lead:
+        if not self._lead:
             if self._mirrored:
                 self._maybe_finished()
             return 0
@@ -1699,13 +1727,15 @@ class SessionMigrator:
         elif name == "message":
             self._dispatch(args[0])
         elif name == "expired":
-            self._expired(*args)
-
-
+            transfer_id, inbound = args
+            if inbound and self.agreed:
+                self._arrive("expired", transfer_id)
+            else:
+                self._expired(transfer_id, inbound)
 
     def _restart_timer(self, entry: dict, transfer_id: str,
                        inbound: bool = False) -> None:
-        if self._link is not None and not self._link.lead:
+        if not self._lead:
             return              # the lead's clock decides every timeout
         timer = entry.pop("timer", None)
         if timer is not None:
@@ -1715,13 +1745,25 @@ class SessionMigrator:
             self.transfer_timeout)
 
     def _expired(self, transfer_id: str, inbound: bool = False) -> None:
-        table = self._inbound if inbound else self._outbound
-        entry = table.pop(transfer_id, None)
+        """A transfer's timer fired (on a mesh the lead's: the link
+        hands it to the other ranks).  On a mesh an inbound expiry is an
+        arrival, which every rank applies at the same note."""
+        entry = (self._inbound if inbound else self._outbound).get(
+            transfer_id)
         if entry is None:
             return
+        entry.pop("timer", None)            # it fired
         if self._link is not None and self._link.lead:
             self._link.call(("expired", transfer_id, inbound))
-        entry.pop("timer", None)
+        if inbound and self.agreed:
+            self._arrive("expired", transfer_id)
+            return
+        self._expire(transfer_id, inbound)
+
+    def _expire(self, transfer_id: str, inbound: bool) -> None:
+        entry = self._settle(transfer_id, inbound=inbound)
+        if entry is None:
+            return
         self.stats["expired"] += 1
         self.logger.warning(
             "migrate %s: transfer %s (%s/%s) timed out; the session "
@@ -1736,8 +1778,7 @@ class SessionMigrator:
     def _maybe_finished(self) -> None:
         if self._outbound or self._done_callback is None:
             return
-        if self._link is not None and not self._link.lead and \
-                not self._mirrored:
+        if not self._lead and not self._mirrored:
             return
         callback, self._done_callback = self._done_callback, None
         callback(self)
@@ -1790,29 +1831,99 @@ class SessionMigrator:
             self.logger.warning("migrate %s: malformed %s dropped: %s",
                                 self.name, command, exc)
 
-    # -- destination role --------------------------------------------------
+    # -- destination role: arrivals, applied at once or at the note --------
     def _on_offer(self, command, params) -> None:
         out = wire.validate_kv_migrate_params(command, params)
+        if self.agreed:
+            self._arrive("offer", out)
+        else:
+            self._offer(out)
+
+    def _on_transfer(self, command, params) -> None:
+        out = wire.validate_kv_transfer_params(command, params)
+        if self.agreed:
+            self._arrive("transfer", out, self._cut(out))
+        else:
+            self._transfer(out, _landing(out["blocks"]))
+
+    def _layout(self) -> tuple:
+        """The layout a transfer must declare: the cache's; on a mesh the
+        model's (the decoder's kv_wire_layout), whose KV heads each rank
+        cuts to its own."""
+        if self.agreed:
+            return self.decoder.kv_wire_layout()
+        return self.cache.wire_layout()
+
+    def _cut(self, out: dict) -> tuple:
+        """On a mesh, at receipt: (this rank's KV heads of a transfer's
+        blocks, None), checked as install_chain checks them before any
+        row lands, or (None, why this rank refuses them); (None, None)
+        where the transfer carries no usable blocks."""
+        if not out["blocks"] or \
+                tuple(str(f) for f in out["layout"]) != self._layout():
+            return None, None
+        try:
+            blocks = self.decoder.shard_kv_blocks(_landing(out["blocks"]))
+            self.cache.check_chain(out["tokens"], out["start_block"],
+                                   blocks)
+        except (ValueError, TypeError, IndexError) as exc:
+            return None, str(exc)
+        return blocks, None
+
+    def _arrive(self, kind: str, *args) -> None:
+        """On a mesh: queue one destination arrival for the round note,
+        numbered in the lead's order (every rank receives the lead's
+        envelopes and expiries in the order the lead saw them)."""
+        self._numbered += 1
+        self._arrived.append((self._numbered, kind, args))
+
+    def _note_pending(self) -> bool:
+        """An idle decoder makes round notes while an arrival waits."""
+        return bool(self._arrived)
+
+    def _note_propose(self) -> dict:
+        """This rank's part of the note: how many arrivals it holds, and
+        its refusals of those it holds unapplied."""
+        return {"upto": self._numbered,
+                "refused": {number: args[1][1]
+                            for number, kind, args in self._arrived
+                            if kind == "transfer" and
+                            args[1][1] is not None}}
+
+    def _note_apply(self, values: list) -> None:
+        """Apply, on this rank as on every rank, the arrivals that every
+        rank holds, in order: a chunk that any rank refused is refused
+        on every rank."""
+        upto = min(value["upto"] for value in values)
+        refused: dict = {}
+        for value in values:
+            for number, why in value["refused"].items():
+                refused.setdefault(number, why)
+        while self._arrived and self._arrived[0][0] <= upto:
+            number, kind, args = self._arrived.pop(0)
+            if kind == "offer":
+                self._offer(*args)
+            elif kind == "transfer":
+                out, (blocks, _) = args
+                self._transfer(out, blocks, refused.get(number))
+            else:
+                self._expire(args[0], inbound=True)
+
+    # -- destination role --------------------------------------------------
+    def _offer(self, out: dict) -> None:
         transfer_id = out["transfer_id"]
         tenant = out["tenant"]
         tokens = [int(t) for t in np.asarray(out["tokens"])]
         self.stats["received"] += 1
-        if self._link is not None:
-            # a sharded destination is not ported: no ack, so the
-            # source's timeout keeps the session there
-            self.stats["refused"] += 1
-            self.logger.warning(
-                "migrate %s: offer %s refused: a prefix cache sharded over "
-                "a mesh is a migration source only (ROADMAP.md Queue 1 "
-                "item 3.2)", self.name, transfer_id)
-            return
         have = 0
         if tokens:
             if self.cache.tiered:
                 # this chain may be host-resident here already: promote
                 # before probing, so the ack's mark spares those blocks
                 # the wire.  promote_for has admit semantics ((len - 1) //
-                # block); the sentinel token promotes the final block too
+                # block); the sentinel token promotes the final block too.
+                # On a mesh it stages and installs here, inside the note
+                # every rank applies
                 self.cache.promote_for(tenant, tokens + tokens[-1:])
             _, have = self.cache.match(tenant, tokens)
         block = self.cache.block_tokens
@@ -1822,14 +1933,18 @@ class SessionMigrator:
                  "cursor": None, "installed": 0}
         self._inbound[transfer_id] = entry
         self._restart_timer(entry, transfer_id, inbound=True)
-        self.runtime.publish(
-            out["reply_topic"],
-            wire.encode_kv_migrate_reply(
-                wire.KV_MIGRATE_ACK_COMMAND, transfer_id, have // block,
-                trace=self._trace_fields()))
+        if self._lead:
+            self.runtime.publish(
+                out["reply_topic"],
+                wire.encode_kv_migrate_reply(
+                    wire.KV_MIGRATE_ACK_COMMAND, transfer_id,
+                    have // block, trace=self._trace_fields()))
 
-    def _on_transfer(self, command, params) -> None:
-        out = wire.validate_kv_transfer_params(command, params)
+    def _transfer(self, out: dict, blocks, refusal: str | None = None):
+        """Install one arriving chunk (`blocks`: in this cache's storage
+        layout; on a mesh this rank's KV heads, or None, and `refusal`
+        some rank's reason to refuse them), and land the session on the
+        final envelope."""
         transfer_id = out["transfer_id"]
         entry = self._inbound.get(transfer_id)
         if entry is None:
@@ -1837,16 +1952,18 @@ class SessionMigrator:
         cache = self.cache
         installed = 0
         usable = not out["blocks"] or \
-            tuple(str(f) for f in out["layout"]) == cache.wire_layout()
+            tuple(str(f) for f in out["layout"]) == self._layout()
         if usable and out["blocks"] and entry["cursor"] is not None \
                 and out["start_block"] != entry["cursor"]:
             # the ordered-cursor guard: a lost sibling left a gap
             usable = False
         if usable and out["blocks"]:
             try:
+                if refusal is not None:
+                    raise ValueError(refusal)
                 installed = cache.install_chain(
                     entry["tenant"], out["tokens"], out["start_block"],
-                    _landing(out["blocks"]))
+                    blocks)
                 entry["cursor"] = out["start_block"] + len(out["blocks"])
                 entry["installed"] += installed
                 self.stats["installed_blocks"] += installed
@@ -1885,11 +2002,12 @@ class SessionMigrator:
                 tenant, sid)
             return
         self.stats["landed"] += 1
-        self.runtime.publish(
-            entry["reply_topic"],
-            wire.encode_kv_migrate_reply(
-                wire.KV_MIGRATE_DONE_COMMAND, transfer_id,
-                entry["installed"], trace=self._trace_fields()))
+        if self._lead:
+            self.runtime.publish(
+                entry["reply_topic"],
+                wire.encode_kv_migrate_reply(
+                    wire.KV_MIGRATE_DONE_COMMAND, transfer_id,
+                    entry["installed"], trace=self._trace_fields()))
 
     # -- source role, reply legs -------------------------------------------
     def _on_ack(self, command, params) -> None:
@@ -1954,7 +2072,9 @@ class SessionMigrator:
         self._maybe_finished()
 
     def pending_count(self) -> int:
-        return len(self._outbound) + len(self._inbound)
+        """Transfers in flight either way, and on a mesh the arrivals no
+        round note has applied yet."""
+        return len(self._outbound) + len(self._inbound) + len(self._arrived)
 
     def stop(self) -> None:
         self._outbox.flush()
@@ -1962,9 +2082,12 @@ class SessionMigrator:
             self._settle(transfer_id)       # sessions stay local
         for transfer_id in list(self._inbound):
             self._settle(transfer_id, inbound=True)
+        self._arrived = []
         self.runtime.remove_message_handler(self._on_message, self.topic)
         if self._link is not None:
             self._link.close()
+
+
 
 
 def two_pool_autoscalers(runtime, prefill_manager, decode_manager,

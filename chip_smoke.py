@@ -157,15 +157,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
      ids equal the CPU port's on the same weights, confidences within
      CLASSIFY_TOL; frames/s, batch service s, peak memory.
   16. llama_dense: the llama phase's 24 requests through the dense slot
-     cache (paged_kv False, the JAX default) on its weights: every
-     request completes, no paged launch; tokens/s, rounds, the cache's
-     bytes, one round under torch.profiler, and the share of requests
-     whose tokens equal the llama phase's;
-  17. llama_spec: the same traffic through the paged decoder with
-     speculate_k 2, then 4 (speculate_ngram 2): the paged kernel
-     launches 16 x the verify steps, at W = 3 and W = 5; the accept
-     rate, tokens/s, rounds, one round under the profiler, the share of
-     requests equal to the llama phase's;
+     cache (paged_kv False, the JAX default) at LLAMA_CUT_LAYERS (8) of
+     Llama-1B's 16 layers (the depth cut that keeps the script in its
+     time): every request completes, no paged launch; tokens/s, rounds,
+     the cache's bytes, one round under torch.profiler, and where a
+     request splits from the paged decoder at that depth, its top-2
+     logit gap there;
+  17. llama_spec: the same traffic and depth through the paged decoder
+     with speculate_k 2, then 4 (speculate_ngram 2): the paged kernel
+     launches 8 x the verify steps, at W = 3 and W = 5; the accept
+     rate, tokens/s, rounds, one round under the profiler, the top-2
+     gaps where requests split from the paged decoder without
+     speculation;
   18. llama_spec_int8: the int8 chunked decoder and traffic with
      speculate_k 2 under torch's sync debug mode: every request
      completes, the folded kernel launches 16 x the verify steps and the
@@ -269,6 +272,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
      turns on A, demoted, migrated to B, A purged to 0 blocks, both
      ledgers clean, turn 3 on B a prefix hit of every chain; at 2 layers
      in f32 turn 3 against llama_greedy_decode.
+  35a. agent_migrate_mesh: the same drive with B's decoder and prefix
+     cache on create_mesh({"model": 1}): B's SessionMigrator takes each
+     offer, install and landing at its decoder's round note; every count
+     of agent_migrate, turn 3's tokens equal agent_migrate's, no call
+     synchronizes the stream while the sessions migrate (torch's sync
+     debug mode), and at 2 layers in f32 every turn 3 identical to
+     llama_greedy_decode.
   35b. ops: the operations plane around the paged decoder: Llama-1B in
      bf16 (the llama phase's decoder, its PhaseProfiler always on)
      serves OPS_REQUESTS seeded requests while a MetricsPublisher
@@ -319,6 +329,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
      whisper_axes through the runtime and runs its programs with the
      mesh, its batches cut by the runtime's agreement; its flash
      launches and every frame's tokens equal the pipeline phase's.
+  35i. elements_mesh: PE_NeuralTTS (base, Griffin-Lim) and
+     PE_ImageClassify (ResNet-18 at 224) on a ComputeRuntime over
+     create_mesh({"model": 1}), placed by tts_axes and resnet_axes and
+     run with the mesh, against the same elements without one on
+     ELEMENTS_MESH's short drives of the tts and classify phases'
+     inputs: sample counts, totals, mel and Griffin-Lim audio within
+     tts_f32's limits, class ids equal, confidences within
+     CLASSIFY_TOL, no attention launch.
   36. grad_guard: each of the three kernel wrappers raises on a CUDA
      operand that requires grad (the kernels have no backward) and
      launches nothing doing so.
@@ -479,6 +497,11 @@ EARLIER_COUNTS = {"slice": 12, "pipeline": 24, "remote_pipeline": 24,
                   "disagg_variants": 3 * 16 * (16 + 1 + 4),
                   "agent_disagg": 16 * (128 + 9 + 9),
                   "agent_migrate": 16 * (100 + 4),
+                  # agent_migrate's drive with B on a one-rank model
+                  # mesh, and the TTS and classify elements there (no
+                  # attention kernel)
+                  "agent_migrate_mesh": 16 * (100 + 4),
+                  "elements_mesh": 0,
                   "ops": 16 * 160,
                   # the pipeline's drive on a one-rank model mesh: the
                   # pipeline phase's 2 bucket-3072 batches
@@ -605,6 +628,12 @@ EXTEND_512 = {"slots": 8, "chunk": 128, "max_offset": 1024, "t_cap": 1280}
 # rows a KV head: 12 for k = 2, the split path; 20 for k = 4, the
 # tensor-core path) over a side buffer of steps_per_sync x W entries
 SPEC_KS, SPEC_NGRAM = (2, 4), 2
+# llama_dense and llama_spec serve the llama phase's traffic at 8 of
+# Llama-1B's 16 layers (the depth cut that keeps the script inside its
+# time since agent_migrate_mesh and elements_mesh joined it): their
+# tokens are held against the paged decoder's at that depth (the
+# LogitGaps run), not against the llama phase's
+LLAMA_CUT_LAYERS = 8
 # decoder_f32: the four decoders held against llama_greedy_decode
 F32_DECODERS = {"dense": {"paged_kv": False},
                 "dense_spec2": {"paged_kv": False, "speculate_k": 2},
@@ -645,6 +674,11 @@ DETECT_SCORE_TOL, DETECT_BOX_TOL, DETECT_TIE = 1e-4, 1e-2, 1e-4
 # CLASSIFY_TOL; a CPU top-2 probability gap under CLASSIFY_TIE is a tie
 CLASSIFY_FRAMES, CLASSIFY_SEED = 64, 13
 CLASSIFY_TOL, CLASSIFY_TIE = 1e-5, 1e-6
+# elements_mesh: PE_NeuralTTS and PE_ImageClassify on a one-rank model
+# mesh against the same elements without one, on the first
+# classify_frames of classify's frames and tts_streams x TTS_TEXTS of
+# the tts phase's texts (its long first text among them)
+ELEMENTS_MESH = {"tts_streams": 2, "classify_frames": 16}
 
 
 # text to speech (phases tts, tts_f32 and the assistant's voice):
@@ -2013,10 +2047,9 @@ def llama_traffic(rng, vocab: int) -> list:
     return requests
 
 
-def phase_llama() -> tuple:
+def phase_llama() -> int:
     """Serve Llama-1B requests through the paged ContinuousDecoder;
-    returns (the paged kernel's launches in that run, its tokens by
-    request)."""
+    returns the paged kernel's launches in that run."""
     import dataclasses
 
     import numpy as np
@@ -2114,7 +2147,7 @@ def phase_llama() -> tuple:
           "max_memory_gb": memory_gb,
           "sample_tokens": {rid: done[rid][:6] for rid in ("long", "r0")}})
     emit({"phase": "profile", **profile})
-    return launches, done
+    return launches
 
 
 def phase_llama_f32() -> dict:
@@ -4013,6 +4046,32 @@ def phase_detect_f32() -> dict:
     return record
 
 
+def classify_definition():
+    """classify's one-element pipeline: (PE_ImageClassify), ResNet-18 at
+    224 x 224, batched, max_batch 32."""
+    from aiko_services_tpu_torch.pipeline import parse_pipeline_definition
+    return parse_pipeline_definition({
+        "version": 0, "name": "p_classify", "runtime": "python",
+        "graph": ["(PE_ImageClassify)"],
+        "parameters": {"PE_ImageClassify.preset": "resnet18",
+                       "PE_ImageClassify.image_size": 224,
+                       "PE_ImageClassify.mode": "batched",
+                       "PE_ImageClassify.max_batch": 32},
+        "elements": [{"name": "PE_ImageClassify",
+                      "input": [{"name": "image"}],
+                      "output": [{"name": "class_id"},
+                                 {"name": "confidence"}]}]})
+
+
+def classify_inputs(count: int) -> dict:
+    """The first `count` of classify's seeded 224 x 224 frames, frame i
+    on stream cam{i % 8}."""
+    import numpy as np
+    rng = np.random.default_rng(CLASSIFY_SEED)
+    return {(f"cam{i % 8}", i // 8): rng.integers(
+        0, 256, (224, 224, 3), dtype=np.uint8) for i in range(count)}
+
+
 def phase_classify() -> dict:
     """ResNet-18 at 224 x 224 (1000 classes, f32) through a one-element
     pipeline (PE_ImageClassify, batched, max_batch 32): CLASSIFY_FRAMES
@@ -4025,30 +4084,15 @@ def phase_classify() -> dict:
     import numpy as np
 
     from aiko_services_tpu_torch.models.resnet import resnet_forward
-    from aiko_services_tpu_torch.pipeline import (Pipeline,
-                                                  parse_pipeline_definition)
-
-    definition = parse_pipeline_definition({
-        "version": 0, "name": "p_classify", "runtime": "python",
-        "graph": ["(PE_ImageClassify)"],
-        "parameters": {"PE_ImageClassify.preset": "resnet18",
-                       "PE_ImageClassify.image_size": 224,
-                       "PE_ImageClassify.mode": "batched",
-                       "PE_ImageClassify.max_batch": 32},
-        "elements": [{"name": "PE_ImageClassify",
-                      "input": [{"name": "image"}],
-                      "output": [{"name": "class_id"},
-                                 {"name": "confidence"}]}]})
+    from aiko_services_tpu_torch.pipeline import Pipeline
 
     start_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    rng = np.random.default_rng(CLASSIFY_SEED)
-    frames = {(f"cam{i % 8}", i // 8): rng.integers(
-        0, 256, (224, 224, 3), dtype=np.uint8)
-        for i in range(CLASSIFY_FRAMES)}
+    frames = classify_inputs(CLASSIFY_FRAMES)
     runtime, compute = host_runtime()
     engine = runtime.event
-    pipeline = Pipeline(runtime, definition, stream_lease_time=0)
+    pipeline = Pipeline(runtime, classify_definition(),
+                        stream_lease_time=0)
     done = []
     pipeline.add_frame_handler(done.append)
     for stream in ["warm"] + [f"cam{s}" for s in range(8)]:
@@ -4236,10 +4280,10 @@ def served_record(run: dict, stats: dict, reference: dict | None,
     return record
 
 
-def reference_gaps(params, config, requests, reference) -> tuple:
-    """The llama phase's decoder and traffic again under LogitGaps: its
-    tokens by request, [top-1 logit, top-2 gap] per emitted token by
-    request, and whether its tokens repeat the llama phase's."""
+def reference_gaps(params, config, requests) -> tuple:
+    """The llama phase's decoder and traffic on `params` under LogitGaps:
+    its tokens by request, and [top-1 logit, top-2 gap] per emitted
+    token by request."""
     from aiko_services_tpu_torch.serving import ContinuousDecoder
     decoder = ContinuousDecoder(params, config, **LLAMA_DECODER)
     gaps = LogitGaps(decoder)
@@ -4247,26 +4291,25 @@ def reference_gaps(params, config, requests, reference) -> tuple:
         run = serve_requests(decoder, requests)
     finally:
         gaps.close()
-    return run["done"], gaps.by_request(run["done"]), \
-        run["done"] == reference
+    return run["done"], gaps.by_request(run["done"])
 
 
-def phase_llama_dense(reference: dict) -> dict:
+def phase_llama_dense() -> tuple:
     """The llama phase's 24 requests (1,344 tokens) through the dense slot
-    cache (paged_kv False, the JAX default) with the llama phase's
-    weights: every request completes and no paged kernel launches;
-    tokens/s, rounds, the cache's bytes, one round under the profiler,
-    and the share of requests whose tokens equal the llama phase's; and
-    at each request's first token that splits from the llama decoder's
-    run again under LogitGaps, that run's top-2 logit gap.  Returns that
-    run's (tokens, gaps) for phase_llama_spec."""
+    cache (paged_kv False, the JAX default) at LLAMA_CUT_LAYERS of
+    Llama-1B's layers: every request completes and no paged kernel
+    launches; tokens/s, rounds, the cache's bytes, one round under the
+    profiler; and at each request's first token that splits from the
+    paged llama decoder's run at that depth under LogitGaps, that run's
+    top-2 logit gap.  Returns that run's (tokens, gaps) for
+    phase_llama_spec."""
     import numpy as np
 
     from aiko_services_tpu_torch.models.llama import llama_init
     from aiko_services_tpu_torch.ops import paged_attention as P
     from aiko_services_tpu_torch.serving import ContinuousDecoder
 
-    config = llama_1b()
+    config = llama_1b(num_layers=LLAMA_CUT_LAYERS)
     params = llama_init(torch.Generator(device="cuda").manual_seed(0),
                         config)
     decoder = ContinuousDecoder(params, config,
@@ -4293,11 +4336,9 @@ def phase_llama_dense(reference: dict) -> dict:
     while not decoder.idle:
         decoder.pump()
     del decoder
-    gap_tokens, gaps, repeated = reference_gaps(params, config, requests,
-                                                reference)
-    record = {"phase": "llama_dense",
-              **served_record(run, stats, reference, (gap_tokens, gaps)),
-              "gap_run_repeats_llama": repeated,
+    gap_tokens, gaps = reference_gaps(params, config, requests)
+    record = {"phase": "llama_dense", "layers": config.num_layers,
+              **served_record(run, stats, None, (gap_tokens, gaps)),
               "paged_launches": sum(launches.values()),
               "kv_cache_bytes": run["kv_bytes_final"]}
     emit(record)
@@ -4305,23 +4346,22 @@ def phase_llama_dense(reference: dict) -> dict:
     return gap_tokens, gaps
 
 
-def phase_llama_spec(reference: dict, gap_run: tuple) -> dict:
+def phase_llama_spec(gap_run: tuple) -> dict:
     """The llama phase's traffic through the paged decoder with
-    speculate_k 2, then 4 (speculate_ngram 2), on the llama phase's
-    weights: every request completes, the paged kernel launches once per
-    layer per verify step (at W = 3, then W = 5) and nothing else; the
-    accept rate, tokens/s, round s, one round under the profiler, and the
-    share of requests whose tokens equal the llama phase's, with
-    `gap_run`'s top-2 gap where they split from it (random weights: the
-    accept rate measures the machinery, not a real-text win).  Returns
-    the launches by k."""
+    speculate_k 2, then 4 (speculate_ngram 2), at llama_dense's depth
+    and weights: every request completes, the paged kernel launches once
+    per layer per verify step (at W = 3, then W = 5) and nothing else;
+    the accept rate, tokens/s, round s, one round under the profiler,
+    and `gap_run`'s top-2 gap where the tokens split from it (random
+    weights: the accept rate measures the machinery, not a real-text
+    win).  Returns the launches by k."""
     import numpy as np
 
     from aiko_services_tpu_torch.models.llama import llama_init
     from aiko_services_tpu_torch.ops import paged_attention as P
     from aiko_services_tpu_torch.serving import ContinuousDecoder
 
-    config = llama_1b()
+    config = llama_1b(num_layers=LLAMA_CUT_LAYERS)
     params = llama_init(torch.Generator(device="cuda").manual_seed(0),
                         config)
     requests = llama_traffic(np.random.default_rng(0), config.vocab)
@@ -4354,7 +4394,8 @@ def phase_llama_spec(reference: dict, gap_run: tuple) -> dict:
             decoder.pump()
         emit({"phase": "llama_spec", "speculate_k": k,
               "speculate_ngram": SPEC_NGRAM,
-              **served_record(run, stats, reference, gap_run),
+              "layers": config.num_layers,
+              **served_record(run, stats, None, gap_run),
               "verify_width": k + 1,
               "paged_launches": launches["paged_decode_attention"],
               "paged_launches_expected": expected["paged_decode_attention"],
@@ -4678,16 +4719,17 @@ def tts_definition(**parameters):
                                  {"name": "sample_rate"}]}]})
 
 
-def speak(device, texts: dict, **parameters) -> tuple:
-    """Every text through (PE_NeuralTTS) on `device` (None: the card),
-    text i of every stream posted before text i + 1.  Returns ({(stream,
-    i): audio}, the element, the compute runtime, the runtime, the
-    pipeline, wall s); the caller stops them (stop_pipeline)."""
+def speak(device, texts: dict, mesh=None, **parameters) -> tuple:
+    """Every text through (PE_NeuralTTS) on `device` (None: the card;
+    the runtime over `mesh` when given), text i of every stream posted
+    before text i + 1.  Returns ({(stream, i): audio}, the element, the
+    compute runtime, the runtime, the pipeline, wall s); the caller
+    stops them (stop_pipeline)."""
     import numpy as np
 
     from aiko_services_tpu_torch.pipeline import Pipeline
 
-    runtime, compute = host_runtime(device)
+    runtime, compute = host_runtime(device, mesh=mesh)
     engine = runtime.event
     pipeline = Pipeline(runtime, tts_definition(**parameters),
                         stream_lease_time=0)
@@ -4755,7 +4797,8 @@ def tts_totals(element, tokens) -> tuple:
     from aiko_services_tpu_torch.models.tts import tts_forward
     mel, total = tts_forward(element.params, element.config,
                              torch.from_numpy(tokens).to(
-                                 element.compute.device))
+                                 element.compute.device),
+                             mesh=element.compute.sharding_mesh)
     return mel.float().cpu().numpy(), total.cpu().numpy()
 
 
@@ -4977,6 +5020,107 @@ def phase_tts_f32(paths: dict) -> dict:
                          "limit": limit, "card_s": card_s, "cpu_s": cpu_s}
     emit(record)
     return record
+
+
+def classify_on(frames: dict, mesh=None) -> tuple:
+    """`frames` through classify's pipeline on the card (its runtime over
+    `mesh` when given): ({key: (class id, confidence)}, the element's
+    runtime mesh, attention launches)."""
+    from aiko_services_tpu_torch.pipeline import Pipeline
+
+    runtime, compute = host_runtime(mesh=mesh)
+    pipeline = Pipeline(runtime, classify_definition(), stream_lease_time=0)
+    done = []
+    pipeline.add_frame_handler(done.append)
+    for stream in sorted({stream for stream, _ in frames}):
+        pipeline.create_stream(stream, lease_time=0)
+    element = pipeline.graph.node("PE_ImageClassify").element
+    program = compute.programs[element._program]
+    zero_attention_counts()
+    drive_frames(runtime.event, pipeline, done, frames, program, 120.0)
+    torch.cuda.synchronize()
+    launches = attention_counts()
+    if pipeline.recovery_stats["frames_failed"]:
+        raise AssertionError("classify frames failed")
+    got = {(f.stream_id, f.frame_id): (f.swag["class_id"],
+                                       f.swag["confidence"]) for f in done}
+    placed_on = compute.sharding_mesh
+    stop_pipeline(runtime, compute, pipeline)
+    return got, placed_on, launches
+
+
+def phase_elements_mesh() -> int:
+    """PE_NeuralTTS (base, Griffin-Lim) and PE_ImageClassify (ResNet-18 at
+    224) each on a ComputeRuntime over create_mesh({"model": 1}), placed
+    by tts_axes and resnet_axes through the runtime and run with its
+    mesh, against the same elements without a mesh, on ELEMENTS_MESH's
+    short drives of the tts and classify phases' inputs: equal sample
+    counts, totals, mel and Griffin-Lim audio within tts_f32's limits,
+    class ids equal and confidences within CLASSIFY_TOL, and no
+    attention launch.  Returns the attention launches of the mesh
+    runs."""
+    import numpy as np
+
+    from aiko_services_tpu_torch.parallel import create_mesh
+
+    mesh = create_mesh({"model": 1})
+    start = time.perf_counter()
+    texts = tts_texts(np.random.default_rng(TTS_SEED),
+                      streams=ELEMENTS_MESH["tts_streams"])
+    runs, launches = {}, 0
+    for label, on in (("one", None), ("mesh", mesh)):
+        zero_attention_counts()
+        audio, element, compute, runtime, pipeline, _ = speak(
+            None, texts, mesh=on)
+        counts = attention_counts()
+        if compute.sharding_mesh is not on:
+            raise AssertionError("the TTS runtime is not on the mesh")
+        _, tokens = tts_tokens(element, texts)
+        mel, total = tts_totals(element, tokens)
+        stop_pipeline(runtime, compute, pipeline)
+        runs[label] = (audio, mel, total)
+        if any(counts.values()):
+            raise AssertionError(f"elements_mesh tts: attention {counts}")
+        if on is not None:
+            launches += sum(counts.values())
+    (audio, mel, total), (audio_m, mel_m, total_m) = runs["one"], \
+        runs["mesh"]
+    tts = {"texts": len(audio),
+           "samples_equal": all(audio[key].size == audio_m[key].size
+                                for key in audio),
+           "audio_equal": all(np.array_equal(audio[key], audio_m[key])
+                              for key in audio),
+           "max_total_err": float(np.abs(total - total_m).max()),
+           "mel_rel_l2": rel_l2(mel_m, mel),
+           "gl_stft_rel_l2": max(rel_l2(stft_magnitude(audio_m[key]),
+                                        stft_magnitude(audio[key]))
+                                 for key in audio)}
+    if not tts["samples_equal"] or any(
+            abs(a - b) > total_tolerance(b) for a, b in
+            zip(total_m, total)) or tts["mel_rel_l2"] > TTS_MEL_REL_L2 or \
+            tts["gl_stft_rel_l2"] > TTS_GL_STFT_REL_L2:
+        raise AssertionError(f"elements_mesh tts on the mesh: {tts}")
+    frames = classify_inputs(ELEMENTS_MESH["classify_frames"])
+    got, _, counts = classify_on(frames)
+    got_m, placed_on, counts_m = classify_on(frames, mesh)
+    if placed_on is not mesh or any(counts.values()) or \
+            any(counts_m.values()):
+        raise AssertionError(f"elements_mesh classify: mesh {placed_on}, "
+                             f"attention {counts} / {counts_m}")
+    launches += sum(counts_m.values())
+    classify = {"frames": len(got_m),
+                "ids_equal": all(got_m[key][0] == got[key][0]
+                                 for key in got),
+                "max_confidence_err": max(abs(got_m[key][1] - got[key][1])
+                                          for key in got)}
+    if sorted(got_m) != sorted(frames) or not classify["ids_equal"] or \
+            classify["max_confidence_err"] > CLASSIFY_TOL:
+        raise AssertionError(f"elements_mesh classify on the mesh: "
+                             f"{classify}")
+    emit({"phase": "elements_mesh", "mesh": {"model": 1}, "tts": tts,
+          "classify": classify, "attention_launches": launches,
+          "wall_s": time.perf_counter() - start})
+    return launches
 
 
 def phase_media() -> dict:
@@ -6907,12 +7051,14 @@ def leaf_bytes(leaf) -> torch.Tensor:
 
 class MigrateSide:
     """One serving side of the migration phase: a paged decoder on
-    `params`, a prefix cache (with a host tier of host_mb MiB when
-    given), a session table, a SessionMigrator and a KV memory ledger,
-    pumping flat-out on the shared real-clock engine and broker (JAX's
-    tests/test_drain_migrate.py _Side)."""
+    `params` (over `mesh` when given: its migrator then lands sessions
+    at the decoder's round note), a prefix cache (with a host tier of
+    host_mb MiB when given), a session table, a SessionMigrator and a KV
+    memory ledger, pumping flat-out on the shared real-clock engine and
+    broker (JAX's tests/test_drain_migrate.py _Side)."""
 
-    def __init__(self, engine, broker, params, config, name, host_mb=0):
+    def __init__(self, engine, broker, params, config, name, host_mb=0,
+                 mesh=None):
         from types import SimpleNamespace
 
         from aiko_services_tpu_torch.observe.ledger import KVMemoryLedger
@@ -6942,7 +7088,7 @@ class MigrateSide:
             params, config, paged_kv=True, kv_block=block,
             prefix_cache=self.cache, max_slots=MIGRATE["sessions"],
             prefill_buckets=(128,), prefill_chunk=128, steps_per_sync=4,
-            name=name)
+            name=name, mesh=mesh)
         self.ledger = KVMemoryLedger(name=name)
         self.decoder.attach_ledger(self.ledger)
         self.table = SessionTable(
@@ -6951,7 +7097,9 @@ class MigrateSide:
         self.mig = SessionMigrator(self.rt, self.cache, table=self.table,
                                    name=name,
                                    chunk_blocks=MIGRATE["chunk_blocks"],
-                                   transfer_timeout=60.0)
+                                   transfer_timeout=60.0,
+                                   decoder=self.decoder if mesh is not None
+                                   else None)
         engine.add_flatout_handler(self.decoder.pump)
 
     def turns(self, prompts: dict, new: int) -> dict:
@@ -6980,11 +7128,16 @@ class MigrateSide:
         self.rt.terminate()
 
 
-def migrate_run(config, params, seed: int) -> dict:
+def migrate_run(config, params, seed: int, mesh=None,
+                watch_syncs: bool = False) -> dict:
     """MIGRATE["sessions"] sessions x 2 turns on side A (a host tier of
     MIGRATE["host_mb"] MiB), every session demoted, migrated to side B in
     chunks of MIGRATE["chunk_blocks"] blocks, A purged; then turn 3 on
-    B.  Returns the run's record (histories and turn-3 tokens too)."""
+    B.  With `mesh` B's decoder and cache are on it (its migrator lands
+    at the decoder's note); with watch_syncs the migration runs under
+    torch's sync debug mode, and the record counts the calls that
+    synchronized.  Returns the run's record (histories and turn-3 tokens
+    too)."""
     import numpy as np
 
     from aiko_services_tpu_torch.event import EventEngine
@@ -6997,7 +7150,7 @@ def migrate_run(config, params, seed: int) -> dict:
     sides = SideLaunches()
     a = MigrateSide(engine, broker, params, config, "migrate_a",
                     host_mb=MIGRATE["host_mb"])
-    b = MigrateSide(engine, broker, params, config, "migrate_b")
+    b = MigrateSide(engine, broker, params, config, "migrate_b", mesh=mesh)
     extends = [count_extend_launches(a.decoder),
                count_extend_launches(b.decoder)]
     try:
@@ -7018,10 +7171,11 @@ def migrate_run(config, params, seed: int) -> dict:
                     for sid, history in histories.items()}
         demoted = a.cache.demote_sessions(a.cache.sessions())
         done = []
-        offers = a.mig.migrate(b.mig.topic,
-                               on_done=lambda m: done.append(1))
-        if not engine.run_until(lambda: bool(done), timeout=120.0):
-            raise AssertionError("the migration never settled")
+        with sync_watch(arm=watch_syncs) as syncs:
+            offers = a.mig.migrate(b.mig.topic,
+                                   on_done=lambda m: done.append(1))
+            if not engine.run_until(lambda: bool(done), timeout=120.0):
+                raise AssertionError("the migration never settled")
         a_stats, b_stats = dict(a.mig.stats), dict(b.mig.stats)
         a.cache.purge(demote=False)
         a_left = (len(a.table), a.cache.sessions(),
@@ -7047,7 +7201,8 @@ def migrate_run(config, params, seed: int) -> dict:
                 "b_audit": b_audit, "third": third, "out3": out3,
                 "migrate_out": a.ledger.stats["migrate_out"],
                 "migrate_in": b.ledger.stats["migrate_in"],
-                "launches": launches,
+                "launches": launches, "syncs": dict(syncs),
+                "agreed": b.mig.agreed, "b_pending": b.mig.pending_count(),
                 "by_side": {"a": sides.by_decoder[a.decoder],
                             "b": sides.by_decoder[b.decoder]},
                 "extends": [extends[0][:], extends[1][:]]}
@@ -7057,26 +7212,12 @@ def migrate_run(config, params, seed: int) -> dict:
         b.stop()
 
 
-def phase_agent_migrate() -> dict:
-    """Two serving sides (decoder, prefix cache, session table,
-    SessionMigrator) on Llama-1B bf16 sharing one set of parameters,
-    side A with a 512 MB host tier: 8 sessions x 2 turns on A, every
-    session demoted, migrated to B in chunks of 8 blocks (the chains
-    promote back before they ship), A purged; turn 3 on B.  Checks:
-    offers = migrated = 8, none expired or dropped, shipped blocks = the
-    pinned chains' (no handles: B is cold), A's sessions and pool at 0,
-    both ledgers clean, every turn-3 chain a prefix hit of the chain's
-    tokens; at 2 layers in f32, B's turn 3 against llama_greedy_decode on
-    the whole history.  Returns the paged launches by (variant, path)."""
-    from aiko_services_tpu_torch.models.llama import llama_init
-
-    config = disagg_config()
-    check_1b(config)
-    params = llama_init(torch.Generator(device="cuda").manual_seed(0),
-                        config)
-    start = time.perf_counter()
-    run = migrate_run(config, params, MIGRATE["seed"])
-    wall = time.perf_counter() - start
+def migrate_counts(run: dict, label: str) -> dict:
+    """A migrate_run's counts, checked: offers = migrated = the sessions,
+    none expired or dropped, shipped = installed blocks = the pinned
+    chains' (no handles: B is cold), A's sessions and pool at 0, both
+    ledgers clean, MIGRATE_LAUNCHES paged launches, every turn-3 chain a
+    prefix hit of the pinned tokens."""
     pinned_blocks = sum(run["pinned"].values()) // MIGRATE["block"]
     sessions = MIGRATE["sessions"]
     got = {"offers": run["a"]["offers"], "migrated": run["a"]["migrated"],
@@ -7095,50 +7236,130 @@ def phase_agent_migrate() -> dict:
             run["migrate_out"] != pinned_blocks or \
             run["migrate_in"] != pinned_blocks or not run["demoted"]:
         raise AssertionError(
-            f"agent_migrate: {got} (want {want}), source left "
+            f"{label}: {got} (want {want}), source left "
             f"{run['a_left']}, B audit {run['b_audit']}, hit "
             f"{run['hit_tokens']} of {sum(run['pinned'].values())}, "
             f"{run['prefix_admits']} admits, ledger events "
-            f"{run['migrate_out']} / {run['migrate_in']}")
-    launches = sum(run["launches"].values())
-    extend = run["extends"][0][1] + run["extends"][1][1]
-    del params
-    torch.cuda.empty_cache()
+            f"{run['migrate_out']} / {run['migrate_in']}, launches "
+            f"{sum(run['launches'].values())}")
+    return got
+
+
+def migrate_f32(label: str, mesh=None) -> dict:
+    """migrate_run at 2 layers in f32 (B over `mesh` when given): every
+    session's turn 3 on B against llama_greedy_decode on its whole
+    history (greedy_check's tie rule)."""
+    from aiko_services_tpu_torch.models.llama import llama_init
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     small = disagg_config(num_layers=2, dtype=torch.float32)
     params = llama_init(torch.Generator(device="cuda").manual_seed(5),
                         small)
-    f32 = migrate_run(small, params, MIGRATE["seed"])
+    run = migrate_run(small, params, MIGRATE["seed"], mesh=mesh)
     ties, identical = [], 0
-    for sid, prompt in f32["third"].items():
-        tie = greedy_check(params, small, prompt, f32["out3"][sid],
-                           f"migrated {sid}")
+    for sid, prompt in run["third"].items():
+        tie = greedy_check(params, small, prompt, run["out3"][sid],
+                           f"{label} {sid}")
         identical += tie is None
         if tie is not None:
             ties.append(tie)
-    if f32["a"]["migrated"] != sessions or \
-            f32["prefix_admits"] != sessions:
-        raise AssertionError(f"agent_migrate f32: {f32['a']}, "
-                             f"{f32['prefix_admits']} admits")
-    record = {"phase": "agent_migrate", **got,
-              "pinned_tokens": sum(run["pinned"].values()),
-              "hit_tokens": run["hit_tokens"],
-              "demoted_blocks": run["demoted"],
-              "chunks": run["a"]["chunks"],
-              "migrate_events": [run["migrate_out"], run["migrate_in"]],
-              "paged_launches_by_side": run["by_side"],
-              "extends": run["extends"], "paged_launches": launches,
-              "wall_s": wall,
-              "f32": {"sessions": sessions, "identical": identical,
-                      "ties": ties}}
-    emit(record)
+    sessions = MIGRATE["sessions"]
+    if run["a"]["migrated"] != sessions or \
+            run["prefix_admits"] != sessions:
+        raise AssertionError(f"{label} f32: {run['a']}, "
+                             f"{run['prefix_admits']} admits")
     del params
     torch.cuda.empty_cache()
-    # prefill chunks of 128: the extends run at the agent's 512-row shape
+    return {"sessions": sessions, "identical": identical, "ties": ties}
+
+
+def migrate_record(run: dict, got: dict) -> dict:
+    return {**got, "pinned_tokens": sum(run["pinned"].values()),
+            "hit_tokens": run["hit_tokens"],
+            "demoted_blocks": run["demoted"],
+            "chunks": run["a"]["chunks"],
+            "migrate_events": [run["migrate_out"], run["migrate_in"]],
+            "paged_launches_by_side": run["by_side"],
+            "extends": run["extends"],
+            "paged_launches": sum(run["launches"].values())}
+
+
+def migrate_launches(run: dict) -> dict:
+    """A migrate_run's paged launches by (variant, path): prefill chunks
+    of 128, so the extends run at the agent's 512-row shape."""
+    launches = sum(run["launches"].values())
+    extend = run["extends"][0][1] + run["extends"][1][1]
     return {("paged_decode_attention", "decode"): launches - extend,
             ("paged_decode_attention", "extend_512"): extend}
+
+
+def phase_agent_migrate() -> tuple:
+    """Two serving sides (decoder, prefix cache, session table,
+    SessionMigrator) on Llama-1B bf16 sharing one set of parameters,
+    side A with a 512 MB host tier: 8 sessions x 2 turns on A, every
+    session demoted, migrated to B in chunks of 8 blocks (the chains
+    promote back before they ship), A purged; turn 3 on B.  Checks:
+    migrate_counts; at 2 layers in f32, B's turn 3 against
+    llama_greedy_decode on the whole history.  Returns the paged
+    launches by (variant, path) and turn 3's tokens."""
+    from aiko_services_tpu_torch.models.llama import llama_init
+
+    config = disagg_config()
+    check_1b(config)
+    params = llama_init(torch.Generator(device="cuda").manual_seed(0),
+                        config)
+    start = time.perf_counter()
+    run = migrate_run(config, params, MIGRATE["seed"])
+    wall = time.perf_counter() - start
+    got = migrate_counts(run, "agent_migrate")
+    del params
+    torch.cuda.empty_cache()
+    emit({"phase": "agent_migrate", **migrate_record(run, got),
+          "wall_s": wall, "f32": migrate_f32("migrated")})
+    return migrate_launches(run), run["out3"]
+
+
+def phase_agent_migrate_mesh(reference: dict) -> dict:
+    """agent_migrate's drive with side B's decoder and prefix cache on
+    create_mesh({"model": 1}): B's SessionMigrator takes each offer,
+    install and landing at its decoder's round note.  Checks: every
+    count of migrate_counts (agent_migrate's), turn 3's tokens equal
+    agent_migrate's (`reference`), no call synchronizes the stream while
+    the sessions migrate (torch's sync debug mode), and at 2 layers in
+    f32 every turn 3 identical to llama_greedy_decode.  Returns the
+    paged launches by (variant, path)."""
+    from aiko_services_tpu_torch.models.llama import llama_init
+    from aiko_services_tpu_torch.parallel import create_mesh
+
+    mesh = create_mesh({"model": 1})
+    config = disagg_config()
+    check_1b(config)
+    params = llama_init(torch.Generator(device="cuda").manual_seed(0),
+                        config)
+    start = time.perf_counter()
+    run = migrate_run(config, params, MIGRATE["seed"], mesh=mesh,
+                      watch_syncs=True)
+    wall = time.perf_counter() - start
+    got = migrate_counts(run, "agent_migrate_mesh")
+    del params
+    torch.cuda.empty_cache()
+    if run["syncs"] or not run["agreed"] or run["b_pending"] or \
+            run["out3"] != reference:
+        differing = sorted(sid for sid in reference
+                           if run["out3"].get(sid) != reference[sid])
+        raise AssertionError(
+            f"agent_migrate_mesh: syncs {run['syncs']}, agreed "
+            f"{run['agreed']}, {run['b_pending']} pending at B, turn 3 "
+            f"differs from agent_migrate in {differing}")
+    f32 = migrate_f32("migrated on the mesh", mesh=mesh)
+    if f32["identical"] != f32["sessions"]:
+        raise AssertionError(f"agent_migrate_mesh f32: {f32}")
+    emit({"phase": "agent_migrate_mesh", "mesh": {"model": 1},
+          **migrate_record(run, got), "syncs": 0,
+          "tokens_equal_agent_migrate": True, "wall_s": wall,
+          "f32": f32})
+    return migrate_launches(run)
 
 
 # -- the parallel substrate and the training path ------------------------------
@@ -8636,7 +8857,7 @@ def main() -> int:
                     "peer_pipeline": peer_counts, "peer_chaos": chaos_counts}
     # paged launches by (variant, path): the native decoder decodes, the
     # int8 one decodes with scales folded and extends dequantizing
-    llama_launches, llama_tokens = phase_llama()
+    llama_launches = phase_llama()
     counts = {("paged_decode_attention", "decode"): llama_launches}
     phase_llama_f32()
     int8_counts = phase_llama_int8_chunked()
@@ -8653,8 +8874,8 @@ def main() -> int:
     phase_detect("dct8")
     phase_detect_f32()
     phase_classify()
-    gap_run = phase_llama_dense(llama_tokens)
-    spec_counts = phase_llama_spec(llama_tokens, gap_run)
+    gap_run = phase_llama_dense()
+    spec_counts = phase_llama_spec(gap_run)
     for k, launches in spec_counts.items():
         counts[("paged_decode_attention", f"verify_w{k + 1}")] = launches
     spec_int8 = phase_llama_spec_int8()
@@ -8683,8 +8904,9 @@ def main() -> int:
     variants = phase_disagg_variants()
     phase_disagg_f32()
     agent_disagg, disagg_tokens = phase_agent_disagg()
-    migrate = phase_agent_migrate()
-    for run in (disagg, variants, agent_disagg, migrate):
+    migrate, migrate_tokens = phase_agent_migrate()
+    migrate_mesh = phase_agent_migrate_mesh(migrate_tokens)
+    for run in (disagg, variants, agent_disagg, migrate, migrate_mesh):
         for key, launches in run.items():
             counts[key] = counts.get(key, 0) + launches
     ops = phase_ops()
@@ -8703,6 +8925,7 @@ def main() -> int:
         counts[key] = counts.get(key, 0) + launches
     phase_counts["asr_mesh"] = phase_asr_mesh(pipeline_counts,
                                               pipeline_tokens)
+    elements_mesh = phase_elements_mesh()
     earlier = {phase: phase_counts[phase]["flash_attention"] for phase in
                ("slice", "pipeline", "remote_pipeline", "peer_pipeline",
                 "peer_chaos", "asr_mesh")}
@@ -8719,6 +8942,8 @@ def main() -> int:
                     "disagg_variants": sum(variants.values()),
                     "agent_disagg": sum(agent_disagg.values()),
                     "agent_migrate": sum(migrate.values()),
+                    "agent_migrate_mesh": sum(migrate_mesh.values()),
+                    "elements_mesh": elements_mesh,
                     "ops": ops,
                     "agent_8b": agent_8b["decode"] + agent_8b["extend"]})
     if earlier != EARLIER_COUNTS:

@@ -1301,7 +1301,8 @@ def _prefill_side_on_the_mesh(runtime, agent) -> dict:
     for name, build in (
             ("prefill", lambda: PrefillRuntime(runtime, "sharded_prefill",
                                                decoder=sharded)),
-            ("migrate", lambda: SessionMigrator(runtime, cache))):
+            ("migrate", lambda: SessionMigrator(runtime, cache,
+                                                decoder=sharded))):
         try:
             side = build()
             out[name] = None
@@ -1887,7 +1888,8 @@ def sharded_prefill(rank, world, geometries, flat, config_fields, prompts,
                                             "kv": leaf or "",
                                             "kv_tokens": kv_tokens})
             source = SessionMigrator(runtime, cache, table=table,
-                                     name=f"{tag}m", transfer_timeout=30.0)
+                                     name=f"{tag}m", transfer_timeout=30.0,
+                                     decoder=prefill.decoder)
             # a fresh destination: the decode side's cache holds the
             # shipped chains already, and would take them as handles
             dest = _decode_plane(full, config, engine, broker, f"{tag}t",
@@ -1943,4 +1945,424 @@ def sharded_prefill(rank, world, geometries, flat, config_fields, prompts,
             if lead_group else None
     if rank == 0:
         out["unsharded"] = drive(None, "plain")
+    return out
+
+
+# -- tests/test_torch_tp_migrate.py -------------------------------------------
+
+def _recording_replies():
+    """Record the command of every migrate ack or done this process
+    encodes: (commands, undo)."""
+    from aiko_services_tpu_torch.transport import wire
+
+    commands = []
+    real = wire.encode_kv_migrate_reply
+
+    def recording(command, *args, **kwargs):
+        commands.append(command)
+        return real(command, *args, **kwargs)
+
+    wire.encode_kv_migrate_reply = recording
+    return commands, lambda: setattr(wire, "encode_kv_migrate_reply", real)
+
+
+def _migrate_side(params, config, engine, broker, tag, mesh, host_mb=None,
+                  max_sessions=None, timeout=30.0):
+    """One serving side of a migration: a paged decoder (blocks of 8) on
+    `mesh` (None: unsharded, on the CPU) over `params`, its prefix cache
+    (a host tier of host_mb MiB when given), a session table and a
+    SessionMigrator, pumped from the engine's timer."""
+    from types import SimpleNamespace
+
+    from aiko_services_tpu_torch.observe.metrics import MetricsRegistry
+    from aiko_services_tpu_torch.process import ProcessRuntime
+    from aiko_services_tpu_torch.serving import (ContinuousDecoder,
+                                                 PrefixKVCache)
+    from aiko_services_tpu_torch.serving_disagg import SessionMigrator
+    from aiko_services_tpu_torch.serving_tiered import HostBlockStore
+    from aiko_services_tpu_torch.state.sessions import (SessionTable,
+                                                        TenantBudget)
+    from aiko_services_tpu_torch.transport import MemoryMessage
+
+    registry = MetricsRegistry()
+    runtime = ProcessRuntime(
+        name=tag, engine=engine,
+        transport_factory=lambda on_message, *_: MemoryMessage(
+            on_message=on_message, broker=broker)).initialize()
+    cache = PrefixKVCache(block_tokens=8, max_bytes=64 << 20,
+                          name=f"{tag}.cache", registry=registry)
+    if host_mb:
+        cache.attach_host_store(HostBlockStore(max_bytes=host_mb << 20,
+                                               name=f"{tag}.host"))
+    decoder = ContinuousDecoder(
+        params, config, mesh=mesh, paged_kv=True, kv_block=8,
+        prefix_cache=cache, max_slots=2, prefill_buckets=(64,),
+        steps_per_sync=4, name=tag, registry=registry,
+        **({} if mesh is not None else {"device": "cpu"}))
+    decoder.attach(engine, period=0.002)
+    budget = TenantBudget(max_sessions=max_sessions) \
+        if max_sessions else None
+    table = SessionTable(SimpleNamespace(runtime=runtime,
+                                         topic_path=runtime.topic_path),
+                         num_shards=1, default_budget=budget)
+    migrator = SessionMigrator(runtime, cache, table=table, name=tag,
+                               chunk_blocks=2, transfer_timeout=timeout,
+                               registry=registry,
+                               decoder=decoder if mesh is not None
+                               else None)
+    return SimpleNamespace(runtime=runtime, cache=cache, decoder=decoder,
+                           table=table, migrator=migrator)
+
+
+def _turns(engine, side, prompts, max_new) -> dict:
+    """Every prompt submitted at once to the side's decoder, stepped to
+    completion: {id: tokens}."""
+    done = {}
+    for request_id, prompt in prompts.items():
+        side.decoder.submit(request_id, prompt, max_new,
+                            lambda rid, tokens: done.update(
+                                {rid: [int(t) for t in tokens]}))
+    if not _step(engine, lambda: len(done) == len(prompts)):
+        raise AssertionError(f"{len(done)} of {len(prompts)} turns")
+    return done
+
+
+def _lagging(link, lag: int) -> None:
+    """Another rank's link polls only every `lag`-th time: the lead's
+    envelopes and expiries reach it rounds late."""
+    poll, calls = link.poll, [0]
+
+    def late():
+        calls[0] += 1
+        if calls[0] % lag == 0:
+            poll()
+    link.poll = late
+
+
+def _migration(rank, mesh, full, shards, config, sessions, turns, extra,
+               max_new, case):
+    """One migration to a destination on `mesh`: the source on rank 0
+    alone (unsharded) or on the mesh (case "sharded"); its sessions'
+    turns 1 and 2, their histories pinned; migrate; then turn 3 on the
+    destination (cases "plain", "sharded", "staggered", "tiered").  Case
+    "tiered": the destination holds the histories' chains demoted to a
+    host tier before the offer; "shed": its table is at its session
+    budget; "expiry": the source never ships after the ack."""
+    import torch.distributed as dist
+
+    from aiko_services_tpu_torch.event import EventEngine, VirtualClock
+    from aiko_services_tpu_torch.transport import MemoryBroker
+
+    engine, broker = EventEngine(VirtualClock()), MemoryBroker()
+    lead = rank == 0
+    sharded_source = case == "sharded"
+    records, undo_ships = _recording_ships()
+    replies, undo_replies = _recording_replies()
+    out = {}
+    try:
+        source = None
+        if lead or sharded_source:
+            source = _migrate_side(
+                shards if sharded_source else full, config, engine, broker,
+                f"src{rank}", mesh if sharded_source else None,
+                timeout={"shed": 1.0, "expiry": 2.0}.get(case, 30.0))
+        dest = _migrate_side(
+            shards, config, engine, broker, f"dst{rank}", mesh,
+            host_mb=8 if case == "tiered" else None,
+            max_sessions=1 if case == "shed" else None,
+            timeout=0.5 if case == "expiry" else 30.0)
+        if case == "shed":
+            assert dest.table.create("default", "other", {"history": []})
+        if case == "staggered" and dest.migrator._link is not None and \
+                not lead:
+            _lagging(dest.migrator._link, 2 * rank + 1)
+        histories = None
+        if source is not None:
+            first = _turns(engine, source, dict(zip(sessions, turns)),
+                           max_new)
+            second = _turns(engine, source, {
+                sid: turns[i] + first[sid] + extra[i]
+                for i, sid in enumerate(sessions)}, max_new)
+            histories = {sid: turns[i] + first[sid] + extra[i] +
+                         second[sid] for i, sid in enumerate(sessions)}
+            pinned = {}
+            for sid, history in histories.items():
+                leaf, kv_tokens = source.cache.session_store(
+                    "default", sid, history)
+                assert source.table.create("default", sid, {
+                    "history": history, "kv": leaf or "",
+                    "kv_tokens": kv_tokens})
+                pinned[sid] = kv_tokens
+            out["turns"] = {"first": first, "second": second,
+                            "pinned": pinned}
+        box = [histories]
+        dist.broadcast_object_list(box, src=0)
+        histories = box[0]
+        if case == "tiered":
+            # the destination served these histories once, and its host
+            # tier holds their chains: the offer promotes them
+            _turns(engine, dest, {f"warm.{sid}": history
+                                  for sid, history in histories.items()},
+                   1)
+            out["demoted"] = dest.cache.purge()
+        if case == "expiry" and lead:
+            source.migrator._on_ack = lambda *args: None
+        dist.barrier()
+        dest.decoder.plan_digests = []
+        settled = []
+        sent = 0
+        if source is not None:
+            sent = source.migrator.migrate(dest.migrator.topic
+                                           if lead else "", settled.append)
+        count = len(sessions)
+        key = {"shed": "refused", "expiry": "expired"}.get(case, "landed")
+
+        def finished():
+            if dest.migrator.stats[key] < count or \
+                    dest.migrator.pending_count():
+                return False
+            return source is None or bool(settled)
+        out["migrated"] = _step(engine, finished)
+        dist.barrier()
+        stats = dest.migrator.stats
+        out["dest"] = {name: stats[name] for name in (
+            "received", "installed_blocks", "landed", "refused", "expired",
+            "dropped_chunks", "corrupt")}
+        out["pending"] = dest.migrator.pending_count()
+        out["offers"] = sent
+        if source is not None:
+            out["source"] = {name: source.migrator.stats[name] for name in (
+                "acks", "chunks", "shipped_blocks", "handle_blocks",
+                "migrated", "expired")}
+            out["source_sessions"] = len(source.table)
+        out["dest_sessions"] = sorted(dest.cache.sessions())
+        out["records"] = len(dest.table)
+        out["promoted"] = dest.cache.stats["promoted"]
+        out["kv_heads"] = dest.decoder.kv_heads
+        if key == "landed":
+            out["rows"] = {sid: _chain_rows(dest.cache, history[:(
+                len(history) // 8) * 8]) for sid, history in
+                histories.items()}
+            hits = dest.cache.stats["hit_tokens"]
+            admits = dest.decoder.stats["prefix_admits"]
+            out["third"] = _turns(engine, dest, {
+                sid: history + extra[i] for i, (sid, history) in
+                enumerate(histories.items())}, max_new)
+            out["hit_tokens"] = dest.cache.stats["hit_tokens"] - hits
+            out["prefix_admits"] = dest.decoder.stats["prefix_admits"] - \
+                admits
+        out["plans"] = dest.decoder.plan_digests
+        out["histories"] = histories
+        dist.barrier()
+        for side in (source, dest):
+            if side is not None:
+                side.migrator.stop()
+                side.table.stop()
+                side.decoder.detach(engine)
+                side.runtime.terminate()
+    finally:
+        undo_ships()
+        undo_replies()
+    out["ships"] = records
+    out["replies"] = replies
+    return out
+
+
+def sharded_destination(rank, world, geometries, flat, config_fields,
+                        sessions, turns, extra, max_new, cases):
+    """A migration destination sharded over each mesh of `geometries`,
+    in each of `cases` (name -> the geometries it runs on): from an
+    unsharded source on rank 0 and from a source sharded over the same
+    mesh, in lockstep and with the lead's envelopes reaching the other
+    ranks late, promoting at the offer from a host tier, shed by its
+    table, and left waiting by a source that never ships.  The weights
+    are the JAX tree `flat`."""
+    from aiko_services_tpu_torch import bridge
+    from aiko_services_tpu_torch.models import llama as TL
+    from aiko_services_tpu_torch.parallel import create_mesh
+    from aiko_services_tpu_torch.parallel.sharding import local_shards
+
+    config = TL.LlamaConfig(**config_fields)
+    full = bridge.params_from_numpy(flat, config, device="cpu")
+    out = {}
+    for name, mesh_axes in geometries.items():
+        mesh = create_mesh(mesh_axes, device="cpu")
+        shards = local_shards(full, TL.llama_axes(config), mesh,
+                              config=config)[0]
+        for case, names in cases.items():
+            if name in names:
+                out[(name, case)] = _migration(
+                    rank, mesh, full, shards, config, sessions, turns,
+                    extra, max_new, case)
+    return out
+
+
+# -- tests/test_torch_tp_tts.py, tests/test_torch_tp_vision.py ----------------
+
+def _one_element(rank, mesh, element, parameters, inputs, outputs):
+    """A one-element pipeline of `element` on this rank's ComputeRuntime
+    over `mesh`, on a virtual clock, with one stream "s0": (runtime,
+    engine, pipeline, the element, the completed frames)."""
+    from aiko_services_tpu_torch import pipeline as TP
+    from aiko_services_tpu_torch.compute import ComputeRuntime
+    from aiko_services_tpu_torch.event import EventEngine, VirtualClock
+    from aiko_services_tpu_torch.process import ProcessRuntime
+    from aiko_services_tpu_torch.transport import MemoryBroker, MemoryMessage
+
+    engine = EventEngine(VirtualClock())
+    broker = MemoryBroker()
+    runtime = ProcessRuntime(
+        name=f"{element}{rank}", engine=engine,
+        transport_factory=lambda on_message, *_: MemoryMessage(
+            on_message=on_message, broker=broker)).initialize()
+    ComputeRuntime(runtime, "compute", mesh=mesh)
+    pipeline = TP.Pipeline(runtime, TP.parse_pipeline_definition({
+        "version": 0, "name": f"p_{element}", "runtime": "jax",
+        "graph": [f"({element})"],
+        "parameters": {f"{element}.{key}": value
+                       for key, value in parameters.items()},
+        "elements": [{"name": element,
+                      "input": [{"name": name} for name in inputs],
+                      "output": [{"name": name} for name in outputs]}]}),
+        stream_lease_time=0)
+    done = []
+    pipeline.add_frame_handler(done.append)
+    pipeline.create_stream("s0", lease_time=0)
+    node = next(node for node in pipeline.graph.nodes()
+                if node.name == element)
+    return runtime, engine, pipeline, node.element, done
+
+
+def _frames_through(engine, pipeline, done, name, values) -> list:
+    """Each of `values` posted as input `name` on stream "s0", in order,
+    stepped until every frame completes (within 120 s of wall time: the
+    runtime's agreed batch cut is an exchange between the ranks that
+    completes in wall time, whatever the virtual clock says): their
+    swags in frame order."""
+    import time
+
+    for value in values:
+        pipeline.post("process_frame", "s0", {name: value})
+    deadline = time.monotonic() + 120.0
+    while len(done) < len(values) and time.monotonic() < deadline:
+        engine.clock.advance(0.01)
+        engine.step()
+        time.sleep(0.0005)
+    assert len(done) == len(values), f"{len(done)} of {len(values)} frames"
+    return [frame.swag for frame in sorted(done,
+                                           key=lambda f: f.frame_id)]
+
+
+def _shape(leaf) -> tuple:
+    return tuple(leaf.shape)
+
+
+def tp_tts(rank, world, geometries, tts_npz, vocoder_npz, texts):
+    """PE_NeuralTTS (preset test, f32, batched, Griffin-Lim of 4 rounds,
+    then the vocoder) on each mesh of `geometries`, its weights the JAX
+    checkpoints: every text's audio; the acoustic model's mel and frame
+    totals on the element's shards and collated tokens; the shapes of
+    this rank's leaves; whether the vocoder stays the whole module."""
+    from aiko_services_tpu_torch.models.tts import tts_forward
+    from aiko_services_tpu_torch.parallel import create_mesh
+
+    out = {}
+    for name, mesh_axes in geometries.items():
+        mesh = create_mesh(mesh_axes, device="cpu")
+        for leg in ("griffin_lim", "vocoder"):
+            parameters = {"preset": "test", "weights": tts_npz,
+                          "gl_iters": 4, "max_batch": 8}
+            if leg == "vocoder":
+                parameters["vocoder_weights"] = vocoder_npz
+            runtime, engine, pipeline, element, done = _one_element(
+                rank, mesh, "PE_NeuralTTS", parameters, ["text"],
+                ["audio", "sample_rate"])
+            try:
+                swags = _frames_through(engine, pipeline, done, "text",
+                                        texts)
+                run = {"audio": [np.asarray(swag["audio"])
+                                 for swag in swags]}
+                if leg == "griffin_lim":
+                    tokens = np.zeros((len(texts), element.max_tokens),
+                                      np.int32)
+                    for i, text in enumerate(texts):
+                        ids = element.tokenizer.encode(text)[
+                            :element.max_tokens] or [32]
+                        tokens[i, :len(ids)] = ids
+                    mel, total = tts_forward(element.params, element.config,
+                                             torch.from_numpy(tokens),
+                                             mesh=mesh)
+                    block = element.params["blocks"][0]
+                    run |= {"mel": mel.numpy(), "total": total.numpy(),
+                            "tokens": tokens,
+                            "embed": _shape(element.params["embed"]["table"]),
+                            "q": _shape(block["attn"]["q"]["w"]),
+                            "o": _shape(block["attn"]["o"]["w"]),
+                            "mlp_in": _shape(block["mlp_in"]["w"]),
+                            "mlp_out": _shape(block["mlp_out"]["w"]),
+                            "mel_head": _shape(element.params["mel_head"]["w"]),
+                            "dur_head": _shape(element.params["dur_head"]["w"])}
+                else:
+                    run["vocoder_module"] = isinstance(element.vocoder,
+                                                       torch.nn.Module)
+                out[(name, leg)] = run
+            finally:
+                runtime.terminate()
+    return out
+
+
+def tp_vision(rank, world, geometries, resnet_flat, detector_flat,
+              classify_frames, detect_frames, size):
+    """PE_ImageClassify (ResNet-18) and PE_Detect (detector_test) at
+    `size` on each mesh of `geometries`, batched, their weights the JAX
+    trees placed by their axes through the runtime: every frame's class
+    and confidence, and detections; the shapes of this rank's head, and
+    whether the backbone and the detector stay whole."""
+    from aiko_services_tpu_torch import bridge
+    from aiko_services_tpu_torch.models.detector import detector_axes
+    from aiko_services_tpu_torch.models.resnet import resnet_axes
+    from aiko_services_tpu_torch.parallel import create_mesh
+
+    out = {}
+    for name, mesh_axes in geometries.items():
+        mesh = create_mesh(mesh_axes, device="cpu")
+        runtime, engine, pipeline, element, done = _one_element(
+            rank, mesh, "PE_ImageClassify",
+            {"preset": "resnet18", "image_size": size, "max_batch": 4},
+            ["image"], ["class_id", "confidence"])
+        try:
+            element._setup()
+            whole = bridge.params_from_numpy(resnet_flat, element.config,
+                                             device="cpu")
+            element.params = element.compute.place_params(
+                whole, resnet_axes(whole))
+            swags = _frames_through(engine, pipeline, done, "image",
+                                    classify_frames)
+            out[(name, "classify")] = {
+                "class_id": [swag["class_id"] for swag in swags],
+                "confidence": [swag["confidence"] for swag in swags],
+                "head_w": _shape(element.params["head"]["w"]),
+                "head_b": _shape(element.params["head"]["b"]),
+                "stem": _shape(element.params["stem"])}
+        finally:
+            runtime.terminate()
+        runtime, engine, pipeline, element, done = _one_element(
+            rank, mesh, "PE_Detect",
+            {"preset": "detector_test", "image_size": size,
+             "score_threshold": 0.0, "max_batch": 4},
+            ["image"], ["boxes", "scores", "classes"])
+        try:
+            element._setup()
+            whole = bridge.params_from_numpy(detector_flat, element.config,
+                                             device="cpu")
+            element.params = element.compute.place_params(
+                whole, detector_axes(whole))
+            swags = _frames_through(engine, pipeline, done, "image",
+                                    detect_frames)
+            out[(name, "detect")] = {
+                "detections": [{key: swag[key] for key in (
+                    "boxes", "scores", "classes")} for swag in swags],
+                "module": isinstance(element.params, torch.nn.Module)}
+        finally:
+            runtime.terminate()
     return out

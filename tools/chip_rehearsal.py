@@ -4,6 +4,8 @@ counts a chip run must show.
     python tools/chip_rehearsal.py agent_8b           # agent_8b's drive
     python tools/chip_rehearsal.py disagg modes       # agent_disagg, then
                                                       # agent_mesh_modes
+    python tools/chip_rehearsal.py migrate            # agent_migrate, then
+                                                      # agent_migrate_mesh
 
 Every device resolves to the CPU (each port module's resolve_device, a
 TorchFunctionMode rewriting device="cuda" and pinned allocations,
@@ -124,6 +126,11 @@ def run(chip_smoke, phases) -> int:
     with OnTheCpu():
         if "agent_8b" in phases:
             print("agent_8b launches", chip_smoke.phase_agent_8b())
+        if "migrate" in phases:
+            counts, tokens = chip_smoke.phase_agent_migrate()
+            print("agent_migrate launches", counts)
+            print("agent_migrate_mesh launches",
+                  chip_smoke.phase_agent_migrate_mesh(tokens))
         if "disagg" in phases or "modes" in phases:
             counts, tokens = chip_smoke.phase_agent_disagg()
             print("agent_disagg launches", counts)

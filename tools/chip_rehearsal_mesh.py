@@ -4,6 +4,7 @@ drive on the CPU, to predict the counts a chip run must show.
     python tools/chip_rehearsal_mesh.py asr         # pipeline, asr_mesh
     python tools/chip_rehearsal_mesh.py moe         # llama_moe's steps
     python tools/chip_rehearsal_mesh.py train       # train_mesh
+    python tools/chip_rehearsal_mesh.py elements    # elements_mesh
 
 The devices resolve to the CPU as tools/chip_rehearsal.py resolves them
 (its stand_ins).  Whisper-small is a one-layer stand-in of one 64-wide
@@ -13,8 +14,10 @@ clock alone, and the flash wrapper's plain version counts a launch per
 call, as the wrapper counts its kernel's.  8x1b is a 64-wide stand-in
 with the real vocabulary (the seeded traffic's lengths are drawn beside
 its token ids) and 16 layers.  train runs train_mesh at Whisper-small's
-widths, its one-rank gloo mesh taken for the card's NCCL one.  Each
-phase prints its records and raises where a check fails."""
+widths, its one-rank gloo mesh taken for the card's NCCL one.
+elements runs elements_mesh at full size (PE_NeuralTTS at base,
+ResNet-18 at 224).  Each phase prints its records and raises where a
+check fails."""
 
 # a console script: its printed records are its output
 # graft: disable-file=lint-print
@@ -70,6 +73,9 @@ def run(chip_smoke, phases) -> int:
         if "moe" in phases:
             moe_stand_in(chip_smoke)
             print("llama_moe launches", chip_smoke.phase_llama_moe())
+        if "elements" in phases:
+            print("elements_mesh attention launches",
+                  chip_smoke.phase_elements_mesh())
         if "train" in phases:
             # the phase's own check reads the backend: gloo stands for
             # the card's NCCL there, and only there
