@@ -174,6 +174,7 @@ class Tracer:
     def __init__(self, maxlen: int = 65536, enabled: bool = False):
         self.enabled = enabled
         self.spans: deque = deque(maxlen=maxlen)
+        self._stats: dict[str, list] = {}   # name -> [count, total_s]
         # span taps: callables invoked with each finished SpanRecord (the
         # flight recorder's intake); a broken tap must not stop tracing
         self.taps: list = []
@@ -185,6 +186,10 @@ class Tracer:
 
     def disable(self) -> None:
         self.enabled = False
+
+    def clear(self) -> None:
+        self.spans.clear()
+        self._stats.clear()
 
     def record(self, name: str, ts: float, dur: float,
                context: TraceContext | None = None, cat: str = "",
@@ -215,6 +220,18 @@ class Tracer:
                 tap(span)
             except Exception:
                 pass
+        entry = self._stats.get(name)
+        if entry is None:
+            entry = self._stats[name] = [0, 0.0]
+        entry[0] += 1
+        entry[1] += dur
+
+    def stats(self) -> dict:
+        """Per-span-name aggregates: {name: {count, total_s, mean_s}},
+        the per-hop span stats the chaos soak report embeds."""
+        return {name: {"count": count, "total_s": total,
+                       "mean_s": total / count if count else 0.0}
+                for name, (count, total) in sorted(self._stats.items())}
 
 
 tracer = Tracer(enabled=os.environ.get("AIKO_TRACE", "").lower() not in

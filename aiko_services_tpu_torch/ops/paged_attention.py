@@ -28,7 +28,7 @@ from .kernels import check, entry, prepare, refuse_grad, require_cuda
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_reference",
            "kernel_plan", "launches", "paged_kernel_source",
-           "prepare_paged_kernel"]
+           "prepare_paged_kernel", "TOLERANCE"]
 
 # kernel launches, counted by the wrapper where it launches its kernel,
 # one count per numerics variant
@@ -48,6 +48,13 @@ _VARIANTS = {_NATIVE: "paged_decode_attention",
              _INT8_DEQUANT: "paged_decode_attention_int8_dequant"}
 # the C entry's `path`
 SPLIT_PATH, TENSOR_PATH = 0, 1
+# each path's output held against the plain version run in f32 on the
+# values the kernel sees: |out - plain| <= c * sum_j p_j |v_j| / l
+# elementwise, and a relative L2 error under the limit.  The split path
+# keeps f32 from the loaded values on; the tensor-core path rounds each
+# probability to bf16 for the PV product, as the plain version does in
+# bf16.  {path: (c, relative L2 limit)}
+TOLERANCE = {SPLIT_PATH: (2 ** -12, 1e-4), TENSOR_PATH: (2 ** -8, 0.003)}
 # the tensor-core path: bf16 above this many rows per (slot, KV head),
 # 256 rows a block at D = 64 (8 warps of 32) and 128 at D = 128 (8 warps
 # of 16: a warp's accumulators grow with D).  At 16 rows or fewer a K/V

@@ -337,6 +337,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
      inputs: sample counts, totals, mel and Griffin-Lim audio within
      tts_f32's limits, class ids equal, confidences within
      CLASSIFY_TOL, no attention launch.
+  35j. operator_scripts: the port's operator scripts through their entry
+     points (aiko_services_tpu_torch/scripts/), each drive with the
+     counts zeroed before it: chaos_soak's speech soak at its CLI
+     defaults (seed 11, 8 frames) with both serving ComputeRuntimes and
+     the caller's log-mel on the card (every frame recovered, the
+     faults the CPU run injects on that seed, no attention launch: the
+     test preset's bucket 200 is below FLASH_MIN_SEQ); its migrate soak
+     at Llama-1B's widths in f32 (the 1b preset's dtype: the stitched
+     output is held bit for bit against a decode never preempted; the
+     report's ok, and its paged launches); disagg_smoke at Llama-1B's
+     widths cut to 4 of its 16 layers, with a 0.2 s window (its burst timer never fires: the transfers are
+     the warm-up's), the probe bit-identical, its decoders dense as the
+     script builds them (no paged launch).  Counts: OPERATOR_SCRIPTS.
   36. grad_guard: each of the three kernel wrappers raises on a CUDA
      operand that requires grad (the kernels have no backward) and
      launches nothing doing so.
@@ -410,6 +423,10 @@ import warnings
 
 import torch
 
+from aiko_services_tpu_torch.ops.paged_attention import (
+    SPLIT_PATH as PAGED_SPLIT_PATH, TENSOR_PATH as PAGED_TENSOR_PATH,
+    TOLERANCE as PAGED_TOLERANCE)
+
 # H100 SXM data-sheet peaks (dense): the bound of a kernel is the larger
 # of its bytes over the memory rate and its operations over the peak.
 PEAK_BF16_FLOPS = 989e12
@@ -441,8 +458,9 @@ BF16_U = 2 ** -8
 KERNEL_TOLERANCE = {          # kernel: (u, c, relative L2 limit)
     "flash_attention": (BF16_U, 2 ** -8, 0.008),
     "cross_decode_attention": (BF16_U, 2 ** -12, 0.004),
-    "paged_decode_attention": (0.0, 2 ** -12, 1e-4),
-    "paged_decode_attention_tensor_cores": (0.0, 2 ** -8, 0.003),
+    "paged_decode_attention": (0.0, *PAGED_TOLERANCE[PAGED_SPLIT_PATH]),
+    "paged_decode_attention_tensor_cores": (
+        0.0, *PAGED_TOLERANCE[PAGED_TENSOR_PATH]),
 }
 # the paged kernel's int8 variants on the split path keep f32 from the
 # loaded values on, as the native one does: the same model, held against
@@ -502,6 +520,8 @@ EARLIER_COUNTS = {"slice": 12, "pipeline": 24, "remote_pipeline": 24,
                   # attention kernel)
                   "agent_migrate_mesh": 16 * (100 + 4),
                   "elements_mesh": 0,
+                  # the migrate soak's paged launches (OPERATOR_SCRIPTS)
+                  "operator_scripts": 16 * 55,
                   "ops": 16 * 160,
                   # the pipeline's drive on a one-rank model mesh: the
                   # pipeline phase's 2 bucket-3072 batches
@@ -7875,6 +7895,99 @@ def phase_staged() -> int:
     return counts["flash_attention"]
 
 
+# operator_scripts: the counts each drive must show, from the CPU
+# rehearsal (tools/chip_rehearsal.py operator_scripts; the soak's from a
+# CPU run of the same seed, the migrate soak's and disagg_smoke's with
+# the 1b preset a 64-wide 16-layer stand-in: their schedules depend on
+# neither widths nor token values).  The migrate soak's paged launches
+# are 16 layers x the decode steps and extends of its rounds.
+OPERATOR_SCRIPTS = {
+    "soak": {"frames_sent": 8, "frames_recovered": 8, "frames_lost": 0,
+             "texts_returned": 8, "pending_hops": 0, "leaked_hop_leases": 0,
+             "faults_injected": {"duplicate": 9, "drop": 3, "delay": 3,
+                                 "partitioned": 4}},
+    "migrate": {"paged_launches": 16 * 55, "partial_tokens": 9,
+                "rounds": 32,
+                "shipped_blocks": 12, "installed_blocks": 12,
+                "prefix_hit_tokens": 48},
+    "disagg": {"transfers": 10, "handle_hit_rate": 0.1839,
+               "paged_launches": 0},
+    "disagg_window": 0.2,
+    # disagg_smoke serves Llama-1B's widths at 4 of its 16 layers: its
+    # transfers (each block's K/V of every layer, f32) took 10.7 s of
+    # its ~12-16 s at full depth, and it launches no attention kernel
+    "disagg_layers": 4,
+}
+
+
+def phase_operator_scripts() -> int:
+    """The port's operator scripts on the card through their entry
+    points, each drive with every attention count zeroed before it and
+    read after it: chaos_soak.run_soak at the CLI's defaults,
+    chaos_soak.run_migrate_soak(preset="1b") and disagg_smoke.run on
+    Llama-1B cut to OPERATOR_SCRIPTS' layers, with its window.  Checks each report's
+    verdicts and OPERATOR_SCRIPTS' counts; returns the attention launches
+    of the three drives."""
+    from aiko_services_tpu_torch.scripts import chaos_soak, disagg_smoke
+
+    expected = OPERATOR_SCRIPTS
+    zero_attention_counts()
+    start = time.perf_counter()
+    soak = chaos_soak.run_soak(seed=11, frames=8)
+    soak_s = time.perf_counter() - start
+    soak_launches = sum(attention_counts().values())
+    got = {key: soak[key] for key in expected["soak"]}
+    if got != expected["soak"] or soak_launches:
+        raise AssertionError(f"operator_scripts soak: {got} != "
+                             f"{expected['soak']}, {soak_launches} "
+                             f"attention launches")
+
+    zero_attention_counts()
+    start = time.perf_counter()
+    migrate = chaos_soak.run_migrate_soak(seed=11, preset="1b")
+    migrate_s = time.perf_counter() - start
+    migrate_launches = sum(attention_counts().values())
+    torch.cuda.empty_cache()
+    got = {"paged_launches": migrate_launches,
+           "partial_tokens": migrate["victim"]["partial_tokens"],
+           "rounds": migrate["chaos"]["rounds"],
+           "shipped_blocks": migrate["migration"]["shipped_blocks"],
+           "installed_blocks": migrate["migration"]["installed_blocks"],
+           "prefix_hit_tokens": migrate["dest"]["prefix_hit_tokens"]}
+    if not migrate["ok"] or got != expected["migrate"]:
+        raise AssertionError(f"operator_scripts migrate: {migrate}, "
+                             f"{got} != {expected['migrate']}")
+
+    from aiko_services_tpu_torch.models.llama import LLAMA_PRESETS
+    cut = f"1b_{expected['disagg_layers']}_layers"
+    LLAMA_PRESETS[cut] = dataclasses.replace(
+        LLAMA_PRESETS["1b"], num_layers=expected["disagg_layers"])
+    zero_attention_counts()
+    start = time.perf_counter()
+    try:
+        disagg = disagg_smoke.run(preset=cut,
+                                  window=expected["disagg_window"])
+    finally:
+        del LLAMA_PRESETS[cut]
+    disagg_s = time.perf_counter() - start
+    disagg_launches = sum(attention_counts().values())
+    torch.cuda.empty_cache()
+    got = {"transfers": disagg["per_transfer"]["count"],
+           "handle_hit_rate": disagg["per_transfer"]["handle_hit_rate"],
+           "paged_launches": disagg_launches}
+    if not disagg_smoke.passed(disagg) or got != expected["disagg"]:
+        raise AssertionError(f"operator_scripts disagg_smoke: {disagg}, "
+                             f"{got} != {expected['disagg']}")
+    emit({"phase": "operator_scripts",
+          "soak": {**soak, "attention_launches": soak_launches,
+                   "drive_s": soak_s},
+          "migrate": {**migrate, "paged_launches": migrate_launches,
+                      "drive_s": migrate_s},
+          "disagg_smoke": {**disagg, "paged_launches": disagg_launches,
+                           "drive_s": disagg_s}})
+    return soak_launches + migrate_launches + disagg_launches
+
+
 def phase_grad_guard() -> dict:
     """Each kernel wrapper raises on a CUDA operand that requires grad
     (the kernels have no backward), and launches nothing doing so."""
@@ -8926,6 +9039,7 @@ def main() -> int:
     phase_counts["asr_mesh"] = phase_asr_mesh(pipeline_counts,
                                               pipeline_tokens)
     elements_mesh = phase_elements_mesh()
+    operator_scripts = phase_operator_scripts()
     earlier = {phase: phase_counts[phase]["flash_attention"] for phase in
                ("slice", "pipeline", "remote_pipeline", "peer_pipeline",
                 "peer_chaos", "asr_mesh")}
@@ -8944,6 +9058,7 @@ def main() -> int:
                     "agent_migrate": sum(migrate.values()),
                     "agent_migrate_mesh": sum(migrate_mesh.values()),
                     "elements_mesh": elements_mesh,
+                    "operator_scripts": operator_scripts,
                     "ops": ops,
                     "agent_8b": agent_8b["decode"] + agent_8b["extend"]})
     if earlier != EARLIER_COUNTS:

@@ -1162,14 +1162,23 @@ def _agent_pipeline(rank, mesh, parameters, streams, staggered):
 
 def _agent_turns(engine, pipeline, done, texts, lag, before_step=None):
     """Every stream's turns one after another, each next turn posted
-    `lag` engine steps after the stream's previous turn came back:
+    `lag` engine steps after the stream's previous turn came back, until
+    every turn is answered (within 150 s of wall time: the runtime's
+    agreed batch cut is an exchange between the ranks that completes in
+    wall time, however many engine steps that takes):
     {(stream, turn): response tokens}."""
+    import itertools
+    import time
+
     turn_of = {stream_id: 0 for stream_id in texts}
     posts = [(lag, stream_id, turns[0]) for stream_id, turns in
              texts.items()]
     responses, seen = {}, 0
     total = sum(len(turns) for turns in texts.values())
-    for step in range(20000):
+    deadline = time.monotonic() + 150.0
+    for step in itertools.count():
+        if time.monotonic() > deadline:
+            break
         for frame in done[seen:]:
             stream_id = frame.stream_id
             responses[(stream_id, turn_of[stream_id])] = [

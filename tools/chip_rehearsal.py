@@ -6,6 +6,7 @@ counts a chip run must show.
                                                       # agent_mesh_modes
     python tools/chip_rehearsal.py migrate            # agent_migrate, then
                                                       # agent_migrate_mesh
+    python tools/chip_rehearsal.py operator_scripts   # the operator scripts
 
 Every device resolves to the CPU (each port module's resolve_device, a
 TorchFunctionMode rewriting device="cuda" and pinned allocations,
@@ -131,6 +132,9 @@ def run(chip_smoke, phases) -> int:
             print("agent_migrate launches", counts)
             print("agent_migrate_mesh launches",
                   chip_smoke.phase_agent_migrate_mesh(tokens))
+        if "operator_scripts" in phases:
+            print("operator_scripts launches",
+                  chip_smoke.phase_operator_scripts())
         if "disagg" in phases or "modes" in phases:
             counts, tokens = chip_smoke.phase_agent_disagg()
             print("agent_disagg launches", counts)
