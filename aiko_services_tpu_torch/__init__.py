@@ -50,12 +50,58 @@ def torch_dtype(dtype) -> torch.dtype:
     return _DTYPES[name]
 
 
-# the operations plane's entry points, as the JAX package's __init__
-# exports them (imported last: they import the modules above)
+# the control plane's API and the operations plane's entry points, as
+# the JAX package's __init__ exports them (imported last: they import
+# resolve_device above; autoscaler and placement import the modules
+# before them).  None of them imports click, paho, PIL or cv2 at module
+# level: those load inside the calls that need them.
+from . import utils                                         # noqa: E402,F401
+from . import event                                         # noqa: E402,F401
+from .connection import Connection, ConnectionState         # noqa: E402,F401
+from .event import EventEngine, RealClock, VirtualClock     # noqa: E402,F401
+from .lease import Lease                                    # noqa: E402,F401
+from .process import ProcessRuntime                         # noqa: E402,F401
+from .service import (                                      # noqa: E402,F401
+    Service, ServiceFields, ServiceFilter, ServiceProtocol, ServiceTags,
+    ServiceTopicPath, Services,
+)
+from .state import StateMachine, StateMachineError          # noqa: E402,F401
+from .share import ECConsumer, ECProducer, ServicesCache    # noqa: E402,F401
+from .actor import (                                        # noqa: E402,F401
+    Actor, ActorDiscovery, ActorMessage, get_public_methods,
+    get_remote_proxy,
+)
+from .registrar import Registrar                            # noqa: E402,F401
+from .process_manager import ProcessManager, RestartPolicy  # noqa: E402,F401
+from .lifecycle import (                                    # noqa: E402,F401
+    LifeCycleClient, LifeCycleManager,
+)
 from .autoscaler import Autoscaler, ScalePolicy             # noqa: E402,F401
 from .placement import (                                    # noqa: E402,F401
     DevicePool, DeviceSlice, PlacementManager,
 )
+from .recorder import Recorder                              # noqa: E402,F401
+from .compute import ComputeRuntime                         # noqa: E402,F401
+from .storage import (                                      # noqa: E402,F401
+    ResponseCollector, Storage, do_command, do_request,
+)
+from .transport import (                                    # noqa: E402,F401
+    ChaosBroker, ChaosMessage, FaultPlan, FaultRule, MemoryBroker,
+    MemoryMessage, Message, MQTT_AVAILABLE, default_broker, topic_matches,
+)
 
-__all__ += ["Autoscaler", "ScalePolicy", "DevicePool", "DeviceSlice",
-            "PlacementManager"]
+__all__ += [
+    "__version__", "utils", "event", "Connection", "ConnectionState",
+    "EventEngine", "RealClock", "VirtualClock", "Lease", "ProcessRuntime",
+    "Service", "ServiceFields", "ServiceFilter", "ServiceProtocol",
+    "ServiceTags", "ServiceTopicPath", "Services", "StateMachine",
+    "StateMachineError", "ECConsumer", "ECProducer", "ServicesCache",
+    "Actor", "ActorDiscovery", "ActorMessage", "get_public_methods",
+    "get_remote_proxy", "Registrar", "ProcessManager", "RestartPolicy",
+    "LifeCycleClient", "LifeCycleManager", "Autoscaler", "ScalePolicy",
+    "DevicePool", "DeviceSlice", "PlacementManager", "Recorder",
+    "ComputeRuntime", "ResponseCollector", "Storage", "do_command",
+    "do_request", "ChaosBroker", "ChaosMessage", "FaultPlan", "FaultRule",
+    "MemoryBroker", "MemoryMessage", "Message", "MQTT_AVAILABLE",
+    "default_broker", "topic_matches",
+]

@@ -4,7 +4,12 @@
 # The port's own copy of aiko_services_tpu/elements/common.py.
 # PE_DataEncode / PE_DataDecode move a tensor over a TEXT transport (one
 # that cannot carry the binary wire envelope): base64 of the npy bytes,
-# the same string the JAX package writes for equal values.
+# the same string the JAX package writes for equal values.  Each codes
+# the one input its definition declares, "data" unless it declares
+# another name, and emits it under its one declared output (the JAX
+# elements read "data" whatever the definition says, so
+# examples/pipeline/pipeline_remote.json, which declares "number",
+# fails its first frame there: ROADMAP Queue 3 item 17).
 
 from __future__ import annotations
 
@@ -106,30 +111,47 @@ class PE_4(PipelineElement):
         return FrameOutput(True, {"d": b + c})
 
 
+def _coded_names(element) -> tuple[str, str]:
+    """(input, output) a codec element reads and writes: its one
+    declared input and output, "data" where it declares none or several
+    (or has no definition: an element called outside a pipeline)."""
+    definition = getattr(element, "definition", None)
+    inputs = definition.input_names if definition is not None else []
+    outputs = definition.output_names if definition is not None else []
+    source = inputs[0] if len(inputs) == 1 else "data"
+    return source, outputs[0] if len(outputs) == 1 else source
+
+
 class PE_DataEncode(PipelineElement):
     """Tensor egress: ndarray / torch tensor → base64(npy) string for
     transport over the control plane (reference:
     pipeline_elements.py:147-160).  A tensor on the card takes one host
     copy here; a dtype numpy cannot save (bfloat16) fails the frame."""
 
-    def process_frame(self, frame: Frame, data=None, **_) -> FrameOutput:
+    def process_frame(self, frame: Frame, data=None, **inputs) -> FrameOutput:
         import numpy as np
         import torch
+        source, target = _coded_names(self)
+        if source != "data":
+            data = inputs.get(source)
         array = data.detach().cpu().numpy() \
             if isinstance(data, torch.Tensor) else np.asarray(data)
         buffer = io.BytesIO()
         np.save(buffer, array, allow_pickle=False)
         encoded = base64.b64encode(buffer.getvalue()).decode("ascii")
-        return FrameOutput(True, {"data": encoded})
+        return FrameOutput(True, {target: encoded})
 
 
 class PE_DataDecode(PipelineElement):
     """Tensor ingress: base64(npy) string → ndarray
     (reference: pipeline_elements.py:162-175)."""
 
-    def process_frame(self, frame: Frame, data=None, **_) -> FrameOutput:
+    def process_frame(self, frame: Frame, data=None, **inputs) -> FrameOutput:
         import numpy as np
+        source, target = _coded_names(self)
+        if source != "data":
+            data = inputs.get(source)
         if isinstance(data, str):
             buffer = io.BytesIO(base64.b64decode(data.encode("ascii")))
             data = np.load(buffer, allow_pickle=False)
-        return FrameOutput(True, {"data": data})
+        return FrameOutput(True, {target: data})

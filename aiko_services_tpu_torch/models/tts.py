@@ -23,6 +23,10 @@
 # regulates and synthesizes the same frames (Griffin-Lim and the
 # vocoder run whole on every rank).  With mesh=None, or a one-rank
 # model axis, the path is the unsharded one.
+#
+# predict_durations and tts_forward are differentiable, as JAX's are
+# (the golden trainers, tests/torch_golden.py, take gradients through
+# them); they build no graph unless a parameter requires grad.
 
 from __future__ import annotations
 
@@ -160,7 +164,6 @@ def _durations_from_hidden(params, config: TTSConfig, tokens, hidden):
                               torch.zeros_like(log_d))
 
 
-@torch.no_grad()
 def predict_durations(params, config: TTSConfig, tokens, mesh=None):
     """tokens [B, S] → (log-durations, durations)."""
     hidden = _encode(params, config, tokens, mesh)
@@ -181,7 +184,6 @@ def regulate(hidden, durations, max_frames: int):
     return torch.matmul(owner, hidden), ends[:, -1]
 
 
-@torch.no_grad()
 def tts_forward(params, config: TTSConfig, tokens, durations=None,
                 mesh=None):
     """tokens: [B, S] int (pad with 0) → (log-mel [B, max_frames,

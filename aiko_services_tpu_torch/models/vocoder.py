@@ -16,7 +16,8 @@
 # reciprocal.  At 1024 frames the bank is 163,840 samples long, where one
 # ulp of an angle is ~0.016 rad, so a true division would move sin and
 # cos by ~1%.  In f32 the convolutions run with cuDNN's TF32 off
-# (resnet.exact_f32).
+# (resnet.exact_f32).  vocoder_forward is differentiable, as JAX's is
+# (tests/torch_golden.py trains through it).
 
 from __future__ import annotations
 
@@ -150,7 +151,6 @@ def oscillator_bank(length: int, config: VocoderConfig, freqs):
                      dim=-1).to(config.dtype)
 
 
-@torch.no_grad()
 def vocoder_forward(params, config: VocoderConfig, mel):
     """log-mel [B, T, n_mels] → waveform [B, T * hop] in [-1, 1]."""
     with exact_f32(config.dtype):

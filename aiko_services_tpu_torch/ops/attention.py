@@ -31,6 +31,11 @@ FLASH_MIN_SEQ = 1024
 dispatch_stats = {"flash": 0, "xla": 0}
 # kernel launches, counted by each wrapper where it launches its kernel
 launches = {"flash_attention": 0, "cross_decode_attention": 0}
+# the cross-decode kernel's bf16 output against its plain version in f32
+# (chip_smoke.py's model of the error): elementwise
+# |kernel - plain| <= u |plain| + c (plain on |v|), and a relative-L2
+# limit; the kernel keeps f32 throughout, so c covers f32 sums
+CROSS_TOLERANCE = (2 ** -8, 2 ** -12, 0.004)     # (u, c, relative L2)
 
 # the kernels are built for head dim 64, that of every Whisper size
 _KERNEL_HEAD_DIM = 64

@@ -5,7 +5,7 @@
 from .chaos import (                                        # noqa: F401
     ChaosBroker, ChaosMessage, FaultPlan, FaultRule,
 )
-from .memory import MemoryBroker, MemoryMessage              # noqa: F401
+from .memory import MemoryBroker, MemoryMessage, default_broker  # noqa: F401
 from .message import Message, topic_matches                  # noqa: F401
 from .mqtt import MQTT_AVAILABLE, MQTTMessage                # noqa: F401
 from .peer import (                                         # noqa: F401

@@ -229,16 +229,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
   27. agent_tiered_f32: the same at 2 layers in f32: every turn against
      llama_greedy_decode on its whole history;
   28. llama_wq: the llama phase's traffic and decoder with weight_quant,
-     then with fuse_projections: tokens/s, parameter bytes (JAX's rule),
-     peak memory, 16 x 326 paged launches each; both at 2 layers in f32
+     then with fuse_projections, at LLAMA_CUT_LAYERS (8) of Llama-1B's
+     16 layers since PR 25: tokens/s, parameter bytes (JAX's rule),
+     peak memory, 8 x 326 paged launches each; both at 2 layers in f32
      on the card against the same decoder on the CPU;
   29. llama_select: the dense decoder in the select KV write
-     (AIKO_DECODE_KV=select): the llama traffic at full width with the
-     two_pass inner loop (tokens/s, no paged launch); at 2 layers in
+     (AIKO_DECODE_KV=select): the llama traffic at full width (8 of 16
+     layers since PR 25) with the two_pass inner loop (tokens/s, no paged launch); at 2 layers in
      f32, two_pass, online and vpu each against llama_greedy_decode and
      the block write;
   30. decoder_chaos: ChaosDecoder around the prefix-cached paged
-     Llama-1B decoder (bf16, prefill chunks of 128): a preemption, a
+     Llama-1B decoder (bf16, prefill chunks of 128, LLAMA_CUT_LAYERS of
+     its 16 layers since PR 25): a preemption, a
      pool-growth refusal and a hung scan, each drained with a deadline
      of 0, checkpointed and resumed from prompt + generated: every
      request completes with its budget, CHAOS_EVACUATED evacuations and
@@ -350,6 +352,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
      widths cut to 4 of its 16 layers, with a 0.2 s window (its burst timer never fires: the transfers are
      the warm-up's), the probe bit-identical, its decoders dense as the
      script builds them (no paged launch).  Counts: OPERATOR_SCRIPTS.
+  35k. golden: the golden trained speech models (tests/torch_golden.py,
+     reached through sys.path, the recipes of tests/test_speech_golden.py
+     and tests/test_tts.py): the tone-language Whisper and TTS trained on
+     the card in f32, saved as flat npz files and served in bf16 through
+     the port's pipeline (PE_AudioReadFile → PE_LogMel → PE_WhisperASR):
+     the known wavs give "charlie alpha" and "bravo", the fused mu-law
+     frontend and int8 cross-KV "charlie alpha" (stripped, as JAX's
+     gates strip); PE_NeuralTTS speaks each word's tone (dominant
+     frequency within 60 Hz, 2,400-8,000 samples).  The training s/step,
+     steps taken and final losses, each served text's tokens and the
+     f32 model's smallest top-2 logit gap along its greedy tokens; no
+     attention launch (head dim 16, bucket 100: under FLASH_MIN_SEQ, in
+     JAX too).  GOLDEN holds the recipe's texts;
+  35l. examples: the repo's Python examples' port runners
+     (aiko_services_tpu_torch/examples/) through their main() with
+     --self-test, host only, on the real clock: aloha_honua, xgo_robot and
+     robot_control print what the JAX scripts print (EXAMPLE_LINES); no
+     attention launch.
   36. grad_guard: each of the three kernel wrappers raises on a CUDA
      operand that requires grad (the kernels have no backward) and
      launches nothing doing so.
@@ -423,6 +443,7 @@ import warnings
 
 import torch
 
+from aiko_services_tpu_torch.ops.attention import CROSS_TOLERANCE
 from aiko_services_tpu_torch.ops.paged_attention import (
     SPLIT_PATH as PAGED_SPLIT_PATH, TENSOR_PATH as PAGED_TENSOR_PATH,
     TOLERANCE as PAGED_TOLERANCE)
@@ -457,7 +478,7 @@ PEAK_BYTES_PER_S = 3.35e12
 BF16_U = 2 ** -8
 KERNEL_TOLERANCE = {          # kernel: (u, c, relative L2 limit)
     "flash_attention": (BF16_U, 2 ** -8, 0.008),
-    "cross_decode_attention": (BF16_U, 2 ** -12, 0.004),
+    "cross_decode_attention": CROSS_TOLERANCE,
     "paged_decode_attention": (0.0, *PAGED_TOLERANCE[PAGED_SPLIT_PATH]),
     "paged_decode_attention_tensor_cores": (
         0.0, *PAGED_TOLERANCE[PAGED_TENSOR_PATH]),
@@ -509,8 +530,10 @@ PEER_CHAOS_FLASH = 36
 EARLIER_COUNTS = {"slice": 12, "pipeline": 24, "remote_pipeline": 24,
                   "peer_pipeline": 24, "peer_chaos": PEER_CHAOS_FLASH,
                   "llama": 5216, "int8_fold": 1920, "int8_dequant": 192,
-                  "agent_tiered": 16 * (112 + 5), "llama_wq": 2 * 5216,
-                  "decoder_chaos": 16 * (414 + 6),
+                  "agent_tiered": 16 * (112 + 5),
+                  # llama_wq and decoder_chaos at 8 of 16 layers since
+                  # PR 25 (LLAMA_CUT_LAYERS; the script's time)
+                  "llama_wq": 2 * 8 * 326, "decoder_chaos": 8 * (414 + 6),
                   "disagg_probe": 16 * (16 + 4) + 16 * (16 + 1 + 4),
                   "disagg_variants": 3 * 16 * (16 + 1 + 4),
                   "agent_disagg": 16 * (128 + 9 + 9),
@@ -525,7 +548,10 @@ EARLIER_COUNTS = {"slice": 12, "pipeline": 24, "remote_pipeline": 24,
                   "ops": 16 * 160,
                   # the pipeline's drive on a one-rank model mesh: the
                   # pipeline phase's 2 bucket-3072 batches
-                  "asr_mesh": 24}
+                  "asr_mesh": 24,
+                  # the golden models (head dim 16, bucket 100) and the
+                  # host-only examples launch no attention kernel
+                  "golden": 0, "examples": 0}
 # peer_chaos: the caller's channel drops a fifth of its request
 # envelopes, the server's delays half of its replies by 0.2 s; a hop
 # whose 3 s lease expires is sent again, up to 4 times.  Each side's
@@ -5944,9 +5970,10 @@ def card_against_cpu(options: dict, seed: int, label: str,
 
 def phase_llama_wq() -> dict:
     """The llama phase's traffic through its paged decoder with
-    weight_quant, then with fuse_projections (bf16, full width): every
-    request completes, the paged kernel launches 16 x LLAMA_WQ_STEPS
-    each; tokens/s, the decoder's parameter bytes (JAX's _param_bytes
+    weight_quant, then with fuse_projections (bf16, full width at
+    LLAMA_CUT_LAYERS of Llama-1B's 16 layers since PR 25: the script's
+    time): every request completes, the paged kernel launches
+    LLAMA_CUT_LAYERS x LLAMA_WQ_STEPS each; tokens/s, the decoder's parameter bytes (JAX's _param_bytes
     rule: every weight but the embedding, the fused copy once), peak
     memory.  Then both at 2 layers in f32 on the card against the CPU.
     Returns the decode launches of both runs."""
@@ -5957,7 +5984,8 @@ def phase_llama_wq() -> dict:
     from aiko_services_tpu_torch.serving import ContinuousDecoder
 
     config = dataclasses.replace(LLAMA_PRESETS["1b"], dtype=torch.bfloat16,
-                                 max_seq_len=1024)
+                                 max_seq_len=1024,
+                                 num_layers=LLAMA_CUT_LAYERS)
     check_1b(config)
     params = llama_init(torch.Generator(device="cuda").manual_seed(0),
                         config)
@@ -6011,8 +6039,9 @@ def phase_llama_wq() -> dict:
 
 def phase_llama_select() -> dict:
     """The dense decoder in the select KV write (AIKO_DECODE_KV=select):
-    the llama phase's traffic at full width in bf16 with the two_pass
-    inner loop (tokens/s, no paged launch); then, at 2 layers in f32,
+    the llama phase's traffic at full width in bf16 (LLAMA_CUT_LAYERS of
+    the 16 layers since PR 25) with the two_pass inner loop (tokens/s,
+    no paged launch); then, at 2 layers in f32,
     each inner loop (two_pass, online, vpu) and the block write against
     llama_greedy_decode, and each select run against the block run."""
     import numpy as np
@@ -6025,7 +6054,8 @@ def phase_llama_select() -> dict:
                                                   "AIKO_DECODE_ATTENTION")}
     try:
         config = dataclasses.replace(LLAMA_PRESETS["1b"],
-                                     dtype=torch.bfloat16, max_seq_len=1024)
+                                     dtype=torch.bfloat16, max_seq_len=1024,
+                                     num_layers=LLAMA_CUT_LAYERS)
         check_1b(config)
         params = llama_init(torch.Generator(device="cuda").manual_seed(0),
                             config)
@@ -6234,7 +6264,7 @@ def chaos_drive(config, params, device, traffic: list, later: list,
 
 def phase_decoder_chaos() -> dict:
     """ChaosDecoder around the prefix-cached paged Llama-1B decoder
-    (bf16): preemption, pool-growth refusal and a hung scan, each drained
+    (bf16, LLAMA_CUT_LAYERS of its 16 layers since PR 25): preemption, pool-growth refusal and a hung scan, each drained
     with a checkpoint and resumed (chaos_drive).  Every request completes
     with its budget, the evacuated and checkpointed counts are the
     rehearsal's, the flight recorder holds one record per injected fault,
@@ -6250,7 +6280,8 @@ def phase_decoder_chaos() -> dict:
     from aiko_services_tpu_torch.ops import paged_attention as P
 
     config = dataclasses.replace(LLAMA_PRESETS["1b"], dtype=torch.bfloat16,
-                                 max_seq_len=1024)
+                                 max_seq_len=1024,
+                                 num_layers=LLAMA_CUT_LAYERS)
     check_1b(config)
     params = llama_init(torch.Generator(device="cuda").manual_seed(0),
                         config)
@@ -7988,6 +8019,200 @@ def phase_operator_scripts() -> int:
     return soak_launches + migrate_launches + disagg_launches
 
 
+# golden: the tone language's served texts, the TTS words' tones (Hz)
+# and the limits of tests/test_tts.py's tone gate
+GOLDEN = {"texts": {"s0": ["charlie", "alpha"], "s1": ["bravo"]},
+          "tones": {"alpha": 330.0, "bravo": 550.0, "charlie": 770.0},
+          "tone_hz": 60.0, "samples": (2400, 8000), "gl_iters": 24}
+# examples: each runner's --self-test line, as the JAX script prints it
+EXAMPLE_LINES = {
+    "aloha_honua": ["Aloha Pele!", "self-test ok: 1 greeting(s)"],
+    "xgo_robot": ["self-test ok: pose.x=25.0 claw=128 3 video frames "
+                  "(120, 160, 3)"],
+    "robot_control": ["self-test ok: drove robot to pose.x=10.0, claw=255, "
+                      "3 frames, ascii 20 rows"],
+}
+
+
+def golden_recipes():
+    """tests/torch_golden.py, from the tests folder beside this script."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_golden
+    return torch_golden
+
+
+def golden_serve(golden, device, weights: str, wavs: dict, streams,
+                 **parameters) -> dict:
+    """Each stream's wav through the golden ASR pipeline on `device`
+    (PE_LogMel on the same device): {stream: (text, tokens)}."""
+    import numpy as np
+
+    from aiko_services_tpu_torch.pipeline import (Pipeline,
+                                                  parse_pipeline_definition)
+
+    frontend = parameters.pop("frontend", "mel")
+    definition = golden.asr_definition(weights, frontend, **parameters)
+    definition["parameters"]["PE_LogMel.device"] = \
+        "cpu" if str(device) == "cpu" else "default"
+    runtime, compute = host_runtime(device)
+    pipeline = Pipeline(runtime, parse_pipeline_definition(definition),
+                        stream_lease_time=0)
+    done = []
+    pipeline.add_frame_handler(done.append)
+    for sid in streams:
+        pipeline.create_stream(sid, lease_time=0, parameters={
+            "PE_AudioReadFile.pathname": wavs[sid]})
+        pipeline.post("process_frame", sid, {})
+    engine = runtime.event
+    for _ in range(400):
+        if len(done) == len(streams):
+            break
+        engine.clock.advance(0.01)
+        engine.step()
+    if len(done) != len(streams) or pipeline.recovery_stats["frames_failed"]:
+        raise AssertionError(f"golden {frontend} {parameters}: "
+                             f"{len(done)} of {len(streams)} frames, "
+                             f"{pipeline.recovery_stats}")
+    served = {f.stream_id: (f.swag["text"],
+                            np.asarray(f.swag["tokens"]).tolist())
+              for f in done}
+    stop_pipeline(runtime, compute, pipeline)
+    return served
+
+
+def golden_margin(golden, params, device, words) -> float:
+    """The trained f32 model's smallest top-2 logit gap along its own
+    greedy tokens for the utterance, teacher-forced on the host-mel
+    input (zero-padded to the bucket, as the element collates)."""
+    import numpy as np
+
+    from aiko_services_tpu_torch.models.whisper import (
+        forward, greedy_decode_scored)
+
+    config = golden.whisper_config()
+    mel = golden.log_mel(golden.utterance(words), device)
+    buffer = np.zeros((golden.BUCKET, config.n_mels), np.float32)
+    buffer[:min(mel.shape[0], golden.BUCKET)] = mel[:golden.BUCKET]
+    mel = torch.from_numpy(buffer[None]).to(device)
+    tokens, lengths, _ = greedy_decode_scored(params, config, mel,
+                                              max_tokens=golden.MAX_TOKENS)
+    emitted = tokens[0, :int(lengths[0]) + 1].long()    # through the eot
+    prefix = torch.cat([torch.tensor([config.sot], device=device),
+                        emitted[:-1]])[None]
+    with torch.no_grad():
+        logits = forward(params, config, mel, prefix)[0].float()
+    top = torch.topk(logits, 2, dim=-1).values
+    return float((top[:, 0] - top[:, 1]).min())
+
+
+def phase_golden(device=None) -> int:
+    """The golden trained speech models on the card (35k).  Returns the
+    attention launches of the phase's drives."""
+    import numpy as np
+
+    from aiko_services_tpu_torch import resolve_device
+    from aiko_services_tpu_torch.bridge import save_flat_npz
+    from aiko_services_tpu_torch.elements.speech import save_wav
+    from aiko_services_tpu_torch.pipeline import (Pipeline,
+                                                  parse_pipeline_definition)
+
+    device = resolve_device(device)
+    golden = golden_recipes()
+    zero_attention_counts()
+    start = time.perf_counter()
+    asr_stats, tts_stats = {}, {}
+    asr = golden.train_whisper(device, stats=asr_stats)
+    tts = golden.train_tts(device=device, stats=tts_stats)
+    margins = {sid: golden_margin(golden, asr, device, words)
+               for sid, words in GOLDEN["texts"].items()}
+    want = {sid: " ".join(words) for sid, words in GOLDEN["texts"].items()}
+    with tempfile.TemporaryDirectory() as directory:
+        weights = os.path.join(directory, "asr.npz")
+        save_flat_npz(asr, weights)
+        tts_weights = os.path.join(directory, "tts.npz")
+        save_flat_npz(tts, tts_weights)
+        wavs = {}
+        for sid, words in GOLDEN["texts"].items():
+            wavs[sid] = os.path.join(directory, f"{sid}.wav")
+            save_wav(wavs[sid], golden.utterance(words))
+        served = {
+            "host_mel": golden_serve(golden, device, weights, wavs,
+                                     ("s0", "s1")),
+            "mulaw": golden_serve(golden, device, weights, wavs, ("s0",),
+                                  frontend="mulaw"),
+            "kv_quant": golden_serve(golden, device, weights, wavs,
+                                     ("s0",), kv_quant=True)}
+        wrong = {path: {sid: text for sid, (text, _) in texts.items()
+                        if (text if path == "host_mel" else text.strip())
+                        != want[sid]}
+                 for path, texts in served.items()}
+
+        runtime, compute = host_runtime(device)
+        pipeline = Pipeline(runtime, parse_pipeline_definition(
+            golden.tts_definition(tts_weights, GOLDEN["gl_iters"])),
+            stream_lease_time=0)
+        pipeline.create_stream("t0", lease_time=0)
+        tones = {}
+        for word, freq in GOLDEN["tones"].items():
+            ok, swag = pipeline.process_frame("t0", {"text": word})
+            audio = np.asarray(swag["audio"]) if ok else np.zeros(0)
+            measured = golden.dominant_frequency(audio) if audio.size \
+                else 0.0
+            tones[word] = {"samples": int(audio.size), "hz": measured,
+                           "ok": bool(ok) and
+                           abs(measured - freq) < GOLDEN["tone_hz"] and
+                           GOLDEN["samples"][0] <= audio.size <=
+                           GOLDEN["samples"][1]}
+        stop_pipeline(runtime, compute, pipeline)
+    launches = sum(attention_counts().values())
+    emit({"phase": "golden", "device": str(device),
+          "whisper_train": {**asr_stats, "s_per_step":
+                            asr_stats["seconds"] / asr_stats["steps"]},
+          "tts_train": {**tts_stats, "s_per_step":
+                        tts_stats["seconds"] / tts_stats["steps"]},
+          "served": served, "wrong": wrong, "f32_top2_gap_min": margins,
+          "tones": tones, "attention_launches": launches,
+          "seconds": time.perf_counter() - start})
+    failed = {path: texts for path, texts in wrong.items() if texts}
+    if failed or not all(t["ok"] for t in tones.values()) or launches:
+        raise AssertionError(f"golden: texts {failed}, tones {tones}, "
+                             f"{launches} attention launches")
+    return launches
+
+
+def phase_examples() -> int:
+    """The examples' runners' self-tests through main() (35l).  Returns
+    the attention launches of the drives."""
+    import io
+    from contextlib import redirect_stdout
+
+    from aiko_services_tpu_torch.examples.aloha_honua import aloha_honua
+    from aiko_services_tpu_torch.examples.xgo_robot import (robot_control,
+                                                            xgo_robot)
+
+    zero_attention_counts()
+    lines, seconds = {}, {}
+    for name, module in (("aloha_honua", aloha_honua),
+                         ("xgo_robot", xgo_robot),
+                         ("robot_control", robot_control)):
+        out = io.StringIO()
+        start = time.perf_counter()
+        with redirect_stdout(out):
+            module.main(["--self-test"])
+        seconds[name] = time.perf_counter() - start
+        lines[name] = out.getvalue().splitlines()
+    launches = sum(attention_counts().values())
+    emit({"phase": "examples", "lines": lines, "seconds": seconds,
+          "attention_launches": launches})
+    if lines != EXAMPLE_LINES or launches:
+        raise AssertionError(f"examples: {lines} != {EXAMPLE_LINES}, "
+                             f"{launches} attention launches")
+    return launches
+
+
 def phase_grad_guard() -> dict:
     """Each kernel wrapper raises on a CUDA operand that requires grad
     (the kernels have no backward), and launches nothing doing so."""
@@ -9040,6 +9265,8 @@ def main() -> int:
                                               pipeline_tokens)
     elements_mesh = phase_elements_mesh()
     operator_scripts = phase_operator_scripts()
+    golden = phase_golden()
+    examples = phase_examples()
     earlier = {phase: phase_counts[phase]["flash_attention"] for phase in
                ("slice", "pipeline", "remote_pipeline", "peer_pipeline",
                 "peer_chaos", "asr_mesh")}
@@ -9059,6 +9286,7 @@ def main() -> int:
                     "agent_migrate_mesh": sum(migrate_mesh.values()),
                     "elements_mesh": elements_mesh,
                     "operator_scripts": operator_scripts,
+                    "golden": golden, "examples": examples,
                     "ops": ops,
                     "agent_8b": agent_8b["decode"] + agent_8b["extend"]})
     if earlier != EARLIER_COUNTS:

@@ -269,8 +269,55 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "analysis/graph_check.py", "analysis/lint.py",
             "analysis/callgraph.py", "analysis/effects.py",
             "analysis/drift.py", "analysis/baseline.py", "analysis/cli.py",
-            "native/__init__.py"} <= names
+            "native/__init__.py", "tools/convert_llama.py",
+            "tools/convert_whisper.py", "tools/diag_membw.py",
+            "tools/diag_attn_patterns.py", "tools/diag_whisper_tail.py",
+            "tools/measure_reference_baseline.py",
+            "tools/train_vocoder_scale.py", "examples/__init__.py",
+            "examples/aloha_honua/aloha_honua.py",
+            "examples/xgo_robot/xgo_robot.py",
+            "examples/xgo_robot/robot_control.py",
+            "examples/pipeline/video_to_images.py",
+            "examples/pipeline/images_to_video.py"} <= names
     assert len(sources) >= 70
+
+
+def test_the_golden_recipes_and_the_chip_script_import_no_jax():
+    """tests/torch_golden.py (reached by chip_smoke.py and the vocoder
+    sweep on the card, where there is no JAX) and chip_smoke.py import
+    neither jax nor the JAX package."""
+    root = PACKAGE.parent
+    for path in (root / "tests" / "torch_golden.py", root / "chip_smoke.py"):
+        jax_names, _ = _audit_imports(path.read_text(), str(path))
+        assert not jax_names, (path.name, jax_names)
+
+
+def test_the_package_exports_the_jax_packages_public_names():
+    """Every name aiko_services_tpu/__init__.py imports is exported by
+    the port's package, and is the port's own object (defined in a port
+    module, or the port's own module), never the JAX package's."""
+    import types
+
+    source = (PACKAGE.parent / "aiko_services_tpu" / "__init__.py")
+    names = {"__version__"}
+    for node in ast.parse(source.read_text()).body:
+        if isinstance(node, ast.ImportFrom):
+            names |= {alias.asname or alias.name for alias in node.names}
+    assert {"Actor", "ProcessRuntime", "Registrar", "topic_matches",
+            "default_broker", "ComputeRuntime", "Lease"} <= names
+    for name in sorted(names):
+        value = getattr(port, name)
+        assert name in port.__all__, name
+        if isinstance(value, types.ModuleType):
+            owner = value.__name__
+        elif isinstance(value, (str, bool)):
+            continue
+        else:
+            owner = value.__module__
+        assert owner.split(".")[0] == "aiko_services_tpu_torch", \
+            (name, owner)
+    import aiko_services_tpu
+    assert port.__version__ == aiko_services_tpu.__version__
 
 
 def test_importing_every_module_loads_no_jax_click_or_paho():

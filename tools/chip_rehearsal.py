@@ -7,6 +7,7 @@ counts a chip run must show.
     python tools/chip_rehearsal.py migrate            # agent_migrate, then
                                                       # agent_migrate_mesh
     python tools/chip_rehearsal.py operator_scripts   # the operator scripts
+    python tools/chip_rehearsal.py llama_wq decoder_chaos   # at 8 layers
 
 Every device resolves to the CPU (each port module's resolve_device, a
 TorchFunctionMode rewriting device="cuda" and pinned allocations,
@@ -135,6 +136,10 @@ def run(chip_smoke, phases) -> int:
         if "operator_scripts" in phases:
             print("operator_scripts launches",
                   chip_smoke.phase_operator_scripts())
+        if "llama_wq" in phases:
+            print("llama_wq launches", chip_smoke.phase_llama_wq())
+        if "decoder_chaos" in phases:
+            print("decoder_chaos launches", chip_smoke.phase_decoder_chaos())
         if "disagg" in phases or "modes" in phases:
             counts, tokens = chip_smoke.phase_agent_disagg()
             print("agent_disagg launches", counts)
