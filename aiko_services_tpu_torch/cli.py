@@ -10,6 +10,12 @@
 #   python -m aiko_services_tpu_torch storage | recorder | dashboard
 #   python -m aiko_services_tpu_torch system start|stop|status|reset
 #
+# Installed, the same commands are the console names aiko_tpu_torch
+# (main), aiko_tpu_torch_registrar (registrar_main) and
+# aiko_tpu_torch_dashboard (dashboard_main), beside the JAX package's
+# aiko_tpu names; scripts/system_{start,stop,reset}_torch.sh wrap
+# `system`.
+#
 # The JAX CLI is built on click, which the card's machine lacks.  Errors
 # print as "Error: ..." on stderr and exit 1, as click's do.
 #
@@ -26,8 +32,8 @@ import os
 import re
 import sys
 
-__all__ = ["main", "CliError", "parse_element_flags", "parse_mesh_spec",
-           "build_pipeline"]
+__all__ = ["main", "registrar_main", "dashboard_main", "CliError",
+           "parse_element_flags", "parse_mesh_spec", "build_pipeline"]
 
 _DEFAULT_STATE_FILE = "~/.aiko_tpu_system.json"
 _CHILD_MODULE = "aiko_services_tpu_torch"
@@ -582,6 +588,20 @@ def main(argv=None) -> int:
         sys.stderr.write(f"Error: {exc}\n")
         return 1
     return 0
+
+
+def registrar_main(argv=None) -> int:
+    """Console entry of `registrar` (the JAX package's
+    aiko_tpu_registrar): parses its own `argv` (default:
+    sys.argv[1:]), e.g. ["--transport", "mqtt"]."""
+    return main(["registrar", *(sys.argv[1:] if argv is None else argv)])
+
+
+def dashboard_main(argv=None) -> int:
+    """Console entry of `dashboard` (the JAX package's
+    aiko_tpu_dashboard): parses its own `argv` (default:
+    sys.argv[1:])."""
+    return main(["dashboard", *(sys.argv[1:] if argv is None else argv)])
 
 
 if __name__ == "__main__":

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..bridge import load_flat_npz, save_flat_npz          # noqa: F401
 from ..compute import resolve_pipelined
 from ..ops.audio import (WHISPER_HOP, log_mel_spectrogram, mel_i8_unpack,
                          mulaw_decode, mulaw_encode)
@@ -43,6 +44,7 @@ __all__ = [
     "PE_AudioFraming", "PE_LogMel", "PE_WhisperASR", "PE_Synthesize",
     "PE_AudioReadFile", "PE_AudioWriteFile", "load_wav", "save_wav",
     "compression_ratio", "collate_audio", "collate_mel",
+    "load_flat_npz", "save_flat_npz",
 ]
 
 SAMPLE_RATE = 16000         # voice rate (reference: audio_io.py:224-228)
@@ -226,7 +228,6 @@ class PE_WhisperASR(PipelineElement):
     def _setup(self) -> None:
         if self._setup_done:
             return
-        from ..bridge import load_flat_npz
         from ..models.whisper import (
             WHISPER_PRESETS, WhisperConfig, greedy_decode_scored,
             sot_sequence_for, whisper_axes, whisper_init)

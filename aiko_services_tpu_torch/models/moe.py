@@ -39,10 +39,11 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from .. import torch_dtype
+from .. import resolve_device, torch_dtype
 from . import layers as L
 
-__all__ = ["MoeConfig", "MoE", "moe_axes", "moe_forward", "drop_counts"]
+__all__ = ["MoeConfig", "MoE", "moe_init", "moe_axes", "moe_forward",
+           "drop_counts"]
 
 # when a list, each moe_forward call appends its count of dropped
 # assignments as a device tensor (no host wait); None records nothing
@@ -80,6 +81,19 @@ class MoE(L.Params):
         L._normal_(self.w_in, generator, 1.0 / math.sqrt(self.w_in.shape[1]))
         L._normal_(self.w_out, generator,
                    1.0 / math.sqrt(self.w_out.shape[1]))
+
+
+@torch.no_grad()
+def moe_init(generator: torch.Generator, config: MoeConfig,
+             device=None) -> MoE:
+    """An MoE FFN with random weights drawn from `generator` (the JAX
+    package's distributions; its numbers differ, as torch and jax random
+    streams do).  device=None means the CUDA card."""
+    moe = MoE(config, device=resolve_device(device))
+    for module in moe.modules():
+        if hasattr(module, "init_"):
+            module.init_(generator)
+    return moe
 
 
 def moe_axes():

@@ -40,7 +40,8 @@ from . import layers as L
 __all__ = ["WhisperConfig", "Whisper", "whisper_init", "whisper_axes",
            "local_heads", "encode",
            "precompute_cross_kv", "init_caches", "decode_step",
-           "greedy_decode_scored", "greedy_decode_from_audio", "forward",
+           "greedy_decode", "greedy_decode_scored",
+           "greedy_decode_from_audio", "forward",
            "WHISPER_PRESETS", "sot_sequence_for", "parse_timestamp_segments",
            "LANGUAGES"]
 
@@ -364,6 +365,18 @@ def decode_step(params, config: WhisperConfig, tokens, cross_kv, caches,
         logits = mask_vocab_padding(logits, "model", mesh=mesh,
                                     vocab=config.n_vocab)
     return logits, new_caches
+
+
+def greedy_decode(params, config: WhisperConfig, mel, max_tokens: int = 64,
+                  sot_sequence=None, suppress_timestamps: bool = False,
+                  kv_quant=False, mesh=None):
+    """Batched greedy decoding: mel [B, T_frames, n_mels] →
+    (tokens [B, max_tokens] int32, lengths [B] int32).  See
+    greedy_decode_scored for the scored variant."""
+    tokens, lengths, _ = greedy_decode_scored(
+        params, config, mel, max_tokens, sot_sequence,
+        suppress_timestamps, kv_quant, mesh)
+    return tokens, lengths
 
 
 def greedy_decode_scored(params, config: WhisperConfig, mel,

@@ -103,6 +103,20 @@ class Histogram:
         self.sum += value
         self.count += 1
 
+    def quantile(self, q: float) -> float:
+        """Approximate quantile from bucket counts: the upper bound of the
+        bucket holding the q-th observation (overflow reports the last
+        bound; no observations give 0.0)."""
+        if not self.count:
+            return 0.0
+        target = q * self.count
+        running = 0
+        for index, bucket_count in enumerate(self.counts):
+            running += bucket_count
+            if running >= target:
+                return self.bounds[min(index, len(self.bounds) - 1)]
+        return self.bounds[-1]
+
 
 _KINDS = {"counter": Counter, "gauge": Gauge, "histogram": Histogram,
           "sketch": Sketch}

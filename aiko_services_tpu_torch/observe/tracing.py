@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 import uuid
 from collections import deque
 from contextlib import contextmanager
@@ -225,6 +226,23 @@ class Tracer:
             entry = self._stats[name] = [0, 0.0]
         entry[0] += 1
         entry[1] += dur
+
+    @contextmanager
+    def span(self, name: str, context: TraceContext | None = None,
+             cat: str = "", proc: str = "", args: dict | None = None):
+        """Time a synchronous section; records on exit (a child span of
+        `context` when given).  Cheap no-op when disabled."""
+        if not self.enabled:
+            yield None
+            return
+        start = time.perf_counter()
+        try:
+            yield None
+        finally:
+            self.record(name, start, time.perf_counter() - start,
+                        context=context, cat=cat, proc=proc, args=args,
+                        span_id=_new_id() if context is not None
+                        else None)
 
     def stats(self) -> dict:
         """Per-span-name aggregates: {name: {count, total_s, mean_s}},

@@ -568,6 +568,13 @@ class PrefixKVCache:
             self._device = torch.device(device)
 
     @property
+    def layout(self) -> tuple | None:
+        """The bound storage layout (None before the first bind): the
+        geometry handshake the disaggregated KV transfer carries; the
+        decode side refuses a mismatch before any row lands."""
+        return self._layout
+
+    @property
     def paged(self) -> bool:
         return self._pool is not None
 

@@ -249,6 +249,16 @@ class MemoryBroker:
         with self._lock:
             return self._retained.get(topic)
 
+    def reset(self) -> None:
+        """Forget every client, subscription, retained message and
+        data-plane pattern (the counters stay)."""
+        with self._lock:
+            self._clients.clear()
+            self._exact.clear()
+            self._trie = _SubscriptionTrie()
+            self._retained.clear()
+            self._data_patterns.clear()
+
 
 _default_broker = MemoryBroker()
 _client_counter = itertools.count()

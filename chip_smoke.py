@@ -46,6 +46,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
      the int16 and mu-law wires; the launch counts of that run; one long
      request's encoder features with the kernel against the plain
      version;
+  3b. surface: the models package's greedy_decode (the re-export of
+     whisper.greedy_decode) on the card, Whisper-small at full width in
+     bf16 with seeded weights, a batch of four 25-30 s inputs at bucket
+     3072 (context 1536, the flash kernel), max_tokens 24, under a
+     Tracer.span whose time goes into a Histogram (its quantiles
+     printed beside the card's name and power limit): the flash launches
+     the CPU rehearsal predicts (SURFACE_FLASH, 12 for one encode, at
+     the flash_attention_b4 row's shape), and tokens and lengths equal
+     to greedy_decode_scored's on the same mel;
   4. profile: one steady batch per bucket under torch.profiler (device
      busy time, idle share, launches, the costliest kernels);
   4b. pipeline: examples/speech/pipeline_transcription.json on the port's
@@ -354,7 +363,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
      script builds them (no paged launch).  Counts: OPERATOR_SCRIPTS.
   35k. golden: the golden trained speech models (tests/torch_golden.py,
      reached through sys.path, the recipes of tests/test_speech_golden.py
-     and tests/test_tts.py): the tone-language Whisper and TTS trained on
+     and tests/test_tts.py, the Whisper one also on the mel the fused
+     mu-law frontend computes): the tone-language Whisper and TTS trained on
      the card in f32, saved as flat npz files and served in bf16 through
      the port's pipeline (PE_AudioReadFile → PE_LogMel → PE_WhisperASR):
      the known wavs give "charlie alpha" and "bravo", the fused mu-law
@@ -502,17 +512,19 @@ FLASH_KERNEL_LINE = "aiko_services_tpu/ops/attention.py:21"
 # bucket 3072 (context 1536) padded to the element's max_batch (8 in the
 # slice phase, the example definition's default 32 in the pipeline)
 FLASH_SHAPES = {"slice": (8, 12, 1536, 64), "pipeline": (32, 12, 1536, 64),
+                # the surface phase's greedy_decode on a batch of four
+                "surface": (4, 12, 1536, 64),
                 # a TP-2 rank's encoder attention at the pipeline's
                 # batch: 6 of Whisper-small's 12 heads.  One card serves
                 # one rank, so no phase launches it (the TP-2 ranks run
                 # as gloo CPU ranks in tier-1)
                 "tp2": (32, 6, 1536, 64)}
 FLASH_NAMES = {"slice": "flash_attention", "pipeline": "flash_attention_b32",
-               "tp2": "flash_attention_tp2"}
+               "surface": "flash_attention_b4", "tp2": "flash_attention_tp2"}
 # each phase that launches flash, and the row (FLASH_SHAPES key) whose
 # shape it must run at: the remote pipeline's server pads to the same
 # max_batch of 32 as the local pipeline
-FLASH_ROWS = {"slice": "slice", "pipeline": "pipeline",
+FLASH_ROWS = {"slice": "slice", "surface": "surface", "pipeline": "pipeline",
               "remote_pipeline": "pipeline", "peer_pipeline": "pipeline",
               "peer_chaos": "pipeline", "staged": "slice",
               "asr_mesh": "pipeline"}
@@ -520,6 +532,12 @@ FLASH_ROWS = {"slice": "slice", "pipeline": "pipeline",
 WHISPER_SMALL = (768, 12, 12, 12, 51865)
 # flash launches in peer_chaos: 12 x its bucket-3072 batches
 PEER_CHAOS_FLASH = 36
+# the surface phase: models.greedy_decode on four long inputs at bucket
+# 3072; its flash launches from the CPU rehearsal (tools/chip_rehearsal.py
+# surface): one encode, a launch per encoder layer
+SURFACE = {"seconds": (25.0, 27.0, 28.5, 30.0), "frames": 3072,
+           "max_tokens": 24, "seed": 5, "timed_calls": 3}
+SURFACE_FLASH = 12
 # the counts every earlier phase gives (flash in slice, pipeline and the
 # remote and peer phases, the paged kernel natively and its two int8
 # variants; agent_tiered's decode and extend launches, llama_wq's two
@@ -527,7 +545,8 @@ PEER_CHAOS_FLASH = 36
 # disagg_variants probes', agent_disagg's, agent_migrate's and the ops
 # phase's 16 x OPS_DECODE_STEPS, from the
 # CPU rehearsals of their drives)
-EARLIER_COUNTS = {"slice": 12, "pipeline": 24, "remote_pipeline": 24,
+EARLIER_COUNTS = {"slice": 12, "surface": SURFACE_FLASH,
+                  "pipeline": 24, "remote_pipeline": 24,
                   "peer_pipeline": 24, "peer_chaos": PEER_CHAOS_FLASH,
                   "llama": 5216, "int8_fold": 1920, "int8_dequant": 192,
                   "agent_tiered": 16 * (112 + 5),
@@ -1864,6 +1883,98 @@ def phase_slice() -> dict:
     compute.stop()
     runtime.terminate()
     return counts
+
+
+def phase_surface(smi: str) -> int:
+    """models.greedy_decode, the package's re-export, on Whisper-small at
+    bucket 3072 (3b); returns its flash launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from aiko_services_tpu_torch import models, resolve_device
+    from aiko_services_tpu_torch.models.whisper import greedy_decode_scored
+    from aiko_services_tpu_torch.observe.metrics import Histogram
+    from aiko_services_tpu_torch.observe.tracing import Tracer, new_trace
+    from aiko_services_tpu_torch.ops.audio import log_mel_spectrogram
+
+    config = dataclasses.replace(
+        models.WHISPER_PRESETS["small"], n_audio_ctx=SURFACE["frames"] // 2,
+        n_text_ctx=SURFACE["max_tokens"] + 8, dtype=torch.bfloat16)
+    if (config.dim, config.num_heads, config.enc_layers, config.dec_layers,
+            config.n_vocab) != WHISPER_SMALL:
+        raise AssertionError(f"surface: not Whisper-small: {config}")
+    device = resolve_device(None)
+    params = models.whisper_init(
+        torch.Generator(device=device).manual_seed(0), config)
+    rng = np.random.default_rng(SURFACE["seed"])
+    pcm = np.zeros((len(SURFACE["seconds"]), SURFACE["frames"] * 160),
+                   np.int16)
+    for row, seconds in enumerate(SURFACE["seconds"]):
+        audio = speech_like(rng, seconds)
+        pcm[row, :audio.shape[0]] = audio
+    with torch.inference_mode():
+        mel = log_mel_spectrogram(torch.from_numpy(pcm).to(device).float()
+                                  / 32768.0).to(config.dtype)
+    kwargs = {"max_tokens": SURFACE["max_tokens"],
+              "suppress_timestamps": True}
+    tracer = Tracer(enabled=True)
+    histogram = Histogram("surface_greedy_decode_seconds", {})
+    context = new_trace()
+    torch.cuda.synchronize()
+    # the main path's run: counts set to 0 just before, read just after
+    zero_attention_counts()
+    with flash_shapes() as shapes:
+        with tracer.span("surface.greedy_decode", context=context,
+                         cat="surface"):
+            tokens, lengths = models.greedy_decode(params, config, mel,
+                                                   **kwargs)
+            torch.cuda.synchronize()
+    counts = attention_counts()
+    flash_shape = check_flash_shapes("surface", shapes.seen)
+    # steady calls, for the histogram (their launches are not counted)
+    for _ in range(SURFACE["timed_calls"] - 1):
+        with tracer.span("surface.greedy_decode", context=context,
+                         cat="surface"):
+            models.greedy_decode(params, config, mel, **kwargs)
+            torch.cuda.synchronize()
+    spans = [span for span in tracer.spans
+             if span.name == "surface.greedy_decode"]
+    for span in spans:
+        histogram.observe(span.dur)
+    ref_tokens, ref_lengths, _ = greedy_decode_scored(params, config, mel,
+                                                      **kwargs)
+    equal = torch.equal(tokens, ref_tokens) and \
+        torch.equal(lengths, ref_lengths)
+    batch = len(SURFACE["seconds"])
+    shaped = tuple(tokens.shape) == (batch, SURFACE["max_tokens"]) and \
+        tuple(lengths.shape) == (batch,) and \
+        int(tokens.min()) >= 0 and int(tokens.max()) < config.n_vocab and \
+        0 <= int(lengths.min()) and \
+        int(lengths.max()) <= SURFACE["max_tokens"]
+    child = spans[0].parent_id == context.span_id and \
+        spans[0].trace_id == context.trace_id
+    emit({"phase": "surface", "card": smi, "batch": batch,
+          "mel_shape": list(mel.shape), "launches": counts,
+          "flash_launches_expected": SURFACE_FLASH,
+          "flash_shape": flash_shape, "tokens_equal_scored": equal,
+          "span_s": spans[0].dur,
+          "span_child_of_context": child,
+          "timed_calls": len(spans),
+          "histogram_p50_s": histogram.quantile(0.5),
+          "histogram_max_s": histogram.quantile(1.0),
+          "sample_tokens": tokens[0, :6].tolist(),
+          "lengths": lengths.tolist()})
+    if counts["flash_attention"] != SURFACE_FLASH or not equal or \
+            not shaped or not child or \
+            sum(counts.values()) != counts["flash_attention"]:
+        raise AssertionError(
+            f"surface: launches {counts} (want {SURFACE_FLASH} flash), "
+            f"tokens equal to greedy_decode_scored's {equal}, shapes "
+            f"{shaped}, span a child of its context {child}")
+    del params
+    torch.cuda.empty_cache()
+    return counts["flash_attention"]
 
 
 def phase_pipeline(mesh=None, phase: str = "pipeline") -> tuple:
@@ -9182,6 +9293,7 @@ def main() -> int:
     records = phase_kernels(device, generator)
     paged = phase_paged_kernel(generator)
     counts = phase_slice()
+    surface = phase_surface(smi)
     pipeline_counts, pipeline_tokens = phase_pipeline()
     with native_routing("remote_pipeline"):
         remote_counts, remote_tokens = phase_remote_pipeline()
@@ -9191,6 +9303,8 @@ def main() -> int:
         chaos_counts, _ = phase_peer_chaos(peer_tokens)
     phase_cli()
     phase_counts = {"slice": counts, "pipeline": pipeline_counts,
+                    "surface": {"flash_attention": surface,
+                                "cross_decode_attention": 0},
                     "remote_pipeline": remote_counts,
                     "peer_pipeline": peer_counts, "peer_chaos": chaos_counts}
     # paged launches by (variant, path): the native decoder decodes, the
@@ -9268,8 +9382,8 @@ def main() -> int:
     golden = phase_golden()
     examples = phase_examples()
     earlier = {phase: phase_counts[phase]["flash_attention"] for phase in
-               ("slice", "pipeline", "remote_pipeline", "peer_pipeline",
-                "peer_chaos", "asr_mesh")}
+               ("slice", "surface", "pipeline", "remote_pipeline",
+                "peer_pipeline", "peer_chaos", "asr_mesh")}
     earlier.update({
                     "llama": llama_launches,
                     "int8_fold":

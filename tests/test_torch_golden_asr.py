@@ -12,13 +12,15 @@ same npz through the JAX pipeline's PE_WhisperASR, both elements
 switched to f32 after setup, gives the same texts and tokens on the
 host-mel path, the fused µ-law frontend and int8 cross-KV.
 
-The fused frontend computes real mel for the silence pad, where the
-recipe trains on zero-padded mel, so its text depends on the init: on
-these weights (the port's recipe, generator seeded 0) both packages'
-fused pipelines say "alpha charlie", token for token, as JAX's own
-recipe does at PRNGKey(3).  The fused gate's text is held on the
-weights JAX's gate passes on, JAX's recipe at PRNGKey(0), in
-tests/test_torch_golden_fused.py."""
+The fused frontend computes real mel for the silence pad, where JAX's
+recipe trains on zero-padded mel only, so there the fused text depends
+on the init (ROADMAP Queue 3 item 19).  The port's recipe trains each
+text on both inputs the served model reads (zero-padded host mel, and
+the mel the fused µ-law frontend computes), so the fused µ-law gate
+holds on the port's weights too: "charlie alpha" and "bravo" in bf16
+(after .strip(), as JAX's gate strips), and JAX's tokens in f32.  The
+same gate on the weights of JAX's own recipe (PRNGKey(0)) is
+tests/test_torch_golden_fused.py's."""
 
 import dataclasses
 
@@ -146,6 +148,15 @@ def test_kv_quant_preserves_golden_transcript(golden_weights):
     assert texts["s0"][0].strip() == "charlie alpha"
 
 
+def test_fused_mulaw_frontend_transcribes_to_correct_text(golden_weights):
+    """The fused µ-law gate on the port's own weights: raw audio → µ-law
+    uint8 → the fused expand + log-mel + decode, served in bf16, gives
+    the golden texts (.strip(), as JAX's gate strips)."""
+    texts, _ = transcribe(golden_weights, frontend="mulaw")
+    assert texts["s0"][0].strip() == "charlie alpha"
+    assert texts["s1"][0].strip() == "bravo"
+
+
 @pytest.mark.parametrize("frontend, parameters", [
     ("mel", {}), ("mulaw", {}), ("mel", {"kv_quant": True})],
     ids=["host_mel", "mulaw", "kv_quant"])
@@ -162,3 +173,5 @@ def test_jax_pipeline_on_the_port_weights_gives_the_same_tokens(
     if frontend == "mel":
         assert port["s0"][0] == "charlie alpha"
         assert port["s1"][0] == "bravo"
+    else:
+        assert port["s0"][0].strip() == "charlie alpha"

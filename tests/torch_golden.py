@@ -18,8 +18,7 @@ Each trainer takes `device` (None: the card; the tests pass "cpu").
 train_whisper trains under torch's deterministic algorithms (on the card
 the embedding backward and the loss's gather backward add atomically),
 so a card trains the same Whisper in every run: the ASR gates' texts
-hang on the trained bits (the fused µ-law text on the init, ROADMAP
-Queue 3 item 19).  The TTS gate (a tone within 60 Hz) does not, and
+hang on the trained bits.  The TTS gate (a tone within 60 Hz) does not, and
 there the deterministic kernels cost ~4 s on the card, so train_tts and
 train_vocoder run the default kernels.
 This module imports neither jax nor the JAX package: chip_smoke.py and
@@ -144,6 +143,19 @@ def log_mel(wave, device) -> np.ndarray:
     return log_mel_spectrogram(audio)[0].cpu().numpy()
 
 
+def fused_mel(wave, device) -> np.ndarray:
+    """The log-mel [BUCKET, 80] the fused µ-law frontend computes for
+    `wave` (PE_WhisperASR frontend "audio", wire "mulaw"): its µ-law
+    codes padded to the bucket with the code of silence (collate_audio),
+    expanded and taken through the log-mel on `device`, as a host
+    array."""
+    from aiko_services_tpu_torch.elements.speech import collate_audio
+    from aiko_services_tpu_torch.ops.audio import (log_mel_spectrogram,
+                                                   mulaw_decode)
+    codes = collate_audio([wave], 1, BUCKET, "mulaw", torch.device(device))
+    return log_mel_spectrogram(mulaw_decode(codes))[0].cpu().numpy()
+
+
 def byte_durations(words):
     """Ground-truth per-byte durations for a word sequence: each word's
     25 tone frames split over its bytes, 5 frames per separating space,
@@ -199,7 +211,20 @@ def train_whisper(device=None, stats: dict | None = None):
     Adam steps at 2e-3, stopping under a loss of 0.004: margin for bf16
     serving).  Returns the trained module (f32, on `device`); `stats`,
     when given, receives the steps taken, the last loss and the seconds
-    the steps took."""
+    the steps took.
+
+    Departure from JAX's recipe (tests/test_speech_golden.py
+    train_whisper), which trains on zero-padded mel alone: each text is
+    a batch row twice, once as zero-padded mel (what the host-mel path
+    collates) and once as the mel the fused µ-law frontend computes
+    (fused_mel: the µ-law noise floor and the padded silence, whose
+    normalised mel is not zero).  On zero-padded mel alone the fused
+    text depended on the init (ROADMAP Queue 3 item 19).  On the float
+    mel of the silence-padded audio alone the host-mel path misread
+    ("bravo alpha" for "bravo"); beside zero-padded mel it still
+    missed the fused text on the card's model and at seed 1 on the
+    CPU ("charlie" for "charlie alpha"), where this recipe held the
+    three gates at seeds 0-8 on the CPU."""
     import time
 
     from aiko_services_tpu_torch import resolve_device
@@ -211,16 +236,21 @@ def train_whisper(device=None, stats: dict | None = None):
     tokenizer = ByteTokenizer()
     mels, inputs, targets = [], [], []
     for words in TEXTS:
-        mel = log_mel(utterance(words), device)
+        wave = utterance(words)
+        mel = log_mel(wave, device)
         buffer = np.zeros((BUCKET, 80), np.float32)
         frames = min(mel.shape[0], BUCKET)
         buffer[:frames] = mel[:frames]              # zero-pad like collate
-        mels.append(buffer)
         ids = tokenizer.encode(" ".join(words))
-        inputs.append(([config.sot] + ids +
-                       [config.eot] * (MAX_TOKENS + 1))[:MAX_TOKENS + 1])
-        targets.append((ids + [config.eot] *
-                        (MAX_TOKENS + 1))[:MAX_TOKENS + 1])
+        row_in = ([config.sot] + ids +
+                  [config.eot] * (MAX_TOKENS + 1))[:MAX_TOKENS + 1]
+        row_out = (ids + [config.eot] * (MAX_TOKENS + 1))[:MAX_TOKENS + 1]
+        # each text twice: as the host-mel path collates it, and as the
+        # fused µ-law frontend computes it
+        for row in (buffer, fused_mel(wave, device)):
+            mels.append(row)
+            inputs.append(row_in)
+            targets.append(row_out)
     mels = torch.from_numpy(np.stack(mels)).to(device)
     inputs = torch.tensor(inputs, dtype=torch.int64, device=device)
     targets = torch.tensor(targets, dtype=torch.int64, device=device)

@@ -8,6 +8,7 @@ counts a chip run must show.
                                                       # agent_migrate_mesh
     python tools/chip_rehearsal.py operator_scripts   # the operator scripts
     python tools/chip_rehearsal.py llama_wq decoder_chaos   # at 8 layers
+    python tools/chip_rehearsal.py surface            # models.greedy_decode
 
 Every device resolves to the CPU (each port module's resolve_device, a
 TorchFunctionMode rewriting device="cuda" and pinned allocations,
@@ -19,7 +20,11 @@ stand-in and the 8b one a 4-layer 256-wide stand-in at head dim 128: the
 phases' schedules depend on neither widths nor token values while their
 cache budgets are in blocks, so the decode steps, extend dispatches,
 launches, batch cuts, transfers and host-tier installs are the card's;
-times, memory and the host tier's byte budget are not.  Each phase
+times, memory and the host tier's byte budget are not.  The surface
+phase runs Whisper-small as a 128-wide stand-in (two heads of 64, its
+12 + 12 layers and 51,865-token vocabulary kept), with the flash
+kernel's plain version counting a launch per call: its flash launches
+depend on the encoder's depth and the bucket alone.  Each phase
 prints its record (the JSON line chip_smoke.py emits) and raises where
 a check fails."""
 
@@ -44,7 +49,8 @@ import aiko_services_tpu_torch as port  # noqa: E402
 
 CPU = torch.device("cpu")
 MODULES = ("serving", "serving_paged", "compute", "models.llama",
-           "parallel.mesh", "elements.speech", "elements.audio", "bridge")
+           "models.whisper", "parallel.mesh", "elements.speech",
+           "elements.audio", "bridge")
 
 
 class OnTheCpu(TorchFunctionMode):
@@ -112,6 +118,33 @@ def stand_ins():
     return chip_smoke
 
 
+def surface(chip_smoke) -> int:
+    """chip_smoke.phase_surface on a narrow Whisper-small stand-in, the
+    flash wrapper's CPU path counting a launch per call."""
+    from aiko_services_tpu_torch.models.whisper import WHISPER_PRESETS
+    from aiko_services_tpu_torch.ops import attention as A
+
+    small = dataclasses.replace(WHISPER_PRESETS["small"], dim=128,
+                                num_heads=2)
+    WHISPER_PRESETS["small"] = small
+    chip_smoke.WHISPER_SMALL = (small.dim, small.num_heads,
+                                small.enc_layers, small.dec_layers,
+                                small.n_vocab)
+    b, _, s, d = chip_smoke.FLASH_SHAPES["surface"]
+    chip_smoke.FLASH_SHAPES["surface"] = (b, small.num_heads, s, d)
+    plain = A.flash_attention_reference
+
+    def counted(q, k, v, **kwargs):
+        A.launches["flash_attention"] += 1
+        return plain(q, k, v, **kwargs)
+
+    A.flash_attention_reference = counted
+    try:
+        return chip_smoke.phase_surface("(the CPU)")
+    finally:
+        A.flash_attention_reference = plain
+
+
 def main(phases) -> int:
     chip_smoke = stand_ins()
     if not dist.is_initialized():
@@ -140,6 +173,8 @@ def run(chip_smoke, phases) -> int:
             print("llama_wq launches", chip_smoke.phase_llama_wq())
         if "decoder_chaos" in phases:
             print("decoder_chaos launches", chip_smoke.phase_decoder_chaos())
+        if "surface" in phases:
+            print("surface launches", surface(chip_smoke))
         if "disagg" in phases or "modes" in phases:
             counts, tokens = chip_smoke.phase_agent_disagg()
             print("agent_disagg launches", counts)
